@@ -1,0 +1,185 @@
+"""B1: the eval residual blocks' 3x3x3 "same" convolution.
+
+Replaces `fcd_tpu/kernels/block_conv.py::_fused8_call` (reached through
+`blocked_conv_a2o`, `blocked_conv_a2o_multi` and `blocked_conv_o2a`). The
+CUDA kernel is `fcd_tpu_torch/csrc/conv3d.cu`; its header says what bounds
+it on the card and what its design does about that.
+
+`conv3x3(parts, weights, ...)` convolves the sum of one or two input parts
+(the decoder's concat is never materialised), with optional
+
+* `prologue=(scale, shift, slope)`: part 0 is read as
+  `leaky(x * scale[b, c] + shift[b, c])`, rounded to the activation dtype,
+  with the zero padding applied after it (norm1 + act fused into conv2);
+* `shortcut=[wr_0, ...]`: the 1x1 projection `sum_p x_p @ wr_p` as a second
+  output from the same reads;
+* `want_stats=True`: per-(b, cout) f32 sum and sum of squares of both
+  outputs, taken on the f32 results before rounding.
+
+CPU tensors take the plain PyTorch version (`conv3x3_plain`); CUDA tensors
+launch the kernel or raise. The kernel takes bf16 activations only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from fcd_tpu_torch.kernels import _build
+
+REPLACES = "fcd_tpu/kernels/block_conv.py:909"  # _fused8_call (pallas_call :1000)
+
+
+class ConvOut(NamedTuple):
+    y: torch.Tensor
+    ysum: Optional[torch.Tensor] = None
+    ysq: Optional[torch.Tensor] = None
+    r: Optional[torch.Tensor] = None
+    rsum: Optional[torch.Tensor] = None
+    rsq: Optional[torch.Tensor] = None
+
+
+Prologue = Tuple[torch.Tensor, torch.Tensor, float]
+
+
+def _sums(t: torch.Tensor):
+    """Per-(b, c) sum and sum of squares over the spatial axes (f32)."""
+    return t.sum(dim=(1, 2, 3)), t.square().sum(dim=(1, 2, 3))
+
+
+def conv3x3_plain(parts: Sequence[torch.Tensor],
+                  weights: Sequence[torch.Tensor], *,
+                  shortcut: Optional[Sequence[torch.Tensor]] = None,
+                  prologue: Optional[Prologue] = None,
+                  want_stats: bool = False) -> ConvOut:
+    """The kernel's function in plain PyTorch: f32 arithmetic on the
+    activation-dtype inputs and weights, outputs rounded to that dtype."""
+    dtype = parts[0].dtype
+    y = r = None
+    for i, (x, w) in enumerate(zip(parts, weights)):
+        xf = x.float()
+        if i == 0 and prologue is not None:
+            scale, shift, slope = prologue
+            xf = xf * scale.float()[:, None, None, None, :] \
+                + shift.float()[:, None, None, None, :]
+            xf = F.leaky_relu(xf, slope).to(dtype).float()
+        wf = w.to(dtype).float()
+        yi = F.conv3d(xf.permute(0, 4, 1, 2, 3), wf.permute(4, 3, 0, 1, 2),
+                      padding=1).permute(0, 2, 3, 4, 1)
+        y = yi if y is None else y + yi
+        if shortcut is not None:
+            ri = torch.matmul(x.float(), shortcut[i].to(dtype).float())
+            r = ri if r is None else r + ri
+    ysum = ysq = rsum = rsq = None
+    if want_stats:
+        ysum, ysq = _sums(y)
+        if r is not None:
+            rsum, rsq = _sums(r)
+    return ConvOut(y.to(dtype).contiguous(), ysum, ysq,
+                   None if r is None else r.to(dtype).contiguous(), rsum, rsq)
+
+
+_FN = None
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = _build.load("conv3d").fcd_conv3d
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, vp, ci, vp, vp, vp, ci, ci, vp, vp,
+                       ctypes.c_float, vp, vp, vp, vp, vp, vp,
+                       ci, ci, ci, ci, ci, vp]
+        fn.restype = ci
+        _FN = fn
+    return _FN
+
+
+def _check_args(parts, weights, shortcut, prologue):
+    if not 1 <= len(parts) <= 2 or len(weights) != len(parts):
+        raise ValueError("conv3x3 takes one or two parts, one weight each")
+    x0 = parts[0]
+    if x0.dim() != 5:
+        raise ValueError(f"parts must be (B, D, H, W, C), got {tuple(x0.shape)}")
+    cout = weights[0].shape[-1]
+    for x, w in zip(parts, weights):
+        if x.shape[:4] != x0.shape[:4] or x.device != x0.device \
+                or x.dtype != x0.dtype:
+            raise ValueError("parts must share batch, grid, device and dtype")
+        if tuple(w.shape) != (3, 3, 3, x.shape[-1], cout):
+            raise ValueError(f"weight {tuple(w.shape)} does not fit part "
+                             f"{tuple(x.shape)} -> {cout}")
+    if shortcut is not None:
+        if len(shortcut) != len(parts):
+            raise ValueError("one shortcut weight per part")
+        for x, wr in zip(parts, shortcut):
+            if tuple(wr.shape) != (x.shape[-1], cout):
+                raise ValueError(f"shortcut weight {tuple(wr.shape)} does "
+                                 f"not fit part {tuple(x.shape)}")
+    if prologue is not None:
+        if len(parts) != 1 or shortcut is not None:
+            raise ValueError("the prologue applies to a single part without "
+                             "a shortcut")
+        b, c = x0.shape[0], x0.shape[-1]
+        for t in prologue[:2]:
+            if tuple(t.shape) != (b, c):
+                raise ValueError(f"prologue affine must be ({b}, {c})")
+
+
+def conv3x3(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
+            *, shortcut: Optional[Sequence[torch.Tensor]] = None,
+            prologue: Optional[Prologue] = None,
+            want_stats: bool = False) -> ConvOut:
+    """B1 wrapper: the plain version for CPU tensors, the CUDA kernel for
+    CUDA tensors (bf16, contiguous) or an error."""
+    _check_args(parts, weights, shortcut, prologue)
+    x0 = parts[0]
+    if x0.device.type == "cpu":
+        return conv3x3_plain(parts, weights, shortcut=shortcut,
+                             prologue=prologue, want_stats=want_stats)
+    if x0.device.type != "cuda":
+        raise ValueError(f"conv3x3: unsupported device {x0.device}")
+    if x0.dtype != torch.bfloat16:
+        raise TypeError(f"conv3x3 kernel takes bf16 activations, got {x0.dtype}")
+    if not all(x.is_contiguous() for x in parts):
+        raise ValueError("conv3x3 kernel takes contiguous parts")
+    b, d, h, w = x0.shape[:4]
+    cout = weights[0].shape[-1]
+    dev = x0.device
+    wk = [wt.to(device=dev, dtype=torch.bfloat16).contiguous() for wt in weights]
+    wr = (None if shortcut is None else
+          [s.to(device=dev, dtype=torch.bfloat16).contiguous() for s in shortcut])
+    y = torch.empty((b, d, h, w, cout), dtype=torch.bfloat16, device=dev)
+    r = None if wr is None else torch.empty_like(y)
+
+    def stats():
+        return (torch.zeros((b, cout), dtype=torch.float32, device=dev),
+                torch.zeros((b, cout), dtype=torch.float32, device=dev))
+
+    ysum, ysq = stats() if want_stats else (None, None)
+    rsum, rsq = stats() if want_stats and r is not None else (None, None)
+    scale = shift = None
+    slope = 0.0
+    if prologue is not None:
+        scale = prologue[0].to(device=dev, dtype=torch.float32).contiguous()
+        shift = prologue[1].to(device=dev, dtype=torch.float32).contiguous()
+        slope = float(prologue[2])
+    p1 = parts[1] if len(parts) > 1 else None
+    err = _fn()(
+        _build.ptr(x0), _build.ptr(wk[0]),
+        _build.ptr(None if wr is None else wr[0]), x0.shape[-1],
+        _build.ptr(p1), _build.ptr(wk[1] if p1 is not None else None),
+        _build.ptr(wr[1] if (wr is not None and p1 is not None) else None),
+        0 if p1 is None else p1.shape[-1], len(parts),
+        _build.ptr(scale), _build.ptr(shift), slope,
+        _build.ptr(y), _build.ptr(r), _build.ptr(ysum), _build.ptr(ysq),
+        _build.ptr(rsum), _build.ptr(rsq), b, d, h, w, cout, _build.stream())
+    _build.check(err, "conv3d")
+    conv3x3.launches += 1
+    return ConvOut(y, ysum, ysq, r, rsum, rsq)
+
+
+conv3x3.launches = 0

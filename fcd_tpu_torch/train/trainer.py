@@ -1,0 +1,86 @@
+"""ModelTrainer, inference side.
+
+Counterpart of `fcd_tpu/train/trainer.py::ModelTrainer` with what
+`python -m fcd_tpu.cli.infer` needs: model construction, weights (seeded
+initialisation, or a fcd_tpu variables tree through `weights.py`),
+`inference(volume)` and `_activate`. Training comes with the training
+slice.
+
+`inference` always runs the exact static sliding-window engine. The JAX
+trainer's `sw_bucket` policy exists only to bound XLA recompiles across
+volume shapes; eager PyTorch compiles nothing per shape, and the bucketed
+engine's outputs are identical to the exact engine's (fcd_tpu/config.py:
+104-107), so the port has no bucketed engine.
+
+On a CUDA device with `use_amp` the model computes in bf16 (f32
+accumulation and f32 norm statistics in the kernels); on the CPU it
+computes in fp32 through the kernels' plain versions.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+
+from fcd_tpu_torch import resolve_device
+from fcd_tpu_torch.config import get_default_params
+from fcd_tpu_torch.infer.sliding_window import sliding_window_inference
+from fcd_tpu_torch.models.factory import get_model
+from fcd_tpu_torch.weights import load_flax_variables
+
+
+def _triple(x):
+    if isinstance(x, (tuple, list)):
+        return tuple(int(v) for v in x)
+    return (int(x),) * 3
+
+
+class ModelTrainer:
+    def __init__(self, params: Optional[Dict[str, Any]] = None,
+                 device=None):
+        self.device = resolve_device(device)
+        self.params = get_default_params() if params is None else params
+        self.model, self.params = get_model(self.params)
+        gen = torch.Generator().manual_seed(int(self.params.get("seed", 42)))
+        self.model.reset_parameters(gen)
+        self.model.to(self.device).eval()
+        self.compute_dtype = (
+            torch.bfloat16
+            if self.params.get("use_amp", True) and self.device.type == "cuda"
+            else torch.float32)
+        self.model.compute_dtype = self.compute_dtype
+
+    def load_variables(self, variables) -> None:
+        """Take the weights of a fcd_tpu variables tree (numpy leaves)."""
+        load_flax_variables(self.model, variables)
+
+    @torch.no_grad()
+    def predict(self, patches: torch.Tensor) -> torch.Tensor:
+        return self.model(patches)
+
+    @torch.no_grad()
+    def inference(self, volume) -> torch.Tensor:
+        """Sliding-window logits (D, H, W, chans_out) f32 on the trainer's
+        device over a (D, H, W, C) volume (roi = patch_size)."""
+        p = self.params
+        return sliding_window_inference(
+            volume, self.predict,
+            roi_size=_triple(p["patch_size"]),
+            out_channels=p["chans_out"],
+            sw_batch=p.get("sw_batch_size", 2),
+            overlap=p.get("sw_overlap", 0.25),
+            blend=p.get("sw_blend", "constant"),
+            sigma_scale=p.get("sw_sigma_scale", 0.125),
+            compute_dtype=self.compute_dtype,
+            device=self.device,
+        )
+
+    def _activate(self, logits) -> np.ndarray:
+        t = torch.as_tensor(logits).float()
+        if self.params.get("softmax", True) and t.shape[-1] > 1:
+            t = torch.softmax(t, dim=-1)
+        elif self.params.get("sigmoid", False):
+            t = torch.sigmoid(t)
+        return t.cpu().numpy()

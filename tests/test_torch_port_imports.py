@@ -1,0 +1,92 @@
+"""Package rules of the port (CPU).
+
+(e) importing every module of fcd_tpu_torch loads none of jax, flax,
+fcd_tpu or triton, and no file of the port (nor chip_smoke.py) has an
+import statement naming them;
+(f) entry points run on CUDA unless the caller asks for the CPU: without a
+card, ModelTrainer() raises instead of falling back.
+"""
+
+import ast
+import json
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import fcd_tpu_torch
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "flax", "optax", "fcd_tpu", "triton")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        fcd_tpu_torch.__path__, prefix="fcd_tpu_torch."))
+
+
+def test_import_leaves_jax_and_triton_out():
+    mods = ["fcd_tpu_torch"] + _port_modules()
+    assert "fcd_tpu_torch.kernels.block_conv" in mods
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules "
+        f"if m.split('.')[0] in {FORBIDDEN!r})))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, check=True)
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_no_forbidden_import_statements():
+    files = sorted((ROOT / "fcd_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
+           for f in files for mod, line in _imported_roots(f)
+           if mod in ("jax", "flax", "optax", "fcd_tpu")]
+    assert bad == []
+
+
+def test_triton_imported_only_inside_the_launcher():
+    """Top-level `import triton` anywhere in the port would break the
+    CPU-only import; the B2 launcher imports it inside a function."""
+    for f in sorted((ROOT / "fcd_tpu_torch").rglob("*.py")):
+        tree = ast.parse(f.read_text())
+        for node in tree.body:
+            if isinstance(node, (ast.Import, ast.ImportFrom)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else [node.module])
+                assert not any(n.split(".")[0] == "triton" for n in names), f
+
+
+def test_model_trainer_raises_without_cuda(monkeypatch):
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelTrainer()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ModelTrainer(device="cuda")
+
+
+def test_kernel_wrappers_take_plain_version_only_on_cpu():
+    """A tensor on another device is refused, never silently run plain."""
+    from fcd_tpu_torch.kernels.upsample import upsample2x
+
+    x = torch.zeros(1, 2, 2, 2, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        upsample2x(x, torch.zeros(2, 2, 2, 4, 4, device="meta"))
