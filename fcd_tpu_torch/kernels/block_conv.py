@@ -18,6 +18,21 @@ it on the card and what its design does about that.
 
 CPU tensors take the plain PyTorch version (`conv3x3_plain`); CUDA tensors
 launch the kernel or raise. The kernel takes bf16 activations only.
+
+`conv3x3_op` is the same op as a `torch.autograd.Function` (`Conv3x3`),
+the training path's conv. Its backward, as `fcd_tpu/ops/s2d_ops.py:
+381-421, 454-475, 618-673` computes it:
+
+* folds the statistics' cotangents into the output's:
+  `dy = gy + gysum + 2 * y * gysq` (and the same for the shortcut r);
+* dx per part with B1 itself, on spatially flipped, channel-transposed
+  weights (the conv's adjoint), skipped where no gradient is needed;
+* the 1x1 shortcut's gradients with `torch.matmul`;
+* dW per part with K1 (`kernels/conv_wgrad.py`), recomputing the
+  prologue on its loads;
+* with a prologue, its backward in plain PyTorch: the act mask and the
+  affine from the saved input, the affine's cotangent as sums over the
+  grid (they chain to the statistics that produced the affine).
 """
 
 from __future__ import annotations
@@ -29,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from fcd_tpu_torch.kernels import _build
+from fcd_tpu_torch.kernels.conv_wgrad import conv3d_wgrad
 
 REPLACES = "fcd_tpu/kernels/block_conv.py:909"  # _fused8_call (pallas_call :1000)
 
@@ -183,3 +199,124 @@ def conv3x3(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
 
 
 conv3x3.launches = 0
+
+
+def _fold_stats(g, gsum, gsq, y):
+    """Cotangent of y with those of its sums folded in (f32)."""
+    out = torch.zeros_like(y, dtype=torch.float32) if g is None else g.float()
+    if gsum is not None:
+        out = out + gsum.float()[:, None, None, None, :]
+    if gsq is not None:
+        out = out + 2.0 * y.float() * gsq.float()[:, None, None, None, :]
+    return out
+
+
+def _adjoint(w: torch.Tensor) -> torch.Tensor:
+    """The conv's adjoint kernel: spatially flipped, channels swapped."""
+    return torch.flip(w, dims=(0, 1, 2)).transpose(3, 4)
+
+
+class Conv3x3(torch.autograd.Function):
+    """Differentiable `conv3x3`. Inputs after the flags: the parts, their
+    weights, the shortcut weights (if any), the prologue's scale and shift
+    (if any). Outputs: y, then (ysum, ysq) with stats, r with a shortcut,
+    then (rsum, rsq) with both."""
+
+    @staticmethod
+    def forward(ctx, nparts: int, has_short: bool, has_pro: bool,
+                want_stats: bool, slope: float, *tensors):
+        parts = list(tensors[:nparts])
+        weights = list(tensors[nparts:2 * nparts])
+        k = 2 * nparts
+        shortcut = list(tensors[k:k + nparts]) if has_short else None
+        k += nparts if has_short else 0
+        prologue = (tensors[k], tensors[k + 1], slope) if has_pro else None
+        o = conv3x3(parts, weights, shortcut=shortcut, prologue=prologue,
+                    want_stats=want_stats)
+        ctx.set_materialize_grads(False)
+        ctx.flags = (nparts, has_short, has_pro, want_stats, slope)
+        ctx.save_for_backward(*tensors, o.y, o.r)
+        outs = [o.y]
+        if want_stats:
+            outs += [o.ysum, o.ysq]
+        if has_short:
+            outs.append(o.r)
+            if want_stats:
+                outs += [o.rsum, o.rsq]
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        nparts, has_short, has_pro, want_stats, slope = ctx.flags
+        saved = ctx.saved_tensors
+        tensors, y, r = saved[:-2], saved[-2], saved[-1]
+        parts = tensors[:nparts]
+        weights = tensors[nparts:2 * nparts]
+        k = 2 * nparts
+        shortcut = tensors[k:k + nparts] if has_short else None
+        k += nparts if has_short else 0
+        grads = list(grads)
+        gy = grads.pop(0)
+        gysum, gysq = (grads.pop(0), grads.pop(0)) if want_stats else (None, None)
+        gr = grsum = grsq = None
+        if has_short:
+            gr = grads.pop(0)
+            if want_stats:
+                grsum, grsq = grads.pop(0), grads.pop(0)
+        need = ctx.needs_input_grad[5:]   # after the five flags
+        dtype = parts[0].dtype
+        dy = _fold_stats(gy, gysum, gysq, y).to(dtype).contiguous()
+        dr = (_fold_stats(gr, grsum, grsq, r).to(dtype)
+              if has_short else None)
+        out = [None] * len(tensors)
+        for i, (x, w) in enumerate(zip(parts, weights)):
+            pro = (tensors[k], tensors[k + 1], slope) if has_pro and i == 0 \
+                else None
+            need_x = need[i] or (pro is not None and (need[k] or need[k + 1]))
+            if need_x:
+                da = conv3x3([dy], [_adjoint(w)]).y.float()
+                if has_short:
+                    da = da + torch.matmul(dr, shortcut[i].to(dtype).t()).float()
+                if pro is not None:
+                    scale = pro[0].float()[:, None, None, None, :]
+                    shift = pro[1].float()[:, None, None, None, :]
+                    xf = x.float()
+                    dt = da * torch.where(xf * scale + shift >= 0, 1.0, slope)
+                    da = dt * scale
+                    out[k] = (dt * xf).sum(dim=(1, 2, 3)).to(pro[0].dtype)
+                    out[k + 1] = dt.sum(dim=(1, 2, 3)).to(pro[1].dtype)
+                if need[i]:
+                    out[i] = da.to(x.dtype)
+            if need[nparts + i]:
+                dw = conv3d_wgrad(x.contiguous(), dy, pro)
+                out[nparts + i] = dw.reshape(w.shape).to(w.dtype)
+            if has_short and need[2 * nparts + i]:
+                ci, co = x.shape[-1], dr.shape[-1]
+                out[2 * nparts + i] = torch.matmul(
+                    x.reshape(-1, ci).t().float(),
+                    dr.reshape(-1, co).float()).to(shortcut[i].dtype)
+        return (None,) * 5 + tuple(out)
+
+
+def conv3x3_op(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
+               *, shortcut: Optional[Sequence[torch.Tensor]] = None,
+               prologue: Optional[Prologue] = None,
+               want_stats: bool = False) -> ConvOut:
+    """`conv3x3` with gradients (the `Conv3x3` Function)."""
+    _check_args(parts, weights, shortcut, prologue)
+    tensors = list(parts) + list(weights) + list(shortcut or [])
+    slope = 0.0
+    if prologue is not None:
+        tensors += [prologue[0], prologue[1]]
+        slope = float(prologue[2])
+    outs = list(Conv3x3.apply(len(parts), shortcut is not None,
+                              prologue is not None, want_stats, slope,
+                              *tensors))
+    y = outs.pop(0)
+    ysum, ysq = (outs.pop(0), outs.pop(0)) if want_stats else (None, None)
+    r = rsum = rsq = None
+    if shortcut is not None:
+        r = outs.pop(0)
+        if want_stats:
+            rsum, rsq = outs.pop(0), outs.pop(0)
+    return ConvOut(y, ysum, ysq, r, rsum, rsq)

@@ -1,0 +1,225 @@
+"""The differentiable train finale (B8): forward B2, backward K2.
+
+Replaces `fcd_tpu/kernels/finale.py::finale_fwd_pallas` (:70, whose
+function B2's kernel in `kernels/pool.py` computes) and
+`finale_bwd_pallas` (:170, K2 here):
+
+    t      = (ys * s2[b, c] + b2[b, c]) + (rs * sr[b, c] + br[b, c])
+    out    = bf16(leaky(t));  pooled = 2x2x2 max of out (optional)
+
+K2, given gp (cotangent of out) and gq (of pooled, or None):
+
+    g  = gp + (out == max of its 2x2x2 block) * gq / (ties in the block)
+    dt = g * (t >= 0 ? 1 : slope)                        -> bf16
+    a1 = sum dt * ys,  a2 = sum dt,  a3 = sum dt * rs    per (b, c), f32
+
+t is recomputed in B2's association order; the pool mask is taken on the
+bf16-ROUNDED output, and tied maxima share gq equally (ROADMAP C1), as
+`fcd_tpu/kernels/finale.py:148-156` does.
+
+Route: Triton. K2 is an elementwise pass with an 8-way max/count and
+per-channel sums, with no product: masked block loads and block
+reductions are all it needs. What bounds it: the bytes, ~8.25 per
+element (ys, rs, gp read, dt written, gq read once per 8) against ~15
+operations. The design walks each pooled voxel's eight children as one
+[voxels, 8, channels] block, so the max, the tie count and the split are
+taken from registers and every input is read once; each program adds its
+per-channel partial sums to a1..a3 with atomics (their order changes from
+run to run).
+
+CPU tensors take the plain PyTorch version; CUDA tensors launch the
+kernel or raise.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional, Tuple
+
+import torch
+
+from fcd_tpu_torch.kernels import _build
+from fcd_tpu_torch.kernels.pool import finale_pool
+from fcd_tpu_torch.ops.layers import blocks_2x, unblocks_2x
+
+REPLACES = "fcd_tpu/kernels/finale.py:170"  # finale_bwd_pallas (pallas_call :207)
+
+def finale_bwd_plain(ys, rs, s2, b2, sr, br, gp, gq, slope: float
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """K2's function in plain PyTorch: (dt in ys's dtype, a1, a2, a3)."""
+    def aff(a):
+        return a.float()[:, None, None, None, :]
+
+    yf, rf = ys.float(), rs.float()
+    t = (yf * aff(s2) + aff(b2)) + (rf * aff(sr) + aff(br))
+    g = gp.float()
+    if gq is not None:
+        fb = blocks_2x(torch.where(t >= 0, t, slope * t).to(ys.dtype).float())
+        eq = fb == fb.amax(dim=4, keepdim=True)
+        share = gq.float()[:, :, :, :, None, :] / eq.float().sum(
+            dim=4, keepdim=True)
+        g = g + unblocks_2x(torch.where(eq, share, torch.zeros_like(share)))
+    dt = g * torch.where(t >= 0, 1.0, slope)
+    dims = (1, 2, 3)
+    return (dt.to(ys.dtype), (dt * yf).sum(dims), dt.sum(dims),
+            (dt * rf).sum(dims))
+
+
+_KERNEL = None
+
+
+def _kernel():
+    global _KERNEL
+    if _KERNEL is not None:
+        return _KERNEL
+    os.environ.setdefault("TRITON_CACHE_DIR",
+                          str(_build.BUILD_DIR / "triton"))
+    import triton
+    import triton.language as tl
+
+    @triton.jit
+    def finale_bwd_kernel(ys_ptr, rs_ptr, s2_ptr, b2_ptr, sr_ptr, br_ptr,
+                          gp_ptr, gq_ptr, dt_ptr, a1_ptr, a2_ptr, a3_ptr,
+                          D, H, W, C, slope,
+                          POOL: tl.constexpr, BLOCK_V: tl.constexpr,
+                          BLOCK_C: tl.constexpr):
+        pid = tl.program_id(0)
+        b = tl.program_id(1)
+        cs = tl.arange(0, BLOCK_C)
+        cmask = cs < C
+        s2 = tl.load(s2_ptr + b * C + cs, mask=cmask, other=0.0)
+        b2 = tl.load(b2_ptr + b * C + cs, mask=cmask, other=0.0)
+        sr = tl.load(sr_ptr + b * C + cs, mask=cmask, other=0.0)
+        br = tl.load(br_ptr + b * C + cs, mask=cmask, other=0.0)
+        if POOL:
+            hp = H // 2
+            wp = W // 2
+            npool = (D // 2) * hp * wp
+            pv = pid * BLOCK_V + tl.arange(0, BLOCK_V)
+            vmask = pv < npool
+            pz = pv // (hp * wp)
+            py = (pv // wp) % hp
+            px = pv % wp
+            k = tl.arange(0, 8)
+            z = 2 * pz[:, None] + (k // 4)[None, :]
+            y = 2 * py[:, None] + ((k // 2) % 2)[None, :]
+            x = 2 * px[:, None] + (k % 2)[None, :]
+            vox = ((b * D + z).to(tl.int64) * H + y) * W + x      # [V, 8]
+            off = vox[:, :, None] * C + cs[None, None, :]         # [V, 8, C]
+            mask = vmask[:, None, None] & cmask[None, None, :]
+            yv = tl.load(ys_ptr + off, mask=mask, other=0.0).to(tl.float32)
+            rv = tl.load(rs_ptr + off, mask=mask, other=0.0).to(tl.float32)
+            t = (yv * s2[None, None, :] + b2[None, None, :]) + \
+                (rv * sr[None, None, :] + br[None, None, :])
+            f = tl.where(t >= 0, t, slope * t)
+            fb = f.to(dt_ptr.dtype.element_ty).to(tl.float32)
+            m = tl.max(fb, axis=1)
+            eq = fb == m[:, None, :]
+            cnt = tl.sum(eq.to(tl.float32), axis=1)
+            poff = (b.to(tl.int64) * npool + pv)[:, None] * C + cs[None, :]
+            pmask = vmask[:, None] & cmask[None, :]
+            gq = tl.load(gq_ptr + poff, mask=pmask, other=0.0).to(tl.float32)
+            share = gq / tl.maximum(cnt, 1.0)
+            g = tl.load(gp_ptr + off, mask=mask, other=0.0).to(tl.float32)
+            g = g + tl.where(eq, share[:, None, :], 0.0)
+            dt = g * tl.where(t >= 0, 1.0, slope)
+            dt = tl.where(mask, dt, 0.0)
+            tl.store(dt_ptr + off, dt.to(dt_ptr.dtype.element_ty), mask=mask)
+            p1 = tl.sum(tl.sum(dt * yv, axis=1), axis=0)
+            p2 = tl.sum(tl.sum(dt, axis=1), axis=0)
+            p3 = tl.sum(tl.sum(dt * rv, axis=1), axis=0)
+        else:
+            nvox = D * H * W
+            v = pid * BLOCK_V + tl.arange(0, BLOCK_V)
+            vmask = v < nvox
+            mask = vmask[:, None] & cmask[None, :]
+            off = (b.to(tl.int64) * nvox + v)[:, None] * C + cs[None, :]
+            yv = tl.load(ys_ptr + off, mask=mask, other=0.0).to(tl.float32)
+            rv = tl.load(rs_ptr + off, mask=mask, other=0.0).to(tl.float32)
+            t = (yv * s2[None, :] + b2[None, :]) + (rv * sr[None, :] + br[None, :])
+            g = tl.load(gp_ptr + off, mask=mask, other=0.0).to(tl.float32)
+            dt = g * tl.where(t >= 0, 1.0, slope)
+            dt = tl.where(mask, dt, 0.0)
+            tl.store(dt_ptr + off, dt.to(dt_ptr.dtype.element_ty), mask=mask)
+            p1 = tl.sum(dt * yv, axis=0)
+            p2 = tl.sum(dt, axis=0)
+            p3 = tl.sum(dt * rv, axis=0)
+        tl.atomic_add(a1_ptr + b * C + cs, p1, mask=cmask)
+        tl.atomic_add(a2_ptr + b * C + cs, p2, mask=cmask)
+        tl.atomic_add(a3_ptr + b * C + cs, p3, mask=cmask)
+
+    _KERNEL = finale_bwd_kernel
+    return _KERNEL
+
+
+def finale_bwd(ys: torch.Tensor, rs: torch.Tensor, s2: torch.Tensor,
+               b2: torch.Tensor, sr: torch.Tensor, br: torch.Tensor,
+               gp: torch.Tensor, gq: Optional[torch.Tensor], slope: float):
+    """K2 wrapper. ys, rs, gp: (B, D, H, W, C); affines (B, C) f32; gq:
+    (B, D/2, H/2, W/2, C) or None. Returns (dt, a1, a2, a3)."""
+    if ys.dim() != 5 or rs.shape != ys.shape or gp.shape != ys.shape:
+        raise ValueError(f"ys {tuple(ys.shape)}, rs {tuple(rs.shape)} and "
+                         f"gp {tuple(gp.shape)} must be equal 5-D tensors")
+    b, d, h, w, c = ys.shape
+    for t in (s2, b2, sr, br):
+        if tuple(t.shape) != (b, c):
+            raise ValueError(f"finale affines must be ({b}, {c})")
+    if gq is not None and (d % 2 or h % 2 or w % 2 or tuple(gq.shape) != (
+            b, d // 2, h // 2, w // 2, c)):
+        raise ValueError(f"gq {tuple(gq.shape)} does not fit {tuple(ys.shape)}")
+    if ys.device.type == "cpu":
+        return finale_bwd_plain(ys, rs, s2, b2, sr, br, gp, gq, slope)
+    if ys.device.type != "cuda":
+        raise ValueError(f"finale_bwd: unsupported device {ys.device}")
+    ts = (ys, rs, gp) + (() if gq is None else (gq,))
+    if any(t.dtype != torch.bfloat16 for t in ts):
+        raise TypeError("finale_bwd kernel takes bf16 ys, rs, gp and gq")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("finale_bwd kernel takes contiguous tensors")
+    aff = [t.to(device=ys.device, dtype=torch.float32).contiguous()
+           for t in (s2, b2, sr, br)]
+    dt = torch.empty_like(ys)
+    sums = torch.zeros((3, b, c), dtype=torch.float32, device=ys.device)
+    pool = gq is not None
+    block_c = 1 << max(0, (c - 1).bit_length())
+    # ~4096 elements per block: [V, 8, C] with the pool, [V, C] without
+    block_v = max(1, (512 if pool else 4096) // block_c)
+    n = (d // 2) * (h // 2) * (w // 2) if pool else d * h * w
+    grid = ((n + block_v - 1) // block_v, b)
+    _kernel()[grid](ys, rs, *aff, gp, gq if pool else gp, dt,
+                    sums[0], sums[1], sums[2], d, h, w, c, float(slope),
+                    POOL=pool, BLOCK_V=block_v, BLOCK_C=block_c, num_warps=4)
+    finale_bwd.launches += 1
+    return dt, sums[0], sums[1], sums[2]
+
+
+finale_bwd.launches = 0
+
+
+class Finale(torch.autograd.Function):
+    """out (, pooled) = the block finale; forward B2, backward K2."""
+
+    @staticmethod
+    def forward(ctx, ys, rs, s2, b2, sr, br, slope: float, pool: bool):
+        ys, rs = ys.contiguous(), rs.contiguous()
+        ctx.save_for_backward(ys, rs, s2, b2, sr, br)
+        ctx.slope, ctx.pool = slope, pool
+        return finale_pool(ys, rs, s2, b2, sr, br, slope, pool=pool)
+
+    @staticmethod
+    def backward(ctx, gp, gq=None):
+        ys, rs, s2, b2, sr, br = ctx.saved_tensors
+        gp = gp.to(ys.dtype).contiguous()
+        gq = None if gq is None else gq.to(ys.dtype).contiguous()
+        dt, a1, a2, a3 = finale_bwd(ys, rs, s2, b2, sr, br, gp, gq, ctx.slope)
+        dtf = dt.float()
+        d_ys = (dtf * s2.float()[:, None, None, None, :]).to(ys.dtype)
+        d_rs = (dtf * sr.float()[:, None, None, None, :]).to(rs.dtype)
+        return (d_ys, d_rs, a1.to(s2.dtype), a2.to(b2.dtype),
+                a3.to(sr.dtype), a2.to(br.dtype), None, None)
+
+
+def finale(ys, rs, s2, b2, sr, br, slope: float, pool: bool = False):
+    """Differentiable finale: out, or (out, pooled) with pool=True."""
+    return Finale.apply(ys, rs, s2, b2, sr, br, slope, pool)

@@ -15,6 +15,12 @@ out[2z+1] = x[z] * kernel[0]; output parity a reads tap 1-a on each axis.
 
 CPU tensors take the plain PyTorch version; CUDA tensors launch the
 kernel or raise.
+
+`upsample2x_op` is the op with gradients (`Upsample2x`): forward B4, and
+the backward as the two products of `fcd_tpu/ops/s2d_ops.py:932-964`,
+which the JAX package leaves to XLA and the port to `torch.matmul`: the
+fine cotangent regrouped per coarse voxel, g8 (M, 8*Co), gives
+dx = g8 @ wm^T and dwm = x^T @ g8 (f32), with wm = `upsample_matrix`.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from fcd_tpu_torch.kernels import _build
+from fcd_tpu_torch.ops.layers import blocks_2x
 
 REPLACES = "fcd_tpu/kernels/upsample.py:167"  # upsample_s2d_pad (pallas_call :216)
 
@@ -103,3 +110,34 @@ def upsample2x(x: torch.Tensor, kernel: torch.Tensor,
 
 
 upsample2x.launches = 0
+
+
+class Upsample2x(torch.autograd.Function):
+    """Differentiable `upsample2x`: forward B4, backward two matmuls."""
+
+    @staticmethod
+    def forward(ctx, x, kernel, bias):
+        x = x.contiguous()
+        ctx.save_for_backward(x, kernel)
+        ctx.has_bias = bias is not None
+        return upsample2x(x, kernel, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, kernel = ctx.saved_tensors
+        ci, co = kernel.shape[3], kernel.shape[4]
+        # g8[m, q * co + o]: the cotangent of output parity q of voxel m
+        g8 = blocks_2x(g.to(x.dtype)).reshape(-1, 8 * co)
+        wm = upsample_matrix(kernel)
+        dx = torch.matmul(g8, wm.to(x.dtype).t()).reshape(x.shape)
+        dwm = torch.matmul(x.reshape(-1, ci).t().float(), g8.float())
+        dk = torch.flip(dwm.reshape(ci, 8, co).permute(1, 0, 2).reshape(
+            2, 2, 2, ci, co), dims=(0, 1, 2))
+        db = (g.float().sum(dim=(0, 1, 2, 3)) if ctx.has_bias else None)
+        return dx, dk.to(kernel.dtype), db
+
+
+def upsample2x_op(x: torch.Tensor, kernel: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`upsample2x` with gradients (the `Upsample2x` Function)."""
+    return Upsample2x.apply(x, kernel, bias)

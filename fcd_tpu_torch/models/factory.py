@@ -1,9 +1,10 @@
-"""Model factory: params['model_type'] -> constructed eval model.
+"""Model factory: params['model_type'] -> constructed model.
 
-Counterpart of `fcd_tpu/models/factory.py::get_model` for the model this
-slice ports, MS_DSA_NET with the JAX factory's settings (res blocks,
+Counterpart of `fcd_tpu/models/factory.py::get_model` for the model the
+port has, MS_DSA_NET with the JAX factory's settings (res blocks,
 instance norm, leaky-ReLU 0.01, no conv bias, pos-embed, 3 transformer
-layers per level). The rest of the zoo is queued in ROADMAP.md.
+layers per level, attention dropout 0.1). The rest of the zoo is queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ def _build_ms_dsa_net(params: Dict[str, Any]) -> MS_DSA_NET:
         feature_size=params["feature_size"],
         project_size=params["project_size"],
         sa_type=params["sa_type"],
+        dropout_rate=0.1,
     )
 
 

@@ -1,4 +1,4 @@
-"""MS_DSA_NET at eval: the 6-level res-block U-Net (instance norm,
+"""MS_DSA_NET: the 6-level res-block U-Net (instance norm,
 leaky-ReLU 0.01, no conv bias) with pos-embedded DSA transformer stacks at
 levels 3-6 and transposed-conv decoders.
 
@@ -7,7 +7,10 @@ ms_dsa_net.py:104-407) on dense channels-last tensors. The TPU package's
 s2d residency, padded-depth chain and lane logic are TPU layout and have no
 counterpart here. Encoders 1-5 emit their 2x max pool from the block
 finale (B2); the decoders' concat is never materialised (B1 sums its two
-parts).
+parts). `model.train()` runs the training forward: batch statistics in
+the transformers' conv blocks, dropout (`dropout_rate` in the attention,
+0.1 on the conv branch's channels) drawn from `model.dropout_rng`, which
+the trainer seeds each step.
 """
 
 from __future__ import annotations
@@ -19,7 +22,12 @@ import torch.nn as nn
 
 from fcd_tpu_torch.ops.attention import TransformerBlock
 from fcd_tpu_torch.ops.blocks import UnetrBasicBlock, UnetrUpBlock
-from fcd_tpu_torch.ops.layers import conv1x1, group_norm, kaiming_normal_fan_out_
+from fcd_tpu_torch.ops.layers import (
+    DropoutRng,
+    conv1x1,
+    group_norm,
+    kaiming_normal_fan_out_,
+)
 
 
 def _triple(x) -> Tuple[int, int, int]:
@@ -51,18 +59,20 @@ class PatchEmbed(nn.Module):
 
 
 class MS_DSA_NET(nn.Module):
-    """Eval MS_DSA_NET. forward: (B, D, H, W, in_channels) patches whose grid
-    is img_size -> (B, D, H, W, out_channels) logits in compute_dtype."""
+    """MS_DSA_NET. forward: (B, D, H, W, in_channels) patches whose grid is
+    img_size -> (B, D, H, W, out_channels) logits in compute_dtype."""
 
     def __init__(self, out_channels: int, img_size: Sequence[int],
                  in_channels: int = 2, feature_size: int = 16,
                  project_size: int = 64, num_heads: int = 4,
-                 sa_type: str = "parallel", num_layers: int = 3):
+                 sa_type: str = "parallel", num_layers: int = 3,
+                 dropout_rate: float = 0.0):
         super().__init__()
         fs = feature_size
         self.img_size = _triple(img_size)
         self.in_channels = in_channels
         self.compute_dtype = torch.float32
+        self.dropout_rng = DropoutRng()
         chans = [in_channels, fs, fs * 2, fs * 4, fs * 8, fs * 16, fs * 32]
         self.encoders = nn.ModuleList(
             UnetrBasicBlock(chans[i], chans[i + 1]) for i in range(6))
@@ -77,8 +87,10 @@ class MS_DSA_NET(nn.Module):
                 n *= s // div
             self.embeds.append(PatchEmbed(chans[li + 3], emb, groups))
             self.transformers.append(nn.ModuleList(
-                TransformerBlock(n, emb, proj, num_heads, sa_type)
-                for _ in range(num_layers)))
+                TransformerBlock(n, emb, proj, num_heads, sa_type,
+                                 dropout_rate, self.dropout_rng,
+                                 salt=li * num_layers + k)
+                for k in range(num_layers)))
         self.decoders = nn.ModuleList([
             UnetrUpBlock(fs * 16, fs * 8), UnetrUpBlock(fs * 8, fs * 4),
             UnetrUpBlock(fs * 4, fs * 2), UnetrUpBlock(fs * 2, fs * 2),

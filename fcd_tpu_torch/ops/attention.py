@@ -1,15 +1,20 @@
-"""Eval dual self-attention: DSA, TransformerBlock, ChannelDropout3d.
+"""Dual self-attention: DSA, TransformerBlock, ChannelDropout3d.
 
-Counterpart of `fcd_tpu/ops/attention.py` at eval. The transformer block
-is `fcd_tpu/ops/attention.py::TransformerBlock` (conv_blocks.py:18-90 of
-the reference):
+Counterpart of `fcd_tpu/ops/attention.py`. The transformer block is
+`fcd_tpu/ops/attention.py::TransformerBlock` (conv_blocks.py:18-90 of the
+reference):
 
     t = tokens + pos_embed
-    y = t + gamma * DSA(LayerNorm(t))        (B5, residual in its epilogue)
+    y = t + gamma * DSA(LayerNorm(t))
     out = y + conv1x1(drop3d(UnetResBlock_batchnorm(y)))
 
 The residual adds to the pos-embedded tokens (attention.py:120,132,
-399-401). ChannelDropout3d is the identity at eval.
+399-401). At eval the DSA is B5 (residual in its epilogue) and
+ChannelDropout3d is the identity. In train mode the DSA is `dsa_train`,
+the JAX package's train formulation `_dsa_tokens_resident`
+(attention.py:222-303) in plain PyTorch around the spatial-attention
+kernels K3/K4, with channel and spatial attention dropout, and
+ChannelDropout3d(0.1) drops whole channels.
 """
 
 from __future__ import annotations
@@ -19,13 +24,61 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from fcd_tpu_torch.kernels.dsa_attention import dsa_attention
+from fcd_tpu_torch.kernels.dsa_attention import _L2_EPS, dsa_attention
+from fcd_tpu_torch.kernels.spatial_attn import dropout_key, spatial_attn
 from fcd_tpu_torch.ops.blocks import UnetResBlock
 from fcd_tpu_torch.ops.layers import (
+    DropoutRng,
     conv1x1,
+    dropout,
     kaiming_normal_fan_out_,
+    layer_norm,
     xavier_uniform_,
 )
+
+
+def _norm_tokens(t: torch.Tensor) -> torch.Tensor:
+    """l2-normalise each (b, channel) over the tokens (f32 sums)."""
+    tf = t.float()
+    return (tf * torch.rsqrt(tf.square().sum(dim=1, keepdim=True)
+                             + _L2_EPS)).to(t.dtype)
+
+
+def dsa_train(x, w_qkvv, ef, temperature, temperature2, ln_scale, ln_bias,
+              pos_embed, gamma, num_heads: int, rate: float,
+              rng: DropoutRng, salt: int, eps: float = 1e-5) -> torch.Tensor:
+    """The train DSA block (sa_type 'parallel'): tokens x (B, N, C) ->
+    t + gamma * (channel_attn + spatial_attn)(LN(t)), t = x + pos_embed,
+    in x's dtype, as `fcd_tpu/ops/attention.py:116-132, 222-303` computes
+    it. Channel attention drops out on its (B, h, c, c) matrix; the
+    spatial tail runs K3/K4 with the hash seeded by (rng.seed, salt)."""
+    dtype = x.dtype
+    b, n, c = x.shape
+    h, ch = num_heads, c // num_heads
+    base = x if pos_embed is None else x + pos_embed.to(dtype)
+    xln = layer_norm(base, ln_scale, ln_bias, eps).to(dtype)
+    qkvv = torch.matmul(xln, w_qkvv.to(dtype))
+    q, k, v_ca, v_sa = qkvv.split(c, dim=-1)
+    qn, kn = _norm_tokens(q), _norm_tokens(k)
+    # channel attention: the per-head diagonal blocks of the (C, C) Gram
+    gram = torch.einsum("bnc,bnd->bcd", qn, kn).reshape(b, h, ch, h, ch)
+    blocks = torch.stack([gram[:, j, :, j, :] for j in range(h)], dim=1)
+    attn = torch.softmax((blocks * temperature.to(dtype)).float(), dim=-1)
+    attn = dropout(attn, rate, rng).to(dtype)
+    out_ca = torch.einsum("bnhj,bhij->bnhi", v_ca.reshape(b, n, h, ch),
+                          attn).reshape(b, n, c)
+    # spatial attention: keys and values projected N -> P, block-expanded
+    efd = ef.to(dtype)
+    kp = torch.einsum("bnc,np->bcp", k, efd).reshape(b, h, ch, -1)
+    vp = torch.einsum("bnc,np->bcp", v_sa, efd).reshape(b, h, ch, -1)
+    p = kp.shape[-1]
+    eye = torch.eye(h, dtype=dtype, device=x.device)
+    t2 = temperature2.reshape(h).to(dtype)
+    kpb = torch.einsum("bhcp,hg->bhcgp", kp, eye * t2[:, None]).reshape(
+        b, c, h * p)
+    vpb = torch.einsum("bhcp,hg->bgphc", vp, eye).reshape(b, h * p, c)
+    out_sa = spatial_attn(qn, kpb, vpb, h, dropout_key(rng.seed, salt), rate)
+    return base + gamma.to(dtype) * (out_ca + out_sa).to(dtype)
 
 
 class DSA(nn.Module):
@@ -34,7 +87,9 @@ class DSA(nn.Module):
     EF (N, P)."""
 
     def __init__(self, input_size: int, hidden_size: int, proj_size: int,
-                 num_heads: int = 4, sa_type: str = "parallel"):
+                 num_heads: int = 4, sa_type: str = "parallel",
+                 dropout_rate: float = 0.0, rng: Optional[DropoutRng] = None,
+                 salt: int = 0):
         super().__init__()
         if sa_type != "parallel":
             raise NotImplementedError(
@@ -44,6 +99,9 @@ class DSA(nn.Module):
             raise ValueError(f"{num_heads} heads do not divide {hidden_size}")
         self.num_heads = num_heads
         self.proj_size = proj_size
+        self.dropout_rate = dropout_rate
+        self.rng = DropoutRng() if rng is None else rng
+        self.salt = salt
         c = hidden_size
         self.qkvv = nn.Parameter(torch.empty(c, 4 * c))
         self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
@@ -63,32 +121,53 @@ class DSA(nn.Module):
                 gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
         """tokens (B, N, C), raw: returns t + gamma * DSA(LN(t)) with
         t = tokens + pos_embed (N, C)."""
+        if self.training:
+            return dsa_train(tokens, self.qkvv, self.EF, self.temperature,
+                             self.temperature2, ln_scale, ln_bias, pos_embed,
+                             gamma, self.num_heads, self.dropout_rate,
+                             self.rng, self.salt, eps)
         return dsa_attention(tokens, self.qkvv, self.EF, self.temperature,
                              self.temperature2, ln_scale, ln_bias, pos_embed,
                              gamma, self.num_heads, eps)
 
 
 class ChannelDropout3d(nn.Module):
-    """torch Dropout3d parity; the identity at eval (the only mode ported)."""
+    """torch Dropout3d parity: in train mode each (sample, channel) of a
+    (B, D, H, W, C) tensor is zeroed with probability `rate` and the rest
+    scaled by 1 / (1 - rate); the identity at eval."""
+
+    def __init__(self, rate: float, rng: Optional[DropoutRng] = None):
+        super().__init__()
+        self.rate = rate
+        self.rng = DropoutRng() if rng is None else rng
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x
+        if not self.training:
+            return x
+        return dropout(x, self.rate, self.rng,
+                       (x.shape[0], 1, 1, 1, x.shape[-1]))
 
 
 class TransformerBlock(nn.Module):
-    """DSA transformer block on (B, D, H, W, C) features, eval."""
+    """DSA transformer block on (B, D, H, W, C) features. `rng` is the
+    model's shared dropout state and `salt` this layer's index, which
+    salts the spatial-attention dropout hash."""
 
     def __init__(self, input_size: int, hidden_size: int, proj_size: int,
-                 num_heads: int = 4, sa_type: str = "parallel"):
+                 num_heads: int = 4, sa_type: str = "parallel",
+                 dropout_rate: float = 0.0, rng: Optional[DropoutRng] = None,
+                 salt: int = 0):
         super().__init__()
+        rng = DropoutRng() if rng is None else rng
         c = hidden_size
         self.pos_embed = nn.Parameter(torch.zeros(1, input_size, c))
         self.gamma = nn.Parameter(torch.full((c,), 1e-6))
         self.ln_scale = nn.Parameter(torch.ones(c))
         self.ln_bias = nn.Parameter(torch.zeros(c))
-        self.dsa = DSA(input_size, c, proj_size, num_heads, sa_type)
+        self.dsa = DSA(input_size, c, proj_size, num_heads, sa_type,
+                       dropout_rate, rng, salt)
         self.conv_block = UnetResBlock(c, c, norm_name="batch")
-        self.dropout = ChannelDropout3d()
+        self.dropout = ChannelDropout3d(0.1, rng)
         self.conv8 = nn.Parameter(torch.empty(c, c))
         self.conv8_bias = nn.Parameter(torch.zeros(c))
 

@@ -1,8 +1,10 @@
-"""Eval U-Net blocks: UnetResBlock, UnetrBasicBlock, UnetrUpBlock.
+"""U-Net blocks: UnetResBlock, UnetrBasicBlock, UnetrUpBlock.
 
-Counterpart of `fcd_tpu/ops/blocks.py` at eval, composed as
+Counterpart of `fcd_tpu/ops/blocks.py`, composed as
 `fcd_tpu/ops/s2d_ops.py::_fused_resblock_eval8` (:1005-1182) composes the
-TPU kernels, on dense channels-last tensors:
+TPU kernels at eval, on dense channels-last tensors, and differentiable
+in train mode (`conv3x3_op`, `finale`, `upsample2x_op`: forward B1, B2,
+B4, backward B1 + K1, K2, matmuls):
 
 1. conv1 through B1 over the block's input parts (one part, or the
    decoder's upsample and skip, never concatenated), with the 1x1
@@ -13,8 +15,10 @@ TPU kernels, on dense channels-last tensors:
 3. the finale through B2: norm2 + the (normalised) shortcut + activation,
    which also writes the 2x max pool when the caller's next op is the pool.
 
-Instance norm takes its affine from the kernel sums (var = E[x^2] -
-mean^2, clamped at 0); batch norm from its running statistics.
+Instance norm takes its per-(b, c) affine from the kernel sums (var =
+E[x^2] - mean^2, clamped at 0). Batch norm takes its running statistics
+at eval; in train mode the batch statistics from the same sums summed over
+b, and it updates its running statistics (`ops/layers.py::BatchNorm`).
 """
 
 from __future__ import annotations
@@ -24,11 +28,11 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from fcd_tpu_torch.kernels.block_conv import conv3x3
-from fcd_tpu_torch.kernels.pool import finale_pool
-from fcd_tpu_torch.kernels.upsample import upsample2x
+from fcd_tpu_torch.kernels.block_conv import conv3x3_op
+from fcd_tpu_torch.kernels.finale import finale
+from fcd_tpu_torch.kernels.upsample import upsample2x_op
 from fcd_tpu_torch.ops.layers import (
-    BatchNormEval,
+    BatchNorm,
     instance_affine_from_sums,
     kaiming_normal_fan_out_,
 )
@@ -37,7 +41,7 @@ NEGATIVE_SLOPE = 0.01  # leaky-ReLU of every MS_DSA_NET block
 
 
 class UnetResBlock(nn.Module):
-    """conv-norm-act -> conv-norm (+ projected shortcut) -> act, at eval.
+    """conv-norm-act -> conv-norm (+ projected shortcut) -> act.
 
     Parameters keep the flax layouts: conv1 (3, 3, 3, Cin, Cout), conv2
     (3, 3, 3, Cout, Cout), conv3 (Cin, Cout) (the 1x1 shortcut, present
@@ -58,9 +62,9 @@ class UnetResBlock(nn.Module):
         self.conv3 = (nn.Parameter(torch.empty(in_channels, co))
                       if in_channels != co else None)
         batch = norm_name == "batch"
-        self.norm1 = BatchNormEval(co) if batch else None
-        self.norm2 = BatchNormEval(co) if batch else None
-        self.norm3 = (BatchNormEval(co) if batch and self.conv3 is not None
+        self.norm1 = BatchNorm(co) if batch else None
+        self.norm2 = BatchNorm(co) if batch else None
+        self.norm3 = (BatchNorm(co) if batch and self.conv3 is not None
                       else None)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
@@ -74,6 +78,8 @@ class UnetResBlock(nn.Module):
     def _affine(self, norm, s1, s2, b: int, n: int):
         if norm is None:
             return instance_affine_from_sums(s1, s2, n)
+        if self.training:
+            return norm.affine_from_sums(s1, s2, n)
         w, sh = norm.affine()
         return w.expand(b, -1), sh.expand(b, -1)
 
@@ -92,10 +98,10 @@ class UnetResBlock(nn.Module):
         w1 = list(torch.split(self.conv1, widths, dim=3))
         wr = (None if self.conv3 is None
               else list(torch.split(self.conv3, widths, dim=0)))
-        stats = self.norm_name == "instance"
-        o1 = conv3x3(parts, w1, shortcut=wr, want_stats=stats)
+        stats = self.norm_name == "instance" or self.training
+        o1 = conv3x3_op(parts, w1, shortcut=wr, want_stats=stats)
         scale1, shift1 = self._affine(self.norm1, o1.ysum, o1.ysq, b, n)
-        o2 = conv3x3([o1.y], [self.conv2],
+        o2 = conv3x3_op([o1.y], [self.conv2],
                      prologue=(scale1, shift1, NEGATIVE_SLOPE),
                      want_stats=stats)
         scale2, shift2 = self._affine(self.norm2, o2.ysum, o2.ysq, b, n)
@@ -106,8 +112,8 @@ class UnetResBlock(nn.Module):
             r = parts[0]
             scale_r = torch.ones_like(scale2)
             shift_r = torch.zeros_like(shift2)
-        return finale_pool(o2.y, r, scale2, shift2, scale_r, shift_r,
-                           NEGATIVE_SLOPE, pool=pool)
+        return finale(o2.y, r, scale2, shift2, scale_r, shift_r,
+                      NEGATIVE_SLOPE, pool=pool)
 
 
 class UnetrBasicBlock(UnetResBlock):
@@ -130,4 +136,4 @@ class UnetrUpBlock(nn.Module):
         self.block.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        return self.block([upsample2x(x, self.transp), skip])
+        return self.block([upsample2x_op(x, self.transp), skip])

@@ -1,9 +1,10 @@
-"""Plain PyTorch layers of the eval path, channels-last (B, D, H, W, C).
+"""Plain PyTorch layers, channels-last (B, D, H, W, C).
 
 Counterparts of `fcd_tpu/ops/layers.py`: the 1x1 convolution (with and
-without bias), GroupNorm, LayerNorm, the eval BatchNorm affine, the
-instance-norm affine from kernel sums and the 2x max pool, plus the flax
-initialisers the port's seeded weights follow. Leaky-ReLU is
+without bias), GroupNorm, LayerNorm, BatchNorm (train and eval), the
+instance-norm affine from kernel sums, the 2x max pool and inverted
+dropout with an explicit generator, plus the flax initialisers the port's
+seeded weights follow. Leaky-ReLU is
 `torch.nn.functional.leaky_relu`. The 3x3x3 conv, the transposed conv, the
 finale and the attention live in `fcd_tpu_torch/kernels/`.
 """
@@ -18,8 +19,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = [
-    "BatchNormEval", "conv1x1", "group_norm", "instance_affine_from_sums",
-    "kaiming_normal_fan_out_", "layer_norm", "max_pool_2x", "xavier_uniform_",
+    "BatchNorm", "DropoutRng", "blocks_2x", "conv1x1", "dropout",
+    "group_norm", "instance_affine_from_sums", "kaiming_normal_fan_out_",
+    "layer_norm", "max_pool_2x", "unblocks_2x", "xavier_uniform_",
 ]
 
 
@@ -74,22 +76,47 @@ def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
         0, 2, 3, 4, 1).contiguous()
 
 
-class BatchNormEval(nn.Module):
-    """Eval BatchNorm (running statistics), flax param/batch_stats names:
-    scale, bias; mean, var."""
+class BatchNorm(nn.Module):
+    """BatchNorm with `fcd_tpu/ops/layers.py:103-157`'s semantics and flax
+    param/batch_stats names: scale, bias; mean, var. The blocks fuse it
+    into their convs as an affine (`affine` at eval, `affine_from_sums` in
+    train mode).
 
-    def __init__(self, channels: int, eps: float = 1e-5):
+    In train mode the statistics are the batch's, over (B, D, H, W), with
+    var = E[x^2] - mean^2 clamped at 0, and the running statistics move by
+    flax momentum 0.9 towards the batch mean and this BIASED variance
+    (torch.nn.BatchNorm3d would use the unbiased one, so it is not used)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
-        self.eps = eps
+        self.eps, self.momentum = eps, momentum
         self.scale = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
 
     def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(w, b) with norm(x) = x * w + b, f32 (C,)."""
+        """(w, b) with norm(x) = x * w + b from the running statistics,
+        f32 (C,)."""
         w = self.scale.float() * torch.rsqrt(self.var.float() + self.eps)
         return w, self.bias.float() - self.mean.float() * w
+
+    def affine_from_sums(self, s1: torch.Tensor, s2: torch.Tensor,
+                         n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Train mode: (w, b), each (B, C) f32, from the batch statistics
+        of per-(b, c) sums of x and x^2 over n voxels each (a conv
+        kernel's statistics); updates the running statistics."""
+        b = s1.shape[0]
+        mean = s1.float().sum(0) / (b * n)
+        var = (s2.float().sum(0) / (b * n) - mean.square()).clamp_min(0)
+        with torch.no_grad():
+            m = self.momentum
+            self.mean.mul_(m).add_((1.0 - m) * mean)
+            self.var.mul_(m).add_((1.0 - m) * var)
+        w = self.scale.float() * torch.rsqrt(var + self.eps)
+        sh = self.bias.float() - mean * w
+        return w.expand(b, -1), sh.expand(b, -1)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         with torch.no_grad():
@@ -97,6 +124,49 @@ class BatchNormEval(nn.Module):
             self.bias.zero_()
             self.mean.zero_()
             self.var.fill_(1.0)
+
+
+class DropoutRng:
+    """Where a model's dropout draws from in train mode: `generator` (a
+    torch.Generator on the activations' device, or None for PyTorch's
+    default) for the masks drawn in PyTorch, and `seed`, the step's seed
+    of the spatial-attention kernels' counter hash. The trainer sets both
+    before each step; the modules that drop out share one instance."""
+
+    def __init__(self, generator: Optional[torch.Generator] = None,
+                 seed: int = 0):
+        self.generator = generator
+        self.seed = seed
+
+    def keep(self, shape, rate: float, device) -> torch.Tensor:
+        """Bernoulli(1 - rate) keep mask (bool) of `shape`."""
+        return torch.rand(shape, generator=self.generator,
+                          device=device) >= rate
+
+
+def dropout(x: torch.Tensor, rate: float, rng: DropoutRng,
+            shape=None) -> torch.Tensor:
+    """Inverted dropout of x with a keep mask of `shape` (broadcast to x;
+    x's shape by default): where(keep, x / (1 - rate), 0)."""
+    if rate <= 0.0:
+        return x
+    keep = rng.keep(x.shape if shape is None else shape, rate, x.device)
+    return torch.where(keep, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def blocks_2x(t: torch.Tensor) -> torch.Tensor:
+    """(B, D, H, W, C) -> (B, D/2, H/2, W/2, 8, C): each 2x2x2 block's
+    children in (z, y, x) parity order, child k = 4 pz + 2 py + px."""
+    b, d, h, w, c = t.shape
+    return t.reshape(b, d // 2, 2, h // 2, 2, w // 2, 2, c).permute(
+        0, 1, 3, 5, 2, 4, 6, 7).reshape(b, d // 2, h // 2, w // 2, 8, c)
+
+
+def unblocks_2x(t: torch.Tensor) -> torch.Tensor:
+    """The inverse of `blocks_2x`."""
+    b, dp, hp, wp, _, c = t.shape
+    return t.reshape(b, dp, hp, wp, 2, 2, 2, c).permute(
+        0, 1, 4, 2, 5, 3, 6, 7).reshape(b, 2 * dp, 2 * hp, 2 * wp, c)
 
 
 # -- flax initialisers (fcd_tpu/ops/layers.py:35-55) --------------------------

@@ -1,10 +1,18 @@
-"""ModelTrainer, inference side.
+"""ModelTrainer: inference and the train step.
 
 Counterpart of `fcd_tpu/train/trainer.py::ModelTrainer` with what
-`python -m fcd_tpu.cli.infer` needs: model construction, weights (seeded
-initialisation, or a fcd_tpu variables tree through `weights.py`),
-`inference(volume)` and `_activate`. Training comes with the training
-slice.
+`python -m fcd_tpu.cli.infer` needs (model construction, weights from a
+seeded initialisation or a fcd_tpu variables tree through `weights.py`,
+`inference(volume)`, `_activate`) and the training step
+(`train_step(images, labels, lr)`, the body of the JAX trainer's epoch
+loop, trainer.py:578-635). The epoch loop, augmentation, the data
+loaders, checkpoints and validation are queued in ROADMAP.md.
+
+`train_step` returns the loss as a device tensor and never waits for the
+card, as the JAX trainer fetches each step's loss one step late. Its
+dropout draws from generators seeded by params['seed']: a CPU generator
+gives each step the seed of the spatial-attention dropout hash, and a
+generator on the trainer's device draws the masks made in PyTorch.
 
 `inference` always runs the exact static sliding-window engine. The JAX
 trainer's `sw_bucket` policy exists only to bound XLA recompiles across
@@ -27,7 +35,9 @@ import torch
 from fcd_tpu_torch import resolve_device
 from fcd_tpu_torch.config import get_default_params
 from fcd_tpu_torch.infer.sliding_window import sliding_window_inference
+from fcd_tpu_torch.losses.combined import make_combined_loss
 from fcd_tpu_torch.models.factory import get_model
+from fcd_tpu_torch.train.state import make_optimizer, make_train_step
 from fcd_tpu_torch.weights import load_flax_variables
 
 
@@ -51,6 +61,28 @@ class ModelTrainer:
             if self.params.get("use_amp", True) and self.device.type == "cuda"
             else torch.float32)
         self.model.compute_dtype = self.compute_dtype
+        self._step = None
+
+    def _train_setup(self) -> None:
+        seed = int(self.params.get("seed", 42))
+        self.optimizer = make_optimizer(self.params, self.model)
+        self.loss_fn = make_combined_loss(self.params)
+        self._seed_gen = torch.Generator().manual_seed(seed)
+        self.model.dropout_rng.generator = torch.Generator(
+            device=self.device).manual_seed(seed + 1)
+        self._step = make_train_step(self.model, self.loss_fn, self.optimizer)
+
+    def train_step(self, images, labels, lr: float) -> torch.Tensor:
+        """One optimizer step on a (B, D, H, W, chans_in) batch with
+        (B, D, H, W, 1) labels at learning rate `lr`. Returns the loss, a
+        0-d f32 tensor on the trainer's device."""
+        if self._step is None:
+            self._train_setup()
+        x = torch.as_tensor(images, dtype=torch.float32).to(self.device)
+        y = torch.as_tensor(labels, dtype=torch.float32).to(self.device)
+        seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
+                                 generator=self._seed_gen))
+        return self._step(x, y, lr, seed)
 
     def load_variables(self, variables) -> None:
         """Take the weights of a fcd_tpu variables tree (numpy leaves)."""
@@ -58,6 +90,7 @@ class ModelTrainer:
 
     @torch.no_grad()
     def predict(self, patches: torch.Tensor) -> torch.Tensor:
+        self.model.eval()
         return self.model(patches)
 
     @torch.no_grad()

@@ -1,4 +1,4 @@
-"""Load the JAX package's flax variables into the port's modules.
+"""The port's modules and the JAX package's flax variables, both ways.
 
 `variables` is the `{"params": ..., "batch_stats": ...}` tree of
 `fcd_tpu` as nested dicts of numpy arrays (or anything `np.asarray`
@@ -14,93 +14,168 @@ Flax module names follow `fcd_tpu/models/ms_dsa_net.py`'s creation order:
 UnetrBasicBlock_0..5 (encoders), Conv3d_0..3 + GroupNorm_0..3 (the patch
 embeds), TransformerBlock_{level * num_layers + k}, UnetrUpBlock_0..4
 (decoders 5..1) and Conv3d_4 (the head).
+
+`load_flax_variables` copies such a tree into a model;
+`export_flax_variables` is its inverse and `export_flax_grads` maps each
+parameter's `.grad` into the same tree, so tests compare the port's
+gradients, updated parameters and running statistics with JAX's leaf by
+leaf. All three walk one table of (collection, path, tensor, 1x1) entries.
 """
 
 from __future__ import annotations
 
-from typing import Any, Mapping, Optional
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
 from fcd_tpu_torch.ops.attention import TransformerBlock
 from fcd_tpu_torch.ops.blocks import UnetResBlock, UnetrUpBlock
-from fcd_tpu_torch.ops.layers import BatchNormEval
 
 Tree = Mapping[str, Any]
+# (collection, path, tensor, is a 1x1 conv kernel)
+Entry = Tuple[str, Tuple[str, ...], torch.Tensor, bool]
 
 
-def _copy(dst: torch.Tensor, src, squeeze_1x1: bool = False) -> None:
-    a = np.asarray(src, dtype=np.float32)
-    if squeeze_1x1:
-        a = a.reshape(a.shape[-2:])
-    if tuple(a.shape) != tuple(dst.shape):
-        raise ValueError(f"shape {a.shape} does not fit {tuple(dst.shape)}")
-    with torch.no_grad():
-        dst.copy_(torch.tensor(a))
+def _resblock_entries(blk: UnetResBlock, path) -> Iterator[Entry]:
+    """flax UnetResBlock: Conv3d_0 (conv1), Conv3d_1 (conv2), Conv3d_2 (the
+    1x1 shortcut) and, for batch norm, BatchNorm_0..2."""
+    yield "params", path + ("Conv3d_0", "kernel"), blk.conv1, False
+    yield "params", path + ("Conv3d_1", "kernel"), blk.conv2, False
+    if blk.conv3 is not None:
+        yield "params", path + ("Conv3d_2", "kernel"), blk.conv3, True
+    for i, nm in enumerate((blk.norm1, blk.norm2, blk.norm3)):
+        if nm is not None:
+            name = f"BatchNorm_{i}"
+            yield "params", path + (name, "scale"), nm.scale, False
+            yield "params", path + (name, "bias"), nm.bias, False
+            yield "batch_stats", path + (name, "mean"), nm.mean, False
+            yield "batch_stats", path + (name, "var"), nm.var, False
 
 
-def _load_bn(nm: BatchNormEval, p: Tree, bs: Tree) -> None:
-    _copy(nm.scale, p["scale"])
-    _copy(nm.bias, p["bias"])
-    _copy(nm.mean, bs["mean"])
-    _copy(nm.var, bs["var"])
+def _up_block_entries(up: UnetrUpBlock, path) -> Iterator[Entry]:
+    yield "params", path + ("ConvTranspose3d_0", "kernel"), up.transp, False
+    yield from _resblock_entries(up.block, path + ("UnetResBlock_0",))
+
+
+def _transformer_entries(tb: TransformerBlock, path) -> Iterator[Entry]:
+    yield "params", path + ("pos_embed",), tb.pos_embed, False
+    yield "params", path + ("gamma",), tb.gamma, False
+    yield "params", path + ("LayerNorm_0", "scale"), tb.ln_scale, False
+    yield "params", path + ("LayerNorm_0", "bias"), tb.ln_bias, False
+    d = path + ("DSA_0",)
+    yield "params", d + ("qkvv",), tb.dsa.qkvv, False
+    yield "params", d + ("temperature",), tb.dsa.temperature, False
+    yield "params", d + ("temperature2",), tb.dsa.temperature2, False
+    yield "params", d + ("EF",), tb.dsa.EF, False
+    yield from _resblock_entries(tb.conv_block, path + ("UnetResBlock_0",))
+    yield "params", path + ("Conv3d_0", "kernel"), tb.conv8, True
+    yield "params", path + ("Conv3d_0", "bias"), tb.conv8_bias, False
+
+
+def model_entries(model) -> Iterator[Entry]:
+    """Every parameter and running statistic of an MS_DSA_NET under its
+    flax path."""
+    for i, enc in enumerate(model.encoders):
+        yield from _resblock_entries(
+            enc, (f"UnetrBasicBlock_{i}", "UnetResBlock_0"))
+    num_layers = len(model.transformers[0])
+    for li, (emb, stack) in enumerate(zip(model.embeds, model.transformers)):
+        yield "params", (f"Conv3d_{li}", "kernel"), emb.kernel, True
+        gn = (f"GroupNorm_{li}", "GroupNorm_0")  # fcd_tpu.GroupNorm wraps flax's
+        yield "params", gn + ("scale",), emb.gn_scale, False
+        yield "params", gn + ("bias",), emb.gn_bias, False
+        for k, tb in enumerate(stack):
+            yield from _transformer_entries(
+                tb, (f"TransformerBlock_{li * num_layers + k}",))
+    for di, dec in enumerate(model.decoders):
+        yield from _up_block_entries(dec, (f"UnetrUpBlock_{di}",))
+    yield "params", ("Conv3d_4", "kernel"), model.head, True
+    yield "params", ("Conv3d_4", "bias"), model.head_bias, False
+
+
+def _lookup(tree: Tree, path) -> Any:
+    node = tree
+    for i, key in enumerate(path):
+        if key not in node and key == "GroupNorm_0" and i == len(path) - 2:
+            continue  # a tree with flax's GroupNorm directly under the name
+        node = node[key]
+    return node
+
+
+def _load(entries, variables: Tree) -> None:
+    for coll, path, dst, is_1x1 in entries:
+        a = np.asarray(_lookup(variables[coll], path), dtype=np.float32)
+        if is_1x1:
+            a = a.reshape(a.shape[-2:])
+        if tuple(a.shape) != tuple(dst.shape):
+            raise ValueError(f"{'/'.join(path)}: shape {a.shape} does not "
+                             f"fit {tuple(dst.shape)}")
+        with torch.no_grad():
+            dst.copy_(torch.tensor(a))
+
+
+def _export(entries, value) -> Dict[str, Any]:
+    """{collection: nested dict} of value(tensor) as numpy, with 1x1
+    kernels given back their (1, 1, 1) axes; None values are left out."""
+    out: Dict[str, Any] = {}
+    for coll, path, t, is_1x1 in entries:
+        v = value(t)
+        if v is None:
+            continue
+        a = v.detach().float().cpu().numpy()
+        if is_1x1:
+            a = a.reshape((1, 1, 1) + a.shape)
+        node = out.setdefault(coll, {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = a
+    return out
 
 
 def load_resblock(blk: UnetResBlock, p: Tree, bs: Optional[Tree] = None):
-    """flax UnetResBlock: Conv3d_0 (conv1), Conv3d_1 (conv2), Conv3d_2 (the
-    1x1 shortcut) and, for batch norm, BatchNorm_0..2."""
-    _copy(blk.conv1, p["Conv3d_0"]["kernel"])
-    _copy(blk.conv2, p["Conv3d_1"]["kernel"])
-    if blk.conv3 is not None:
-        _copy(blk.conv3, p["Conv3d_2"]["kernel"], squeeze_1x1=True)
-    for i, nm in enumerate((blk.norm1, blk.norm2, blk.norm3)):
-        if nm is not None:
-            _load_bn(nm, p[f"BatchNorm_{i}"], bs[f"BatchNorm_{i}"])
+    _load(_resblock_entries(blk, ()), {"params": p, "batch_stats": bs or {}})
 
 
 def load_up_block(up: UnetrUpBlock, p: Tree, bs: Optional[Tree] = None):
-    _copy(up.transp, p["ConvTranspose3d_0"]["kernel"])
-    load_resblock(up.block, p["UnetResBlock_0"],
-                  None if bs is None else bs.get("UnetResBlock_0"))
+    _load(_up_block_entries(up, ()), {"params": p, "batch_stats": bs or {}})
 
 
 def load_transformer_block(tb: TransformerBlock, p: Tree, bs: Tree):
-    _copy(tb.pos_embed, p["pos_embed"])
-    _copy(tb.gamma, p["gamma"])
-    _copy(tb.ln_scale, p["LayerNorm_0"]["scale"])
-    _copy(tb.ln_bias, p["LayerNorm_0"]["bias"])
-    d = p["DSA_0"]
-    _copy(tb.dsa.qkvv, d["qkvv"])
-    _copy(tb.dsa.temperature, d["temperature"])
-    _copy(tb.dsa.temperature2, d["temperature2"])
-    _copy(tb.dsa.EF, d["EF"])
-    load_resblock(tb.conv_block, p["UnetResBlock_0"], bs["UnetResBlock_0"])
-    _copy(tb.conv8, p["Conv3d_0"]["kernel"], squeeze_1x1=True)
-    _copy(tb.conv8_bias, p["Conv3d_0"]["bias"])
+    _load(_transformer_entries(tb, ()), {"params": p, "batch_stats": bs})
 
 
 def load_flax_variables(model, variables: Tree) -> None:
     """Copy a fcd_tpu MS_DSA_NET variables tree into the port's model."""
-    p = variables["params"]
-    bs = variables.get("batch_stats", {})
-    for i, enc in enumerate(model.encoders):
-        name = f"UnetrBasicBlock_{i}"
-        load_resblock(enc, p[name]["UnetResBlock_0"],
-                      bs.get(name, {}).get("UnetResBlock_0"))
-    num_layers = len(model.transformers[0])
-    for li, (emb, stack) in enumerate(zip(model.embeds, model.transformers)):
-        _copy(emb.kernel, p[f"Conv3d_{li}"]["kernel"], squeeze_1x1=True)
-        gp = p[f"GroupNorm_{li}"]
-        if "scale" not in gp:  # fcd_tpu.GroupNorm wraps flax nn.GroupNorm
-            gp = gp["GroupNorm_0"]
-        _copy(emb.gn_scale, gp["scale"])
-        _copy(emb.gn_bias, gp["bias"])
-        for k, tb in enumerate(stack):
-            name = f"TransformerBlock_{li * num_layers + k}"
-            load_transformer_block(tb, p[name], bs[name])
-    for di, dec in enumerate(model.decoders):
-        name = f"UnetrUpBlock_{di}"
-        load_up_block(dec, p[name], bs.get(name))
-    _copy(model.head, p["Conv3d_4"]["kernel"], squeeze_1x1=True)
-    _copy(model.head_bias, p["Conv3d_4"]["bias"])
+    _load(model_entries(model), {"params": variables["params"],
+                                 "batch_stats": variables.get("batch_stats",
+                                                              {})})
+
+
+def export_flax_variables(model) -> Dict[str, Any]:
+    """The model's {"params", "batch_stats"} as a fcd_tpu numpy tree."""
+    return _export(model_entries(model), lambda t: t)
+
+
+def export_flax_grads(model) -> Dict[str, Any]:
+    """Each parameter's `.grad` under its flax name (the "params" tree of
+    a JAX gradient); parameters without a gradient are left out."""
+    return _export((e for e in model_entries(model) if e[0] == "params"),
+                   lambda t: t.grad).get("params", {})
+
+
+def _block_entries(module) -> Iterator[Entry]:
+    if isinstance(module, TransformerBlock):
+        return _transformer_entries(module, ())
+    return _resblock_entries(module, ())
+
+
+def export_block_variables(module) -> Dict[str, Any]:
+    """`export_flax_variables` for a lone UnetResBlock or TransformerBlock."""
+    return _export(_block_entries(module), lambda t: t)
+
+
+def export_block_grads(module) -> Dict[str, Any]:
+    """`export_flax_grads` for a lone UnetResBlock or TransformerBlock."""
+    return _export((e for e in _block_entries(module) if e[0] == "params"),
+                   lambda t: t.grad).get("params", {})

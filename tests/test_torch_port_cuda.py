@@ -14,6 +14,14 @@ import torch
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(autouse=True)
+def _grad_enabled():
+    """Other test modules turn autograd off when they are imported (and
+    the workers import every module); these tests need it on."""
+    with torch.enable_grad():
+        yield
+
+
 @pytest.fixture
 def dev():
     if not torch.cuda.is_available():
@@ -124,3 +132,198 @@ def test_wrappers_refuse_f32_on_the_card(dev):
     with pytest.raises(TypeError, match="bf16"):
         upsample2x(torch.zeros(1, 2, 2, 2, 4, device=dev),
                    torch.zeros(2, 2, 2, 4, 4, device=dev))
+
+
+# -- the training slice's kernels (K1-K4) and autograd Functions -------------
+
+def _grads(fn, inputs):
+    """(outputs, grads of sum(out * cotangent) w.r.t. inputs) in f32."""
+    ins = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    gen = torch.Generator(device=ins[0].device).manual_seed(7)
+    loss = sum((o.float() * torch.randn(o.shape, generator=gen,
+                                        device=o.device)).sum()
+               for o in outs)
+    loss.backward()
+    return outs, [t.grad for t in ins]
+
+
+@pytest.mark.parametrize("ci,co,pro", [(16, 16, True), (2, 16, False),
+                                       (32, 64, False), (12, 20, True)])
+def test_conv3d_wgrad_kernel_matches_plain(dev, ci, co, pro):
+    from fcd_tpu_torch.kernels.conv_wgrad import (
+        conv3d_wgrad,
+        conv3d_wgrad_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    bf = torch.bfloat16
+    x = _randn(gen, dev, 2, 6, 10, 7, ci, dtype=bf)
+    g = _randn(gen, dev, 2, 6, 10, 7, co, dtype=bf)
+    prologue = None
+    if pro:
+        prologue = (torch.rand(2, ci, generator=gen, device=dev) + 0.5,
+                    _randn(gen, dev, 2, ci, scale=0.1), 0.01)
+    before = conv3d_wgrad.launches
+    got = conv3d_wgrad(x, g, prologue)
+    torch.cuda.synchronize()
+    assert conv3d_wgrad.launches == before + 1
+    assert got.shape == (27, ci, co) and got.dtype == torch.float32
+    assert _rel(got, conv3d_wgrad_plain(x, g, prologue)) < 1e-4
+
+
+@pytest.mark.parametrize("pool", [False, True])
+def test_finale_bwd_kernel_matches_plain(dev, pool):
+    """Inputs on a coarse bf16 grid, so the pool has exact ties."""
+    from fcd_tpu_torch.kernels.finale import finale_bwd, finale_bwd_plain
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+    ys = torch.randint(-2, 3, (2, 6, 8, 10, 24), generator=gen,
+                       device=dev).to(bf)
+    rs = _randn(gen, dev, 2, 6, 8, 10, 24, dtype=bf)
+    aff = [torch.ones(2, 24, device=dev), _randn(gen, dev, 2, 24),
+           torch.zeros(2, 24, device=dev), torch.zeros(2, 24, device=dev)]
+    gp = _randn(gen, dev, 2, 6, 8, 10, 24, dtype=bf)
+    gq = _randn(gen, dev, 2, 3, 4, 5, 24, dtype=bf) if pool else None
+    got = finale_bwd(ys, rs, *aff, gp, gq, 0.01)
+    want = finale_bwd_plain(ys, rs, *aff, gp, gq, 0.01)
+    assert got[0].dtype == bf
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) < 1e-2
+
+
+@pytest.mark.parametrize("n,c,h,p,rate", [(300, 32, 4, 64, 0.0),
+                                          (300, 32, 4, 64, 0.1),
+                                          (64, 256, 4, 32, 0.1)])
+def test_spatial_attn_kernels_match_plain(dev, n, c, h, p, rate):
+    """Equal dropout masks: the outputs agree to bf16 rounding."""
+    from fcd_tpu_torch.kernels import spatial_attn as sa
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bf = torch.bfloat16
+    qn = _randn(gen, dev, 2, n, c, scale=0.2, dtype=bf)
+    kpb = _randn(gen, dev, 2, c, h * p, scale=0.5, dtype=bf)
+    vpb = _randn(gen, dev, 2, h * p, c, dtype=bf)
+    g = _randn(gen, dev, 2, n, c, dtype=bf)
+    key = sa.dropout_key(1234, 5)
+    assert _rel(sa.spatial_attn_fwd(qn, kpb, vpb, h, key, rate),
+                sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key, rate)) < 2e-2
+    got = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, rate)
+    want = sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key, rate)
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) < 2e-2
+
+
+def test_conv_function_grads_match_plain_autograd(dev):
+    """Conv3x3 (B1 + K1 backward) against autograd through conv3x3_plain:
+    two parts with the shortcut, then one part with the prologue."""
+    from fcd_tpu_torch.kernels.block_conv import conv3x3_op, conv3x3_plain
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bf = torch.bfloat16
+    x0 = _randn(gen, dev, 2, 6, 8, 6, 8, dtype=bf)
+    x1 = _randn(gen, dev, 2, 6, 8, 6, 8, dtype=bf)
+    w0 = _randn(gen, dev, 3, 3, 3, 8, 16, scale=0.2)
+    w1 = _randn(gen, dev, 3, 3, 3, 8, 16, scale=0.2)
+    r0 = _randn(gen, dev, 8, 16, scale=0.3)
+    r1 = _randn(gen, dev, 8, 16, scale=0.3)
+
+    def run(conv):
+        def f(a, b, wa, wb, ra, rb):
+            o = conv([a, b], [wa, wb], shortcut=[ra, rb], want_stats=True)
+            return o.y, o.ysum, o.ysq, o.r, o.rsum, o.rsq
+        return _grads(f, [x0, x1, w0, w1, r0, r1])
+
+    (_, got), (_, want) = run(conv3x3_op), run(conv3x3_plain)
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) < 3e-2
+    sc = torch.rand(2, 8, generator=gen, device=dev) + 0.5
+    sh = _randn(gen, dev, 2, 8, scale=0.1)
+
+    def run_pro(conv):
+        def f(a, wa, s, t):
+            o = conv([a], [wa], prologue=(s, t, 0.01), want_stats=True)
+            return o.y, o.ysum, o.ysq
+        return _grads(f, [x0, w0, sc, sh])
+
+    (_, got), (_, want) = run_pro(conv3x3_op), run_pro(conv3x3_plain)
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) < 3e-2
+
+
+def test_finale_and_upsample_functions_match_plain_autograd(dev):
+    """The pool reference is torch.amax over each block, whose backward
+    splits ties evenly, as K2 does (bf16 outputs do tie)."""
+    from fcd_tpu_torch.kernels.finale import finale
+    from fcd_tpu_torch.kernels.pool import finale_pool_plain
+    from fcd_tpu_torch.kernels.upsample import upsample2x_op, upsample2x_plain
+    from fcd_tpu_torch.ops.layers import blocks_2x
+
+    def plain(*a):
+        out = finale_pool_plain(*a, 0.01)
+        return out, blocks_2x(out).amax(dim=4)
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    bf = torch.bfloat16
+    ins = [_randn(gen, dev, 2, 6, 8, 10, 16, dtype=bf),
+           _randn(gen, dev, 2, 6, 8, 10, 16, dtype=bf)] + \
+        [_randn(gen, dev, 2, 16) for _ in range(4)]
+    (_, got) = _grads(lambda *a: finale(*a, 0.01, True), ins)
+    (_, want) = _grads(plain, ins)
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) < 3e-2
+    x = _randn(gen, dev, 2, 3, 5, 4, 24, dtype=bf)
+    k = _randn(gen, dev, 2, 2, 2, 24, 16, scale=0.2)
+    (_, got) = _grads(upsample2x_op, [x, k])
+    (_, want) = _grads(upsample2x_plain, [x, k])
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) < 3e-2
+
+
+def test_spatial_attn_function_matches_plain_autograd(dev):
+    from fcd_tpu_torch.kernels import spatial_attn as sa
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    bf = torch.bfloat16
+    ins = [_randn(gen, dev, 2, 200, 32, scale=0.2, dtype=bf),
+           _randn(gen, dev, 2, 32, 256, scale=0.5, dtype=bf),
+           _randn(gen, dev, 2, 256, 32, dtype=bf)]
+    key = sa.dropout_key(99, 3)
+    (_, got) = _grads(lambda *a: sa.spatial_attn(*a, 4, key, 0.1), ins)
+    (_, want) = _grads(
+        lambda *a: sa.spatial_attn_fwd_plain(*a, 4, key, 0.1), ins)
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) < 3e-2
+
+
+def test_train_step_on_the_card(dev):
+    """A small MS_DSA_NET train step in bf16: finite, falling losses, and
+    every kernel of the train path launched."""
+    from fcd_tpu_torch.config import get_default_params
+    from fcd_tpu_torch.kernels import (
+        block_conv,
+        conv_wgrad,
+        finale,
+        pool,
+        spatial_attn,
+        upsample,
+    )
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    params = get_default_params()
+    params.update(patch_size=32, feature_size=8, project_size=16,
+                  loss="DiceCELoss")
+    tr = ModelTrainer(params, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(2, 32, 32, 32, 2, generator=gen, device=dev)
+    y = (torch.rand(2, 32, 32, 32, 1, generator=gen, device=dev) > 0.9).float()
+    fns = [block_conv.conv3x3, conv_wgrad.conv3d_wgrad, pool.finale_pool,
+           finale.finale_bwd, upsample.upsample2x,
+           spatial_attn.spatial_attn_fwd, spatial_attn.spatial_attn_bwd]
+    before = [f.launches for f in fns]
+    losses = [float(tr.train_step(x, y, 1e-3)) for _ in range(3)]
+    assert all(torch.isfinite(torch.tensor(losses)))
+    assert losses[-1] < losses[0]
+    assert all(f.launches > b for f, b in zip(fns, before))

@@ -90,3 +90,29 @@ def test_kernel_wrappers_take_plain_version_only_on_cpu():
     x = torch.zeros(1, 2, 2, 2, 4, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         upsample2x(x, torch.zeros(2, 2, 2, 4, 4, device="meta"))
+
+
+def test_train_kernel_wrappers_refuse_other_devices():
+    """K1-K4 take their plain versions only for CPU tensors: a tensor on
+    another device is refused (on CUDA they launch the kernel or raise,
+    tests/test_torch_port_cuda.py)."""
+    from fcd_tpu_torch.kernels import spatial_attn as sa
+    from fcd_tpu_torch.kernels.conv_wgrad import conv3d_wgrad
+    from fcd_tpu_torch.kernels.finale import finale_bwd
+
+    m = torch.zeros(1, 2, 2, 2, 4, device="meta")
+    aff = torch.zeros(1, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        conv3d_wgrad(m, m)
+    with pytest.raises(ValueError, match="unsupported device"):
+        finale_bwd(m, m, aff, aff, aff, aff, m, None, 0.01)
+    q = torch.zeros(1, 8, 4, device="meta")
+    k = torch.zeros(1, 4, 8, device="meta")
+    v = torch.zeros(1, 8, 4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sa.spatial_attn_fwd(q, k, v, 2, 0, 0.0)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sa.spatial_attn_bwd(q, k, v, q, 2, 0, 0.0)
+    # on the CPU the plain versions run
+    x = torch.randn(1, 2, 2, 2, 4)
+    assert conv3d_wgrad(x, x).shape == (27, 4, 4)
