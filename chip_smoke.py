@@ -24,7 +24,18 @@ Run from the repository root:
    the per-step counts derived from the model), finite losses; then one
    step at batch 1 x 64^3 (full widths) held against the port's fp32 CPU
    step from the same weights; then a profile of one train step.
-5. Prints the `kernels` JSON line, the card line, and last
+5. Drives the segmentation CLI: writes a seeded synthetic subject (T1,
+   FLAIR and a lesion label, NIfTI, on a 176x240x256 grid at (1.0, 0.9375,
+   0.9375) mm with an LAS affine) and the seeded fs16 model's weights as a
+   checkpoint in the JAX package's format under build/, then runs
+   fcd_tpu_torch.cli.infer.run_inference on the card (RAS, 1 mm
+   resampling to 176x225x240, 18 patches of 128^3, softmax, inverse
+   resampling, post-processing, native-space save, Dice/IoU), with the
+   counters set to 0 just before and read just after; checks the saved
+   mask, holds the logits bit for bit against a direct
+   ModelTrainer.inference of the same preprocessed array, and prints the
+   seconds per phase.
+6. Prints the `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -83,6 +94,12 @@ def sync(dev) -> None:
         torch.cuda.synchronize()
 
 
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
 def rel_err(got, want) -> tuple:
     """(max |got - want|, that over max |want|), in f64."""
     g, w = got.double(), want.double()
@@ -109,6 +126,18 @@ class Phase:
     def bound_by(self) -> str:
         return ("operations" if self.flops / PEAK_FLOPS >= self.bytes / PEAK_BYTES
                 else "bytes")
+
+    def check_equal(self, name, got, want):
+        """Bit-equal (the kernels whose plain version does the same
+        arithmetic)."""
+        a, _ = rel_err(got, want)
+        self.abs_err = max(self.abs_err, a)
+        ok = got.dtype == want.dtype and torch_equal(got, want)
+        print(f"  {self.kernel} {self.label} {name}: max_abs_err {a:.3e}, "
+              f"bit-equal {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{self.kernel} {self.label} {name}: not "
+                                 "bit-equal to the plain version")
 
     def check(self, name, got, want, tol):
         a, r = rel_err(got, want)
@@ -374,6 +403,96 @@ def finale_bwd_phase(label, dev, gen, batch, grid, c, iters=10):
     return ph
 
 
+def finale_bwd_chain_phase(label, dev, gen, batch, grid, c, iters=10):
+    """K2's `chain` tie split (encoders 3-5) on tied inputs: small integers
+    through dyadic affines, exact in f32, so that dt is bit-equal to the
+    plain version's; the per-channel sums differ only in atomicAdd order."""
+    import torch
+
+    from fcd_tpu_torch.kernels.finale import finale_bwd, finale_bwd_plain
+
+    bf = torch.bfloat16
+    nvox = batch * grid[0] * grid[1] * grid[2]
+    pgrid = tuple(v // 2 for v in grid)
+    ys = torch.randint(-2, 3, (batch, *grid, c), generator=gen,
+                       device=dev).to(bf)
+    rs = torch.randint(-1, 2, (batch, *grid, c), generator=gen,
+                       device=dev).to(bf)
+    gp = _randn((batch, *grid, c), gen, dev, dtype=bf)
+    gq = _randn((batch, *pgrid, c), gen, dev, dtype=bf)
+    s2 = torch.full((batch, c), 0.5, device=dev)
+    b2 = torch.randint(-8, 9, (batch, c), generator=gen, device=dev) / 8.0
+    sr, br = torch.ones_like(s2), torch.zeros_like(s2)
+    args = (ys, rs, s2, b2, sr, br, gp, gq, 0.01)
+    ph = Phase("finale_bwd", label, 15 * nvox * c,
+               8 * nvox * c + 2 * nvox * c // 8 + 28 * batch * c)
+    got = finale_bwd(*args, tie="chain")
+    want = finale_bwd_plain(*args, tie="chain")
+    even = finale_bwd_plain(*args, tie="even")
+    ph.check_equal("dt", got[0], want[0])
+    for name, g_, w_ in zip(("sum dt*ys", "sum dt", "sum dt*rs"), got[1:],
+                            want[1:]):
+        ph.check(name, g_, w_, 1e-4)
+    moved = float((want[0] != even[0]).float().mean())
+    print(f"  finale_bwd {label}: chain and even split differ at "
+          f"{100 * moved:.2f}% of dt")
+    if moved == 0:
+        raise AssertionError("the tied inputs do not tell chain from even")
+    ph.ms = timed_ms(lambda: finale_bwd(*args, tie="chain"), iters)
+    ph.plain_ms = timed_ms(lambda: finale_bwd_plain(*args, tie="chain"), 2)
+    ph.report()
+    return ph
+
+
+CLI_SHAPE = (176, 225, 240)   # the CLI phase's volume after RAS and 1 mm
+
+
+def sw_io_phases(dev, gen, shape=CLI_SHAPE, c=2, o=2, roi=128, iters=20):
+    """B17 (sw_entry) and B6 (sw_exit) at the CLI phase's preprocessed
+    shape (no pad at roi 128), bit-equal to their plain versions; then once
+    each with a pad and a crop, checked only."""
+    import torch
+
+    from fcd_tpu_torch.kernels.sw_io import (
+        sw_entry,
+        sw_entry_plain,
+        sw_exit,
+        sw_exit_plain,
+    )
+
+    bf = torch.bfloat16
+    roi3 = (roi,) * 3
+    nvox = shape[0] * shape[1] * shape[2]
+    vol = _randn((*shape, c), gen, dev, 3.0)
+    pe = Phase("sw_entry", f"{shape}x{c} f32 -> bf16", nvox * c,
+               4 * nvox * c + 2 * nvox * c)
+    pe.check_equal("out", sw_entry(vol, roi3, bf), sw_entry_plain(vol, roi3, bf))
+    short = vol[:shape[0] * 4 // 7].contiguous()   # padded along D
+    pe.check_equal(f"out, padded {tuple(short.shape)}",
+                   sw_entry(short, roi3, bf), sw_entry_plain(short, roi3, bf))
+    pe.ms = timed_ms(lambda: sw_entry(vol, roi3, bf), iters)
+    pe.plain_ms = timed_ms(lambda: sw_entry_plain(vol, roi3, bf), iters)
+    pe.report()
+
+    acc = _randn((*shape, o), gen, dev)
+    inv = torch.rand((*shape, 1), generator=gen, device=dev) + 0.1
+    px = Phase("sw_exit", f"{shape}x{o} f32 * coverage", nvox * o,
+               nvox * (4 * o + 4) + 4 * nvox * o)
+    start = (0, 0, 0)
+    px.check_equal("out", sw_exit(acc, inv, start, shape),
+                   sw_exit_plain(acc, inv, start, shape))
+    corner = (1, 2, 3)
+    crop = tuple(v - 2 * k for v, k in zip(shape, corner))
+    px.check_equal(f"out, cropped to {crop}", sw_exit(acc, inv, corner, crop),
+                   sw_exit_plain(acc, inv, corner, crop))
+    px.ms = timed_ms(lambda: sw_exit(acc, inv, start, shape), iters)
+    px.plain_ms = timed_ms(lambda: sw_exit_plain(acc, inv, start, shape), iters)
+    # library yardstick, timed only: acc[crop] * inv[crop] (no crop here)
+    px.library_ms = timed_ms(lambda: acc * inv, iters)
+    px.report()
+    return [pe, px]
+
+
 def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
                         iters=10):
     """K3 and K4 at one level's shape, with dropout: the kernels and the
@@ -461,11 +580,15 @@ def kernel_phases(dev, gen, small: bool = False):
                     [256], 512),
         finale_bwd_phase("enc1 4x128^3x16 +pool", dev, gen, b,
                          s(128, 128, 128), 16),
+        finale_bwd_chain_phase("enc3 4x32^3x64 +pool, chain ties", dev, gen,
+                               b, s(32, 32, 32) if small else (32, 32, 32),
+                               64),
     ]
     phases += spatial_attn_phases("level3 4xN=32768 C=32 hP=256", dev, gen,
                                   b, 512 if small else 32768, 32, 64)
     phases += spatial_attn_phases("level6 4xN=64 C=256 hP=128", dev, gen, b,
                                   64, 256, 32)
+    phases += sw_io_phases(dev, gen, s(*CLI_SHAPE), roi=8 if small else 128)
     return phases
 
 
@@ -479,6 +602,7 @@ def counters():
         finale,
         pool,
         spatial_attn,
+        sw_io,
         upsample,
     )
 
@@ -489,7 +613,8 @@ def counters():
             "dsa_phase_a": dsa_attention.dsa_phase_a,
             "dsa_phase_b": dsa_attention.dsa_phase_b,
             "spatial_attn_fwd": spatial_attn.spatial_attn_fwd,
-            "spatial_attn_bwd": spatial_attn.spatial_attn_bwd}
+            "spatial_attn_bwd": spatial_attn.spatial_attn_bwd,
+            "sw_entry": sw_io.sw_entry, "sw_exit": sw_io.sw_exit}
 
 
 def reset_counts():
@@ -505,7 +630,17 @@ def read_counts():
 # upsamples, 12 DSA calls (4 levels x 3 layers) per phase
 PER_PATCH = {"conv3d": 46, "conv3d_wgrad": 0, "finale_pool": 23,
              "finale_bwd": 0, "upsample2x": 5, "dsa_phase_a": 12,
-             "dsa_phase_b": 12, "spatial_attn_fwd": 0, "spatial_attn_bwd": 0}
+             "dsa_phase_b": 12, "spatial_attn_fwd": 0, "spatial_attn_bwd": 0,
+             "sw_entry": 0, "sw_exit": 0}
+# and per volume: the engine's entry and exit
+PER_VOLUME = {"sw_entry": 1, "sw_exit": 1}
+
+
+def per_volume(n_patches: int) -> dict:
+    """Launches of one sliding-window inference over n_patches patches."""
+    out = {k: v * n_patches for k, v in PER_PATCH.items()}
+    out.update(PER_VOLUME)
+    return out
 
 
 def per_train_step() -> dict:
@@ -525,7 +660,8 @@ def per_train_step() -> dict:
             "conv3d_wgrad": 2 * enc + 2 * tb + 3 * dec,
             "finale_pool": blocks, "finale_bwd": blocks, "upsample2x": dec,
             "dsa_phase_a": 0, "dsa_phase_b": 0,
-            "spatial_attn_fwd": tb, "spatial_attn_bwd": tb}
+            "spatial_attn_fwd": tb, "spatial_attn_bwd": tb,
+            "sw_entry": 0, "sw_exit": 0}
 
 
 # bf16 activations rounded through ~50 layers against an fp32 forward: on
@@ -581,7 +717,7 @@ def slice_run(dev, card, params=None, vol_shape=(182, 218, 182)):
             out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"logits {tuple(out.shape)} {out.dtype}: not "
                              "finite f32 of the volume's shape")
-    want = {k: v * n_patches for k, v in PER_PATCH.items()}
+    want = per_volume(n_patches)
     print(f"  launches {launches} (expected {want})")
     if dev.type == "cuda" and launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
@@ -607,9 +743,175 @@ def slice_run(dev, card, params=None, vol_shape=(182, 218, 182)):
     return launches, trainer, patch
 
 
+# -- the segmentation CLI -------------------------------------------------------
+
+CLI_NATIVE = (176, 240, 256)           # native grid of the synthetic subject
+CLI_SPACING = (1.0, 0.9375, 0.9375)    # mm; x points left (LAS)
+
+
+def write_subject(root: str, params, shape=CLI_NATIVE, seed=SEED + 4):
+    """A seeded synthetic subject: smooth T1 and FLAIR volumes and a
+    spherical lesion label as NIfTI on an LAS grid, so that the RAS flip,
+    the 1 mm resampling and its inverse all do work. Returns its affine."""
+    import numpy as np
+    from scipy import ndimage
+
+    from fcd_tpu_torch.data import nifti
+
+    rng = np.random.RandomState(seed)
+    d = os.path.join(root, "sub01")
+    os.makedirs(d, exist_ok=True)
+    aff = np.diag([-CLI_SPACING[0], CLI_SPACING[1], CLI_SPACING[2], 1.0])
+    aff[:3, 3] = (90.0, -126.0, -72.0)
+    coarse = tuple(v // 8 for v in shape)
+    images = []
+    for seq in params["seq"].split("+"):
+        img = ndimage.zoom(rng.normal(size=coarse), 8, order=1) * 40 + 100
+        images.append(img.astype(np.float32))
+        nifti.save(os.path.join(d, f"{seq}.nii.gz"), images[-1], aff)
+    zz, yy, xx = np.ogrid[:shape[0], :shape[1], :shape[2]]
+    c = [v // 2 for v in shape]
+    gt = ((zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2) < \
+        (shape[0] // 8) ** 2
+    nifti.save(os.path.join(d, "gt_reg.nii.gz"), gt.astype(np.uint8), aff)
+    return aff, np.stack(images, axis=-1)
+
+
+# The CLI's logits against a direct ModelTrainer.inference of the same
+# array: bit-equal, since the forward takes its sums in a fixed order. A
+# second direct run tells whether the forward is reproducible on this
+# card; only if it is not are the logits held to the bf16 patch check's
+# limits instead (a wrong array, weight or transform moves them by O(1)).
+CLI_REL_TOL = PATCH_REL_TOL
+CLI_ARGMAX_AGREE = PATCH_ARGMAX_AGREE
+CLI_LESION_SHARE = 0.2   # of a patch, through the head bias (see cli_run)
+
+
+def cli_run(dev, card, params=None, native_shape=CLI_NATIVE):
+    """fcd_tpu_torch.cli.infer.run_inference on the card, on one synthetic
+    subject and the seeded model (fs16 by default) written as a checkpoint.
+    Returns the launch counts of the run."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from fcd_tpu_torch.cli import infer as cli
+    from fcd_tpu_torch.config import get_default_params
+    from fcd_tpu_torch.data import nifti
+    from fcd_tpu_torch.data.preprocess import scale_channels
+    from fcd_tpu_torch.infer.sliding_window import dense_patch_starts
+    from fcd_tpu_torch.postproc import native
+    from fcd_tpu_torch.train.checkpoint import save_checkpoint
+    from fcd_tpu_torch.weights import export_flax_variables
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    params = get_default_params() if params is None else params
+    params["chans_in"] = len(params["seq"].split("+"))
+    aff, images = write_subject(os.path.join(root, "data"), params,
+                                native_shape)
+    # the seeded model, with gamma and the pos-embed redrawn as in the
+    # inference slice, written in the JAX package's checkpoint format. At
+    # random weights the mask would be empty; the head bias is shifted so
+    # that CLI_LESION_SHARE of a central patch (fp32 on the CPU) is lesion,
+    # so the mask, the post-processing and Dice/IoU have something to do.
+    model = cli.ModelTrainer(params, device="cpu").model
+    gen = torch.Generator().manual_seed(SEED + 5)
+    with torch.no_grad():
+        for stack in model.transformers:
+            for blk in stack:
+                blk.gamma.copy_(0.1 * torch.randn(blk.gamma.shape, generator=gen))
+                blk.pos_embed.copy_(0.1 * torch.randn(blk.pos_embed.shape,
+                                                      generator=gen))
+        roi = (params["patch_size"],) * 3
+        lo = [(s - r) // 2 for s, r in zip(native_shape, roi)]
+        patch = scale_channels(images[lo[0]:lo[0] + roi[0], lo[1]:lo[1] + roi[1],
+                                      lo[2]:lo[2] + roi[2]])
+        logit = model(torch.from_numpy(patch)[None])
+        margin = (logit[..., 1] - logit[..., 0]).flatten()
+        model.head_bias[1] -= torch.quantile(margin, 1 - CLI_LESION_SHARE)
+    ckpt = os.path.join(root, "model.msgpack")
+    save_checkpoint(ckpt, export_flax_variables(model), epoch=0)
+
+    # keep what the CLI's engine got and gave, for the direct call below
+    seen = []
+    engine = cli.ModelTrainer.inference
+
+    def inference(self, volume):
+        out = engine(self, volume)
+        seen.append((np.array(volume, copy=True), out.clone()))
+        return out
+
+    cli.ModelTrainer.inference = inference
+    timings = {}
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = cli.run_inference(os.path.join(root, "data"),
+                                    os.path.join(root, "out"), ckpt, params,
+                                    device=dev, timings=timings)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        cli.ModelTrainer.inference = engine
+    (volume, logits), = seen
+    t = timings["sub01"]
+    print(f"cli: run_inference, one subject {native_shape} native -> "
+          f"{volume.shape} at 1 mm: {wall:.2f} s in all on {card}; per phase "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in t.items())
+          + f"; post-processing path {native.backend()}", flush=True)
+
+    seg = nifti.load(os.path.join(root, "out", "sub01", "sub01_seg.nii.gz"))
+    if seg.data.shape != native_shape or not np.array_equal(seg.affine, aff) \
+            or not set(np.unique(seg.data)) <= {0.0, 1.0}:
+        raise AssertionError(f"saved mask {seg.data.shape}, affine "
+                             f"{seg.affine.tolist()}: not a 0/1 native mask")
+    m = metrics["sub01"]
+    print(f"  mask {seg.data.shape} of {int(seg.data.sum())} voxels, Dice "
+          f"{m['dice']:.4f}, IoU {m['iou']:.4f}")
+    if not (math.isfinite(m["dice"]) and math.isfinite(m["iou"])) or \
+            seg.data.sum() == 0:
+        raise AssertionError(f"empty mask or Dice/IoU not finite: {m}")
+    n_patches = len(dense_patch_starts(volume.shape[:3], roi,
+                                       params["sw_overlap"]))
+    want = per_volume(n_patches)
+    print(f"  launches {launches} (expected {want}, {n_patches} patches)")
+    if dev.type == "cuda" and launches != want:
+        raise AssertionError(f"cli launch counts {launches} != {want}")
+
+    trainer = cli.ModelTrainer(params, device=dev)
+    trainer.load_model(ckpt)
+    direct = trainer.inference(volume)
+    again = trainer.inference(volume)
+    same = torch_equal(direct, logits)
+    a, r = rel_err(logits, direct)
+    a2, r2 = rel_err(again, direct)
+    cls = direct.argmax(-1)
+    agree = float((logits.argmax(-1) == cls).float().mean())
+    agree2 = float((again.argmax(-1) == cls).float().mean())
+    reproducible = torch_equal(again, direct)
+    ok = same or (not reproducible and r <= CLI_REL_TOL
+                  and agree >= CLI_ARGMAX_AGREE)
+    print(f"  logits {tuple(logits.shape)} vs a direct ModelTrainer.inference"
+          f" of the same array: bit-equal {same}, max_abs_err {a:.3e} rel "
+          f"{r:.3e} (tol {CLI_REL_TOL}), argmax agreement {agree:.6f} (min "
+          f"{CLI_ARGMAX_AGREE}); a second direct run: bit-equal "
+          f"{reproducible}, max_abs_err {a2:.3e} rel {r2:.3e}, "
+          f"argmax agreement {agree2:.6f} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("the CLI's logits differ from direct inference")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 PROFILE_KEYS = ("conv3d_kernel", "wgrad_kernel", "finale_bwd_kernel",
                 "finale_kernel", "upsample_kernel", "dsa_phase_a",
-                "dsa_phase_b", "spatial_attn_fwd", "spatial_attn_bwd")
+                "dsa_phase_b", "spatial_attn_fwd", "spatial_attn_bwd",
+                "sw_entry_kernel", "sw_exit_kernel")
 
 
 def profile_run(label, fn, dev) -> dict:
@@ -831,6 +1133,7 @@ def kernels_json(phases, by_path):
     import fcd_tpu_torch.kernels.finale as k2
     import fcd_tpu_torch.kernels.pool as b2
     import fcd_tpu_torch.kernels.spatial_attn as k34
+    import fcd_tpu_torch.kernels.sw_io as sw_io
     import fcd_tpu_torch.kernels.upsample as b4
 
     meta = {
@@ -848,6 +1151,9 @@ def kernels_json(phases, by_path):
                              k34.REPLACES_FWD),
         "spatial_attn_bwd": ("cuda", "fcd_tpu_torch/csrc/spatial_attn.cu",
                              k34.REPLACES_BWD),
+        "sw_entry": ("cuda", "fcd_tpu_torch/csrc/sw_io.cu",
+                     sw_io.REPLACES_ENTRY),
+        "sw_exit": ("cuda", "fcd_tpu_torch/csrc/sw_io.cu", sw_io.REPLACES_EXIT),
     }
     out = []
     for name, (route, source, replaces) in meta.items():
@@ -910,8 +1216,11 @@ def main() -> int:
     del trainer, xb, yb
     torch.cuda.empty_cache()
     train_check(dev)
+    torch.cuda.empty_cache()
+    cli_launches = cli_run(dev, card)
     print(json.dumps(kernels_json(
-        phases, {"inference": launches, "train": train_launches})))
+        phases, {"inference": launches, "train": train_launches,
+                 "cli": cli_launches})))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

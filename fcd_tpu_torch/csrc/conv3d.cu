@@ -18,8 +18,10 @@
 //   * a 1x1 shortcut output r = sum_p x_p[b, v, :] @ wr_p from the centre
 //     tap's reads;
 //   * per-(b, o) sum and sum of squares of the f32 results of y and r (the
-//     next instance norm's statistics), combined across blocks with
-//     atomicAdd, so their summation order changes from run to run.
+//     next instance norm's statistics): each block writes its partial sums
+//     once, at (voxel block, b, o) of a (blocks, B, cout) buffer, and the
+//     wrapper adds them over the blocks in a fixed order, so the statistics,
+//     and the forward after them, are the same bits from run to run.
 //
 // Inputs bf16, f32 accumulation, bf16 outputs, f32 statistics.
 //
@@ -58,7 +60,7 @@ struct Params {
   float slope;
   __nv_bfloat16* y;       // (B, D, H, W, cout)
   __nv_bfloat16* r;       // (B, D, H, W, cout) shortcut output, or null
-  float* ysum;            // (B, cout) statistics, or null
+  float* ysum;            // (voxel blocks, B, cout) partial statistics, or null
   float* ysq;
   float* rsum;
   float* rsq;
@@ -95,8 +97,9 @@ __device__ void block_stats(const float (&acc)[4][TN], int m0, int tm, int tn,
         s += red[0][t][n];
         q += red[1][t][n];
       }
-      atomicAdd(&sum[(size_t)b * cout + n0 + n], s);
-      atomicAdd(&sq[(size_t)b * cout + n0 + n], q);
+      const size_t at = ((size_t)blockIdx.x * gridDim.z + b) * cout + n0 + n;
+      sum[at] = s;
+      sq[at] = q;
     }
   }
   __syncthreads();

@@ -6,8 +6,10 @@
 // LayerNorm (eps given) into their token loads:
 //   t   = x + pe,   xln = bf16(LN(t) * ln_scale + ln_bias)
 //   q, k, v_ca, v_sa = xln @ w[0..3]          (f32 accumulation)
-// Phase A reduces over token tiles (one block per tile, blocks combined by
-// atomicAdd, so the order of the sums changes from run to run):
+// Phase A reduces over token tiles (one block per tile; each block writes
+// its partial sums once, at (tile, b) of buffers with a leading tiles axis,
+// and the wrapper adds them over the tiles in a fixed order, so the sums are
+// the same bits from run to run):
 //   qk = q^T k (C x C), q2 = sum q^2, k2 = sum k^2 (C),
 //   kp = bf16(k)^T ef, vp = bf16(v_sa)^T ef (C x P).
 // The per-head C x C softmax between the phases is left to PyTorch, as the
@@ -111,6 +113,7 @@ __global__ void __launch_bounds__(NT)
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * T;
   const size_t CC = (size_t)C * C;
+  const size_t tb = (size_t)blockIdx.x * gridDim.y + b;  // partials' row
 
   ln_tile(x, pe, lns, lnb, eps, b, n0, T, N, C, xs, nullptr);
   __syncthreads();
@@ -138,7 +141,7 @@ __global__ void __launch_bounds__(NT)
     const int r = i / C, c = i % C;
     float s = 0.f;
     for (int t = 0; t < tv; ++t) s = fmaf(qs[t * C + r], ks[t * C + c], s);
-    atomicAdd(&qk[(size_t)b * CC + i], s);
+    qk[tb * CC + i] = s;
   }
   for (int c = threadIdx.x; c < C; c += NT) {
     float sq = 0.f, sk = 0.f;
@@ -146,8 +149,8 @@ __global__ void __launch_bounds__(NT)
       sq = fmaf(qs[t * C + c], qs[t * C + c], sq);
       sk = fmaf(ks[t * C + c], ks[t * C + c], sk);
     }
-    atomicAdd(&q2[(size_t)b * C + c], sq);
-    atomicAdd(&k2[(size_t)b * C + c], sk);
+    q2[tb * C + c] = sq;
+    k2[tb * C + c] = sk;
   }
   for (int i = threadIdx.x; i < C * P; i += NT) {
     const int c = i / P, p = i % P;
@@ -157,8 +160,8 @@ __global__ void __launch_bounds__(NT)
       sk = fmaf(round_bf16(ks[t * C + c]), e, sk);
       sv = fmaf(vs[t * C + c], e, sv);
     }
-    atomicAdd(&kp[(size_t)b * C * P + i], sk);
-    atomicAdd(&vp[(size_t)b * C * P + i], sv);
+    kp[tb * C * P + i] = sk;
+    vp[tb * C * P + i] = sv;
   }
 }
 

@@ -5,9 +5,14 @@ Counterpart of `fcd_tpu/infer/sliding_window.py::sliding_window_inference`
 the roi, the MONAI-parity dense patch grid, patches run in batches of
 `sw_batch`, each patch's logits weighted by the importance map and summed
 in patch order, then multiplied by the reciprocal coverage and cropped
-back. Blending is plain PyTorch, as the JAX package leaves it to XLA on
-this path. The s2d patch/logit options of the JAX engine are TPU layout
-and have no counterpart here.
+back. The volume enters through `kernels/sw_io.py::sw_entry` (pad + cast,
+B17's function) and leaves through `sw_exit` (coverage multiply + crop,
+B6's function), once per call each. The accumulation itself is plain
+PyTorch, as the JAX package leaves it to XLA on this path. The reciprocal
+coverage and the importance map stay on the device, cached per grid, as
+`fcd_tpu/infer/sliding_window.py:429-457` caches them. The s2d patch/logit
+options of the JAX engine are TPU layout and have no counterpart here;
+`flat_output` returns the same bytes as a (D, H, W*O) view.
 """
 
 from __future__ import annotations
@@ -18,7 +23,8 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from fcd_tpu_torch.kernels.sw_io import entry_pad, sw_entry, sw_exit
 
 
 def dense_patch_starts(image_size: Sequence[int], roi_size: Sequence[int],
@@ -79,6 +85,18 @@ def inverse_coverage(padded_shape, roi_size, overlap: float, blend: str,
     return (1.0 / np.maximum(cnt, 1e-8))[..., None]
 
 
+@functools.lru_cache(maxsize=8)
+def _device_grid_constants(padded_shape, roi_size, overlap: float, blend: str,
+                           sigma_scale: float, device: torch.device):
+    """(importance map (rd, rh, rw, 1), reciprocal coverage (PD, PH, PW, 1))
+    f32 on `device`, built once per grid: uploading the coverage costs
+    ~29 MB per call at 182x218x182."""
+    imp = _importance(roi_size, blend, sigma_scale)[..., None]
+    inv = inverse_coverage(padded_shape, roi_size, overlap, blend, sigma_scale)
+    return (torch.from_numpy(imp).to(device),
+            torch.from_numpy(inv).to(device))
+
+
 @torch.no_grad()
 def sliding_window_inference(volume, predictor: Callable, *,
                              roi_size: Sequence[int], out_channels: int,
@@ -86,31 +104,27 @@ def sliding_window_inference(volume, predictor: Callable, *,
                              blend: str = "constant",
                              sigma_scale: float = 0.125,
                              compute_dtype=torch.float32,
+                             flat_output: bool = False,
                              device=None) -> torch.Tensor:
     """Run `predictor` ((B, rd, rh, rw, C) -> (B, rd, rh, rw, out_channels))
     over a (D, H, W, C) volume in overlapping roi-size patches and blend
     the logits. Returns (D, H, W, out_channels) float32 on `device` (the
-    volume's device when None)."""
+    volume's device when None), or its (D, H, W * out_channels) view with
+    `flat_output` (the JAX engine's flat return, C-order bytes of the same
+    volume)."""
     roi = tuple(int(r) for r in roi_size)
     vol = torch.as_tensor(volume)
     if device is not None:
         vol = vol.to(device)
+    vol = vol.to(torch.float32).contiguous()
     d, h, w, _ = vol.shape
-    pad = [max(r - s, 0) for r, s in zip(roi, (d, h, w))]
-    if any(pad):
-        # symmetric padding (MONAI pads half before, half after)
-        cfg = []
-        for p in reversed(pad):
-            cfg += [p // 2, p - p // 2]
-        vol = F.pad(vol, [0, 0] + cfg)
+    vol = sw_entry(vol, roi, compute_dtype)
     pd, ph, pw = vol.shape[:3]
-    vol = vol.to(compute_dtype)
     starts = [tuple(int(v) for v in s)
               for s in dense_patch_starts((pd, ph, pw), roi, overlap)]
-    imp = torch.from_numpy(_importance(roi, blend, sigma_scale)[..., None]
-                           ).to(vol.device)
-    inv_cnt = torch.from_numpy(inverse_coverage(
-        (pd, ph, pw), roi, overlap, blend, sigma_scale)).to(vol.device)
+    imp, inv_cnt = _device_grid_constants((pd, ph, pw), roi, float(overlap),
+                                          blend, float(sigma_scale),
+                                          vol.device)
     acc = torch.zeros((pd, ph, pw, out_channels), dtype=torch.float32,
                       device=vol.device)
     for i in range(0, len(starts), sw_batch):
@@ -124,8 +138,6 @@ def sliding_window_inference(volume, predictor: Callable, *,
         for j, (s0, s1, s2) in enumerate(batch):
             acc[s0:s0 + roi[0], s1:s1 + roi[1], s2:s2 + roi[2]] += \
                 logits[j] * imp
-    out = acc * inv_cnt
-    if any(pad):
-        out = out[pad[0] // 2:pad[0] // 2 + d, pad[1] // 2:pad[1] // 2 + h,
-                  pad[2] // 2:pad[2] // 2 + w]
-    return out
+    start = [before for before, _ in entry_pad((d, h, w), roi)]
+    out = sw_exit(acc, inv_cnt, start, (d, h, w))
+    return out.view(d, h, w * out_channels) if flat_output else out

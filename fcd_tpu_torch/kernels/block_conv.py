@@ -47,6 +47,7 @@ from fcd_tpu_torch.kernels import _build
 from fcd_tpu_torch.kernels.conv_wgrad import conv3d_wgrad
 
 REPLACES = "fcd_tpu/kernels/block_conv.py:909"  # _fused8_call (pallas_call :1000)
+BM = 64  # output voxels per block of csrc/conv3d.cu: rows of its partial sums
 
 
 class ConvOut(NamedTuple):
@@ -172,8 +173,10 @@ def conv3x3(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
     r = None if wr is None else torch.empty_like(y)
 
     def stats():
-        return (torch.zeros((b, cout), dtype=torch.float32, device=dev),
-                torch.zeros((b, cout), dtype=torch.float32, device=dev))
+        # per-voxel-block partial sums, added below in a fixed order
+        rows = (d * h * w + BM - 1) // BM
+        return (torch.empty((rows, b, cout), dtype=torch.float32, device=dev),
+                torch.empty((rows, b, cout), dtype=torch.float32, device=dev))
 
     ysum, ysq = stats() if want_stats else (None, None)
     rsum, rsq = stats() if want_stats and r is not None else (None, None)
@@ -195,6 +198,8 @@ def conv3x3(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
         _build.ptr(rsum), _build.ptr(rsq), b, d, h, w, cout, _build.stream())
     _build.check(err, "conv3d")
     conv3x3.launches += 1
+    ysum, ysq, rsum, rsq = (None if t is None else t.sum(0)
+                            for t in (ysum, ysq, rsum, rsq))
     return ConvOut(y, ysum, ysq, r, rsum, rsq)
 
 

@@ -184,6 +184,11 @@ def _check_tokens(x, w4, ln_scale, ln_bias, pos_embed):
         raise ValueError(f"pos_embed must be ({n}, {c})")
 
 
+def _tile_tokens(c: int) -> int:
+    """Tokens per block of csrc/dsa.cu (its tile_tokens): T * C <= 4096."""
+    return 1 if c >= 4096 else 4096 // c
+
+
 def dsa_phase_a(x, w4, ef, ln_scale, ln_bias, pos_embed,
                 eps: float = 1e-5) -> PhaseA:
     """Phase A wrapper: token reductions (plain on CPU, kernel on CUDA)."""
@@ -197,18 +202,20 @@ def dsa_phase_a(x, w4, ef, ln_scale, ln_bias, pos_embed,
     dev = x.device
     p = ef.shape[1]
     w4b, efb = _bf16(w4, dev), _bf16(ef, dev)
-    out = PhaseA(*(torch.zeros(s, dtype=torch.float32, device=dev) for s in
-                   ((b, c, c), (b, c), (b, c), (b, c, p), (b, c, p))))
+    # one row of partial sums per token tile, added below in a fixed order
+    tiles = (n + _tile_tokens(c) - 1) // _tile_tokens(c)
+    parts = [torch.empty((tiles,) + s, dtype=torch.float32, device=dev)
+             for s in ((b, c, c), (b, c), (b, c), (b, c, p), (b, c, p))]
     # operands stay bound to names until the launch is enqueued
     ops = [x, _f32(pos_embed, dev), _f32(ln_scale, dev), _f32(ln_bias, dev),
-           w4b, efb, *out]
+           w4b, efb, *parts]
     vp_, ci = ctypes.c_void_p, ctypes.c_int
     fn = _fn("fcd_dsa_phase_a", [vp_] * 11 + [ci] * 4 + [ctypes.c_float, vp_])
     err = fn(*(_build.ptr(t) for t in ops), b, n, c, p, float(eps),
              _build.stream())
     _build.check(err, "dsa_phase_a")
     dsa_phase_a.launches += 1
-    return out
+    return PhaseA(*(t.sum(0) for t in parts))
 
 
 def dsa_phase_b(x, w4, qnorm, abig, kpt, vp, gamma, ln_scale, ln_bias,

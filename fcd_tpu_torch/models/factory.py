@@ -30,9 +30,10 @@ def _build_ms_dsa_net(params: Dict[str, Any]) -> MS_DSA_NET:
     )
 
 
-def get_model(params: Dict[str, Any]):
+def get_model(params: Dict[str, Any], return_model: bool = True):
     """Build the configured model; sets params['model_returns_vaeloss'] as
-    the JAX factory does. Returns (model, params)."""
+    the JAX factory does. Returns (model, params), with model None when
+    return_model is False (the JAX factory's signature, :270)."""
     model_type = params["model_type"].lower()
     params["model_returns_vaeloss"] = model_type in ("segresnetvae",
                                                      "segresnetvae_dsa")
@@ -42,4 +43,4 @@ def get_model(params: Dict[str, Any]):
             "port has MS_DSA_NET; the model zoo is queued in ROADMAP.md")
     if model_type != "ms_dsa_net":
         raise ValueError(f"Unknown model_type: {params['model_type']}")
-    return _build_ms_dsa_net(params), params
+    return (_build_ms_dsa_net(params) if return_model else None), params

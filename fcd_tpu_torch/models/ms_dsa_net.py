@@ -121,9 +121,11 @@ class MS_DSA_NET(nn.Module):
         enc = self.encoders
         x1, p1 = enc[0]([x], pool=True)
         x2, p2 = enc[1]([p1], pool=True)
-        x3, p3 = enc[2]([p2], pool=True)
-        x4, p4 = enc[3]([p3], pool=True)
-        x5, p5 = enc[4]([p4], pool=True)
+        # the JAX package pools levels 1-2 through the s2d pool (even tie
+        # split) and levels 3-5 through a jnp.maximum chain (ROADMAP C8)
+        x3, p3 = enc[2]([p2], pool=True, tie="chain")
+        x4, p4 = enc[3]([p3], pool=True, tie="chain")
+        x5, p5 = enc[4]([p4], pool=True, tie="chain")
         x6 = enc[5]([p5])
 
         def attend(li, feat):

@@ -83,9 +83,12 @@ class UnetResBlock(nn.Module):
         w, sh = norm.affine()
         return w.expand(b, -1), sh.expand(b, -1)
 
-    def forward(self, parts: Sequence[torch.Tensor], pool: bool = False):
+    def forward(self, parts: Sequence[torch.Tensor], pool: bool = False,
+                tie: str = "even"):
         """parts: 1 or 2 (B, D, H, W, Ci) tensors whose channel concat is the
-        block input. Returns out, or (out, pooled) with pool=True."""
+        block input. Returns out, or (out, pooled) with pool=True; `tie` is
+        how the pool's gradient splits among tied maxima (`kernels/
+        finale.py`: `even` at levels 1-2, `chain` at levels 3-5)."""
         parts = list(parts)
         widths = [p.shape[-1] for p in parts]
         if sum(widths) != self.in_channels:
@@ -113,7 +116,7 @@ class UnetResBlock(nn.Module):
             scale_r = torch.ones_like(scale2)
             shift_r = torch.zeros_like(shift2)
         return finale(o2.y, r, scale2, shift2, scale_r, shift_r,
-                      NEGATIVE_SLOPE, pool=pool)
+                      NEGATIVE_SLOPE, pool=pool, tie=tie)
 
 
 class UnetrBasicBlock(UnetResBlock):

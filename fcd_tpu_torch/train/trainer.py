@@ -5,8 +5,9 @@ Counterpart of `fcd_tpu/train/trainer.py::ModelTrainer` with what
 seeded initialisation or a fcd_tpu variables tree through `weights.py`,
 `inference(volume)`, `_activate`) and the training step
 (`train_step(images, labels, lr)`, the body of the JAX trainer's epoch
-loop, trainer.py:578-635). The epoch loop, augmentation, the data
-loaders, checkpoints and validation are queued in ROADMAP.md.
+loop, trainer.py:578-635), and `load_model` of a JAX-written checkpoint
+(`train/checkpoint.py`). The epoch loop, augmentation, the data loaders,
+saving with the optimizer state and validation are queued in ROADMAP.md.
 
 `train_step` returns the loss as a device tensor and never waits for the
 card, as the JAX trainer fetches each step's loss one step late. Its
@@ -37,6 +38,7 @@ from fcd_tpu_torch.config import get_default_params
 from fcd_tpu_torch.infer.sliding_window import sliding_window_inference
 from fcd_tpu_torch.losses.combined import make_combined_loss
 from fcd_tpu_torch.models.factory import get_model
+from fcd_tpu_torch.train.checkpoint import load_checkpoint
 from fcd_tpu_torch.train.state import make_optimizer, make_train_step
 from fcd_tpu_torch.weights import load_flax_variables
 
@@ -87,6 +89,19 @@ class ModelTrainer:
     def load_variables(self, variables) -> None:
         """Take the weights of a fcd_tpu variables tree (numpy leaves)."""
         load_flax_variables(self.model, variables)
+
+    def load_model(self, path: str, with_optimizer: bool = False):
+        """Load the weights of a checkpoint the JAX package (or
+        `checkpoint.save_checkpoint`) wrote. Returns its epoch (None if it
+        has none). The optimizer state is not read yet (ROADMAP Queue
+        A2)."""
+        if with_optimizer:
+            raise NotImplementedError(
+                "restoring the optimizer state is queued in ROADMAP.md "
+                "(Queue A2); load with with_optimizer=False")
+        variables, epoch, _ = load_checkpoint(path)
+        self.load_variables(variables)
+        return epoch
 
     @torch.no_grad()
     def predict(self, patches: torch.Tensor) -> torch.Tensor:

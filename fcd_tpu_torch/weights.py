@@ -146,10 +146,14 @@ def load_transformer_block(tb: TransformerBlock, p: Tree, bs: Tree):
 
 
 def load_flax_variables(model, variables: Tree) -> None:
-    """Copy a fcd_tpu MS_DSA_NET variables tree into the port's model."""
-    _load(model_entries(model), {"params": variables["params"],
-                                 "batch_stats": variables.get("batch_stats",
-                                                              {})})
+    """Copy a fcd_tpu MS_DSA_NET variables tree into the port's model. A
+    tree without batch_stats (a params-only checkpoint) leaves the running
+    statistics as they are."""
+    entries = model_entries(model)
+    if not variables.get("batch_stats"):
+        entries = (e for e in entries if e[0] == "params")
+    _load(entries, {"params": variables["params"],
+                    "batch_stats": variables.get("batch_stats", {})})
 
 
 def export_flax_variables(model) -> Dict[str, Any]:

@@ -194,6 +194,91 @@ def test_finale_bwd_kernel_matches_plain(dev, pool):
         assert _rel(g_, w_) < 1e-2
 
 
+def test_finale_bwd_chain_kernel_matches_plain(dev):
+    """K2's `chain` tie split (levels 3-5) on tied inputs: small integers
+    with dyadic affines, exact in f32 whether or not a multiply-add is
+    contracted, so kernel and plain version see the same ties."""
+    from fcd_tpu_torch.kernels.finale import finale_bwd, finale_bwd_plain
+
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bf = torch.bfloat16
+    ys = torch.randint(-2, 3, (2, 6, 8, 10, 40), generator=gen,
+                       device=dev).to(bf)
+    rs = torch.randint(-1, 2, (2, 6, 8, 10, 40), generator=gen,
+                       device=dev).to(bf)
+    aff = [torch.full((2, 40), 0.5, device=dev),
+           torch.randint(-8, 9, (2, 40), generator=gen, device=dev) / 8.0,
+           torch.ones(2, 40, device=dev), torch.zeros(2, 40, device=dev)]
+    gp = _randn(gen, dev, 2, 6, 8, 10, 40, dtype=bf)
+    gq = _randn(gen, dev, 2, 3, 4, 5, 40, dtype=bf)
+    got = finale_bwd(ys, rs, *aff, gp, gq, 0.01, tie="chain")
+    want = finale_bwd_plain(ys, rs, *aff, gp, gq, 0.01, tie="chain")
+    even = finale_bwd_plain(ys, rs, *aff, gp, gq, 0.01, tie="even")
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    for g_, w_ in zip(got[1:], want[1:]):
+        assert _rel(g_, w_) < 1e-5
+    assert not torch.equal(want[0], even[0])
+
+
+def test_forward_sums_are_reproducible(dev):
+    """B1's statistics and B5 phase A's token sums are added in a fixed
+    order: two launches on the same inputs give the same bits."""
+    from fcd_tpu_torch.kernels import dsa_attention as dk
+    from fcd_tpu_torch.kernels.block_conv import conv3x3
+
+    gen = torch.Generator(device=dev).manual_seed(10)
+    bf = torch.bfloat16
+    x = _randn(gen, dev, 2, 12, 10, 14, 16, dtype=bf)
+    w = _randn(gen, dev, 3, 3, 3, 16, 32, scale=0.2, dtype=bf)
+    wr = _randn(gen, dev, 16, 32, scale=0.3, dtype=bf)
+    a = conv3x3([x], [w], shortcut=[wr], want_stats=True)
+    b = conv3x3([x], [w], shortcut=[wr], want_stats=True)
+    for name in ("ysum", "ysq", "rsum", "rsq"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    n, c, p = 700, 32, 64
+    t = _randn(gen, dev, 2, n, c, dtype=bf)
+    w4 = _randn(gen, dev, 4, c, c, scale=0.2, dtype=bf)
+    ef = _randn(gen, dev, n, p, scale=0.05, dtype=bf)
+    args = (t, w4, ef, torch.ones(c, device=dev), torch.zeros(c, device=dev),
+            _randn(gen, dev, n, c, scale=0.1))
+    for g_, w_ in zip(dk.dsa_phase_a(*args), dk.dsa_phase_a(*args)):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.parametrize("shape,roi,dtype", [
+    ((10, 16, 8, 2), (8, 16, 8), torch.bfloat16),
+    ((10, 12, 7, 2), (16, 16, 8), torch.bfloat16),
+    ((9, 12, 7, 3), (16, 8, 8), torch.float32)])
+def test_sw_entry_kernel_matches_plain(dev, shape, roi, dtype):
+    from fcd_tpu_torch.kernels.sw_io import sw_entry, sw_entry_plain
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    vol = _randn(gen, dev, *shape, scale=3.0)
+    before = sw_entry.launches
+    got = sw_entry(vol, roi, dtype)
+    want = sw_entry_plain(vol, roi, dtype)
+    torch.cuda.synchronize()
+    assert sw_entry.launches == before + 1
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("start,size", [((0, 0, 0), (10, 12, 14)),
+                                        ((1, 2, 3), (7, 9, 8))])
+def test_sw_exit_kernel_matches_plain(dev, start, size):
+    from fcd_tpu_torch.kernels.sw_io import sw_exit, sw_exit_plain
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    acc = _randn(gen, dev, 10, 12, 14, 2)
+    inv = torch.rand(10, 12, 14, 1, generator=gen, device=dev) + 0.1
+    before = sw_exit.launches
+    got = sw_exit(acc, inv, start, size)
+    want = sw_exit_plain(acc, inv, start, size)
+    torch.cuda.synchronize()
+    assert sw_exit.launches == before + 1
+    assert got.is_contiguous() and torch.equal(got, want)
+
+
 @pytest.mark.parametrize("n,c,h,p,rate", [(300, 32, 4, 64, 0.0),
                                           (300, 32, 4, 64, 0.1),
                                           (64, 256, 4, 32, 0.1)])

@@ -1,10 +1,11 @@
 """Package rules of the port (CPU).
 
 (e) importing every module of fcd_tpu_torch loads none of jax, flax,
-fcd_tpu or triton, and no file of the port (nor chip_smoke.py) has an
-import statement naming them;
+optax, msgpack, fcd_tpu or triton, and no file of the port (nor
+chip_smoke.py) has an import statement naming them;
 (f) entry points run on CUDA unless the caller asks for the CPU: without a
-card, ModelTrainer() raises instead of falling back.
+card, ModelTrainer() and the CLI's run_inference raise instead of falling
+back.
 """
 
 import ast
@@ -20,7 +21,7 @@ import torch
 import fcd_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "fcd_tpu", "triton")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "fcd_tpu", "triton")
 
 
 def _port_modules():
@@ -30,7 +31,11 @@ def _port_modules():
 
 def test_import_leaves_jax_and_triton_out():
     mods = ["fcd_tpu_torch"] + _port_modules()
-    assert "fcd_tpu_torch.kernels.block_conv" in mods
+    for m in ("kernels.block_conv", "kernels.sw_io", "cli.infer", "cli.args",
+              "data.nifti", "data.preprocess", "data.manifest",
+              "postproc.native", "postproc.morphology", "postproc.segment",
+              "train.checkpoint"):
+        assert f"fcd_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -57,7 +62,7 @@ def test_no_forbidden_import_statements():
     files.append(ROOT / "chip_smoke.py")
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f)
-           if mod in ("jax", "flax", "optax", "fcd_tpu")]
+           if mod in ("jax", "flax", "optax", "msgpack", "fcd_tpu")]
     assert bad == []
 
 
@@ -81,6 +86,19 @@ def test_model_trainer_raises_without_cuda(monkeypatch):
         ModelTrainer()
     with pytest.raises(RuntimeError, match="CUDA"):
         ModelTrainer(device="cuda")
+
+
+def test_run_inference_raises_without_cuda(monkeypatch, tmp_path):
+    from fcd_tpu_torch.cli.infer import main, run_inference
+    from fcd_tpu_torch.config import get_default_params
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_inference(str(tmp_path), str(tmp_path / "out"), "",
+                      get_default_params())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--data_dir", str(tmp_path), "--save_dir", str(tmp_path),
+              "--checkpoint_path", ""])
 
 
 def test_kernel_wrappers_take_plain_version_only_on_cpu():
@@ -113,6 +131,13 @@ def test_train_kernel_wrappers_refuse_other_devices():
         sa.spatial_attn_fwd(q, k, v, 2, 0, 0.0)
     with pytest.raises(ValueError, match="unsupported device"):
         sa.spatial_attn_bwd(q, k, v, q, 2, 0, 0.0)
+    from fcd_tpu_torch.kernels.sw_io import sw_entry, sw_exit
+
+    vol = torch.zeros(2, 2, 2, 2, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        sw_entry(vol, (4, 4, 4), torch.bfloat16)
+    with pytest.raises(ValueError, match="unsupported device"):
+        sw_exit(vol, vol[..., :1], (0, 0, 0), (2, 2, 2))
     # on the CPU the plain versions run
     x = torch.randn(1, 2, 2, 2, 4)
     assert conv3d_wgrad(x, x).shape == (27, 4, 4)
