@@ -35,7 +35,17 @@ Run from the repository root:
    mask, holds the logits bit for bit against a direct
    ModelTrainer.inference of the same preprocessed array, and prints the
    seconds per phase.
-6. Prints the `kernels` JSON line, the card line, and last
+6. Drives the JAX package's kernel-choosing gates (`params['perf_flags']`,
+   fcd_tpu_torch/flags.py) through the same entry points, from the same
+   weights: with the levels-1-2 pool in a pass of its own
+   (FCD_FINALE_POOL=0, FCD_FINALE_TRAIN=0) the inference's logits bit for
+   bit against the default run's, and a train step at 4x128^3 plus the
+   1x64^3 check against the fp32 CPU step; with FCD_FUSED_HEAD=1 the
+   inference's logits against the default run's (the fused head rounds
+   once). Each with its launch counts (B3, B9, B15), and ms/volume and
+   ms/step timed in turns against the default path on the same card.
+   Later phases run the default gates.
+7. Prints the `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -444,6 +454,87 @@ def finale_bwd_chain_phase(label, dev, gen, batch, grid, c, iters=10):
     return ph
 
 
+def pool2x_phase(label, dev, gen, batch, grid, c, iters=10):
+    """B3 at one shape, bit-equal to its plain version (a max is exact)."""
+    import torch
+    import torch.nn.functional as F
+
+    from fcd_tpu_torch.kernels.pool2x import max_pool2x, max_pool2x_plain
+
+    bf = torch.bfloat16
+    nvox = batch * grid[0] * grid[1] * grid[2]
+    x = _randn((batch, *grid, c), gen, dev, dtype=bf)
+    ph = Phase("max_pool2x", label, 7 * nvox * c // 8,
+               2 * nvox * c + 2 * nvox * c // 8)
+    ph.check_equal("pooled", max_pool2x(x), max_pool2x_plain(x))
+    ph.ms = timed_ms(lambda: max_pool2x(x), iters)
+    ph.plain_ms = timed_ms(lambda: max_pool2x_plain(x), iters)
+    # library yardstick, timed only: max_pool3d of the channels-last view
+    xin = x.permute(0, 4, 1, 2, 3)
+    ph.library_ms = timed_ms(lambda: F.max_pool3d(xin, 2, 2), iters)
+    ph.report()
+    return ph
+
+
+def pool2x_bwd_phase(label, dev, gen, batch, grid, c, iters=10):
+    """B9 at one shape on inputs that hold exact ties (small integers):
+    bit-equal to its plain version (one f32 division per tied child)."""
+    import torch
+
+    from fcd_tpu_torch.kernels.pool2x import (
+        max_pool2x_bwd,
+        max_pool2x_bwd_plain,
+    )
+    from fcd_tpu_torch.ops.layers import blocks_2x
+
+    bf = torch.bfloat16
+    nvox = batch * grid[0] * grid[1] * grid[2]
+    pgrid = tuple(v // 2 for v in grid)
+    x = torch.randint(-3, 4, (batch, *grid, c), generator=gen,
+                      device=dev).to(bf)
+    g = _randn((batch, *pgrid, c), gen, dev, dtype=bf)
+    xb = blocks_2x(x.float())
+    ties = (xb == xb.amax(dim=4, keepdim=True)).sum(dim=4)
+    hist = torch.bincount(ties.flatten(), minlength=9)[1:].tolist()
+    print(f"  max_pool2x_bwd {label}: blocks by ties 1..8 {hist}")
+    if min(hist[1], hist[2]) == 0:
+        raise AssertionError("the inputs hold no 2- or 3-way ties")
+    ph = Phase("max_pool2x_bwd", label, 4 * nvox * c,
+               2 * nvox * c + 2 * nvox * c // 8 + 2 * nvox * c)
+    ph.check_equal("dx", max_pool2x_bwd(x, g), max_pool2x_bwd_plain(x, g))
+    ph.ms = timed_ms(lambda: max_pool2x_bwd(x, g), iters)
+    ph.plain_ms = timed_ms(lambda: max_pool2x_bwd_plain(x, g), 2)
+    ph.report()
+    return ph
+
+
+def finale_head_phase(label, dev, gen, grid, c, o, iters=10):
+    """B15 at one shape: rel 1e-2 of max|logit| against its plain version
+    (the same activations and products; f32 sums in another order)."""
+    import torch
+
+    from fcd_tpu_torch.kernels.finale_head import (
+        finale_head,
+        finale_head_plain,
+    )
+
+    bf = torch.bfloat16
+    nvox = grid[0] * grid[1] * grid[2]
+    y2 = _randn((1, *grid, c), gen, dev, dtype=bf)
+    r = _randn((1, *grid, c), gen, dev, dtype=bf)
+    aff = [_randn((1, c), gen, dev) for _ in range(4)]
+    w = _randn((c, o), gen, dev, (2.0 / o) ** 0.5)
+    bias = _randn((o,), gen, dev)
+    args = (y2, r, *aff, w, bias, 0.01)
+    ph = Phase("finale_head", label, nvox * (5 * c + 2 * c * o + o),
+               2 * 2 * nvox * c + 2 * nvox * o + 4 * (4 * c + c * o + o))
+    ph.check("logits", finale_head(*args), finale_head_plain(*args), 1e-2)
+    ph.ms = timed_ms(lambda: finale_head(*args), iters)
+    ph.plain_ms = timed_ms(lambda: finale_head_plain(*args), iters)
+    ph.report()
+    return ph
+
+
 CLI_SHAPE = (176, 225, 240)   # the CLI phase's volume after RAS and 1 mm
 
 
@@ -589,6 +680,17 @@ def kernel_phases(dev, gen, small: bool = False):
     phases += spatial_attn_phases("level6 4xN=64 C=256 hP=128", dev, gen, b,
                                   64, 256, 32)
     phases += sw_io_phases(dev, gen, s(*CLI_SHAPE), roi=8 if small else 128)
+    # the gated paths' kernels (FCD_FINALE_POOL=0 / FCD_FINALE_TRAIN=0,
+    # FCD_FUSED_HEAD=1)
+    phases += [
+        pool2x_phase("enc1 eval 1x128^3x16", dev, gen, 1, s(128, 128, 128),
+                     16),
+        pool2x_phase("enc2 train 4x64^3x32", dev, gen, b, s(64, 64, 64), 32),
+        pool2x_bwd_phase("enc1 train 4x128^3x16, tied inputs", dev, gen, b,
+                         s(128, 128, 128), 16),
+        finale_head_phase("dec1 1x128^3x16 -> 2", dev, gen, s(128, 128, 128),
+                          16, 2),
+    ]
     return phases
 
 
@@ -600,7 +702,9 @@ def counters():
         conv_wgrad,
         dsa_attention,
         finale,
+        finale_head,
         pool,
+        pool2x,
         spatial_attn,
         sw_io,
         upsample,
@@ -614,7 +718,10 @@ def counters():
             "dsa_phase_b": dsa_attention.dsa_phase_b,
             "spatial_attn_fwd": spatial_attn.spatial_attn_fwd,
             "spatial_attn_bwd": spatial_attn.spatial_attn_bwd,
-            "sw_entry": sw_io.sw_entry, "sw_exit": sw_io.sw_exit}
+            "sw_entry": sw_io.sw_entry, "sw_exit": sw_io.sw_exit,
+            "max_pool2x": pool2x.max_pool2x,
+            "max_pool2x_bwd": pool2x.max_pool2x_bwd,
+            "finale_head": finale_head.finale_head}
 
 
 def reset_counts():
@@ -631,19 +738,32 @@ def read_counts():
 PER_PATCH = {"conv3d": 46, "conv3d_wgrad": 0, "finale_pool": 23,
              "finale_bwd": 0, "upsample2x": 5, "dsa_phase_a": 12,
              "dsa_phase_b": 12, "spatial_attn_fwd": 0, "spatial_attn_bwd": 0,
-             "sw_entry": 0, "sw_exit": 0}
+             "sw_entry": 0, "sw_exit": 0, "max_pool2x": 0,
+             "max_pool2x_bwd": 0, "finale_head": 0}
 # and per volume: the engine's entry and exit
 PER_VOLUME = {"sw_entry": 1, "sw_exit": 1}
 
+# the gated paths: encoders 1-2 pool in a pass of their own (B3; B9 in
+# training), or the last decoder's finale runs fused with the head (B15)
+POOL_GATES = {"FCD_FINALE_POOL": "0", "FCD_FINALE_TRAIN": "0"}
+HEAD_GATES = {"FCD_FUSED_HEAD": "1"}
 
-def per_volume(n_patches: int) -> dict:
-    """Launches of one sliding-window inference over n_patches patches."""
-    out = {k: v * n_patches for k, v in PER_PATCH.items()}
+
+def per_volume(n_patches: int, perf_flags=None) -> dict:
+    """Launches of one sliding-window inference over n_patches patches
+    under perf_flags (POOL_GATES, HEAD_GATES or the defaults)."""
+    patch = dict(PER_PATCH)
+    if perf_flags == POOL_GATES:
+        patch["max_pool2x"] = 2
+    elif perf_flags == HEAD_GATES:
+        patch["finale_pool"] -= 1
+        patch["finale_head"] = 1
+    out = {k: v * n_patches for k, v in patch.items()}
     out.update(PER_VOLUME)
     return out
 
 
-def per_train_step() -> dict:
+def per_train_step(perf_flags=None) -> dict:
     """Launches of one MS_DSA_NET train step, from the model's structure:
     6 encoders (the first convolves the image, which needs no gradient),
     4 levels x 3 transformer conv blocks (one part each) and 5
@@ -652,16 +772,19 @@ def per_train_step() -> dict:
     per transformer. Backward: per block, conv2's data gradient and one
     per conv1 part whose input needs one (B1), one weight gradient per
     part of conv1 and one for conv2 (K1), the finale's (K2); the
-    spatial tails' (K4). The upsample backward is two matmuls."""
+    spatial tails' (K4). The upsample backward is two matmuls. Under
+    POOL_GATES encoders 1-2 also pool in a pass of their own (B3, B9)."""
     enc, tb, dec = 6, 4 * 3, 5
     blocks = enc + tb + dec
     dgrad = 1 + 2 * (enc - 1) + 2 * tb + 3 * dec
+    own_pass = 2 if perf_flags == POOL_GATES else 0   # encoders 1-2
     return {"conv3d": 2 * blocks + dgrad,
             "conv3d_wgrad": 2 * enc + 2 * tb + 3 * dec,
             "finale_pool": blocks, "finale_bwd": blocks, "upsample2x": dec,
             "dsa_phase_a": 0, "dsa_phase_b": 0,
             "spatial_attn_fwd": tb, "spatial_attn_bwd": tb,
-            "sw_entry": 0, "sw_exit": 0}
+            "sw_entry": 0, "sw_exit": 0, "max_pool2x": own_pass,
+            "max_pool2x_bwd": own_pass, "finale_head": 0}
 
 
 # bf16 activations rounded through ~50 layers against an fp32 forward: on
@@ -740,7 +863,85 @@ def slice_run(dev, card, params=None, vol_shape=(182, 218, 182)):
           flush=True)
     if not ok:
         raise AssertionError("card logits disagree with the fp32 CPU forward")
-    return launches, trainer, patch
+    return launches, trainer, patch, vol, out
+
+
+# The fused head adds its f32 bias before one rounding, the default head
+# rounds the product and then the sum with the bias in bf16: the logits
+# differ by up to about one bf16 ulp of the logits' scale.
+HEAD_REL_TOL = 1e-2
+HEAD_ARGMAX_AGREE = 0.999
+
+
+def gated_inference_run(dev, card, base, vol, want) -> dict:
+    """ModelTrainer.inference under POOL_GATES and under HEAD_GATES, with
+    the default run's weights (`base`, its logits `want`) on the same
+    volume. Returns {path: launch counts}."""
+    import torch
+
+    from fcd_tpu_torch.infer.sliding_window import dense_patch_starts
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    roi = (base.params["patch_size"],) * 3
+    n_patches = len(dense_patch_starts(vol.shape[:3], roi,
+                                       base.params["sw_overlap"]))
+    out = {}
+    trainers = {"default": base}
+    for path, gates in (("inference, pool in its own pass", POOL_GATES),
+                        ("inference, fused head", HEAD_GATES)):
+        params = copy.deepcopy(base.params)
+        params["perf_flags"] = dict(gates)
+        trainer = ModelTrainer(params, device=dev)
+        trainer.model.load_state_dict(base.model.state_dict())
+        trainer.inference(vol)
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = trainer.inference(vol)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = read_counts()
+        print(f"gated: {path} (perf_flags {gates}): {ms:.1f} ms/volume, "
+              f"{1e3 / ms:.3f} vol/s on {card}", flush=True)
+        expect = per_volume(n_patches, gates)
+        print(f"  launches {launches} (expected {expect})")
+        if dev.type == "cuda" and launches != expect:
+            raise AssertionError(f"{path}: launch counts {launches} != "
+                                 f"{expect}")
+        if gates == POOL_GATES:
+            same = torch_equal(got, want)
+            a, _ = rel_err(got, want)
+            print(f"  logits vs the default path: bit-equal {same} "
+                  f"(max_abs_err {a:.3e}) {'ok' if same else 'FAIL'}",
+                  flush=True)
+            if not same:
+                raise AssertionError(f"{path}: logits differ from the "
+                                     "default path's")
+        else:
+            a, r = rel_err(got, want)
+            agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+            ok = r <= HEAD_REL_TOL and agree >= HEAD_ARGMAX_AGREE
+            print(f"  logits vs the default path: max_abs_err {a:.3e} rel "
+                  f"{r:.3e} (tol {HEAD_REL_TOL}), argmax agreement "
+                  f"{agree:.6f} (min {HEAD_ARGMAX_AGREE}) "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise AssertionError(f"{path}: logits disagree with the "
+                                     "default path's")
+        out[path] = launches
+        trainers[path] = trainer
+        del got
+    times = {n: [] for n in trainers}
+    for name in (list(trainers) + list(trainers)[::-1]) * 2:
+        sync(dev)
+        t0 = time.perf_counter()
+        trainers[name].inference(vol)
+        sync(dev)
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    print(f"inference A/B on {card}, ms/volume in turns: " + "; ".join(
+        f"{n} {[round(t, 1) for t in ts]}" for n, ts in times.items()),
+        flush=True)
+    return out
 
 
 # -- the segmentation CLI -------------------------------------------------------
@@ -911,7 +1112,8 @@ def cli_run(dev, card, params=None, native_shape=CLI_NATIVE):
 PROFILE_KEYS = ("conv3d_kernel", "wgrad_kernel", "finale_bwd_kernel",
                 "finale_kernel", "upsample_kernel", "dsa_phase_a",
                 "dsa_phase_b", "spatial_attn_fwd", "spatial_attn_bwd",
-                "sw_entry_kernel", "sw_exit_kernel")
+                "sw_entry_kernel", "sw_exit_kernel", "pool_fwd_kernel",
+                "pool_bwd_kernel", "finale_head_kernel")
 
 
 def profile_run(label, fn, dev) -> dict:
@@ -953,11 +1155,12 @@ def profile_run(label, fn, dev) -> dict:
 TRAIN_BATCH, TRAIN_STEPS = 4, 3
 
 
-def train_params(patch_size=128):
+def train_params(patch_size=128, perf_flags=None):
     from fcd_tpu_torch.config import get_default_params
 
     params = get_default_params()
-    params.update(patch_size=patch_size, loss="DiceCELoss")
+    params.update(patch_size=patch_size, loss="DiceCELoss",
+                  perf_flags=dict(perf_flags or {}))
     return params
 
 
@@ -974,15 +1177,15 @@ def train_batch(dev, batch, size, chans):
     return x, y
 
 
-def train_run(dev, card):
-    """The train step at batch 4 x 128^3: warm-up, then timed steps with
-    the launch counters read around them."""
+def train_run(dev, card, perf_flags=None):
+    """The train step at batch 4 x 128^3 (under perf_flags): warm-up, then
+    timed steps with the launch counters read around them."""
     import torch
 
     from fcd_tpu_torch.train.schedule import epoch_lr
     from fcd_tpu_torch.train.trainer import ModelTrainer
 
-    params = train_params()
+    params = train_params(perf_flags=perf_flags)
     trainer = ModelTrainer(params, device=dev)
     lr = epoch_lr(params, params["warmup_epochs"])
     x, y = train_batch(dev, TRAIN_BATCH, params["patch_size"],
@@ -1004,7 +1207,8 @@ def train_run(dev, card):
     vals = [float(v) for v in losses]
     peak_gb = (torch.cuda.max_memory_allocated() / 1e9
                if dev.type == "cuda" else 0.0)
-    print(f"train: ModelTrainer.train_step, batch {TRAIN_BATCH}x"
+    print(f"train: ModelTrainer.train_step (perf_flags "
+          f"{params['perf_flags']}), batch {TRAIN_BATCH}x"
           f"{params['patch_size']}^3x{params['chans_in']}, DiceCELoss, "
           f"AdamW lr {lr:g}: {ms:.1f} ms/step, "
           f"{TRAIN_BATCH * 1e3 / ms:.3f} patches/s on {card} (first step, "
@@ -1012,11 +1216,34 @@ def train_run(dev, card):
           f"losses {[round(v, 5) for v in vals]}", flush=True)
     if not all(torch.isfinite(torch.tensor(vals))):
         raise AssertionError(f"train losses not finite: {vals}")
-    want = {k: v * TRAIN_STEPS for k, v in per_train_step().items()}
+    want = {k: v * TRAIN_STEPS
+            for k, v in per_train_step(perf_flags).items()}
     print(f"  launches over {TRAIN_STEPS} steps {launches} (expected {want})")
     if dev.type == "cuda" and launches != want:
         raise AssertionError(f"train launch counts {launches} != {want}")
     return launches, trainer, (x, y, lr)
+
+
+def train_ab(card, trainers, batch, rounds=2) -> dict:
+    """ms/step of each trainer ({path: trainer}) measured in turns on one
+    card, A B B A per round, TRAIN_STEPS synchronised steps a turn."""
+    import torch
+
+    x, y, lr = batch
+    names = list(trainers)
+    times = {n: [] for n in names}
+    with torch.enable_grad():
+        for name in (names + names[::-1]) * rounds:
+            sync(x.device)
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS):
+                trainers[name].train_step(x, y, lr)
+            sync(x.device)
+            times[name].append((time.perf_counter() - t0) * 1e3 / TRAIN_STEPS)
+    print(f"train A/B on {card}, ms/step in turns: " + "; ".join(
+        f"{n} {[round(t, 1) for t in ts]}" for n, ts in times.items()),
+        flush=True)
+    return times
 
 
 # The card's train step (bf16) against the port's fp32 CPU step from the
@@ -1062,16 +1289,17 @@ def _grad_distance(model, ref) -> dict:
     return out
 
 
-def train_check(dev) -> None:
+def train_check(dev, perf_flags=None) -> None:
     """One train step on the card (bf16) against the port's fp32 CPU step
-    from the same weights, batch 1 x 64^3 at full widths; the port's bf16
-    CPU step gives the distance bf16 arithmetic itself takes."""
+    from the same weights, batch 1 x 64^3 at full widths, all three under
+    perf_flags; the port's bf16 CPU step gives the distance bf16
+    arithmetic itself takes."""
     import torch
 
     from fcd_tpu_torch.train.trainer import ModelTrainer
 
     size = TRAIN_CHECK_SIZE
-    params = train_params(size)
+    params = train_params(size, perf_flags)
     trainers = [ModelTrainer(params, device=d) for d in (dev, "cpu", "cpu")]
     gen = torch.Generator().manual_seed(SEED + 3)
     with torch.no_grad():
@@ -1110,7 +1338,8 @@ def train_check(dev) -> None:
         ok = ok and good
         lines.append(f"{key} {rel:.2e}/{cos:.5f} (bf16 CPU {ref_rel:.2e}/"
                      f"{ref_cos:.5f}){'' if good else ' FAIL'}")
-    print(f"train check: 1x{size}^3 step, card bf16 vs CPU fp32: loss "
+    print(f"train check (perf_flags {params['perf_flags']}): 1x{size}^3 "
+          f"step, card bf16 vs CPU fp32: loss "
           f"{card:.6f} vs {fp32:.6f} rel {rel_loss:.2e} (tol "
           f"{TRAIN_LOSS_REL_TOL}; the bf16 CPU step {bf16:.6f}); grads "
           f"rel-L2/cosine per group, head {d_card['head'][0]:.2e} (tol "
@@ -1124,6 +1353,23 @@ def train_check(dev) -> None:
                              "CPU step")
 
 
+# TPU kernels whose function a kernel of the port computes (ROADMAP Queue
+# B, "by function"): B12 padded27, B11, B12 aligned, B14 and B18 are B1's
+# conv; B7's o2a form and B13 are K1's weight gradient; B8's forward is
+# B2's finale; B16 is B4's upsample.
+BY_FUNCTION = {
+    "conv3d": ["fcd_tpu/kernels/block_conv.py:329",    # blocked_conv_s2d_padded27
+               "fcd_tpu/kernels/block_conv.py:465",    # blocked_conv_s2d_fused
+               "fcd_tpu/kernels/block_conv.py:1701",   # blocked_conv_s2d_aligned
+               "fcd_tpu/kernels/block_conv.py:1732",   # _blocked_conv_s2d
+               "fcd_tpu/kernels/block_conv.py:1116"],  # _halo_pad
+    "conv3d_wgrad": ["fcd_tpu/kernels/block_conv.py:1435",  # blocked_conv_o2a_dw
+                     "fcd_tpu/kernels/block_conv.py:1626"],  # blocked_conv_s2d_dw
+    "finale_pool": ["fcd_tpu/kernels/finale.py:70"],         # finale_fwd_pallas
+    "upsample2x": ["fcd_tpu/kernels/upsample.py:61"],        # upsample_s2d_pallas
+}
+
+
 def kernels_json(phases, by_path):
     """by_path: {path: launch counts of that path's run}; `launches` sums
     the paths, `launches_by_path` keeps them apart."""
@@ -1131,7 +1377,9 @@ def kernels_json(phases, by_path):
     import fcd_tpu_torch.kernels.conv_wgrad as k1
     import fcd_tpu_torch.kernels.dsa_attention as b5
     import fcd_tpu_torch.kernels.finale as k2
+    import fcd_tpu_torch.kernels.finale_head as b15
     import fcd_tpu_torch.kernels.pool as b2
+    import fcd_tpu_torch.kernels.pool2x as b3b9
     import fcd_tpu_torch.kernels.spatial_attn as k34
     import fcd_tpu_torch.kernels.sw_io as sw_io
     import fcd_tpu_torch.kernels.upsample as b4
@@ -1154,6 +1402,12 @@ def kernels_json(phases, by_path):
         "sw_entry": ("cuda", "fcd_tpu_torch/csrc/sw_io.cu",
                      sw_io.REPLACES_ENTRY),
         "sw_exit": ("cuda", "fcd_tpu_torch/csrc/sw_io.cu", sw_io.REPLACES_EXIT),
+        "max_pool2x": ("triton", "fcd_tpu_torch/kernels/pool2x.py",
+                       b3b9.REPLACES_FWD),
+        "max_pool2x_bwd": ("triton", "fcd_tpu_torch/kernels/pool2x.py",
+                           b3b9.REPLACES_BWD),
+        "finale_head": ("cuda", "fcd_tpu_torch/csrc/finale_head.cu",
+                        b15.REPLACES),
     }
     out = []
     for name, (route, source, replaces) in meta.items():
@@ -1163,6 +1417,7 @@ def kernels_json(phases, by_path):
         out.append({
             "name": name, "route": route, "source": source,
             "replaces": replaces,
+            "also_replaces": BY_FUNCTION.get(name, []),
             "launches": sum(c.get(name, 0) for c in by_path.values()),
             "launches_by_path": {k: c.get(name, 0)
                                  for k, c in by_path.items()},
@@ -1203,24 +1458,40 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     phases = kernel_phases(dev, gen)
     torch.cuda.empty_cache()
-    launches, trainer, patch = slice_run(dev, card)
+    launches, trainer, patch, vol, logits = slice_run(dev, card)
+    by_path = {"inference": launches}
+    by_path.update(gated_inference_run(dev, card, trainer, vol, logits))
+    del vol, logits
     x = patch.to(dev)
     profile_run(f"one {tuple(patch.shape[1:4])} patch forward",
                 lambda: trainer.predict(x), dev)
     del trainer, x
     torch.cuda.empty_cache()
-    train_launches, trainer, (xb, yb, lr) = train_run(dev, card)
+    by_path["train"], trainer, batch = train_run(dev, card)
     with torch.enable_grad():
         profile_run(f"one train step, batch {TRAIN_BATCH}x128^3",
-                    lambda: trainer.train_step(xb, yb, lr), dev)
-    del trainer, xb, yb
-    torch.cuda.empty_cache()
+                    lambda: trainer.train_step(*batch), dev)
     train_check(dev)
+    gated = "train, pool in its own pass"
+    by_path[gated], gtrainer, _ = train_run(dev, card, POOL_GATES)
+    train_ab(card, {"default": trainer, gated: gtrainer}, batch)
+    with torch.enable_grad():
+        profile_run(f"one train step, batch {TRAIN_BATCH}x128^3, {gated}",
+                    lambda: gtrainer.train_step(*batch), dev)
+    del trainer, gtrainer, batch
     torch.cuda.empty_cache()
-    cli_launches = cli_run(dev, card)
-    print(json.dumps(kernels_json(
-        phases, {"inference": launches, "train": train_launches,
-                 "cli": cli_launches})))
+    train_check(dev, POOL_GATES)
+    torch.cuda.empty_cache()
+    # the gates live in each trainer's model: a trainer built from the
+    # default params runs the default path again
+    from fcd_tpu_torch import flags
+
+    defaults = flags.model_gates(flags.resolve({}))
+    if defaults != {"pool_in_finale": (True, True), "fused_head": False,
+                    "levels12_tie": "even"}:
+        raise AssertionError(f"the default gates resolve to {defaults}")
+    by_path["cli"] = cli_run(dev, card)
+    print(json.dumps(kernels_json(phases, by_path)))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,9 @@
 The port keeps its own copy so that it never imports the JAX package. The
 keys and defaults are the same, so a params dict built for one package
 configures the other. Keys that only steer TPU formulations
-(`perf_flags`, `sw_bucket*`, `mesh_data`, ...) are accepted and ignored.
+(`sw_bucket*`, `mesh_data`, ...) are accepted and ignored. `perf_flags`
+is honoured: the model factory resolves it against the exported `FCD_*`
+variables when a trainer builds its model (`fcd_tpu_torch/flags.py`).
 """
 
 from __future__ import annotations
@@ -122,10 +124,11 @@ def get_default_params() -> Dict[str, Any]:
     # epoch CSV/wandb row (gnorm_*/pnorm_* columns)
     params['log_layer_norms'] = False
 
-    # Performance gates ({FCD_* gate: value}), applied as process defaults
-    # at trainer/CLI startup; explicitly exported FCD_* env vars win.
-    # The full registry (defaults, semantics, status) lives in
-    # fcd_tpu/flags.py — `python -m fcd_tpu.flags` prints the knob table.
+    # Performance gates ({FCD_* gate: value}), resolved when a trainer
+    # builds its model; explicitly exported FCD_* env vars win, and
+    # os.environ is never written. The registry (defaults, semantics, what
+    # each gate does in the port) lives in fcd_tpu_torch/flags.py —
+    # `python -m fcd_tpu_torch.flags` prints the knob table.
     params['perf_flags'] = {}
 
     return params

@@ -3,14 +3,17 @@
 Counterpart of `fcd_tpu/models/factory.py::get_model` for the model the
 port has, MS_DSA_NET with the JAX factory's settings (res blocks,
 instance norm, leaky-ReLU 0.01, no conv bias, pos-embed, 3 transformer
-layers per level, attention dropout 0.1). The rest of the zoo is queued in
-ROADMAP.md.
+layers per level, attention dropout 0.1), and with the JAX package's
+performance gates (`params['perf_flags']`, exported `FCD_*` variables)
+resolved now and frozen into the model (`fcd_tpu_torch/flags.py`). The
+rest of the zoo is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict
 
+from fcd_tpu_torch import flags
 from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET, _triple
 
 _ZOO = {"ms_dsa_net_ps", "baseunet", "segresnet", "segresnetvae",
@@ -19,6 +22,7 @@ _ZOO = {"ms_dsa_net_ps", "baseunet", "segresnet", "segresnetvae",
 
 
 def _build_ms_dsa_net(params: Dict[str, Any]) -> MS_DSA_NET:
+    gates = flags.resolve(params.get("perf_flags"))
     return MS_DSA_NET(
         out_channels=params["chans_out"],
         img_size=_triple(params["patch_size"]),
@@ -27,6 +31,7 @@ def _build_ms_dsa_net(params: Dict[str, Any]) -> MS_DSA_NET:
         project_size=params["project_size"],
         sa_type=params["sa_type"],
         dropout_rate=0.1,
+        **flags.model_gates(gates),
     )
 
 

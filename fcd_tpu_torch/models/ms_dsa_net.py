@@ -7,7 +7,18 @@ ms_dsa_net.py:104-407) on dense channels-last tensors. The TPU package's
 s2d residency, padded-depth chain and lane logic are TPU layout and have no
 counterpart here. Encoders 1-5 emit their 2x max pool from the block
 finale (B2); the decoders' concat is never materialised (B1 sums its two
-parts). `model.train()` runs the training forward: batch statistics in
+parts).
+
+Three decisions of the JAX package's gates change what runs
+(`fcd_tpu_torch/flags.py::model_gates`); the factory resolves them when
+it builds the model and freezes them here: `pool_in_finale` (eval, train)
+says whether encoders 1-2 pool inside their finale or in a pass of their
+own (B3, and B9 backward), `levels12_tie` how that pool's gradient splits
+ties (`chain` keeps the pool in the finale, K2's chain split), and
+`fused_head` whether, at eval, the last decoder's finale and the 1x1 head
+run as one kernel (B15).
+
+`model.train()` runs the training forward: batch statistics in
 the transformers' conv blocks, dropout (`dropout_rate` in the attention,
 0.1 on the conv branch's channels) drawn from `model.dropout_rng`, which
 the trainer seeds each step.
@@ -66,9 +77,14 @@ class MS_DSA_NET(nn.Module):
                  in_channels: int = 2, feature_size: int = 16,
                  project_size: int = 64, num_heads: int = 4,
                  sa_type: str = "parallel", num_layers: int = 3,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0,
+                 pool_in_finale: Tuple[bool, bool] = (True, True),
+                 fused_head: bool = False, levels12_tie: str = "even"):
         super().__init__()
         fs = feature_size
+        self.pool_in_finale = tuple(bool(v) for v in pool_in_finale)
+        self.fused_head = bool(fused_head)
+        self.levels12_tie = levels12_tie
         self.img_size = _triple(img_size)
         self.in_channels = in_channels
         self.compute_dtype = torch.float32
@@ -119,10 +135,13 @@ class MS_DSA_NET(nn.Module):
                              f"{self.img_size}")
         x = x.to(self.compute_dtype).contiguous()
         enc = self.encoders
-        x1, p1 = enc[0]([x], pool=True)
-        x2, p2 = enc[1]([p1], pool=True)
         # the JAX package pools levels 1-2 through the s2d pool (even tie
-        # split) and levels 3-5 through a jnp.maximum chain (ROADMAP C8)
+        # split; in the finale or in a pass of its own, as the gates say)
+        # and levels 3-5 through a jnp.maximum chain (ROADMAP C8)
+        tie12 = self.levels12_tie
+        in_finale = tie12 != "even" or self.pool_in_finale[self.training]
+        x1, p1 = enc[0]([x], pool=True, tie=tie12, pool_in_finale=in_finale)
+        x2, p2 = enc[1]([p1], pool=True, tie=tie12, pool_in_finale=in_finale)
         x3, p3 = enc[2]([p2], pool=True, tie="chain")
         x4, p4 = enc[3]([p3], pool=True, tie="chain")
         x5, p5 = enc[4]([p4], pool=True, tie="chain")
@@ -140,5 +159,7 @@ class MS_DSA_NET(nn.Module):
         y4 = dec[1](y5, t4)
         y3 = dec[2](y4, t3)
         y2 = dec[3](y3, x2)
+        if self.fused_head and not self.training:
+            return dec[4](y2, x1, head=(self.head, self.head_bias))
         y1 = dec[4](y2, x1)
         return conv1x1(y1, self.head, self.head_bias)

@@ -13,7 +13,10 @@ B4, backward B1 + K1, K2, matmuls):
 2. conv2 through B1, with norm1's affine and the activation applied in its
    prologue, and its statistics;
 3. the finale through B2: norm2 + the (normalised) shortcut + activation,
-   which also writes the 2x max pool when the caller's next op is the pool.
+   which also writes the 2x max pool when the caller's next op is the pool
+   (or, where the model's gates say so, the pool in a pass of its own
+   after it, B3 forward and B9 backward; or, at the last decoder with the
+   fused head, the finale and the 1x1 head as one kernel, B15).
 
 Instance norm takes its per-(b, c) affine from the kernel sums (var =
 E[x^2] - mean^2, clamped at 0). Batch norm takes its running statistics
@@ -23,13 +26,15 @@ b, and it updates its running statistics (`ops/layers.py::BatchNorm`).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 
 from fcd_tpu_torch.kernels.block_conv import conv3x3_op
 from fcd_tpu_torch.kernels.finale import finale
+from fcd_tpu_torch.kernels.finale_head import finale_head
+from fcd_tpu_torch.kernels.pool2x import max_pool2x_op
 from fcd_tpu_torch.kernels.upsample import upsample2x_op
 from fcd_tpu_torch.ops.layers import (
     BatchNorm,
@@ -84,11 +89,17 @@ class UnetResBlock(nn.Module):
         return w.expand(b, -1), sh.expand(b, -1)
 
     def forward(self, parts: Sequence[torch.Tensor], pool: bool = False,
-                tie: str = "even"):
+                tie: str = "even", pool_in_finale: bool = True,
+                head: Optional[Tuple[torch.Tensor,
+                                     Optional[torch.Tensor]]] = None):
         """parts: 1 or 2 (B, D, H, W, Ci) tensors whose channel concat is the
         block input. Returns out, or (out, pooled) with pool=True; `tie` is
         how the pool's gradient splits among tied maxima (`kernels/
-        finale.py`: `even` at levels 1-2, `chain` at levels 3-5)."""
+        finale.py`: `even` at levels 1-2, `chain` at levels 3-5). With
+        pool_in_finale=False the pool runs in a pass of its own after the
+        finale (B3 forward, B9 backward: the even split only). With
+        head=(w, bias) the finale and the 1x1 head run as one kernel (B15,
+        eval) and the block returns the logits."""
         parts = list(parts)
         widths = [p.shape[-1] for p in parts]
         if sum(widths) != self.in_channels:
@@ -115,8 +126,17 @@ class UnetResBlock(nn.Module):
             r = parts[0]
             scale_r = torch.ones_like(scale2)
             shift_r = torch.zeros_like(shift2)
-        return finale(o2.y, r, scale2, shift2, scale_r, shift_r,
-                      NEGATIVE_SLOPE, pool=pool, tie=tie)
+        aff = (scale2, shift2, scale_r, shift_r)
+        if head is not None:
+            return finale_head(o2.y, r, *aff, head[0], head[1],
+                               NEGATIVE_SLOPE)
+        if pool and not pool_in_finale:
+            if tie != "even":
+                raise ValueError("the pool's own pass splits ties evenly; "
+                                 f"tie {tie!r} pools in the finale")
+            out = finale(o2.y, r, *aff, NEGATIVE_SLOPE)
+            return out, max_pool2x_op(out)
+        return finale(o2.y, r, *aff, NEGATIVE_SLOPE, pool=pool, tie=tie)
 
 
 class UnetrBasicBlock(UnetResBlock):
@@ -138,5 +158,8 @@ class UnetrUpBlock(nn.Module):
         kaiming_normal_fan_out_(self.transp, generator)
         self.block.reset_parameters(generator)
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
-        return self.block([upsample2x_op(x, self.transp), skip])
+    def forward(self, x: torch.Tensor, skip: torch.Tensor,
+                head=None) -> torch.Tensor:
+        """head=(w, bias): the block's finale runs fused with the 1x1
+        head (B15) and the block returns the logits."""
+        return self.block([upsample2x_op(x, self.transp), skip], head=head)

@@ -412,3 +412,48 @@ def test_train_step_on_the_card(dev):
     assert all(torch.isfinite(torch.tensor(losses)))
     assert losses[-1] < losses[0]
     assert all(f.launches > b for f, b in zip(fns, before))
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 8, 10, 24), (1, 4, 4, 4, 5)])
+def test_max_pool2x_kernels_match_plain(dev, shape):
+    """B3 and B9 bit-equal to their plain versions, on tied inputs."""
+    from fcd_tpu_torch.kernels.pool2x import (
+        max_pool2x,
+        max_pool2x_bwd,
+        max_pool2x_bwd_plain,
+        max_pool2x_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+    x = torch.randint(-3, 4, shape, generator=gen, device=dev).to(bf)
+    b, d, h, w, c = shape
+    g = _randn(gen, dev, b, d // 2, h // 2, w // 2, c, dtype=bf)
+    before = (max_pool2x.launches, max_pool2x_bwd.launches)
+    pooled, dx = max_pool2x(x), max_pool2x_bwd(x, g)
+    torch.cuda.synchronize()
+    assert (max_pool2x.launches, max_pool2x_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(pooled, max_pool2x_plain(x))
+    assert torch.equal(dx, max_pool2x_bwd_plain(x, g))
+
+
+@pytest.mark.parametrize("c,o,bias,out_dtype", [
+    (16, 2, True, torch.bfloat16), (24, 3, False, torch.float32)])
+def test_finale_head_kernel_matches_plain(dev, c, o, bias, out_dtype):
+    from fcd_tpu_torch.kernels.finale_head import (
+        finale_head,
+        finale_head_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+    y2 = _randn(gen, dev, 2, 6, 8, 10, c, dtype=bf)
+    r = _randn(gen, dev, 2, 6, 8, 10, c, dtype=bf)
+    aff = [_randn(gen, dev, 2, c) for _ in range(4)]
+    w = _randn(gen, dev, c, o, scale=0.5)
+    b = _randn(gen, dev, o) if bias else None
+    got = finale_head(y2, r, *aff, w, b, 0.01, out_dtype=out_dtype)
+    want = finale_head_plain(y2, r, *aff, w, b, 0.01, out_dtype=out_dtype)
+    assert got.dtype == out_dtype and got.shape == want.shape
+    assert _rel(got, want) < (1e-2 if out_dtype == bf else 1e-5)

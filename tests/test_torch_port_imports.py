@@ -34,7 +34,8 @@ def test_import_leaves_jax_and_triton_out():
     for m in ("kernels.block_conv", "kernels.sw_io", "cli.infer", "cli.args",
               "data.nifti", "data.preprocess", "data.manifest",
               "postproc.native", "postproc.morphology", "postproc.segment",
-              "train.checkpoint"):
+              "train.checkpoint", "flags", "kernels.pool2x",
+              "kernels.finale_head"):
         assert f"fcd_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
