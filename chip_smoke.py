@@ -12,6 +12,11 @@ Run from the repository root:
    the card, in bf16, at the main path's shapes, and times kernel, plain
    version and (where one exists) the library call with CUDA events after
    a warm-up, beside the bound max(operations / 989e12, bytes / 3.35e12).
+   B1 (conv3d) and its library call (cuDNN) are both timed by the device
+   time of every kernel, copy and fill one call launches (torch.profiler:
+   for B1 the weight packing and the statistics' sum with the conv), with
+   each call's wall time per call beside it; B1's build report gives each
+   instance's registers and spills and the library's HGMMA count (0 fails).
 3. Drives the inference path: ModelTrainer(default params, device="cuda")
    .inference on a seeded 182x218x182x2 volume (8 patches of 128^3, fs16
    MS_DSA_NET), with every launch counter set to 0 just before and read
@@ -97,6 +102,34 @@ def timed_ms(fn, iters: int) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def device_times(fn, iters: int) -> dict:
+    """Mean device ms per call of each kernel, copy and fill that `fn`
+    launches, by name, over `iters` calls after a warm-up call
+    (torch.profiler). Where a call's host work outlasts its device work,
+    CUDA events around back-to-back calls time the host; this times the
+    card. On a CPU run: {"host": the host clock per call}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        return {"host": timed_ms(fn, iters)}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = (out.get(e.name, 0.0)
+                           + e.time_range.elapsed_us() / iters / 1e3)
+    if not out:
+        raise AssertionError("the profiler saw no device work on the card")
+    return out
+
+
 def sync(dev) -> None:
     import torch
 
@@ -127,6 +160,9 @@ class Phase:
         self.abs_err = 0.0
         self.ms = self.plain_ms = 0.0
         self.library_ms = None
+        # where `ms` and `library_ms` are device times: each call's wall
+        # time, and the share of `ms` in the kernel itself
+        self.call_ms = self.library_call_ms = self.kernel_ms = None
 
     @property
     def bound_ms(self) -> float:
@@ -163,10 +199,49 @@ class Phase:
         lib = ("n/a" if self.library_ms is None
                else f"{self.library_ms:.4f} ms")
         share = self.bound_ms / self.ms if self.ms > 0 else 0.0
-        print(f"  {self.kernel} {self.label}: kernel {self.ms:.4f} ms, plain "
-              f"{self.plain_ms:.4f} ms, library {lib}, bound "
+        call = ""
+        if self.call_ms is not None:
+            call = (f" device ({self.kernel_ms:.4f} in the kernel; wall "
+                    f"{self.call_ms:.4f} per call)")
+            lib += (f" device (wall {self.library_call_ms:.4f} per call)"
+                    if self.library_call_ms is not None else "")
+        print(f"  {self.kernel} {self.label}: kernel {self.ms:.4f} ms{call}, "
+              f"plain {self.plain_ms:.4f} ms, library {lib}, bound "
               f"{self.bound_ms:.4f} ms ({self.bound_by}), roofline share "
               f"{100 * share:.2f}%", flush=True)
+
+
+def conv3d_report() -> int:
+    """B1's build on the card: each conv3d_kernel instance's registers,
+    shared memory and spills (nvcc -Xptxas -v, kept beside the library),
+    and the count of HGMMA (wgmma) instructions in the library's SASS.
+    Fails if that count is 0: B1 must multiply on the tensor cores."""
+    import re
+
+    from fcd_tpu_torch.kernels import _build
+
+    name = None
+    for line in _build.build_log("conv3d").splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            t = re.search(r"conv3d_kernelILi(\d+)ELi(\d+)ELb([01])E", m.group(1))
+            name = (f"conv3d_kernel<bn={t.group(1)}, mt={t.group(2)}, "
+                    f"vec={t.group(3)}>" if t else m.group(1))
+        elif name and ("spill" in line or "Used" in line
+                       or "arning" in line):
+            print(f"  ptxas {name}: {line.strip()}")
+    lib = _build.build_all(["conv3d"])["conv3d"]
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    if sass.returncode != 0:
+        raise AssertionError(f"cuobjdump failed: {sass.stderr.strip()}")
+    n = sum("HGMMA" in line for line in sass.stdout.splitlines())
+    print(f"conv3d library: {n} HGMMA instructions in its SASS "
+          f"{'ok' if n else 'FAIL'}", flush=True)
+    if n == 0:
+        raise AssertionError("conv3d has no HGMMA: B1 is off the tensor cores")
+    return n
 
 
 # -- kernel phases ------------------------------------------------------------
@@ -179,8 +254,13 @@ def _randn(shape, gen, dev, scale=1.0, dtype=None):
 
 
 def conv_phase(label, dev, gen, grid, parts_c, cout, *, prologue=False,
-               shortcut=False, iters=5):
-    """B1 at one shape: parts_c input widths summed into cout outputs."""
+               shortcut=False, iters=20):
+    """B1 at one shape: parts_c input widths summed into cout outputs.
+    `ms` and `library_ms` are the device time of all that one conv3x3 and
+    one cuDNN call launch (the packing of the weights and the statistics'
+    sum included); at the small grids a call's host work (packing,
+    allocating, the ctypes call) outlasts that, and `call_ms` and
+    `library_call_ms` time each call's wall."""
     import torch
     import torch.nn.functional as F
 
@@ -213,13 +293,28 @@ def conv_phase(label, dev, gen, grid, parts_c, cout, *, prologue=False,
         ph.check("r", got.r, want.r, 2e-2)
         ph.check("r stats", torch.stack([got.rsum, got.rsq]),
                  torch.stack([want.rsum, want.rsq]), 1e-3)
-    ph.ms = timed_ms(lambda: conv3x3(parts, ws, **kw), iters)
+    def call():
+        return conv3x3(parts, ws, **kw)
+
+    times = device_times(call, iters)
+    ph.ms = sum(times.values())
+    ph.kernel_ms = sum(v for k, v in times.items()
+                       if "conv3d_kernel" in k or k == "host")
+    if ph.kernel_ms == 0:
+        raise AssertionError(f"conv3d {label}: the profiler saw no "
+                             "conv3d_kernel on the card")
+    ph.call_ms = timed_ms(call, iters)
     ph.plain_ms = timed_ms(lambda: conv3x3_plain(parts, ws, **kw), 2)
     # library yardstick, timed only: cuDNN bf16 conv of the concatenated input
     xin = torch.cat(parts, dim=-1).permute(0, 4, 1, 2, 3)
     wlib = torch.cat(ws, dim=3).permute(4, 3, 0, 1, 2).contiguous(
         memory_format=torch.channels_last_3d)
-    ph.library_ms = timed_ms(lambda: F.conv3d(xin, wlib, padding=1), iters)
+
+    def library():
+        return F.conv3d(xin, wlib, padding=1)
+
+    ph.library_ms = sum(device_times(library, iters).values())
+    ph.library_call_ms = timed_ms(library, iters)
     ph.report()
     return ph
 
@@ -653,6 +748,14 @@ def kernel_phases(dev, gen, small: bool = False):
                    s(64, 64, 64), [32, 32], 32, shortcut=True),
         conv_phase("enc6.conv1 4^3x256->512 +shortcut+stats", dev, gen,
                    (4, 4, 4), [256], 512, shortcut=True),
+        # the largest weights (14.2 MB): B1's widest loss to cuDNN
+        conv_phase("enc6.conv2 4^3x512->512 +prologue+stats", dev, gen,
+                   (4, 4, 4), [512], 512, prologue=True),
+        # the largest launch, and the image's C = 2 (the scalar loader)
+        conv_phase("dec1.conv1 128^3x(16+16)->16 +shortcut+stats", dev, gen,
+                   s(128, 128, 128), [16, 16], 16, shortcut=True),
+        conv_phase("enc1.conv1 128^3x2->16 +shortcut+stats", dev, gen,
+                   s(128, 128, 128), [2], 16, shortcut=True),
         finale_phase("enc1 128^3x16 +pool", dev, gen, s(128, 128, 128), 16),
         upsample_phase("dec1 64^3x32->128^3x16", dev, gen, s(64, 64, 64),
                        32, 16),
@@ -1427,6 +1530,9 @@ def kernels_json(phases, by_path):
             "bound_ms": sum(p.bound_ms for p in mine),
             "bound_by": top.bound_by,
             "library_ms": None if None in lib else sum(lib),
+            **({"call_ms": sum(p.call_ms for p in mine),
+                "library_call_ms": sum(p.library_call_ms for p in mine)}
+               if mine[0].call_ms is not None else {}),
             "shapes": [p.label for p in mine],
         })
     return {"kernels": out}
@@ -1453,6 +1559,7 @@ def main() -> int:
     libs = _build.build_all()
     print(f"build: {len(libs)} CUDA libraries in {time.perf_counter() - t0:.1f}"
           f" s ({', '.join(p.name for p in libs.values())})", flush=True)
+    conv3d_report()
 
     print("kernels against their plain versions (bf16, main-path shapes):")
     gen = torch.Generator(device=dev).manual_seed(SEED)

@@ -5,7 +5,9 @@ plain C interface (no PyTorch headers, so one file takes seconds), written
 to `build/fcd_tpu_torch/` under the repository root, and loaded with
 ctypes. The library name carries a hash of the source, so an edited source
 is rebuilt and a stale library is never loaded. `build_all()` starts one
-`nvcc` per source at once and waits for all of them.
+`nvcc` per source at once and waits for all of them. nvcc runs with
+`-Xptxas -v`; its log (each kernel's registers, shared memory and spills)
+is kept beside the library as `lib<name>-<hash>.log` (`build_log`).
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` raises if that is not 0.
@@ -27,7 +29,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fcd_tpu_torch"
 SOURCES = ("conv3d", "conv3d_wgrad", "upsample", "dsa", "spatial_attn",
            "sw_io", "finale_head")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -70,10 +72,17 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
         if proc.returncode != 0:
             errors.append(f"nvcc {name}.cu failed:\n{log.decode()}")
         else:
+            lib.with_suffix(".log").write_bytes(log)
             os.replace(tmp, lib)
     if errors:
         raise RuntimeError("\n".join(errors))
     return out
+
+
+def build_log(name: str) -> str:
+    """nvcc's output (with -Xptxas -v) for the current library of
+    `csrc/<name>.cu`, built on first use."""
+    return build_all([name])[name].with_suffix(".log").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -97,6 +106,10 @@ def ptr(t) -> ctypes.c_void_p:
 
 
 def stream() -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream on the current device. The raw handle,
+    without building a `torch.cuda.Stream` (about 25 us of host time per
+    launch on the card's host)."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    return ctypes.c_void_p(
+        torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))

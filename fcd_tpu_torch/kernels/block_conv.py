@@ -19,6 +19,10 @@ it on the card and what its design does about that.
 CPU tensors take the plain PyTorch version (`conv3x3_plain`); CUDA tensors
 launch the kernel or raise. The kernel takes bf16 activations only.
 
+The kernel's tiling is chosen here (`conv_tiling`), and its weights are
+packed here into the K-major layout its wgmma operands read
+(`pack_weights`), so the CPU tests reach both.
+
 `conv3x3_op` is the same op as a `torch.autograd.Function` (`Conv3x3`),
 the training path's conv. Its backward, as `fcd_tpu/ops/s2d_ops.py:
 381-421, 454-475, 618-673` computes it:
@@ -47,7 +51,61 @@ from fcd_tpu_torch.kernels import _build
 from fcd_tpu_torch.kernels.conv_wgrad import conv3d_wgrad
 
 REPLACES = "fcd_tpu/kernels/block_conv.py:909"  # _fused8_call (pallas_call :1000)
-BM = 64  # output voxels per block of csrc/conv3d.cu: rows of its partial sums
+TILE_HW = 8  # a block's output tile is td x 8 x 8 voxels (one m64 per z)
+KC = 16      # input channels per k-step of csrc/conv3d.cu (wgmma k16)
+SMS = 132    # the H100's SMs: the block count the cout split aims for
+
+
+class Tiling(NamedTuple):
+    """A launch of csrc/conv3d.cu: td x 8 x 8 output voxels and bn output
+    channels per block, over a (ntz * nty * ntx, ncout, batch) grid.
+    `rows` is the partial statistics' first axis: one row per spatial
+    tile."""
+    td: int
+    bn: int
+    ntz: int
+    nty: int
+    ntx: int
+    ncout: int
+
+    @property
+    def rows(self) -> int:
+        return self.ntz * self.nty * self.ntx
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def conv_tiling(b: int, d: int, h: int, w: int, cout: int) -> Tiling:
+    """The kernel's tile for a (b, d, h, w) grid into cout channels: 4 z-
+    slices (2 on grids at most 2 deep), bn the narrowest of 16/32/64 that
+    holds cout, halved while the grid has fewer than SMS blocks."""
+    td = 2 if d <= 2 else 4
+    bn = 16 if cout <= 16 else 32 if cout <= 32 else 64
+    tiles = _cdiv(d, td) * _cdiv(h, TILE_HW) * _cdiv(w, TILE_HW)
+    while bn > 16 and tiles * _cdiv(cout, bn) * b < SMS:
+        bn //= 2
+    return Tiling(td, bn, _cdiv(d, td), _cdiv(h, TILE_HW),
+                  _cdiv(w, TILE_HW), _cdiv(cout, bn))
+
+
+def pack_weights(w: torch.Tensor, bn: int, dtype=None) -> torch.Tensor:
+    """(3, 3, 3, C, cout), or the shortcut's (C, cout) as one tap, ->
+    (cout/bn, C/16, taps, 2, bn, 8) in `dtype`, zero-padded: per cout
+    slice and 16-channel k-step, each tap's wgmma B operand as two K-major
+    planes of 8 channels x bn. One copy (cast and permute) where C and
+    cout need no padding."""
+    c, cout = w.shape[-2:]
+    nch, nt = _cdiv(c, KC), _cdiv(cout, bn)
+    src = w.reshape(-1, c, cout)
+    if (nch * KC, nt * bn) != (c, cout):
+        src = F.pad(src, (0, nt * bn - cout, 0, nch * KC - c))
+    taps = src.shape[0]
+    out = torch.empty((nt, nch, taps, 2, bn, 8), dtype=dtype or w.dtype,
+                      device=w.device)
+    out.permute(2, 1, 3, 5, 0, 4).copy_(src.reshape(taps, nch, 2, 8, nt, bn))
+    return out
 
 
 class ConvOut(NamedTuple):
@@ -109,7 +167,7 @@ def _fn():
         vp, ci = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [vp, vp, vp, ci, vp, vp, vp, ci, ci, vp, vp,
                        ctypes.c_float, vp, vp, vp, vp, vp, vp,
-                       ci, ci, ci, ci, ci, vp]
+                       ci, ci, ci, ci, ci, ci, ci, ci, ci, ci, vp]
         fn.restype = ci
         _FN = fn
     return _FN
@@ -163,23 +221,28 @@ def conv3x3(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
         raise TypeError(f"conv3x3 kernel takes bf16 activations, got {x0.dtype}")
     if not all(x.is_contiguous() for x in parts):
         raise ValueError("conv3x3 kernel takes contiguous parts")
+    if (all(x.shape[-1] % 8 == 0 for x in parts)
+            and any(x.data_ptr() % 16 for x in parts)):
+        # C % 8 == 0 in every part: the kernel loads 16-byte vectors
+        raise ValueError("conv3x3 kernel takes 16-byte aligned parts")
     b, d, h, w = x0.shape[:4]
     cout = weights[0].shape[-1]
     dev = x0.device
-    wk = [wt.to(device=dev, dtype=torch.bfloat16).contiguous() for wt in weights]
+    t = conv_tiling(b, d, h, w, cout)
+    bf = torch.bfloat16
+    wk = [pack_weights(wt.to(dev), t.bn, bf) for wt in weights]
     wr = (None if shortcut is None else
-          [s.to(device=dev, dtype=torch.bfloat16).contiguous() for s in shortcut])
-    y = torch.empty((b, d, h, w, cout), dtype=torch.bfloat16, device=dev)
+          [pack_weights(s.to(dev), t.bn, bf) for s in shortcut])
+    y = torch.empty((b, d, h, w, cout), dtype=bf, device=dev)
     r = None if wr is None else torch.empty_like(y)
-
-    def stats():
-        # per-voxel-block partial sums, added below in a fixed order
-        rows = (d * h * w + BM - 1) // BM
-        return (torch.empty((rows, b, cout), dtype=torch.float32, device=dev),
-                torch.empty((rows, b, cout), dtype=torch.float32, device=dev))
-
-    ysum, ysq = stats() if want_stats else (None, None)
-    rsum, rsq = stats() if want_stats and r is not None else (None, None)
+    nsums = (2 if r is None else 4) if want_stats else 0
+    # y's sum and sum of squares, then r's: one row per spatial tile
+    sums = (torch.empty((nsums, t.rows, b, cout), dtype=torch.float32,
+                        device=dev) if want_stats else None)
+    at = [0] * 4   # the four buffers' pointers (NULL where absent)
+    if sums is not None:
+        at[:nsums] = [sums.data_ptr() + 4 * i * sums.stride(0)
+                      for i in range(nsums)]
     scale = shift = None
     slope = 0.0
     if prologue is not None:
@@ -194,13 +257,16 @@ def conv3x3(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
         _build.ptr(wr[1] if (wr is not None and p1 is not None) else None),
         0 if p1 is None else p1.shape[-1], len(parts),
         _build.ptr(scale), _build.ptr(shift), slope,
-        _build.ptr(y), _build.ptr(r), _build.ptr(ysum), _build.ptr(ysq),
-        _build.ptr(rsum), _build.ptr(rsq), b, d, h, w, cout, _build.stream())
+        _build.ptr(y), _build.ptr(r), *map(ctypes.c_void_p, at),
+        b, d, h, w, cout, t.td, t.bn,
+        t.ntz, t.nty, t.ntx, _build.stream())
     _build.check(err, "conv3d")
     conv3x3.launches += 1
-    ysum, ysq, rsum, rsq = (None if t is None else t.sum(0)
-                            for t in (ysum, ysq, rsum, rsq))
-    return ConvOut(y, ysum, ysq, r, rsum, rsq)
+    if not want_stats:
+        return ConvOut(y, r=r)
+    # over the tiles, in a fixed order (the same bits run to run)
+    tot = sums.sum(1).unbind(0)
+    return ConvOut(y, tot[0], tot[1], r, *tot[2:])
 
 
 conv3x3.launches = 0

@@ -40,25 +40,41 @@ def _randn(gen, dev, *shape, scale=1.0, dtype=torch.float32):
     return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
 
-@pytest.mark.parametrize("parts_c,cout,mode", [
-    ((16,), 16, "prologue"), ((2,), 16, "shortcut"),
-    ((8, 8), 20, "shortcut"), ((24,), 64, "shortcut"), ((32,), 32, "plain")])
-def test_conv3x3_kernel_matches_plain(dev, parts_c, cout, mode):
+@pytest.mark.parametrize("parts_c,cout,mode,grid", [
+    ((16,), 16, "prologue", (2, 6, 10, 7)),
+    ((2,), 16, "shortcut", (2, 6, 10, 7)),
+    ((8, 8), 20, "shortcut", (2, 6, 10, 7)),
+    ((24,), 64, "shortcut", (2, 6, 10, 7)),
+    ((32,), 32, "plain", (2, 6, 10, 7)),
+    # a 1-voxel-thick grid that no tile divides, cout 24
+    ((16,), 24, "shortcut", (1, 1, 9, 17)),
+    # |shift| ~ 1: a prologue applied before the zero padding would show
+    # at every border
+    ((16,), 16, "prologue_shift1", (1, 5, 9, 11)),
+    ((2, 2), 16, "shortcut", (1, 6, 10, 7)),
+    ((16,), 8, "plain", (1, 6, 10, 7)),
+    # the deepest level: one tile, 16 k-steps, the weights spread over cout
+    ((256,), 512, "shortcut", (1, 4, 4, 4)),
+    # batch 2, two parts of two k-steps each, several tiles
+    ((32, 32), 32, "shortcut", (2, 12, 10, 14))])
+def test_conv3x3_kernel_matches_plain(dev, parts_c, cout, mode, grid):
     from fcd_tpu_torch.kernels.block_conv import conv3x3, conv3x3_plain
 
     gen = torch.Generator(device=dev).manual_seed(0)
     bf = torch.bfloat16
-    parts = [_randn(gen, dev, 2, 6, 10, 7, c, dtype=bf) for c in parts_c]
+    parts = [_randn(gen, dev, *grid, c, dtype=bf) for c in parts_c]
     ws = [_randn(gen, dev, 3, 3, 3, c, cout, scale=0.2, dtype=bf)
           for c in parts_c]
     kw = dict(want_stats=True)
     if mode == "shortcut":
         kw["shortcut"] = [_randn(gen, dev, c, cout, scale=0.3, dtype=bf)
                           for c in parts_c]
-    if mode == "prologue":
-        kw["prologue"] = (torch.rand(2, parts_c[0], generator=gen,
-                                     device=dev) + 0.5,
-                          _randn(gen, dev, 2, parts_c[0], scale=0.1), 0.01)
+    if mode.startswith("prologue"):
+        b, c0 = grid[0], parts_c[0]
+        kw["prologue"] = (torch.rand(b, c0, generator=gen, device=dev) + 0.5,
+                          _randn(gen, dev, b, c0, scale=0.1)
+                          + (1.0 if mode == "prologue_shift1" else 0.0),
+                          0.01)
     before = conv3x3.launches
     got = conv3x3(parts, ws, **kw)
     want = conv3x3_plain(parts, ws, **kw)
