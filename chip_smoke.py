@@ -12,11 +12,13 @@ Run from the repository root:
    the card, in bf16, at the main path's shapes, and times kernel, plain
    version and (where one exists) the library call with CUDA events after
    a warm-up, beside the bound max(operations / 989e12, bytes / 3.35e12).
-   B1 (conv3d) and its library call (cuDNN) are both timed by the device
-   time of every kernel, copy and fill one call launches (torch.profiler:
-   for B1 the weight packing and the statistics' sum with the conv), with
-   each call's wall time per call beside it; B1's build report gives each
-   instance's registers and spills and the library's HGMMA count (0 fails).
+   B1 (conv3d), K1 (conv3d_wgrad) and their library calls (cuDNN) are
+   timed by the device time of every kernel, copy and fill one call
+   launches (torch.profiler: for B1 the weight packing and the statistics'
+   sum with the conv, for K1 its second pass), with each call's wall time
+   per call beside it; their build reports give each instance's registers
+   and spills and the library's HGMMA (B1) or HMMA (K1) count (0 fails).
+   K1, K2 and K4 sum in a fixed order: two calls must give the same bits.
 3. Drives the inference path: ModelTrainer(default params, device="cuda")
    .inference on a seeded 182x218x182x2 volume (8 patches of 128^3, fs16
    MS_DSA_NET), with every launch counter set to 0 just before and read
@@ -28,7 +30,9 @@ Run from the repository root:
    the counters set to 0 just before and read just after (they must equal
    the per-step counts derived from the model), finite losses; then one
    step at batch 1 x 64^3 (full widths) held against the port's fp32 CPU
-   step from the same weights; then a profile of one train step.
+   step from the same weights; whether two such steps from one state give
+   bit-equal parameters (reported); then a profile of one train step with
+   K1's share of its device time.
 5. Drives the segmentation CLI: writes a seeded synthetic subject (T1,
    FLAIR and a lesion label, NIfTI, on a 176x240x256 grid at (1.0, 0.9375,
    0.9375) mm with an LAS affine) and the seeded fs16 model's weights as a
@@ -211,36 +215,40 @@ class Phase:
               f"{100 * share:.2f}%", flush=True)
 
 
-def conv3d_report() -> int:
-    """B1's build on the card: each conv3d_kernel instance's registers,
-    shared memory and spills (nvcc -Xptxas -v, kept beside the library),
-    and the count of HGMMA (wgmma) instructions in the library's SASS.
-    Fails if that count is 0: B1 must multiply on the tensor cores."""
+def build_report(name, kernel, args, instr) -> int:
+    """One CUDA library's build on the card: each instance of `kernel`
+    (its template arguments named `args`), with its registers, shared
+    memory and spills (nvcc -Xptxas -v, kept beside the library), and the
+    count of `instr` instructions in the library's SASS. Fails if that
+    count is 0: the kernel must multiply on the tensor cores."""
     import re
 
     from fcd_tpu_torch.kernels import _build
 
-    name = None
-    for line in _build.build_log("conv3d").splitlines():
+    shown = None
+    for line in _build.build_log(name).splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            t = re.search(r"conv3d_kernelILi(\d+)ELi(\d+)ELb([01])E", m.group(1))
-            name = (f"conv3d_kernel<bn={t.group(1)}, mt={t.group(2)}, "
-                    f"vec={t.group(3)}>" if t else m.group(1))
-        elif name and ("spill" in line or "Used" in line
-                       or "arning" in line):
-            print(f"  ptxas {name}: {line.strip()}")
-    lib = _build.build_all(["conv3d"])["conv3d"]
+            vals = re.findall(r"L[ib](\d+)E", m.group(1))
+            shown = (f"{kernel}<" + ", ".join(
+                f"{a}={v}" for a, v in zip(args, vals)) + ">"
+                if kernel in m.group(1) else m.group(1))
+        elif shown and ("spill" in line or "Used" in line
+                        or "arning" in line):
+            print(f"  ptxas {shown}: {line.strip()}")
+    lib = _build.build_all([name])[name]
     cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, timeout=300)
     if sass.returncode != 0:
         raise AssertionError(f"cuobjdump failed: {sass.stderr.strip()}")
-    n = sum("HGMMA" in line for line in sass.stdout.splitlines())
-    print(f"conv3d library: {n} HGMMA instructions in its SASS "
+    n = sum(bool(re.search(rf"\b{instr}\b", line))
+            for line in sass.stdout.splitlines())
+    print(f"{name} library: {n} {instr} instructions in its SASS "
           f"{'ok' if n else 'FAIL'}", flush=True)
     if n == 0:
-        raise AssertionError("conv3d has no HGMMA: B1 is off the tensor cores")
+        raise AssertionError(f"{name} has no {instr}: it is off the tensor "
+                             "cores")
     return n
 
 
@@ -425,8 +433,12 @@ def dsa_phases(label, dev, gen, n, c, p, h=4, iters=10):
 
 
 def wgrad_phase(label, dev, gen, batch, grid, parts_c, cout, *,
-                prologue=False, iters=3):
-    """K1 at one conv's shape: one launch per input part."""
+                prologue=False, iters=5):
+    """K1 at one conv's shape: one call per input part. Each part's dW
+    against the plain version, and two calls bit-equal (the partial sums
+    are added in a fixed order). `ms` and `library_ms` are the device time
+    of all that the calls launch (K1: the products and the second pass;
+    cuDNN's conv3d_weight per part), each call's wall time beside them."""
     import torch
     from torch.nn.grad import conv3d_weight
 
@@ -434,6 +446,7 @@ def wgrad_phase(label, dev, gen, batch, grid, parts_c, cout, *,
         apply_prologue,
         conv3d_wgrad,
         conv3d_wgrad_plain,
+        wgrad_plan,
     )
 
     bf = torch.bfloat16
@@ -452,21 +465,54 @@ def wgrad_phase(label, dev, gen, batch, grid, parts_c, cout, *,
     def run(fn):
         return [fn(x, g, pro if i == 0 else None) for i, x in enumerate(xs)]
 
-    for i, (got, want) in enumerate(zip(run(conv3d_wgrad),
-                                        run(conv3d_wgrad_plain))):
-        # f32 sums over the batch's voxels in another order (atomicAdd)
-        ph.check(f"dW part {i}", got, want, 1e-3)
-    ph.ms = timed_ms(lambda: run(conv3d_wgrad), iters)
+    got, again, want = run(conv3d_wgrad), run(conv3d_wgrad), \
+        run(conv3d_wgrad_plain)
+    for i, x in enumerate(xs):
+        plan = wgrad_plan(batch, *grid, x.shape[-1], cout)
+        print(f"  conv3d_wgrad {label} part {i}: {plan.blocks} blocks, "
+              f"{plan.chunks} chunks of {plan.per_chunk} tiles, scratch "
+              f"{plan.scratch_bytes / 2 ** 20:.2f} MiB")
+        # f32 sums of bf16 products over the voxels in another order
+        ph.check(f"dW part {i}", got[i], want[i], 1e-3)
+    check_repeatable(ph, got, again)
+    del got, again, want
+
+    def call():
+        return run(conv3d_wgrad)
+
+    times = device_times(call, iters)
+    ph.ms = sum(times.values())
+    ph.kernel_ms = sum(v for k, v in times.items()
+                       if "wgrad_mma_kernel" in k or k == "host")
+    if ph.kernel_ms == 0:
+        raise AssertionError(f"conv3d_wgrad {label}: the profiler saw no "
+                             "wgrad_mma_kernel on the card")
+    ph.call_ms = timed_ms(call, iters)
     ph.plain_ms = timed_ms(lambda: run(conv3d_wgrad_plain), 1)
     # library yardstick, timed only: cuDNN bf16 weight gradient per part
     # (of the already-prologued input)
     ins = [(apply_prologue(x, pro) if i == 0 and pro else x).permute(
         0, 4, 1, 2, 3) for i, x in enumerate(xs)]
     go = g.permute(0, 4, 1, 2, 3)
-    ph.library_ms = timed_ms(lambda: [conv3d_weight(
-        x, (cout, x.shape[1], 3, 3, 3), go, padding=1) for x in ins], iters)
+
+    def library():
+        return [conv3d_weight(x, (cout, x.shape[1], 3, 3, 3), go, padding=1)
+                for x in ins]
+
+    ph.library_ms = sum(device_times(library, iters).values())
+    ph.library_call_ms = timed_ms(library, iters)
     ph.report()
     return ph
+
+
+def check_repeatable(ph, got, again):
+    """A kernel's outputs from two calls on the same inputs: the same bits
+    (its sums are taken in a fixed order)."""
+    same = all(torch_equal(a, b) for a, b in zip(got, again))
+    print(f"  {ph.kernel} {ph.label}: two calls bit-equal "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{ph.kernel} {ph.label}: two calls differ")
 
 
 def finale_bwd_phase(label, dev, gen, batch, grid, c, iters=10):
@@ -502,6 +548,7 @@ def finale_bwd_phase(label, dev, gen, batch, grid, c, iters=10):
     for name, g_, w_ in zip(("sum dt*ys", "sum dt", "sum dt*rs"), got[1:],
                             want[1:]):
         ph.check(name, g_, w_, 1e-3)
+    check_repeatable(ph, got, finale_bwd(*args))
     ph.ms = timed_ms(lambda: finale_bwd(*args), iters)
     ph.plain_ms = timed_ms(lambda: finale_bwd_plain(*args), 2)
     ph.report()
@@ -511,7 +558,7 @@ def finale_bwd_phase(label, dev, gen, batch, grid, c, iters=10):
 def finale_bwd_chain_phase(label, dev, gen, batch, grid, c, iters=10):
     """K2's `chain` tie split (encoders 3-5) on tied inputs: small integers
     through dyadic affines, exact in f32, so that dt is bit-equal to the
-    plain version's; the per-channel sums differ only in atomicAdd order."""
+    plain version's; the per-channel sums differ only in summation order."""
     import torch
 
     from fcd_tpu_torch.kernels.finale import finale_bwd, finale_bwd_plain
@@ -538,6 +585,7 @@ def finale_bwd_chain_phase(label, dev, gen, batch, grid, c, iters=10):
     for name, g_, w_ in zip(("sum dt*ys", "sum dt", "sum dt*rs"), got[1:],
                             want[1:]):
         ph.check(name, g_, w_, 1e-4)
+    check_repeatable(ph, got, finale_bwd(*args, tie="chain"))
     moved = float((want[0] != even[0]).float().mean())
     print(f"  finale_bwd {label}: chain and even split differ at "
           f"{100 * moved:.2f}% of dt")
@@ -716,6 +764,8 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
     want = sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key, rate)
     for name, g_, w_ in zip(("dqn", "dkpb", "dvpb"), got, want):
         pb.check(name, g_, w_, 2e-2)
+    check_repeatable(pb, got, sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key,
+                                                  rate))
     pf.ms = timed_ms(lambda: sa.spatial_attn_fwd(qn, kpb, vpb, h, key, rate),
                      iters)
     pf.plain_ms = timed_ms(
@@ -731,6 +781,15 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
     v4 = vp.transpose(2, 3).to(bf)
     pf.library_ms = timed_ms(lambda: F.scaled_dot_product_attention(
         q4, k4, v4, dropout_p=rate, scale=1.0), iters)
+    # and K4's: the backward of that SDPA call alone (its forward once,
+    # the graph kept), with the cotangent in SDPA's layout
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
+        out = F.scaled_dot_product_attention(*ins, dropout_p=rate, scale=1.0)
+        g4 = g.reshape(batch, n, h, ch).transpose(1, 2)
+        pb.library_ms = timed_ms(lambda: torch.autograd.grad(
+            out, ins, g4, retain_graph=True), iters)
+        del out, ins
     pf.report()
     pb.report()
     return [pf, pb]
@@ -772,6 +831,16 @@ def kernel_phases(dev, gen, small: bool = False):
                     s(128, 128, 128), [16, 16], 16),
         wgrad_phase("enc6.conv1 4x4^3 256->512", dev, gen, b, (4, 4, 4),
                     [256], 512),
+        # one per regime: the image's C = 2, the 64^3 level at 32 -> 32,
+        # a mid level, and the widest dW (28 MB)
+        wgrad_phase("enc1.conv1 4x128^3 2->16", dev, gen, b,
+                    s(128, 128, 128), [2], 16),
+        wgrad_phase("enc2.conv2 4x64^3 32->32 +prologue", dev, gen, b,
+                    s(64, 64, 64), [32], 32, prologue=True),
+        wgrad_phase("enc4.conv2 4x16^3 128->128 +prologue", dev, gen, b,
+                    (16, 16, 16), [128], 128, prologue=True),
+        wgrad_phase("enc6.conv2 4x4^3 512->512 +prologue", dev, gen, b,
+                    (4, 4, 4), [512], 512, prologue=True),
         finale_bwd_phase("enc1 4x128^3x16 +pool", dev, gen, b,
                          s(128, 128, 128), 16),
         finale_bwd_chain_phase("enc3 4x32^3x64 +pool, chain ties", dev, gen,
@@ -1212,7 +1281,8 @@ def cli_run(dev, card, params=None, native_shape=CLI_NATIVE):
     return launches
 
 
-PROFILE_KEYS = ("conv3d_kernel", "wgrad_kernel", "finale_bwd_kernel",
+PROFILE_KEYS = ("conv3d_kernel", "wgrad_mma_kernel", "wgrad_sum_kernel",
+                "finale_bwd_kernel",
                 "finale_kernel", "upsample_kernel", "dsa_phase_a",
                 "dsa_phase_b", "spatial_attn_fwd", "spatial_attn_bwd",
                 "sw_entry_kernel", "sw_exit_kernel", "pool_fwd_kernel",
@@ -1456,6 +1526,37 @@ def train_check(dev, perf_flags=None) -> None:
                              "CPU step")
 
 
+def train_repro(dev) -> bool:
+    """Two train steps from one state (two trainers from the same seeded
+    weights, the same batch, the same dropout seeds), batch 1 x 64^3 at
+    full widths: whether every parameter after the step, and the loss,
+    are the same bits. Reported; the groups that differ are named."""
+    import torch
+
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    params = train_params(TRAIN_CHECK_SIZE)
+    x, y = train_batch(dev, 1, TRAIN_CHECK_SIZE, params["chans_in"])
+    losses, models = [], []
+    with torch.enable_grad():
+        for _ in range(2):
+            tr = ModelTrainer(params, device=dev)
+            losses.append(tr.train_step(x, y, 1e-4))
+            models.append(tr.model)
+            sync(dev)
+    groups = [_groups(m) for m in models]
+    differ = [k for k in groups[0]
+              if not all(torch_equal(a, b) for a, b in zip(groups[0][k],
+                                                           groups[1][k]))]
+    same = not differ and torch_equal(losses[0], losses[1])
+    print(f"train repro: two 1x{TRAIN_CHECK_SIZE}^3 steps from one state, "
+          f"same seeds: parameters and loss bit-equal {same}"
+          + ("" if same else f"; differ: loss "
+             f"{not torch_equal(losses[0], losses[1])}, groups {differ}"),
+          flush=True)
+    return same
+
+
 # TPU kernels whose function a kernel of the port computes (ROADMAP Queue
 # B, "by function"): B12 padded27, B11, B12 aligned, B14 and B18 are B1's
 # conv; B7's o2a form and B13 are K1's weight gradient; B8's forward is
@@ -1559,7 +1660,8 @@ def main() -> int:
     libs = _build.build_all()
     print(f"build: {len(libs)} CUDA libraries in {time.perf_counter() - t0:.1f}"
           f" s ({', '.join(p.name for p in libs.values())})", flush=True)
-    conv3d_report()
+    build_report("conv3d", "conv3d_kernel", ("bn", "mt", "vec"), "HGMMA")
+    build_report("conv3d_wgrad", "wgrad_mma_kernel", ("mi", "ni"), "HMMA")
 
     print("kernels against their plain versions (bf16, main-path shapes):")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1576,9 +1678,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     by_path["train"], trainer, batch = train_run(dev, card)
     with torch.enable_grad():
-        profile_run(f"one train step, batch {TRAIN_BATCH}x128^3",
-                    lambda: trainer.train_step(*batch), dev)
+        prof = profile_run(f"one train step, batch {TRAIN_BATCH}x128^3",
+                           lambda: trainer.train_step(*batch), dev)
+    if prof:
+        k1 = prof.get("wgrad_mma_kernel", 0.0) + prof.get("wgrad_sum_kernel",
+                                                          0.0)
+        print(f"  K1 in the step: {k1:.3f} ms of {sum(prof.values()):.2f} ms "
+              f"device busy ({100 * k1 / sum(prof.values()):.1f}%)")
     train_check(dev)
+    train_repro(dev)
+    torch.cuda.empty_cache()
     gated = "train, pool in its own pass"
     by_path[gated], gtrainer, _ = train_run(dev, card, POOL_GATES)
     train_ab(card, {"default": trainer, gated: gtrainer}, batch)

@@ -31,9 +31,12 @@
 // kpb and vpb in shared memory once per block, rows padded by two values
 // so that both its row-wise and its column-wise walks are free of bank
 // conflicts (read from device memory, the column-wise walks touched a
-// cache line per thread). Its cross-tile sums dkpb and dvpb accumulate in
-// shared memory over the block's tiles where they fit (level 3) and go to
-// device memory with atomicAdd, so their order changes from run to run.
+// cache line per thread). Its cross-tile sums dkpb and dvpb accumulate
+// over the block's tiles, in shared memory where they fit (level 3), else
+// in the block's own slot in device memory (each element owned by one
+// thread), and each block writes one partial of each, at its slot of a
+// (blocks, B, ...) buffer; the wrapper adds the partials over the blocks
+// in a fixed order (no atomics), so they are the same bits run to run.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -52,8 +55,8 @@ struct Params {
   const __nv_bfloat16* vpb;  // (B, HP, C)
   const __nv_bfloat16* g;    // (B, N, C) cotangent (K4)
   __nv_bfloat16* out;        // (B, N, C): out (K3) or dqn (K4)
-  float* dkpb;               // (B, C, HP) f32, zeroed (K4)
-  float* dvpb;               // (B, HP, C) f32, zeroed (K4)
+  float* dkpb;               // (blocks, B, C, HP) f32 partials (K4)
+  float* dvpb;               // (blocks, B, HP, C) f32 partials (K4)
   int N, C, HP, P;
   uint32_t key, thresh;
   float inv_keep;
@@ -180,8 +183,10 @@ __global__ void __launch_bounds__(NT_BWD) spatial_attn_bwd(const Params p) {
   const int nt = blockDim.x;
   const __nv_bfloat16* kb = p.kpb + (size_t)b * CHP;
   const __nv_bfloat16* vb = p.vpb + (size_t)b * CHP;
-  float* gK = p.dkpb + (size_t)b * CHP;
-  float* gV = p.dvpb + (size_t)b * CHP;
+  // this block's partials
+  const size_t slot = ((size_t)blockIdx.x * gridDim.y + b) * CHP;
+  float* gK = p.dkpb + slot;
+  float* gV = p.dvpb + slot;
   for (int i = threadIdx.x; i < CHP; i += nt) {
     Ks[(i / p.HP) * KS + i % p.HP] = kb[i];
     Vs[(i / p.C) * VS + i % p.C] = vb[i];
@@ -209,7 +214,7 @@ __global__ void __launch_bounds__(NT_BWD) spatial_attn_bwd(const Params p) {
       if (p.acc_smem)
         accV[i] += acc;
       else
-        atomicAdd(&gV[i], acc);
+        gV[i] = k == 0 ? acc : gV[i] + acc;
     }
     // da[t, q] = sum_c g[t, c] vpb[q, c], masked and scaled like a
     for (int i = threadIdx.x; i < T * p.HP; i += nt) {
@@ -253,14 +258,14 @@ __global__ void __launch_bounds__(NT_BWD) spatial_attn_bwd(const Params p) {
       if (p.acc_smem)
         accK[i] += acc;
       else
-        atomicAdd(&gK[i], acc);
+        gK[i] = k == 0 ? acc : gK[i] + acc;
     }
     __syncthreads();
   }
   if (p.acc_smem) {
     for (int i = threadIdx.x; i < CHP; i += nt) {
-      atomicAdd(&gK[i], accK[i]);
-      atomicAdd(&gV[i], accV[i]);
+      gK[i] = accK[i];
+      gV[i] = accV[i];
     }
   }
 }
@@ -302,6 +307,16 @@ extern "C" int fcd_spatial_attn_fwd(const void* qn, const void* kpb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4's blocks along the tokens, each over `per` token tiles: ~2 blocks per
+// SM over the batch in all. Each writes one partial of dkpb and dvpb per
+// batch item; the wrapper sizes the partial buffers with it.
+extern "C" int fcd_spatial_attn_bwd_blocks(int B, int N, int* per) {
+  const int ntiles = (N + T - 1) / T;
+  const int want = (264 + B - 1) / B;
+  *per = (ntiles + want - 1) / want;
+  return (ntiles + *per - 1) / *per;
+}
+
 extern "C" int fcd_spatial_attn_bwd(const void* qn, const void* kpb,
                                     const void* vpb, const void* g, void* dqn,
                                     float* dkpb, float* dvpb, int B, int N,
@@ -318,16 +333,12 @@ extern "C" int fcd_spatial_attn_bwd(const void* qn, const void* kpb,
                         ((size_t)C * (HP + 2) + (size_t)HP * (C + 2));
   const size_t accs = sizeof(float) * 2 * (size_t)C * HP;
   if (tile + staged > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  const int ntiles = (N + T - 1) / T;
   p.acc_smem = tile + staged + accs <= kMaxSmem;
-  // ~2 blocks per SM over the batch in all, each over a run of tiles
-  const int want = (264 + B - 1) / B;
-  const int per = (ntiles + want - 1) / want;
-  p.tiles_per_block = per;
+  const int blocks = fcd_spatial_attn_bwd_blocks(B, N, &p.tiles_per_block);
   const size_t smem = tile + staged + (p.acc_smem ? accs : 0);
   cudaFuncSetAttribute(spatial_attn_bwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)kMaxSmem);
-  dim3 grid((ntiles + per - 1) / per, B);
+  dim3 grid(blocks, B);
   spatial_attn_bwd<<<grid, NT_BWD, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -34,9 +34,10 @@ operations. The design walks each pooled voxel's eight children as one
 [voxels, 8, channels] block, so the max, the tie count and the split are
 taken from registers and every input is read once; in `chain` mode the
 eight children are eight [V, C] blocks instead, so that each pair of the
-chain is an elementwise op on two of them. Each program adds its
-per-channel partial sums to a1..a3 with atomics (their order changes from
-run to run).
+chain is an elementwise op on two of them. Each program writes its
+per-channel partial sums once, at its slot of a (programs, B, C) buffer,
+and the wrapper adds them over the programs in a fixed order (no atomics),
+so a1..a3 are the same bits from run to run.
 
 CPU tensors take the plain PyTorch version; CUDA tensors launch the
 kernel or raise.
@@ -269,9 +270,11 @@ def _kernel():
             p1 = tl.sum(dt * yv, axis=0)
             p2 = tl.sum(dt, axis=0)
             p3 = tl.sum(dt * rv, axis=0)
-        tl.atomic_add(a1_ptr + b * C + cs, p1, mask=cmask)
-        tl.atomic_add(a2_ptr + b * C + cs, p2, mask=cmask)
-        tl.atomic_add(a3_ptr + b * C + cs, p3, mask=cmask)
+        # this program's partial sums, at its slot
+        row = (pid * tl.num_programs(1) + b) * C
+        tl.store(a1_ptr + row + cs, p1, mask=cmask)
+        tl.store(a2_ptr + row + cs, p2, mask=cmask)
+        tl.store(a3_ptr + row + cs, p3, mask=cmask)
 
     _KERNEL = finale_bwd_kernel
     return _KERNEL
@@ -308,7 +311,6 @@ def finale_bwd(ys: torch.Tensor, rs: torch.Tensor, s2: torch.Tensor,
     aff = [t.to(device=ys.device, dtype=torch.float32).contiguous()
            for t in (s2, b2, sr, br)]
     dt = torch.empty_like(ys)
-    sums = torch.zeros((3, b, c), dtype=torch.float32, device=ys.device)
     pool = gq is not None
     chain = pool and tie == "chain"
     block_c = 1 << max(0, (c - 1).bit_length())
@@ -317,11 +319,15 @@ def finale_bwd(ys: torch.Tensor, rs: torch.Tensor, s2: torch.Tensor,
     block_v = max(1, (256 if chain else 512 if pool else 4096) // block_c)
     n = (d // 2) * (h // 2) * (w // 2) if pool else d * h * w
     grid = ((n + block_v - 1) // block_v, b)
+    # per-program partial sums, added over the programs in a fixed order
+    part = torch.empty((3, grid[0], b, c), dtype=torch.float32,
+                       device=ys.device)
     _kernel()[grid](ys, rs, *aff, gp, gq if pool else gp, dt,
-                    sums[0], sums[1], sums[2], d, h, w, c, float(slope),
+                    part[0], part[1], part[2], d, h, w, c, float(slope),
                     POOL=pool, CHAIN=chain, BLOCK_V=block_v,
                     BLOCK_C=block_c, num_warps=4)
     finale_bwd.launches += 1
+    sums = part.sum(1)
     return dt, sums[0], sums[1], sums[2]
 
 

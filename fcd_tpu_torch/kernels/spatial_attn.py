@@ -133,7 +133,10 @@ def _fns():
         bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cu,
                         cu, cf, ci, vp]
         bwd.restype = ci
-        _FNS.update(fwd=fwd, bwd=bwd)
+        blocks = lib.fcd_spatial_attn_bwd_blocks
+        blocks.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        blocks.restype = ci
+        _FNS.update(fwd=fwd, bwd=bwd, blocks=blocks)
     return _FNS
 
 
@@ -193,8 +196,13 @@ def spatial_attn_bwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
     b, n, c = qn.shape
     hp = kpb.shape[-1]
     dqn = torch.empty_like(qn)
-    dkpb = torch.zeros((b, c, hp), dtype=torch.float32, device=qn.device)
-    dvpb = torch.zeros((b, hp, c), dtype=torch.float32, device=qn.device)
+    # one partial per block along the tokens, added over the blocks in a
+    # fixed order (the same bits run to run)
+    blocks = _fns()["blocks"](b, n, ctypes.byref(ctypes.c_int()))
+    dkpb = torch.empty((blocks, b, c, hp), dtype=torch.float32,
+                       device=qn.device)
+    dvpb = torch.empty((blocks, b, hp, c), dtype=torch.float32,
+                       device=qn.device)
     err = _fns()["bwd"](
         _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(g),
         _build.ptr(dqn), _build.ptr(dkpb), _build.ptr(dvpb),
@@ -202,7 +210,7 @@ def spatial_attn_bwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
         1.0 / (1.0 - rate), int(rate > 0.0), _build.stream())
     _build.check(err, "spatial_attn_bwd")
     spatial_attn_bwd.launches += 1
-    return dqn, dkpb, dvpb
+    return dqn, dkpb.sum(0), dvpb.sum(0)
 
 
 spatial_attn_fwd.launches = 0

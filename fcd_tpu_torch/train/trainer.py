@@ -21,9 +21,14 @@ volume shapes; eager PyTorch compiles nothing per shape, and the bucketed
 engine's outputs are identical to the exact engine's (fcd_tpu/config.py:
 104-107), so the port has no bucketed engine.
 
-On a CUDA device with `use_amp` the model computes in bf16 (f32
-accumulation and f32 norm statistics in the kernels); on the CPU it
-computes in fp32 through the kernels' plain versions.
+The compute type follows the JAX package's model factory
+(`fcd_tpu/models/factory.py:21-24`): f32 with `use_amp=False`, else
+`params['compute_dtype']` (bfloat16 by default); `compute_dtype_for`
+resolves it. On a CUDA device the kernels take bf16 only, so any other
+setting raises NotImplementedError when the trainer is built (ROADMAP
+C13); the model computes in bf16 there (f32 accumulation and f32 norm
+statistics in the kernels). On the CPU it computes in fp32 through the
+kernels' plain versions, whatever the setting.
 """
 
 from __future__ import annotations
@@ -43,6 +48,24 @@ from fcd_tpu_torch.train.state import make_optimizer, make_train_step
 from fcd_tpu_torch.weights import load_flax_variables
 
 
+def compute_dtype_for(params: Dict[str, Any],
+                      device: torch.device) -> torch.dtype:
+    """The model's compute type on `device`: f32 on the CPU (the kernels'
+    plain versions); on a CUDA device the JAX package's choice (f32 with
+    use_amp=False, else params['compute_dtype']), which must be bf16."""
+    if device.type != "cuda":
+        return torch.float32
+    name = (str(params.get("compute_dtype", "bfloat16"))
+            if params.get("use_amp", True) else "float32")
+    if name != "bfloat16":
+        raise NotImplementedError(
+            f"compute in {name} (use_amp={params.get('use_amp', True)}, "
+            f"compute_dtype={params.get('compute_dtype', 'bfloat16')!r}) on "
+            "the card: its kernels take bf16 only (ROADMAP C13); set "
+            "use_amp=True and compute_dtype='bfloat16', or run on the CPU")
+    return torch.bfloat16
+
+
 def _triple(x):
     if isinstance(x, (tuple, list)):
         return tuple(int(v) for v in x)
@@ -52,16 +75,15 @@ def _triple(x):
 class ModelTrainer:
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  device=None):
-        self.device = resolve_device(device)
         self.params = get_default_params() if params is None else params
+        # the compute type is settled before anything reaches the card
+        dev = resolve_device(None) if device is None else torch.device(device)
+        self.compute_dtype = compute_dtype_for(self.params, dev)
+        self.device = resolve_device(dev)
         self.model, self.params = get_model(self.params)
         gen = torch.Generator().manual_seed(int(self.params.get("seed", 42)))
         self.model.reset_parameters(gen)
         self.model.to(self.device).eval()
-        self.compute_dtype = (
-            torch.bfloat16
-            if self.params.get("use_amp", True) and self.device.type == "cuda"
-            else torch.float32)
         self.model.compute_dtype = self.compute_dtype
         self._step = None
 

@@ -165,9 +165,27 @@ def _grads(fn, inputs):
     return outs, [t.grad for t in ins]
 
 
-@pytest.mark.parametrize("ci,co,pro", [(16, 16, True), (2, 16, False),
-                                       (32, 64, False), (12, 20, True)])
-def test_conv3d_wgrad_kernel_matches_plain(dev, ci, co, pro):
+@pytest.mark.parametrize("shape,ci,co,pro", [
+    ((2, 6, 10, 7), 16, 16, True),
+    ((2, 6, 10, 7), 2, 16, False),
+    ((2, 6, 10, 7), 2, 16, True),
+    ((2, 6, 10, 7), 32, 64, False),
+    ((2, 6, 10, 7), 12, 20, True),
+    ((2, 6, 10, 7), 24, 8, True),
+    # a 1-voxel-thick grid that no tile divides
+    ((1, 1, 9, 17), 8, 8, True),
+    ((1, 1, 9, 17), 20, 20, False),
+    # the widest dW, one 4^3 tile per batch item
+    ((1, 4, 4, 4), 512, 512, True),
+    # many chunks: the partial sums and the second pass
+    ((2, 20, 24, 24), 16, 16, True),
+    ((2, 20, 24, 24), 2, 16, False),
+    ((1, 16, 32, 32), 32, 32, True),
+    ((2, 10, 18, 21), 20, 20, True)])
+def test_conv3d_wgrad_kernel_matches_plain(dev, shape, ci, co, pro):
+    """K1 against its plain version (f32 sums in another order), and two
+    calls bit-equal (the chunks' partial sums are added in a fixed
+    order)."""
     from fcd_tpu_torch.kernels.conv_wgrad import (
         conv3d_wgrad,
         conv3d_wgrad_plain,
@@ -175,18 +193,58 @@ def test_conv3d_wgrad_kernel_matches_plain(dev, ci, co, pro):
 
     gen = torch.Generator(device=dev).manual_seed(4)
     bf = torch.bfloat16
-    x = _randn(gen, dev, 2, 6, 10, 7, ci, dtype=bf)
-    g = _randn(gen, dev, 2, 6, 10, 7, co, dtype=bf)
+    b = shape[0]
+    x = _randn(gen, dev, *shape, ci, dtype=bf)
+    g = _randn(gen, dev, *shape, co, dtype=bf)
     prologue = None
     if pro:
-        prologue = (torch.rand(2, ci, generator=gen, device=dev) + 0.5,
-                    _randn(gen, dev, 2, ci, scale=0.1), 0.01)
+        prologue = (torch.rand(b, ci, generator=gen, device=dev) + 0.5,
+                    _randn(gen, dev, b, ci, scale=0.1), 0.01)
     before = conv3d_wgrad.launches
     got = conv3d_wgrad(x, g, prologue)
+    again = conv3d_wgrad(x, g, prologue)
     torch.cuda.synchronize()
-    assert conv3d_wgrad.launches == before + 1
+    assert conv3d_wgrad.launches == before + 2
     assert got.shape == (27, ci, co) and got.dtype == torch.float32
     assert _rel(got, conv3d_wgrad_plain(x, g, prologue)) < 1e-4
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("kernel", ["finale_bwd", "finale_bwd_pool",
+                                    "finale_bwd_chain", "spatial_attn_bwd",
+                                    "spatial_attn_bwd_level6"])
+def test_backward_sums_are_reproducible(dev, kernel):
+    """K2's per-channel sums and K4's dkpb and dvpb are added over the
+    programs / token blocks in a fixed order: two launches on the same
+    inputs give the same bits."""
+    from fcd_tpu_torch.kernels import spatial_attn as sa
+    from fcd_tpu_torch.kernels.finale import finale_bwd
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+    if kernel.startswith("finale_bwd"):
+        shape = (2, 16, 16, 16, 24)
+        ys, rs, gp = (_randn(gen, dev, *shape, dtype=bf) for _ in range(3))
+        aff = [_randn(gen, dev, 2, 24) for _ in range(4)]
+        pool = kernel != "finale_bwd"
+        gq = (_randn(gen, dev, 2, 8, 8, 8, 24, dtype=bf) if pool else None)
+        tie = "chain" if kernel.endswith("chain") else "even"
+
+        def call():
+            return finale_bwd(ys, rs, *aff, gp, gq, 0.01, tie=tie)
+    else:
+        n, c, h, p = (64, 256, 4, 32) if kernel.endswith("6") else \
+            (700, 32, 4, 64)
+        qn = _randn(gen, dev, 2, n, c, scale=0.2, dtype=bf)
+        kpb = _randn(gen, dev, 2, c, h * p, scale=0.5, dtype=bf)
+        vpb = _randn(gen, dev, 2, h * p, c, dtype=bf)
+        g = _randn(gen, dev, 2, n, c, dtype=bf)
+        key = sa.dropout_key(99, 1)
+
+        def call():
+            return sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, 0.1)
+    for a, b in zip(call(), call()):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("pool", [False, True])
