@@ -12,13 +12,15 @@ Run from the repository root:
    the card, in bf16, at the main path's shapes, and times kernel, plain
    version and (where one exists) the library call with CUDA events after
    a warm-up, beside the bound max(operations / 989e12, bytes / 3.35e12).
-   B1 (conv3d), K1 (conv3d_wgrad) and their library calls (cuDNN) are
-   timed by the device time of every kernel, copy and fill one call
-   launches (torch.profiler: for B1 the weight packing and the statistics'
-   sum with the conv, for K1 its second pass), with each call's wall time
-   per call beside it; their build reports give each instance's registers
-   and spills and the library's HGMMA (B1) or HMMA (K1) count (0 fails).
-   K1, K2 and K4 sum in a fixed order: two calls must give the same bits.
+   B1 (conv3d), K1 (conv3d_wgrad), B4 (upsample2x, at the five decoders'
+   shapes at batch 1 and the two largest at batch 4) and their library
+   calls (cuDNN) are timed by the device time of every kernel, copy and
+   fill one call launches (torch.profiler: for B1 the weight packing and
+   the statistics' sum with the conv, for K1 its second pass), with each
+   call's wall time per call beside it, and so are sw_exit and `acc * inv`;
+   their build reports give each instance's registers and spills and the
+   library's HGMMA (B1) or HMMA (K1, B4) count (0 fails). K1, K2, K4 and
+   B4 must give the same bits from two calls.
 3. Drives the inference path: ModelTrainer(default params, device="cuda")
    .inference on a seeded 182x218x182x2 volume (8 patches of 128^3, fs16
    MS_DSA_NET), with every launch counter set to 0 just before and read
@@ -59,6 +61,11 @@ Run from the repository root:
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
+
+    python3 chip_smoke.py --kernels upsample2x,sw_exit
+
+builds the kernels and runs only the named kernels' phases (checks and
+times; no main path and no result line).
 """
 
 from __future__ import annotations
@@ -351,29 +358,78 @@ def finale_phase(label, dev, gen, grid, c, iters=10):
     return ph
 
 
-def upsample_phase(label, dev, gen, grid, ci, co, iters=10):
-    """B4 at one shape (coarse grid, ci -> co)."""
+def upsample_phase(label, dev, gen, batch, grid, ci, co, iters=20):
+    """B4 at one decoder's shape (batch, coarse grid, ci -> co), with the
+    model's f32 kernel and no bias, as the decoders call it. `ms` and
+    `library_ms` are the device time of all that one call and one
+    F.conv_transpose3d launch, the kernel alone and each call's wall
+    beside them."""
     import torch
     import torch.nn.functional as F
 
-    from fcd_tpu_torch.kernels.upsample import upsample2x, upsample2x_plain
+    from fcd_tpu_torch.kernels.upsample import (
+        upsample2x,
+        upsample2x_plain,
+        upsample_plan,
+    )
 
     bf = torch.bfloat16
-    nvox = grid[0] * grid[1] * grid[2]
-    x = _randn((1, *grid, ci), gen, dev, dtype=bf)
-    k = _randn((2, 2, 2, ci, co), gen, dev, (2.0 / (8 * co)) ** 0.5, bf)
+    nvox = batch * grid[0] * grid[1] * grid[2]
+    x = _randn((batch, *grid, ci), gen, dev, dtype=bf)
+    k = _randn((2, 2, 2, ci, co), gen, dev, (2.0 / (8 * co)) ** 0.5)
     ph = Phase("upsample2x", label, 2 * nvox * ci * 8 * co,
-               2 * nvox * ci + 2 * 8 * ci * co + 2 * 8 * nvox * co)
-    ph.check("out", upsample2x(x, k), upsample2x_plain(x, k), 2e-2)
-    ph.ms = timed_ms(lambda: upsample2x(x, k), iters)
+               2 * nvox * ci + 4 * 8 * ci * co + 2 * 8 * nvox * co)
+    plan = upsample_plan(batch, *grid, ci, co)
+    print(f"  upsample2x {label}: tile {plan.bm}x{plan.bn}, {plan.blocks} "
+          "blocks")
+    got = upsample2x(x, k)
+    ph.check("out", got, upsample2x_plain(x, k), 2e-2)
+    check_repeatable(ph, [got], [upsample2x(x, k)])
+
+    def call():
+        return upsample2x(x, k)
+
+    times = device_times(call, iters)
+    ph.ms = sum(times.values())
+    ph.kernel_ms = sum(v for n, v in times.items()
+                       if "upsample_kernel" in n or n == "host")
+    if ph.kernel_ms == 0:
+        raise AssertionError(f"upsample2x {label}: the profiler saw no "
+                             "upsample_kernel on the card")
+    ph.call_ms = timed_ms(call, iters)
     ph.plain_ms = timed_ms(lambda: upsample2x_plain(x, k), iters)
+    # library yardstick, timed only: cuDNN's bf16 transposed conv
     xin = x.permute(0, 4, 1, 2, 3)
-    wlib = torch.flip(k, dims=(0, 1, 2)).permute(3, 4, 0, 1, 2).contiguous(
-        memory_format=torch.channels_last_3d)
-    ph.library_ms = timed_ms(lambda: F.conv_transpose3d(xin, wlib, stride=2),
-                             iters)
+    wlib = torch.flip(k.to(bf), dims=(0, 1, 2)).permute(3, 4, 0, 1, 2) \
+        .contiguous(memory_format=torch.channels_last_3d)
+
+    def library():
+        return F.conv_transpose3d(xin, wlib, stride=2)
+
+    ph.library_ms = sum(device_times(library, iters).values())
+    ph.library_call_ms = timed_ms(library, iters)
     ph.report()
     return ph
+
+
+# the five decoders' upsamples of a 128^3 patch (coarse grid, ci, co), fs16
+DECODERS = (("dec5", 4, 256, 128), ("dec4", 8, 128, 64), ("dec3", 16, 64, 32),
+            ("dec2", 32, 32, 32), ("dec1", 64, 32, 16))
+
+
+def upsample_phases(dev, gen, small=False):
+    """B4 at every decoder's shape at batch 1 (a patch forward), and the
+    train step's two largest at batch 4."""
+    cut = (lambda g: max(2, g // 16)) if small else (lambda g: g)
+    out = []
+    for batch in (1, 4):
+        for name, g, ci, co in DECODERS:
+            if batch == 4 and name not in ("dec2", "dec1"):
+                continue
+            out.append(upsample_phase(
+                f"{name} {batch}x{g}^3x{ci}->{2 * g}^3x{co}", dev, gen,
+                batch, (cut(g),) * 3, ci, co))
+    return out
 
 
 def dsa_phases(label, dev, gen, n, c, p, h=4, iters=10):
@@ -715,14 +771,18 @@ def sw_io_phases(dev, gen, shape=CLI_SHAPE, c=2, o=2, roi=128, iters=20):
     start = (0, 0, 0)
     px.check_equal("out", sw_exit(acc, inv, start, shape),
                    sw_exit_plain(acc, inv, start, shape))
-    corner = (1, 2, 3)
-    crop = tuple(v - 2 * k for v, k in zip(shape, corner))
-    px.check_equal(f"out, cropped to {crop}", sw_exit(acc, inv, corner, crop),
-                   sw_exit_plain(acc, inv, corner, crop))
-    px.ms = timed_ms(lambda: sw_exit(acc, inv, start, shape), iters)
+    # an odd x corner (one voxel a float2) and an even one (two a float4)
+    for corner in ((1, 2, 3), (2, 2, 2)):
+        crop = tuple(v - 2 * k for v, k in zip(shape, corner))
+        px.check_equal(f"out, cropped at {corner} to {crop}",
+                       sw_exit(acc, inv, corner, crop),
+                       sw_exit_plain(acc, inv, corner, crop))
+    # the kernel and its yardstick alike: the device time of one call
+    px.ms = sum(device_times(lambda: sw_exit(acc, inv, start, shape),
+                             iters).values())
     px.plain_ms = timed_ms(lambda: sw_exit_plain(acc, inv, start, shape), iters)
     # library yardstick, timed only: acc[crop] * inv[crop] (no crop here)
-    px.library_ms = timed_ms(lambda: acc * inv, iters)
+    px.library_ms = sum(device_times(lambda: acc * inv, iters).values())
     px.report()
     return [pe, px]
 
@@ -816,9 +876,8 @@ def kernel_phases(dev, gen, small: bool = False):
         conv_phase("enc1.conv1 128^3x2->16 +shortcut+stats", dev, gen,
                    s(128, 128, 128), [2], 16, shortcut=True),
         finale_phase("enc1 128^3x16 +pool", dev, gen, s(128, 128, 128), 16),
-        upsample_phase("dec1 64^3x32->128^3x16", dev, gen, s(64, 64, 64),
-                       32, 16),
     ]
+    phases += upsample_phases(dev, gen, small)
     phases += dsa_phases("level3 N=32768 C=32 P=64", dev, gen,
                          512 if small else 32768, 32, 64)
     phases += dsa_phases("level6 N=64 C=256 P=32", dev, gen, 64, 256, 32)
@@ -1323,6 +1382,15 @@ def profile_run(label, fn, dev) -> dict:
     return {k: us / 1e3 for k, (_, us) in by_name.items()}
 
 
+def print_share(prof, label, keys) -> None:
+    """The device ms of `keys` in a profile_run result, and their share of
+    its device-busy time."""
+    if prof:
+        ms, busy = sum(prof.get(k, 0.0) for k in keys), sum(prof.values())
+        print(f"  {label}: {ms:.3f} ms of {busy:.2f} ms device busy "
+              f"({100 * ms / busy:.1f}%)")
+
+
 # -- the training path ---------------------------------------------------------
 
 TRAIN_BATCH, TRAIN_STEPS = 4, 3
@@ -1639,9 +1707,38 @@ def kernels_json(phases, by_path):
     return {"kernels": out}
 
 
-def main() -> int:
+# the kernels on the tensor cores: (library, kernel, template arguments,
+# the SASS instruction that must be in it)
+BUILD_REPORTS = {
+    "conv3d": ("conv3d", "conv3d_kernel", ("bn", "mt", "vec"), "HGMMA"),
+    "conv3d_wgrad": ("conv3d_wgrad", "wgrad_mma_kernel", ("mi", "ni"),
+                     "HMMA"),
+    "upsample2x": ("upsample", "upsample_kernel", ("wm", "wn", "ni"), "HMMA"),
+}
+# `--kernels NAME,...`: only these kernels' phases
+ONLY_PHASES = {"upsample2x": upsample_phases, "sw_exit": sw_io_phases}
+
+
+def kernels_only(dev, gen, names) -> int:
+    """The phases of the named kernels (ONLY_PHASES) alone: checks and
+    times, no main path and no result line."""
+    for name in names:
+        ONLY_PHASES[name](dev, gen)
+    print(card_line())
+    return 0
+
+
+def main(argv=()) -> int:
     import torch
 
+    only = []
+    if argv:
+        if len(argv) != 2 or argv[0] != "--kernels" or not set(
+                argv[1].split(",")) <= set(ONLY_PHASES):
+            print(f"usage: chip_smoke.py [--kernels "
+                  f"{'|'.join(ONLY_PHASES)}[,...]]", file=sys.stderr)
+            return 2
+        only = argv[1].split(",")
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1660,11 +1757,13 @@ def main() -> int:
     libs = _build.build_all()
     print(f"build: {len(libs)} CUDA libraries in {time.perf_counter() - t0:.1f}"
           f" s ({', '.join(p.name for p in libs.values())})", flush=True)
-    build_report("conv3d", "conv3d_kernel", ("bn", "mt", "vec"), "HGMMA")
-    build_report("conv3d_wgrad", "wgrad_mma_kernel", ("mi", "ni"), "HMMA")
+    for args in BUILD_REPORTS.values():
+        build_report(*args)
 
     print("kernels against their plain versions (bf16, main-path shapes):")
     gen = torch.Generator(device=dev).manual_seed(SEED)
+    if only:
+        return kernels_only(dev, gen, only)
     phases = kernel_phases(dev, gen)
     torch.cuda.empty_cache()
     launches, trainer, patch, vol, logits = slice_run(dev, card)
@@ -1672,19 +1771,18 @@ def main() -> int:
     by_path.update(gated_inference_run(dev, card, trainer, vol, logits))
     del vol, logits
     x = patch.to(dev)
-    profile_run(f"one {tuple(patch.shape[1:4])} patch forward",
-                lambda: trainer.predict(x), dev)
+    prof = profile_run(f"one {tuple(patch.shape[1:4])} patch forward",
+                       lambda: trainer.predict(x), dev)
+    print_share(prof, "B4 in the patch", ("upsample_kernel",))
     del trainer, x
     torch.cuda.empty_cache()
     by_path["train"], trainer, batch = train_run(dev, card)
     with torch.enable_grad():
         prof = profile_run(f"one train step, batch {TRAIN_BATCH}x128^3",
                            lambda: trainer.train_step(*batch), dev)
-    if prof:
-        k1 = prof.get("wgrad_mma_kernel", 0.0) + prof.get("wgrad_sum_kernel",
-                                                          0.0)
-        print(f"  K1 in the step: {k1:.3f} ms of {sum(prof.values()):.2f} ms "
-              f"device busy ({100 * k1 / sum(prof.values()):.1f}%)")
+    print_share(prof, "K1 in the step", ("wgrad_mma_kernel",
+                                         "wgrad_sum_kernel"))
+    print_share(prof, "B4 in the step", ("upsample_kernel",))
     train_check(dev)
     train_repro(dev)
     torch.cuda.empty_cache()
@@ -1716,4 +1814,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

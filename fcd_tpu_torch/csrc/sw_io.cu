@@ -19,12 +19,23 @@
 //
 // What bounds both: bytes. Neither does more than one operation per
 // element: the entry reads 4C bytes and writes 2C (bf16) per padded voxel,
-// the exit reads 4O + 4 and writes 4O per output voxel. The design gives
-// each block one output row (z, y), walked by the threads along x * C (or
-// x * O): a row of the output is one contiguous run, and so is the input
-// row it reads, so neighbouring threads touch neighbouring addresses and
-// the only index arithmetic per element is an add and a compare (the exit
-// adds one division by O for the coverage's index).
+// the exit reads 4O + 4 and writes 4O per output voxel.
+//
+// The entry gives each block one output row (z, y), walked by the threads
+// along x * C: a row of the output is one contiguous run, and so is the
+// input row it reads, so neighbouring threads touch neighbouring addresses
+// and the only index arithmetic per element is an add and a compare.
+//
+// The exit is one grid-stride walk over the cropped volume in units of G
+// voxels along x, a unit per thread and step: G * O floats of acc read as
+// one float2 or float4, the G coverage values as one float or float2, and
+// the G * O products stored with the width they were read with. The
+// wrapper picks G (kernels/sw_io.py::exit_group) so that every access is
+// aligned: at the engine's O = 2, two voxels (one float4) when W, PW and
+// ow are even, else one (a float2). The unit's index is divided once into
+// its row and column; no element divides by O. Other O (the model's
+// out_channels is 2) and unaligned tensors take the general path: one
+// voxel a unit, O scalar loads and stores.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,18 +75,74 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
+template <int N>
+struct FloatVec;
+template <>
+struct FloatVec<1> {
+  typedef float T;
+};
+template <>
+struct FloatVec<2> {
+  typedef float2 T;
+};
+template <>
+struct FloatVec<4> {
+  typedef float4 T;
+};
+
+// N floats read or written as one access
+template <int N>
+union Floats {
+  typename FloatVec<N>::T v;
+  float f[N];
+};
+
+// the unit u of the walk: its voxel's index in acc and inv (its output
+// starts at u * G * O); w_units = W / G
+__device__ __forceinline__ int64_t exit_voxel(unsigned u, unsigned w_units,
+                                              int G, int H, int PH, int PW,
+                                              int od, int oh, int ow) {
+  const unsigned r = u / w_units;   // output row z * H + y
+  const unsigned xg = u - r * w_units;
+  const int z = r / H, y = r - z * H;
+  return ((int64_t)(z + od) * PH + (y + oh)) * PW + ow + (int64_t)xg * G;
+}
+
+// G voxels of O floats a unit: G * O floats in one float2 or float4
+template <int G, int O>
 __global__ void __launch_bounds__(NT)
     sw_exit_kernel(const float* __restrict__ acc, const float* __restrict__ inv,
-                   float* __restrict__ out, int H, int W, int O, int PH,
-                   int PW, int od, int oh, int ow) {
-  const int z = blockIdx.z, y = blockIdx.y;
-  const int n = W * O;
-  const int64_t pv = ((int64_t)(z + od) * PH + (y + oh)) * PW + ow;
-  const float* arow = acc + pv * O;
-  const float* crow = inv + pv;
-  float* orow = out + ((int64_t)z * H + y) * n;
-  for (int j = blockIdx.x * NT + threadIdx.x; j < n; j += gridDim.x * NT)
-    orow[j] = __fmul_rn(arow[j], crow[j / O]);
+                   float* __restrict__ out, unsigned units, int H, int W,
+                   int PH, int PW, int od, int oh, int ow) {
+  constexpr int V = G * O;
+  const unsigned w_units = W / G;
+  for (unsigned u = blockIdx.x * NT + threadIdx.x; u < units;
+       u += gridDim.x * NT) {
+    const int64_t pv = exit_voxel(u, w_units, G, H, PH, PW, od, oh, ow);
+    Floats<V> a;
+    Floats<G> c;
+    a.v = *reinterpret_cast<const typename FloatVec<V>::T*>(acc + pv * O);
+    c.v = *reinterpret_cast<const typename FloatVec<G>::T*>(inv + pv);
+#pragma unroll
+    for (int j = 0; j < V; ++j) a.f[j] = __fmul_rn(a.f[j], c.f[j / O]);
+    *reinterpret_cast<typename FloatVec<V>::T*>(out + (int64_t)u * V) = a.v;
+  }
+}
+
+// the general path: one voxel of any O a unit
+__global__ void __launch_bounds__(NT)
+    sw_exit_kernel_any(const float* __restrict__ acc,
+                       const float* __restrict__ inv, float* __restrict__ out,
+                       unsigned units, int H, int W, int O, int PH, int PW,
+                       int od, int oh, int ow) {
+  for (unsigned u = blockIdx.x * NT + threadIdx.x; u < units;
+       u += gridDim.x * NT) {
+    const int64_t pv = exit_voxel(u, W, 1, H, PH, PW, od, oh, ow);
+    const float c = inv[pv];
+    const float* a = acc + pv * O;
+    float* o = out + (int64_t)u * O;
+    for (int j = 0; j < O; ++j) o[j] = __fmul_rn(a[j], c);
+  }
 }
 
 dim3 rows_grid(int n, int rows_y, int rows_z) {
@@ -100,13 +167,27 @@ extern "C" int fcd_sw_entry(const void* in, void* out, int out_bf16, int D,
   return static_cast<int>(cudaGetLastError());
 }
 
+// G: voxels a unit (kernels/sw_io.py::exit_group), 0 for the general path
 extern "C" int fcd_sw_exit(const void* acc, const void* inv, void* out, int D,
                            int H, int W, int O, int PH, int PW, int od,
-                           int oh, int ow, void* stream) {
+                           int oh, int ow, int G, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid = rows_grid(W * O, H, D);
-  sw_exit_kernel<<<grid, NT, 0, s>>>(
-      static_cast<const float*>(acc), static_cast<const float*>(inv),
-      static_cast<float*>(out), H, W, O, PH, PW, od, oh, ow);
+  const float* a = static_cast<const float*>(acc);
+  const float* c = static_cast<const float*>(inv);
+  float* o = static_cast<float*>(out);
+  const unsigned units = (unsigned)D * H * (W / (G > 0 ? G : 1));
+  // a grid-stride walk: at most 8 blocks of NT per SM of an H100
+  const unsigned blocks = units / NT + 1 < 132 * 8 ? units / NT + 1 : 132 * 8;
+  if (G == 2 && O == 2)
+    sw_exit_kernel<2, 2><<<blocks, NT, 0, s>>>(a, c, o, units, H, W, PH, PW,
+                                               od, oh, ow);
+  else if (G == 1 && O == 2)
+    sw_exit_kernel<1, 2><<<blocks, NT, 0, s>>>(a, c, o, units, H, W, PH, PW,
+                                               od, oh, ow);
+  else if (G == 0)
+    sw_exit_kernel_any<<<blocks, NT, 0, s>>>(a, c, o, units, H, W, O, PH, PW,
+                                             od, oh, ow);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

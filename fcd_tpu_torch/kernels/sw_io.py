@@ -16,7 +16,9 @@ pass (ROADMAP ground rules):
 The CUDA kernels are `fcd_tpu_torch/csrc/sw_io.cu`, bound by the bytes
 they move (its header). Each is bit-equal to its plain version: the entry
 copies and rounds to nearest even as `Tensor.to` does, the exit is one f32
-multiply per element.
+multiply per element. The exit walks the crop in units of G voxels, one
+float2 or float4 access each; `exit_group` picks G (pure Python, held by
+the CPU tests).
 
 CPU tensors take the plain PyTorch versions; CUDA tensors launch the
 kernels or raise.
@@ -110,6 +112,19 @@ def sw_exit_plain(acc: torch.Tensor, inv: torch.Tensor,
     return (acc * inv)[od:od + d, oh:oh + h, ow:ow + w].contiguous()
 
 
+def exit_group(o: int, w: int, pw: int, ow: int, aligned: bool = True) -> int:
+    """Voxels along x per unit of the exit kernel's walk, for O = 2 (the
+    model's two classes): 2 (one float4) where the crop's W, the
+    accumulator's PW and the corner's ow are even, so that every unit
+    starts at an even voxel, else 1 (a float2). 0 for the general path (one
+    voxel of O scalars a unit): other O, or tensors not 16-byte aligned.
+    o: channels; w: cropped width; pw: padded width; ow: the crop's x
+    corner."""
+    if o != 2 or not aligned:
+        return 0
+    return 2 if w % 2 == 0 and pw % 2 == 0 and ow % 2 == 0 else 1
+
+
 def sw_exit(acc: torch.Tensor, inv: torch.Tensor, start: Sequence[int],
             size: Sequence[int]) -> torch.Tensor:
     """B6 wrapper. acc: (PD, PH, PW, O) f32; inv: (PD, PH, PW, 1) f32;
@@ -130,10 +145,14 @@ def sw_exit(acc: torch.Tensor, inv: torch.Tensor, start: Sequence[int],
             acc.is_contiguous() and inv.is_contiguous()):
         raise TypeError("sw_exit kernel takes contiguous f32 acc and inv")
     o = acc.shape[3]
+    if size[0] * size[1] * size[2] >= 2 ** 31:
+        raise ValueError("sw_exit kernel walks the voxels in 32 bits")
     out = torch.empty((*size, o), dtype=torch.float32, device=acc.device)
-    err = _fn("fcd_sw_exit", 3, 9)(
+    aligned = all(t.data_ptr() % 16 == 0 for t in (acc, inv, out))
+    g = exit_group(o, size[2], acc.shape[2], start[2], aligned)
+    err = _fn("fcd_sw_exit", 3, 10)(
         _build.ptr(acc), _build.ptr(inv), _build.ptr(out), *size, o,
-        acc.shape[1], acc.shape[2], *start, _build.stream())
+        acc.shape[1], acc.shape[2], *start, g, _build.stream())
     _build.check(err, "sw_exit")
     sw_exit.launches += 1
     return out

@@ -104,15 +104,75 @@ def test_finale_pool_kernel_matches_plain(dev, pool):
         assert _rel(g, w) < 1e-2
 
 
-@pytest.mark.parametrize("ci,co,bias", [(32, 16, False), (12, 20, True)])
-def test_upsample_kernel_matches_plain(dev, ci, co, bias):
+# the five decoders' (ci, co), and a ragged case with bias and bf16 weights
+UPSAMPLE_CASES = [(256, 128, False, "f32"), (128, 64, False, "f32"),
+                  (64, 32, False, "f32"), (32, 32, False, "f32"),
+                  (32, 16, False, "f32"), (12, 20, True, "f32"),
+                  (12, 20, True, "bf16")]
+
+
+def _upsample_inputs(dev, batch, ci, co, bias, wdtype, grid=(3, 5, 4)):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    x = _randn(gen, dev, batch, *grid, ci, dtype=torch.bfloat16)
+    wd = torch.float32 if wdtype == "f32" else torch.bfloat16
+    k = _randn(gen, dev, 2, 2, 2, ci, co, scale=0.2, dtype=wd)
+    b = _randn(gen, dev, co, dtype=wd) if bias else None
+    return x, k, b
+
+
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("ci,co,bias,wdtype", UPSAMPLE_CASES)
+def test_upsample_kernel_matches_plain(dev, batch, ci, co, bias, wdtype):
     from fcd_tpu_torch.kernels.upsample import upsample2x, upsample2x_plain
 
-    gen = torch.Generator(device=dev).manual_seed(2)
-    x = _randn(gen, dev, 2, 3, 5, 4, ci, dtype=torch.bfloat16)
-    k = _randn(gen, dev, 2, 2, 2, ci, co, scale=0.2, dtype=torch.bfloat16)
-    b = _randn(gen, dev, co) if bias else None
-    assert _rel(upsample2x(x, k, b), upsample2x_plain(x, k, b)) < 2e-2
+    x, k, b = _upsample_inputs(dev, batch, ci, co, bias, wdtype)
+    before = upsample2x.launches
+    got = upsample2x(x, k, b)
+    torch.cuda.synchronize()
+    assert upsample2x.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    assert _rel(got, upsample2x_plain(x, k, b)) < 2e-2
+    # two calls, the same bits
+    assert torch.equal(got, upsample2x(x, k, b))
+
+
+@pytest.mark.parametrize("tile", range(4))
+def test_upsample_kernel_every_tile(dev, tile):
+    """Every tile of the plan's list, at a shape that leaves ragged edges
+    in both of the grid's axes, under several walks."""
+    from fcd_tpu_torch.kernels.upsample import (
+        plan_for,
+        upsample2x,
+        upsample2x_plain,
+    )
+
+    x, k, b = _upsample_inputs(dev, 2, 40, 24, True, "f32", grid=(3, 7, 5))
+    want = upsample2x_plain(x, k, b)
+    plan = plan_for(tile, 2 * 3 * 7 * 5, 8 * 24)
+    # the plan's walk, a walk of several tiles a block, and one tile a block
+    for m_blocks in (plan.m_blocks, 1, 3, plan.m_tiles):
+        walk = plan._replace(m_blocks=min(m_blocks, plan.m_tiles))
+        assert _rel(upsample2x(x, k, b, plan=walk), want) < 2e-2
+
+
+def test_upsample_is_one_device_launch(dev):
+    """The model's call (f32 kernel, no bias): one kernel on the card, no
+    cast, flip or copy beside it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fcd_tpu_torch.kernels.upsample import upsample2x
+
+    x, k, _ = _upsample_inputs(dev, 1, 32, 16, False, "f32", grid=(8, 8, 8))
+    upsample2x(x, k)
+    torch.cuda.synchronize()
+    before = upsample2x.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        upsample2x(x, k)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 1 and "upsample_kernel" in names[0], names
+    assert upsample2x.launches == before + 1
 
 
 @pytest.mark.parametrize("n,c,p,h", [(300, 32, 64, 4), (64, 256, 32, 4)])
@@ -337,13 +397,16 @@ def test_sw_entry_kernel_matches_plain(dev, shape, roi, dtype):
     assert got.dtype == dtype and torch.equal(got, want)
 
 
+@pytest.mark.parametrize("o", [1, 2, 3])
 @pytest.mark.parametrize("start,size", [((0, 0, 0), (10, 12, 14)),
-                                        ((1, 2, 3), (7, 9, 8))])
-def test_sw_exit_kernel_matches_plain(dev, start, size):
+                                        ((1, 2, 3), (7, 9, 8)),
+                                        ((1, 2, 3), (7, 9, 11)),
+                                        ((2, 0, 2), (6, 12, 12))])
+def test_sw_exit_kernel_matches_plain(dev, start, size, o):
     from fcd_tpu_torch.kernels.sw_io import sw_exit, sw_exit_plain
 
     gen = torch.Generator(device=dev).manual_seed(9)
-    acc = _randn(gen, dev, 10, 12, 14, 2)
+    acc = _randn(gen, dev, 10, 12, 14, o)
     inv = torch.rand(10, 12, 14, 1, generator=gen, device=dev) + 0.1
     before = sw_exit.launches
     got = sw_exit(acc, inv, start, size)
