@@ -19,8 +19,13 @@ Run from the repository root:
    the statistics' sum with the conv, for K1 its second pass), with each
    call's wall time per call beside it, and so are sw_exit and `acc * inv`;
    their build reports give each instance's registers and spills and the
-   library's HGMMA (B1) or HMMA (K1, B4) count (0 fails). K1, K2, K4 and
-   B4 must give the same bits from two calls.
+   library's HGMMA (B1) or HMMA (K1, B4, B5) count (0 fails). K1, K2, K4,
+   B4 and B5 must give the same bits from two calls. B5 runs at the four
+   DSA levels: phase A's sums, its finishing pass (phase B's operands),
+   phase B and the whole op against their plain versions and the f32
+   reference, each phase timed by the device time of all one main-path
+   call launches, and one dsa_attention call must launch exactly its three
+   kernels.
 3. Drives the inference path: ModelTrainer(default params, device="cuda")
    .inference on a seeded 182x218x182x2 volume (8 patches of 128^3, fs16
    MS_DSA_NET), with every launch counter set to 0 just before and read
@@ -63,6 +68,7 @@ Any failed phase exits non-zero. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --kernels upsample2x,sw_exit
+    python3 chip_smoke.py --kernels dsa_phase_a,dsa_phase_b
 
 builds the kernels and runs only the named kernels' phases (checks and
 times; no main path and no result line).
@@ -222,24 +228,27 @@ class Phase:
               f"{100 * share:.2f}%", flush=True)
 
 
-def build_report(name, kernel, args, instr) -> int:
-    """One CUDA library's build on the card: each instance of `kernel`
-    (its template arguments named `args`), with its registers, shared
-    memory and spills (nvcc -Xptxas -v, kept beside the library), and the
-    count of `instr` instructions in the library's SASS. Fails if that
-    count is 0: the kernel must multiply on the tensor cores."""
+def build_report(name, kernels, args, instr) -> int:
+    """One CUDA library's build on the card: each instance of `kernels`
+    (one name or several; template arguments named `args`), with its
+    registers, shared memory and spills (nvcc -Xptxas -v, kept beside the
+    library), and the count of `instr` instructions in the library's SASS.
+    Fails if that count is 0: the kernel must multiply on the tensor
+    cores."""
     import re
 
     from fcd_tpu_torch.kernels import _build
 
+    kernels = (kernels,) if isinstance(kernels, str) else kernels
     shown = None
     for line in _build.build_log(name).splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             vals = re.findall(r"L[ib](\d+)E", m.group(1))
+            kernel = next((k for k in kernels if k in m.group(1)), None)
             shown = (f"{kernel}<" + ", ".join(
                 f"{a}={v}" for a, v in zip(args, vals)) + ">"
-                if kernel in m.group(1) else m.group(1))
+                if kernel else m.group(1))
         elif shown and ("spill" in line or "Used" in line
                         or "arning" in line):
             print(f"  ptxas {shown}: {line.strip()}")
@@ -432,25 +441,32 @@ def upsample_phases(dev, gen, small=False):
     return out
 
 
-def dsa_phases(label, dev, gen, n, c, p, h=4, iters=10):
-    """B5 phase A and phase B at one level's shape."""
+def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10):
+    """B5 at one level's shape, batch 1, with the model's f32 weights and
+    EF: phase A's sums and, with the temperatures, the finishing pass's
+    phase-B operands against the plain versions, phase B against its plain
+    version, the whole op against the f32 einsum reference, each of them
+    twice bit-equal; on the card, one dsa_attention call is exactly the
+    three B5 kernels. `ms` is the device time of all one main-path call of
+    the phase launches (phase A with its finishing pass), the kernels alone
+    and the wall per call beside it."""
     import torch
 
     from fcd_tpu_torch.kernels import dsa_attention as dk
 
     bf = torch.bfloat16
     x = _randn((1, n, c), gen, dev, dtype=bf)
-    w_qkvv = _randn((c, 4 * c), gen, dev, (6.0 / (5 * c)) ** 0.5)
+    w = _randn((c, 4 * c), gen, dev, (6.0 / (5 * c)) ** 0.5)
     ef = (torch.rand((n, p), generator=gen, device=dev) * 2 - 1) / p ** 0.5
     t1 = torch.rand((h, 1, 1), generator=gen, device=dev) + 0.5
     t2 = torch.rand((h, 1, 1), generator=gen, device=dev) + 0.5
-    lns = 1.0 + _randn((c,), gen, dev, 0.1)
-    lnb = _randn((c,), gen, dev, 0.1)
-    pe = _randn((n, c), gen, dev, 0.1)
+    tok = (1.0 + _randn((c,), gen, dev, 0.1), _randn((c,), gen, dev, 0.1),
+           _randn((n, c), gen, dev, 0.1))
     gamma = _randn((c,), gen, dev)
-    w4 = dk.split_qkvv(w_qkvv).to(bf).contiguous()
-    efb = ef.to(bf)
+    temps = (t1, t2)
     ch = c // h
+    # the work counts of the kernels this one replaced (the whole C x C of
+    # q^T k), kept so that times compare like with like
     flops_a = 2 * n * c * c * 3 + 2 * n * c * c + 2 * 2 * n * c * p
     bytes_a = 2 * n * c + 4 * n * c + 2 * n * p + 3 * 2 * c * c + 8 * c \
         + 4 * (c * c + 2 * c + 2 * c * p)
@@ -459,33 +475,104 @@ def dsa_phases(label, dev, gen, n, c, p, h=4, iters=10):
         + 2 * 2 * c * p + 12 * c + 2 * n * c
     pa = Phase("dsa_phase_a", label, flops_a, bytes_a)
     pb = Phase("dsa_phase_b", label, flops_b, bytes_b)
+    plan = dk.dsa_plan(n, c, p, h)
+    print(f"  dsa {label}: tile {plan.tile}, phase A {plan.a_blocks} blocks "
+          f"({plan.chunks} chunks of {plan.per_chunk} tiles a head), phase B "
+          f"{plan.b_blocks} blocks, shared memory {plan.smem_a} / "
+          f"{plan.smem_b} bytes")
 
-    ka = dk.dsa_phase_a(x, w4, efb, lns, lnb, pe)
-    wa = dk.dsa_phase_a_plain(x, w4, efb, lns, lnb, pe)
+    def phase_a():
+        return dk.dsa_phase_a(x, w, ef, *tok, h, temperatures=temps)
+
+    ka = dk.dsa_phase_a(x, w, ef, *tok, h)
+    wa = dk.dsa_phase_a_plain(x, w, ef, *tok, h)
     for name, g_, w_ in zip(ka._fields, ka, wa):
         pa.check(name, g_, w_, 2e-2)
-    glue = dk.dsa_glue(ka, t1, t2, h, bf)
-    kb = dk.dsa_phase_b(x, w4, *glue, gamma, lns, lnb, pe, h)
-    wb = dk.dsa_phase_b_plain(x, w4, *glue, gamma, lns, lnb, pe, h)
-    pb.check("out", kb, wb, 2e-2)
-    # the whole op (phase A, glue, phase B) against the f32 einsum math;
-    # bf16 rounding of the kernels' intermediates sets the tolerance
-    Phase("dsa_attention", label, 0, 0).check(
-        "whole op vs f32 einsum reference",
-        dk.dsa_attention(x, w_qkvv, ef, t1, t2, lns, lnb, pe, gamma, h),
-        dk.dsa_reference(x, w_qkvv, ef, t1, t2, lns, lnb, pe, gamma, h), 5e-2)
+    check_repeatable(pa, ka, dk.dsa_phase_a(x, w, ef, *tok, h))
+    ops = phase_a()
+    for name, g_, w_ in zip(ops._fields, ops, dk.dsa_glue(wa, t1, t2, h, bf)):
+        pa.check(f"finishing pass {name}", g_, w_, 2e-2)
+    check_repeatable(pa, ops, phase_a())
 
-    pa.ms = timed_ms(lambda: dk.dsa_phase_a(x, w4, efb, lns, lnb, pe), iters)
-    pa.plain_ms = timed_ms(
-        lambda: dk.dsa_phase_a_plain(x, w4, efb, lns, lnb, pe), iters)
-    pb.ms = timed_ms(
-        lambda: dk.dsa_phase_b(x, w4, *glue, gamma, lns, lnb, pe, h), iters)
-    pb.plain_ms = timed_ms(
-        lambda: dk.dsa_phase_b_plain(x, w4, *glue, gamma, lns, lnb, pe, h),
-        iters)
-    pa.report()
-    pb.report()
+    def phase_b():
+        return dk.dsa_phase_b(x, w, *ops, gamma, *tok, h)
+
+    kb = phase_b()
+    pb.check("out", kb, dk.dsa_phase_b_plain(x, w, *ops, gamma, *tok, h),
+             2e-2)
+    check_repeatable(pb, [kb], [phase_b()])
+    # the whole op against the f32 einsum math; bf16 rounding of the
+    # kernels' intermediates sets the tolerance
+    args = (x, w, ef, t1, t2, *tok, gamma, h)
+    whole = dk.dsa_attention(*args)
+    op = Phase("dsa_attention", label, 0, 0)
+    op.check("whole op vs f32 einsum reference", whole,
+             dk.dsa_reference(*args), 5e-2)
+    check_repeatable(op, [whole], [dk.dsa_attention(*args)])
+    if dev.type == "cuda":
+        launched = device_kernels(lambda: dk.dsa_attention(*args))
+        ok = len(launched) == 3 and all(
+            k in e for k, e in zip(DSA_KERNELS, launched))
+        print(f"  dsa_attention {label}: one call launches {launched} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"dsa_attention {label}: launches "
+                                 f"{launched}, not the three B5 kernels")
+
+    for ph, call, key, plain in (
+            (pa, phase_a, "dsa_phase_a",
+             lambda: dk.dsa_glue(dk.dsa_phase_a_plain(x, w, ef, *tok, h),
+                                 t1, t2, h, bf)),
+            (pb, phase_b, "dsa_phase_b",
+             lambda: dk.dsa_phase_b_plain(x, w, *ops, gamma, *tok, h))):
+        times = device_times(call, iters)
+        ph.ms = sum(times.values())
+        ph.kernel_ms = sum(v for k, v in times.items()
+                           if key in k or k == "host")
+        if ph.kernel_ms == 0:
+            raise AssertionError(f"{key} {label}: the profiler saw no "
+                                 f"{key} kernel on the card")
+        ph.call_ms = timed_ms(call, iters)
+        ph.plain_ms = timed_ms(plain, iters)
+        ph.report()
+        if dev.type == "cuda":
+            print(f"  {key} {label} by kernel: " + ", ".join(
+                f"{k} {sum(v for n_, v in times.items() if k in n_):.4f} ms"
+                for k in DSA_KERNELS if any(k in n_ for n_ in times)))
     return [pa, pb]
+
+
+# the B5 kernels one dsa_attention call launches, in order
+DSA_KERNELS = ("dsa_phase_a_kernel", "dsa_phase_a_finish",
+               "dsa_phase_b_kernel")
+# the DSA levels of a 128^3 patch (fs16, 4 heads): (name, N, C, P)
+DSA_LEVELS = (("level3", 32768, 32, 64), ("level4", 4096, 64, 64),
+              ("level5", 512, 128, 64), ("level6", 64, 256, 32))
+
+
+def dsa_phases(dev, gen, small=False):
+    """B5 at the four levels' shapes (`small`: level 3 at 512 tokens)."""
+    out = []
+    for name, n, c, p in DSA_LEVELS:
+        out += dsa_phase(f"{name} N={n} C={c} P={p}", dev, gen,
+                         min(n, 512) if small else n, c, p)
+    return out
+
+
+def device_kernels(fn) -> list:
+    """The names of the device ops one call of fn launches, in order."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in sorted(
+        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+        key=lambda e: e.time_range.start)]
 
 
 def wgrad_phase(label, dev, gen, batch, grid, parts_c, cout, *,
@@ -878,9 +965,7 @@ def kernel_phases(dev, gen, small: bool = False):
         finale_phase("enc1 128^3x16 +pool", dev, gen, s(128, 128, 128), 16),
     ]
     phases += upsample_phases(dev, gen, small)
-    phases += dsa_phases("level3 N=32768 C=32 P=64", dev, gen,
-                         512 if small else 32768, 32, 64)
-    phases += dsa_phases("level6 N=64 C=256 P=32", dev, gen, 64, 256, 32)
+    phases += dsa_phases(dev, gen, small)
     # the training path's kernels at batch 4 x 128^3 shapes
     b = 1 if small else 4
     phases += [
@@ -1376,7 +1461,8 @@ def profile_run(label, fn, dev) -> dict:
         return {}
     print(f"profile: {label}, wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share "
-          f"{100 * max(0.0, 1 - busy / wall_us):.1f}%")
+          f"{100 * max(0.0, 1 - busy / wall_us):.1f}%, "
+          f"{sum(n for n, _ in by_name.values())} device kernels")
     for key, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:14]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% {n:5d}x {key}")
     return {k: us / 1e3 for k, (_, us) in by_name.items()}
@@ -1700,7 +1786,8 @@ def kernels_json(phases, by_path):
             "bound_by": top.bound_by,
             "library_ms": None if None in lib else sum(lib),
             **({"call_ms": sum(p.call_ms for p in mine),
-                "library_call_ms": sum(p.library_call_ms for p in mine)}
+                "library_call_ms": None if None in lib else sum(
+                    p.library_call_ms for p in mine)}
                if mine[0].call_ms is not None else {}),
             "shapes": [p.label for p in mine],
         })
@@ -1714,16 +1801,18 @@ BUILD_REPORTS = {
     "conv3d_wgrad": ("conv3d_wgrad", "wgrad_mma_kernel", ("mi", "ni"),
                      "HMMA"),
     "upsample2x": ("upsample", "upsample_kernel", ("wm", "wn", "ni"), "HMMA"),
+    "dsa": ("dsa", DSA_KERNELS, ("ch", "p"), "HMMA"),
 }
 # `--kernels NAME,...`: only these kernels' phases
-ONLY_PHASES = {"upsample2x": upsample_phases, "sw_exit": sw_io_phases}
+ONLY_PHASES = {"upsample2x": upsample_phases, "sw_exit": sw_io_phases,
+               "dsa_phase_a": dsa_phases, "dsa_phase_b": dsa_phases}
 
 
 def kernels_only(dev, gen, names) -> int:
-    """The phases of the named kernels (ONLY_PHASES) alone: checks and
-    times, no main path and no result line."""
-    for name in names:
-        ONLY_PHASES[name](dev, gen)
+    """The phases of the named kernels (ONLY_PHASES) alone, each function
+    once: checks and times, no main path and no result line."""
+    for fn in dict.fromkeys(ONLY_PHASES[name] for name in names):
+        fn(dev, gen)
     print(card_line())
     return 0
 
@@ -1774,6 +1863,7 @@ def main(argv=()) -> int:
     prof = profile_run(f"one {tuple(patch.shape[1:4])} patch forward",
                        lambda: trainer.predict(x), dev)
     print_share(prof, "B4 in the patch", ("upsample_kernel",))
+    print_share(prof, "B5 in the patch", ("dsa_phase_a", "dsa_phase_b"))
     del trainer, x
     torch.cuda.empty_cache()
     by_path["train"], trainer, batch = train_run(dev, card)

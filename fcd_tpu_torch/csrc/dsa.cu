@@ -1,35 +1,58 @@
-// B5: fused eval dual self-attention (DSA, sa_type 'parallel'), two kernels
-// (Hopper, sm_90a).
+// B5: the fused eval dual self-attention (DSA, sa_type 'parallel') on the
+// tensor cores (Hopper, sm_90a): phase A, its finishing pass, phase B.
 //
-// Replaces fcd_tpu/kernels/dsa_attention.py::dsa_fused (its phase A and
-// phase B Pallas kernels). Both phases fuse the pos-embed add and the
-// LayerNorm (eps given) into their token loads:
-//   t   = x + pe,   xln = bf16(LN(t) * ln_scale + ln_bias)
-//   q, k, v_ca, v_sa = xln @ w[0..3]          (f32 accumulation)
-// Phase A reduces over token tiles (one block per tile; each block writes
-// its partial sums once, at (tile, b) of buffers with a leading tiles axis,
-// and the wrapper adds them over the tiles in a fixed order, so the sums are
-// the same bits from run to run):
-//   qk = q^T k (C x C), q2 = sum q^2, k2 = sum k^2 (C),
-//   kp = bf16(k)^T ef, vp = bf16(v_sa)^T ef (C x P).
-// The per-head C x C softmax between the phases is left to PyTorch, as the
-// JAX package leaves it to XLA. Phase B maps over token tiles:
-//   out_ca[n, c] = sum_{d in head(c)} bf16(v_ca)[n, d] * abig[d, c]
-//   s_h[n, p]    = softmax_p(sum_{c in h} qn[n, c] * kpt[c, p]),  qn = bf16(q * qnorm)
-//   out_sa[n, c] = sum_p bf16(s_h)[n, p] * vp[c, p]              (c in head h)
-//   y[n, c]      = bf16(t[n, c] + gamma[c] * (out_ca + out_sa))
-// abig is block diagonal (the per-head channel attention, transposed) and
-// kpt carries temperature2; the TPU kernel multiplies by the zero blocks,
-// this kernel skips them (the sums are the same).
+// Replaces fcd_tpu/kernels/dsa_attention.py::dsa_fused: its phase A
+// pallas_call (:243), the XLA glue between the phases (:277-300) and its
+// phase B pallas_call (:310). The function is dsa_fused's, 'parallel'
+// layout, with the fused pos-embed, LayerNorm and residual:
+//   t = x + pe (f32),  xln = bf16(LN(t) * ln_scale + ln_bias)
+//   q, k, v_ca, v_sa = xln @ w[:, slot * C ...]   (slots 0..3 of the flax
+//                      (C, 4C) qkvv matrix; bf16 operands, f32 sums)
+// Head h owns the channels [h*ch, (h+1)*ch), ch = C / heads, and all of
+// the function is per head:
+//   phase A (sums over the tokens): qk_h = q_h^T k_h (ch x ch, f32 q, k),
+//     q2 = sum q^2, k2 = sum k^2, kp = bf16(k)^T ef, vp = bf16(v_sa)^T ef
+//   finishing pass: qnorm = rsqrt(q2 + 1e-12), knorm likewise,
+//     A_h = softmax_row(qk_h * qnorm * knorm * t1_h), abig_h = bf16(A_h^T),
+//     kpt = bf16(kp * t2_h), vp = bf16(vp)
+//   phase B (per token): qn = bf16(q * qnorm), out_ca = bf16(v_ca) abig_h,
+//     s = softmax_p(qn kpt_h), out_sa = bf16(s) vp_h^T,
+//     y = bf16(t + gamma * (out_ca + out_sa))
+// The rounding points are dsa_fused's; q and k enter q^T k, q2 and k2 in
+// f32, as the TPU kernel's f32 projections do.
 //
-// What bounds it: per token ~2*C*(3C + 2P) operations (phase A) and
-// ~2*C*(2C + C/h + 2P) (phase B) against ~6*C bytes (bf16 tokens in and
-// out, f32 pos-embed): at C = 32..256 both sides are small, and at this
-// slice's sizes the kernels are bound by operations on the CUDA cores and by
-// their many small steps. The design keeps a whole token tile (T*C <= 4096
-// values) and every per-token intermediate in shared memory, so tokens are
-// read from device memory once per phase and written once, and runs the
-// small products on the CUDA cores in f32.
+// What bounds it (H100: 989 TFLOP/s bf16, 3.35 TB/s): per token each phase
+// reads ~6C bytes (bf16 x, f32 pos-embed) and does ~6C^2 + 4CP operations,
+// 30-250 operations a byte, under the card's ~295: the bytes. But the
+// levels are small (N = 64 .. 32768 tokens, C = 32 .. 256), so the bound
+// is 0.2-3 us and what costs is latency: too few blocks for 132 SMs, long
+// chains of dependent steps in a block, and launches. The design:
+//   * The grid is (token chunk or tile, head, batch): a block computes only
+//     its head's ch columns of the projections, from the full LayerNormed
+//     token row (the LN is repeated per head, cheap), so phase A computes
+//     only the h diagonal ch x ch blocks of q^T k that the glue reads, and
+//     even the 64-token level launches 16 blocks of each phase.
+//   * Products on the tensor cores: mma.sync m16n8k16 (bf16 in, f32
+//     accumulators) fed by ldmatrix, for the projections (tokens x C x ch,
+//     the head's weight columns staged once per block, f32 rounded to bf16
+//     on load), for kp | vp (ef^T [bf16(k) | bf16(v_sa)], the tokens as the
+//     k-dimension), and in phase B for the channel attention, the scores
+//     and s vp^T; the softmax over P runs on the accumulator fragments
+//     (quad shuffles), and they become the next product's operand in
+//     registers. ch = 8 pads the k-dimension with zeros to 16.
+//   * q^T k, q2 and k2 take q and k in f32 on the CUDA cores: ch^2 + 2ch
+//     fused multiply-adds a token per head, each thread owning fixed
+//     outputs (and, at ch = 8, a fixed slice of the tile's tokens).
+//   * Phase A's blocks walk a chunk of token tiles, keep their sums in
+//     registers, and write one partial record a chunk; the finishing pass
+//     adds the records in chunk order (no atomics: two calls give the same
+//     bits), 16 loads in flight a thread, kp | vp spread over blocks of
+//     their own, and does the glue in the block that adds q^T k: a DSA
+//     call is three launches with no PyTorch op between them.
+//   * Tiles and chunks come from kernels/dsa_attention.py::dsa_plan (pure
+//     Python): small levels get 16-token tiles and more blocks, level 3
+//     128-token tiles walked four to a block. kernels/dsa_sweep.py --plans
+//     times every tile and chunk length on the card (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -38,11 +61,19 @@
 
 namespace {
 
-constexpr int NT = 256;
-constexpr int NWARP = NT / 32;
+typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+constexpr int NT = 256;            // threads of a phase A or B block
+constexpr int NW = NT / 32;
+constexpr int FT = 1024;           // threads of a finishing-pass block
+constexpr int SMEM_CAP = 232448;   // shared memory one block may hold
+constexpr float L2_EPS = 1e-12f;   // fcd_tpu/ops/attention.py::_l2_normalize
+
+// a bf16 row pitch of at least n elements: a multiple of 8 elements that
+// is an odd multiple of 16 bytes, so the 8 rows an ldmatrix reads sit in
+// distinct banks (kernels/dsa_attention.py::_pitch)
+__host__ __device__ constexpr int pitch(int n) {
+  return (n + 7) / 8 * 8 + (((n + 7) / 8) % 2 == 0 ? 8 : 16);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {
@@ -53,258 +84,900 @@ __device__ __forceinline__ float warp_sum(float v) {
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
 }
 
-// (pos-embed +) LayerNorm of a tile of T tokens: base = x + pe (f32, if
-// wanted), xs = bf16-rounded normalised tokens. Tokens past N read as 0.
-__device__ void ln_tile(const __nv_bfloat16* __restrict__ x,
-                        const float* __restrict__ pe,
-                        const float* __restrict__ lns,
-                        const float* __restrict__ lnb, float eps, int b,
-                        int n0, int T, int N, int C, float* xs, float* base) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int t = warp; t < T; t += NWARP) {
-    const int n = n0 + t;
-    if (n >= N) {
-      for (int c = lane; c < C; c += 32) {
-        xs[t * C + c] = 0.f;
-        if (base != nullptr) base[t * C + c] = 0.f;
-      }
-      continue;
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr)
+      : "memory");
+}
+
+// d[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulators
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// eight consecutive values of an f32 or bf16 array from element i
+// (i % 8 == 0, the array 16-byte aligned), as bf16
+__device__ __forceinline__ uint4 load8(const void* src, int f32, size_t i) {
+  if (f32) {
+    const float4* s =
+        reinterpret_cast<const float4*>(static_cast<const float*>(src) + i);
+    const float4 lo = s[0], hi = s[1];
+    return make_uint4(pack2(lo.x, lo.y), pack2(lo.z, lo.w), pack2(hi.x, hi.y),
+                      pack2(hi.z, hi.w));
+  }
+  return *reinterpret_cast<const uint4*>(static_cast<const bf16*>(src) + i);
+}
+
+// what both phases read
+struct Tok {
+  const bf16* x;     // (B, N, C) raw tokens
+  const float* pe;   // (N, C) pos-embed, or null
+  const float* lns;  // (C,) LayerNorm scale
+  const float* lnb;  // (C,) LayerNorm bias
+  const void* w;     // the flax qkvv matrix (C, 4C), f32 or bf16
+  int w_f32;
+  int N, C, heads, T;  // T tokens a tile
+  float eps;
+};
+
+// columns h*CH .. h*CH + CH of NS slots of the qkvv matrix (slot j's index
+// in the 4 bits j of `slots`), all C rows, as bf16 into Ws (pitch wp):
+// slot j at column j*CH
+template <int CH, int NS>
+__device__ void stage_weights(const Tok& tk, int slots, int h, bf16* Ws,
+                              int wp) {
+  constexpr int VR = NS * CH / 8;  // 8-column vectors a row
+  constexpr int U = 8;             // vectors in flight a thread
+  const int C = tk.C;
+  for (int v0 = threadIdx.x; v0 < C * VR; v0 += U * NT) {
+    uint4 val[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int v = v0 + u * NT;
+      if (v >= C * VR) break;
+      const int k = v / VR, r = v - k * VR;
+      const int j = r / (CH / 8), n = (r - j * (CH / 8)) * 8;
+      val[u] = load8(tk.w, tk.w_f32,
+                     (size_t)k * 4 * C + ((slots >> (4 * j)) & 15) * C +
+                         h * CH + n);
     }
-    const __nv_bfloat16* xr = x + ((size_t)b * N + n) * C;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int v = v0 + u * NT;
+      if (v >= C * VR) break;
+      const int k = v / VR, r = v - k * VR;
+      const int j = r / (CH / 8), n = (r - j * (CH / 8)) * 8;
+      *reinterpret_cast<uint4*>(Ws + k * wp + j * CH + n) = val[u];
+    }
+  }
+}
+
+// (pos-embed +) LayerNorm of tokens n0 .. n0 + T of batch b into Xs (bf16,
+// pitch xp), rows past N zero. C / 8 lanes share a token, 8 channels each
+// (16-byte loads). With Bs, also t = x + pe of the head's channels
+// c0 .. c0 + CH into Bs (f32, pitch CH).
+template <int CH>
+__device__ void ln_tile(const Tok& tk, int b, int n0, bf16* Xs, int xp,
+                        float* Bs, int c0) {
+  const int C = tk.C, G = C / 8;  // lanes a token
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = lane / G, c = (lane - sub * G) * 8;
+  const int per_pass = NW * (32 / G);
+  for (int t0 = 0; t0 < tk.T; t0 += per_pass) {
+    const int t = t0 + warp * (32 / G) + sub;
+    const int n = n0 + t;
+    const bool ok = t < tk.T && n < tk.N;
+    float v[8];
     float s = 0.f, q = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      float v = __bfloat162float(xr[c]);
-      if (pe != nullptr) v += pe[(size_t)n * C + c];
-      xs[t * C + c] = v;
-      s += v;
-      q += v * v;
-    }
-    s = warp_sum(s);
-    q = warp_sum(q);
-    const float mu = s / C;
-    const float var = fmaxf(q / C - mu * mu, 0.f);
-    const float rstd = rsqrtf(var + eps);
-    for (int c = lane; c < C; c += 32) {
-      const float v = xs[t * C + c];
-      if (base != nullptr) base[t * C + c] = v;
-      xs[t * C + c] = round_bf16((v - mu) * rstd * lns[c] + lnb[c]);
-    }
-  }
-}
-
-// phase A: one block per tile of T tokens of batch b
-__global__ void __launch_bounds__(NT)
-    dsa_phase_a(const __nv_bfloat16* __restrict__ x, const float* __restrict__ pe,
-                const float* __restrict__ lns, const float* __restrict__ lnb,
-                const __nv_bfloat16* __restrict__ w,
-                const __nv_bfloat16* __restrict__ ef, float* __restrict__ qk,
-                float* __restrict__ q2, float* __restrict__ k2,
-                float* __restrict__ kp, float* __restrict__ vp, int N, int C,
-                int P, int T, float eps) {
-  extern __shared__ float smem[];
-  float* xs = smem;          // T*C
-  float* qs = xs + T * C;    // T*C
-  float* ks = qs + T * C;    // T*C
-  float* vs = ks + T * C;    // T*C
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.x * T;
-  const size_t CC = (size_t)C * C;
-  const size_t tb = (size_t)blockIdx.x * gridDim.y + b;  // partials' row
-
-  ln_tile(x, pe, lns, lnb, eps, b, n0, T, N, C, xs, nullptr);
-  __syncthreads();
-
-  const __nv_bfloat16* wq = w;
-  const __nv_bfloat16* wk = w + CC;
-  const __nv_bfloat16* wv = w + 3 * CC;  // v_sa slot of the parallel layout
-  for (int i = threadIdx.x; i < T * C; i += NT) {
-    const int t = i / C, c = i % C;
-    float dq = 0.f, dk = 0.f, dv = 0.f;
-    for (int k = 0; k < C; ++k) {
-      const float a = xs[t * C + k];
-      dq = fmaf(a, __bfloat162float(wq[(size_t)k * C + c]), dq);
-      dk = fmaf(a, __bfloat162float(wk[(size_t)k * C + c]), dk);
-      dv = fmaf(a, __bfloat162float(wv[(size_t)k * C + c]), dv);
-    }
-    qs[i] = dq;
-    ks[i] = dk;
-    vs[i] = round_bf16(dv);
-  }
-  __syncthreads();
-
-  const int tv = min(T, N - n0);  // valid tokens of this tile
-  for (int i = threadIdx.x; i < C * C; i += NT) {
-    const int r = i / C, c = i % C;
-    float s = 0.f;
-    for (int t = 0; t < tv; ++t) s = fmaf(qs[t * C + r], ks[t * C + c], s);
-    qk[tb * CC + i] = s;
-  }
-  for (int c = threadIdx.x; c < C; c += NT) {
-    float sq = 0.f, sk = 0.f;
-    for (int t = 0; t < tv; ++t) {
-      sq = fmaf(qs[t * C + c], qs[t * C + c], sq);
-      sk = fmaf(ks[t * C + c], ks[t * C + c], sk);
-    }
-    q2[tb * C + c] = sq;
-    k2[tb * C + c] = sk;
-  }
-  for (int i = threadIdx.x; i < C * P; i += NT) {
-    const int c = i / P, p = i % P;
-    float sk = 0.f, sv = 0.f;
-    for (int t = 0; t < tv; ++t) {
-      const float e = __bfloat162float(ef[(size_t)(n0 + t) * P + p]);
-      sk = fmaf(round_bf16(ks[t * C + c]), e, sk);
-      sv = fmaf(vs[t * C + c], e, sv);
-    }
-    kp[tb * C * P + i] = sk;
-    vp[tb * C * P + i] = sv;
-  }
-}
-
-// phase B: one block per tile of T tokens of batch b
-__global__ void __launch_bounds__(NT)
-    dsa_phase_b(const __nv_bfloat16* __restrict__ x, const float* __restrict__ pe,
-                const float* __restrict__ lns, const float* __restrict__ lnb,
-                const __nv_bfloat16* __restrict__ w,
-                const float* __restrict__ qnorm,
-                const __nv_bfloat16* __restrict__ abig,
-                const __nv_bfloat16* __restrict__ kpt,
-                const __nv_bfloat16* __restrict__ vp,
-                const float* __restrict__ gamma, __nv_bfloat16* __restrict__ out,
-                int N, int C, int P, int heads, int T, float eps) {
-  extern __shared__ float smem[];
-  float* xs = smem;            // T*C normalised tokens
-  float* base = xs + T * C;    // T*C residual base x + pe
-  float* vca = base + T * C;   // T*C
-  float* qn = vca + T * C;     // T*C
-  float* acc = qn + T * C;     // T*C
-  float* sm = acc + T * C;     // T*P
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.x * T;
-  const int ch = C / heads;
-  const size_t CC = (size_t)C * C;
-  const __nv_bfloat16* wq = w;
-  const __nv_bfloat16* wv = w + 2 * CC;  // v_ca slot
-  const __nv_bfloat16* ab = abig + (size_t)b * CC;
-  const __nv_bfloat16* kb = kpt + (size_t)b * C * P;
-  const __nv_bfloat16* vb = vp + (size_t)b * C * P;
-
-  ln_tile(x, pe, lns, lnb, eps, b, n0, T, N, C, xs, base);
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < T * C; i += NT) {
-    const int t = i / C, c = i % C;
-    float dq = 0.f, dv = 0.f;
-    for (int k = 0; k < C; ++k) {
-      const float a = xs[t * C + k];
-      dq = fmaf(a, __bfloat162float(wq[(size_t)k * C + c]), dq);
-      dv = fmaf(a, __bfloat162float(wv[(size_t)k * C + c]), dv);
-    }
-    qn[i] = round_bf16(dq * qnorm[(size_t)b * C + c]);
-    vca[i] = round_bf16(dv);
-  }
-  __syncthreads();
-
-  // channel attention: only the head's diagonal block of abig is non-zero
-  for (int i = threadIdx.x; i < T * C; i += NT) {
-    const int t = i / C, c = i % C;
-    const int d0 = (c / ch) * ch;
-    float s = 0.f;
-    for (int d = d0; d < d0 + ch; ++d)
-      s = fmaf(vca[t * C + d], __bfloat162float(ab[(size_t)d * C + c]), s);
-    acc[i] = s;
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int h = 0; h < heads; ++h) {
-    const int c0 = h * ch;
-    for (int i = threadIdx.x; i < T * P; i += NT) {
-      const int t = i / P, p = i % P;
-      float s = 0.f;
-      for (int c = c0; c < c0 + ch; ++c)
-        s = fmaf(qn[t * C + c], __bfloat162float(kb[(size_t)c * P + p]), s);
-      sm[i] = s;
-    }
-    __syncthreads();
-    for (int t = warp; t < T; t += NWARP) {
-      float mx = -INFINITY;
-      for (int p = lane; p < P; p += 32) mx = fmaxf(mx, sm[t * P + p]);
-      mx = warp_max(mx);
-      float sum = 0.f;
-      for (int p = lane; p < P; p += 32) {
-        const float e = expf(sm[t * P + p] - mx);
-        sm[t * P + p] = e;
-        sum += e;
+    if (ok) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          tk.x + ((size_t)b * tk.N + n) * C + c);
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
+      if (tk.pe != nullptr) {
+        const float4* pe =
+            reinterpret_cast<const float4*>(tk.pe + (size_t)n * C + c);
+        const float4 lo = pe[0], hi = pe[1];
+        v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
+        v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
       }
-      sum = warp_sum(sum);
-      const float inv = 1.f / sum;
-      for (int p = lane; p < P; p += 32) sm[t * P + p] = round_bf16(sm[t * P + p] * inv);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        s += v[i];
+        q += v[i] * v[i];
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 8; ++i) v[i] = 0.f;
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < T * ch; i += NT) {
-      const int t = i / ch, c = c0 + i % ch;
-      float s = 0.f;
-      for (int p = 0; p < P; ++p)
-        s = fmaf(sm[t * P + p], __bfloat162float(vb[(size_t)c * P + p]), s);
-      acc[t * C + c] += s;
+    for (int o = G / 2; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      q += __shfl_xor_sync(0xffffffffu, q, o);
     }
-    __syncthreads();
-  }
-
-  for (int i = threadIdx.x; i < T * C; i += NT) {
-    const int t = i / C, c = i % C;
-    const int n = n0 + t;
-    if (n >= N) continue;
-    out[((size_t)b * N + n) * C + c] =
-        __float2bfloat16(base[i] + gamma[c] * acc[i]);
+    if (t >= tk.T) continue;
+    uint4 packed = make_uint4(0, 0, 0, 0);
+    if (ok) {
+      const float mu = s / C;
+      const float rstd = rsqrtf(fmaxf(q / C - mu * mu, 0.f) + tk.eps);
+      float y[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        y[i] = (v[i] - mu) * rstd * tk.lns[c + i] + tk.lnb[c + i];
+      packed = make_uint4(pack2(y[0], y[1]), pack2(y[2], y[3]),
+                          pack2(y[4], y[5]), pack2(y[6], y[7]));
+    }
+    *reinterpret_cast<uint4*>(Xs + t * xp + c) = packed;
+    if (Bs != nullptr && c >= c0 && c < c0 + CH) {
+      float4* dst = reinterpret_cast<float4*>(Bs + t * CH + c - c0);
+      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
+      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
+    }
   }
 }
 
-int tile_tokens(int C) { return C >= 4096 ? 1 : 4096 / C; }
+// one warp's D[16 x 8*NI] = Xs[m0 .. m0 + 16][0 .. C) . Ws[0 .. C)[n0 ..
+// n0 + 8*NI), f32 accumulators (C % 16 == 0)
+template <int NI>
+__device__ __forceinline__ void proj_mma(const bf16* Xs, int xp,
+                                         const bf16* Ws, int wp, int C,
+                                         int m0, int n0, float (&acc)[NI][4]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < NI; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  for (int k0 = 0; k0 < C; k0 += 16) {
+    uint32_t a[4];
+    ldsm_x4(a, smem_u32(Xs + (m0 + (lane & 15)) * xp + k0 + (lane >> 4) * 8));
+    const bf16* wrow = Ws + (k0 + (lane & 15)) * wp + n0;
+#pragma unroll
+    for (int j = 0; j < NI; j += 2) {
+      if (j + 1 < NI) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, smem_u32(wrow + j * 8 + (lane >> 4) * 8));
+        mma16816(acc[j], a, bb[0], bb[1]);
+        mma16816(acc[j + 1], a, bb[2], bb[3]);
+      } else {
+        uint32_t bb[2];
+        ldsm_x2_t(bb, smem_u32(wrow + j * 8));
+        mma16816(acc[j], a, bb[0], bb[1]);
+      }
+    }
+  }
+}
+
+// ---- phase A ---------------------------------------------------------------
+
+struct ParamsA {
+  Tok tk;
+  const void* ef;  // (N, P) f32 or bf16
+  int ef_f32;
+  float* part;     // (chunks, B, heads, F) partial records
+  int tiles, per_chunk;
+};
+
+template <int CH, int P>
+struct ShapeA {
+  static constexpr int WP = pitch(3 * CH);  // weights q | k | v_sa
+  static constexpr int EP = pitch(P);       // ef tile
+  static constexpr int KP = pitch(2 * CH);  // bf16(k) | bf16(v_sa)
+  static constexpr int QP = 2 * CH + 2;     // f32 q | k
+  static constexpr int NO = CH * CH + 2 * CH;  // qk, q2, k2: CUDA-core sums
+  static constexpr int S = NT / NO > 1 ? NT / NO : 1;  // token slices
+  static constexpr int OPT = (NO * S + NT - 1) / NT;   // sums a thread
+  static constexpr int F = NO + 2 * CH * P;  // floats of a partial record
+  static constexpr int WMA = P / 16;         // kp | vp: warps along P
+  static constexpr int WNA = NW / WMA;       //          and along 2 CH
+  static constexpr int NJ2 = 2 * CH / 8;
+  static constexpr int NIA = (NJ2 + WNA - 1) / WNA;
+  static constexpr int NI = CH / 8 < 4 ? CH / 8 : 4;  // n-tiles a unit
+  static constexpr int GROUPS = CH / 8 / NI;
+  static int smem(int C, int T) {
+    return 2 * (C * WP + T * pitch(C) + T * EP + T * KP) +
+           4 * (T * QP + (S > 1 ? S * NO : 0));
+  }
+};
+
+// grid (chunk, head, batch): the chunk's token tiles, head h's columns
+template <int CH, int P>
+__global__ void __launch_bounds__(NT) dsa_phase_a_kernel(const ParamsA p) {
+  using SA = ShapeA<CH, P>;
+  const Tok& tk = p.tk;
+  const int chunk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int C = tk.C, T = tk.T, xp = pitch(C);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);  // C x WP
+  bf16* Xs = Ws + C * SA::WP;                    // T x xp
+  bf16* Es = Xs + T * xp;                        // T x EP
+  bf16* KVs = Es + T * SA::EP;                   // T x KP
+  float* QK = reinterpret_cast<float*>(KVs + T * SA::KP);  // T x QP
+  float* red = QK + T * SA::QP;                  // S x NO
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  stage_weights<CH, 3>(tk, 0x310, h, Ws, SA::WP);  // slots q, k, v_sa
+
+  // the CUDA-core sums this thread owns: u = tid + i*NT (u < NO * S) is
+  // output u % NO (qk[r][c] = q_r . k_c, then q2, then k2) over token
+  // slice u / NO
+  float sacc[SA::OPT];
+#pragma unroll
+  for (int i = 0; i < SA::OPT; ++i) sacc[i] = 0.f;
+  // kp | vp: D[P x 2CH] = ef^T [bf16(k) | bf16(v_sa)]; warp (wm, wn) owns
+  // rows wm*16 .. + 16 and n-tiles wn, wn + WNA, ...
+  const int wm = warp % SA::WMA, wn = warp / SA::WMA;
+  float kv[SA::NIA][4];
+#pragma unroll
+  for (int i = 0; i < SA::NIA; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) kv[i][e] = 0.f;
+
+  const int first = chunk * p.per_chunk;
+  const int last = min(first + p.per_chunk, p.tiles);
+  for (int tile = first; tile < last; ++tile) {
+    const int n0 = tile * T;
+    // the weights are staged; the last tile's sums are done with the tiles
+    __syncthreads();
+    ln_tile<CH>(tk, b, n0, Xs, xp, nullptr, 0);
+    for (int v = tid; v < T * (P / 8); v += NT) {
+      const int t = v / (P / 8), c = (v - t * (P / 8)) * 8;
+      const int n = n0 + t;
+      *reinterpret_cast<uint4*>(Es + t * SA::EP + c) =
+          n < tk.N ? load8(p.ef, p.ef_f32, (size_t)n * P + c)
+                   : make_uint4(0, 0, 0, 0);
+    }
+    __syncthreads();
+
+    // projections, in units of (16-token m-tile, slot, group of NI n-tiles)
+    const int units = (T / 16) * 3 * SA::GROUPS;
+    for (int u = warp; u < units; u += NW) {
+      const int mt = u / (3 * SA::GROUPS), r = u - mt * 3 * SA::GROUPS;
+      const int slot = r / SA::GROUPS, grp = r - slot * SA::GROUPS;
+      float acc[SA::NI][4];
+      proj_mma<SA::NI>(Xs, xp, Ws, SA::WP, C, mt * 16,
+                       slot * CH + grp * SA::NI * 8, acc);
+      const int row = mt * 16 + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < SA::NI; ++j) {
+        const int col = grp * SA::NI * 8 + j * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int rr = row + 8 * hf;
+          const float a0 = acc[j][2 * hf], a1 = acc[j][2 * hf + 1];
+          if (slot == 0) {
+            *reinterpret_cast<float2*>(QK + rr * SA::QP + col) =
+                make_float2(a0, a1);
+          } else if (slot == 1) {
+            *reinterpret_cast<float2*>(QK + rr * SA::QP + CH + col) =
+                make_float2(a0, a1);
+            *reinterpret_cast<uint32_t*>(KVs + rr * SA::KP + col) =
+                pack2(a0, a1);
+          } else {
+            *reinterpret_cast<uint32_t*>(KVs + rr * SA::KP + CH + col) =
+                pack2(a0, a1);
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // q^T k, q2, k2 on the CUDA cores, f32 (rows past N are zero): columns
+    // ca, cb of QK
+#pragma unroll
+    for (int i = 0; i < SA::OPT; ++i) {
+      const int u = tid + i * NT;
+      if (u >= SA::NO * SA::S) continue;
+      const int sl = u / SA::NO, o = u - sl * SA::NO;
+      const int ca = o < CH * CH ? o / CH : o - CH * CH;
+      const int cb = o < CH * CH ? CH + o % CH : ca;
+      const int t1 = (sl + 1) * T / SA::S;
+      float s = sacc[i];
+      for (int t = sl * T / SA::S; t < t1; ++t)
+        s = fmaf(QK[t * SA::QP + ca], QK[t * SA::QP + cb], s);
+      sacc[i] = s;
+    }
+    // kp | vp on the tensor cores, the tile's tokens as the k-dimension
+    for (int k0 = 0; k0 < T; k0 += 16) {
+      uint32_t a[4];
+      ldsm_x4_t(a, smem_u32(Es + (k0 + (lane >> 4) * 8 + (lane & 7)) * SA::EP +
+                            wm * 16 + ((lane >> 3) & 1) * 8));
+#pragma unroll
+      for (int i = 0; i < SA::NIA; ++i) {
+        const int j = wn + i * SA::WNA;
+        if (j < SA::NJ2) {
+          uint32_t bb[2];
+          ldsm_x2_t(bb, smem_u32(KVs + (k0 + (lane & 15)) * SA::KP + j * 8));
+          mma16816(kv[i], a, bb[0], bb[1]);
+        }
+      }
+    }
+  }
+
+  // the chunk's partial record: [qk | q2 | k2 | kp (CH x P) | vp (CH x P)]
+  float* rec = p.part + (((size_t)chunk * gridDim.z + b) * gridDim.y + h) *
+                            SA::F;
+  float* kvrec = rec + SA::NO;
+#pragma unroll
+  for (int i = 0; i < SA::NIA; ++i) {
+    const int j = wn + i * SA::WNA;
+    if (j >= SA::NJ2) continue;
+    const int n = j * 8 + 2 * (lane & 3), pr = wm * 16 + (lane >> 2);
+    kvrec[n * P + pr] = kv[i][0];
+    kvrec[(n + 1) * P + pr] = kv[i][1];
+    kvrec[n * P + pr + 8] = kv[i][2];
+    kvrec[(n + 1) * P + pr + 8] = kv[i][3];
+  }
+  if (SA::S == 1) {
+#pragma unroll
+    for (int i = 0; i < SA::OPT; ++i)
+      if (tid + i * NT < SA::NO) rec[tid + i * NT] = sacc[i];
+  } else {
+    // the token slices added in order
+#pragma unroll
+    for (int i = 0; i < SA::OPT; ++i)
+      if (tid + i * NT < SA::NO * SA::S) red[tid + i * NT] = sacc[i];
+    __syncthreads();
+    for (int o = tid; o < SA::NO; o += NT) {
+      float s = red[o];
+      for (int sl = 1; sl < SA::S; ++sl) s += red[sl * SA::NO + o];
+      rec[o] = s;
+    }
+  }
+}
+
+struct ParamsF {
+  const float* part;
+  int chunks, heads, C, CH, P;
+  int glue;
+  const float* t1;  // (heads,) temperature
+  const float* t2;  // (heads,) temperature2
+  // glue == 0, phase A's sums (f32): qk (B, heads, CH, CH), q2, k2 (B, C),
+  // kp, vp (B, C, P)
+  float *qk, *q2, *k2, *kp, *vp;
+  // glue == 1, phase B's operands: qnorm (B, C) f32, abig (B, heads, CH,
+  // CH), kpt, vpb (B, C, P) bf16
+  float* qnorm;
+  bf16 *abig, *kpt, *vpb;
+};
+
+// the records' value f added over the chunks, in chunk order; the loads
+// go out 16 at a time, ahead of the adds (each is an L2 round trip)
+__device__ __forceinline__ float chunk_sum(const float* src, size_t stride,
+                                           int chunks) {
+  constexpr int G = 16;
+  float s = 0.f;
+  int k = 0;
+  for (; k + G <= chunks; k += G) {
+    float v[G];
+#pragma unroll
+    for (int j = 0; j < G; ++j) v[j] = __ldcg(src + (size_t)(k + j) * stride);
+#pragma unroll
+    for (int j = 0; j < G; ++j) s += v[j];
+  }
+  float v[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+    v[j] = k + j < chunks ? __ldcg(src + (size_t)(k + j) * stride) : 0.f;
+#pragma unroll
+  for (int j = 0; j < G; ++j)
+    if (k + j < chunks) s += v[j];
+  return s;
+}
+
+// grid (1 + kv blocks, head, batch), FT threads: each thread adds few
+// values over the chunks, with many loads in flight. Block 0 adds qk, q2
+// and k2 and (glue) does dsa_glue's steps with its rounding points; the
+// others add FT values each of kp | vp and write them (glue: kpt =
+// bf16(kp * t2), vp).
+__global__ void __launch_bounds__(FT) dsa_phase_a_finish(const ParamsF p) {
+  const int h = blockIdx.y, b = blockIdx.z, B = gridDim.z;
+  const int CH = p.CH, P = p.P, C = p.C;
+  const int NO = CH * CH + 2 * CH, F = NO + 2 * CH * P;
+  const size_t stride = (size_t)B * p.heads * F;  // one chunk's records
+  const float* src = p.part + ((size_t)b * p.heads + h) * F;
+  const size_t row = (size_t)b * C + h * CH;  // the head's first channel
+  if (blockIdx.x > 0) {
+    const int g = (blockIdx.x - 1) * FT + threadIdx.x;
+    if (g >= 2 * CH * P) return;
+    const float s = chunk_sum(src + NO + g, stride, p.chunks);
+    const bool is_vp = g >= CH * P;
+    const size_t i = row * P + (is_vp ? g - CH * P : g);
+    if (!p.glue)
+      (is_vp ? p.vp : p.kp)[i] = s;
+    else
+      (is_vp ? p.vpb : p.kpt)[i] = __float2bfloat16(is_vp ? s : s * p.t2[h]);
+    return;
+  }
+  extern __shared__ float sm[];  // NO sums, then qnorm and knorm (2 CH)
+  for (int f = threadIdx.x; f < NO; f += FT) {
+    const float s = chunk_sum(src + f, stride, p.chunks);
+    sm[f] = s;
+    if (!p.glue) {
+      if (f < CH * CH)
+        p.qk[((size_t)b * p.heads + h) * CH * CH + f] = s;
+      else if (f < CH * CH + CH)
+        p.q2[row + f - CH * CH] = s;
+      else
+        p.k2[row + f - CH * CH - CH] = s;
+    }
+  }
+  if (!p.glue) return;
+  __syncthreads();
+  float* qn = sm + NO;
+  float* kn = qn + CH;
+  for (int c = threadIdx.x; c < CH; c += FT) {
+    qn[c] = rsqrtf(sm[CH * CH + c] + L2_EPS);
+    kn[c] = rsqrtf(sm[CH * CH + CH + c] + L2_EPS);
+    p.qnorm[row + c] = qn[c];
+  }
+  __syncthreads();
+  // A = softmax_row(qk * qnorm_r * knorm_c * t1), stored transposed
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float t1 = p.t1[h];
+  bf16* ab = p.abig + ((size_t)b * p.heads + h) * CH * CH;
+  for (int r = warp; r < CH; r += FT / 32) {
+    const int c0 = lane, c1 = lane + 32;
+    const float v0 = c0 < CH ? sm[r * CH + c0] * qn[r] * kn[c0] * t1
+                             : -INFINITY;
+    const float v1 = c1 < CH ? sm[r * CH + c1] * qn[r] * kn[c1] * t1
+                             : -INFINITY;
+    const float mx = warp_max(fmaxf(v0, v1));
+    const float e0 = c0 < CH ? expf(v0 - mx) : 0.f;
+    const float e1 = c1 < CH ? expf(v1 - mx) : 0.f;
+    const float sum = warp_sum(e0 + e1);
+    if (c0 < CH) ab[c0 * CH + r] = __float2bfloat16(e0 / sum);
+    if (c1 < CH) ab[c1 * CH + r] = __float2bfloat16(e1 / sum);
+  }
+}
+
+// ---- phase B ---------------------------------------------------------------
+
+struct ParamsB {
+  Tok tk;
+  const float* qnorm;  // (B, C)
+  const bf16* abig;    // (B, heads, CH, CH): out_ca[n, c] = sum_d v[n, d] abig[d, c]
+  const bf16* kpt;     // (B, C, P)
+  const bf16* vp;      // (B, C, P)
+  const float* gamma;  // (C,)
+  bf16* out;           // (B, N, C)
+};
+
+template <int CH, int P>
+struct ShapeB {
+  static constexpr int KC = CH < 16 ? 16 : CH;  // ch-deep products' depth
+  static constexpr int WP = pitch(2 * CH);      // weights q | v_ca
+  static constexpr int QP = pitch(KC);          // qn, v_ca, the output
+  static constexpr int AP = pitch(CH);          // abig_h
+  static constexpr int PP = pitch(P);           // kpt_h, vp_h
+  static constexpr int NI = CH / 8 < 4 ? CH / 8 : 4;
+  static constexpr int GROUPS = CH / 8 / NI;
+  static int smem(int C, int T) {
+    return 2 * (C * WP + T * pitch(C) + 2 * T * QP + KC * AP + KC * PP +
+                CH * PP) +
+           4 * (T * CH + 2 * CH);
+  }
+};
+
+// grid (token tile, head, batch)
+template <int CH, int P>
+__global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
+  using SB = ShapeB<CH, P>;
+  constexpr int KC = SB::KC;
+  const Tok& tk = p.tk;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int C = tk.C, T = tk.T, xp = pitch(C);
+  const int n0 = blockIdx.x * T;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);  // C x WP
+  bf16* Xs = Ws + C * SB::WP;                    // T x xp
+  bf16* Qs = Xs + T * xp;                        // T x QP: qn, then y
+  bf16* Vs = Qs + T * SB::QP;                    // T x QP: bf16(v_ca)
+  bf16* ABs = Vs + T * SB::QP;                   // KC x AP
+  bf16* KPs = ABs + KC * SB::AP;                 // KC x PP
+  bf16* VPs = KPs + KC * SB::PP;                 // CH x PP
+  float* Bs = reinterpret_cast<float*>(VPs + CH * SB::PP);  // T x CH
+  float* qn_s = Bs + T * CH;
+  float* gm_s = qn_s + CH;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  stage_weights<CH, 2>(tk, 0x20, h, Ws, SB::WP);  // slots q, v_ca
+  ln_tile<CH>(tk, b, n0, Xs, xp, Bs, h * CH);
+  const size_t hc = (size_t)b * C + h * CH;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int v = tid; v < KC * (CH / 8); v += NT) {
+    const int r = v / (CH / 8), c = (v - r * (CH / 8)) * 8;
+    *reinterpret_cast<uint4*>(ABs + r * SB::AP + c) =
+        r < CH ? *reinterpret_cast<const uint4*>(
+                     p.abig + (((size_t)b * tk.heads + h) * CH + r) * CH + c)
+               : zero;
+  }
+  for (int v = tid; v < KC * (P / 8); v += NT) {
+    const int r = v / (P / 8), c = (v - r * (P / 8)) * 8;
+    *reinterpret_cast<uint4*>(KPs + r * SB::PP + c) =
+        r < CH ? *reinterpret_cast<const uint4*>(p.kpt + (hc + r) * P + c)
+               : zero;
+    if (r < CH)
+      *reinterpret_cast<uint4*>(VPs + r * SB::PP + c) =
+          *reinterpret_cast<const uint4*>(p.vp + (hc + r) * P + c);
+  }
+  for (int c = tid; c < CH; c += NT) {
+    qn_s[c] = p.qnorm[hc + c];
+    gm_s[c] = p.gamma[h * CH + c];
+  }
+  if (KC > CH)  // zero depth padding of qn and v_ca (CH = 8)
+    for (int v = tid; v < 2 * T; v += NT)
+      *reinterpret_cast<uint4*>((v < T ? Qs : Vs) + (v % T) * SB::QP + CH) =
+          zero;
+  __syncthreads();
+
+  // q and v_ca of the head, in units of (m-tile, slot, group)
+  const int units = (T / 16) * 2 * SB::GROUPS;
+  for (int u = warp; u < units; u += NW) {
+    const int mt = u / (2 * SB::GROUPS), r = u - mt * 2 * SB::GROUPS;
+    const int slot = r / SB::GROUPS, grp = r - slot * SB::GROUPS;
+    float acc[SB::NI][4];
+    proj_mma<SB::NI>(Xs, xp, Ws, SB::WP, C, mt * 16,
+                     slot * CH + grp * SB::NI * 8, acc);
+    const int row = mt * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < SB::NI; ++j) {
+      const int col = grp * SB::NI * 8 + j * 8 + 2 * (lane & 3);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int rr = row + 8 * hf;
+        float a0 = acc[j][2 * hf], a1 = acc[j][2 * hf + 1];
+        if (slot == 0) {
+          a0 *= qn_s[col];
+          a1 *= qn_s[col + 1];
+        }
+        *reinterpret_cast<uint32_t*>((slot == 0 ? Qs : Vs) + rr * SB::QP +
+                                     col) = pack2(a0, a1);
+      }
+    }
+  }
+  __syncthreads();
+
+  // both attentions, one warp a 16-token m-tile
+  for (int mt = warp; mt < T / 16; mt += NW) {
+    const int m0 = mt * 16;
+    if (n0 + m0 >= tk.N) continue;
+    uint32_t av[KC / 16][4], aq[KC / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      const int off = (m0 + (lane & 15)) * SB::QP + kk * 16 + (lane >> 4) * 8;
+      ldsm_x4(av[kk], smem_u32(Vs + off));
+      ldsm_x4(aq[kk], smem_u32(Qs + off));
+    }
+    float o[CH / 8][4];
+#pragma unroll
+    for (int j = 0; j < CH / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    // channel attention: o = bf16(v_ca) . abig_h
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      const bf16* brow = ABs + (kk * 16 + (lane & 15)) * SB::AP;
+#pragma unroll
+      for (int j = 0; j < CH / 8; j += 2) {
+        if (j + 1 < CH / 8) {
+          uint32_t bb[4];
+          ldsm_x4_t(bb, smem_u32(brow + j * 8 + (lane >> 4) * 8));
+          mma16816(o[j], av[kk], bb[0], bb[1]);
+          mma16816(o[j + 1], av[kk], bb[2], bb[3]);
+        } else {
+          uint32_t bb[2];
+          ldsm_x2_t(bb, smem_u32(brow + j * 8));
+          mma16816(o[j], av[kk], bb[0], bb[1]);
+        }
+      }
+    }
+    // scores s = qn . kpt_h (16 x P, f32)
+    float s[P / 8][4];
+#pragma unroll
+    for (int j = 0; j < P / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KC / 16; ++kk) {
+      const bf16* brow = KPs + (kk * 16 + (lane & 15)) * SB::PP;
+#pragma unroll
+      for (int j = 0; j < P / 8; j += 2) {
+        uint32_t bb[4];
+        ldsm_x4_t(bb, smem_u32(brow + j * 8 + (lane >> 4) * 8));
+        mma16816(s[j], aq[kk], bb[0], bb[1]);
+        mma16816(s[j + 1], aq[kk], bb[2], bb[3]);
+      }
+    }
+    // softmax over P: rows g (s[.][0..1]) and g + 8 (s[.][2..3]), each
+    // spread over the four lanes of a quad
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < P / 8; ++j) {
+      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+    }
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+    }
+    float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+    for (int j = 0; j < P / 8; ++j) {
+      s[j][0] = expf(s[j][0] - mx0);
+      s[j][1] = expf(s[j][1] - mx0);
+      s[j][2] = expf(s[j][2] - mx1);
+      s[j][3] = expf(s[j][3] - mx1);
+      sum0 += s[j][0] + s[j][1];
+      sum1 += s[j][2] + s[j][3];
+    }
+#pragma unroll
+    for (int x = 1; x < 4; x <<= 1) {
+      sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
+      sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
+    }
+    const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+    // o += bf16(softmax) . vp_h^T: the probabilities are the A operand in
+    // registers (n-tiles 2kk, 2kk + 1 of s are k-step kk)
+#pragma unroll
+    for (int kk = 0; kk < P / 16; ++kk) {
+      const uint32_t a[4] = {
+          pack2(s[2 * kk][0] * inv0, s[2 * kk][1] * inv0),
+          pack2(s[2 * kk][2] * inv1, s[2 * kk][3] * inv1),
+          pack2(s[2 * kk + 1][0] * inv0, s[2 * kk + 1][1] * inv0),
+          pack2(s[2 * kk + 1][2] * inv1, s[2 * kk + 1][3] * inv1)};
+#pragma unroll
+      for (int j = 0; j < CH / 8; j += 2) {
+        if (j + 1 < CH / 8) {
+          uint32_t bb[4];
+          ldsm_x4(bb, smem_u32(VPs + (j * 8 + (lane >> 4) * 8 + (lane & 7)) *
+                                         SB::PP +
+                               kk * 16 + ((lane >> 3) & 1) * 8));
+          mma16816(o[j], a, bb[0], bb[1]);
+          mma16816(o[j + 1], a, bb[2], bb[3]);
+        } else {
+          uint32_t bb[2];
+          ldsm_x2(bb, smem_u32(VPs + (j * 8 + (lane & 7)) * SB::PP + kk * 16 +
+                               ((lane >> 3) & 1) * 8));
+          mma16816(o[j], a, bb[0], bb[1]);
+        }
+      }
+    }
+    // y = bf16(t + gamma * o), staged in this warp's rows of Qs, then
+    // stored as 16-byte runs of the head's channels
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < CH / 8; ++j) {
+      const int col = j * 8 + 2 * (lane & 3);
+      const int r = m0 + (lane >> 2);
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int rr = r + 8 * hf;
+        *reinterpret_cast<uint32_t*>(Qs + rr * SB::QP + col) =
+            pack2(Bs[rr * CH + col] + gm_s[col] * o[j][2 * hf],
+                  Bs[rr * CH + col + 1] + gm_s[col + 1] * o[j][2 * hf + 1]);
+      }
+    }
+    __syncwarp();
+    for (int v = lane; v < 16 * (CH / 8); v += 32) {
+      const int r = v / (CH / 8), c = (v - r * (CH / 8)) * 8;
+      const int n = n0 + m0 + r;
+      if (n < tk.N)
+        *reinterpret_cast<uint4*>(p.out + ((size_t)b * tk.N + n) * C +
+                                  h * CH + c) =
+            *reinterpret_cast<const uint4*>(Qs + (m0 + r) * SB::QP + c);
+    }
+  }
+}
+
+// ---- launches --------------------------------------------------------------
+
+// the shared-memory cap of one kernel instance, set on its first launch
+template <typename K>
+cudaError_t allow_smem(K kern, bool& done) {
+  if (done) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_CAP);
+  done = e == cudaSuccess;
+  return e;
+}
+
+template <int CH, int P>
+int launch_a(const ParamsA& pa, const ParamsF& pf, int chunks, int B,
+             cudaStream_t s) {
+  using SA = ShapeA<CH, P>;
+  static bool ready = false;
+  auto kern = dsa_phase_a_kernel<CH, P>;
+  cudaError_t e = allow_smem(kern, ready);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int bytes = SA::smem(pa.tk.C, pa.tk.T);
+  if (bytes > SMEM_CAP) return static_cast<int>(cudaErrorInvalidValue);
+  kern<<<dim3(chunks, pa.tk.heads, B), NT, bytes, s>>>(pa);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int kv_blocks = (2 * CH * P + FT - 1) / FT;
+  dsa_phase_a_finish<<<dim3(1 + kv_blocks, pa.tk.heads, B), FT,
+                       (SA::NO + 2 * CH) * sizeof(float), s>>>(pf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int CH, int P>
+int launch_b(const ParamsB& pb, int B, cudaStream_t s) {
+  static bool ready = false;
+  auto kern = dsa_phase_b_kernel<CH, P>;
+  cudaError_t e = allow_smem(kern, ready);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int bytes = ShapeB<CH, P>::smem(pb.tk.C, pb.tk.T);
+  if (bytes > SMEM_CAP) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (pb.tk.N + pb.tk.T - 1) / pb.tk.T;
+  kern<<<dim3(tiles, pb.tk.heads, B), NT, bytes, s>>>(pb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Tok tokens(const void* x, const float* pe, const float* lns, const float* lnb,
+           const void* w, int w_f32, int N, int C, int heads, int T,
+           float eps) {
+  Tok t;
+  t.x = static_cast<const bf16*>(x);
+  t.pe = pe;
+  t.lns = lns;
+  t.lnb = lnb;
+  t.w = w;
+  t.w_f32 = w_f32;
+  t.N = N;
+  t.C = C;
+  t.heads = heads;
+  t.T = T;
+  t.eps = eps;
+  return t;
+}
+
+// the shapes the kernels take (kernels/dsa_attention.py::dsa_plan checks
+// them first): ch in {8, 16, 32, 64}, P in {32, 64}, C / 8 a power of two
+// up to 32, T a multiple of 16
+bool supported(int C, int P, int heads, int T) {
+  const int ch = heads > 0 ? C / heads : 0;
+  const int g = C / 8;
+  return heads > 0 && C % heads == 0 &&
+         (ch == 8 || ch == 16 || ch == 32 || ch == 64) &&
+         (P == 32 || P == 64) && C % 8 == 0 && g >= 2 && g <= 32 &&
+         (g & (g - 1)) == 0 && T > 0 && T % 16 == 0;
+}
 
 }  // namespace
 
-extern "C" int fcd_dsa_phase_a(const void* x, const float* pe, const float* lns,
-                               const float* lnb, const void* w, const void* ef,
-                               float* qk, float* q2, float* k2, float* kp,
-                               float* vp, int B, int N, int C, int P,
-                               float eps, void* stream) {
-  const int T = tile_tokens(C);
-  const size_t smem = (size_t)4 * T * C * sizeof(float);
-  cudaFuncSetAttribute(dsa_phase_a, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((N + T - 1) / T, B);
-  dsa_phase_a<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), pe, lns, lnb,
-      static_cast<const __nv_bfloat16*>(w),
-      static_cast<const __nv_bfloat16*>(ef), qk, q2, k2, kp, vp, N, C, P, T,
-      eps);
-  return static_cast<int>(cudaGetLastError());
+// phase A and its finishing pass. part: (chunks, B, heads, F) f32 scratch;
+// glue 0: o0..o4 = qk, q2, k2, kp, vp (f32); glue 1: o0..o3 = qnorm (f32),
+// abig, kpt, vp (bf16), t1/t2 the (heads,) temperatures
+extern "C" int fcd_dsa_phase_a(const void* x, const float* pe,
+                               const float* lns, const float* lnb,
+                               const void* w, int w_f32, const void* ef,
+                               int ef_f32, float* part, int glue,
+                               const float* t1, const float* t2, void* o0,
+                               void* o1, void* o2, void* o3, void* o4, int B,
+                               int N, int C, int P, int heads, int T,
+                               int per_chunk, int chunks, float eps,
+                               void* stream) {
+  if (!supported(C, P, heads, T) || per_chunk < 1 || chunks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ParamsA pa;
+  pa.tk = tokens(x, pe, lns, lnb, w, w_f32, N, C, heads, T, eps);
+  pa.ef = ef;
+  pa.ef_f32 = ef_f32;
+  pa.part = part;
+  pa.tiles = (N + T - 1) / T;
+  pa.per_chunk = per_chunk;
+  ParamsF pf;
+  pf.part = part;
+  pf.chunks = chunks;
+  pf.heads = heads;
+  pf.C = C;
+  pf.CH = C / heads;
+  pf.P = P;
+  pf.glue = glue;
+  pf.t1 = t1;
+  pf.t2 = t2;
+  pf.qk = pf.q2 = pf.k2 = pf.kp = pf.vp = pf.qnorm = nullptr;
+  pf.abig = pf.kpt = pf.vpb = nullptr;
+  if (glue) {
+    pf.qnorm = static_cast<float*>(o0);
+    pf.abig = static_cast<bf16*>(o1);
+    pf.kpt = static_cast<bf16*>(o2);
+    pf.vpb = static_cast<bf16*>(o3);
+  } else {
+    pf.qk = static_cast<float*>(o0);
+    pf.q2 = static_cast<float*>(o1);
+    pf.k2 = static_cast<float*>(o2);
+    pf.kp = static_cast<float*>(o3);
+    pf.vp = static_cast<float*>(o4);
+  }
+  const int key = (C / heads) * 100 + P;
+  switch (key) {
+    case 832: return launch_a<8, 32>(pa, pf, chunks, B, s);
+    case 864: return launch_a<8, 64>(pa, pf, chunks, B, s);
+    case 1632: return launch_a<16, 32>(pa, pf, chunks, B, s);
+    case 1664: return launch_a<16, 64>(pa, pf, chunks, B, s);
+    case 3232: return launch_a<32, 32>(pa, pf, chunks, B, s);
+    case 3264: return launch_a<32, 64>(pa, pf, chunks, B, s);
+    case 6432: return launch_a<64, 32>(pa, pf, chunks, B, s);
+    case 6464: return launch_a<64, 64>(pa, pf, chunks, B, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-extern "C" int fcd_dsa_phase_b(const void* x, const float* pe, const float* lns,
-                               const float* lnb, const void* w,
-                               const float* qnorm, const void* abig,
-                               const void* kpt, const void* vp,
-                               const float* gamma, void* out, int B, int N,
-                               int C, int P, int heads, float eps,
-                               void* stream) {
-  const int T = tile_tokens(C);
-  const size_t smem = ((size_t)5 * T * C + (size_t)T * P) * sizeof(float);
-  cudaFuncSetAttribute(dsa_phase_b, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((N + T - 1) / T, B);
-  dsa_phase_b<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), pe, lns, lnb,
-      static_cast<const __nv_bfloat16*>(w), qnorm,
-      static_cast<const __nv_bfloat16*>(abig),
-      static_cast<const __nv_bfloat16*>(kpt),
-      static_cast<const __nv_bfloat16*>(vp), gamma,
-      static_cast<__nv_bfloat16*>(out), N, C, P, heads, T, eps);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int fcd_dsa_phase_b(const void* x, const float* pe,
+                               const float* lns, const float* lnb,
+                               const void* w, int w_f32, const float* qnorm,
+                               const void* abig, const void* kpt,
+                               const void* vp, const float* gamma, void* out,
+                               int B, int N, int C, int P, int heads, int T,
+                               float eps, void* stream) {
+  if (!supported(C, P, heads, T))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  ParamsB pb;
+  pb.tk = tokens(x, pe, lns, lnb, w, w_f32, N, C, heads, T, eps);
+  pb.qnorm = qnorm;
+  pb.abig = static_cast<const bf16*>(abig);
+  pb.kpt = static_cast<const bf16*>(kpt);
+  pb.vp = static_cast<const bf16*>(vp);
+  pb.gamma = gamma;
+  pb.out = static_cast<bf16*>(out);
+  const int key = (C / heads) * 100 + P;
+  switch (key) {
+    case 832: return launch_b<8, 32>(pb, B, s);
+    case 864: return launch_b<8, 64>(pb, B, s);
+    case 1632: return launch_b<16, 32>(pb, B, s);
+    case 1664: return launch_b<16, 64>(pb, B, s);
+    case 3232: return launch_b<32, 32>(pb, B, s);
+    case 3264: return launch_b<32, 64>(pb, B, s);
+    case 6432: return launch_b<64, 32>(pb, B, s);
+    case 6464: return launch_b<64, 64>(pb, B, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

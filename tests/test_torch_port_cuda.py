@@ -175,31 +175,77 @@ def test_upsample_is_one_device_launch(dev):
     assert upsample2x.launches == before + 1
 
 
-@pytest.mark.parametrize("n,c,p,h", [(300, 32, 64, 4), (64, 256, 32, 4)])
-def test_dsa_kernels_match_plain(dev, n, c, p, h):
+def _dsa_inputs(gen, dev, n, c, p, h, wdtype=torch.float32):
+    bf = torch.bfloat16
+    return dict(
+        x=_randn(gen, dev, 2, n, c, dtype=bf),
+        w=_randn(gen, dev, c, 4 * c, scale=c ** -0.5, dtype=wdtype),
+        ef=_randn(gen, dev, n, p, scale=p ** -0.5, dtype=wdtype),
+        t1=torch.rand(h, 1, 1, generator=gen, device=dev) + 0.5,
+        t2=torch.rand(h, 1, 1, generator=gen, device=dev) + 0.5,
+        lns=1 + _randn(gen, dev, c, scale=0.1), lnb=_randn(gen, dev, c, scale=0.1),
+        pe=_randn(gen, dev, n, c, scale=0.1), gamma=_randn(gen, dev, c))
+
+
+@pytest.mark.parametrize("n,c,p,wdtype", [
+    # the four levels of a 128^3 patch, each also at a ragged N (bf16
+    # weights and EF there; the model's are f32)
+    (32768, 32, 64, "f32"), (300, 32, 64, "bf16"),
+    (4096, 64, 64, "f32"), (700, 64, 64, "bf16"),
+    (512, 128, 64, "f32"), (100, 128, 64, "bf16"),
+    (64, 256, 32, "f32"), (70, 256, 32, "bf16")])
+def test_dsa_kernels_match_plain(dev, n, c, p, wdtype):
     from fcd_tpu_torch.kernels import dsa_attention as dk
 
+    h, bf = 4, torch.bfloat16
     gen = torch.Generator(device=dev).manual_seed(3)
-    bf = torch.bfloat16
-    x = _randn(gen, dev, 2, n, c, dtype=bf)
-    w_qkvv = _randn(gen, dev, c, 4 * c, scale=c ** -0.5)
-    ef = _randn(gen, dev, n, p, scale=p ** -0.5)
-    t1 = torch.rand(h, 1, 1, generator=gen, device=dev) + 0.5
-    t2 = torch.rand(h, 1, 1, generator=gen, device=dev) + 0.5
-    lns, lnb = 1 + _randn(gen, dev, c, scale=0.1), _randn(gen, dev, c, scale=0.1)
-    pe, gamma = _randn(gen, dev, n, c, scale=0.1), _randn(gen, dev, c)
-    w4 = dk.split_qkvv(w_qkvv)
-    ka = dk.dsa_phase_a(x, w4, ef, lns, lnb, pe)
-    wa = dk.dsa_phase_a_plain(x, w4, ef, lns, lnb, pe)
-    for g, w in zip(ka, wa):
-        assert _rel(g, w) < 2e-2
-    glue = dk.dsa_glue(ka, t1, t2, h, bf)
-    got = dk.dsa_phase_b(x, w4, *glue, gamma, lns, lnb, pe, h)
-    want = dk.dsa_phase_b_plain(x, w4, *glue, gamma, lns, lnb, pe, h)
+    a = _dsa_inputs(gen, dev, n, c, p, h,
+                    torch.float32 if wdtype == "f32" else bf)
+    x, w, ef, gamma = a["x"], a["w"], a["ef"], a["gamma"]
+    tok = (a["lns"], a["lnb"], a["pe"])
+    before = (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches)
+    ka = dk.dsa_phase_a(x, w, ef, *tok, h)
+    wa = dk.dsa_phase_a_plain(x, w, ef, *tok, h)
+    assert ka.qk.shape == (2, h, c // h, c // h)
+    for g, w_ in zip(ka, wa):
+        assert _rel(g, w_) < 2e-2
+    # the finishing pass: phase B's operands against the plain glue
+    glue = dk.dsa_phase_a(x, w, ef, *tok, h, temperatures=(a["t1"], a["t2"]))
+    want_glue = dk.dsa_glue(wa, a["t1"], a["t2"], h, bf)
+    for g, w_ in zip(glue, want_glue):
+        assert g.dtype == w_.dtype and _rel(g, w_) < 2e-2
+    got = dk.dsa_phase_b(x, w, *glue, gamma, *tok, h)
+    want = dk.dsa_phase_b_plain(x, w, *glue, gamma, *tok, h)
     assert _rel(got, want) < 2e-2
-    ref = dk.dsa_reference(x, w_qkvv, ef, t1, t2, lns, lnb, pe, gamma, h)
-    whole = dk.dsa_attention(x, w_qkvv, ef, t1, t2, lns, lnb, pe, gamma, h)
+    assert (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches) == (
+        before[0] + 2, before[1] + 1)
+    ref = dk.dsa_reference(x, w, ef, a["t1"], a["t2"], *tok, gamma, h)
+    whole = dk.dsa_attention(x, w, ef, a["t1"], a["t2"], *tok, gamma, h)
     assert _rel(whole, ref) < 5e-2
+
+
+def test_dsa_attention_is_three_device_launches(dev):
+    """One dsa_attention call on the card: phase A, its finishing pass and
+    phase B, and no other device op (no cast, copy or sum)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fcd_tpu_torch.kernels import dsa_attention as dk
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    a = _dsa_inputs(gen, dev, 4096, 64, 64, 4)
+    args = (a["x"], a["w"], a["ef"], a["t1"], a["t2"], a["lns"], a["lnb"],
+            a["pe"], a["gamma"], 4)
+    dk.dsa_attention(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dk.dsa_attention(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(names) == 3, names
+    for want, got in zip(("dsa_phase_a_kernel", "dsa_phase_a_finish",
+                          "dsa_phase_b_kernel"), names):
+        assert want in got, names
 
 
 def test_wrappers_refuse_f32_on_the_card(dev):
@@ -370,14 +416,18 @@ def test_forward_sums_are_reproducible(dev):
     b = conv3x3([x], [w], shortcut=[wr], want_stats=True)
     for name in ("ysum", "ysq", "rsum", "rsq"):
         assert torch.equal(getattr(a, name), getattr(b, name)), name
-    n, c, p = 700, 32, 64
-    t = _randn(gen, dev, 2, n, c, dtype=bf)
-    w4 = _randn(gen, dev, 4, c, c, scale=0.2, dtype=bf)
-    ef = _randn(gen, dev, n, p, scale=0.05, dtype=bf)
-    args = (t, w4, ef, torch.ones(c, device=dev), torch.zeros(c, device=dev),
-            _randn(gen, dev, n, c, scale=0.1))
+    n, c, p, h = 700, 32, 64, 4
+    d = _dsa_inputs(gen, dev, n, c, p, h)
+    args = (d["x"], d["w"], d["ef"], d["lns"], d["lnb"], d["pe"], h)
     for g_, w_ in zip(dk.dsa_phase_a(*args), dk.dsa_phase_a(*args)):
         assert torch.equal(g_, w_)
+    temps = (d["t1"], d["t2"])
+    ops = dk.dsa_phase_a(*args, temperatures=temps)
+    for g_, w_ in zip(ops, dk.dsa_phase_a(*args, temperatures=temps)):
+        assert torch.equal(g_, w_)
+    tok = (d["lns"], d["lnb"], d["pe"])
+    assert torch.equal(dk.dsa_phase_b(d["x"], d["w"], *ops, d["gamma"], *tok, h),
+                       dk.dsa_phase_b(d["x"], d["w"], *ops, d["gamma"], *tok, h))
 
 
 @pytest.mark.parametrize("shape,roi,dtype", [

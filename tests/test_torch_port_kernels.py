@@ -20,7 +20,6 @@ from fcd_tpu_torch.kernels.dsa_attention import (
     dsa_glue,
     dsa_phase_a,
     dsa_phase_b,
-    split_qkvv,
 )
 from fcd_tpu_torch.kernels.pool import finale_pool
 from fcd_tpu_torch.kernels.upsample import upsample2x
@@ -168,14 +167,21 @@ def _dsa_inputs(rng, b, n, c, h, p):
     )
 
 
-@pytest.mark.parametrize("b,n,c,h,p,tile", [(2, 64, 32, 4, 16, None),
-                                            (1, 128, 16, 2, 8, 16)])
+@pytest.mark.parametrize("b,n,c,h,p,tile", [
+    (2, 64, 32, 4, 16, None), (1, 128, 16, 2, 8, 16),
+    # each level's (C, P, heads) at a small N, and at a ragged one (no
+    # multiple of the kernels' 16-token tiles)
+    (1, 128, 32, 4, 64, 32), (1, 100, 32, 4, 64, None),
+    (1, 64, 64, 4, 64, None), (1, 90, 64, 4, 64, None),
+    (1, 64, 128, 4, 64, None), (1, 76, 128, 4, 64, None),
+    (1, 64, 256, 4, 32, None), (1, 70, 256, 4, 32, None)])
 def test_dsa_matches_dsa_fused(monkeypatch, b, n, c, h, p, tile):
     """B5 == the JAX fused DSA kernel (interpret mode, f32) with the fused
     pos-embed, LayerNorm and residual; tile=16 spans several token tiles
     (grid accumulation), as tests/test_dsa_fused.py:28-60 checks it. Both
-    the einsum reference and the port's phase A -> glue -> phase B
-    composition are held to it."""
+    the einsum reference and the port's phase A (the diagonal blocks of
+    q^T k) -> plain glue -> phase B composition are held to it, and phase
+    A with the temperatures (the finishing step) gives the glue's result."""
     from fcd_tpu.kernels import dsa_attention as dk
 
     if tile is not None:
@@ -192,11 +198,16 @@ def test_dsa_matches_dsa_fused(monkeypatch, b, n, c, h, p, tile):
     ref = dsa_attention(t["x"], t["w"], t["ef"], t["t1"].reshape(h, 1, 1),
                         t["t2"].reshape(h, 1, 1), t["lns"], t["lnb"], t["pe"],
                         t["gamma"], h).numpy()
-    w4 = split_qkvv(t["w"])
-    pa = dsa_phase_a(t["x"], w4, t["ef"], t["lns"], t["lnb"], t["pe"])
-    qn, abig, kpt, vp = dsa_glue(pa, t["t1"], t["t2"], h, torch.float32)
-    composed = dsa_phase_b(t["x"], w4, qn, abig, kpt, vp, t["gamma"],
-                           t["lns"], t["lnb"], t["pe"], h).numpy()
+    tok = (t["lns"], t["lnb"], t["pe"])
+    pa = dsa_phase_a(t["x"], t["w"], t["ef"], *tok, h)
+    assert pa.qk.shape == (b, h, c // h, c // h)
+    glue = dsa_glue(pa, t["t1"], t["t2"], h, torch.float32)
+    finished = dsa_phase_a(t["x"], t["w"], t["ef"], *tok, h,
+                           temperatures=(t["t1"], t["t2"]))
+    for got_, want_ in zip(finished, glue):
+        assert torch.equal(got_, want_)
+    composed = dsa_phase_b(t["x"], t["w"], *glue, t["gamma"], *tok,
+                           h).numpy()
     scale = np.abs(want).max()
     np.testing.assert_allclose(ref, want, atol=2e-4 * scale)
     np.testing.assert_allclose(composed, want, atol=2e-4 * scale)
