@@ -19,13 +19,15 @@ Run from the repository root:
    the statistics' sum with the conv, for K1 its second pass), with each
    call's wall time per call beside it, and so are sw_exit and `acc * inv`;
    their build reports give each instance's registers and spills and the
-   library's HGMMA (B1) or HMMA (K1, B4, B5) count (0 fails). K1, K2, K4,
-   B4 and B5 must give the same bits from two calls. B5 runs at the four
-   DSA levels: phase A's sums, its finishing pass (phase B's operands),
-   phase B and the whole op against their plain versions and the f32
-   reference, each phase timed by the device time of all one main-path
-   call launches, and one dsa_attention call must launch exactly its three
-   kernels.
+   library's HGMMA (B1) or HMMA (K1, B4, B5, K3/K4) count (0 fails). K1,
+   K2, K4, B4 and B5 must give the same bits from two calls. B5 runs at
+   the four DSA levels: phase A's sums, its finishing pass (phase B's
+   operands), phase B and the whole op against their plain versions and
+   the f32 reference, each phase timed by the device time of all one
+   main-path call launches, and one dsa_attention call must launch exactly
+   its three kernels. K3 and K4 run at the same four levels at the train
+   step's batch 4 with dropout 0.1, timed alike (SDPA and its backward
+   too); one K3 call must launch one kernel, one K4 call its two.
 3. Drives the inference path: ModelTrainer(default params, device="cuda")
    .inference on a seeded 182x218x182x2 volume (8 patches of 128^3, fs16
    MS_DSA_NET), with every launch counter set to 0 just before and read
@@ -39,7 +41,7 @@ Run from the repository root:
    step at batch 1 x 64^3 (full widths) held against the port's fp32 CPU
    step from the same weights; whether two such steps from one state give
    bit-equal parameters (reported); then a profile of one train step with
-   K1's share of its device time.
+   K1's, B4's, K3's and K4's shares of its device time.
 5. Drives the segmentation CLI: writes a seeded synthetic subject (T1,
    FLAIR and a lesion label, NIfTI, on a 176x240x256 grid at (1.0, 0.9375,
    0.9375) mm with an LAS affine) and the seeded fs16 model's weights as a
@@ -69,6 +71,7 @@ checkout of the repository, it exits non-zero and prints no result.
 
     python3 chip_smoke.py --kernels upsample2x,sw_exit
     python3 chip_smoke.py --kernels dsa_phase_a,dsa_phase_b
+    python3 chip_smoke.py --kernels spatial_attn_fwd,spatial_attn_bwd
 
 builds the kernels and runs only the named kernels' phases (checks and
 times; no main path and no result line).
@@ -545,6 +548,9 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10):
 # the B5 kernels one dsa_attention call launches, in order
 DSA_KERNELS = ("dsa_phase_a_kernel", "dsa_phase_a_finish",
                "dsa_phase_b_kernel")
+# K3's kernel, then K4's two, in launch order
+SPATTN_KERNELS = ("spatial_attn_fwd_kernel", "spatial_attn_bwd_kernel",
+                  "spatial_attn_bwd_finish")
 # the DSA levels of a 128^3 patch (fs16, 4 heads): (name, N, C, P)
 DSA_LEVELS = (("level3", 32768, 32, 64), ("level4", 4096, 64, 64),
               ("level5", 512, 128, 64), ("level6", 64, 256, 32))
@@ -877,7 +883,11 @@ def sw_io_phases(dev, gen, shape=CLI_SHAPE, c=2, o=2, roi=128, iters=20):
 def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
                         iters=10):
     """K3 and K4 at one level's shape, with dropout: the kernels and the
-    plain versions draw the same hash bits, so they agree elementwise."""
+    plain versions draw the same hash bits, so they agree elementwise; two
+    K4 calls give the same bits; on the card one K3 call is one device
+    kernel and one K4 call its two. `ms` and `library_ms` (SDPA, and SDPA's
+    backward alone) are the device time of all one call launches, the
+    kernels alone and the wall per call beside them."""
     import torch
     import torch.nn.functional as F
 
@@ -895,51 +905,105 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
     g = _randn((batch, n, c), gen, dev, dtype=bf)
     key = sa.dropout_key(SEED, 3)
     keep = sa.keep_mask(batch, n, hp, key, rate, dev).float().mean()
+    plan = sa.spatial_attn_plan(n, c, p, h, batch)
     print(f"  spatial_attn {label}: keep fraction {float(keep):.5f} at rate "
-          f"{rate}")
+          f"{rate}; K3 {plan.fwd_grid} blocks of {plan.per_block} units "
+          f"(16 tokens x {plan.cols} columns), K4 split by {plan.split}, "
+          f"{plan.head_block} heads a block, {plan.bwd_grid} blocks "
+          f"({plan.chunks} chunks of {plan.tile}-token tiles), partials "
+          f"{plan.partial_bytes / 2 ** 20:.2f} MiB, shared memory "
+          f"{plan.smem_fwd} / {plan.smem_bwd} bytes")
     if abs(float(keep) - (1 - rate)) > 0.01 * (1 - rate):
         raise AssertionError(f"dropout keeps {float(keep)}, not {1 - rate}")
     mm = 2 * batch * n * c * hp
     pf = Phase("spatial_attn_fwd", label, 2 * mm,
                2 * (2 * batch * n * c + 2 * batch * c * hp))
+    # as SpatialAttn.backward calls it: dkpb and dvpb in kpb's dtype (bf16)
     pb = Phase("spatial_attn_bwd", label, 5 * mm,
-               2 * (3 * batch * n * c + 2 * batch * c * hp)
-               + 4 * 2 * batch * c * hp)
-    pf.check("out", sa.spatial_attn_fwd(qn, kpb, vpb, h, key, rate),
-             sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key, rate), 2e-2)
-    got = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, rate)
+               2 * (3 * batch * n * c + 4 * batch * c * hp))
+
+    def fwd():
+        return sa.spatial_attn_fwd(qn, kpb, vpb, h, key, rate)
+
+    def bwd():
+        return sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, rate,
+                                   dtypes=(bf, bf))
+
+    pf.check("out", fwd(), sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key,
+                                                     rate), 2e-2)
     want = sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key, rate)
-    for name, g_, w_ in zip(("dqn", "dkpb", "dvpb"), got, want):
+    # both stores of the finishing pass: bf16 (the main path's) and f32
+    # (the wrapper's default)
+    got = bwd()
+    for name, g_, w_ in zip(("dqn", "dkpb bf16", "dvpb bf16"), got, want):
         pb.check(name, g_, w_, 2e-2)
-    check_repeatable(pb, got, sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key,
-                                                  rate))
-    pf.ms = timed_ms(lambda: sa.spatial_attn_fwd(qn, kpb, vpb, h, key, rate),
-                     iters)
-    pf.plain_ms = timed_ms(
-        lambda: sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key, rate), 2)
-    pb.ms = timed_ms(
-        lambda: sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, rate), iters)
-    pb.plain_ms = timed_ms(
-        lambda: sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key, rate), 2)
+    check_repeatable(pb, got, bwd())
+    got = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, rate)
+    for name, g_, w_ in zip(("dkpb f32", "dvpb f32"), got[1:], want[1:]):
+        pb.check(name, g_, w_, 2e-2)
+    del got, want
+    if dev.type == "cuda":
+        for ph, call, names in ((pf, fwd, SPATTN_KERNELS[:1]),
+                                (pb, bwd, SPATTN_KERNELS[1:])):
+            launched = device_kernels(call)
+            ok = len(launched) == len(names) and all(
+                k in e for k, e in zip(names, launched))
+            print(f"  {ph.kernel} {label}: one call launches {launched} "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{ph.kernel} {label}: launches "
+                                     f"{launched}, not {list(names)}")
     # library yardstick, timed only: the same per-head attention through
-    # SDPA (its own dropout stream), q (B, h, N, c), k and v (B, h, P, c)
+    # SDPA (its own dropout stream), q (B, h, N, c), k and v (B, h, P, c);
+    # and K4's: the backward of that SDPA call alone (its forward once,
+    # the graph kept), with the cotangent in SDPA's layout
     q4 = qn.reshape(batch, n, h, ch).transpose(1, 2)
     k4 = kp.transpose(2, 3).to(bf)
     v4 = vp.transpose(2, 3).to(bf)
-    pf.library_ms = timed_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, dropout_p=rate, scale=1.0), iters)
-    # and K4's: the backward of that SDPA call alone (its forward once,
-    # the graph kept), with the cotangent in SDPA's layout
+    g4 = g.reshape(batch, n, h, ch).transpose(1, 2)
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
         out = F.scaled_dot_product_attention(*ins, dropout_p=rate, scale=1.0)
-        g4 = g.reshape(batch, n, h, ch).transpose(1, 2)
-        pb.library_ms = timed_ms(lambda: torch.autograd.grad(
-            out, ins, g4, retain_graph=True), iters)
+
+        def library_fwd():
+            return F.scaled_dot_product_attention(q4, k4, v4, dropout_p=rate,
+                                                  scale=1.0)
+
+        def library_bwd():
+            return torch.autograd.grad(out, ins, g4, retain_graph=True)
+
+        for ph, call, kernel, plain, library in (
+                (pf, fwd, SPATTN_KERNELS[0],
+                 lambda: sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key,
+                                                   rate), library_fwd),
+                (pb, bwd, SPATTN_KERNELS[1],
+                 lambda: sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key,
+                                                   rate), library_bwd)):
+            times = device_times(call, iters)
+            ph.ms = sum(times.values())
+            ph.kernel_ms = sum(v for k, v in times.items()
+                               if kernel in k or k == "host")
+            if ph.kernel_ms == 0:
+                raise AssertionError(f"{ph.kernel} {label}: the profiler saw "
+                                     f"no {kernel} on the card")
+            ph.call_ms = timed_ms(call, iters)
+            ph.plain_ms = timed_ms(plain, 2)
+            ph.library_ms = sum(device_times(library, iters).values())
+            ph.library_call_ms = timed_ms(library, iters)
+            ph.report()
         del out, ins
-    pf.report()
-    pb.report()
     return [pf, pb]
+
+
+def spatial_attn_levels(dev, gen, small=False):
+    """K3 and K4 at the four levels' shapes at the train step's batch 4
+    (`small`: batch 1, level 3 at 512 tokens)."""
+    out = []
+    for name, n, c, p in DSA_LEVELS:
+        b, n = (1, min(n, 512)) if small else (TRAIN_BATCH, n)
+        out += spatial_attn_phases(f"{name} {b}xN={n} C={c} hP={4 * p}",
+                                   dev, gen, b, n, c, p)
+    return out
 
 
 def kernel_phases(dev, gen, small: bool = False):
@@ -991,10 +1055,7 @@ def kernel_phases(dev, gen, small: bool = False):
                                b, s(32, 32, 32) if small else (32, 32, 32),
                                64),
     ]
-    phases += spatial_attn_phases("level3 4xN=32768 C=32 hP=256", dev, gen,
-                                  b, 512 if small else 32768, 32, 64)
-    phases += spatial_attn_phases("level6 4xN=64 C=256 hP=128", dev, gen, b,
-                                  64, 256, 32)
+    phases += spatial_attn_levels(dev, gen, small)
     phases += sw_io_phases(dev, gen, s(*CLI_SHAPE), roi=8 if small else 128)
     # the gated paths' kernels (FCD_FINALE_POOL=0 / FCD_FINALE_TRAIN=0,
     # FCD_FUSED_HEAD=1)
@@ -1802,10 +1863,14 @@ BUILD_REPORTS = {
                      "HMMA"),
     "upsample2x": ("upsample", "upsample_kernel", ("wm", "wn", "ni"), "HMMA"),
     "dsa": ("dsa", DSA_KERNELS, ("ch", "p"), "HMMA"),
+    "spatial_attn": ("spatial_attn", SPATTN_KERNELS, ("c", "p", "co|hb"),
+                     "HMMA"),
 }
 # `--kernels NAME,...`: only these kernels' phases
 ONLY_PHASES = {"upsample2x": upsample_phases, "sw_exit": sw_io_phases,
-               "dsa_phase_a": dsa_phases, "dsa_phase_b": dsa_phases}
+               "dsa_phase_a": dsa_phases, "dsa_phase_b": dsa_phases,
+               "spatial_attn_fwd": spatial_attn_levels,
+               "spatial_attn_bwd": spatial_attn_levels}
 
 
 def kernels_only(dev, gen, names) -> int:
@@ -1873,6 +1938,8 @@ def main(argv=()) -> int:
     print_share(prof, "K1 in the step", ("wgrad_mma_kernel",
                                          "wgrad_sum_kernel"))
     print_share(prof, "B4 in the step", ("upsample_kernel",))
+    print_share(prof, "K3 in the step", ("spatial_attn_fwd",))
+    print_share(prof, "K4 in the step", ("spatial_attn_bwd",))
     train_check(dev)
     train_repro(dev)
     torch.cuda.empty_cache()

@@ -27,10 +27,6 @@ name and power limit first. Card only.
 
 from __future__ import annotations
 
-import argparse
-import json
-import os
-import subprocess
 import sys
 import time
 
@@ -238,75 +234,34 @@ def patch_forward() -> dict:
             "b5_kernels": len(b5)}
 
 
-def _run(root: str) -> dict:
-    """measure() in a process of its own with `root` first on sys.path."""
-    env = dict(os.environ, PYTHONPATH=root)
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--measure"], cwd=root,
-        env=env, capture_output=True, text=True, timeout=1800)
-    if proc.returncode != 0:
-        raise RuntimeError(f"measuring {root} failed:\n{proc.stderr[-4000:]}")
-    return json.loads(proc.stdout.strip().splitlines()[-1])
+def show(label: str, res: dict) -> None:
+    """Print one checkout's measurements."""
+    print(f"{label} ({res['api']}):", flush=True)
+    for lvl, row in res["levels"].items():
+        cells = [f"{what} {r['device_ms']:.4f} ms device ({r['kernel_ms']:.4f}"
+                 f" in dsa kernels, {r['device_ops']:g} ops, wall "
+                 f"{r['wall_ms']:.4f})" for what, r in row.items()]
+        print(f"  {lvl}: " + " | ".join(cells))
+        for what, r in row.items():
+            if len(r["by_kernel"]) > 1:
+                print(f"    {what} by kernel: " + ", ".join(
+                    f"{k} {ms:.4f}" for k, ms in r["by_kernel"].items()))
+    pf = res["patch"]
+    print(f"  patch forward: wall {pf['wall_ms_profiled']:.2f} ms "
+          f"profiled, unprofiled {', '.join(f'{w:.2f}' for w in pf['wall_ms_unprofiled'])} ms; "
+          f"device busy {pf['device_busy_ms']:.3f} ms, idle "
+          f"{100 * pf['idle_share']:.1f}%, {pf['device_kernels']} device "
+          f"kernels; B5 {pf['b5_ms']:.3f} ms in {pf['b5_kernels']} "
+          "kernels; ms/volume (182x218x182) "
+          f"{', '.join(f'{v:.1f}' for v in pf['volume_ms'])}", flush=True)
 
 
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", help="another checkout to compare with")
-    ap.add_argument("--turns", type=int, default=2)
-    ap.add_argument("--plans", action="store_true",
-                    help="time this checkout under every tile and chunk")
-    ap.add_argument("--measure", action="store_true", help=argparse.SUPPRESS)
-    args = ap.parse_args(argv)
-    if args.measure:  # run by path: the checkout on PYTHONPATH, not here
-        here_dir = os.path.dirname(os.path.abspath(__file__))
-        sys.path[:] = [d for d in sys.path if os.path.abspath(d or ".") != here_dir]
-    import torch
+    # imported here: measure() runs in a child whose fcd_tpu_torch may
+    # be an older checkout, without _sweep
+    from fcd_tpu_torch.kernels import _sweep
 
-    if not torch.cuda.is_available():
-        print("dsa_sweep: no CUDA device", file=sys.stderr)
-        return 1
-    if args.measure:
-        print(json.dumps(measure()))
-        return 0
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True).stdout.strip()
-    print(f"card: {card}", flush=True)
-    if args.plans:
-        plans()
-        print(f"card: {card}")
-        return 0
-    here = os.path.dirname(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))))
-    order = [("this", here)]
-    if args.parent:
-        parent = ("parent", os.path.abspath(args.parent))
-        order = []
-        for i in range(args.turns):
-            pair = [parent, ("this", here)]
-            order += pair if i % 2 == 0 else pair[::-1]
-    for label, root in order:
-        res = _run(root)
-        print(f"{label} ({res['api']}):", flush=True)
-        for lvl, row in res["levels"].items():
-            cells = [f"{what} {r['device_ms']:.4f} ms device ({r['kernel_ms']:.4f}"
-                     f" in dsa kernels, {r['device_ops']:g} ops, wall "
-                     f"{r['wall_ms']:.4f})" for what, r in row.items()]
-            print(f"  {lvl}: " + " | ".join(cells))
-            for what, r in row.items():
-                if len(r["by_kernel"]) > 1:
-                    print(f"    {what} by kernel: " + ", ".join(
-                        f"{k} {ms:.4f}" for k, ms in r["by_kernel"].items()))
-        pf = res["patch"]
-        print(f"  patch forward: wall {pf['wall_ms_profiled']:.2f} ms "
-              f"profiled, unprofiled {', '.join(f'{w:.2f}' for w in pf['wall_ms_unprofiled'])} ms; "
-              f"device busy {pf['device_busy_ms']:.3f} ms, idle "
-              f"{100 * pf['idle_share']:.1f}%, {pf['device_kernels']} device "
-              f"kernels; B5 {pf['b5_ms']:.3f} ms in {pf['b5_kernels']} "
-              "kernels; ms/volume (182x218x182) "
-              f"{', '.join(f'{v:.1f}' for v in pf['volume_ms'])}", flush=True)
-    print(f"card: {card}")
-    return 0
+    return _sweep.main(__doc__, __file__, plans, show, argv)
 
 
 if __name__ == "__main__":

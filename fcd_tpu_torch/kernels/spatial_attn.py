@@ -21,13 +21,18 @@ mask. The JAX package draws from another stream (ROADMAP C2): parity with
 it holds at rate 0.
 
 CPU tensors take the plain PyTorch versions; CUDA tensors launch the
-kernels or raise. The kernels take bf16 tensors.
+kernels or raise. The kernels take bf16 tensors. `spatial_attn_plan`
+(pure Python) picks their tiles, chunks and head split; one K3 call is one
+launch, one K4 call two (the product kernel and its finishing pass, which
+adds the partial sums in a fixed order and writes dkpb and dvpb in the
+dtype the caller asks for).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -118,6 +123,183 @@ def spatial_attn_bwd_plain(qn, kpb, vpb, g, h: int, key: int, rate: float
     return dqn, dkpb, dvpb
 
 
+# -- the kernels' plan ----------------------------------------------------------
+
+SMS = 132                   # the H100's streaming multiprocessors
+NW = 8                      # warps of a K3 or K4 block (256 threads)
+SMEM_CAP = 232448           # shared memory one block may hold (227 KiB)
+TILES = (128, 64, 32, 16)   # K4's tokens a step, largest first
+FWD_BLOCKS = 2 * SMS        # K3's blocks aim at this many
+PART_BUDGET = 24 << 20      # bytes of K4's f32 chunk partials at most
+SUM_VALUES = 8192           # K4's dkpb (and dvpb) values a block sums in
+                            # registers: 32 f32 a thread each
+
+
+def _head_blocks(c: int, p: int) -> Tuple[int, ...]:
+    """The heads a K4 block may own at (C, P): its dkpb and dvpb sums, C x
+    (heads x P) f32 each, stay in registers, and where it owns more than
+    one head, dqn's 16 x C accumulator too (C <= 128)."""
+    return tuple(hb for hb in (1, 2, 4)
+                 if hb * c * p <= SUM_VALUES and (hb == 1 or c <= 128))
+
+
+# (C, P) the kernels are built for (C a power of two from 16 to 256, P 16,
+# 32 or 64, C P <= SUM_VALUES), and the heads a K4 block may own there;
+# csrc/spatial_attn.cu's SHAPES_FWD and SHAPES_BWD list the same
+SHAPES = {(c, p): _head_blocks(c, p) for c in (16, 32, 64, 128, 256)
+          for p in (16, 32, 64) if c * p <= SUM_VALUES}
+
+
+def _pitch(n: int) -> int:
+    """csrc/spatial_attn.cu::pitch: a bf16 row of >= n elements, an odd
+    multiple of 16 bytes."""
+    v = -(-n // 8)
+    return 8 * v + (8 if v % 2 == 0 else 16)
+
+
+def smem_fwd(c: int, hp: int) -> int:
+    """Shared memory of a K3 block: kpb and vpb of one batch item, and
+    each warp's 16-token tile."""
+    return 2 * (c * _pitch(hp) + hp * _pitch(c) + NW * 16 * _pitch(c))
+
+
+def smem_bwd(c: int, hbp: int, t: int) -> int:
+    """Shared memory of a K4 block: its heads' kpb columns and vpb rows,
+    two stages of the qn and g tiles, and the tile's a and ds."""
+    return 2 * (c * _pitch(hbp) + hbp * _pitch(c) + 4 * t * _pitch(c)
+                + 2 * t * _pitch(hbp))
+
+
+class SpattnPlan(NamedTuple):
+    """K3's and K4's decomposition. Their accumulators live in registers:
+    K3's 16 x cols outputs a warp, K4's dkpb and dvpb sums over its chunk
+    (split over the block's warps) and, split by row, dqn; split by head,
+    dqn goes out as f32 partials (`dq_groups`) that the finishing pass
+    adds."""
+    n: int
+    c: int
+    p: int
+    heads: int
+    batch: int
+    cols: int        # K3: output columns a warp unit computes
+    per_block: int   # K3: units (16 tokens x cols) a block walks
+    fwd_blocks: int  # K3: blocks per batch item
+    smem_fwd: int
+    tile: int        # K4: tokens a block takes a step (a multiple of 16)
+    tiles: int       # K4: ceil(N / tile)
+    head_block: int  # K4: heads a block owns
+    chunks: int      # K4: blocks along the tokens per head group and item
+    smem_bwd: int
+
+    @property
+    def units(self) -> int:
+        """K3's warp units per batch item: 16-token tiles x column groups."""
+        return -(-self.n // 16) * (self.c // self.cols)
+
+    @property
+    def head_groups(self) -> int:
+        return self.heads // self.head_block
+
+    @property
+    def split(self) -> str:
+        """"row": a K4 block owns every head and writes dqn itself; "head":
+        each head group writes an f32 partial of dqn, added in group order
+        by the finishing pass."""
+        return "row" if self.head_block == self.heads > 1 else "head"
+
+    @property
+    def dq_groups(self) -> int:
+        return 0 if self.split == "row" else self.head_groups
+
+    @property
+    def fwd_grid(self) -> int:
+        return self.fwd_blocks * self.batch
+
+    @property
+    def bwd_grid(self) -> int:
+        return self.chunks * self.head_groups * self.batch
+
+    @property
+    def partial_bytes(self) -> int:
+        """K4's f32 scratch: the chunks' dkpb and dvpb, the groups' dqn."""
+        hp = self.heads * self.p
+        return 4 * (2 * self.chunks * self.batch * self.c * hp
+                    + self.dq_groups * self.batch * self.n * self.c)
+
+    def fwd_units(self, block: int) -> range:
+        """The K3 units block `block` walks (unit u: tokens 16 (u // g) ..,
+        columns cols * (u % g) .., g = C / cols)."""
+        return range(block * self.per_block,
+                     min((block + 1) * self.per_block, self.units))
+
+    def chunk_tiles(self, k: int) -> range:
+        """The K4 tiles chunk k walks, in order; the finishing pass adds the
+        chunks' partials in the order k = 0, 1, ..."""
+        return range(k * self.tiles // self.chunks,
+                     (k + 1) * self.tiles // self.chunks)
+
+
+def plan_for(n: int, c: int, p: int, heads: int, batch: int, tile: int,
+             chunks: int, head_block: int) -> SpattnPlan:
+    """The plan with these K4 tiles, chunks and heads a block (K3's units
+    a block by the rule). Raises ValueError on what the kernels do not
+    take."""
+    if (c, p) not in SHAPES or heads < 1 or n < 1 or batch < 1:
+        raise ValueError(
+            f"spatial_attn kernels: N={n} C={c} P={p} heads={heads} "
+            f"batch={batch} not supported ((C, P) in {sorted(SHAPES)})")
+    if head_block not in SHAPES[(c, p)] or heads % head_block:
+        raise ValueError(f"spatial_attn kernels: {head_block} heads a block "
+                         f"at C={c} P={p} with {heads} heads")
+    if tile not in TILES:
+        raise ValueError(f"spatial_attn kernels: tile {tile} not in {TILES}")
+    hp = heads * p
+    cols = min(c, 128)
+    units = -(-n // 16) * (c // cols)
+    per_block = max(1, min(-(-units * batch // FWD_BLOCKS), units))
+    tiles = -(-n // tile)
+    if not 1 <= chunks <= tiles:
+        raise ValueError(f"spatial_attn kernels: {chunks} chunks of "
+                         f"{tiles} tiles")
+    sf, sb = smem_fwd(c, hp), smem_bwd(c, head_block * p, tile)
+    if max(sf, sb) > SMEM_CAP:
+        raise ValueError(f"spatial_attn kernels: C={c} hP={hp} tile {tile} "
+                         f"needs {max(sf, sb)} bytes of shared memory")
+    return SpattnPlan(n, c, p, heads, batch, cols, per_block,
+                      -(-units // per_block), sf, tile, tiles, head_block,
+                      chunks, sb)
+
+
+@functools.lru_cache(maxsize=None)
+def spatial_attn_plan(n: int, c: int, p: int, heads: int,
+                      batch: int = 1) -> SpattnPlan:
+    """K3's and K4's decomposition for N tokens of width C, `heads` heads
+    of P columns, `batch` items. K3: blocks of units, as many as make
+    about FWD_BLOCKS blocks. K4: a block owns the most heads whose sums
+    fit its registers (level 3: all, the whole row), and one block fits an
+    SM, so its grid is one wave: SMS // (head groups x items) chunks (their
+    partials within PART_BUDGET), with the largest tile of TILES that gives
+    every chunk a tile; where none does (levels 5-6 of small N), the
+    smallest tile and a chunk a tile. So level 3's blocks walk many tiles
+    and the small levels get small tiles (`spattn_sweep --plans` times the
+    alternatives: a second wave lost at levels 4-5). Raises ValueError on
+    shapes the kernels do not take."""
+    if (c, p) not in SHAPES or heads < 1:
+        raise ValueError(f"spatial_attn kernels: C={c} P={p} heads={heads} "
+                         f"not supported ((C, P) in {sorted(SHAPES)})")
+    hb = max(k for k in SHAPES[(c, p)] if heads % k == 0)
+    fits = [t for t in TILES if smem_bwd(c, hb * p, t) <= SMEM_CAP]
+    if not fits:
+        raise ValueError(f"spatial_attn kernels: C={c} P={p} heads a block "
+                         f"{hb} do not fit shared memory")
+    most = max(1, PART_BUDGET // (8 * batch * c * heads * p))
+    want = max(1, min(SMS // (heads // hb * batch), most))
+    t = next((t for t in fits if -(-n // t) >= want), fits[-1])
+    return plan_for(n, c, p, heads, batch, t, min(want, -(-n // t)), hb)
+
+
+# -- the wrappers ----------------------------------------------------------------
+
 _FNS = {}
 
 
@@ -127,16 +309,14 @@ def _fns():
         vp, ci, cu, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                           ctypes.c_float)
         fwd = lib.fcd_spatial_attn_fwd
-        fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, cu, cu, cf, ci, vp]
+        fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cu,
+                        cu, cf, ci, vp]
         fwd.restype = ci
         bwd = lib.fcd_spatial_attn_bwd
-        bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, cu,
-                        cu, cf, ci, vp]
+        bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                        ci, ci, ci, ci, ci, ci, ci, cu, cu, cf, ci, vp]
         bwd.restype = ci
-        blocks = lib.fcd_spatial_attn_bwd_blocks
-        blocks.argtypes = [ci, ci, ctypes.POINTER(ci)]
-        blocks.restype = ci
-        _FNS.update(fwd=fwd, bwd=bwd, blocks=blocks)
+        _FNS.update(fwd=fwd, bwd=bwd)
     return _FNS
 
 
@@ -159,58 +339,94 @@ def _check(qn, kpb, vpb, h, g=None):
         raise ValueError(f"spatial_attn: unsupported device {qn.device}")
 
 
+def _check_plan(plan, qn, kpb, h):
+    """Raises ValueError if `plan` was made for another shape."""
+    b, n, c = qn.shape
+    got = (n, c, kpb.shape[-1] // h, h, b)
+    if (plan.n, plan.c, plan.p, plan.heads, plan.batch) != got:
+        raise ValueError(
+            f"spatial_attn: a plan for N={plan.n} C={plan.c} P={plan.p} "
+            f"heads={plan.heads} batch={plan.batch} given N, C, P, heads, "
+            f"batch = {got}")
+
+
 def _kernel_args(qn, kpb, vpb, g=None):
     ts = (qn, kpb, vpb) + (() if g is None else (g,))
     if any(t.dtype != torch.bfloat16 for t in ts):
         raise TypeError("spatial_attn kernels take bf16 tensors")
-    if not all(t.is_contiguous() for t in ts):
-        raise ValueError("spatial_attn kernels take contiguous tensors")
+    if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts):
+        raise ValueError("spatial_attn kernels take contiguous, 16-byte "
+                         "aligned tensors")
 
 
 def spatial_attn_fwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
-                     h: int, key: int, rate: float) -> torch.Tensor:
-    """K3 wrapper: (B, N, C) out in qn's dtype."""
+                     h: int, key: int, rate: float,
+                     plan: Optional[SpattnPlan] = None) -> torch.Tensor:
+    """K3 wrapper: (B, N, C) out in qn's dtype. `plan` (default
+    `spatial_attn_plan`'s) sets the kernel's blocks."""
     _check(qn, kpb, vpb, h)
+    if plan is not None:
+        _check_plan(plan, qn, kpb, h)
     if qn.device.type == "cpu":
         return spatial_attn_fwd_plain(qn, kpb, vpb, h, key, rate)
     _kernel_args(qn, kpb, vpb)
     b, n, c = qn.shape
     hp = kpb.shape[-1]
+    plan = plan or spatial_attn_plan(n, c, hp // h, h, b)
     out = torch.empty_like(qn)
     err = _fns()["fwd"](
         _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(out),
-        b, n, c, hp, hp // h, key, keep_threshold(rate),
-        1.0 / (1.0 - rate), int(rate > 0.0), _build.stream())
+        b, n, c, hp, hp // h, plan.cols, plan.per_block, plan.fwd_blocks,
+        key, keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
+        _build.stream())
     _build.check(err, "spatial_attn_fwd")
     spatial_attn_fwd.launches += 1
     return out
 
 
+_OUT_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def spatial_attn_bwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
-                     g: torch.Tensor, h: int, key: int, rate: float):
-    """K4 wrapper: (dqn in qn's dtype, dkpb f32, dvpb f32)."""
+                     g: torch.Tensor, h: int, key: int, rate: float,
+                     dtypes=(torch.float32, torch.float32),
+                     plan: Optional[SpattnPlan] = None):
+    """K4 wrapper: (dqn in qn's dtype, dkpb, dvpb in `dtypes`, f32 or bf16).
+    On the card one call is the product kernel and its finishing pass;
+    `plan` (default `spatial_attn_plan`'s) sets their decomposition."""
     _check(qn, kpb, vpb, h, g)
+    if plan is not None:
+        _check_plan(plan, qn, kpb, h)
     if qn.device.type == "cpu":
-        return spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key, rate)
+        dqn, dkpb, dvpb = spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key,
+                                                 rate)
+        return dqn, dkpb.to(dtypes[0]), dvpb.to(dtypes[1])
     _kernel_args(qn, kpb, vpb, g)
+    if any(d not in _OUT_DTYPES for d in dtypes):
+        raise TypeError(f"spatial_attn_bwd writes dkpb and dvpb in f32 or "
+                        f"bf16, not {dtypes}")
     b, n, c = qn.shape
     hp = kpb.shape[-1]
+    plan = plan or spatial_attn_plan(n, c, hp // h, h, b)
+    dev, f32 = qn.device, torch.float32
     dqn = torch.empty_like(qn)
-    # one partial per block along the tokens, added over the blocks in a
-    # fixed order (the same bits run to run)
-    blocks = _fns()["blocks"](b, n, ctypes.byref(ctypes.c_int()))
-    dkpb = torch.empty((blocks, b, c, hp), dtype=torch.float32,
-                       device=qn.device)
-    dvpb = torch.empty((blocks, b, hp, c), dtype=torch.float32,
-                       device=qn.device)
+    dk_part = torch.empty((plan.chunks, b, c, hp), dtype=f32, device=dev)
+    dv_part = torch.empty((plan.chunks, b, hp, c), dtype=f32, device=dev)
+    dq_part = (torch.empty((plan.dq_groups, b, n, c), dtype=f32, device=dev)
+               if plan.dq_groups else None)
+    dkpb = torch.empty((b, c, hp), dtype=dtypes[0], device=dev)
+    dvpb = torch.empty((b, hp, c), dtype=dtypes[1], device=dev)
     err = _fns()["bwd"](
         _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(g),
-        _build.ptr(dqn), _build.ptr(dkpb), _build.ptr(dvpb),
-        b, n, c, hp, hp // h, key, keep_threshold(rate),
-        1.0 / (1.0 - rate), int(rate > 0.0), _build.stream())
+        _build.ptr(dqn), _build.ptr(dq_part), _build.ptr(dk_part),
+        _build.ptr(dv_part), _build.ptr(dkpb), _build.ptr(dvpb),
+        int(dtypes[0] == torch.bfloat16), int(dtypes[1] == torch.bfloat16),
+        b, n, c, hp, hp // h, plan.head_block, plan.tile, plan.chunks, key,
+        keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
+        _build.stream())
     _build.check(err, "spatial_attn_bwd")
     spatial_attn_bwd.launches += 1
-    return dqn, dkpb.sum(0), dvpb.sum(0)
+    return dqn, dkpb, dvpb
 
 
 spatial_attn_fwd.launches = 0
@@ -234,9 +450,9 @@ class SpatialAttn(torch.autograd.Function):
     def backward(ctx, g):
         qn, kq, vq = ctx.saved_tensors
         dqn, dkpb, dvpb = spatial_attn_bwd(
-            qn, kq, vq, g.to(qn.dtype).contiguous(), ctx.h, ctx.key, ctx.rate)
-        return (dqn, dkpb.to(ctx.dtypes[0]), dvpb.to(ctx.dtypes[1]),
-                None, None, None)
+            qn, kq, vq, g.to(qn.dtype).contiguous(), ctx.h, ctx.key, ctx.rate,
+            dtypes=ctx.dtypes)
+        return dqn, dkpb, dvpb, None, None, None
 
 
 def spatial_attn(qn, kpb, vpb, h: int, key: int = 0,

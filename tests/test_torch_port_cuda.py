@@ -318,11 +318,12 @@ def test_conv3d_wgrad_kernel_matches_plain(dev, shape, ci, co, pro):
 
 @pytest.mark.parametrize("kernel", ["finale_bwd", "finale_bwd_pool",
                                     "finale_bwd_chain", "spatial_attn_bwd",
-                                    "spatial_attn_bwd_level6"])
+                                    "spatial_attn_bwd_level6",
+                                    "spatial_attn_bwd_level4"])
 def test_backward_sums_are_reproducible(dev, kernel):
-    """K2's per-channel sums and K4's dkpb and dvpb are added over the
-    programs / token blocks in a fixed order: two launches on the same
-    inputs give the same bits."""
+    """K2's per-channel sums and K4's dkpb and dvpb (and, split by head,
+    dqn) are added over the programs / token chunks in a fixed order: two
+    launches on the same inputs give the same bits."""
     from fcd_tpu_torch.kernels import spatial_attn as sa
     from fcd_tpu_torch.kernels.finale import finale_bwd
 
@@ -339,8 +340,8 @@ def test_backward_sums_are_reproducible(dev, kernel):
         def call():
             return finale_bwd(ys, rs, *aff, gp, gq, 0.01, tie=tie)
     else:
-        n, c, h, p = (64, 256, 4, 32) if kernel.endswith("6") else \
-            (700, 32, 4, 64)
+        n, c, h, p = {"6": (64, 256, 4, 32), "4": (4096, 64, 4, 64)}.get(
+            kernel[-1], (700, 32, 4, 64))
         qn = _randn(gen, dev, 2, n, c, scale=0.2, dtype=bf)
         kpb = _randn(gen, dev, 2, c, h * p, scale=0.5, dtype=bf)
         vpb = _randn(gen, dev, 2, h * p, c, dtype=bf)
@@ -466,26 +467,99 @@ def test_sw_exit_kernel_matches_plain(dev, start, size, o):
     assert got.is_contiguous() and torch.equal(got, want)
 
 
-@pytest.mark.parametrize("n,c,h,p,rate", [(300, 32, 4, 64, 0.0),
-                                          (300, 32, 4, 64, 0.1),
-                                          (64, 256, 4, 32, 0.1)])
+# the four DSA levels' (N, C, P) at 4 heads, each also at a ragged N
+SPATTN_SHAPES = [(32768, 32, 4, 64), (300, 32, 4, 64), (4096, 64, 4, 64),
+                 (700, 64, 4, 64), (512, 128, 4, 64), (100, 128, 4, 64),
+                 (64, 256, 4, 32), (70, 256, 4, 32)]
+
+
+def _spattn_inputs(gen, dev, n, c, h, p, batch=2):
+    """Dense kpb and vpb: the kernels take them as general matrices."""
+    bf = torch.bfloat16
+    return (_randn(gen, dev, batch, n, c, scale=0.2, dtype=bf),
+            _randn(gen, dev, batch, c, h * p, scale=0.5, dtype=bf),
+            _randn(gen, dev, batch, h * p, c, dtype=bf),
+            _randn(gen, dev, batch, n, c, dtype=bf))
+
+
+# the levels of a feature size 8, projection 16 model on a 32^3 patch, and
+# the narrow and wide corners of the widths the kernels take
+SPATTN_SMALL = [(512, 16, 4, 16), (64, 32, 4, 16), (8, 64, 4, 16),
+                (1, 128, 4, 32), (100, 16, 1, 16), (100, 16, 2, 64),
+                (70, 256, 2, 16), (70, 128, 4, 16)]
+
+
+@pytest.mark.parametrize("n,c,h,p,rate", [
+    (n, c, h, p, rate) for n, c, h, p in SPATTN_SHAPES for rate in (0.0, 0.1)]
+    + [(300, 32, 2, 64, 0.1), (300, 32, 8, 64, 0.1)]
+    + [(n, c, h, p, 0.1) for n, c, h, p in SPATTN_SMALL])
 def test_spatial_attn_kernels_match_plain(dev, n, c, h, p, rate):
-    """Equal dropout masks: the outputs agree to bf16 rounding."""
+    """Equal dropout masks: the outputs agree to bf16 rounding. Two and
+    eight heads too: a K4 block then owns two of two heads (the whole row)
+    or four of eight (f32 dqn partials of two head groups); and the
+    narrower widths, where a K4 block's sums have fewer tiles than warps."""
     from fcd_tpu_torch.kernels import spatial_attn as sa
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    bf = torch.bfloat16
-    qn = _randn(gen, dev, 2, n, c, scale=0.2, dtype=bf)
-    kpb = _randn(gen, dev, 2, c, h * p, scale=0.5, dtype=bf)
-    vpb = _randn(gen, dev, 2, h * p, c, dtype=bf)
-    g = _randn(gen, dev, 2, n, c, dtype=bf)
+    qn, kpb, vpb, g = _spattn_inputs(gen, dev, n, c, h, p)
     key = sa.dropout_key(1234, 5)
     assert _rel(sa.spatial_attn_fwd(qn, kpb, vpb, h, key, rate),
                 sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key, rate)) < 2e-2
     got = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, rate)
     want = sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key, rate)
     for g_, w_ in zip(got, want):
-        assert _rel(g_, w_) < 2e-2
+        assert g_.dtype == w_.dtype and _rel(g_, w_) < 2e-2
+
+
+@pytest.mark.parametrize("n,c,h,p", [(4096, 64, 4, 64), (512, 128, 4, 64)])
+def test_spatial_attn_bwd_writes_the_asked_dtype(dev, n, c, h, p):
+    """The finishing pass writes dkpb and dvpb in bf16 when asked: the f32
+    sums rounded once."""
+    from fcd_tpu_torch.kernels import spatial_attn as sa
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    qn, kpb, vpb, g = _spattn_inputs(gen, dev, n, c, h, p)
+    key = sa.dropout_key(7, 2)
+    f32 = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, 0.1)
+    bf = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, 0.1,
+                             dtypes=(torch.bfloat16, torch.bfloat16))
+    assert torch.equal(f32[0], bf[0])
+    for a, b in zip(f32[1:], bf[1:]):
+        assert b.dtype == torch.bfloat16 and torch.equal(a.bfloat16(), b)
+
+
+def test_spatial_attn_launches_only_its_kernels(dev):
+    """One K3 call is one device kernel; one K4 call is its product kernel
+    and its finishing pass, with no other device op (no sum or cast)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from fcd_tpu_torch.kernels import spatial_attn as sa
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for n, c, h, p in SPATTN_SHAPES[::2]:
+        qn, kpb, vpb, g = _spattn_inputs(gen, dev, n, c, h, p)
+        key = sa.dropout_key(5, 1)
+        for call, want in (
+                (lambda: sa.spatial_attn_fwd(qn, kpb, vpb, h, key, 0.1),
+                 ["spatial_attn_fwd_kernel"]),
+                (lambda: sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, 0.1),
+                 ["spatial_attn_bwd_kernel", "spatial_attn_bwd_finish"]),
+                (lambda: sa.spatial_attn_bwd(
+                    qn, kpb, vpb, g, h, key, 0.1,
+                    dtypes=(torch.bfloat16, torch.bfloat16)),
+                 ["spatial_attn_bwd_kernel", "spatial_attn_bwd_finish"])):
+            call()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            names = [e.name for e in sorted(
+                (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                key=lambda e: e.time_range.start)]
+            assert len(names) == len(want), (n, names)
+            for w, got in zip(want, names):
+                assert w in got, (n, names)
 
 
 def test_conv_function_grads_match_plain_autograd(dev):
@@ -570,9 +644,7 @@ def test_spatial_attn_function_matches_plain_autograd(dev):
         assert _rel(g_, w_) < 3e-2
 
 
-def test_train_step_on_the_card(dev):
-    """A small MS_DSA_NET train step in bf16: finite, falling losses, and
-    every kernel of the train path launched."""
+def _train_step_launches_every_kernel(dev, **widths):
     from fcd_tpu_torch.config import get_default_params
     from fcd_tpu_torch.kernels import (
         block_conv,
@@ -585,8 +657,7 @@ def test_train_step_on_the_card(dev):
     from fcd_tpu_torch.train.trainer import ModelTrainer
 
     params = get_default_params()
-    params.update(patch_size=32, feature_size=8, project_size=16,
-                  loss="DiceCELoss")
+    params.update(patch_size=32, loss="DiceCELoss", **widths)
     tr = ModelTrainer(params, device=dev)
     gen = torch.Generator(device=dev).manual_seed(11)
     x = torch.randn(2, 32, 32, 32, 2, generator=gen, device=dev)
@@ -599,6 +670,18 @@ def test_train_step_on_the_card(dev):
     assert all(torch.isfinite(torch.tensor(losses)))
     assert losses[-1] < losses[0]
     assert all(f.launches > b for f, b in zip(fns, before))
+
+
+def test_train_step_on_the_card(dev):
+    """A small MS_DSA_NET train step in bf16: finite, falling losses, and
+    every kernel of the train path launched."""
+    _train_step_launches_every_kernel(dev, feature_size=8, project_size=16)
+
+
+def test_train_step_on_the_card_at_default_widths(dev):
+    """The same at the default feature and projection sizes: K3 and K4 at
+    the default model's (C, P) per level."""
+    _train_step_launches_every_kernel(dev)
 
 
 @pytest.mark.parametrize("shape", [(2, 6, 8, 10, 24), (1, 4, 4, 4, 5)])

@@ -10,9 +10,10 @@ tests/test_spatial_attn.py run them).
   tolerance is rel-L2 2e-2 (bf16 rounding of the intermediates).
 * K2: finale_bwd_pallas with and without the pool cotangent, on bf16
   inputs with exact ties; dt to one bf16 ulp, the sums to 1e-5.
-* K3/K4: the Pallas kernels at rate 0 (rel 3e-2 of max, bf16); at rate
-  0.1 the plain backward equals autograd through the plain forward with
-  the same hash key (f32, 1e-5) and keeps 0.9 +- 1% of the attention.
+* K3/K4: the Pallas kernels at rate 0 at the four DSA levels' (C, P)
+  (rel 3e-2 of max, bf16); at rate 0.1 the plain backward equals autograd
+  through the plain forward with the same hash key (f32, 1e-5) and keeps
+  0.9 +- 1% of the attention.
 
 Same numpy inputs (RandomState) go to both packages; layouts are
 converted with the JAX package's own to_s2d / from_s2d.
@@ -179,16 +180,20 @@ def test_finale_bwd_matches_pallas(with_pool):
 def _sa_inputs(seed, b=2, n=256, c=32, h=4, p=64):
     rng = np.random.RandomState(seed)
     qn = rng.randn(b, n, c).astype(np.float32)
-    kpb = rng.randn(b, c, h * p).astype(np.float32) * 0.3
+    kpb = rng.randn(b, c, h * p).astype(np.float32) * 0.3 * (32 / c) ** 0.5
     vpb = rng.randn(b, h * p, c).astype(np.float32)
     g = rng.randn(b, n, c).astype(np.float32)
     return qn, kpb, vpb, g
 
 
-def test_spatial_attn_fwd_bwd_match_pallas():
-    """Rate 0: the dropout streams differ between the packages."""
+@pytest.mark.parametrize("n,c,p", [(256, 32, 64), (200, 64, 64),
+                                   (128, 128, 64), (64, 256, 32)])
+def test_spatial_attn_fwd_bwd_match_pallas(n, c, p):
+    """Rate 0 (the dropout streams differ between the packages), at each
+    DSA level's (C, P) with 4 heads; N = 200 is not a multiple of the
+    kernels' 16-token tiles."""
     h = 4
-    qn, kpb, vpb, g = _sa_inputs(0)
+    qn, kpb, vpb, g = _sa_inputs(0, n=n, c=c, h=h, p=p)
     bfj = jnp.bfloat16
     seed = jnp.zeros((1,), jnp.int32)
     args = [jnp.asarray(a).astype(bfj) for a in (qn, kpb, vpb)]
