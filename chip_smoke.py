@@ -20,7 +20,11 @@ Run from the repository root:
    call's wall time per call beside it, and so are sw_exit and `acc * inv`;
    their build reports give each instance's registers and spills and the
    library's HGMMA (B1) or HMMA (K1, B4, B5, K3/K4) count (0 fails). K1,
-   K2, K4, B4 and B5 must give the same bits from two calls. B5 runs at
+   K2, K4, B4 and B5 must give the same bits from two calls. K2 runs as
+   the train step calls it (one Finale.backward, which must launch its two
+   kernels and nothing else) at six of the step's 23 calls, its d_ys and
+   d_rs bit-equal to the plain version's, timed by the device time of all
+   one call launches; its build report counts 16-byte loads. B5 runs at
    the four DSA levels: phase A's sums, its finishing pass (phase B's
    operands), phase B and the whole op against their plain versions and
    the f32 reference, each phase timed by the device time of all one
@@ -41,7 +45,7 @@ Run from the repository root:
    step at batch 1 x 64^3 (full widths) held against the port's fp32 CPU
    step from the same weights; whether two such steps from one state give
    bit-equal parameters (reported); then a profile of one train step with
-   K1's, B4's, K3's and K4's shares of its device time.
+   K1's, B4's, K3's, K4's and K2's shares of its device time.
 5. Drives the segmentation CLI: writes a seeded synthetic subject (T1,
    FLAIR and a lesion label, NIfTI, on a 176x240x256 grid at (1.0, 0.9375,
    0.9375) mm with an LAS affine) and the seeded fs16 model's weights as a
@@ -72,6 +76,7 @@ checkout of the repository, it exits non-zero and prints no result.
     python3 chip_smoke.py --kernels upsample2x,sw_exit
     python3 chip_smoke.py --kernels dsa_phase_a,dsa_phase_b
     python3 chip_smoke.py --kernels spatial_attn_fwd,spatial_attn_bwd
+    python3 chip_smoke.py --kernels finale_bwd,sw_entry
 
 builds the kernels and runs only the named kernels' phases (checks and
 times; no main path and no result line).
@@ -122,6 +127,41 @@ def timed_ms(fn, iters: int) -> float:
     return e0.elapsed_time(e1) / iters
 
 
+def cuda_events(fn, iters: int, tries: int = 5) -> list:
+    """The device events of `iters` calls of fn (torch.profiler), from a
+    whole trace. On the card the profiler sometimes records no event, or
+    drops some (PERF.md section 7), which would read as too little device
+    time. So each try also traces one call, and the trace of `iters` calls
+    is kept only when it holds each op `iters` times as often as that one
+    call launched it. Fails after `tries` tries."""
+    from collections import Counter
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def trace(n):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+    seen = []
+    for _ in range(tries):
+        one = Counter(e.name for e in trace(1))
+        events = trace(iters)
+        got = Counter(e.name for e in events)
+        if one and got == Counter({k: n * iters for k, n in one.items()}):
+            if seen:
+                print(f"  (the profiler dropped events in {len(seen)} "
+                      "trace(s), taken again)")
+            return events
+        seen.append((sum(one.values()), sum(got.values())))
+    raise AssertionError(f"no whole trace of {iters} calls in {tries} tries "
+                         f"(ops in one call, in {iters} calls: {seen})")
+
+
 def device_times(fn, iters: int) -> dict:
     """Mean device ms per call of each kernel, copy and fill that `fn`
     launches, by name, over `iters` calls after a warm-up call
@@ -129,24 +169,15 @@ def device_times(fn, iters: int) -> dict:
     CUDA events around back-to-back calls time the host; this times the
     card. On a CPU run: {"host": the host clock per call}."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         return {"host": timed_ms(fn, iters)}
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            out[e.name] = (out.get(e.name, 0.0)
-                           + e.time_range.elapsed_us() / iters / 1e3)
-    if not out:
-        raise AssertionError("the profiler saw no device work on the card")
+    for e in cuda_events(fn, iters):
+        out[e.name] = (out.get(e.name, 0.0)
+                       + e.time_range.elapsed_us() / iters / 1e3)
     return out
 
 
@@ -236,8 +267,9 @@ def build_report(name, kernels, args, instr) -> int:
     (one name or several; template arguments named `args`), with its
     registers, shared memory and spills (nvcc -Xptxas -v, kept beside the
     library), and the count of `instr` instructions in the library's SASS.
-    Fails if that count is 0: the kernel must multiply on the tensor
-    cores."""
+    Fails if that count is 0: the kernel must multiply on the tensor cores
+    (HGMMA, HMMA), or, with no products, move 16 bytes a load
+    (LDG.E.128)."""
     import re
 
     from fcd_tpu_torch.kernels import _build
@@ -266,8 +298,7 @@ def build_report(name, kernels, args, instr) -> int:
     print(f"{name} library: {n} {instr} instructions in its SASS "
           f"{'ok' if n else 'FAIL'}", flush=True)
     if n == 0:
-        raise AssertionError(f"{name} has no {instr}: it is off the tensor "
-                             "cores")
+        raise AssertionError(f"{name} has no {instr} instruction")
     return n
 
 
@@ -568,17 +599,11 @@ def dsa_phases(dev, gen, small=False):
 def device_kernels(fn) -> list:
     """The names of the device ops one call of fn launches, in order."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.name for e in sorted(
-        (e for e in prof.events() if e.device_type == DeviceType.CUDA),
-        key=lambda e: e.time_range.start)]
+    return [e.name for e in sorted(cuda_events(fn, 1),
+                                   key=lambda e: e.time_range.start)]
 
 
 def wgrad_phase(label, dev, gen, batch, grid, parts_c, cout, *,
@@ -664,86 +689,139 @@ def check_repeatable(ph, got, again):
         raise AssertionError(f"{ph.kernel} {ph.label}: two calls differ")
 
 
-def finale_bwd_phase(label, dev, gen, batch, grid, c, iters=10):
-    """K2 at one shape, with the pool cotangent. The affines are dyadic
-    (s in {1/2, 1, 2}, b on a 1/16 grid), so the preactivation is exact
-    in f32 whether or not a compiler contracts its multiply-adds, and the
-    kernel and the plain version see the same bf16 ties."""
+# K2's two kernels, in launch order
+FINALE_BWD_KERNELS = ("finale_bwd_kernel", "finale_bwd_finish")
+
+
+def finale_bwd_phase(label, dev, gen, batch, grid, c, mode, *, tied=False,
+                     batch_norm=False, iters=10):
+    """K2 at one shape, called as the train step calls it: one
+    `Finale.backward` (mode `none`: no pooled output; `even` or `chain`:
+    the pool's tie split). Random non-dyadic affines, so d_ys and d_rs
+    must be the plain version's bits whatever the rounding of t; `tied`:
+    small integers through dyadic affines, exact in f32, so that the pool's
+    2x2x2 blocks hold exact ties (the chain split must then differ from
+    the even one); `batch_norm`: a transformer block's affines, the batch
+    norm's (C,) rows expanded over the batch and the identity shortcut's
+    sr = 1, br = 0. The sums are checked to 1e-3 (1e-4 tied) of their max.
+    `ms` is the device time of all one call launches (the kernel alone and
+    the wall per call beside it), and one call must be K2's two kernels."""
+    import types
+
     import torch
 
-    from fcd_tpu_torch.kernels.finale import finale_bwd, finale_bwd_plain
+    from fcd_tpu_torch.kernels.finale import (
+        Finale,
+        finale_bwd,
+        finale_bwd_plan,
+        finale_grads_plain,
+    )
 
     bf = torch.bfloat16
     nvox = batch * grid[0] * grid[1] * grid[2]
-    pgrid = tuple(v // 2 for v in grid)
-    ys = _randn((batch, *grid, c), gen, dev, dtype=bf)
-    rs = _randn((batch, *grid, c), gen, dev, dtype=bf)
+    pooled = mode != "none"
+    if tied:
+        ys = torch.randint(-2, 3, (batch, *grid, c), generator=gen,
+                           device=dev).to(bf)
+        rs = torch.randint(-1, 2, (batch, *grid, c), generator=gen,
+                           device=dev).to(bf)
+        s2 = torch.full((batch, c), 0.5, device=dev)
+        b2 = torch.randint(-8, 9, (batch, c), generator=gen, device=dev) / 8.0
+        sr, br = torch.ones_like(s2), torch.zeros_like(s2)
+    else:
+        ys = _randn((batch, *grid, c), gen, dev, dtype=bf)
+        rs = _randn((batch, *grid, c), gen, dev, dtype=bf)
+        rows = 1 if batch_norm else batch
+        s2 = (torch.rand((rows, c), generator=gen, device=dev) + 0.5).expand(
+            batch, c)
+        b2 = _randn((rows, c), gen, dev, 0.1).expand(batch, c)
+        if batch_norm:
+            sr, br = torch.ones(batch, c, device=dev), torch.zeros(
+                batch, c, device=dev)
+        else:
+            sr = torch.rand((batch, c), generator=gen, device=dev) + 0.5
+            br = _randn((batch, c), gen, dev, 0.1)
     gp = _randn((batch, *grid, c), gen, dev, dtype=bf)
-    gq = _randn((batch, *pgrid, c), gen, dev, dtype=bf)
-
-    def dyadic():
-        return (2.0 ** torch.randint(-1, 2, (batch, c), generator=gen,
-                                     device=dev).float(),
-                torch.randint(-16, 17, (batch, c), generator=gen,
-                              device=dev).float() / 16)
-
-    s2, b2 = dyadic()
-    sr, br = dyadic()
-    args = (ys, rs, s2, b2, sr, br, gp, gq, 0.01)
-    ph = Phase("finale_bwd", label, 15 * nvox * c,
-               8 * nvox * c + 2 * nvox * c // 8 + 28 * batch * c)
-    got, want = finale_bwd(*args), finale_bwd_plain(*args)
-    ph.check("dt", got[0], want[0], 1e-2)
-    for name, g_, w_ in zip(("sum dt*ys", "sum dt", "sum dt*rs"), got[1:],
-                            want[1:]):
-        ph.check(name, g_, w_, 1e-3)
+    gq = (_randn((batch, *(v // 2 for v in grid), c), gen, dev, dtype=bf)
+          if pooled else None)
+    tie = "even" if mode == "none" else mode
+    args = (ys, rs, s2, b2, sr, br, gp, gq, 0.01, tie)
+    # reads ys, rs, gp (and gq), writes d_ys and d_rs; the affines and the
+    # three sums; "before": a call that writes dt alone and leaves its two
+    # scalings to PyTorch
+    pool_bytes = 2 * nvox * c // 8 if pooled else 0
+    ph = Phase("finale_bwd", label, 17 * nvox * c,
+               10 * nvox * c + pool_bytes + 28 * batch * c)
+    before = (8 * nvox * c + pool_bytes + 28 * batch * c) / PEAK_BYTES * 1e3
+    plan = finale_bwd_plan(batch, *grid, c, mode)
+    print(f"  finale_bwd {label}: {plan.vec} channel(s) a thread, "
+          f"{plan.grid[0]}x{plan.grid[1]} blocks of {plan.threads}, at most "
+          f"{plan.tiles_per_block} tiles a block")
+    got, want = finale_bwd(*args), finale_grads_plain(*args)
+    ph.check_equal("d_ys", got[0], want[0])
+    ph.check_equal("d_rs", got[1], want[1])
+    tol = 1e-4 if tied else 1e-3
+    for name, g_, w_ in zip(("sum dt*ys", "sum dt", "sum dt*rs"), got[2:],
+                            want[2:]):
+        ph.check(name, g_, w_, tol)
     check_repeatable(ph, got, finale_bwd(*args))
-    ph.ms = timed_ms(lambda: finale_bwd(*args), iters)
-    ph.plain_ms = timed_ms(lambda: finale_bwd_plain(*args), 2)
+    if tied and mode == "chain":
+        even = finale_grads_plain(*args[:-1], "even")
+        moved = float((want[0] != even[0]).float().mean())
+        print(f"  finale_bwd {label}: chain and even split differ at "
+              f"{100 * moved:.2f}% of d_ys")
+        if moved == 0:
+            raise AssertionError("the tied inputs do not tell chain from even")
+    del got, want
+    ctx = types.SimpleNamespace(saved_tensors=(ys, rs, s2, b2, sr, br),
+                                slope=0.01, pool=pooled, tie=tie)
+
+    def call():
+        return Finale.backward(ctx, gp, gq)
+
+    if dev.type == "cuda":
+        launched = device_kernels(call)
+        ok = len(launched) == 2 and all(
+            k in e for k, e in zip(FINALE_BWD_KERNELS, launched))
+        print(f"  finale_bwd {label}: one Finale.backward launches "
+              f"{launched} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"finale_bwd {label}: launches {launched}, "
+                                 f"not {list(FINALE_BWD_KERNELS)}")
+    times = device_times(call, iters)
+    ph.ms = sum(times.values())
+    ph.kernel_ms = sum(v for k, v in times.items()
+                       if FINALE_BWD_KERNELS[0] in k or k == "host")
+    ph.call_ms = timed_ms(call, iters)
+    ph.plain_ms = timed_ms(lambda: finale_grads_plain(*args), 2)
     ph.report()
+    print(f"  finale_bwd {label}: bound of a call that writes dt alone "
+          f"{before:.4f} ms")
     return ph
 
 
-def finale_bwd_chain_phase(label, dev, gen, batch, grid, c, iters=10):
-    """K2's `chain` tie split (encoders 3-5) on tied inputs: small integers
-    through dyadic affines, exact in f32, so that dt is bit-equal to the
-    plain version's; the per-channel sums differ only in summation order."""
-    import torch
-
-    from fcd_tpu_torch.kernels.finale import finale_bwd, finale_bwd_plain
-
-    bf = torch.bfloat16
-    nvox = batch * grid[0] * grid[1] * grid[2]
-    pgrid = tuple(v // 2 for v in grid)
-    ys = torch.randint(-2, 3, (batch, *grid, c), generator=gen,
-                       device=dev).to(bf)
-    rs = torch.randint(-1, 2, (batch, *grid, c), generator=gen,
-                       device=dev).to(bf)
-    gp = _randn((batch, *grid, c), gen, dev, dtype=bf)
-    gq = _randn((batch, *pgrid, c), gen, dev, dtype=bf)
-    s2 = torch.full((batch, c), 0.5, device=dev)
-    b2 = torch.randint(-8, 9, (batch, c), generator=gen, device=dev) / 8.0
-    sr, br = torch.ones_like(s2), torch.zeros_like(s2)
-    args = (ys, rs, s2, b2, sr, br, gp, gq, 0.01)
-    ph = Phase("finale_bwd", label, 15 * nvox * c,
-               8 * nvox * c + 2 * nvox * c // 8 + 28 * batch * c)
-    got = finale_bwd(*args, tie="chain")
-    want = finale_bwd_plain(*args, tie="chain")
-    even = finale_bwd_plain(*args, tie="even")
-    ph.check_equal("dt", got[0], want[0])
-    for name, g_, w_ in zip(("sum dt*ys", "sum dt", "sum dt*rs"), got[1:],
-                            want[1:]):
-        ph.check(name, g_, w_, 1e-4)
-    check_repeatable(ph, got, finale_bwd(*args, tie="chain"))
-    moved = float((want[0] != even[0]).float().mean())
-    print(f"  finale_bwd {label}: chain and even split differ at "
-          f"{100 * moved:.2f}% of dt")
-    if moved == 0:
-        raise AssertionError("the tied inputs do not tell chain from even")
-    ph.ms = timed_ms(lambda: finale_bwd(*args, tie="chain"), iters)
-    ph.plain_ms = timed_ms(lambda: finale_bwd_plain(*args, tie="chain"), 2)
-    ph.report()
-    return ph
+def finale_bwd_phases(dev, gen, small=False):
+    """K2 at the train step's batch 4 (`small`: batch 1, small grids): the
+    two largest calls, enc2, the tied chain split at enc3, a level-3
+    transformer block and enc6."""
+    s = (lambda *g: tuple(max(2, v // 16) for v in g)) if small else \
+        (lambda *g: g)
+    b = 1 if small else TRAIN_BATCH
+    return [
+        finale_bwd_phase("enc1 4x128^3x16 +pool, even", dev, gen, b,
+                         s(128, 128, 128), 16, "even"),
+        finale_bwd_phase("dec[4] 4x128^3x16", dev, gen, b, s(128, 128, 128),
+                         16, "none"),
+        finale_bwd_phase("enc2 4x64^3x32 +pool, even", dev, gen, b,
+                         s(64, 64, 64), 32, "even"),
+        finale_bwd_phase("enc3 4x32^3x64 +pool, chain, tied inputs", dev, gen,
+                         b, s(32, 32, 32) if small else (32, 32, 32), 64,
+                         "chain", tied=True),
+        finale_bwd_phase("level-3 transformer 4x32^3x32, batch norm, sr = 1",
+                         dev, gen, b, s(32, 32, 32) if small else (32, 32, 32),
+                         32, "none", batch_norm=True),
+        finale_bwd_phase("enc6 4x4^3x512", dev, gen, b, (4, 4, 4), 512, "none"),
+    ]
 
 
 def pool2x_phase(label, dev, gen, batch, grid, c, iters=10):
@@ -837,6 +915,8 @@ def sw_io_phases(dev, gen, shape=CLI_SHAPE, c=2, o=2, roi=128, iters=20):
     import torch
 
     from fcd_tpu_torch.kernels.sw_io import (
+        entry_group,
+        entry_pad,
         sw_entry,
         sw_entry_plain,
         sw_exit,
@@ -850,10 +930,26 @@ def sw_io_phases(dev, gen, shape=CLI_SHAPE, c=2, o=2, roi=128, iters=20):
     pe = Phase("sw_entry", f"{shape}x{c} f32 -> bf16", nvox * c,
                4 * nvox * c + 2 * nvox * c)
     pe.check_equal("out", sw_entry(vol, roi3, bf), sw_entry_plain(vol, roi3, bf))
-    short = vol[:shape[0] * 4 // 7].contiguous()   # padded along D
-    pe.check_equal(f"out, padded {tuple(short.shape)}",
-                   sw_entry(short, roi3, bf), sw_entry_plain(short, roi3, bf))
-    pe.ms = timed_ms(lambda: sw_entry(vol, roi3, bf), iters)
+    # padded along D; and along W by an odd lead pad (bw C = 2: two
+    # elements a unit), each also to f32
+    for part in (vol[:shape[0] * 4 // 7], vol[:, :, :roi - 3]):
+        part = part.contiguous()
+        pw = max(part.shape[2], roi)
+        bw = entry_pad(part.shape[:3], roi3)[2][0]
+        for dtype in (bf, torch.float32):
+            pe.check_equal(f"out, padded {tuple(part.shape)} to {dtype}, "
+                           f"{entry_group(c, part.shape[2], pw, bw)} elements "
+                           f"a unit", sw_entry(part, roi3, dtype),
+                           sw_entry_plain(part, roi3, dtype))
+    print(f"  sw_entry: {entry_group(c, shape[2], max(shape[2], roi), 0)} "
+          "elements a unit at the main shape")
+
+    def entry():
+        return sw_entry(vol, roi3, bf)
+
+    # timed as sw_exit is: the device time of one call
+    pe.ms = pe.kernel_ms = sum(device_times(entry, iters).values())
+    pe.call_ms = timed_ms(entry, iters)
     pe.plain_ms = timed_ms(lambda: sw_entry_plain(vol, roi3, bf), iters)
     pe.report()
 
@@ -1049,12 +1145,8 @@ def kernel_phases(dev, gen, small: bool = False):
                     (16, 16, 16), [128], 128, prologue=True),
         wgrad_phase("enc6.conv2 4x4^3 512->512 +prologue", dev, gen, b,
                     (4, 4, 4), [512], 512, prologue=True),
-        finale_bwd_phase("enc1 4x128^3x16 +pool", dev, gen, b,
-                         s(128, 128, 128), 16),
-        finale_bwd_chain_phase("enc3 4x32^3x64 +pool, chain ties", dev, gen,
-                               b, s(32, 32, 32) if small else (32, 32, 32),
-                               64),
     ]
+    phases += finale_bwd_phases(dev, gen, small)
     phases += spatial_attn_levels(dev, gen, small)
     phases += sw_io_phases(dev, gen, s(*CLI_SHAPE), roi=8 if small else 128)
     # the gated paths' kernels (FCD_FINALE_POOL=0 / FCD_FINALE_TRAIN=0,
@@ -1487,7 +1579,7 @@ def cli_run(dev, card, params=None, native_shape=CLI_NATIVE):
 
 
 PROFILE_KEYS = ("conv3d_kernel", "wgrad_mma_kernel", "wgrad_sum_kernel",
-                "finale_bwd_kernel",
+                "finale_bwd",
                 "finale_kernel", "upsample_kernel", "dsa_phase_a",
                 "dsa_phase_b", "spatial_attn_fwd", "spatial_attn_bwd",
                 "sw_entry_kernel", "sw_exit_kernel", "pool_fwd_kernel",
@@ -1809,7 +1901,7 @@ def kernels_json(phases, by_path):
                          k1.REPLACES),
         "finale_pool": ("triton", "fcd_tpu_torch/kernels/pool.py",
                         b2.REPLACES),
-        "finale_bwd": ("triton", "fcd_tpu_torch/kernels/finale.py",
+        "finale_bwd": ("cuda", "fcd_tpu_torch/csrc/finale_bwd.cu",
                        k2.REPLACES),
         "upsample2x": ("cuda", "fcd_tpu_torch/csrc/upsample.cu", b4.REPLACES),
         "dsa_phase_a": ("cuda", "fcd_tpu_torch/csrc/dsa.cu", b5.REPLACES_A),
@@ -1865,9 +1957,13 @@ BUILD_REPORTS = {
     "dsa": ("dsa", DSA_KERNELS, ("ch", "p"), "HMMA"),
     "spatial_attn": ("spatial_attn", SPATTN_KERNELS, ("c", "p", "co|hb"),
                      "HMMA"),
+    # no products: its 16-byte loads instead
+    "finale_bwd": ("finale_bwd", FINALE_BWD_KERNELS,
+                   ("vec", "mode", "nt", "minb"), "LDG.E.128"),
 }
 # `--kernels NAME,...`: only these kernels' phases
 ONLY_PHASES = {"upsample2x": upsample_phases, "sw_exit": sw_io_phases,
+               "sw_entry": sw_io_phases, "finale_bwd": finale_bwd_phases,
                "dsa_phase_a": dsa_phases, "dsa_phase_b": dsa_phases,
                "spatial_attn_fwd": spatial_attn_levels,
                "spatial_attn_bwd": spatial_attn_levels}
@@ -1940,6 +2036,8 @@ def main(argv=()) -> int:
     print_share(prof, "B4 in the step", ("upsample_kernel",))
     print_share(prof, "K3 in the step", ("spatial_attn_fwd",))
     print_share(prof, "K4 in the step", ("spatial_attn_bwd",))
+    print_share(prof, "K2 in the step (all Finale.backward launches)",
+                ("finale_bwd",))
     train_check(dev)
     train_repro(dev)
     torch.cuda.empty_cache()

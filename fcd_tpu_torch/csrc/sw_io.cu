@@ -21,10 +21,17 @@
 // element: the entry reads 4C bytes and writes 2C (bf16) per padded voxel,
 // the exit reads 4O + 4 and writes 4O per output voxel.
 //
-// The entry gives each block one output row (z, y), walked by the threads
-// along x * C: a row of the output is one contiguous run, and so is the
-// input row it reads, so neighbouring threads touch neighbouring addresses
-// and the only index arithmetic per element is an add and a compare.
+// The entry is one grid-stride walk over the padded output in units of G
+// elements, a unit per thread and step: G floats of the input read as one
+// float, float2 or float4 (or G zeros where the unit lies in the pad), and
+// the G converted values stored as one access (bf16: 2, 4 or 8 bytes). The
+// wrapper picks G (kernels/sw_io.py::entry_group) so that every access is
+// aligned and no unit straddles the pad: W C, PW C and the lead pad bw C
+// are multiples of G and the tensors 16-byte aligned. At the CLI's C = 2
+// that is G = 4 (two voxels a unit) where W, PW and bw are even, else 2
+// (one voxel); any other layout takes the general path G = 1. The unit's
+// index is divided once into its output row and its place in the row; no
+// element divides.
 //
 // The exit is one grid-stride walk over the cropped volume in units of G
 // voxels along x, a unit per thread and step: G * O floats of acc read as
@@ -44,36 +51,6 @@
 namespace {
 
 constexpr int NT = 256;
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) {
-  return v;
-}
-
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(NT)
-    sw_entry_kernel(const float* __restrict__ in, T* __restrict__ out, int D,
-                    int H, int W, int C, int PH, int PW, int bd, int bh,
-                    int bw) {
-  const int z = blockIdx.z, y = blockIdx.y;
-  const int sz = z - bd, sy = y - bh;
-  const bool row = sz >= 0 && sz < D && sy >= 0 && sy < H;
-  const int n = PW * C, wc = W * C, lead = bw * C;
-  T* orow = out + ((int64_t)z * PH + y) * n;
-  const float* irow = in + ((int64_t)(row ? sz : 0) * H + (row ? sy : 0)) * wc;
-  for (int j = blockIdx.x * NT + threadIdx.x; j < n; j += gridDim.x * NT) {
-    const int k = j - lead;
-    orow[j] = from_f32<T>(row && k >= 0 && k < wc ? irow[k] : 0.f);
-  }
-}
 
 template <int N>
 struct FloatVec;
@@ -96,6 +73,56 @@ union Floats {
   typename FloatVec<N>::T v;
   float f[N];
 };
+
+// two f32 rounded to nearest even into one bf16x2 word, lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// G values stored as one access of the output type
+template <int G>
+__device__ __forceinline__ void store_units(float* p, const Floats<G>& v) {
+  *reinterpret_cast<typename FloatVec<G>::T*>(p) = v.v;
+}
+
+template <int G>
+__device__ __forceinline__ void store_units(__nv_bfloat16* p,
+                                            const Floats<G>& v) {
+  if constexpr (G == 4)
+    *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16x2(v.f[0], v.f[1]),
+                                              pack_bf16x2(v.f[2], v.f[3]));
+  else if constexpr (G == 2)
+    *reinterpret_cast<uint32_t*>(p) = pack_bf16x2(v.f[0], v.f[1]);
+  else
+    *p = __float2bfloat16_rn(v.f[0]);
+}
+
+// units = PD PH PW C / G; row_units = PW C / G; wc_units = W C / G and
+// lead_units = bw C / G: the input row and the lead pad in units
+template <int G, typename T>
+__global__ void __launch_bounds__(NT)
+    sw_entry_kernel(const float* __restrict__ in, T* __restrict__ out,
+                    unsigned units, unsigned row_units, int wc_units,
+                    int lead_units, int D, int H, int PH, int bd, int bh) {
+  for (unsigned u = blockIdx.x * NT + threadIdx.x; u < units;
+       u += gridDim.x * NT) {
+    const unsigned r = u / row_units;   // output row z * PH + y
+    const int k = (int)(u - r * row_units) - lead_units;
+    const int z = r / PH, y = r - z * PH;
+    const int sz = z - bd, sy = y - bh;
+    Floats<G> v;
+    if (sz >= 0 && sz < D && sy >= 0 && sy < H && k >= 0 && k < wc_units) {
+      v.v = *reinterpret_cast<const typename FloatVec<G>::T*>(
+          in + (((int64_t)sz * H + sy) * wc_units + k) * G);
+    } else {
+#pragma unroll
+      for (int j = 0; j < G; ++j) v.f[j] = 0.f;
+    }
+    store_units<G>(out + (int64_t)u * G, v);
+  }
+}
 
 // the unit u of the walk: its voxel's index in acc and inv (its output
 // starts at u * G * O); w_units = W / G
@@ -145,26 +172,47 @@ __global__ void __launch_bounds__(NT)
   }
 }
 
-dim3 rows_grid(int n, int rows_y, int rows_z) {
-  return dim3((n + NT - 1) / NT, rows_y, rows_z);
+// a grid-stride walk: at most 8 blocks of NT per SM of an H100
+unsigned walk_blocks(unsigned units) {
+  return units / NT + 1 < 132 * 8 ? units / NT + 1 : 132 * 8;
+}
+
+template <int G, typename T>
+int launch_entry(const float* in, T* out, int D, int H, int W, int C, int PD,
+                 int PH, int PW, int bd, int bh, int bw, cudaStream_t s) {
+  const unsigned units = (unsigned)((int64_t)PD * PH * PW * C / G);
+  sw_entry_kernel<G, T><<<walk_blocks(units), NT, 0, s>>>(
+      in, out, units, (unsigned)(PW * C / G), W * C / G, bw * C / G, D, H,
+      PH, bd, bh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_entry_g(const float* in, T* out, int D, int H, int W, int C,
+                   int PD, int PH, int PW, int bd, int bh, int bw, int G,
+                   cudaStream_t s) {
+  if (G == 4)
+    return launch_entry<4, T>(in, out, D, H, W, C, PD, PH, PW, bd, bh, bw, s);
+  if (G == 2)
+    return launch_entry<2, T>(in, out, D, H, W, C, PD, PH, PW, bd, bh, bw, s);
+  if (G == 1)
+    return launch_entry<1, T>(in, out, D, H, W, C, PD, PH, PW, bd, bh, bw, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// G: elements a unit (kernels/sw_io.py::entry_group)
 extern "C" int fcd_sw_entry(const void* in, void* out, int out_bf16, int D,
                             int H, int W, int C, int PD, int PH, int PW,
-                            int bd, int bh, int bw, void* stream) {
+                            int bd, int bh, int bw, int G, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid = rows_grid(PW * C, PH, PD);
   const float* src = static_cast<const float*>(in);
   if (out_bf16)
-    sw_entry_kernel<__nv_bfloat16><<<grid, NT, 0, s>>>(
-        src, static_cast<__nv_bfloat16*>(out), D, H, W, C, PH, PW, bd, bh,
-        bw);
-  else
-    sw_entry_kernel<float><<<grid, NT, 0, s>>>(
-        src, static_cast<float*>(out), D, H, W, C, PH, PW, bd, bh, bw);
-  return static_cast<int>(cudaGetLastError());
+    return launch_entry_g(src, static_cast<__nv_bfloat16*>(out), D, H, W, C,
+                          PD, PH, PW, bd, bh, bw, G, s);
+  return launch_entry_g(src, static_cast<float*>(out), D, H, W, C, PD, PH,
+                        PW, bd, bh, bw, G, s);
 }
 
 // G: voxels a unit (kernels/sw_io.py::exit_group), 0 for the general path
@@ -176,8 +224,7 @@ extern "C" int fcd_sw_exit(const void* acc, const void* inv, void* out, int D,
   const float* c = static_cast<const float*>(inv);
   float* o = static_cast<float*>(out);
   const unsigned units = (unsigned)D * H * (W / (G > 0 ? G : 1));
-  // a grid-stride walk: at most 8 blocks of NT per SM of an H100
-  const unsigned blocks = units / NT + 1 < 132 * 8 ? units / NT + 1 : 132 * 8;
+  const unsigned blocks = walk_blocks(units);
   if (G == 2 && O == 2)
     sw_exit_kernel<2, 2><<<blocks, NT, 0, s>>>(a, c, o, units, H, W, PH, PW,
                                                od, oh, ow);

@@ -9,8 +9,9 @@ function B2's kernel in `kernels/pool.py` computes) and
 
 K2, given gp (cotangent of out) and gq (of pooled, or None):
 
-    g  = gp + share(out's 2x2x2 block) * gq
-    dt = g * (t >= 0 ? 1 : slope)                        -> bf16
+    g    = gp + share(out's 2x2x2 block) * gq
+    dt   = g * (t >= 0 ? 1 : slope)
+    d_ys = bf16(bf16(dt) * s2),  d_rs = bf16(bf16(dt) * sr)
     a1 = sum dt * ys,  a2 = sum dt,  a3 = sum dt * rs    per (b, c), f32
 
 t is recomputed in B2's association order and the pool mask is taken on
@@ -26,27 +27,27 @@ package runs at the block's level (ROADMAP C1, C8):
   its factor at each of the three stages: 0 where its branch is not the
   pair's maximum, 1/2 where the pair ties, 1 otherwise.
 
-Route: Triton. K2 is an elementwise pass with an 8-way max/count and
-per-channel sums, with no product: masked block loads and block
-reductions are all it needs. What bounds it: the bytes, ~8.25 per
-element (ys, rs, gp read, dt written, gq read once per 8) against ~15
-operations. The design walks each pooled voxel's eight children as one
-[voxels, 8, channels] block, so the max, the tie count and the split are
-taken from registers and every input is read once; in `chain` mode the
-eight children are eight [V, C] blocks instead, so that each pair of the
-chain is an elementwise op on two of them. Each program writes its
-per-channel partial sums once, at its slot of a (programs, B, C) buffer,
-and the wrapper adds them over the programs in a fixed order (no atomics),
-so a1..a3 are the same bits from run to run.
+The JAX kernel writes one dt slab and its consumers scale it inside their
+own fusions; eager PyTorch has no consumer fusion, so K2 writes the two
+input gradients itself. Route: CUDA, `fcd_tpu_torch/csrc/finale_bwd.cu`
+(its header: bound by bytes; a thread owns 8 channels of two voxels as
+16-byte accesses, or with the pool one channel of a pooled voxel's eight
+children, all its loads in flight; blocks walk many tiles carrying their
+partial sums, a fixed-order tree and a finishing kernel add them, no
+atomics). One call is two kernels; `finale_bwd_plan` (pure Python) picks
+the decomposition. d_ys and d_rs are the plain version's bits; a1..a3
+differ by summation order only.
 
 CPU tensors take the plain PyTorch version; CUDA tensors launch the
-kernel or raise.
+kernels or raise.
 """
 
 from __future__ import annotations
 
-import os
-from typing import Optional, Tuple
+import ctypes
+import functools
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -56,6 +57,7 @@ from fcd_tpu_torch.ops.layers import blocks_2x, unblocks_2x
 
 REPLACES = "fcd_tpu/kernels/finale.py:170"  # finale_bwd_pallas (pallas_call :207)
 TIES = ("even", "chain")
+MODES = ("none",) + TIES    # the kernel's modes: no pool, or the pool's tie split
 
 
 def _pair(a, b):
@@ -84,7 +86,8 @@ def finale_bwd_plain(ys, rs, s2, b2, sr, br, gp, gq, slope: float,
                      tie: str = "even"
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                 torch.Tensor]:
-    """K2's function in plain PyTorch: (dt in ys's dtype, a1, a2, a3)."""
+    """`finale_bwd_pallas`'s function in plain PyTorch: (dt in ys's dtype,
+    a1, a2, a3)."""
     def aff(a):
         return a.float()[:, None, None, None, :]
 
@@ -107,186 +110,129 @@ def finale_bwd_plain(ys, rs, s2, b2, sr, br, gp, gq, slope: float,
             (dt * rf).sum(dims))
 
 
-_KERNEL = None
+def finale_grads_plain(ys, rs, s2, b2, sr, br, gp, gq, slope: float,
+                       tie: str = "even"):
+    """K2's function in plain PyTorch: `finale_bwd_plain`, then dt's two
+    scalings. Returns (d_ys, d_rs, a1, a2, a3)."""
+    dt, a1, a2, a3 = finale_bwd_plain(ys, rs, s2, b2, sr, br, gp, gq, slope,
+                                      tie)
+    dtf = dt.float()
+    d_ys = (dtf * s2.float()[:, None, None, None, :]).to(ys.dtype)
+    d_rs = (dtf * sr.float()[:, None, None, None, :]).to(rs.dtype)
+    return d_ys, d_rs, a1, a2, a3
 
 
-def _kernel():
-    global _KERNEL
-    if _KERNEL is not None:
-        return _KERNEL
-    os.environ.setdefault("TRITON_CACHE_DIR",
-                          str(_build.BUILD_DIR / "triton"))
-    import triton
-    import triton.language as tl
+SMS = 132                # the H100's streaming multiprocessors
+# the kernel's instances, as csrc/finale_bwd.cu's `launch_mode` builds them:
+# channels a thread -> (its launch bound, its minimum blocks an SM); 8
+# channels a thread without the pool only
+BUILT = {8: (256, 2), 1: (1024, 1)}
+MIN_WALK = 4             # tiles a block walks by default, where the work allows
 
-    @triton.jit
-    def _tl_pair(a, b):
-        m = tl.maximum(a, b)
-        half = tl.where(a == b, 0.5, 1.0)
-        return m, tl.where(a == m, half, 0.0), tl.where(b == m, half, 0.0)
 
-    @triton.jit
-    def _tl_child(ys_ptr, rs_ptr, off, mask, s2, b2, sr, br, slope):
-        """One child of every pooled voxel: (ys, rs, t, bf16-rounded out)."""
-        yv = tl.load(ys_ptr + off, mask=mask, other=0.0).to(tl.float32)
-        rv = tl.load(rs_ptr + off, mask=mask, other=0.0).to(tl.float32)
-        t = (yv * s2[None, :] + b2[None, :]) + (rv * sr[None, :] + br[None, :])
-        f = tl.where(t >= 0, t, slope * t)
-        return yv, rv, t, f.to(ys_ptr.dtype.element_ty).to(tl.float32)
+class FinaleBwdPlan(NamedTuple):
+    """K2's decomposition of one call. A unit is one pooled voxel's eight
+    children (pool modes) or one voxel (`none`), times `vec` channels; a
+    tile is threads x per_thread units, thread i taking units i, i +
+    threads, ...; block x of batch item b walks that item's tiles x *
+    tiles // blocks up to (x + 1) * tiles // blocks and writes partial row
+    b * blocks + x, and the finishing kernel adds each item's rows in
+    block order."""
+    mode: str
+    vec: int
+    groups: int             # C / vec: a thread's channels are group tid % groups
+    threads: int            # groups * 2^k
+    per_thread: int         # units a thread takes a tile
+    units: int              # a batch item's units x groups
+    tiles: int              # a batch item's tiles
+    tiles_per_block: int    # the most a block walks
+    grid: Tuple[int, int]   # (blocks a batch item, batch)
+    rows: int               # partial rows
+    smem: int               # bytes: the affines and the reduction tree
 
-    @triton.jit
-    def _tl_child_dt(gp_ptr, dt_ptr, off, mask, yv, rv, t, share, slope):
-        """Store one child's dt; its partial sums of dt*ys, dt, dt*rs."""
-        g = tl.load(gp_ptr + off, mask=mask, other=0.0).to(tl.float32) + share
-        dt = g * tl.where(t >= 0, 1.0, slope)
-        dt = tl.where(mask, dt, 0.0)
-        tl.store(dt_ptr + off, dt.to(dt_ptr.dtype.element_ty), mask=mask)
-        return (tl.sum(dt * yv, axis=0), tl.sum(dt, axis=0),
-                tl.sum(dt * rv, axis=0))
 
-    @triton.jit
-    def finale_bwd_kernel(ys_ptr, rs_ptr, s2_ptr, b2_ptr, sr_ptr, br_ptr,
-                          gp_ptr, gq_ptr, dt_ptr, a1_ptr, a2_ptr, a3_ptr,
-                          D, H, W, C, slope,
-                          POOL: tl.constexpr, CHAIN: tl.constexpr,
-                          BLOCK_V: tl.constexpr, BLOCK_C: tl.constexpr):
-        pid = tl.program_id(0)
-        b = tl.program_id(1)
-        cs = tl.arange(0, BLOCK_C)
-        cmask = cs < C
-        s2 = tl.load(s2_ptr + b * C + cs, mask=cmask, other=0.0)
-        b2 = tl.load(b2_ptr + b * C + cs, mask=cmask, other=0.0)
-        sr = tl.load(sr_ptr + b * C + cs, mask=cmask, other=0.0)
-        br = tl.load(br_ptr + b * C + cs, mask=cmask, other=0.0)
-        if POOL and CHAIN:
-            # the eight children as eight [V, C] blocks, so that each pair
-            # of the W, D, H maximum chain is an elementwise op
-            hp = H // 2
-            wp = W // 2
-            npool = (D // 2) * hp * wp
-            pv = pid * BLOCK_V + tl.arange(0, BLOCK_V)
-            vmask = pv < npool
-            pz = pv // (hp * wp)
-            py = (pv // wp) % hp
-            px = pv % wp
-            v0 = ((b * D + 2 * pz).to(tl.int64) * H + 2 * py) * W + 2 * px
-            sd = H * W
-            mask = vmask[:, None] & cmask[None, :]
-            o000 = v0[:, None] * C + cs[None, :]
-            o001 = o000 + C
-            o010 = o000 + W * C
-            o011 = o010 + C
-            o100 = o000 + sd * C
-            o101 = o100 + C
-            o110 = o100 + W * C
-            o111 = o110 + C
-            y000, r000, t000, f000 = _tl_child(ys_ptr, rs_ptr, o000, mask, s2, b2, sr, br, slope)
-            y001, r001, t001, f001 = _tl_child(ys_ptr, rs_ptr, o001, mask, s2, b2, sr, br, slope)
-            y010, r010, t010, f010 = _tl_child(ys_ptr, rs_ptr, o010, mask, s2, b2, sr, br, slope)
-            y011, r011, t011, f011 = _tl_child(ys_ptr, rs_ptr, o011, mask, s2, b2, sr, br, slope)
-            y100, r100, t100, f100 = _tl_child(ys_ptr, rs_ptr, o100, mask, s2, b2, sr, br, slope)
-            y101, r101, t101, f101 = _tl_child(ys_ptr, rs_ptr, o101, mask, s2, b2, sr, br, slope)
-            y110, r110, t110, f110 = _tl_child(ys_ptr, rs_ptr, o110, mask, s2, b2, sr, br, slope)
-            y111, r111, t111, f111 = _tl_child(ys_ptr, rs_ptr, o111, mask, s2, b2, sr, br, slope)
-            # W pairs (per kd, kh), then D pairs (per kh), then the H pair
-            m00, w000, w001 = _tl_pair(f000, f001)
-            m01, w010, w011 = _tl_pair(f010, f011)
-            m10, w100, w101 = _tl_pair(f100, f101)
-            m11, w110, w111 = _tl_pair(f110, f111)
-            md0, d00, d10 = _tl_pair(m00, m10)
-            md1, d01, d11 = _tl_pair(m01, m11)
-            _, h0, h1 = _tl_pair(md0, md1)
-            poff = (b.to(tl.int64) * npool + pv)[:, None] * C + cs[None, :]
-            gq = tl.load(gq_ptr + poff, mask=mask, other=0.0).to(tl.float32)
-            q00 = gq * d00 * h0
-            q01 = gq * d01 * h1
-            q10 = gq * d10 * h0
-            q11 = gq * d11 * h1
-            p1, p2, p3 = _tl_child_dt(gp_ptr, dt_ptr, o000, mask, y000, r000, t000, q00 * w000, slope)
-            s1, s2_, s3 = _tl_child_dt(gp_ptr, dt_ptr, o001, mask, y001, r001, t001, q00 * w001, slope)
-            p1, p2, p3 = p1 + s1, p2 + s2_, p3 + s3
-            s1, s2_, s3 = _tl_child_dt(gp_ptr, dt_ptr, o010, mask, y010, r010, t010, q01 * w010, slope)
-            p1, p2, p3 = p1 + s1, p2 + s2_, p3 + s3
-            s1, s2_, s3 = _tl_child_dt(gp_ptr, dt_ptr, o011, mask, y011, r011, t011, q01 * w011, slope)
-            p1, p2, p3 = p1 + s1, p2 + s2_, p3 + s3
-            s1, s2_, s3 = _tl_child_dt(gp_ptr, dt_ptr, o100, mask, y100, r100, t100, q10 * w100, slope)
-            p1, p2, p3 = p1 + s1, p2 + s2_, p3 + s3
-            s1, s2_, s3 = _tl_child_dt(gp_ptr, dt_ptr, o101, mask, y101, r101, t101, q10 * w101, slope)
-            p1, p2, p3 = p1 + s1, p2 + s2_, p3 + s3
-            s1, s2_, s3 = _tl_child_dt(gp_ptr, dt_ptr, o110, mask, y110, r110, t110, q11 * w110, slope)
-            p1, p2, p3 = p1 + s1, p2 + s2_, p3 + s3
-            s1, s2_, s3 = _tl_child_dt(gp_ptr, dt_ptr, o111, mask, y111, r111, t111, q11 * w111, slope)
-            p1, p2, p3 = p1 + s1, p2 + s2_, p3 + s3
-        elif POOL:
-            hp = H // 2
-            wp = W // 2
-            npool = (D // 2) * hp * wp
-            pv = pid * BLOCK_V + tl.arange(0, BLOCK_V)
-            vmask = pv < npool
-            pz = pv // (hp * wp)
-            py = (pv // wp) % hp
-            px = pv % wp
-            k = tl.arange(0, 8)
-            z = 2 * pz[:, None] + (k // 4)[None, :]
-            y = 2 * py[:, None] + ((k // 2) % 2)[None, :]
-            x = 2 * px[:, None] + (k % 2)[None, :]
-            vox = ((b * D + z).to(tl.int64) * H + y) * W + x      # [V, 8]
-            off = vox[:, :, None] * C + cs[None, None, :]         # [V, 8, C]
-            mask = vmask[:, None, None] & cmask[None, None, :]
-            yv = tl.load(ys_ptr + off, mask=mask, other=0.0).to(tl.float32)
-            rv = tl.load(rs_ptr + off, mask=mask, other=0.0).to(tl.float32)
-            t = (yv * s2[None, None, :] + b2[None, None, :]) + \
-                (rv * sr[None, None, :] + br[None, None, :])
-            f = tl.where(t >= 0, t, slope * t)
-            fb = f.to(dt_ptr.dtype.element_ty).to(tl.float32)
-            m = tl.max(fb, axis=1)
-            eq = fb == m[:, None, :]
-            cnt = tl.sum(eq.to(tl.float32), axis=1)
-            poff = (b.to(tl.int64) * npool + pv)[:, None] * C + cs[None, :]
-            pmask = vmask[:, None] & cmask[None, :]
-            gq = tl.load(gq_ptr + poff, mask=pmask, other=0.0).to(tl.float32)
-            share = gq / tl.maximum(cnt, 1.0)
-            g = tl.load(gp_ptr + off, mask=mask, other=0.0).to(tl.float32)
-            g = g + tl.where(eq, share[:, None, :], 0.0)
-            dt = g * tl.where(t >= 0, 1.0, slope)
-            dt = tl.where(mask, dt, 0.0)
-            tl.store(dt_ptr + off, dt.to(dt_ptr.dtype.element_ty), mask=mask)
-            p1 = tl.sum(tl.sum(dt * yv, axis=1), axis=0)
-            p2 = tl.sum(tl.sum(dt, axis=1), axis=0)
-            p3 = tl.sum(tl.sum(dt * rv, axis=1), axis=0)
-        else:
-            nvox = D * H * W
-            v = pid * BLOCK_V + tl.arange(0, BLOCK_V)
-            vmask = v < nvox
-            mask = vmask[:, None] & cmask[None, :]
-            off = (b.to(tl.int64) * nvox + v)[:, None] * C + cs[None, :]
-            yv = tl.load(ys_ptr + off, mask=mask, other=0.0).to(tl.float32)
-            rv = tl.load(rs_ptr + off, mask=mask, other=0.0).to(tl.float32)
-            t = (yv * s2[None, :] + b2[None, :]) + (rv * sr[None, :] + br[None, :])
-            g = tl.load(gp_ptr + off, mask=mask, other=0.0).to(tl.float32)
-            dt = g * tl.where(t >= 0, 1.0, slope)
-            dt = tl.where(mask, dt, 0.0)
-            tl.store(dt_ptr + off, dt.to(dt_ptr.dtype.element_ty), mask=mask)
-            p1 = tl.sum(dt * yv, axis=0)
-            p2 = tl.sum(dt, axis=0)
-            p3 = tl.sum(dt * rv, axis=0)
-        # this program's partial sums, at its slot
-        row = (pid * tl.num_programs(1) + b) * C
-        tl.store(a1_ptr + row + cs, p1, mask=cmask)
-        tl.store(a2_ptr + row + cs, p2, mask=cmask)
-        tl.store(a3_ptr + row + cs, p3, mask=cmask)
+def plan_for(b: int, d: int, h: int, w: int, c: int, mode: str, vec: int,
+             blocks: Optional[int] = None) -> FinaleBwdPlan:
+    """The plan with `vec` channels a thread and `blocks` blocks a batch
+    item: by default enough to fill the SMS SMs with the blocks of 256
+    threads vec's instance holds, but no more than let each block walk
+    MIN_WALK tiles (at 4 x 8^3-16^3 on an H100 blocks of one tile were the
+    slowest of every block count tried, PERF.md). Raises ValueError on
+    what the kernel does not take."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if vec not in BUILT or c % vec:
+        raise ValueError(f"vec {vec} does not divide C {c}")
+    pooled = mode != "none"
+    if pooled and vec != 1:
+        raise ValueError(f"the pool takes one channel a thread, not {vec}")
+    if pooled and (d % 2 or h % 2 or w % 2):
+        raise ValueError(f"the pool needs an even grid, got {(d, h, w)}")
+    bound, min_blocks = BUILT[vec]
+    groups = c // vec
+    if groups > bound:
+        raise ValueError(f"C {c} at vec {vec} needs {groups} threads a "
+                         f"block, more than {bound}")
+    threads = groups
+    while threads * 2 <= 256:
+        threads *= 2
+    per_thread = 1 if pooled else 2
+    units = (d * h * w // 8 if pooled else d * h * w) * groups
+    tiles = max(1, math.ceil(units / (threads * per_thread)))
+    if blocks is None:
+        blocks = min(math.ceil(SMS * bound * min_blocks / threads / b),
+                     tiles // MIN_WALK)
+    blocks = max(1, min(blocks, tiles))
+    return FinaleBwdPlan(
+        mode=mode, vec=vec, groups=groups, threads=threads,
+        per_thread=per_thread, units=units, tiles=tiles,
+        tiles_per_block=math.ceil(tiles / blocks), grid=(blocks, b),
+        rows=blocks * b, smem=4 * (4 * c + 3 * vec * threads))
 
-    _KERNEL = finale_bwd_kernel
-    return _KERNEL
+
+@functools.lru_cache(maxsize=None)
+def finale_bwd_plan(b: int, d: int, h: int, w: int, c: int, mode: str,
+                    aligned: bool = True) -> FinaleBwdPlan:
+    """K2's decomposition for a (b, d, h, w, c) call in `mode` (`none`,
+    `even`, `chain`): without the pool, 8 channels a thread (16-byte
+    accesses) where C % 8 == 0, the tensors are 16-byte aligned and that
+    plan's blocks fill the SMS SMs; otherwise one channel a thread. The
+    pool: a pooled voxel's eight children of 8 channels hold too many
+    registers (the header of csrc/finale_bwd.cu). A small call (16^3 and
+    less in the train step): one channel a thread gives eight times the
+    blocks (on an H100 at 4x4^3x512 0.0053-0.0058 against 0.0083 ms, at
+    4x8^3x128 0.0066-0.0073 against 0.0086-0.0105, PERF.md)."""
+    if mode == "none" and c % 8 == 0 and aligned:
+        plan = plan_for(b, d, h, w, c, mode, 8)
+        if plan.rows >= SMS or c > BUILT[1][0]:
+            return plan
+    return plan_for(b, d, h, w, c, mode, 1)
+
+
+_FN = None
+
+
+def _fn():
+    global _FN
+    if _FN is None:
+        fn = _build.load("finale_bwd").fcd_finale_bwd
+        vp, ci, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        fn.argtypes = ([vp] * 8 + [i64] * 4 + [vp] * 4 + [ci] * 12
+                       + [ctypes.c_float, vp])
+        fn.restype = ci
+        _FN = fn
+    return _FN
 
 
 def finale_bwd(ys: torch.Tensor, rs: torch.Tensor, s2: torch.Tensor,
                b2: torch.Tensor, sr: torch.Tensor, br: torch.Tensor,
                gp: torch.Tensor, gq: Optional[torch.Tensor], slope: float,
-               tie: str = "even"):
-    """K2 wrapper. ys, rs, gp: (B, D, H, W, C); affines (B, C) f32; gq:
-    (B, D/2, H/2, W/2, C) or None; tie: how tied maxima share gq, `even`
-    or `chain`. Returns (dt, a1, a2, a3)."""
+               tie: str = "even", plan: Optional[FinaleBwdPlan] = None):
+    """K2 wrapper. ys, rs, gp: (B, D, H, W, C); affines (B, C) f32 (a
+    batch stride of 0 is taken as it is); gq: (B, D/2, H/2, W/2, C) or
+    None; tie: how tied maxima share gq, `even` or `chain`; plan: another
+    decomposition (`plan_for`), for the sweep. Returns (d_ys, d_rs, a1,
+    a2, a3)."""
     if tie not in TIES:
         raise ValueError(f"tie must be one of {TIES}, got {tie!r}")
     if ys.dim() != 5 or rs.shape != ys.shape or gp.shape != ys.shape:
@@ -300,7 +246,7 @@ def finale_bwd(ys: torch.Tensor, rs: torch.Tensor, s2: torch.Tensor,
             b, d // 2, h // 2, w // 2, c)):
         raise ValueError(f"gq {tuple(gq.shape)} does not fit {tuple(ys.shape)}")
     if ys.device.type == "cpu":
-        return finale_bwd_plain(ys, rs, s2, b2, sr, br, gp, gq, slope, tie)
+        return finale_grads_plain(ys, rs, s2, b2, sr, br, gp, gq, slope, tie)
     if ys.device.type != "cuda":
         raise ValueError(f"finale_bwd: unsupported device {ys.device}")
     ts = (ys, rs, gp) + (() if gq is None else (gq,))
@@ -308,27 +254,31 @@ def finale_bwd(ys: torch.Tensor, rs: torch.Tensor, s2: torch.Tensor,
         raise TypeError("finale_bwd kernel takes bf16 ys, rs, gp and gq")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("finale_bwd kernel takes contiguous tensors")
-    aff = [t.to(device=ys.device, dtype=torch.float32).contiguous()
-           for t in (s2, b2, sr, br)]
-    dt = torch.empty_like(ys)
-    pool = gq is not None
-    chain = pool and tie == "chain"
-    block_c = 1 << max(0, (c - 1).bit_length())
-    # ~4096 elements per block: [V, 8, C] with the pool, [V, C] without;
-    # the chain's eight live [V, C] children take ~2048
-    block_v = max(1, (256 if chain else 512 if pool else 4096) // block_c)
-    n = (d // 2) * (h // 2) * (w // 2) if pool else d * h * w
-    grid = ((n + block_v - 1) // block_v, b)
-    # per-program partial sums, added over the programs in a fixed order
-    part = torch.empty((3, grid[0], b, c), dtype=torch.float32,
+    aff = []
+    for t in (s2, b2, sr, br):
+        t = t.to(device=ys.device, dtype=torch.float32)
+        aff.append(t if t.stride(1) == 1 else t.contiguous())
+    mode = "none" if gq is None else tie
+    d_ys, d_rs = torch.empty_like(ys), torch.empty_like(rs)
+    aligned = all(t.data_ptr() % 16 == 0 for t in ts + (d_ys, d_rs))
+    if plan is None:
+        plan = finale_bwd_plan(b, d, h, w, c, mode, aligned)
+    elif plan != plan_for(b, d, h, w, c, mode, plan.vec, plan.grid[0]):
+        raise ValueError(f"plan {plan} does not fit {tuple(ys.shape)} {mode}")
+    if plan.vec == 8 and not aligned:
+        raise ValueError("8 channels a thread need 16-byte aligned tensors")
+    part = torch.empty((plan.rows, 3, c), dtype=torch.float32,
                        device=ys.device)
-    _kernel()[grid](ys, rs, *aff, gp, gq if pool else gp, dt,
-                    part[0], part[1], part[2], d, h, w, c, float(slope),
-                    POOL=pool, CHAIN=chain, BLOCK_V=block_v,
-                    BLOCK_C=block_c, num_warps=4)
+    out = torch.empty((3, b, c), dtype=torch.float32, device=ys.device)
+    err = _fn()(
+        *(_build.ptr(t) for t in (ys, rs, gp, gq, *aff)),
+        *(t.stride(0) for t in aff),
+        *(_build.ptr(t) for t in (d_ys, d_rs, part, out)),
+        b, d, h, w, c, MODES.index(mode), plan.vec, plan.threads, plan.units,
+        plan.tiles, plan.grid[0], plan.smem, float(slope), _build.stream())
+    _build.check(err, "finale_bwd")
     finale_bwd.launches += 1
-    sums = part.sum(1)
-    return dt, sums[0], sums[1], sums[2]
+    return d_ys, d_rs, out[0], out[1], out[2]
 
 
 finale_bwd.launches = 0
@@ -350,11 +300,8 @@ class Finale(torch.autograd.Function):
         ys, rs, s2, b2, sr, br = ctx.saved_tensors
         gp = gp.to(ys.dtype).contiguous()
         gq = None if gq is None else gq.to(ys.dtype).contiguous()
-        dt, a1, a2, a3 = finale_bwd(ys, rs, s2, b2, sr, br, gp, gq, ctx.slope,
-                                    ctx.tie)
-        dtf = dt.float()
-        d_ys = (dtf * s2.float()[:, None, None, None, :]).to(ys.dtype)
-        d_rs = (dtf * sr.float()[:, None, None, None, :]).to(rs.dtype)
+        d_ys, d_rs, a1, a2, a3 = finale_bwd(ys, rs, s2, b2, sr, br, gp, gq,
+                                            ctx.slope, ctx.tie)
         return (d_ys, d_rs, a1.to(s2.dtype), a2.to(b2.dtype),
                 a3.to(sr.dtype), a2.to(br.dtype), None, None, None)
 

@@ -16,9 +16,10 @@ pass (ROADMAP ground rules):
 The CUDA kernels are `fcd_tpu_torch/csrc/sw_io.cu`, bound by the bytes
 they move (its header). Each is bit-equal to its plain version: the entry
 copies and rounds to nearest even as `Tensor.to` does, the exit is one f32
-multiply per element. The exit walks the crop in units of G voxels, one
-float2 or float4 access each; `exit_group` picks G (pure Python, held by
-the CPU tests).
+multiply per element. The entry walks the padded volume in units of G
+elements, the exit the crop in units of G voxels, one vector access each;
+`entry_group` and `exit_group` pick G (pure Python, held by the CPU
+tests).
 
 CPU tensors take the plain PyTorch versions; CUDA tensors launch the
 kernels or raise.
@@ -73,6 +74,20 @@ def _fn(name: str, nptr: int, nint: int):
     return fn
 
 
+def entry_group(c: int, w: int, pw: int, bw: int, aligned: bool = True) -> int:
+    """Elements per unit of the entry kernel's walk: 4 (a float4 read, an
+    8-byte bf16 store) where the input row W C, the output row PW C and the
+    lead pad bw C are multiples of 4, else 2 where they are even, else 1
+    (the general path), so that every access is aligned and a unit lies
+    wholly in the volume or wholly in the pad. 1 for tensors not 16-byte
+    aligned. c: channels; w: the volume's width; pw: the padded width; bw:
+    the pad before x."""
+    if not aligned:
+        return 1
+    return next(g for g in (4, 2, 1)
+                if (w * c) % g == 0 and (pw * c) % g == 0 and (bw * c) % g == 0)
+
+
 def sw_entry(vol: torch.Tensor, roi: Sequence[int],
              dtype: torch.dtype) -> torch.Tensor:
     """B17 wrapper. vol: (D, H, W, C) f32; roi: (rd, rh, rw); dtype:
@@ -93,9 +108,13 @@ def sw_entry(vol: torch.Tensor, roi: Sequence[int],
     pads = entry_pad((d, h, w), roi)
     pd, ph, pw = (s + a + b for s, (a, b) in zip((d, h, w), pads))
     out = torch.empty((pd, ph, pw, c), dtype=dtype, device=vol.device)
-    err = _fn("fcd_sw_entry", 2, 11)(
+    aligned = vol.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    g = entry_group(c, w, pw, pads[2][0], aligned)
+    if pd * ph * pw * c // g >= 2 ** 32:
+        raise ValueError("sw_entry kernel walks its units in 32 bits")
+    err = _fn("fcd_sw_entry", 2, 12)(
         _build.ptr(vol), _build.ptr(out), int(dtype == torch.bfloat16),
-        d, h, w, c, pd, ph, pw, pads[0][0], pads[1][0], pads[2][0],
+        d, h, w, c, pd, ph, pw, pads[0][0], pads[1][0], pads[2][0], g,
         _build.stream())
     _build.check(err, "sw_entry")
     sw_entry.launches += 1

@@ -40,6 +40,30 @@ def _randn(gen, dev, *shape, scale=1.0, dtype=torch.float32):
     return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
 
+def _device_op_names(call, tries=5):
+    """The device ops one call launches, in launch order (torch.profiler),
+    after a warm-up call. On the card the profiler sometimes records no
+    event, or drops some: the trace is taken until two in a row agree, up
+    to `tries` times."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    call()
+    torch.cuda.synchronize()
+    last = None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        names = [e.name for e in sorted(
+            (e for e in prof.events() if e.device_type == DeviceType.CUDA),
+            key=lambda e: e.time_range.start)]
+        if names and names == last:
+            return names
+        last = names
+    raise AssertionError(f"no two traces in {tries} agree: the last {last}")
+
+
 @pytest.mark.parametrize("parts_c,cout,mode,grid", [
     ((16,), 16, "prologue", (2, 6, 10, 7)),
     ((2,), 16, "shortcut", (2, 6, 10, 7)),
@@ -158,20 +182,13 @@ def test_upsample_kernel_every_tile(dev, tile):
 def test_upsample_is_one_device_launch(dev):
     """The model's call (f32 kernel, no bias): one kernel on the card, no
     cast, flip or copy beside it."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from fcd_tpu_torch.kernels.upsample import upsample2x
 
     x, k, _ = _upsample_inputs(dev, 1, 32, 16, False, "f32", grid=(8, 8, 8))
-    upsample2x(x, k)
-    torch.cuda.synchronize()
-    before = upsample2x.launches
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        upsample2x(x, k)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = _device_op_names(lambda: upsample2x(x, k))
     assert len(names) == 1 and "upsample_kernel" in names[0], names
+    before = upsample2x.launches
+    upsample2x(x, k)
     assert upsample2x.launches == before + 1
 
 
@@ -227,21 +244,13 @@ def test_dsa_kernels_match_plain(dev, n, c, p, wdtype):
 def test_dsa_attention_is_three_device_launches(dev):
     """One dsa_attention call on the card: phase A, its finishing pass and
     phase B, and no other device op (no cast, copy or sum)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from fcd_tpu_torch.kernels import dsa_attention as dk
 
     gen = torch.Generator(device=dev).manual_seed(4)
     a = _dsa_inputs(gen, dev, 4096, 64, 64, 4)
     args = (a["x"], a["w"], a["ef"], a["t1"], a["t2"], a["lns"], a["lnb"],
             a["pe"], a["gamma"], 4)
-    dk.dsa_attention(*args)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        dk.dsa_attention(*args)
-        torch.cuda.synchronize()
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    names = _device_op_names(lambda: dk.dsa_attention(*args))
     assert len(names) == 3, names
     for want, got in zip(("dsa_phase_a_kernel", "dsa_phase_a_finish",
                           "dsa_phase_b_kernel"), names):
@@ -321,9 +330,9 @@ def test_conv3d_wgrad_kernel_matches_plain(dev, shape, ci, co, pro):
                                     "spatial_attn_bwd_level6",
                                     "spatial_attn_bwd_level4"])
 def test_backward_sums_are_reproducible(dev, kernel):
-    """K2's per-channel sums and K4's dkpb and dvpb (and, split by head,
-    dqn) are added over the programs / token chunks in a fixed order: two
-    launches on the same inputs give the same bits."""
+    """K2's per-channel sums (its blocks' partial rows) and K4's dkpb and
+    dvpb (and, split by head, dqn) are added over the blocks / token chunks
+    in a fixed order: two launches on the same inputs give the same bits."""
     from fcd_tpu_torch.kernels import spatial_attn as sa
     from fcd_tpu_torch.kernels.finale import finale_bwd
 
@@ -354,52 +363,197 @@ def test_backward_sums_are_reproducible(dev, kernel):
         assert torch.equal(a, b)
 
 
+# the 16-byte path (C % 8 == 0) and the general path (12)
+FINALE_WIDTHS = [8, 12, 16, 24, 40, 64, 256, 512]
+
+
+def _finale_inputs(gen, dev, c, inputs, pool, shape=(2, 6, 8, 10)):
+    """`tied`: small integers through dyadic affines, exact in f32, so the
+    pool's blocks hold exact ties; `random`: normal activations and random
+    non-dyadic affines, whose preactivation rounds."""
+    bf = torch.bfloat16
+    b = shape[0]
+    if inputs == "tied":
+        ys = torch.randint(-2, 3, (*shape, c), generator=gen,
+                           device=dev).to(bf)
+        rs = torch.randint(-1, 2, (*shape, c), generator=gen,
+                           device=dev).to(bf)
+        aff = [torch.full((b, c), 0.5, device=dev),
+               torch.randint(-8, 9, (b, c), generator=gen, device=dev) / 8.0,
+               torch.ones(b, c, device=dev), torch.zeros(b, c, device=dev)]
+    else:
+        ys = _randn(gen, dev, *shape, c, dtype=bf)
+        rs = _randn(gen, dev, *shape, c, dtype=bf)
+        aff = [torch.rand(b, c, generator=gen, device=dev) + 0.5,
+               _randn(gen, dev, b, c, scale=0.1),
+               torch.rand(b, c, generator=gen, device=dev) + 0.5,
+               _randn(gen, dev, b, c, scale=0.1)]
+    gp = _randn(gen, dev, *shape, c, dtype=bf)
+    gq = (_randn(gen, dev, b, *(v // 2 for v in shape[1:]), c, dtype=bf)
+          if pool else None)
+    return ys, rs, aff, gp, gq
+
+
+@pytest.mark.parametrize("inputs", ["tied", "random"])
+@pytest.mark.parametrize("c", FINALE_WIDTHS)
 @pytest.mark.parametrize("pool", [False, True])
-def test_finale_bwd_kernel_matches_plain(dev, pool):
-    """Inputs on a coarse bf16 grid, so the pool has exact ties."""
-    from fcd_tpu_torch.kernels.finale import finale_bwd, finale_bwd_plain
+def test_finale_bwd_kernel_matches_plain(dev, pool, c, inputs):
+    """d_ys and d_rs bit-equal to the plain version's (t without
+    contraction, the same roundings); the sums within 1e-3 of their max."""
+    from fcd_tpu_torch.kernels.finale import (
+        finale_bwd,
+        finale_grads_plain,
+        plan_for,
+    )
 
     gen = torch.Generator(device=dev).manual_seed(5)
-    bf = torch.bfloat16
-    ys = torch.randint(-2, 3, (2, 6, 8, 10, 24), generator=gen,
-                       device=dev).to(bf)
-    rs = _randn(gen, dev, 2, 6, 8, 10, 24, dtype=bf)
-    aff = [torch.ones(2, 24, device=dev), _randn(gen, dev, 2, 24),
-           torch.zeros(2, 24, device=dev), torch.zeros(2, 24, device=dev)]
-    gp = _randn(gen, dev, 2, 6, 8, 10, 24, dtype=bf)
-    gq = _randn(gen, dev, 2, 3, 4, 5, 24, dtype=bf) if pool else None
+    ys, rs, aff, gp, gq = _finale_inputs(gen, dev, c, inputs, pool)
+    before = finale_bwd.launches
     got = finale_bwd(ys, rs, *aff, gp, gq, 0.01)
-    want = finale_bwd_plain(ys, rs, *aff, gp, gq, 0.01)
-    assert got[0].dtype == bf
-    for g_, w_ in zip(got, want):
-        assert _rel(g_, w_) < 1e-2
+    want = finale_grads_plain(ys, rs, *aff, gp, gq, 0.01)
+    torch.cuda.synchronize()
+    assert finale_bwd.launches == before + 1
+    for g_, w_ in zip(got[:2], want[:2]):
+        assert g_.dtype == torch.bfloat16 and torch.equal(g_, w_)
+    for g_, w_ in zip(got[2:], want[2:]):
+        assert g_.dtype == torch.float32 and _rel(g_, w_) < 1e-3
+    if not pool and c % 8 == 0:
+        # the 16-byte path too: so small a call takes one channel a thread
+        plan = plan_for(*ys.shape, "none", 8)
+        got = finale_bwd(ys, rs, *aff, gp, gq, 0.01, plan=plan)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        for g_, w_ in zip(got[2:], want[2:]):
+            assert _rel(g_, w_) < 1e-3
 
 
-def test_finale_bwd_chain_kernel_matches_plain(dev):
-    """K2's `chain` tie split (levels 3-5) on tied inputs: small integers
-    with dyadic affines, exact in f32 whether or not a multiply-add is
-    contracted, so kernel and plain version see the same ties."""
-    from fcd_tpu_torch.kernels.finale import finale_bwd, finale_bwd_plain
+@pytest.mark.parametrize("inputs", ["tied", "random"])
+@pytest.mark.parametrize("c", FINALE_WIDTHS)
+def test_finale_bwd_chain_kernel_matches_plain(dev, c, inputs):
+    """K2's `chain` tie split (levels 3-5): d_ys and d_rs bit-equal to the
+    plain version's; on the tied inputs the sums to 1e-5 (they differ only
+    in summation order) and the chain split differs from the even one."""
+    from fcd_tpu_torch.kernels.finale import finale_bwd, finale_grads_plain
 
     gen = torch.Generator(device=dev).manual_seed(6)
-    bf = torch.bfloat16
-    ys = torch.randint(-2, 3, (2, 6, 8, 10, 40), generator=gen,
-                       device=dev).to(bf)
-    rs = torch.randint(-1, 2, (2, 6, 8, 10, 40), generator=gen,
-                       device=dev).to(bf)
-    aff = [torch.full((2, 40), 0.5, device=dev),
-           torch.randint(-8, 9, (2, 40), generator=gen, device=dev) / 8.0,
-           torch.ones(2, 40, device=dev), torch.zeros(2, 40, device=dev)]
-    gp = _randn(gen, dev, 2, 6, 8, 10, 40, dtype=bf)
-    gq = _randn(gen, dev, 2, 3, 4, 5, 40, dtype=bf)
+    ys, rs, aff, gp, gq = _finale_inputs(gen, dev, c, inputs, True)
     got = finale_bwd(ys, rs, *aff, gp, gq, 0.01, tie="chain")
-    want = finale_bwd_plain(ys, rs, *aff, gp, gq, 0.01, tie="chain")
-    even = finale_bwd_plain(ys, rs, *aff, gp, gq, 0.01, tie="even")
+    want = finale_grads_plain(ys, rs, *aff, gp, gq, 0.01, tie="chain")
     torch.cuda.synchronize()
-    assert torch.equal(got[0], want[0])
-    for g_, w_ in zip(got[1:], want[1:]):
-        assert _rel(g_, w_) < 1e-5
-    assert not torch.equal(want[0], even[0])
+    for g_, w_ in zip(got[:2], want[:2]):
+        assert torch.equal(g_, w_)
+    for g_, w_ in zip(got[2:], want[2:]):
+        assert _rel(g_, w_) < (1e-5 if inputs == "tied" else 1e-3)
+    if inputs == "tied":
+        even = finale_grads_plain(ys, rs, *aff, gp, gq, 0.01, tie="even")
+        assert not torch.equal(want[0], even[0])
+
+
+@pytest.mark.parametrize("mode,vec", [("none", 8), ("none", 1),
+                                      ("even", 1), ("chain", 1)])
+def test_finale_bwd_every_instance_matches_plain(dev, mode, vec):
+    """Each instance of the kernel in each mode it is built for, not only
+    the plan's choice, with blocks that walk several tiles."""
+    from fcd_tpu_torch.kernels import finale as k2
+
+    gen = torch.Generator(device=dev).manual_seed(16)
+    ys, rs, aff, gp, gq = _finale_inputs(gen, dev, 24, "random",
+                                         mode != "none", (2, 16, 16, 16))
+    tie = "even" if mode == "none" else mode
+    plan = k2.plan_for(2, 16, 16, 16, 24, mode, vec, 2)
+    assert plan.tiles_per_block > 1
+    got = k2.finale_bwd(ys, rs, *aff, gp, gq, 0.01, tie, plan=plan)
+    want = k2.finale_grads_plain(ys, rs, *aff, gp, gq, 0.01, tie)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g_, w_ in zip(got[2:], want[2:]):
+        assert _rel(g_, w_) < 1e-3
+
+
+def test_finale_bwd_refuses_a_plan_that_does_not_fit(dev):
+    """A plan for another grid, or 8 channels a thread on tensors that are
+    not 16-byte aligned, raises instead of reading past the tensors."""
+    from fcd_tpu_torch.kernels import finale as k2
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    ys, rs, aff, gp, _ = _finale_inputs(gen, dev, 24, "random", False,
+                                        (2, 16, 16, 16))
+    with pytest.raises(ValueError, match="does not fit"):
+        k2.finale_bwd(ys, rs, *aff, gp, None, 0.01,
+                      plan=k2.plan_for(2, 32, 16, 16, 24, "none", 8))
+    with pytest.raises(ValueError, match="does not fit"):
+        k2.finale_bwd(ys, rs, *aff, gp, None, 0.01,
+                      plan=k2.plan_for(2, 16, 16, 16, 24, "none", 8)._replace(
+                          tiles=1))
+
+    def shifted(t):   # the same values 2 bytes past a 16-byte boundary
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        out = out[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    plan = k2.plan_for(2, 16, 16, 16, 24, "none", 8)
+    with pytest.raises(ValueError, match="aligned"):
+        k2.finale_bwd(shifted(ys), rs, *aff, gp, None, 0.01, plan=plan)
+    # without a plan it takes one channel a thread, and the same bits
+    got = k2.finale_bwd(shifted(ys), rs, *aff, gp, None, 0.01)
+    want = k2.finale_grads_plain(ys, rs, *aff, gp, None, 0.01)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_finale_bwd_takes_expanded_affines(dev):
+    """A batch norm's (C,) affines expanded over the batch (stride 0) are
+    read as they are."""
+    from fcd_tpu_torch.kernels.finale import finale_bwd, finale_grads_plain
+
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ys, rs, aff, gp, gq = _finale_inputs(gen, dev, 24, "random", True)
+    aff = [a[:1].expand(2, -1) for a in aff[:2]] + aff[2:]
+    got = finale_bwd(ys, rs, *aff, gp, gq, 0.01)
+    want = finale_grads_plain(ys, rs, *aff, gp, gq, 0.01)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g_, w_ in zip(got[2:], want[2:]):
+        assert _rel(g_, w_) < 1e-3
+
+
+@pytest.mark.parametrize("block", ["instance, shortcut, pool",
+                                   "transformer's batch norm, identity"])
+def test_finale_backward_launches_only_k2(dev, block, monkeypatch):
+    """One Finale.backward, as a block's backward calls it (the cotangents
+    and the saved affines the graph gives it), launches K2's two kernels
+    and no other device op: no cast, copy or sum."""
+    import types
+
+    from fcd_tpu_torch.kernels import finale
+    from fcd_tpu_torch.ops.blocks import UnetResBlock
+
+    gen = torch.Generator(device=dev).manual_seed(15)
+    if block.startswith("instance"):
+        blk, pool, cin, c = UnetResBlock(8, 16, "instance"), True, 8, 16
+    else:
+        blk, pool, cin, c = UnetResBlock(32, 32, "batch"), False, 32, 32
+    blk.reset_parameters(torch.Generator().manual_seed(3))
+    blk = blk.to(dev).train()
+    x = _randn(gen, dev, 2, 8, 8, 8, cin, dtype=torch.bfloat16)
+    calls, orig = [], finale.Finale.backward
+
+    def recorded(ctx, *grads):
+        calls.append((types.SimpleNamespace(
+            saved_tensors=ctx.saved_tensors, slope=ctx.slope, pool=ctx.pool,
+            tie=ctx.tie), grads))
+        return orig(ctx, *grads)
+
+    monkeypatch.setattr(finale.Finale, "backward", staticmethod(recorded))
+    out = blk([x], pool=pool)
+    outs = out if pool else (out,)
+    sum((o.float() * _randn(gen, dev, *o.shape)).sum() for o in outs).backward()
+    assert len(calls) == 1
+    ctx, grads = calls[0]
+    # the pooled output's cotangent where the block pools
+    assert len(grads) == (2 if pool else 1)
+
+    names = _device_op_names(lambda: orig(ctx, *grads))
+    assert len(names) == 2, names
+    assert "finale_bwd_kernel" in names[0] and "finale_bwd_finish" in names[1]
 
 
 def test_forward_sums_are_reproducible(dev):
@@ -434,7 +588,13 @@ def test_forward_sums_are_reproducible(dev):
 @pytest.mark.parametrize("shape,roi,dtype", [
     ((10, 16, 8, 2), (8, 16, 8), torch.bfloat16),
     ((10, 12, 7, 2), (16, 16, 8), torch.bfloat16),
-    ((9, 12, 7, 3), (16, 8, 8), torch.float32)])
+    ((9, 12, 7, 3), (16, 8, 8), torch.float32),
+    # aligned: a float4 a unit, pad on every side, both output types
+    ((12, 10, 8, 2), (16, 16, 16), torch.bfloat16),
+    ((12, 10, 8, 2), (16, 16, 16), torch.float32),
+    # an odd lead pad (bw = 1): a float2 a unit
+    ((10, 9, 5, 2), (12, 12, 8), torch.bfloat16),
+    ((10, 9, 5, 2), (12, 12, 8), torch.float32)])
 def test_sw_entry_kernel_matches_plain(dev, shape, roi, dtype):
     from fcd_tpu_torch.kernels.sw_io import sw_entry, sw_entry_plain
 
@@ -531,9 +691,6 @@ def test_spatial_attn_bwd_writes_the_asked_dtype(dev, n, c, h, p):
 def test_spatial_attn_launches_only_its_kernels(dev):
     """One K3 call is one device kernel; one K4 call is its product kernel
     and its finishing pass, with no other device op (no sum or cast)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from fcd_tpu_torch.kernels import spatial_attn as sa
 
     gen = torch.Generator(device=dev).manual_seed(14)
@@ -549,14 +706,7 @@ def test_spatial_attn_launches_only_its_kernels(dev):
                     qn, kpb, vpb, g, h, key, 0.1,
                     dtypes=(torch.bfloat16, torch.bfloat16)),
                  ["spatial_attn_bwd_kernel", "spatial_attn_bwd_finish"])):
-            call()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                call()
-                torch.cuda.synchronize()
-            names = [e.name for e in sorted(
-                (e for e in prof.events() if e.device_type == DeviceType.CUDA),
-                key=lambda e: e.time_range.start)]
+            names = _device_op_names(call)
             assert len(names) == len(want), (n, names)
             for w, got in zip(want, names):
                 assert w in got, (n, names)

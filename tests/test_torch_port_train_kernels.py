@@ -9,7 +9,9 @@ tests/test_spatial_attn.py run them).
   jax.vjp of conv3x3_s2d (B12 + B13); bf16 inputs on both sides, so the
   tolerance is rel-L2 2e-2 (bf16 rounding of the intermediates).
 * K2: finale_bwd_pallas with and without the pool cotangent, on bf16
-  inputs with exact ties; dt to one bf16 ulp, the sums to 1e-5.
+  inputs with exact ties, at the model's widths C 16, 32 and 64; dt to one
+  bf16 ulp, the sums to 1e-5, and the plain version's d_ys and d_rs equal
+  to the JAX dt rounded to bf16 and scaled (the scaling K2 folds in).
 * K3/K4: the Pallas kernels at rate 0 at the four DSA levels' (C, P)
   (rel 3e-2 of max, bf16); at rate 0.1 the plain backward equals autograd
   through the plain forward with the same hash key (f32, 1e-5) and keeps
@@ -38,7 +40,7 @@ from fcd_tpu.ops.s2d_ops import (
 )
 from fcd_tpu_torch.kernels import spatial_attn as sa
 from fcd_tpu_torch.kernels.block_conv import conv3x3_op
-from fcd_tpu_torch.kernels.finale import finale_bwd_plain
+from fcd_tpu_torch.kernels.finale import finale_bwd_plain, finale_grads_plain
 from fcd_tpu_torch.ops.layers import instance_affine_from_sums
 
 BF = torch.bfloat16
@@ -130,23 +132,24 @@ def test_conv_backward_matches_conv3x3_s2d_vjp():
 
 def _finale_inputs(seed, b=2, s=8, c=16):
     """ys on integers (exactly representable in bf16), rs scaled by 0 in
-    the affine and unit norm2: t = ys exactly, so 2x2x2 blocks hold exact
-    ties, 3+ of them as well."""
+    the affine and norm2 a scale of 2: t = 2 ys exactly, so 2x2x2 blocks
+    hold exact ties, 3+ of them as well."""
     rng = np.random.RandomState(seed)
     ys = rng.randint(-2, 3, size=(b, s, s, s, c)).astype(np.float32)
     rs = rng.normal(size=(b, s, s, s, c)).astype(np.float32)
     gp = rng.normal(size=(b, s, s, s, c)).astype(np.float32)
     gq = rng.normal(size=(b, s // 2, s // 2, s // 2, c)).astype(np.float32)
-    s2 = np.ones((b, c), np.float32)
+    s2 = np.full((b, c), 2.0, np.float32)
     b2 = np.zeros((b, c), np.float32)
     sr = np.zeros((b, c), np.float32)
     br = np.zeros((b, c), np.float32)
     return ys, rs, s2, b2, sr, br, gp, gq
 
 
+@pytest.mark.parametrize("c", [16, 32, 64])
 @pytest.mark.parametrize("with_pool", [False, True])
-def test_finale_bwd_matches_pallas(with_pool):
-    c, slope = 16, 0.01
+def test_finale_bwd_matches_pallas(with_pool, c):
+    slope = 0.01
     ys, rs, s2, b2, sr, br, gp, gq = _finale_inputs(3, c=c)
     bfj = jnp.bfloat16
 
@@ -160,12 +163,19 @@ def test_finale_bwd_matches_pallas(with_pool):
         s2d(ys), s2d(rs), tile(s2), tile(b2), tile(sr), tile(br), s2d(gp),
         jnp.asarray(gq).astype(bfj) if with_pool else None, c, slope,
         emit_pad=False, interpret=True)
-    got = finale_bwd_plain(_t(ys, BF), _t(rs, BF), _t(s2), _t(b2), _t(sr),
-                           _t(br), _t(gp, BF),
-                           _t(gq, BF) if with_pool else None, slope)
-    np.testing.assert_allclose(
-        got[0].float().numpy(),
-        np.asarray(from_s2d(dt_j, c), np.float32), rtol=2 ** -7, atol=1e-6)
+    args = (_t(ys, BF), _t(rs, BF), _t(s2), _t(b2), _t(sr), _t(br),
+            _t(gp, BF), _t(gq, BF) if with_pool else None, slope)
+    got = finale_bwd_plain(*args)
+    dt_jax = np.asarray(from_s2d(dt_j, c), np.float32)
+    np.testing.assert_allclose(got[0].float().numpy(), dt_jax, rtol=2 ** -7,
+                               atol=1e-6)
+    # what Finale.backward returns: the JAX dt, rounded, times each scale
+    d_ys, d_rs = finale_grads_plain(*args)[:2]
+    dt_b = torch.tensor(dt_jax).to(BF).float()
+    for mine, scale in ((d_ys, s2), (d_rs, sr)):
+        assert mine.dtype == BF
+        assert torch.equal(mine, (dt_b * _t(scale)[:, None, None, None, :])
+                           .to(BF))
     for mine, theirs in zip(got[1:], (a1_j, a2_j, a3_j)):
         want = np.asarray(theirs, np.float32).reshape(2, 8, c).sum(axis=1)
         np.testing.assert_allclose(mine.numpy(), want, rtol=1e-5, atol=1e-3)

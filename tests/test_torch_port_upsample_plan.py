@@ -16,13 +16,22 @@ plain PyTorch emulations of what the two CUDA kernels index, on the CPU.
 * The exit's unit width G, and an emulation of its grid-stride walk: every
   output element written once, every vector access aligned, the result
   bit-equal to `sw_exit_plain`.
+* The same for the entry (`entry_group`, the walk of `sw_entry_kernel`):
+  every padded element written once, every access aligned and wholly in
+  the volume or in the pad, bit-equal to `sw_entry_plain`.
 """
 
 import pytest
 import torch
 
 import chip_smoke
-from fcd_tpu_torch.kernels.sw_io import exit_group, sw_exit_plain
+from fcd_tpu_torch.kernels.sw_io import (
+    entry_group,
+    entry_pad,
+    exit_group,
+    sw_entry_plain,
+    sw_exit_plain,
+)
 from fcd_tpu_torch.kernels.upsample import (
     SMEM_CAP,
     SMS,
@@ -228,3 +237,61 @@ def test_emulated_exit_walk_equals_plain(o, start, size):
     got, written = emulate_exit(acc, inv, start, size, grp)
     assert torch.equal(written, torch.ones_like(written))
     assert torch.equal(got, sw_exit_plain(acc, inv, start, size))
+
+
+@pytest.mark.parametrize("c,w,pw,bw,aligned,want", [
+    (2, 240, 240, 0, True, 4),     # the CLI's entry: two voxels a float4
+    (2, 100, 128, 14, True, 4),    # even lead pad
+    (2, 125, 128, 1, True, 2),     # odd lead pad: one voxel a float2
+    (2, 7, 8, 0, True, 2),
+    (3, 7, 8, 0, True, 1),         # odd rows: the general path
+    (4, 7, 8, 0, True, 4),
+    (1, 8, 16, 4, True, 4),
+    (1, 8, 10, 1, True, 1),
+    (2, 240, 240, 0, False, 1)])   # unaligned tensors: the general path
+def test_entry_group(c, w, pw, bw, aligned, want):
+    assert entry_group(c, w, pw, bw, aligned) == want
+
+
+def emulate_entry(vol, roi, g):
+    """The kernel's walk: unit u covers G elements of the padded output,
+    read from the input row at its place minus the lead pad, or zeros."""
+    d, h, w, c = vol.shape
+    (bd, _), (bh, _), (bw, _) = entry_pad((d, h, w), roi)
+    pd, ph, pw = (max(s, r) for s, r in zip((d, h, w), roi))
+    row_units, wc_units, lead = pw * c // g, w * c // g, bw * c // g
+    u = torch.arange(pd * ph * pw * c // g)
+    r = u // row_units
+    k = u - r * row_units - lead
+    z, y = r // ph, r % ph
+    sz, sy = z - bd, y - bh
+    inside = (sz >= 0) & (sz < d) & (sy >= 0) & (sy < h) & (k >= 0) & (
+        k < wc_units)
+    src = ((sz * h + sy) * wc_units + k) * g
+    # every read starts at a multiple of its width, every unit lies wholly
+    # in the volume or in the pad
+    assert bool((src[inside] % g == 0).all())
+    j = torch.arange(g)
+    dst = (u[:, None] * g + j).flatten()
+    out = torch.zeros(pd * ph * pw * c)
+    flat = vol.flatten()
+    srcs = (src[:, None] + j).flatten()
+    keep = inside[:, None].expand(-1, g).flatten()
+    out[dst[keep]] = flat[srcs[keep]]
+    written = torch.bincount(dst, minlength=out.numel())
+    return out.reshape(pd, ph, pw, c), written
+
+
+@pytest.mark.parametrize("shape,roi", [((10, 16, 8, 2), (8, 16, 8)),
+                                       ((10, 12, 7, 2), (16, 16, 8)),
+                                       ((9, 12, 7, 3), (16, 8, 8)),
+                                       ((12, 10, 8, 2), (16, 16, 16)),
+                                       ((10, 9, 5, 2), (12, 12, 8))])
+def test_emulated_entry_walk_equals_plain(shape, roi):
+    vol = torch.randn(shape, generator=torch.Generator().manual_seed(3))
+    pads = entry_pad(shape[:3], roi)
+    pw = shape[2] + sum(pads[2])
+    g = entry_group(shape[3], shape[2], pw, pads[2][0])
+    got, written = emulate_entry(vol, roi, g)
+    assert torch.equal(written, torch.ones_like(written))
+    assert torch.equal(got, sw_entry_plain(vol, roi, torch.float32))
