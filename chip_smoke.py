@@ -31,7 +31,9 @@ Run from the repository root:
    main-path call launches, and one dsa_attention call must launch exactly
    its three kernels. K3 and K4 run at the same four levels at the train
    step's batch 4 with dropout 0.1, timed alike (SDPA and its backward
-   too); one K3 call must launch one kernel, one K4 call its two.
+   too); one K3 call must launch one kernel, one K4 call its two. B2 and
+   the gated paths' kernels (B3, B9, B15) are timed alike; B9 runs at the
+   gated train step's two calls, bit-equal, on tied and random inputs.
 3. Drives the inference path: ModelTrainer(default params, device="cuda")
    .inference on a seeded 182x218x182x2 volume (8 patches of 128^3, fs16
    MS_DSA_NET), with every launch counter set to 0 just before and read
@@ -45,7 +47,11 @@ Run from the repository root:
    step at batch 1 x 64^3 (full widths) held against the port's fp32 CPU
    step from the same weights; whether two such steps from one state give
    bit-equal parameters (reported); then a profile of one train step with
-   K1's, B4's, K3's, K4's and K2's shares of its device time.
+   K1's, B4's, K3's, K4's and K2's shares of its device time. Then the
+   source paper's total-variation regularised training (tv_loss_weight
+   0.1, as README's example, with the border band excluded) at 4x128^3,
+   its launch counts read as the default path's, and ms/step of the
+   default, the gated (below) and the TV path measured in turns.
 5. Drives the segmentation CLI: writes a seeded synthetic subject (T1,
    FLAIR and a lesion label, NIfTI, on a 176x240x256 grid at (1.0, 0.9375,
    0.9375) mm with an LAS affine) and the seeded fs16 model's weights as a
@@ -66,7 +72,10 @@ Run from the repository root:
    inference's logits against the default run's (the fused head rounds
    once). Each with its launch counts (B3, B9, B15), and ms/volume and
    ms/step timed in turns against the default path on the same card.
-   Later phases run the default gates.
+   The 1x64^3 check against the fp32 CPU step then runs three more times:
+   with the TV term, with GeneralizedDiceFocalLoss plus the boundary term,
+   and with gradient_accumulation_steps 2 over two micro-steps. Later
+   phases run the default gates.
 7. Prints the `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
@@ -77,6 +86,7 @@ checkout of the repository, it exits non-zero and prints no result.
     python3 chip_smoke.py --kernels dsa_phase_a,dsa_phase_b
     python3 chip_smoke.py --kernels spatial_attn_fwd,spatial_attn_bwd
     python3 chip_smoke.py --kernels finale_bwd,sw_entry
+    python3 chip_smoke.py --kernels max_pool2x_bwd
 
 builds the kernels and runs only the named kernels' phases (checks and
 times; no main path and no result line).
@@ -181,6 +191,21 @@ def device_times(fn, iters: int) -> dict:
     return out
 
 
+def time_on_device(ph, call, key: str, iters: int) -> None:
+    """ph.ms: the device time of all one call of `call` launches (whole
+    traces), ph.kernel_ms: that of the kernels named like `key`, ph.call_ms:
+    the wall per call. Fails where the card ran no such kernel."""
+    import torch
+
+    times = device_times(call, iters)
+    ph.ms = sum(times.values())
+    ph.kernel_ms = sum(v for k, v in times.items() if key in k or k == "host")
+    if torch.cuda.is_available() and ph.kernel_ms == 0:
+        raise AssertionError(f"{ph.kernel} {ph.label}: the profiler saw no "
+                             f"{key} on the card")
+    ph.call_ms = timed_ms(call, iters)
+
+
 def sync(dev) -> None:
     import torch
 
@@ -268,8 +293,8 @@ def build_report(name, kernels, args, instr) -> int:
     registers, shared memory and spills (nvcc -Xptxas -v, kept beside the
     library), and the count of `instr` instructions in the library's SASS.
     Fails if that count is 0: the kernel must multiply on the tensor cores
-    (HGMMA, HMMA), or, with no products, move 16 bytes a load
-    (LDG.E.128)."""
+    (HGMMA, HMMA), or, with no products, move 16 or 8 bytes a load
+    (LDG.E.128, LDG.E.64)."""
     import re
 
     from fcd_tpu_torch.kernels import _build
@@ -378,7 +403,8 @@ def conv_phase(label, dev, gen, grid, parts_c, cout, *, prologue=False,
 
 
 def finale_phase(label, dev, gen, grid, c, iters=10):
-    """B2 at one shape, with the pool."""
+    """B2 at one shape, with the pool, timed by the device time of one
+    call."""
     import torch
 
     from fcd_tpu_torch.kernels.pool import finale_pool, finale_pool_plain
@@ -394,7 +420,8 @@ def finale_phase(label, dev, gen, grid, c, iters=10):
     out_p, pooled_p = finale_pool_plain(y2, r, *aff, 0.01, pool=True)
     ph.check("out", out, out_p, 1e-2)
     ph.check("pooled", pooled, pooled_p, 1e-2)
-    ph.ms = timed_ms(lambda: finale_pool(y2, r, *aff, 0.01, pool=True), iters)
+    time_on_device(ph, lambda: finale_pool(y2, r, *aff, 0.01, pool=True),
+                   "finale_kernel", iters)
     ph.plain_ms = timed_ms(
         lambda: finale_pool_plain(y2, r, *aff, 0.01, pool=True), iters)
     ph.report()
@@ -825,7 +852,8 @@ def finale_bwd_phases(dev, gen, small=False):
 
 
 def pool2x_phase(label, dev, gen, batch, grid, c, iters=10):
-    """B3 at one shape, bit-equal to its plain version (a max is exact)."""
+    """B3 at one shape, bit-equal to its plain version (a max is exact),
+    timed by the device time of one call (its library call alike)."""
     import torch
     import torch.nn.functional as F
 
@@ -837,45 +865,78 @@ def pool2x_phase(label, dev, gen, batch, grid, c, iters=10):
     ph = Phase("max_pool2x", label, 7 * nvox * c // 8,
                2 * nvox * c + 2 * nvox * c // 8)
     ph.check_equal("pooled", max_pool2x(x), max_pool2x_plain(x))
-    ph.ms = timed_ms(lambda: max_pool2x(x), iters)
+    time_on_device(ph, lambda: max_pool2x(x), "pool_fwd_kernel", iters)
     ph.plain_ms = timed_ms(lambda: max_pool2x_plain(x), iters)
     # library yardstick, timed only: max_pool3d of the channels-last view
     xin = x.permute(0, 4, 1, 2, 3)
-    ph.library_ms = timed_ms(lambda: F.max_pool3d(xin, 2, 2), iters)
+
+    def library():
+        return F.max_pool3d(xin, 2, 2)
+
+    ph.library_ms = sum(device_times(library, iters).values())
+    ph.library_call_ms = timed_ms(library, iters)
     ph.report()
     return ph
 
 
-def pool2x_bwd_phase(label, dev, gen, batch, grid, c, iters=10):
-    """B9 at one shape on inputs that hold exact ties (small integers):
-    bit-equal to its plain version (one f32 division per tied child)."""
+def pool2x_bwd_phase(label, dev, gen, batch, grid, c, *, tied=False,
+                     iters=20):
+    """B9 at one shape, bit-equal to its plain version (one f32 division
+    per tied child): on `tied` inputs (small integers, so that blocks hold
+    2- and 3-way ties) or random ones; timed by the device time of one
+    call. It launches one kernel, `pool2x_bwd_kernel`; torch has no call
+    that splits ties evenly (ROADMAP C1), so no library yardstick."""
     import torch
 
     from fcd_tpu_torch.kernels.pool2x import (
         max_pool2x_bwd,
         max_pool2x_bwd_plain,
+        pool2x_bwd_plan,
     )
     from fcd_tpu_torch.ops.layers import blocks_2x
 
     bf = torch.bfloat16
     nvox = batch * grid[0] * grid[1] * grid[2]
     pgrid = tuple(v // 2 for v in grid)
-    x = torch.randint(-3, 4, (batch, *grid, c), generator=gen,
-                      device=dev).to(bf)
+    x = (torch.randint(-3, 4, (batch, *grid, c), generator=gen,
+                       device=dev).to(bf) if tied
+         else _randn((batch, *grid, c), gen, dev, dtype=bf))
     g = _randn((batch, *pgrid, c), gen, dev, dtype=bf)
-    xb = blocks_2x(x.float())
-    ties = (xb == xb.amax(dim=4, keepdim=True)).sum(dim=4)
-    hist = torch.bincount(ties.flatten(), minlength=9)[1:].tolist()
-    print(f"  max_pool2x_bwd {label}: blocks by ties 1..8 {hist}")
-    if min(hist[1], hist[2]) == 0:
-        raise AssertionError("the inputs hold no 2- or 3-way ties")
+    if tied:
+        xb = blocks_2x(x.float())
+        ties = (xb == xb.amax(dim=4, keepdim=True)).sum(dim=4)
+        hist = torch.bincount(ties.flatten(), minlength=9)[1:].tolist()
+        print(f"  max_pool2x_bwd {label}: blocks by ties 1..8 {hist}")
+        if min(hist[1], hist[2]) == 0:
+            raise AssertionError("the inputs hold no 2- or 3-way ties")
+        del xb, ties
+    plan = pool2x_bwd_plan(batch, *grid, c)
+    print(f"  max_pool2x_bwd {label}: {plan.vec} channel(s) a thread, "
+          f"{plan.grid[0]}x{plan.grid[1]} blocks of {plan.threads}, "
+          f"{plan.tiles_per_block} tile(s) a block")
+    # x read, g read once, dx written
     ph = Phase("max_pool2x_bwd", label, 4 * nvox * c,
                2 * nvox * c + 2 * nvox * c // 8 + 2 * nvox * c)
     ph.check_equal("dx", max_pool2x_bwd(x, g), max_pool2x_bwd_plain(x, g))
-    ph.ms = timed_ms(lambda: max_pool2x_bwd(x, g), iters)
+    time_on_device(ph, lambda: max_pool2x_bwd(x, g), "pool2x_bwd_kernel",
+                   iters)
     ph.plain_ms = timed_ms(lambda: max_pool2x_bwd_plain(x, g), 2)
     ph.report()
     return ph
+
+
+def pool2x_bwd_phases(dev, gen, small=False):
+    """B9 at the gated train step's two calls (`small`: batch 1, small
+    grids): encoder 1 on tied inputs, encoder 2."""
+    s = (lambda *g: tuple(max(2, v // 16) for v in g)) if small else \
+        (lambda *g: g)
+    b = 1 if small else TRAIN_BATCH
+    return [
+        pool2x_bwd_phase("enc1 train 4x128^3x16, tied inputs", dev, gen, b,
+                         s(128, 128, 128), 16, tied=True),
+        pool2x_bwd_phase("enc2 train 4x64^3x32", dev, gen, b, s(64, 64, 64),
+                         32),
+    ]
 
 
 def finale_head_phase(label, dev, gen, grid, c, o, iters=10):
@@ -899,7 +960,8 @@ def finale_head_phase(label, dev, gen, grid, c, o, iters=10):
     ph = Phase("finale_head", label, nvox * (5 * c + 2 * c * o + o),
                2 * 2 * nvox * c + 2 * nvox * o + 4 * (4 * c + c * o + o))
     ph.check("logits", finale_head(*args), finale_head_plain(*args), 1e-2)
-    ph.ms = timed_ms(lambda: finale_head(*args), iters)
+    time_on_device(ph, lambda: finale_head(*args), "finale_head_kernel",
+                   iters)
     ph.plain_ms = timed_ms(lambda: finale_head_plain(*args), iters)
     ph.report()
     return ph
@@ -1155,11 +1217,10 @@ def kernel_phases(dev, gen, small: bool = False):
         pool2x_phase("enc1 eval 1x128^3x16", dev, gen, 1, s(128, 128, 128),
                      16),
         pool2x_phase("enc2 train 4x64^3x32", dev, gen, b, s(64, 64, 64), 32),
-        pool2x_bwd_phase("enc1 train 4x128^3x16, tied inputs", dev, gen, b,
-                         s(128, 128, 128), 16),
-        finale_head_phase("dec1 1x128^3x16 -> 2", dev, gen, s(128, 128, 128),
-                          16, 2),
     ]
+    phases += pool2x_bwd_phases(dev, gen, small)
+    phases.append(finale_head_phase("dec1 1x128^3x16 -> 2", dev, gen,
+                                    s(128, 128, 128), 16, 2))
     return phases
 
 
@@ -1583,7 +1644,7 @@ PROFILE_KEYS = ("conv3d_kernel", "wgrad_mma_kernel", "wgrad_sum_kernel",
                 "finale_kernel", "upsample_kernel", "dsa_phase_a",
                 "dsa_phase_b", "spatial_attn_fwd", "spatial_attn_bwd",
                 "sw_entry_kernel", "sw_exit_kernel", "pool_fwd_kernel",
-                "pool_bwd_kernel", "finale_head_kernel")
+                "pool2x_bwd_kernel", "finale_head_kernel")
 
 
 def profile_run(label, fn, dev) -> dict:
@@ -1635,12 +1696,22 @@ def print_share(prof, label, keys) -> None:
 TRAIN_BATCH, TRAIN_STEPS = 4, 3
 
 
-def train_params(patch_size=128, perf_flags=None):
+# the source paper's total-variation regularised training, as README's
+# example sets it, with the border band excluded (so the binary dilation
+# runs on the card); and the rest of the loss family and the optimizer
+# options, held against the CPU in train_check
+TV_PARAMS = {"tv_loss_weight": 0.1, "tvloss_exclude_borders": True}
+GDF_PARAMS = {"loss": "GeneralizedDiceFocalLoss", "boundaryloss_weight": 0.1}
+ACCUM_PARAMS = {"gradient_accumulation_steps": 2}
+
+
+def train_params(patch_size=128, perf_flags=None, extra=None):
     from fcd_tpu_torch.config import get_default_params
 
     params = get_default_params()
     params.update(patch_size=patch_size, loss="DiceCELoss",
                   perf_flags=dict(perf_flags or {}))
+    params.update(extra or {})
     return params
 
 
@@ -1657,15 +1728,16 @@ def train_batch(dev, batch, size, chans):
     return x, y
 
 
-def train_run(dev, card, perf_flags=None):
-    """The train step at batch 4 x 128^3 (under perf_flags): warm-up, then
-    timed steps with the launch counters read around them."""
+def train_run(dev, card, perf_flags=None, extra=None):
+    """The train step at batch 4 x 128^3 (under perf_flags, with the params
+    in `extra`): warm-up, then timed steps with the launch counters read
+    around them."""
     import torch
 
     from fcd_tpu_torch.train.schedule import epoch_lr
     from fcd_tpu_torch.train.trainer import ModelTrainer
 
-    params = train_params(perf_flags=perf_flags)
+    params = train_params(perf_flags=perf_flags, extra=extra)
     trainer = ModelTrainer(params, device=dev)
     lr = epoch_lr(params, params["warmup_epochs"])
     x, y = train_batch(dev, TRAIN_BATCH, params["patch_size"],
@@ -1688,9 +1760,10 @@ def train_run(dev, card, perf_flags=None):
     peak_gb = (torch.cuda.max_memory_allocated() / 1e9
                if dev.type == "cuda" else 0.0)
     print(f"train: ModelTrainer.train_step (perf_flags "
-          f"{params['perf_flags']}), batch {TRAIN_BATCH}x"
-          f"{params['patch_size']}^3x{params['chans_in']}, DiceCELoss, "
-          f"AdamW lr {lr:g}: {ms:.1f} ms/step, "
+          f"{params['perf_flags']}{', ' + str(extra) if extra else ''}), "
+          f"batch {TRAIN_BATCH}x{params['patch_size']}^3x"
+          f"{params['chans_in']}, {params['loss']}, AdamW lr {lr:g}: "
+          f"{ms:.1f} ms/step, "
           f"{TRAIN_BATCH * 1e3 / ms:.3f} patches/s on {card} (first step, "
           f"incl. JIT: {first_s:.1f} s; peak memory {peak_gb:.1f} GB); "
           f"losses {[round(v, 5) for v in vals]}", flush=True)
@@ -1706,7 +1779,7 @@ def train_run(dev, card, perf_flags=None):
 
 def train_ab(card, trainers, batch, rounds=2) -> dict:
     """ms/step of each trainer ({path: trainer}) measured in turns on one
-    card, A B B A per round, TRAIN_STEPS synchronised steps a turn."""
+    card, A B C C B A per round, TRAIN_STEPS synchronised steps a turn."""
     import torch
 
     x, y, lr = batch
@@ -1769,17 +1842,20 @@ def _grad_distance(model, ref) -> dict:
     return out
 
 
-def train_check(dev, perf_flags=None) -> None:
+def train_check(dev, perf_flags=None, extra=None) -> None:
     """One train step on the card (bf16) against the port's fp32 CPU step
     from the same weights, batch 1 x 64^3 at full widths, all three under
-    perf_flags; the port's bf16 CPU step gives the distance bf16
-    arithmetic itself takes."""
+    perf_flags and the params in `extra`; the port's bf16 CPU step gives
+    the distance bf16 arithmetic itself takes. With gradient accumulation
+    (k micro-steps) each trainer takes k steps on the batch, and the last
+    loss and the accumulated gradient are compared."""
     import torch
 
     from fcd_tpu_torch.train.trainer import ModelTrainer
 
     size = TRAIN_CHECK_SIZE
-    params = train_params(size, perf_flags)
+    params = train_params(size, perf_flags, extra)
+    micro = params["gradient_accumulation_steps"]
     trainers = [ModelTrainer(params, device=d) for d in (dev, "cpu", "cpu")]
     gen = torch.Generator().manual_seed(SEED + 3)
     with torch.no_grad():
@@ -1800,8 +1876,9 @@ def train_check(dev, perf_flags=None) -> None:
     x, y = train_batch(dev, 1, size, params["chans_in"])
     with torch.enable_grad():
         card, fp32, bf16 = (
-            float(tr.train_step(x if i == 0 else x.cpu(),
-                                y if i == 0 else y.cpu(), 1e-4))
+            [float(tr.train_step(x if i == 0 else x.cpu(),
+                                 y if i == 0 else y.cpu(), 1e-4))
+             for _ in range(micro)][-1]
             for i, tr in enumerate(trainers))
     d_card = _grad_distance(trainers[0].model, trainers[1].model)
     d_bf16 = _grad_distance(trainers[2].model, trainers[1].model)
@@ -1818,8 +1895,10 @@ def train_check(dev, perf_flags=None) -> None:
         ok = ok and good
         lines.append(f"{key} {rel:.2e}/{cos:.5f} (bf16 CPU {ref_rel:.2e}/"
                      f"{ref_cos:.5f}){'' if good else ' FAIL'}")
-    print(f"train check (perf_flags {params['perf_flags']}): 1x{size}^3 "
-          f"step, card bf16 vs CPU fp32: loss "
+    steps = "step" if micro == 1 else f"step x {micro} micro-steps"
+    print(f"train check (perf_flags {params['perf_flags']}"
+          f"{', ' + str(extra) if extra else ''}; {params['loss']}): "
+          f"1x{size}^3 {steps}, card bf16 vs CPU fp32: loss "
           f"{card:.6f} vs {fp32:.6f} rel {rel_loss:.2e} (tol "
           f"{TRAIN_LOSS_REL_TOL}; the bf16 CPU step {bf16:.6f}); grads "
           f"rel-L2/cosine per group, head {d_card['head'][0]:.2e} (tol "
@@ -1915,7 +1994,7 @@ def kernels_json(phases, by_path):
         "sw_exit": ("cuda", "fcd_tpu_torch/csrc/sw_io.cu", sw_io.REPLACES_EXIT),
         "max_pool2x": ("triton", "fcd_tpu_torch/kernels/pool2x.py",
                        b3b9.REPLACES_FWD),
-        "max_pool2x_bwd": ("triton", "fcd_tpu_torch/kernels/pool2x.py",
+        "max_pool2x_bwd": ("cuda", "fcd_tpu_torch/csrc/pool2x_bwd.cu",
                            b3b9.REPLACES_BWD),
         "finale_head": ("cuda", "fcd_tpu_torch/csrc/finale_head.cu",
                         b15.REPLACES),
@@ -1957,12 +2036,15 @@ BUILD_REPORTS = {
     "dsa": ("dsa", DSA_KERNELS, ("ch", "p"), "HMMA"),
     "spatial_attn": ("spatial_attn", SPATTN_KERNELS, ("c", "p", "co|hb"),
                      "HMMA"),
-    # no products: its 16-byte loads instead
+    # no products: their 16- and 8-byte loads instead
     "finale_bwd": ("finale_bwd", FINALE_BWD_KERNELS,
                    ("vec", "mode", "nt", "minb"), "LDG.E.128"),
+    "max_pool2x_bwd": ("pool2x_bwd", "pool2x_bwd_kernel", ("vec",),
+                       "LDG.E.64"),
 }
 # `--kernels NAME,...`: only these kernels' phases
 ONLY_PHASES = {"upsample2x": upsample_phases, "sw_exit": sw_io_phases,
+               "max_pool2x_bwd": pool2x_bwd_phases,
                "sw_entry": sw_io_phases, "finale_bwd": finale_bwd_phases,
                "dsa_phase_a": dsa_phases, "dsa_phase_b": dsa_phases,
                "spatial_attn_fwd": spatial_attn_levels,
@@ -2043,14 +2125,20 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     gated = "train, pool in its own pass"
     by_path[gated], gtrainer, _ = train_run(dev, card, POOL_GATES)
-    train_ab(card, {"default": trainer, gated: gtrainer}, batch)
+    tv = "train, TV-regularised"
+    by_path[tv], tvtrainer, _ = train_run(dev, card, extra=TV_PARAMS)
+    train_ab(card, {"default": trainer, gated: gtrainer, tv: tvtrainer},
+             batch)
     with torch.enable_grad():
-        profile_run(f"one train step, batch {TRAIN_BATCH}x128^3, {gated}",
-                    lambda: gtrainer.train_step(*batch), dev)
-    del trainer, gtrainer, batch
+        for name, tr in ((gated, gtrainer), (tv, tvtrainer)):
+            profile_run(f"one train step, batch {TRAIN_BATCH}x128^3, {name}",
+                        lambda tr=tr: tr.train_step(*batch), dev)
+    del trainer, gtrainer, tvtrainer, batch
     torch.cuda.empty_cache()
-    train_check(dev, POOL_GATES)
-    torch.cuda.empty_cache()
+    for perf_flags, extra in ((POOL_GATES, None), (None, TV_PARAMS),
+                              (None, GDF_PARAMS), (None, ACCUM_PARAMS)):
+        train_check(dev, perf_flags, extra)
+        torch.cuda.empty_cache()
     # the gates live in each trainer's model: a trainer built from the
     # default params runs the default path again
     from fcd_tpu_torch import flags

@@ -27,7 +27,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fcd_tpu_torch"
 SOURCES = ("conv3d", "conv3d_wgrad", "upsample", "dsa", "spatial_attn",
-           "sw_io", "finale_head", "finale_bwd")
+           "sw_io", "finale_head", "finale_bwd", "pool2x_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

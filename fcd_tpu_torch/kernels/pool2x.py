@@ -19,27 +19,34 @@ ties is the s2d pool's custom VJP (`fcd_tpu/ops/s2d_ops.py:237-252`),
 which torch's max-pool backward does not give (it sends the gradient to a
 single index, ROADMAP C1).
 
-Route: Triton. Both kernels are memory-bound and have no product: B3 is
-an 8-way max reduction, B9 an elementwise pass with an 8-way compare and
-count (B2 and K2 are Triton for the same reason). What bounds them: the
-bytes, 2.25 per element for B3 (x read, pooled written) against 1 max,
-4.25 for B9 (x read, g read once per block, dx written) against ~4
-operations. The design gives each program a tile of pooled voxels: B3
-walks their eight children and keeps the max in registers; B9 loads the
-children as one [voxels, 8, channels] block, so the max, the tie count
-and the split come from registers and every input is read once. B9
-divides with `div_rn` (Triton's `/` on f32 is not correctly rounded), so
-dx is bit-equal to the plain version.
+Routes. B3 is Triton: an 8-way max reduction with no product, 2.25 bytes
+an element (x read, pooled written); its program walks a tile's eight
+children with the max in registers and reads at 83-85% of the bytes
+bound on an H100, 3.4-4.0x faster than `max_pool3d` (PERF.md). B9 is CUDA
+C++ (`csrc/pool2x_bwd.cu`, built by `_build.py` at first use): its
+Triton kernel loaded a [voxels, 8, C] block per program with C a runtime
+width and read at 49% of its bytes bound (4.25 bytes an element: x read,
+g once per block, dx written; PERF.md). The CUDA kernel gives each
+thread V channels (8-byte accesses at V = 4) of one pooled voxel's eight
+children and issues all nine loads before it uses any; the plan
+(`pool2x_bwd_plan`, `plan_for`) is computed here. dx is bit-equal to
+`max_pool2x_bwd_plain`: an IEEE f32 division for the share, no
+contraction, cvt.rn to bf16, and the ties counted on the values as the
+plain version compares them.
 
 CPU tensors take the plain PyTorch versions; CUDA tensors launch the
-kernels or raise. Triton is imported only when a kernel is launched.
+kernels or raise. Triton is imported, and the CUDA source built, only
+when a kernel is launched.
 `max_pool2x_op` is the differentiable op (`MaxPool2x`): forward B3,
 backward B9.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
 import os
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -62,13 +69,13 @@ def max_pool2x_bwd_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return unblocks_2x(torch.where(eq, share, 0.0)).to(x.dtype)
 
 
-_KERNELS = None
+_FWD = None
 
 
-def _kernels():
-    global _KERNELS
-    if _KERNELS is not None:
-        return _KERNELS
+def _fwd_kernel():
+    global _FWD
+    if _FWD is not None:
+        return _FWD
     os.environ.setdefault("TRITON_CACHE_DIR",
                           str(_build.BUILD_DIR / "triton"))
     import triton
@@ -100,41 +107,8 @@ def _kernels():
         poff = (b.to(tl.int64) * npool + pv)[:, None] * C + cs[None, :]
         tl.store(out_ptr + poff, m.to(out_ptr.dtype.element_ty), mask=mask)
 
-    @triton.jit
-    def pool_bwd_kernel(x_ptr, g_ptr, dx_ptr, D, H, W, C,
-                        BLOCK_V: tl.constexpr, BLOCK_C: tl.constexpr):
-        pid = tl.program_id(0)
-        b = tl.program_id(1)
-        hp = H // 2
-        wp = W // 2
-        npool = (D // 2) * hp * wp
-        pv = pid * BLOCK_V + tl.arange(0, BLOCK_V)
-        cs = tl.arange(0, BLOCK_C)
-        vmask = pv < npool
-        cmask = cs < C
-        pz = pv // (hp * wp)
-        py = (pv // wp) % hp
-        px = pv % wp
-        k = tl.arange(0, 8)
-        z = 2 * pz[:, None] + (k // 4)[None, :]
-        y = 2 * py[:, None] + ((k // 2) % 2)[None, :]
-        x = 2 * px[:, None] + (k % 2)[None, :]
-        vox = ((b * D + z).to(tl.int64) * H + y) * W + x          # [V, 8]
-        off = vox[:, :, None] * C + cs[None, None, :]             # [V, 8, C]
-        mask = vmask[:, None, None] & cmask[None, None, :]
-        xv = tl.load(x_ptr + off, mask=mask, other=0.0).to(tl.float32)
-        m = tl.max(xv, axis=1)
-        eq = xv == m[:, None, :]
-        cnt = tl.sum(eq.to(tl.float32), axis=1)
-        poff = (b.to(tl.int64) * npool + pv)[:, None] * C + cs[None, :]
-        g = tl.load(g_ptr + poff, mask=vmask[:, None] & cmask[None, :],
-                    other=0.0).to(tl.float32)
-        share = tl.math.div_rn(g, tl.maximum(cnt, 1.0))
-        dx = tl.where(eq, share[:, None, :], 0.0)
-        tl.store(dx_ptr + off, dx.to(dx_ptr.dtype.element_ty), mask=mask)
-
-    _KERNELS = (pool_fwd_kernel, pool_bwd_kernel)
-    return _KERNELS
+    _FWD = pool_fwd_kernel
+    return _FWD
 
 
 def _check(x: torch.Tensor, what: str) -> None:
@@ -175,7 +149,7 @@ def max_pool2x(x: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     # ~1024 elements per child load, read for each of the eight children
     grid, block_v, block_c = _launch_shape(x, 1024)
-    _kernels()[0][grid](x, out, d, h, w, c, BLOCK_V=block_v,
+    _fwd_kernel()[grid](x, out, d, h, w, c, BLOCK_V=block_v,
                         BLOCK_C=block_c, num_warps=4)
     max_pool2x.launches += 1
     return out
@@ -184,8 +158,80 @@ def max_pool2x(x: torch.Tensor) -> torch.Tensor:
 max_pool2x.launches = 0
 
 
-def max_pool2x_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """B9 wrapper: x (B, D, H, W, C), g (B, D/2, H/2, W/2, C) -> dx."""
+# the kernel's instances, as csrc/pool2x_bwd.cu builds them: channels a
+# thread (8-, 4- and 2-byte accesses) -> the tiles a block takes by
+# default (on an H100 blocks that walked more were slower, PERF.md)
+BUILT = {4: 1, 2: 2, 1: 4}
+THREADS = 256
+
+
+class PoolBwdPlan(NamedTuple):
+    """B9's decomposition of one call. A unit is one pooled voxel's eight
+    children times `vec` channels (channel group u % groups of pooled
+    voxel u // groups); a tile is `threads` units, thread t taking unit
+    tile * threads + t; block x of batch item b walks that item's tiles x
+    * tiles // blocks up to (x + 1) * tiles // blocks."""
+    vec: int
+    groups: int             # C / vec
+    threads: int
+    units: int              # a batch item's pooled voxels x groups
+    tiles: int              # a batch item's tiles
+    tiles_per_block: int    # the most a block walks
+    grid: Tuple[int, int]   # (blocks a batch item, batch)
+
+
+def plan_for(b: int, d: int, h: int, w: int, c: int, vec: int,
+             blocks: Optional[int] = None) -> PoolBwdPlan:
+    """The plan with `vec` channels a thread and `blocks` blocks a batch
+    item, by default enough that each block takes BUILT[vec] tiles.
+    Raises ValueError on what the kernel does not take."""
+    if vec not in BUILT or c % vec:
+        raise ValueError(f"vec {vec} is not one of {tuple(BUILT)} dividing "
+                         f"C {c}")
+    if d % 2 or h % 2 or w % 2:
+        raise ValueError(f"the 2x pool needs even D, H, W, got {(d, h, w)}")
+    groups = c // vec
+    units = (d // 2) * (h // 2) * (w // 2) * groups
+    if units >= 2 ** 31 - THREADS:
+        raise ValueError(f"{units} units a batch item overflow the kernel's "
+                         "32-bit unit index")
+    tiles = max(1, math.ceil(units / THREADS))
+    if blocks is None:
+        blocks = math.ceil(tiles / BUILT[vec])
+    blocks = max(1, min(blocks, tiles))
+    return PoolBwdPlan(vec=vec, groups=groups, threads=THREADS, units=units,
+                       tiles=tiles, tiles_per_block=math.ceil(tiles / blocks),
+                       grid=(blocks, b))
+
+
+def pool2x_bwd_plan(b: int, d: int, h: int, w: int, c: int,
+                    aligned: bool = True) -> PoolBwdPlan:
+    """B9's decomposition of a (b, d, h, w, c) call: 4 channels a thread
+    (8-byte accesses) where C % 4 == 0, else 2 where C is even, else one;
+    one channel a thread where x, g or dx is not 8-byte aligned."""
+    vec = next(v for v in BUILT if c % v == 0) if aligned else 1
+    return plan_for(b, d, h, w, c, vec)
+
+
+_BWD = None
+
+
+def _bwd_fn():
+    global _BWD
+    if _BWD is None:
+        fn = _build.load("pool2x_bwd").fcd_pool2x_bwd
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp] * 3 + [ci] * 10 + [vp]
+        fn.restype = ci
+        _BWD = fn
+    return _BWD
+
+
+def max_pool2x_bwd(x: torch.Tensor, g: torch.Tensor,
+                   plan: Optional[PoolBwdPlan] = None) -> torch.Tensor:
+    """B9 wrapper: x (B, D, H, W, C), g (B, D/2, H/2, W/2, C) -> dx. plan:
+    another decomposition (`plan_for` of the call's shape), for the
+    sweep."""
     _check(x, "max_pool2x_bwd")
     b, d, h, w, c = x.shape
     if tuple(g.shape) != (b, d // 2, h // 2, w // 2, c):
@@ -194,10 +240,18 @@ def max_pool2x_bwd(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         return max_pool2x_bwd_plain(x, g)
     _on_card([x, g], "max_pool2x_bwd")
     dx = torch.empty_like(x)
-    # ~4096 elements per [V, 8, C] block
-    grid, block_v, block_c = _launch_shape(x, 512)
-    _kernels()[1][grid](x, g, dx, d, h, w, c, BLOCK_V=block_v,
-                        BLOCK_C=block_c, num_warps=4)
+    if plan is None:
+        plan = pool2x_bwd_plan(b, d, h, w, c, all(
+            t.data_ptr() % 8 == 0 for t in (x, g, dx)))
+    elif plan != plan_for(b, d, h, w, c, plan.vec, plan.grid[0]):
+        raise ValueError(f"plan {plan} does not fit {tuple(x.shape)}")
+    if any(t.data_ptr() % (2 * plan.vec) for t in (x, g, dx)):
+        raise ValueError(f"{plan.vec} channels a thread need "
+                         f"{2 * plan.vec}-byte aligned tensors")
+    err = _bwd_fn()(_build.ptr(x), _build.ptr(g), _build.ptr(dx), b, d, h, w,
+                    c, plan.vec, plan.threads, plan.units, plan.tiles,
+                    plan.grid[0], _build.stream())
+    _build.check(err, "max_pool2x_bwd")
     max_pool2x_bwd.launches += 1
     return dx
 

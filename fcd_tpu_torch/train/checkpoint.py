@@ -16,8 +16,32 @@ This module carries its own msgpack decoder and encoder for what flax
 emits (maps, arrays, str, bin, ints, floats, bool, nil and the three
 extension types), so the card's machine, which has no `msgpack`, reads and
 writes the same files. bfloat16 leaves are widened to float32 on load
-(exactly), since numpy has no bfloat16. The optimizer state is neither
-read nor written yet (ROADMAP Queue A2).
+(exactly), since numpy has no bfloat16.
+
+The optimizer state. The JAX trainer's `opt_state` is flax's
+`serialization.to_state_dict` of `optax.inject_hyperparams(optax.adamw)`'s
+state (`fcd_tpu/train/state.py:31-40`); with optax 0.2.6:
+
+    {count: int32,
+     hyperparams: {learning_rate, b1, b2, eps, eps_root, weight_decay}: f32,
+     hyperparams_states: {},
+     inner_state: {"0": {count: int32, mu: <params tree>, nu: <params tree>},
+                   "1": {}, "2": {}}}
+
+(inner_state "0" is scale_by_adam's state, "1" add_decayed_weights', "2"
+scale_by_learning_rate's), and with gradient_accumulation_steps > 1
+`optax.MultiSteps` around it:
+
+    {mini_step: int32, gradient_step: int32, inner_opt_state: <the above>,
+     acc_grads: <params tree>, skip_state: {}}
+
+`export_opt_state` and `load_opt_state` map it to the port's optimizer
+(`train/state.py`) without optax: both counts <-> torch AdamW's `step`,
+mu <-> `exp_avg`, nu <-> `exp_avg_sq`, the hyperparameters <-> the
+parameter group's lr, betas, eps and weight_decay (eps_root must be 0),
+and MultiSteps' mini_step, gradient_step and acc_grads <-> its own.
+Parameters are matched by their flax paths (`weights.param_entries`). An
+opt_state of any other structure raises, naming what it found.
 """
 
 from __future__ import annotations
@@ -290,14 +314,15 @@ def _numpy_tree(tree):
 
 def save_checkpoint(path: str, variables, *, epoch: Optional[int] = None,
                     extra: Optional[Dict[str, Any]] = None,
-                    step: int = 0) -> None:
-    """Write {params, batch_stats, step, epoch, extra} as the JAX package's
-    `save_checkpoint` does (no opt_state yet: ROADMAP Queue A2). variables:
-    the `{"params", "batch_stats"}` tree of numpy arrays
-    (`weights.export_flax_variables`)."""
+                    step: int = 0, opt_state=None) -> None:
+    """Write {params, batch_stats, opt_state, step, epoch, extra} as the
+    JAX package's `save_checkpoint` does. variables: the `{"params",
+    "batch_stats"}` tree of numpy arrays (`weights.export_flax_variables`);
+    opt_state: `export_opt_state`'s tree, or None to write none."""
     payload = {
         "params": _numpy_tree(variables["params"]),
         "batch_stats": _numpy_tree(variables.get("batch_stats", {})),
+        **({} if opt_state is None else {"opt_state": _numpy_tree(opt_state)}),
         "step": np.asarray(step, np.int32),
         "epoch": -1 if epoch is None else int(epoch),
         "extra": dict(extra or {}),
@@ -309,17 +334,193 @@ def save_checkpoint(path: str, variables, *, epoch: Optional[int] = None,
     os.replace(tmp, path)
 
 
-def load_checkpoint(path: str):
-    """Read a checkpoint of the JAX package (or of `save_checkpoint`).
-    Returns (variables, epoch, extra): variables is {"params",
-    "batch_stats"} of numpy arrays; a params-only file (a bare params
-    tree, which `fcd_tpu/train/checkpoint.py:53-57` accepts) gives
-    {"params": tree}, epoch None and extra {}."""
+def read_checkpoint(path: str) -> dict:
+    """The tree of a checkpoint of the JAX package (or of
+    `save_checkpoint`): {params, batch_stats, opt_state, step, epoch,
+    extra}, opt_state where there is one; a params-only file is a bare
+    params tree (no "params" key), which `fcd_tpu/train/checkpoint.py:
+    53-56` accepts."""
     with open(path, "rb") as f:
-        raw = msgpack_restore(f.read())
+        return msgpack_restore(f.read())
+
+
+def load_checkpoint(path: str):
+    """Read a checkpoint's weights. Returns (variables, epoch, extra):
+    variables is {"params", "batch_stats"} of numpy arrays; a params-only
+    file gives {"params": tree}, epoch None and extra {}."""
+    raw = read_checkpoint(path)
     if "params" not in raw:
         return {"params": raw}, None, {}
     variables = {"params": raw["params"],
                  "batch_stats": raw.get("batch_stats", {})}
     epoch = int(raw.get("epoch", -1))
     return variables, (None if epoch < 0 else epoch), raw.get("extra", {})
+
+
+# -- the optimizer state ---------------------------------------------------------
+
+HYPERPARAMS = ("learning_rate", "b1", "b2", "eps", "eps_root", "weight_decay")
+_INJECT_KEYS = {"count", "hyperparams", "hyperparams_states", "inner_state"}
+_MULTI_KEYS = {"mini_step", "gradient_step", "inner_opt_state", "acc_grads",
+               "skip_state"}
+
+
+def _params_tree(entries, value) -> dict:
+    """{flax path: value(parameter)} as a nested dict of f32 numpy arrays,
+    1x1 conv kernels with their (1, 1, 1) axes."""
+    out: dict = {}
+    for path, t, is_1x1 in entries:
+        a = value(t).detach().float().cpu().numpy()
+        if is_1x1:
+            a = a.reshape((1, 1, 1) + a.shape)
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = a
+    return out
+
+
+def _leaves(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_leaves(v) for v in tree.values())
+    return 1
+
+
+def _read_params_tree(entries, tree, what: str):
+    """[(parameter, f32 tensor of its shape)] from a flax-path tree that
+    holds one leaf for each parameter and no other."""
+    import torch
+
+    from fcd_tpu_torch.weights import lookup
+
+    found = _leaves(tree) if isinstance(tree, dict) else type(tree).__name__
+    if found != len(entries):
+        raise ValueError(f"opt_state {what}: expected a tree of "
+                         f"{len(entries)} parameters, found {found}")
+    out = []
+    for path, t, _ in entries:
+        try:
+            a = np.asarray(lookup(tree, path), np.float32)
+        except (KeyError, TypeError, IndexError):
+            raise ValueError(f"opt_state {what}: no leaf at "
+                             f"{'/'.join(path)}") from None
+        if a.size != t.numel():
+            raise ValueError(f"opt_state {what}/{'/'.join(path)}: shape "
+                             f"{a.shape} does not fit {tuple(t.shape)}")
+        out.append((t, torch.tensor(a.reshape(t.shape), device=t.device)))
+    return out
+
+
+def _adamw(optimizer, entries):
+    """(the torch AdamW, the MultiSteps around it or None); raises unless
+    `entries` name exactly the optimizer's parameters."""
+    inner = getattr(optimizer, "inner", None)
+    adamw, multi = (optimizer, None) if inner is None else (inner, optimizer)
+    held = {id(p) for group in adamw.param_groups for p in group["params"]}
+    if held != {id(t) for _, t, _ in entries}:
+        raise ValueError("the flax paths do not name exactly the "
+                         "optimizer's parameters")
+    return adamw, multi
+
+
+def export_opt_state(optimizer, entries) -> dict:
+    """The optimizer's state in the JAX layout (the module docstring).
+    entries: (flax path, parameter, is 1x1) of every parameter the
+    optimizer holds (`weights.param_entries(model)`)."""
+    import torch
+
+    adamw, multi = _adamw(optimizer, entries)
+    group = adamw.param_groups[0]
+    steps = {int(adamw.state[t]["step"]) for _, t, _ in entries
+             if adamw.state.get(t)}
+    if len(steps) > 1:
+        raise ValueError(f"the parameters' AdamW steps differ: {steps}")
+    count = np.asarray(steps.pop() if steps else 0, np.int32)
+
+    def moment(name):
+        return lambda t: (adamw.state[t][name] if adamw.state.get(t)
+                          else torch.zeros_like(t))
+
+    hyper = dict(zip(HYPERPARAMS, (group["lr"], *group["betas"],
+                                   group["eps"], 0.0, group["weight_decay"])))
+    inner = {
+        "count": count,
+        "hyperparams": {k: np.asarray(v, np.float32) for k, v in hyper.items()},
+        "hyperparams_states": {},
+        "inner_state": {"0": {"count": count,
+                              "mu": _params_tree(entries, moment("exp_avg")),
+                              "nu": _params_tree(entries,
+                                                 moment("exp_avg_sq"))},
+                        "1": {}, "2": {}},
+    }
+    if multi is None:
+        return inner
+    return {"mini_step": np.asarray(multi.mini_step, np.int32),
+            "gradient_step": np.asarray(multi.gradient_step, np.int32),
+            "inner_opt_state": inner,
+            "acc_grads": _params_tree(entries, lambda t: multi.acc_grads[t]),
+            "skip_state": {}}
+
+
+def _keys(tree, want, what: str) -> None:
+    found = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
+    if not isinstance(tree, dict) or set(tree) != set(want):
+        raise ValueError(f"opt_state {what}: expected keys {sorted(want)}, "
+                         f"found {found}")
+
+
+def load_opt_state(optimizer, entries, tree) -> None:
+    """Set the optimizer's state from a JAX-layout opt_state tree (the
+    module docstring); raises ValueError, naming what it found, on any
+    other structure, or where the tree's kind (with or without MultiSteps)
+    is not the optimizer's."""
+    import torch
+
+    adamw, multi = _adamw(optimizer, entries)
+    if not isinstance(tree, dict):
+        raise ValueError(f"opt_state: expected a dict, found "
+                         f"{type(tree).__name__}")
+    if set(tree) == _MULTI_KEYS:
+        if multi is None:
+            raise ValueError("opt_state holds optax.MultiSteps' state, but "
+                             "gradient_accumulation_steps is 1")
+        _keys(tree["skip_state"], (), "skip_state")
+        inner = tree["inner_opt_state"]
+    elif multi is not None:
+        raise ValueError(f"opt_state: expected optax.MultiSteps' keys "
+                         f"{sorted(_MULTI_KEYS)} (gradient_accumulation_steps"
+                         f" {multi.k}), found {sorted(tree)}")
+    else:
+        inner = tree
+    _keys(inner, _INJECT_KEYS, "")
+    _keys(inner["hyperparams"], HYPERPARAMS, "hyperparams")
+    _keys(inner["hyperparams_states"], (), "hyperparams_states")
+    _keys(inner["inner_state"], ("0", "1", "2"), "inner_state")
+    _keys(inner["inner_state"]["0"], ("count", "mu", "nu"), "inner_state/0")
+    _keys(inner["inner_state"]["1"], (), "inner_state/1")
+    _keys(inner["inner_state"]["2"], (), "inner_state/2")
+    count = int(np.asarray(inner["inner_state"]["0"]["count"]))
+    if int(np.asarray(inner["count"])) != count:
+        raise ValueError(f"opt_state: count {int(np.asarray(inner['count']))}"
+                         f" differs from scale_by_adam's {count}")
+    hp = {k: float(np.asarray(v)) for k, v in inner["hyperparams"].items()}
+    if hp["eps_root"] != 0.0:
+        raise ValueError(f"opt_state: eps_root {hp['eps_root']}, torch AdamW "
+                         "has none")
+    mu = _read_params_tree(entries, inner["inner_state"]["0"]["mu"], "mu")
+    nu = _read_params_tree(entries, inner["inner_state"]["0"]["nu"], "nu")
+    if multi is not None:
+        mini = int(np.asarray(tree["mini_step"]))
+        if not 0 <= mini < multi.k:
+            raise ValueError(f"opt_state: mini_step {mini} outside 0.."
+                             f"{multi.k - 1}")
+        acc = _read_params_tree(entries, tree["acc_grads"], "acc_grads")
+        multi.mini_step = mini
+        multi.gradient_step = int(np.asarray(tree["gradient_step"]))
+        multi.acc_grads = {t: a for t, a in acc}
+    for group in adamw.param_groups:
+        group.update(lr=hp["learning_rate"], betas=(hp["b1"], hp["b2"]),
+                     eps=hp["eps"], weight_decay=hp["weight_decay"])
+    for (t, m), (_, v) in zip(mu, nu):
+        adamw.state[t] = {"step": torch.tensor(float(count)), "exp_avg": m,
+                          "exp_avg_sq": v}

@@ -3,11 +3,14 @@
 Counterpart of `fcd_tpu/train/trainer.py::ModelTrainer` with what
 `python -m fcd_tpu.cli.infer` needs (model construction, weights from a
 seeded initialisation or a fcd_tpu variables tree through `weights.py`,
-`inference(volume)`, `_activate`) and the training step
-(`train_step(images, labels, lr)`, the body of the JAX trainer's epoch
-loop, trainer.py:578-635), and `load_model` of a JAX-written checkpoint
-(`train/checkpoint.py`). The epoch loop, augmentation, the data loaders,
-saving with the optimizer state and validation are queued in ROADMAP.md.
+`inference(volume)`, `_activate`), the training step
+(`train_step(images, labels, lr, thickness=None)`, the body of the JAX
+trainer's epoch loop, trainer.py:578-635, with every loss, gradient
+accumulation and `log_layer_norms`), and `save_model` / `load_model` of
+checkpoints in the JAX trainer's format with the optimizer state, the step
+count and the `extra` fields (trainer.py:203-229, `train/checkpoint.py`).
+The epoch loop, augmentation, the data loaders and validation are queued
+in ROADMAP.md.
 
 `train_step` returns the loss as a device tensor and never waits for the
 card, as the JAX trainer fetches each step's loss one step late. Its
@@ -43,9 +46,13 @@ from fcd_tpu_torch.config import get_default_params
 from fcd_tpu_torch.infer.sliding_window import sliding_window_inference
 from fcd_tpu_torch.losses.combined import make_combined_loss
 from fcd_tpu_torch.models.factory import get_model
-from fcd_tpu_torch.train.checkpoint import load_checkpoint
+from fcd_tpu_torch.train import checkpoint as ckpt
 from fcd_tpu_torch.train.state import make_optimizer, make_train_step
-from fcd_tpu_torch.weights import load_flax_variables
+from fcd_tpu_torch.weights import (
+    export_flax_variables,
+    load_flax_variables,
+    param_entries,
+)
 
 
 def compute_dtype_for(params: Dict[str, Any],
@@ -85,7 +92,27 @@ class ModelTrainer:
         self.model.reset_parameters(gen)
         self.model.to(self.device).eval()
         self.model.compute_dtype = self.compute_dtype
-        self._step = None
+        self._step_fn = None
+        self.step = 0               # train steps taken (the JAX state.step)
+        self._log_norms = bool(self.params.get("log_layer_norms", False))
+        self.last_grad_norms = None
+        self.init_stats()
+
+    def init_stats(self) -> None:
+        """The validation bookkeeping a checkpoint's `extra` carries."""
+        self.best_val_loss = float("inf")
+        self.best_ema_val_loss = float("inf")
+        self.ema_val_loss: Optional[float] = None
+        self.early_stopping_counter = 0
+
+    def _extra(self) -> Dict[str, Any]:
+        return {
+            "best_val_loss": self.best_val_loss,
+            "best_ema_val_loss": self.best_ema_val_loss,
+            "ema_val_loss": (-1.0 if self.ema_val_loss is None
+                             else self.ema_val_loss),
+            "early_stopping_counter": self.early_stopping_counter,
+        }
 
     def _train_setup(self) -> None:
         seed = int(self.params.get("seed", 42))
@@ -94,36 +121,79 @@ class ModelTrainer:
         self._seed_gen = torch.Generator().manual_seed(seed)
         self.model.dropout_rng.generator = torch.Generator(
             device=self.device).manual_seed(seed + 1)
-        self._step = make_train_step(self.model, self.loss_fn, self.optimizer)
+        self._step_fn = make_train_step(self.model, self.loss_fn,
+                                        self.optimizer,
+                                        grad_norms=self._log_norms)
 
-    def train_step(self, images, labels, lr: float) -> torch.Tensor:
-        """One optimizer step on a (B, D, H, W, chans_in) batch with
-        (B, D, H, W, 1) labels at learning rate `lr`. Returns the loss, a
-        0-d f32 tensor on the trainer's device."""
-        if self._step is None:
+    def train_step(self, images, labels, lr: float,
+                   thickness=None) -> torch.Tensor:
+        """One optimizer step (with gradient accumulation, one micro-step)
+        on a (B, D, H, W, chans_in) batch with (B, D, H, W, 1) labels at
+        learning rate `lr`; `thickness` (B, D, H, W, 1) feeds the cortical
+        term. Returns the loss, a 0-d f32 tensor on the trainer's device;
+        with log_layer_norms the step's per-group gradient norms are kept
+        in `last_grad_norms`."""
+        if self._step_fn is None:
             self._train_setup()
         x = torch.as_tensor(images, dtype=torch.float32).to(self.device)
         y = torch.as_tensor(labels, dtype=torch.float32).to(self.device)
+        t = (None if thickness is None else
+             torch.as_tensor(thickness, dtype=torch.float32).to(self.device))
         seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
                                  generator=self._seed_gen))
-        return self._step(x, y, lr, seed)
+        out = self._step_fn(x, y, lr, seed, t)
+        self.step += 1
+        if self._log_norms:
+            out, self.last_grad_norms = out
+        return out
 
     def load_variables(self, variables) -> None:
         """Take the weights of a fcd_tpu variables tree (numpy leaves)."""
         load_flax_variables(self.model, variables)
 
-    def load_model(self, path: str, with_optimizer: bool = False):
-        """Load the weights of a checkpoint the JAX package (or
-        `checkpoint.save_checkpoint`) wrote. Returns its epoch (None if it
-        has none). The optimizer state is not read yet (ROADMAP Queue
-        A2)."""
-        if with_optimizer:
-            raise NotImplementedError(
-                "restoring the optimizer state is queued in ROADMAP.md "
-                "(Queue A2); load with with_optimizer=False")
-        variables, epoch, _ = load_checkpoint(path)
-        self.load_variables(variables)
-        return epoch
+    def save_model(self, path: str, epoch: Optional[int] = None) -> None:
+        """Write a checkpoint in the JAX trainer's format: the weights,
+        the optimizer state (a fresh one before the first step), the step
+        count, the epoch and the `extra` fields."""
+        if self._step_fn is None:
+            self._train_setup()
+        ckpt.save_checkpoint(
+            path, export_flax_variables(self.model), epoch=epoch,
+            extra=self._extra(), step=self.step,
+            opt_state=ckpt.export_opt_state(self.optimizer,
+                                            param_entries(self.model)))
+
+    def load_model(self, path: str, with_optimizer: bool = True):
+        """Restore a checkpoint the JAX package (or `save_model`) wrote:
+        the weights and running statistics, the step count, the `extra`
+        fields onto the attributes of the same names, and, with
+        with_optimizer, the optimizer state where the file has one. A
+        params-only file restores the weights alone. Returns the epoch
+        (None if it has none)."""
+        raw = ckpt.read_checkpoint(path)
+        if "params" not in raw:
+            self.load_variables({"params": raw})
+            return None
+        self.load_variables({"params": raw["params"],
+                             "batch_stats": raw.get("batch_stats", {})})
+        self.step = int(np.asarray(raw.get("step", 0)))
+        if with_optimizer and "opt_state" in raw:
+            if self._step_fn is None:
+                self._train_setup()
+            ckpt.load_opt_state(self.optimizer, param_entries(self.model),
+                                raw["opt_state"])
+        extra = raw.get("extra", {})
+        if extra:
+            self.best_val_loss = float(extra.get("best_val_loss",
+                                                 float("inf")))
+            self.best_ema_val_loss = float(extra.get("best_ema_val_loss",
+                                                     float("inf")))
+            ema = float(extra.get("ema_val_loss", -1.0))
+            self.ema_val_loss = None if ema < 0 else ema
+            self.early_stopping_counter = int(
+                extra.get("early_stopping_counter", 0))
+        epoch = int(raw.get("epoch", -1))
+        return None if epoch < 0 else epoch
 
     @torch.no_grad()
     def predict(self, patches: torch.Tensor) -> torch.Tensor:

@@ -94,7 +94,17 @@ def model_entries(model) -> Iterator[Entry]:
     yield "params", ("Conv3d_4", "bias"), model.head_bias, False
 
 
-def _lookup(tree: Tree, path) -> Any:
+def param_entries(model):
+    """(flax path, parameter, is a 1x1 conv kernel) of every parameter of
+    an MS_DSA_NET: the table the optimizer state is written and read by
+    (`train/checkpoint.py`)."""
+    return [(path, t, is_1x1) for coll, path, t, is_1x1 in model_entries(model)
+            if coll == "params"]
+
+
+def lookup(tree: Tree, path) -> Any:
+    """The leaf of a flax tree at `path` (flax's GroupNorm may sit directly
+    under the name or one level down)."""
     node = tree
     for i, key in enumerate(path):
         if key not in node and key == "GroupNorm_0" and i == len(path) - 2:
@@ -105,7 +115,7 @@ def _lookup(tree: Tree, path) -> Any:
 
 def _load(entries, variables: Tree) -> None:
     for coll, path, dst, is_1x1 in entries:
-        a = np.asarray(_lookup(variables[coll], path), dtype=np.float32)
+        a = np.asarray(lookup(variables[coll], path), dtype=np.float32)
         if is_1x1:
             a = a.reshape(a.shape[-2:])
         if tuple(a.shape) != tuple(dst.shape):

@@ -858,6 +858,92 @@ def test_max_pool2x_kernels_match_plain(dev, shape):
     assert torch.equal(dx, max_pool2x_bwd_plain(x, g))
 
 
+def _tied(gen, dev, shape):
+    """Small integers in bf16: the 2x2x2 blocks hold exact ties."""
+    return torch.randint(-3, 4, shape, generator=gen, device=dev).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("shape,tied,vec", [
+    ((4, 128, 128, 128, 16), True, 4),    # enc1 in the gated train step
+    ((4, 64, 64, 64, 32), False, 4),      # enc2
+    ((4, 64, 64, 64, 32), True, 4),
+    ((2, 6, 8, 10, 24), True, 4),
+    ((2, 4, 6, 8, 6), True, 2),           # C % 8 != 0
+    ((1, 4, 4, 4, 5), True, 1)])
+def test_max_pool2x_bwd_kernel_is_bit_equal(dev, shape, tied, vec):
+    """B9 (csrc/pool2x_bwd.cu) bit-equal to its plain version: at the
+    gated train step's two shapes, on tied and on random inputs, and at
+    the narrower channel widths; one launch a call, with the plan's
+    channel width."""
+    from fcd_tpu_torch.kernels.pool2x import (
+        max_pool2x_bwd,
+        max_pool2x_bwd_plain,
+        pool2x_bwd_plan,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    b, d, h, w, c = shape
+    x = (_tied(gen, dev, shape) if tied
+         else _randn(gen, dev, *shape, dtype=torch.bfloat16))
+    g = _randn(gen, dev, b, d // 2, h // 2, w // 2, c, dtype=torch.bfloat16)
+    assert pool2x_bwd_plan(b, d, h, w, c).vec == vec
+    before = max_pool2x_bwd.launches
+    dx = max_pool2x_bwd(x, g)
+    torch.cuda.synchronize()
+    assert max_pool2x_bwd.launches == before + 1
+    assert torch.equal(dx, max_pool2x_bwd_plain(x, g))
+    assert torch.equal(dx, max_pool2x_bwd(x, g))
+
+
+def test_max_pool2x_bwd_kernel_under_every_plan(dev):
+    """Each channel width and block count the plan takes gives the plain
+    version's bits, NaN blocks and signed zeros included."""
+    from fcd_tpu_torch.kernels.pool2x import (
+        BUILT,
+        max_pool2x_bwd,
+        max_pool2x_bwd_plain,
+        plan_for,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(14)
+    shape = (2, 8, 12, 16, 16)
+    x = _tied(gen, dev, shape)
+    x[0, 0, 0, 0, :3] = float("nan")
+    x[1, 2:4, 2:4, 2:4, 5] = 0.0
+    x[1, 2, 2, 2, 5] = -0.0
+    g = _randn(gen, dev, 2, 4, 6, 8, 16, dtype=torch.bfloat16)
+    g[0, 1, 1, 1, 0] = -0.0
+    want = max_pool2x_bwd_plain(x, g)
+    for vec in BUILT:
+        for blocks in (1, 3, 7, 1000):
+            plan = plan_for(*shape, vec, blocks)
+            assert torch.equal(max_pool2x_bwd(x, g, plan=plan), want), plan
+
+
+def test_max_pool2x_bwd_kernel_refuses_what_it_cannot_take(dev):
+    """A CUDA tensor the kernel does not take raises: another dtype, a
+    non-contiguous view, a plan of another shape, an 8-byte plan on a
+    tensor that is not 8-byte aligned."""
+    from fcd_tpu_torch.kernels.pool2x import max_pool2x_bwd, plan_for
+
+    bf = torch.bfloat16
+    x = torch.zeros(1, 4, 4, 4, 16, device=dev, dtype=bf)
+    g = torch.zeros(1, 2, 2, 2, 16, device=dev, dtype=bf)
+    with pytest.raises(TypeError, match="bf16"):
+        max_pool2x_bwd(x.float(), g.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        max_pool2x_bwd(x.transpose(1, 2), g)
+    with pytest.raises(ValueError, match="does not fit"):
+        max_pool2x_bwd(x, g, plan=plan_for(1, 8, 4, 4, 16, 4))
+    buf = torch.zeros(1 + x.numel(), device=dev, dtype=bf)
+    xu = buf[1:].view(x.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        max_pool2x_bwd(xu, g, plan=plan_for(1, 4, 4, 4, 16, 4))
+    # without a plan the unaligned view takes one channel a thread
+    assert torch.equal(max_pool2x_bwd(xu, g), torch.zeros_like(x))
+
+
 @pytest.mark.parametrize("c,o,bias,out_dtype", [
     (16, 2, True, torch.bfloat16), (24, 3, False, torch.float32)])
 def test_finale_head_kernel_matches_plain(dev, c, o, bias, out_dtype):

@@ -35,7 +35,8 @@ def test_import_leaves_jax_and_triton_out():
               "data.nifti", "data.preprocess", "data.manifest",
               "postproc.native", "postproc.morphology", "postproc.segment",
               "train.checkpoint", "flags", "kernels.pool2x",
-              "kernels.finale_head"):
+              "kernels.finale_head", "kernels.pool_sweep", "losses.extras",
+              "train.state"):
         assert f"fcd_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

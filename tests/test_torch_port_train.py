@@ -5,7 +5,8 @@ inputs.
 * DiceLoss / DiceCELoss: value and gradient against make_combined_loss
   (rel 1e-5).
 * epoch_lr over epochs 0-300 (exact) and 3 AdamW steps against
-  optax.inject_hyperparams(optax.adamw) (rel 1e-6).
+  optax.inject_hyperparams(optax.adamw) (rel 1e-6); with gradient
+  accumulation the update waits for the k-th micro-step.
 * Train BatchNorm (the affine from conv sums): output and running
   statistics against the JAX BatchNorm with mutable=["batch_stats"]
   (rel 1e-5).
@@ -196,10 +197,25 @@ def test_adamw_matches_optax():
 
 
 def test_gradient_accumulation_is_refused():
+    """gradient_accumulation_steps > 1 (optax.MultiSteps): the update is
+    refused on the first k - 1 micro-steps and lands, with the mean of the
+    k gradients, on the k-th (the comparison with optax is in
+    tests/test_torch_port_optim.py)."""
     cfg = get_default_params()
     cfg["gradient_accumulation_steps"] = 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_optimizer(cfg, torch.nn.Linear(2, 2))
+    lin = torch.nn.Linear(2, 2)
+    opt = make_optimizer(cfg, lin)
+    w0 = lin.weight.detach().clone()
+    for i, scale in enumerate((1.0, 3.0)):
+        opt.zero_grad()
+        lin.weight.grad = torch.full_like(lin.weight, scale)
+        lin.bias.grad = torch.full_like(lin.bias, scale)
+        set_lr(opt, 1e-3)
+        opt.step()
+        assert torch.equal(lin.weight, w0) == (i == 0)
+    # the first AdamW update, from the mean gradient 2
+    want = w0 * (1 - 1e-3 * cfg["weight_decay"]) - 1e-3 * 2.0 / (2.0 + 1e-8)
+    assert torch.allclose(lin.weight.detach(), want, rtol=0, atol=1e-7)
 
 
 # -- layers and blocks ------------------------------------------------------------
