@@ -25,8 +25,10 @@ Run from the repository root:
    kernels and nothing else) at six of the step's 23 calls, its d_ys and
    d_rs bit-equal to the plain version's, timed by the device time of all
    one call launches; its build report counts 16-byte loads. B5 runs at
-   the four DSA levels: phase A's sums, its finishing pass (phase B's
-   operands), phase B and the whole op against their plain versions and
+   the four DSA levels and at the widths of feature size 8 (level 3) and
+   feature size 32 with project size 128 (levels 3-6): phase A's sums,
+   its finishing pass (phase B's operands), phase B and the whole op
+   against their plain versions and
    the f32 reference, each phase timed by the device time of all one
    main-path call launches, and one dsa_attention call must launch exactly
    its three kernels. K3 and K4 run at the same four levels at the train
@@ -76,7 +78,22 @@ Run from the repository root:
    with the TV term, with GeneralizedDiceFocalLoss plus the boundary term,
    and with gradient_accumulation_steps 2 over two micro-steps. Later
    phases run the default gates.
-7. Prints the `kernels` JSON line, the card line, and last
+7. Holds the train batch's augmentation (data/augment.py::apply_augment,
+   PyTorch on the card) at 4x128^3x2 against the same function on the
+   CPU, on the same draws and noise with every transform on: bit-equal
+   without the rotation; with it the image within 1e-5 and the labels
+   equal; timed by device time beside its bytes bound.
+8. Drives the training CLI (`python -m fcd_tpu_torch.cli.train`, through
+   cli.train.main) at the default model's full width on a seeded
+   synthetic set written under build/ (3 train, 1 val, 1 test subject,
+   160x192x160 at 1 mm RAS, 8 patches a volume): 2 epochs of 4x128^3
+   steps with augmentation (every transform in the second), validation,
+   best and latest checkpoints, the CSV, the test without and with
+   post-processing; the counters set to 0 just before and read just
+   after, split by phase and held to the per-step and per-volume counts;
+   seconds per epoch and phase and the test metrics printed; then a
+   resume to 3 epochs.
+9. Prints the `kernels` JSON line, the card line, and last
    {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -614,10 +631,23 @@ DSA_LEVELS = (("level3", 32768, 32, 64), ("level4", 4096, 64, 64),
               ("level5", 512, 128, 64), ("level6", 64, 256, 32))
 
 
+# the widths B5 takes beyond the default model's (C16), at their levels'
+# 128^3 token counts: the two extremes of MS_DSA_NET at 4 heads, feature
+# size 8 at level 3 (C 16, head width 4, project size 16) and feature
+# size 32 with project size 128 (levels 3-5 at P 128, level 6 at C 512,
+# head width 128, whose weights stream)
+DSA_WIDTHS = (("fs8 level3", 32768, 16, 16),
+              ("fs32 P128 level3", 32768, 64, 128),
+              ("fs32 P128 level4", 4096, 128, 128),
+              ("fs32 P128 level5", 512, 256, 128),
+              ("fs32 level6", 64, 512, 32))
+
+
 def dsa_phases(dev, gen, small=False):
-    """B5 at the four levels' shapes (`small`: level 3 at 512 tokens)."""
+    """B5 at the four levels' shapes and at DSA_WIDTHS (`small`: level 3
+    at 512 tokens)."""
     out = []
-    for name, n, c, p in DSA_LEVELS:
+    for name, n, c, p in DSA_LEVELS + DSA_WIDTHS:
         out += dsa_phase(f"{name} N={n} C={c} P={p}", dev, gen,
                          min(n, 512) if small else n, c, p)
     return out
@@ -1639,6 +1669,270 @@ def cli_run(dev, card, params=None, native_shape=CLI_NATIVE):
     return launches
 
 
+# -- the training CLI ---------------------------------------------------------
+
+AUG_SHAPE = (4, 128, 128, 128, 2)   # the train step's batch
+AUG_REL_TOL = 1e-5                  # the rotated image, card against CPU
+
+
+def _sphere_labels(shape, dev, radius):
+    """(B, D, H, W, 1) f32 labels: a ball of `radius` voxels about each
+    sample's centre, shifted by 4 voxels a sample."""
+    import torch
+
+    b, d, h, w = shape[:4]
+    out = torch.zeros((b, d, h, w, 1), device=dev)
+    zz, yy, xx = torch.meshgrid(*(torch.arange(n, device=dev, dtype=torch.float32)
+                                  for n in (d, h, w)), indexing="ij")
+    for i in range(b):
+        c = [n / 2 + 4 * i - 6 for n in (d, h, w)]
+        out[i, ..., 0] = (((zz - c[0]) ** 2 + (yy - c[1]) ** 2
+                           + (xx - c[2]) ** 2) < radius ** 2).float()
+    return out
+
+
+def augment_phase(dev, gen, shape=AUG_SHAPE, iters=5):
+    """`apply_augment` (data/augment.py, PyTorch on the card) at the train
+    step's batch against the same function on the CPU, on the same draws
+    and noise, with every transform on: without the rotation the images
+    and labels bit-equal, with it (a nonzero angle a sample) the image
+    within AUG_REL_TOL and the labels equal. Timed by the device time of
+    all one call launches, beside the bytes bound (images, labels and
+    noise read once, images and labels written once). Returns ms."""
+    import torch
+
+    from fcd_tpu_torch.data.augment import apply_augment, draw_augment
+
+    b = shape[0]
+    images = torch.randn(shape, generator=gen, device=dev)
+    labels = _sphere_labels(shape, dev, shape[1] / 5)
+    noise = torch.randn(shape, generator=gen, device=dev)
+    base = draw_augment(b, shape[1:4], torch.Generator().manual_seed(SEED + 6),
+                        1.0, 1.0)
+    on = torch.ones(b, dtype=torch.bool)
+    host = [t.cpu() for t in (images, labels, noise)]
+    for rotate in (False, True):
+        draws = base._replace(rotate=on if rotate else ~on, shift_on=on,
+                              noise_on=on, dropout_on=on, gridmask_on=on)
+        gi, gl = apply_augment(images, labels, draws, noise)
+        wi, wl = apply_augment(*host[:2], draws, host[2])
+        a, r = rel_err(gi.cpu(), wi)
+        label_ok = torch_equal(gl.cpu(), wl)
+        image_ok = r <= AUG_REL_TOL if rotate else torch_equal(gi.cpu(), wi)
+        what = ("rotation (angles " + ", ".join(
+            f"{float(x):.3f}" for x in draws.angle) + "), "
+                if rotate else "no rotation, ")
+        print(f"augment {shape}: {what}flips {draws.flip.int().tolist()}, "
+              f"shift, noise, dropout, GridMask on: image max_abs_err "
+              f"{a:.3e} rel {r:.3e} ({'tol ' + str(AUG_REL_TOL) if rotate else 'bit-equal'}) "
+              f"{'ok' if image_ok else 'FAIL'}, labels equal "
+              f"{'ok' if label_ok else 'FAIL'}", flush=True)
+        if not (image_ok and label_ok):
+            raise AssertionError("apply_augment on the card disagrees with "
+                                 "the CPU")
+    if dev.type != "cuda":
+        return 0.0
+
+    def per_call(fn):
+        """Mean device ms of one call over `iters` traces of one call each
+        (a trace of several back-to-back calls of this chain of small ops
+        did not hold each op `iters` times on the card)."""
+        return sum(sum(device_times(fn, 1).values())
+                   for _ in range(iters)) / iters
+
+    ms = per_call(lambda: apply_augment(images, labels, draws, noise))
+    n = images.numel()
+    nbytes = 4 * (n + n // shape[-1] + n) + 4 * (n + n // shape[-1])
+    bound = nbytes / PEAK_BYTES * 1e3
+    devgen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    drawn = per_call(lambda: apply_augment(images, labels, draws,
+                                           generator=devgen))
+    wall = timed_ms(lambda: apply_augment(images, labels, draws, noise),
+                    iters)
+    print(f"augment {shape}: {ms:.4f} ms device (wall {wall:.4f} per call), "
+          f"noise drawn on the card {drawn:.4f} ms device; bound "
+          f"{bound:.4f} ms (bytes), roofline share {100 * bound / ms:.2f}% "
+          f"on {card_line()}", flush=True)
+    return ms
+
+
+TRAIN_CLI_SHAPE = (160, 192, 160)   # 1 mm RAS: 8 patches of 128^3
+TRAIN_CLI_SPLIT = (("sub01", "train"), ("sub02", "train"), ("sub03", "train"),
+                   ("sub04", "val"), ("sub05", "test"))
+# max probabilities 1.0: the ramp (scheduled_probs) gives 0 in the first
+# of two epochs and 0.5 in the second, so every transform runs there
+TRAIN_CLI_KWARGS = ("max_epochs=2", "keep_latest_model=True",
+                    "coarse_dropout_max_prob=1.0", "gridmask_max_prob=1.0")
+
+
+def write_train_set(root: str, params, shape=TRAIN_CLI_SHAPE) -> str:
+    """TRAIN_CLI_SPLIT's subjects: seeded smooth T1 and FLAIR volumes, the
+    FLAIR brighter in a spherical lesion whose label is saved beside
+    them, NIfTI at 1 mm RAS; and the split file. Returns its path."""
+    import numpy as np
+    from scipy import ndimage
+
+    from fcd_tpu_torch.data import nifti
+
+    zz, yy, xx = np.ogrid[:shape[0], :shape[1], :shape[2]]
+    for i, (subj, _) in enumerate(TRAIN_CLI_SPLIT):
+        rng = np.random.RandomState(SEED + 10 + i)
+        d = os.path.join(root, subj, "anat")
+        os.makedirs(d, exist_ok=True)
+        c = [rng.randint(n // 3, 2 * n // 3) for n in shape]
+        gt = ((zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2) < 12 ** 2
+        for j, seq in enumerate(params["seq"].split("+")):
+            img = ndimage.zoom(rng.normal(size=tuple(n // 8 for n in shape)),
+                               8, order=1) * 40 + 100 + 60 * j * gt
+            nifti.save(os.path.join(d, f"{seq}.nii.gz"), img.astype(np.float32))
+        nifti.save(os.path.join(d, "gt_reg.nii.gz"), gt.astype(np.uint8))
+    split = os.path.join(root, "split.txt")
+    with open(split, "w") as f:
+        f.write("".join(f"{s} {k}\n" for s, k in TRAIN_CLI_SPLIT))
+    return split
+
+
+def _csv_rows(path):
+    with open(path) as f:
+        lines = f.read().strip().splitlines()
+    keys = lines[0].split(",")
+    return keys, [dict(zip(keys, line.split(","))) for line in lines[1:]]
+
+
+def train_cli_run(dev, card, kwargs=TRAIN_CLI_KWARGS, device=None,
+                  shape=TRAIN_CLI_SHAPE):
+    """`python -m fcd_tpu_torch.cli.train` (cli.train.main) on the card at
+    the default model's full width, on a seeded synthetic set written under
+    build/ (3 train, 1 val, 1 test subject of TRAIN_CLI_SHAPE): 2 epochs of
+    4 x 128^3 steps with augmentation, validation and the best and latest
+    checkpoints, then the test without and with post-processing; the
+    counters set to 0 just before and read just after. Prints the launch
+    counts by phase (held to the per-step and per-volume counts), seconds
+    per epoch and phase, and the test metrics; checks finite losses, the
+    CSV, the checkpoints, that every transform ran in the second epoch, and
+    that a resume with max_epochs=3 appends epoch 3. Returns the counts."""
+    import shutil
+
+    import numpy as np
+
+    from fcd_tpu_torch.cli import train as cli_train
+    from fcd_tpu_torch.cli.args import parse_kwargs
+    from fcd_tpu_torch.config import get_default_params
+    from fcd_tpu_torch.infer.sliding_window import dense_patch_starts
+    from fcd_tpu_torch.train import trainer as trainer_mod
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "train_cli")
+    shutil.rmtree(root, ignore_errors=True)
+    params = parse_kwargs(get_default_params(), list(kwargs))
+    data = os.path.join(root, "data")
+    split = write_train_set(data, params, shape)
+    out = os.path.join(root, "runs")
+    argv = ["--data_dir", data, "--split_file", split, "--splits", "train",
+            "val", "test", "--save_dir", out, "--prefix", "smoke"]
+    argv += ["--device", str(device)] if device is not None else []
+
+    # launch counts by phase, and the augmentation's draws, read around the
+    # trainer's methods
+    by_phase = {"train steps": {}, "validation": {}, "test": {}}
+    draws_seen = []
+    cls = trainer_mod.ModelTrainer
+    orig = (cls.train_step, cls.evaluate, trainer_mod.draw_augment)
+
+    def counted(fn, phase_of):
+        def run(*a, **k):
+            before = read_counts()
+            res = fn(*a, **k)
+            acc = by_phase[phase_of(k)]
+            for name, v in read_counts().items():
+                acc[name] = acc.get(name, 0) + v - before[name]
+            return res
+        return run
+
+    def recorded(*a, **k):
+        draws_seen.append(orig[2](*a, **k))
+        return draws_seen[-1]
+
+    cls.train_step = counted(orig[0], lambda k: "train steps")
+    cls.evaluate = counted(orig[1], lambda k: "validation" if k.get(
+        "desc", "validation") == "validation" else "test")
+    trainer_mod.draw_augment = recorded
+    timings = {}
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = cli_train.main(argv + ["--kwargs", *kwargs], timings)
+        sync(dev)
+        total_s = time.perf_counter() - t0
+        launches = read_counts()
+    finally:
+        cls.train_step, cls.evaluate, trainer_mod.draw_augment = orig
+    run_dir = trainer.save_dir
+    roi = (params["patch_size"],) * 3
+    n_patches = len(dense_patch_starts(shape, roi, params["sw_overlap"]))
+    steps = sum(t["n_steps"] for t in timings.values())
+    epochs = len(timings)
+    want = {"train steps": {k: steps * v for k, v in per_train_step().items()},
+            "validation": {k: epochs * v for k, v in per_volume(n_patches).items()},
+            "test": {k: 2 * v for k, v in per_volume(n_patches).items()}}
+    print(f"train_cli: cli.train.main, MS_DSA_NET fs{params['feature_size']} "
+          f"P{params['project_size']}, {epochs} epochs of {steps // epochs} "
+          f"steps at {params['batch_size'] * params['samples_per_case']}x"
+          f"{roi[0]}^3, validation and test volumes {shape} "
+          f"({n_patches} patches): {total_s:.1f} s on {card}", flush=True)
+    for phase, counts in by_phase.items():
+        ok = counts == want[phase]
+        print(f"  launches, {phase}: {counts} (expected {want[phase]}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if dev.type == "cuda" and not ok:
+            raise AssertionError(f"train_cli {phase}: launch counts {counts} "
+                                 f"!= {want[phase]}")
+    for epoch, t in sorted(timings.items()):
+        print(f"  epoch {epoch + 1}: steps {t['steps']:.3f} s "
+              f"({t['n_steps']} steps), validation {t['validation']:.3f} s, "
+              f"checkpoints and log {t['save_log']:.3f} s")
+    for post, metrics in sorted(trainer.test_metrics.items()):
+        print(f"  test {'with' if post else 'without'} post-processing: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in metrics.items()))
+    if sorted(trainer.test_metrics) != [False, True]:
+        raise AssertionError("train_cli: the test did not run twice")
+    second = [d for d in draws_seen[steps // epochs:]]
+    ran = {name: any(bool(getattr(d, name).any()) for d in second)
+           for name in ("flip", "rotate", "shift_on", "noise_on", "dropout_on",
+                        "gridmask_on")}
+    print(f"  transforms drawn in epoch 2: {ran}")
+    if not all(ran.values()):
+        raise AssertionError(f"train_cli: not every transform ran in epoch 2 "
+                             f"({ran})")
+    keys, rows = _csv_rows(os.path.join(run_dir, "training_log.csv"))
+    losses = [float(r[k]) for r in rows for k in ("train_loss", "val_loss")]
+    files = {n: os.path.exists(os.path.join(run_dir, n))
+             for n in ("best_model.msgpack", "latest_model.msgpack")}
+    ok = (len(rows) == 2 and all(np.isfinite(losses)) and all(files.values())
+          and keys[:4] == ["epoch", "train_loss", "val_loss", "ema_val_loss"])
+    print(f"  CSV {keys}: {len(rows)} epochs, losses {losses}, checkpoints "
+          f"{files} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("train_cli: the CSV, the losses or the "
+                             "checkpoints are not as expected")
+    resume = argv[:argv.index("--splits")] + [
+        "--splits", "train", "val", "--save_dir", run_dir, "--resume"] + (
+        ["--device", str(device)] if device is not None else [])
+    t0 = time.perf_counter()
+    cli_train.main(resume + ["--kwargs", *[
+        "max_epochs=3" if k.startswith("max_epochs") else k for k in kwargs]])
+    # as the JAX trainer does, a resumed run starts the CSV anew (its
+    # header and the new epochs): epoch 3 must be there
+    _, rows = _csv_rows(os.path.join(run_dir, "training_log.csv"))
+    ok = [r["epoch"] for r in rows][-1:] == ["3"]
+    print(f"  resume with max_epochs=3 ({time.perf_counter() - t0:.1f} s): "
+          f"epochs in the CSV {[r['epoch'] for r in rows]} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("train_cli: the resume did not append epoch 3")
+    return launches
+
+
 PROFILE_KEYS = ("conv3d_kernel", "wgrad_mma_kernel", "wgrad_sum_kernel",
                 "finale_bwd",
                 "finale_kernel", "upsample_kernel", "dsa_phase_a",
@@ -1960,6 +2254,12 @@ BY_FUNCTION = {
 }
 
 
+def _dsa_width(label: str) -> str:
+    """'C=.. P=.. head width ..' of a B5 phase's label (4 heads)."""
+    c = int(label.split("C=")[1].split()[0])
+    return f"C={c} P={label.split('P=')[1].split()[0]} head width {c // 4}"
+
+
 def kernels_json(phases, by_path):
     """by_path: {path: launch counts of that path's run}; `launches` sums
     the paths, `launches_by_path` keeps them apart."""
@@ -2022,6 +2322,8 @@ def kernels_json(phases, by_path):
                     p.library_call_ms for p in mine)}
                if mine[0].call_ms is not None else {}),
             "shapes": [p.label for p in mine],
+            **({"widths": sorted({_dsa_width(p.label) for p in mine})}
+               if name.startswith("dsa_") else {}),
         })
     return {"kernels": out}
 
@@ -2148,6 +2450,10 @@ def main(argv=()) -> int:
                     "levels12_tie": "even"}:
         raise AssertionError(f"the default gates resolve to {defaults}")
     by_path["cli"] = cli_run(dev, card)
+    torch.cuda.empty_cache()
+    augment_phase(dev, gen)
+    torch.cuda.empty_cache()
+    by_path["train_cli"] = train_cli_run(dev, card)
     print(json.dumps(kernels_json(phases, by_path)))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -24,7 +24,7 @@
 // What bounds it (H100: 989 TFLOP/s bf16, 3.35 TB/s): per token each phase
 // reads ~6C bytes (bf16 x, f32 pos-embed) and does ~6C^2 + 4CP operations,
 // 30-250 operations a byte, under the card's ~295: the bytes. But the
-// levels are small (N = 64 .. 32768 tokens, C = 32 .. 256), so the bound
+// levels are small (N = 64 .. 32768 tokens, C = 8 .. 512), so the bound
 // is 0.2-3 us and what costs is latency: too few blocks for 132 SMs, long
 // chains of dependent steps in a block, and launches. The design:
 //   * The grid is (token chunk or tile, head, batch): a block computes only
@@ -39,7 +39,7 @@
 //     k-dimension), and in phase B for the channel attention, the scores
 //     and s vp^T; the softmax over P runs on the accumulator fragments
 //     (quad shuffles), and they become the next product's operand in
-//     registers. ch = 8 pads the k-dimension with zeros to 16.
+//     registers. ch <= 8 pads the k-dimension with zeros to 16.
 //   * q^T k, q2 and k2 take q and k in f32 on the CUDA cores: ch^2 + 2ch
 //     fused multiply-adds a token per head, each thread owning fixed
 //     outputs (and, at ch = 8, a fixed slice of the tile's tokens).
@@ -53,6 +53,26 @@
 //     Python): small levels get 16-token tiles and more blocks, level 3
 //     128-token tiles walked four to a block. kernels/dsa_sweep.py --plans
 //     times every tile and chunk length on the card (PERF.md).
+//
+// Widths: ch a power of two from 2 to 128, P 16, 32, 64 or 128, C = ch x
+// heads a power of two from 8 to 512: every (C, P) that MS_DSA_NET reaches
+// with 4 heads at feature sizes 4-32 and project sizes 16-128, all inside
+// the JAX kernel's gate (dsa_fused_supported: C and P 8-512).
+//   * ch 2 and 4 lie below mma.sync's n = 8: the head's columns are staged
+//     padded with zero columns to CHP = 8, which add nothing to the
+//     products; the per-head sums, the softmax and the stores read only the
+//     ch real columns. C = 8 pads the projections' depth with zero rows
+//     (weights) and columns (tokens) to 16.
+//   * ch = 128: a head's q | k | v_sa weights are C x 3ch bf16 (393 KB at
+//     C = 512), over the 227 KB a block may hold, and phase B's q | v_ca
+//     262 KB. Those blocks stream the weights over C in chunks of KW rows
+//     through a double buffer: the next chunk's loads are in flight while
+//     the tensor cores take this one, held in registers (where f32 weights
+//     are rounded to bf16, which cp.async cannot do) and stored into the
+//     other buffer, one barrier a chunk. They take 16-token tiles: one
+//     m-tile, each warp a fixed run of the projection's n-tiles, its sums
+//     in registers across the chunks. Other widths stage their weights once
+//     a block, as before.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -67,6 +87,8 @@ constexpr int NT = 256;            // threads of a phase A or B block
 constexpr int NW = NT / 32;
 constexpr int FT = 1024;           // threads of a finishing-pass block
 constexpr int SMEM_CAP = 232448;   // shared memory one block may hold
+constexpr int KW = 32;             // weight rows (of C) a streamed chunk
+constexpr int STREAM_CH = 128;     // head widths that stream their weights
 constexpr float L2_EPS = 1e-12f;   // fcd_tpu/ops/attention.py::_l2_normalize
 
 // a bf16 row pitch of at least n elements: a multiple of 8 elements that
@@ -75,6 +97,12 @@ constexpr float L2_EPS = 1e-12f;   // fcd_tpu/ops/attention.py::_l2_normalize
 __host__ __device__ constexpr int pitch(int n) {
   return (n + 7) / 8 * 8 + (((n + 7) / 8) % 2 == 0 ? 8 : 16);
 }
+
+// a head's columns as staged: ch, padded with zero columns to mma's n = 8
+__host__ __device__ constexpr int padded(int ch) { return ch < 8 ? 8 : ch; }
+
+// the projections' depth: C, padded with zeros to mma's k = 16
+__host__ __device__ constexpr int depth(int c) { return c < 16 ? 16 : c; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -152,6 +180,12 @@ __device__ __forceinline__ uint4 load8(const void* src, int f32, size_t i) {
   return *reinterpret_cast<const uint4*>(static_cast<const bf16*>(src) + i);
 }
 
+// element i of an f32 or bf16 array, as bf16
+__device__ __forceinline__ bf16 load1(const void* src, int f32, size_t i) {
+  return f32 ? __float2bfloat16(static_cast<const float*>(src)[i])
+             : static_cast<const bf16*>(src)[i];
+}
+
 // what both phases read
 struct Tok {
   const bf16* x;     // (B, N, C) raw tokens
@@ -166,114 +200,193 @@ struct Tok {
 
 // columns h*CH .. h*CH + CH of NS slots of the qkvv matrix (slot j's index
 // in the 4 bits j of `slots`), all C rows, as bf16 into Ws (pitch wp):
-// slot j at column j*CH
+// slot j at column j*CHP, its columns CH .. CHP zero; rows C .. depth(C)
+// zero
 template <int CH, int NS>
 __device__ void stage_weights(const Tok& tk, int slots, int h, bf16* Ws,
                               int wp) {
-  constexpr int VR = NS * CH / 8;  // 8-column vectors a row
-  constexpr int U = 8;             // vectors in flight a thread
+  constexpr int CHP = padded(CH);
   const int C = tk.C;
-  for (int v0 = threadIdx.x; v0 < C * VR; v0 += U * NT) {
-    uint4 val[U];
+  if constexpr (CH >= 8) {
+    constexpr int VR = NS * CH / 8;  // 8-column vectors a row
+    constexpr int U = 8;             // vectors in flight a thread
+    for (int v0 = threadIdx.x; v0 < C * VR; v0 += U * NT) {
+      uint4 val[U];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int v = v0 + u * NT;
-      if (v >= C * VR) break;
-      const int k = v / VR, r = v - k * VR;
-      const int j = r / (CH / 8), n = (r - j * (CH / 8)) * 8;
-      val[u] = load8(tk.w, tk.w_f32,
-                     (size_t)k * 4 * C + ((slots >> (4 * j)) & 15) * C +
-                         h * CH + n);
-    }
+      for (int u = 0; u < U; ++u) {
+        const int v = v0 + u * NT;
+        if (v >= C * VR) break;
+        const int k = v / VR, r = v - k * VR;
+        const int j = r / (CH / 8), n = (r - j * (CH / 8)) * 8;
+        val[u] = load8(tk.w, tk.w_f32,
+                       (size_t)k * 4 * C + ((slots >> (4 * j)) & 15) * C +
+                           h * CH + n);
+      }
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int v = v0 + u * NT;
-      if (v >= C * VR) break;
-      const int k = v / VR, r = v - k * VR;
-      const int j = r / (CH / 8), n = (r - j * (CH / 8)) * 8;
-      *reinterpret_cast<uint4*>(Ws + k * wp + j * CH + n) = val[u];
+      for (int u = 0; u < U; ++u) {
+        const int v = v0 + u * NT;
+        if (v >= C * VR) break;
+        const int k = v / VR, r = v - k * VR;
+        *reinterpret_cast<uint4*>(Ws + k * wp + r * 8) = val[u];
+      }
     }
+  } else {
+    for (int i = threadIdx.x; i < C * NS * CHP; i += NT) {
+      const int k = i / (NS * CHP), r = i - k * (NS * CHP);
+      const int j = r / CHP, n = r - j * CHP;
+      Ws[k * wp + r] =
+          n < CH ? load1(tk.w, tk.w_f32,
+                         (size_t)k * 4 * C + ((slots >> (4 * j)) & 15) * C +
+                             h * CH + n)
+                 : __float2bfloat16(0.f);
+    }
+  }
+  for (int i = threadIdx.x; i < (depth(C) - C) * NS * CHP; i += NT) {
+    const int k = i / (NS * CHP);
+    Ws[(C + k) * wp + i - k * (NS * CHP)] = __float2bfloat16(0.f);
   }
 }
 
+// rows k0 .. k0 + KW of the head's columns of NS slots (streamed widths,
+// CH % 8 == 0), U 8-column vectors a thread, held in registers as bf16
+// between their loads and their store into one buffer of a double buffer
+template <int CH, int NS>
+struct WeightChunk {
+  static constexpr int VR = NS * CH / 8;  // vectors a row
+  static constexpr int U = KW * VR / NT;  // vectors a thread
+  static_assert(KW * VR % NT == 0, "a chunk splits evenly over the block");
+  uint4 v[U];
+
+  __device__ __forceinline__ void load(const Tok& tk, int slots, int h,
+                                       int k0) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = threadIdx.x + u * NT;
+      const int k = i / VR, r = i - k * VR;
+      const int j = r / (CH / 8), n = (r - j * (CH / 8)) * 8;
+      v[u] = load8(tk.w, tk.w_f32,
+                   (size_t)(k0 + k) * 4 * tk.C +
+                       ((slots >> (4 * j)) & 15) * tk.C + h * CH + n);
+    }
+  }
+
+  __device__ __forceinline__ void store(bf16* Wb, int wp) const {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = threadIdx.x + u * NT;
+      const int k = i / VR;
+      *reinterpret_cast<uint4*>(Wb + k * wp + (i - k * VR) * 8) = v[u];
+    }
+  }
+};
+
 // (pos-embed +) LayerNorm of tokens n0 .. n0 + T of batch b into Xs (bf16,
-// pitch xp), rows past N zero. C / 8 lanes share a token, 8 channels each
-// (16-byte loads). With Bs, also t = x + pe of the head's channels
-// c0 .. c0 + CH into Bs (f32, pitch CH).
+// pitch xp), rows past N zero, columns C .. depth(C) zero. G = min(C / 8,
+// 32) lanes share a token, V = C / (8 G) runs of 8 channels each (16-byte
+// loads). With Bs, also t = x + pe of the head's channels c0 .. c0 + CH
+// into Bs (f32, pitch CH).
 template <int CH>
 __device__ void ln_tile(const Tok& tk, int b, int n0, bf16* Xs, int xp,
                         float* Bs, int c0) {
-  const int C = tk.C, G = C / 8;  // lanes a token
+  const int C = tk.C, G = C / 8 < 32 ? C / 8 : 32;  // lanes a token
+  const int V = C / 8 / G;                          // runs a lane (1 or 2)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int sub = lane / G, c = (lane - sub * G) * 8;
+  const int sub = lane / G, lg = lane - sub * G;
   const int per_pass = NW * (32 / G);
   for (int t0 = 0; t0 < tk.T; t0 += per_pass) {
     const int t = t0 + warp * (32 / G) + sub;
     const int n = n0 + t;
     const bool ok = t < tk.T && n < tk.N;
-    float v[8];
+    float v[2][8];
     float s = 0.f, q = 0.f;
-    if (ok) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(
-          tk.x + ((size_t)b * tk.N + n) * C + c);
-      const bf16* e = reinterpret_cast<const bf16*>(&raw);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = __bfloat162float(e[i]);
-      if (tk.pe != nullptr) {
-        const float4* pe =
-            reinterpret_cast<const float4*>(tk.pe + (size_t)n * C + c);
-        const float4 lo = pe[0], hi = pe[1];
-        v[0] += lo.x; v[1] += lo.y; v[2] += lo.z; v[3] += lo.w;
-        v[4] += hi.x; v[5] += hi.y; v[6] += hi.z; v[7] += hi.w;
+    for (int r = 0; r < 2; ++r) {
+      const int c = (lg + r * G) * 8;
+      if (ok && r < V) {
+        const uint4 raw = *reinterpret_cast<const uint4*>(
+            tk.x + ((size_t)b * tk.N + n) * C + c);
+        const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[r][i] = __bfloat162float(e[i]);
+        if (tk.pe != nullptr) {
+          const float4* pe =
+              reinterpret_cast<const float4*>(tk.pe + (size_t)n * C + c);
+          const float4 lo = pe[0], hi = pe[1];
+          v[r][0] += lo.x; v[r][1] += lo.y; v[r][2] += lo.z; v[r][3] += lo.w;
+          v[r][4] += hi.x; v[r][5] += hi.y; v[r][6] += hi.z; v[r][7] += hi.w;
+        }
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          s += v[r][i];
+          q += v[r][i] * v[r][i];
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 8; ++i) v[r][i] = 0.f;
       }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        s += v[i];
-        q += v[i] * v[i];
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = 0.f;
     }
     for (int o = G / 2; o > 0; o >>= 1) {
       s += __shfl_xor_sync(0xffffffffu, s, o);
       q += __shfl_xor_sync(0xffffffffu, q, o);
     }
     if (t >= tk.T) continue;
-    uint4 packed = make_uint4(0, 0, 0, 0);
+    float mu = 0.f, rstd = 0.f;
     if (ok) {
-      const float mu = s / C;
-      const float rstd = rsqrtf(fmaxf(q / C - mu * mu, 0.f) + tk.eps);
-      float y[8];
+      mu = s / C;
+      rstd = rsqrtf(fmaxf(q / C - mu * mu, 0.f) + tk.eps);
+    }
 #pragma unroll
-      for (int i = 0; i < 8; ++i)
-        y[i] = (v[i] - mu) * rstd * tk.lns[c + i] + tk.lnb[c + i];
-      packed = make_uint4(pack2(y[0], y[1]), pack2(y[2], y[3]),
-                          pack2(y[4], y[5]), pack2(y[6], y[7]));
+    for (int r = 0; r < 2; ++r) {
+      if (r >= V) break;
+      const int c = (lg + r * G) * 8;
+      uint4 packed = make_uint4(0, 0, 0, 0);
+      if (ok) {
+        float y[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          y[i] = (v[r][i] - mu) * rstd * tk.lns[c + i] + tk.lnb[c + i];
+        packed = make_uint4(pack2(y[0], y[1]), pack2(y[2], y[3]),
+                            pack2(y[4], y[5]), pack2(y[6], y[7]));
+      }
+      *reinterpret_cast<uint4*>(Xs + t * xp + c) = packed;
+      if (Bs != nullptr) {
+        if constexpr (CH >= 8) {
+          if (c >= c0 && c < c0 + CH) {
+            float4* dst = reinterpret_cast<float4*>(Bs + t * CH + c - c0);
+            dst[0] = make_float4(v[r][0], v[r][1], v[r][2], v[r][3]);
+            dst[1] = make_float4(v[r][4], v[r][5], v[r][6], v[r][7]);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 8; ++i)
+            if (c + i >= c0 && c + i < c0 + CH) Bs[t * CH + c + i - c0] = v[r][i];
+        }
+      }
     }
-    *reinterpret_cast<uint4*>(Xs + t * xp + c) = packed;
-    if (Bs != nullptr && c >= c0 && c < c0 + CH) {
-      float4* dst = reinterpret_cast<float4*>(Bs + t * CH + c - c0);
-      dst[0] = make_float4(v[0], v[1], v[2], v[3]);
-      dst[1] = make_float4(v[4], v[5], v[6], v[7]);
-    }
+    if (C < 16 && lg == 0)
+      *reinterpret_cast<uint4*>(Xs + t * xp + 8) = make_uint4(0, 0, 0, 0);
   }
 }
 
-// one warp's D[16 x 8*NI] = Xs[m0 .. m0 + 16][0 .. C) . Ws[0 .. C)[n0 ..
-// n0 + 8*NI), f32 accumulators (C % 16 == 0)
 template <int NI>
-__device__ __forceinline__ void proj_mma(const bf16* Xs, int xp,
-                                         const bf16* Ws, int wp, int C,
-                                         int m0, int n0, float (&acc)[NI][4]) {
-  const int lane = threadIdx.x & 31;
+__device__ __forceinline__ void zero_acc(float (&acc)[NI][4]) {
 #pragma unroll
   for (int j = 0; j < NI; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  for (int k0 = 0; k0 < C; k0 += 16) {
+}
+
+// one warp's D[16 x 8*NI] += Xs[m0 .. m0 + 16][kx .. kx + K) . Ws[0 ..
+// K)[n0 .. n0 + 8*NI), f32 accumulators (K % 16 == 0)
+template <int NI>
+__device__ __forceinline__ void proj_mma(const bf16* Xs, int xp, int kx,
+                                         const bf16* Ws, int wp, int K,
+                                         int m0, int n0, float (&acc)[NI][4]) {
+  const int lane = threadIdx.x & 31;
+  for (int k0 = 0; k0 < K; k0 += 16) {
     uint32_t a[4];
-    ldsm_x4(a, smem_u32(Xs + (m0 + (lane & 15)) * xp + k0 + (lane >> 4) * 8));
+    ldsm_x4(a, smem_u32(Xs + (m0 + (lane & 15)) * xp + kx + k0 +
+                        (lane >> 4) * 8));
     const bf16* wrow = Ws + (k0 + (lane & 15)) * wp + n0;
 #pragma unroll
     for (int j = 0; j < NI; j += 2) {
@@ -291,6 +404,34 @@ __device__ __forceinline__ void proj_mma(const bf16* Xs, int xp,
   }
 }
 
+// the 16-token tile's projections D[16 x NS*CH] (T = 16) with the weights
+// streamed over C in chunks of KW rows through the double buffer Wb (2 x
+// KW rows, pitch wp): the next chunk's loads are in flight while the
+// tensor cores take this one. Warp w owns n-tiles w*NTW .. (w + 1)*NTW.
+// Xs must be written before the call; it ends with the block synchronised
+// and Wb free.
+template <int CH, int NS>
+__device__ void proj_streamed(const Tok& tk, int slots, int h,
+                              const bf16* Xs, int xp, bf16* Wb, int wp,
+                              float (&acc)[NS * CH / 8 / NW][4]) {
+  constexpr int NTW = NS * CH / 8 / NW;
+  static_assert(NS * CH / 8 % NW == 0, "n-tiles split evenly over warps");
+  const int n0 = (threadIdx.x >> 5) * NTW * 8;
+  const int chunks = tk.C / KW;
+  zero_acc(acc);
+  WeightChunk<CH, NS> wc;
+  wc.load(tk, slots, h, 0);
+  wc.store(Wb, wp);
+  __syncthreads();
+  for (int i = 0; i < chunks; ++i) {
+    if (i + 1 < chunks) wc.load(tk, slots, h, (i + 1) * KW);
+    proj_mma<NTW>(Xs, xp, i * KW, Wb + (i & 1) * KW * wp, wp, KW, 0, n0,
+                  acc);
+    if (i + 1 < chunks) wc.store(Wb + ((i + 1) & 1) * KW * wp, wp);
+    __syncthreads();
+  }
+}
+
 // ---- phase A ---------------------------------------------------------------
 
 struct ParamsA {
@@ -303,43 +444,66 @@ struct ParamsA {
 
 template <int CH, int P>
 struct ShapeA {
-  static constexpr int WP = pitch(3 * CH);  // weights q | k | v_sa
-  static constexpr int EP = pitch(P);       // ef tile
-  static constexpr int KP = pitch(2 * CH);  // bf16(k) | bf16(v_sa)
-  static constexpr int QP = 2 * CH + 2;     // f32 q | k
+  static constexpr int CHP = padded(CH);
+  static constexpr bool STREAM = CH >= STREAM_CH;
+  static constexpr int WP = pitch(3 * CHP);  // weights q | k | v_sa
+  static constexpr int EP = pitch(P);        // ef tile
+  static constexpr int KP = pitch(2 * CHP);  // bf16(k) | bf16(v_sa)
+  static constexpr int QP = 2 * CHP + 2;     // f32 q | k
   static constexpr int NO = CH * CH + 2 * CH;  // qk, q2, k2: CUDA-core sums
   static constexpr int S = NT / NO > 1 ? NT / NO : 1;  // token slices
   static constexpr int OPT = (NO * S + NT - 1) / NT;   // sums a thread
   static constexpr int F = NO + 2 * CH * P;  // floats of a partial record
   static constexpr int WMA = P / 16;         // kp | vp: warps along P
-  static constexpr int WNA = NW / WMA;       //          and along 2 CH
-  static constexpr int NJ2 = 2 * CH / 8;
+  static constexpr int WNA = NW / WMA;       //          and along 2 CHP
+  static constexpr int NJ2 = 2 * CHP / 8;
   static constexpr int NIA = (NJ2 + WNA - 1) / WNA;
-  static constexpr int NI = CH / 8 < 4 ? CH / 8 : 4;  // n-tiles a unit
-  static constexpr int GROUPS = CH / 8 / NI;
+  static constexpr int NI = CHP / 8 < 4 ? CHP / 8 : 4;  // n-tiles a unit
+  static constexpr int GROUPS = CHP / 8 / NI;
+  static constexpr int NTW = 3 * CHP / 8 / NW;  // streamed: n-tiles a warp
   static int smem(int C, int T) {
-    return 2 * (C * WP + T * pitch(C) + T * EP + T * KP) +
+    return 2 * ((STREAM ? 2 * KW : depth(C)) * WP + T * pitch(depth(C)) +
+                T * EP + T * KP) +
            4 * (T * QP + (S > 1 ? S * NO : 0));
   }
 };
+
+// a projection's outputs (token rr, columns col, col + 1 of slot `slot`):
+// q and k in f32 into QK, bf16(k) and bf16(v_sa) into KVs
+template <int CHP>
+__device__ __forceinline__ void put_a(float* QK, int qp, bf16* KVs, int kp,
+                                      int slot, int rr, int col, float a0,
+                                      float a1) {
+  if (slot == 0) {
+    *reinterpret_cast<float2*>(QK + rr * qp + col) = make_float2(a0, a1);
+  } else if (slot == 1) {
+    *reinterpret_cast<float2*>(QK + rr * qp + CHP + col) = make_float2(a0, a1);
+    *reinterpret_cast<uint32_t*>(KVs + rr * kp + col) = pack2(a0, a1);
+  } else {
+    *reinterpret_cast<uint32_t*>(KVs + rr * kp + CHP + col) = pack2(a0, a1);
+  }
+}
 
 // grid (chunk, head, batch): the chunk's token tiles, head h's columns
 template <int CH, int P>
 __global__ void __launch_bounds__(NT) dsa_phase_a_kernel(const ParamsA p) {
   using SA = ShapeA<CH, P>;
+  constexpr int CHP = SA::CHP;
   const Tok& tk = p.tk;
   const int chunk = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int C = tk.C, T = tk.T, xp = pitch(C);
+  const int C = tk.C, T = tk.T, CK = depth(C), xp = pitch(CK);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);  // C x WP
-  bf16* Xs = Ws + C * SA::WP;                    // T x xp
+  // CK x WP staged weights, or the 2 x KW x WP double buffer
+  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Xs = Ws + (SA::STREAM ? 2 * KW : CK) * SA::WP;  // T x xp
   bf16* Es = Xs + T * xp;                        // T x EP
   bf16* KVs = Es + T * SA::EP;                   // T x KP
   float* QK = reinterpret_cast<float*>(KVs + T * SA::KP);  // T x QP
   float* red = QK + T * SA::QP;                  // S x NO
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  stage_weights<CH, 3>(tk, 0x310, h, Ws, SA::WP);  // slots q, k, v_sa
+  if constexpr (!SA::STREAM)
+    stage_weights<CH, 3>(tk, 0x310, h, Ws, SA::WP);  // slots q, k, v_sa
 
   // the CUDA-core sums this thread owns: u = tid + i*NT (u < NO * S) is
   // output u % NO (qk[r][c] = q_r . k_c, then q2, then k2) over token
@@ -347,7 +511,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_a_kernel(const ParamsA p) {
   float sacc[SA::OPT];
 #pragma unroll
   for (int i = 0; i < SA::OPT; ++i) sacc[i] = 0.f;
-  // kp | vp: D[P x 2CH] = ef^T [bf16(k) | bf16(v_sa)]; warp (wm, wn) owns
+  // kp | vp: D[P x 2CHP] = ef^T [bf16(k) | bf16(v_sa)]; warp (wm, wn) owns
   // rows wm*16 .. + 16 and n-tiles wn, wn + WNA, ...
   const int wm = warp % SA::WMA, wn = warp / SA::WMA;
   float kv[SA::NIA][4];
@@ -370,50 +534,59 @@ __global__ void __launch_bounds__(NT) dsa_phase_a_kernel(const ParamsA p) {
           n < tk.N ? load8(p.ef, p.ef_f32, (size_t)n * P + c)
                    : make_uint4(0, 0, 0, 0);
     }
-    __syncthreads();
-
-    // projections, in units of (16-token m-tile, slot, group of NI n-tiles)
-    const int units = (T / 16) * 3 * SA::GROUPS;
-    for (int u = warp; u < units; u += NW) {
-      const int mt = u / (3 * SA::GROUPS), r = u - mt * 3 * SA::GROUPS;
-      const int slot = r / SA::GROUPS, grp = r - slot * SA::GROUPS;
-      float acc[SA::NI][4];
-      proj_mma<SA::NI>(Xs, xp, Ws, SA::WP, C, mt * 16,
-                       slot * CH + grp * SA::NI * 8, acc);
-      const int row = mt * 16 + (lane >> 2);
+    if constexpr (SA::STREAM) {
+      float acc[SA::NTW][4];
+      proj_streamed<CH, 3>(tk, 0x310, h, Xs, xp, Ws, SA::WP, acc);
 #pragma unroll
-      for (int j = 0; j < SA::NI; ++j) {
-        const int col = grp * SA::NI * 8 + j * 8 + 2 * (lane & 3);
+      for (int j = 0; j < SA::NTW; ++j) {
+        const int gc = (warp * SA::NTW + j) * 8 + 2 * (lane & 3);
+        const int slot = gc / CHP;
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int rr = row + 8 * hf;
-          const float a0 = acc[j][2 * hf], a1 = acc[j][2 * hf + 1];
-          if (slot == 0) {
-            *reinterpret_cast<float2*>(QK + rr * SA::QP + col) =
-                make_float2(a0, a1);
-          } else if (slot == 1) {
-            *reinterpret_cast<float2*>(QK + rr * SA::QP + CH + col) =
-                make_float2(a0, a1);
-            *reinterpret_cast<uint32_t*>(KVs + rr * SA::KP + col) =
-                pack2(a0, a1);
-          } else {
-            *reinterpret_cast<uint32_t*>(KVs + rr * SA::KP + CH + col) =
-                pack2(a0, a1);
-          }
+        for (int hf = 0; hf < 2; ++hf)
+          put_a<CHP>(QK, SA::QP, KVs, SA::KP, slot, (lane >> 2) + 8 * hf,
+                     gc - slot * CHP, acc[j][2 * hf], acc[j][2 * hf + 1]);
+      }
+    } else {
+      __syncthreads();
+      // projections, in units of (16-token m-tile, slot, group of NI
+      // n-tiles)
+      const int units = (T / 16) * 3 * SA::GROUPS;
+      for (int u = warp; u < units; u += NW) {
+        const int mt = u / (3 * SA::GROUPS), r = u - mt * 3 * SA::GROUPS;
+        const int slot = r / SA::GROUPS, grp = r - slot * SA::GROUPS;
+        float acc[SA::NI][4];
+        zero_acc(acc);
+        proj_mma<SA::NI>(Xs, xp, 0, Ws, SA::WP, CK, mt * 16,
+                         slot * CHP + grp * SA::NI * 8, acc);
+        const int row = mt * 16 + (lane >> 2);
+#pragma unroll
+        for (int j = 0; j < SA::NI; ++j) {
+          const int col = grp * SA::NI * 8 + j * 8 + 2 * (lane & 3);
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf)
+            put_a<CHP>(QK, SA::QP, KVs, SA::KP, slot, row + 8 * hf, col,
+                       acc[j][2 * hf], acc[j][2 * hf + 1]);
         }
       }
     }
     __syncthreads();
 
     // q^T k, q2, k2 on the CUDA cores, f32 (rows past N are zero): columns
-    // ca, cb of QK
+    // ca (of q, or of k for k2) and cb of QK; k's columns start at CHP
 #pragma unroll
     for (int i = 0; i < SA::OPT; ++i) {
       const int u = tid + i * NT;
       if (u >= SA::NO * SA::S) continue;
       const int sl = u / SA::NO, o = u - sl * SA::NO;
-      const int ca = o < CH * CH ? o / CH : o - CH * CH;
-      const int cb = o < CH * CH ? CH + o % CH : ca;
+      int ca, cb;
+      if (o < CH * CH) {
+        ca = o / CH;
+        cb = CHP + o % CH;
+      } else if (o < CH * CH + CH) {
+        ca = cb = o - CH * CH;
+      } else {
+        ca = cb = CHP + o - CH * CH - CH;
+      }
       const int t1 = (sl + 1) * T / SA::S;
       float s = sacc[i];
       for (int t = sl * T / SA::S; t < t1; ++t)
@@ -445,11 +618,16 @@ __global__ void __launch_bounds__(NT) dsa_phase_a_kernel(const ParamsA p) {
   for (int i = 0; i < SA::NIA; ++i) {
     const int j = wn + i * SA::WNA;
     if (j >= SA::NJ2) continue;
+    // column n of [k | v_sa] (CHP each): kp or vp row r; n and r are even
+    // and CH is, so r + 1 < CH with r
     const int n = j * 8 + 2 * (lane & 3), pr = wm * 16 + (lane >> 2);
-    kvrec[n * P + pr] = kv[i][0];
-    kvrec[(n + 1) * P + pr] = kv[i][1];
-    kvrec[n * P + pr + 8] = kv[i][2];
-    kvrec[(n + 1) * P + pr + 8] = kv[i][3];
+    const int half = n / CHP, r = n - half * CHP;
+    if (r >= CH) continue;
+    float* dst = kvrec + (half * CH + r) * P + pr;
+    dst[0] = kv[i][0];
+    dst[P] = kv[i][1];
+    dst[8] = kv[i][2];
+    dst[P + 8] = kv[i][3];
   }
   if (SA::S == 1) {
 #pragma unroll
@@ -508,6 +686,9 @@ __device__ __forceinline__ float chunk_sum(const float* src, size_t stride,
   return s;
 }
 
+constexpr int SOFTMAX_COLS = 4;  // columns a lane in the finishing pass's
+                                 // softmax: CH <= 32 * 4
+
 // grid (1 + kv blocks, head, batch), FT threads: each thread adds few
 // values over the chunks, with many loads in flight. Block 0 adds qk, q2
 // and k2 and (glue) does dsa_glue's steps with its rounding points; the
@@ -555,22 +736,32 @@ __global__ void __launch_bounds__(FT) dsa_phase_a_finish(const ParamsF p) {
     p.qnorm[row + c] = qn[c];
   }
   __syncthreads();
-  // A = softmax_row(qk * qnorm_r * knorm_c * t1), stored transposed
+  // A = softmax_row(qk * qnorm_r * knorm_c * t1), stored transposed; lane
+  // l takes columns l, l + 32, ...
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float t1 = p.t1[h];
   bf16* ab = p.abig + ((size_t)b * p.heads + h) * CH * CH;
   for (int r = warp; r < CH; r += FT / 32) {
-    const int c0 = lane, c1 = lane + 32;
-    const float v0 = c0 < CH ? sm[r * CH + c0] * qn[r] * kn[c0] * t1
-                             : -INFINITY;
-    const float v1 = c1 < CH ? sm[r * CH + c1] * qn[r] * kn[c1] * t1
-                             : -INFINITY;
-    const float mx = warp_max(fmaxf(v0, v1));
-    const float e0 = c0 < CH ? expf(v0 - mx) : 0.f;
-    const float e1 = c1 < CH ? expf(v1 - mx) : 0.f;
-    const float sum = warp_sum(e0 + e1);
-    if (c0 < CH) ab[c0 * CH + r] = __float2bfloat16(e0 / sum);
-    if (c1 < CH) ab[c1 * CH + r] = __float2bfloat16(e1 / sum);
+    float v[SOFTMAX_COLS], mx = -INFINITY;
+#pragma unroll
+    for (int i = 0; i < SOFTMAX_COLS; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = c < CH ? sm[r * CH + c] * qn[r] * kn[c] * t1 : -INFINITY;
+      mx = fmaxf(mx, v[i]);
+    }
+    mx = warp_max(mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int i = 0; i < SOFTMAX_COLS; ++i) {
+      v[i] = lane + 32 * i < CH ? expf(v[i] - mx) : 0.f;
+      sum += v[i];
+    }
+    sum = warp_sum(sum);
+#pragma unroll
+    for (int i = 0; i < SOFTMAX_COLS; ++i) {
+      const int c = lane + 32 * i;
+      if (c < CH) ab[c * CH + r] = __float2bfloat16(v[i] / sum);
+    }
   }
 }
 
@@ -588,94 +779,129 @@ struct ParamsB {
 
 template <int CH, int P>
 struct ShapeB {
-  static constexpr int KC = CH < 16 ? 16 : CH;  // ch-deep products' depth
-  static constexpr int WP = pitch(2 * CH);      // weights q | v_ca
-  static constexpr int QP = pitch(KC);          // qn, v_ca, the output
-  static constexpr int AP = pitch(CH);          // abig_h
-  static constexpr int PP = pitch(P);           // kpt_h, vp_h
-  static constexpr int NI = CH / 8 < 4 ? CH / 8 : 4;
-  static constexpr int GROUPS = CH / 8 / NI;
+  static constexpr int CHP = padded(CH);
+  static constexpr bool STREAM = CH >= STREAM_CH;
+  static constexpr int KC = CHP < 16 ? 16 : CHP;  // ch-deep products' depth
+  static constexpr int WP = pitch(2 * CHP);       // weights q | v_ca
+  static constexpr int QP = pitch(KC);            // qn, v_ca, the output
+  static constexpr int AP = pitch(CHP);           // abig_h
+  static constexpr int PP = pitch(P);             // kpt_h, vp_h
+  static constexpr int NI = CHP / 8 < 4 ? CHP / 8 : 4;
+  static constexpr int GROUPS = CHP / 8 / NI;
+  static constexpr int NTW = 2 * CHP / 8 / NW;    // streamed: n-tiles a warp
   static int smem(int C, int T) {
-    return 2 * (C * WP + T * pitch(C) + 2 * T * QP + KC * AP + KC * PP +
-                CH * PP) +
-           4 * (T * CH + 2 * CH);
+    return 2 * ((STREAM ? 2 * KW : depth(C)) * WP + T * pitch(depth(C)) +
+                2 * T * QP + KC * AP + KC * PP + CHP * PP) +
+           4 * (T * CH + 2 * CHP);
   }
 };
+
+// a projection's outputs (token rr, columns col, col + 1 of slot `slot`):
+// bf16(q * qnorm) into Qs, bf16(v_ca) into Vs
+__device__ __forceinline__ void put_b(bf16* Qs, bf16* Vs, int qp,
+                                      const float* qn_s, int slot, int rr,
+                                      int col, float a0, float a1) {
+  if (slot == 0) {
+    a0 *= qn_s[col];
+    a1 *= qn_s[col + 1];
+  }
+  *reinterpret_cast<uint32_t*>((slot == 0 ? Qs : Vs) + rr * qp + col) =
+      pack2(a0, a1);
+}
 
 // grid (token tile, head, batch)
 template <int CH, int P>
 __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
   using SB = ShapeB<CH, P>;
-  constexpr int KC = SB::KC;
+  constexpr int KC = SB::KC, CHP = SB::CHP;
   const Tok& tk = p.tk;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int C = tk.C, T = tk.T, xp = pitch(C);
+  const int C = tk.C, T = tk.T, CK = depth(C), xp = pitch(CK);
   const int n0 = blockIdx.x * T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);  // C x WP
-  bf16* Xs = Ws + C * SB::WP;                    // T x xp
+  // CK x WP staged weights, or the 2 x KW x WP double buffer
+  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Xs = Ws + (SB::STREAM ? 2 * KW : CK) * SB::WP;  // T x xp
   bf16* Qs = Xs + T * xp;                        // T x QP: qn, then y
   bf16* Vs = Qs + T * SB::QP;                    // T x QP: bf16(v_ca)
   bf16* ABs = Vs + T * SB::QP;                   // KC x AP
   bf16* KPs = ABs + KC * SB::AP;                 // KC x PP
-  bf16* VPs = KPs + KC * SB::PP;                 // CH x PP
-  float* Bs = reinterpret_cast<float*>(VPs + CH * SB::PP);  // T x CH
-  float* qn_s = Bs + T * CH;
-  float* gm_s = qn_s + CH;
+  bf16* VPs = KPs + KC * SB::PP;                 // CHP x PP
+  float* Bs = reinterpret_cast<float*>(VPs + CHP * SB::PP);  // T x CH
+  float* qn_s = Bs + T * CH;                     // CHP
+  float* gm_s = qn_s + CHP;                      // CHP
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  stage_weights<CH, 2>(tk, 0x20, h, Ws, SB::WP);  // slots q, v_ca
+  if constexpr (!SB::STREAM)
+    stage_weights<CH, 2>(tk, 0x20, h, Ws, SB::WP);  // slots q, v_ca
   ln_tile<CH>(tk, b, n0, Xs, xp, Bs, h * CH);
   const size_t hc = (size_t)b * C + h * CH;
   const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int v = tid; v < KC * (CH / 8); v += NT) {
-    const int r = v / (CH / 8), c = (v - r * (CH / 8)) * 8;
-    *reinterpret_cast<uint4*>(ABs + r * SB::AP + c) =
-        r < CH ? *reinterpret_cast<const uint4*>(
-                     p.abig + (((size_t)b * tk.heads + h) * CH + r) * CH + c)
-               : zero;
+  const bf16* abh = p.abig + ((size_t)b * tk.heads + h) * CH * CH;
+  if constexpr (CH >= 8) {
+    for (int v = tid; v < KC * (CH / 8); v += NT) {
+      const int r = v / (CH / 8), c = (v - r * (CH / 8)) * 8;
+      *reinterpret_cast<uint4*>(ABs + r * SB::AP + c) =
+          r < CH ? *reinterpret_cast<const uint4*>(abh + r * CH + c) : zero;
+    }
+  } else {
+    for (int v = tid; v < KC * CHP; v += NT) {
+      const int r = v / CHP, c = v - r * CHP;
+      ABs[r * SB::AP + c] =
+          r < CH && c < CH ? abh[r * CH + c] : __float2bfloat16(0.f);
+    }
   }
   for (int v = tid; v < KC * (P / 8); v += NT) {
     const int r = v / (P / 8), c = (v - r * (P / 8)) * 8;
     *reinterpret_cast<uint4*>(KPs + r * SB::PP + c) =
         r < CH ? *reinterpret_cast<const uint4*>(p.kpt + (hc + r) * P + c)
                : zero;
-    if (r < CH)
+    if (r < CHP)
       *reinterpret_cast<uint4*>(VPs + r * SB::PP + c) =
-          *reinterpret_cast<const uint4*>(p.vp + (hc + r) * P + c);
+          r < CH ? *reinterpret_cast<const uint4*>(p.vp + (hc + r) * P + c)
+                 : zero;
   }
-  for (int c = tid; c < CH; c += NT) {
-    qn_s[c] = p.qnorm[hc + c];
-    gm_s[c] = p.gamma[h * CH + c];
+  for (int c = tid; c < CHP; c += NT) {
+    qn_s[c] = c < CH ? p.qnorm[hc + c] : 0.f;
+    gm_s[c] = c < CH ? p.gamma[h * CH + c] : 0.f;
   }
-  if (KC > CH)  // zero depth padding of qn and v_ca (CH = 8)
+  if (KC > CHP)  // zero depth padding of qn and v_ca (CHP = 8)
     for (int v = tid; v < 2 * T; v += NT)
-      *reinterpret_cast<uint4*>((v < T ? Qs : Vs) + (v % T) * SB::QP + CH) =
+      *reinterpret_cast<uint4*>((v < T ? Qs : Vs) + (v % T) * SB::QP + CHP) =
           zero;
   __syncthreads();
 
-  // q and v_ca of the head, in units of (m-tile, slot, group)
-  const int units = (T / 16) * 2 * SB::GROUPS;
-  for (int u = warp; u < units; u += NW) {
-    const int mt = u / (2 * SB::GROUPS), r = u - mt * 2 * SB::GROUPS;
-    const int slot = r / SB::GROUPS, grp = r - slot * SB::GROUPS;
-    float acc[SB::NI][4];
-    proj_mma<SB::NI>(Xs, xp, Ws, SB::WP, C, mt * 16,
-                     slot * CH + grp * SB::NI * 8, acc);
-    const int row = mt * 16 + (lane >> 2);
+  // q and v_ca of the head
+  if constexpr (SB::STREAM) {
+    float acc[SB::NTW][4];
+    proj_streamed<CH, 2>(tk, 0x20, h, Xs, xp, Ws, SB::WP, acc);
 #pragma unroll
-    for (int j = 0; j < SB::NI; ++j) {
-      const int col = grp * SB::NI * 8 + j * 8 + 2 * (lane & 3);
+    for (int j = 0; j < SB::NTW; ++j) {
+      const int gc = (warp * SB::NTW + j) * 8 + 2 * (lane & 3);
+      const int slot = gc / CHP;
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int rr = row + 8 * hf;
-        float a0 = acc[j][2 * hf], a1 = acc[j][2 * hf + 1];
-        if (slot == 0) {
-          a0 *= qn_s[col];
-          a1 *= qn_s[col + 1];
-        }
-        *reinterpret_cast<uint32_t*>((slot == 0 ? Qs : Vs) + rr * SB::QP +
-                                     col) = pack2(a0, a1);
+      for (int hf = 0; hf < 2; ++hf)
+        put_b(Qs, Vs, SB::QP, qn_s, slot, (lane >> 2) + 8 * hf,
+              gc - slot * CHP, acc[j][2 * hf], acc[j][2 * hf + 1]);
+    }
+  } else {
+    // in units of (m-tile, slot, group)
+    const int units = (T / 16) * 2 * SB::GROUPS;
+    for (int u = warp; u < units; u += NW) {
+      const int mt = u / (2 * SB::GROUPS), r = u - mt * 2 * SB::GROUPS;
+      const int slot = r / SB::GROUPS, grp = r - slot * SB::GROUPS;
+      float acc[SB::NI][4];
+      zero_acc(acc);
+      proj_mma<SB::NI>(Xs, xp, 0, Ws, SB::WP, CK, mt * 16,
+                       slot * CHP + grp * SB::NI * 8, acc);
+      const int row = mt * 16 + (lane >> 2);
+#pragma unroll
+      for (int j = 0; j < SB::NI; ++j) {
+        const int col = grp * SB::NI * 8 + j * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf)
+          put_b(Qs, Vs, SB::QP, qn_s, slot, row + 8 * hf, col,
+                acc[j][2 * hf], acc[j][2 * hf + 1]);
       }
     }
   }
@@ -685,51 +911,43 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
   for (int mt = warp; mt < T / 16; mt += NW) {
     const int m0 = mt * 16;
     if (n0 + m0 >= tk.N) continue;
-    uint32_t av[KC / 16][4], aq[KC / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      const int off = (m0 + (lane & 15)) * SB::QP + kk * 16 + (lane >> 4) * 8;
-      ldsm_x4(av[kk], smem_u32(Vs + off));
-      ldsm_x4(aq[kk], smem_u32(Qs + off));
-    }
-    float o[CH / 8][4];
-#pragma unroll
-    for (int j = 0; j < CH / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    const int aoff = (m0 + (lane & 15)) * SB::QP + (lane >> 4) * 8;
+    float o[CHP / 8][4];
+    zero_acc(o);
     // channel attention: o = bf16(v_ca) . abig_h
 #pragma unroll
     for (int kk = 0; kk < KC / 16; ++kk) {
+      uint32_t av[4];
+      ldsm_x4(av, smem_u32(Vs + aoff + kk * 16));
       const bf16* brow = ABs + (kk * 16 + (lane & 15)) * SB::AP;
 #pragma unroll
-      for (int j = 0; j < CH / 8; j += 2) {
-        if (j + 1 < CH / 8) {
+      for (int j = 0; j < CHP / 8; j += 2) {
+        if (j + 1 < CHP / 8) {
           uint32_t bb[4];
           ldsm_x4_t(bb, smem_u32(brow + j * 8 + (lane >> 4) * 8));
-          mma16816(o[j], av[kk], bb[0], bb[1]);
-          mma16816(o[j + 1], av[kk], bb[2], bb[3]);
+          mma16816(o[j], av, bb[0], bb[1]);
+          mma16816(o[j + 1], av, bb[2], bb[3]);
         } else {
           uint32_t bb[2];
           ldsm_x2_t(bb, smem_u32(brow + j * 8));
-          mma16816(o[j], av[kk], bb[0], bb[1]);
+          mma16816(o[j], av, bb[0], bb[1]);
         }
       }
     }
     // scores s = qn . kpt_h (16 x P, f32)
     float s[P / 8][4];
-#pragma unroll
-    for (int j = 0; j < P / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+    zero_acc(s);
 #pragma unroll
     for (int kk = 0; kk < KC / 16; ++kk) {
+      uint32_t aq[4];
+      ldsm_x4(aq, smem_u32(Qs + aoff + kk * 16));
       const bf16* brow = KPs + (kk * 16 + (lane & 15)) * SB::PP;
 #pragma unroll
       for (int j = 0; j < P / 8; j += 2) {
         uint32_t bb[4];
         ldsm_x4_t(bb, smem_u32(brow + j * 8 + (lane >> 4) * 8));
-        mma16816(s[j], aq[kk], bb[0], bb[1]);
-        mma16816(s[j + 1], aq[kk], bb[2], bb[3]);
+        mma16816(s[j], aq, bb[0], bb[1]);
+        mma16816(s[j + 1], aq, bb[2], bb[3]);
       }
     }
     // softmax over P: rows g (s[.][0..1]) and g + 8 (s[.][2..3]), each
@@ -771,8 +989,8 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
           pack2(s[2 * kk + 1][0] * inv0, s[2 * kk + 1][1] * inv0),
           pack2(s[2 * kk + 1][2] * inv1, s[2 * kk + 1][3] * inv1)};
 #pragma unroll
-      for (int j = 0; j < CH / 8; j += 2) {
-        if (j + 1 < CH / 8) {
+      for (int j = 0; j < CHP / 8; j += 2) {
+        if (j + 1 < CHP / 8) {
           uint32_t bb[4];
           ldsm_x4(bb, smem_u32(VPs + (j * 8 + (lane >> 4) * 8 + (lane & 7)) *
                                          SB::PP +
@@ -787,12 +1005,14 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
         }
       }
     }
-    // y = bf16(t + gamma * o), staged in this warp's rows of Qs, then
-    // stored as 16-byte runs of the head's channels
+    // y = bf16(t + gamma * o) of the head's CH real channels, staged in
+    // this warp's rows of Qs, then stored as 16-byte runs (CH >= 8) or
+    // element by element
     __syncwarp();
 #pragma unroll
-    for (int j = 0; j < CH / 8; ++j) {
+    for (int j = 0; j < CHP / 8; ++j) {
       const int col = j * 8 + 2 * (lane & 3);
+      if (col >= CH) continue;
       const int r = m0 + (lane >> 2);
 #pragma unroll
       for (int hf = 0; hf < 2; ++hf) {
@@ -803,13 +1023,20 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
       }
     }
     __syncwarp();
-    for (int v = lane; v < 16 * (CH / 8); v += 32) {
-      const int r = v / (CH / 8), c = (v - r * (CH / 8)) * 8;
-      const int n = n0 + m0 + r;
-      if (n < tk.N)
-        *reinterpret_cast<uint4*>(p.out + ((size_t)b * tk.N + n) * C +
-                                  h * CH + c) =
-            *reinterpret_cast<const uint4*>(Qs + (m0 + r) * SB::QP + c);
+    bf16* dst = p.out + ((size_t)b * tk.N + n0 + m0) * C + h * CH;
+    if constexpr (CH >= 8) {
+      for (int v = lane; v < 16 * (CH / 8); v += 32) {
+        const int r = v / (CH / 8), c = (v - r * (CH / 8)) * 8;
+        if (n0 + m0 + r < tk.N)
+          *reinterpret_cast<uint4*>(dst + (size_t)r * C + c) =
+              *reinterpret_cast<const uint4*>(Qs + (m0 + r) * SB::QP + c);
+      }
+    } else {
+      for (int v = lane; v < 16 * CH; v += 32) {
+        const int r = v / CH, c = v - r * CH;
+        if (n0 + m0 + r < tk.N)
+          dst[(size_t)r * C + c] = Qs[(m0 + r) * SB::QP + c];
+      }
     }
   }
 }
@@ -830,9 +1057,12 @@ template <int CH, int P>
 int launch_a(const ParamsA& pa, const ParamsF& pf, int chunks, int B,
              cudaStream_t s) {
   using SA = ShapeA<CH, P>;
-  static bool ready = false;
+  static bool ready = false, finish_ready = false;
   auto kern = dsa_phase_a_kernel<CH, P>;
   cudaError_t e = allow_smem(kern, ready);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  // the finishing pass holds NO + 2 CH floats (67.6 KB at CH = 128)
+  e = allow_smem(dsa_phase_a_finish, finish_ready);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int bytes = SA::smem(pa.tk.C, pa.tk.T);
   if (bytes > SMEM_CAP) return static_cast<int>(cudaErrorInvalidValue);
@@ -876,17 +1106,31 @@ Tok tokens(const void* x, const float* pe, const float* lns, const float* lnb,
   return t;
 }
 
-// the shapes the kernels take (kernels/dsa_attention.py::dsa_plan checks
-// them first): ch in {8, 16, 32, 64}, P in {32, 64}, C / 8 a power of two
-// up to 32, T a multiple of 16
+bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
+
+// the shapes the kernels take (kernels/dsa_attention.py::plan_for checks
+// them first): ch a power of two from 2 to 128, P in {16, 32, 64, 128}, C
+// a power of two from 8 to 512, T a multiple of 16, and T = 16 where the
+// weights stream (ch = 128)
 bool supported(int C, int P, int heads, int T) {
-  const int ch = heads > 0 ? C / heads : 0;
-  const int g = C / 8;
-  return heads > 0 && C % heads == 0 &&
-         (ch == 8 || ch == 16 || ch == 32 || ch == 64) &&
-         (P == 32 || P == 64) && C % 8 == 0 && g >= 2 && g <= 32 &&
-         (g & (g - 1)) == 0 && T > 0 && T % 16 == 0;
+  if (heads <= 0 || C % heads) return false;
+  const int ch = C / heads;
+  return pow2(ch) && ch >= 2 && ch <= 128 &&
+         (P == 16 || P == 32 || P == 64 || P == 128) && C >= 8 && C <= 512 &&
+         C % 8 == 0 && pow2(C / 8) && T > 0 && T % 16 == 0 &&
+         (ch < STREAM_CH || (T == 16 && C % KW == 0));
 }
+
+// the instances: every (ch, P) of supported(), keyed ch * 1000 + P
+#define DSA_CASES_CH(CH, CALL)                \
+  case CH * 1000 + 16: return CALL(CH, 16);   \
+  case CH * 1000 + 32: return CALL(CH, 32);   \
+  case CH * 1000 + 64: return CALL(CH, 64);   \
+  case CH * 1000 + 128: return CALL(CH, 128);
+#define DSA_CASES(CALL)                                                  \
+  DSA_CASES_CH(2, CALL) DSA_CASES_CH(4, CALL) DSA_CASES_CH(8, CALL)      \
+  DSA_CASES_CH(16, CALL) DSA_CASES_CH(32, CALL) DSA_CASES_CH(64, CALL)   \
+  DSA_CASES_CH(128, CALL)
 
 }  // namespace
 
@@ -936,18 +1180,12 @@ extern "C" int fcd_dsa_phase_a(const void* x, const float* pe,
     pf.kp = static_cast<float*>(o3);
     pf.vp = static_cast<float*>(o4);
   }
-  const int key = (C / heads) * 100 + P;
-  switch (key) {
-    case 832: return launch_a<8, 32>(pa, pf, chunks, B, s);
-    case 864: return launch_a<8, 64>(pa, pf, chunks, B, s);
-    case 1632: return launch_a<16, 32>(pa, pf, chunks, B, s);
-    case 1664: return launch_a<16, 64>(pa, pf, chunks, B, s);
-    case 3232: return launch_a<32, 32>(pa, pf, chunks, B, s);
-    case 3264: return launch_a<32, 64>(pa, pf, chunks, B, s);
-    case 6432: return launch_a<64, 32>(pa, pf, chunks, B, s);
-    case 6464: return launch_a<64, 64>(pa, pf, chunks, B, s);
+#define DSA_LAUNCH_A(CH, P_) launch_a<CH, P_>(pa, pf, chunks, B, s)
+  switch ((C / heads) * 1000 + P) {
+    DSA_CASES(DSA_LAUNCH_A)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef DSA_LAUNCH_A
 }
 
 extern "C" int fcd_dsa_phase_b(const void* x, const float* pe,
@@ -968,16 +1206,10 @@ extern "C" int fcd_dsa_phase_b(const void* x, const float* pe,
   pb.vp = static_cast<const bf16*>(vp);
   pb.gamma = gamma;
   pb.out = static_cast<bf16*>(out);
-  const int key = (C / heads) * 100 + P;
-  switch (key) {
-    case 832: return launch_b<8, 32>(pb, B, s);
-    case 864: return launch_b<8, 64>(pb, B, s);
-    case 1632: return launch_b<16, 32>(pb, B, s);
-    case 1664: return launch_b<16, 64>(pb, B, s);
-    case 3232: return launch_b<32, 32>(pb, B, s);
-    case 3264: return launch_b<32, 64>(pb, B, s);
-    case 6432: return launch_b<64, 32>(pb, B, s);
-    case 6464: return launch_b<64, 64>(pb, B, s);
+#define DSA_LAUNCH_B(CH, P_) launch_b<CH, P_>(pb, B, s)
+  switch ((C / heads) * 1000 + P) {
+    DSA_CASES(DSA_LAUNCH_B)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef DSA_LAUNCH_B
 }

@@ -236,7 +236,9 @@ FLAGS: Dict[str, Flag] = {
     "FCD_EVAL_QUEUE": Flag(
         "4", "Streamed-eval in-flight window (volumes dispatched ahead "
         "of their metric fetch).", values="int>=1",
-        port="The epoch loop's streamed evaluation: not ported (ROADMAP A2)"),
+        port="The epoch loop's streamed evaluation (`ModelTrainer."
+        "evaluate`): the volumes in flight before a loss and mask are "
+        "fetched"),
     "FCD_RBG_DROPOUT": Flag(
         "1", "Per-step dropout keys use the TPU hardware RBG PRNG instead "
         "of threefry: the level-3 spatial-attention dropout's counter-"

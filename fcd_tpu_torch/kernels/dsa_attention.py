@@ -166,8 +166,11 @@ def dsa_phase_b_plain(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale,
 
 SMS = 132                  # the H100's streaming multiprocessors
 TILES = (128, 64, 32, 16)  # token tiles, largest first
-HEAD_WIDTHS = (8, 16, 32, 64)
-PROJECTIONS = (32, 64)
+HEAD_WIDTHS = (2, 4, 8, 16, 32, 64, 128)
+PROJECTIONS = (16, 32, 64, 128)
+MAX_C = 512                # fcd_tpu/kernels/dsa_attention.py:345
+STREAM_WIDTH = 128         # head widths whose blocks stream their weights
+KW = 32                    # weight rows a streamed chunk
 PHASE_A_BLOCKS = 2 * SMS   # phase A's chunks aim at this many blocks
 NT = 256                   # threads of every block of csrc/dsa.cu
 SMEM_CAP = 232448          # shared memory one block may hold (227 KiB)
@@ -180,23 +183,47 @@ def _pitch(n: int) -> int:
     return 8 * v + (8 if v % 2 == 0 else 16)
 
 
+def _padded(ch: int) -> int:
+    """csrc/dsa.cu::padded: a head's columns as staged, zero padded to 8."""
+    return max(ch, 8)
+
+
+def _weight_rows(c: int, ch: int) -> int:
+    """Rows of the weight buffer: C padded to 16 (csrc/dsa.cu::depth), or
+    the double buffer of 2 x KW rows where the weights stream."""
+    return 2 * KW if ch >= STREAM_WIDTH else max(c, 16)
+
+
 def smem_a(c: int, ch: int, p: int, t: int) -> int:
     """Shared memory of a phase A block (csrc/dsa.cu::ShapeA::smem): the
     head's q | k | v_sa weights, the LayerNormed tile, the ef tile, bf16(k)
     | bf16(v_sa), f32 q | k, and the token slices' sums."""
+    chp, ck = _padded(ch), max(c, 16)
     no = ch * ch + 2 * ch
     s = max(1, NT // no)
-    return 2 * (c * _pitch(3 * ch) + t * _pitch(c) + t * _pitch(p)
-                + t * _pitch(2 * ch)) + 4 * (t * (2 * ch + 2)
-                                             + (s * no if s > 1 else 0))
+    return 2 * (_weight_rows(c, ch) * _pitch(3 * chp) + t * _pitch(ck)
+                + t * _pitch(p) + t * _pitch(2 * chp)) \
+        + 4 * (t * (2 * chp + 2) + (s * no if s > 1 else 0))
 
 
 def smem_b(c: int, ch: int, p: int, t: int) -> int:
     """Shared memory of a phase B block (csrc/dsa.cu::ShapeB::smem)."""
-    kc = max(ch, 16)
-    return 2 * (c * _pitch(2 * ch) + t * _pitch(c) + 2 * t * _pitch(kc)
-                + kc * _pitch(ch) + kc * _pitch(p) + ch * _pitch(p)) \
-        + 4 * (t * ch + 2 * ch)
+    chp, ck = _padded(ch), max(c, 16)
+    kc = max(chp, 16)
+    return 2 * (_weight_rows(c, ch) * _pitch(2 * chp) + t * _pitch(ck)
+                + 2 * t * _pitch(kc) + kc * _pitch(chp) + kc * _pitch(p)
+                + chp * _pitch(p)) + 4 * (t * ch + 2 * chp)
+
+
+def supported(c: int, p: int, heads: int) -> bool:
+    """The widths the kernels take (csrc/dsa.cu::supported): head width a
+    power of two from 2 to 128, P in PROJECTIONS, C a power of two from 8
+    to MAX_C. That is every (C, P) MS_DSA_NET reaches with 4 heads at
+    feature sizes 4-32 and project sizes 16-128."""
+    if heads <= 0 or c % heads:
+        return False
+    return (c // heads in HEAD_WIDTHS and p in PROJECTIONS
+            and 8 <= c <= MAX_C and c & (c - 1) == 0)
 
 
 class DsaPlan(NamedTuple):
@@ -236,18 +263,18 @@ def plan_for(n: int, c: int, p: int, heads: int, batch: int, tile: int,
              per_chunk: int) -> DsaPlan:
     """The plan with this token tile and these tiles a phase A block walks.
     Raises ValueError on shapes the kernels do not take."""
-    ch = c // heads if heads > 0 else 0
-    g = c // 8
-    if (heads <= 0 or c % heads or ch not in HEAD_WIDTHS
-            or p not in PROJECTIONS or c % 8 or not 2 <= g <= 32
-            or g & (g - 1) or n < 1 or batch < 1):
+    if not supported(c, p, heads) or n < 1 or batch < 1:
         raise ValueError(
             f"dsa kernels: N={n} C={c} P={p} heads={heads} batch={batch} not "
             f"supported (head width in {HEAD_WIDTHS}, P in {PROJECTIONS}, C "
-            "a power of two from 16 to 256)")
+            f"a power of two from 8 to {MAX_C})")
+    ch = c // heads
     if tile < 16 or tile % 16 or per_chunk < 1:
         raise ValueError(f"dsa kernels: tile {tile} (a multiple of 16) and "
                          f"{per_chunk} tiles a chunk")
+    if ch >= STREAM_WIDTH and tile != 16:
+        raise ValueError(f"dsa kernels: head width {ch} streams its weights "
+                         f"and takes 16-token tiles, not {tile}")
     tiles = -(-n // tile)
     per_chunk = min(per_chunk, tiles)
     chunks = -(-tiles // per_chunk)
@@ -263,12 +290,17 @@ def plan_for(n: int, c: int, p: int, heads: int, batch: int, tile: int,
 def dsa_plan(n: int, c: int, p: int, heads: int, batch: int = 1) -> DsaPlan:
     """The kernels' token tile and phase A's chunks for N tokens of width C,
     projection P, `heads` heads. The tile is the largest of TILES whose
-    tiles alone give every SM a block (tile x head x batch), else 16: the
-    small levels get small tiles and more blocks. Phase A's blocks then walk
-    enough tiles each to come to about PHASE_A_BLOCKS blocks, so level 3's
-    partials stay few. Raises ValueError on shapes the kernels do not take."""
-    tile = next((t for t in TILES if -(-n // t) * heads * batch >= SMS),
-                TILES[-1]) if heads > 0 else TILES[-1]
+    tiles alone give every SM a block (tile x head x batch) and whose
+    blocks fit in shared memory, else 16: the small levels get small tiles
+    and more blocks; streamed head widths take 16. Phase A's blocks then
+    walk enough tiles each to come to about PHASE_A_BLOCKS blocks, so level
+    3's partials stay few. Raises ValueError on shapes the kernels do not
+    take."""
+    ch = c // heads if heads > 0 else 0
+    tile = next((t for t in TILES
+                 if -(-n // t) * heads * batch >= SMS and ch < STREAM_WIDTH
+                 and max(smem_a(c, ch, p, t), smem_b(c, ch, p, t))
+                 <= SMEM_CAP), TILES[-1])
     tiles = -(-n // tile)
     want = min(tiles, -(-PHASE_A_BLOCKS // max(1, heads * batch)))
     return plan_for(n, c, p, heads, batch, tile, -(-tiles // want))

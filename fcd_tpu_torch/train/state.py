@@ -102,6 +102,18 @@ def group_norms(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
     return {k: v.sqrt() for k, v in sums.items()}
 
 
+def param_group_norms(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """{top-level flax module name: the global L2 norm of its parameters}
+    (the `pnorm_*` columns of the epoch log), as 0-d f32 tensors."""
+    sums: Dict[str, torch.Tensor] = {}
+    for coll, path, t, _ in model_entries(model):
+        if coll != "params":
+            continue
+        s = t.detach().float().square().sum()
+        sums[path[0]] = sums[path[0]] + s if path[0] in sums else s
+    return {k: v.sqrt() for k, v in sums.items()}
+
+
 def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
                     grad_norms: bool = False) -> Callable:
     """step(image, label, lr, seed=None, thickness=None) -> loss (a 0-d

@@ -1,22 +1,27 @@
-"""ModelTrainer: inference and the train step.
+"""ModelTrainer: the training and evaluation engine.
 
-Counterpart of `fcd_tpu/train/trainer.py::ModelTrainer` with what
-`python -m fcd_tpu.cli.infer` needs (model construction, weights from a
-seeded initialisation or a fcd_tpu variables tree through `weights.py`,
-`inference(volume)`, `_activate`), the training step
-(`train_step(images, labels, lr, thickness=None)`, the body of the JAX
-trainer's epoch loop, trainer.py:578-635, with every loss, gradient
-accumulation and `log_layer_norms`), and `save_model` / `load_model` of
-checkpoints in the JAX trainer's format with the optimizer state, the step
-count and the `extra` fields (trainer.py:203-229, `train/checkpoint.py`).
-The epoch loop, augmentation, the data loaders and validation are queued
-in ROADMAP.md.
+Counterpart of `fcd_tpu/train/trainer.py::ModelTrainer`: model
+construction, weights from a seeded initialisation or a fcd_tpu variables
+tree through `weights.py`, `inference(volume)`, the training step
+(`train_step(images, labels, lr, thickness=None)`, with every loss,
+gradient accumulation and `log_layer_norms`), `save_model` / `load_model`
+of checkpoints in the JAX trainer's format with the optimizer state, the
+step count and the `extra` fields (trainer.py:203-229,
+`train/checkpoint.py`), and the epoch loop (trainer.py:358-681): `train`
+(the patch loader, augmentation on the card, the steps, validation,
+EMA-smoothed early stopping, best and latest checkpoints, resume, the CSV
+log, the test at the end), `validate`, `evaluate` (streamed), `test` and
+`log_metrics`. The port runs on one card; the JAX trainer's data mesh and
+`ragged_dp` paths are `parallel/` (ROADMAP Queue A8).
 
 `train_step` returns the loss as a device tensor and never waits for the
-card, as the JAX trainer fetches each step's loss one step late. Its
-dropout draws from generators seeded by params['seed']: a CPU generator
-gives each step the seed of the spatial-attention dropout hash, and a
-generator on the trainer's device draws the masks made in PyTorch.
+card; the epoch loop reads each step's loss one step late. Dropout and
+augmentation draw from generators seeded by params['seed']: a CPU
+generator gives each step the seed of the spatial-attention dropout hash,
+a generator on the trainer's device draws the dropout masks made in
+PyTorch, a CPU generator draws the augmentation's choices and one on the
+device its Gaussian noise. None of them reproduces jax.random's streams
+(ROADMAP C2).
 
 `inference` always runs the exact static sliding-window engine. The JAX
 trainer's `sw_bucket` policy exists only to bound XLA recompiles across
@@ -36,23 +41,55 @@ kernels' plain versions, whatever the setting.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import importlib
+import importlib.util
+import os
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from fcd_tpu_torch import resolve_device
+from fcd_tpu_torch import flags, resolve_device
 from fcd_tpu_torch.config import get_default_params
+from fcd_tpu_torch.data.augment import (
+    apply_augment,
+    draw_augment,
+    scheduled_probs,
+)
+from fcd_tpu_torch.data.dataset import FCDDataset, PatchLoader, VolumeLoader
 from fcd_tpu_torch.infer.sliding_window import sliding_window_inference
 from fcd_tpu_torch.losses.combined import make_combined_loss
+from fcd_tpu_torch.metrics import (
+    calculate_lesion_wise_metrics,
+    calculate_voxel_level_metrics,
+)
 from fcd_tpu_torch.models.factory import get_model
+from fcd_tpu_torch.postproc.segment import post_process_prediction
 from fcd_tpu_torch.train import checkpoint as ckpt
-from fcd_tpu_torch.train.state import make_optimizer, make_train_step
+from fcd_tpu_torch.train.schedule import epoch_lr
+from fcd_tpu_torch.train.state import (
+    make_optimizer,
+    make_train_step,
+    param_group_norms,
+)
 from fcd_tpu_torch.weights import (
     export_flax_variables,
     load_flax_variables,
     param_entries,
 )
+
+
+def _get_wandb():
+    """The wandb module when it is installed and WANDB_MODE is not
+    "disabled", else None (fcd_tpu/train/trainer.py:40-48). The port has
+    no import statement naming it: it is looked up here, at run time."""
+    if os.environ.get("WANDB_MODE") == "disabled":
+        return None
+    if importlib.util.find_spec("wandb") is None:
+        return None
+    return importlib.import_module("wandb")
 
 
 def compute_dtype_for(params: Dict[str, Any],
@@ -80,30 +117,50 @@ def _triple(x):
 
 
 class ModelTrainer:
+    latest_model_filename = "latest_model.msgpack"  # fcd_tpu/train/checkpoint.py:18
+    best_model_filename = "best_model.msgpack"
+
     def __init__(self, params: Optional[Dict[str, Any]] = None,
-                 device=None):
+                 device=None, verbose: bool = True):
         self.params = get_default_params() if params is None else params
+        self.verbose = verbose
         # the compute type is settled before anything reaches the card
         dev = resolve_device(None) if device is None else torch.device(device)
         self.compute_dtype = compute_dtype_for(self.params, dev)
         self.device = resolve_device(dev)
         self.model, self.params = get_model(self.params)
-        gen = torch.Generator().manual_seed(int(self.params.get("seed", 42)))
+        seed = int(self.params.get("seed", 42))
+        gen = torch.Generator().manual_seed(seed)
         self.model.reset_parameters(gen)
         self.model.to(self.device).eval()
         self.model.compute_dtype = self.compute_dtype
+        if verbose:
+            print("Trainable parameters: "
+                  f"{sum(t.numel() for t in self.model.parameters())}")
+        self.loss_fn = make_combined_loss(self.params)
         self._step_fn = None
         self.step = 0               # train steps taken (the JAX state.step)
         self._log_norms = bool(self.params.get("log_layer_norms", False))
         self.last_grad_norms = None
+        # the augmentation's draws (host) and its Gaussian noise (device)
+        self._aug_gen = torch.Generator().manual_seed(seed + 2)
+        self._noise_gen = torch.Generator(
+            device=self.device).manual_seed(seed + 3)
+        self.wandb = _get_wandb()
+        self.test_metrics: Dict[bool, Dict[str, float]] = {}
         self.init_stats()
 
     def init_stats(self) -> None:
-        """The validation bookkeeping a checkpoint's `extra` carries."""
+        """The validation bookkeeping (a checkpoint's `extra` carries the
+        first four)."""
         self.best_val_loss = float("inf")
         self.best_ema_val_loss = float("inf")
+        self.best_val_loss_epoch = -1
+        self.best_ema_val_loss_epoch = -1
         self.ema_val_loss: Optional[float] = None
         self.early_stopping_counter = 0
+        self.log_keys: Optional[List[str]] = None
+        self.train_start_time = time.time()
 
     def _extra(self) -> Dict[str, Any]:
         return {
@@ -117,7 +174,6 @@ class ModelTrainer:
     def _train_setup(self) -> None:
         seed = int(self.params.get("seed", 42))
         self.optimizer = make_optimizer(self.params, self.model)
-        self.loss_fn = make_combined_loss(self.params)
         self._seed_gen = torch.Generator().manual_seed(seed)
         self.model.dropout_rng.generator = torch.Generator(
             device=self.device).manual_seed(seed + 1)
@@ -141,7 +197,8 @@ class ModelTrainer:
              torch.as_tensor(thickness, dtype=torch.float32).to(self.device))
         seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
                                  generator=self._seed_gen))
-        out = self._step_fn(x, y, lr, seed, t)
+        with torch.enable_grad():   # also under a caller's no_grad
+            out = self._step_fn(x, y, lr, seed, t)
         self.step += 1
         if self._log_norms:
             out, self.last_grad_norms = out
@@ -224,3 +281,320 @@ class ModelTrainer:
         elif self.params.get("sigmoid", False):
             t = torch.sigmoid(t)
         return t.cpu().numpy()
+
+    # -- evaluation ------------------------------------------------------------
+
+    def _eval_finish(self, logits: torch.Tensor, label: torch.Tensor):
+        """The per-volume eval epilogue on the trainer's device (JAX's
+        `_eval_finish_fn`): (logits, label) -> (the loss, a uint8 binary
+        prediction), so the host fetches a scalar and a uint8 volume."""
+        loss = self.loss_fn(logits[None], label[None])
+        probs = logits.float()
+        if self.params.get("softmax", True) and logits.shape[-1] > 1:
+            probs = torch.softmax(probs, dim=-1)
+        elif self.params.get("sigmoid", False):
+            probs = torch.sigmoid(probs)
+        return loss, (probs > 0.5).to(torch.uint8)
+
+    @torch.no_grad()
+    def evaluate(self, loader, post_process=True,
+                 compute_lesion_level_metrics=False, include_hd95=False,
+                 desc="validation"):
+        """Per-subject sliding-window evaluation (fcd_tpu/train/trainer.py:
+        387-447): the mean loss and the voxel (and lesion) metrics.
+
+        Streamed as the JAX trainer streams it: each volume's inference and
+        epilogue are launched, and its loss and mask fetched only once
+        FCD_EVAL_QUEUE (default 4) later volumes are in flight, so the
+        host's fetch and post-processing overlap the card's work."""
+        total_loss, n = 0.0, 0
+        all_preds: List[np.ndarray] = []
+        all_labels: List[np.ndarray] = []
+        fcd_idx = 0 if self.params["chans_out"] == 1 else 1
+        window = max(int(flags.get("FCD_EVAL_QUEUE")), 1)
+        pending = deque()
+
+        def drain():
+            nonlocal total_loss, n
+            loss_dev, bin_dev, label = pending.popleft()
+            total_loss += float(loss_dev)
+            n += 1
+            binary = bin_dev.cpu().numpy().astype(np.float32)[None]
+            if post_process:
+                binary = post_process_prediction(
+                    binary, self.params["min_region_size"])
+            all_preds.append(binary[0, ..., fcd_idx])
+            all_labels.append(label[..., 0])
+
+        for vol in loader:
+            logits = self.inference(vol.image)
+            label = torch.from_numpy(vol.label).to(self.device)
+            loss_dev, bin_dev = self._eval_finish(logits, label)
+            pending.append((loss_dev, bin_dev, vol.label))
+            if len(pending) > window:
+                drain()
+        while pending:
+            drain()
+
+        metrics = calculate_voxel_level_metrics(
+            all_preds, all_labels, compute_hd95=include_hd95)
+        if compute_lesion_level_metrics:
+            metrics.update(calculate_lesion_wise_metrics(all_preds,
+                                                         all_labels))
+        if self.verbose:
+            for k, v in metrics.items():
+                print(f"{k}: {v:.4f}", flush=True)
+        return total_loss / max(n, 1), metrics
+
+    def test(self, data_dir: str, test_subjects: Sequence[str],
+             post_process=True) -> Dict[str, float]:
+        """The test split's voxel, lesion-wise and HD95 metrics, printed
+        as two CSV lines (fcd_tpu/train/trainer.py:449-462), and kept in
+        `test_metrics[post_process]`."""
+        if not test_subjects:
+            print("No test subjects provided, skipping testing.")
+            return {}
+        ds = FCDDataset(data_dir, self.params, test_subjects,
+                        verbose=self.verbose)
+        _, metrics = self.evaluate(
+            VolumeLoader(ds), post_process=post_process,
+            compute_lesion_level_metrics=True, include_hd95=True,
+            desc="test" + ("_postprocess" if post_process else ""))
+        print(",".join(metrics.keys()) + ",", flush=True)
+        print(",".join(f"{v:.4f}" for v in metrics.values()) + ",",
+              flush=True)
+        self.test_metrics[post_process] = metrics
+        return metrics
+
+    # -- training --------------------------------------------------------------
+
+    def validate(self, epoch: int, val_loader):
+        """Validation loss and metrics, the EMA of the loss, the best and
+        EMA-best epochs and the early-stopping counter
+        (fcd_tpu/train/trainer.py:466-499)."""
+        avg_val_loss, metrics = self.evaluate(
+            val_loader, post_process=False,
+            compute_lesion_level_metrics=False, include_hd95=False,
+            desc="validation")
+        new_best = False
+        alpha = self.params.get("val_loss_ema_alpha", 0.7)
+        if self.ema_val_loss is None:
+            self.ema_val_loss = avg_val_loss
+        else:
+            self.ema_val_loss = ((1 - alpha) * avg_val_loss
+                                 + alpha * self.ema_val_loss)
+        if avg_val_loss < self.best_val_loss:
+            self.best_val_loss = avg_val_loss
+            self.best_val_loss_epoch = epoch + 1
+            new_best = True
+        if self.ema_val_loss < self.best_ema_val_loss:
+            self.best_ema_val_loss = self.ema_val_loss
+            self.best_ema_val_loss_epoch = epoch + 1
+            self.early_stopping_counter = 0
+        else:
+            self.early_stopping_counter += 1
+        if self.verbose:
+            print(f"current epoch: {epoch + 1} validation loss: "
+                  f"{avg_val_loss:.4f}, ema_val_loss: "
+                  f"{self.ema_val_loss:.4f}\nbest validation loss: "
+                  f"{self.best_val_loss:.4f} at epoch: "
+                  f"{self.best_val_loss_epoch}", flush=True)
+        return new_best, metrics, avg_val_loss
+
+    def log_metrics(self, epoch, train_loss, val_loss, ema_val_loss,
+                    val_metrics, lr, elapsed_time, csv_path=None):
+        """One row of the epoch log, with the JAX trainer's columns in its
+        order (fcd_tpu/train/trainer.py:501-534); with log_layer_norms the
+        parameter and gradient norms per top-level group."""
+        values = {
+            "epoch": epoch + 1,
+            "train_loss": train_loss,
+            "val_loss": val_loss if val_loss is not None else 0,
+            "ema_val_loss": ema_val_loss if ema_val_loss is not None else 0,
+            **({f"val_{k}": v for k, v in val_metrics.items()}
+               if val_metrics else {}),
+            "learning_rate": lr,
+            "epoch_time": elapsed_time,
+        }
+        if self._log_norms:
+            for k, v in param_group_norms(self.model).items():
+                values[f"pnorm_{k}"] = float(v)
+            if self.last_grad_norms is not None:
+                for k, v in self.last_grad_norms.items():
+                    values[f"gnorm_{k}"] = float(v)
+        if self.wandb is not None and getattr(self.wandb, "run",
+                                              None) is not None:
+            total = sum(float(v) ** 2 for v in
+                        param_group_norms(self.model).values())
+            self.wandb.log({**values, "param_global_norm": total ** 0.5})
+        if csv_path:
+            if (epoch == 0 or self.log_keys is None
+                    or not os.path.exists(csv_path)):
+                with open(csv_path, "w") as f:
+                    f.write(",".join(values.keys()) + "\n")
+                self.log_keys = list(values.keys())
+            with open(csv_path, "a") as f:
+                f.write(",".join(str(values.get(k, ""))
+                                 for k in self.log_keys) + "\n")
+
+    def _to_device(self, batch: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(batch)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def train(self, data_dir: str, train_subjects, val_subjects,
+              save_dir: str, test_subjects=(), resume: bool = False,
+              timings: Optional[Dict[int, Dict[str, float]]] = None):
+        """The epoch loop (fcd_tpu/train/trainer.py:536-681): per epoch the
+        patch loader, augmentation on the card, the train steps,
+        validation, the best and (keep_latest_model) latest checkpoints and
+        the CSV log, until max_epochs or the early stop; then the best
+        model's test without and with post-processing. `timings`, when
+        given, gets each epoch's seconds: steps, validation, saving and
+        logging (the card synchronised at each boundary)."""
+        if not train_subjects or not val_subjects:
+            raise ValueError(
+                "Train and validation subject lists must be non-empty.")
+        os.makedirs(save_dir, exist_ok=True)
+        p = self.params
+
+        train_ds = FCDDataset(data_dir, p, train_subjects,
+                              verbose=self.verbose)
+        val_ds = FCDDataset(data_dir, p, val_subjects, verbose=self.verbose)
+        train_loader = PatchLoader(train_ds, p, seed=p.get("seed", 42))
+        val_loader = VolumeLoader(val_ds)
+
+        latest_path = os.path.join(save_dir, self.latest_model_filename)
+        best_path = os.path.join(save_dir, self.best_model_filename)
+        log_path = os.path.join(save_dir, "training_log.csv")
+
+        max_epochs = p.get("max_epochs", 300)
+        min_epochs = p.get("min_epochs", 0)
+        min_lr = p.get("min_lr", 1e-6)
+        patience = p.get("early_stopping_patience", 25)
+
+        self.init_stats()
+        current_epoch = 0
+        if resume and os.path.exists(latest_path):
+            loaded = self.load_model(latest_path, with_optimizer=True)
+            current_epoch = (loaded + 1) if loaded is not None else 0
+            print(f"Loaded existing model weights from {latest_path}")
+
+        if self.wandb is not None and os.environ.get("WANDB_MODE") != \
+                "offline":
+            try:
+                self.wandb.init(
+                    project=p.get("wandb_project", "FCD"),
+                    name=f"{p['model_type']}_{os.path.basename(save_dir)}",
+                    config={**{k: str(v) for k, v in p.items()},
+                            "optimizer": "AdamW"})
+            except Exception:
+                self.wandb = None
+
+        def clock() -> float:
+            if timings is not None and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            return time.perf_counter()
+
+        use_aug = bool(p.get("augment", True))
+        cuda = self.device.type == "cuda"
+        self.train_start_time = time.time()
+        for epoch in range(current_epoch, max_epochs):
+            epoch_start = time.time()
+            t0 = clock()
+            if self.verbose:
+                print("-" * 10)
+                print(f"epoch {epoch + 1}/{max_epochs}", flush=True)
+
+            lr = epoch_lr(p, epoch)
+            cd_prob, gm_prob = scheduled_probs(p, epoch)
+
+            epoch_loss, step_count = 0.0, 0
+            pending = None
+            n_steps = -(-len(train_ds) // max(p.get("batch_size", 1), 1))
+            for images, labels in train_loader:
+                xb, yb = self._to_device(images), self._to_device(labels)
+                if use_aug:
+                    draws = draw_augment(xb.shape[0], xb.shape[1:4],
+                                         self._aug_gen, cd_prob, gm_prob)
+                    xb, yb = apply_augment(xb, yb, draws,
+                                           generator=self._noise_gen)
+                loss = self.train_step(xb, yb, lr)
+                # the one-step-lagged loss fetch (trainer.py:620-633): in
+                # eager PyTorch `loss.item()` after the next step's launch
+                # would wait for that step too. So each step's loss is
+                # copied into a pinned host tensor without blocking, an
+                # event is recorded behind the copy, and the value is read
+                # one step later, while the card runs the next step.
+                host = torch.empty((), dtype=torch.float32,
+                                   pin_memory=cuda)
+                host.copy_(loss.detach(), non_blocking=cuda)
+                event = None
+                if cuda:
+                    event = torch.cuda.Event()
+                    event.record()
+                if pending is not None:
+                    epoch_loss += self._read_loss(*pending)
+                    step_count += 1
+                    if self.verbose:
+                        print(f"\r  {step_count}/{n_steps} "
+                              f"loss: {epoch_loss / step_count:.4f}",
+                              end="", flush=True)
+                pending = (event, host)
+            if pending is not None:
+                epoch_loss += self._read_loss(*pending)
+                step_count += 1
+                if self.verbose:
+                    print(f"\r  {step_count}/{n_steps} "
+                          f"loss: {epoch_loss / step_count:.4f}",
+                          end="", flush=True)
+            if self.verbose and step_count:
+                print(flush=True)
+            epoch_loss /= max(step_count, 1)
+            t1 = clock()
+
+            # every epoch validates (the JAX trainer's val_interval is 1)
+            new_best, val_metrics, val_loss = self.validate(epoch,
+                                                            val_loader)
+            t2 = clock()
+            if new_best:
+                self.save_model(best_path, epoch)
+                if self.verbose:
+                    print("saved new best metric model", flush=True)
+            stop_flag = epoch >= min_epochs and (
+                self.early_stopping_counter >= patience or lr <= min_lr)
+
+            if p.get("keep_latest_model", False):
+                self.save_model(latest_path, epoch)
+
+            elapsed = time.time() - epoch_start
+            self.log_metrics(epoch, epoch_loss, val_loss, self.ema_val_loss,
+                             val_metrics, lr, elapsed, csv_path=log_path)
+            if timings is not None:
+                timings[epoch] = {"steps": t1 - t0, "validation": t2 - t1,
+                                  "save_log": clock() - t2,
+                                  "n_steps": step_count}
+
+            if stop_flag:
+                print(f"Early stopping triggered after {epoch + 1} epochs")
+                break
+
+        total = time.time() - self.train_start_time
+        print(f"Training completed, total time: {total:.2f} seconds")
+
+        if test_subjects:
+            if os.path.exists(best_path):
+                self.load_model(best_path, with_optimizer=False)
+            self.test(data_dir, test_subjects, post_process=False)
+            self.test(data_dir, test_subjects, post_process=True)
+
+        if self.wandb is not None and getattr(self.wandb, "run",
+                                              None) is not None:
+            self.wandb.finish()
+
+    @staticmethod
+    def _read_loss(event, host) -> float:
+        if event is not None:
+            event.synchronize()
+        return float(host)

@@ -22,10 +22,22 @@ def _grad_enabled():
         yield
 
 
+_BUILT = []
+
+
 @pytest.fixture
 def dev():
+    """The card, with every CUDA library of the port built before the first
+    test uses it: in runs that built a library (nvcc in a subprocess) after
+    this process had read the card's profiler, every later trace came back
+    empty."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    if not _BUILT:
+        from fcd_tpu_torch.kernels import _build
+
+        _build.build_all()
+        _BUILT.append(True)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
@@ -43,8 +55,11 @@ def _randn(gen, dev, *shape, scale=1.0, dtype=torch.float32):
 def _device_op_names(call, tries=5):
     """The device ops one call launches, in launch order (torch.profiler),
     after a warm-up call. On the card the profiler sometimes records no
-    event, or drops some: the trace is taken until two in a row agree, up
-    to `tries` times."""
+    event, or drops some, and has dropped a trace's first kernel in two
+    traces in a row: each trace opens with a marker kernel (torch's spin
+    kernel) that is left out of the names, and the trace is taken until
+    two non-empty traces in a row (empty ones skipped) agree, up to
+    `tries` times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -53,12 +68,17 @@ def _device_op_names(call, tries=5):
     last = None
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             call()
             torch.cuda.synchronize()
         names = [e.name for e in sorted(
             (e for e in prof.events() if e.device_type == DeviceType.CUDA),
             key=lambda e: e.time_range.start)]
-        if names and names == last:
+        if names and "spin_kernel" in names[0]:
+            names = names[1:]
+        if not names:
+            continue
+        if names == last:
             return names
         last = names
     raise AssertionError(f"no two traces in {tries} agree: the last {last}")
@@ -239,6 +259,83 @@ def test_dsa_kernels_match_plain(dev, n, c, p, wdtype):
     ref = dk.dsa_reference(x, w, ef, a["t1"], a["t2"], *tok, gamma, h)
     whole = dk.dsa_attention(x, w, ef, a["t1"], a["t2"], *tok, gamma, h)
     assert _rel(whole, ref) < 5e-2
+
+
+# C16: the widths of MS_DSA_NET at 4 heads beyond the default model's,
+# (N, C, P): feature size 8 and 4 at level 3 (head widths 4 and 2, C 16 and
+# 8), feature size 32 at level 6 (C 512, head width 128: the weights
+# stream), P 16 and 128 at levels 3-5, each kind also at a ragged N
+DSA_WIDTHS = [
+    (32768, 16, 16), (300, 16, 64),      # fs8 level 3
+    (32768, 8, 16), (100, 8, 128),       # fs4 level 3
+    (64, 512, 32), (70, 512, 32),        # fs32 level 6
+    (32768, 32, 16), (4096, 64, 16), (512, 128, 16), (130, 128, 16),
+    (32768, 32, 128), (4096, 64, 128), (512, 128, 128), (130, 64, 128),
+    (512, 256, 128), (4096, 128, 16),    # fs32 levels 5 and 4
+    (64, 128, 32)]                       # fs8 level 6
+
+
+@pytest.mark.parametrize("n,c,p", DSA_WIDTHS)
+def test_dsa_kernels_at_every_width(dev, n, c, p):
+    """B5 at each width: against the plain versions at the tolerances of
+    the default widths, two calls bit-equal, and one dsa_attention call
+    one launch of each wrapper (test_dsa_every_width_is_three_device_launches
+    reads the device kernels)."""
+    from fcd_tpu_torch.kernels import dsa_attention as dk
+
+    h, bf = 4, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(21)
+    a = _dsa_inputs(gen, dev, n, c, p, h)
+    x, w, ef, gamma = a["x"], a["w"], a["ef"], a["gamma"]
+    tok = (a["lns"], a["lnb"], a["pe"])
+    temps = (a["t1"], a["t2"])
+    ka = dk.dsa_phase_a(x, w, ef, *tok, h)
+    wa = dk.dsa_phase_a_plain(x, w, ef, *tok, h)
+    for name, g, w_ in zip(ka._fields, ka, wa):
+        assert _rel(g, w_) < 2e-2, name
+    for g, w_ in zip(ka, dk.dsa_phase_a(x, w, ef, *tok, h)):
+        assert torch.equal(g, w_)
+    glue = dk.dsa_phase_a(x, w, ef, *tok, h, temperatures=temps)
+    for name, g, w_ in zip(glue._fields, glue,
+                           dk.dsa_glue(wa, *temps, h, bf)):
+        assert g.dtype == w_.dtype and _rel(g, w_) < 2e-2, name
+    for g, w_ in zip(glue, dk.dsa_phase_a(x, w, ef, *tok, h,
+                                          temperatures=temps)):
+        assert torch.equal(g, w_)
+    got = dk.dsa_phase_b(x, w, *glue, gamma, *tok, h)
+    assert _rel(got, dk.dsa_phase_b_plain(x, w, *glue, gamma, *tok, h)) < 2e-2
+    assert torch.equal(got, dk.dsa_phase_b(x, w, *glue, gamma, *tok, h))
+    args = (x, w, ef, *temps, *tok, gamma, h)
+    before = (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches)
+    whole = dk.dsa_attention(*args)
+    assert (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert _rel(whole, dk.dsa_reference(*args)) < 5e-2
+
+
+def test_dsa_every_width_is_three_device_launches(dev):
+    """One dsa_attention call at each of DSA_WIDTHS launches phase A, its
+    finishing pass and phase B, and no other device op: one trace of a
+    call at every width (the card's profiler is taken once, not once a
+    width)."""
+    from fcd_tpu_torch.kernels import dsa_attention as dk
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    calls = []
+    for n, c, p in DSA_WIDTHS:
+        a = _dsa_inputs(gen, dev, n, c, p, 4)
+        calls.append((a["x"], a["w"], a["ef"], a["t1"], a["t2"], a["lns"],
+                      a["lnb"], a["pe"], a["gamma"], 4))
+
+    def every_width():
+        for args in calls:
+            dk.dsa_attention(*args)
+
+    names = _device_op_names(every_width)
+    assert len(names) == 3 * len(DSA_WIDTHS), names
+    for i, got in enumerate(names):
+        assert ("dsa_phase_a_kernel", "dsa_phase_a_finish",
+                "dsa_phase_b_kernel")[i % 3] in got, (i, names)
 
 
 def test_dsa_attention_is_three_device_launches(dev):
@@ -963,3 +1060,73 @@ def test_finale_head_kernel_matches_plain(dev, c, o, bias, out_dtype):
     want = finale_head_plain(y2, r, *aff, w, b, 0.01, out_dtype=out_dtype)
     assert got.dtype == out_dtype and got.shape == want.shape
     assert _rel(got, want) < (1e-2 if out_dtype == bf else 1e-5)
+
+
+def test_inference_at_feature_size_8(dev):
+    """ModelTrainer.inference on the card at feature size 8, project size
+    16 (the eval DSA at head width 4 and P 16): finite logits of the
+    volume's shape through B5, and one patch against the port's fp32 CPU
+    forward from the same weights at chip_smoke.py's patch tolerances (the
+    DSA blocks' gamma and pos-embed redrawn so that they count, as there).
+    Late in the file: it compiles Triton kernels at new widths, and after a
+    compile in this process the card's profiler came back empty (PERF.md
+    section 7)."""
+    import copy
+
+    from fcd_tpu_torch.config import get_default_params
+    from fcd_tpu_torch.kernels import dsa_attention as dk
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    params = get_default_params()
+    params.update(patch_size=64, feature_size=8, project_size=16)
+    tr = ModelTrainer(params, device=dev)
+    gen = torch.Generator().manual_seed(22)
+    with torch.no_grad():
+        for stack in tr.model.transformers:
+            for blk in stack:
+                blk.gamma.copy_(0.1 * torch.randn(blk.gamma.shape,
+                                                  generator=gen))
+                blk.pos_embed.copy_(0.1 * torch.randn(blk.pos_embed.shape,
+                                                      generator=gen))
+    vol = torch.randn(70, 80, 66, 2, generator=gen)
+    before = (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches)
+    logits = tr.inference(vol.numpy())
+    torch.cuda.synchronize()
+    assert tuple(logits.shape) == (70, 80, 66, 2)
+    assert bool(torch.isfinite(logits).all())
+    assert dk.dsa_phase_a.launches > before[0]
+    assert dk.dsa_phase_b.launches > before[1]
+    patch = vol[None, :64, :64, :64]
+    with torch.no_grad():
+        got = tr.model(patch.to(dev)).float().cpu()
+        cpu_model = copy.deepcopy(tr.model).cpu()
+        cpu_model.compute_dtype = torch.float32
+        want = cpu_model(patch).float()
+    assert _rel(got, want) < 0.05
+    agree = (got.argmax(-1) == want.argmax(-1)).float().mean()
+    assert float(agree) >= 0.99
+
+
+def _other_model_widths():
+    """The (N, C, P) of MS_DSA_NET's DSA levels with 4 heads at feature
+    sizes 4-32 and project sizes 16-128 (level 6 takes P 32), one for each
+    (C, P) that DSA_WIDTHS and the default levels leave out, at the
+    largest of its levels' 128^3 token counts (C16)."""
+    out = {}
+    for fs in (4, 8, 16, 32):
+        for ps in (16, 32, 64, 128):
+            for n, c, p in ((32768, 2 * fs, ps), (4096, 4 * fs, ps),
+                            (512, 8 * fs, ps), (64, 16 * fs, 32)):
+                out[(c, p)] = max(out.get((c, p), 0), n)
+    seen = {(c, p) for _, c, p in DSA_WIDTHS} | {
+        (32, 64), (64, 64), (128, 64), (256, 32)}
+    return sorted((n, c, p) for (c, p), n in out.items()
+                  if (c, p) not in seen)
+
+
+@pytest.mark.parametrize("n,c,p", _other_model_widths())
+def test_dsa_kernels_at_the_other_widths(dev, n, c, p):
+    """With DSA_WIDTHS and the default levels, every (C, P) of the model
+    (C16): the same checks as test_dsa_kernels_at_every_width."""
+    test_dsa_kernels_at_every_width(dev, n, c, p)
+

@@ -80,11 +80,66 @@ def test_plan_fills_the_card():
 
 
 @pytest.mark.parametrize("n,c,p,h", [(32, 24, 64, 4), (64, 32, 48, 4),
-                                     (64, 512, 32, 4), (64, 32, 64, 0),
-                                     (64, 96, 64, 4), (64, 16, 64, 4)])
+                                     (64, 1024, 32, 4), (64, 32, 64, 0),
+                                     (64, 96, 64, 4), (64, 16, 1024, 4)])
 def test_plan_refuses_what_the_kernels_do_not_take(n, c, p, h):
+    """Head widths that are not powers of two, P outside 16-128, C over
+    512 or no heads; C 1024 and P 1024 lie outside the JAX kernel's gate
+    too."""
     with pytest.raises(ValueError):
         dk.dsa_plan(n, c, p, h)
+
+
+# C16: every (N, C, P) of MS_DSA_NET's DSA levels at a 128^3 patch with 4
+# heads, feature sizes 4-32 and project sizes 16-128 (level 6 takes P 32:
+# fcd_tpu/models/ms_dsa_net.py:245-248)
+TARGET = sorted({(n, c, ps if lv < 6 else 32)
+                 for fs in (4, 8, 16, 32) for ps in (16, 32, 64, 128)
+                 for lv, n, c in ((3, 32768, 2 * fs), (4, 4096, 4 * fs),
+                                  (5, 512, 8 * fs), (6, 64, 16 * fs))})
+
+
+def _jax_gate(n, c, p, h):
+    from fcd_tpu.kernels.dsa_attention import dsa_fused_supported
+
+    return dsa_fused_supported(n, c, p, h)
+
+
+@pytest.mark.parametrize("n,c,p", TARGET)
+def test_plan_takes_every_width_of_the_model(n, c, p):
+    """At each width the JAX kernel takes, the plan exists, fits shared
+    memory, and covers every token of every head once; head widths of 128
+    take 16-token tiles (their weights stream)."""
+    assert _jax_gate(n, c, p, 4)
+    plan = dk.dsa_plan(n, c, p, 4)
+    assert max(plan.smem_a, plan.smem_b) <= dk.SMEM_CAP
+    assert plan.smem_a == dk.smem_a(c, c // 4, p, plan.tile)
+    assert plan.smem_b == dk.smem_b(c, c // 4, p, plan.tile)
+    if c // 4 >= dk.STREAM_WIDTH:
+        assert plan.tile == 16
+    order = [t for k in range(plan.chunks) for t in plan.chunk_tiles(k)]
+    assert order == list(range(plan.tiles))
+    assert plan.tiles * plan.tile >= n > (plan.tiles - 1) * plan.tile
+
+
+def test_plan_refuses_only_outside_the_jax_gate():
+    """Over C 4-1024 and P 8-1024 at 4 heads (powers of two), and N of
+    the four levels: where the JAX kernel takes a width that MS_DSA_NET
+    reaches (P 16-128, head width >= 2), the plan exists; where the JAX
+    gate refuses, the plan refuses too."""
+    for n in (32768, 4096, 512, 64):
+        for c in (4, 8, 16, 32, 64, 128, 256, 512, 1024):
+            for p in (8, 16, 32, 64, 128, 256, 512, 1024):
+                jax_ok = _jax_gate(n, c, p, 4)
+                try:
+                    dk.dsa_plan(n, c, p, 4)
+                    ours = True
+                except ValueError:
+                    ours = False
+                if not jax_ok:
+                    assert not ours, (n, c, p)
+                elif 16 <= p <= 128 and c >= 8:
+                    assert ours, (n, c, p)
 
 
 def _inputs(rng, b, n, c, p, h):
@@ -152,7 +207,9 @@ def _emulate(a, plan, h):
 
 
 @pytest.mark.parametrize("b,n,c,p", [(1, 300, 32, 64), (2, 100, 64, 64),
-                                     (1, 76, 128, 64), (1, 70, 256, 32)])
+                                     (1, 76, 128, 64), (1, 70, 256, 32),
+                                     (1, 100, 8, 16), (2, 60, 16, 128),
+                                     (1, 40, 512, 32)])
 def test_decomposition_matches_the_plain_versions(b, n, c, p):
     h = 4
     a = _inputs(np.random.RandomState(5), b, n, c, p, h)

@@ -1,11 +1,12 @@
 """Package rules of the port (CPU).
 
 (e) importing every module of fcd_tpu_torch loads none of jax, flax,
-optax, msgpack, fcd_tpu or triton, and no file of the port (nor
-chip_smoke.py) has an import statement naming them;
+optax, msgpack, pandas, wandb, fcd_tpu or triton, and no file of the port
+(nor chip_smoke.py) has an import statement naming them (the card's
+machine has none of them but triton);
 (f) entry points run on CUDA unless the caller asks for the CPU: without a
-card, ModelTrainer() and the CLI's run_inference raise instead of falling
-back.
+card, ModelTrainer(), the inference CLI's run_inference and the training
+CLI's main raise instead of falling back.
 """
 
 import ast
@@ -21,7 +22,8 @@ import torch
 import fcd_tpu_torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "flax", "optax", "msgpack", "fcd_tpu", "triton")
+FORBIDDEN = ("jax", "flax", "optax", "msgpack", "pandas", "wandb", "fcd_tpu",
+             "triton")
 
 
 def _port_modules():
@@ -36,7 +38,10 @@ def test_import_leaves_jax_and_triton_out():
               "postproc.native", "postproc.morphology", "postproc.segment",
               "train.checkpoint", "flags", "kernels.pool2x",
               "kernels.finale_head", "kernels.pool_sweep", "losses.extras",
-              "train.state"):
+              "train.state", "data.sampling", "data.dataset", "data.augment",
+              "metrics", "metrics.voxel", "metrics.lesion",
+              "metrics.surface_distance", "metrics.mc_tables",
+              "metrics._mc_tri_table", "cli.train"):
         assert f"fcd_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -64,7 +69,8 @@ def test_no_forbidden_import_statements():
     files.append(ROOT / "chip_smoke.py")
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for mod, line in _imported_roots(f)
-           if mod in ("jax", "flax", "optax", "msgpack", "fcd_tpu")]
+           if mod in ("jax", "flax", "optax", "msgpack", "pandas", "wandb",
+                      "fcd_tpu")]
     assert bad == []
 
 
@@ -101,6 +107,19 @@ def test_run_inference_raises_without_cuda(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="CUDA"):
         main(["--data_dir", str(tmp_path), "--save_dir", str(tmp_path),
               "--checkpoint_path", ""])
+
+
+def test_train_cli_raises_without_cuda(monkeypatch, tmp_path):
+    """python -m fcd_tpu_torch.cli.train without --device cpu needs a
+    card: it raises before any training."""
+    from fcd_tpu_torch.cli.train import main
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    split = tmp_path / "split.txt"
+    split.write_text("a train\nb val\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        main(["--data_dir", str(tmp_path), "--split_file", str(split),
+              "--splits", "train", "val", "--save_dir", str(tmp_path)])
 
 
 def test_kernel_wrappers_take_plain_version_only_on_cpu():

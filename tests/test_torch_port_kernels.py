@@ -174,7 +174,11 @@ def _dsa_inputs(rng, b, n, c, h, p):
     (1, 128, 32, 4, 64, 32), (1, 100, 32, 4, 64, None),
     (1, 64, 64, 4, 64, None), (1, 90, 64, 4, 64, None),
     (1, 64, 128, 4, 64, None), (1, 76, 128, 4, 64, None),
-    (1, 64, 256, 4, 32, None), (1, 70, 256, 4, 32, None)])
+    (1, 64, 256, 4, 32, None), (1, 70, 256, 4, 32, None),
+    # C16's widths: head widths 4 and 2 (feature sizes 8 and 4 at level
+    # 3), P 16 and 128, and C 512 (feature size 32 at level 6)
+    (1, 64, 16, 4, 16, None), (1, 64, 8, 4, 128, None),
+    (1, 64, 512, 4, 32, None)])
 def test_dsa_matches_dsa_fused(monkeypatch, b, n, c, h, p, tile):
     """B5 == the JAX fused DSA kernel (interpret mode, f32) with the fused
     pos-embed, LayerNorm and residual; tile=16 spans several token tiles
