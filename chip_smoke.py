@@ -93,8 +93,22 @@ Run from the repository root:
    after, split by phase and held to the per-step and per-volume counts;
    seconds per epoch and phase and the test metrics printed; then a
    resume to 3 epochs.
-9. Prints the `kernels` JSON line, the card line, and last
-   {"ok": true, "device": {...}}.
+9. Drives SegResNet_DSA (fs16, P 64, 4 heads, 'parallel', pixelshuffle,
+   bf16; B1, K1, B2, K2, B5, K3/K4) through the same entry points:
+   ModelTrainer.inference on the seeded volume (launches per patch and
+   per volume), one patch against the fp32 CPU forward, the 4x128^3 train
+   step (launches per step, finite losses), a profile of a patch and of a
+   step, a 1x64^3 step against the fp32 CPU step (the loss within 1e-3),
+   and cli.train for two epochs (finite losses, the CSV).
+10. Drives, each as one 128^3 patch forward against the fp32 CPU one and
+   one 4x128^3 train step with its launches held to the model's counts:
+   segresnet_deeper (level 4 at C 256, P 64: K3/K4's wide instances),
+   MS_DSA_NET with sa_type 'serial' and 'channel', MS_DSA_NET_PS, BaseUNet
+   and SegResNetVAE_DSA (its VAE loss finite). B5 in 'serial', 'spatial'
+   and 'channel' and K3/K4 at C15's widths are held to their plain
+   versions among the kernel phases (1.).
+11. Prints the seconds from start to the result, the `kernels` JSON line,
+   the card line, and last {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -519,23 +533,28 @@ def upsample_phases(dev, gen, small=False):
     return out
 
 
-def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10):
-    """B5 at one level's shape, batch 1, with the model's f32 weights and
-    EF: phase A's sums and, with the temperatures, the finishing pass's
-    phase-B operands against the plain versions, phase B against its plain
-    version, the whole op against the f32 einsum reference, each of them
-    twice bit-equal; on the card, one dsa_attention call is exactly the
-    three B5 kernels. `ms` is the device time of all one main-path call of
-    the phase launches (phase A with its finishing pass), the kernels alone
+def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel"):
+    """B5 at one level's shape in one sa_type, batch 1, with the model's
+    f32 weights and EF (none, and P = 0, for 'channel'): phase A's sums
+    and, with the temperatures, the finishing pass's phase-B operands
+    against the plain versions, phase B against its plain version, the
+    whole op against the f32 einsum reference, each of them twice
+    bit-equal; on the card, one dsa_attention call is exactly the three B5
+    kernels. `ms` is the device time of all one main-path call of the
+    phase launches (phase A with its finishing pass), the kernels alone
     and the wall per call beside it."""
     import torch
 
     from fcd_tpu_torch.kernels import dsa_attention as dk
 
     bf = torch.bfloat16
+    ns = dk.num_slots(sa_type)
+    if sa_type == "channel":
+        p = 0
     x = _randn((1, n, c), gen, dev, dtype=bf)
-    w = _randn((c, 4 * c), gen, dev, (6.0 / (5 * c)) ** 0.5)
-    ef = (torch.rand((n, p), generator=gen, device=dev) * 2 - 1) / p ** 0.5
+    w = _randn((c, ns * c), gen, dev, (6.0 / ((ns + 1) * c)) ** 0.5)
+    ef = (None if p == 0 else
+          (torch.rand((n, p), generator=gen, device=dev) * 2 - 1) / p ** 0.5)
     t1 = torch.rand((h, 1, 1), generator=gen, device=dev) + 0.5
     t2 = torch.rand((h, 1, 1), generator=gen, device=dev) + 0.5
     tok = (1.0 + _randn((c,), gen, dev, 0.1), _randn((c,), gen, dev, 0.1),
@@ -544,11 +563,17 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10):
     temps = (t1, t2)
     ch = c // h
     # the work counts of the kernels this one replaced (the whole C x C of
-    # q^T k), kept so that times compare like with like
-    flops_a = 2 * n * c * c * 3 + 2 * n * c * c + 2 * 2 * n * c * p
-    bytes_a = 2 * n * c + 4 * n * c + 2 * n * p + 3 * 2 * c * c + 8 * c \
+    # q^T k), kept so that times compare like with like; per sa_type,
+    # phase A projects the slots it stages (q, k and v_sa; 'channel' no
+    # v_sa) and phase B does the products its type has: the channel
+    # attention ('parallel', 'channel'; 'serial' on the spatial output)
+    # and the scores and s vp^T (all but 'channel')
+    na = 3 if p else 2
+    ca = sa_type != "spatial"
+    flops_a = 2 * n * c * c * na + 2 * n * c * c + 2 * 2 * n * c * p
+    bytes_a = 2 * n * c + 4 * n * c + 2 * n * p + na * 2 * c * c + 8 * c \
         + 4 * (c * c + 2 * c + 2 * c * p)
-    flops_b = 2 * n * c * c * 2 + 2 * n * c * ch + 2 * 2 * n * c * p
+    flops_b = 2 * n * c * c * 2 + 2 * n * c * ch * ca + 2 * 2 * n * c * p
     bytes_b = 2 * n * c + 4 * n * c + 2 * 2 * c * c + 4 * c + 2 * c * c \
         + 2 * 2 * c * p + 12 * c + 2 * n * c
     pa = Phase("dsa_phase_a", label, flops_a, bytes_a)
@@ -558,37 +583,40 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10):
           f"({plan.chunks} chunks of {plan.per_chunk} tiles a head), phase B "
           f"{plan.b_blocks} blocks, shared memory {plan.smem_a} / "
           f"{plan.smem_b} bytes")
+    mode = dict(sa_type=sa_type)
 
     def phase_a():
-        return dk.dsa_phase_a(x, w, ef, *tok, h, temperatures=temps)
+        return dk.dsa_phase_a(x, w, ef, *tok, h, temperatures=temps, **mode)
 
-    ka = dk.dsa_phase_a(x, w, ef, *tok, h)
-    wa = dk.dsa_phase_a_plain(x, w, ef, *tok, h)
+    ka = dk.dsa_phase_a(x, w, ef, *tok, h, **mode)
+    wa = dk.dsa_phase_a_plain(x, w, ef, *tok, h, **mode)
     for name, g_, w_ in zip(ka._fields, ka, wa):
-        pa.check(name, g_, w_, 2e-2)
-    check_repeatable(pa, ka, dk.dsa_phase_a(x, w, ef, *tok, h))
+        if g_.numel():
+            pa.check(name, g_, w_, 2e-2)
+    check_repeatable(pa, ka, dk.dsa_phase_a(x, w, ef, *tok, h, **mode))
     ops = phase_a()
     for name, g_, w_ in zip(ops._fields, ops, dk.dsa_glue(wa, t1, t2, h, bf)):
-        pa.check(f"finishing pass {name}", g_, w_, 2e-2)
+        if g_.numel():
+            pa.check(f"finishing pass {name}", g_, w_, 2e-2)
     check_repeatable(pa, ops, phase_a())
 
     def phase_b():
-        return dk.dsa_phase_b(x, w, *ops, gamma, *tok, h)
+        return dk.dsa_phase_b(x, w, *ops, gamma, *tok, h, **mode)
 
     kb = phase_b()
-    pb.check("out", kb, dk.dsa_phase_b_plain(x, w, *ops, gamma, *tok, h),
-             2e-2)
+    pb.check("out", kb, dk.dsa_phase_b_plain(x, w, *ops, gamma, *tok, h,
+                                             **mode), 2e-2)
     check_repeatable(pb, [kb], [phase_b()])
     # the whole op against the f32 einsum math; bf16 rounding of the
     # kernels' intermediates sets the tolerance
     args = (x, w, ef, t1, t2, *tok, gamma, h)
-    whole = dk.dsa_attention(*args)
+    whole = dk.dsa_attention(*args, **mode)
     op = Phase("dsa_attention", label, 0, 0)
     op.check("whole op vs f32 einsum reference", whole,
-             dk.dsa_reference(*args), 5e-2)
-    check_repeatable(op, [whole], [dk.dsa_attention(*args)])
+             dk.dsa_reference(*args, **mode), 5e-2)
+    check_repeatable(op, [whole], [dk.dsa_attention(*args, **mode)])
     if dev.type == "cuda":
-        launched = device_kernels(lambda: dk.dsa_attention(*args))
+        launched = device_kernels(lambda: dk.dsa_attention(*args, **mode))
         ok = len(launched) == 3 and all(
             k in e for k, e in zip(DSA_KERNELS, launched))
         print(f"  dsa_attention {label}: one call launches {launched} "
@@ -599,10 +627,12 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10):
 
     for ph, call, key, plain in (
             (pa, phase_a, "dsa_phase_a",
-             lambda: dk.dsa_glue(dk.dsa_phase_a_plain(x, w, ef, *tok, h),
+             lambda: dk.dsa_glue(dk.dsa_phase_a_plain(x, w, ef, *tok, h,
+                                                      **mode),
                                  t1, t2, h, bf)),
             (pb, phase_b, "dsa_phase_b",
-             lambda: dk.dsa_phase_b_plain(x, w, *ops, gamma, *tok, h))):
+             lambda: dk.dsa_phase_b_plain(x, w, *ops, gamma, *tok, h,
+                                          **mode))):
         times = device_times(call, iters)
         ph.ms = sum(times.values())
         ph.kernel_ms = sum(v for k, v in times.items()
@@ -643,13 +673,30 @@ DSA_WIDTHS = (("fs8 level3", 32768, 16, 16),
               ("fs32 level6", 64, 512, 32))
 
 
+# SegResNet_DSA's attention levels on a 128^3 patch (fs16, P 64): level 2
+# at 32^3, level 3 at 16^3
+SEGRES_LEVELS = (("segresnet_dsa level2", 32768, 64, 64),
+                 ("segresnet_dsa level3", 4096, 128, 64))
+# where B5's other sa_types are held to their plain versions: SegResNet_DSA's
+# two levels and MS_DSA_NET's levels 3 and 6
+MODE_LEVELS = SEGRES_LEVELS + (DSA_LEVELS[0], DSA_LEVELS[3])
+OTHER_SA_TYPES = ("serial", "spatial", "channel")
+
+
 def dsa_phases(dev, gen, small=False):
-    """B5 at the four levels' shapes and at DSA_WIDTHS (`small`: level 3
-    at 512 tokens)."""
+    """B5 at the four levels' shapes, at DSA_WIDTHS and at SegResNet_DSA's
+    levels ('parallel'), and in the other three sa_types at MODE_LEVELS
+    (`small`: at most 512 tokens)."""
     out = []
-    for name, n, c, p in DSA_LEVELS + DSA_WIDTHS:
-        out += dsa_phase(f"{name} N={n} C={c} P={p}", dev, gen,
-                         min(n, 512) if small else n, c, p)
+    cases = [(name, n, c, p, "parallel")
+             for name, n, c, p in DSA_LEVELS + DSA_WIDTHS + SEGRES_LEVELS]
+    cases += [(name, n, c, p, t) for t in OTHER_SA_TYPES
+              for name, n, c, p in MODE_LEVELS]
+    for name, n, c, p, t in cases:
+        pp = 0 if t == "channel" else p
+        mode = "" if t == "parallel" else f" {t}"
+        out += dsa_phase(f"{name}{mode} N={n} C={c} P={pp}", dev, gen,
+                         min(n, 512) if small else n, c, p, sa_type=t)
     return out
 
 
@@ -1183,11 +1230,21 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
     return [pf, pb]
 
 
+# C15: the widths past the tensor-core instances, run by the wide ones at
+# their levels' 128^3 token counts: segresnet_deeper's level 4 (C 256, P
+# 64), MS_DSA_NET fs32's level 6 (C 512, P 32) and fs32 project-128's
+# level 5 (C 256, P 128)
+C15_WIDTHS = (("segresnet_deeper level4", 512, 256, 64),
+              ("fs32 level6", 64, 512, 32),
+              ("fs32 P128 level5", 512, 256, 128))
+
+
 def spatial_attn_levels(dev, gen, small=False):
-    """K3 and K4 at the four levels' shapes at the train step's batch 4
-    (`small`: batch 1, level 3 at 512 tokens)."""
+    """K3 and K4 at the four levels' shapes, SegResNet_DSA's two and
+    C15_WIDTHS, at the train step's batch 4 (`small`: batch 1, at most
+    512 tokens)."""
     out = []
-    for name, n, c, p in DSA_LEVELS:
+    for name, n, c, p in DSA_LEVELS + SEGRES_LEVELS + C15_WIDTHS:
         b, n = (1, min(n, 512)) if small else (TRAIN_BATCH, n)
         out += spatial_attn_phases(f"{name} {b}xN={n} C={c} hP={4 * p}",
                                    dev, gen, b, n, c, p)
@@ -1309,10 +1366,11 @@ POOL_GATES = {"FCD_FINALE_POOL": "0", "FCD_FINALE_TRAIN": "0"}
 HEAD_GATES = {"FCD_FUSED_HEAD": "1"}
 
 
-def per_volume(n_patches: int, perf_flags=None) -> dict:
+def per_volume(n_patches: int, perf_flags=None, per_patch=None) -> dict:
     """Launches of one sliding-window inference over n_patches patches
-    under perf_flags (POOL_GATES, HEAD_GATES or the defaults)."""
-    patch = dict(PER_PATCH)
+    under perf_flags (POOL_GATES, HEAD_GATES or the defaults), of
+    MS_DSA_NET or of the model whose `per_patch` counts are given."""
+    patch = dict(PER_PATCH if per_patch is None else per_patch)
     if perf_flags == POOL_GATES:
         patch["max_pool2x"] = 2
     elif perf_flags == HEAD_GATES:
@@ -1334,17 +1392,59 @@ def per_train_step(perf_flags=None) -> dict:
     part of conv1 and one for conv2 (K1), the finale's (K2); the
     spatial tails' (K4). The upsample backward is two matmuls. Under
     POOL_GATES encoders 1-2 also pool in a pass of their own (B3, B9)."""
-    enc, tb, dec = 6, 4 * 3, 5
+    own_pass = 2 if perf_flags == POOL_GATES else 0   # encoders 1-2
+    return unet_step(6, 4 * 3, 5, own_pass=own_pass)
+
+
+def unet_step(enc, tb, dec, upsample=True, spatial=True, own_pass=0):
+    """per_train_step's count for a U-Net of `enc` encoders, `tb`
+    transformer conv blocks and `dec` decoders (MS_DSA_NET, MS_DSA_NET_PS:
+    upsample False, its pixelshuffle convs are F.conv3d; BaseUNet: tb 0;
+    spatial False for sa_type 'channel')."""
     blocks = enc + tb + dec
     dgrad = 1 + 2 * (enc - 1) + 2 * tb + 3 * dec
-    own_pass = 2 if perf_flags == POOL_GATES else 0   # encoders 1-2
     return {"conv3d": 2 * blocks + dgrad,
             "conv3d_wgrad": 2 * enc + 2 * tb + 3 * dec,
-            "finale_pool": blocks, "finale_bwd": blocks, "upsample2x": dec,
+            "finale_pool": blocks, "finale_bwd": blocks,
+            "upsample2x": dec if upsample else 0,
             "dsa_phase_a": 0, "dsa_phase_b": 0,
-            "spatial_attn_fwd": tb, "spatial_attn_bwd": tb,
+            "spatial_attn_fwd": tb if spatial else 0,
+            "spatial_attn_bwd": tb if spatial else 0,
             "sw_entry": 0, "sw_exit": 0, "max_pool2x": own_pass,
             "max_pool2x_bwd": own_pass, "finale_head": 0}
+
+
+def unet_patch(enc, tb, dec, upsample=True):
+    """PER_PATCH's count for such a U-Net: two convs and a finale a block,
+    one upsample a decoder (the transposed conv), both B5 phases a
+    transformer."""
+    out = dict(PER_PATCH)
+    out.update(conv3d=2 * (enc + tb + dec), finale_pool=enc + tb + dec,
+               upsample2x=dec if upsample else 0, dsa_phase_a=tb,
+               dsa_phase_b=tb)
+    return out
+
+
+def segres_counts(blocks_down=(1, 2, 2, 4), blocks_up=(1, 1, 1), levels=2,
+                  layers=3, vae=False, spatial=True):
+    """(per patch, per train step) launches of a SegResNet_DSA-family model
+    (pixelshuffle): two B1 convs a ResBlock and a transformer's conv block,
+    a finale (B2) a transformer, both B5 phases a transformer at eval;
+    in training one data gradient (B1) and one weight gradient (K1) a
+    conv (every block input needs a gradient: convInit's output does), a
+    K2 a finale, K3 and K4 a transformer (not for 'channel'). The VAE
+    branch runs the decoder's ResBlocks a second time in training."""
+    res, tb = sum(blocks_down) + sum(blocks_up), levels * layers
+    patch = dict(PER_PATCH)
+    patch.update(conv3d=2 * (res + tb), finale_pool=tb, upsample2x=0,
+                 dsa_phase_a=tb, dsa_phase_b=tb)
+    again = sum(blocks_up) if vae else 0
+    step = {k: 0 for k in PER_PATCH}
+    step.update(conv3d=4 * (res + tb + again),
+                conv3d_wgrad=2 * (res + tb + again), finale_pool=tb,
+                finale_bwd=tb, spatial_attn_fwd=tb if spatial else 0,
+                spatial_attn_bwd=tb if spatial else 0)
+    return patch, step
 
 
 # bf16 activations rounded through ~50 layers against an fp32 forward: on
@@ -1354,7 +1454,65 @@ PATCH_REL_TOL = 0.05
 PATCH_ARGMAX_AGREE = 0.99
 
 
-def slice_run(dev, card, params=None, vol_shape=(182, 218, 182)):
+def redraw_attention(model, seed):
+    """gamma (1e-6) and the zero pos-embed of every transformer block
+    redrawn from a seeded generator, so that the DSA path contributes to
+    the logits a check compares."""
+    import torch
+
+    from fcd_tpu_torch.ops.attention import TransformerBlock
+
+    gen = torch.Generator().manual_seed(seed)
+    blocks = [m for m in model.modules() if isinstance(m, TransformerBlock)]
+    with torch.no_grad():
+        for blk in blocks:
+            blk.gamma.copy_(0.1 * torch.randn(blk.gamma.shape, generator=gen))
+            blk.pos_embed.copy_(0.1 * torch.randn(blk.pos_embed.shape,
+                                                  generator=gen))
+
+
+def calibrate_batch_norms(model, x) -> None:
+    """The running statistics of the model's batch norms (its transformers'
+    conv branches) set to the batch statistics of x: one train-mode
+    forward with momentum 0 and dropout off, then the model's own momentum
+    and rates back. A trained model has such statistics; the init's are
+    placeholders (mean 0, var 1). In SegResNet_DSA the transformers sit
+    on the residual stream, and under the placeholders each one's conv
+    branch grows the stream ~2.4x in std, six times over: bf16's rounding
+    on that range then flips the argmax of ~1% of a random-weight patch
+    against the fp32 forward (0.98958 on an H100, 0.98968 in bf16 on the
+    CPU: the rounding, not the kernels); with the statistics of another
+    patch of the volume, 0.99310 on the CPU in bf16."""
+    import torch
+
+    from fcd_tpu_torch.ops.attention import DSA, ChannelDropout3d
+    from fcd_tpu_torch.ops.layers import BatchNorm
+
+    saved = {}
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            saved[m] = ("momentum", m.momentum)
+            m.momentum = 0.0
+        elif isinstance(m, DSA):
+            saved[m] = ("dropout_rate", m.dropout_rate)
+        elif isinstance(m, ChannelDropout3d):
+            saved[m] = ("rate", m.rate)
+    dropout_off(model)
+    model.train()
+    with torch.no_grad():
+        model(x)
+    model.eval()
+    for m, (name, value) in saved.items():
+        setattr(m, name, value)
+
+
+def slice_run(dev, card, params=None, vol_shape=(182, 218, 182),
+              per_patch=None, calibrate=False):
+    """ModelTrainer.inference on a seeded volume: ms/volume, launches per
+    volume (held to `per_patch` x patches + the engine's entry and exit;
+    MS_DSA_NET's by default), one patch against the fp32 CPU forward.
+    `calibrate`: the batch norms' running statistics from the volume's
+    last patch first (calibrate_batch_norms)."""
     import numpy as np
     import torch
 
@@ -1364,20 +1522,15 @@ def slice_run(dev, card, params=None, vol_shape=(182, 218, 182)):
 
     params = get_default_params() if params is None else params
     trainer = ModelTrainer(params, device=dev)
-    # weights from the trainer's seeded initialisation; gamma (1e-6) and the
-    # zero pos-embed are redrawn from a seeded generator so that the DSA
-    # path contributes to the logits the check below compares
-    gen = torch.Generator().manual_seed(SEED + 1)
-    with torch.no_grad():
-        for stack in trainer.model.transformers:
-            for blk in stack:
-                blk.gamma.copy_(0.1 * torch.randn(blk.gamma.shape,
-                                                  generator=gen))
-                blk.pos_embed.copy_(0.1 * torch.randn(blk.pos_embed.shape,
-                                                      generator=gen))
+    # weights from the trainer's seeded initialisation, the attention's
+    # redrawn
+    redraw_attention(trainer.model, SEED + 1)
     vol = np.random.RandomState(SEED).standard_normal(
         (*vol_shape, params["chans_in"])).astype(np.float32)
     roi = (params["patch_size"],) * 3
+    if calibrate:
+        calibrate_batch_norms(trainer.model, torch.from_numpy(
+            vol[-roi[0]:, -roi[1]:, -roi[2]:])[None].to(dev))
     n_patches = len(dense_patch_starts(vol_shape, roi, params["sw_overlap"]))
 
     t0 = time.perf_counter()
@@ -1392,7 +1545,8 @@ def slice_run(dev, card, params=None, vol_shape=(182, 218, 182)):
     ms = (time.perf_counter() - t0) * 1e3
     launches = read_counts()
 
-    print(f"slice: ModelTrainer.inference {vol_shape}x{params['chans_in']} "
+    print(f"slice: ModelTrainer.inference ({params['model_type']}) "
+          f"{vol_shape}x{params['chans_in']} "
           f"volume, {n_patches} patches of {roi}: {ms:.1f} ms/volume, "
           f"{1e3 / ms:.3f} vol/s on {card} (first call, incl. JIT: "
           f"{first_s:.1f} s)", flush=True)
@@ -1400,30 +1554,45 @@ def slice_run(dev, card, params=None, vol_shape=(182, 218, 182)):
             out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"logits {tuple(out.shape)} {out.dtype}: not "
                              "finite f32 of the volume's shape")
-    want = per_volume(n_patches)
-    print(f"  launches {launches} (expected {want})")
+    want = per_volume(n_patches, per_patch=per_patch)
+    print(f"  launches {launches} (expected {want}; per patch "
+          f"{ {k: v for k, v in (per_patch or PER_PATCH).items() if v} })")
     if dev.type == "cuda" and launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
 
     # one patch: the card's logits against the port's fp32 CPU forward
     patch = torch.from_numpy(vol[:roi[0], :roi[1], :roi[2]])[None]
+    patch_check(dev, trainer, patch)
+    return launches, trainer, patch, vol, out
+
+
+def patch_check(dev, trainer, patch, label=""):
+    """One patch: the card's logits (trainer.predict) against the port's
+    fp32 CPU forward of the same weights; rel <= PATCH_REL_TOL and argmax
+    agreement >= PATCH_ARGMAX_AGREE."""
+    import torch
+
+    roi = tuple(patch.shape[1:4])
     with torch.no_grad():
-        got = trainer.model(patch.to(dev)).float().cpu()
+        got = trainer.predict(patch.to(dev)).float().cpu()
         cpu_model = copy.deepcopy(trainer.model).cpu()
         cpu_model.compute_dtype = torch.float32
+        cpu_model.eval()
         t0 = time.perf_counter()
         want_logits = cpu_model(patch)
+        if isinstance(want_logits, tuple):   # a VAE model: (logits, None)
+            want_logits = want_logits[0]
         cpu_s = time.perf_counter() - t0
     a, r = rel_err(got, want_logits)
     agree = float((got.argmax(-1) == want_logits.argmax(-1)).float().mean())
     ok = r <= PATCH_REL_TOL and agree >= PATCH_ARGMAX_AGREE
-    print(f"  patch {roi} vs fp32 CPU forward ({cpu_s:.1f} s): max_abs_err "
-          f"{a:.3e} rel {r:.3e} (tol {PATCH_REL_TOL}), argmax agreement "
-          f"{agree:.5f} (min {PATCH_ARGMAX_AGREE}) {'ok' if ok else 'FAIL'}",
-          flush=True)
+    print(f"  {label}patch {roi} vs fp32 CPU forward ({cpu_s:.1f} s): "
+          f"max_abs_err {a:.3e} rel {r:.3e} (tol {PATCH_REL_TOL}), argmax "
+          f"agreement {agree:.5f} (min {PATCH_ARGMAX_AGREE}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise AssertionError("card logits disagree with the fp32 CPU forward")
-    return launches, trainer, patch, vol, out
+        raise AssertionError(f"{label}card logits disagree with the fp32 CPU "
+                             "forward")
 
 
 # The fused head adds its f32 bias before one rounding, the default head
@@ -1800,7 +1969,8 @@ def _csv_rows(path):
 
 
 def train_cli_run(dev, card, kwargs=TRAIN_CLI_KWARGS, device=None,
-                  shape=TRAIN_CLI_SHAPE):
+                  shape=TRAIN_CLI_SHAPE, per_step=None, per_patch=None,
+                  resume=True):
     """`python -m fcd_tpu_torch.cli.train` (cli.train.main) on the card at
     the default model's full width, on a seeded synthetic set written under
     build/ (3 train, 1 val, 1 test subject of TRAIN_CLI_SHAPE): 2 epochs of
@@ -1810,7 +1980,9 @@ def train_cli_run(dev, card, kwargs=TRAIN_CLI_KWARGS, device=None,
     counts by phase (held to the per-step and per-volume counts), seconds
     per epoch and phase, and the test metrics; checks finite losses, the
     CSV, the checkpoints, that every transform ran in the second epoch, and
-    that a resume with max_epochs=3 appends epoch 3. Returns the counts."""
+    that a resume with max_epochs=3 appends epoch 3 (with `resume`). The
+    counts are held to `per_step` and `per_patch` (MS_DSA_NET's by
+    default). Returns the counts."""
     import shutil
 
     import numpy as np
@@ -1872,10 +2044,13 @@ def train_cli_run(dev, card, kwargs=TRAIN_CLI_KWARGS, device=None,
     n_patches = len(dense_patch_starts(shape, roi, params["sw_overlap"]))
     steps = sum(t["n_steps"] for t in timings.values())
     epochs = len(timings)
-    want = {"train steps": {k: steps * v for k, v in per_train_step().items()},
-            "validation": {k: epochs * v for k, v in per_volume(n_patches).items()},
-            "test": {k: 2 * v for k, v in per_volume(n_patches).items()}}
-    print(f"train_cli: cli.train.main, MS_DSA_NET fs{params['feature_size']} "
+    step = per_train_step() if per_step is None else per_step
+    vol = per_volume(n_patches, per_patch=per_patch)
+    want = {"train steps": {k: steps * v for k, v in step.items()},
+            "validation": {k: epochs * v for k, v in vol.items()},
+            "test": {k: 2 * v for k, v in vol.items()}}
+    print(f"train_cli: cli.train.main, {params['model_type']} "
+          f"fs{params['feature_size']} "
           f"P{params['project_size']}, {epochs} epochs of {steps // epochs} "
           f"steps at {params['batch_size'] * params['samples_per_case']}x"
           f"{roi[0]}^3, validation and test volumes {shape} "
@@ -1915,6 +2090,8 @@ def train_cli_run(dev, card, kwargs=TRAIN_CLI_KWARGS, device=None,
     if not ok:
         raise AssertionError("train_cli: the CSV, the losses or the "
                              "checkpoints are not as expected")
+    if not resume:
+        return launches
     resume = argv[:argv.index("--splits")] + [
         "--splits", "train", "val", "--save_dir", run_dir, "--resume"] + (
         ["--device", str(device)] if device is not None else [])
@@ -2022,10 +2199,11 @@ def train_batch(dev, batch, size, chans):
     return x, y
 
 
-def train_run(dev, card, perf_flags=None, extra=None):
+def train_run(dev, card, perf_flags=None, extra=None, per_step=None):
     """The train step at batch 4 x 128^3 (under perf_flags, with the params
     in `extra`): warm-up, then timed steps with the launch counters read
-    around them."""
+    around them, held to `per_step` (MS_DSA_NET's per_train_step by
+    default)."""
     import torch
 
     from fcd_tpu_torch.train.schedule import epoch_lr
@@ -2063,8 +2241,8 @@ def train_run(dev, card, perf_flags=None, extra=None):
           f"losses {[round(v, 5) for v in vals]}", flush=True)
     if not all(torch.isfinite(torch.tensor(vals))):
         raise AssertionError(f"train losses not finite: {vals}")
-    want = {k: v * TRAIN_STEPS
-            for k, v in per_train_step(perf_flags).items()}
+    want = {k: v * TRAIN_STEPS for k, v in (
+        per_train_step(perf_flags) if per_step is None else per_step).items()}
     print(f"  launches over {TRAIN_STEPS} steps {launches} (expected {want})")
     if dev.type == "cuda" and launches != want:
         raise AssertionError(f"train launch counts {launches} != {want}")
@@ -2237,6 +2415,196 @@ def train_repro(dev) -> bool:
     return same
 
 
+# -- the DSA model family -------------------------------------------------------
+
+SEGRES = {"model_type": "SegResNet_DSA"}       # fs16, P 64, parallel
+SEGRES_PATCH, SEGRES_STEP = segres_counts()
+
+
+def dropout_off(model):
+    """Every dropout of a model at rate 0: the DSA's attention dropout and
+    every ChannelDropout3d (the transformers' conv branch, SegResNet's after
+    convInit)."""
+    from fcd_tpu_torch.ops.attention import DSA, ChannelDropout3d
+
+    for m in model.modules():
+        if isinstance(m, DSA):
+            m.dropout_rate = 0.0
+        elif isinstance(m, ChannelDropout3d):
+            m.rate = 0.0
+
+
+def zoo_train_check(dev, extra) -> None:
+    """One 1 x 64^3 train step of the model in `extra` on the card (bf16)
+    against the port's fp32 CPU step from the same weights, dropout off:
+    the loss within TRAIN_LOSS_REL_TOL, and each top-level module's
+    gradient's rel-L2 distance and cosine printed (finite)."""
+    import torch
+
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+    from fcd_tpu_torch.weights import model_entries
+
+    size = TRAIN_CHECK_SIZE
+    params = train_params(size, extra=extra)
+    trainers = [ModelTrainer(params, device=d, verbose=False)
+                for d in (dev, "cpu")]
+    redraw_attention(trainers[0].model, SEED + 3)
+    trainers[1].model.load_state_dict(trainers[0].model.state_dict())
+    for tr in trainers:
+        dropout_off(tr.model)
+    x, y = train_batch(dev, 1, size, params["chans_in"])
+    with torch.enable_grad():
+        card = float(trainers[0].train_step(x, y, 1e-4))
+        fp32 = float(trainers[1].train_step(x.cpu(), y.cpu(), 1e-4))
+    groups = {}
+    for (_, path, t, _), (_, _, r, _) in zip(
+            model_entries(trainers[0].model), model_entries(trainers[1].model)):
+        if t.grad is not None and r.grad is not None:
+            g, w = groups.setdefault(path[0], ([], []))
+            g.append(t.grad.float().cpu().ravel())
+            w.append(r.grad.float().ravel())
+    dist = {}
+    for k, (g, w) in groups.items():
+        g, w = torch.cat(g), torch.cat(w)
+        dist[k] = (float((g - w).norm() / w.norm()),
+                   float(torch.dot(g, w) / (g.norm() * w.norm())))
+    rel_loss = abs(card - fp32) / abs(fp32)
+    finite = all(math.isfinite(a) and math.isfinite(b)
+                 for a, b in dist.values())
+    ok = math.isfinite(card) and rel_loss <= TRAIN_LOSS_REL_TOL and finite
+    print(f"train check ({params['model_type']}; {params['loss']}): 1x{size}^3 "
+          f"step, card bf16 vs CPU fp32: loss {card:.6f} vs {fp32:.6f} rel "
+          f"{rel_loss:.2e} (tol {TRAIN_LOSS_REL_TOL}); grads rel-L2/cosine "
+          f"per module {'ok' if ok else 'FAIL'}", flush=True)
+    print("  " + ", ".join(f"{k} {a:.2e}/{b:.5f}" for k, (a, b) in
+                           dist.items()))
+    if not ok:
+        raise AssertionError(f"{params['model_type']}: the card's train step "
+                             "disagrees with the fp32 CPU step")
+
+
+def segresnet_dsa_run(dev, card) -> dict:
+    """SegResNet_DSA (fs16, P 64, 4 heads, parallel, blocks (1, 2, 2, 4) /
+    (1, 1, 1), pixelshuffle, bf16) through the entry points: inference on
+    the seeded volume (launches per patch and per volume), one patch
+    against the fp32 CPU forward, the 4 x 128^3 train step (launches per
+    step, finite losses), the profiles of a patch and a step, a 1 x 64^3
+    step against the fp32 CPU step, and cli.train for two epochs.
+    Returns {path: launch counts}."""
+    import torch
+
+    params = train_params(extra=SEGRES)
+    launches, trainer, patch, vol, _ = slice_run(
+        dev, card, params, per_patch=SEGRES_PATCH, calibrate=True)
+    by_path = {"segresnet_dsa inference": launches}
+    del vol
+    x = patch.to(dev)
+    profile_run(f"SegResNet_DSA, one {tuple(patch.shape[1:4])} patch "
+                "forward", lambda: trainer.predict(x), dev)
+    del trainer, x
+    torch.cuda.empty_cache()
+    by_path["segresnet_dsa train"], trainer, batch = train_run(
+        dev, card, extra=SEGRES, per_step=SEGRES_STEP)
+    with torch.enable_grad():
+        prof = profile_run(f"SegResNet_DSA, one train step, batch "
+                           f"{TRAIN_BATCH}x128^3",
+                           lambda: trainer.train_step(*batch), dev)
+    print_share(prof, "K3 + K4 in the step", ("spatial_attn_fwd",
+                                              "spatial_attn_bwd"))
+    print_share(prof, "B1 + K1 in the step", ("conv3d_kernel",
+                                              "wgrad_mma_kernel",
+                                              "wgrad_sum_kernel"))
+    del trainer, batch
+    torch.cuda.empty_cache()
+    zoo_train_check(dev, SEGRES)
+    torch.cuda.empty_cache()
+    by_path["segresnet_dsa train_cli"] = train_cli_run(
+        dev, card, kwargs=TRAIN_CLI_KWARGS + ("model_type=SegResNet_DSA",),
+        per_step=SEGRES_STEP, per_patch=SEGRES_PATCH, resume=False)
+    return by_path
+
+
+# the other models driven on the card, each as one patch forward against
+# the fp32 CPU one and one train step: (label, params, the kernels its
+# forward and step must launch, (per patch, per step) counts or None)
+ZOO_RUNS = (
+    ("segresnet_deeper", {"model_type": "SegResNet_DSA",
+                          "segresnet_deeper": True},
+     segres_counts((1, 2, 2, 4, 4), (2, 2, 2, 2))),
+    ("MS_DSA_NET serial", {"sa_type": "serial"},
+     (PER_PATCH, unet_step(6, 12, 5))),
+    ("MS_DSA_NET channel", {"sa_type": "channel"},
+     (PER_PATCH, unet_step(6, 12, 5, spatial=False))),
+    ("MS_DSA_NET_PS", {"model_type": "MS_DSA_NET_PS"},
+     (unet_patch(6, 12, 5, upsample=False),
+      unet_step(6, 12, 5, upsample=False))),
+    ("BaseUNet", {"model_type": "BaseUNet"},
+     (unet_patch(6, 0, 5), unet_step(6, 0, 5))),
+    ("SegResNetVAE_DSA", {"model_type": "SegResNetVAE_DSA"},
+     segres_counts(vae=True)),
+)
+
+
+def zoo_run(dev, card, label, extra, counts, batch=TRAIN_BATCH) -> dict:
+    """One model of ZOO_RUNS at full width on a 128^3 patch: a patch
+    forward against the fp32 CPU forward and one train step of `batch` x
+    128^3 (finite loss; a VAE model's VAE loss finite too), the launches
+    of each held to `counts`. Returns {path: launch counts}."""
+    import numpy as np
+    import torch
+
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    params = train_params(extra=extra)
+    trainer = ModelTrainer(params, device=dev, verbose=False)
+    redraw_attention(trainer.model, SEED + 7)
+    size = params["patch_size"]
+    rs = np.random.RandomState(SEED + 6)
+    patch, other = (torch.from_numpy(rs.standard_normal(
+        (1, size, size, size, params["chans_in"])).astype(np.float32))
+        for _ in range(2))
+    if params["model_type"].lower().startswith("segresnet"):
+        calibrate_batch_norms(trainer.model, other.to(dev))
+    trainer.predict(patch.to(dev))
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.predict(patch.to(dev))
+    sync(dev)
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd = read_counts()
+    patch_check(dev, trainer, patch, f"{label}: ")
+    x, y = train_batch(dev, batch, size, params["chans_in"])
+    with torch.enable_grad():
+        trainer.train_step(x, y, 1e-4)
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        loss = float(trainer.train_step(x, y, 1e-4))
+        sync(dev)
+        step_ms = (time.perf_counter() - t0) * 1e3
+        step = read_counts()
+    vae = None
+    if params["model_returns_vaeloss"]:
+        trainer.model.train()
+        with torch.no_grad():
+            vae = float(trainer.model(x)[1])
+        trainer.model.eval()
+    want_fwd, want_step = counts
+    ok = (math.isfinite(loss) and (vae is None or math.isfinite(vae))
+          and (dev.type != "cuda" or (fwd == want_fwd and step == want_step)))
+    print(f"zoo {label}: patch forward {fwd_ms:.1f} ms, train step "
+          f"{batch}x{size}^3 {step_ms:.1f} ms on {card}; loss {loss:.5f}"
+          + ("" if vae is None else f", VAE loss {vae:.5f}")
+          + f"; launches forward { {k: v for k, v in fwd.items() if v} }, "
+          f"step { {k: v for k, v in step.items() if v} } "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"zoo {label}: loss not finite or launches "
+                             f"{fwd} / {step} != {want_fwd} / {want_step}")
+    return {f"{label} forward": fwd, f"{label} step": step}
+
+
 # TPU kernels whose function a kernel of the port computes (ROADMAP Queue
 # B, "by function"): B12 padded27, B11, B12 aligned, B14 and B18 are B1's
 # conv; B7's o2a form and B13 are K1's weight gradient; B8's forward is
@@ -2322,8 +2690,15 @@ def kernels_json(phases, by_path):
                     p.library_call_ms for p in mine)}
                if mine[0].call_ms is not None else {}),
             "shapes": [p.label for p in mine],
-            **({"widths": sorted({_dsa_width(p.label) for p in mine})}
+            **({"widths": sorted({_dsa_width(p.label) for p in mine}),
+                "sa_types": sorted({next((t for t in OTHER_SA_TYPES
+                                          if f" {t} " in p.label),
+                                         "parallel") for p in mine})}
                if name.startswith("dsa_") else {}),
+            **({"c15_widths": [p.label for p in mine
+                               if any(p.label.startswith(w[0])
+                                      for w in C15_WIDTHS)]}
+               if name.startswith("spatial_attn") else {}),
         })
     return {"kernels": out}
 
@@ -2384,6 +2759,7 @@ def main(argv=()) -> int:
     torch.set_float32_matmul_precision("highest")
     torch.set_grad_enabled(False)
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
     card = card_line()
     print(f"card: {card} | torch: {torch.cuda.get_device_name(0)} | torch "
           f"{torch.__version__} CUDA {torch.version.cuda}", flush=True)
@@ -2454,6 +2830,13 @@ def main(argv=()) -> int:
     augment_phase(dev, gen)
     torch.cuda.empty_cache()
     by_path["train_cli"] = train_cli_run(dev, card)
+    torch.cuda.empty_cache()
+    by_path.update(segresnet_dsa_run(dev, card))
+    for label, extra, counts in ZOO_RUNS:
+        torch.cuda.empty_cache()
+        by_path.update(zoo_run(dev, card, label, extra, counts))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
+          f"the result, the build included", flush=True)
     print(json.dumps(kernels_json(phases, by_path)))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

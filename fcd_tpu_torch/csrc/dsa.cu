@@ -1,4 +1,4 @@
-// B5: the fused eval dual self-attention (DSA, sa_type 'parallel') on the
+// B5: the fused eval dual self-attention (DSA, every sa_type) on the
 // tensor cores (Hopper, sm_90a): phase A, its finishing pass, phase B.
 //
 // Replaces fcd_tpu/kernels/dsa_attention.py::dsa_fused: its phase A
@@ -20,6 +20,19 @@
 //     y = bf16(t + gamma * (out_ca + out_sa))
 // The rounding points are dsa_fused's; q and k enter q^T k, q2 and k2 in
 // f32, as the TPU kernel's f32 projections do.
+//
+// The other sa_types (Mode; dsa_fused's _phase_b_kernel, :121-181, slot
+// map :223) read a (C, 3C) qkvv matrix with slots q, k, v:
+//   'spatial': v_sa = v, and phase B computes out_sa alone;
+//   'serial':  v_sa = v; phase B rounds the head's spatial sum to bf16
+//              and multiplies it by abig_h: out = bf16(out_sa) abig_h;
+//   'channel': no EF and no P (the instances with P = 0): phase A sums
+//              q^T k, q2 and k2 alone (two staged slots), the finishing
+//              pass writes qnorm and abig, and phase B computes out_ca
+//              from v. Phase B still projects q, which 'channel' does not
+//              read, and v, which 'serial' and 'spatial' do not: the
+//              slots staged are the same for every mode.
+// A call is three launches in every mode.
 //
 // What bounds it (H100: 989 TFLOP/s bf16, 3.35 TB/s): per token each phase
 // reads ~6C bytes (bf16 x, f32 pos-embed) and does ~6C^2 + 4CP operations,
@@ -192,8 +205,9 @@ struct Tok {
   const float* pe;   // (N, C) pos-embed, or null
   const float* lns;  // (C,) LayerNorm scale
   const float* lnb;  // (C,) LayerNorm bias
-  const void* w;     // the flax qkvv matrix (C, 4C), f32 or bf16
+  const void* w;     // the flax qkvv matrix (C, nslot C), f32 or bf16
   int w_f32;
+  int nslot;         // 4 ('parallel') or 3 (the other modes)
   int N, C, heads, T;  // T tokens a tile
   float eps;
 };
@@ -219,7 +233,7 @@ __device__ void stage_weights(const Tok& tk, int slots, int h, bf16* Ws,
         const int k = v / VR, r = v - k * VR;
         const int j = r / (CH / 8), n = (r - j * (CH / 8)) * 8;
         val[u] = load8(tk.w, tk.w_f32,
-                       (size_t)k * 4 * C + ((slots >> (4 * j)) & 15) * C +
+                       (size_t)k * tk.nslot * C + ((slots >> (4 * j)) & 15) * C +
                            h * CH + n);
       }
 #pragma unroll
@@ -236,7 +250,7 @@ __device__ void stage_weights(const Tok& tk, int slots, int h, bf16* Ws,
       const int j = r / CHP, n = r - j * CHP;
       Ws[k * wp + r] =
           n < CH ? load1(tk.w, tk.w_f32,
-                         (size_t)k * 4 * C + ((slots >> (4 * j)) & 15) * C +
+                         (size_t)k * tk.nslot * C + ((slots >> (4 * j)) & 15) * C +
                              h * CH + n)
                  : __float2bfloat16(0.f);
     }
@@ -265,7 +279,7 @@ struct WeightChunk {
       const int k = i / VR, r = i - k * VR;
       const int j = r / (CH / 8), n = (r - j * (CH / 8)) * 8;
       v[u] = load8(tk.w, tk.w_f32,
-                   (size_t)(k0 + k) * 4 * tk.C +
+                   (size_t)(k0 + k) * tk.nslot * tk.C +
                        ((slots >> (4 * j)) & 15) * tk.C + h * CH + n);
     }
   }
@@ -434,19 +448,25 @@ __device__ void proj_streamed(const Tok& tk, int slots, int h,
 
 // ---- phase A ---------------------------------------------------------------
 
+// the sa_types (kernels/dsa_attention.py::SA_TYPES)
+enum Mode { PARALLEL = 0, SERIAL = 1, SPATIAL = 2, CHANNEL = 3 };
+
 struct ParamsA {
   Tok tk;
-  const void* ef;  // (N, P) f32 or bf16
+  int slots;       // q, k, v_sa: 0x310 ('parallel') or 0x210
+  const void* ef;  // (N, P) f32 or bf16; null at P = 0
   int ef_f32;
   float* part;     // (chunks, B, heads, F) partial records
   int tiles, per_chunk;
 };
 
+// P = 0 ('channel'): no kp | vp, two staged slots
 template <int CH, int P>
 struct ShapeA {
   static constexpr int CHP = padded(CH);
   static constexpr bool STREAM = CH >= STREAM_CH;
-  static constexpr int WP = pitch(3 * CHP);  // weights q | k | v_sa
+  static constexpr int NS = P > 0 ? 3 : 2;    // staged slots
+  static constexpr int WP = pitch(NS * CHP);  // weights q | k (| v_sa)
   static constexpr int EP = pitch(P);        // ef tile
   static constexpr int KP = pitch(2 * CHP);  // bf16(k) | bf16(v_sa)
   static constexpr int QP = 2 * CHP + 2;     // f32 q | k
@@ -454,13 +474,13 @@ struct ShapeA {
   static constexpr int S = NT / NO > 1 ? NT / NO : 1;  // token slices
   static constexpr int OPT = (NO * S + NT - 1) / NT;   // sums a thread
   static constexpr int F = NO + 2 * CH * P;  // floats of a partial record
-  static constexpr int WMA = P / 16;         // kp | vp: warps along P
+  static constexpr int WMA = P >= 16 ? P / 16 : 1;  // kp | vp: warps along P
   static constexpr int WNA = NW / WMA;       //          and along 2 CHP
   static constexpr int NJ2 = 2 * CHP / 8;
   static constexpr int NIA = (NJ2 + WNA - 1) / WNA;
   static constexpr int NI = CHP / 8 < 4 ? CHP / 8 : 4;  // n-tiles a unit
   static constexpr int GROUPS = CHP / 8 / NI;
-  static constexpr int NTW = 3 * CHP / 8 / NW;  // streamed: n-tiles a warp
+  static constexpr int NTW = NS * CHP / 8 / NW;  // streamed: n-tiles a warp
   static int smem(int C, int T) {
     return 2 * ((STREAM ? 2 * KW : depth(C)) * WP + T * pitch(depth(C)) +
                 T * EP + T * KP) +
@@ -503,7 +523,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_a_kernel(const ParamsA p) {
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if constexpr (!SA::STREAM)
-    stage_weights<CH, 3>(tk, 0x310, h, Ws, SA::WP);  // slots q, k, v_sa
+    stage_weights<CH, SA::NS>(tk, p.slots, h, Ws, SA::WP);  // q, k (, v_sa)
 
   // the CUDA-core sums this thread owns: u = tid + i*NT (u < NO * S) is
   // output u % NO (qk[r][c] = q_r . k_c, then q2, then k2) over token
@@ -536,7 +556,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_a_kernel(const ParamsA p) {
     }
     if constexpr (SA::STREAM) {
       float acc[SA::NTW][4];
-      proj_streamed<CH, 3>(tk, 0x310, h, Xs, xp, Ws, SA::WP, acc);
+      proj_streamed<CH, SA::NS>(tk, p.slots, h, Xs, xp, Ws, SA::WP, acc);
 #pragma unroll
       for (int j = 0; j < SA::NTW; ++j) {
         const int gc = (warp * SA::NTW + j) * 8 + 2 * (lane & 3);
@@ -550,9 +570,10 @@ __global__ void __launch_bounds__(NT) dsa_phase_a_kernel(const ParamsA p) {
       __syncthreads();
       // projections, in units of (16-token m-tile, slot, group of NI
       // n-tiles)
-      const int units = (T / 16) * 3 * SA::GROUPS;
+      const int units = (T / 16) * SA::NS * SA::GROUPS;
       for (int u = warp; u < units; u += NW) {
-        const int mt = u / (3 * SA::GROUPS), r = u - mt * 3 * SA::GROUPS;
+        const int mt = u / (SA::NS * SA::GROUPS);
+        const int r = u - mt * SA::NS * SA::GROUPS;
         const int slot = r / SA::GROUPS, grp = r - slot * SA::GROUPS;
         float acc[SA::NI][4];
         zero_acc(acc);
@@ -594,6 +615,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_a_kernel(const ParamsA p) {
       sacc[i] = s;
     }
     // kp | vp on the tensor cores, the tile's tokens as the k-dimension
+    if constexpr (P > 0)
     for (int k0 = 0; k0 < T; k0 += 16) {
       uint32_t a[4];
       ldsm_x4_t(a, smem_u32(Es + (k0 + (lane >> 4) * 8 + (lane & 7)) * SA::EP +
@@ -617,7 +639,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_a_kernel(const ParamsA p) {
 #pragma unroll
   for (int i = 0; i < SA::NIA; ++i) {
     const int j = wn + i * SA::WNA;
-    if (j >= SA::NJ2) continue;
+    if (P == 0 || j >= SA::NJ2) continue;
     // column n of [k | v_sa] (CHP each): kp or vp row r; n and r are even
     // and CH is, so r + 1 < CH with r
     const int n = j * 8 + 2 * (lane & 3), pr = wm * 16 + (lane >> 2);
@@ -769,10 +791,11 @@ __global__ void __launch_bounds__(FT) dsa_phase_a_finish(const ParamsF p) {
 
 struct ParamsB {
   Tok tk;
+  int mode;            // Mode
   const float* qnorm;  // (B, C)
   const bf16* abig;    // (B, heads, CH, CH): out_ca[n, c] = sum_d v[n, d] abig[d, c]
-  const bf16* kpt;     // (B, C, P)
-  const bf16* vp;      // (B, C, P)
+  const bf16* kpt;     // (B, C, P); null at P = 0
+  const bf16* vp;      // (B, C, P); null at P = 0
   const float* gamma;  // (C,)
   bf16* out;           // (B, N, C)
 };
@@ -833,7 +856,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if constexpr (!SB::STREAM)
-    stage_weights<CH, 2>(tk, 0x20, h, Ws, SB::WP);  // slots q, v_ca
+    stage_weights<CH, 2>(tk, 0x20, h, Ws, SB::WP);  // slots q, v (v_ca)
   ln_tile<CH>(tk, b, n0, Xs, xp, Bs, h * CH);
   const size_t hc = (size_t)b * C + h * CH;
   const uint4 zero = make_uint4(0, 0, 0, 0);
@@ -907,103 +930,129 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
   }
   __syncthreads();
 
-  // both attentions, one warp a 16-token m-tile
+  // the mode's attentions, one warp a 16-token m-tile
+  const int mode = p.mode;
   for (int mt = warp; mt < T / 16; mt += NW) {
     const int m0 = mt * 16;
     if (n0 + m0 >= tk.N) continue;
     const int aoff = (m0 + (lane & 15)) * SB::QP + (lane >> 4) * 8;
     float o[CHP / 8][4];
     zero_acc(o);
-    // channel attention: o = bf16(v_ca) . abig_h
+    // channel attention: acc += bf16(V) . abig_h, V the warp's rows of Vs
+    auto channel = [&](float (&acc)[CHP / 8][4]) {
 #pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      uint32_t av[4];
-      ldsm_x4(av, smem_u32(Vs + aoff + kk * 16));
-      const bf16* brow = ABs + (kk * 16 + (lane & 15)) * SB::AP;
+      for (int kk = 0; kk < KC / 16; ++kk) {
+        uint32_t av[4];
+        ldsm_x4(av, smem_u32(Vs + aoff + kk * 16));
+        const bf16* brow = ABs + (kk * 16 + (lane & 15)) * SB::AP;
 #pragma unroll
-      for (int j = 0; j < CHP / 8; j += 2) {
-        if (j + 1 < CHP / 8) {
-          uint32_t bb[4];
-          ldsm_x4_t(bb, smem_u32(brow + j * 8 + (lane >> 4) * 8));
-          mma16816(o[j], av, bb[0], bb[1]);
-          mma16816(o[j + 1], av, bb[2], bb[3]);
-        } else {
-          uint32_t bb[2];
-          ldsm_x2_t(bb, smem_u32(brow + j * 8));
-          mma16816(o[j], av, bb[0], bb[1]);
+        for (int j = 0; j < CHP / 8; j += 2) {
+          if (j + 1 < CHP / 8) {
+            uint32_t bb[4];
+            ldsm_x4_t(bb, smem_u32(brow + j * 8 + (lane >> 4) * 8));
+            mma16816(acc[j], av, bb[0], bb[1]);
+            mma16816(acc[j + 1], av, bb[2], bb[3]);
+          } else {
+            uint32_t bb[2];
+            ldsm_x2_t(bb, smem_u32(brow + j * 8));
+            mma16816(acc[j], av, bb[0], bb[1]);
+          }
+        }
+      }
+    };
+    if (mode == PARALLEL || mode == CHANNEL) channel(o);
+    if constexpr (P > 0) {
+      if (mode != CHANNEL) {
+        // scores s = qn . kpt_h (16 x P, f32)
+        float s[P / 8][4];
+        zero_acc(s);
+#pragma unroll
+        for (int kk = 0; kk < KC / 16; ++kk) {
+          uint32_t aq[4];
+          ldsm_x4(aq, smem_u32(Qs + aoff + kk * 16));
+          const bf16* brow = KPs + (kk * 16 + (lane & 15)) * SB::PP;
+#pragma unroll
+          for (int j = 0; j < P / 8; j += 2) {
+            uint32_t bb[4];
+            ldsm_x4_t(bb, smem_u32(brow + j * 8 + (lane >> 4) * 8));
+            mma16816(s[j], aq, bb[0], bb[1]);
+            mma16816(s[j + 1], aq, bb[2], bb[3]);
+          }
+        }
+        // softmax over P: rows g (s[.][0..1]) and g + 8 (s[.][2..3]), each
+        // spread over the four lanes of a quad
+        float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < P / 8; ++j) {
+          mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
+          mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
+        }
+#pragma unroll
+        for (int x = 1; x < 4; x <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
+        }
+        float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+        for (int j = 0; j < P / 8; ++j) {
+          s[j][0] = expf(s[j][0] - mx0);
+          s[j][1] = expf(s[j][1] - mx0);
+          s[j][2] = expf(s[j][2] - mx1);
+          s[j][3] = expf(s[j][3] - mx1);
+          sum0 += s[j][0] + s[j][1];
+          sum1 += s[j][2] + s[j][3];
+        }
+#pragma unroll
+        for (int x = 1; x < 4; x <<= 1) {
+          sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
+          sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
+        }
+        const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
+        // o += bf16(softmax) . vp_h^T: the probabilities are the A operand
+        // in registers (n-tiles 2kk, 2kk + 1 of s are k-step kk)
+#pragma unroll
+        for (int kk = 0; kk < P / 16; ++kk) {
+          const uint32_t a[4] = {
+              pack2(s[2 * kk][0] * inv0, s[2 * kk][1] * inv0),
+              pack2(s[2 * kk][2] * inv1, s[2 * kk][3] * inv1),
+              pack2(s[2 * kk + 1][0] * inv0, s[2 * kk + 1][1] * inv0),
+              pack2(s[2 * kk + 1][2] * inv1, s[2 * kk + 1][3] * inv1)};
+#pragma unroll
+          for (int j = 0; j < CHP / 8; j += 2) {
+            if (j + 1 < CHP / 8) {
+              uint32_t bb[4];
+              ldsm_x4(bb, smem_u32(VPs +
+                                   (j * 8 + (lane >> 4) * 8 + (lane & 7)) *
+                                       SB::PP +
+                                   kk * 16 + ((lane >> 3) & 1) * 8));
+              mma16816(o[j], a, bb[0], bb[1]);
+              mma16816(o[j + 1], a, bb[2], bb[3]);
+            } else {
+              uint32_t bb[2];
+              ldsm_x2(bb, smem_u32(VPs + (j * 8 + (lane & 7)) * SB::PP +
+                                   kk * 16 + ((lane >> 3) & 1) * 8));
+              mma16816(o[j], a, bb[0], bb[1]);
+            }
+          }
         }
       }
     }
-    // scores s = qn . kpt_h (16 x P, f32)
-    float s[P / 8][4];
-    zero_acc(s);
+    if (mode == SERIAL) {
+      // the spatial output, rounded to bf16 in this warp's rows of Vs
+      // (v is not read in this mode; columns CHP .. KC stay zero), is the
+      // channel attention's values: o = bf16(out_sa) . abig_h
+      __syncwarp();
 #pragma unroll
-    for (int kk = 0; kk < KC / 16; ++kk) {
-      uint32_t aq[4];
-      ldsm_x4(aq, smem_u32(Qs + aoff + kk * 16));
-      const bf16* brow = KPs + (kk * 16 + (lane & 15)) * SB::PP;
-#pragma unroll
-      for (int j = 0; j < P / 8; j += 2) {
-        uint32_t bb[4];
-        ldsm_x4_t(bb, smem_u32(brow + j * 8 + (lane >> 4) * 8));
-        mma16816(s[j], aq, bb[0], bb[1]);
-        mma16816(s[j + 1], aq, bb[2], bb[3]);
+      for (int j = 0; j < CHP / 8; ++j) {
+        const int col = j * 8 + 2 * (lane & 3), r = m0 + (lane >> 2);
+        *reinterpret_cast<uint32_t*>(Vs + r * SB::QP + col) =
+            pack2(o[j][0], o[j][1]);
+        *reinterpret_cast<uint32_t*>(Vs + (r + 8) * SB::QP + col) =
+            pack2(o[j][2], o[j][3]);
       }
-    }
-    // softmax over P: rows g (s[.][0..1]) and g + 8 (s[.][2..3]), each
-    // spread over the four lanes of a quad
-    float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < P / 8; ++j) {
-      mx0 = fmaxf(mx0, fmaxf(s[j][0], s[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[j][2], s[j][3]));
-    }
-#pragma unroll
-    for (int x = 1; x < 4; x <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, x));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, x));
-    }
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < P / 8; ++j) {
-      s[j][0] = expf(s[j][0] - mx0);
-      s[j][1] = expf(s[j][1] - mx0);
-      s[j][2] = expf(s[j][2] - mx1);
-      s[j][3] = expf(s[j][3] - mx1);
-      sum0 += s[j][0] + s[j][1];
-      sum1 += s[j][2] + s[j][3];
-    }
-#pragma unroll
-    for (int x = 1; x < 4; x <<= 1) {
-      sum0 += __shfl_xor_sync(0xffffffffu, sum0, x);
-      sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
-    }
-    const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
-    // o += bf16(softmax) . vp_h^T: the probabilities are the A operand in
-    // registers (n-tiles 2kk, 2kk + 1 of s are k-step kk)
-#pragma unroll
-    for (int kk = 0; kk < P / 16; ++kk) {
-      const uint32_t a[4] = {
-          pack2(s[2 * kk][0] * inv0, s[2 * kk][1] * inv0),
-          pack2(s[2 * kk][2] * inv1, s[2 * kk][3] * inv1),
-          pack2(s[2 * kk + 1][0] * inv0, s[2 * kk + 1][1] * inv0),
-          pack2(s[2 * kk + 1][2] * inv1, s[2 * kk + 1][3] * inv1)};
-#pragma unroll
-      for (int j = 0; j < CHP / 8; j += 2) {
-        if (j + 1 < CHP / 8) {
-          uint32_t bb[4];
-          ldsm_x4(bb, smem_u32(VPs + (j * 8 + (lane >> 4) * 8 + (lane & 7)) *
-                                         SB::PP +
-                               kk * 16 + ((lane >> 3) & 1) * 8));
-          mma16816(o[j], a, bb[0], bb[1]);
-          mma16816(o[j + 1], a, bb[2], bb[3]);
-        } else {
-          uint32_t bb[2];
-          ldsm_x2(bb, smem_u32(VPs + (j * 8 + (lane & 7)) * SB::PP + kk * 16 +
-                               ((lane >> 3) & 1) * 8));
-          mma16816(o[j], a, bb[0], bb[1]);
-        }
-      }
+      __syncwarp();
+      zero_acc(o);
+      channel(o);
     }
     // y = bf16(t + gamma * o) of the head's CH real channels, staged in
     // this warp's rows of Qs, then stored as 16-byte runs (CH >= 8) or
@@ -1089,9 +1138,10 @@ int launch_b(const ParamsB& pb, int B, cudaStream_t s) {
 }
 
 Tok tokens(const void* x, const float* pe, const float* lns, const float* lnb,
-           const void* w, int w_f32, int N, int C, int heads, int T,
-           float eps) {
+           const void* w, int w_f32, int mode, int N, int C, int heads,
+           int T, float eps) {
   Tok t;
+  t.nslot = mode == PARALLEL ? 4 : 3;
   t.x = static_cast<const bf16*>(x);
   t.pe = pe;
   t.lns = lns;
@@ -1109,20 +1159,24 @@ Tok tokens(const void* x, const float* pe, const float* lns, const float* lnb,
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
 // the shapes the kernels take (kernels/dsa_attention.py::plan_for checks
-// them first): ch a power of two from 2 to 128, P in {16, 32, 64, 128}, C
-// a power of two from 8 to 512, T a multiple of 16, and T = 16 where the
-// weights stream (ch = 128)
-bool supported(int C, int P, int heads, int T) {
-  if (heads <= 0 || C % heads) return false;
+// them first): ch a power of two from 2 to 128, P in {16, 32, 64, 128}
+// (P = 0 in 'channel' mode and only there), C a power of two from 8 to
+// 512, T a multiple of 16, and T = 16 where the weights stream (ch = 128)
+bool supported(int C, int P, int heads, int T, int mode) {
+  if (heads <= 0 || C % heads || mode < PARALLEL || mode > CHANNEL)
+    return false;
+  if ((P == 0) != (mode == CHANNEL)) return false;
   const int ch = C / heads;
   return pow2(ch) && ch >= 2 && ch <= 128 &&
-         (P == 16 || P == 32 || P == 64 || P == 128) && C >= 8 && C <= 512 &&
+         (P == 0 || P == 16 || P == 32 || P == 64 || P == 128) && C >= 8 &&
+         C <= 512 &&
          C % 8 == 0 && pow2(C / 8) && T > 0 && T % 16 == 0 &&
          (ch < STREAM_CH || (T == 16 && C % KW == 0));
 }
 
 // the instances: every (ch, P) of supported(), keyed ch * 1000 + P
 #define DSA_CASES_CH(CH, CALL)                \
+  case CH * 1000 + 0: return CALL(CH, 0);     \
   case CH * 1000 + 16: return CALL(CH, 16);   \
   case CH * 1000 + 32: return CALL(CH, 32);   \
   case CH * 1000 + 64: return CALL(CH, 64);   \
@@ -1136,21 +1190,24 @@ bool supported(int C, int P, int heads, int T) {
 
 // phase A and its finishing pass. part: (chunks, B, heads, F) f32 scratch;
 // glue 0: o0..o4 = qk, q2, k2, kp, vp (f32); glue 1: o0..o3 = qnorm (f32),
-// abig, kpt, vp (bf16), t1/t2 the (heads,) temperatures
+// abig, kpt, vp (bf16), t1/t2 the (heads,) temperatures. mode: Mode (the
+// qkvv matrix has 4 slots in mode 0, else 3; ef is null in mode 3, P = 0)
 extern "C" int fcd_dsa_phase_a(const void* x, const float* pe,
                                const float* lns, const float* lnb,
-                               const void* w, int w_f32, const void* ef,
+                               const void* w, int w_f32, int mode,
+                               const void* ef,
                                int ef_f32, float* part, int glue,
                                const float* t1, const float* t2, void* o0,
                                void* o1, void* o2, void* o3, void* o4, int B,
                                int N, int C, int P, int heads, int T,
                                int per_chunk, int chunks, float eps,
                                void* stream) {
-  if (!supported(C, P, heads, T) || per_chunk < 1 || chunks < 1)
+  if (!supported(C, P, heads, T, mode) || per_chunk < 1 || chunks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   ParamsA pa;
-  pa.tk = tokens(x, pe, lns, lnb, w, w_f32, N, C, heads, T, eps);
+  pa.tk = tokens(x, pe, lns, lnb, w, w_f32, mode, N, C, heads, T, eps);
+  pa.slots = mode == PARALLEL ? 0x310 : 0x210;
   pa.ef = ef;
   pa.ef_f32 = ef_f32;
   pa.part = part;
@@ -1190,16 +1247,18 @@ extern "C" int fcd_dsa_phase_a(const void* x, const float* pe,
 
 extern "C" int fcd_dsa_phase_b(const void* x, const float* pe,
                                const float* lns, const float* lnb,
-                               const void* w, int w_f32, const float* qnorm,
+                               const void* w, int w_f32, int mode,
+                               const float* qnorm,
                                const void* abig, const void* kpt,
                                const void* vp, const float* gamma, void* out,
                                int B, int N, int C, int P, int heads, int T,
                                float eps, void* stream) {
-  if (!supported(C, P, heads, T))
+  if (!supported(C, P, heads, T, mode))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   ParamsB pb;
-  pb.tk = tokens(x, pe, lns, lnb, w, w_f32, N, C, heads, T, eps);
+  pb.tk = tokens(x, pe, lns, lnb, w, w_f32, mode, N, C, heads, T, eps);
+  pb.mode = mode;
   pb.qnorm = qnorm;
   pb.abig = static_cast<const bf16*>(abig);
   pb.kpt = static_cast<const bf16*>(kpt);

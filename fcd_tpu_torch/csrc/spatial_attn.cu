@@ -65,7 +65,12 @@
 //     group.
 //   * Widths: C a power of two from 16 to 256, P 16, 32 or 64, C P <= 8192
 //     (SHAPES_FWD / SHAPES_BWD below): the default model's levels and the
-//     narrower ones of smaller feature and projection sizes.
+//     narrower ones of smaller feature and projection sizes. Every other
+//     (C, P) that B5 takes (C 8 .. 512, P 16 .. 128: segresnet_deeper's
+//     (256, 64), MS_DSA_NET's fs32 and project-128 levels) runs the wide
+//     instances at the end of this file (C15): CUDA-core kernels that read
+//     kpb and vpb from L2 and split each head's columns over blocks, so
+//     that their sums fit; correct first, with their times in PERF.md.
 //   * No atomics: each chunk writes one f32 partial of dkpb and dvpb, and
 //     spatial_attn_bwd_finish adds the chunks' partials (and the head
 //     groups' dqn partials) in a fixed order, writing dkpb and dvpb in
@@ -794,6 +799,316 @@ __global__ void __launch_bounds__(FT) spatial_attn_bwd_finish(
   }
 }
 
+// ---- the wide instances (C15) ----------------------------------------------
+//
+// Every (C, P) with C a power of two from 8 to 512 and P 16 .. 128 that the
+// tensor-core instances above do not take (C = 8, C = 512, P = 128, and C P
+// > 8192: SHAPES_WIDE in kernels/spatial_attn.py). There a block's dkpb
+// and dvpb sums (C x P f32 each) do not fit its registers, and at (512,
+// 128) a head's kpb columns and vpb rows (128 KB each in bf16) not its
+// shared memory beside each other. These kernels take a simpler road, on
+// the CUDA cores in f32: a block holds a tile of TOK tokens (TOK C <= 8192)
+// and, one operand at a time, a head's C x P of kpb or vpb in shared
+// memory, staged from L2 with 16-byte loads; K4 splits each head's P
+// columns over S = C P / 8192 blocks (1, 2, 4 or 8), each recomputing the
+// head's softmax row and owning the dkpb and dvpb sums of its P / S
+// columns (at most 32 f32 a thread each) and the dqn partial of those
+// columns. Same math, rounding points, dropout bits and fixed-order
+// finishing pass as the tensor-core instances; no atomics.
+
+constexpr int WT = 256;        // threads of a wide block
+constexpr int WACC = 32;       // sums a thread: 8192 / WT
+constexpr int WIDE_SUMS = WT * WACC;
+
+__device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float round_bf(float v) {
+  return __bfloat162float(__float2bfloat16(v));
+}
+
+__device__ __forceinline__ float wsum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ float wmax(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
+  return v;
+}
+
+// TOK rows of C bf16 (row stride C) from token n0 of batch item b into
+// shared dst (TOK x C bf16), rows past N zero; 16-byte copies
+__device__ void load_rows(const bf16* src, int b, int N, int C, int n0,
+                          int TOK, bf16* dst) {
+  const bf16* s = src + ((size_t)b * N + n0) * C;
+  const uint4 zero = make_uint4(0, 0, 0, 0);
+  for (int v = threadIdx.x; v < TOK * C / 8; v += WT) {
+    const int t = v / (C / 8);
+    reinterpret_cast<uint4*>(dst)[v] =
+        n0 + t < N ? reinterpret_cast<const uint4*>(s)[v] : zero;
+  }
+}
+
+// Ws[c][q] = m[c][q0 + q] (C x P of a row-major matrix of row stride ld),
+// 16-byte copies
+__device__ void stage_cols(const bf16* m, int ld, int q0, int C, int P,
+                           bf16* Ws) {
+  for (int v = threadIdx.x; v < C * P / 8; v += WT) {
+    const int c = v / (P / 8), q = (v - c * (P / 8)) * 8;
+    *reinterpret_cast<uint4*>(Ws + c * P + q) =
+        *reinterpret_cast<const uint4*>(m + (size_t)c * ld + q0 + q);
+  }
+}
+
+// Ws[c][q] = m[r0 + q][c] (the transpose of P rows of a row-major matrix
+// of row stride C) at pitch P + 2, so that threads on consecutive c read
+// distinct banks: 16-byte loads along the rows, 2-byte stores
+__device__ void stage_rows_t(const bf16* m, int r0, int C, int P, bf16* Ws) {
+  for (int v = threadIdx.x; v < P * C / 8; v += WT) {
+    const int q = v / (C / 8), c = (v - q * (C / 8)) * 8;
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(m + (size_t)(r0 + q) * C + c);
+    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) Ws[(c + i) * (P + 2) + q] = e[i];
+  }
+}
+
+// S[t][q] = sum_c A[t][c] W[c][q] (A TOK x C, W C x P at pitch wp, both
+// bf16 in shared memory): consecutive threads take consecutive q
+__device__ void tile_product(const bf16* A, const bf16* W, int wp, int C,
+                             int TOK, int P, float* S) {
+  for (int i = threadIdx.x; i < TOK * P; i += WT) {
+    const int t = i / P, q = i - t * P;
+    const bf16* ar = A + t * C;
+    float s0 = 0.f, s1 = 0.f;
+    for (int c = 0; c < C; c += 2) {
+      s0 = fmaf(bf2f(ar[c]), bf2f(W[c * wp + q]), s0);
+      s1 = fmaf(bf2f(ar[c + 1]), bf2f(W[(c + 1) * wp + q]), s1);
+    }
+    S[i] = s0 + s1;
+  }
+}
+
+// one softmax row of P logits in place (a warp): returns 1 / sum; srow
+// holds exp(s - max)
+__device__ __forceinline__ float softmax_row(float* srow, int P, int lane) {
+  float mx = -INFINITY;
+  for (int q = lane; q < P; q += 32) mx = fmaxf(mx, srow[q]);
+  mx = wmax(mx);
+  float sum = 0.f;
+  for (int q = lane; q < P; q += 32) {
+    const float e = expf(srow[q] - mx);
+    srow[q] = e;
+    sum += e;
+  }
+  return 1.f / wsum(sum);
+}
+
+struct WideFwd {
+  const bf16* qn;   // (B, N, C)
+  const bf16* kpb;  // (B, C, HP)
+  const bf16* vpb;  // (B, HP, C)
+  bf16* out;        // (B, N, C)
+  int N, C, HP, P, TOK;
+  Drop d;
+};
+
+// qn's tile, one head's C x P operand (pitch P + 2), its TOK x P scores
+__host__ __device__ constexpr int wide_fwd_smem(int C, int P, int TOK) {
+  return 2 * TOK * C + 2 * C * (P + 2) + 4 * TOK * P;
+}
+
+// grid (token tile, batch): the tile's TOK tokens, head by head
+__global__ void __launch_bounds__(WT)
+    spatial_attn_fwd_kernel_wide(const WideFwd p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int C = p.C, P = p.P, HP = p.HP, TOK = p.TOK, N = p.N;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // TOK x C
+  bf16* Ws = Qs + TOK * C;  // C x P: kpb (pitch P), then vpb^T (P + 2)
+  float* Ss = reinterpret_cast<float*>(Ws + C * (P + 2));  // s, then a
+  const int b = blockIdx.y, n0 = blockIdx.x * TOK;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const bf16* kb = p.kpb + (size_t)b * C * HP;
+  const bf16* vb = p.vpb + (size_t)b * HP * C;
+  load_rows(p.qn, b, N, C, n0, TOK, Qs);
+  float acc[WACC];
+#pragma unroll
+  for (int j = 0; j < WACC; ++j) acc[j] = 0.f;
+  for (int hh = 0; hh < HP / P; ++hh) {
+    __syncthreads();  // the last head's products are done with Ws and Ss
+    stage_cols(kb, HP, hh * P, C, P, Ws);
+    __syncthreads();
+    tile_product(Qs, Ws, P, C, TOK, P, Ss);  // logits
+    __syncthreads();
+    stage_rows_t(vb, hh * P, C, P, Ws);  // Ws[c][q] = vpb[hh P + q][c]
+    // a = bf16(keep ? softmax(s) / (1 - rate) : 0), a warp a token
+    for (int t = warp; t < TOK; t += WT / 32) {
+      float* row = Ss + t * P;
+      const float inv = softmax_row(row, P, lane);
+      const uint32_t x = elem_x(b, N, HP, n0 + t, hh * P);
+      for (int q = lane; q < P; q += 32) {
+        const float a = row[q] * inv;
+        row[q] = round_bf(!p.d.on || keep_x(x + (uint32_t)q * K0, p.d)
+                              ? a * p.d.inv
+                              : 0.f);
+      }
+    }
+    __syncthreads();
+    // out[t][c] += sum_q a[t][q] vpb[hh P + q][c]: element j of this
+    // thread is e = tid + WT j (consecutive threads, consecutive c)
+#pragma unroll
+    for (int j = 0; j < WACC; ++j) {
+      const int e = threadIdx.x + WT * j;
+      if (e >= TOK * C) break;
+      const int t = e / C, c = e - t * C;
+      const float* ar = Ss + t * P;
+      const bf16* wc = Ws + c * (P + 2);
+      float s = acc[j];
+      for (int q = 0; q < P; ++q) s = fmaf(ar[q], bf2f(wc[q]), s);
+      acc[j] = s;
+    }
+  }
+  bf16* ob = p.out + ((size_t)b * N + n0) * C;
+#pragma unroll
+  for (int j = 0; j < WACC; ++j) {
+    const int e = threadIdx.x + WT * j;
+    if (e >= TOK * C) break;
+    if (n0 + e / C < N) ob[e] = __float2bfloat16(acc[j]);
+  }
+}
+
+struct WideBwd {
+  const bf16* qn;   // (B, N, C)
+  const bf16* kpb;  // (B, C, HP)
+  const bf16* vpb;  // (B, HP, C)
+  const bf16* g;    // (B, N, C)
+  float* dq_part;   // (HP / P * S, B, N, C): one per (head, split)
+  float* dk_part;   // (chunks, B, C, HP)
+  float* dv_part;   // (chunks, B, HP, C)
+  int N, C, HP, P, TOK, tiles, chunks, S;
+  Drop d;
+};
+
+// the qn and g tiles, one head's C x P operand (pitch P + 2), s and da /
+// ds (TOK x P f32), a on the split's CS columns, and the split's kpb
+// columns (C x (CS + 2): pitches off the banks' period)
+__host__ __device__ constexpr int wide_bwd_smem(int C, int P, int TOK,
+                                                int S) {
+  return 4 * TOK * C + 2 * C * (P + 2) + 8 * TOK * P + 4 * TOK * (P / S) +
+         2 * C * (P / S + 2);
+}
+
+// grid (chunk, head x split, batch)
+__global__ void __launch_bounds__(WT)
+    spatial_attn_bwd_kernel_wide(const WideBwd p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int C = p.C, P = p.P, HP = p.HP, TOK = p.TOK, N = p.N, S = p.S;
+  const int CS = P / S, KP = CS + 2;  // the split's columns, Ks's pitch
+  const int chunk = blockIdx.x, hs = blockIdx.y, b = blockIdx.z;
+  const int B = gridDim.z;
+  const int q0 = (hs / S) * P;       // the head's first column
+  const int qs = (hs % S) * CS;      // the split's first column in the head
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // TOK x C
+  bf16* Gs = Qs + TOK * C;                       // TOK x C
+  bf16* Ws = Gs + TOK * C;  // C x P: kpb (pitch P), then vpb^T (P + 2)
+  float* Ss = reinterpret_cast<float*>(Ws + C * (P + 2));  // TOK x P: s
+  float* Ds = Ss + TOK * P;                      // TOK x P: da, then ds
+  float* As = Ds + TOK * P;                      // TOK x CS: a
+  bf16* Ks = reinterpret_cast<bf16*>(As + TOK * CS);  // C x KP
+  const bf16* kb = p.kpb + (size_t)b * C * HP;
+  const bf16* vb = p.vpb + (size_t)b * HP * C;
+  for (int i = threadIdx.x; i < C * CS; i += WT) {
+    const int c = i / CS, q = i - c * CS;
+    Ks[c * KP + q] = kb[(size_t)c * HP + q0 + qs + q];
+  }
+  float dk[WACC], dv[WACC];  // dkpb (C x CS) and dvpb (CS x C) elements
+#pragma unroll
+  for (int j = 0; j < WACC; ++j) dk[j] = dv[j] = 0.f;
+  const int t_begin = chunk * p.tiles / p.chunks;
+  const int t_end = (chunk + 1) * p.tiles / p.chunks;
+  for (int tile = t_begin; tile < t_end; ++tile) {
+    const int n0 = tile * TOK;
+    __syncthreads();  // the last tile's sums are done
+    load_rows(p.qn, b, N, C, n0, TOK, Qs);
+    load_rows(p.g, b, N, C, n0, TOK, Gs);
+    stage_cols(kb, HP, q0, C, P, Ws);
+    __syncthreads();
+    tile_product(Qs, Ws, P, C, TOK, P, Ss);  // logits
+    __syncthreads();
+    stage_rows_t(vb, q0, C, P, Ws);  // Ws[c][q] = vpb[q0 + q][c]
+    __syncthreads();
+    tile_product(Gs, Ws, P + 2, C, TOK, P, Ds);  // da = g . vpb^T
+    __syncthreads();
+    // per token (a warp each): s, the mask, a on the split's columns,
+    // ds = bf16(s (da' - sum(da' s))) with da' = keep ? da / (1 - rate) : 0
+    for (int t = warp; t < TOK; t += WT / 32) {
+      float* srow = Ss + t * P;
+      float* drow = Ds + t * P;
+      const float inv = softmax_row(srow, P, lane);
+      const uint32_t x = elem_x(b, N, HP, n0 + t, q0);
+      float dot = 0.f;
+      for (int q = lane; q < P; q += 32) {
+        const float s = srow[q] * inv;
+        const bool keep = !p.d.on || keep_x(x + (uint32_t)q * K0, p.d);
+        const float da = keep ? drow[q] * p.d.inv : 0.f;
+        srow[q] = s;
+        drow[q] = da;
+        dot = fmaf(da, s, dot);
+        if (q >= qs && q < qs + CS)
+          As[t * CS + q - qs] = round_bf(keep ? s * p.d.inv : 0.f);
+      }
+      dot = wsum(dot);
+      for (int q = lane; q < P; q += 32)
+        drow[q] = round_bf(srow[q] * (drow[q] - dot));
+    }
+    __syncthreads();
+    // dqn's partial of the split: dq[t][c] = sum_q ds[t][qs + q] kpb[c][q0 +
+    // qs + q]
+    float* dq = p.dq_part + (((size_t)hs * B + b) * N + n0) * C;
+    for (int e = threadIdx.x; e < TOK * C; e += WT) {
+      const int t = e / C, c = e - t * C;
+      if (n0 + t >= N) continue;
+      const float* dr = Ds + t * P + qs;
+      const bf16* kr = Ks + c * KP;
+      float s = 0.f;
+      for (int q = 0; q < CS; ++q) s = fmaf(dr[q], bf2f(kr[q]), s);
+      dq[e] = s;
+    }
+    // dkpb[c][q] += sum_t qn[t][c] ds[t][qs + q], dvpb[q][c] += sum_t
+    // a[t][q] g[t][c] (tokens past N are zero rows of Qs and Gs)
+#pragma unroll
+    for (int j = 0; j < WACC; ++j) {
+      const int e = threadIdx.x + WT * j;
+      if (e >= C * CS) break;
+      const int c = e / CS, q = e - c * CS;
+      float s = dk[j];
+      for (int t = 0; t < TOK; ++t)
+        s = fmaf(bf2f(Qs[t * C + c]), Ds[t * P + qs + q], s);
+      dk[j] = s;
+      const int qv = e / C, cv = e - qv * C;
+      float v = dv[j];
+      for (int t = 0; t < TOK; ++t)
+        v = fmaf(As[t * CS + qv], bf2f(Gs[t * C + cv]), v);
+      dv[j] = v;
+    }
+  }
+  // this chunk's partials of the split's columns
+  const size_t slot = (size_t)chunk * B + b;
+#pragma unroll
+  for (int j = 0; j < WACC; ++j) {
+    const int e = threadIdx.x + WT * j;
+    if (e >= C * CS) break;
+    const int c = e / CS, q = e - c * CS;
+    p.dk_part[(slot * C + c) * HP + q0 + qs + q] = dk[j];
+    const int qv = e / C, cv = e - qv * C;
+    p.dv_part[(slot * HP + q0 + qs + qv) * C + cv] = dv[j];
+  }
+}
+
 // ---- launches --------------------------------------------------------------
 
 // The shapes the kernels are built for (kernels/spatial_attn.py::SHAPES
@@ -864,6 +1179,44 @@ int launch_bwd(const BwdParams& p, const FinishParams& f, int B,
   const long long vecs = (2 * f.n_kv + (f.groups > 0 ? f.n_q : 0)) / 4;
   spatial_attn_bwd_finish<<<(unsigned)((vecs + FT - 1) / FT), FT, 0, s>>>(f);
   return static_cast<int>(cudaGetLastError());
+}
+
+int launch_fwd_wide(const WideFwd& p, int B, cudaStream_t s) {
+  static bool ready = false;
+  cudaError_t e = allow_smem(spatial_attn_fwd_kernel_wide, ready);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int bytes = wide_fwd_smem(p.C, p.P, p.TOK);
+  if (bytes > SMEM_CAP) return static_cast<int>(cudaErrorInvalidValue);
+  spatial_attn_fwd_kernel_wide<<<dim3((p.N + p.TOK - 1) / p.TOK, B), WT,
+                                 bytes, s>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_bwd_wide(const WideBwd& p, const FinishParams& f, int B,
+                    cudaStream_t s) {
+  static bool ready = false;
+  cudaError_t e = allow_smem(spatial_attn_bwd_kernel_wide, ready);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int bytes = wide_bwd_smem(p.C, p.P, p.TOK, p.S);
+  if (bytes > SMEM_CAP) return static_cast<int>(cudaErrorInvalidValue);
+  spatial_attn_bwd_kernel_wide<<<dim3(p.chunks, p.HP / p.P * p.S, B), WT,
+                                 bytes, s>>>(p);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long vecs = (2 * f.n_kv + f.n_q) / 4;
+  spatial_attn_bwd_finish<<<(unsigned)((vecs + FT - 1) / FT), FT, 0, s>>>(f);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the widths of the wide instances: C a power of two from 8 to 512, P
+// 16 .. 128, TOK C <= 8192 with TOK a multiple of 16 and at most 64, and
+// C P / S <= 8192 (kernels/spatial_attn.py::wide_plan)
+bool wide_ok(int C, int P, int HP, int TOK, int S) {
+  const bool c_ok = C >= 8 && C <= 512 && (C & (C - 1)) == 0;
+  const bool p_ok = P == 16 || P == 32 || P == 64 || P == 128;
+  return c_ok && p_ok && HP % P == 0 && TOK >= 16 && TOK <= 64 &&
+         TOK % 16 == 0 && TOK * C <= WIDE_SUMS && S >= 1 && P % S == 0 &&
+         (P / S) % 16 == 0 && C * (P / S) <= WIDE_SUMS;
 }
 
 }  // namespace
@@ -957,4 +1310,77 @@ extern "C" int fcd_spatial_attn_bwd(
 #undef BWD_CASE
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K3, the wide instances (C15): tok tokens a block, grid (ceil(N / tok),
+// B) (kernels/spatial_attn.py::wide_plan)
+extern "C" int fcd_spatial_attn_fwd_wide(const void* qn, const void* kpb,
+                                         const void* vpb, void* out, int B,
+                                         int N, int C, int HP, int P, int tok,
+                                         unsigned key, unsigned thresh,
+                                         float inv_keep, int drop,
+                                         void* stream) {
+  if (N < 1 || B < 1 || C < 1 ||
+      !wide_ok(C, P, HP, tok, C * P > WIDE_SUMS ? C * P / WIDE_SUMS : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  WideFwd p;
+  p.qn = static_cast<const bf16*>(qn);
+  p.kpb = static_cast<const bf16*>(kpb);
+  p.vpb = static_cast<const bf16*>(vpb);
+  p.out = static_cast<bf16*>(out);
+  p.N = N;
+  p.C = C;
+  p.HP = HP;
+  p.P = P;
+  p.TOK = tok;
+  p.d = dropout(key, thresh, inv_keep, drop);
+  return launch_fwd_wide(p, B, static_cast<cudaStream_t>(stream));
+}
+
+// K4 and its finishing pass, the wide instances: tok tokens a step, chunks
+// of the ceil(N / tok) tiles, each head's P columns split over `split`
+// blocks. Scratch: dk_part, dv_part (chunks, B, C, HP) f32 each; dq_part
+// (HP / P * split, B, N, C) f32. dk and dv: f32, or bf16 where dk_bf16 /
+// dv_bf16; dqn bf16.
+extern "C" int fcd_spatial_attn_bwd_wide(
+    const void* qn, const void* kpb, const void* vpb, const void* g,
+    void* dqn, float* dq_part, float* dk_part, float* dv_part, void* dk,
+    void* dv, int dk_bf16, int dv_bf16, int B, int N, int C, int HP, int P,
+    int tok, int chunks, int split, unsigned key, unsigned thresh,
+    float inv_keep, int drop, void* stream) {
+  const int tiles = tok > 0 ? (N + tok - 1) / tok : 0;
+  if (N < 1 || B < 1 || !wide_ok(C, P, HP, tok, split) || chunks < 1 ||
+      chunks > tiles || dq_part == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  WideBwd p;
+  p.qn = static_cast<const bf16*>(qn);
+  p.kpb = static_cast<const bf16*>(kpb);
+  p.vpb = static_cast<const bf16*>(vpb);
+  p.g = static_cast<const bf16*>(g);
+  p.dq_part = dq_part;
+  p.dk_part = dk_part;
+  p.dv_part = dv_part;
+  p.N = N;
+  p.C = C;
+  p.HP = HP;
+  p.P = P;
+  p.TOK = tok;
+  p.tiles = tiles;
+  p.chunks = chunks;
+  p.S = split;
+  p.d = dropout(key, thresh, inv_keep, drop);
+  FinishParams f;
+  f.dk_part = dk_part;
+  f.dv_part = dv_part;
+  f.dq_part = dq_part;
+  f.dk = dk;
+  f.dv = dv;
+  f.dqn = static_cast<bf16*>(dqn);
+  f.chunks = chunks;
+  f.groups = HP / P * split;
+  f.n_kv = (long long)B * C * HP;
+  f.n_q = (long long)B * N * C;
+  f.dk_bf16 = dk_bf16;
+  f.dv_bf16 = dv_bf16;
+  return launch_bwd_wide(p, f, B, static_cast<cudaStream_t>(stream));
 }

@@ -1,4 +1,4 @@
-"""B5: fused eval dual self-attention (sa_type 'parallel'), three launches.
+"""B5: fused eval dual self-attention, every sa_type, three launches.
 
 Replaces `fcd_tpu/kernels/dsa_attention.py::dsa_fused` (phase A
 pallas_call :243, the XLA glue :277-300, phase B :310). The CUDA kernels
@@ -17,9 +17,19 @@ plain glue is `dsa_glue`.
 
 The work splits by head: `dsa_plan` (pure Python) picks the token tile
 and phase A's chunks of tiles; the kernels' grids are (chunk or tile,
-head, batch). Weights: `w_qkvv` is the flax (C, 4C) matrix with slots q,
-k, v_ca, v_sa (`w_qkvv[:, s*C:(s+1)*C]`); the kernels read it, and `EF`,
-as they are (f32 or bf16), rounding to bf16 on load.
+head, batch). Weights: `w_qkvv` is the flax matrix with slots q, k, v_ca,
+v_sa (`w_qkvv[:, s*C:(s+1)*C]`, (C, 4C)) for sa_type 'parallel', and q,
+k, v ((C, 3C)) for 'serial', 'spatial' and 'channel'; the kernels read
+it, and `EF`, as they are (f32 or bf16), rounding to bf16 on load.
+
+The four types (`fcd_tpu/kernels/dsa_attention.py:121-181`, slot map
+:223): phase A sums q^T k, q2, k2 and, except for 'channel', kp and vp
+(v_sa is slot 3, or slot 2); the finishing pass writes `abig` for every
+type. Phase B computes the channel attention ('parallel', 'channel':
+bf16(v) abig), the spatial attention (every type but 'channel'), and
+for 'serial' the spatial output rounded to the token dtype, then times
+abig (C3's rounding point). 'channel' has no EF and no P: its plan and
+its kernels take P = 0, and kp, kpt and vp are (B, C, 0).
 """
 
 from __future__ import annotations
@@ -37,10 +47,32 @@ REPLACES_A = "fcd_tpu/kernels/dsa_attention.py:243"  # phase A pallas_call
 REPLACES_B = "fcd_tpu/kernels/dsa_attention.py:310"  # phase B pallas_call
 _L2_EPS = 1e-12  # fcd_tpu/ops/attention.py::_l2_normalize
 
-# the slots of the qkvv matrix each phase's blocks stage (csrc/dsa.cu:
-# 0x310 and 0x20)
-PHASE_A_SLOTS = (0, 1, 3)   # q, k, v_sa
-PHASE_B_SLOTS = (0, 2)      # q, v_ca
+SA_TYPES = ("parallel", "serial", "spatial", "channel")  # csrc/dsa.cu's modes
+
+
+def mode_of(sa_type: str) -> int:
+    """The kernels' mode number of an sa_type (csrc/dsa.cu::Mode)."""
+    if sa_type not in SA_TYPES:
+        raise ValueError(f"sa_type must be one of {SA_TYPES}, got {sa_type!r}")
+    return SA_TYPES.index(sa_type)
+
+
+def num_slots(sa_type: str) -> int:
+    """Column groups of qkvv: q, k, v_ca, v_sa for 'parallel'; q, k, v
+    for the others (`fcd_tpu/ops/attention.py:78`)."""
+    return 4 if mode_of(sa_type) == 0 else 3
+
+
+def phase_a_slots(sa_type: str):
+    """The qkvv slots phase A's blocks stage: q, k and v_sa (slot 3 for
+    'parallel', 2 for 'serial' and 'spatial'); q, k for 'channel'."""
+    if sa_type == "channel":
+        return (0, 1)
+    return (0, 1, 3) if sa_type == "parallel" else (0, 1, 2)
+
+
+PHASE_A_SLOTS = phase_a_slots("parallel")   # q, k, v_sa
+PHASE_B_SLOTS = (0, 2)      # q, and v_ca (or v, unused but by 'channel')
 
 
 class PhaseA(NamedTuple):
@@ -69,33 +101,47 @@ def _ln_tokens(x, pos_embed, ln_scale, ln_bias, eps):
 
 def dsa_reference(x, w_qkvv, ef, temperature, temperature2, ln_scale,
                   ln_bias, pos_embed, gamma, num_heads: int,
-                  eps: float = 1e-5) -> torch.Tensor:
+                  eps: float = 1e-5, sa_type: str = "parallel"
+                  ) -> torch.Tensor:
     """The eval DSA block in plain PyTorch, f32 throughout: the einsum math
-    of fcd_tpu/ops/attention.py:116-303 (tokens-resident form, parallel)."""
+    of fcd_tpu/ops/attention.py:116-303 (tokens-resident form) for each
+    sa_type; `ef` is None for 'channel'."""
     b, n, c = x.shape
     h, ch = num_heads, c // num_heads
     base = x.float()
     if pos_embed is not None:
         base = base + pos_embed.float()
-    qkvv = layer_norm(base, ln_scale, ln_bias, eps) @ w_qkvv.float()
-    q, k, v_ca, v_sa = qkvv.split(c, dim=-1)
+    slots = (layer_norm(base, ln_scale, ln_bias, eps)
+             @ w_qkvv.float()).split(c, dim=-1)
+    q, k = slots[0], slots[1]
     qn = q * torch.rsqrt(q.square().sum(dim=1, keepdim=True) + _L2_EPS)
     kn = k * torch.rsqrt(k.square().sum(dim=1, keepdim=True) + _L2_EPS)
-    # channel attention, per head: (B, h, ch, ch)
-    g = torch.einsum("bnc,bnd->bcd", qn, kn).reshape(b, h, ch, h, ch)
-    blocks = torch.stack([g[:, j, :, j, :] for j in range(h)], dim=1)
-    attn = torch.softmax(blocks * temperature.float().reshape(h, 1, 1), -1)
-    out_ca = torch.einsum("bhcd,bnhd->bnhc", attn,
-                          v_ca.reshape(b, n, h, ch)).reshape(b, n, c)
-    # spatial attention with the learned N -> P projection
-    efp = ef.float()
-    kp = torch.einsum("bnc,np->bcp", k, efp).reshape(b, h, ch, -1)
-    vp = torch.einsum("bnc,np->bcp", v_sa, efp).reshape(b, h, ch, -1)
-    s = torch.einsum("bnhc,bhcp->bhnp", qn.reshape(b, n, h, ch), kp)
-    s = torch.softmax(s * temperature2.float().reshape(1, h, 1, 1), dim=-1)
-    out_sa = torch.einsum("bhnp,bhcp->bnhc", s, vp).reshape(b, n, c)
-    out = base + gamma.float() * (out_ca + out_sa)
-    return out.to(x.dtype)
+
+    def channel(v):  # per head: (B, h, ch, ch)
+        g = torch.einsum("bnc,bnd->bcd", qn, kn).reshape(b, h, ch, h, ch)
+        blocks = torch.stack([g[:, j, :, j, :] for j in range(h)], dim=1)
+        attn = torch.softmax(blocks * temperature.float().reshape(h, 1, 1),
+                             -1)
+        return torch.einsum("bhcd,bnhd->bnhc", attn,
+                            v.reshape(b, n, h, ch)).reshape(b, n, c)
+
+    def spatial(v):  # with the learned N -> P projection
+        efp = ef.float()
+        kp = torch.einsum("bnc,np->bcp", k, efp).reshape(b, h, ch, -1)
+        vp = torch.einsum("bnc,np->bcp", v, efp).reshape(b, h, ch, -1)
+        s = torch.einsum("bnhc,bhcp->bhnp", qn.reshape(b, n, h, ch), kp)
+        s = torch.softmax(s * temperature2.float().reshape(1, h, 1, 1), -1)
+        return torch.einsum("bhnp,bhcp->bnhc", s, vp).reshape(b, n, c)
+
+    if sa_type == "channel":
+        att = channel(slots[2])
+    elif sa_type == "spatial":
+        att = spatial(slots[2])
+    elif sa_type == "serial":
+        att = channel(spatial(slots[2]))
+    else:
+        att = channel(slots[2]) + spatial(slots[3])
+    return (base + gamma.float() * att).to(x.dtype)
 
 
 def _slots(w_qkvv, dtype, slots):
@@ -106,21 +152,26 @@ def _slots(w_qkvv, dtype, slots):
 
 
 def dsa_phase_a_plain(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed,
-                      num_heads: int, eps: float = 1e-5) -> PhaseA:
+                      num_heads: int, eps: float = 1e-5,
+                      sa_type: str = "parallel") -> PhaseA:
+    """Phase A's sums; for 'channel' (ef None) kp and vp are (B, C, 0)."""
     dtype = x.dtype
     b, n, c = x.shape
     h, ch = num_heads, c // num_heads
     _, xln = _ln_tokens(x, pos_embed, ln_scale, ln_bias, eps)
     xf = xln.float()
-    wq, wk, wv = _slots(w_qkvv, dtype, PHASE_A_SLOTS)
-    q, k = xf @ wq, xf @ wk
-    v_sa = (xf @ wv).to(dtype).float()
-    eff = ef.to(dtype).float()
+    ws = _slots(w_qkvv, dtype, phase_a_slots(sa_type))
+    q, k = xf @ ws[0], xf @ ws[1]
     qk = torch.einsum("bnhc,bnhd->bhcd", q.reshape(b, n, h, ch),
                       k.reshape(b, n, h, ch))
-    return PhaseA(qk, q.square().sum(1), k.square().sum(1),
-                  k.to(dtype).float().transpose(1, 2) @ eff,
-                  v_sa.transpose(1, 2) @ eff)
+    if sa_type == "channel":
+        kp = vp = xf.new_zeros((b, c, 0))
+    else:
+        v_sa = (xf @ ws[2]).to(dtype).float()
+        eff = ef.to(dtype).float()
+        kp = k.to(dtype).float().transpose(1, 2) @ eff
+        vp = v_sa.transpose(1, 2) @ eff
+    return PhaseA(qk, q.square().sum(1), k.square().sum(1), kp, vp)
 
 
 def dsa_glue(a: PhaseA, temperature, temperature2, num_heads: int,
@@ -137,28 +188,38 @@ def dsa_glue(a: PhaseA, temperature, temperature2, num_heads: int,
     t1 = temperature.float().reshape(1, h, 1, 1)
     t2 = temperature2.float().reshape(1, h, 1, 1)
     abig = torch.softmax(qk_n * t1, dim=-1).transpose(2, 3)
-    kpt = (a.kp.reshape(b, h, ch, -1) * t2).reshape(a.kp.shape)
+    kpt = (a.kp.reshape(b, h, ch, a.kp.shape[-1]) * t2).reshape(a.kp.shape)
     return PhaseBOperands(qnorm, abig.to(dtype).contiguous(), kpt.to(dtype),
                           a.vp.to(dtype))
 
 
 def dsa_phase_b_plain(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale,
                       ln_bias, pos_embed, num_heads: int,
-                      eps: float = 1e-5) -> torch.Tensor:
+                      eps: float = 1e-5,
+                      sa_type: str = "parallel") -> torch.Tensor:
     dtype = x.dtype
     b, n, c = x.shape
     h, ch = num_heads, c // num_heads
+    p = kpt.shape[-1]
     base, xln = _ln_tokens(x, pos_embed, ln_scale, ln_bias, eps)
     xf = xln.float()
     wq, wv = _slots(w_qkvv, dtype, PHASE_B_SLOTS)
-    v_ca = (xf @ wv).to(dtype).float().reshape(b, n, h, ch)
-    out = torch.einsum("bnhd,bhdc->bnhc", v_ca, abig.float())
-    qn = ((xf @ wq) * qnorm[:, None, :]).to(dtype).float()
-    s = torch.einsum("bnhc,bhcp->bhnp", qn.reshape(b, n, h, ch),
-                     kpt.float().reshape(b, h, ch, -1))
-    s = torch.softmax(s, dim=-1).to(dtype).float()
-    out = out + torch.einsum("bhnp,bhcp->bnhc", s,
-                             vp.float().reshape(b, h, ch, -1))
+    ab = abig.float()
+    out = None
+    if sa_type in ("parallel", "channel"):
+        v_ca = (xf @ wv).to(dtype).float().reshape(b, n, h, ch)
+        out = torch.einsum("bnhd,bhdc->bnhc", v_ca, ab)
+    if sa_type != "channel":
+        qn = ((xf @ wq) * qnorm[:, None, :]).to(dtype).float()
+        s = torch.einsum("bnhc,bhcp->bhnp", qn.reshape(b, n, h, ch),
+                         kpt.float().reshape(b, h, ch, p))
+        s = torch.softmax(s, dim=-1).to(dtype).float()
+        sa = torch.einsum("bhnp,bhcp->bnhc", s,
+                          vp.float().reshape(b, h, ch, p))
+        if sa_type == "serial":  # the spatial output rounded, then abig
+            out = torch.einsum("bnhd,bhdc->bnhc", sa.to(dtype).float(), ab)
+        else:
+            out = sa if out is None else out + sa
     return (base + gamma.float() * out.reshape(b, n, c)).to(dtype)
 
 
@@ -167,7 +228,7 @@ def dsa_phase_b_plain(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale,
 SMS = 132                  # the H100's streaming multiprocessors
 TILES = (128, 64, 32, 16)  # token tiles, largest first
 HEAD_WIDTHS = (2, 4, 8, 16, 32, 64, 128)
-PROJECTIONS = (16, 32, 64, 128)
+PROJECTIONS = (16, 32, 64, 128)  # and 0: 'channel', no spatial attention
 MAX_C = 512                # fcd_tpu/kernels/dsa_attention.py:345
 STREAM_WIDTH = 128         # head widths whose blocks stream their weights
 KW = 32                    # weight rows a streamed chunk
@@ -201,7 +262,8 @@ def smem_a(c: int, ch: int, p: int, t: int) -> int:
     chp, ck = _padded(ch), max(c, 16)
     no = ch * ch + 2 * ch
     s = max(1, NT // no)
-    return 2 * (_weight_rows(c, ch) * _pitch(3 * chp) + t * _pitch(ck)
+    ns = 3 if p else 2   # the staged slots: q, k (and v_sa)
+    return 2 * (_weight_rows(c, ch) * _pitch(ns * chp) + t * _pitch(ck)
                 + t * _pitch(p) + t * _pitch(2 * chp)) \
         + 4 * (t * (2 * chp + 2) + (s * no if s > 1 else 0))
 
@@ -217,12 +279,13 @@ def smem_b(c: int, ch: int, p: int, t: int) -> int:
 
 def supported(c: int, p: int, heads: int) -> bool:
     """The widths the kernels take (csrc/dsa.cu::supported): head width a
-    power of two from 2 to 128, P in PROJECTIONS, C a power of two from 8
-    to MAX_C. That is every (C, P) MS_DSA_NET reaches with 4 heads at
-    feature sizes 4-32 and project sizes 16-128."""
+    power of two from 2 to 128, P in PROJECTIONS (or 0, 'channel'), C a
+    power of two from 8 to MAX_C. That is every (C, P) MS_DSA_NET and
+    SegResNet_DSA reach with 4 heads at feature sizes 4-32 and project
+    sizes 16-128."""
     if heads <= 0 or c % heads:
         return False
-    return (c // heads in HEAD_WIDTHS and p in PROJECTIONS
+    return (c // heads in HEAD_WIDTHS and (p in PROJECTIONS or p == 0)
             and 8 <= c <= MAX_C and c & (c - 1) == 0)
 
 
@@ -266,8 +329,8 @@ def plan_for(n: int, c: int, p: int, heads: int, batch: int, tile: int,
     if not supported(c, p, heads) or n < 1 or batch < 1:
         raise ValueError(
             f"dsa kernels: N={n} C={c} P={p} heads={heads} batch={batch} not "
-            f"supported (head width in {HEAD_WIDTHS}, P in {PROJECTIONS}, C "
-            f"a power of two from 8 to {MAX_C})")
+            f"supported (head width in {HEAD_WIDTHS}, P in {PROJECTIONS} or "
+            f"0, C a power of two from 8 to {MAX_C})")
     ch = c // heads
     if tile < 16 or tile % 16 or per_chunk < 1:
         raise ValueError(f"dsa kernels: tile {tile} (a multiple of 16) and "
@@ -294,8 +357,8 @@ def dsa_plan(n: int, c: int, p: int, heads: int, batch: int = 1) -> DsaPlan:
     blocks fit in shared memory, else 16: the small levels get small tiles
     and more blocks; streamed head widths take 16. Phase A's blocks then
     walk enough tiles each to come to about PHASE_A_BLOCKS blocks, so level
-    3's partials stay few. Raises ValueError on shapes the kernels do not
-    take."""
+    3's partials stay few. P = 0 is 'channel' (no spatial attention).
+    Raises ValueError on shapes the kernels do not take."""
     ch = c // heads if heads > 0 else 0
     tile = next((t for t in TILES
                  if -(-n // t) * heads * batch >= SMS and ch < STREAM_WIDTH
@@ -321,15 +384,17 @@ def _fn(name: str, argtypes):
     return fn
 
 
-def _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads):
+def _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads,
+                  sa_type):
     if x.dim() != 3:
         raise ValueError(f"tokens must be (B, N, C), got {tuple(x.shape)}")
     _, n, c = x.shape
     if num_heads < 1 or c % num_heads:
         raise ValueError(f"{num_heads} heads do not divide {c} channels")
-    if tuple(w_qkvv.shape) != (c, 4 * c):
-        raise ValueError(f"w_qkvv must be ({c}, {4 * c}), got "
-                         f"{tuple(w_qkvv.shape)}")
+    ns = num_slots(sa_type)
+    if tuple(w_qkvv.shape) != (c, ns * c):
+        raise ValueError(f"w_qkvv must be ({c}, {ns * c}) for sa_type "
+                         f"{sa_type!r}, got {tuple(w_qkvv.shape)}")
     if tuple(ln_scale.shape) != (c,) or tuple(ln_bias.shape) != (c,):
         raise ValueError(f"LayerNorm affine must be ({c},)")
     if pos_embed is not None and tuple(pos_embed.shape) != (n, c):
@@ -364,15 +429,19 @@ _F32_BF16 = (torch.float32, torch.bfloat16)
 
 def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
                 eps: float = 1e-5, temperatures=None,
-                plan: Optional[DsaPlan] = None):
+                plan: Optional[DsaPlan] = None, sa_type: str = "parallel"):
     """Phase A: the token sums of each head (PhaseA). With `temperatures`
     = (temperature, temperature2), the glue's result instead: phase B's
     operands (PhaseBOperands, in x's dtype). Plain on CPU; on CUDA the sums
     kernel and the finishing pass, two launches and one count. `plan`
-    (default `dsa_plan`'s) sets the kernels' tiles and chunks."""
-    _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads)
+    (default `dsa_plan`'s) sets the kernels' tiles and chunks. `ef` is
+    None for sa_type 'channel', whose plan has P = 0."""
+    _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads,
+                  sa_type)
     b, n, c = x.shape
-    if ef.dim() != 2 or ef.shape[0] != n:
+    if (ef is None) != (sa_type == "channel"):
+        raise ValueError("ef is None for sa_type 'channel' and only then")
+    if ef is not None and (ef.dim() != 2 or ef.shape[0] != n):
         raise ValueError(f"ef must be ({n}, P), got {tuple(ef.shape)}")
     h = num_heads
     if temperatures is not None and any(
@@ -380,7 +449,7 @@ def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
         raise ValueError(f"temperatures must have {h} values each")
     if x.device.type == "cpu":
         a = dsa_phase_a_plain(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, h,
-                              eps)
+                              eps, sa_type)
         return a if temperatures is None else dsa_glue(a, *temperatures, h,
                                                        x.dtype)
     t1, t2 = (None, None) if temperatures is None else temperatures
@@ -389,8 +458,10 @@ def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
         ("pos_embed", pos_embed, _F32), ("ln_scale", ln_scale, _F32),
         ("ln_bias", ln_bias, _F32), ("temperature", t1, _F32),
         ("temperature2", t2, _F32)))
-    p = ef.shape[1]
+    p = 0 if ef is None else ef.shape[1]
     plan = plan or dsa_plan(n, c, p, h, b)
+    if plan.p != p:
+        raise ValueError(f"dsa_phase_a: a plan for P={plan.p} given P={p}")
     ch, dev = plan.ch, x.device
     part = torch.empty((plan.chunks, b, h, plan.record), dtype=torch.float32,
                        device=dev)
@@ -407,12 +478,13 @@ def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
                              torch.empty((b, c, p), **lo),
                              torch.empty((b, c, p), **lo))
     vp_, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _fn("fcd_dsa_phase_a", [vp_] * 5 + [ci, vp_, ci, vp_, ci]
+    fn = _fn("fcd_dsa_phase_a", [vp_] * 5 + [ci, ci, vp_, ci, vp_, ci]
              + [vp_] * 7 + [ci] * 8 + [ctypes.c_float, vp_])
     ptr = _build.ptr
     err = fn(ptr(x), ptr(pos_embed), ptr(ln_scale), ptr(ln_bias),
-             ptr(w_qkvv), int(w_qkvv.dtype == torch.float32), ptr(ef),
-             int(ef.dtype == torch.float32), ptr(part),
+             ptr(w_qkvv), int(w_qkvv.dtype == torch.float32),
+             mode_of(sa_type), ptr(ef),
+             int(ef is not None and ef.dtype == torch.float32), ptr(part),
              int(temperatures is not None), ptr(t1), ptr(t2),
              *(ptr(t) for t in out), *([ptr(None)] * (5 - len(out))),
              b, n, c, p, h, plan.tile, plan.per_chunk, plan.chunks,
@@ -424,14 +496,19 @@ def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
 
 def dsa_phase_b(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale, ln_bias,
                 pos_embed, num_heads: int, eps: float = 1e-5,
-                plan: Optional[DsaPlan] = None) -> torch.Tensor:
-    """Phase B: per token tile and head, both attentions and the residual
-    (plain on CPU, the kernel on CUDA). Returns (B, N, C) in x's dtype.
-    `plan` (default `dsa_plan`'s) sets the token tile."""
-    _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads)
+                plan: Optional[DsaPlan] = None,
+                sa_type: str = "parallel") -> torch.Tensor:
+    """Phase B: per token tile and head, the sa_type's attentions and the
+    residual (plain on CPU, the kernel on CUDA). Returns (B, N, C) in x's
+    dtype. `plan` (default `dsa_plan`'s) sets the token tile."""
+    _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads,
+                  sa_type)
     b, n, c = x.shape
     h, ch = num_heads, c // num_heads
     p = kpt.shape[-1]
+    if (p == 0) != (sa_type == "channel"):
+        raise ValueError(f"kpt and vp have P = 0 for sa_type 'channel' and "
+                         f"only then, got P = {p} for {sa_type!r}")
     for name, t, shape in (("qnorm", qnorm, (b, c)),
                            ("abig", abig, (b, h, ch, ch)),
                            ("kpt", kpt, (b, c, p)), ("vp", vp, (b, c, p)),
@@ -440,7 +517,8 @@ def dsa_phase_b(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale, ln_bias,
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     if x.device.type == "cpu":
         return dsa_phase_b_plain(x, w_qkvv, qnorm, abig, kpt, vp, gamma,
-                                 ln_scale, ln_bias, pos_embed, h, eps)
+                                 ln_scale, ln_bias, pos_embed, h, eps,
+                                 sa_type)
     bf = (torch.bfloat16,)
     _cuda_operands("dsa_phase_b", x, (
         ("w_qkvv", w_qkvv, _F32_BF16), ("pos_embed", pos_embed, _F32),
@@ -448,13 +526,16 @@ def dsa_phase_b(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale, ln_bias,
         ("qnorm", qnorm, _F32), ("abig", abig, bf), ("kpt", kpt, bf),
         ("vp", vp, bf), ("gamma", gamma, _F32)))
     plan = plan or dsa_plan(n, c, p, h, b)
+    if plan.p != p:
+        raise ValueError(f"dsa_phase_b: a plan for P={plan.p} given P={p}")
     out = torch.empty_like(x)
     vp_, ci = ctypes.c_void_p, ctypes.c_int
-    fn = _fn("fcd_dsa_phase_b", [vp_] * 5 + [ci] + [vp_] * 6 + [ci] * 6
+    fn = _fn("fcd_dsa_phase_b", [vp_] * 5 + [ci, ci] + [vp_] * 6 + [ci] * 6
              + [ctypes.c_float, vp_])
     ptr = _build.ptr
     err = fn(ptr(x), ptr(pos_embed), ptr(ln_scale), ptr(ln_bias),
-             ptr(w_qkvv), int(w_qkvv.dtype == torch.float32), ptr(qnorm),
+             ptr(w_qkvv), int(w_qkvv.dtype == torch.float32),
+             mode_of(sa_type), ptr(qnorm),
              ptr(abig), ptr(kpt), ptr(vp), ptr(gamma), ptr(out), b, n, c, p,
              h, plan.tile, float(eps), _build.stream())
     _build.check(err, "dsa_phase_b")
@@ -468,15 +549,17 @@ dsa_phase_b.launches = 0
 
 def dsa_attention(x, w_qkvv, ef, temperature, temperature2, ln_scale,
                   ln_bias, pos_embed: Optional[torch.Tensor], gamma,
-                  num_heads: int, eps: float = 1e-5) -> torch.Tensor:
+                  num_heads: int, eps: float = 1e-5,
+                  sa_type: str = "parallel") -> torch.Tensor:
     """Eval DSA block on tokens (B, N, C): `t + gamma * DSA(LN(t))` with
     `t = x + pos_embed`. CPU: dsa_reference; CUDA: phase A with its
     finishing pass, then phase B."""
     if x.device.type == "cpu":
         return dsa_reference(x, w_qkvv, ef, temperature, temperature2,
                              ln_scale, ln_bias, pos_embed, gamma, num_heads,
-                             eps)
+                             eps, sa_type)
     ops = dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads,
-                      eps, temperatures=(temperature, temperature2))
+                      eps, temperatures=(temperature, temperature2),
+                      sa_type=sa_type)
     return dsa_phase_b(x, w_qkvv, *ops, gamma, ln_scale, ln_bias, pos_embed,
-                       num_heads, eps)
+                       num_heads, eps, sa_type=sa_type)

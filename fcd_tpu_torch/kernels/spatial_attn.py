@@ -26,6 +26,13 @@ kernels or raise. The kernels take bf16 tensors. `spatial_attn_plan`
 launch, one K4 call two (the product kernel and its finishing pass, which
 adds the partial sums in a fixed order and writes dkpb and dvpb in the
 dtype the caller asks for).
+
+Widths: every (C, P) that B5 takes with 4 heads (C a power of two from 8
+to 512, P 16, 32, 64 or 128). The tensor-core instances take
+`SHAPES` (C 16 .. 256, P <= 64, C P <= 8192); the others (`SHAPES_WIDE`)
+run the wide instances of the same source (a `wide` plan, `wide_plan`):
+CUDA-core kernels whose K4 splits each head's P columns over `col_split`
+blocks so that a block's dkpb and dvpb sums stay 32 f32 a thread.
 """
 
 from __future__ import annotations
@@ -143,11 +150,26 @@ def _head_blocks(c: int, p: int) -> Tuple[int, ...]:
                  if hb * c * p <= SUM_VALUES and (hb == 1 or c <= 128))
 
 
-# (C, P) the kernels are built for (C a power of two from 16 to 256, P 16,
-# 32 or 64, C P <= SUM_VALUES), and the heads a K4 block may own there;
-# csrc/spatial_attn.cu's SHAPES_FWD and SHAPES_BWD list the same
+# (C, P) the tensor-core kernels are built for (C a power of two from 16 to
+# 256, P 16, 32 or 64, C P <= SUM_VALUES), and the heads a K4 block may own
+# there; csrc/spatial_attn.cu's SHAPES_FWD and SHAPES_BWD list the same
 SHAPES = {(c, p): _head_blocks(c, p) for c in (16, 32, 64, 128, 256)
           for p in (16, 32, 64) if c * p <= SUM_VALUES}
+
+# every width the kernels take (B5's set at 4 heads), and the ones the wide
+# instances run (csrc/spatial_attn.cu::wide_ok)
+WIDTHS = tuple(8 << i for i in range(7))        # C: 8 .. 512
+PROJECTIONS = (16, 32, 64, 128)
+SHAPES_WIDE = tuple((c, p) for c in WIDTHS for p in PROJECTIONS
+                    if (c, p) not in SHAPES)
+WIDE_SUMS = 8192      # a wide block's tokens x C, and K4's C x its columns
+WIDE_TILE = 64        # a wide block's tokens at most
+
+
+def wide_tile(c: int) -> int:
+    """A wide block's tokens: 4096 / C within 16 .. WIDE_TILE (tokens x C
+    <= WIDE_SUMS), so that level-4 and -5 grids give 128 blocks or more."""
+    return max(16, min(WIDE_TILE, 4096 // c))
 
 
 def _pitch(n: int) -> int:
@@ -170,6 +192,22 @@ def smem_bwd(c: int, hbp: int, t: int) -> int:
                 + 2 * t * _pitch(hbp))
 
 
+def smem_fwd_wide(c: int, p: int, t: int) -> int:
+    """A wide K3 block (csrc/spatial_attn.cu::wide_fwd_smem): the bf16 qn
+    tile, one head's C x P operand at pitch P + 2, the head's f32 scores."""
+    return 2 * t * c + 2 * c * (p + 2) + 4 * t * p
+
+
+def smem_bwd_wide(c: int, p: int, t: int, split: int) -> int:
+    """A wide K4 block (csrc/spatial_attn.cu::wide_bwd_smem): the bf16 qn
+    and g tiles, one head's C x P operand at pitch P + 2, s and da / ds
+    (t x P f32), a on its P / split columns, and those columns of kpb at
+    pitch P / split + 2."""
+    cs = p // split
+    return (4 * t * c + 2 * c * (p + 2) + 8 * t * p + 4 * t * cs
+            + 2 * c * (cs + 2))
+
+
 class SpattnPlan(NamedTuple):
     """K3's and K4's decomposition. Their accumulators live in registers:
     K3's 16 x cols outputs a warp, K4's dkpb and dvpb sums over its chunk
@@ -190,6 +228,8 @@ class SpattnPlan(NamedTuple):
     head_block: int  # K4: heads a block owns
     chunks: int      # K4: blocks along the tokens per head group and item
     smem_bwd: int
+    wide: bool = False   # the wide instances (SHAPES_WIDE)
+    col_split: int = 1   # wide K4: blocks each head's P columns split over
 
     @property
     def units(self) -> int:
@@ -203,13 +243,13 @@ class SpattnPlan(NamedTuple):
     @property
     def split(self) -> str:
         """"row": a K4 block owns every head and writes dqn itself; "head":
-        each head group writes an f32 partial of dqn, added in group order
-        by the finishing pass."""
+        each head group (wide: each head's column split) writes an f32
+        partial of dqn, added in group order by the finishing pass."""
         return "row" if self.head_block == self.heads > 1 else "head"
 
     @property
     def dq_groups(self) -> int:
-        return 0 if self.split == "row" else self.head_groups
+        return 0 if self.split == "row" else self.head_groups * self.col_split
 
     @property
     def fwd_grid(self) -> int:
@@ -217,7 +257,7 @@ class SpattnPlan(NamedTuple):
 
     @property
     def bwd_grid(self) -> int:
-        return self.chunks * self.head_groups * self.batch
+        return self.chunks * self.head_groups * self.col_split * self.batch
 
     @property
     def partial_bytes(self) -> int:
@@ -284,9 +324,12 @@ def spatial_attn_plan(n: int, c: int, p: int, heads: int,
     and the small levels get small tiles (`spattn_sweep --plans` times the
     alternatives: a second wave lost at levels 4-5). Raises ValueError on
     shapes the kernels do not take."""
+    if (c, p) in SHAPES_WIDE and heads >= 1:
+        return wide_plan(n, c, p, heads, batch)
     if (c, p) not in SHAPES or heads < 1:
         raise ValueError(f"spatial_attn kernels: C={c} P={p} heads={heads} "
-                         f"not supported ((C, P) in {sorted(SHAPES)})")
+                         f"not supported (C a power of two from 8 to 512, P "
+                         f"in {PROJECTIONS})")
     hb = max(k for k in SHAPES[(c, p)] if heads % k == 0)
     fits = [t for t in TILES if smem_bwd(c, hb * p, t) <= SMEM_CAP]
     if not fits:
@@ -296,6 +339,30 @@ def spatial_attn_plan(n: int, c: int, p: int, heads: int,
     want = max(1, min(SMS // (heads // hb * batch), most))
     t = next((t for t in fits if -(-n // t) >= want), fits[-1])
     return plan_for(n, c, p, heads, batch, t, min(want, -(-n // t)), hb)
+
+
+def wide_plan(n: int, c: int, p: int, heads: int,
+              batch: int = 1) -> SpattnPlan:
+    """The wide instances' plan at (C, P) in SHAPES_WIDE: tiles of
+    wide_tile(C) tokens (a K3 block takes one; units of
+    16 tokens, one column group), each head's P columns split over C P /
+    WIDE_SUMS K4 blocks (at least 1), and K4 blocks along the tokens as
+    many as make about one wave, their partials within PART_BUDGET.
+    Raises ValueError on what they do not take."""
+    if (c, p) not in SHAPES_WIDE or heads < 1 or n < 1 or batch < 1:
+        raise ValueError(f"spatial_attn wide kernels: N={n} C={c} P={p} "
+                         f"heads={heads} batch={batch} not supported")
+    tok = wide_tile(c)
+    split = max(1, c * p // WIDE_SUMS)
+    units = -(-n // 16)
+    per_block = tok // 16
+    tiles = -(-n // tok)
+    most = max(1, PART_BUDGET // (8 * batch * c * heads * p))
+    chunks = max(1, min(SMS // (heads * split * batch), most, tiles))
+    sf, sb = smem_fwd_wide(c, p, tok), smem_bwd_wide(c, p, tok, split)
+    return SpattnPlan(n, c, p, heads, batch, c, per_block,
+                      -(-units // per_block), sf, tok, tiles, 1, chunks, sb,
+                      True, split)
 
 
 # -- the wrappers ----------------------------------------------------------------
@@ -316,7 +383,14 @@ def _fns():
         bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
                         ci, ci, ci, ci, ci, ci, ci, cu, cu, cf, ci, vp]
         bwd.restype = ci
-        _FNS.update(fwd=fwd, bwd=bwd)
+        fwd_w = lib.fcd_spatial_attn_fwd_wide
+        fwd_w.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cu, cu, cf,
+                          ci, vp]
+        fwd_w.restype = ci
+        bwd_w = lib.fcd_spatial_attn_bwd_wide
+        bwd_w.argtypes = [vp] * 10 + [ci] * 10 + [cu, cu, cf, ci, vp]
+        bwd_w.restype = ci
+        _FNS.update(fwd=fwd, bwd=bwd, fwd_wide=fwd_w, bwd_wide=bwd_w)
     return _FNS
 
 
@@ -374,6 +448,14 @@ def spatial_attn_fwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
     hp = kpb.shape[-1]
     plan = plan or spatial_attn_plan(n, c, hp // h, h, b)
     out = torch.empty_like(qn)
+    if plan.wide:
+        err = _fns()["fwd_wide"](
+            _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(out),
+            b, n, c, hp, hp // h, plan.tile, key, keep_threshold(rate),
+            1.0 / (1.0 - rate), int(rate > 0.0), _build.stream())
+        _build.check(err, "spatial_attn_fwd")
+        spatial_attn_fwd.launches += 1
+        return out
     err = _fns()["fwd"](
         _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(out),
         b, n, c, hp, hp // h, plan.cols, plan.per_block, plan.fwd_blocks,
@@ -416,6 +498,18 @@ def spatial_attn_bwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
                if plan.dq_groups else None)
     dkpb = torch.empty((b, c, hp), dtype=dtypes[0], device=dev)
     dvpb = torch.empty((b, hp, c), dtype=dtypes[1], device=dev)
+    if plan.wide:
+        err = _fns()["bwd_wide"](
+            _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(g),
+            _build.ptr(dqn), _build.ptr(dq_part), _build.ptr(dk_part),
+            _build.ptr(dv_part), _build.ptr(dkpb), _build.ptr(dvpb),
+            int(dtypes[0] == torch.bfloat16), int(dtypes[1] == torch.bfloat16),
+            b, n, c, hp, hp // h, plan.tile, plan.chunks, plan.col_split, key,
+            keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
+            _build.stream())
+        _build.check(err, "spatial_attn_bwd")
+        spatial_attn_bwd.launches += 1
+        return dqn, dkpb, dvpb
     err = _fns()["bwd"](
         _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(g),
         _build.ptr(dqn), _build.ptr(dq_part), _build.ptr(dk_part),

@@ -1,12 +1,19 @@
 """Model factory: params['model_type'] -> constructed model.
 
-Counterpart of `fcd_tpu/models/factory.py::get_model` for the model the
-port has, MS_DSA_NET with the JAX factory's settings (res blocks,
-instance norm, leaky-ReLU 0.01, no conv bias, pos-embed, 3 transformer
-layers per level, attention dropout 0.1), and with the JAX package's
+Counterpart of `fcd_tpu/models/factory.py::get_model` for the models the
+port has, with exactly the JAX factory's settings (:33-172): MS_DSA_NET
+and MS_DSA_NET_PS (res blocks, instance norm, leaky-ReLU 0.01, no conv
+bias, pos-embed, 3 transformer layers per level, attention dropout 0.1;
+PS with pixelshuffle decoders), BaseUNet (depth 6), and the SegResNet
+family (SegResNet, SegResNetVAE, SegResNet_DSA, SegResNetVAE_DSA: ReLU,
+instance norm, dropout 0.1, `segresnet_upsample_mode`, blocks (1, 2, 2,
+4) / (1, 1, 1) or, with `segresnet_deeper`, (1, 2, 2, 4, 4) / (2, 2, 2,
+2); VAE nz 256, std 0.3; DSA levels from len(blocks_down) - 2 with the
+configured projection, 4 heads, 3 layers, dropout 0.1). The JAX package's
 performance gates (`params['perf_flags']`, exported `FCD_*` variables)
-resolved now and frozen into the model (`fcd_tpu_torch/flags.py`). The
-rest of the zoo is queued in ROADMAP.md.
+are resolved now and frozen into the model (`fcd_tpu_torch/flags.py`).
+The rest of the zoo (UNETR++, UNet, VNet, UNETR, SwinUNETR) is queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -14,11 +21,25 @@ from __future__ import annotations
 from typing import Any, Dict
 
 from fcd_tpu_torch import flags
-from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET, _triple
+from fcd_tpu_torch.models.ms_dsa_net import (
+    MS_DSA_NET,
+    MS_DSA_NET_PS,
+    BaseUNet,
+    _triple,
+)
+from fcd_tpu_torch.models.segresnet import SegResNet, SegResNetVAE
+from fcd_tpu_torch.models.segresnet_dsa import (
+    SegResNet_DSA,
+    SegResNetVAE_DSA,
+)
 
-_ZOO = {"ms_dsa_net_ps", "baseunet", "segresnet", "segresnetvae",
-        "segresnet_dsa", "segresnetvae_dsa", "unetrpp", "unet", "vnet",
-        "unetr", "swinunetr"}
+_QUEUED = {"unetrpp", "unet", "vnet", "unetr", "swinunetr"}
+_VAE_MODELS = {"segresnetvae", "segresnetvae_dsa"}
+
+
+def _fast(params) -> bool:
+    """FCD_FAST_CONV: the zoo's plain 3x3 stride-1 convs through B1."""
+    return flags.on("FCD_FAST_CONV", flags.resolve(params.get("perf_flags")))
 
 
 def _build_ms_dsa_net(params: Dict[str, Any]) -> MS_DSA_NET:
@@ -35,17 +56,74 @@ def _build_ms_dsa_net(params: Dict[str, Any]) -> MS_DSA_NET:
     )
 
 
+def _build_ms_dsa_net_ps(params: Dict[str, Any]) -> MS_DSA_NET_PS:
+    return MS_DSA_NET_PS(
+        out_channels=params["chans_out"],
+        img_size=_triple(params["patch_size"]),
+        in_channels=params["chans_in"],
+        feature_size=params["feature_size"],
+        project_size=params["project_size"],
+        sa_type=params["sa_type"],
+        dropout_rate=0.1,
+        upsample_mode="pixelshuffle",
+        fast=_fast(params),
+    )
+
+
+def _build_baseunet(params: Dict[str, Any]) -> BaseUNet:
+    return BaseUNet(out_channels=params["chans_out"],
+                    in_channels=params["chans_in"],
+                    feature_size=params["feature_size"], depth=6)
+
+
+def _segresnet_kwargs(params: Dict[str, Any], dsa: bool, vae: bool):
+    deeper = params.get("segresnet_deeper", False)
+    blocks_down = (1, 2, 2, 4, 4) if deeper else (1, 2, 2, 4)
+    blocks_up = (2, 2, 2, 2) if deeper else (1, 1, 1)
+    kw = dict(out_channels=params["chans_out"],
+              in_channels=params["chans_in"],
+              init_filters=params["feature_size"], dropout_prob=0.1,
+              act=("relu", {}),
+              upsample_mode=params["segresnet_upsample_mode"],
+              blocks_down=blocks_down, blocks_up=blocks_up,
+              fast=_fast(params))
+    if vae:
+        kw.update(input_image_size=_triple(params["patch_size"]),
+                  vae_default_std=0.3, vae_nz=256)
+    if dsa:
+        kw.update(dsa_img_size=_triple(params["patch_size"]),
+                  dsa_project_size=params["project_size"], dsa_num_heads=4,
+                  dsa_dropout_rate=0.1, dsa_sa_type=params["sa_type"],
+                  dsa_num_layers=3, dsa_start_level=len(blocks_down) - 2)
+    return kw
+
+
+_BUILDERS = {
+    "ms_dsa_net": _build_ms_dsa_net,
+    "ms_dsa_net_ps": _build_ms_dsa_net_ps,
+    "baseunet": _build_baseunet,
+    "segresnet": lambda p: SegResNet(**_segresnet_kwargs(p, False, False)),
+    "segresnetvae": lambda p: SegResNetVAE(**_segresnet_kwargs(p, False,
+                                                               True)),
+    "segresnet_dsa": lambda p: SegResNet_DSA(**_segresnet_kwargs(p, True,
+                                                                 False)),
+    "segresnetvae_dsa": lambda p: SegResNetVAE_DSA(
+        **_segresnet_kwargs(p, True, True)),
+}
+
+
 def get_model(params: Dict[str, Any], return_model: bool = True):
     """Build the configured model; sets params['model_returns_vaeloss'] as
     the JAX factory does. Returns (model, params), with model None when
     return_model is False (the JAX factory's signature, :270)."""
     model_type = params["model_type"].lower()
-    params["model_returns_vaeloss"] = model_type in ("segresnetvae",
-                                                     "segresnetvae_dsa")
-    if model_type in _ZOO:
+    params["model_returns_vaeloss"] = model_type in _VAE_MODELS
+    if model_type in _QUEUED:
         raise NotImplementedError(
             f"model_type {params['model_type']!r} is not ported yet: the "
-            "port has MS_DSA_NET; the model zoo is queued in ROADMAP.md")
-    if model_type != "ms_dsa_net":
+            "port has MS_DSA_NET, MS_DSA_NET_PS, BaseUNet and the SegResNet "
+            "family; the rest of the model zoo is queued in ROADMAP.md")
+    if model_type not in _BUILDERS:
         raise ValueError(f"Unknown model_type: {params['model_type']}")
-    return (_build_ms_dsa_net(params) if return_model else None), params
+    model = _BUILDERS[model_type](params) if return_model else None
+    return model, params

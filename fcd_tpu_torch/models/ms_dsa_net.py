@@ -1,6 +1,8 @@
 """MS_DSA_NET: the 6-level res-block U-Net (instance norm,
 leaky-ReLU 0.01, no conv bias) with pos-embedded DSA transformer stacks at
-levels 3-6 and transposed-conv decoders.
+levels 3-6 and transposed-conv decoders; MS_DSA_NET_PS, the same trunk
+with pixelshuffle (or deconv, nontrainable) decoders; BaseUNet, the plain
+res-block U-Net of depth 6 (`fcd_tpu/models/ms_dsa_net.py:30-78`).
 
 Counterpart of `fcd_tpu/models/ms_dsa_net.py::MS_DSA_NET` (the reference's
 ms_dsa_net.py:104-407) on dense channels-last tensors. The TPU package's
@@ -22,6 +24,15 @@ run as one kernel (B15).
 the transformers' conv blocks, dropout (`dropout_rate` in the attention,
 0.1 on the conv branch's channels) drawn from `model.dropout_rng`, which
 the trainer seeds each step.
+
+MS_DSA_NET_PS runs no s2d level in the JAX package (`use_s2d1` is off for
+an upsample_mode, `fcd_tpu/models/ms_dsa_net.py:144-148`), so all five of
+its pools are the `jnp.maximum` chain: the port pools them in the finale
+with K2's `chain` split, and the gates above do not apply to it. BaseUNet
+pools outside its blocks, as the JAX model does (`max_pool_2x` after each
+block): its finale runs without the pool (B2, K2), and the pool is
+`ops/layers.py::max_pool_2x_chain`, whose gradient splits ties as the
+chain does (ROADMAP C8).
 """
 
 from __future__ import annotations
@@ -32,12 +43,17 @@ import torch
 import torch.nn as nn
 
 from fcd_tpu_torch.ops.attention import TransformerBlock
-from fcd_tpu_torch.ops.blocks import UnetrBasicBlock, UnetrUpBlock
+from fcd_tpu_torch.ops.blocks import (
+    GeneralUnetrUpBlock,
+    UnetrBasicBlock,
+    UnetrUpBlock,
+)
 from fcd_tpu_torch.ops.layers import (
     DropoutRng,
     conv1x1,
     group_norm,
     kaiming_normal_fan_out_,
+    max_pool_2x_chain,
 )
 
 
@@ -71,7 +87,9 @@ class PatchEmbed(nn.Module):
 
 class MS_DSA_NET(nn.Module):
     """MS_DSA_NET. forward: (B, D, H, W, in_channels) patches whose grid is
-    img_size -> (B, D, H, W, out_channels) logits in compute_dtype."""
+    img_size -> (B, D, H, W, out_channels) logits in compute_dtype. With
+    an `upsample_mode`, the decoders are GeneralUnetrUpBlocks
+    (MS_DSA_NET_PS); `fast` routes their pixelshuffle convs through B1."""
 
     def __init__(self, out_channels: int, img_size: Sequence[int],
                  in_channels: int = 2, feature_size: int = 16,
@@ -79,8 +97,12 @@ class MS_DSA_NET(nn.Module):
                  sa_type: str = "parallel", num_layers: int = 3,
                  dropout_rate: float = 0.0,
                  pool_in_finale: Tuple[bool, bool] = (True, True),
-                 fused_head: bool = False, levels12_tie: str = "even"):
+                 fused_head: bool = False, levels12_tie: str = "even",
+                 upsample_mode: Optional[str] = None, fast: bool = False):
         super().__init__()
+        if upsample_mode is not None:   # no s2d level: the chain, no B15
+            pool_in_finale, fused_head = (True, True), False
+            levels12_tie = "chain"
         fs = feature_size
         self.pool_in_finale = tuple(bool(v) for v in pool_in_finale)
         self.fused_head = bool(fused_head)
@@ -107,10 +129,16 @@ class MS_DSA_NET(nn.Module):
                                  dropout_rate, self.dropout_rng,
                                  salt=li * num_layers + k)
                 for k in range(num_layers)))
+        self.upsample_mode = upsample_mode
+
+        def up(cin, cout):
+            if upsample_mode is None:
+                return UnetrUpBlock(cin, cout)
+            return GeneralUnetrUpBlock(cin, cout, upsample_mode, fast)
+
         self.decoders = nn.ModuleList([
-            UnetrUpBlock(fs * 16, fs * 8), UnetrUpBlock(fs * 8, fs * 4),
-            UnetrUpBlock(fs * 4, fs * 2), UnetrUpBlock(fs * 2, fs * 2),
-            UnetrUpBlock(fs * 2, fs)])
+            up(fs * 16, fs * 8), up(fs * 8, fs * 4), up(fs * 4, fs * 2),
+            up(fs * 2, fs * 2), up(fs * 2, fs)])
         self.head = nn.Parameter(torch.empty(fs, out_channels))
         self.head_bias = nn.Parameter(torch.zeros(out_channels))
 
@@ -163,3 +191,56 @@ class MS_DSA_NET(nn.Module):
             return dec[4](y2, x1, head=(self.head, self.head_bias))
         y1 = dec[4](y2, x1)
         return conv1x1(y1, self.head, self.head_bias)
+
+
+class MS_DSA_NET_PS(MS_DSA_NET):
+    """MS_DSA_NET with GeneralUnetrUpBlock decoders
+    (`fcd_tpu/models/ms_dsa_net.py::MS_DSA_NET_PS`, :370-373), pixelshuffle
+    by default."""
+
+    def __init__(self, *args, upsample_mode: str = "pixelshuffle", **kw):
+        super().__init__(*args, upsample_mode=upsample_mode, **kw)
+
+
+class BaseUNet(nn.Module):
+    """`fcd_tpu/models/ms_dsa_net.py::BaseUNet` (:30-78) as the factory
+    builds it: `depth` UnetrBasicBlocks (res blocks, instance norm,
+    leaky-ReLU 0.01, no bias) of fs, 2 fs, ... channels, a 2x max pool
+    after each but the last, UnetrUpBlock decoders (B4 upsample) over the
+    skips, and a 1x1 head with bias."""
+
+    def __init__(self, out_channels: int, in_channels: int = 2,
+                 feature_size: int = 16, depth: int = 6):
+        super().__init__()
+        fs = feature_size
+        self.in_channels = in_channels
+        self.compute_dtype = torch.float32
+        self.dropout_rng = DropoutRng()   # the trainer seeds it; unused
+        chans = [in_channels] + [fs * 2 ** i for i in range(depth)]
+        self.encoders = nn.ModuleList(
+            UnetrBasicBlock(chans[i], chans[i + 1]) for i in range(depth))
+        self.decoders = nn.ModuleList(
+            UnetrUpBlock(chans[depth - i], chans[depth - i - 1])
+            for i in range(depth - 1))
+        self.head = nn.Parameter(torch.empty(fs, out_channels))
+        self.head_bias = nn.Parameter(torch.zeros(out_channels))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for m in list(self.encoders) + list(self.decoders):
+            m.reset_parameters(generator)
+        kaiming_normal_fan_out_(self.head, generator)
+        with torch.no_grad():
+            self.head_bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = x.to(self.compute_dtype).contiguous()
+        feats = []
+        for i, enc in enumerate(self.encoders):
+            out = enc([out])
+            feats.append(out)
+            if i != len(self.encoders) - 1:
+                out = max_pool_2x_chain(out).contiguous()
+        dec = out
+        for i, up in enumerate(self.decoders):
+            dec = up(dec, feats[-(i + 2)])
+        return conv1x1(dec, self.head, self.head_bias)

@@ -14,7 +14,9 @@ ChannelDropout3d is the identity. In train mode the DSA is `dsa_train`,
 the JAX package's train formulation `_dsa_tokens_resident`
 (attention.py:222-303) in plain PyTorch around the spatial-attention
 kernels K3/K4, with channel and spatial attention dropout, and
-ChannelDropout3d(0.1) drops whole channels.
+ChannelDropout3d(0.1) drops whole channels. Every `sa_type` of the JAX
+package runs: 'parallel' (the default), 'serial', 'spatial' and
+'channel'; K3/K4 run for all but 'channel'.
 """
 
 from __future__ import annotations
@@ -24,7 +26,11 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from fcd_tpu_torch.kernels.dsa_attention import _L2_EPS, dsa_attention
+from fcd_tpu_torch.kernels.dsa_attention import (
+    _L2_EPS,
+    dsa_attention,
+    num_slots,
+)
 from fcd_tpu_torch.kernels.spatial_attn import dropout_key, spatial_attn
 from fcd_tpu_torch.ops.blocks import UnetResBlock
 from fcd_tpu_torch.ops.layers import (
@@ -46,55 +52,77 @@ def _norm_tokens(t: torch.Tensor) -> torch.Tensor:
 
 def dsa_train(x, w_qkvv, ef, temperature, temperature2, ln_scale, ln_bias,
               pos_embed, gamma, num_heads: int, rate: float,
-              rng: DropoutRng, salt: int, eps: float = 1e-5) -> torch.Tensor:
-    """The train DSA block (sa_type 'parallel'): tokens x (B, N, C) ->
-    t + gamma * (channel_attn + spatial_attn)(LN(t)), t = x + pos_embed,
-    in x's dtype, as `fcd_tpu/ops/attention.py:116-132, 222-303` computes
-    it. Channel attention drops out on its (B, h, c, c) matrix; the
-    spatial tail runs K3/K4 with the hash seeded by (rng.seed, salt)."""
+              rng: DropoutRng, salt: int, eps: float = 1e-5,
+              sa_type: str = "parallel") -> torch.Tensor:
+    """The train DSA block: tokens x (B, N, C) -> t + gamma * DSA(LN(t)),
+    t = x + pos_embed, in x's dtype, as `fcd_tpu/ops/attention.py:116-132,
+    222-303` computes it for each `sa_type`: 'parallel' adds the channel
+    attention (values v_ca) and the spatial attention (values v_sa);
+    'channel' and 'spatial' are one of them on the third slot; 'serial'
+    feeds the spatial output to the channel attention as its values, so
+    autograd carries K3/K4's output through the channel matrix. Channel
+    attention drops out on its (B, h, c, c) matrix; the spatial tail runs
+    K3/K4 with the hash seeded by (rng.seed, salt). `ef` is None for
+    'channel'."""
     dtype = x.dtype
     b, n, c = x.shape
     h, ch = num_heads, c // num_heads
     base = x if pos_embed is None else x + pos_embed.to(dtype)
     xln = layer_norm(base, ln_scale, ln_bias, eps).to(dtype)
-    qkvv = torch.matmul(xln, w_qkvv.to(dtype))
-    q, k, v_ca, v_sa = qkvv.split(c, dim=-1)
-    qn, kn = _norm_tokens(q), _norm_tokens(k)
-    # channel attention: the per-head diagonal blocks of the (C, C) Gram
-    gram = torch.einsum("bnc,bnd->bcd", qn, kn).reshape(b, h, ch, h, ch)
-    blocks = torch.stack([gram[:, j, :, j, :] for j in range(h)], dim=1)
-    attn = torch.softmax((blocks * temperature.to(dtype)).float(), dim=-1)
-    attn = dropout(attn, rate, rng).to(dtype)
-    out_ca = torch.einsum("bnhj,bhij->bnhi", v_ca.reshape(b, n, h, ch),
-                          attn).reshape(b, n, c)
-    # spatial attention: keys and values projected N -> P, block-expanded
-    efd = ef.to(dtype)
-    kp = torch.einsum("bnc,np->bcp", k, efd).reshape(b, h, ch, -1)
-    vp = torch.einsum("bnc,np->bcp", v_sa, efd).reshape(b, h, ch, -1)
-    p = kp.shape[-1]
-    eye = torch.eye(h, dtype=dtype, device=x.device)
-    t2 = temperature2.reshape(h).to(dtype)
-    kpb = torch.einsum("bhcp,hg->bhcgp", kp, eye * t2[:, None]).reshape(
-        b, c, h * p)
-    vpb = torch.einsum("bhcp,hg->bgphc", vp, eye).reshape(b, h * p, c)
-    out_sa = spatial_attn(qn, kpb, vpb, h, dropout_key(rng.seed, salt), rate)
-    return base + gamma.to(dtype) * (out_ca + out_sa).to(dtype)
+    slots = torch.matmul(xln, w_qkvv.to(dtype)).split(c, dim=-1)
+    if len(slots) != num_slots(sa_type):
+        raise ValueError(f"qkvv has {len(slots)} slots, sa_type {sa_type!r} "
+                         f"takes {num_slots(sa_type)}")
+    q, k = slots[0], slots[1]
+    qn = _norm_tokens(q)
+
+    def channel(v):
+        # the per-head diagonal blocks of the (C, C) Gram
+        kn = _norm_tokens(k)
+        gram = torch.einsum("bnc,bnd->bcd", qn, kn).reshape(b, h, ch, h, ch)
+        blocks = torch.stack([gram[:, j, :, j, :] for j in range(h)], dim=1)
+        attn = torch.softmax((blocks * temperature.to(dtype)).float(), dim=-1)
+        attn = dropout(attn, rate, rng).to(dtype)
+        return torch.einsum("bnhj,bhij->bnhi", v.reshape(b, n, h, ch),
+                            attn).reshape(b, n, c)
+
+    def spatial(v):
+        # keys and values projected N -> P, block-expanded
+        efd = ef.to(dtype)
+        kp = torch.einsum("bnc,np->bcp", k, efd).reshape(b, h, ch, -1)
+        vp = torch.einsum("bnc,np->bcp", v, efd).reshape(b, h, ch, -1)
+        p = kp.shape[-1]
+        eye = torch.eye(h, dtype=dtype, device=x.device)
+        t2 = temperature2.reshape(h).to(dtype)
+        kpb = torch.einsum("bhcp,hg->bhcgp", kp, eye * t2[:, None]).reshape(
+            b, c, h * p)
+        vpb = torch.einsum("bhcp,hg->bgphc", vp, eye).reshape(b, h * p, c)
+        return spatial_attn(qn, kpb, vpb, h, dropout_key(rng.seed, salt),
+                            rate)
+
+    if sa_type == "channel":
+        out = channel(slots[2])
+    elif sa_type == "spatial":
+        out = spatial(slots[2])
+    elif sa_type == "serial":
+        out = channel(spatial(slots[2]))
+    else:
+        out = channel(slots[2]) + spatial(slots[3])
+    return base + gamma.to(dtype) * out.to(dtype)
 
 
 class DSA(nn.Module):
-    """Dual self-attention (sa_type 'parallel', no qkv bias) with flax
-    parameter layouts: qkvv (C, 4C), temperature / temperature2 (h, 1, 1),
-    EF (N, P)."""
+    """Dual self-attention (no qkv bias) with flax parameter layouts: qkvv
+    (C, 4C) for sa_type 'parallel', (C, 3C) for 'serial', 'spatial' and
+    'channel', temperature / temperature2 (h, 1, 1), and EF (N, P) except
+    for 'channel', which has none (`fcd_tpu/ops/attention.py:78-95`)."""
 
     def __init__(self, input_size: int, hidden_size: int, proj_size: int,
                  num_heads: int = 4, sa_type: str = "parallel",
                  dropout_rate: float = 0.0, rng: Optional[DropoutRng] = None,
                  salt: int = 0):
         super().__init__()
-        if sa_type != "parallel":
-            raise NotImplementedError(
-                f"sa_type {sa_type!r}: the port has 'parallel', the default "
-                "(see ROADMAP.md)")
+        nslots = num_slots(sa_type)
         if hidden_size % num_heads:
             raise ValueError(f"{num_heads} heads do not divide {hidden_size}")
         self.num_heads = num_heads
@@ -102,11 +130,13 @@ class DSA(nn.Module):
         self.dropout_rate = dropout_rate
         self.rng = DropoutRng() if rng is None else rng
         self.salt = salt
+        self.sa_type = sa_type
         c = hidden_size
-        self.qkvv = nn.Parameter(torch.empty(c, 4 * c))
+        self.qkvv = nn.Parameter(torch.empty(c, nslots * c))
         self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
         self.temperature2 = nn.Parameter(torch.ones(num_heads, 1, 1))
-        self.EF = nn.Parameter(torch.empty(input_size, proj_size))
+        self.EF = (None if sa_type == "channel"
+                   else nn.Parameter(torch.empty(input_size, proj_size)))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         xavier_uniform_(self.qkvv, generator)
@@ -114,7 +144,8 @@ class DSA(nn.Module):
         with torch.no_grad():
             self.temperature.fill_(1.0)
             self.temperature2.fill_(1.0)
-            self.EF.uniform_(-lim, lim, generator=generator)
+            if self.EF is not None:
+                self.EF.uniform_(-lim, lim, generator=generator)
 
     def forward(self, tokens: torch.Tensor, ln_scale: torch.Tensor,
                 ln_bias: torch.Tensor, pos_embed: torch.Tensor,
@@ -125,10 +156,10 @@ class DSA(nn.Module):
             return dsa_train(tokens, self.qkvv, self.EF, self.temperature,
                              self.temperature2, ln_scale, ln_bias, pos_embed,
                              gamma, self.num_heads, self.dropout_rate,
-                             self.rng, self.salt, eps)
+                             self.rng, self.salt, eps, self.sa_type)
         return dsa_attention(tokens, self.qkvv, self.EF, self.temperature,
                              self.temperature2, ln_scale, ln_bias, pos_embed,
-                             gamma, self.num_heads, eps)
+                             gamma, self.num_heads, eps, self.sa_type)
 
 
 class ChannelDropout3d(nn.Module):

@@ -1,4 +1,5 @@
-"""U-Net blocks: UnetResBlock, UnetrBasicBlock, UnetrUpBlock.
+"""U-Net blocks: UnetResBlock, UnetrBasicBlock, UnetrUpBlock,
+GeneralUnetrUpBlock.
 
 Counterpart of `fcd_tpu/ops/blocks.py`, composed as
 `fcd_tpu/ops/s2d_ops.py::_fused_resblock_eval8` (:1005-1182) composes the
@@ -38,6 +39,7 @@ from fcd_tpu_torch.kernels.pool2x import max_pool2x_op
 from fcd_tpu_torch.kernels.upsample import upsample2x_op
 from fcd_tpu_torch.ops.layers import (
     BatchNorm,
+    UpSample,
     instance_affine_from_sums,
     kaiming_normal_fan_out_,
 )
@@ -163,3 +165,26 @@ class UnetrUpBlock(nn.Module):
         """head=(w, bias): the block's finale runs fused with the 1x1
         head (B15) and the block returns the logits."""
         return self.block([upsample2x_op(x, self.transp), skip], head=head)
+
+
+class GeneralUnetrUpBlock(nn.Module):
+    """`fcd_tpu/ops/blocks.py::GeneralUnetrUpBlock` (:626-663) as
+    MS_DSA_NET_PS builds it (res block, no bias, concat fuse, scale 2):
+    `UpSample` in `upsample_mode` (pixelshuffle, deconv or nontrainable),
+    then the res block over [upsampled, skip] through B1 (the concat is
+    never materialised). `fast`: the pixelshuffle conv through B1
+    (FCD_FAST_CONV=1)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 upsample_mode: str = "pixelshuffle", fast: bool = False):
+        super().__init__()
+        self.up = UpSample(in_channels, out_channels, upsample_mode,
+                           use_bias=False, fast=fast)
+        self.block = UnetResBlock(2 * out_channels, out_channels)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.up.reset_parameters(generator)
+        self.block.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        return self.block([self.up(x).to(skip.dtype).contiguous(), skip])

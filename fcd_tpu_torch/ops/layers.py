@@ -1,12 +1,21 @@
 """Plain PyTorch layers, channels-last (B, D, H, W, C).
 
 Counterparts of `fcd_tpu/ops/layers.py`: the 1x1 convolution (with and
-without bias), GroupNorm, LayerNorm, BatchNorm (train and eval), the
-instance-norm affine from kernel sums, the 2x max pool and inverted
-dropout with an explicit generator, plus the flax initialisers the port's
-seeded weights follow. Leaky-ReLU is
-`torch.nn.functional.leaky_relu`. The 3x3x3 conv, the transposed conv, the
-finale and the attention live in `fcd_tpu_torch/kernels/`.
+without bias), GroupNorm, LayerNorm, InstanceNorm, BatchNorm (train and
+eval), the instance-norm affine from kernel sums, the 2x max pool (torch's,
+and the `jnp.maximum` chain with its tie rule), inverted dropout with an
+explicit generator, the activations, and the model zoo's general layers:
+`Conv3d` (any odd kernel, stride 1 or 2, bias), `Dense` and `UpSample`
+(pixelshuffle, deconv, nontrainable), plus the flax initialisers the
+port's seeded weights follow. The MS_DSA_NET blocks' 3x3x3 conv, the
+transposed conv, the finale and the attention live in
+`fcd_tpu_torch/kernels/`.
+
+The zoo's plain convs are the ones the JAX package leaves to XLA at its
+defaults (`FCD_FAST_CONV=0`): here `F.conv3d`. With `fast=True` (the
+model built under `FCD_FAST_CONV=1`) a 3x3 stride-1 `Conv3d` runs B1's
+kernel instead (`kernels/block_conv.py::conv3x3_op`, B14 by function),
+its bias added after.
 """
 
 from __future__ import annotations
@@ -19,9 +28,11 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = [
-    "BatchNorm", "DropoutRng", "blocks_2x", "conv1x1", "dropout",
-    "group_norm", "instance_affine_from_sums", "kaiming_normal_fan_out_",
-    "layer_norm", "max_pool_2x", "unblocks_2x", "xavier_uniform_",
+    "BatchNorm", "Conv3d", "Dense", "DropoutRng", "UpSample", "blocks_2x",
+    "conv1x1", "conv3d", "dropout", "group_norm", "instance_affine_from_sums",
+    "instance_norm", "interpolate_trilinear", "kaiming_normal_fan_out_",
+    "layer_norm", "make_act", "max_pool_2x", "max_pool_2x_chain",
+    "pad_pool_blur", "pixel_shuffle_3d", "unblocks_2x", "xavier_uniform_",
 ]
 
 
@@ -70,10 +81,60 @@ def layer_norm(t: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (t - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
+def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """`make_norm('instance')`: per-(b, c) statistics over the spatial
+    axes, var = mean((x - mean)^2), no affine parameters (torch
+    InstanceNorm3d's defaults, `fcd_tpu/ops/layers.py::InstanceNorm`);
+    f32 math, x's dtype out."""
+    xf = x.float()
+    mean = xf.mean(dim=(1, 2, 3), keepdim=True)
+    var = (xf - mean).square().mean(dim=(1, 2, 3), keepdim=True)
+    return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+
+
+def make_act(name):
+    """`fcd_tpu/ops/layers.py::make_act` for the activations the DSA
+    family uses: relu, and leakyrelu with its negative_slope (0.01 by
+    default). `name` is a string or (name, kwargs)."""
+    if isinstance(name, (tuple, list)):
+        name, kw = name[0].lower(), (name[1] if len(name) > 1 else {})
+    else:
+        name, kw = str(name).lower(), {}
+    if name == "relu":
+        return F.relu
+    if name == "leakyrelu":
+        slope = float(kw.get("negative_slope", 0.01))
+        return lambda x: F.leaky_relu(x, slope)
+    raise NotImplementedError(f"activation {name!r}: the port has relu and "
+                              "leakyrelu (see ROADMAP.md)")
+
+
+def act_slope(name) -> float:
+    """The negative slope of `make_act(name)` (0 for relu), as B1's
+    prologue takes it."""
+    if isinstance(name, (tuple, list)):
+        name, kw = name[0].lower(), (name[1] if len(name) > 1 else {})
+    else:
+        name, kw = str(name).lower(), {}
+    make_act((name, kw))
+    return 0.0 if name == "relu" else float(kw.get("negative_slope", 0.01))
+
+
 def max_pool_2x(x: torch.Tensor) -> torch.Tensor:
     """torch max_pool3d(x, 2, 2) on channels-last x."""
     return F.max_pool3d(x.permute(0, 4, 1, 2, 3), 2, 2).permute(
         0, 2, 3, 4, 1).contiguous()
+
+
+def max_pool_2x_chain(x: torch.Tensor) -> torch.Tensor:
+    """The 2x max pool as `fcd_tpu/ops/layers.py::max_pool_2x` computes it
+    on the dense path: a `maximum` over W pairs, then D pairs, then H
+    pairs. `torch.maximum`, like `jnp.maximum`, gives half the cotangent to
+    each side of a tie, so the gradient splits ties as the JAX chain's does
+    (never max_pool3d's one index)."""
+    m = torch.maximum(x[:, :, :, 0::2], x[:, :, :, 1::2])
+    m = torch.maximum(m[:, 0::2], m[:, 1::2])
+    return torch.maximum(m[:, :, 0::2], m[:, :, 1::2])
 
 
 class BatchNorm(nn.Module):
@@ -188,3 +249,162 @@ def xavier_uniform_(t: torch.Tensor,
     limit = math.sqrt(6.0 / (t.shape[-2] + t.shape[-1]))
     with torch.no_grad():
         t.uniform_(-limit, limit, generator=generator)
+
+
+# -- the model zoo's general layers (fcd_tpu/ops/layers.py:249-510) ------------
+
+def conv3d(x: torch.Tensor, kernel: torch.Tensor,
+           bias: Optional[torch.Tensor] = None, stride: int = 1,
+           fast: bool = False) -> torch.Tensor:
+    """`fcd_tpu/ops/layers.py::Conv3d` on channels-last x with a flax
+    (k, k, k, Cin, Cout) kernel: padding int((k - s + 1) / 2) a side
+    (:301-305), then the bias, in x's dtype. fast: a 3x3 stride-1 conv
+    through B1 (`conv3x3_op`, the module docstring)."""
+    k = kernel.shape[0]
+    if fast and k == 3 and stride == 1:
+        from fcd_tpu_torch.kernels.block_conv import conv3x3_op
+
+        out = conv3x3_op([x.contiguous()], [kernel.to(x.dtype)]).y
+    elif k == 1 and stride == 1:
+        return conv1x1(x, kernel.reshape(kernel.shape[-2:]), bias)
+    else:
+        pad = int((k - stride + 1) / 2)
+        w = kernel.to(x.dtype).permute(4, 3, 0, 1, 2)
+        out = F.conv3d(x.permute(0, 4, 1, 2, 3), w, stride=stride,
+                       padding=pad).permute(0, 2, 3, 4, 1)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out.contiguous()
+
+
+class Conv3d(nn.Module):
+    """The flax Conv3d's parameters (kernel (k, k, k, Cin, Cout), bias
+    (Cout,) when use_bias) and `conv3d`."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, use_bias: bool = True,
+                 fast: bool = False):
+        super().__init__()
+        k = kernel_size
+        self.stride, self.fast = stride, fast
+        self.kernel = nn.Parameter(torch.empty(k, k, k, in_channels,
+                                               out_channels))
+        self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
+                     else None)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        kaiming_normal_fan_out_(self.kernel, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv3d(x, self.kernel, self.bias, self.stride, self.fast)
+
+
+class Dense(nn.Module):
+    """`fcd_tpu/ops/layers.py::Dense`: x @ kernel (Cin, Cout) + bias,
+    xavier-uniform kernel, zero bias."""
+
+    def __init__(self, in_features: int, out_features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(out_features))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        xavier_uniform_(self.kernel, generator)
+        with torch.no_grad():
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv1x1(x, self.kernel, self.bias)
+
+
+def pixel_shuffle_3d(x: torch.Tensor, r: int) -> torch.Tensor:
+    """(B, D, H, W, C r^3) -> (B, rD, rH, rW, C) with MONAI's channel
+    grouping c = oc r^3 + rd r^2 + rh r + rw
+    (`fcd_tpu/ops/layers.py::pixel_shuffle_3d`)."""
+    b, d, h, w, c = x.shape
+    oc = c // r ** 3
+    x = x.reshape(b, d, h, w, oc, r, r, r).permute(0, 1, 5, 2, 6, 3, 7, 4)
+    return x.reshape(b, d * r, h * r, w * r, oc)
+
+
+def pad_pool_blur(y: torch.Tensor, r: int) -> torch.Tensor:
+    """MONAI SubpixelUpsample's apply_pad_pool: zero-pad r - 1 on the low
+    side of each spatial axis, then an r^3 average pool of stride 1 that
+    always divides by r^3 (flax avg_pool counts the padding); f32 sums,
+    y's dtype out."""
+    b, d, h, w, c = y.shape
+    yp = F.pad(y.float(), (0, 0, r - 1, 0, r - 1, 0, r - 1, 0))
+    acc = None
+    for dz in range(r):
+        for dy in range(r):
+            for dx in range(r):
+                t = yp[:, dz:dz + d, dy:dy + h, dx:dx + w]
+                acc = t if acc is None else acc + t
+    return (acc / float(r ** 3)).to(y.dtype)
+
+
+def interpolate_trilinear(x: torch.Tensor, scale: int = 2) -> torch.Tensor:
+    """`jax.image.resize(..., 'linear')` upsampling by `scale`: half-pixel
+    centres, edge samples renormalised, which is torch's trilinear
+    interpolation with align_corners=False."""
+    y = F.interpolate(x.permute(0, 4, 1, 2, 3), scale_factor=scale,
+                      mode="trilinear", align_corners=False)
+    return y.permute(0, 2, 3, 4, 1).contiguous()
+
+
+UPSAMPLE_MODES = ("pixelshuffle", "deconv", "nontrainable")
+
+
+class UpSample(nn.Module):
+    """`fcd_tpu/ops/layers.py::UpSample` (:445-489) at the scale every model
+    of the family uses, 2:
+
+    - pixelshuffle: a 3x3 conv to 8 Cout (`conv`), `pixel_shuffle_3d`,
+      then `pad_pool_blur`;
+    - deconv: the k2 s2 transposed conv (`transp`), B4's kernel
+      (`kernels/upsample.py`), plus the bias;
+    - nontrainable: `interpolate_trilinear`, then a 1x1 conv (`conv`)
+      where the channels change.
+    """
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 mode: str = "pixelshuffle", use_bias: bool = True,
+                 fast: bool = False):
+        super().__init__()
+        if mode not in UPSAMPLE_MODES:
+            raise ValueError(f"Unsupported upsample mode: {mode}")
+        self.mode = mode
+        self.conv = self.transp = self.transp_bias = None
+        if mode == "pixelshuffle":
+            self.conv = Conv3d(in_channels, out_channels * 8, 3, 1, use_bias,
+                               fast)
+        elif mode == "deconv":
+            self.transp = nn.Parameter(torch.empty(2, 2, 2, in_channels,
+                                                   out_channels))
+            self.transp_bias = (nn.Parameter(torch.zeros(out_channels))
+                                if use_bias else None)
+        elif in_channels != out_channels:
+            self.conv = Conv3d(in_channels, out_channels, 1, 1, use_bias)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        if self.conv is not None:
+            self.conv.reset_parameters(generator)
+        if self.transp is not None:
+            kaiming_normal_fan_out_(self.transp, generator)
+            if self.transp_bias is not None:
+                with torch.no_grad():
+                    self.transp_bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.mode == "pixelshuffle":
+            return pad_pool_blur(pixel_shuffle_3d(self.conv(x), 2), 2)
+        if self.mode == "deconv":
+            from fcd_tpu_torch.kernels.upsample import upsample2x_op
+
+            return upsample2x_op(x.contiguous(), self.transp,
+                                 self.transp_bias)
+        y = interpolate_trilinear(x, 2)
+        return y if self.conv is None else self.conv(y)

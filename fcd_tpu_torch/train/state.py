@@ -115,12 +115,17 @@ def param_group_norms(model: torch.nn.Module) -> Dict[str, torch.Tensor]:
 
 
 def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
-                    grad_norms: bool = False) -> Callable:
+                    grad_norms: bool = False,
+                    model_returns_vaeloss: bool = False,
+                    loss_vae_weight: float = 0.2) -> Callable:
     """step(image, label, lr, seed=None, thickness=None) -> loss (a 0-d
     device tensor; no host sync), or (loss, group_norms) with grad_norms.
     `seed` (an int) seeds the spatial-attention dropout hash of this
     step; the model's `dropout_rng.generator` draws the masks made in
-    PyTorch. `thickness` (B, D, H, W, 1) feeds the cortical term."""
+    PyTorch (and a VAE model's normal draw). `thickness` (B, D, H, W, 1)
+    feeds the cortical term. A VAE model (model_returns_vaeloss) returns
+    (logits, vae_loss), and the loss is main + loss_vae_weight *
+    vae_loss (`fcd_tpu/train/state.py:127-139`)."""
 
     def step(image: torch.Tensor, label: torch.Tensor, lr: float,
              seed: Optional[int] = None,
@@ -129,7 +134,12 @@ def make_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
         if seed is not None:
             model.dropout_rng.seed = int(seed)
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model(image), label, thickness)
+        out = model(image)
+        if model_returns_vaeloss:
+            out, vae_loss = out
+            loss = loss_fn(out, label, thickness) + loss_vae_weight * vae_loss
+        else:
+            loss = loss_fn(out, label, thickness)
         loss.backward()
         norms = group_norms(model) if grad_norms else None
         set_lr(optimizer, lr)

@@ -177,9 +177,11 @@ class ModelTrainer:
         self._seed_gen = torch.Generator().manual_seed(seed)
         self.model.dropout_rng.generator = torch.Generator(
             device=self.device).manual_seed(seed + 1)
-        self._step_fn = make_train_step(self.model, self.loss_fn,
-                                        self.optimizer,
-                                        grad_norms=self._log_norms)
+        self._step_fn = make_train_step(
+            self.model, self.loss_fn, self.optimizer,
+            grad_norms=self._log_norms,
+            model_returns_vaeloss=self.params["model_returns_vaeloss"],
+            loss_vae_weight=self.params.get("loss_vae_weight", 0.2))
 
     def train_step(self, images, labels, lr: float,
                    thickness=None) -> torch.Tensor:
@@ -255,7 +257,9 @@ class ModelTrainer:
     @torch.no_grad()
     def predict(self, patches: torch.Tensor) -> torch.Tensor:
         self.model.eval()
-        return self.model(patches)
+        out = self.model(patches)
+        # a VAE model returns (logits, None) at eval (fcd_tpu make_eval_fn)
+        return out[0] if self.params["model_returns_vaeloss"] else out
 
     @torch.no_grad()
     def inference(self, volume) -> torch.Tensor:

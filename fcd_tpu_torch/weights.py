@@ -10,10 +10,18 @@ flipped here: `kernels/upsample.py` applies the kernel the way
 `lax.conv_transpose` does. BatchNorm running statistics come from
 `batch_stats` (`mean`, `var`).
 
-Flax module names follow `fcd_tpu/models/ms_dsa_net.py`'s creation order:
-UnetrBasicBlock_0..5 (encoders), Conv3d_0..3 + GroupNorm_0..3 (the patch
-embeds), TransformerBlock_{level * num_layers + k}, UnetrUpBlock_0..4
-(decoders 5..1) and Conv3d_4 (the head).
+Flax module names follow each JAX model's creation order. MS_DSA_NET
+(`fcd_tpu/models/ms_dsa_net.py`): UnetrBasicBlock_0..5 (encoders),
+Conv3d_0..3 + GroupNorm_0..3 (the patch embeds), TransformerBlock_{level *
+num_layers + k}, UnetrUpBlock_0..4 (decoders 5..1; MS_DSA_NET_PS:
+GeneralUnetrUpBlock_0..4, each UpSample_0 and UnetResBlock_0) and Conv3d_4
+(the head). BaseUNet: UnetrBasicBlock_0..5, UnetrUpBlock_0..4, Conv3d_0.
+The SegResNet family (`fcd_tpu/models/segresnet.py`, setup names):
+convInit, down_pre_i, down_blocks_i_j, transformer_levels_l_k,
+up_samples_i_0 (the 1x1 conv), up_samples_i_1 (UpSample), up_layers_i_j,
+final_conv and the vae_* layers; its ResBlocks hold Conv3d_0 and Conv3d_1
+and, like its instance norms, nothing else. The zoo's `Conv3d` layers keep
+the flax (k, k, k, Cin, Cout) kernel, 1x1 ones included.
 
 `load_flax_variables` copies such a tree into a model;
 `export_flax_variables` is its inverse and `export_flax_grads` maps each
@@ -29,8 +37,15 @@ from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET, BaseUNet
+from fcd_tpu_torch.models.segresnet import ResBlock, SegResNetCore
 from fcd_tpu_torch.ops.attention import TransformerBlock
-from fcd_tpu_torch.ops.blocks import UnetResBlock, UnetrUpBlock
+from fcd_tpu_torch.ops.blocks import (
+    GeneralUnetrUpBlock,
+    UnetResBlock,
+    UnetrUpBlock,
+)
+from fcd_tpu_torch.ops.layers import Conv3d, Dense, UpSample
 
 Tree = Mapping[str, Any]
 # (collection, path, tensor, is a 1x1 conv kernel)
@@ -54,8 +69,38 @@ def _resblock_entries(blk: UnetResBlock, path) -> Iterator[Entry]:
 
 
 def _up_block_entries(up: UnetrUpBlock, path) -> Iterator[Entry]:
-    yield "params", path + ("ConvTranspose3d_0", "kernel"), up.transp, False
+    if isinstance(up, GeneralUnetrUpBlock):
+        yield from _upsample_entries(up.up, path + ("UpSample_0",))
+    else:
+        yield "params", path + ("ConvTranspose3d_0", "kernel"), up.transp, \
+            False
     yield from _resblock_entries(up.block, path + ("UnetResBlock_0",))
+
+
+def _conv_entries(conv: Conv3d, path) -> Iterator[Entry]:
+    yield "params", path + ("kernel",), conv.kernel, False
+    if conv.bias is not None:
+        yield "params", path + ("bias",), conv.bias, False
+
+
+def _dense_entries(dense: Dense, path) -> Iterator[Entry]:
+    yield "params", path + ("Dense_0", "kernel"), dense.kernel, False
+    yield "params", path + ("Dense_0", "bias"), dense.bias, False
+
+
+def _upsample_entries(up: UpSample, path) -> Iterator[Entry]:
+    if up.conv is not None:
+        yield from _conv_entries(up.conv, path + ("Conv3d_0",))
+    if up.transp is not None:
+        t = path + ("ConvTranspose3d_0",)
+        yield "params", t + ("kernel",), up.transp, False
+        if up.transp_bias is not None:
+            yield "params", t + ("bias",), up.transp_bias, False
+
+
+def _segres_block_entries(blk: ResBlock, path) -> Iterator[Entry]:
+    yield "params", path + ("Conv3d_0", "kernel"), blk.conv1, False
+    yield "params", path + ("Conv3d_1", "kernel"), blk.conv2, False
 
 
 def _transformer_entries(tb: TransformerBlock, path) -> Iterator[Entry]:
@@ -67,15 +112,61 @@ def _transformer_entries(tb: TransformerBlock, path) -> Iterator[Entry]:
     yield "params", d + ("qkvv",), tb.dsa.qkvv, False
     yield "params", d + ("temperature",), tb.dsa.temperature, False
     yield "params", d + ("temperature2",), tb.dsa.temperature2, False
-    yield "params", d + ("EF",), tb.dsa.EF, False
+    if tb.dsa.EF is not None:   # sa_type 'channel' has none
+        yield "params", d + ("EF",), tb.dsa.EF, False
     yield from _resblock_entries(tb.conv_block, path + ("UnetResBlock_0",))
     yield "params", path + ("Conv3d_0", "kernel"), tb.conv8, True
     yield "params", path + ("Conv3d_0", "bias"), tb.conv8_bias, False
 
 
+def _segresnet_entries(model: SegResNetCore) -> Iterator[Entry]:
+    yield from _conv_entries(model.conv_init, ("convInit",))
+    for i, conv in enumerate(model.down_pre, start=1):
+        yield from _conv_entries(conv, (f"down_pre_{i}",))
+    for i, blocks in enumerate(model.down_blocks):
+        for j, blk in enumerate(blocks):
+            yield from _segres_block_entries(blk, (f"down_blocks_{i}_{j}",))
+    for li, stack in enumerate(model.transformer_levels):
+        for k, tb in enumerate(stack):
+            yield from _transformer_entries(
+                tb, (f"transformer_levels_{li}_{k}",))
+    for i, (conv, up) in enumerate(zip(model.up_convs, model.up_samples)):
+        yield from _conv_entries(conv, (f"up_samples_{i}_0",))
+        yield from _upsample_entries(up, (f"up_samples_{i}_1",))
+    for i, blocks in enumerate(model.up_layers):
+        for j, blk in enumerate(blocks):
+            yield from _segres_block_entries(blk, (f"up_layers_{i}_{j}",))
+    yield from _conv_entries(model.final_conv, ("final_conv",))
+    if model.vae:
+        yield from _conv_entries(model.vae_down_conv, ("vae_down_conv",))
+        yield from _dense_entries(model.vae_fc1, ("vae_fc1",))
+        yield from _dense_entries(model.vae_fc3, ("vae_fc3",))
+        yield from _conv_entries(model.vae_up_conv, ("vae_up_conv",))
+        yield from _upsample_entries(model.vae_up_sample, ("vae_up_sample",))
+        yield from _conv_entries(model.vae_final_conv, ("vae_final_conv",))
+
+
+def _baseunet_entries(model: BaseUNet) -> Iterator[Entry]:
+    for i, enc in enumerate(model.encoders):
+        yield from _resblock_entries(
+            enc, (f"UnetrBasicBlock_{i}", "UnetResBlock_0"))
+    for di, dec in enumerate(model.decoders):
+        yield from _up_block_entries(dec, (f"UnetrUpBlock_{di}",))
+    yield "params", ("Conv3d_0", "kernel"), model.head, True
+    yield "params", ("Conv3d_0", "bias"), model.head_bias, False
+
+
 def model_entries(model) -> Iterator[Entry]:
-    """Every parameter and running statistic of an MS_DSA_NET under its
+    """Every parameter and running statistic of a port model under its
     flax path."""
+    if isinstance(model, SegResNetCore):
+        yield from _segresnet_entries(model)
+        return
+    if isinstance(model, BaseUNet):
+        yield from _baseunet_entries(model)
+        return
+    if not isinstance(model, MS_DSA_NET):
+        raise TypeError(f"no weight table for {type(model).__name__}")
     for i, enc in enumerate(model.encoders):
         yield from _resblock_entries(
             enc, (f"UnetrBasicBlock_{i}", "UnetResBlock_0"))
@@ -88,15 +179,17 @@ def model_entries(model) -> Iterator[Entry]:
         for k, tb in enumerate(stack):
             yield from _transformer_entries(
                 tb, (f"TransformerBlock_{li * num_layers + k}",))
+    up_name = ("UnetrUpBlock" if model.upsample_mode is None
+               else "GeneralUnetrUpBlock")
     for di, dec in enumerate(model.decoders):
-        yield from _up_block_entries(dec, (f"UnetrUpBlock_{di}",))
+        yield from _up_block_entries(dec, (f"{up_name}_{di}",))
     yield "params", ("Conv3d_4", "kernel"), model.head, True
     yield "params", ("Conv3d_4", "bias"), model.head_bias, False
 
 
 def param_entries(model):
     """(flax path, parameter, is a 1x1 conv kernel) of every parameter of
-    an MS_DSA_NET: the table the optimizer state is written and read by
+    a port model: the table the optimizer state is written and read by
     (`train/checkpoint.py`)."""
     return [(path, t, is_1x1) for coll, path, t, is_1x1 in model_entries(model)
             if coll == "params"]
@@ -156,9 +249,9 @@ def load_transformer_block(tb: TransformerBlock, p: Tree, bs: Tree):
 
 
 def load_flax_variables(model, variables: Tree) -> None:
-    """Copy a fcd_tpu MS_DSA_NET variables tree into the port's model. A
-    tree without batch_stats (a params-only checkpoint) leaves the running
-    statistics as they are."""
+    """Copy a fcd_tpu variables tree into the port's model of the same
+    type. A tree without batch_stats (a params-only checkpoint) leaves the
+    running statistics as they are."""
     entries = model_entries(model)
     if not variables.get("batch_stats"):
         entries = (e for e in entries if e[0] == "params")

@@ -1130,3 +1130,131 @@ def test_dsa_kernels_at_the_other_widths(dev, n, c, p):
     (C16): the same checks as test_dsa_kernels_at_every_width."""
     test_dsa_kernels_at_every_width(dev, n, c, p)
 
+
+
+# -- the DSA family (sa_types, C15's widths, SegResNet_DSA) -------------------
+
+@pytest.mark.parametrize("sa_type", ["serial", "spatial", "channel"])
+@pytest.mark.parametrize("n,c,p", [(4096, 64, 64), (700, 128, 64),
+                                   (300, 8, 16), (64, 512, 128)])
+def test_dsa_modes_match_plain(dev, sa_type, n, c, p):
+    """B5 in the other sa_types: phase A (with and without the finishing
+    pass) and phase B against their plain versions, two calls bit-equal,
+    and one dsa_attention call one launch of each phase wrapper ('channel':
+    P = 0, no EF). That a call is exactly the three B5 device kernels in
+    every type is chip_smoke.py's check (a profiler trace, which the card
+    drops at times: PERF.md section 7)."""
+    from fcd_tpu_torch.kernels import dsa_attention as dk
+
+    h, bf = 4, torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(31)
+    ns = dk.num_slots(sa_type)
+    x = _randn(gen, dev, 1, n, c, dtype=bf)
+    w = _randn(gen, dev, c, ns * c, scale=(6.0 / ((ns + 1) * c)) ** 0.5)
+    ef = (None if sa_type == "channel"
+          else _randn(gen, dev, n, p, scale=p ** -0.5))
+    t1 = torch.rand(h, 1, 1, generator=gen, device=dev) + 0.5
+    t2 = torch.rand(h, 1, 1, generator=gen, device=dev) + 0.5
+    tok = (1.0 + _randn(gen, dev, c, scale=0.1), _randn(gen, dev, c, scale=0.1),
+           _randn(gen, dev, n, c, scale=0.1))
+    gamma = _randn(gen, dev, c)
+    mode = dict(sa_type=sa_type)
+    ka = dk.dsa_phase_a(x, w, ef, *tok, h, **mode)
+    wa = dk.dsa_phase_a_plain(x, w, ef, *tok, h, **mode)
+    for g_, w_ in zip(ka, wa):
+        assert g_.shape == w_.shape
+        if g_.numel():
+            assert _rel(g_, w_) < 2e-2
+    ops = dk.dsa_phase_a(x, w, ef, *tok, h, temperatures=(t1, t2), **mode)
+    again = dk.dsa_phase_a(x, w, ef, *tok, h, temperatures=(t1, t2), **mode)
+    assert all(torch.equal(a, b) for a, b in zip(ops, again))
+    for g_, w_ in zip(ops, dk.dsa_glue(wa, t1, t2, h, bf)):
+        if g_.numel():
+            assert _rel(g_, w_) < 2e-2
+    out = dk.dsa_phase_b(x, w, *ops, gamma, *tok, h, **mode)
+    assert torch.equal(out, dk.dsa_phase_b(x, w, *ops, gamma, *tok, h,
+                                           **mode))
+    assert _rel(out, dk.dsa_phase_b_plain(x, w, *ops, gamma, *tok, h,
+                                          **mode)) < 2e-2
+    args = (x, w, ef, t1, t2, *tok, gamma, h)
+    assert _rel(dk.dsa_attention(*args, **mode),
+                dk.dsa_reference(*args, **mode)) < 5e-2
+    before = (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches)
+    dk.dsa_attention(*args, **mode)
+    assert (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches) == (
+        before[0] + 1, before[1] + 1)
+
+
+def _c15_shapes():
+    from fcd_tpu_torch.kernels import spatial_attn as sa
+
+    return [(100, c, p) for c, p in sa.SHAPES_WIDE]
+
+
+@pytest.mark.parametrize("n,c,p", _c15_shapes())
+def test_spatial_attn_at_every_c15_width(dev, n, c, p):
+    """C15: K3 and K4 take every (C, P) of B5's set at 4 heads; the wide
+    instances against the plain versions with dropout, two calls
+    bit-equal, one K3 call one kernel and one K4 call two."""
+    from fcd_tpu_torch.kernels import spatial_attn as sa
+
+    h = 4
+    gen = torch.Generator(device=dev).manual_seed(c + p)
+    qn, kpb, vpb, g = _spattn_inputs(gen, dev, n, c, h, p, batch=4)
+    key = sa.dropout_key(99, 4)
+    assert sa.spatial_attn_plan(n, c, p, h, 4).wide
+    out = sa.spatial_attn_fwd(qn, kpb, vpb, h, key, 0.1)
+    assert torch.equal(out, sa.spatial_attn_fwd(qn, kpb, vpb, h, key, 0.1))
+    assert _rel(out, sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key,
+                                               0.1)) < 2e-2
+    got = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, 0.1)
+    again = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, 0.1)
+    want = sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key, 0.1)
+    for g_, a_, w_ in zip(got, again, want):
+        assert torch.equal(g_, a_)
+        assert g_.dtype == w_.dtype and _rel(g_, w_) < 2e-2
+    names = _device_op_names(
+        lambda: sa.spatial_attn_fwd(qn, kpb, vpb, h, key, 0.1))
+    assert len(names) == 1 and "spatial_attn_fwd_kernel_wide" in names[0], \
+        names
+    names = _device_op_names(
+        lambda: sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, 0.1))
+    assert len(names) == 2 and "spatial_attn_bwd_kernel_wide" in names[0] \
+        and "spatial_attn_bwd_finish" in names[1], names
+
+
+def test_segresnet_dsa_patch_forward_on_the_card(dev):
+    """SegResNet_DSA at full width (fs16, P 64) on a 64^3 patch: the card's
+    logits (B1, B2, B5) against the port's fp32 CPU forward from the same
+    weights at chip_smoke.py's patch tolerances, the DSA blocks' gamma
+    and pos-embed redrawn so that they count."""
+    import copy
+
+    from fcd_tpu_torch.config import get_default_params
+    from fcd_tpu_torch.kernels import dsa_attention as dk
+    from fcd_tpu_torch.ops.attention import TransformerBlock
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    params = get_default_params()
+    params.update(model_type="SegResNet_DSA", patch_size=64)
+    tr = ModelTrainer(params, device=dev, verbose=False)
+    gen = torch.Generator().manual_seed(23)
+    with torch.no_grad():
+        for blk in tr.model.modules():
+            if isinstance(blk, TransformerBlock):
+                blk.gamma.copy_(0.1 * torch.randn(blk.gamma.shape,
+                                                  generator=gen))
+                blk.pos_embed.copy_(0.1 * torch.randn(blk.pos_embed.shape,
+                                                      generator=gen))
+    patch = torch.randn(1, 64, 64, 64, 2, generator=gen)
+    before = dk.dsa_phase_b.launches
+    got = tr.predict(patch.to(dev)).float().cpu()
+    torch.cuda.synchronize()
+    assert dk.dsa_phase_b.launches == before + 6
+    with torch.no_grad():
+        cpu_model = copy.deepcopy(tr.model).cpu()
+        cpu_model.compute_dtype = torch.float32
+        want = cpu_model(patch).float()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert _rel(got, want) < 0.05
+    assert float((got.argmax(-1) == want.argmax(-1)).float().mean()) >= 0.99

@@ -237,3 +237,43 @@ def test_levels_are_chip_smokes_and_the_sweeps():
     assert [lv[1:] for lv in chip_smoke.DSA_LEVELS] == LEVELS
     assert [lv[1:] for lv in dsa_sweep.LEVELS] == LEVELS
     assert chip_smoke.PER_PATCH["dsa_phase_a"] == len(LEVELS) * 3
+
+
+# -- sa_type 'channel': no EF, no P --------------------------------------------
+
+@pytest.mark.parametrize("n,c", [(32768, 32), (4096, 64), (512, 128),
+                                 (64, 256), (300, 8), (64, 512)])
+def test_channel_mode_plan_asks_for_no_projection(n, c):
+    """'channel' has no EF (JAX feeds a zero (N, 8) one): the port plans it
+    with P = 0, which no other type takes, and phase A stages two slots
+    (q, k) and writes records without kp | vp. The plan covers every token
+    once and fits shared memory, as the other types' plans do."""
+    plan = dk.dsa_plan(n, c, 0, 4, 2)
+    ch = c // 4
+    assert plan.p == 0 and plan.record == ch * ch + 2 * ch
+    assert dk.supported(c, 0, 4) and not dk.supported(c, 8, 4)
+    order = [t for k in range(plan.chunks) for t in plan.chunk_tiles(k)]
+    assert order == list(range(plan.tiles))
+    assert plan.tiles * plan.tile >= n > (plan.tiles - 1) * plan.tile
+    assert max(plan.smem_a, plan.smem_b) <= dk.SMEM_CAP
+    # two staged weight slots instead of three
+    assert dk.smem_a(c, ch, 0, plan.tile) < dk.smem_a(c, ch, 16, plan.tile)
+    assert dk.phase_a_slots("channel") == (0, 1)
+    assert dk.phase_a_slots("serial") == dk.phase_a_slots("spatial") == \
+        (0, 1, 2)
+
+
+def test_modes_are_the_cuda_sources():
+    """csrc/dsa.cu numbers the modes as SA_TYPES does, builds a P = 0
+    instance of every head width, and takes P = 0 in 'channel' mode only."""
+    from pathlib import Path
+
+    src = (Path(dk.__file__).resolve().parents[1] / "csrc"
+           / "dsa.cu").read_text()
+    assert ("enum Mode { PARALLEL = 0, SERIAL = 1, SPATIAL = 2, "
+            "CHANNEL = 3 };") in src
+    assert [dk.mode_of(t) for t in dk.SA_TYPES] == [0, 1, 2, 3]
+    assert "case CH * 1000 + 0: return CALL(CH, 0);" in src
+    assert "if ((P == 0) != (mode == CHANNEL)) return false;" in src
+    with pytest.raises(ValueError):
+        dk.mode_of("cross")

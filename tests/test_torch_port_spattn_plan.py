@@ -109,9 +109,11 @@ def test_plan_fills_the_card():
     assert by_n[64].tile == 16
 
 
+# C 512, (256, 64) and C 8 are taken since C15 (the wide instances); C
+# 1024, P 256 and C 4 are not
 @pytest.mark.parametrize("n,c,p,h", [(64, 48, 64, 4), (64, 32, 48, 4),
-                                     (64, 512, 32, 4), (64, 32, 64, 0),
-                                     (64, 256, 64, 4), (64, 8, 64, 4)])
+                                     (64, 1024, 32, 4), (64, 32, 64, 0),
+                                     (64, 256, 256, 4), (64, 4, 64, 4)])
 def test_plan_refuses_what_the_kernels_do_not_take(n, c, p, h):
     with pytest.raises(ValueError):
         sa.spatial_attn_plan(n, c, p, h)
@@ -316,3 +318,145 @@ def test_sweeps_measure_each_checkout_in_its_own_process(tmp_path):
            for label, root in order[:2]}
     assert got == {"parent": "parent", "this": "this"}
     assert _sweep.turns(None, 2) == [("this", _sweep.REPO)]
+
+
+# -- C15: the wide instances ----------------------------------------------------
+# (N, C, P) of widths past the tensor-core instances: segresnet_deeper's
+# level 4 (256, 64), MS_DSA_NET's fs32 level 6 (512, 32), project-128
+# levels, feature size 4's C = 8, and ragged N
+WIDE = [(512, 256, 64), (64, 512, 32), (512, 256, 128), (4096, 8, 64),
+        (300, 64, 128), (64, 512, 128), (100, 128, 128), (70, 512, 16),
+        (40, 8, 16)]
+
+
+def test_every_c15_width_has_a_plan():
+    """Every (C, P) with C a power of two from 8 to 512 and P 16 .. 128 has
+    a plan at 1, 2 and 4 heads: the tensor-core instances' where they take
+    it, the wide instances' elsewhere."""
+    assert set(sa.SHAPES_WIDE) | set(sa.SHAPES) == {
+        (c, p) for c in (8, 16, 32, 64, 128, 256, 512)
+        for p in (16, 32, 64, 128)}
+    assert not set(sa.SHAPES_WIDE) & set(sa.SHAPES)
+    for c in sa.WIDTHS:
+        for p in sa.PROJECTIONS:
+            for h in (1, 2, 4):
+                plan = sa.spatial_attn_plan(64, c, p, h, 4)
+                assert plan.wide == ((c, p) not in sa.SHAPES)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("n,c,p", WIDE)
+def test_wide_plan_covers_every_column_and_token_once(n, c, p, batch):
+    plan = sa.spatial_attn_plan(n, c, p, 4, batch)
+    assert plan.wide and plan.head_block == 1 and plan.cols == c
+    # K3: a block is a tile of `tile` tokens, 16-token units each once
+    seen = np.zeros(plan.units, dtype=int)
+    for k in range(plan.fwd_blocks):
+        seen[list(plan.fwd_units(k))] += 1
+    assert (seen == 1).all() and plan.per_block * 16 == plan.tile
+    assert plan.fwd_blocks == -(-n // plan.tile)
+    # K4: every (token, column) of a batch item once: chunk x head x split
+    split, cs = plan.col_split, p // plan.col_split
+    cover = np.zeros((plan.tiles * plan.tile, 4 * p), dtype=int)
+    for hs in range(4 * split):
+        q0 = (hs // split) * p + (hs % split) * cs
+        for k in range(plan.chunks):
+            tiles = list(plan.chunk_tiles(k))
+            assert tiles and tiles == sorted(tiles)
+            for t in tiles:
+                cover[t * plan.tile:(t + 1) * plan.tile, q0:q0 + cs] += 1
+    assert (cover == 1).all()
+    # a block's sums: 32 f32 a thread each, its tile 8192 values
+    assert c * cs <= sa.WIDE_SUMS and plan.tile * c <= sa.WIDE_SUMS
+    assert cs % 16 == 0 and plan.tile % 16 == 0 and plan.tile <= 64
+    assert max(plan.smem_fwd, plan.smem_bwd) <= sa.SMEM_CAP
+    assert plan.smem_bwd == sa.smem_bwd_wide(c, p, plan.tile, split)
+    assert plan.dq_groups == 4 * split
+    assert plan.bwd_grid == plan.chunks * 4 * split * batch
+
+
+def test_wide_plan_matches_the_cuda_checks():
+    """csrc/spatial_attn.cu's wide_ok holds what wide_plan gives: its
+    constants are the module's."""
+    from pathlib import Path
+
+    src = (Path(sa.__file__).resolve().parents[1] / "csrc"
+           / "spatial_attn.cu").read_text()
+    assert "constexpr int WT = 256;" in src
+    assert "constexpr int WACC = 32;" in src        # WT x WACC = WIDE_SUMS
+    assert sa.WIDE_SUMS == 256 * 32 and sa.WIDE_TILE == 64
+    assert "TOK <= 64" in src and "TOK * C <= WIDE_SUMS" in src
+    with pytest.raises(ValueError):
+        sa.wide_plan(64, 32, 64, 4, 1)     # a tensor-core width
+    with pytest.raises(ValueError):
+        sa.wide_plan(64, 1024, 64, 4, 1)   # past B5's widths
+
+
+def _emulate_wide(qn, kpb, vpb, g, h, key, rate, plan):
+    """The wide instances' decomposition in plain PyTorch. K3: each tile
+    walks the heads, its outputs summed over them. K4: each (chunk, head,
+    split) block sums qn^T ds and a^T g over its chunk's tiles on its
+    split's columns into its chunk's partials, and writes its (head,
+    split) group's f32 dqn partial; the finishing pass adds the chunks'
+    partials and the groups' dqn in order."""
+    b, n, c = qn.shape
+    hp = kpb.shape[-1]
+    p = hp // h
+    soft, attn, keep = sa._attn(qn, kpb, h, key, rate)
+    qf, gf, kf, vf = qn.float(), g.float(), kpb.float(), vpb.float()
+    da = gf @ vf.transpose(1, 2)
+    if keep is not None:
+        da = torch.where(keep, da / (1.0 - rate), torch.zeros_like(da))
+    s4, d4 = soft.reshape(b, n, h, p), da.reshape(b, n, h, p)
+    ds = (s4 * (d4 - (d4 * s4).sum(-1, keepdim=True))).reshape(b, n, hp)
+    ds = ds.bfloat16().float()
+    tile, split = plan.tile, plan.col_split
+    cs = p // split
+    out = torch.zeros(b, n, c)
+    for t in range(plan.tiles):
+        rows = slice(t * tile, min((t + 1) * tile, n))
+        for j in range(h):
+            q = slice(j * p, (j + 1) * p)
+            out[:, rows] += attn[:, rows, q] @ vf[:, q]
+    dk_part = torch.zeros(plan.chunks, b, c, hp)
+    dv_part = torch.zeros(plan.chunks, b, hp, c)
+    dq_part = torch.zeros(h * split, b, n, c)
+    for k in range(plan.chunks):
+        for hs in range(h * split):
+            cols = slice((hs // split) * p + (hs % split) * cs,
+                         (hs // split) * p + (hs % split + 1) * cs)
+            for t in plan.chunk_tiles(k):
+                rows = slice(t * tile, min((t + 1) * tile, n))
+                dk_part[k, :, :, cols] += (qf[:, rows].transpose(1, 2)
+                                           @ ds[:, rows, cols])
+                dv_part[k, :, cols] += (attn[:, rows, cols].transpose(1, 2)
+                                        @ gf[:, rows])
+                dq_part[hs, :, rows] = (ds[:, rows, cols]
+                                        @ kf[:, :, cols].transpose(1, 2))
+    dkpb, dvpb, dq = dk_part[0], dv_part[0], dq_part[0]
+    for k in range(1, plan.chunks):
+        dkpb, dvpb = dkpb + dk_part[k], dvpb + dv_part[k]
+    for grp in range(1, h * split):
+        dq = dq + dq_part[grp]
+    return out.bfloat16(), dq.bfloat16(), dkpb, dvpb
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,n,c,p", [(2, 70, 256, 64), (1, 40, 512, 32),
+                                     (1, 20, 8, 128), (1, 33, 128, 128),
+                                     (1, 17, 512, 128)])
+def test_wide_decomposition_matches_the_plain_versions(b, n, c, p, rate):
+    h = 4
+    plan = sa.spatial_attn_plan(n, c, p, h, b)
+    assert plan.wide
+    qn, kpb, vpb, g = _inputs(9, b, n, c, h, p)
+    key = sa.dropout_key(5, 2)
+    out, dqn, dkpb, dvpb = _emulate_wide(qn, kpb, vpb, g, h, key, rate, plan)
+    want_out = sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key, rate)
+    wq, wk, wv = sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key, rate)
+    for name, got_, want_ in (("dkpb", dkpb, wk), ("dvpb", dvpb, wv)):
+        assert (got_ - want_).abs().max() <= 1e-5 * want_.abs().max(), name
+    for got_, want_ in ((out, want_out), (dqn, wq)):
+        assert got_.dtype == want_.dtype == torch.bfloat16
+        assert ((got_.float() - want_.float()).abs().max()
+                <= 8e-3 * want_.float().abs().max())
