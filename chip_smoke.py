@@ -107,7 +107,24 @@ Run from the repository root:
    and SegResNetVAE_DSA (its VAE loss finite). B5 in 'serial', 'spatial'
    and 'channel' and K3/K4 at C15's widths are held to their plain
    versions among the kernel phases (1.).
-11. Prints the seconds from start to the result, the `kernels` JSON line,
+11. Drives `use_amp=False` (ROADMAP C18): a trainer built so turns TF32
+   off (an f32-route conv against an f64 conv within 1e-5); MS_DSA_NET's
+   inference on the seeded volume through the JAX package's f32 route
+   (launches per patch: B5's f32 instances, 12 a phase, and nothing else;
+   no sw_entry), one patch against the CPU's f32 route at rel 1e-4, the
+   4x128^3 step (K3/K4's f32 instances, 12 each; peak memory), profiles
+   of a patch and a step, and a 1x64^3 step against the CPU's f32 step
+   (the loss within 1e-4, each module's gradient within max(1e-2, twice
+   its movement under a 1e-5 input change), C10's rule). B5's and
+   K3/K4's f32 instances are held to their plain versions at rel 1e-5
+   at the four levels among the kernel phases (1.), their SASS free of
+   tensor-core instructions (no TF32).
+12. Drives UNETR++ (fs16, bf16): inference on the seeded volume (B1 46,
+   B2 23, B5 21 a phase per patch; batch norms calibrated first), one
+   patch against the fp32 CPU forward, the 4x128^3 step (B1 91, K1 46,
+   B2 23, K2 23, K3 21, K4 21) and its profile; then with use_amp=False
+   one patch forward (B5 f32 21 a phase) against the CPU's f32 route.
+13. Prints the seconds from start to the result, the `kernels` JSON line,
    the card line, and last {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -118,6 +135,7 @@ checkout of the repository, it exits non-zero and prints no result.
     python3 chip_smoke.py --kernels spatial_attn_fwd,spatial_attn_bwd
     python3 chip_smoke.py --kernels finale_bwd,sw_entry
     python3 chip_smoke.py --kernels max_pool2x_bwd
+    python3 chip_smoke.py --kernels dsa_phase_a_f32,spatial_attn_fwd_f32
 
 builds the kernels and runs only the named kernels' phases (checks and
 times; no main path and no result line).
@@ -125,6 +143,7 @@ times; no main path and no result line).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
@@ -134,6 +153,7 @@ import sys
 import time
 
 PEAK_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
+PEAK_F32 = 67e12      # H100 SXM f32 rate outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 SEED = 0
 
@@ -261,9 +281,10 @@ class Phase:
     """One kernel at one main-path shape: error against its plain version,
     times, and the bound."""
 
-    def __init__(self, kernel, label, flops, nbytes):
+    def __init__(self, kernel, label, flops, nbytes, peak=PEAK_FLOPS):
         self.kernel, self.label = kernel, label
         self.flops, self.bytes = float(flops), float(nbytes)
+        self.peak = peak   # the operations' rate: bf16 tensor cores, or f32
         self.abs_err = 0.0
         self.ms = self.plain_ms = 0.0
         self.library_ms = None
@@ -273,11 +294,11 @@ class Phase:
 
     @property
     def bound_ms(self) -> float:
-        return max(self.flops / PEAK_FLOPS, self.bytes / PEAK_BYTES) * 1e3
+        return max(self.flops / self.peak, self.bytes / PEAK_BYTES) * 1e3
 
     @property
     def bound_by(self) -> str:
-        return ("operations" if self.flops / PEAK_FLOPS >= self.bytes / PEAK_BYTES
+        return ("operations" if self.flops / self.peak >= self.bytes / PEAK_BYTES
                 else "bytes")
 
     def check_equal(self, name, got, want):
@@ -533,7 +554,8 @@ def upsample_phases(dev, gen, small=False):
     return out
 
 
-def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel"):
+def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel",
+              dtype=None):
     """B5 at one level's shape in one sa_type, batch 1, with the model's
     f32 weights and EF (none, and P = 0, for 'channel'): phase A's sums
     and, with the temperatures, the finishing pass's phase-B operands
@@ -542,12 +564,18 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel"):
     bit-equal; on the card, one dsa_attention call is exactly the three B5
     kernels. `ms` is the device time of all one main-path call of the
     phase launches (phase A with its finishing pass), the kernels alone
-    and the wall per call beside it."""
+    and the wall per call beside it. dtype torch.float32: the f32
+    instances (C18) on f32 tokens, held at F32_REL, their bound at the
+    f32 rate."""
     import torch
 
     from fcd_tpu_torch.kernels import dsa_attention as dk
 
-    bf = torch.bfloat16
+    bf = torch.bfloat16 if dtype is None else dtype
+    f32 = bf == torch.float32
+    tol, tol_whole = (F32_REL, F32_REL) if f32 else (2e-2, 5e-2)
+    sfx, es = ("_f32", 4) if f32 else ("", 2)
+    names = DSA_F32_KERNELS if f32 else DSA_KERNELS
     ns = dk.num_slots(sa_type)
     if sa_type == "channel":
         p = 0
@@ -562,23 +590,24 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel"):
     gamma = _randn((c,), gen, dev)
     temps = (t1, t2)
     ch = c // h
-    # the work counts of the kernels this one replaced (the whole C x C of
-    # q^T k), kept so that times compare like with like; per sa_type,
-    # phase A projects the slots it stages (q, k and v_sa; 'channel' no
-    # v_sa) and phase B does the products its type has: the channel
-    # attention ('parallel', 'channel'; 'serial' on the spatial output)
-    # and the scores and s vp^T (all but 'channel')
+    # the work the kernels do: per sa_type, phase A projects the slots it
+    # stages (q, k and v_sa; 'channel' no v_sa), takes each head's CH x CH
+    # block of q^T k (2 n C CH in all) and the EF products; phase B does
+    # the products its type has: the channel attention ('parallel',
+    # 'channel'; 'serial' on the spatial output) and the scores and s vp^T
+    # (all but 'channel')
     na = 3 if p else 2
     ca = sa_type != "spatial"
-    flops_a = 2 * n * c * c * na + 2 * n * c * c + 2 * 2 * n * c * p
-    bytes_a = 2 * n * c + 4 * n * c + 2 * n * p + na * 2 * c * c + 8 * c \
-        + 4 * (c * c + 2 * c + 2 * c * p)
+    flops_a = 2 * n * c * c * na + 2 * n * c * ch + 2 * 2 * n * c * p
+    bytes_a = es * n * c + 4 * n * c + es * n * p + na * es * c * c \
+        + 8 * c + 4 * (c * c + 2 * c + 2 * c * p)
     flops_b = 2 * n * c * c * 2 + 2 * n * c * ch * ca + 2 * 2 * n * c * p
-    bytes_b = 2 * n * c + 4 * n * c + 2 * 2 * c * c + 4 * c + 2 * c * c \
-        + 2 * 2 * c * p + 12 * c + 2 * n * c
-    pa = Phase("dsa_phase_a", label, flops_a, bytes_a)
-    pb = Phase("dsa_phase_b", label, flops_b, bytes_b)
-    plan = dk.dsa_plan(n, c, p, h)
+    bytes_b = es * n * c + 4 * n * c + 2 * es * c * c + 4 * c \
+        + es * c * c + 2 * es * c * p + 12 * c + es * n * c
+    peak = PEAK_F32 if f32 else PEAK_FLOPS
+    pa = Phase("dsa_phase_a" + sfx, label, flops_a, bytes_a, peak)
+    pb = Phase("dsa_phase_b" + sfx, label, flops_b, bytes_b, peak)
+    plan = (dk.dsa_plan_f32 if f32 else dk.dsa_plan)(n, c, p, h)
     print(f"  dsa {label}: tile {plan.tile}, phase A {plan.a_blocks} blocks "
           f"({plan.chunks} chunks of {plan.per_chunk} tiles a head), phase B "
           f"{plan.b_blocks} blocks, shared memory {plan.smem_a} / "
@@ -592,12 +621,12 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel"):
     wa = dk.dsa_phase_a_plain(x, w, ef, *tok, h, **mode)
     for name, g_, w_ in zip(ka._fields, ka, wa):
         if g_.numel():
-            pa.check(name, g_, w_, 2e-2)
+            pa.check(name, g_, w_, tol)
     check_repeatable(pa, ka, dk.dsa_phase_a(x, w, ef, *tok, h, **mode))
     ops = phase_a()
     for name, g_, w_ in zip(ops._fields, ops, dk.dsa_glue(wa, t1, t2, h, bf)):
         if g_.numel():
-            pa.check(f"finishing pass {name}", g_, w_, 2e-2)
+            pa.check(f"finishing pass {name}", g_, w_, tol)
     check_repeatable(pa, ops, phase_a())
 
     def phase_b():
@@ -605,7 +634,7 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel"):
 
     kb = phase_b()
     pb.check("out", kb, dk.dsa_phase_b_plain(x, w, *ops, gamma, *tok, h,
-                                             **mode), 2e-2)
+                                             **mode), tol)
     check_repeatable(pb, [kb], [phase_b()])
     # the whole op against the f32 einsum math; bf16 rounding of the
     # kernels' intermediates sets the tolerance
@@ -613,12 +642,12 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel"):
     whole = dk.dsa_attention(*args, **mode)
     op = Phase("dsa_attention", label, 0, 0)
     op.check("whole op vs f32 einsum reference", whole,
-             dk.dsa_reference(*args, **mode), 5e-2)
+             dk.dsa_reference(*args, **mode), tol_whole)
     check_repeatable(op, [whole], [dk.dsa_attention(*args, **mode)])
     if dev.type == "cuda":
         launched = device_kernels(lambda: dk.dsa_attention(*args, **mode))
         ok = len(launched) == 3 and all(
-            k in e for k, e in zip(DSA_KERNELS, launched))
+            k in e for k, e in zip(names, launched))
         print(f"  dsa_attention {label}: one call launches {launched} "
               f"{'ok' if ok else 'FAIL'}")
         if not ok:
@@ -626,11 +655,11 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel"):
                                  f"{launched}, not the three B5 kernels")
 
     for ph, call, key, plain in (
-            (pa, phase_a, "dsa_phase_a",
+            (pa, phase_a, names[0][:-len("_kernel")],
              lambda: dk.dsa_glue(dk.dsa_phase_a_plain(x, w, ef, *tok, h,
                                                       **mode),
                                  t1, t2, h, bf)),
-            (pb, phase_b, "dsa_phase_b",
+            (pb, phase_b, names[2][:-len("_kernel")],
              lambda: dk.dsa_phase_b_plain(x, w, *ops, gamma, *tok, h,
                                           **mode))):
         times = device_times(call, iters)
@@ -646,16 +675,24 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel"):
         if dev.type == "cuda":
             print(f"  {key} {label} by kernel: " + ", ".join(
                 f"{k} {sum(v for n_, v in times.items() if k in n_):.4f} ms"
-                for k in DSA_KERNELS if any(k in n_ for n_ in times)))
+                for k in names if any(k in n_ for n_ in times)))
     return [pa, pb]
 
 
-# the B5 kernels one dsa_attention call launches, in order
+# the B5 kernels one dsa_attention call launches, in order (bf16, f32)
 DSA_KERNELS = ("dsa_phase_a_kernel", "dsa_phase_a_finish",
                "dsa_phase_b_kernel")
-# K3's kernel, then K4's two, in launch order
+DSA_F32_KERNELS = ("dsa_f32_phase_a_kernel", "dsa_f32_phase_a_finish",
+                   "dsa_f32_phase_b_kernel")
+# the f32 instances (C18) against their plain versions: the same f32
+# function on both sides, its sums taken in another order
+F32_REL = 1e-5
+# K3's kernel, then K4's two, in launch order (bf16; the f32 instances)
 SPATTN_KERNELS = ("spatial_attn_fwd_kernel", "spatial_attn_bwd_kernel",
                   "spatial_attn_bwd_finish")
+SPATTN_F32_KERNELS = ("spatial_attn_fwd_kernel_wide",
+                      "spatial_attn_bwd_kernel_wide",
+                      "spatial_attn_bwd_finish")
 # the DSA levels of a 128^3 patch (fs16, 4 heads): (name, N, C, P)
 DSA_LEVELS = (("level3", 32768, 32, 64), ("level4", 4096, 64, 64),
               ("level5", 512, 128, 64), ("level6", 64, 256, 32))
@@ -698,6 +735,19 @@ def dsa_phases(dev, gen, small=False):
         out += dsa_phase(f"{name}{mode} N={n} C={c} P={pp}", dev, gen,
                          min(n, 512) if small else n, c, p, sa_type=t)
     return out
+
+
+def dsa_f32_phases(dev, gen, small=False):
+    """B5's f32 instances (C18) at the four levels' shapes, batch 1, in
+    'parallel': the shapes the f32 route of MS_DSA_NET gives them, and of
+    UNETR++, whose EPA levels are the same four (`small`: at most 512
+    tokens)."""
+    import torch
+
+    return [ph for name, n, c, p in DSA_LEVELS
+            for ph in dsa_phase(f"{name} f32 N={n} C={c} P={p}", dev, gen,
+                                min(n, 512) if small else n, c, p,
+                                dtype=torch.float32)]
 
 
 def device_kernels(fn) -> list:
@@ -1116,19 +1166,25 @@ def sw_io_phases(dev, gen, shape=CLI_SHAPE, c=2, o=2, roi=128, iters=20):
 
 
 def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
-                        iters=10):
+                        iters=10, dtype=None):
     """K3 and K4 at one level's shape, with dropout: the kernels and the
     plain versions draw the same hash bits, so they agree elementwise; two
     K4 calls give the same bits; on the card one K3 call is one device
     kernel and one K4 call its two. `ms` and `library_ms` (SDPA, and SDPA's
     backward alone) are the device time of all one call launches, the
-    kernels alone and the wall per call beside them."""
+    kernels alone and the wall per call beside them. dtype torch.float32:
+    the f32 instances (C18) on f32 operands, held at F32_REL, dkpb and
+    dvpb in f32 as the train step asks, f32 SDPA as the library call,
+    the bound at the f32 rate."""
     import torch
     import torch.nn.functional as F
 
     from fcd_tpu_torch.kernels import spatial_attn as sa
 
-    bf = torch.bfloat16
+    bf = torch.bfloat16 if dtype is None else dtype
+    f32 = bf == torch.float32
+    tol, sfx, es = (F32_REL, "_f32", 4) if f32 else (2e-2, "", 2)
+    names = SPATTN_F32_KERNELS if f32 else SPATTN_KERNELS
     hp = h * p
     ch = c // h
     qn = _randn((batch, n, c), gen, dev, n ** -0.5, bf)
@@ -1140,7 +1196,8 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
     g = _randn((batch, n, c), gen, dev, dtype=bf)
     key = sa.dropout_key(SEED, 3)
     keep = sa.keep_mask(batch, n, hp, key, rate, dev).float().mean()
-    plan = sa.spatial_attn_plan(n, c, p, h, batch)
+    plan = (sa.spatial_attn_plan_f32 if f32 else sa.spatial_attn_plan)(
+        n, c, p, h, batch)
     print(f"  spatial_attn {label}: keep fraction {float(keep):.5f} at rate "
           f"{rate}; K3 {plan.fwd_grid} blocks of {plan.per_block} units "
           f"(16 tokens x {plan.cols} columns), K4 split by {plan.split}, "
@@ -1151,11 +1208,14 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
     if abs(float(keep) - (1 - rate)) > 0.01 * (1 - rate):
         raise AssertionError(f"dropout keeps {float(keep)}, not {1 - rate}")
     mm = 2 * batch * n * c * hp
-    pf = Phase("spatial_attn_fwd", label, 2 * mm,
-               2 * (2 * batch * n * c + 2 * batch * c * hp))
-    # as SpatialAttn.backward calls it: dkpb and dvpb in kpb's dtype (bf16)
-    pb = Phase("spatial_attn_bwd", label, 5 * mm,
-               2 * (3 * batch * n * c + 4 * batch * c * hp))
+    peak = PEAK_F32 if f32 else PEAK_FLOPS
+    pf = Phase("spatial_attn_fwd" + sfx, label, 2 * mm,
+               es * (2 * batch * n * c + 2 * batch * c * hp), peak)
+    # as SpatialAttn.backward calls it: dkpb and dvpb in kpb's dtype
+    pb = Phase("spatial_attn_bwd" + sfx, label, 5 * mm,
+               es * (3 * batch * n * c + 4 * batch * c * hp), peak)
+    if f32:
+        qn, kpb, vpb, g = (t.float() for t in (qn, kpb, vpb, g))
 
     def fwd():
         return sa.spatial_attn_fwd(qn, kpb, vpb, h, key, rate)
@@ -1165,29 +1225,34 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
                                    dtypes=(bf, bf))
 
     pf.check("out", fwd(), sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key,
-                                                     rate), 2e-2)
+                                                     rate), tol)
+    if f32:
+        check_repeatable(pf, [fwd()], [fwd()])
     want = sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key, rate)
     # both stores of the finishing pass: bf16 (the main path's) and f32
-    # (the wrapper's default)
+    # (the wrapper's default); the f32 instances' main path is f32
     got = bwd()
-    for name, g_, w_ in zip(("dqn", "dkpb bf16", "dvpb bf16"), got, want):
-        pb.check(name, g_, w_, 2e-2)
+    kind = "f32" if f32 else "bf16"
+    for name, g_, w_ in zip(("dqn", f"dkpb {kind}", f"dvpb {kind}"), got,
+                            want):
+        pb.check(name, g_, w_, tol)
     check_repeatable(pb, got, bwd())
-    got = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, rate)
-    for name, g_, w_ in zip(("dkpb f32", "dvpb f32"), got[1:], want[1:]):
-        pb.check(name, g_, w_, 2e-2)
+    if not f32:
+        got = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, rate)
+        for name, g_, w_ in zip(("dkpb f32", "dvpb f32"), got[1:], want[1:]):
+            pb.check(name, g_, w_, tol)
     del got, want
     if dev.type == "cuda":
-        for ph, call, names in ((pf, fwd, SPATTN_KERNELS[:1]),
-                                (pb, bwd, SPATTN_KERNELS[1:])):
+        for ph, call, kernels in ((pf, fwd, names[:1]),
+                                  (pb, bwd, names[1:])):
             launched = device_kernels(call)
-            ok = len(launched) == len(names) and all(
-                k in e for k, e in zip(names, launched))
+            ok = len(launched) == len(kernels) and all(
+                k in e for k, e in zip(kernels, launched))
             print(f"  {ph.kernel} {label}: one call launches {launched} "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{ph.kernel} {label}: launches "
-                                     f"{launched}, not {list(names)}")
+                                     f"{launched}, not {list(kernels)}")
     # library yardstick, timed only: the same per-head attention through
     # SDPA (its own dropout stream), q (B, h, N, c), k and v (B, h, P, c);
     # and K4's: the backward of that SDPA call alone (its forward once,
@@ -1196,6 +1261,7 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
     k4 = kp.transpose(2, 3).to(bf)
     v4 = vp.transpose(2, 3).to(bf)
     g4 = g.reshape(batch, n, h, ch).transpose(1, 2)
+    kernel_keys = SPATTN_KERNELS[:2]   # the wide instances' names too
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
         out = F.scaled_dot_product_attention(*ins, dropout_p=rate, scale=1.0)
@@ -1208,10 +1274,10 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
             return torch.autograd.grad(out, ins, g4, retain_graph=True)
 
         for ph, call, kernel, plain, library in (
-                (pf, fwd, SPATTN_KERNELS[0],
+                (pf, fwd, kernel_keys[0],
                  lambda: sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key,
                                                    rate), library_fwd),
-                (pb, bwd, SPATTN_KERNELS[1],
+                (pb, bwd, kernel_keys[1],
                  lambda: sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key,
                                                    rate), library_bwd)):
             times = device_times(call, iters)
@@ -1248,6 +1314,19 @@ def spatial_attn_levels(dev, gen, small=False):
         b, n = (1, min(n, 512)) if small else (TRAIN_BATCH, n)
         out += spatial_attn_phases(f"{name} {b}xN={n} C={c} hP={4 * p}",
                                    dev, gen, b, n, c, p)
+    return out
+
+
+def spatial_attn_f32_levels(dev, gen, small=False):
+    """K3 and K4's f32 instances (C18) at the four levels' shapes at the
+    train step's batch 4 (`small`: batch 1, at most 512 tokens)."""
+    import torch
+
+    out = []
+    for name, n, c, p in DSA_LEVELS:
+        b, n = (1, min(n, 512)) if small else (TRAIN_BATCH, n)
+        out += spatial_attn_phases(f"{name} f32 {b}xN={n} C={c} hP={4 * p}",
+                                   dev, gen, b, n, c, p, dtype=torch.float32)
     return out
 
 
@@ -1297,6 +1376,9 @@ def kernel_phases(dev, gen, small: bool = False):
     ]
     phases += finale_bwd_phases(dev, gen, small)
     phases += spatial_attn_levels(dev, gen, small)
+    # the f32 route's kernels (C18)
+    phases += dsa_f32_phases(dev, gen, small)
+    phases += spatial_attn_f32_levels(dev, gen, small)
     phases += sw_io_phases(dev, gen, s(*CLI_SHAPE), roi=8 if small else 128)
     # the gated paths' kernels (FCD_FINALE_POOL=0 / FCD_FINALE_TRAIN=0,
     # FCD_FUSED_HEAD=1)
@@ -1333,8 +1415,12 @@ def counters():
             "upsample2x": upsample.upsample2x,
             "dsa_phase_a": dsa_attention.dsa_phase_a,
             "dsa_phase_b": dsa_attention.dsa_phase_b,
+            "dsa_phase_a_f32": dsa_attention._dsa_phase_a_f32,
+            "dsa_phase_b_f32": dsa_attention._dsa_phase_b_f32,
             "spatial_attn_fwd": spatial_attn.spatial_attn_fwd,
             "spatial_attn_bwd": spatial_attn.spatial_attn_bwd,
+            "spatial_attn_fwd_f32": spatial_attn._spatial_attn_fwd_f32,
+            "spatial_attn_bwd_f32": spatial_attn._spatial_attn_bwd_f32,
             "sw_entry": sw_io.sw_entry, "sw_exit": sw_io.sw_exit,
             "max_pool2x": pool2x.max_pool2x,
             "max_pool2x_bwd": pool2x.max_pool2x_bwd,
@@ -1354,7 +1440,9 @@ def read_counts():
 # upsamples, 12 DSA calls (4 levels x 3 layers) per phase
 PER_PATCH = {"conv3d": 46, "conv3d_wgrad": 0, "finale_pool": 23,
              "finale_bwd": 0, "upsample2x": 5, "dsa_phase_a": 12,
-             "dsa_phase_b": 12, "spatial_attn_fwd": 0, "spatial_attn_bwd": 0,
+             "dsa_phase_b": 12, "dsa_phase_a_f32": 0, "dsa_phase_b_f32": 0,
+             "spatial_attn_fwd": 0, "spatial_attn_bwd": 0,
+             "spatial_attn_fwd_f32": 0, "spatial_attn_bwd_f32": 0,
              "sw_entry": 0, "sw_exit": 0, "max_pool2x": 0,
              "max_pool2x_bwd": 0, "finale_head": 0}
 # and per volume: the engine's entry and exit
@@ -1366,10 +1454,12 @@ POOL_GATES = {"FCD_FINALE_POOL": "0", "FCD_FINALE_TRAIN": "0"}
 HEAD_GATES = {"FCD_FUSED_HEAD": "1"}
 
 
-def per_volume(n_patches: int, perf_flags=None, per_patch=None) -> dict:
+def per_volume(n_patches: int, perf_flags=None, per_patch=None,
+               entry: bool = True) -> dict:
     """Launches of one sliding-window inference over n_patches patches
     under perf_flags (POOL_GATES, HEAD_GATES or the defaults), of
-    MS_DSA_NET or of the model whose `per_patch` counts are given."""
+    MS_DSA_NET or of the model whose `per_patch` counts are given;
+    `entry` False: the f32 route's volume entry (a pad, no B17)."""
     patch = dict(PER_PATCH if per_patch is None else per_patch)
     if perf_flags == POOL_GATES:
         patch["max_pool2x"] = 2
@@ -1378,6 +1468,8 @@ def per_volume(n_patches: int, perf_flags=None, per_patch=None) -> dict:
         patch["finale_head"] = 1
     out = {k: v * n_patches for k, v in patch.items()}
     out.update(PER_VOLUME)
+    if not entry:
+        out["sw_entry"] = 0
     return out
 
 
@@ -1403,15 +1495,15 @@ def unet_step(enc, tb, dec, upsample=True, spatial=True, own_pass=0):
     spatial False for sa_type 'channel')."""
     blocks = enc + tb + dec
     dgrad = 1 + 2 * (enc - 1) + 2 * tb + 3 * dec
-    return {"conv3d": 2 * blocks + dgrad,
-            "conv3d_wgrad": 2 * enc + 2 * tb + 3 * dec,
-            "finale_pool": blocks, "finale_bwd": blocks,
-            "upsample2x": dec if upsample else 0,
-            "dsa_phase_a": 0, "dsa_phase_b": 0,
-            "spatial_attn_fwd": tb if spatial else 0,
-            "spatial_attn_bwd": tb if spatial else 0,
-            "sw_entry": 0, "sw_exit": 0, "max_pool2x": own_pass,
-            "max_pool2x_bwd": own_pass, "finale_head": 0}
+    out = {k: 0 for k in PER_PATCH}
+    out.update(conv3d=2 * blocks + dgrad,
+               conv3d_wgrad=2 * enc + 2 * tb + 3 * dec,
+               finale_pool=blocks, finale_bwd=blocks,
+               upsample2x=dec if upsample else 0,
+               spatial_attn_fwd=tb if spatial else 0,
+               spatial_attn_bwd=tb if spatial else 0,
+               max_pool2x=own_pass, max_pool2x_bwd=own_pass)
+    return out
 
 
 def unet_patch(enc, tb, dec, upsample=True):
@@ -1554,7 +1646,8 @@ def slice_run(dev, card, params=None, vol_shape=(182, 218, 182),
             out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
         raise AssertionError(f"logits {tuple(out.shape)} {out.dtype}: not "
                              "finite f32 of the volume's shape")
-    want = per_volume(n_patches, per_patch=per_patch)
+    want = per_volume(n_patches, per_patch=per_patch,
+                      entry=trainer.compute_dtype == torch.bfloat16)
     print(f"  launches {launches} (expected {want}; per patch "
           f"{ {k: v for k, v in (per_patch or PER_PATCH).items() if v} })")
     if dev.type == "cuda" and launches != want:
@@ -1569,9 +1662,14 @@ def slice_run(dev, card, params=None, vol_shape=(182, 218, 182),
 def patch_check(dev, trainer, patch, label=""):
     """One patch: the card's logits (trainer.predict) against the port's
     fp32 CPU forward of the same weights; rel <= PATCH_REL_TOL and argmax
-    agreement >= PATCH_ARGMAX_AGREE."""
+    agreement >= PATCH_ARGMAX_AGREE. A trainer that computes in f32 (the
+    f32 route, C18) is held against the f32 route on the CPU (its model
+    copied, route and all) at F32_PATCH_REL_TOL and F32_ARGMAX_AGREE."""
     import torch
 
+    f32 = trainer.compute_dtype == torch.float32
+    rel_tol = F32_PATCH_REL_TOL if f32 else PATCH_REL_TOL
+    agree_min = F32_ARGMAX_AGREE if f32 else PATCH_ARGMAX_AGREE
     roi = tuple(patch.shape[1:4])
     with torch.no_grad():
         got = trainer.predict(patch.to(dev)).float().cpu()
@@ -1585,14 +1683,22 @@ def patch_check(dev, trainer, patch, label=""):
         cpu_s = time.perf_counter() - t0
     a, r = rel_err(got, want_logits)
     agree = float((got.argmax(-1) == want_logits.argmax(-1)).float().mean())
-    ok = r <= PATCH_REL_TOL and agree >= PATCH_ARGMAX_AGREE
-    print(f"  {label}patch {roi} vs fp32 CPU forward ({cpu_s:.1f} s): "
-          f"max_abs_err {a:.3e} rel {r:.3e} (tol {PATCH_REL_TOL}), argmax "
-          f"agreement {agree:.5f} (min {PATCH_ARGMAX_AGREE}) "
+    ok = r <= rel_tol and agree >= agree_min
+    route = "f32 route" if f32 else "fp32"
+    print(f"  {label}patch {roi} vs {route} CPU forward ({cpu_s:.1f} s): "
+          f"max_abs_err {a:.3e} rel {r:.3e} (tol {rel_tol}), argmax "
+          f"agreement {agree:.5f} (min {agree_min}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError(f"{label}card logits disagree with the fp32 CPU "
                              "forward")
+
+
+# The f32 route on the card (cuDNN's convs in IEEE f32, B5's f32 instances)
+# against the same route on the CPU: the same f32 function, sums taken in
+# other orders through ~50 layers
+F32_PATCH_REL_TOL = 1e-4
+F32_ARGMAX_AGREE = 0.999
 
 
 # The fused head adds its f32 bias before one rounding, the default head
@@ -2113,7 +2219,8 @@ def train_cli_run(dev, card, kwargs=TRAIN_CLI_KWARGS, device=None,
 PROFILE_KEYS = ("conv3d_kernel", "wgrad_mma_kernel", "wgrad_sum_kernel",
                 "finale_bwd",
                 "finale_kernel", "upsample_kernel", "dsa_phase_a",
-                "dsa_phase_b", "spatial_attn_fwd", "spatial_attn_bwd",
+                "dsa_phase_b", "dsa_f32_phase_a", "dsa_f32_phase_b",
+                "spatial_attn_fwd", "spatial_attn_bwd",
                 "sw_entry_kernel", "sw_exit_kernel", "pool_fwd_kernel",
                 "pool2x_bwd_kernel", "finale_head_kernel")
 
@@ -2605,6 +2712,323 @@ def zoo_run(dev, card, label, extra, counts, batch=TRAIN_BATCH) -> dict:
     return {f"{label} forward": fwd, f"{label} step": step}
 
 
+# -- C18: use_amp=False on the card, and UNETR++ ------------------------------
+
+F32_PARAMS = {"use_amp": False}
+# the f32 route's launches: B5's f32 instances at eval (phase A with its
+# finishing pass and phase B, one count each a DSA call), K3/K4's in
+# training, and none of the bf16-only kernels; the volume leaves through
+# sw_exit (per_volume, entry False)
+F32_PATCH = dict({k: 0 for k in PER_PATCH}, dsa_phase_a_f32=12,
+                 dsa_phase_b_f32=12)
+F32_STEP = dict({k: 0 for k in PER_PATCH}, spatial_attn_fwd_f32=12,
+                spatial_attn_bwd_f32=12)
+# the f32 1 x 64^3 step against the f32 route on the CPU: the loss, and
+# each top-level module's gradient within max(F32_GRAD_FLOOR, twice the
+# CPU step's own movement under 1e-5 input noise), C10's rule. The loss
+# limit lies between the readings on an H100: IEEE f32 0 (MS_DSA_NET) and
+# 1.303e-7 (UNETR++), the same step in TF32 5.354e-5 and 4.138e-5
+F32_LOSS_REL_TOL = 1e-6
+F32_GRAD_FLOOR = 1e-2
+F32_CONV_REL_TOL = 1e-5   # an f32-route conv against an f64 conv
+
+
+def unetrpp_counts(epa=21, blocks=2):
+    """(per patch, per train step) launches of UNETR++ (bf16) from its
+    structure: `epa` EPA blocks (12 in the encoder, 9 in the decoders),
+    each a DSA (both B5 phases at eval; K3 and K4 in training) and a
+    batch-norm res block, and `blocks` full-resolution res blocks (the
+    image's, 2 -> fs, and the last, fs -> fs). A res block is two B1 convs
+    and a B2 finale; in training one K2 a finale, one K1 per conv (one
+    part each), conv2's data gradient and conv1's where its input needs
+    one (all but the image's block). The strided convs, the transposed
+    convs and the GroupNorms are library ops."""
+    res = epa + blocks
+    patch = dict({k: 0 for k in PER_PATCH}, conv3d=2 * res, finale_pool=res,
+                 dsa_phase_a=epa, dsa_phase_b=epa)
+    step = dict({k: 0 for k in PER_PATCH}, conv3d=2 * res + 2 * res - 1,
+                conv3d_wgrad=2 * res, finale_pool=res, finale_bwd=res,
+                spatial_attn_fwd=epa, spatial_attn_bwd=epa)
+    return patch, step
+
+
+UNETRPP = {"model_type": "unetrpp"}
+UNETRPP_PATCH, UNETRPP_STEP = unetrpp_counts()
+UNETRPP_F32_PATCH = dict({k: 0 for k in PER_PATCH}, dsa_phase_a_f32=21,
+                         dsa_phase_b_f32=21)
+
+
+def tf32_check(dev) -> None:
+    """A use_amp=False trainer on the card holds to IEEE f32 inside its
+    `ieee_f32` scope, whatever the caller allows: with TF32 allowed around
+    it, building the trainer leaves the flags as they were, inside the
+    scope both are off and an f32-route conv (cuDNN) stays within
+    F32_CONV_REL_TOL of an f64 conv, and after it the flags are back. The
+    same conv with TF32 allowed is printed beside it (~1e-3 where cuDNN
+    takes a TF32 algorithm)."""
+    import torch
+
+    from fcd_tpu_torch.ops.layers import conv3d
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    x = _randn((1, 64, 64, 64, 32), gen, dev)
+    k = _randn((3, 3, 3, 32, 32), gen, dev, 0.05)
+    want = conv3d(x.double(), k.double())
+    with tf32_allowed():
+        _, tf32 = rel_err(conv3d(x, k), want)
+        trainer = ModelTrainer(train_params(64, extra=F32_PARAMS),
+                               device=dev, verbose=False)
+        kept = tf32_flags() == (True, True)
+        with trainer.ieee_f32():
+            off = tf32_flags() == (False, False)
+            _, ieee = rel_err(conv3d(x, k), want)
+        back = tf32_flags() == (True, True)
+    ok = kept and off and back and ieee <= F32_CONV_REL_TOL
+    print(f"tf32 check: with TF32 allowed, a use_amp=False trainer leaves "
+          f"the flags {'ok' if kept else 'FAIL'}, turns them off in its "
+          f"ieee_f32 scope {'ok' if off else 'FAIL'} and restores them "
+          f"{'ok' if back else 'FAIL'}; conv 1x64^3x32 vs f64 in the scope: "
+          f"rel {ieee:.3e} (tol {F32_CONV_REL_TOL}), with TF32 allowed "
+          f"{tf32:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("the f32 route's conv is not IEEE f32, or the "
+                             "trainer leaves the TF32 flags changed")
+
+
+def tf32_flags():
+    import torch
+
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """TF32 allowed in cuDNN and matmuls for the block (main() turns both
+    off for the run; they are off again after it)."""
+    import torch
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+
+
+def f32_train_check(dev, extra=F32_PARAMS) -> None:
+    """One 1 x 64^3 train step of the f32 route on the card against the f32
+    route on the CPU from the same weights, dropout off, with TF32 allowed
+    around it (the trainer's `ieee_f32` scope is what holds it to f32):
+    the loss within F32_LOSS_REL_TOL, and each top-level module's gradient
+    (rel-L2) within max(F32_GRAD_FLOOR, twice the CPU step's movement when
+    the input moves by 1e-5 of itself). A control, the same step on the
+    card with the scope switched off (TF32), is printed beside it with the
+    number of modules whose gradient it would put outside the rule: the
+    loss limit lies between the two sides' readings."""
+    import numpy as np
+    import torch
+
+    from fcd_tpu_torch.ops.layers import use_f32_route
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+    from fcd_tpu_torch.weights import model_entries
+
+    size = TRAIN_CHECK_SIZE
+    params = train_params(size, extra=extra)
+    trainers = [ModelTrainer(params, device=d, verbose=False)
+                for d in (dev, "cpu", "cpu", dev)]
+    redraw_attention(trainers[0].model, SEED + 3)
+    for tr in trainers[1:3]:
+        use_f32_route(tr.model)
+    for tr in trainers[1:]:
+        tr.model.load_state_dict(trainers[0].model.state_dict())
+    for tr in trainers:
+        dropout_off(tr.model)
+    trainers[3]._ieee = False   # the control: the same step in TF32
+    x, y = train_batch(dev, 1, size, params["chans_in"])
+    noise = torch.from_numpy(np.random.RandomState(SEED + 5).standard_normal(
+        x.shape).astype(np.float32))
+    xn = x.cpu() * (1 + 1e-5 * noise)
+    with torch.enable_grad(), tf32_allowed():
+        card = float(trainers[0].train_step(x, y, 1e-4))
+        control = float(trainers[3].train_step(x, y, 1e-4))
+        cpu = float(trainers[1].train_step(x.cpu(), y.cpu(), 1e-4))
+        trainers[2].train_step(xn, y.cpu(), 1e-4)
+    groups = {}
+    for entries in zip(*(model_entries(tr.model) for tr in trainers)):
+        if any(t.grad is None for _, _, t, _ in entries):
+            continue
+        key = entries[0][1][0]
+        bucket = groups.setdefault(key, ([], [], [], []))
+        for lst, (_, _, t, _) in zip(bucket, entries):
+            lst.append(t.grad.float().cpu().ravel())
+    lines = []
+    rel_loss = abs(card - cpu) / abs(cpu)
+    rel_control = abs(control - cpu) / abs(cpu)
+    ok = math.isfinite(card) and rel_loss <= F32_LOSS_REL_TOL
+    worst = worst_control = 0.0
+    control_out = 0
+    for key, (g, w, m, tc) in groups.items():
+        g, w, m, tc = (torch.cat(v) for v in (g, w, m, tc))
+        scale = float(w.norm())
+        if scale == 0.0:   # a module whose output is constant (a 1-voxel
+            scale = 1.0    # instance norm): its gradient is 0 on both sides
+        rel = float((g - w).norm()) / scale
+        moved = float((m - w).norm()) / scale
+        tol = max(F32_GRAD_FLOOR, 2 * moved)
+        good = math.isfinite(rel) and rel <= tol
+        ok = ok and good
+        worst = max(worst, rel)
+        rel_c = float((tc - w).norm()) / scale
+        worst_control = max(worst_control, rel_c)
+        control_out += rel_c > tol
+        lines.append(f"{key} {rel:.2e} (moved {moved:.2e})"
+                     + ("" if good else " FAIL"))
+    print(f"f32 train check ({params['model_type']}): 1x{size}^3 step, card "
+          f"f32 route vs CPU f32 route: loss {card:.9f} vs {cpu:.9f} rel "
+          f"{rel_loss:.3e} (tol {F32_LOSS_REL_TOL}; control in TF32 "
+          f"{control:.9f}, rel {rel_control:.3e}); grads rel-L2 per module, "
+          f"worst {worst:.2e} (control {worst_control:.2e}, outside the rule "
+          f"in {control_out} of {len(groups)} modules), each within "
+          f"max({F32_GRAD_FLOOR}, 2x its movement under 1e-5 input noise) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    print("  " + ", ".join(lines))
+    if not ok:
+        raise AssertionError(f"{params['model_type']}: the card's f32 step "
+                             "disagrees with the CPU's f32 route")
+
+
+def f32_run(dev, card) -> dict:
+    """C18 through the entry points: ModelTrainer(use_amp=False) on the
+    card, MS_DSA_NET fs16: the TF32 check, inference of the seeded volume
+    (launches per patch: B5's f32 instances x 12 and nothing else; one
+    patch against the f32 route on the CPU), a patch forward's profile,
+    the 4 x 128^3 train step (K3/K4's f32 instances x 12; ms/step, peak
+    memory), its profile and the 1 x 64^3 step against the CPU's f32
+    step. Returns {path: launch counts}."""
+    import torch
+
+    tf32_check(dev)
+    torch.cuda.empty_cache()
+    params = train_params(extra=F32_PARAMS)
+    launches, trainer, patch, vol, _ = slice_run(dev, card, params,
+                                                 per_patch=F32_PATCH)
+    by_path = {"f32 inference": launches}
+    del vol
+    x = patch.to(dev)
+    prof = profile_run(f"f32 route, one {tuple(patch.shape[1:4])} patch "
+                       "forward", lambda: trainer.predict(x), dev)
+    print_share(prof, "B5 f32 in the patch", ("dsa_f32_phase_a",
+                                               "dsa_f32_phase_b"))
+    del trainer, x
+    torch.cuda.empty_cache()
+    by_path["f32 train"], trainer, batch = train_run(
+        dev, card, extra=F32_PARAMS, per_step=F32_STEP)
+    with torch.enable_grad():
+        prof = profile_run(f"f32 route, one train step, batch "
+                           f"{TRAIN_BATCH}x128^3",
+                           lambda: trainer.train_step(*batch), dev)
+    print_share(prof, "K3 + K4 f32 in the step (the wide kernels' f32 "
+                "instances)", ("spatial_attn_fwd", "spatial_attn_bwd"))
+    del trainer, batch
+    torch.cuda.empty_cache()
+    f32_train_check(dev)
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def unetrpp_run(dev, card) -> dict:
+    """UNETR++ (fs16, 128^3, 4 heads, EPA projections 64/64/64/32) through
+    the entry points: in bf16 ModelTrainer.inference on the seeded volume
+    (launches per patch: B1, B2, B5; the batch norms' statistics
+    calibrated first, calibrate_batch_norms), one patch against the fp32
+    CPU forward, the 4 x 128^3 train step (B1, K1, B2, K2, K3, K4); then,
+    with use_amp=False, one patch forward (B5's f32 instances) against the
+    f32 route on the CPU. Returns {path: launch counts}."""
+    import numpy as np
+    import torch
+
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    params = train_params(extra=UNETRPP)
+    launches, trainer, patch, vol, _ = slice_run(
+        dev, card, params, per_patch=UNETRPP_PATCH, calibrate=True)
+    by_path = {"unetrpp inference": launches}
+    del trainer, vol
+    torch.cuda.empty_cache()
+    by_path["unetrpp train"], trainer, batch = train_run(
+        dev, card, extra=UNETRPP, per_step=UNETRPP_STEP)
+    with torch.enable_grad():
+        prof = profile_run(f"UNETR++, one train step, batch "
+                           f"{TRAIN_BATCH}x128^3",
+                           lambda: trainer.train_step(*batch), dev)
+    print_share(prof, "K3 + K4 in the step", ("spatial_attn_fwd",
+                                              "spatial_attn_bwd"))
+    del trainer, batch
+    torch.cuda.empty_cache()
+    f32 = train_params(extra=dict(UNETRPP, **F32_PARAMS))
+    trainer = ModelTrainer(f32, device=dev, verbose=False)
+    redraw_attention(trainer.model, SEED + 1)
+    size = f32["patch_size"]
+    other = torch.from_numpy(np.random.RandomState(SEED + 6).standard_normal(
+        (1, size, size, size, f32["chans_in"])).astype(np.float32))
+    calibrate_batch_norms(trainer.model, other.to(dev))
+    trainer.predict(patch.to(dev))
+    sync(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    trainer.predict(patch.to(dev))
+    sync(dev)
+    fwd_ms = (time.perf_counter() - t0) * 1e3
+    fwd = read_counts()
+    ok = dev.type != "cuda" or fwd == UNETRPP_F32_PATCH
+    print(f"unetrpp f32: patch forward {fwd_ms:.1f} ms on {card}; launches "
+          f"{ {k: v for k, v in fwd.items() if v} } "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"unetrpp f32 launches {fwd} != "
+                             f"{UNETRPP_F32_PATCH}")
+    patch_check(dev, trainer, patch, "unetrpp f32: ")
+    by_path["unetrpp f32 forward"] = fwd
+    return by_path
+
+
+def f32_sass_report() -> None:
+    """The f32 instances use no tensor-core instruction (so no TF32): no
+    HMMA or HGMMA in the SASS of libdsa_f32 or of spatial_attn's float
+    instances (`..._wide<float>`)."""
+    import re
+
+    from fcd_tpu_torch.kernels import _build
+
+    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+    counts = {}
+    for lib, pick in (("dsa_f32", lambda f: True),
+                      ("spatial_attn", lambda f: "_wideIfE" in f)):
+        path = _build.build_all([lib])[lib]
+        sass = subprocess.run([cuobjdump, "-sass", str(path)],
+                              capture_output=True, text=True, timeout=300)
+        if sass.returncode != 0:
+            raise AssertionError(f"cuobjdump failed: {sass.stderr.strip()}")
+        fn = None
+        for line in sass.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                if pick(fn):
+                    counts.setdefault(fn, 0)
+            elif fn is not None and pick(fn) and re.search(
+                    r"\b(HMMA|HGMMA|IMMA)\b", line):
+                counts[fn] += 1
+    ok = len(counts) >= 5 and not any(counts.values())
+    print(f"f32 instances: {len(counts)} functions, tensor-core instructions "
+          f"{sum(counts.values())} (no TF32) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError(f"f32 instances' SASS: {counts}")
+
+
 # TPU kernels whose function a kernel of the port computes (ROADMAP Queue
 # B, "by function"): B12 padded27, B11, B12 aligned, B14 and B18 are B1's
 # conv; B7's o2a form and B13 are K1's weight gradient; B8's forward is
@@ -2653,10 +3077,18 @@ def kernels_json(phases, by_path):
         "upsample2x": ("cuda", "fcd_tpu_torch/csrc/upsample.cu", b4.REPLACES),
         "dsa_phase_a": ("cuda", "fcd_tpu_torch/csrc/dsa.cu", b5.REPLACES_A),
         "dsa_phase_b": ("cuda", "fcd_tpu_torch/csrc/dsa.cu", b5.REPLACES_B),
+        "dsa_phase_a_f32": ("cuda", "fcd_tpu_torch/csrc/dsa_f32.cu",
+                            b5.REPLACES_A),
+        "dsa_phase_b_f32": ("cuda", "fcd_tpu_torch/csrc/dsa_f32.cu",
+                            b5.REPLACES_B),
         "spatial_attn_fwd": ("cuda", "fcd_tpu_torch/csrc/spatial_attn.cu",
                              k34.REPLACES_FWD),
         "spatial_attn_bwd": ("cuda", "fcd_tpu_torch/csrc/spatial_attn.cu",
                              k34.REPLACES_BWD),
+        "spatial_attn_fwd_f32": ("cuda", "fcd_tpu_torch/csrc/spatial_attn.cu",
+                                 k34.REPLACES_FWD),
+        "spatial_attn_bwd_f32": ("cuda", "fcd_tpu_torch/csrc/spatial_attn.cu",
+                                 k34.REPLACES_BWD),
         "sw_entry": ("cuda", "fcd_tpu_torch/csrc/sw_io.cu",
                      sw_io.REPLACES_ENTRY),
         "sw_exit": ("cuda", "fcd_tpu_torch/csrc/sw_io.cu", sw_io.REPLACES_EXIT),
@@ -2725,7 +3157,11 @@ ONLY_PHASES = {"upsample2x": upsample_phases, "sw_exit": sw_io_phases,
                "sw_entry": sw_io_phases, "finale_bwd": finale_bwd_phases,
                "dsa_phase_a": dsa_phases, "dsa_phase_b": dsa_phases,
                "spatial_attn_fwd": spatial_attn_levels,
-               "spatial_attn_bwd": spatial_attn_levels}
+               "spatial_attn_bwd": spatial_attn_levels,
+               "dsa_phase_a_f32": dsa_f32_phases,
+               "dsa_phase_b_f32": dsa_f32_phases,
+               "spatial_attn_fwd_f32": spatial_attn_f32_levels,
+               "spatial_attn_bwd_f32": spatial_attn_f32_levels}
 
 
 def kernels_only(dev, gen, names) -> int:
@@ -2769,6 +3205,7 @@ def main(argv=()) -> int:
           f" s ({', '.join(p.name for p in libs.values())})", flush=True)
     for args in BUILD_REPORTS.values():
         build_report(*args)
+    f32_sass_report()
 
     print("kernels against their plain versions (bf16, main-path shapes):")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -2835,6 +3272,10 @@ def main(argv=()) -> int:
     for label, extra, counts in ZOO_RUNS:
         torch.cuda.empty_cache()
         by_path.update(zoo_run(dev, card, label, extra, counts))
+    torch.cuda.empty_cache()
+    by_path.update(f32_run(dev, card))
+    torch.cuda.empty_cache()
+    by_path.update(unetrpp_run(dev, card))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
           f"the result, the build included", flush=True)
     print(json.dumps(kernels_json(phases, by_path)))

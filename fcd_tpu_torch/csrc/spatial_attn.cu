@@ -71,6 +71,8 @@
 //     instances at the end of this file (C15): CUDA-core kernels that read
 //     kpb and vpb from L2 and split each head's columns over blocks, so
 //     that their sums fit; correct first, with their times in PERF.md.
+//     Instanced on f32 operands, the same kernels are K3/K4 in f32 at
+//     every one of B5's (C, P) (C18: a model that computes in f32).
 //   * No atomics: each chunk writes one f32 partial of dkpb and dvpb, and
 //     spatial_attn_bwd_finish adds the chunks' partials (and the head
 //     groups' dqn partials) in a fixed order, writing dkpb and dvpb in
@@ -744,10 +746,10 @@ struct FinishParams {
   const float* dq_part;  // (groups, n_q) or null
   void* dk;              // n_kv, f32 or bf16
   void* dv;
-  bf16* dqn;             // n_q
+  void* dqn;             // n_q, bf16 (the f32 instances: f32)
   int chunks, groups;
   long long n_kv, n_q;   // elements, multiples of 4
-  int dk_bf16, dv_bf16;
+  int dk_bf16, dv_bf16, dq_bf16;
 };
 
 // sum over k < count of src[k * stride + i .. + 4], in the order k = 0, 1,
@@ -795,11 +797,11 @@ __global__ void __launch_bounds__(FT) spatial_attn_bwd_finish(
     store4(p.dv, p.dv_bf16, i, ordered_sum(p.dv_part, i, p.chunks, p.n_kv));
   } else if (p.groups > 0 && v < 2 * kv4 + p.n_q / 4) {
     const long long i = 4 * (v - 2 * kv4);
-    store4(p.dqn, 1, i, ordered_sum(p.dq_part, i, p.groups, p.n_q));
+    store4(p.dqn, p.dq_bf16, i, ordered_sum(p.dq_part, i, p.groups, p.n_q));
   }
 }
 
-// ---- the wide instances (C15) ----------------------------------------------
+// ---- the wide instances (C15), and the f32 instances (C18) -------------
 //
 // Every (C, P) with C a power of two from 8 to 512 and P 16 .. 128 that the
 // tensor-core instances above do not take (C = 8, C = 512, P = 128, and C P
@@ -815,14 +817,49 @@ __global__ void __launch_bounds__(FT) spatial_attn_bwd_finish(
 // columns (at most 32 f32 a thread each) and the dqn partial of those
 // columns. Same math, rounding points, dropout bits and fixed-order
 // finishing pass as the tensor-core instances; no atomics.
+//
+// The same kernels, templated on the operand type E, are the f32
+// instances (ROADMAP C18) of every (C, P) B5 takes: a model that computes
+// in f32 runs the JAX package's spatial_attn_train in f32, where every
+// bf16 rounding point (a, ds, out, dqn) is a no-op
+// (fcd_tpu/kernels/spatial_attn.py:83,113,131). With E = float the tiles
+// and the staged operand are f32, round_to is the identity and the stores
+// write f32; every product is an f32 fused multiply-add on the CUDA cores
+// (no tensor-core instruction, so no TF32). A head's C x P operand in f32
+// can outgrow shared memory (512 x 130 x 4 bytes), so the operand is
+// staged PB columns at a time (PB divides P; kernels/spatial_attn.py::
+// wide_plan picks it): each logit and each output element is still one
+// sum over the same terms in the same order, so a smaller PB gives the
+// same bits. The bf16 instances take PB = P.
 
 constexpr int WT = 256;        // threads of a wide block
 constexpr int WACC = 32;       // sums a thread: 8192 / WT
 constexpr int WIDE_SUMS = WT * WACC;
 
-__device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float round_bf(float v) {
+__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(float v) { return v; }
+
+// the value as the operand type holds it: bf16's rounding, or none
+template <typename E>
+__device__ __forceinline__ float round_to(float v);
+template <>
+__device__ __forceinline__ float round_to<bf16>(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+template <>
+__device__ __forceinline__ float round_to<float>(float v) {
+  return v;
+}
+
+template <typename E>
+__device__ __forceinline__ E from_f(float v);
+template <>
+__device__ __forceinline__ bf16 from_f<bf16>(float v) {
+  return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ float from_f<float>(float v) {
+  return v;
 }
 
 __device__ __forceinline__ float wsum(float v) {
@@ -838,14 +875,16 @@ __device__ __forceinline__ float wmax(float v) {
   return v;
 }
 
-// TOK rows of C bf16 (row stride C) from token n0 of batch item b into
-// shared dst (TOK x C bf16), rows past N zero; 16-byte copies
-__device__ void load_rows(const bf16* src, int b, int N, int C, int n0,
-                          int TOK, bf16* dst) {
-  const bf16* s = src + ((size_t)b * N + n0) * C;
+// TOK rows of C elements (row stride C) from token n0 of batch item b into
+// shared dst (TOK x C), rows past N zero; 16-byte copies
+template <typename E>
+__device__ void load_rows(const E* src, int b, int N, int C, int n0,
+                          int TOK, E* dst) {
+  constexpr int V = 16 / sizeof(E);  // elements a 16-byte copy
+  const E* s = src + ((size_t)b * N + n0) * C;
   const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int v = threadIdx.x; v < TOK * C / 8; v += WT) {
-    const int t = v / (C / 8);
+  for (int v = threadIdx.x; v < TOK * C / V; v += WT) {
+    const int t = v / (C / V);
     reinterpret_cast<uint4*>(dst)[v] =
         n0 + t < N ? reinterpret_cast<const uint4*>(s)[v] : zero;
   }
@@ -853,10 +892,11 @@ __device__ void load_rows(const bf16* src, int b, int N, int C, int n0,
 
 // Ws[c][q] = m[c][q0 + q] (C x P of a row-major matrix of row stride ld),
 // 16-byte copies
-__device__ void stage_cols(const bf16* m, int ld, int q0, int C, int P,
-                           bf16* Ws) {
-  for (int v = threadIdx.x; v < C * P / 8; v += WT) {
-    const int c = v / (P / 8), q = (v - c * (P / 8)) * 8;
+template <typename E>
+__device__ void stage_cols(const E* m, int ld, int q0, int C, int P, E* Ws) {
+  constexpr int V = 16 / sizeof(E);
+  for (int v = threadIdx.x; v < C * P / V; v += WT) {
+    const int c = v / (P / V), q = (v - c * (P / V)) * V;
     *reinterpret_cast<uint4*>(Ws + c * P + q) =
         *reinterpret_cast<const uint4*>(m + (size_t)c * ld + q0 + q);
   }
@@ -864,31 +904,35 @@ __device__ void stage_cols(const bf16* m, int ld, int q0, int C, int P,
 
 // Ws[c][q] = m[r0 + q][c] (the transpose of P rows of a row-major matrix
 // of row stride C) at pitch P + 2, so that threads on consecutive c read
-// distinct banks: 16-byte loads along the rows, 2-byte stores
-__device__ void stage_rows_t(const bf16* m, int r0, int C, int P, bf16* Ws) {
-  for (int v = threadIdx.x; v < P * C / 8; v += WT) {
-    const int q = v / (C / 8), c = (v - q * (C / 8)) * 8;
+// distinct banks: 16-byte loads along the rows, element stores
+template <typename E>
+__device__ void stage_rows_t(const E* m, int r0, int C, int P, E* Ws) {
+  constexpr int V = 16 / sizeof(E);
+  for (int v = threadIdx.x; v < P * C / V; v += WT) {
+    const int q = v / (C / V), c = (v - q * (C / V)) * V;
     const uint4 raw =
         *reinterpret_cast<const uint4*>(m + (size_t)(r0 + q) * C + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&raw);
+    const E* e = reinterpret_cast<const E*>(&raw);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) Ws[(c + i) * (P + 2) + q] = e[i];
+    for (int i = 0; i < V; ++i) Ws[(c + i) * (P + 2) + q] = e[i];
   }
 }
 
-// S[t][q] = sum_c A[t][c] W[c][q] (A TOK x C, W C x P at pitch wp, both
-// bf16 in shared memory): consecutive threads take consecutive q
-__device__ void tile_product(const bf16* A, const bf16* W, int wp, int C,
-                             int TOK, int P, float* S) {
+// S[t][q] (row stride sp) = sum_c A[t][c] W[c][q] for q < P (A TOK x C, W
+// C x P at pitch wp, both in shared memory): consecutive threads take
+// consecutive q
+template <typename E>
+__device__ void tile_product(const E* A, const E* W, int wp, int C, int TOK,
+                             int P, float* S, int sp) {
   for (int i = threadIdx.x; i < TOK * P; i += WT) {
     const int t = i / P, q = i - t * P;
-    const bf16* ar = A + t * C;
+    const E* ar = A + t * C;
     float s0 = 0.f, s1 = 0.f;
     for (int c = 0; c < C; c += 2) {
-      s0 = fmaf(bf2f(ar[c]), bf2f(W[c * wp + q]), s0);
-      s1 = fmaf(bf2f(ar[c + 1]), bf2f(W[(c + 1) * wp + q]), s1);
+      s0 = fmaf(to_f(ar[c]), to_f(W[c * wp + q]), s0);
+      s1 = fmaf(to_f(ar[c + 1]), to_f(W[(c + 1) * wp + q]), s1);
     }
-    S[i] = s0 + s1;
+    S[t * sp + q] = s0 + s1;
   }
 }
 
@@ -907,120 +951,133 @@ __device__ __forceinline__ float softmax_row(float* srow, int P, int lane) {
   return 1.f / wsum(sum);
 }
 
+template <typename E>
 struct WideFwd {
-  const bf16* qn;   // (B, N, C)
-  const bf16* kpb;  // (B, C, HP)
-  const bf16* vpb;  // (B, HP, C)
-  bf16* out;        // (B, N, C)
-  int N, C, HP, P, TOK;
+  const E* qn;   // (B, N, C)
+  const E* kpb;  // (B, C, HP)
+  const E* vpb;  // (B, HP, C)
+  E* out;        // (B, N, C)
+  int N, C, HP, P, TOK, PB;
   Drop d;
 };
 
-// qn's tile, one head's C x P operand (pitch P + 2), its TOK x P scores
-__host__ __device__ constexpr int wide_fwd_smem(int C, int P, int TOK) {
-  return 2 * TOK * C + 2 * C * (P + 2) + 4 * TOK * P;
+// qn's tile, PB columns of one head's C x P operand (pitch PB + 2), its
+// TOK x P scores
+__host__ __device__ constexpr int wide_fwd_smem(int esize, int C, int P,
+                                                int TOK, int PB) {
+  return esize * TOK * C + esize * C * (PB + 2) + 4 * TOK * P;
 }
 
 // grid (token tile, batch): the tile's TOK tokens, head by head
+template <typename E>
 __global__ void __launch_bounds__(WT)
-    spatial_attn_fwd_kernel_wide(const WideFwd p) {
+    spatial_attn_fwd_kernel_wide(const WideFwd<E> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int C = p.C, P = p.P, HP = p.HP, TOK = p.TOK, N = p.N;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // TOK x C
-  bf16* Ws = Qs + TOK * C;  // C x P: kpb (pitch P), then vpb^T (P + 2)
-  float* Ss = reinterpret_cast<float*>(Ws + C * (P + 2));  // s, then a
+  const int C = p.C, P = p.P, HP = p.HP, TOK = p.TOK, N = p.N, PB = p.PB;
+  E* Qs = reinterpret_cast<E*>(smem_raw);  // TOK x C
+  E* Ws = Qs + TOK * C;  // C x PB: kpb (pitch PB), then vpb^T (PB + 2)
+  float* Ss = reinterpret_cast<float*>(Ws + C * (PB + 2));  // s, then a
   const int b = blockIdx.y, n0 = blockIdx.x * TOK;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const bf16* kb = p.kpb + (size_t)b * C * HP;
-  const bf16* vb = p.vpb + (size_t)b * HP * C;
+  const E* kb = p.kpb + (size_t)b * C * HP;
+  const E* vb = p.vpb + (size_t)b * HP * C;
   load_rows(p.qn, b, N, C, n0, TOK, Qs);
   float acc[WACC];
 #pragma unroll
   for (int j = 0; j < WACC; ++j) acc[j] = 0.f;
   for (int hh = 0; hh < HP / P; ++hh) {
-    __syncthreads();  // the last head's products are done with Ws and Ss
-    stage_cols(kb, HP, hh * P, C, P, Ws);
+    for (int qb = 0; qb < P; qb += PB) {
+      __syncthreads();  // the last products are done with Ws and Ss
+      stage_cols(kb, HP, hh * P + qb, C, PB, Ws);
+      __syncthreads();
+      tile_product(Qs, Ws, PB, C, TOK, PB, Ss + qb, P);  // logits
+    }
     __syncthreads();
-    tile_product(Qs, Ws, P, C, TOK, P, Ss);  // logits
-    __syncthreads();
-    stage_rows_t(vb, hh * P, C, P, Ws);  // Ws[c][q] = vpb[hh P + q][c]
-    // a = bf16(keep ? softmax(s) / (1 - rate) : 0), a warp a token
+    // a = round(keep ? softmax(s) / (1 - rate) : 0), a warp a token
     for (int t = warp; t < TOK; t += WT / 32) {
       float* row = Ss + t * P;
       const float inv = softmax_row(row, P, lane);
       const uint32_t x = elem_x(b, N, HP, n0 + t, hh * P);
       for (int q = lane; q < P; q += 32) {
         const float a = row[q] * inv;
-        row[q] = round_bf(!p.d.on || keep_x(x + (uint32_t)q * K0, p.d)
-                              ? a * p.d.inv
-                              : 0.f);
+        row[q] = round_to<E>(!p.d.on || keep_x(x + (uint32_t)q * K0, p.d)
+                                 ? a * p.d.inv
+                                 : 0.f);
       }
     }
-    __syncthreads();
-    // out[t][c] += sum_q a[t][q] vpb[hh P + q][c]: element j of this
-    // thread is e = tid + WT j (consecutive threads, consecutive c)
+    // out[t][c] += sum_q a[t][q] vpb[hh P + q][c], Ws[c][q] = vpb[hh P +
+    // qb + q][c] a block of PB columns at a time: element j of this thread
+    // is e = tid + WT j (consecutive threads, consecutive c)
+    for (int qb = 0; qb < P; qb += PB) {
+      __syncthreads();  // a is written; the last block is done with Ws
+      stage_rows_t(vb, hh * P + qb, C, PB, Ws);
+      __syncthreads();
 #pragma unroll
-    for (int j = 0; j < WACC; ++j) {
-      const int e = threadIdx.x + WT * j;
-      if (e >= TOK * C) break;
-      const int t = e / C, c = e - t * C;
-      const float* ar = Ss + t * P;
-      const bf16* wc = Ws + c * (P + 2);
-      float s = acc[j];
-      for (int q = 0; q < P; ++q) s = fmaf(ar[q], bf2f(wc[q]), s);
-      acc[j] = s;
+      for (int j = 0; j < WACC; ++j) {
+        const int e = threadIdx.x + WT * j;
+        if (e >= TOK * C) break;
+        const int t = e / C, c = e - t * C;
+        const float* ar = Ss + t * P + qb;
+        const E* wc = Ws + c * (PB + 2);
+        float s = acc[j];
+        for (int q = 0; q < PB; ++q) s = fmaf(ar[q], to_f(wc[q]), s);
+        acc[j] = s;
+      }
     }
   }
-  bf16* ob = p.out + ((size_t)b * N + n0) * C;
+  E* ob = p.out + ((size_t)b * N + n0) * C;
 #pragma unroll
   for (int j = 0; j < WACC; ++j) {
     const int e = threadIdx.x + WT * j;
     if (e >= TOK * C) break;
-    if (n0 + e / C < N) ob[e] = __float2bfloat16(acc[j]);
+    if (n0 + e / C < N) ob[e] = from_f<E>(acc[j]);
   }
 }
 
+template <typename E>
 struct WideBwd {
-  const bf16* qn;   // (B, N, C)
-  const bf16* kpb;  // (B, C, HP)
-  const bf16* vpb;  // (B, HP, C)
-  const bf16* g;    // (B, N, C)
+  const E* qn;   // (B, N, C)
+  const E* kpb;  // (B, C, HP)
+  const E* vpb;  // (B, HP, C)
+  const E* g;    // (B, N, C)
   float* dq_part;   // (HP / P * S, B, N, C): one per (head, split)
   float* dk_part;   // (chunks, B, C, HP)
   float* dv_part;   // (chunks, B, HP, C)
-  int N, C, HP, P, TOK, tiles, chunks, S;
+  int N, C, HP, P, TOK, tiles, chunks, S, PB;
   Drop d;
 };
 
-// the qn and g tiles, one head's C x P operand (pitch P + 2), s and da /
-// ds (TOK x P f32), a on the split's CS columns, and the split's kpb
-// columns (C x (CS + 2): pitches off the banks' period)
-__host__ __device__ constexpr int wide_bwd_smem(int C, int P, int TOK,
-                                                int S) {
-  return 4 * TOK * C + 2 * C * (P + 2) + 8 * TOK * P + 4 * TOK * (P / S) +
-         2 * C * (P / S + 2);
+// the qn and g tiles, PB columns of one head's C x P operand (pitch PB +
+// 2), s and da / ds (TOK x P f32), a on the split's CS columns, and the
+// split's kpb columns (C x (CS + 2): pitches off the banks' period)
+__host__ __device__ constexpr int wide_bwd_smem(int esize, int C, int P,
+                                                int TOK, int S, int PB) {
+  return 2 * esize * TOK * C + esize * C * (PB + 2) + 8 * TOK * P +
+         4 * TOK * (P / S) + esize * C * (P / S + 2);
 }
 
 // grid (chunk, head x split, batch)
+template <typename E>
 __global__ void __launch_bounds__(WT)
-    spatial_attn_bwd_kernel_wide(const WideBwd p) {
+    spatial_attn_bwd_kernel_wide(const WideBwd<E> p) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int C = p.C, P = p.P, HP = p.HP, TOK = p.TOK, N = p.N, S = p.S;
+  const int PB = p.PB;
   const int CS = P / S, KP = CS + 2;  // the split's columns, Ks's pitch
   const int chunk = blockIdx.x, hs = blockIdx.y, b = blockIdx.z;
   const int B = gridDim.z;
   const int q0 = (hs / S) * P;       // the head's first column
   const int qs = (hs % S) * CS;      // the split's first column in the head
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);  // TOK x C
-  bf16* Gs = Qs + TOK * C;                       // TOK x C
-  bf16* Ws = Gs + TOK * C;  // C x P: kpb (pitch P), then vpb^T (P + 2)
-  float* Ss = reinterpret_cast<float*>(Ws + C * (P + 2));  // TOK x P: s
+  E* Qs = reinterpret_cast<E*>(smem_raw);        // TOK x C
+  E* Gs = Qs + TOK * C;                          // TOK x C
+  E* Ws = Gs + TOK * C;  // C x PB: kpb (pitch PB), then vpb^T (PB + 2)
+  float* Ss = reinterpret_cast<float*>(Ws + C * (PB + 2));  // TOK x P: s
   float* Ds = Ss + TOK * P;                      // TOK x P: da, then ds
   float* As = Ds + TOK * P;                      // TOK x CS: a
-  bf16* Ks = reinterpret_cast<bf16*>(As + TOK * CS);  // C x KP
-  const bf16* kb = p.kpb + (size_t)b * C * HP;
-  const bf16* vb = p.vpb + (size_t)b * HP * C;
+  E* Ks = reinterpret_cast<E*>(As + TOK * CS);   // C x KP
+  const E* kb = p.kpb + (size_t)b * C * HP;
+  const E* vb = p.vpb + (size_t)b * HP * C;
   for (int i = threadIdx.x; i < C * CS; i += WT) {
     const int c = i / CS, q = i - c * CS;
     Ks[c * KP + q] = kb[(size_t)c * HP + q0 + qs + q];
@@ -1035,16 +1092,21 @@ __global__ void __launch_bounds__(WT)
     __syncthreads();  // the last tile's sums are done
     load_rows(p.qn, b, N, C, n0, TOK, Qs);
     load_rows(p.g, b, N, C, n0, TOK, Gs);
-    stage_cols(kb, HP, q0, C, P, Ws);
+    for (int qb = 0; qb < P; qb += PB) {
+      if (qb > 0) __syncthreads();  // the last block's products are done
+      stage_cols(kb, HP, q0 + qb, C, PB, Ws);
+      __syncthreads();
+      tile_product(Qs, Ws, PB, C, TOK, PB, Ss + qb, P);  // logits
+    }
     __syncthreads();
-    tile_product(Qs, Ws, P, C, TOK, P, Ss);  // logits
-    __syncthreads();
-    stage_rows_t(vb, q0, C, P, Ws);  // Ws[c][q] = vpb[q0 + q][c]
-    __syncthreads();
-    tile_product(Gs, Ws, P + 2, C, TOK, P, Ds);  // da = g . vpb^T
-    __syncthreads();
+    for (int qb = 0; qb < P; qb += PB) {
+      stage_rows_t(vb, q0 + qb, C, PB, Ws);  // Ws[c][q] = vpb[q0 + qb + q][c]
+      __syncthreads();
+      tile_product(Gs, Ws, PB + 2, C, TOK, PB, Ds + qb, P);  // da = g . vpb^T
+      __syncthreads();
+    }
     // per token (a warp each): s, the mask, a on the split's columns,
-    // ds = bf16(s (da' - sum(da' s))) with da' = keep ? da / (1 - rate) : 0
+    // ds = round(s (da' - sum(da' s))) with da' = keep ? da / (1 - rate) : 0
     for (int t = warp; t < TOK; t += WT / 32) {
       float* srow = Ss + t * P;
       float* drow = Ds + t * P;
@@ -1059,11 +1121,11 @@ __global__ void __launch_bounds__(WT)
         drow[q] = da;
         dot = fmaf(da, s, dot);
         if (q >= qs && q < qs + CS)
-          As[t * CS + q - qs] = round_bf(keep ? s * p.d.inv : 0.f);
+          As[t * CS + q - qs] = round_to<E>(keep ? s * p.d.inv : 0.f);
       }
       dot = wsum(dot);
       for (int q = lane; q < P; q += 32)
-        drow[q] = round_bf(srow[q] * (drow[q] - dot));
+        drow[q] = round_to<E>(srow[q] * (drow[q] - dot));
     }
     __syncthreads();
     // dqn's partial of the split: dq[t][c] = sum_q ds[t][qs + q] kpb[c][q0 +
@@ -1073,9 +1135,9 @@ __global__ void __launch_bounds__(WT)
       const int t = e / C, c = e - t * C;
       if (n0 + t >= N) continue;
       const float* dr = Ds + t * P + qs;
-      const bf16* kr = Ks + c * KP;
+      const E* kr = Ks + c * KP;
       float s = 0.f;
-      for (int q = 0; q < CS; ++q) s = fmaf(dr[q], bf2f(kr[q]), s);
+      for (int q = 0; q < CS; ++q) s = fmaf(dr[q], to_f(kr[q]), s);
       dq[e] = s;
     }
     // dkpb[c][q] += sum_t qn[t][c] ds[t][qs + q], dvpb[q][c] += sum_t
@@ -1087,12 +1149,12 @@ __global__ void __launch_bounds__(WT)
       const int c = e / CS, q = e - c * CS;
       float s = dk[j];
       for (int t = 0; t < TOK; ++t)
-        s = fmaf(bf2f(Qs[t * C + c]), Ds[t * P + qs + q], s);
+        s = fmaf(to_f(Qs[t * C + c]), Ds[t * P + qs + q], s);
       dk[j] = s;
       const int qv = e / C, cv = e - qv * C;
       float v = dv[j];
       for (int t = 0; t < TOK; ++t)
-        v = fmaf(As[t * CS + qv], bf2f(Gs[t * C + cv]), v);
+        v = fmaf(As[t * CS + qv], to_f(Gs[t * C + cv]), v);
       dv[j] = v;
     }
   }
@@ -1181,26 +1243,28 @@ int launch_bwd(const BwdParams& p, const FinishParams& f, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_fwd_wide(const WideFwd& p, int B, cudaStream_t s) {
+template <typename E>
+int launch_fwd_wide(const WideFwd<E>& p, int B, cudaStream_t s) {
   static bool ready = false;
-  cudaError_t e = allow_smem(spatial_attn_fwd_kernel_wide, ready);
+  auto kern = spatial_attn_fwd_kernel_wide<E>;
+  cudaError_t e = allow_smem(kern, ready);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int bytes = wide_fwd_smem(p.C, p.P, p.TOK);
+  const int bytes = wide_fwd_smem(sizeof(E), p.C, p.P, p.TOK, p.PB);
   if (bytes > SMEM_CAP) return static_cast<int>(cudaErrorInvalidValue);
-  spatial_attn_fwd_kernel_wide<<<dim3((p.N + p.TOK - 1) / p.TOK, B), WT,
-                                 bytes, s>>>(p);
+  kern<<<dim3((p.N + p.TOK - 1) / p.TOK, B), WT, bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_bwd_wide(const WideBwd& p, const FinishParams& f, int B,
+template <typename E>
+int launch_bwd_wide(const WideBwd<E>& p, const FinishParams& f, int B,
                     cudaStream_t s) {
   static bool ready = false;
-  cudaError_t e = allow_smem(spatial_attn_bwd_kernel_wide, ready);
+  auto kern = spatial_attn_bwd_kernel_wide<E>;
+  cudaError_t e = allow_smem(kern, ready);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int bytes = wide_bwd_smem(p.C, p.P, p.TOK, p.S);
+  const int bytes = wide_bwd_smem(sizeof(E), p.C, p.P, p.TOK, p.S, p.PB);
   if (bytes > SMEM_CAP) return static_cast<int>(cudaErrorInvalidValue);
-  spatial_attn_bwd_kernel_wide<<<dim3(p.chunks, p.HP / p.P * p.S, B), WT,
-                                 bytes, s>>>(p);
+  kern<<<dim3(p.chunks, p.HP / p.P * p.S, B), WT, bytes, s>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const long long vecs = (2 * f.n_kv + f.n_q) / 4;
@@ -1209,14 +1273,16 @@ int launch_bwd_wide(const WideBwd& p, const FinishParams& f, int B,
 }
 
 // the widths of the wide instances: C a power of two from 8 to 512, P
-// 16 .. 128, TOK C <= 8192 with TOK a multiple of 16 and at most 64, and
-// C P / S <= 8192 (kernels/spatial_attn.py::wide_plan)
-bool wide_ok(int C, int P, int HP, int TOK, int S) {
+// 16 .. 128, TOK C <= 8192 with TOK a multiple of 16 and at most 64,
+// C P / S <= 8192, and PB columns staged at a time, a divisor of P and a
+// multiple of 8 (kernels/spatial_attn.py::wide_plan)
+bool wide_ok(int C, int P, int HP, int TOK, int S, int PB) {
   const bool c_ok = C >= 8 && C <= 512 && (C & (C - 1)) == 0;
   const bool p_ok = P == 16 || P == 32 || P == 64 || P == 128;
   return c_ok && p_ok && HP % P == 0 && TOK >= 16 && TOK <= 64 &&
          TOK % 16 == 0 && TOK * C <= WIDE_SUMS && S >= 1 && P % S == 0 &&
-         (P / S) % 16 == 0 && C * (P / S) <= WIDE_SUMS;
+         (P / S) % 16 == 0 && C * (P / S) <= WIDE_SUMS && PB >= 8 &&
+         PB % 8 == 0 && P % PB == 0;
 }
 
 }  // namespace
@@ -1295,13 +1361,14 @@ extern "C" int fcd_spatial_attn_bwd(
   f.dq_part = dq_part;
   f.dk = dk;
   f.dv = dv;
-  f.dqn = static_cast<bf16*>(dqn);
+  f.dqn = dqn;
   f.chunks = chunks;
   f.groups = whole ? 0 : HP / (hb * P);
   f.n_kv = (long long)B * C * HP;
   f.n_q = (long long)B * N * C;
   f.dk_bf16 = dk_bf16;
   f.dv_bf16 = dv_bf16;
+  f.dq_bf16 = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C * 1000 + P * 10 + hb) {
 #define BWD_CASE(C, P, HB) \
@@ -1312,51 +1379,47 @@ extern "C" int fcd_spatial_attn_bwd(
   }
 }
 
-// K3, the wide instances (C15): tok tokens a block, grid (ceil(N / tok),
-// B) (kernels/spatial_attn.py::wide_plan)
-extern "C" int fcd_spatial_attn_fwd_wide(const void* qn, const void* kpb,
-                                         const void* vpb, void* out, int B,
-                                         int N, int C, int HP, int P, int tok,
-                                         unsigned key, unsigned thresh,
-                                         float inv_keep, int drop,
-                                         void* stream) {
+namespace {
+
+template <typename E>
+int fwd_wide(const void* qn, const void* kpb, const void* vpb, void* out,
+             int B, int N, int C, int HP, int P, int tok, int pb,
+             unsigned key, unsigned thresh, float inv_keep, int drop,
+             cudaStream_t stream) {
   if (N < 1 || B < 1 || C < 1 ||
-      !wide_ok(C, P, HP, tok, C * P > WIDE_SUMS ? C * P / WIDE_SUMS : 1))
+      !wide_ok(C, P, HP, tok, C * P > WIDE_SUMS ? C * P / WIDE_SUMS : 1, pb))
     return static_cast<int>(cudaErrorInvalidValue);
-  WideFwd p;
-  p.qn = static_cast<const bf16*>(qn);
-  p.kpb = static_cast<const bf16*>(kpb);
-  p.vpb = static_cast<const bf16*>(vpb);
-  p.out = static_cast<bf16*>(out);
+  WideFwd<E> p;
+  p.qn = static_cast<const E*>(qn);
+  p.kpb = static_cast<const E*>(kpb);
+  p.vpb = static_cast<const E*>(vpb);
+  p.out = static_cast<E*>(out);
   p.N = N;
   p.C = C;
   p.HP = HP;
   p.P = P;
   p.TOK = tok;
+  p.PB = pb;
   p.d = dropout(key, thresh, inv_keep, drop);
-  return launch_fwd_wide(p, B, static_cast<cudaStream_t>(stream));
+  return launch_fwd_wide(p, B, stream);
 }
 
-// K4 and its finishing pass, the wide instances: tok tokens a step, chunks
-// of the ceil(N / tok) tiles, each head's P columns split over `split`
-// blocks. Scratch: dk_part, dv_part (chunks, B, C, HP) f32 each; dq_part
-// (HP / P * split, B, N, C) f32. dk and dv: f32, or bf16 where dk_bf16 /
-// dv_bf16; dqn bf16.
-extern "C" int fcd_spatial_attn_bwd_wide(
-    const void* qn, const void* kpb, const void* vpb, const void* g,
-    void* dqn, float* dq_part, float* dk_part, float* dv_part, void* dk,
-    void* dv, int dk_bf16, int dv_bf16, int B, int N, int C, int HP, int P,
-    int tok, int chunks, int split, unsigned key, unsigned thresh,
-    float inv_keep, int drop, void* stream) {
+template <typename E>
+int bwd_wide(const void* qn, const void* kpb, const void* vpb, const void* g,
+             void* dqn, float* dq_part, float* dk_part, float* dv_part,
+             void* dk, void* dv, int dk_bf16, int dv_bf16, int B, int N,
+             int C, int HP, int P, int tok, int chunks, int split, int pb,
+             unsigned key, unsigned thresh, float inv_keep, int drop,
+             cudaStream_t stream) {
   const int tiles = tok > 0 ? (N + tok - 1) / tok : 0;
-  if (N < 1 || B < 1 || !wide_ok(C, P, HP, tok, split) || chunks < 1 ||
+  if (N < 1 || B < 1 || !wide_ok(C, P, HP, tok, split, pb) || chunks < 1 ||
       chunks > tiles || dq_part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  WideBwd p;
-  p.qn = static_cast<const bf16*>(qn);
-  p.kpb = static_cast<const bf16*>(kpb);
-  p.vpb = static_cast<const bf16*>(vpb);
-  p.g = static_cast<const bf16*>(g);
+  WideBwd<E> p;
+  p.qn = static_cast<const E*>(qn);
+  p.kpb = static_cast<const E*>(kpb);
+  p.vpb = static_cast<const E*>(vpb);
+  p.g = static_cast<const E*>(g);
   p.dq_part = dq_part;
   p.dk_part = dk_part;
   p.dv_part = dv_part;
@@ -1368,6 +1431,7 @@ extern "C" int fcd_spatial_attn_bwd_wide(
   p.tiles = tiles;
   p.chunks = chunks;
   p.S = split;
+  p.PB = pb;
   p.d = dropout(key, thresh, inv_keep, drop);
   FinishParams f;
   f.dk_part = dk_part;
@@ -1375,12 +1439,55 @@ extern "C" int fcd_spatial_attn_bwd_wide(
   f.dq_part = dq_part;
   f.dk = dk;
   f.dv = dv;
-  f.dqn = static_cast<bf16*>(dqn);
+  f.dqn = dqn;
   f.chunks = chunks;
   f.groups = HP / P * split;
   f.n_kv = (long long)B * C * HP;
   f.n_q = (long long)B * N * C;
   f.dk_bf16 = dk_bf16;
   f.dv_bf16 = dv_bf16;
-  return launch_bwd_wide(p, f, B, static_cast<cudaStream_t>(stream));
+  f.dq_bf16 = sizeof(E) == 2;
+  return launch_bwd_wide(p, f, B, stream);
+}
+
+}  // namespace
+
+// K3, the wide instances (C15) and, with f32 = 1, the f32 instances (C18):
+// tok tokens a block, grid (ceil(N / tok), B), pb columns of a head staged
+// at a time (kernels/spatial_attn.py::wide_plan); qn, kpb, vpb and out
+// bf16, or f32 with f32 = 1
+extern "C" int fcd_spatial_attn_fwd_wide(const void* qn, const void* kpb,
+                                         const void* vpb, void* out, int B,
+                                         int N, int C, int HP, int P, int tok,
+                                         int pb, int f32, unsigned key,
+                                         unsigned thresh, float inv_keep,
+                                         int drop, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f32 ? fwd_wide<float>(qn, kpb, vpb, out, B, N, C, HP, P, tok, pb,
+                               key, thresh, inv_keep, drop, s)
+             : fwd_wide<bf16>(qn, kpb, vpb, out, B, N, C, HP, P, tok, pb,
+                              key, thresh, inv_keep, drop, s);
+}
+
+// K4 and its finishing pass, the wide instances and (f32 = 1) the f32
+// ones: tok tokens a step, chunks of the ceil(N / tok) tiles, each head's
+// P columns split over `split` blocks, pb columns staged at a time.
+// Scratch: dk_part, dv_part (chunks, B, C, HP) f32 each; dq_part (HP / P *
+// split, B, N, C) f32. dk and dv: f32, or bf16 where dk_bf16 / dv_bf16;
+// dqn in the operands' type.
+extern "C" int fcd_spatial_attn_bwd_wide(
+    const void* qn, const void* kpb, const void* vpb, const void* g,
+    void* dqn, float* dq_part, float* dk_part, float* dv_part, void* dk,
+    void* dv, int dk_bf16, int dv_bf16, int B, int N, int C, int HP, int P,
+    int tok, int chunks, int split, int pb, int f32, unsigned key,
+    unsigned thresh, float inv_keep, int drop, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return f32 ? bwd_wide<float>(qn, kpb, vpb, g, dqn, dq_part, dk_part,
+                               dv_part, dk, dv, dk_bf16, dv_bf16, B, N, C,
+                               HP, P, tok, chunks, split, pb, key, thresh,
+                               inv_keep, drop, s)
+             : bwd_wide<bf16>(qn, kpb, vpb, g, dqn, dq_part, dk_part,
+                              dv_part, dk, dv, dk_bf16, dv_bf16, B, N, C, HP,
+                              P, tok, chunks, split, pb, key, thresh,
+                              inv_keep, drop, s);
 }

@@ -7,8 +7,12 @@ the roi, the MONAI-parity dense patch grid, patches run in batches of
 in patch order, then multiplied by the reciprocal coverage and cropped
 back. The volume enters through `kernels/sw_io.py::sw_entry` (pad + cast,
 B17's function) and leaves through `sw_exit` (coverage multiply + crop,
-B6's function), once per call each. The accumulation itself is plain
-PyTorch, as the JAX package leaves it to XLA on this path. The reciprocal
+B6's function), once per call each. B17 serves bf16 only, as the JAX
+engine's Pallas entry does (`fcd_tpu/infer/sliding_window.py:274-278`):
+at f32 the volume enters as the JAX package's f32 route does, padded
+with no cast (`F.pad`). The exit takes the f32 accumulator either way.
+The accumulation itself is plain PyTorch, as the JAX package leaves it to
+XLA on this path. The reciprocal
 coverage and the importance map stay on the device, cached per grid, as
 `fcd_tpu/infer/sliding_window.py:429-457` caches them. The s2d patch/logit
 options of the JAX engine are TPU layout and have no counterpart here;
@@ -23,8 +27,14 @@ from typing import Callable, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-from fcd_tpu_torch.kernels.sw_io import entry_pad, sw_entry, sw_exit
+from fcd_tpu_torch.kernels.sw_io import (
+    entry_pad,
+    entry_pad_arg,
+    sw_entry,
+    sw_exit,
+)
 
 
 def dense_patch_starts(image_size: Sequence[int], roi_size: Sequence[int],
@@ -118,7 +128,10 @@ def sliding_window_inference(volume, predictor: Callable, *,
         vol = vol.to(device)
     vol = vol.to(torch.float32).contiguous()
     d, h, w, _ = vol.shape
-    vol = sw_entry(vol, roi, compute_dtype)
+    if compute_dtype == torch.bfloat16:
+        vol = sw_entry(vol, roi, compute_dtype)
+    else:
+        vol = F.pad(vol, entry_pad_arg((d, h, w), roi)).to(compute_dtype)
     pd, ph, pw = vol.shape[:3]
     starts = [tuple(int(v) for v in s)
               for s in dense_patch_starts((pd, ph, pw), roi, overlap)]

@@ -26,10 +26,16 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fcd_tpu_torch"
-SOURCES = ("conv3d", "conv3d_wgrad", "upsample", "dsa", "spatial_attn",
-           "sw_io", "finale_head", "finale_bwd", "pool2x_bwd")
+SOURCES = ("conv3d", "conv3d_wgrad", "upsample", "dsa", "dsa_f32",
+           "spatial_attn", "sw_io", "finale_head", "finale_bwd",
+           "pool2x_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the end of a bf16-only kernel's refusal of another dtype
+BF16_ONLY = (": it takes bf16 only, as its Pallas counterpart does; a model "
+             "that computes in f32 takes the JAX package's f32 route, which "
+             "launches no such kernel (ROADMAP C18)")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}

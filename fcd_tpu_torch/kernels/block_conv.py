@@ -218,7 +218,8 @@ def conv3x3(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
     if x0.device.type != "cuda":
         raise ValueError(f"conv3x3: unsupported device {x0.device}")
     if x0.dtype != torch.bfloat16:
-        raise TypeError(f"conv3x3 kernel takes bf16 activations, got {x0.dtype}")
+        raise TypeError(f"conv3x3 kernel got {x0.dtype} activations"
+                        + _build.BF16_ONLY)
     if not all(x.is_contiguous() for x in parts):
         raise ValueError("conv3x3 kernel takes contiguous parts")
     if (all(x.shape[-1] % 8 == 0 for x in parts)

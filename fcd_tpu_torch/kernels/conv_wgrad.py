@@ -224,8 +224,8 @@ def conv3d_wgrad(x: torch.Tensor, g: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"conv3d_wgrad: unsupported device {x.device}")
     if x.dtype != torch.bfloat16 or g.dtype != torch.bfloat16:
-        raise TypeError(f"conv3d_wgrad kernel takes bf16 x and g, got "
-                        f"{x.dtype} and {g.dtype}")
+        raise TypeError(f"conv3d_wgrad kernel got {x.dtype} x and "
+                        f"{g.dtype} g" + _build.BF16_ONLY)
     if not (x.is_contiguous() and g.is_contiguous()):
         raise ValueError("conv3d_wgrad kernel takes contiguous x and g")
     if b * d * h * w >= 2 ** 31:

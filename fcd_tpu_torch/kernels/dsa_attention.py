@@ -369,15 +369,62 @@ def dsa_plan(n: int, c: int, p: int, heads: int, batch: int = 1) -> DsaPlan:
     return plan_for(n, c, p, heads, batch, tile, -(-tiles // want))
 
 
+# the f32 instances' tiles (csrc/dsa_f32.cu): f32 rows in shared memory
+TILES_F32 = (64, 32, 16)
+SMEM_F32 = 100 * 1024       # what an f32 block holds at most
+
+
+def smem_a_f32(c: int, ch: int, p: int, t: int) -> int:
+    """csrc/dsa_f32.cu::smem_a: the LayerNormed tile, q | k | v_sa and the
+    ef tile, f32."""
+    return 4 * (t * c + 3 * t * ch + t * p)
+
+
+def smem_b_f32(c: int, ch: int, p: int, t: int) -> int:
+    """csrc/dsa_f32.cu::smem_b: the tile, t, qn | v | the spatial output
+    and the scores, f32."""
+    return 4 * (t * c + 4 * t * ch + t * p)
+
+
+@functools.lru_cache(maxsize=None)
+def dsa_plan_f32(n: int, c: int, p: int, heads: int,
+                 batch: int = 1) -> DsaPlan:
+    """The f32 instances' plan, by `dsa_plan`'s rule: the largest tile of
+    TILES_F32 whose tiles give every SM a block and whose blocks stay
+    within SMEM_F32, else the smallest; phase A's blocks walk enough tiles
+    to come to about PHASE_A_BLOCKS. Raises ValueError on shapes the
+    kernels do not take (`supported`)."""
+    if not supported(c, p, heads) or n < 1 or batch < 1:
+        raise ValueError(
+            f"dsa f32 kernels: N={n} C={c} P={p} heads={heads} batch="
+            f"{batch} not supported (head width in {HEAD_WIDTHS}, P in "
+            f"{PROJECTIONS} or 0, C a power of two from 8 to {MAX_C})")
+    ch = c // heads
+
+    def fits(t):
+        return max(smem_a_f32(c, ch, p, t), smem_b_f32(c, ch, p, t)) \
+            <= SMEM_F32
+
+    tile = next((t for t in TILES_F32
+                 if -(-n // t) * heads * batch >= SMS and fits(t)),
+                TILES_F32[-1])
+    tiles = -(-n // tile)
+    want = min(tiles, -(-PHASE_A_BLOCKS // max(1, heads * batch)))
+    per_chunk = -(-tiles // want)
+    return DsaPlan(tile, tiles, per_chunk, -(-tiles // per_chunk), heads,
+                   batch, ch, p, smem_a_f32(c, ch, p, tile),
+                   smem_b_f32(c, ch, p, tile))
+
+
 # -- the wrappers ----------------------------------------------------------------
 
 _FNS = {}
 
 
-def _fn(name: str, argtypes):
+def _fn(name: str, argtypes, lib: str = "dsa"):
     fn = _FNS.get(name)
     if fn is None:
-        fn = getattr(_build.load("dsa"), name)
+        fn = getattr(_build.load(lib), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _FNS[name] = fn
@@ -402,14 +449,17 @@ def _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads,
 
 
 def _cuda_operands(what, x, named):
-    """The kernels read every operand as it lies: bf16 contiguous tokens,
-    and each (name, tensor, dtypes) on x's device, contiguous, 16-byte
-    aligned and of one of `dtypes`. Raises on anything else."""
+    """The kernels read every operand as it lies: bf16 (or, the f32
+    instances, f32) contiguous tokens, and each (name, tensor, dtypes) on
+    x's device, contiguous, 16-byte aligned and of one of `dtypes`. Raises
+    on anything else."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{what} kernel takes bf16 tokens, got {x.dtype}")
-    for name, t, dtypes in (("tokens", x, (torch.bfloat16,)), *named):
+    if x.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"{what} kernels take bf16 tokens (the kernel "
+                        f"route) or f32 tokens (the f32 route, ROADMAP "
+                        f"C18), got {x.dtype}")
+    for name, t, dtypes in (("tokens", x, (x.dtype,)), *named):
         if t is None:
             continue
         if t.device != x.device:
@@ -425,6 +475,28 @@ def _cuda_operands(what, x, named):
 
 _F32 = (torch.float32,)
 _F32_BF16 = (torch.float32, torch.bfloat16)
+
+
+def _phase_a_buffers(x, plan: DsaPlan, glue: bool):
+    """Phase A's f32 partial records and its outputs: the sums (PhaseA,
+    f32), or with the glue phase B's operands (PhaseBOperands: qnorm f32,
+    the rest in x's dtype)."""
+    b, _, c = x.shape
+    h, ch, p, dev = plan.heads, plan.ch, plan.p, x.device
+    part = torch.empty((plan.chunks, b, h, plan.record), dtype=torch.float32,
+                       device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    if not glue:
+        return part, PhaseA(torch.empty((b, h, ch, ch), **f32),
+                            torch.empty((b, c), **f32),
+                            torch.empty((b, c), **f32),
+                            torch.empty((b, c, p), **f32),
+                            torch.empty((b, c, p), **f32))
+    lo = dict(dtype=x.dtype, device=dev)
+    return part, PhaseBOperands(torch.empty((b, c), **f32),
+                                torch.empty((b, h, ch, ch), **lo),
+                                torch.empty((b, c, p), **lo),
+                                torch.empty((b, c, p), **lo))
 
 
 def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
@@ -453,6 +525,10 @@ def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
         return a if temperatures is None else dsa_glue(a, *temperatures, h,
                                                        x.dtype)
     t1, t2 = (None, None) if temperatures is None else temperatures
+    if x.dtype == torch.float32:
+        return _dsa_phase_a_f32(x, w_qkvv, ef, ln_scale, ln_bias,
+                                pos_embed, h, eps, temperatures, plan,
+                                sa_type)
     _cuda_operands("dsa_phase_a", x, (
         ("w_qkvv", w_qkvv, _F32_BF16), ("ef", ef, _F32_BF16),
         ("pos_embed", pos_embed, _F32), ("ln_scale", ln_scale, _F32),
@@ -462,21 +538,7 @@ def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
     plan = plan or dsa_plan(n, c, p, h, b)
     if plan.p != p:
         raise ValueError(f"dsa_phase_a: a plan for P={plan.p} given P={p}")
-    ch, dev = plan.ch, x.device
-    part = torch.empty((plan.chunks, b, h, plan.record), dtype=torch.float32,
-                       device=dev)
-    f32 = dict(dtype=torch.float32, device=dev)
-    if temperatures is None:
-        out = PhaseA(torch.empty((b, h, ch, ch), **f32),
-                     torch.empty((b, c), **f32), torch.empty((b, c), **f32),
-                     torch.empty((b, c, p), **f32),
-                     torch.empty((b, c, p), **f32))
-    else:
-        lo = dict(dtype=x.dtype, device=dev)
-        out = PhaseBOperands(torch.empty((b, c), **f32),
-                             torch.empty((b, h, ch, ch), **lo),
-                             torch.empty((b, c, p), **lo),
-                             torch.empty((b, c, p), **lo))
+    part, out = _phase_a_buffers(x, plan, temperatures is not None)
     vp_, ci = ctypes.c_void_p, ctypes.c_int
     fn = _fn("fcd_dsa_phase_a", [vp_] * 5 + [ci, ci, vp_, ci, vp_, ci]
              + [vp_] * 7 + [ci] * 8 + [ctypes.c_float, vp_])
@@ -519,6 +581,10 @@ def dsa_phase_b(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale, ln_bias,
         return dsa_phase_b_plain(x, w_qkvv, qnorm, abig, kpt, vp, gamma,
                                  ln_scale, ln_bias, pos_embed, h, eps,
                                  sa_type)
+    if x.dtype == torch.float32:
+        return _dsa_phase_b_f32(x, w_qkvv, qnorm, abig, kpt, vp, gamma,
+                                ln_scale, ln_bias, pos_embed, h, eps, plan,
+                                sa_type)
     bf = (torch.bfloat16,)
     _cuda_operands("dsa_phase_b", x, (
         ("w_qkvv", w_qkvv, _F32_BF16), ("pos_embed", pos_embed, _F32),
@@ -543,8 +609,79 @@ def dsa_phase_b(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale, ln_bias,
     return out
 
 
+def _dsa_phase_a_f32(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed,
+                     num_heads: int, eps: float = 1e-5, temperatures=None,
+                     plan: Optional[DsaPlan] = None,
+                     sa_type: str = "parallel"):
+    """`dsa_phase_a` on f32 CUDA tokens (csrc/dsa_f32.cu): the sums kernel
+    and the finishing pass, two launches and one count of its own. Every
+    operand f32; `plan` defaults to `dsa_plan_f32`'s."""
+    _cuda_operands("dsa_phase_a_f32", x, (
+        ("w_qkvv", w_qkvv, _F32), ("ef", ef, _F32),
+        ("pos_embed", pos_embed, _F32), ("ln_scale", ln_scale, _F32),
+        ("ln_bias", ln_bias, _F32)) + (() if temperatures is None else (
+            ("temperature", temperatures[0], _F32),
+            ("temperature2", temperatures[1], _F32))))
+    b, n, c = x.shape
+    h = num_heads
+    p = 0 if ef is None else ef.shape[1]
+    plan = plan or dsa_plan_f32(n, c, p, h, b)
+    if plan.p != p:
+        raise ValueError(f"dsa_phase_a_f32: a plan for P={plan.p} given "
+                         f"P={p}")
+    part, out = _phase_a_buffers(x, plan, temperatures is not None)
+    t1, t2 = (None, None) if temperatures is None else temperatures
+    vp_, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _fn("fcd_dsa_f32_phase_a", [vp_] * 5 + [ci, vp_, vp_, ci]
+             + [vp_] * 7 + [ci] * 8 + [ctypes.c_float, vp_], "dsa_f32")
+    ptr = _build.ptr
+    err = fn(ptr(x), ptr(pos_embed), ptr(ln_scale), ptr(ln_bias),
+             ptr(w_qkvv), mode_of(sa_type), ptr(ef), ptr(part),
+             int(temperatures is not None), ptr(t1), ptr(t2),
+             *(ptr(t) for t in out), *([ptr(None)] * (5 - len(out))),
+             b, n, c, p, h, plan.tile, plan.per_chunk, plan.chunks,
+             float(eps), _build.stream())
+    _build.check(err, "dsa_phase_a_f32")
+    _dsa_phase_a_f32.launches += 1
+    return out
+
+
+def _dsa_phase_b_f32(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale,
+                     ln_bias, pos_embed, num_heads: int, eps: float = 1e-5,
+                     plan: Optional[DsaPlan] = None,
+                     sa_type: str = "parallel") -> torch.Tensor:
+    """`dsa_phase_b` on f32 CUDA tokens (csrc/dsa_f32.cu): one launch, its
+    own count. Every operand f32; `plan` defaults to `dsa_plan_f32`'s."""
+    _cuda_operands("dsa_phase_b_f32", x, (
+        ("w_qkvv", w_qkvv, _F32), ("pos_embed", pos_embed, _F32),
+        ("ln_scale", ln_scale, _F32), ("ln_bias", ln_bias, _F32),
+        ("qnorm", qnorm, _F32), ("abig", abig, _F32), ("kpt", kpt, _F32),
+        ("vp", vp, _F32), ("gamma", gamma, _F32)))
+    b, n, c = x.shape
+    h = num_heads
+    p = kpt.shape[-1]
+    plan = plan or dsa_plan_f32(n, c, p, h, b)
+    if plan.p != p:
+        raise ValueError(f"dsa_phase_b_f32: a plan for P={plan.p} given "
+                         f"P={p}")
+    out = torch.empty_like(x)
+    vp_, ci = ctypes.c_void_p, ctypes.c_int
+    fn = _fn("fcd_dsa_f32_phase_b", [vp_] * 5 + [ci] + [vp_] * 6
+             + [ci] * 6 + [ctypes.c_float, vp_], "dsa_f32")
+    ptr = _build.ptr
+    err = fn(ptr(x), ptr(pos_embed), ptr(ln_scale), ptr(ln_bias),
+             ptr(w_qkvv), mode_of(sa_type), ptr(qnorm), ptr(abig), ptr(kpt),
+             ptr(vp), ptr(gamma), ptr(out), b, n, c, p, h, plan.tile,
+             float(eps), _build.stream())
+    _build.check(err, "dsa_phase_b_f32")
+    _dsa_phase_b_f32.launches += 1
+    return out
+
+
 dsa_phase_a.launches = 0
 dsa_phase_b.launches = 0
+_dsa_phase_a_f32.launches = 0
+_dsa_phase_b_f32.launches = 0
 
 
 def dsa_attention(x, w_qkvv, ef, temperature, temperature2, ln_scale,
@@ -553,7 +690,8 @@ def dsa_attention(x, w_qkvv, ef, temperature, temperature2, ln_scale,
                   sa_type: str = "parallel") -> torch.Tensor:
     """Eval DSA block on tokens (B, N, C): `t + gamma * DSA(LN(t))` with
     `t = x + pos_embed`. CPU: dsa_reference; CUDA: phase A with its
-    finishing pass, then phase B."""
+    finishing pass, then phase B (the bf16 or the f32 instances, by x's
+    dtype)."""
     if x.device.type == "cpu":
         return dsa_reference(x, w_qkvv, ef, temperature, temperature2,
                              ln_scale, ln_bias, pos_embed, gamma, num_heads,

@@ -251,7 +251,8 @@ def finale_bwd(ys: torch.Tensor, rs: torch.Tensor, s2: torch.Tensor,
         raise ValueError(f"finale_bwd: unsupported device {ys.device}")
     ts = (ys, rs, gp) + (() if gq is None else (gq,))
     if any(t.dtype != torch.bfloat16 for t in ts):
-        raise TypeError("finale_bwd kernel takes bf16 ys, rs, gp and gq")
+        raise TypeError("finale_bwd kernel got ys, rs, gp and gq in "
+                        f"{[str(t.dtype) for t in ts]}" + _build.BF16_ONLY)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("finale_bwd kernel takes contiguous tensors")
     aff = []

@@ -93,7 +93,8 @@ def finale_head(y2: torch.Tensor, r: torch.Tensor, s2: torch.Tensor,
     if y2.device.type != "cuda":
         raise ValueError(f"finale_head: unsupported device {y2.device}")
     if y2.dtype != torch.bfloat16 or r.dtype != torch.bfloat16:
-        raise TypeError("finale_head kernel takes bf16 y2 and r")
+        raise TypeError(f"finale_head kernel got {y2.dtype} y2 and {r.dtype} "
+                        "r" + _build.BF16_ONLY)
     out_dtype = out_dtype or y2.dtype
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"finale_head kernel writes bf16 or f32, not {out_dtype}")

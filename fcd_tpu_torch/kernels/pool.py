@@ -133,7 +133,8 @@ def finale_pool(y2: torch.Tensor, r: torch.Tensor, s2: torch.Tensor,
     if y2.device.type != "cuda":
         raise ValueError(f"finale_pool: unsupported device {y2.device}")
     if y2.dtype != torch.bfloat16 or r.dtype != torch.bfloat16:
-        raise TypeError("finale_pool kernel takes bf16 y2 and r")
+        raise TypeError(f"finale_pool kernel got {y2.dtype} y2 and {r.dtype} "
+                        "r" + _build.BF16_ONLY)
     if not (y2.is_contiguous() and r.is_contiguous()):
         raise ValueError("finale_pool kernel takes contiguous tensors")
     aff = [t.to(device=y2.device, dtype=torch.float32).contiguous()

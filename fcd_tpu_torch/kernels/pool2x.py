@@ -133,7 +133,8 @@ def _on_card(ts, what: str) -> None:
     if ts[0].device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {ts[0].device}")
     if any(t.dtype != torch.bfloat16 for t in ts):
-        raise TypeError(f"{what} kernel takes bf16 tensors")
+        raise TypeError(f"{what} kernel got "
+                        f"{[str(t.dtype) for t in ts]}" + _build.BF16_ONLY)
     if not all(t.is_contiguous() for t in ts):
         raise ValueError(f"{what} kernel takes contiguous tensors")
 

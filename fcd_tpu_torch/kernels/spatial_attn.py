@@ -21,8 +21,14 @@ mask. The JAX package draws from another stream (ROADMAP C2): parity with
 it holds at rate 0.
 
 CPU tensors take the plain PyTorch versions; CUDA tensors launch the
-kernels or raise. The kernels take bf16 tensors. `spatial_attn_plan`
-(pure Python) picks their tiles, chunks and head split; one K3 call is one
+kernels or raise. The kernels take bf16 tensors; f32 tensors (the f32
+route of a model that computes in f32, ROADMAP C18, where the JAX package
+runs `spatial_attn_train` in f32 and its bf16 roundings are no-ops) run
+the wide instances' f32 instantiation at every (C, P) of B5's set
+(`spatial_attn_fwd` and `_bwd` dispatch on the dtype to
+`_spatial_attn_fwd_f32` / `_bwd_f32`, counted apart and planned by
+`spatial_attn_plan_f32`). The plain versions serve both dtypes.
+`spatial_attn_plan` (pure Python) picks their tiles, chunks and head split; one K3 call is one
 launch, one K4 call two (the product kernel and its finishing pass, which
 adds the partial sums in a fixed order and writes dkpb and dvpb in the
 dtype the caller asks for).
@@ -192,20 +198,25 @@ def smem_bwd(c: int, hbp: int, t: int) -> int:
                 + 2 * t * _pitch(hbp))
 
 
-def smem_fwd_wide(c: int, p: int, t: int) -> int:
-    """A wide K3 block (csrc/spatial_attn.cu::wide_fwd_smem): the bf16 qn
-    tile, one head's C x P operand at pitch P + 2, the head's f32 scores."""
-    return 2 * t * c + 2 * c * (p + 2) + 4 * t * p
+def smem_fwd_wide(c: int, p: int, t: int, esize: int = 2,
+                  pb: Optional[int] = None) -> int:
+    """A wide K3 block (csrc/spatial_attn.cu::wide_fwd_smem): the qn tile,
+    pb columns (all P by default) of one head's C x P operand at pitch
+    pb + 2, the head's f32 scores; operands of `esize` bytes (2 bf16, 4
+    f32)."""
+    pb = p if pb is None else pb
+    return esize * t * c + esize * c * (pb + 2) + 4 * t * p
 
 
-def smem_bwd_wide(c: int, p: int, t: int, split: int) -> int:
-    """A wide K4 block (csrc/spatial_attn.cu::wide_bwd_smem): the bf16 qn
-    and g tiles, one head's C x P operand at pitch P + 2, s and da / ds
-    (t x P f32), a on its P / split columns, and those columns of kpb at
-    pitch P / split + 2."""
-    cs = p // split
-    return (4 * t * c + 2 * c * (p + 2) + 8 * t * p + 4 * t * cs
-            + 2 * c * (cs + 2))
+def smem_bwd_wide(c: int, p: int, t: int, split: int, esize: int = 2,
+                  pb: Optional[int] = None) -> int:
+    """A wide K4 block (csrc/spatial_attn.cu::wide_bwd_smem): the qn and g
+    tiles, pb columns of one head's C x P operand at pitch pb + 2, s and
+    da / ds (t x P f32), a on its P / split columns, and those columns of
+    kpb at pitch P / split + 2."""
+    cs, pb = p // split, p if pb is None else pb
+    return (2 * esize * t * c + esize * c * (pb + 2) + 8 * t * p
+            + 4 * t * cs + esize * c * (cs + 2))
 
 
 class SpattnPlan(NamedTuple):
@@ -230,6 +241,8 @@ class SpattnPlan(NamedTuple):
     smem_bwd: int
     wide: bool = False   # the wide instances (SHAPES_WIDE)
     col_split: int = 1   # wide K4: blocks each head's P columns split over
+    col_block: int = 0   # wide: a head's columns staged at a time (0: P)
+    f32: bool = False    # the f32 instances
 
     @property
     def units(self) -> int:
@@ -342,14 +355,19 @@ def spatial_attn_plan(n: int, c: int, p: int, heads: int,
 
 
 def wide_plan(n: int, c: int, p: int, heads: int,
-              batch: int = 1) -> SpattnPlan:
-    """The wide instances' plan at (C, P) in SHAPES_WIDE: tiles of
+              batch: int = 1, f32: bool = False) -> SpattnPlan:
+    """The wide instances' plan at (C, P) in SHAPES_WIDE (with f32, the f32
+    instances' at any (C, P) of WIDTHS x PROJECTIONS): tiles of
     wide_tile(C) tokens (a K3 block takes one; units of
     16 tokens, one column group), each head's P columns split over C P /
     WIDE_SUMS K4 blocks (at least 1), and K4 blocks along the tokens as
-    many as make about one wave, their partials within PART_BUDGET.
+    many as make about one wave, their partials within PART_BUDGET. The
+    bf16 instances stage a head's P columns at once; the f32 ones the most
+    of P, P / 2, P / 4, ... (at least 8) whose blocks fit shared memory.
     Raises ValueError on what they do not take."""
-    if (c, p) not in SHAPES_WIDE or heads < 1 or n < 1 or batch < 1:
+    ok = ((c in WIDTHS and p in PROJECTIONS) if f32
+          else (c, p) in SHAPES_WIDE)
+    if not ok or heads < 1 or n < 1 or batch < 1:
         raise ValueError(f"spatial_attn wide kernels: N={n} C={c} P={p} "
                          f"heads={heads} batch={batch} not supported")
     tok = wide_tile(c)
@@ -359,10 +377,29 @@ def wide_plan(n: int, c: int, p: int, heads: int,
     tiles = -(-n // tok)
     most = max(1, PART_BUDGET // (8 * batch * c * heads * p))
     chunks = max(1, min(SMS // (heads * split * batch), most, tiles))
-    sf, sb = smem_fwd_wide(c, p, tok), smem_bwd_wide(c, p, tok, split)
+    esize = 4 if f32 else 2
+    blocks = [p >> k for k in range(5) if p >> k >= 8] if f32 else [p]
+
+    def smem(pb):
+        return (smem_fwd_wide(c, p, tok, esize, pb),
+                smem_bwd_wide(c, p, tok, split, esize, pb))
+
+    pb = next((b for b in blocks if max(smem(b)) <= SMEM_CAP), None)
+    if pb is None:
+        raise ValueError(f"spatial_attn wide kernels: C={c} P={p} do not "
+                         f"fit shared memory")
+    sf, sb = smem(pb)
     return SpattnPlan(n, c, p, heads, batch, c, per_block,
                       -(-units // per_block), sf, tok, tiles, 1, chunks, sb,
-                      True, split)
+                      True, split, pb, f32)
+
+
+@functools.lru_cache(maxsize=None)
+def spatial_attn_plan_f32(n: int, c: int, p: int, heads: int,
+                          batch: int = 1) -> SpattnPlan:
+    """The f32 instances' plan (`wide_plan` with f32) at every (C, P) that
+    B5 takes."""
+    return wide_plan(n, c, p, heads, batch, f32=True)
 
 
 # -- the wrappers ----------------------------------------------------------------
@@ -384,11 +421,10 @@ def _fns():
                         ci, ci, ci, ci, ci, ci, ci, cu, cu, cf, ci, vp]
         bwd.restype = ci
         fwd_w = lib.fcd_spatial_attn_fwd_wide
-        fwd_w.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, cu, cu, cf,
-                          ci, vp]
+        fwd_w.argtypes = [vp, vp, vp, vp] + [ci] * 8 + [cu, cu, cf, ci, vp]
         fwd_w.restype = ci
         bwd_w = lib.fcd_spatial_attn_bwd_wide
-        bwd_w.argtypes = [vp] * 10 + [ci] * 10 + [cu, cu, cf, ci, vp]
+        bwd_w.argtypes = [vp] * 10 + [ci] * 12 + [cu, cu, cf, ci, vp]
         bwd_w.restype = ci
         _FNS.update(fwd=fwd, bwd=bwd, fwd_wide=fwd_w, bwd_wide=bwd_w)
     return _FNS
@@ -424,10 +460,12 @@ def _check_plan(plan, qn, kpb, h):
             f"batch = {got}")
 
 
-def _kernel_args(qn, kpb, vpb, g=None):
+def _kernel_args(qn, kpb, vpb, g=None, dtype=torch.bfloat16):
     ts = (qn, kpb, vpb) + (() if g is None else (g,))
-    if any(t.dtype != torch.bfloat16 for t in ts):
-        raise TypeError("spatial_attn kernels take bf16 tensors")
+    if any(t.dtype != dtype for t in ts):
+        raise TypeError(f"spatial_attn kernels take {dtype} tensors here: "
+                        "bf16 (the kernel route) or f32 (the f32 route, "
+                        "ROADMAP C18), one dtype for all")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts):
         raise ValueError("spatial_attn kernels take contiguous, 16-byte "
                          "aligned tensors")
@@ -443,17 +481,15 @@ def spatial_attn_fwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
         _check_plan(plan, qn, kpb, h)
     if qn.device.type == "cpu":
         return spatial_attn_fwd_plain(qn, kpb, vpb, h, key, rate)
+    if qn.dtype == torch.float32:
+        return _spatial_attn_fwd_f32(qn, kpb, vpb, h, key, rate, plan)
     _kernel_args(qn, kpb, vpb)
     b, n, c = qn.shape
     hp = kpb.shape[-1]
     plan = plan or spatial_attn_plan(n, c, hp // h, h, b)
     out = torch.empty_like(qn)
     if plan.wide:
-        err = _fns()["fwd_wide"](
-            _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(out),
-            b, n, c, hp, hp // h, plan.tile, key, keep_threshold(rate),
-            1.0 / (1.0 - rate), int(rate > 0.0), _build.stream())
-        _build.check(err, "spatial_attn_fwd")
+        _launch_fwd_wide(qn, kpb, vpb, out, h, key, rate, plan)
         spatial_attn_fwd.launches += 1
         return out
     err = _fns()["fwd"](
@@ -483,33 +519,19 @@ def spatial_attn_bwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
         dqn, dkpb, dvpb = spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key,
                                                  rate)
         return dqn, dkpb.to(dtypes[0]), dvpb.to(dtypes[1])
+    if qn.dtype == torch.float32:
+        return _spatial_attn_bwd_f32(qn, kpb, vpb, g, h, key, rate, dtypes,
+                                     plan)
     _kernel_args(qn, kpb, vpb, g)
-    if any(d not in _OUT_DTYPES for d in dtypes):
-        raise TypeError(f"spatial_attn_bwd writes dkpb and dvpb in f32 or "
-                        f"bf16, not {dtypes}")
     b, n, c = qn.shape
     hp = kpb.shape[-1]
     plan = plan or spatial_attn_plan(n, c, hp // h, h, b)
-    dev, f32 = qn.device, torch.float32
-    dqn = torch.empty_like(qn)
-    dk_part = torch.empty((plan.chunks, b, c, hp), dtype=f32, device=dev)
-    dv_part = torch.empty((plan.chunks, b, hp, c), dtype=f32, device=dev)
-    dq_part = (torch.empty((plan.dq_groups, b, n, c), dtype=f32, device=dev)
-               if plan.dq_groups else None)
-    dkpb = torch.empty((b, c, hp), dtype=dtypes[0], device=dev)
-    dvpb = torch.empty((b, hp, c), dtype=dtypes[1], device=dev)
     if plan.wide:
-        err = _fns()["bwd_wide"](
-            _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(g),
-            _build.ptr(dqn), _build.ptr(dq_part), _build.ptr(dk_part),
-            _build.ptr(dv_part), _build.ptr(dkpb), _build.ptr(dvpb),
-            int(dtypes[0] == torch.bfloat16), int(dtypes[1] == torch.bfloat16),
-            b, n, c, hp, hp // h, plan.tile, plan.chunks, plan.col_split, key,
-            keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
-            _build.stream())
-        _build.check(err, "spatial_attn_bwd")
+        out = _launch_bwd_wide(qn, kpb, vpb, g, h, key, rate, dtypes, plan)
         spatial_attn_bwd.launches += 1
-        return dqn, dkpb, dvpb
+        return out
+    dqn, dq_part, dk_part, dv_part, dkpb, dvpb = _bwd_buffers(qn, kpb, dtypes,
+                                                              plan)
     err = _fns()["bwd"](
         _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(g),
         _build.ptr(dqn), _build.ptr(dq_part), _build.ptr(dk_part),
@@ -523,8 +545,87 @@ def spatial_attn_bwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
     return dqn, dkpb, dvpb
 
 
+def _bwd_buffers(qn, kpb, dtypes, plan):
+    """dqn in qn's dtype, K4's f32 scratch (the chunks' dkpb and dvpb
+    partials, the groups' dqn partials) and dkpb, dvpb in `dtypes`."""
+    if any(d not in _OUT_DTYPES for d in dtypes):
+        raise TypeError(f"spatial_attn_bwd writes dkpb and dvpb in f32 or "
+                        f"bf16, not {dtypes}")
+    b, n, c = qn.shape
+    hp = kpb.shape[-1]
+    dev, f32 = qn.device, torch.float32
+    return (torch.empty_like(qn),
+            (torch.empty((plan.dq_groups, b, n, c), dtype=f32, device=dev)
+             if plan.dq_groups else None),
+            torch.empty((plan.chunks, b, c, hp), dtype=f32, device=dev),
+            torch.empty((plan.chunks, b, hp, c), dtype=f32, device=dev),
+            torch.empty((b, c, hp), dtype=dtypes[0], device=dev),
+            torch.empty((b, hp, c), dtype=dtypes[1], device=dev))
+
+
+def _launch_fwd_wide(qn, kpb, vpb, out, h, key, rate, plan):
+    b, n, c = qn.shape
+    hp = kpb.shape[-1]
+    err = _fns()["fwd_wide"](
+        _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(out),
+        b, n, c, hp, hp // h, plan.tile, plan.col_block or hp // h,
+        int(plan.f32), key, keep_threshold(rate), 1.0 / (1.0 - rate),
+        int(rate > 0.0), _build.stream())
+    _build.check(err, "spatial_attn_fwd")
+
+
+def _launch_bwd_wide(qn, kpb, vpb, g, h, key, rate, dtypes, plan):
+    b, n, c = qn.shape
+    hp = kpb.shape[-1]
+    dqn, dq_part, dk_part, dv_part, dkpb, dvpb = _bwd_buffers(qn, kpb, dtypes,
+                                                              plan)
+    err = _fns()["bwd_wide"](
+        _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(g),
+        _build.ptr(dqn), _build.ptr(dq_part), _build.ptr(dk_part),
+        _build.ptr(dv_part), _build.ptr(dkpb), _build.ptr(dvpb),
+        int(dtypes[0] == torch.bfloat16), int(dtypes[1] == torch.bfloat16),
+        b, n, c, hp, hp // h, plan.tile, plan.chunks, plan.col_split,
+        plan.col_block or hp // h, int(plan.f32), key, keep_threshold(rate),
+        1.0 / (1.0 - rate), int(rate > 0.0), _build.stream())
+    _build.check(err, "spatial_attn_bwd")
+    return dqn, dkpb, dvpb
+
+
+def _f32_plan(qn, kpb, h, plan):
+    b, n, c = qn.shape
+    plan = plan or spatial_attn_plan_f32(n, c, kpb.shape[-1] // h, h, b)
+    if not plan.f32:
+        raise ValueError("spatial_attn f32 kernels take an f32 plan "
+                         "(spatial_attn_plan_f32)")
+    _check_plan(plan, qn, kpb, h)
+    return plan
+
+
+def _spatial_attn_fwd_f32(qn, kpb, vpb, h, key, rate, plan):
+    """K3 on f32 CUDA tensors (`spatial_attn_fwd` checked them): the wide
+    kernel's f32 instance, one launch and a count of its own."""
+    _kernel_args(qn, kpb, vpb, dtype=torch.float32)
+    plan = _f32_plan(qn, kpb, h, plan)
+    out = torch.empty_like(qn)
+    _launch_fwd_wide(qn, kpb, vpb, out, h, key, rate, plan)
+    _spatial_attn_fwd_f32.launches += 1
+    return out
+
+
+def _spatial_attn_bwd_f32(qn, kpb, vpb, g, h, key, rate, dtypes, plan):
+    """K4 on f32 CUDA tensors (`spatial_attn_bwd` checked them): the wide
+    kernel's f32 instance and the finishing pass, its own count."""
+    _kernel_args(qn, kpb, vpb, g, dtype=torch.float32)
+    plan = _f32_plan(qn, kpb, h, plan)
+    out = _launch_bwd_wide(qn, kpb, vpb, g, h, key, rate, dtypes, plan)
+    _spatial_attn_bwd_f32.launches += 1
+    return out
+
+
 spatial_attn_fwd.launches = 0
 spatial_attn_bwd.launches = 0
+_spatial_attn_fwd_f32.launches = 0
+_spatial_attn_bwd_f32.launches = 0
 
 
 class SpatialAttn(torch.autograd.Function):

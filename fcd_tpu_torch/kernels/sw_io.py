@@ -49,13 +49,16 @@ def entry_pad(shape: Sequence[int], roi: Sequence[int]) -> List[Tuple[int, int]]
     return out
 
 
+def entry_pad_arg(shape: Sequence[int], roi: Sequence[int]) -> List[int]:
+    """`entry_pad` as `F.pad`'s argument for a (D, H, W, C) volume."""
+    return [0, 0] + [v for pair in reversed(entry_pad(shape, roi))
+                     for v in pair]
+
+
 def sw_entry_plain(vol: torch.Tensor, roi: Sequence[int],
                    dtype: torch.dtype) -> torch.Tensor:
     """F.pad then the cast, as the engine did before the kernel."""
-    cfg = []
-    for before, after in reversed(entry_pad(vol.shape[:3], roi)):
-        cfg += [before, after]
-    return F.pad(vol, [0, 0] + cfg).to(dtype)
+    return F.pad(vol, entry_pad_arg(vol.shape[:3], roi)).to(dtype)
 
 
 _FNS = {}

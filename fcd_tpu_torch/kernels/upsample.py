@@ -32,10 +32,9 @@ import ctypes
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from fcd_tpu_torch.kernels import _build
-from fcd_tpu_torch.ops.layers import blocks_2x
+from fcd_tpu_torch.ops.layers import blocks_2x, conv_transpose3d
 
 REPLACES = "fcd_tpu/kernels/upsample.py:167"  # upsample_s2d_pad (pallas_call :216)
 
@@ -52,17 +51,11 @@ def upsample_matrix(kernel: torch.Tensor) -> torch.Tensor:
 
 def upsample2x_plain(x: torch.Tensor, kernel: torch.Tensor,
                      bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """F.conv_transpose3d with the flipped kernel (torch's transposed conv
-    flips the kernel, lax.conv_transpose does not), f32 arithmetic on the
-    activation-dtype inputs."""
-    dtype = x.dtype
-    w = torch.flip(kernel.to(dtype).float(), dims=(0, 1, 2))
-    out = F.conv_transpose3d(x.float().permute(0, 4, 1, 2, 3),
-                             w.permute(3, 4, 0, 1, 2), stride=2)
-    out = out.permute(0, 2, 3, 4, 1)
-    if bias is not None:
-        out = out + bias.float()
-    return out.to(dtype).contiguous()
+    """`ops/layers.py::conv_transpose3d` (lax.conv_transpose's k2 s2) in
+    f32 arithmetic on the activation-dtype inputs, rounded to x's dtype."""
+    out = conv_transpose3d(x.float(), kernel.to(x.dtype).float(),
+                           None if bias is None else bias.float())
+    return out.to(x.dtype)
 
 
 # the kernel's block tiles, largest first: (WM, WN, NI) = warps along the
@@ -160,7 +153,8 @@ def upsample2x(x: torch.Tensor, kernel: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"upsample2x: unsupported device {x.device}")
     if x.dtype != torch.bfloat16:
-        raise TypeError(f"upsample2x kernel takes bf16 x, got {x.dtype}")
+        raise TypeError(f"upsample2x kernel got {x.dtype} x"
+                        + _build.BF16_ONLY)
     if not x.is_contiguous():
         raise ValueError("upsample2x kernel takes a contiguous x")
     for name, t in (("kernel", kernel), ("bias", bias)):

@@ -11,14 +11,20 @@ instance norm, dropout 0.1, `segresnet_upsample_mode`, blocks (1, 2, 2,
 2); VAE nz 256, std 0.3; DSA levels from len(blocks_down) - 2 with the
 configured projection, 4 heads, 3 layers, dropout 0.1). The JAX package's
 performance gates (`params['perf_flags']`, exported `FCD_*` variables)
-are resolved now and frozen into the model (`fcd_tpu_torch/flags.py`).
-The rest of the zoo (UNETR++, UNet, VNet, UNETR, SwinUNETR) is queued in
-ROADMAP.md.
+are resolved now and frozen into the model (`fcd_tpu_torch/flags.py`),
+and so is the route the compute type takes: a model built to compute in
+f32 on the card takes the JAX package's f32 route
+(`ops/layers.py::use_f32_route`, ROADMAP C18), one built for bf16 (or for
+the CPU, `compute_dtype` None) the kernel route. UNETR++ is built as
+`fcd_tpu/models/factory.py:180-197` builds it. The rest of the zoo
+(UNet, VNet, UNETR, SwinUNETR) is queued in ROADMAP.md.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
+
+import torch
 
 from fcd_tpu_torch import flags
 from fcd_tpu_torch.models.ms_dsa_net import (
@@ -32,8 +38,10 @@ from fcd_tpu_torch.models.segresnet_dsa import (
     SegResNet_DSA,
     SegResNetVAE_DSA,
 )
+from fcd_tpu_torch.models.unetr_pp import UNETR_PP
+from fcd_tpu_torch.ops.layers import use_f32_route
 
-_QUEUED = {"unetrpp", "unet", "vnet", "unetr", "swinunetr"}
+_QUEUED = {"unet", "vnet", "unetr", "swinunetr"}
 _VAE_MODELS = {"segresnetvae", "segresnetvae_dsa"}
 
 
@@ -76,6 +84,22 @@ def _build_baseunet(params: Dict[str, Any]) -> BaseUNet:
                     feature_size=params["feature_size"], depth=6)
 
 
+def _build_unetrpp(params: Dict[str, Any]) -> UNETR_PP:
+    fs = params["feature_size"]
+    return UNETR_PP(
+        out_channels=params["chans_out"],
+        in_channels=params["chans_in"],
+        feature_size=fs,
+        num_heads=4,
+        depths=(3, 3, 3, 3),
+        dims=(fs * 2, fs * 4, fs * 8, fs * 16),  # (32, 64, 128, 256) at fs 16
+        patch_size=_triple(params["patch_size"]),
+        norm_name="instance",
+        do_ds=False,
+        dropout_rate=0.1,
+    )
+
+
 def _segresnet_kwargs(params: Dict[str, Any], dsa: bool, vae: bool):
     deeper = params.get("segresnet_deeper", False)
     blocks_down = (1, 2, 2, 4, 4) if deeper else (1, 2, 2, 4)
@@ -102,6 +126,7 @@ _BUILDERS = {
     "ms_dsa_net": _build_ms_dsa_net,
     "ms_dsa_net_ps": _build_ms_dsa_net_ps,
     "baseunet": _build_baseunet,
+    "unetrpp": _build_unetrpp,
     "segresnet": lambda p: SegResNet(**_segresnet_kwargs(p, False, False)),
     "segresnetvae": lambda p: SegResNetVAE(**_segresnet_kwargs(p, False,
                                                                True)),
@@ -112,18 +137,27 @@ _BUILDERS = {
 }
 
 
-def get_model(params: Dict[str, Any], return_model: bool = True):
+def get_model(params: Dict[str, Any], return_model: bool = True,
+              compute_dtype: Optional[torch.dtype] = None):
     """Build the configured model; sets params['model_returns_vaeloss'] as
     the JAX factory does. Returns (model, params), with model None when
-    return_model is False (the JAX factory's signature, :270)."""
+    return_model is False (the JAX factory's signature, :270).
+    `compute_dtype` torch.float32 builds the f32 route into the model (the
+    trainer passes the card's compute type; None keeps the kernel route,
+    whose kernels' plain versions run on the CPU)."""
     model_type = params["model_type"].lower()
     params["model_returns_vaeloss"] = model_type in _VAE_MODELS
     if model_type in _QUEUED:
         raise NotImplementedError(
             f"model_type {params['model_type']!r} is not ported yet: the "
-            "port has MS_DSA_NET, MS_DSA_NET_PS, BaseUNet and the SegResNet "
-            "family; the rest of the model zoo is queued in ROADMAP.md")
+            "port has MS_DSA_NET, MS_DSA_NET_PS, BaseUNet, UNETR++ and the "
+            "SegResNet family; the rest of the model zoo is queued in "
+            "ROADMAP.md")
     if model_type not in _BUILDERS:
         raise ValueError(f"Unknown model_type: {params['model_type']}")
-    model = _BUILDERS[model_type](params) if return_model else None
+    if not return_model:
+        return None, params
+    model = _BUILDERS[model_type](params)
+    if compute_dtype == torch.float32:
+        use_f32_route(model)
     return model, params

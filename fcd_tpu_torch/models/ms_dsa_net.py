@@ -20,6 +20,12 @@ ties (`chain` keeps the pool in the finale, K2's chain split), and
 `fused_head` whether, at eval, the last decoder's finale and the 1x1 head
 run as one kernel (B15).
 
+On the f32 route (`ops/layers.py::use_f32_route`, ROADMAP C18) the
+blocks take their plain branch and every encoder pools with the
+`jnp.maximum` chain, as the JAX package does at f32
+(`fcd_tpu/models/ms_dsa_net.py:192-214`: no s2d level, `max_pool_2x` at
+every level); the head stays the 1x1 conv with bias (no B15).
+
 `model.train()` runs the training forward: batch statistics in
 the transformers' conv blocks, dropout (`dropout_rate` in the attention,
 0.1 on the conv branch's channels) drawn from `model.dropout_rng`, which
@@ -50,8 +56,8 @@ from fcd_tpu_torch.ops.blocks import (
 )
 from fcd_tpu_torch.ops.layers import (
     DropoutRng,
+    GroupNorm,
     conv1x1,
-    group_norm,
     kaiming_normal_fan_out_,
     max_pool_2x_chain,
 )
@@ -68,21 +74,15 @@ class PatchEmbed(nn.Module):
 
     def __init__(self, in_channels: int, out_channels: int, groups: int):
         super().__init__()
-        self.groups = groups
         self.kernel = nn.Parameter(torch.empty(in_channels, out_channels))
-        self.gn_scale = nn.Parameter(torch.ones(out_channels))
-        self.gn_bias = nn.Parameter(torch.zeros(out_channels))
+        self.gn = GroupNorm(out_channels, groups)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         kaiming_normal_fan_out_(self.kernel, generator)
-        with torch.no_grad():
-            self.gn_scale.fill_(1.0)
-            self.gn_bias.zero_()
+        self.gn.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        t = group_norm(conv1x1(x, self.kernel), self.groups, self.gn_scale,
-                       self.gn_bias)
-        return t.to(x.dtype)
+        return self.gn(conv1x1(x, self.kernel)).to(x.dtype)
 
 
 class MS_DSA_NET(nn.Module):
@@ -90,6 +90,8 @@ class MS_DSA_NET(nn.Module):
     img_size -> (B, D, H, W, out_channels) logits in compute_dtype. With
     an `upsample_mode`, the decoders are GeneralUnetrUpBlocks
     (MS_DSA_NET_PS); `fast` routes their pixelshuffle convs through B1."""
+
+    f32_route = False
 
     def __init__(self, out_channels: int, img_size: Sequence[int],
                  in_channels: int = 2, feature_size: int = 16,
@@ -187,7 +189,7 @@ class MS_DSA_NET(nn.Module):
         y4 = dec[1](y5, t4)
         y3 = dec[2](y4, t3)
         y2 = dec[3](y3, x2)
-        if self.fused_head and not self.training:
+        if self.fused_head and not self.training and not self.f32_route:
             return dec[4](y2, x1, head=(self.head, self.head_bias))
         y1 = dec[4](y2, x1)
         return conv1x1(y1, self.head, self.head_bias)

@@ -22,6 +22,11 @@ dense layers are convs and matmuls the JAX package leaves to XLA at its
 defaults: `F.conv3d` and `torch.matmul` here (`ops/layers.py`), B1 for
 the 3x3 stride-1 ones under FCD_FAST_CONV=1.
 
+On the f32 route (`ops/layers.py::use_f32_route`, ROADMAP C18) a
+ResBlock runs the JAX package's plain branch (:60-67: `instance_norm`,
+act, `F.conv3d`, twice, plus the identity), `fast` is not taken and the
+deconv upsample is `conv_transpose3d`: no B1 and no B4.
+
 The VAE's normal draw (B, vae_nz) comes from the model's
 `dropout_rng.generator` (a torch.Generator the trainer seeds), or from
 `vae_noise` where the caller hands it in (the parity tests feed JAX's).
@@ -43,6 +48,7 @@ from fcd_tpu_torch.ops.layers import (
     DropoutRng,
     UpSample,
     act_slope,
+    conv3d,
     instance_affine_from_sums,
     instance_norm,
     kaiming_normal_fan_out_,
@@ -55,10 +61,13 @@ class ResBlock(nn.Module):
     norm, act, conv, norm, act, conv, then the identity added; instance
     norm, the flax kernels conv1 / conv2 (3, 3, 3, C, C), no bias."""
 
+    f32_route = False
+
     def __init__(self, channels: int, act=("relu", {})):
         super().__init__()
         c = channels
         self.slope = act_slope(act)
+        self.act = make_act(act)
         self.conv1 = nn.Parameter(torch.empty(3, 3, 3, c, c))
         self.conv2 = nn.Parameter(torch.empty(3, 3, 3, c, c))
 
@@ -67,6 +76,9 @@ class ResBlock(nn.Module):
         kaiming_normal_fan_out_(self.conv2, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.f32_route:
+            y = conv3d(self.act(instance_norm(x)), self.conv1)
+            return conv3d(self.act(instance_norm(y)), self.conv2) + x
         x = x.contiguous()
         n = x.shape[1] * x.shape[2] * x.shape[3]
         xf = x.float()

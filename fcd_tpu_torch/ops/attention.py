@@ -16,7 +16,14 @@ the JAX package's train formulation `_dsa_tokens_resident`
 kernels K3/K4, with channel and spatial attention dropout, and
 ChannelDropout3d(0.1) drops whole channels. Every `sa_type` of the JAX
 package runs: 'parallel' (the default), 'serial', 'spatial' and
-'channel'; K3/K4 run for all but 'channel'.
+'channel'; K3/K4 run for all but 'channel'. `EPABlock` is UNETR++'s
+block, the same function at 'parallel'.
+
+The kernels take the tokens' dtype: bf16 tokens run B5's and K3/K4's
+bf16 instances, f32 tokens (the f32 route, ROADMAP C18) their f32
+instances, as the JAX package runs `dsa_fused` and `spatial_attn_train`
+in f32 when its model computes in f32. The conv residual block follows
+the model's route (`ops/blocks.py`).
 """
 
 from __future__ import annotations
@@ -224,3 +231,19 @@ class TransformerBlock(nn.Module):
         y = tokens.to(x.dtype).reshape(b, d, h, w, c)
         conv = self.dropout(self.conv_block([y]))
         return y + conv1x1(conv, self.conv8, self.conv8_bias)
+
+
+class EPABlock(TransformerBlock):
+    """UNETR++'s efficient paired-attention block
+    (`fcd_tpu/ops/attention.py::EPABlock`, :408-450): the DSA at sa_type
+    'parallel' with LayerNorm, pos-embed and gamma, then the batch-norm
+    conv residual on the attention output. That is `TransformerBlock`'s
+    function at 'parallel' (`_conv_residual_branch` serves both in the JAX
+    package); the class of its own names its weights EPABlock_i in the
+    weight table."""
+
+    def __init__(self, input_size: int, hidden_size: int, proj_size: int,
+                 num_heads: int = 4, dropout_rate: float = 0.0,
+                 rng: Optional[DropoutRng] = None, salt: int = 0):
+        super().__init__(input_size, hidden_size, proj_size, num_heads,
+                         "parallel", dropout_rate, rng, salt)

@@ -23,6 +23,16 @@ Instance norm takes its per-(b, c) affine from the kernel sums (var =
 E[x^2] - mean^2, clamped at 0). Batch norm takes its running statistics
 at eval; in train mode the batch statistics from the same sums summed over
 b, and it updates its running statistics (`ops/layers.py::BatchNorm`).
+
+On the f32 route (`ops/layers.py`, ROADMAP C18) the blocks run the plain
+branch of `fcd_tpu/ops/blocks.py:416-433` instead, where the JAX package
+runs it at f32: conv, norm, act, conv, norm, the projected shortcut
+(1x1 conv and norm) over the concatenated parts, act; library convs,
+`instance_norm` (var = mean((x - mean)^2), as `make_norm('instance')`) or
+`BatchNorm` itself, the 2x pool as the `jnp.maximum` chain
+(`max_pool_2x_chain`) and the decoders' upsample as `conv_transpose3d`.
+That route launches none of B1, B2, B3, B4 and B15 and their backward
+kernels.
 """
 
 from __future__ import annotations
@@ -31,6 +41,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from fcd_tpu_torch.kernels.block_conv import conv3x3_op
 from fcd_tpu_torch.kernels.finale import finale
@@ -40,8 +51,13 @@ from fcd_tpu_torch.kernels.upsample import upsample2x_op
 from fcd_tpu_torch.ops.layers import (
     BatchNorm,
     UpSample,
+    conv1x1,
+    conv3d,
+    conv_transpose3d,
     instance_affine_from_sums,
+    instance_norm,
     kaiming_normal_fan_out_,
+    max_pool_2x_chain,
 )
 
 NEGATIVE_SLOPE = 0.01  # leaky-ReLU of every MS_DSA_NET block
@@ -53,6 +69,8 @@ class UnetResBlock(nn.Module):
     Parameters keep the flax layouts: conv1 (3, 3, 3, Cin, Cout), conv2
     (3, 3, 3, Cout, Cout), conv3 (Cin, Cout) (the 1x1 shortcut, present
     when Cin != Cout)."""
+
+    f32_route = False
 
     def __init__(self, in_channels: int, out_channels: int,
                  norm_name: str = "instance"):
@@ -90,6 +108,26 @@ class UnetResBlock(nn.Module):
         w, sh = norm.affine()
         return w.expand(b, -1), sh.expand(b, -1)
 
+    def _plain(self, parts, pool: bool, head):
+        """The f32 route: `fcd_tpu/ops/blocks.py:416-433` on the parts'
+        concatenation."""
+        x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+
+        def norm(module, t):
+            return instance_norm(t) if module is None else module(t)
+
+        def act(t):
+            return F.leaky_relu(t, NEGATIVE_SLOPE)
+
+        out = act(norm(self.norm1, conv3d(x, self.conv1)))
+        out = norm(self.norm2, conv3d(out, self.conv2))
+        res = (x if self.conv3 is None
+               else norm(self.norm3, conv1x1(x, self.conv3)))
+        out = act(out + res)
+        if head is not None:
+            return conv1x1(out, head[0], head[1])
+        return (out, max_pool_2x_chain(out)) if pool else out
+
     def forward(self, parts: Sequence[torch.Tensor], pool: bool = False,
                 tie: str = "even", pool_in_finale: bool = True,
                 head: Optional[Tuple[torch.Tensor,
@@ -101,7 +139,8 @@ class UnetResBlock(nn.Module):
         pool_in_finale=False the pool runs in a pass of its own after the
         finale (B3 forward, B9 backward: the even split only). With
         head=(w, bias) the finale and the 1x1 head run as one kernel (B15,
-        eval) and the block returns the logits."""
+        eval) and the block returns the logits. On the f32 route the block
+        runs its plain branch and pools with the chain, whatever `tie`."""
         parts = list(parts)
         widths = [p.shape[-1] for p in parts]
         if sum(widths) != self.in_channels:
@@ -109,6 +148,8 @@ class UnetResBlock(nn.Module):
                              f"{self.in_channels} input channels")
         if len(parts) > 1 and self.conv3 is None:
             raise ValueError("a multi-part input needs the 1x1 shortcut")
+        if self.f32_route:
+            return self._plain(parts, pool, head)
         b = parts[0].shape[0]
         n = parts[0].shape[1] * parts[0].shape[2] * parts[0].shape[3]
         w1 = list(torch.split(self.conv1, widths, dim=3))
@@ -148,7 +189,11 @@ class UnetrBasicBlock(UnetResBlock):
 
 class UnetrUpBlock(nn.Module):
     """Transposed-conv (k2 s2, no bias) upsample through B4, then the res
-    block over [upsampled, skip] (the concat is never materialised)."""
+    block over [upsampled, skip] (the concat is never materialised). On
+    the f32 route: `conv_transpose3d`, then the block's plain branch over
+    the concatenation."""
+
+    f32_route = False
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
@@ -164,7 +209,9 @@ class UnetrUpBlock(nn.Module):
                 head=None) -> torch.Tensor:
         """head=(w, bias): the block's finale runs fused with the 1x1
         head (B15) and the block returns the logits."""
-        return self.block([upsample2x_op(x, self.transp), skip], head=head)
+        up = (conv_transpose3d(x, self.transp) if self.f32_route
+              else upsample2x_op(x, self.transp))
+        return self.block([up, skip], head=head)
 
 
 class GeneralUnetrUpBlock(nn.Module):

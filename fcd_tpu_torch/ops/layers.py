@@ -5,17 +5,30 @@ without bias), GroupNorm, LayerNorm, InstanceNorm, BatchNorm (train and
 eval), the instance-norm affine from kernel sums, the 2x max pool (torch's,
 and the `jnp.maximum` chain with its tie rule), inverted dropout with an
 explicit generator, the activations, and the model zoo's general layers:
-`Conv3d` (any odd kernel, stride 1 or 2, bias), `Dense` and `UpSample`
+`Conv3d` (any odd kernel, stride 1 or 2, bias; UNETR++'s k4 s4 stem),
+`ConvTranspose3d` (kernel == stride), `GroupNorm`, `Dense` and `UpSample`
 (pixelshuffle, deconv, nontrainable), plus the flax initialisers the
 port's seeded weights follow. The MS_DSA_NET blocks' 3x3x3 conv, the
-transposed conv, the finale and the attention live in
+k2 s2 upsample of the decoders, the finale and the attention live in
 `fcd_tpu_torch/kernels/`.
 
 The zoo's plain convs are the ones the JAX package leaves to XLA at its
-defaults (`FCD_FAST_CONV=0`): here `F.conv3d`. With `fast=True` (the
-model built under `FCD_FAST_CONV=1`) a 3x3 stride-1 `Conv3d` runs B1's
-kernel instead (`kernels/block_conv.py::conv3x3_op`, B14 by function),
-its bias added after.
+defaults (`FCD_FAST_CONV=0`): here `F.conv3d` and `F.conv_transpose3d`.
+With `fast=True` (the model built under `FCD_FAST_CONV=1`) a 3x3 stride-1
+`Conv3d` runs B1's kernel instead (`kernels/block_conv.py::conv3x3_op`,
+B14 by function), its bias added after.
+
+The f32 route (ROADMAP C18). The JAX package chooses its kernels by the
+compute type: at f32 its blocks take their plain branch (XLA convs,
+`make_norm`, the `jnp.maximum` pool chain), its `Conv3d` never takes the
+fast conv and its decoders upsample with `lax.conv_transpose`; only the
+eval DSA (B5) and the train spatial-attention tail (B10) stay Pallas
+kernels, dtype-generic. A module with an `f32_route` attribute has both
+branches; `use_f32_route(model)` sets the attribute on every such module
+of a model (the factory does it for a model built to compute in f32 on
+the card), and the model then runs the counterpart of the plain branch:
+library convs here, and the f32 instances of B5 and K3/K4 where the JAX
+package keeps its kernels.
 """
 
 from __future__ import annotations
@@ -28,12 +41,23 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 __all__ = [
-    "BatchNorm", "Conv3d", "Dense", "DropoutRng", "UpSample", "blocks_2x",
-    "conv1x1", "conv3d", "dropout", "group_norm", "instance_affine_from_sums",
+    "BatchNorm", "Conv3d", "ConvTranspose3d", "Dense", "DropoutRng",
+    "GroupNorm", "UpSample", "blocks_2x", "conv1x1", "conv3d",
+    "conv_transpose3d", "dropout", "group_norm", "instance_affine_from_sums",
     "instance_norm", "interpolate_trilinear", "kaiming_normal_fan_out_",
     "layer_norm", "make_act", "max_pool_2x", "max_pool_2x_chain",
-    "pad_pool_blur", "pixel_shuffle_3d", "unblocks_2x", "xavier_uniform_",
+    "pad_pool_blur", "pixel_shuffle_3d", "unblocks_2x", "use_f32_route",
+    "xavier_uniform_",
 ]
+
+
+def use_f32_route(model: nn.Module) -> nn.Module:
+    """Set `f32_route` on every module of `model` that has both branches
+    (the module docstring); returns the model."""
+    for m in model.modules():
+        if hasattr(type(m), "f32_route"):
+            m.f32_route = True
+    return model
 
 
 def conv1x1(x: torch.Tensor, kernel: torch.Tensor,
@@ -57,6 +81,25 @@ def group_norm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
            - mean.square()).clamp_min(0)
     y = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
     return y * scale.float() + bias.float()
+
+
+class GroupNorm(nn.Module):
+    """`fcd_tpu/ops/layers.py::GroupNorm` (flax nn.GroupNorm, eps 1e-5):
+    the affine `scale` and `bias`, `group_norm`'s f32 result."""
+
+    def __init__(self, channels: int, num_groups: int, eps: float = 1e-5):
+        super().__init__()
+        self.num_groups, self.eps = num_groups, eps
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return group_norm(x, self.num_groups, self.scale, self.bias, self.eps)
 
 
 def instance_affine_from_sums(s1: torch.Tensor, s2: torch.Tensor, n: int,
@@ -156,6 +199,21 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The norm of a (B, D, H, W, C) tensor itself (the plain branch of
+        the f32 route): the batch statistics in train mode (updating the
+        running ones), the running ones at eval; f32 math, x's dtype out."""
+        xf = x.float()
+        if self.training:
+            n = xf.numel() // xf.shape[-1]
+            flat = xf.reshape(-1, xf.shape[-1])
+            w, b = self.affine_from_sums(flat.sum(0)[None],
+                                         flat.square().sum(0)[None], n)
+            w, b = w[0], b[0]
+        else:
+            w, b = self.affine()
+        return (xf * w + b).to(x.dtype)
 
     def affine(self) -> Tuple[torch.Tensor, torch.Tensor]:
         """(w, b) with norm(x) = x * w + b from the running statistics,
@@ -279,7 +337,11 @@ def conv3d(x: torch.Tensor, kernel: torch.Tensor,
 
 class Conv3d(nn.Module):
     """The flax Conv3d's parameters (kernel (k, k, k, Cin, Cout), bias
-    (Cout,) when use_bias) and `conv3d`."""
+    (Cout,) when use_bias) and `conv3d`. On the f32 route `fast` is not
+    taken: the JAX package's fast conv takes bf16 only
+    (`fcd_tpu/ops/layers.py:291-295`)."""
+
+    f32_route = False
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, use_bias: bool = True,
@@ -299,7 +361,48 @@ class Conv3d(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3d(x, self.kernel, self.bias, self.stride, self.fast)
+        return conv3d(x, self.kernel, self.bias, self.stride,
+                      self.fast and not self.f32_route)
+
+
+def conv_transpose3d(x: torch.Tensor, kernel: torch.Tensor,
+                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`lax.conv_transpose` (VALID) of channels-last x with a flax (k, k,
+    k, Cin, Cout) kernel at stride k (`fcd_tpu/ops/layers.py::
+    ConvTranspose3d`, k == s): `F.conv_transpose3d` with the kernel
+    flipped (torch's transposed conv flips it, lax's does not), then the
+    bias, in x's dtype."""
+    k = kernel.shape[0]
+    w = torch.flip(kernel.to(x.dtype), dims=(0, 1, 2)).permute(3, 4, 0, 1, 2)
+    out = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w,
+                             stride=k).permute(0, 2, 3, 4, 1)
+    if bias is not None:
+        out = out + bias.to(out.dtype)
+    return out.contiguous()
+
+
+class ConvTranspose3d(nn.Module):
+    """The flax ConvTranspose3d's parameters (kernel (k, k, k, Cin, Cout),
+    bias when use_bias) at kernel == stride, and `conv_transpose3d`: the
+    JAX package leaves this upsample to XLA (UNETR++'s k2 s2 and k4 s4)."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 kernel_size: int = 2, use_bias: bool = True):
+        super().__init__()
+        k = kernel_size
+        self.kernel = nn.Parameter(torch.empty(k, k, k, in_channels,
+                                               out_channels))
+        self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
+                     else None)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        kaiming_normal_fan_out_(self.kernel, generator)
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_transpose3d(x, self.kernel, self.bias)
 
 
 class Dense(nn.Module):
@@ -365,10 +468,13 @@ class UpSample(nn.Module):
     - pixelshuffle: a 3x3 conv to 8 Cout (`conv`), `pixel_shuffle_3d`,
       then `pad_pool_blur`;
     - deconv: the k2 s2 transposed conv (`transp`), B4's kernel
-      (`kernels/upsample.py`), plus the bias;
+      (`kernels/upsample.py`), plus the bias; on the f32 route
+      `conv_transpose3d`;
     - nontrainable: `interpolate_trilinear`, then a 1x1 conv (`conv`)
       where the channels change.
     """
+
+    f32_route = False
 
     def __init__(self, in_channels: int, out_channels: int,
                  mode: str = "pixelshuffle", use_bias: bool = True,
@@ -401,6 +507,8 @@ class UpSample(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "pixelshuffle":
             return pad_pool_blur(pixel_shuffle_3d(self.conv(x), 2), 2)
+        if self.mode == "deconv" and self.f32_route:
+            return conv_transpose3d(x, self.transp, self.transp_bias)
         if self.mode == "deconv":
             from fcd_tpu_torch.kernels.upsample import upsample2x_op
 

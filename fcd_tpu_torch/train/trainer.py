@@ -32,15 +32,30 @@ engine's outputs are identical to the exact engine's (fcd_tpu/config.py:
 The compute type follows the JAX package's model factory
 (`fcd_tpu/models/factory.py:21-24`): f32 with `use_amp=False`, else
 `params['compute_dtype']` (bfloat16 by default); `compute_dtype_for`
-resolves it. On a CUDA device the kernels take bf16 only, so any other
-setting raises NotImplementedError when the trainer is built (ROADMAP
-C13); the model computes in bf16 there (f32 accumulation and f32 norm
-statistics in the kernels). On the CPU it computes in fp32 through the
-kernels' plain versions, whatever the setting.
+resolves it. On a CUDA device:
+
+- bfloat16 runs the kernel route (f32 accumulation and f32 norm
+  statistics in the kernels);
+- float32 (`use_amp=False`, or `compute_dtype='float32'`) runs the JAX
+  package's f32 route (ROADMAP C18, `ops/layers.py::use_f32_route`):
+  library convs where the JAX package leaves its convs to XLA at f32, and
+  the f32 instances of B5 and K3/K4 where it keeps its Pallas kernels.
+  The reference is IEEE f32, so such a trainer's forwards and train
+  steps run inside `ModelTrainer.ieee_f32`, which sets
+  `torch.backends.cudnn.allow_tf32 = False` and
+  `torch.backends.cuda.matmul.allow_tf32 = False` for their duration and
+  restores the caller's settings after (cuDNN's convs run in TF32 by
+  default);
+- float16 raises NotImplementedError when the trainer is built (ROADMAP
+  C20).
+
+On the CPU the model computes in fp32 through the kernels' plain
+versions, whatever the setting.
 """
 
 from __future__ import annotations
 
+import contextlib
 import importlib
 import importlib.util
 import os
@@ -92,22 +107,28 @@ def _get_wandb():
     return importlib.import_module("wandb")
 
 
+_CARD_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
 def compute_dtype_for(params: Dict[str, Any],
                       device: torch.device) -> torch.dtype:
     """The model's compute type on `device`: f32 on the CPU (the kernels'
     plain versions); on a CUDA device the JAX package's choice (f32 with
-    use_amp=False, else params['compute_dtype']), which must be bf16."""
+    use_amp=False, else params['compute_dtype']): bf16 (the kernel route)
+    or f32 (the f32 route, ROADMAP C18). float16 raises (ROADMAP C20)."""
     if device.type != "cuda":
         return torch.float32
     name = (str(params.get("compute_dtype", "bfloat16"))
             if params.get("use_amp", True) else "float32")
-    if name != "bfloat16":
+    if name not in _CARD_DTYPES:
         raise NotImplementedError(
             f"compute in {name} (use_amp={params.get('use_amp', True)}, "
             f"compute_dtype={params.get('compute_dtype', 'bfloat16')!r}) on "
-            "the card: its kernels take bf16 only (ROADMAP C13); set "
-            "use_amp=True and compute_dtype='bfloat16', or run on the CPU")
-    return torch.bfloat16
+            "the card: the port runs bf16 (the kernel route) and f32 (the "
+            "JAX package's f32 route, ROADMAP C18); float16 is queued as "
+            "ROADMAP C20. Set compute_dtype='bfloat16' or use_amp=False, "
+            "or run on the CPU")
+    return _CARD_DTYPES[name]
 
 
 def _triple(x):
@@ -128,7 +149,11 @@ class ModelTrainer:
         dev = resolve_device(None) if device is None else torch.device(device)
         self.compute_dtype = compute_dtype_for(self.params, dev)
         self.device = resolve_device(dev)
-        self.model, self.params = get_model(self.params)
+        card = self.device.type == "cuda"
+        # the f32 route holds to IEEE f32 (`ieee_f32`)
+        self._ieee = card and self.compute_dtype == torch.float32
+        self.model, self.params = get_model(
+            self.params, compute_dtype=self.compute_dtype if card else None)
         seed = int(self.params.get("seed", 42))
         gen = torch.Generator().manual_seed(seed)
         self.model.reset_parameters(gen)
@@ -199,7 +224,7 @@ class ModelTrainer:
              torch.as_tensor(thickness, dtype=torch.float32).to(self.device))
         seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
                                  generator=self._seed_gen))
-        with torch.enable_grad():   # also under a caller's no_grad
+        with torch.enable_grad(), self.ieee_f32():   # also under no_grad
             out = self._step_fn(x, y, lr, seed, t)
         self.step += 1
         if self._log_norms:
@@ -254,10 +279,27 @@ class ModelTrainer:
         epoch = int(raw.get("epoch", -1))
         return None if epoch < 0 else epoch
 
+    @contextlib.contextmanager
+    def ieee_f32(self):
+        """On the f32 route on the card, TF32 off in cuDNN's convs and in
+        matmuls for the block's duration (the flags are process-wide; the
+        caller's settings come back after it). Elsewhere a no-op."""
+        if not self._ieee:
+            yield
+            return
+        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+        saved = cudnn.allow_tf32, matmul.allow_tf32
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+        try:
+            yield
+        finally:
+            cudnn.allow_tf32, matmul.allow_tf32 = saved
+
     @torch.no_grad()
     def predict(self, patches: torch.Tensor) -> torch.Tensor:
         self.model.eval()
-        out = self.model(patches)
+        with self.ieee_f32():
+            out = self.model(patches)
         # a VAE model returns (logits, None) at eval (fcd_tpu make_eval_fn)
         return out[0] if self.params["model_returns_vaeloss"] else out
 

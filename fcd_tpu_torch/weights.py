@@ -16,6 +16,11 @@ Conv3d_0..3 + GroupNorm_0..3 (the patch embeds), TransformerBlock_{level *
 num_layers + k}, UnetrUpBlock_0..4 (decoders 5..1; MS_DSA_NET_PS:
 GeneralUnetrUpBlock_0..4, each UpSample_0 and UnetResBlock_0) and Conv3d_4
 (the head). BaseUNet: UnetrBasicBlock_0..5, UnetrUpBlock_0..4, Conv3d_0.
+UNETR++ (`fcd_tpu/models/unetr_pp.py`): Conv3d_0..3 and GroupNorm_0..3
+(the stem and the downsampling convs), EPABlock_0..11 (the encoder's
+stages), UnetResBlock_0 (the full-resolution block), ConvTranspose3d_0..2
+and EPABlock_12..20 (the decoders), ConvTranspose3d_3, UnetResBlock_1,
+Conv3d_4 (the head) and, with do_ds, Conv3d_5..6.
 The SegResNet family (`fcd_tpu/models/segresnet.py`, setup names):
 convInit, down_pre_i, down_blocks_i_j, transformer_levels_l_k,
 up_samples_i_0 (the 1x1 conv), up_samples_i_1 (UpSample), up_layers_i_j,
@@ -39,13 +44,14 @@ import torch
 
 from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET, BaseUNet
 from fcd_tpu_torch.models.segresnet import ResBlock, SegResNetCore
+from fcd_tpu_torch.models.unetr_pp import UNETR_PP
 from fcd_tpu_torch.ops.attention import TransformerBlock
 from fcd_tpu_torch.ops.blocks import (
     GeneralUnetrUpBlock,
     UnetResBlock,
     UnetrUpBlock,
 )
-from fcd_tpu_torch.ops.layers import Conv3d, Dense, UpSample
+from fcd_tpu_torch.ops.layers import Conv3d, Dense, GroupNorm, UpSample
 
 Tree = Mapping[str, Any]
 # (collection, path, tensor, is a 1x1 conv kernel)
@@ -81,6 +87,12 @@ def _conv_entries(conv: Conv3d, path) -> Iterator[Entry]:
     yield "params", path + ("kernel",), conv.kernel, False
     if conv.bias is not None:
         yield "params", path + ("bias",), conv.bias, False
+
+
+def _group_norm_entries(gn: GroupNorm, path) -> Iterator[Entry]:
+    path = path + ("GroupNorm_0",)   # fcd_tpu.GroupNorm wraps flax's
+    yield "params", path + ("scale",), gn.scale, False
+    yield "params", path + ("bias",), gn.bias, False
 
 
 def _dense_entries(dense: Dense, path) -> Iterator[Entry]:
@@ -156,9 +168,29 @@ def _baseunet_entries(model: BaseUNet) -> Iterator[Entry]:
     yield "params", ("Conv3d_0", "bias"), model.head_bias, False
 
 
+def _unetrpp_entries(model: UNETR_PP) -> Iterator[Entry]:
+    blocks = [blk for stage in (*model.stages, *model.up_stages)
+              for blk in stage]
+    for i, (down, gn) in enumerate(zip(model.downs, model.down_norms)):
+        yield from _conv_entries(down, (f"Conv3d_{i}",))
+        yield from _group_norm_entries(gn, (f"GroupNorm_{i}",))
+    for i, blk in enumerate(blocks):
+        yield from _transformer_entries(blk, (f"EPABlock_{i}",))
+    yield from _resblock_entries(model.conv_block, ("UnetResBlock_0",))
+    for i, up in enumerate((*model.up_convs, model.out_up)):
+        yield from _conv_entries(up, (f"ConvTranspose3d_{i}",))
+    yield from _resblock_entries(model.out_block, ("UnetResBlock_1",))
+    heads = [model.head] + list(model.ds_heads or ())
+    for i, head in enumerate(heads, start=4):
+        yield from _conv_entries(head, (f"Conv3d_{i}",))
+
+
 def model_entries(model) -> Iterator[Entry]:
     """Every parameter and running statistic of a port model under its
     flax path."""
+    if isinstance(model, UNETR_PP):
+        yield from _unetrpp_entries(model)
+        return
     if isinstance(model, SegResNetCore):
         yield from _segresnet_entries(model)
         return
@@ -173,9 +205,7 @@ def model_entries(model) -> Iterator[Entry]:
     num_layers = len(model.transformers[0])
     for li, (emb, stack) in enumerate(zip(model.embeds, model.transformers)):
         yield "params", (f"Conv3d_{li}", "kernel"), emb.kernel, True
-        gn = (f"GroupNorm_{li}", "GroupNorm_0")  # fcd_tpu.GroupNorm wraps flax's
-        yield "params", gn + ("scale",), emb.gn_scale, False
-        yield "params", gn + ("bias",), emb.gn_bias, False
+        yield from _group_norm_entries(emb.gn, (f"GroupNorm_{li}",))
         for k, tb in enumerate(stack):
             yield from _transformer_entries(
                 tb, (f"TransformerBlock_{li * num_layers + k}",))

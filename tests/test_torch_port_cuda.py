@@ -1258,3 +1258,176 @@ def test_segresnet_dsa_patch_forward_on_the_card(dev):
     assert got.shape == want.shape and bool(torch.isfinite(got).all())
     assert _rel(got, want) < 0.05
     assert float((got.argmax(-1) == want.argmax(-1)).float().mean()) >= 0.99
+
+
+# -- C18: the f32 route (use_amp=False) ---------------------------------------
+
+# B5's and K3/K4's f32 instances against their plain versions: the same
+# function in f32 on both sides, sums taken in another order; chip_smoke.py
+# holds them to rel 1e-5 of max |out|
+F32_REL = 1e-5
+# (N, C, P): the four levels of a 128^3 patch at fs16, a ragged N, the
+# widest and narrowest heads, P 16 and 128, UNETR++'s levels
+DSA_F32_SHAPES = [(32768, 32, 64), (4096, 64, 64), (512, 128, 64),
+                  (64, 256, 32), (300, 32, 64), (64, 512, 32),
+                  (4096, 8, 16), (512, 256, 128), (4096, 64, 128)]
+
+
+def _f32_dsa_args(gen, dev, n, c, p, h, sa_type="parallel"):
+    from fcd_tpu_torch.kernels import dsa_attention as dk
+
+    a = _dsa_inputs(gen, dev, n, c, p, h)
+    ns = dk.num_slots(sa_type)
+    w = a["w"][:, :ns * c].contiguous()
+    ef = None if sa_type == "channel" else a["ef"]
+    return a["x"].float(), w, ef, a
+
+
+@pytest.mark.parametrize("sa_type", ["parallel", "serial", "spatial",
+                                     "channel"])
+@pytest.mark.parametrize("n,c,p", DSA_F32_SHAPES)
+def test_dsa_f32_kernels_match_plain(dev, n, c, p, sa_type):
+    """B5's f32 instances: phase A's sums, the finishing pass and phase B
+    against the plain versions at F32_REL, the whole op against the f32
+    reference, two calls bit-equal, counted apart from the bf16 kernels
+    (chip_smoke.py reads their three device kernels by profiler)."""
+    from fcd_tpu_torch.kernels import dsa_attention as dk
+
+    h = 4
+    gen = torch.Generator(device=dev).manual_seed(n + c + p)
+    x, w, ef, a = _f32_dsa_args(gen, dev, n, c, p, h, sa_type)
+    tok = (a["lns"], a["lnb"], a["pe"])
+    temps = (a["t1"], a["t2"])
+    mode = dict(sa_type=sa_type)
+    bf16_before = (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches)
+    before = (dk._dsa_phase_a_f32.launches, dk._dsa_phase_b_f32.launches)
+    ka = dk.dsa_phase_a(x, w, ef, *tok, h, **mode)
+    wa = dk.dsa_phase_a_plain(x, w, ef, *tok, h, **mode)
+    for name, g, w_ in zip(ka._fields, ka, wa):
+        if g.numel():
+            assert g.dtype == torch.float32 and _rel(g, w_) < F32_REL, name
+    glue = dk.dsa_phase_a(x, w, ef, *tok, h, temperatures=temps, **mode)
+    for name, g, w_ in zip(glue._fields, glue,
+                           dk.dsa_glue(wa, *temps, h, torch.float32)):
+        if g.numel():
+            assert g.dtype == torch.float32 and _rel(g, w_) < F32_REL, name
+    for g, w_ in zip(glue, dk.dsa_phase_a(x, w, ef, *tok, h,
+                                          temperatures=temps, **mode)):
+        assert torch.equal(g, w_)
+    got = dk.dsa_phase_b(x, w, *glue, a["gamma"], *tok, h, **mode)
+    assert got.dtype == torch.float32
+    assert _rel(got, dk.dsa_phase_b_plain(x, w, *glue, a["gamma"], *tok, h,
+                                          **mode)) < F32_REL
+    assert torch.equal(got, dk.dsa_phase_b(x, w, *glue, a["gamma"], *tok,
+                                           h, **mode))
+    args = (x, w, ef, *temps, *tok, a["gamma"], h)
+    assert _rel(dk.dsa_attention(*args, **mode),
+                dk.dsa_reference(*args, **mode)) < F32_REL
+    assert (dk._dsa_phase_a_f32.launches, dk._dsa_phase_b_f32.launches) == (
+        before[0] + 4, before[1] + 3)
+    assert (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches) == bf16_before
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n,c,p", [(32768, 32, 64), (4096, 64, 64),
+                                   (512, 128, 64), (64, 256, 32),
+                                   (300, 8, 16), (512, 256, 128),
+                                   (64, 512, 128)])
+def test_spatial_attn_f32_kernels_match_plain(dev, n, c, p, rate):
+    """K3/K4's f32 instances (the wide kernels on f32 operands) against
+    the plain versions with the same dropout bits, two calls bit-equal,
+    dqn, dkpb and dvpb in f32, counted apart from the bf16 kernels
+    (chip_smoke.py reads their device kernels by profiler)."""
+    from fcd_tpu_torch.kernels import spatial_attn as sa
+
+    h = 4
+    gen = torch.Generator(device=dev).manual_seed(c * p + n)
+    qn, kpb, vpb, g = (t.float() for t in _spattn_inputs(gen, dev, n, c, h,
+                                                         p, batch=4))
+    key = sa.dropout_key(17, 3)
+    before = (sa._spatial_attn_fwd_f32.launches,
+              sa._spatial_attn_bwd_f32.launches, sa.spatial_attn_fwd.launches)
+    out = sa.spatial_attn_fwd(qn, kpb, vpb, h, key, rate)
+    assert out.dtype == torch.float32
+    assert torch.equal(out, sa.spatial_attn_fwd(qn, kpb, vpb, h, key, rate))
+    assert _rel(out, sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key,
+                                               rate)) < F32_REL
+    got = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, rate)
+    again = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, rate)
+    want = sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key, rate)
+    for name, g_, a_, w_ in zip(("dqn", "dkpb", "dvpb"), got, again, want):
+        assert torch.equal(g_, a_), name
+        assert g_.dtype == torch.float32 and _rel(g_, w_) < F32_REL, name
+    assert (sa._spatial_attn_fwd_f32.launches,
+            sa._spatial_attn_bwd_f32.launches,
+            sa.spatial_attn_fwd.launches) == (before[0] + 2, before[1] + 2,
+                                               before[2])
+
+
+def test_f32_route_conv_is_ieee_f32(dev):
+    """A trainer built with use_amp=False holds to IEEE f32 in its
+    `ieee_f32` scope and leaves the process's TF32 flags as they were:
+    inside it an f32-route conv (cuDNN) against an f64 conv stays under
+    1e-5 relative, which TF32's ~1e-3 would not."""
+    from fcd_tpu_torch.config import get_default_params
+    from fcd_tpu_torch.ops.layers import conv3d
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    params = get_default_params()
+    params.update(use_amp=False, patch_size=32, feature_size=4,
+                  project_size=16)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = _randn(gen, dev, 1, 32, 32, 32, 64)
+    k = _randn(gen, dev, 3, 3, 3, 64, 64, scale=0.05)
+    want = conv3d(x.double(), k.double())
+    cudnn.allow_tf32 = matmul.allow_tf32 = True
+    try:
+        trainer = ModelTrainer(params, device=dev, verbose=False)
+        assert cudnn.allow_tf32 and matmul.allow_tf32
+        with trainer.ieee_f32():
+            assert not (cudnn.allow_tf32 or matmul.allow_tf32)
+            got = conv3d(x, k)
+        assert cudnn.allow_tf32 and matmul.allow_tf32
+    finally:
+        cudnn.allow_tf32 = matmul.allow_tf32 = False
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("model_type", ["MS_DSA_NET", "unetrpp"])
+def test_f32_route_launches_no_bf16_kernel(dev, model_type):
+    """use_amp=False on the card: a patch forward and a train step launch
+    B5's and K3/K4's f32 instances and none of the bf16-only kernels, and
+    the patch matches the f32 CPU route of the same weights."""
+    import copy
+
+    from chip_smoke import counters, read_counts, reset_counts
+    from fcd_tpu_torch.config import get_default_params
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    params = get_default_params()
+    params.update(model_type=model_type, use_amp=False, patch_size=64)
+    tr = ModelTrainer(params, device=dev, verbose=False)
+    patch = torch.randn(1, 64, 64, 64, 2, generator=torch.Generator()
+                        .manual_seed(4))
+    reset_counts()
+    got = tr.predict(patch.to(dev)).float().cpu()
+    fwd = read_counts()
+    with torch.no_grad():
+        cpu = copy.deepcopy(tr.model).cpu().eval()
+        want = cpu(patch)
+    x = torch.rand(2, 64, 64, 64, 2, device=dev)
+    y = (torch.rand(2, 64, 64, 64, 1, device=dev) > 0.95).float()
+    reset_counts()
+    loss = float(tr.train_step(x, y, 1e-4))
+    step = read_counts()
+    tb = 12 if model_type == "MS_DSA_NET" else 21
+    f32 = {"dsa_phase_a_f32", "dsa_phase_b_f32", "spatial_attn_fwd_f32",
+           "spatial_attn_bwd_f32", "sw_exit"}
+    assert set(counters()) >= f32
+    assert {k: v for k, v in fwd.items() if v} == {
+        "dsa_phase_a_f32": tb, "dsa_phase_b_f32": tb}
+    assert {k: v for k, v in step.items() if v} == {
+        "spatial_attn_fwd_f32": tb, "spatial_attn_bwd_f32": tb}
+    assert torch.isfinite(torch.tensor(loss))
+    assert _rel(got, want) < 1e-4

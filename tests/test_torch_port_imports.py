@@ -41,7 +41,7 @@ def test_import_leaves_jax_and_triton_out():
               "train.state", "data.sampling", "data.dataset", "data.augment",
               "metrics", "metrics.voxel", "metrics.lesion",
               "metrics.surface_distance", "metrics.mc_tables",
-              "metrics._mc_tri_table", "cli.train"):
+              "metrics._mc_tri_table", "cli.train", "models.unetr_pp"):
         assert f"fcd_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

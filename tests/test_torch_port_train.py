@@ -34,6 +34,8 @@ variance formulas (two-pass in flax's instance norm, E[x^2] - mean^2 from
 the conv sums in the port), hence the tolerances.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -62,7 +64,7 @@ from fcd_tpu_torch.losses.combined import make_combined_loss
 from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET
 from fcd_tpu_torch.ops.attention import ChannelDropout3d, TransformerBlock
 from fcd_tpu_torch.ops.blocks import UnetResBlock, UnetrUpBlock
-from fcd_tpu_torch.ops.layers import BatchNorm, DropoutRng
+from fcd_tpu_torch.ops.layers import BatchNorm, DropoutRng, use_f32_route
 from fcd_tpu_torch.train.schedule import epoch_lr
 from fcd_tpu_torch.train.state import make_optimizer, make_train_step, set_lr
 from fcd_tpu_torch.train.trainer import ModelTrainer
@@ -372,8 +374,11 @@ def test_transformer_block_grads_match_jax(monkeypatch):
 IMG = (32, 64, 64)  # test_torch_port_model.py: level 6 is 1x2x2
 
 
-def test_ms_dsa_net_train_step_matches_jax(monkeypatch):
-    _identity_channel_dropout(monkeypatch)
+@functools.lru_cache(maxsize=1)
+def _slice_reference():
+    """The JAX side of the slice's train step, computed once for the two
+    slice tests below (each makes ChannelDropout3d the identity first):
+    (variables, x, y, lr, grads, the state after the step, the loss)."""
     rng = np.random.RandomState(5)
     jp = jax_default_params()
     jp.update(loss="DiceCELoss", chans_out=2)
@@ -404,14 +409,27 @@ def test_ms_dsa_net_train_step_matches_jax(monkeypatch):
         return grads, new_state, loss
 
     jgrads, jstate, jl = run(state, jnp.asarray(x), jnp.asarray(y))
+    return v, x, y, lr, jgrads, jstate, jl
 
-    params = get_default_params()
-    params.update(loss="DiceCELoss", chans_out=2)
+
+def _slice_model(f32_route=False):
+    """The port's MS_DSA_NET of the slice tests, dropout off (with
+    f32_route, the JAX package's f32 route, ROADMAP C18)."""
     tm = MS_DSA_NET(2, IMG, in_channels=2, feature_size=8, project_size=16,
                     num_layers=1, dropout_rate=0.0)
     for stack in tm.transformers:
         for blk in stack:
             blk.dropout.rate = 0.0
+    return use_f32_route(tm) if f32_route else tm
+
+
+def test_ms_dsa_net_train_step_matches_jax(monkeypatch):
+    _identity_channel_dropout(monkeypatch)
+    v, x, y, lr, jgrads, jstate, jl = _slice_reference()
+
+    params = get_default_params()
+    params.update(loss="DiceCELoss", chans_out=2)
+    tm = _slice_model()
     weights.load_flax_variables(tm, v)
     opt = make_optimizer(params, tm)
     step = make_train_step(tm, make_combined_loss(params), opt)
@@ -446,6 +464,44 @@ def test_ms_dsa_net_train_step_matches_jax(monkeypatch):
         assert (err <= 2.0 * lr + 1e-6 * np.abs(p0)).all()
         n_strict += int(strict.sum())
     assert n_strict > 0.3 * sum(l.size for l in jax.tree_util.tree_leaves(jg))
+
+
+def test_ms_dsa_net_f32_route_train_step_matches_jax(monkeypatch):
+    """C18: the same step on the f32 route (F.conv3d, make_norm, the
+    `jnp.maximum` pool chain, conv_transpose3d, and B5's and K3/K4's
+    plain versions in f32; none of the bf16-only kernels' entries is
+    called) against the same JAX step at dtype None: the loss (rel 1e-5),
+    every gradient (rel-L2 1e-2; 5e-4 for the head and the last decoder)
+    and the running statistics (1e-4), as the kernel route is held."""
+    import fcd_tpu_torch.kernels.block_conv as bc
+    import fcd_tpu_torch.ops.blocks as blocks
+
+    _identity_channel_dropout(monkeypatch)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the f32 route called a bf16-only kernel")
+
+    for mod, name in ((blocks, "conv3x3_op"), (blocks, "finale"),
+                      (blocks, "finale_head"), (blocks, "max_pool2x_op"),
+                      (blocks, "upsample2x_op"), (bc, "conv3x3_op")):
+        monkeypatch.setattr(mod, name, refuse)
+    v, x, y, lr, jgrads, jstate, jl = _slice_reference()
+    params = get_default_params()
+    params.update(loss="DiceCELoss", chans_out=2)
+    tm = _slice_model(f32_route=True)
+    weights.load_flax_variables(tm, v)
+    step = make_train_step(tm, make_combined_loss(params),
+                           make_optimizer(params, tm))
+    loss = step(torch.tensor(x), torch.tensor(y), lr)
+    assert abs(float(loss) - float(jl)) <= 1e-5 * abs(float(jl))
+    got = weights.export_flax_grads(tm)
+    jg = _numpy_tree(jgrads)
+    _compare_trees(got, jg, 1e-2, "grads")
+    _compare_trees({k: got[k] for k in ("Conv3d_4", "UnetrUpBlock_4")},
+                   {k: jg[k] for k in ("Conv3d_4", "UnetrUpBlock_4")}, 5e-4,
+                   "head and last decoder grads")
+    _compare_trees(weights.export_flax_variables(tm)["batch_stats"],
+                   _numpy_tree(jstate.batch_stats), 1e-4, "running stats")
 
 
 def test_model_trainer_train_step_lowers_the_loss():
