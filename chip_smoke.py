@@ -154,6 +154,10 @@ import time
 
 PEAK_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_F32 = 67e12      # H100 SXM f32 rate outside the tensor cores
+# H100 SXM dense TF32 tensor-core rate over the three products 3xTF32
+# takes for one f32 product (hi.hi + hi.lo + lo.hi): the f32 rate of the
+# kernels that multiply f32 on the tensor cores
+PEAK_3XTF32 = 495e12 / 3
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bandwidth
 SEED = 0
 
@@ -339,6 +343,34 @@ class Phase:
               f"{100 * share:.2f}%", flush=True)
 
 
+_SASS = {}
+
+
+def sass_of(lib: str) -> str:
+    """The SASS of library `lib` (cuobjdump -sass), dumped once a run."""
+    from fcd_tpu_torch.kernels import _build
+
+    if lib not in _SASS:
+        cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
+        path = _build.build_all([lib])[lib]
+        sass = subprocess.run([cuobjdump, "-sass", str(path)],
+                              capture_output=True, text=True, timeout=300)
+        if sass.returncode != 0:
+            raise AssertionError(f"cuobjdump failed: {sass.stderr.strip()}")
+        _SASS[lib] = sass.stdout
+    return _SASS[lib]
+
+
+def dump_sass(libs) -> None:
+    """sass_of for every library of `libs` at once, one cuobjdump each."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    libs = [lib for lib in dict.fromkeys(libs) if lib not in _SASS]
+    with ThreadPoolExecutor(max_workers=max(1, len(libs))) as pool:
+        for lib, text in zip(libs, pool.map(sass_of, libs)):
+            _SASS[lib] = text
+
+
 def build_report(name, kernels, args, instr) -> int:
     """One CUDA library's build on the card: each instance of `kernels`
     (one name or several; template arguments named `args`), with its
@@ -364,14 +396,8 @@ def build_report(name, kernels, args, instr) -> int:
         elif shown and ("spill" in line or "Used" in line
                         or "arning" in line):
             print(f"  ptxas {shown}: {line.strip()}")
-    lib = _build.build_all([name])[name]
-    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
-                          text=True, timeout=300)
-    if sass.returncode != 0:
-        raise AssertionError(f"cuobjdump failed: {sass.stderr.strip()}")
     n = sum(bool(re.search(rf"\b{instr}\b", line))
-            for line in sass.stdout.splitlines())
+            for line in sass_of(name).splitlines())
     print(f"{name} library: {n} {instr} instructions in its SASS "
           f"{'ok' if n else 'FAIL'}", flush=True)
     if n == 0:
@@ -566,7 +592,8 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel",
     phase launches (phase A with its finishing pass), the kernels alone
     and the wall per call beside it. dtype torch.float32: the f32
     instances (C18) on f32 tokens, held at F32_REL, their bound at the
-    f32 rate."""
+    f32 rate; torch.float16: the f16 instances (C20, libdsa_f16), held as
+    the bf16 ones."""
     import torch
 
     from fcd_tpu_torch.kernels import dsa_attention as dk
@@ -574,7 +601,8 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel",
     bf = torch.bfloat16 if dtype is None else dtype
     f32 = bf == torch.float32
     tol, tol_whole = (F32_REL, F32_REL) if f32 else (2e-2, 5e-2)
-    sfx, es = ("_f32", 4) if f32 else ("", 2)
+    sfx, es = {torch.float32: ("_f32", 4), torch.float16: ("_f16", 2)}.get(
+        bf, ("", 2))
     names = DSA_F32_KERNELS if f32 else DSA_KERNELS
     ns = dk.num_slots(sa_type)
     if sa_type == "channel":
@@ -687,12 +715,15 @@ DSA_F32_KERNELS = ("dsa_f32_phase_a_kernel", "dsa_f32_phase_a_finish",
 # the f32 instances (C18) against their plain versions: the same f32
 # function on both sides, its sums taken in another order
 F32_REL = 1e-5
-# K3's kernel, then K4's two, in launch order (bf16; the f32 instances)
+# K3's kernel, then K4's, in launch order: the 16-bit tensor-core
+# instances (two for K4), and the wide ones, which are also every f32
+# instance (three: the row blocks, the token sums, the finishing pass)
 SPATTN_KERNELS = ("spatial_attn_fwd_kernel", "spatial_attn_bwd_kernel",
                   "spatial_attn_bwd_finish")
-SPATTN_F32_KERNELS = ("spatial_attn_fwd_kernel_wide",
-                      "spatial_attn_bwd_kernel_wide",
-                      "spatial_attn_bwd_finish")
+SPATTN_WIDE_KERNELS = ("spatial_attn_fwd_kernel_wide",
+                       "spatial_attn_bwd_kernel_wide",
+                       "spatial_attn_bwd_sums_wide",
+                       "spatial_attn_bwd_finish")
 # the DSA levels of a 128^3 patch (fs16, 4 heads): (name, N, C, P)
 DSA_LEVELS = (("level3", 32768, 32, 64), ("level4", 4096, 64, 64),
               ("level5", 512, 128, 64), ("level6", 64, 256, 32))
@@ -1175,7 +1206,8 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
     kernels alone and the wall per call beside them. dtype torch.float32:
     the f32 instances (C18) on f32 operands, held at F32_REL, dkpb and
     dvpb in f32 as the train step asks, f32 SDPA as the library call,
-    the bound at the f32 rate."""
+    the bound at 3xTF32's rate (PEAK_3XTF32); torch.float16: the f16 instances (C20),
+    held as the bf16 ones, f16 SDPA as the library call."""
     import torch
     import torch.nn.functional as F
 
@@ -1183,8 +1215,8 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
 
     bf = torch.bfloat16 if dtype is None else dtype
     f32 = bf == torch.float32
-    tol, sfx, es = (F32_REL, "_f32", 4) if f32 else (2e-2, "", 2)
-    names = SPATTN_F32_KERNELS if f32 else SPATTN_KERNELS
+    tol, sfx, es = {torch.float32: (F32_REL, "_f32", 4),
+                    torch.float16: (2e-2, "_f16", 2)}.get(bf, (2e-2, "", 2))
     hp = h * p
     ch = c // h
     qn = _randn((batch, n, c), gen, dev, n ** -0.5, bf)
@@ -1198,6 +1230,7 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
     keep = sa.keep_mask(batch, n, hp, key, rate, dev).float().mean()
     plan = (sa.spatial_attn_plan_f32 if f32 else sa.spatial_attn_plan)(
         n, c, p, h, batch)
+    names = SPATTN_WIDE_KERNELS if plan.wide else SPATTN_KERNELS
     print(f"  spatial_attn {label}: keep fraction {float(keep):.5f} at rate "
           f"{rate}; K3 {plan.fwd_grid} blocks of {plan.per_block} units "
           f"(16 tokens x {plan.cols} columns), K4 split by {plan.split}, "
@@ -1208,7 +1241,7 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
     if abs(float(keep) - (1 - rate)) > 0.01 * (1 - rate):
         raise AssertionError(f"dropout keeps {float(keep)}, not {1 - rate}")
     mm = 2 * batch * n * c * hp
-    peak = PEAK_F32 if f32 else PEAK_FLOPS
+    peak = PEAK_3XTF32 if f32 else PEAK_FLOPS
     pf = Phase("spatial_attn_fwd" + sfx, label, 2 * mm,
                es * (2 * batch * n * c + 2 * batch * c * hp), peak)
     # as SpatialAttn.backward calls it: dkpb and dvpb in kpb's dtype
@@ -1226,13 +1259,12 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
 
     pf.check("out", fwd(), sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key,
                                                      rate), tol)
-    if f32:
-        check_repeatable(pf, [fwd()], [fwd()])
+    check_repeatable(pf, [fwd()], [fwd()])
     want = sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key, rate)
     # both stores of the finishing pass: bf16 (the main path's) and f32
     # (the wrapper's default); the f32 instances' main path is f32
     got = bwd()
-    kind = "f32" if f32 else "bf16"
+    kind = str(bf).replace("torch.", "")
     for name, g_, w_ in zip(("dqn", f"dkpb {kind}", f"dvpb {kind}"), got,
                             want):
         pb.check(name, g_, w_, tol)
@@ -1261,7 +1293,7 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
     k4 = kp.transpose(2, 3).to(bf)
     v4 = vp.transpose(2, 3).to(bf)
     g4 = g.reshape(batch, n, h, ch).transpose(1, 2)
-    kernel_keys = SPATTN_KERNELS[:2]   # the wide instances' names too
+    kernel_keys = ("spatial_attn_fwd", "spatial_attn_bwd")   # every kernel
     with torch.enable_grad():
         ins = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
         out = F.scaled_dot_product_attention(*ins, dropout_p=rate, scale=1.0)
@@ -1292,6 +1324,10 @@ def spatial_attn_phases(label, dev, gen, batch, n, c, p, h=4, rate=0.1,
             ph.library_ms = sum(device_times(library, iters).values())
             ph.library_call_ms = timed_ms(library, iters)
             ph.report()
+            if dev.type == "cuda":
+                print(f"  {ph.kernel} {label} by kernel: " + ", ".join(
+                    f"{k} {sum(v for n_, v in times.items() if k in n_):.4f}"
+                    f" ms" for k in names if any(k in n_ for n_ in times)))
         del out, ins
     return [pf, pb]
 
@@ -1314,6 +1350,32 @@ def spatial_attn_levels(dev, gen, small=False):
         b, n = (1, min(n, 512)) if small else (TRAIN_BATCH, n)
         out += spatial_attn_phases(f"{name} {b}xN={n} C={c} hP={4 * p}",
                                    dev, gen, b, n, c, p)
+    return out
+
+
+def dsa_f16_phases(dev, gen, small=False):
+    """B5's f16 instances (C20) at the four levels' shapes and at fs32 P128
+    level 5 (a wide head), batch 1, in 'parallel' (`small`: at most 512
+    tokens)."""
+    import torch
+
+    return [ph for name, n, c, p in DSA_LEVELS + DSA_WIDTHS[3:4]
+            for ph in dsa_phase(f"{name} f16 N={n} C={c} P={p}", dev, gen,
+                                min(n, 512) if small else n, c, p,
+                                dtype=torch.float16)]
+
+
+def spatial_attn_f16_levels(dev, gen, small=False):
+    """K3 and K4's f16 instances (C20) at the four levels' shapes and at
+    fs32 P128 level 5 (the wide instances), batch 4 (`small`: batch 1, at
+    most 512 tokens)."""
+    import torch
+
+    out = []
+    for name, n, c, p in DSA_LEVELS + C15_WIDTHS[2:]:
+        b, n = (1, min(n, 512)) if small else (TRAIN_BATCH, n)
+        out += spatial_attn_phases(f"{name} f16 {b}xN={n} C={c} hP={4 * p}",
+                                   dev, gen, b, n, c, p, dtype=torch.float16)
     return out
 
 
@@ -1376,9 +1438,11 @@ def kernel_phases(dev, gen, small: bool = False):
     ]
     phases += finale_bwd_phases(dev, gen, small)
     phases += spatial_attn_levels(dev, gen, small)
-    # the f32 route's kernels (C18)
+    # the f32 route's kernels (C18), and the f16 instances (C20)
     phases += dsa_f32_phases(dev, gen, small)
     phases += spatial_attn_f32_levels(dev, gen, small)
+    phases += dsa_f16_phases(dev, gen, small)
+    phases += spatial_attn_f16_levels(dev, gen, small)
     phases += sw_io_phases(dev, gen, s(*CLI_SHAPE), roi=8 if small else 128)
     # the gated paths' kernels (FCD_FINALE_POOL=0 / FCD_FINALE_TRAIN=0,
     # FCD_FUSED_HEAD=1)
@@ -1415,12 +1479,16 @@ def counters():
             "upsample2x": upsample.upsample2x,
             "dsa_phase_a": dsa_attention.dsa_phase_a,
             "dsa_phase_b": dsa_attention.dsa_phase_b,
-            "dsa_phase_a_f32": dsa_attention._dsa_phase_a_f32,
-            "dsa_phase_b_f32": dsa_attention._dsa_phase_b_f32,
+            "dsa_phase_a_f32": dsa_attention.PHASE_A_F32,
+            "dsa_phase_b_f32": dsa_attention.PHASE_B_F32,
+            "dsa_phase_a_f16": dsa_attention.PHASE_A_F16,
+            "dsa_phase_b_f16": dsa_attention.PHASE_B_F16,
             "spatial_attn_fwd": spatial_attn.spatial_attn_fwd,
             "spatial_attn_bwd": spatial_attn.spatial_attn_bwd,
-            "spatial_attn_fwd_f32": spatial_attn._spatial_attn_fwd_f32,
-            "spatial_attn_bwd_f32": spatial_attn._spatial_attn_bwd_f32,
+            "spatial_attn_fwd_f32": spatial_attn.FWD_F32,
+            "spatial_attn_bwd_f32": spatial_attn.BWD_F32,
+            "spatial_attn_fwd_f16": spatial_attn.FWD_F16,
+            "spatial_attn_bwd_f16": spatial_attn.BWD_F16,
             "sw_entry": sw_io.sw_entry, "sw_exit": sw_io.sw_exit,
             "max_pool2x": pool2x.max_pool2x,
             "max_pool2x_bwd": pool2x.max_pool2x_bwd,
@@ -1441,8 +1509,10 @@ def read_counts():
 PER_PATCH = {"conv3d": 46, "conv3d_wgrad": 0, "finale_pool": 23,
              "finale_bwd": 0, "upsample2x": 5, "dsa_phase_a": 12,
              "dsa_phase_b": 12, "dsa_phase_a_f32": 0, "dsa_phase_b_f32": 0,
+             "dsa_phase_a_f16": 0, "dsa_phase_b_f16": 0,
              "spatial_attn_fwd": 0, "spatial_attn_bwd": 0,
              "spatial_attn_fwd_f32": 0, "spatial_attn_bwd_f32": 0,
+             "spatial_attn_fwd_f16": 0, "spatial_attn_bwd_f16": 0,
              "sw_entry": 0, "sw_exit": 0, "max_pool2x": 0,
              "max_pool2x_bwd": 0, "finale_head": 0}
 # and per volume: the engine's entry and exit
@@ -1459,7 +1529,7 @@ def per_volume(n_patches: int, perf_flags=None, per_patch=None,
     """Launches of one sliding-window inference over n_patches patches
     under perf_flags (POOL_GATES, HEAD_GATES or the defaults), of
     MS_DSA_NET or of the model whose `per_patch` counts are given;
-    `entry` False: the f32 route's volume entry (a pad, no B17)."""
+    `entry` False: the volume entry of use_amp=False (a pad, no B17)."""
     patch = dict(PER_PATCH if per_patch is None else per_patch)
     if perf_flags == POOL_GATES:
         patch["max_pool2x"] = 2
@@ -1647,7 +1717,7 @@ def slice_run(dev, card, params=None, vol_shape=(182, 218, 182),
         raise AssertionError(f"logits {tuple(out.shape)} {out.dtype}: not "
                              "finite f32 of the volume's shape")
     want = per_volume(n_patches, per_patch=per_patch,
-                      entry=trainer.compute_dtype == torch.bfloat16)
+                      entry=trainer.entry_dtype == torch.bfloat16)
     print(f"  launches {launches} (expected {want}; per patch "
           f"{ {k: v for k, v in (per_patch or PER_PATCH).items() if v} })")
     if dev.type == "cuda" and launches != want:
@@ -1664,12 +1734,16 @@ def patch_check(dev, trainer, patch, label=""):
     fp32 CPU forward of the same weights; rel <= PATCH_REL_TOL and argmax
     agreement >= PATCH_ARGMAX_AGREE. A trainer that computes in f32 (the
     f32 route, C18) is held against the f32 route on the CPU (its model
-    copied, route and all) at F32_PATCH_REL_TOL and F32_ARGMAX_AGREE."""
+    copied, route and all) at F32_PATCH_REL_TOL and F32_ARGMAX_AGREE; one
+    that computes in f16 (C20) against the fp32 CPU forward at
+    F16_PATCH_REL_TOL and F16_ARGMAX_AGREE."""
     import torch
 
     f32 = trainer.compute_dtype == torch.float32
-    rel_tol = F32_PATCH_REL_TOL if f32 else PATCH_REL_TOL
-    agree_min = F32_ARGMAX_AGREE if f32 else PATCH_ARGMAX_AGREE
+    rel_tol, agree_min = {
+        torch.float32: (F32_PATCH_REL_TOL, F32_ARGMAX_AGREE),
+        torch.float16: (F16_PATCH_REL_TOL, F16_ARGMAX_AGREE)}.get(
+            trainer.compute_dtype, (PATCH_REL_TOL, PATCH_ARGMAX_AGREE))
     roi = tuple(patch.shape[1:4])
     with torch.no_grad():
         got = trainer.predict(patch.to(dev)).float().cpu()
@@ -1699,6 +1773,11 @@ def patch_check(dev, trainer, patch, label=""):
 # other orders through ~50 layers
 F32_PATCH_REL_TOL = 1e-4
 F32_ARGMAX_AGREE = 0.999
+# f16 activations (3 more mantissa bits than bf16) through the same ~50
+# layers against the fp32 forward: on an H100 this seeded patch measured
+# rel 3.504e-3 and argmax agreement 0.99983; ~3x margin on the error
+F16_PATCH_REL_TOL = 1e-2
+F16_ARGMAX_AGREE = 0.999
 
 
 # The fused head adds its f32 bias before one rounding, the default head
@@ -2760,7 +2839,7 @@ UNETRPP_F32_PATCH = dict({k: 0 for k in PER_PATCH}, dsa_phase_a_f32=21,
 
 def tf32_check(dev) -> None:
     """A use_amp=False trainer on the card holds to IEEE f32 inside its
-    `ieee_f32` scope, whatever the caller allows: with TF32 allowed around
+    `numerics` scope, whatever the caller allows: with TF32 allowed around
     it, building the trainer leaves the flags as they were, inside the
     scope both are off and an f32-route conv (cuDNN) stays within
     F32_CONV_REL_TOL of an f64 conv, and after it the flags are back. The
@@ -2780,14 +2859,14 @@ def tf32_check(dev) -> None:
         trainer = ModelTrainer(train_params(64, extra=F32_PARAMS),
                                device=dev, verbose=False)
         kept = tf32_flags() == (True, True)
-        with trainer.ieee_f32():
+        with trainer.numerics():
             off = tf32_flags() == (False, False)
             _, ieee = rel_err(conv3d(x, k), want)
         back = tf32_flags() == (True, True)
     ok = kept and off and back and ieee <= F32_CONV_REL_TOL
     print(f"tf32 check: with TF32 allowed, a use_amp=False trainer leaves "
           f"the flags {'ok' if kept else 'FAIL'}, turns them off in its "
-          f"ieee_f32 scope {'ok' if off else 'FAIL'} and restores them "
+          f"numerics scope {'ok' if off else 'FAIL'} and restores them "
           f"{'ok' if back else 'FAIL'}; conv 1x64^3x32 vs f64 in the scope: "
           f"rel {ieee:.3e} (tol {F32_CONV_REL_TOL}), with TF32 allowed "
           f"{tf32:.3e} {'ok' if ok else 'FAIL'}", flush=True)
@@ -2820,7 +2899,7 @@ def tf32_allowed():
 def f32_train_check(dev, extra=F32_PARAMS) -> None:
     """One 1 x 64^3 train step of the f32 route on the card against the f32
     route on the CPU from the same weights, dropout off, with TF32 allowed
-    around it (the trainer's `ieee_f32` scope is what holds it to f32):
+    around it (the trainer's `numerics` scope is what holds it to f32):
     the loss within F32_LOSS_REL_TOL, and each top-level module's gradient
     (rel-L2) within max(F32_GRAD_FLOOR, twice the CPU step's movement when
     the input moves by 1e-5 of itself). A control, the same step on the
@@ -2830,7 +2909,7 @@ def f32_train_check(dev, extra=F32_PARAMS) -> None:
     import numpy as np
     import torch
 
-    from fcd_tpu_torch.ops.layers import use_f32_route
+    from fcd_tpu_torch.ops.layers import use_plain_route
     from fcd_tpu_torch.train.trainer import ModelTrainer
     from fcd_tpu_torch.weights import model_entries
 
@@ -2840,12 +2919,12 @@ def f32_train_check(dev, extra=F32_PARAMS) -> None:
                 for d in (dev, "cpu", "cpu", dev)]
     redraw_attention(trainers[0].model, SEED + 3)
     for tr in trainers[1:3]:
-        use_f32_route(tr.model)
+        use_plain_route(tr.model)
     for tr in trainers[1:]:
         tr.model.load_state_dict(trainers[0].model.state_dict())
     for tr in trainers:
         dropout_off(tr.model)
-    trainers[3]._ieee = False   # the control: the same step in TF32
+    trainers[3]._numerics = {}   # the control: the same step in TF32
     x, y = train_batch(dev, 1, size, params["chans_in"])
     noise = torch.from_numpy(np.random.RandomState(SEED + 5).standard_normal(
         x.shape).astype(np.float32))
@@ -2994,39 +3073,148 @@ def unetrpp_run(dev, card) -> dict:
     return by_path
 
 
-def f32_sass_report() -> None:
-    """The f32 instances use no tensor-core instruction (so no TF32): no
-    HMMA or HGMMA in the SASS of libdsa_f32 or of spatial_attn's float
-    instances (`..._wide<float>`)."""
+# -- C20: compute_dtype='float16' on the card ----------------------------------
+
+F16_PARAMS = {"compute_dtype": "float16"}
+# the f16 route's launches: B5's f16 instances at eval, K3/K4's in
+# training, none of the bf16-only kernels; the volume enters through B17
+# in bf16 (the JAX trainer's use_amp entry) and leaves through sw_exit
+F16_PATCH = dict({k: 0 for k in PER_PATCH}, dsa_phase_a_f16=12,
+                 dsa_phase_b_f16=12)
+F16_STEP = dict({k: 0 for k in PER_PATCH}, spatial_attn_fwd_f16=12,
+                spatial_attn_bwd_f16=12)
+# the f16 1 x 64^3 step against the port's fp32 CPU step (the plain
+# route's branches in f32): the loss, measured on an H100 at rel 5.294e-5
+# (the bf16 step's 3.69e-4 is held at 1e-3); ~5x margin
+F16_LOSS_REL_TOL = 2.5e-4
+
+
+def f16_train_check(dev) -> None:
+    """One 1 x 64^3 train step of the f16 route on the card against the
+    same route's branches in f32 on the CPU from the same weights, dropout
+    off: the loss within F16_LOSS_REL_TOL, every gradient finite; each
+    top-level module's gradient distance (rel-L2) is printed."""
+    import torch
+
+    from fcd_tpu_torch.ops.layers import use_plain_route
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+    from fcd_tpu_torch.weights import model_entries
+
+    size = TRAIN_CHECK_SIZE
+    params = train_params(size, extra=F16_PARAMS)
+    trainers = [ModelTrainer(params, device=d, verbose=False)
+                for d in (dev, "cpu")]
+    redraw_attention(trainers[0].model, SEED + 3)
+    use_plain_route(trainers[1].model)
+    trainers[1].model.load_state_dict(trainers[0].model.state_dict())
+    for tr in trainers:
+        dropout_off(tr.model)
+    x, y = train_batch(dev, 1, size, params["chans_in"])
+    with torch.enable_grad():
+        card = float(trainers[0].train_step(x, y, 1e-4))
+        cpu = float(trainers[1].train_step(x.cpu(), y.cpu(), 1e-4))
+    groups = {}
+    for (_, key, g, _), (_, _, w, _) in zip(
+            *(model_entries(tr.model) for tr in trainers)):
+        if g.grad is None:
+            continue
+        bucket = groups.setdefault(key[0], ([], []))
+        bucket[0].append(g.grad.float().cpu().ravel())
+        bucket[1].append(w.grad.float().ravel())
+    rel_loss = abs(card - cpu) / abs(cpu)
+    ok = math.isfinite(card) and rel_loss <= F16_LOSS_REL_TOL
+    dists = {}
+    for key, (g, w) in groups.items():
+        g, w = torch.cat(g), torch.cat(w)
+        ok = ok and bool(torch.isfinite(g).all())
+        dists[key] = float((g - w).norm()) / max(float(w.norm()), 1e-30)
+    print(f"f16 train check ({params['model_type']}): 1x{size}^3 step, card "
+          f"f16 vs CPU fp32: loss {card:.6f} vs {cpu:.6f} rel "
+          f"{rel_loss:.3e} (tol {F16_LOSS_REL_TOL}); grads finite, rel-L2 "
+          f"per module, worst {max(dists.values()):.2e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    print("  " + ", ".join(f"{k} {v:.2e}" for k, v in dists.items()))
+    if not ok:
+        raise AssertionError("the card's f16 step disagrees with the fp32 "
+                             "CPU step")
+
+
+def f16_run(dev, card) -> dict:
+    """C20 through the entry points: ModelTrainer(compute_dtype='float16')
+    on the card, MS_DSA_NET fs16: inference of the seeded volume (launches:
+    B5's f16 instances x 12 a patch, one bf16 sw_entry and one sw_exit a
+    volume; one patch against the fp32 CPU forward), a patch forward's
+    profile, the 4 x 128^3 train step (K3/K4's f16 instances x 12; ms/step,
+    peak memory), its profile and the 1 x 64^3 step against the fp32 CPU
+    step. Returns {path: launch counts}."""
+    import torch
+
+    params = train_params(extra=F16_PARAMS)
+    launches, trainer, patch, vol, _ = slice_run(dev, card, params,
+                                                 per_patch=F16_PATCH)
+    by_path = {"f16 inference": launches}
+    del vol
+    x = patch.to(dev)
+    prof = profile_run(f"f16 route, one {tuple(patch.shape[1:4])} patch "
+                       "forward", lambda: trainer.predict(x), dev)
+    print_share(prof, "B5 f16 in the patch", ("dsa_phase_a", "dsa_phase_b"))
+    del trainer, x
+    torch.cuda.empty_cache()
+    by_path["f16 train"], trainer, batch = train_run(
+        dev, card, extra=F16_PARAMS, per_step=F16_STEP)
+    with torch.enable_grad():
+        prof = profile_run(f"f16 route, one train step, batch "
+                           f"{TRAIN_BATCH}x128^3",
+                           lambda: trainer.train_step(*batch), dev)
+    print_share(prof, "K3 + K4 f16 in the step", ("spatial_attn_fwd",
+                                                  "spatial_attn_bwd"))
+    del trainer, batch
+    torch.cuda.empty_cache()
+    f16_train_check(dev)
+    torch.cuda.empty_cache()
+    return by_path
+
+
+def _sass_functions(lib, pick) -> dict:
+    """{function: tensor-core instructions (HMMA, HGMMA, IMMA)} of the
+    functions of library `lib` that `pick` takes, from its SASS."""
     import re
 
-    from fcd_tpu_torch.kernels import _build
+    counts, fn = {}, None
+    for line in sass_of(lib).splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            if pick(fn):
+                counts.setdefault(fn, 0)
+        elif fn is not None and pick(fn) and re.search(
+                r"\b(HMMA|HGMMA|IMMA)\b", line):
+            counts[fn] += 1
+    return counts
 
-    cuobjdump = os.path.join(os.path.dirname(_build.nvcc()), "cuobjdump")
-    counts = {}
-    for lib, pick in (("dsa_f32", lambda f: True),
-                      ("spatial_attn", lambda f: "_wideIfE" in f)):
-        path = _build.build_all([lib])[lib]
-        sass = subprocess.run([cuobjdump, "-sass", str(path)],
-                              capture_output=True, text=True, timeout=300)
-        if sass.returncode != 0:
-            raise AssertionError(f"cuobjdump failed: {sass.stderr.strip()}")
-        fn = None
-        for line in sass.stdout.splitlines():
-            m = re.search(r"Function : (\S+)", line)
-            if m:
-                fn = m.group(1)
-                if pick(fn):
-                    counts.setdefault(fn, 0)
-            elif fn is not None and pick(fn) and re.search(
-                    r"\b(HMMA|HGMMA|IMMA)\b", line):
-                counts[fn] += 1
-    ok = len(counts) >= 5 and not any(counts.values())
-    print(f"f32 instances: {len(counts)} functions, tensor-core instructions "
-          f"{sum(counts.values())} (no TF32) {'ok' if ok else 'FAIL'}",
-          flush=True)
+
+def f32_sass_report() -> None:
+    """What runs on the tensor cores, from the SASS: B5's f32 instances
+    (libdsa_f32) on none (IEEE f32 on the CUDA cores); K3/K4's wide
+    instances, rebuilt on the tensor cores, on them in every instance:
+    the f32 ones (3xTF32, HMMA .tf32) in libspatial_attn, the bf16 and
+    f16 ones in libspatial_attn and libspatial_attn_f16 (HMMA m16n8k16).
+    Fails on a function that breaks its rule."""
+    dsa = _sass_functions("dsa_f32", lambda f: True)
+    wide = {}
+    for lib in ("spatial_attn", "spatial_attn_f16"):
+        wide.update({f"{lib}:{f}": n for f, n in _sass_functions(
+            lib, lambda f: "_wide" in f).items()})
+    f32 = {f: n for f, n in wide.items() if "_wideIf" in f}
+    ok = (len(dsa) >= 3 and not any(dsa.values()) and len(f32) >= 9
+          and len(wide) >= 27 and all(wide.values()))
+    print(f"f32 instances of B5: {len(dsa)} functions, tensor-core "
+          f"instructions {sum(dsa.values())} (IEEE f32 on the CUDA cores); "
+          f"K3/K4's wide instances: {len(wide)} functions ({len(f32)} f32, "
+          f"3xTF32), each with HMMA (fewest {min(wide.values() or [0])}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise AssertionError(f"f32 instances' SASS: {counts}")
+        raise AssertionError(f"SASS: B5 f32 {dsa}; K3/K4 wide {wide}")
 
 
 # TPU kernels whose function a kernel of the port computes (ROADMAP Queue
@@ -3081,6 +3269,11 @@ def kernels_json(phases, by_path):
                             b5.REPLACES_A),
         "dsa_phase_b_f32": ("cuda", "fcd_tpu_torch/csrc/dsa_f32.cu",
                             b5.REPLACES_B),
+        # csrc/dsa.cu built with -DFCD_F16 (libdsa_f16)
+        "dsa_phase_a_f16": ("cuda", "fcd_tpu_torch/csrc/dsa.cu",
+                            b5.REPLACES_A),
+        "dsa_phase_b_f16": ("cuda", "fcd_tpu_torch/csrc/dsa.cu",
+                            b5.REPLACES_B),
         "spatial_attn_fwd": ("cuda", "fcd_tpu_torch/csrc/spatial_attn.cu",
                              k34.REPLACES_FWD),
         "spatial_attn_bwd": ("cuda", "fcd_tpu_torch/csrc/spatial_attn.cu",
@@ -3088,6 +3281,11 @@ def kernels_json(phases, by_path):
         "spatial_attn_fwd_f32": ("cuda", "fcd_tpu_torch/csrc/spatial_attn.cu",
                                  k34.REPLACES_FWD),
         "spatial_attn_bwd_f32": ("cuda", "fcd_tpu_torch/csrc/spatial_attn.cu",
+                                 k34.REPLACES_BWD),
+        # csrc/spatial_attn.cu built with -DFCD_F16 (libspatial_attn_f16)
+        "spatial_attn_fwd_f16": ("cuda", "fcd_tpu_torch/csrc/spatial_attn.cu",
+                                 k34.REPLACES_FWD),
+        "spatial_attn_bwd_f16": ("cuda", "fcd_tpu_torch/csrc/spatial_attn.cu",
                                  k34.REPLACES_BWD),
         "sw_entry": ("cuda", "fcd_tpu_torch/csrc/sw_io.cu",
                      sw_io.REPLACES_ENTRY),
@@ -3145,6 +3343,9 @@ BUILD_REPORTS = {
     "dsa": ("dsa", DSA_KERNELS, ("ch", "p"), "HMMA"),
     "spatial_attn": ("spatial_attn", SPATTN_KERNELS, ("c", "p", "co|hb"),
                      "HMMA"),
+    "dsa_f16": ("dsa_f16", DSA_KERNELS, ("ch", "p"), "HMMA"),
+    "spatial_attn_f16": ("spatial_attn_f16", SPATTN_KERNELS,
+                         ("c", "p", "co|hb"), "HMMA"),
     # no products: their 16- and 8-byte loads instead
     "finale_bwd": ("finale_bwd", FINALE_BWD_KERNELS,
                    ("vec", "mode", "nt", "minb"), "LDG.E.128"),
@@ -3161,7 +3362,16 @@ ONLY_PHASES = {"upsample2x": upsample_phases, "sw_exit": sw_io_phases,
                "dsa_phase_a_f32": dsa_f32_phases,
                "dsa_phase_b_f32": dsa_f32_phases,
                "spatial_attn_fwd_f32": spatial_attn_f32_levels,
-               "spatial_attn_bwd_f32": spatial_attn_f32_levels}
+               "spatial_attn_bwd_f32": spatial_attn_f32_levels,
+               "dsa_phase_a_f16": dsa_f16_phases,
+               "dsa_phase_b_f16": dsa_f16_phases,
+               "spatial_attn_fwd_f16": spatial_attn_f16_levels,
+               "spatial_attn_bwd_f16": spatial_attn_f16_levels}
+
+
+def elapsed(t_start, what) -> None:
+    """The run's seconds so far, as a section starts."""
+    print(f"[{time.perf_counter() - t_start:.1f} s] {what}", flush=True)
 
 
 def kernels_only(dev, gen, names) -> int:
@@ -3203,6 +3413,7 @@ def main(argv=()) -> int:
     libs = _build.build_all()
     print(f"build: {len(libs)} CUDA libraries in {time.perf_counter() - t0:.1f}"
           f" s ({', '.join(p.name for p in libs.values())})", flush=True)
+    dump_sass([args[0] for args in BUILD_REPORTS.values()] + ["dsa_f32"])
     for args in BUILD_REPORTS.values():
         build_report(*args)
     f32_sass_report()
@@ -3211,8 +3422,10 @@ def main(argv=()) -> int:
     gen = torch.Generator(device=dev).manual_seed(SEED)
     if only:
         return kernels_only(dev, gen, only)
+    elapsed(t_start, "kernel phases")
     phases = kernel_phases(dev, gen)
     torch.cuda.empty_cache()
+    elapsed(t_start, "inference")
     launches, trainer, patch, vol, logits = slice_run(dev, card)
     by_path = {"inference": launches}
     by_path.update(gated_inference_run(dev, card, trainer, vol, logits))
@@ -3224,6 +3437,7 @@ def main(argv=()) -> int:
     print_share(prof, "B5 in the patch", ("dsa_phase_a", "dsa_phase_b"))
     del trainer, x
     torch.cuda.empty_cache()
+    elapsed(t_start, "train")
     by_path["train"], trainer, batch = train_run(dev, card)
     with torch.enable_grad():
         prof = profile_run(f"one train step, batch {TRAIN_BATCH}x128^3",
@@ -3262,19 +3476,28 @@ def main(argv=()) -> int:
     if defaults != {"pool_in_finale": (True, True), "fused_head": False,
                     "levels12_tie": "even"}:
         raise AssertionError(f"the default gates resolve to {defaults}")
+    elapsed(t_start, "cli")
     by_path["cli"] = cli_run(dev, card)
     torch.cuda.empty_cache()
+    elapsed(t_start, "augment")
     augment_phase(dev, gen)
     torch.cuda.empty_cache()
+    elapsed(t_start, "train_cli")
     by_path["train_cli"] = train_cli_run(dev, card)
     torch.cuda.empty_cache()
+    elapsed(t_start, "segresnet_dsa and zoo")
     by_path.update(segresnet_dsa_run(dev, card))
     for label, extra, counts in ZOO_RUNS:
         torch.cuda.empty_cache()
         by_path.update(zoo_run(dev, card, label, extra, counts))
     torch.cuda.empty_cache()
+    elapsed(t_start, "f32")
     by_path.update(f32_run(dev, card))
     torch.cuda.empty_cache()
+    elapsed(t_start, "f16")
+    by_path.update(f16_run(dev, card))
+    torch.cuda.empty_cache()
+    elapsed(t_start, "unetrpp")
     by_path.update(unetrpp_run(dev, card))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
           f"the result, the build included", flush=True)

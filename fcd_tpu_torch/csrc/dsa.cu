@@ -3,29 +3,33 @@
 //
 // Replaces fcd_tpu/kernels/dsa_attention.py::dsa_fused: its phase A
 // pallas_call (:243), the XLA glue between the phases (:277-300) and its
-// phase B pallas_call (:310). The function is dsa_fused's, 'parallel'
-// layout, with the fused pos-embed, LayerNorm and residual:
-//   t = x + pe (f32),  xln = bf16(LN(t) * ln_scale + ln_bias)
+// phase B pallas_call (:310). h16 is the build's 16-bit type: bf16, or
+// f16 in libdsa_f16, the same source built with -DFCD_F16 (csrc/h16.cuh;
+// a model that computes in f16, ROADMAP C20, rounds at the same points to
+// f16, as dsa_fused does at the model's dtype). The function is
+// dsa_fused's, 'parallel' layout, with the fused pos-embed, LayerNorm and
+// residual:
+//   t = x + pe (f32),  xln = h16(LN(t) * ln_scale + ln_bias)
 //   q, k, v_ca, v_sa = xln @ w[:, slot * C ...]   (slots 0..3 of the flax
-//                      (C, 4C) qkvv matrix; bf16 operands, f32 sums)
+//                      (C, 4C) qkvv matrix; h16 operands, f32 sums)
 // Head h owns the channels [h*ch, (h+1)*ch), ch = C / heads, and all of
 // the function is per head:
 //   phase A (sums over the tokens): qk_h = q_h^T k_h (ch x ch, f32 q, k),
-//     q2 = sum q^2, k2 = sum k^2, kp = bf16(k)^T ef, vp = bf16(v_sa)^T ef
+//     q2 = sum q^2, k2 = sum k^2, kp = h16(k)^T ef, vp = h16(v_sa)^T ef
 //   finishing pass: qnorm = rsqrt(q2 + 1e-12), knorm likewise,
-//     A_h = softmax_row(qk_h * qnorm * knorm * t1_h), abig_h = bf16(A_h^T),
-//     kpt = bf16(kp * t2_h), vp = bf16(vp)
-//   phase B (per token): qn = bf16(q * qnorm), out_ca = bf16(v_ca) abig_h,
-//     s = softmax_p(qn kpt_h), out_sa = bf16(s) vp_h^T,
-//     y = bf16(t + gamma * (out_ca + out_sa))
+//     A_h = softmax_row(qk_h * qnorm * knorm * t1_h), abig_h = h16(A_h^T),
+//     kpt = h16(kp * t2_h), vp = h16(vp)
+//   phase B (per token): qn = h16(q * qnorm), out_ca = h16(v_ca) abig_h,
+//     s = softmax_p(qn kpt_h), out_sa = h16(s) vp_h^T,
+//     y = h16(t + gamma * (out_ca + out_sa))
 // The rounding points are dsa_fused's; q and k enter q^T k, q2 and k2 in
 // f32, as the TPU kernel's f32 projections do.
 //
 // The other sa_types (Mode; dsa_fused's _phase_b_kernel, :121-181, slot
 // map :223) read a (C, 3C) qkvv matrix with slots q, k, v:
 //   'spatial': v_sa = v, and phase B computes out_sa alone;
-//   'serial':  v_sa = v; phase B rounds the head's spatial sum to bf16
-//              and multiplies it by abig_h: out = bf16(out_sa) abig_h;
+//   'serial':  v_sa = v; phase B rounds the head's spatial sum to h16
+//              and multiplies it by abig_h: out = h16(out_sa) abig_h;
 //   'channel': no EF and no P (the instances with P = 0): phase A sums
 //              q^T k, q2 and k2 alone (two staged slots), the finishing
 //              pass writes qnorm and abig, and phase B computes out_ca
@@ -34,8 +38,8 @@
 //              slots staged are the same for every mode.
 // A call is three launches in every mode.
 //
-// What bounds it (H100: 989 TFLOP/s bf16, 3.35 TB/s): per token each phase
-// reads ~6C bytes (bf16 x, f32 pos-embed) and does ~6C^2 + 4CP operations,
+// What bounds it (H100: 989 TFLOP/s h16, 3.35 TB/s): per token each phase
+// reads ~6C bytes (h16 x, f32 pos-embed) and does ~6C^2 + 4CP operations,
 // 30-250 operations a byte, under the card's ~295: the bytes. But the
 // levels are small (N = 64 .. 32768 tokens, C = 8 .. 512), so the bound
 // is 0.2-3 us and what costs is latency: too few blocks for 132 SMs, long
@@ -45,10 +49,10 @@
 //     token row (the LN is repeated per head, cheap), so phase A computes
 //     only the h diagonal ch x ch blocks of q^T k that the glue reads, and
 //     even the 64-token level launches 16 blocks of each phase.
-//   * Products on the tensor cores: mma.sync m16n8k16 (bf16 in, f32
+//   * Products on the tensor cores: mma.sync m16n8k16 (h16 in, f32
 //     accumulators) fed by ldmatrix, for the projections (tokens x C x ch,
-//     the head's weight columns staged once per block, f32 rounded to bf16
-//     on load), for kp | vp (ef^T [bf16(k) | bf16(v_sa)], the tokens as the
+//     the head's weight columns staged once per block, f32 rounded to h16
+//     on load), for kp | vp (ef^T [h16(k) | h16(v_sa)], the tokens as the
 //     k-dimension), and in phase B for the channel attention, the scores
 //     and s vp^T; the softmax over P runs on the accumulator fragments
 //     (quad shuffles), and they become the next product's operand in
@@ -76,25 +80,24 @@
 //     products; the per-head sums, the softmax and the stores read only the
 //     ch real columns. C = 8 pads the projections' depth with zero rows
 //     (weights) and columns (tokens) to 16.
-//   * ch = 128: a head's q | k | v_sa weights are C x 3ch bf16 (393 KB at
+//   * ch = 128: a head's q | k | v_sa weights are C x 3ch h16 (393 KB at
 //     C = 512), over the 227 KB a block may hold, and phase B's q | v_ca
 //     262 KB. Those blocks stream the weights over C in chunks of KW rows
 //     through a double buffer: the next chunk's loads are in flight while
 //     the tensor cores take this one, held in registers (where f32 weights
-//     are rounded to bf16, which cp.async cannot do) and stored into the
+//     are rounded to h16, which cp.async cannot do) and stored into the
 //     other buffer, one barrier a chunk. They take 16-token tiles: one
 //     m-tile, each warp a fixed run of the projection's n-tiles, its sums
 //     in registers across the chunks. Other widths stage their weights once
 //     a block, as before.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "h16.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr int NT = 256;            // threads of a phase A or B block
 constexpr int NW = NT / 32;
@@ -104,7 +107,7 @@ constexpr int KW = 32;             // weight rows (of C) a streamed chunk
 constexpr int STREAM_CH = 128;     // head widths that stream their weights
 constexpr float L2_EPS = 1e-12f;   // fcd_tpu/ops/attention.py::_l2_normalize
 
-// a bf16 row pitch of at least n elements: a multiple of 8 elements that
+// a h16 row pitch of at least n elements: a multiple of 8 elements that
 // is an odd multiple of 16 bytes, so the 8 rows an ldmatrix reads sit in
 // distinct banks (kernels/dsa_attention.py::_pitch)
 __host__ __device__ constexpr int pitch(int n) {
@@ -165,23 +168,8 @@ __device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
       : "memory");
 }
 
-// d[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulators
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// eight consecutive values of an f32 or bf16 array from element i
-// (i % 8 == 0, the array 16-byte aligned), as bf16
+// eight consecutive values of an f32 or h16 array from element i
+// (i % 8 == 0, the array 16-byte aligned), as h16
 __device__ __forceinline__ uint4 load8(const void* src, int f32, size_t i) {
   if (f32) {
     const float4* s =
@@ -190,22 +178,22 @@ __device__ __forceinline__ uint4 load8(const void* src, int f32, size_t i) {
     return make_uint4(pack2(lo.x, lo.y), pack2(lo.z, lo.w), pack2(hi.x, hi.y),
                       pack2(hi.z, hi.w));
   }
-  return *reinterpret_cast<const uint4*>(static_cast<const bf16*>(src) + i);
+  return *reinterpret_cast<const uint4*>(static_cast<const h16*>(src) + i);
 }
 
-// element i of an f32 or bf16 array, as bf16
-__device__ __forceinline__ bf16 load1(const void* src, int f32, size_t i) {
-  return f32 ? __float2bfloat16(static_cast<const float*>(src)[i])
-             : static_cast<const bf16*>(src)[i];
+// element i of an f32 or h16 array, as h16
+__device__ __forceinline__ h16 load1(const void* src, int f32, size_t i) {
+  return f32 ? to_h16(static_cast<const float*>(src)[i])
+             : static_cast<const h16*>(src)[i];
 }
 
 // what both phases read
 struct Tok {
-  const bf16* x;     // (B, N, C) raw tokens
+  const h16* x;     // (B, N, C) raw tokens
   const float* pe;   // (N, C) pos-embed, or null
   const float* lns;  // (C,) LayerNorm scale
   const float* lnb;  // (C,) LayerNorm bias
-  const void* w;     // the flax qkvv matrix (C, nslot C), f32 or bf16
+  const void* w;     // the flax qkvv matrix (C, nslot C), f32 or h16
   int w_f32;
   int nslot;         // 4 ('parallel') or 3 (the other modes)
   int N, C, heads, T;  // T tokens a tile
@@ -213,11 +201,11 @@ struct Tok {
 };
 
 // columns h*CH .. h*CH + CH of NS slots of the qkvv matrix (slot j's index
-// in the 4 bits j of `slots`), all C rows, as bf16 into Ws (pitch wp):
+// in the 4 bits j of `slots`), all C rows, as h16 into Ws (pitch wp):
 // slot j at column j*CHP, its columns CH .. CHP zero; rows C .. depth(C)
 // zero
 template <int CH, int NS>
-__device__ void stage_weights(const Tok& tk, int slots, int h, bf16* Ws,
+__device__ void stage_weights(const Tok& tk, int slots, int h, h16* Ws,
                               int wp) {
   constexpr int CHP = padded(CH);
   const int C = tk.C;
@@ -252,17 +240,17 @@ __device__ void stage_weights(const Tok& tk, int slots, int h, bf16* Ws,
           n < CH ? load1(tk.w, tk.w_f32,
                          (size_t)k * tk.nslot * C + ((slots >> (4 * j)) & 15) * C +
                              h * CH + n)
-                 : __float2bfloat16(0.f);
+                 : to_h16(0.f);
     }
   }
   for (int i = threadIdx.x; i < (depth(C) - C) * NS * CHP; i += NT) {
     const int k = i / (NS * CHP);
-    Ws[(C + k) * wp + i - k * (NS * CHP)] = __float2bfloat16(0.f);
+    Ws[(C + k) * wp + i - k * (NS * CHP)] = to_h16(0.f);
   }
 }
 
 // rows k0 .. k0 + KW of the head's columns of NS slots (streamed widths,
-// CH % 8 == 0), U 8-column vectors a thread, held in registers as bf16
+// CH % 8 == 0), U 8-column vectors a thread, held in registers as h16
 // between their loads and their store into one buffer of a double buffer
 template <int CH, int NS>
 struct WeightChunk {
@@ -284,7 +272,7 @@ struct WeightChunk {
     }
   }
 
-  __device__ __forceinline__ void store(bf16* Wb, int wp) const {
+  __device__ __forceinline__ void store(h16* Wb, int wp) const {
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const int i = threadIdx.x + u * NT;
@@ -294,13 +282,13 @@ struct WeightChunk {
   }
 };
 
-// (pos-embed +) LayerNorm of tokens n0 .. n0 + T of batch b into Xs (bf16,
+// (pos-embed +) LayerNorm of tokens n0 .. n0 + T of batch b into Xs (h16,
 // pitch xp), rows past N zero, columns C .. depth(C) zero. G = min(C / 8,
 // 32) lanes share a token, V = C / (8 G) runs of 8 channels each (16-byte
 // loads). With Bs, also t = x + pe of the head's channels c0 .. c0 + CH
 // into Bs (f32, pitch CH).
 template <int CH>
-__device__ void ln_tile(const Tok& tk, int b, int n0, bf16* Xs, int xp,
+__device__ void ln_tile(const Tok& tk, int b, int n0, h16* Xs, int xp,
                         float* Bs, int c0) {
   const int C = tk.C, G = C / 8 < 32 ? C / 8 : 32;  // lanes a token
   const int V = C / 8 / G;                          // runs a lane (1 or 2)
@@ -319,9 +307,9 @@ __device__ void ln_tile(const Tok& tk, int b, int n0, bf16* Xs, int xp,
       if (ok && r < V) {
         const uint4 raw = *reinterpret_cast<const uint4*>(
             tk.x + ((size_t)b * tk.N + n) * C + c);
-        const bf16* e = reinterpret_cast<const bf16*>(&raw);
+        const h16* e = reinterpret_cast<const h16*>(&raw);
 #pragma unroll
-        for (int i = 0; i < 8; ++i) v[r][i] = __bfloat162float(e[i]);
+        for (int i = 0; i < 8; ++i) v[r][i] = h16_to_f(e[i]);
         if (tk.pe != nullptr) {
           const float4* pe =
               reinterpret_cast<const float4*>(tk.pe + (size_t)n * C + c);
@@ -393,15 +381,15 @@ __device__ __forceinline__ void zero_acc(float (&acc)[NI][4]) {
 // one warp's D[16 x 8*NI] += Xs[m0 .. m0 + 16][kx .. kx + K) . Ws[0 ..
 // K)[n0 .. n0 + 8*NI), f32 accumulators (K % 16 == 0)
 template <int NI>
-__device__ __forceinline__ void proj_mma(const bf16* Xs, int xp, int kx,
-                                         const bf16* Ws, int wp, int K,
+__device__ __forceinline__ void proj_mma(const h16* Xs, int xp, int kx,
+                                         const h16* Ws, int wp, int K,
                                          int m0, int n0, float (&acc)[NI][4]) {
   const int lane = threadIdx.x & 31;
   for (int k0 = 0; k0 < K; k0 += 16) {
     uint32_t a[4];
     ldsm_x4(a, smem_u32(Xs + (m0 + (lane & 15)) * xp + kx + k0 +
                         (lane >> 4) * 8));
-    const bf16* wrow = Ws + (k0 + (lane & 15)) * wp + n0;
+    const h16* wrow = Ws + (k0 + (lane & 15)) * wp + n0;
 #pragma unroll
     for (int j = 0; j < NI; j += 2) {
       if (j + 1 < NI) {
@@ -426,7 +414,7 @@ __device__ __forceinline__ void proj_mma(const bf16* Xs, int xp, int kx,
 // and Wb free.
 template <int CH, int NS>
 __device__ void proj_streamed(const Tok& tk, int slots, int h,
-                              const bf16* Xs, int xp, bf16* Wb, int wp,
+                              const h16* Xs, int xp, h16* Wb, int wp,
                               float (&acc)[NS * CH / 8 / NW][4]) {
   constexpr int NTW = NS * CH / 8 / NW;
   static_assert(NS * CH / 8 % NW == 0, "n-tiles split evenly over warps");
@@ -454,7 +442,7 @@ enum Mode { PARALLEL = 0, SERIAL = 1, SPATIAL = 2, CHANNEL = 3 };
 struct ParamsA {
   Tok tk;
   int slots;       // q, k, v_sa: 0x310 ('parallel') or 0x210
-  const void* ef;  // (N, P) f32 or bf16; null at P = 0
+  const void* ef;  // (N, P) f32 or h16; null at P = 0
   int ef_f32;
   float* part;     // (chunks, B, heads, F) partial records
   int tiles, per_chunk;
@@ -468,7 +456,7 @@ struct ShapeA {
   static constexpr int NS = P > 0 ? 3 : 2;    // staged slots
   static constexpr int WP = pitch(NS * CHP);  // weights q | k (| v_sa)
   static constexpr int EP = pitch(P);        // ef tile
-  static constexpr int KP = pitch(2 * CHP);  // bf16(k) | bf16(v_sa)
+  static constexpr int KP = pitch(2 * CHP);  // h16(k) | h16(v_sa)
   static constexpr int QP = 2 * CHP + 2;     // f32 q | k
   static constexpr int NO = CH * CH + 2 * CH;  // qk, q2, k2: CUDA-core sums
   static constexpr int S = NT / NO > 1 ? NT / NO : 1;  // token slices
@@ -489,9 +477,9 @@ struct ShapeA {
 };
 
 // a projection's outputs (token rr, columns col, col + 1 of slot `slot`):
-// q and k in f32 into QK, bf16(k) and bf16(v_sa) into KVs
+// q and k in f32 into QK, h16(k) and h16(v_sa) into KVs
 template <int CHP>
-__device__ __forceinline__ void put_a(float* QK, int qp, bf16* KVs, int kp,
+__device__ __forceinline__ void put_a(float* QK, int qp, h16* KVs, int kp,
                                       int slot, int rr, int col, float a0,
                                       float a1) {
   if (slot == 0) {
@@ -514,10 +502,10 @@ __global__ void __launch_bounds__(NT) dsa_phase_a_kernel(const ParamsA p) {
   const int C = tk.C, T = tk.T, CK = depth(C), xp = pitch(CK);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // CK x WP staged weights, or the 2 x KW x WP double buffer
-  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Xs = Ws + (SA::STREAM ? 2 * KW : CK) * SA::WP;  // T x xp
-  bf16* Es = Xs + T * xp;                        // T x EP
-  bf16* KVs = Es + T * SA::EP;                   // T x KP
+  h16* Ws = reinterpret_cast<h16*>(smem_raw);
+  h16* Xs = Ws + (SA::STREAM ? 2 * KW : CK) * SA::WP;  // T x xp
+  h16* Es = Xs + T * xp;                        // T x EP
+  h16* KVs = Es + T * SA::EP;                   // T x KP
   float* QK = reinterpret_cast<float*>(KVs + T * SA::KP);  // T x QP
   float* red = QK + T * SA::QP;                  // S x NO
 
@@ -531,7 +519,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_a_kernel(const ParamsA p) {
   float sacc[SA::OPT];
 #pragma unroll
   for (int i = 0; i < SA::OPT; ++i) sacc[i] = 0.f;
-  // kp | vp: D[P x 2CHP] = ef^T [bf16(k) | bf16(v_sa)]; warp (wm, wn) owns
+  // kp | vp: D[P x 2CHP] = ef^T [h16(k) | h16(v_sa)]; warp (wm, wn) owns
   // rows wm*16 .. + 16 and n-tiles wn, wn + WNA, ...
   const int wm = warp % SA::WMA, wn = warp / SA::WMA;
   float kv[SA::NIA][4];
@@ -679,9 +667,9 @@ struct ParamsF {
   // kp, vp (B, C, P)
   float *qk, *q2, *k2, *kp, *vp;
   // glue == 1, phase B's operands: qnorm (B, C) f32, abig (B, heads, CH,
-  // CH), kpt, vpb (B, C, P) bf16
+  // CH), kpt, vpb (B, C, P) h16
   float* qnorm;
-  bf16 *abig, *kpt, *vpb;
+  h16 *abig, *kpt, *vpb;
 };
 
 // the records' value f added over the chunks, in chunk order; the loads
@@ -715,7 +703,7 @@ constexpr int SOFTMAX_COLS = 4;  // columns a lane in the finishing pass's
 // values over the chunks, with many loads in flight. Block 0 adds qk, q2
 // and k2 and (glue) does dsa_glue's steps with its rounding points; the
 // others add FT values each of kp | vp and write them (glue: kpt =
-// bf16(kp * t2), vp).
+// h16(kp * t2), vp).
 __global__ void __launch_bounds__(FT) dsa_phase_a_finish(const ParamsF p) {
   const int h = blockIdx.y, b = blockIdx.z, B = gridDim.z;
   const int CH = p.CH, P = p.P, C = p.C;
@@ -732,7 +720,7 @@ __global__ void __launch_bounds__(FT) dsa_phase_a_finish(const ParamsF p) {
     if (!p.glue)
       (is_vp ? p.vp : p.kp)[i] = s;
     else
-      (is_vp ? p.vpb : p.kpt)[i] = __float2bfloat16(is_vp ? s : s * p.t2[h]);
+      (is_vp ? p.vpb : p.kpt)[i] = to_h16(is_vp ? s : s * p.t2[h]);
     return;
   }
   extern __shared__ float sm[];  // NO sums, then qnorm and knorm (2 CH)
@@ -762,7 +750,7 @@ __global__ void __launch_bounds__(FT) dsa_phase_a_finish(const ParamsF p) {
   // l takes columns l, l + 32, ...
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float t1 = p.t1[h];
-  bf16* ab = p.abig + ((size_t)b * p.heads + h) * CH * CH;
+  h16* ab = p.abig + ((size_t)b * p.heads + h) * CH * CH;
   for (int r = warp; r < CH; r += FT / 32) {
     float v[SOFTMAX_COLS], mx = -INFINITY;
 #pragma unroll
@@ -782,7 +770,7 @@ __global__ void __launch_bounds__(FT) dsa_phase_a_finish(const ParamsF p) {
 #pragma unroll
     for (int i = 0; i < SOFTMAX_COLS; ++i) {
       const int c = lane + 32 * i;
-      if (c < CH) ab[c * CH + r] = __float2bfloat16(v[i] / sum);
+      if (c < CH) ab[c * CH + r] = to_h16(v[i] / sum);
     }
   }
 }
@@ -793,11 +781,11 @@ struct ParamsB {
   Tok tk;
   int mode;            // Mode
   const float* qnorm;  // (B, C)
-  const bf16* abig;    // (B, heads, CH, CH): out_ca[n, c] = sum_d v[n, d] abig[d, c]
-  const bf16* kpt;     // (B, C, P); null at P = 0
-  const bf16* vp;      // (B, C, P); null at P = 0
+  const h16* abig;    // (B, heads, CH, CH): out_ca[n, c] = sum_d v[n, d] abig[d, c]
+  const h16* kpt;     // (B, C, P); null at P = 0
+  const h16* vp;      // (B, C, P); null at P = 0
   const float* gamma;  // (C,)
-  bf16* out;           // (B, N, C)
+  h16* out;           // (B, N, C)
 };
 
 template <int CH, int P>
@@ -820,8 +808,8 @@ struct ShapeB {
 };
 
 // a projection's outputs (token rr, columns col, col + 1 of slot `slot`):
-// bf16(q * qnorm) into Qs, bf16(v_ca) into Vs
-__device__ __forceinline__ void put_b(bf16* Qs, bf16* Vs, int qp,
+// h16(q * qnorm) into Qs, h16(v_ca) into Vs
+__device__ __forceinline__ void put_b(h16* Qs, h16* Vs, int qp,
                                       const float* qn_s, int slot, int rr,
                                       int col, float a0, float a1) {
   if (slot == 0) {
@@ -843,13 +831,13 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
   const int n0 = blockIdx.x * T;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   // CK x WP staged weights, or the 2 x KW x WP double buffer
-  bf16* Ws = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Xs = Ws + (SB::STREAM ? 2 * KW : CK) * SB::WP;  // T x xp
-  bf16* Qs = Xs + T * xp;                        // T x QP: qn, then y
-  bf16* Vs = Qs + T * SB::QP;                    // T x QP: bf16(v_ca)
-  bf16* ABs = Vs + T * SB::QP;                   // KC x AP
-  bf16* KPs = ABs + KC * SB::AP;                 // KC x PP
-  bf16* VPs = KPs + KC * SB::PP;                 // CHP x PP
+  h16* Ws = reinterpret_cast<h16*>(smem_raw);
+  h16* Xs = Ws + (SB::STREAM ? 2 * KW : CK) * SB::WP;  // T x xp
+  h16* Qs = Xs + T * xp;                        // T x QP: qn, then y
+  h16* Vs = Qs + T * SB::QP;                    // T x QP: h16(v_ca)
+  h16* ABs = Vs + T * SB::QP;                   // KC x AP
+  h16* KPs = ABs + KC * SB::AP;                 // KC x PP
+  h16* VPs = KPs + KC * SB::PP;                 // CHP x PP
   float* Bs = reinterpret_cast<float*>(VPs + CHP * SB::PP);  // T x CH
   float* qn_s = Bs + T * CH;                     // CHP
   float* gm_s = qn_s + CHP;                      // CHP
@@ -860,7 +848,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
   ln_tile<CH>(tk, b, n0, Xs, xp, Bs, h * CH);
   const size_t hc = (size_t)b * C + h * CH;
   const uint4 zero = make_uint4(0, 0, 0, 0);
-  const bf16* abh = p.abig + ((size_t)b * tk.heads + h) * CH * CH;
+  const h16* abh = p.abig + ((size_t)b * tk.heads + h) * CH * CH;
   if constexpr (CH >= 8) {
     for (int v = tid; v < KC * (CH / 8); v += NT) {
       const int r = v / (CH / 8), c = (v - r * (CH / 8)) * 8;
@@ -871,7 +859,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
     for (int v = tid; v < KC * CHP; v += NT) {
       const int r = v / CHP, c = v - r * CHP;
       ABs[r * SB::AP + c] =
-          r < CH && c < CH ? abh[r * CH + c] : __float2bfloat16(0.f);
+          r < CH && c < CH ? abh[r * CH + c] : to_h16(0.f);
     }
   }
   for (int v = tid; v < KC * (P / 8); v += NT) {
@@ -938,13 +926,13 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
     const int aoff = (m0 + (lane & 15)) * SB::QP + (lane >> 4) * 8;
     float o[CHP / 8][4];
     zero_acc(o);
-    // channel attention: acc += bf16(V) . abig_h, V the warp's rows of Vs
+    // channel attention: acc += h16(V) . abig_h, V the warp's rows of Vs
     auto channel = [&](float (&acc)[CHP / 8][4]) {
 #pragma unroll
       for (int kk = 0; kk < KC / 16; ++kk) {
         uint32_t av[4];
         ldsm_x4(av, smem_u32(Vs + aoff + kk * 16));
-        const bf16* brow = ABs + (kk * 16 + (lane & 15)) * SB::AP;
+        const h16* brow = ABs + (kk * 16 + (lane & 15)) * SB::AP;
 #pragma unroll
         for (int j = 0; j < CHP / 8; j += 2) {
           if (j + 1 < CHP / 8) {
@@ -970,7 +958,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
         for (int kk = 0; kk < KC / 16; ++kk) {
           uint32_t aq[4];
           ldsm_x4(aq, smem_u32(Qs + aoff + kk * 16));
-          const bf16* brow = KPs + (kk * 16 + (lane & 15)) * SB::PP;
+          const h16* brow = KPs + (kk * 16 + (lane & 15)) * SB::PP;
 #pragma unroll
           for (int j = 0; j < P / 8; j += 2) {
             uint32_t bb[4];
@@ -1008,7 +996,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
           sum1 += __shfl_xor_sync(0xffffffffu, sum1, x);
         }
         const float inv0 = 1.f / sum0, inv1 = 1.f / sum1;
-        // o += bf16(softmax) . vp_h^T: the probabilities are the A operand
+        // o += h16(softmax) . vp_h^T: the probabilities are the A operand
         // in registers (n-tiles 2kk, 2kk + 1 of s are k-step kk)
 #pragma unroll
         for (int kk = 0; kk < P / 16; ++kk) {
@@ -1038,9 +1026,9 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
       }
     }
     if (mode == SERIAL) {
-      // the spatial output, rounded to bf16 in this warp's rows of Vs
+      // the spatial output, rounded to h16 in this warp's rows of Vs
       // (v is not read in this mode; columns CHP .. KC stay zero), is the
-      // channel attention's values: o = bf16(out_sa) . abig_h
+      // channel attention's values: o = h16(out_sa) . abig_h
       __syncwarp();
 #pragma unroll
       for (int j = 0; j < CHP / 8; ++j) {
@@ -1054,7 +1042,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
       zero_acc(o);
       channel(o);
     }
-    // y = bf16(t + gamma * o) of the head's CH real channels, staged in
+    // y = h16(t + gamma * o) of the head's CH real channels, staged in
     // this warp's rows of Qs, then stored as 16-byte runs (CH >= 8) or
     // element by element
     __syncwarp();
@@ -1072,7 +1060,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
       }
     }
     __syncwarp();
-    bf16* dst = p.out + ((size_t)b * tk.N + n0 + m0) * C + h * CH;
+    h16* dst = p.out + ((size_t)b * tk.N + n0 + m0) * C + h * CH;
     if constexpr (CH >= 8) {
       for (int v = lane; v < 16 * (CH / 8); v += 32) {
         const int r = v / (CH / 8), c = (v - r * (CH / 8)) * 8;
@@ -1142,7 +1130,7 @@ Tok tokens(const void* x, const float* pe, const float* lns, const float* lnb,
            int T, float eps) {
   Tok t;
   t.nslot = mode == PARALLEL ? 4 : 3;
-  t.x = static_cast<const bf16*>(x);
+  t.x = static_cast<const h16*>(x);
   t.pe = pe;
   t.lns = lns;
   t.lnb = lnb;
@@ -1190,7 +1178,7 @@ bool supported(int C, int P, int heads, int T, int mode) {
 
 // phase A and its finishing pass. part: (chunks, B, heads, F) f32 scratch;
 // glue 0: o0..o4 = qk, q2, k2, kp, vp (f32); glue 1: o0..o3 = qnorm (f32),
-// abig, kpt, vp (bf16), t1/t2 the (heads,) temperatures. mode: Mode (the
+// abig, kpt, vp (h16), t1/t2 the (heads,) temperatures. mode: Mode (the
 // qkvv matrix has 4 slots in mode 0, else 3; ef is null in mode 3, P = 0)
 extern "C" int fcd_dsa_phase_a(const void* x, const float* pe,
                                const float* lns, const float* lnb,
@@ -1227,9 +1215,9 @@ extern "C" int fcd_dsa_phase_a(const void* x, const float* pe,
   pf.abig = pf.kpt = pf.vpb = nullptr;
   if (glue) {
     pf.qnorm = static_cast<float*>(o0);
-    pf.abig = static_cast<bf16*>(o1);
-    pf.kpt = static_cast<bf16*>(o2);
-    pf.vpb = static_cast<bf16*>(o3);
+    pf.abig = static_cast<h16*>(o1);
+    pf.kpt = static_cast<h16*>(o2);
+    pf.vpb = static_cast<h16*>(o3);
   } else {
     pf.qk = static_cast<float*>(o0);
     pf.q2 = static_cast<float*>(o1);
@@ -1260,11 +1248,11 @@ extern "C" int fcd_dsa_phase_b(const void* x, const float* pe,
   pb.tk = tokens(x, pe, lns, lnb, w, w_f32, mode, N, C, heads, T, eps);
   pb.mode = mode;
   pb.qnorm = qnorm;
-  pb.abig = static_cast<const bf16*>(abig);
-  pb.kpt = static_cast<const bf16*>(kpt);
-  pb.vp = static_cast<const bf16*>(vp);
+  pb.abig = static_cast<const h16*>(abig);
+  pb.kpt = static_cast<const h16*>(kpt);
+  pb.vp = static_cast<const h16*>(vp);
   pb.gamma = gamma;
-  pb.out = static_cast<bf16*>(out);
+  pb.out = static_cast<h16*>(out);
 #define DSA_LAUNCH_B(CH, P_) launch_b<CH, P_>(pb, B, s)
   switch ((C / heads) * 1000 + P) {
     DSA_CASES(DSA_LAUNCH_B)

@@ -5,19 +5,20 @@
 // pallas_call :166) and spatial_attn_bwd_pallas (K4, pallas_call :190).
 // With qn (B, N, C) the l2-normalised queries, kpb (B, C, hP) the
 // block-expanded keys (temperature folded in) and vpb (B, hP, C) the
-// block-expanded values, all bf16, h heads of P columns (hP = h * P):
+// block-expanded values, all h16 (bf16, or f16 in the library built with
+// -DFCD_F16: csrc/h16.cuh), h heads of P columns (hP = h * P):
 //
 //   s[n, :]  = softmax over each head's P-wide segment of (qn[n] . kpb)   (f32)
-//   a        = bf16(keep ? s / (1 - rate) : 0)
-//   out[n]   = bf16(a[n] . vpb)                                          (K3)
+//   a        = h16(keep ? s / (1 - rate) : 0)
+//   out[n]   = h16(a[n] . vpb)                                          (K3)
 //
 // K4 recomputes s and the mask and gives, with g the cotangent of out:
 //   dvpb = a^T g,   da = keep ? (g . vpb^T) / (1 - rate) : 0,
-//   ds   = bf16(s * (da - sum_segment(da * s))),
-//   dqn  = bf16(ds . kpb^T),   dkpb = qn^T ds                 (f32 sums)
+//   ds   = h16(s * (da - sum_segment(da * s))),
+//   dqn  = h16(ds . kpb^T),   dkpb = qn^T ds                 (f32 sums)
 // kpb and vpb are taken as general matrices (no block-diagonal zeros are
 // assumed). The rounding points are the TPU kernel's: f32 logits, s, da
-// and sums; bf16 a, out, ds and dqn; ds takes the pre-dropout s.
+// and sums; h16 a, out, ds and dqn; ds takes the pre-dropout s.
 //
 // Dropout: keep iff fmix32(idx * 0x9E3779B1 ^ key) >= rate * 2^32, where
 // idx = (b * N + n) * hP + column (mod 2^32) and key mixes the step's seed
@@ -25,7 +26,7 @@
 // mask exactly, and kernels/spatial_attn.py computes the same bits with
 // int64 torch ops for the plain version.
 //
-// What bounds them (H100: 989 TFLOP/s bf16, 3.35 TB/s): per token K3 does
+// What bounds them (H100: 989 TFLOP/s h16, 3.35 TB/s): per token K3 does
 // 4 C hP operations on 4 C bytes (qn in, out back), K4 10 C hP on 6 C:
 // at hP = 256, 256 and 427 operations a byte, at the card's balance point
 // (~295). At level 3 (B = 4, N = 32768, C = 32) the bound is 5 us (K3,
@@ -35,7 +36,7 @@
 // cores; that elementwise work, not the tensor cores, is what bounds these
 // kernels in practice (kernels/spattn_sweep.py times them at rate 0 and
 // 0.1). The design:
-//   * Every product is mma.sync m16n8k16 (bf16 operands from ldmatrix, f32
+//   * Every product is mma.sync m16n8k16 (h16 operands from ldmatrix, f32
 //     accumulators); the attention tile never leaves the chip. A warp owns
 //     16 tokens and walks the heads: the logits' accumulator fragments are
 //     the softmax's operands (quad shuffles along each row, exp2 on the
@@ -53,7 +54,7 @@
 //     (the next tile's qn and g arrive by cp.async while this one
 //     multiplies). Per tile each warp's 16 tokens give logits, s, the
 //     mask, a, da (g . vpb^T), ds and dqn, all five products in fragments;
-//     a and ds go to shared memory in bf16 and come back by
+//     a and ds go to shared memory in h16 and come back by
 //     ldmatrix.trans as the A^T operands of the token-contracted sums
 //     dvpb += a^T g and dkpb += qn^T ds, whose C x HB*P tiles stay in
 //     registers over the chunk, split over the block's eight warps (at
@@ -61,35 +62,34 @@
 //     first warps, a pair each). HB <= 8192 / (C P) heads fit that (level
 //     3: all four, the whole row; level 4: two; levels 5-6: one, a split
 //     by head). dqn sums over every head, so a block that owns all of them
-//     stores it in bf16, and otherwise writes one f32 partial per head
+//     stores it in h16, and otherwise writes one f32 partial per head
 //     group.
 //   * Widths: C a power of two from 16 to 256, P 16, 32 or 64, C P <= 8192
 //     (SHAPES_FWD / SHAPES_BWD below): the default model's levels and the
 //     narrower ones of smaller feature and projection sizes. Every other
 //     (C, P) that B5 takes (C 8 .. 512, P 16 .. 128: segresnet_deeper's
 //     (256, 64), MS_DSA_NET's fs32 and project-128 levels) runs the wide
-//     instances at the end of this file (C15): CUDA-core kernels that read
-//     kpb and vpb from L2 and split each head's columns over blocks, so
-//     that their sums fit; correct first, with their times in PERF.md.
-//     Instanced on f32 operands, the same kernels are K3/K4 in f32 at
+//     instances at the end of this file (C15): flash-attention-like row
+//     blocks of 32 tokens with every head's softmax on the fragments, and
+//     K4's token sums in a kernel of their own. Instanced on f32 operands
+//     (3xTF32 on the tensor cores), the same kernels are K3/K4 in f32 at
 //     every one of B5's (C, P) (C18: a model that computes in f32).
 //   * No atomics: each chunk writes one f32 partial of dkpb and dvpb, and
 //     spatial_attn_bwd_finish adds the chunks' partials (and the head
 //     groups' dqn partials) in a fixed order, writing dkpb and dvpb in
-//     the dtype the caller asks for (f32 or bf16) and dqn in bf16. Two
+//     the dtype the caller asks for (f32 or h16) and dqn in h16. Two
 //     calls give the same bits; one K4 call is two launches.
 //   * Tiles, chunks and head groups come from kernels/spatial_attn.py::
 //     spatial_attn_plan (pure Python); the launchers take its numbers.
 //     kernels/spattn_sweep.py --plans times the alternatives on the card.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include "h16.cuh"
 
-typedef __nv_bfloat16 bf16;
+namespace {
 
 constexpr int NT = 256;            // threads of a product block
 constexpr int NW = NT / 32;
@@ -98,7 +98,7 @@ constexpr int SMEM_CAP = 232448;   // shared memory one block may hold
 constexpr int MAX_TILE = 16 * NW;  // K4 tokens a step: one m-tile a warp
 constexpr float LOG2E = 1.4426950408889634f;
 
-// a bf16 row pitch of at least n elements: a multiple of 8 elements that
+// a h16 row pitch of at least n elements: a multiple of 8 elements that
 // is an odd multiple of 16 bytes, so the 8 rows an ldmatrix reads sit in
 // distinct banks (kernels/spatial_attn.py::_pitch)
 __host__ __device__ constexpr int pitch(int n) {
@@ -142,25 +142,10 @@ __device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
       : "memory");
 }
 
-// d[16 x 8] += a[16 x 16] . b[16 x 8], bf16 in, f32 accumulators
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// rows x cols bf16 (cols % 8 == 0) from src (row stride ld elements) into
+// rows x cols h16 (cols % 8 == 0) from src (row stride ld elements) into
 // shared dst (pitch dp) by cp.async, rows >= valid zero-filled
-__device__ void stage(const bf16* src, int ld, int rows, int valid, int cols,
-                      bf16* dst, int dp) {
+__device__ void stage(const h16* src, int ld, int rows, int valid, int cols,
+                      h16* dst, int dp) {
   const int vr = cols / 8;
   for (int v = threadIdx.x; v < rows * vr; v += blockDim.x) {
     const int r = v / vr, c = (v - r * vr) * 8;
@@ -231,8 +216,9 @@ __device__ __forceinline__ float ex2(float x) {
 }
 
 // s (16 x P, this lane's fragments) <- exp(s - row max); inv0 / inv1 <- 1
-// over the row sums of rows g and g + 8 (f32)
-template <int P>
+// over the row sums of rows g and g + 8 (f32). EXACT: expf (the f32
+// instances), else 2^x on the SFU.
+template <int P, bool EXACT = false>
 __device__ __forceinline__ void softmax_rows(float (&s)[P / 8][4],
                                              float& inv0, float& inv1) {
   float mx0 = -INFINITY, mx1 = -INFINITY;
@@ -250,10 +236,17 @@ __device__ __forceinline__ void softmax_rows(float (&s)[P / 8][4],
   float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
   for (int j = 0; j < P / 8; ++j) {
-    s[j][0] = ex2(fmaf(s[j][0], LOG2E, -m0));
-    s[j][1] = ex2(fmaf(s[j][1], LOG2E, -m0));
-    s[j][2] = ex2(fmaf(s[j][2], LOG2E, -m1));
-    s[j][3] = ex2(fmaf(s[j][3], LOG2E, -m1));
+    if constexpr (EXACT) {
+      s[j][0] = expf(s[j][0] - mx0);
+      s[j][1] = expf(s[j][1] - mx0);
+      s[j][2] = expf(s[j][2] - mx1);
+      s[j][3] = expf(s[j][3] - mx1);
+    } else {
+      s[j][0] = ex2(fmaf(s[j][0], LOG2E, -m0));
+      s[j][1] = ex2(fmaf(s[j][1], LOG2E, -m0));
+      s[j][2] = ex2(fmaf(s[j][2], LOG2E, -m1));
+      s[j][3] = ex2(fmaf(s[j][3], LOG2E, -m1));
+    }
     sum0 += s[j][0] + s[j][1];
     sum1 += s[j][2] + s[j][3];
   }
@@ -269,8 +262,8 @@ __device__ __forceinline__ void softmax_rows(float (&s)[P / 8][4],
 // s (16 x P) <- A (16 x C at A, pitch ap) . B[:, q0 .. q0 + P] (B at Bs,
 // stored C x (pitch bp) row-major: the B operand by ldmatrix.trans)
 template <int C, int P>
-__device__ __forceinline__ void logits(float (&s)[P / 8][4], const bf16* A,
-                                       int ap, const bf16* Bs, int bp,
+__device__ __forceinline__ void logits(float (&s)[P / 8][4], const h16* A,
+                                       int ap, const h16* Bs, int bp,
                                        int lane) {
 #pragma unroll
   for (int j = 0; j < P / 8; ++j)
@@ -280,7 +273,7 @@ __device__ __forceinline__ void logits(float (&s)[P / 8][4], const bf16* A,
   for (int kk = 0; kk < C / 16; ++kk) {
     uint32_t a[4];
     ldsm_x4(a, A + (lane & 15) * ap + kk * 16 + (lane >> 4) * 8);
-    const bf16* brow = Bs + (kk * 16 + (lane & 15)) * bp + (lane >> 4) * 8;
+    const h16* brow = Bs + (kk * 16 + (lane & 15)) * bp + (lane >> 4) * 8;
 #pragma unroll
     for (int j = 0; j < P / 8; j += 2) {
       uint32_t bb[4];
@@ -302,9 +295,9 @@ __device__ __forceinline__ void frag_a(uint32_t (&a)[4],
 }
 
 // v (16 x P fragments) -> rows r0 .. r0 + 15 of D (pitch dp) from column q0,
-// in bf16
+// in h16
 template <int P>
-__device__ __forceinline__ void store_frags(bf16* D, int dp, int r0, int q0,
+__device__ __forceinline__ void store_frags(h16* D, int dp, int r0, int q0,
                                             const float (&v)[P / 8][4],
                                             int lane) {
   const int r = r0 + (lane >> 2), c = q0 + 2 * (lane & 3);
@@ -320,10 +313,10 @@ __device__ __forceinline__ void store_frags(bf16* D, int dp, int r0, int q0,
 // ---- K3 ----------------------------------------------------------------------
 
 struct FwdParams {
-  const bf16* qn;   // (B, N, C)
-  const bf16* kpb;  // (B, C, HP)
-  const bf16* vpb;  // (B, HP, C)
-  bf16* out;        // (B, N, C)
+  const h16* qn;   // (B, N, C)
+  const h16* kpb;  // (B, C, HP)
+  const h16* vpb;  // (B, HP, C)
+  h16* out;        // (B, N, C)
   int N, HP;
   int units;        // warp units a batch item: ceil(N / 16) x C / CO
   int per_block;    // units a block walks
@@ -343,9 +336,9 @@ __global__ void __launch_bounds__(NT) spatial_attn_fwd_kernel(
   const int HP = p.HP, H = HP / P, kp = pitch(HP);
   const int b = blockIdx.y, lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // C x kp: kpb[b]
-  bf16* Vs = Ks + C * kp;                        // HP x CP: vpb[b]
-  bf16* Qw = Vs + HP * CP + warp * 16 * CP;      // this warp's 16 tokens
+  h16* Ks = reinterpret_cast<h16*>(smem_raw);  // C x kp: kpb[b]
+  h16* Vs = Ks + C * kp;                        // HP x CP: vpb[b]
+  h16* Qw = Vs + HP * CP + warp * 16 * CP;      // this warp's 16 tokens
   stage(p.kpb + (size_t)b * C * HP, HP, C, C, HP, Ks, kp);
   stage(p.vpb + (size_t)b * HP * C, C, HP, HP, C, Vs, CP);
   cp_async_commit();
@@ -355,7 +348,7 @@ __global__ void __launch_bounds__(NT) spatial_attn_fwd_kernel(
   const int u_end = min((blockIdx.x + 1) * p.per_block, p.units);
   for (int u = blockIdx.x * p.per_block + warp; u < u_end; u += NW) {
     const int n0 = (u / GROUPS) * 16, c0 = (u % GROUPS) * CO;
-    const bf16* qb = p.qn + ((size_t)b * p.N + n0) * C;
+    const h16* qb = p.qn + ((size_t)b * p.N + n0) * C;
     for (int v = lane; v < 16 * (C / 8); v += 32) {
       const int r = v / (C / 8), c = (v - r * (C / 8)) * 8;
       const bool ok = n0 + r < p.N;
@@ -396,12 +389,12 @@ __global__ void __launch_bounds__(NT) spatial_attn_fwd_kernel(
           s[j][3] *= f1;
         }
       }
-      // o += bf16(a) . vpb[hh*P .., c0 ..] (B by ldmatrix.trans)
+      // o += h16(a) . vpb[hh*P .., c0 ..] (B by ldmatrix.trans)
 #pragma unroll
       for (int kk = 0; kk < P / 16; ++kk) {
         uint32_t a[4];
         frag_a<P>(a, s, kk);
-        const bf16* brow = Vs + (hh * P + kk * 16 + (lane & 15)) * CP + c0 +
+        const h16* brow = Vs + (hh * P + kk * 16 + (lane & 15)) * CP + c0 +
                            (lane >> 4) * 8;
 #pragma unroll
         for (int j = 0; j < CO / 8; j += 2) {
@@ -412,7 +405,7 @@ __global__ void __launch_bounds__(NT) spatial_attn_fwd_kernel(
         }
       }
     }
-    // out = bf16(o), staged in the warp's token rows, stored 16 bytes a lane
+    // out = h16(o), staged in the warp's token rows, stored 16 bytes a lane
     __syncwarp();
 #pragma unroll
     for (int j = 0; j < CO / 8; ++j) {
@@ -436,11 +429,11 @@ __global__ void __launch_bounds__(NT) spatial_attn_fwd_kernel(
 // ---- K4 ----------------------------------------------------------------------
 
 struct BwdParams {
-  const bf16* qn;   // (B, N, C)
-  const bf16* kpb;  // (B, C, HP)
-  const bf16* vpb;  // (B, HP, C)
-  const bf16* g;    // (B, N, C) cotangent of out
-  bf16* dqn;        // (B, N, C), when a block owns every head
+  const h16* qn;   // (B, N, C)
+  const h16* kpb;  // (B, C, HP)
+  const h16* vpb;  // (B, HP, C)
+  const h16* g;    // (B, N, C) cotangent of out
+  h16* dqn;        // (B, N, C), when a block owns every head
   float* dq_part;   // (HP / (HB P), B, N, C), else: one per head group
   float* dk_part;   // (chunks, B, C, HP)
   float* dv_part;   // (chunks, B, HP, C)
@@ -459,7 +452,7 @@ __host__ __device__ constexpr int bwd_smem(int C, int HBP, int T) {
 // ldmatrix.trans
 template <int R, int NC>
 __device__ __forceinline__ void token_sum(float (&acc)[R * NC][4],
-                                          const bf16* A, int ap, const bf16* B,
+                                          const h16* A, int ap, const h16* B,
                                           int bp, int t0, int m_base,
                                           int n_base, int lane) {
 #pragma unroll
@@ -467,7 +460,7 @@ __device__ __forceinline__ void token_sum(float (&acc)[R * NC][4],
     uint32_t a[4];
     ldsm_x4_t(a, A + (t0 + (lane & 7) + ((lane >> 4) << 3)) * ap +
                      (m_base + r) * 16 + ((lane >> 3) & 1) * 8);
-    const bf16* brow = B + (t0 + (lane & 15)) * bp + (lane >> 4) * 8;
+    const h16* brow = B + (t0 + (lane & 15)) * bp + (lane >> 4) * 8;
 #pragma unroll
     for (int j = 0; j < NC; j += 2) {
       uint32_t bb[4];
@@ -530,18 +523,18 @@ __global__ void __launch_bounds__(NT, 1) spatial_attn_bwd_kernel(
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q0 = hg * HBP;  // the block's first column of kpb
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);  // C x BP: kpb[b][:, q0 ..]
-  bf16* Vs = Ks + C * BP;                        // HBP x CP: vpb[b][q0 .., :]
-  bf16* QG = Vs + HBP * CP;  // two stages of (qn | g) tiles, T x CP each
-  bf16* As = QG + 4 * T * CP;                    // T x BP: a
-  bf16* Ds = As + T * BP;                        // T x BP: ds
+  h16* Ks = reinterpret_cast<h16*>(smem_raw);  // C x BP: kpb[b][:, q0 ..]
+  h16* Vs = Ks + C * BP;                        // HBP x CP: vpb[b][q0 .., :]
+  h16* QG = Vs + HBP * CP;  // two stages of (qn | g) tiles, T x CP each
+  h16* As = QG + 4 * T * CP;                    // T x BP: a
+  h16* Ds = As + T * BP;                        // T x BP: ds
 
   const int t_begin = chunk * p.tiles / p.chunks;
   const int t_end = (chunk + 1) * p.tiles / p.chunks;
   auto load_tile = [&](int tile, int stg) {
     const int n0 = tile * T;
     const size_t off = ((size_t)b * N + n0) * C;
-    bf16* q = QG + stg * 2 * T * CP;
+    h16* q = QG + stg * 2 * T * CP;
     stage(p.qn + off, C, T, N - n0, C, q, CP);
     stage(p.g + off, C, T, N - n0, C, q + T * CP, CP);
   };
@@ -568,13 +561,13 @@ __global__ void __launch_bounds__(NT, 1) spatial_attn_bwd_kernel(
       load_tile(tile + 1, stg ^ 1);
       cp_async_commit();
     }
-    const bf16* Qs = QG + stg * 2 * T * CP;
-    const bf16* Gs = Qs + T * CP;
+    const h16* Qs = QG + stg * 2 * T * CP;
+    const h16* Gs = Qs + T * CP;
 
     // per warp 16 tokens: logits, s, mask, a, da, ds, dqn
     for (int mt = warp; mt < T / 16; mt += NW) {
-      const bf16* Qw = Qs + mt * 16 * CP;
-      const bf16* Gw = Gs + mt * 16 * CP;
+      const h16* Qw = Qs + mt * 16 * CP;
+      const h16* Gw = Gs + mt * 16 * CP;
       const int nw = n0 + mt * 16;
       float dq[HB > 1 ? C / 8 : 1][4];
 #pragma unroll
@@ -596,7 +589,7 @@ __global__ void __launch_bounds__(NT, 1) spatial_attn_bwd_kernel(
         }
         const uint32_t keep =
             keep_bits<P>(p.d, b, N, HP, nw, q0 + col, lane);
-        {  // a = bf16(keep ? s * inv : 0), to As
+        {  // a = h16(keep ? s * inv : 0), to As
           float a[P / 8][4];
 #pragma unroll
           for (int j = 0; j < P / 8; ++j)
@@ -624,7 +617,7 @@ __global__ void __launch_bounds__(NT, 1) spatial_attn_bwd_kernel(
             mma16816(da[j + 1], a, bb[2], bb[3]);
           }
         }
-        // ds = bf16(s * (da - sum_row(da * s))), da masked and scaled
+        // ds = h16(s * (da - sum_row(da * s))), da masked and scaled
         float dot0 = 0.f, dot1 = 0.f;
 #pragma unroll
         for (int j = 0; j < P / 8; ++j)
@@ -744,12 +737,12 @@ struct FinishParams {
   const float* dk_part;  // (chunks, n_kv)
   const float* dv_part;  // (chunks, n_kv)
   const float* dq_part;  // (groups, n_q) or null
-  void* dk;              // n_kv, f32 or bf16
+  void* dk;              // n_kv, f32 or h16
   void* dv;
-  void* dqn;             // n_q, bf16 (the f32 instances: f32)
+  void* dqn;             // n_q, h16 (the f32 instances: f32)
   int chunks, groups;
   long long n_kv, n_q;   // elements, multiples of 4
-  int dk_bf16, dv_bf16, dq_bf16;
+  int dk_h16, dv_h16, dq_h16;
 };
 
 // sum over k < count of src[k * stride + i .. + 4], in the order k = 0, 1,
@@ -775,10 +768,10 @@ __device__ __forceinline__ float4 ordered_sum(const float* src, long long i,
   return acc;
 }
 
-__device__ __forceinline__ void store4(void* dst, int is_bf16, long long i,
+__device__ __forceinline__ void store4(void* dst, int is_h16, long long i,
                                        float4 v) {
-  if (is_bf16)
-    *reinterpret_cast<uint2*>(static_cast<bf16*>(dst) + i) =
+  if (is_h16)
+    *reinterpret_cast<uint2*>(static_cast<h16*>(dst) + i) =
         make_uint2(pack2(v.x, v.y), pack2(v.z, v.w));
   else
     *reinterpret_cast<float4*>(static_cast<float*>(dst) + i) = v;
@@ -790,384 +783,544 @@ __global__ void __launch_bounds__(FT) spatial_attn_bwd_finish(
   const long long v = (long long)blockIdx.x * FT + threadIdx.x;
   const long long kv4 = p.n_kv / 4;
   if (v < kv4) {
-    store4(p.dk, p.dk_bf16, 4 * v, ordered_sum(p.dk_part, 4 * v, p.chunks,
+    store4(p.dk, p.dk_h16, 4 * v, ordered_sum(p.dk_part, 4 * v, p.chunks,
                                                p.n_kv));
   } else if (v < 2 * kv4) {
     const long long i = 4 * (v - kv4);
-    store4(p.dv, p.dv_bf16, i, ordered_sum(p.dv_part, i, p.chunks, p.n_kv));
+    store4(p.dv, p.dv_h16, i, ordered_sum(p.dv_part, i, p.chunks, p.n_kv));
   } else if (p.groups > 0 && v < 2 * kv4 + p.n_q / 4) {
     const long long i = 4 * (v - 2 * kv4);
-    store4(p.dqn, p.dq_bf16, i, ordered_sum(p.dq_part, i, p.groups, p.n_q));
+    store4(p.dqn, p.dq_h16, i, ordered_sum(p.dq_part, i, p.groups, p.n_q));
   }
 }
 
-// ---- the wide instances (C15), and the f32 instances (C18) -------------
+// ---- the wide instances (C15), and the f32 instances (C18) -----------------
 //
 // Every (C, P) with C a power of two from 8 to 512 and P 16 .. 128 that the
 // tensor-core instances above do not take (C = 8, C = 512, P = 128, and C P
-// > 8192: SHAPES_WIDE in kernels/spatial_attn.py). There a block's dkpb
-// and dvpb sums (C x P f32 each) do not fit its registers, and at (512,
-// 128) a head's kpb columns and vpb rows (128 KB each in bf16) not its
-// shared memory beside each other. These kernels take a simpler road, on
-// the CUDA cores in f32: a block holds a tile of TOK tokens (TOK C <= 8192)
-// and, one operand at a time, a head's C x P of kpb or vpb in shared
-// memory, staged from L2 with 16-byte loads; K4 splits each head's P
-// columns over S = C P / 8192 blocks (1, 2, 4 or 8), each recomputing the
-// head's softmax row and owning the dkpb and dvpb sums of its P / S
-// columns (at most 32 f32 a thread each) and the dqn partial of those
-// columns. Same math, rounding points, dropout bits and fixed-order
-// finishing pass as the tensor-core instances; no atomics.
+// > 8192: SHAPES_WIDE in kernels/spatial_attn.py), in h16; and, on f32
+// operands, every (C, P) of B5's set: a model that computes in f32 runs
+// the JAX package's spatial_attn_train in f32, where every 16-bit rounding
+// point is a no-op (fcd_tpu/kernels/spatial_attn.py:83,113,131, ROADMAP
+// C18). 1, 2 or 4 heads.
 //
-// The same kernels, templated on the operand type E, are the f32
-// instances (ROADMAP C18) of every (C, P) B5 takes: a model that computes
-// in f32 runs the JAX package's spatial_attn_train in f32, where every
-// bf16 rounding point (a, ds, out, dqn) is a no-op
-// (fcd_tpu/kernels/spatial_attn.py:83,113,131). With E = float the tiles
-// and the staged operand are f32, round_to is the identity and the stores
-// write f32; every product is an f32 fused multiply-add on the CUDA cores
-// (no tensor-core instruction, so no TF32). A head's C x P operand in f32
-// can outgrow shared memory (512 x 130 x 4 bytes), so the operand is
-// staged PB columns at a time (PB divides P; kernels/spatial_attn.py::
-// wide_plan picks it): each logit and each output element is still one
-// sum over the same terms in the same order, so a smaller PB gives the
-// same bits. The bf16 instances take PB = P.
+// Above C P = 8192 a block can no longer hold a head's dkpb and dvpb sums
+// in registers, nor, at (512, 128), a head's kpb columns beside its vpb
+// rows in shared memory (128 KB each in h16). These kernels therefore read
+// K3 and K4 as flash attention does, as GEMMs around a softmax that stays
+// in registers, with every product on the tensor cores:
+//   * A row block of WTOK = 32 tokens owns every head of its tokens. Its
+//     eight warps each take one (16-token m-tile, head) unit of the
+//     logits, s = qn . kpb (and K4's da = g . vpb^T), as mma fragments;
+//     kpb's rows (vpb's columns) stream through shared memory kc at a
+//     time, two stages by cp.async, while the last chunk multiplies. The
+//     softmax, the dropout hash and (K4) ds run on the fragments. The
+//     rounded a (K3) or ds (K4) then overlay the token tiles in shared
+//     memory as the A operand of the second product, out = a . vpb (K3)
+//     or dqn = ds . kpb^T (K4), whose B operand streams kq rows of hP at a
+//     time; its 32 x C sum is split over the warps (at most 64 f32 a
+//     thread). No head is computed twice, and dqn is summed over every
+//     head in one accumulator and written once, rounded: no dqn partials.
+//   * K4's token-contracted sums, dkpb = qn^T ds and dvpb = a^T g, are a
+//     second kernel (spatial_attn_bwd_sums_wide): the row blocks write a
+//     and ds (B, N, hP) in the operands' type, and each sums block takes
+//     a 64 x 64 tile of dkpb^T or dvpb (hP x C) and walks its chunk of the
+//     tokens, 64 a step (each step summed on the tensor cores from zero,
+//     then added to the chunk's sum in IEEE f32); each chunk writes an f32
+//     partial that
+//     spatial_attn_bwd_finish adds in chunk order (no atomics: two calls
+//     give the same bits). One K4 call is three launches.
+//   * h16 operands: mma.sync m16n8k16 from ldmatrix (row pitches off the
+//     banks' period, as in the kernels above). f32 operands: 3xTF32, the
+//     mma.sync m16n8k8 .tf32 product of each operand's TF32 high part and
+//     the TF32 rounding of its rest, hi.lo + lo.hi + hi.hi summed in the
+//     f32 accumulators (the dropped lo.lo is 2^-22 of the product), the
+//     fragments read by scalar loads; softmax with expf. The rounding
+//     points are those of the plain version: f32 logits, s and da; a, out,
+//     ds and dqn in the operands' type; ds from the pre-dropout s.
+// Shared memory, chunk sizes and grids come from kernels/spatial_attn.py::
+// wide_plan (pure Python); wide_ok checks what it gives.
 
-constexpr int WT = 256;        // threads of a wide block
-constexpr int WACC = 32;       // sums a thread: 8192 / WT
-constexpr int WIDE_SUMS = WT * WACC;
+constexpr int WT = 256;       // threads of a wide block: eight warps
+constexpr int WTOK = 32;      // tokens of a row block: two m-tiles
+constexpr int WSUM_T = 64;    // the token sums: tokens a step
+constexpr int WSUM_Q = 64;    // their tile: hP rows at most
+constexpr int WSUM_C = 64;    // and C columns at most
 
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(float v) { return v; }
+// the wide kernels' C as staged: padded with zero columns to 16
+__host__ __device__ constexpr int wide_ck(int C) { return C < 16 ? 16 : C; }
 
-// the value as the operand type holds it: bf16's rounding, or none
+__host__ __device__ constexpr int imax(int a, int b) { return a > b ? a : b; }
+__host__ __device__ constexpr int imin(int a, int b) { return a < b ? a : b; }
+
+// Row pitches (elements) of a staged tile of n columns: for h16 operands
+// pitch() (the 8 rows an ldmatrix reads sit in distinct banks); for f32
+// operands, read by scalar loads in the fragments' pattern, an odd
+// multiple of 4 where a lane's fragment runs along the tile's rows (A
+// stored M x K, B stored N x K: lane (g, t) reads row g, column t) and an
+// odd multiple of 8 where it runs along its columns (A stored K x M, B
+// stored K x N: row t, column g), so the 32 lanes read 32 banks.
+__host__ __device__ constexpr int pitch_rows(int es, int n) {
+  return es == 2 ? pitch(n) : (n + 7) / 8 * 8 + 4;
+}
+__host__ __device__ constexpr int pitch_cols(int es, int n) {
+  return es == 2 ? pitch(n) : (n + 15) / 16 * 16 + 8;
+}
+
+// elements of one stage of a row block's streamed operand: kc rows of kpb,
+// kc columns of vpb (K4), kq rows of vpb (K3) or kq columns of kpb (K4)
+__host__ __device__ constexpr int wide_stage(int es, int bwd, int C, int HP,
+                                             int kc, int kq) {
+  return imax(imax(kc * pitch_cols(es, HP), bwd ? HP * pitch_rows(es, kc) : 0),
+              bwd ? wide_ck(C) * pitch_rows(es, kq)
+                  : kq * pitch_cols(es, wide_ck(C)));
+}
+
+// elements before the stages: the qn tile (and K4's g tile), which a or
+// ds (WTOK x hP) overlays once the logits are done
+__host__ __device__ constexpr int wide_tiles(int es, int bwd, int C, int HP) {
+  return imax(WTOK * pitch_rows(es, wide_ck(C)) * (bwd ? 2 : 1),
+              WTOK * pitch_rows(es, HP));
+}
+
+// a row block's shared memory (bytes)
+__host__ __device__ constexpr int wide_rows_smem(int es, int bwd, int C,
+                                                 int HP, int kc, int kq) {
+  return es * (wide_tiles(es, bwd, C, HP) + 2 * wide_stage(es, bwd, C, HP,
+                                                          kc, kq));
+}
+
+// a sums block's: two stages of WSUM_T tokens of a or ds (its tile's hP
+// columns) and of qn or g (its C columns)
+__host__ __device__ constexpr int wide_sums_smem(int es, int C, int HP) {
+  return es * 2 * WSUM_T * (pitch_cols(es, imin(HP, WSUM_Q)) +
+                            pitch_cols(es, imin(wide_ck(C), WSUM_C)));
+}
+
+// rows x cols elements (cols a multiple of 16 bytes) from src (row stride
+// ld) into shared dst (pitch dp) by cp.async; an element of row >= vrows
+// or column >= vcols (a multiple of 16 bytes) is zero
 template <typename E>
-__device__ __forceinline__ float round_to(float v);
-template <>
-__device__ __forceinline__ float round_to<bf16>(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
-template <>
-__device__ __forceinline__ float round_to<float>(float v) {
-  return v;
-}
-
-template <typename E>
-__device__ __forceinline__ E from_f(float v);
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) {
-  return __float2bfloat16(v);
-}
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-
-__device__ __forceinline__ float wsum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float wmax(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// TOK rows of C elements (row stride C) from token n0 of batch item b into
-// shared dst (TOK x C), rows past N zero; 16-byte copies
-template <typename E>
-__device__ void load_rows(const E* src, int b, int N, int C, int n0,
-                          int TOK, E* dst) {
-  constexpr int V = 16 / sizeof(E);  // elements a 16-byte copy
-  const E* s = src + ((size_t)b * N + n0) * C;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  for (int v = threadIdx.x; v < TOK * C / V; v += WT) {
-    const int t = v / (C / V);
-    reinterpret_cast<uint4*>(dst)[v] =
-        n0 + t < N ? reinterpret_cast<const uint4*>(s)[v] : zero;
-  }
-}
-
-// Ws[c][q] = m[c][q0 + q] (C x P of a row-major matrix of row stride ld),
-// 16-byte copies
-template <typename E>
-__device__ void stage_cols(const E* m, int ld, int q0, int C, int P, E* Ws) {
+__device__ __forceinline__ void stage_tile(E* dst, int dp, const E* src,
+                                           int ld, int rows, int cols,
+                                           int vrows, int vcols) {
   constexpr int V = 16 / sizeof(E);
-  for (int v = threadIdx.x; v < C * P / V; v += WT) {
-    const int c = v / (P / V), q = (v - c * (P / V)) * V;
-    *reinterpret_cast<uint4*>(Ws + c * P + q) =
-        *reinterpret_cast<const uint4*>(m + (size_t)c * ld + q0 + q);
+  const int vr = cols / V;
+  for (int v = threadIdx.x; v < rows * vr; v += WT) {
+    const int r = v / vr, c = (v - r * vr) * V;
+    const bool ok = r < vrows && c < vcols;
+    cp_async16(dst + r * dp + c, ok ? src + (size_t)r * ld + c : src, ok);
   }
 }
 
-// Ws[c][q] = m[r0 + q][c] (the transpose of P rows of a row-major matrix
-// of row stride C) at pitch P + 2, so that threads on consecutive c read
-// distinct banks: 16-byte loads along the rows, element stores
-template <typename E>
-__device__ void stage_rows_t(const E* m, int r0, int C, int P, E* Ws) {
-  constexpr int V = 16 / sizeof(E);
-  for (int v = threadIdx.x; v < P * C / V; v += WT) {
-    const int q = v / (C / V), c = (v - q * (C / V)) * V;
-    const uint4 raw =
-        *reinterpret_cast<const uint4*>(m + (size_t)(r0 + q) * C + c);
-    const E* e = reinterpret_cast<const E*>(&raw);
-#pragma unroll
-    for (int i = 0; i < V; ++i) Ws[(c + i) * (P + 2) + q] = e[i];
-  }
-}
-
-// S[t][q] (row stride sp) = sum_c A[t][c] W[c][q] for q < P (A TOK x C, W
-// C x P at pitch wp, both in shared memory): consecutive threads take
-// consecutive q
-template <typename E>
-__device__ void tile_product(const E* A, const E* W, int wp, int C, int TOK,
-                             int P, float* S, int sp) {
-  for (int i = threadIdx.x; i < TOK * P; i += WT) {
-    const int t = i / P, q = i - t * P;
-    const E* ar = A + t * C;
-    float s0 = 0.f, s1 = 0.f;
-    for (int c = 0; c < C; c += 2) {
-      s0 = fmaf(to_f(ar[c]), to_f(W[c * wp + q]), s0);
-      s1 = fmaf(to_f(ar[c + 1]), to_f(W[(c + 1) * wp + q]), s1);
+// chunks 0 .. n - 1 of a streamed operand through two stages: chunk i + 1
+// is in flight while chunk i multiplies. The caller has issued chunk 0 to
+// stage 0 (and committed it); on return every thread is done with both.
+template <typename Stage, typename Use>
+__device__ __forceinline__ void stream(int n, Stage stage, Use use) {
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait_all();
+    __syncthreads();  // chunk i landed; chunk i - 1's stage is free
+    if (i + 1 < n) {
+      stage(i + 1, (i + 1) & 1);
+      cp_async_commit();
     }
-    S[t * sp + q] = s0 + s1;
+    use(i, i & 1);
+  }
+  __syncthreads();
+}
+
+__device__ __forceinline__ uint32_t tf32_of(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x as its TF32 high part and the TF32 rounding of the rest
+__device__ __forceinline__ void split3(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_of(x);
+  lo = tf32_of(x - __uint_as_float(hi));
+}
+
+// d[16 x 8] += a[16 x 8] . b[8 x 8], TF32 in, f32 accumulators
+__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// acc[j] (the m16n8 tile of rows m0 .. m0 + 15, columns n0 + 8 j .., j <
+// nj) += A[m0 .., 0 .. k1) . B[0 .. k1, n0 ..), in shared memory: A stored
+// M x K (row m at A + m ap) or, with AKM, K x M; B stored K x N or, with
+// BNK, N x K. h16: m16n8k16 from ldmatrix (nj even); f32: 3xTF32 m16n8k8.
+template <bool AKM, bool BNK, int MJ, typename E>
+__device__ __forceinline__ void warp_mma(float (&acc)[MJ][4], int nj,
+                                         const E* A, int ap, int m0,
+                                         const E* B, int bp, int n0, int k1,
+                                         int lane) {
+  if constexpr (sizeof(E) == 2) {
+    for (int k = 0; k < k1; k += 16) {
+      uint32_t a[4];
+      if constexpr (AKM)
+        ldsm_x4_t(a, A + (k + (lane & 7) + ((lane >> 4) << 3)) * ap + m0 +
+                         ((lane >> 3) & 1) * 8);
+      else
+        ldsm_x4(a, A + (m0 + (lane & 15)) * ap + k + (lane >> 4) * 8);
+#pragma unroll
+      for (int j = 0; j < MJ; j += 2) {
+        if (j >= nj) break;
+        uint32_t bb[4];
+        if constexpr (BNK)
+          ldsm_x4(bb, B + (n0 + j * 8 + (lane >> 4) * 8 + (lane & 7)) * bp +
+                          k + ((lane >> 3) & 1) * 8);
+        else
+          ldsm_x4_t(bb, B + (k + (lane & 15)) * bp + n0 + j * 8 +
+                            (lane >> 4) * 8);
+        mma16816(acc[j], a, bb[0], bb[1]);
+        mma16816(acc[j + 1], a, bb[2], bb[3]);
+      }
+    }
+  } else {
+    const int g = lane >> 2, t = lane & 3;
+    for (int k = 0; k < k1; k += 8) {
+      float a[4];
+      if constexpr (AKM) {
+        const float* r0 = A + (k + t) * ap + m0 + g;
+        const float* r1 = r0 + 4 * ap;
+        a[0] = r0[0];
+        a[1] = r0[8];
+        a[2] = r1[0];
+        a[3] = r1[8];
+      } else {
+        const float* r0 = A + (m0 + g) * ap + k + t;
+        const float* r1 = r0 + 8 * ap;
+        a[0] = r0[0];
+        a[1] = r1[0];
+        a[2] = r0[4];
+        a[3] = r1[4];
+      }
+      uint32_t ah[4], al[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split3(a[i], ah[i], al[i]);
+#pragma unroll
+      for (int j = 0; j < MJ; ++j) {
+        if (j >= nj) break;
+        float b0, b1;
+        if constexpr (BNK) {
+          const float* r = B + (n0 + 8 * j + g) * bp + k + t;
+          b0 = r[0];
+          b1 = r[4];
+        } else {
+          const float* r = B + (k + t) * bp + n0 + 8 * j + g;
+          b0 = r[0];
+          b1 = r[4 * bp];
+        }
+        uint32_t bh0, bl0, bh1, bl1;
+        split3(b0, bh0, bl0);
+        split3(b1, bh1, bl1);
+        mma1688(acc[j], al, bh0, bh1);
+        mma1688(acc[j], ah, bl0, bl1);
+        mma1688(acc[j], ah, bh0, bh1);
+      }
+    }
   }
 }
 
-// one softmax row of P logits in place (a warp): returns 1 / sum; srow
-// holds exp(s - max)
-__device__ __forceinline__ float softmax_row(float* srow, int P, int lane) {
-  float mx = -INFINITY;
-  for (int q = lane; q < P; q += 32) mx = fmaxf(mx, srow[q]);
-  mx = wmax(mx);
-  float sum = 0.f;
-  for (int q = lane; q < P; q += 32) {
-    const float e = expf(srow[q] - mx);
-    srow[q] = e;
-    sum += e;
-  }
-  return 1.f / wsum(sum);
+// two adjacent elements, rounded to the operand type
+__device__ __forceinline__ void store2(h16* dst, float x, float y) {
+  *reinterpret_cast<uint32_t*>(dst) = pack2(x, y);
+}
+__device__ __forceinline__ void store2(float* dst, float x, float y) {
+  *reinterpret_cast<float2*>(dst) = make_float2(x, y);
 }
 
 template <typename E>
-struct WideFwd {
+struct WideRows {
   const E* qn;   // (B, N, C)
   const E* kpb;  // (B, C, HP)
   const E* vpb;  // (B, HP, C)
-  E* out;        // (B, N, C)
-  int N, C, HP, P, TOK, PB;
+  const E* g;    // (B, N, C): K4's cotangent
+  E* out;        // (B, N, C): K3's out, K4's dqn
+  E* a;          // (B, N, HP): K4's a and ds, for the token sums
+  E* ds;
+  int N, C, HP, kc, kq;
   Drop d;
 };
 
-// qn's tile, PB columns of one head's C x P operand (pitch PB + 2), its
-// TOK x P scores
-__host__ __device__ constexpr int wide_fwd_smem(int esize, int C, int P,
-                                                int TOK, int PB) {
-  return esize * TOK * C + esize * C * (PB + 2) + 4 * TOK * P;
-}
-
-// grid (token tile, batch): the tile's TOK tokens, head by head
-template <typename E>
-__global__ void __launch_bounds__(WT)
-    spatial_attn_fwd_kernel_wide(const WideFwd<E> p) {
+// grid (ceil(N / WTOK), batch): K3 (BWD false) or K4's row blocks
+template <typename E, int P, bool BWD>
+__device__ __forceinline__ void wide_rows(const WideRows<E>& p) {
+  constexpr int ES = sizeof(E);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int C = p.C, P = p.P, HP = p.HP, TOK = p.TOK, N = p.N, PB = p.PB;
-  E* Qs = reinterpret_cast<E*>(smem_raw);  // TOK x C
-  E* Ws = Qs + TOK * C;  // C x PB: kpb (pitch PB), then vpb^T (PB + 2)
-  float* Ss = reinterpret_cast<float*>(Ws + C * (PB + 2));  // s, then a
-  const int b = blockIdx.y, n0 = blockIdx.x * TOK;
+  const int C = p.C, HP = p.HP, N = p.N, CK = wide_ck(C), H = HP / P;
+  const int kc = p.kc, kq = p.kq;
+  const int b = blockIdx.y, n0 = blockIdx.x * WTOK;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int qp = pitch_rows(ES, CK), xp = pitch_rows(ES, HP);
+  const int kp1 = pitch_cols(ES, HP), vp1 = pitch_rows(ES, kc);
+  const int p2 = BWD ? pitch_rows(ES, kq) : pitch_cols(ES, CK);
+  const int st = wide_stage(ES, BWD, C, HP, kc, kq);
+  E* Qs = reinterpret_cast<E*>(smem_raw);  // WTOK x qp: qn's tile
+  E* Gs = Qs + WTOK * qp;                  // WTOK x qp: g's (K4)
+  E* Xs = Qs;  // WTOK x xp: a (K3) or ds (K4), once the logits are done
+  E* St = Qs + wide_tiles(ES, BWD, C, HP);  // two stages of st
   const E* kb = p.kpb + (size_t)b * C * HP;
   const E* vb = p.vpb + (size_t)b * HP * C;
-  load_rows(p.qn, b, N, C, n0, TOK, Qs);
-  float acc[WACC];
+  const size_t row0 = (size_t)b * N + n0;
+  stage_tile(Qs, qp, p.qn + row0 * C, C, WTOK, CK, N - n0, C);
+  if constexpr (BWD) stage_tile(Gs, qp, p.g + row0 * C, C, WTOK, CK, N - n0, C);
+
+  // warp w's unit: tokens um .. um + 15 of the block, head uh
+  const int um = (warp & 1) * 16, uh = warp >> 1;
+  const bool unit = uh < H;
+  float s[P / 8][4], da[BWD ? P / 8 : 1][4];
 #pragma unroll
-  for (int j = 0; j < WACC; ++j) acc[j] = 0.f;
-  for (int hh = 0; hh < HP / P; ++hh) {
-    for (int qb = 0; qb < P; qb += PB) {
-      __syncthreads();  // the last products are done with Ws and Ss
-      stage_cols(kb, HP, hh * P + qb, C, PB, Ws);
-      __syncthreads();
-      tile_product(Qs, Ws, PB, C, TOK, PB, Ss + qb, P);  // logits
-    }
-    __syncthreads();
-    // a = round(keep ? softmax(s) / (1 - rate) : 0), a warp a token
-    for (int t = warp; t < TOK; t += WT / 32) {
-      float* row = Ss + t * P;
-      const float inv = softmax_row(row, P, lane);
-      const uint32_t x = elem_x(b, N, HP, n0 + t, hh * P);
-      for (int q = lane; q < P; q += 32) {
-        const float a = row[q] * inv;
-        row[q] = round_to<E>(!p.d.on || keep_x(x + (uint32_t)q * K0, p.d)
-                                 ? a * p.d.inv
-                                 : 0.f);
+  for (int j = 0; j < P / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+  // the logits, s = qn . kpb[:, head], kpb's rows kc at a time
+  const int nk = CK / kc;
+  auto stage_k = [&](int i, int buf) {
+    stage_tile(St + buf * st, kp1, kb + (size_t)i * kc * HP, HP, kc, HP,
+               C - i * kc, HP);
+  };
+  stage_k(0, 0);
+  cp_async_commit();
+  stream(nk, stage_k, [&](int i, int buf) {
+    if (unit)
+      warp_mma<false, false>(s, P / 8, Qs + i * kc, qp, um, St + buf * st,
+                             kp1, uh * P, kc, lane);
+  });
+  if constexpr (BWD) {  // da = g . vpb^T, vpb's columns kc at a time
+#pragma unroll
+    for (int j = 0; j < P / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) da[j][e] = 0.f;
+    auto stage_v = [&](int i, int buf) {
+      stage_tile(St + buf * st, vp1, vb + i * kc, C, HP, kc, HP, C - i * kc);
+    };
+    stage_v(0, 0);
+    cp_async_commit();
+    stream(nk, stage_v, [&](int i, int buf) {
+      if (unit)
+        warp_mma<false, true>(da, P / 8, Gs + i * kc, qp, um, St + buf * st,
+                              vp1, uh * P, kc, lane);
+    });
+  }
+  // the second product's first chunk flies while the softmax runs
+  auto stage_o = [&](int i, int buf) {
+    if constexpr (BWD)  // kq columns of kpb (dqn's B, N x K)
+      stage_tile(St + buf * st, p2, kb + i * kq, HP, CK, kq, C, kq);
+    else  // kq rows of vpb (out's B, K x N)
+      stage_tile(St + buf * st, p2, vb + (size_t)i * kq * C, C, kq, CK, kq,
+                 C);
+  };
+  stage_o(0, 0);
+  cp_async_commit();
+
+  if (unit) {
+    float inv0, inv1;
+    softmax_rows<P, ES == 4>(s, inv0, inv1);
+    const int r0 = um + (lane >> 2);     // this lane's rows r0, r0 + 8
+    const int q0 = uh * P + 2 * (lane & 3);  // and first column
+    const uint32_t x0 = elem_x(b, N, HP, n0 + r0, q0);
+    const uint32_t x1 = elem_x(b, N, HP, n0 + r0 + 8, q0);
+    if constexpr (!BWD) {
+      // a = keep ? s / (1 - rate) : 0, rounded, to Xs
+      const float f0 = inv0 * p.d.inv, f1 = inv1 * p.d.inv;
+#pragma unroll
+      for (int j = 0; j < P / 8; ++j) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool keep =
+              !p.d.on ||
+              keep_x((e < 2 ? x0 : x1) + (uint32_t)(8 * j + (e & 1)) * K0,
+                     p.d);
+          v[e] = keep ? s[j][e] * (e < 2 ? f0 : f1) : 0.f;
+        }
+        store2(Xs + r0 * xp + q0 + 8 * j, v[0], v[1]);
+        store2(Xs + (r0 + 8) * xp + q0 + 8 * j, v[2], v[3]);
       }
-    }
-    // out[t][c] += sum_q a[t][q] vpb[hh P + q][c], Ws[c][q] = vpb[hh P +
-    // qb + q][c] a block of PB columns at a time: element j of this thread
-    // is e = tid + WT j (consecutive threads, consecutive c)
-    for (int qb = 0; qb < P; qb += PB) {
-      __syncthreads();  // a is written; the last block is done with Ws
-      stage_rows_t(vb, hh * P + qb, C, PB, Ws);
-      __syncthreads();
+    } else {
+      // s, the mask, a (to the token sums' scratch) and da' = keep ? da /
+      // (1 - rate) : 0; then ds = round(s (da' - sum(da' s))) to Xs and
+      // the scratch
+      const bool in0 = n0 + r0 < N, in1 = n0 + r0 + 8 < N;
+      E* a0 = p.a + (row0 + r0) * HP + q0;
+      E* d0 = p.ds + (row0 + r0) * HP + q0;
+      float dot0 = 0.f, dot1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < WACC; ++j) {
-        const int e = threadIdx.x + WT * j;
-        if (e >= TOK * C) break;
-        const int t = e / C, c = e - t * C;
-        const float* ar = Ss + t * P + qb;
-        const E* wc = Ws + c * (PB + 2);
-        float s = acc[j];
-        for (int q = 0; q < PB; ++q) s = fmaf(ar[q], to_f(wc[q]), s);
-        acc[j] = s;
+      for (int j = 0; j < P / 8; ++j) {
+        float v[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] *= e < 2 ? inv0 : inv1;
+          const bool keep =
+              !p.d.on ||
+              keep_x((e < 2 ? x0 : x1) + (uint32_t)(8 * j + (e & 1)) * K0,
+                     p.d);
+          v[e] = keep ? s[j][e] * p.d.inv : 0.f;
+          da[j][e] = keep ? da[j][e] * p.d.inv : 0.f;
+          if (e < 2)
+            dot0 = fmaf(da[j][e], s[j][e], dot0);
+          else
+            dot1 = fmaf(da[j][e], s[j][e], dot1);
+        }
+        if (in0) store2(a0 + 8 * j, v[0], v[1]);
+        if (in1) store2(a0 + 8 * HP + 8 * j, v[2], v[3]);
+      }
+#pragma unroll
+      for (int x = 1; x < 4; x <<= 1) {
+        dot0 += __shfl_xor_sync(0xffffffffu, dot0, x);
+        dot1 += __shfl_xor_sync(0xffffffffu, dot1, x);
+      }
+#pragma unroll
+      for (int j = 0; j < P / 8; ++j) {
+        const float v0 = s[j][0] * (da[j][0] - dot0);
+        const float v1 = s[j][1] * (da[j][1] - dot0);
+        const float v2 = s[j][2] * (da[j][2] - dot1);
+        const float v3 = s[j][3] * (da[j][3] - dot1);
+        store2(Xs + r0 * xp + q0 + 8 * j, v0, v1);
+        store2(Xs + (r0 + 8) * xp + q0 + 8 * j, v2, v3);
+        if (in0) store2(d0 + 8 * j, v0, v1);
+        if (in1) store2(d0 + 8 * HP + 8 * j, v2, v3);
       }
     }
   }
-  E* ob = p.out + ((size_t)b * N + n0) * C;
+
+  // out (K3) or dqn (K4) = Xs (WTOK x hP) . the streamed operand, hP kq at
+  // a time; warp (om, og) owns tokens om .., columns on0 .. on0 + 8 nj
+  const int groups = imin(CK / 16, 4);
+  const int om = (warp & 1) * 16, og = warp >> 1;
+  const int width = CK / groups, nj = width / 8, on0 = og * width;
+  const bool act = og < groups;
+  float o[16][4];
 #pragma unroll
-  for (int j = 0; j < WACC; ++j) {
-    const int e = threadIdx.x + WT * j;
-    if (e >= TOK * C) break;
-    if (n0 + e / C < N) ob[e] = from_f<E>(acc[j]);
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+  stream(HP / kq, stage_o, [&](int i, int buf) {
+    if (act) warp_mma<false, BWD>(o, nj, Xs + i * kq, xp, om, St + buf * st,
+                                  p2, on0, kq, lane);
+  });
+  if (!act) return;
+  const int r = om + (lane >> 2);
+  E* dst = p.out + (row0 + r) * C;
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    if (j >= nj) break;
+    const int c = on0 + 8 * j + 2 * (lane & 3);
+    if (c >= C) continue;
+    if (n0 + r < N) store2(dst + c, o[j][0], o[j][1]);
+    if (n0 + r + 8 < N) store2(dst + 8 * C + c, o[j][2], o[j][3]);
   }
 }
 
+template <typename E, int P>
+__global__ void __launch_bounds__(WT)
+    spatial_attn_fwd_kernel_wide(const WideRows<E> p) {
+  wide_rows<E, P, false>(p);
+}
+
+template <typename E, int P>
+__global__ void __launch_bounds__(WT)
+    spatial_attn_bwd_kernel_wide(const WideRows<E> p) {
+  wide_rows<E, P, true>(p);
+}
+
 template <typename E>
-struct WideBwd {
-  const E* qn;   // (B, N, C)
-  const E* kpb;  // (B, C, HP)
-  const E* vpb;  // (B, HP, C)
-  const E* g;    // (B, N, C)
-  float* dq_part;   // (HP / P * S, B, N, C): one per (head, split)
+struct WideSums {
+  const E* a;       // (B, N, HP)
+  const E* ds;      // (B, N, HP)
+  const E* qn;      // (B, N, C)
+  const E* g;       // (B, N, C)
   float* dk_part;   // (chunks, B, C, HP)
   float* dv_part;   // (chunks, B, HP, C)
-  int N, C, HP, P, TOK, tiles, chunks, S, PB;
-  Drop d;
+  int N, C, HP, tiles, chunks;
 };
 
-// the qn and g tiles, PB columns of one head's C x P operand (pitch PB +
-// 2), s and da / ds (TOK x P f32), a on the split's CS columns, and the
-// split's kpb columns (C x (CS + 2): pitches off the banks' period)
-__host__ __device__ constexpr int wide_bwd_smem(int esize, int C, int P,
-                                                int TOK, int S, int PB) {
-  return 2 * esize * TOK * C + esize * C * (PB + 2) + 8 * TOK * P +
-         4 * TOK * (P / S) + esize * C * (P / S + 2);
-}
-
-// grid (chunk, head x split, batch)
+// grid (tile of hP x C, chunk, 2 batch): z even, dkpb^T = ds^T qn (stored
+// transposed); z odd, dvpb = a^T g. Tokens past N are zero rows.
 template <typename E>
 __global__ void __launch_bounds__(WT)
-    spatial_attn_bwd_kernel_wide(const WideBwd<E> p) {
+    spatial_attn_bwd_sums_wide(const WideSums<E> p) {
+  constexpr int ES = sizeof(E);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int C = p.C, P = p.P, HP = p.HP, TOK = p.TOK, N = p.N, S = p.S;
-  const int PB = p.PB;
-  const int CS = P / S, KP = CS + 2;  // the split's columns, Ks's pitch
-  const int chunk = blockIdx.x, hs = blockIdx.y, b = blockIdx.z;
-  const int B = gridDim.z;
-  const int q0 = (hs / S) * P;       // the head's first column
-  const int qs = (hs % S) * CS;      // the split's first column in the head
+  const int C = p.C, HP = p.HP, N = p.N, CK = wide_ck(C);
+  const int TQ = imin(HP, WSUM_Q), TC = imin(CK, WSUM_C), ctiles = CK / TC;
+  const int q0 = blockIdx.x / ctiles * TQ, c0 = blockIdx.x % ctiles * TC;
+  const int chunk = blockIdx.y, b = blockIdx.z >> 1, is_dv = blockIdx.z & 1;
+  const int B = gridDim.z >> 1;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  E* Qs = reinterpret_cast<E*>(smem_raw);        // TOK x C
-  E* Gs = Qs + TOK * C;                          // TOK x C
-  E* Ws = Gs + TOK * C;  // C x PB: kpb (pitch PB), then vpb^T (PB + 2)
-  float* Ss = reinterpret_cast<float*>(Ws + C * (PB + 2));  // TOK x P: s
-  float* Ds = Ss + TOK * P;                      // TOK x P: da, then ds
-  float* As = Ds + TOK * P;                      // TOK x CS: a
-  E* Ks = reinterpret_cast<E*>(As + TOK * CS);   // C x KP
-  const E* kb = p.kpb + (size_t)b * C * HP;
-  const E* vb = p.vpb + (size_t)b * HP * C;
-  for (int i = threadIdx.x; i < C * CS; i += WT) {
-    const int c = i / CS, q = i - c * CS;
-    Ks[c * KP + q] = kb[(size_t)c * HP + q0 + qs + q];
-  }
-  float dk[WACC], dv[WACC];  // dkpb (C x CS) and dvpb (CS x C) elements
+  const E* X = (is_dv ? p.a : p.ds) + (size_t)b * N * HP;
+  const E* Y = (is_dv ? p.g : p.qn) + (size_t)b * N * C;
+  const int xp = pitch_cols(ES, TQ), yp = pitch_cols(ES, TC);
+  E* Xs = reinterpret_cast<E*>(smem_raw);  // two stages, WSUM_T x xp
+  E* Ys = Xs + 2 * WSUM_T * xp;            // two stages, WSUM_T x yp
+  // warp (wm, wn): rows wm * 16 .. of the tile, columns wn * width ..
+  const int halves = TC >= 32 ? 2 : 1;
+  const int wm = warp & 3, wn = warp >> 2, width = TC / halves;
+  const int nj = width / 8;
+  const bool act = wm * 16 < TQ && wn < halves;
+  float acc[4][4];
 #pragma unroll
-  for (int j = 0; j < WACC; ++j) dk[j] = dv[j] = 0.f;
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   const int t_begin = chunk * p.tiles / p.chunks;
   const int t_end = (chunk + 1) * p.tiles / p.chunks;
-  for (int tile = t_begin; tile < t_end; ++tile) {
-    const int n0 = tile * TOK;
-    __syncthreads();  // the last tile's sums are done
-    load_rows(p.qn, b, N, C, n0, TOK, Qs);
-    load_rows(p.g, b, N, C, n0, TOK, Gs);
-    for (int qb = 0; qb < P; qb += PB) {
-      if (qb > 0) __syncthreads();  // the last block's products are done
-      stage_cols(kb, HP, q0 + qb, C, PB, Ws);
-      __syncthreads();
-      tile_product(Qs, Ws, PB, C, TOK, PB, Ss + qb, P);  // logits
-    }
-    __syncthreads();
-    for (int qb = 0; qb < P; qb += PB) {
-      stage_rows_t(vb, q0 + qb, C, PB, Ws);  // Ws[c][q] = vpb[q0 + qb + q][c]
-      __syncthreads();
-      tile_product(Gs, Ws, PB + 2, C, TOK, PB, Ds + qb, P);  // da = g . vpb^T
-      __syncthreads();
-    }
-    // per token (a warp each): s, the mask, a on the split's columns,
-    // ds = round(s (da' - sum(da' s))) with da' = keep ? da / (1 - rate) : 0
-    for (int t = warp; t < TOK; t += WT / 32) {
-      float* srow = Ss + t * P;
-      float* drow = Ds + t * P;
-      const float inv = softmax_row(srow, P, lane);
-      const uint32_t x = elem_x(b, N, HP, n0 + t, q0);
-      float dot = 0.f;
-      for (int q = lane; q < P; q += 32) {
-        const float s = srow[q] * inv;
-        const bool keep = !p.d.on || keep_x(x + (uint32_t)q * K0, p.d);
-        const float da = keep ? drow[q] * p.d.inv : 0.f;
-        srow[q] = s;
-        drow[q] = da;
-        dot = fmaf(da, s, dot);
-        if (q >= qs && q < qs + CS)
-          As[t * CS + q - qs] = round_to<E>(keep ? s * p.d.inv : 0.f);
-      }
-      dot = wsum(dot);
-      for (int q = lane; q < P; q += 32)
-        drow[q] = round_to<E>(srow[q] * (drow[q] - dot));
-    }
-    __syncthreads();
-    // dqn's partial of the split: dq[t][c] = sum_q ds[t][qs + q] kpb[c][q0 +
-    // qs + q]
-    float* dq = p.dq_part + (((size_t)hs * B + b) * N + n0) * C;
-    for (int e = threadIdx.x; e < TOK * C; e += WT) {
-      const int t = e / C, c = e - t * C;
-      if (n0 + t >= N) continue;
-      const float* dr = Ds + t * P + qs;
-      const E* kr = Ks + c * KP;
-      float s = 0.f;
-      for (int q = 0; q < CS; ++q) s = fmaf(dr[q], to_f(kr[q]), s);
-      dq[e] = s;
-    }
-    // dkpb[c][q] += sum_t qn[t][c] ds[t][qs + q], dvpb[q][c] += sum_t
-    // a[t][q] g[t][c] (tokens past N are zero rows of Qs and Gs)
+  auto stage = [&](int i, int buf) {
+    const int t0 = (t_begin + i) * WSUM_T;
+    stage_tile(Xs + buf * WSUM_T * xp, xp, X + (size_t)t0 * HP + q0, HP,
+               WSUM_T, TQ, N - t0, TQ);
+    stage_tile(Ys + buf * WSUM_T * yp, yp, Y + (size_t)t0 * C + c0, C,
+               WSUM_T, TC, N - t0, C - c0);
+  };
+  stage(0, 0);
+  cp_async_commit();
+  // each step's 64 tokens are summed on the tensor cores from zero, and
+  // the step's sum is added to the chunk's in IEEE f32: the tensor cores'
+  // own accumulation then runs over 64 tokens at most, not the chunk's
+  // thousands (level 3 in f32: rel 1.9e-5 of max |dkpb| one chain, PERF.md)
+  stream(t_end - t_begin, stage, [&](int i, int buf) {
+    if (!act) return;
+    float part[4][4];
 #pragma unroll
-    for (int j = 0; j < WACC; ++j) {
-      const int e = threadIdx.x + WT * j;
-      if (e >= C * CS) break;
-      const int c = e / CS, q = e - c * CS;
-      float s = dk[j];
-      for (int t = 0; t < TOK; ++t)
-        s = fmaf(to_f(Qs[t * C + c]), Ds[t * P + qs + q], s);
-      dk[j] = s;
-      const int qv = e / C, cv = e - qv * C;
-      float v = dv[j];
-      for (int t = 0; t < TOK; ++t)
-        v = fmaf(As[t * CS + qv], to_f(Gs[t * C + cv]), v);
-      dv[j] = v;
-    }
-  }
-  // this chunk's partials of the split's columns
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[j][e] = 0.f;
+    warp_mma<true, false>(part, nj, Xs + buf * WSUM_T * xp, xp, wm * 16,
+                          Ys + buf * WSUM_T * yp, yp, wn * width, WSUM_T,
+                          lane);
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
+  });
+  if (!act) return;
   const size_t slot = (size_t)chunk * B + b;
+  const int q = q0 + wm * 16 + (lane >> 2);
 #pragma unroll
-  for (int j = 0; j < WACC; ++j) {
-    const int e = threadIdx.x + WT * j;
-    if (e >= C * CS) break;
-    const int c = e / CS, q = e - c * CS;
-    p.dk_part[(slot * C + c) * HP + q0 + qs + q] = dk[j];
-    const int qv = e / C, cv = e - qv * C;
-    p.dv_part[(slot * HP + q0 + qs + qv) * C + cv] = dv[j];
+  for (int j = 0; j < 4; ++j) {
+    if (j >= nj) break;
+    const int c = c0 + wn * width + 8 * j + 2 * (lane & 3);
+    if (c >= C) continue;
+    if (is_dv) {
+      float* d = p.dv_part + (slot * HP + q) * C + c;
+      *reinterpret_cast<float2*>(d) = make_float2(acc[j][0], acc[j][1]);
+      *reinterpret_cast<float2*>(d + 8 * C) = make_float2(acc[j][2],
+                                                          acc[j][3]);
+    } else {
+      float* d = p.dk_part + (slot * C + c) * HP + q;
+      d[0] = acc[j][0];
+      d[HP] = acc[j][1];
+      d[8] = acc[j][2];
+      d[HP + 8] = acc[j][3];
+    }
   }
 }
 
@@ -1243,46 +1396,61 @@ int launch_bwd(const BwdParams& p, const FinishParams& f, int B,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename E>
-int launch_fwd_wide(const WideFwd<E>& p, int B, cudaStream_t s) {
-  static bool ready = false;
-  auto kern = spatial_attn_fwd_kernel_wide<E>;
-  cudaError_t e = allow_smem(kern, ready);
+template <typename E, int P>
+int launch_rows(const WideRows<E>& p, int bwd, int B, cudaStream_t s) {
+  static bool ready[2] = {false, false};
+  auto kern = bwd ? spatial_attn_bwd_kernel_wide<E, P>
+                  : spatial_attn_fwd_kernel_wide<E, P>;
+  cudaError_t e = allow_smem(kern, ready[bwd]);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int bytes = wide_fwd_smem(sizeof(E), p.C, p.P, p.TOK, p.PB);
+  const int bytes = wide_rows_smem(sizeof(E), bwd, p.C, p.HP, p.kc, p.kq);
   if (bytes > SMEM_CAP) return static_cast<int>(cudaErrorInvalidValue);
-  kern<<<dim3((p.N + p.TOK - 1) / p.TOK, B), WT, bytes, s>>>(p);
+  kern<<<dim3((p.N + WTOK - 1) / WTOK, B), WT, bytes, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename E>
-int launch_bwd_wide(const WideBwd<E>& p, const FinishParams& f, int B,
-                    cudaStream_t s) {
+int launch_rows_p(const WideRows<E>& p, int bwd, int P, int B,
+                  cudaStream_t s) {
+  switch (P) {
+    case 16: return launch_rows<E, 16>(p, bwd, B, s);
+    case 32: return launch_rows<E, 32>(p, bwd, B, s);
+    case 64: return launch_rows<E, 64>(p, bwd, B, s);
+    case 128: return launch_rows<E, 128>(p, bwd, B, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <typename E>
+int launch_sums(const WideSums<E>& p, const FinishParams& f, int B,
+                cudaStream_t s) {
   static bool ready = false;
-  auto kern = spatial_attn_bwd_kernel_wide<E>;
+  auto kern = spatial_attn_bwd_sums_wide<E>;
   cudaError_t e = allow_smem(kern, ready);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int bytes = wide_bwd_smem(sizeof(E), p.C, p.P, p.TOK, p.S, p.PB);
+  const int bytes = wide_sums_smem(sizeof(E), p.C, p.HP);
   if (bytes > SMEM_CAP) return static_cast<int>(cudaErrorInvalidValue);
-  kern<<<dim3(p.chunks, p.HP / p.P * p.S, B), WT, bytes, s>>>(p);
+  const int ck = wide_ck(p.C);
+  const int tiles = p.HP / imin(p.HP, WSUM_Q) * (ck / imin(ck, WSUM_C));
+  kern<<<dim3(tiles, p.chunks, 2 * B), WT, bytes, s>>>(p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  const long long vecs = (2 * f.n_kv + f.n_q) / 4;
+  const long long vecs = 2 * f.n_kv / 4;
   spatial_attn_bwd_finish<<<(unsigned)((vecs + FT - 1) / FT), FT, 0, s>>>(f);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the widths of the wide instances: C a power of two from 8 to 512, P
-// 16 .. 128, TOK C <= 8192 with TOK a multiple of 16 and at most 64,
-// C P / S <= 8192, and PB columns staged at a time, a divisor of P and a
-// multiple of 8 (kernels/spatial_attn.py::wide_plan)
-bool wide_ok(int C, int P, int HP, int TOK, int S, int PB) {
+// the wide instances' widths: C a power of two from 8 to 512, P 16 .. 128,
+// 1, 2 or 4 heads; kc a power of two from 16 dividing C (padded to 16),
+// kq a power of two from 16 dividing hP (kernels/spatial_attn.py::
+// wide_plan)
+bool wide_ok(int C, int P, int HP, int kc, int kq) {
   const bool c_ok = C >= 8 && C <= 512 && (C & (C - 1)) == 0;
   const bool p_ok = P == 16 || P == 32 || P == 64 || P == 128;
-  return c_ok && p_ok && HP % P == 0 && TOK >= 16 && TOK <= 64 &&
-         TOK % 16 == 0 && TOK * C <= WIDE_SUMS && S >= 1 && P % S == 0 &&
-         (P / S) % 16 == 0 && C * (P / S) <= WIDE_SUMS && PB >= 8 &&
-         PB % 8 == 0 && P % PB == 0;
+  const int h = p_ok ? HP / P : 0;
+  return c_ok && p_ok && HP % P == 0 && (h == 1 || h == 2 || h == 4) &&
+         kc >= 16 && (kc & (kc - 1)) == 0 && wide_ck(C) % kc == 0 &&
+         kq >= 16 && (kq & (kq - 1)) == 0 && HP % kq == 0;
 }
 
 }  // namespace
@@ -1301,10 +1469,10 @@ extern "C" int fcd_spatial_attn_fwd(const void* qn, const void* kpb,
       (long long)blocks * per_block < (long long)((N + 15) / 16) * (C / cols))
     return static_cast<int>(cudaErrorInvalidValue);
   FwdParams p;
-  p.qn = static_cast<const bf16*>(qn);
-  p.kpb = static_cast<const bf16*>(kpb);
-  p.vpb = static_cast<const bf16*>(vpb);
-  p.out = static_cast<bf16*>(out);
+  p.qn = static_cast<const h16*>(qn);
+  p.kpb = static_cast<const h16*>(kpb);
+  p.vpb = static_cast<const h16*>(vpb);
+  p.out = static_cast<h16*>(out);
   p.N = N;
   p.HP = HP;
   p.units = (N + 15) / 16 * (C / cols);
@@ -1326,11 +1494,11 @@ extern "C" int fcd_spatial_attn_fwd(const void* qn, const void* kpb,
 // Scratch: dk_part and dv_part (chunks, B, C, HP) f32 each; dq_part (HP /
 // (hb P), B, N, C) f32 unless one block owns every head (then dqn is
 // written by the product kernel and dq_part is not read). dk and dv: f32,
-// or bf16 where dk_bf16 / dv_bf16.
+// or h16 where dk_h16 / dv_h16.
 extern "C" int fcd_spatial_attn_bwd(
     const void* qn, const void* kpb, const void* vpb, const void* g,
     void* dqn, float* dq_part, float* dk_part, float* dv_part, void* dk,
-    void* dv, int dk_bf16, int dv_bf16, int B, int N, int C, int HP, int P,
+    void* dv, int dk_h16, int dv_h16, int B, int N, int C, int HP, int P,
     int hb, int t, int chunks, unsigned key, unsigned thresh, float inv_keep,
     int drop, void* stream) {
   const int tiles = t > 0 ? (N + t - 1) / t : 0;
@@ -1341,11 +1509,11 @@ extern "C" int fcd_spatial_attn_bwd(
   if (!whole && dq_part == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   BwdParams p;
-  p.qn = static_cast<const bf16*>(qn);
-  p.kpb = static_cast<const bf16*>(kpb);
-  p.vpb = static_cast<const bf16*>(vpb);
-  p.g = static_cast<const bf16*>(g);
-  p.dqn = whole ? static_cast<bf16*>(dqn) : nullptr;
+  p.qn = static_cast<const h16*>(qn);
+  p.kpb = static_cast<const h16*>(kpb);
+  p.vpb = static_cast<const h16*>(vpb);
+  p.g = static_cast<const h16*>(g);
+  p.dqn = whole ? static_cast<h16*>(dqn) : nullptr;
   p.dq_part = dq_part;
   p.dk_part = dk_part;
   p.dv_part = dv_part;
@@ -1366,9 +1534,9 @@ extern "C" int fcd_spatial_attn_bwd(
   f.groups = whole ? 0 : HP / (hb * P);
   f.n_kv = (long long)B * C * HP;
   f.n_q = (long long)B * N * C;
-  f.dk_bf16 = dk_bf16;
-  f.dv_bf16 = dv_bf16;
-  f.dq_bf16 = 1;
+  f.dk_h16 = dk_h16;
+  f.dv_h16 = dv_h16;
+  f.dq_h16 = 1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C * 1000 + P * 10 + hb) {
 #define BWD_CASE(C, P, HB) \
@@ -1383,111 +1551,129 @@ namespace {
 
 template <typename E>
 int fwd_wide(const void* qn, const void* kpb, const void* vpb, void* out,
-             int B, int N, int C, int HP, int P, int tok, int pb,
+             int B, int N, int C, int HP, int P, int kc, int kq,
              unsigned key, unsigned thresh, float inv_keep, int drop,
              cudaStream_t stream) {
-  if (N < 1 || B < 1 || C < 1 ||
-      !wide_ok(C, P, HP, tok, C * P > WIDE_SUMS ? C * P / WIDE_SUMS : 1, pb))
+  if (N < 1 || B < 1 || !wide_ok(C, P, HP, kc, kq))
     return static_cast<int>(cudaErrorInvalidValue);
-  WideFwd<E> p;
+  WideRows<E> p;
   p.qn = static_cast<const E*>(qn);
   p.kpb = static_cast<const E*>(kpb);
   p.vpb = static_cast<const E*>(vpb);
+  p.g = nullptr;
   p.out = static_cast<E*>(out);
+  p.a = p.ds = nullptr;
   p.N = N;
   p.C = C;
   p.HP = HP;
-  p.P = P;
-  p.TOK = tok;
-  p.PB = pb;
+  p.kc = kc;
+  p.kq = kq;
   p.d = dropout(key, thresh, inv_keep, drop);
-  return launch_fwd_wide(p, B, stream);
+  return launch_rows_p(p, 0, P, B, stream);
 }
 
 template <typename E>
 int bwd_wide(const void* qn, const void* kpb, const void* vpb, const void* g,
-             void* dqn, float* dq_part, float* dk_part, float* dv_part,
-             void* dk, void* dv, int dk_bf16, int dv_bf16, int B, int N,
-             int C, int HP, int P, int tok, int chunks, int split, int pb,
-             unsigned key, unsigned thresh, float inv_keep, int drop,
-             cudaStream_t stream) {
-  const int tiles = tok > 0 ? (N + tok - 1) / tok : 0;
-  if (N < 1 || B < 1 || !wide_ok(C, P, HP, tok, split, pb) || chunks < 1 ||
-      chunks > tiles || dq_part == nullptr)
+             void* dqn, void* a, void* ds, float* dk_part, float* dv_part,
+             void* dk, void* dv, int dk_h16, int dv_h16, int B, int N, int C,
+             int HP, int P, int kc, int kq, int chunks, unsigned key,
+             unsigned thresh, float inv_keep, int drop, cudaStream_t stream) {
+  const int tiles = (N + WSUM_T - 1) / WSUM_T;
+  if (N < 1 || B < 1 || !wide_ok(C, P, HP, kc, kq) || chunks < 1 ||
+      chunks > tiles || a == nullptr || ds == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  WideBwd<E> p;
+  WideRows<E> p;
   p.qn = static_cast<const E*>(qn);
   p.kpb = static_cast<const E*>(kpb);
   p.vpb = static_cast<const E*>(vpb);
   p.g = static_cast<const E*>(g);
-  p.dq_part = dq_part;
-  p.dk_part = dk_part;
-  p.dv_part = dv_part;
+  p.out = static_cast<E*>(dqn);
+  p.a = static_cast<E*>(a);
+  p.ds = static_cast<E*>(ds);
   p.N = N;
   p.C = C;
   p.HP = HP;
-  p.P = P;
-  p.TOK = tok;
-  p.tiles = tiles;
-  p.chunks = chunks;
-  p.S = split;
-  p.PB = pb;
+  p.kc = kc;
+  p.kq = kq;
   p.d = dropout(key, thresh, inv_keep, drop);
+  int err = launch_rows_p(p, 1, P, B, stream);
+  if (err != 0) return err;
+  WideSums<E> q;
+  q.a = p.a;
+  q.ds = p.ds;
+  q.qn = p.qn;
+  q.g = p.g;
+  q.dk_part = dk_part;
+  q.dv_part = dv_part;
+  q.N = N;
+  q.C = C;
+  q.HP = HP;
+  q.tiles = tiles;
+  q.chunks = chunks;
   FinishParams f;
   f.dk_part = dk_part;
   f.dv_part = dv_part;
-  f.dq_part = dq_part;
+  f.dq_part = nullptr;
   f.dk = dk;
   f.dv = dv;
-  f.dqn = dqn;
+  f.dqn = nullptr;
   f.chunks = chunks;
-  f.groups = HP / P * split;
+  f.groups = 0;
   f.n_kv = (long long)B * C * HP;
-  f.n_q = (long long)B * N * C;
-  f.dk_bf16 = dk_bf16;
-  f.dv_bf16 = dv_bf16;
-  f.dq_bf16 = sizeof(E) == 2;
-  return launch_bwd_wide(p, f, B, stream);
+  f.n_q = 0;
+  f.dk_h16 = dk_h16;
+  f.dv_h16 = dv_h16;
+  f.dq_h16 = 0;
+  return launch_sums(q, f, B, stream);
 }
 
 }  // namespace
 
-// K3, the wide instances (C15) and, with f32 = 1, the f32 instances (C18):
-// tok tokens a block, grid (ceil(N / tok), B), pb columns of a head staged
-// at a time (kernels/spatial_attn.py::wide_plan); qn, kpb, vpb and out
-// bf16, or f32 with f32 = 1
+// K3, the wide instances (C15) and, with f32 = 1, the f32 instances (C18,
+// in the h16 = bf16 library only): row blocks of 32 tokens, grid (ceil(N /
+// 32), B), kpb's rows kc at a time and vpb's rows kq at a time
+// (kernels/spatial_attn.py::wide_plan); qn, kpb, vpb and out h16, or f32
+// with f32 = 1
 extern "C" int fcd_spatial_attn_fwd_wide(const void* qn, const void* kpb,
                                          const void* vpb, void* out, int B,
-                                         int N, int C, int HP, int P, int tok,
-                                         int pb, int f32, unsigned key,
+                                         int N, int C, int HP, int P, int kc,
+                                         int kq, int f32, unsigned key,
                                          unsigned thresh, float inv_keep,
                                          int drop, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f32 ? fwd_wide<float>(qn, kpb, vpb, out, B, N, C, HP, P, tok, pb,
-                               key, thresh, inv_keep, drop, s)
-             : fwd_wide<bf16>(qn, kpb, vpb, out, B, N, C, HP, P, tok, pb,
-                              key, thresh, inv_keep, drop, s);
+#ifndef FCD_F16
+  if (f32)
+    return fwd_wide<float>(qn, kpb, vpb, out, B, N, C, HP, P, kc, kq, key,
+                           thresh, inv_keep, drop, s);
+#else
+  if (f32) return static_cast<int>(cudaErrorInvalidValue);
+#endif
+  return fwd_wide<h16>(qn, kpb, vpb, out, B, N, C, HP, P, kc, kq, key,
+                       thresh, inv_keep, drop, s);
 }
 
-// K4 and its finishing pass, the wide instances and (f32 = 1) the f32
-// ones: tok tokens a step, chunks of the ceil(N / tok) tiles, each head's
-// P columns split over `split` blocks, pb columns staged at a time.
-// Scratch: dk_part, dv_part (chunks, B, C, HP) f32 each; dq_part (HP / P *
-// split, B, N, C) f32. dk and dv: f32, or bf16 where dk_bf16 / dv_bf16;
-// dqn in the operands' type.
+// K4, the wide and (f32 = 1) the f32 instances: the row blocks (dqn, and
+// a and ds into the scratch), the token sums (chunks of the ceil(N / 64)
+// 64-token steps, one f32 partial of dkpb and dvpb a chunk) and the
+// finishing pass, three launches. Scratch: a, ds (B, N, HP) in the
+// operands' type; dk_part, dv_part (chunks, B, C, HP) f32. dk and dv: f32,
+// or h16 where dk_h16 / dv_h16; dqn in the operands' type.
 extern "C" int fcd_spatial_attn_bwd_wide(
     const void* qn, const void* kpb, const void* vpb, const void* g,
-    void* dqn, float* dq_part, float* dk_part, float* dv_part, void* dk,
-    void* dv, int dk_bf16, int dv_bf16, int B, int N, int C, int HP, int P,
-    int tok, int chunks, int split, int pb, int f32, unsigned key,
-    unsigned thresh, float inv_keep, int drop, void* stream) {
+    void* dqn, void* a, void* ds, float* dk_part, float* dv_part, void* dk,
+    void* dv, int dk_h16, int dv_h16, int B, int N, int C, int HP, int P,
+    int kc, int kq, int chunks, int f32, unsigned key, unsigned thresh,
+    float inv_keep, int drop, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return f32 ? bwd_wide<float>(qn, kpb, vpb, g, dqn, dq_part, dk_part,
-                               dv_part, dk, dv, dk_bf16, dv_bf16, B, N, C,
-                               HP, P, tok, chunks, split, pb, key, thresh,
-                               inv_keep, drop, s)
-             : bwd_wide<bf16>(qn, kpb, vpb, g, dqn, dq_part, dk_part,
-                              dv_part, dk, dv, dk_bf16, dv_bf16, B, N, C, HP,
-                              P, tok, chunks, split, pb, key, thresh,
-                              inv_keep, drop, s);
+#ifndef FCD_F16
+  if (f32)
+    return bwd_wide<float>(qn, kpb, vpb, g, dqn, a, ds, dk_part, dv_part, dk,
+                           dv, dk_h16, dv_h16, B, N, C, HP, P, kc, kq, chunks,
+                           key, thresh, inv_keep, drop, s);
+#else
+  if (f32) return static_cast<int>(cudaErrorInvalidValue);
+#endif
+  return bwd_wide<h16>(qn, kpb, vpb, g, dqn, a, ds, dk_part, dv_part, dk, dv,
+                       dk_h16, dv_h16, B, N, C, HP, P, kc, kq, chunks, key,
+                       thresh, inv_keep, drop, s);
 }

@@ -7,10 +7,15 @@ the roi, the MONAI-parity dense patch grid, patches run in batches of
 in patch order, then multiplied by the reciprocal coverage and cropped
 back. The volume enters through `kernels/sw_io.py::sw_entry` (pad + cast,
 B17's function) and leaves through `sw_exit` (coverage multiply + crop,
-B6's function), once per call each. B17 serves bf16 only, as the JAX
-engine's Pallas entry does (`fcd_tpu/infer/sliding_window.py:274-278`):
-at f32 the volume enters as the JAX package's f32 route does, padded
-with no cast (`F.pad`). The exit takes the f32 accumulator either way.
+B6's function), once per call each. `compute_dtype` is the JAX engine's
+argument of that name, the dtype the volume enters in: the JAX trainer
+passes bf16 whenever use_amp, whatever its model computes in, and f32
+without (`fcd_tpu/train/trainer.py:282-284`; the port's trainer follows
+it, `train/trainer.py::entry_dtype_for`), so an f16 model gets
+bf16-rounded patches. B17 serves bf16, as the JAX engine's Pallas entry
+does (`fcd_tpu/infer/sliding_window.py:274-278`); another dtype enters
+padded with a cast (`F.pad`). The exit takes the f32 accumulator either
+way.
 The accumulation itself is plain PyTorch, as the JAX package leaves it to
 XLA on this path. The reciprocal
 coverage and the importance map stay on the device, cached per grid, as

@@ -8,6 +8,10 @@ is rebuilt and a stale library is never loaded. `build_all()` starts one
 `nvcc` per source at once and waits for all of them. nvcc runs with
 `-Xptxas -v`; its log (each kernel's registers, shared memory and spills)
 is kept beside the library as `lib<name>-<hash>.log` (`build_log`).
+`dsa_f16` and `spatial_attn_f16` (`VARIANTS`) are `dsa.cu` and
+`spatial_attn.cu` built again with `-DFCD_F16`: the same kernels on f16
+operands (`csrc/h16.cuh`, ROADMAP C20). A library's hash covers its
+source, the shared headers and its flags.
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` raises if that is not 0.
@@ -26,16 +30,21 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fcd_tpu_torch"
-SOURCES = ("conv3d", "conv3d_wgrad", "upsample", "dsa", "dsa_f32",
-           "spatial_attn", "sw_io", "finale_head", "finale_bwd",
-           "pool2x_bwd")
+SOURCES = ("conv3d", "conv3d_wgrad", "upsample", "dsa", "dsa_f16", "dsa_f32",
+           "spatial_attn", "spatial_attn_f16", "sw_io", "finale_head",
+           "finale_bwd", "pool2x_bwd")
+# a library built from another library's source with flags of its own:
+# name -> (source, flags)
+VARIANTS = {"dsa_f16": ("dsa", ("-DFCD_F16",)),
+            "spatial_attn_f16": ("spatial_attn", ("-DFCD_F16",))}
+HEADERS = ("h16.cuh",)   # included by the sources, part of every hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # the end of a bf16-only kernel's refusal of another dtype
 BF16_ONLY = (": it takes bf16 only, as its Pallas counterpart does; a model "
-             "that computes in f32 takes the JAX package's f32 route, which "
-             "launches no such kernel (ROADMAP C18)")
+             "that computes in f32 or f16 takes the JAX package's route for "
+             "those types, which launches no such kernel (ROADMAP C18, C20)")
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -52,9 +61,18 @@ def nvcc() -> str:
     return found
 
 
+def _source(name: str):
+    """(the .cu file, its extra nvcc flags) of library `name`."""
+    src, flags = VARIANTS.get(name, (name, ()))
+    return CSRC / f"{src}.cu", flags
+
+
 def _lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    src, flags = _source(name)
+    data = src.read_bytes() + b"".join(
+        (CSRC / h).read_bytes() for h in HEADERS)
+    digest = hashlib.sha256(
+        data + " ".join(NVCC_FLAGS + flags).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
 
@@ -69,14 +87,15 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Path]:
         if lib.exists():
             continue
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        src, flags = _source(name)
+        cmd = [nvcc(), *NVCC_FLAGS, *flags, "-o", str(tmp), str(src)]
         procs.append((name, lib, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)))
     errors = []
     for name, lib, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            errors.append(f"nvcc {name}.cu failed:\n{log.decode()}")
+            errors.append(f"nvcc {name} failed:\n{log.decode()}")
         else:
             lib.with_suffix(".log").write_bytes(log)
             os.replace(tmp, lib)
@@ -119,3 +138,11 @@ def stream() -> ctypes.c_void_p:
 
     return ctypes.c_void_p(
         torch._C._cuda_getCurrentRawStream(torch.cuda.current_device()))
+
+
+class Launches:
+    """A launch count of its own, for a wrapper that counts the instances
+    of each operand type apart (`launches`, as on the wrappers)."""
+
+    def __init__(self) -> None:
+        self.launches = 0

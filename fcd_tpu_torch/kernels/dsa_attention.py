@@ -22,6 +22,14 @@ v_sa (`w_qkvv[:, s*C:(s+1)*C]`, (C, 4C)) for sa_type 'parallel', and q,
 k, v ((C, 3C)) for 'serial', 'spatial' and 'channel'; the kernels read
 it, and `EF`, as they are (f32 or bf16), rounding to bf16 on load.
 
+The dtype picks the instances: bf16 tokens run `libdsa`; f16 tokens (a
+model that computes in f16, ROADMAP C20) the same source built with
+-DFCD_F16 (`libdsa_f16`: every bf16 rounding point an f16 one, the
+weights and EF f32 or f16), counted on `PHASE_A_F16` / `PHASE_B_F16`;
+f32 tokens `csrc/dsa_f32.cu` (`_dsa_phase_a_f32`, C18), counted on
+`PHASE_A_F32` / `PHASE_B_F32`. The plain versions round at the tokens'
+dtype.
+
 The four types (`fcd_tpu/kernels/dsa_attention.py:121-181`, slot map
 :223): phase A sums q^T k, q2, k2 and, except for 'channel', kp and vp
 (v_sa is slot 3, or slot 2); the finishing pass writes `abig` for every
@@ -422,13 +430,19 @@ _FNS = {}
 
 
 def _fn(name: str, argtypes, lib: str = "dsa"):
-    fn = _FNS.get(name)
+    fn = _FNS.get((lib, name))
     if fn is None:
         fn = getattr(_build.load(lib), name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _FNS[name] = fn
+        _FNS[(lib, name)] = fn
     return fn
+
+
+# the 16-bit instances: csrc/dsa.cu built for bf16 (the kernel route) and,
+# with -DFCD_F16, for f16 (a model that computes in f16, ROADMAP C20),
+# whose launches are counted apart
+_LIB16 = {torch.bfloat16: "dsa", torch.float16: "dsa_f16"}
 
 
 def _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads,
@@ -449,16 +463,16 @@ def _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads,
 
 
 def _cuda_operands(what, x, named):
-    """The kernels read every operand as it lies: bf16 (or, the f32
+    """The kernels read every operand as it lies: bf16 or f16 (or, the f32
     instances, f32) contiguous tokens, and each (name, tensor, dtypes) on
     x's device, contiguous, 16-byte aligned and of one of `dtypes`. Raises
     on anything else."""
     if x.device.type != "cuda":
         raise ValueError(f"{what}: unsupported device {x.device}")
-    if x.dtype not in (torch.bfloat16, torch.float32):
+    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
         raise TypeError(f"{what} kernels take bf16 tokens (the kernel "
-                        f"route) or f32 tokens (the f32 route, ROADMAP "
-                        f"C18), got {x.dtype}")
+                        f"route), f16 tokens (ROADMAP C20) or f32 tokens "
+                        f"(the f32 route, ROADMAP C18), got {x.dtype}")
     for name, t, dtypes in (("tokens", x, (x.dtype,)), *named):
         if t is None:
             continue
@@ -474,7 +488,6 @@ def _cuda_operands(what, x, named):
 
 
 _F32 = (torch.float32,)
-_F32_BF16 = (torch.float32, torch.bfloat16)
 
 
 def _phase_a_buffers(x, plan: DsaPlan, glue: bool):
@@ -529,8 +542,9 @@ def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
         return _dsa_phase_a_f32(x, w_qkvv, ef, ln_scale, ln_bias,
                                 pos_embed, h, eps, temperatures, plan,
                                 sa_type)
+    lo = (torch.float32, x.dtype)   # f32, or the tokens' 16-bit type
     _cuda_operands("dsa_phase_a", x, (
-        ("w_qkvv", w_qkvv, _F32_BF16), ("ef", ef, _F32_BF16),
+        ("w_qkvv", w_qkvv, lo), ("ef", ef, lo),
         ("pos_embed", pos_embed, _F32), ("ln_scale", ln_scale, _F32),
         ("ln_bias", ln_bias, _F32), ("temperature", t1, _F32),
         ("temperature2", t2, _F32)))
@@ -541,7 +555,8 @@ def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
     part, out = _phase_a_buffers(x, plan, temperatures is not None)
     vp_, ci = ctypes.c_void_p, ctypes.c_int
     fn = _fn("fcd_dsa_phase_a", [vp_] * 5 + [ci, ci, vp_, ci, vp_, ci]
-             + [vp_] * 7 + [ci] * 8 + [ctypes.c_float, vp_])
+             + [vp_] * 7 + [ci] * 8 + [ctypes.c_float, vp_],
+             _LIB16[x.dtype])
     ptr = _build.ptr
     err = fn(ptr(x), ptr(pos_embed), ptr(ln_scale), ptr(ln_bias),
              ptr(w_qkvv), int(w_qkvv.dtype == torch.float32),
@@ -552,7 +567,7 @@ def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
              b, n, c, p, h, plan.tile, plan.per_chunk, plan.chunks,
              float(eps), _build.stream())
     _build.check(err, "dsa_phase_a")
-    dsa_phase_a.launches += 1
+    _COUNTS[x.dtype][0].launches += 1
     return out
 
 
@@ -585,19 +600,20 @@ def dsa_phase_b(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale, ln_bias,
         return _dsa_phase_b_f32(x, w_qkvv, qnorm, abig, kpt, vp, gamma,
                                 ln_scale, ln_bias, pos_embed, h, eps, plan,
                                 sa_type)
-    bf = (torch.bfloat16,)
+    lo = (x.dtype,)   # the tokens' 16-bit type
     _cuda_operands("dsa_phase_b", x, (
-        ("w_qkvv", w_qkvv, _F32_BF16), ("pos_embed", pos_embed, _F32),
-        ("ln_scale", ln_scale, _F32), ("ln_bias", ln_bias, _F32),
-        ("qnorm", qnorm, _F32), ("abig", abig, bf), ("kpt", kpt, bf),
-        ("vp", vp, bf), ("gamma", gamma, _F32)))
+        ("w_qkvv", w_qkvv, (torch.float32, x.dtype)),
+        ("pos_embed", pos_embed, _F32), ("ln_scale", ln_scale, _F32),
+        ("ln_bias", ln_bias, _F32), ("qnorm", qnorm, _F32),
+        ("abig", abig, lo), ("kpt", kpt, lo), ("vp", vp, lo),
+        ("gamma", gamma, _F32)))
     plan = plan or dsa_plan(n, c, p, h, b)
     if plan.p != p:
         raise ValueError(f"dsa_phase_b: a plan for P={plan.p} given P={p}")
     out = torch.empty_like(x)
     vp_, ci = ctypes.c_void_p, ctypes.c_int
     fn = _fn("fcd_dsa_phase_b", [vp_] * 5 + [ci, ci] + [vp_] * 6 + [ci] * 6
-             + [ctypes.c_float, vp_])
+             + [ctypes.c_float, vp_], _LIB16[x.dtype])
     ptr = _build.ptr
     err = fn(ptr(x), ptr(pos_embed), ptr(ln_scale), ptr(ln_bias),
              ptr(w_qkvv), int(w_qkvv.dtype == torch.float32),
@@ -605,7 +621,7 @@ def dsa_phase_b(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale, ln_bias,
              ptr(abig), ptr(kpt), ptr(vp), ptr(gamma), ptr(out), b, n, c, p,
              h, plan.tile, float(eps), _build.stream())
     _build.check(err, "dsa_phase_b")
-    dsa_phase_b.launches += 1
+    _COUNTS[x.dtype][1].launches += 1
     return out
 
 
@@ -614,7 +630,7 @@ def _dsa_phase_a_f32(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed,
                      plan: Optional[DsaPlan] = None,
                      sa_type: str = "parallel"):
     """`dsa_phase_a` on f32 CUDA tokens (csrc/dsa_f32.cu): the sums kernel
-    and the finishing pass, two launches and one count of its own. Every
+    and the finishing pass, two launches and one count (`PHASE_A_F32`). Every
     operand f32; `plan` defaults to `dsa_plan_f32`'s."""
     _cuda_operands("dsa_phase_a_f32", x, (
         ("w_qkvv", w_qkvv, _F32), ("ef", ef, _F32),
@@ -642,7 +658,7 @@ def _dsa_phase_a_f32(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed,
              b, n, c, p, h, plan.tile, plan.per_chunk, plan.chunks,
              float(eps), _build.stream())
     _build.check(err, "dsa_phase_a_f32")
-    _dsa_phase_a_f32.launches += 1
+    _COUNTS[x.dtype][0].launches += 1
     return out
 
 
@@ -650,8 +666,9 @@ def _dsa_phase_b_f32(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale,
                      ln_bias, pos_embed, num_heads: int, eps: float = 1e-5,
                      plan: Optional[DsaPlan] = None,
                      sa_type: str = "parallel") -> torch.Tensor:
-    """`dsa_phase_b` on f32 CUDA tokens (csrc/dsa_f32.cu): one launch, its
-    own count. Every operand f32; `plan` defaults to `dsa_plan_f32`'s."""
+    """`dsa_phase_b` on f32 CUDA tokens (csrc/dsa_f32.cu): one launch,
+    counted on `PHASE_B_F32`. Every operand f32; `plan` defaults to
+    `dsa_plan_f32`'s."""
     _cuda_operands("dsa_phase_b_f32", x, (
         ("w_qkvv", w_qkvv, _F32), ("pos_embed", pos_embed, _F32),
         ("ln_scale", ln_scale, _F32), ("ln_bias", ln_bias, _F32),
@@ -674,14 +691,18 @@ def _dsa_phase_b_f32(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale,
              ptr(vp), ptr(gamma), ptr(out), b, n, c, p, h, plan.tile,
              float(eps), _build.stream())
     _build.check(err, "dsa_phase_b_f32")
-    _dsa_phase_b_f32.launches += 1
+    _COUNTS[x.dtype][1].launches += 1
     return out
 
 
 dsa_phase_a.launches = 0
 dsa_phase_b.launches = 0
-_dsa_phase_a_f32.launches = 0
-_dsa_phase_b_f32.launches = 0
+# the f16 (ROADMAP C20) and f32 (C18) instances' launches, counted apart
+PHASE_A_F16, PHASE_B_F16 = _build.Launches(), _build.Launches()
+PHASE_A_F32, PHASE_B_F32 = _build.Launches(), _build.Launches()
+_COUNTS = {torch.bfloat16: (dsa_phase_a, dsa_phase_b),
+           torch.float16: (PHASE_A_F16, PHASE_B_F16),
+           torch.float32: (PHASE_A_F32, PHASE_B_F32)}
 
 
 def dsa_attention(x, w_qkvv, ef, temperature, temperature2, ln_scale,
@@ -690,7 +711,7 @@ def dsa_attention(x, w_qkvv, ef, temperature, temperature2, ln_scale,
                   sa_type: str = "parallel") -> torch.Tensor:
     """Eval DSA block on tokens (B, N, C): `t + gamma * DSA(LN(t))` with
     `t = x + pos_embed`. CPU: dsa_reference; CUDA: phase A with its
-    finishing pass, then phase B (the bf16 or the f32 instances, by x's
+    finishing pass, then phase B (the bf16, f16 or f32 instances, by x's
     dtype)."""
     if x.device.type == "cpu":
         return dsa_reference(x, w_qkvv, ef, temperature, temperature2,

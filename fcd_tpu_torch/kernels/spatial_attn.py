@@ -6,7 +6,7 @@ and `spatial_attn_bwd_pallas` (K4). The CUDA kernels are
 bounds them on the card and what their design does about that.
 
     attn = softmax_per_head(qn @ kpb) dropped out (rate, inverted scaling)
-    out  = bf16(attn) @ vpb
+    out  = round(attn) @ vpb
 
 qn (B, N, C), kpb (B, C, h*P) (block-expanded keys, temperature folded),
 vpb (B, h*P, C). `SpatialAttn` is the `torch.autograd.Function` the train
@@ -20,25 +20,32 @@ the salt names the layer, so every layer of every step draws its own
 mask. The JAX package draws from another stream (ROADMAP C2): parity with
 it holds at rate 0.
 
-CPU tensors take the plain PyTorch versions; CUDA tensors launch the
-kernels or raise. The kernels take bf16 tensors; f32 tensors (the f32
-route of a model that computes in f32, ROADMAP C18, where the JAX package
-runs `spatial_attn_train` in f32 and its bf16 roundings are no-ops) run
-the wide instances' f32 instantiation at every (C, P) of B5's set
-(`spatial_attn_fwd` and `_bwd` dispatch on the dtype to
-`_spatial_attn_fwd_f32` / `_bwd_f32`, counted apart and planned by
-`spatial_attn_plan_f32`). The plain versions serve both dtypes.
-`spatial_attn_plan` (pure Python) picks their tiles, chunks and head split; one K3 call is one
-launch, one K4 call two (the product kernel and its finishing pass, which
-adds the partial sums in a fixed order and writes dkpb and dvpb in the
-dtype the caller asks for).
+CPU tensors take the plain PyTorch versions (every dtype: they round at
+the operands' type); CUDA tensors launch the kernels or raise. The
+wrappers dispatch on the operands' dtype, as the JAX package's
+dtype-generic kernels run at the model's compute type:
 
-Widths: every (C, P) that B5 takes with 4 heads (C a power of two from 8
-to 512, P 16, 32, 64 or 128). The tensor-core instances take
-`SHAPES` (C 16 .. 256, P <= 64, C P <= 8192); the others (`SHAPES_WIDE`)
-run the wide instances of the same source (a `wide` plan, `wide_plan`):
-CUDA-core kernels whose K4 splits each head's P columns over `col_split`
-blocks so that a block's dkpb and dvpb sums stay 32 f32 a thread.
+- bf16 (the kernel route): `libspatial_attn`, counted on
+  `spatial_attn_fwd.launches` / `spatial_attn_bwd.launches`;
+- f16 (a model that computes in f16, ROADMAP C20): the same source built
+  with -DFCD_F16 (`libspatial_attn_f16`), the same plans, counted on
+  `FWD_F16` / `BWD_F16`;
+- f32 (the f32 route, ROADMAP C18, where the JAX package's bf16 roundings
+  are no-ops): the wide kernels' f32 instances at every (C, P) of B5's
+  set, planned by `spatial_attn_plan_f32`, counted on `FWD_F32` /
+  `BWD_F32`.
+
+Widths: every (C, P) that B5 takes (C a power of two from 8 to 512, P 16,
+32, 64 or 128). The 16-bit tensor-core instances take `SHAPES` (C 16 ..
+256, P <= 64, C P <= 8192, any heads): K3 one launch, K4 two (the product
+kernel and its finishing pass, which adds the partial sums in a fixed
+order). The others (`SHAPES_WIDE`), and every f32 call, run the wide
+instances (`wide_plan`, 1, 2 or 4 heads): 32-token row blocks that own
+every head (K3 one launch), and for K4 the row blocks, the token sums of
+dkpb and dvpb in chunks of the tokens, and the finishing pass (three
+launches). Every plan is pure Python; the finishing pass writes dkpb and
+dvpb in the dtype the caller asks for (f32, or the operands' 16-bit
+type).
 """
 
 from __future__ import annotations
@@ -168,14 +175,15 @@ WIDTHS = tuple(8 << i for i in range(7))        # C: 8 .. 512
 PROJECTIONS = (16, 32, 64, 128)
 SHAPES_WIDE = tuple((c, p) for c in WIDTHS for p in PROJECTIONS
                     if (c, p) not in SHAPES)
-WIDE_SUMS = 8192      # a wide block's tokens x C, and K4's C x its columns
-WIDE_TILE = 64        # a wide block's tokens at most
-
-
-def wide_tile(c: int) -> int:
-    """A wide block's tokens: 4096 / C within 16 .. WIDE_TILE (tokens x C
-    <= WIDE_SUMS), so that level-4 and -5 grids give 128 blocks or more."""
-    return max(16, min(WIDE_TILE, 4096 // c))
+WIDE_HEADS = (1, 2, 4)       # heads a wide row block owns (a unit a warp)
+WIDE_TOKENS = 32             # tokens of a wide row block (csrc WTOK)
+SUM_TOKENS = 64              # the token sums' step (WSUM_T)
+SUM_TILE = 64                # their tile: hP rows and C columns at most
+STAGE_BYTES = 48 << 10       # one stage of a row block's streamed operand;
+                             # half that where the row blocks fill the card
+                             # twice over, so that two blocks share an SM,
+                             # and no cap but the SM's where they make less
+                             # than one wave (fewer chunks, fewer waits)
 
 
 def _pitch(n: int) -> int:
@@ -198,25 +206,48 @@ def smem_bwd(c: int, hbp: int, t: int) -> int:
                 + 2 * t * _pitch(hbp))
 
 
-def smem_fwd_wide(c: int, p: int, t: int, esize: int = 2,
-                  pb: Optional[int] = None) -> int:
-    """A wide K3 block (csrc/spatial_attn.cu::wide_fwd_smem): the qn tile,
-    pb columns (all P by default) of one head's C x P operand at pitch
-    pb + 2, the head's f32 scores; operands of `esize` bytes (2 bf16, 4
-    f32)."""
-    pb = p if pb is None else pb
-    return esize * t * c + esize * c * (pb + 2) + 4 * t * p
+def wide_ck(c: int) -> int:
+    """csrc/spatial_attn.cu::wide_ck: C padded with zero columns to 16."""
+    return max(c, 16)
 
 
-def smem_bwd_wide(c: int, p: int, t: int, split: int, esize: int = 2,
-                  pb: Optional[int] = None) -> int:
-    """A wide K4 block (csrc/spatial_attn.cu::wide_bwd_smem): the qn and g
-    tiles, pb columns of one head's C x P operand at pitch pb + 2, s and
-    da / ds (t x P f32), a on its P / split columns, and those columns of
-    kpb at pitch P / split + 2."""
-    cs, pb = p // split, p if pb is None else pb
-    return (2 * esize * t * c + esize * c * (pb + 2) + 8 * t * p
-            + 4 * t * cs + esize * c * (cs + 2))
+def _pitch_rows(es: int, n: int) -> int:
+    """csrc::pitch_rows: a tile's row pitch where a fragment runs along
+    the rows (16-bit: `_pitch`; f32: an odd multiple of 4)."""
+    return _pitch(n) if es == 2 else -(-n // 8) * 8 + 4
+
+
+def _pitch_cols(es: int, n: int) -> int:
+    """csrc::pitch_cols: where it runs along the columns (f32: an odd
+    multiple of 8)."""
+    return _pitch(n) if es == 2 else -(-n // 16) * 16 + 8
+
+
+def wide_stage(es: int, bwd: bool, c: int, hp: int, kc: int, kq: int) -> int:
+    """Elements of one stage of a wide row block's streamed operand: kc
+    rows of kpb, kc columns of vpb (K4), kq rows of vpb (K3) or kq columns
+    of kpb (K4)."""
+    ck = wide_ck(c)
+    return max(kc * _pitch_cols(es, hp),
+               hp * _pitch_rows(es, kc) if bwd else 0,
+               ck * _pitch_rows(es, kq) if bwd else kq * _pitch_cols(es, ck))
+
+
+def smem_rows_wide(es: int, bwd: bool, c: int, hp: int, kc: int,
+                   kq: int) -> int:
+    """A wide row block's shared memory (csrc::wide_rows_smem): the qn tile
+    (and K4's g tile), overlaid by a or ds, and two stages."""
+    tiles = max(WIDE_TOKENS * _pitch_rows(es, wide_ck(c)) * (2 if bwd else 1),
+                WIDE_TOKENS * _pitch_rows(es, hp))
+    return es * (tiles + 2 * wide_stage(es, bwd, c, hp, kc, kq))
+
+
+def smem_sums_wide(es: int, c: int, hp: int) -> int:
+    """A token-sums block's (csrc::wide_sums_smem): two stages of
+    SUM_TOKENS tokens of a or ds and of qn or g."""
+    return es * 2 * SUM_TOKENS * (_pitch_cols(es, min(hp, SUM_TILE))
+                                  + _pitch_cols(es, min(wide_ck(c),
+                                                        SUM_TILE)))
 
 
 class SpattnPlan(NamedTuple):
@@ -224,7 +255,10 @@ class SpattnPlan(NamedTuple):
     K3's 16 x cols outputs a warp, K4's dkpb and dvpb sums over its chunk
     (split over the block's warps) and, split by row, dqn; split by head,
     dqn goes out as f32 partials (`dq_groups`) that the finishing pass
-    adds."""
+    adds. A wide plan: K3 and K4's row blocks take 32 tokens (2 units of
+    16) and every head; K4's token sums take `chunks` chunks of the
+    `tiles` steps of `tile` (64) tokens, `sum_tiles` tiles of dkpb^T and
+    dvpb each."""
     n: int
     c: int
     p: int
@@ -239,9 +273,9 @@ class SpattnPlan(NamedTuple):
     head_block: int  # K4: heads a block owns
     chunks: int      # K4: blocks along the tokens per head group and item
     smem_bwd: int
-    wide: bool = False   # the wide instances (SHAPES_WIDE)
-    col_split: int = 1   # wide K4: blocks each head's P columns split over
-    col_block: int = 0   # wide: a head's columns staged at a time (0: P)
+    wide: bool = False   # the wide instances (SHAPES_WIDE, and f32)
+    k_chunk: int = 0     # wide: C (padded) a stage of the logits takes
+    q_chunk: int = 0     # wide: hP a stage of the second product takes
     f32: bool = False    # the f32 instances
 
     @property
@@ -255,29 +289,43 @@ class SpattnPlan(NamedTuple):
 
     @property
     def split(self) -> str:
-        """"row": a K4 block owns every head and writes dqn itself; "head":
-        each head group (wide: each head's column split) writes an f32
-        partial of dqn, added in group order by the finishing pass."""
-        return "row" if self.head_block == self.heads > 1 else "head"
+        """"row": a K4 block owns every head and writes dqn itself (every
+        wide plan); "head": each head group writes an f32 partial of dqn,
+        added in group order by the finishing pass."""
+        return ("row" if self.wide or self.head_block == self.heads > 1
+                else "head")
 
     @property
     def dq_groups(self) -> int:
-        return 0 if self.split == "row" else self.head_groups * self.col_split
+        return 0 if self.split == "row" else self.head_groups
 
     @property
     def fwd_grid(self) -> int:
         return self.fwd_blocks * self.batch
 
     @property
+    def sum_tiles(self) -> int:
+        """Wide K4: the token sums' tiles of one (hP x C) sum."""
+        hp, ck = self.heads * self.p, wide_ck(self.c)
+        return (hp // min(hp, SUM_TILE)) * (ck // min(ck, SUM_TILE))
+
+    @property
     def bwd_grid(self) -> int:
-        return self.chunks * self.head_groups * self.col_split * self.batch
+        """K4's product blocks (wide: the token sums', two sums a batch
+        item; its row blocks are `fwd_grid`)."""
+        if self.wide:
+            return self.chunks * self.sum_tiles * 2 * self.batch
+        return self.chunks * self.head_groups * self.batch
 
     @property
     def partial_bytes(self) -> int:
-        """K4's f32 scratch: the chunks' dkpb and dvpb, the groups' dqn."""
+        """K4's scratch: the chunks' f32 dkpb and dvpb, the groups' f32
+        dqn; wide, a and ds in the operands' type."""
         hp = self.heads * self.p
-        return 4 * (2 * self.chunks * self.batch * self.c * hp
-                    + self.dq_groups * self.batch * self.n * self.c)
+        rows = (2 * self.batch * self.n * hp * (4 if self.f32 else 2)
+                if self.wide else 0)
+        return rows + 4 * (2 * self.chunks * self.batch * self.c * hp
+                           + self.dq_groups * self.batch * self.n * self.c)
 
     def fwd_units(self, block: int) -> range:
         """The K3 units block `block` walks (unit u: tokens 16 (u // g) ..,
@@ -357,41 +405,57 @@ def spatial_attn_plan(n: int, c: int, p: int, heads: int,
 def wide_plan(n: int, c: int, p: int, heads: int,
               batch: int = 1, f32: bool = False) -> SpattnPlan:
     """The wide instances' plan at (C, P) in SHAPES_WIDE (with f32, the f32
-    instances' at any (C, P) of WIDTHS x PROJECTIONS): tiles of
-    wide_tile(C) tokens (a K3 block takes one; units of
-    16 tokens, one column group), each head's P columns split over C P /
-    WIDE_SUMS K4 blocks (at least 1), and K4 blocks along the tokens as
-    many as make about one wave, their partials within PART_BUDGET. The
-    bf16 instances stage a head's P columns at once; the f32 ones the most
-    of P, P / 2, P / 4, ... (at least 8) whose blocks fit shared memory.
-    Raises ValueError on what they do not take."""
+    instances' at any (C, P) of WIDTHS x PROJECTIONS), 1, 2 or 4 heads:
+    row blocks of WIDE_TOKENS tokens, whose logits take kpb's rows
+    `k_chunk` at a time and whose second product hP `q_chunk` at a time,
+    the largest powers of two whose two stages fit beside the tiles
+    (STAGE_BYTES a stage at most, half that where the row blocks make two
+    waves or more, the SM's whole where they make less than one or where
+    nothing fits the cap); K4's token sums in chunks of the
+    SUM_TOKENS-token steps, as many as make about two waves, their f32
+    partials within PART_BUDGET. Raises ValueError on what they do not
+    take."""
     ok = ((c in WIDTHS and p in PROJECTIONS) if f32
           else (c, p) in SHAPES_WIDE)
-    if not ok or heads < 1 or n < 1 or batch < 1:
+    if not ok or heads not in WIDE_HEADS or n < 1 or batch < 1:
         raise ValueError(f"spatial_attn wide kernels: N={n} C={c} P={p} "
-                         f"heads={heads} batch={batch} not supported")
-    tok = wide_tile(c)
-    split = max(1, c * p // WIDE_SUMS)
-    units = -(-n // 16)
-    per_block = tok // 16
-    tiles = -(-n // tok)
-    most = max(1, PART_BUDGET // (8 * batch * c * heads * p))
-    chunks = max(1, min(SMS // (heads * split * batch), most, tiles))
-    esize = 4 if f32 else 2
-    blocks = [p >> k for k in range(5) if p >> k >= 8] if f32 else [p]
+                         f"heads={heads} batch={batch} not supported (heads "
+                         f"in {WIDE_HEADS})")
+    es, hp, ck = (4 if f32 else 2), heads * p, wide_ck(c)
+    rows = -(-n // WIDE_TOKENS) * batch
+    cap = (SMEM_CAP if rows <= SMS else
+           STAGE_BYTES // (2 if rows > 2 * SMS else 1))
 
-    def smem(pb):
-        return (smem_fwd_wide(c, p, tok, esize, pb),
-                smem_bwd_wide(c, p, tok, split, esize, pb))
+    def fits(kc, kq, cap):
+        for bwd in (False, True):
+            rest = SMEM_CAP - smem_rows_wide(es, bwd, c, hp, kc, kq)
+            if rest < 0 or es * wide_stage(es, bwd, c, hp, kc, kq) > cap:
+                return False
+        return True
 
-    pb = next((b for b in blocks if max(smem(b)) <= SMEM_CAP), None)
-    if pb is None:
+    kcs = [ck >> i for i in range(8) if ck >> i >= 16]
+    kqs = [hp >> i for i in range(8) if hp >> i >= 16 and hp % (hp >> i) == 0]
+    kc = kq = None
+    for limit in (cap, SMEM_CAP):
+        kc = next((k for k in kcs if fits(k, kqs[-1], limit)), None)
+        if kc is not None:
+            kq = next(q for q in kqs if fits(kc, q, limit))
+            break
+    if kc is None:
         raise ValueError(f"spatial_attn wide kernels: C={c} P={p} do not "
                          f"fit shared memory")
-    sf, sb = smem(pb)
+    tiles = -(-n // SUM_TOKENS)
+    hq = min(hp, SUM_TILE)
+    sum_blocks = (hp // hq) * (ck // min(ck, SUM_TILE)) * 2 * batch
+    most = max(1, PART_BUDGET // (8 * batch * c * hp))
+    chunks = max(1, min(-(-2 * SMS // sum_blocks), tiles, most))
+    per_block = WIDE_TOKENS // 16
+    sf = smem_rows_wide(es, False, c, hp, kc, kq)
+    sb = max(smem_rows_wide(es, True, c, hp, kc, kq),
+             smem_sums_wide(es, c, hp))
     return SpattnPlan(n, c, p, heads, batch, c, per_block,
-                      -(-units // per_block), sf, tok, tiles, 1, chunks, sb,
-                      True, split, pb, f32)
+                      -(-n // WIDE_TOKENS), sf, SUM_TOKENS, tiles, heads,
+                      chunks, sb, True, kc, kq, f32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -404,30 +468,34 @@ def spatial_attn_plan_f32(n: int, c: int, p: int, heads: int,
 
 # -- the wrappers ----------------------------------------------------------------
 
+# the library of each operand type: the 16-bit instances are one source
+# built twice (csrc/h16.cuh); the f32 instances live in the bf16 library
+_LIBS = {torch.bfloat16: "spatial_attn", torch.float16: "spatial_attn_f16",
+         torch.float32: "spatial_attn"}
 _FNS = {}
 
 
-def _fns():
-    if not _FNS:
-        lib = _build.load("spatial_attn")
+def _fns(lib: str):
+    fns = _FNS.get(lib)
+    if fns is None:
+        so = _build.load(lib)
         vp, ci, cu, cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                           ctypes.c_float)
-        fwd = lib.fcd_spatial_attn_fwd
+        fwd = so.fcd_spatial_attn_fwd
         fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cu,
                         cu, cf, ci, vp]
-        fwd.restype = ci
-        bwd = lib.fcd_spatial_attn_bwd
+        bwd = so.fcd_spatial_attn_bwd
         bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
                         ci, ci, ci, ci, ci, ci, ci, cu, cu, cf, ci, vp]
-        bwd.restype = ci
-        fwd_w = lib.fcd_spatial_attn_fwd_wide
+        fwd_w = so.fcd_spatial_attn_fwd_wide
         fwd_w.argtypes = [vp, vp, vp, vp] + [ci] * 8 + [cu, cu, cf, ci, vp]
-        fwd_w.restype = ci
-        bwd_w = lib.fcd_spatial_attn_bwd_wide
-        bwd_w.argtypes = [vp] * 10 + [ci] * 12 + [cu, cu, cf, ci, vp]
-        bwd_w.restype = ci
-        _FNS.update(fwd=fwd, bwd=bwd, fwd_wide=fwd_w, bwd_wide=bwd_w)
-    return _FNS
+        bwd_w = so.fcd_spatial_attn_bwd_wide
+        bwd_w.argtypes = [vp] * 11 + [ci] * 11 + [cu, cu, cf, ci, vp]
+        for f in (fwd, bwd, fwd_w, bwd_w):
+            f.restype = ci
+        fns = _FNS[lib] = dict(fwd=fwd, bwd=bwd, fwd_wide=fwd_w,
+                               bwd_wide=bwd_w)
+    return fns
 
 
 def _check(qn, kpb, vpb, h, g=None):
@@ -450,7 +518,7 @@ def _check(qn, kpb, vpb, h, g=None):
 
 
 def _check_plan(plan, qn, kpb, h):
-    """Raises ValueError if `plan` was made for another shape."""
+    """Raises ValueError if `plan` was made for another shape or dtype."""
     b, n, c = qn.shape
     got = (n, c, kpb.shape[-1] // h, h, b)
     if (plan.n, plan.c, plan.p, plan.heads, plan.batch) != got:
@@ -458,60 +526,74 @@ def _check_plan(plan, qn, kpb, h):
             f"spatial_attn: a plan for N={plan.n} C={plan.c} P={plan.p} "
             f"heads={plan.heads} batch={plan.batch} given N, C, P, heads, "
             f"batch = {got}")
+    if plan.f32 != (qn.dtype == torch.float32):
+        raise ValueError("spatial_attn: f32 operands take an f32 plan "
+                         "(spatial_attn_plan_f32), 16-bit ones a 16-bit plan")
 
 
-def _kernel_args(qn, kpb, vpb, g=None, dtype=torch.bfloat16):
+def _kernel_args(qn, kpb, vpb, g=None):
     ts = (qn, kpb, vpb) + (() if g is None else (g,))
-    if any(t.dtype != dtype for t in ts):
-        raise TypeError(f"spatial_attn kernels take {dtype} tensors here: "
-                        "bf16 (the kernel route) or f32 (the f32 route, "
-                        "ROADMAP C18), one dtype for all")
+    if qn.dtype not in _LIBS or any(t.dtype != qn.dtype for t in ts):
+        raise TypeError(f"spatial_attn kernels take one dtype for all: bf16 "
+                        f"(the kernel route), f16 (ROADMAP C20) or f32 (the "
+                        f"f32 route, ROADMAP C18), got "
+                        f"{[str(t.dtype) for t in ts]}")
     if not all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in ts):
         raise ValueError("spatial_attn kernels take contiguous, 16-byte "
                          "aligned tensors")
+
+
+def _plan(qn, kpb, h, plan):
+    b, n, c = qn.shape
+    p = kpb.shape[-1] // h
+    if plan is None:
+        plan = (spatial_attn_plan_f32 if qn.dtype == torch.float32
+                else spatial_attn_plan)(n, c, p, h, b)
+    _check_plan(plan, qn, kpb, h)
+    return plan
 
 
 def spatial_attn_fwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
                      h: int, key: int, rate: float,
                      plan: Optional[SpattnPlan] = None) -> torch.Tensor:
     """K3 wrapper: (B, N, C) out in qn's dtype. `plan` (default
-    `spatial_attn_plan`'s) sets the kernel's blocks."""
+    `spatial_attn_plan`'s, f32: `spatial_attn_plan_f32`'s) sets the
+    kernel's blocks."""
     _check(qn, kpb, vpb, h)
     if plan is not None:
         _check_plan(plan, qn, kpb, h)
     if qn.device.type == "cpu":
         return spatial_attn_fwd_plain(qn, kpb, vpb, h, key, rate)
-    if qn.dtype == torch.float32:
-        return _spatial_attn_fwd_f32(qn, kpb, vpb, h, key, rate, plan)
     _kernel_args(qn, kpb, vpb)
+    plan = _plan(qn, kpb, h, plan)
     b, n, c = qn.shape
     hp = kpb.shape[-1]
-    plan = plan or spatial_attn_plan(n, c, hp // h, h, b)
+    fns = _fns(_LIBS[qn.dtype])
     out = torch.empty_like(qn)
+    ptr = _build.ptr
+    drop = (key, keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
+            _build.stream())
     if plan.wide:
-        _launch_fwd_wide(qn, kpb, vpb, out, h, key, rate, plan)
-        spatial_attn_fwd.launches += 1
-        return out
-    err = _fns()["fwd"](
-        _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(out),
-        b, n, c, hp, hp // h, plan.cols, plan.per_block, plan.fwd_blocks,
-        key, keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
-        _build.stream())
+        err = fns["fwd_wide"](ptr(qn), ptr(kpb), ptr(vpb), ptr(out), b, n, c,
+                              hp, hp // h, plan.k_chunk, plan.q_chunk,
+                              int(plan.f32), *drop)
+    else:
+        err = fns["fwd"](ptr(qn), ptr(kpb), ptr(vpb), ptr(out), b, n, c, hp,
+                         hp // h, plan.cols, plan.per_block, plan.fwd_blocks,
+                         *drop)
     _build.check(err, "spatial_attn_fwd")
-    spatial_attn_fwd.launches += 1
+    _COUNTS[qn.dtype][0].launches += 1
     return out
-
-
-_OUT_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def spatial_attn_bwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
                      g: torch.Tensor, h: int, key: int, rate: float,
                      dtypes=(torch.float32, torch.float32),
                      plan: Optional[SpattnPlan] = None):
-    """K4 wrapper: (dqn in qn's dtype, dkpb, dvpb in `dtypes`, f32 or bf16).
-    On the card one call is the product kernel and its finishing pass;
-    `plan` (default `spatial_attn_plan`'s) sets their decomposition."""
+    """K4 wrapper: (dqn in qn's dtype, dkpb, dvpb in `dtypes`: f32, or qn's
+    16-bit dtype). On the card one call is the product kernel and its
+    finishing pass (wide: the row blocks, the token sums and the
+    finishing pass); `plan` sets their decomposition."""
     _check(qn, kpb, vpb, h, g)
     if plan is not None:
         _check_plan(plan, qn, kpb, h)
@@ -519,113 +601,51 @@ def spatial_attn_bwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
         dqn, dkpb, dvpb = spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key,
                                                  rate)
         return dqn, dkpb.to(dtypes[0]), dvpb.to(dtypes[1])
-    if qn.dtype == torch.float32:
-        return _spatial_attn_bwd_f32(qn, kpb, vpb, g, h, key, rate, dtypes,
-                                     plan)
     _kernel_args(qn, kpb, vpb, g)
-    b, n, c = qn.shape
-    hp = kpb.shape[-1]
-    plan = plan or spatial_attn_plan(n, c, hp // h, h, b)
-    if plan.wide:
-        out = _launch_bwd_wide(qn, kpb, vpb, g, h, key, rate, dtypes, plan)
-        spatial_attn_bwd.launches += 1
-        return out
-    dqn, dq_part, dk_part, dv_part, dkpb, dvpb = _bwd_buffers(qn, kpb, dtypes,
-                                                              plan)
-    err = _fns()["bwd"](
-        _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(g),
-        _build.ptr(dqn), _build.ptr(dq_part), _build.ptr(dk_part),
-        _build.ptr(dv_part), _build.ptr(dkpb), _build.ptr(dvpb),
-        int(dtypes[0] == torch.bfloat16), int(dtypes[1] == torch.bfloat16),
-        b, n, c, hp, hp // h, plan.head_block, plan.tile, plan.chunks, key,
-        keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
-        _build.stream())
-    _build.check(err, "spatial_attn_bwd")
-    spatial_attn_bwd.launches += 1
-    return dqn, dkpb, dvpb
-
-
-def _bwd_buffers(qn, kpb, dtypes, plan):
-    """dqn in qn's dtype, K4's f32 scratch (the chunks' dkpb and dvpb
-    partials, the groups' dqn partials) and dkpb, dvpb in `dtypes`."""
-    if any(d not in _OUT_DTYPES for d in dtypes):
+    if any(d not in (torch.float32, qn.dtype) for d in dtypes):
         raise TypeError(f"spatial_attn_bwd writes dkpb and dvpb in f32 or "
-                        f"bf16, not {dtypes}")
+                        f"in qn's dtype ({qn.dtype}), not {dtypes}")
+    plan = _plan(qn, kpb, h, plan)
     b, n, c = qn.shape
     hp = kpb.shape[-1]
+    fns = _fns(_LIBS[qn.dtype])
     dev, f32 = qn.device, torch.float32
-    return (torch.empty_like(qn),
-            (torch.empty((plan.dq_groups, b, n, c), dtype=f32, device=dev)
-             if plan.dq_groups else None),
-            torch.empty((plan.chunks, b, c, hp), dtype=f32, device=dev),
-            torch.empty((plan.chunks, b, hp, c), dtype=f32, device=dev),
-            torch.empty((b, c, hp), dtype=dtypes[0], device=dev),
-            torch.empty((b, hp, c), dtype=dtypes[1], device=dev))
-
-
-def _launch_fwd_wide(qn, kpb, vpb, out, h, key, rate, plan):
-    b, n, c = qn.shape
-    hp = kpb.shape[-1]
-    err = _fns()["fwd_wide"](
-        _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(out),
-        b, n, c, hp, hp // h, plan.tile, plan.col_block or hp // h,
-        int(plan.f32), key, keep_threshold(rate), 1.0 / (1.0 - rate),
-        int(rate > 0.0), _build.stream())
-    _build.check(err, "spatial_attn_fwd")
-
-
-def _launch_bwd_wide(qn, kpb, vpb, g, h, key, rate, dtypes, plan):
-    b, n, c = qn.shape
-    hp = kpb.shape[-1]
-    dqn, dq_part, dk_part, dv_part, dkpb, dvpb = _bwd_buffers(qn, kpb, dtypes,
-                                                              plan)
-    err = _fns()["bwd_wide"](
-        _build.ptr(qn), _build.ptr(kpb), _build.ptr(vpb), _build.ptr(g),
-        _build.ptr(dqn), _build.ptr(dq_part), _build.ptr(dk_part),
-        _build.ptr(dv_part), _build.ptr(dkpb), _build.ptr(dvpb),
-        int(dtypes[0] == torch.bfloat16), int(dtypes[1] == torch.bfloat16),
-        b, n, c, hp, hp // h, plan.tile, plan.chunks, plan.col_split,
-        plan.col_block or hp // h, int(plan.f32), key, keep_threshold(rate),
-        1.0 / (1.0 - rate), int(rate > 0.0), _build.stream())
+    dqn = torch.empty_like(qn)
+    dk_part = torch.empty((plan.chunks, b, c, hp), dtype=f32, device=dev)
+    dv_part = torch.empty((plan.chunks, b, hp, c), dtype=f32, device=dev)
+    dkpb = torch.empty((b, c, hp), dtype=dtypes[0], device=dev)
+    dvpb = torch.empty((b, hp, c), dtype=dtypes[1], device=dev)
+    ptr = _build.ptr
+    flags = (int(dtypes[0] != f32), int(dtypes[1] != f32))
+    drop = (key, keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
+            _build.stream())
+    if plan.wide:   # a and ds for the token sums, in the operands' type
+        rows = torch.empty((2, b, n, hp), dtype=qn.dtype, device=dev)
+        err = fns["bwd_wide"](
+            ptr(qn), ptr(kpb), ptr(vpb), ptr(g), ptr(dqn), ptr(rows[0]),
+            ptr(rows[1]), ptr(dk_part), ptr(dv_part), ptr(dkpb), ptr(dvpb),
+            *flags, b, n, c, hp, hp // h, plan.k_chunk, plan.q_chunk,
+            plan.chunks, int(plan.f32), *drop)
+    else:
+        dq_part = (torch.empty((plan.dq_groups, b, n, c), dtype=f32,
+                               device=dev) if plan.dq_groups else None)
+        err = fns["bwd"](
+            ptr(qn), ptr(kpb), ptr(vpb), ptr(g), ptr(dqn), ptr(dq_part),
+            ptr(dk_part), ptr(dv_part), ptr(dkpb), ptr(dvpb), *flags, b, n,
+            c, hp, hp // h, plan.head_block, plan.tile, plan.chunks, *drop)
     _build.check(err, "spatial_attn_bwd")
+    _COUNTS[qn.dtype][1].launches += 1
     return dqn, dkpb, dvpb
-
-
-def _f32_plan(qn, kpb, h, plan):
-    b, n, c = qn.shape
-    plan = plan or spatial_attn_plan_f32(n, c, kpb.shape[-1] // h, h, b)
-    if not plan.f32:
-        raise ValueError("spatial_attn f32 kernels take an f32 plan "
-                         "(spatial_attn_plan_f32)")
-    _check_plan(plan, qn, kpb, h)
-    return plan
-
-
-def _spatial_attn_fwd_f32(qn, kpb, vpb, h, key, rate, plan):
-    """K3 on f32 CUDA tensors (`spatial_attn_fwd` checked them): the wide
-    kernel's f32 instance, one launch and a count of its own."""
-    _kernel_args(qn, kpb, vpb, dtype=torch.float32)
-    plan = _f32_plan(qn, kpb, h, plan)
-    out = torch.empty_like(qn)
-    _launch_fwd_wide(qn, kpb, vpb, out, h, key, rate, plan)
-    _spatial_attn_fwd_f32.launches += 1
-    return out
-
-
-def _spatial_attn_bwd_f32(qn, kpb, vpb, g, h, key, rate, dtypes, plan):
-    """K4 on f32 CUDA tensors (`spatial_attn_bwd` checked them): the wide
-    kernel's f32 instance and the finishing pass, its own count."""
-    _kernel_args(qn, kpb, vpb, g, dtype=torch.float32)
-    plan = _f32_plan(qn, kpb, h, plan)
-    out = _launch_bwd_wide(qn, kpb, vpb, g, h, key, rate, dtypes, plan)
-    _spatial_attn_bwd_f32.launches += 1
-    return out
 
 
 spatial_attn_fwd.launches = 0
 spatial_attn_bwd.launches = 0
-_spatial_attn_fwd_f32.launches = 0
-_spatial_attn_bwd_f32.launches = 0
+# the f16 (ROADMAP C20) and f32 (C18) instances' launches, counted apart
+FWD_F16, BWD_F16 = _build.Launches(), _build.Launches()
+FWD_F32, BWD_F32 = _build.Launches(), _build.Launches()
+_COUNTS = {torch.bfloat16: (spatial_attn_fwd, spatial_attn_bwd),
+           torch.float16: (FWD_F16, BWD_F16),
+           torch.float32: (FWD_F32, BWD_F32)}
 
 
 class SpatialAttn(torch.autograd.Function):

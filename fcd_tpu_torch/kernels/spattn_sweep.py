@@ -5,10 +5,14 @@ the repository root):
     python -m fcd_tpu_torch.kernels.spattn_sweep --plans
 
 At the four DSA levels of a 128^3 patch (batch 4, 4 heads, dropout 0.1,
-as the train step calls them) it times `spatial_attn_fwd` (K3) and
-`spatial_attn_bwd` (K4) by the device time of everything one call
-launches (torch.profiler, 20 calls after a warm-up), with the kernels'
-share, the count of device ops and the wall per call beside it; then the
+as the train step calls them) in bf16, at the wide widths of `WIDE`
+(C15) in bf16 and at the four levels in f32 (C18) it times
+`spatial_attn_fwd` (K3) and `spatial_attn_bwd` (K4) by the device time
+of everything one call launches (torch.profiler, 20 calls after a
+warm-up), with the kernels' share, the count of device ops and the wall
+per call beside it, and beside each wide and f32 shape the library's
+yardstick in the operands' type: SDPA per head (q (B, h, N, C), k and v
+(B, h, P, C)) and its backward alone; then the
 train step of the default MS_DSA_NET at 4 x 128^3 (DiceCE, AdamW, seeded
 weights and batch): ms/step over three synchronised steps, three times,
 and one profiled step's device busy time, device kernel count and K3's
@@ -31,15 +35,20 @@ from fcd_tpu_torch.kernels.dsa_sweep import _device_ops, _wall_ms
 
 LEVELS = (("level3", 32768, 32, 64), ("level4", 4096, 64, 64),
           ("level5", 512, 128, 64), ("level6", 64, 256, 32))
+# the widths past the tensor-core instances (C15, chip_smoke.C15_WIDTHS)
+WIDE = (("segresnet_deeper level4", 512, 256, 64), ("fs32 level6", 64, 512, 32),
+        ("fs32 P128 level5", 512, 256, 128))
 BATCH, HEADS, RATE = 4, 4, 0.1
 
 
-def _inputs(n, c, p, gen):
+def _inputs(n, c, p, gen, bf=None):
     """The train DSA's operands: l2-scaled queries, block-diagonal kpb and
-    vpb (chip_smoke.py's spatial_attn phases), a cotangent."""
+    vpb (chip_smoke.py's spatial_attn phases), a cotangent; bf16 unless
+    `bf` names another dtype."""
     import torch
 
-    dev, bf, h = torch.device("cuda"), torch.bfloat16, HEADS
+    dev, h = torch.device("cuda"), HEADS
+    bf = torch.bfloat16 if bf is None else bf
     ch = c // h
     qn = (torch.randn((BATCH, n, c), generator=gen, device=dev)
           * n ** -0.5).to(bf)
@@ -122,6 +131,30 @@ def plans(iters: int = 20) -> None:
         print(f"{name} N={n} C={c} P={p}: " + " | ".join(cells), flush=True)
 
 
+def _sdpa_rows(qn, kpb, vpb, g, p) -> dict:
+    """SDPA per head at the kernels' shape and dtype (the block-diagonal
+    kpb and vpb read back as (B, h, P, C / h)), forward and its backward
+    alone: the library's yardstick, timed only."""
+    import torch
+    import torch.nn.functional as F
+
+    b, n, c = qn.shape
+    h, ch = HEADS, c // HEADS
+    q4 = qn.reshape(b, n, h, ch).transpose(1, 2).contiguous()
+    k4 = torch.stack([kpb[:, j * ch:(j + 1) * ch, j * p:(j + 1) * p]
+                      for j in range(h)], 1).transpose(2, 3).contiguous()
+    v4 = torch.stack([vpb[:, j * p:(j + 1) * p, j * ch:(j + 1) * ch]
+                      for j in range(h)], 1).contiguous()
+    g4 = g.reshape(b, n, h, ch).transpose(1, 2).contiguous()
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True) for t in (q4, k4, v4)]
+        out = F.scaled_dot_product_attention(*ins, dropout_p=RATE, scale=1.0)
+        return {"SDPA": _row(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, dropout_p=RATE, scale=1.0)),
+                "SDPA bwd": _row(lambda: torch.autograd.grad(
+                    out, ins, g4, retain_graph=True))}
+
+
 def measure() -> dict:
     """The measurements of the `fcd_tpu_torch` on sys.path."""
     import torch
@@ -132,13 +165,19 @@ def measure() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(0)
     key = sa.dropout_key(0, 3)
     out = {"levels": {}}
-    for name, n, c, p in LEVELS:
-        qn, kpb, vpb, g = _inputs(n, c, p, gen)
-        out["levels"][f"{name} {BATCH}xN={n} C={c} P={p}"] = {
-            "K3": _row(lambda: sa.spatial_attn_fwd(qn, kpb, vpb, HEADS, key,
-                                                   RATE)),
-            "K4": _row(lambda: sa.spatial_attn_bwd(qn, kpb, vpb, g, HEADS,
-                                                   key, RATE))}
+    cases = ([(name, n, c, p, torch.bfloat16) for name, n, c, p in LEVELS]
+             + [(name, n, c, p, torch.bfloat16) for name, n, c, p in WIDE]
+             + [(name, n, c, p, torch.float32) for name, n, c, p in LEVELS])
+    for name, n, c, p, dt in cases:
+        qn, kpb, vpb, g = _inputs(n, c, p, gen, dt)
+        row = {"K3": _row(lambda: sa.spatial_attn_fwd(qn, kpb, vpb, HEADS,
+                                                      key, RATE)),
+               "K4": _row(lambda: sa.spatial_attn_bwd(
+                   qn, kpb, vpb, g, HEADS, key, RATE, dtypes=(dt, dt)))}
+        if (name, n, c, p) in WIDE or dt == torch.float32:
+            row.update(_sdpa_rows(qn, kpb, vpb, g, p))
+        kind = str(dt).replace("torch.", "")
+        out["levels"][f"{name} {kind} {BATCH}xN={n} C={c} P={p}"] = row
         del qn, kpb, vpb, g
     torch.cuda.empty_cache()
     out["step"] = train_step()

@@ -13,9 +13,9 @@ configured projection, 4 heads, 3 layers, dropout 0.1). The JAX package's
 performance gates (`params['perf_flags']`, exported `FCD_*` variables)
 are resolved now and frozen into the model (`fcd_tpu_torch/flags.py`),
 and so is the route the compute type takes: a model built to compute in
-f32 on the card takes the JAX package's f32 route
-(`ops/layers.py::use_f32_route`, ROADMAP C18), one built for bf16 (or for
-the CPU, `compute_dtype` None) the kernel route. UNETR++ is built as
+f32 or f16 on the card takes the JAX package's plain route for that type
+(`ops/layers.py::takes_plain_route`, ROADMAP C18, C20), one built for
+bf16 (or for the CPU, `compute_dtype` None) the kernel route. UNETR++ is built as
 `fcd_tpu/models/factory.py:180-197` builds it. The rest of the zoo
 (UNet, VNet, UNETR, SwinUNETR) is queued in ROADMAP.md.
 """
@@ -39,7 +39,7 @@ from fcd_tpu_torch.models.segresnet_dsa import (
     SegResNetVAE_DSA,
 )
 from fcd_tpu_torch.models.unetr_pp import UNETR_PP
-from fcd_tpu_torch.ops.layers import use_f32_route
+from fcd_tpu_torch.ops.layers import takes_plain_route, use_plain_route
 
 _QUEUED = {"unet", "vnet", "unetr", "swinunetr"}
 _VAE_MODELS = {"segresnetvae", "segresnetvae_dsa"}
@@ -142,7 +142,7 @@ def get_model(params: Dict[str, Any], return_model: bool = True,
     """Build the configured model; sets params['model_returns_vaeloss'] as
     the JAX factory does. Returns (model, params), with model None when
     return_model is False (the JAX factory's signature, :270).
-    `compute_dtype` torch.float32 builds the f32 route into the model (the
+    `compute_dtype` other than bf16 builds the plain route into the model (the
     trainer passes the card's compute type; None keeps the kernel route,
     whose kernels' plain versions run on the CPU)."""
     model_type = params["model_type"].lower()
@@ -158,6 +158,6 @@ def get_model(params: Dict[str, Any], return_model: bool = True,
     if not return_model:
         return None, params
     model = _BUILDERS[model_type](params)
-    if compute_dtype == torch.float32:
-        use_f32_route(model)
+    if compute_dtype is not None and takes_plain_route(compute_dtype):
+        use_plain_route(model)
     return model, params

@@ -20,9 +20,9 @@ ties (`chain` keeps the pool in the finale, K2's chain split), and
 `fused_head` whether, at eval, the last decoder's finale and the 1x1 head
 run as one kernel (B15).
 
-On the f32 route (`ops/layers.py::use_f32_route`, ROADMAP C18) the
-blocks take their plain branch and every encoder pools with the
-`jnp.maximum` chain, as the JAX package does at f32
+On the plain route (`ops/layers.py::use_plain_route`, ROADMAP C18,
+C20) the blocks take their plain branch and every encoder pools with the
+`jnp.maximum` chain, as the JAX package does at f32 and f16
 (`fcd_tpu/models/ms_dsa_net.py:192-214`: no s2d level, `max_pool_2x` at
 every level); the head stays the 1x1 conv with bias (no B15).
 
@@ -91,7 +91,7 @@ class MS_DSA_NET(nn.Module):
     an `upsample_mode`, the decoders are GeneralUnetrUpBlocks
     (MS_DSA_NET_PS); `fast` routes their pixelshuffle convs through B1."""
 
-    f32_route = False
+    plain_route = False
 
     def __init__(self, out_channels: int, img_size: Sequence[int],
                  in_channels: int = 2, feature_size: int = 16,
@@ -189,7 +189,7 @@ class MS_DSA_NET(nn.Module):
         y4 = dec[1](y5, t4)
         y3 = dec[2](y4, t3)
         y2 = dec[3](y3, x2)
-        if self.fused_head and not self.training and not self.f32_route:
+        if self.fused_head and not self.training and not self.plain_route:
             return dec[4](y2, x1, head=(self.head, self.head_bias))
         y1 = dec[4](y2, x1)
         return conv1x1(y1, self.head, self.head_bias)

@@ -22,7 +22,7 @@ dense layers are convs and matmuls the JAX package leaves to XLA at its
 defaults: `F.conv3d` and `torch.matmul` here (`ops/layers.py`), B1 for
 the 3x3 stride-1 ones under FCD_FAST_CONV=1.
 
-On the f32 route (`ops/layers.py::use_f32_route`, ROADMAP C18) a
+On the plain route (`ops/layers.py::use_plain_route`, C18, C20) a
 ResBlock runs the JAX package's plain branch (:60-67: `instance_norm`,
 act, `F.conv3d`, twice, plus the identity), `fast` is not taken and the
 deconv upsample is `conv_transpose3d`: no B1 and no B4.
@@ -61,7 +61,7 @@ class ResBlock(nn.Module):
     norm, act, conv, norm, act, conv, then the identity added; instance
     norm, the flax kernels conv1 / conv2 (3, 3, 3, C, C), no bias."""
 
-    f32_route = False
+    plain_route = False
 
     def __init__(self, channels: int, act=("relu", {})):
         super().__init__()
@@ -76,7 +76,7 @@ class ResBlock(nn.Module):
         kaiming_normal_fan_out_(self.conv2, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.f32_route:
+        if self.plain_route:
             y = conv3d(self.act(instance_norm(x)), self.conv1)
             return conv3d(self.act(instance_norm(y)), self.conv2) + x
         x = x.contiguous()

@@ -22,7 +22,7 @@ The JAX package leaves the strided convs and the transposed convs to XLA
 (`ops/layers.py`). The EPA blocks run B5 at eval and K3/K4 in training;
 their batch-norm conv blocks and the two full-resolution blocks run B1 and
 B2 (K1 and K2 backward) on the kernel route and the plain branch on the
-f32 route (`ops/layers.py::use_f32_route`). GroupNorm computes in f32;
+plain route (`ops/layers.py::use_plain_route`). GroupNorm computes in f32;
 its output is cast to the model's compute type, as MS_DSA_NET's patch
 embed casts its own, so the EPA stacks run in that type.
 """

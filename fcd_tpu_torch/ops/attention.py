@@ -20,10 +20,10 @@ package runs: 'parallel' (the default), 'serial', 'spatial' and
 block, the same function at 'parallel'.
 
 The kernels take the tokens' dtype: bf16 tokens run B5's and K3/K4's
-bf16 instances, f32 tokens (the f32 route, ROADMAP C18) their f32
-instances, as the JAX package runs `dsa_fused` and `spatial_attn_train`
-in f32 when its model computes in f32. The conv residual block follows
-the model's route (`ops/blocks.py`).
+bf16 instances, f16 tokens (ROADMAP C20) their f16 instances and f32
+tokens (ROADMAP C18) their f32 ones, as the JAX package runs `dsa_fused`
+and `spatial_attn_train` at the model's compute type. The conv residual
+block follows the model's route (`ops/blocks.py`).
 """
 
 from __future__ import annotations

@@ -24,9 +24,9 @@ E[x^2] - mean^2, clamped at 0). Batch norm takes its running statistics
 at eval; in train mode the batch statistics from the same sums summed over
 b, and it updates its running statistics (`ops/layers.py::BatchNorm`).
 
-On the f32 route (`ops/layers.py`, ROADMAP C18) the blocks run the plain
-branch of `fcd_tpu/ops/blocks.py:416-433` instead, where the JAX package
-runs it at f32: conv, norm, act, conv, norm, the projected shortcut
+On the plain route (`ops/layers.py`, ROADMAP C18, C20) the blocks run the
+plain branch of `fcd_tpu/ops/blocks.py:416-433` instead, where the JAX
+package runs it at f32 and f16: conv, norm, act, conv, norm, the projected shortcut
 (1x1 conv and norm) over the concatenated parts, act; library convs,
 `instance_norm` (var = mean((x - mean)^2), as `make_norm('instance')`) or
 `BatchNorm` itself, the 2x pool as the `jnp.maximum` chain
@@ -70,7 +70,7 @@ class UnetResBlock(nn.Module):
     (3, 3, 3, Cout, Cout), conv3 (Cin, Cout) (the 1x1 shortcut, present
     when Cin != Cout)."""
 
-    f32_route = False
+    plain_route = False
 
     def __init__(self, in_channels: int, out_channels: int,
                  norm_name: str = "instance"):
@@ -109,7 +109,7 @@ class UnetResBlock(nn.Module):
         return w.expand(b, -1), sh.expand(b, -1)
 
     def _plain(self, parts, pool: bool, head):
-        """The f32 route: `fcd_tpu/ops/blocks.py:416-433` on the parts'
+        """The plain route: `fcd_tpu/ops/blocks.py:416-433` on the parts'
         concatenation."""
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
@@ -139,7 +139,7 @@ class UnetResBlock(nn.Module):
         pool_in_finale=False the pool runs in a pass of its own after the
         finale (B3 forward, B9 backward: the even split only). With
         head=(w, bias) the finale and the 1x1 head run as one kernel (B15,
-        eval) and the block returns the logits. On the f32 route the block
+        eval) and the block returns the logits. On the plain route the block
         runs its plain branch and pools with the chain, whatever `tie`."""
         parts = list(parts)
         widths = [p.shape[-1] for p in parts]
@@ -148,7 +148,7 @@ class UnetResBlock(nn.Module):
                              f"{self.in_channels} input channels")
         if len(parts) > 1 and self.conv3 is None:
             raise ValueError("a multi-part input needs the 1x1 shortcut")
-        if self.f32_route:
+        if self.plain_route:
             return self._plain(parts, pool, head)
         b = parts[0].shape[0]
         n = parts[0].shape[1] * parts[0].shape[2] * parts[0].shape[3]
@@ -190,10 +190,10 @@ class UnetrBasicBlock(UnetResBlock):
 class UnetrUpBlock(nn.Module):
     """Transposed-conv (k2 s2, no bias) upsample through B4, then the res
     block over [upsampled, skip] (the concat is never materialised). On
-    the f32 route: `conv_transpose3d`, then the block's plain branch over
+    the plain route: `conv_transpose3d`, then the block's plain branch over
     the concatenation."""
 
-    f32_route = False
+    plain_route = False
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
@@ -209,7 +209,7 @@ class UnetrUpBlock(nn.Module):
                 head=None) -> torch.Tensor:
         """head=(w, bias): the block's finale runs fused with the 1x1
         head (B15) and the block returns the logits."""
-        up = (conv_transpose3d(x, self.transp) if self.f32_route
+        up = (conv_transpose3d(x, self.transp) if self.plain_route
               else upsample2x_op(x, self.transp))
         return self.block([up, skip], head=head)
 

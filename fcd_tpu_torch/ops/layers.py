@@ -18,17 +18,22 @@ With `fast=True` (the model built under `FCD_FAST_CONV=1`) a 3x3 stride-1
 `Conv3d` runs B1's kernel instead (`kernels/block_conv.py::conv3x3_op`,
 B14 by function), its bias added after.
 
-The f32 route (ROADMAP C18). The JAX package chooses its kernels by the
-compute type: at f32 its blocks take their plain branch (XLA convs,
-`make_norm`, the `jnp.maximum` pool chain), its `Conv3d` never takes the
-fast conv and its decoders upsample with `lax.conv_transpose`; only the
-eval DSA (B5) and the train spatial-attention tail (B10) stay Pallas
-kernels, dtype-generic. A module with an `f32_route` attribute has both
-branches; `use_f32_route(model)` sets the attribute on every such module
-of a model (the factory does it for a model built to compute in f32 on
-the card), and the model then runs the counterpart of the plain branch:
-library convs here, and the f32 instances of B5 and K3/K4 where the JAX
-package keeps its kernels.
+The plain route (ROADMAP C18, C20). The JAX package chooses its kernels
+by the compute type, and every Pallas gate of its blocks, its `Conv3d`
+and its volume entry needs bf16 (`fcd_tpu/ops/blocks.py:49`,
+`fcd_tpu/ops/layers.py:291-295`, `fcd_tpu/infer/sliding_window.py:274`):
+at any other type (f32, f16) its blocks take their plain branch (XLA
+convs, `make_norm` with f32 statistics, the `jnp.maximum` pool chain),
+its `Conv3d` never takes the fast conv and its decoders upsample with
+`lax.conv_transpose`; only the eval DSA (B5) and the train
+spatial-attention tail (B10) stay Pallas kernels, dtype-generic.
+`takes_plain_route(dtype)` is that one decision. A module with a
+`plain_route` attribute has both branches; `use_plain_route(model)` sets
+the attribute on every such module of a model (the factory does it for a
+model built to compute at such a type on the card), and the model then
+runs the counterpart of the plain branch: library convs here, and B5's
+and K3/K4's instances of the compute type where the JAX package keeps
+its kernels.
 """
 
 from __future__ import annotations
@@ -46,17 +51,23 @@ __all__ = [
     "conv_transpose3d", "dropout", "group_norm", "instance_affine_from_sums",
     "instance_norm", "interpolate_trilinear", "kaiming_normal_fan_out_",
     "layer_norm", "make_act", "max_pool_2x", "max_pool_2x_chain",
-    "pad_pool_blur", "pixel_shuffle_3d", "unblocks_2x", "use_f32_route",
-    "xavier_uniform_",
+    "pad_pool_blur", "pixel_shuffle_3d", "takes_plain_route", "unblocks_2x",
+    "use_plain_route", "xavier_uniform_",
 ]
 
 
-def use_f32_route(model: nn.Module) -> nn.Module:
-    """Set `f32_route` on every module of `model` that has both branches
+def takes_plain_route(dtype: torch.dtype) -> bool:
+    """Whether a model computing in `dtype` takes the JAX package's plain
+    route (the module docstring): at every type but bf16."""
+    return dtype != torch.bfloat16
+
+
+def use_plain_route(model: nn.Module) -> nn.Module:
+    """Set `plain_route` on every module of `model` that has both branches
     (the module docstring); returns the model."""
     for m in model.modules():
-        if hasattr(type(m), "f32_route"):
-            m.f32_route = True
+        if hasattr(type(m), "plain_route"):
+            m.plain_route = True
     return model
 
 
@@ -202,7 +213,7 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The norm of a (B, D, H, W, C) tensor itself (the plain branch of
-        the f32 route): the batch statistics in train mode (updating the
+        the plain route): the batch statistics in train mode (updating the
         running ones), the running ones at eval; f32 math, x's dtype out."""
         xf = x.float()
         if self.training:
@@ -337,11 +348,11 @@ def conv3d(x: torch.Tensor, kernel: torch.Tensor,
 
 class Conv3d(nn.Module):
     """The flax Conv3d's parameters (kernel (k, k, k, Cin, Cout), bias
-    (Cout,) when use_bias) and `conv3d`. On the f32 route `fast` is not
+    (Cout,) when use_bias) and `conv3d`. On the plain route `fast` is not
     taken: the JAX package's fast conv takes bf16 only
     (`fcd_tpu/ops/layers.py:291-295`)."""
 
-    f32_route = False
+    plain_route = False
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, use_bias: bool = True,
@@ -362,7 +373,7 @@ class Conv3d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv3d(x, self.kernel, self.bias, self.stride,
-                      self.fast and not self.f32_route)
+                      self.fast and not self.plain_route)
 
 
 def conv_transpose3d(x: torch.Tensor, kernel: torch.Tensor,
@@ -468,13 +479,13 @@ class UpSample(nn.Module):
     - pixelshuffle: a 3x3 conv to 8 Cout (`conv`), `pixel_shuffle_3d`,
       then `pad_pool_blur`;
     - deconv: the k2 s2 transposed conv (`transp`), B4's kernel
-      (`kernels/upsample.py`), plus the bias; on the f32 route
+      (`kernels/upsample.py`), plus the bias; on the plain route
       `conv_transpose3d`;
     - nontrainable: `interpolate_trilinear`, then a 1x1 conv (`conv`)
       where the channels change.
     """
 
-    f32_route = False
+    plain_route = False
 
     def __init__(self, in_channels: int, out_channels: int,
                  mode: str = "pixelshuffle", use_bias: bool = True,
@@ -507,7 +518,7 @@ class UpSample(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "pixelshuffle":
             return pad_pool_blur(pixel_shuffle_3d(self.conv(x), 2), 2)
-        if self.mode == "deconv" and self.f32_route:
+        if self.mode == "deconv" and self.plain_route:
             return conv_transpose3d(x, self.transp, self.transp_bias)
         if self.mode == "deconv":
             from fcd_tpu_torch.kernels.upsample import upsample2x_op

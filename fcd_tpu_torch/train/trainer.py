@@ -36,21 +36,32 @@ resolves it. On a CUDA device:
 
 - bfloat16 runs the kernel route (f32 accumulation and f32 norm
   statistics in the kernels);
-- float32 (`use_amp=False`, or `compute_dtype='float32'`) runs the JAX
-  package's f32 route (ROADMAP C18, `ops/layers.py::use_f32_route`):
-  library convs where the JAX package leaves its convs to XLA at f32, and
-  the f32 instances of B5 and K3/K4 where it keeps its Pallas kernels.
-  The reference is IEEE f32, so such a trainer's forwards and train
-  steps run inside `ModelTrainer.ieee_f32`, which sets
-  `torch.backends.cudnn.allow_tf32 = False` and
-  `torch.backends.cuda.matmul.allow_tf32 = False` for their duration and
-  restores the caller's settings after (cuDNN's convs run in TF32 by
-  default);
-- float16 raises NotImplementedError when the trainer is built (ROADMAP
-  C20).
+- every other type takes the JAX package's route for it, whose Pallas
+  gates need bf16 (`ops/layers.py::takes_plain_route`): library convs
+  where the JAX package leaves its convs to XLA, the plain norms
+  (statistics in f32, as flax promotes them), and the B5 and K3/K4
+  instances of that type where it keeps its dtype-generic kernels.
+  float32 (`use_amp=False`, or `compute_dtype='float32'`, ROADMAP C18)
+  holds to IEEE f32; float16 (ROADMAP C20) keeps the parameters in f32,
+  the model casting them as flax does at dtype=float16, with no loss
+  scaling (`fcd_tpu/train/` has none).
+- Such a trainer's forwards and train steps run inside
+  `ModelTrainer.numerics`, which sets the library flags that hold its
+  products to the JAX package's sums for their duration and restores the
+  caller's settings after: at f32 `torch.backends.cudnn.allow_tf32` and
+  `torch.backends.cuda.matmul.allow_tf32` False (cuDNN's convs run in
+  TF32 by default); at f16
+  `torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction`
+  False (True by default, which lets cuBLAS reduce f16 products in f16;
+  XLA accumulates them in f32).
+
+The volume enters the sliding window in the JAX trainer's dtype
+(`fcd_tpu/train/trainer.py:282-284`): bf16 whenever use_amp, so an f16
+model is fed bf16-rounded patches, which it casts to f16; f32 with
+`use_amp=False` (`entry_dtype_for`).
 
 On the CPU the model computes in fp32 through the kernels' plain
-versions, whatever the setting.
+versions, whatever the setting, and its volume enters in f32.
 """
 
 from __future__ import annotations
@@ -107,15 +118,17 @@ def _get_wandb():
     return importlib.import_module("wandb")
 
 
-_CARD_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+_CARD_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+                "float16": torch.float16}
 
 
 def compute_dtype_for(params: Dict[str, Any],
                       device: torch.device) -> torch.dtype:
     """The model's compute type on `device`: f32 on the CPU (the kernels'
     plain versions); on a CUDA device the JAX package's choice (f32 with
-    use_amp=False, else params['compute_dtype']): bf16 (the kernel route)
-    or f32 (the f32 route, ROADMAP C18). float16 raises (ROADMAP C20)."""
+    use_amp=False, else params['compute_dtype']): bf16 (the kernel route),
+    f32 (ROADMAP C18) or f16 (C20), the last two on the JAX package's
+    route for their type. Another name raises."""
     if device.type != "cuda":
         return torch.float32
     name = (str(params.get("compute_dtype", "bfloat16"))
@@ -124,11 +137,28 @@ def compute_dtype_for(params: Dict[str, Any],
         raise NotImplementedError(
             f"compute in {name} (use_amp={params.get('use_amp', True)}, "
             f"compute_dtype={params.get('compute_dtype', 'bfloat16')!r}) on "
-            "the card: the port runs bf16 (the kernel route) and f32 (the "
-            "JAX package's f32 route, ROADMAP C18); float16 is queued as "
-            "ROADMAP C20. Set compute_dtype='bfloat16' or use_amp=False, "
-            "or run on the CPU")
+            f"the card: the port computes in {sorted(_CARD_DTYPES)}")
     return _CARD_DTYPES[name]
+
+
+# what `ModelTrainer.numerics` sets on the card: IEEE f32 products at f32
+# (no TF32 in cuDNN or cuBLAS), f32 reductions of f16 products at f16
+_CARD_NUMERICS = {
+    torch.float32: {(torch.backends.cudnn, "allow_tf32"): False,
+                    (torch.backends.cuda.matmul, "allow_tf32"): False},
+    torch.float16: {(torch.backends.cuda.matmul,
+                     "allow_fp16_reduced_precision_reduction"): False},
+}
+
+
+def entry_dtype_for(params: Dict[str, Any],
+                    device: torch.device) -> torch.dtype:
+    """The dtype the sliding window casts the volume to: the JAX trainer's
+    (fcd_tpu/train/trainer.py:282-284), bf16 whenever use_amp (through B17,
+    whatever the model computes in) and f32 without; f32 on the CPU."""
+    if device.type != "cuda" or not params.get("use_amp", True):
+        return torch.float32
+    return torch.bfloat16
 
 
 def _triple(x):
@@ -148,10 +178,12 @@ class ModelTrainer:
         # the compute type is settled before anything reaches the card
         dev = resolve_device(None) if device is None else torch.device(device)
         self.compute_dtype = compute_dtype_for(self.params, dev)
+        self.entry_dtype = entry_dtype_for(self.params, dev)
         self.device = resolve_device(dev)
         card = self.device.type == "cuda"
-        # the f32 route holds to IEEE f32 (`ieee_f32`)
-        self._ieee = card and self.compute_dtype == torch.float32
+        # the library flags `numerics` sets: {(module, name): value}
+        self._numerics = _CARD_NUMERICS.get(self.compute_dtype, {}) \
+            if card else {}
         self.model, self.params = get_model(
             self.params, compute_dtype=self.compute_dtype if card else None)
         seed = int(self.params.get("seed", 42))
@@ -224,7 +256,7 @@ class ModelTrainer:
              torch.as_tensor(thickness, dtype=torch.float32).to(self.device))
         seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
                                  generator=self._seed_gen))
-        with torch.enable_grad(), self.ieee_f32():   # also under no_grad
+        with torch.enable_grad(), self.numerics():   # also under no_grad
             out = self._step_fn(x, y, lr, seed, t)
         self.step += 1
         if self._log_norms:
@@ -280,25 +312,25 @@ class ModelTrainer:
         return None if epoch < 0 else epoch
 
     @contextlib.contextmanager
-    def ieee_f32(self):
-        """On the f32 route on the card, TF32 off in cuDNN's convs and in
-        matmuls for the block's duration (the flags are process-wide; the
-        caller's settings come back after it). Elsewhere a no-op."""
-        if not self._ieee:
-            yield
-            return
-        cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
-        saved = cudnn.allow_tf32, matmul.allow_tf32
-        cudnn.allow_tf32 = matmul.allow_tf32 = False
+    def numerics(self):
+        """On the card at f32 or f16, the library flags that hold its
+        products to the JAX package's sums (`_CARD_NUMERICS`) for the
+        block's duration (the flags are process-wide; the caller's
+        settings come back after it). Elsewhere a no-op."""
+        saved = [(obj, name, getattr(obj, name))
+                 for obj, name in self._numerics]
+        for (obj, name), value in self._numerics.items():
+            setattr(obj, name, value)
         try:
             yield
         finally:
-            cudnn.allow_tf32, matmul.allow_tf32 = saved
+            for obj, name, value in saved:
+                setattr(obj, name, value)
 
     @torch.no_grad()
     def predict(self, patches: torch.Tensor) -> torch.Tensor:
         self.model.eval()
-        with self.ieee_f32():
+        with self.numerics():
             out = self.model(patches)
         # a VAE model returns (logits, None) at eval (fcd_tpu make_eval_fn)
         return out[0] if self.params["model_returns_vaeloss"] else out
@@ -316,7 +348,7 @@ class ModelTrainer:
             overlap=p.get("sw_overlap", 0.25),
             blend=p.get("sw_blend", "constant"),
             sigma_scale=p.get("sw_sigma_scale", 0.125),
-            compute_dtype=self.compute_dtype,
+            compute_dtype=self.entry_dtype,
             device=self.device,
         )
 

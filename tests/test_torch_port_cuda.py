@@ -1195,7 +1195,10 @@ def _c15_shapes():
 def test_spatial_attn_at_every_c15_width(dev, n, c, p):
     """C15: K3 and K4 take every (C, P) of B5's set at 4 heads; the wide
     instances against the plain versions with dropout, two calls
-    bit-equal, one K3 call one kernel and one K4 call two."""
+    bit-equal, each call one count on its wrapper's counter, and the
+    library's SASS holds the wide kernels (K3's, and K4's row blocks and
+    token sums, each on the tensor cores) and the finishing pass."""
+    from chip_smoke import SPATTN_WIDE_KERNELS, _sass_functions
     from fcd_tpu_torch.kernels import spatial_attn as sa
 
     h = 4
@@ -1203,6 +1206,7 @@ def test_spatial_attn_at_every_c15_width(dev, n, c, p):
     qn, kpb, vpb, g = _spattn_inputs(gen, dev, n, c, h, p, batch=4)
     key = sa.dropout_key(99, 4)
     assert sa.spatial_attn_plan(n, c, p, h, 4).wide
+    before = (sa.spatial_attn_fwd.launches, sa.spatial_attn_bwd.launches)
     out = sa.spatial_attn_fwd(qn, kpb, vpb, h, key, 0.1)
     assert torch.equal(out, sa.spatial_attn_fwd(qn, kpb, vpb, h, key, 0.1))
     assert _rel(out, sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key,
@@ -1213,14 +1217,13 @@ def test_spatial_attn_at_every_c15_width(dev, n, c, p):
     for g_, a_, w_ in zip(got, again, want):
         assert torch.equal(g_, a_)
         assert g_.dtype == w_.dtype and _rel(g_, w_) < 2e-2
-    names = _device_op_names(
-        lambda: sa.spatial_attn_fwd(qn, kpb, vpb, h, key, 0.1))
-    assert len(names) == 1 and "spatial_attn_fwd_kernel_wide" in names[0], \
-        names
-    names = _device_op_names(
-        lambda: sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, 0.1))
-    assert len(names) == 2 and "spatial_attn_bwd_kernel_wide" in names[0] \
-        and "spatial_attn_bwd_finish" in names[1], names
+    assert (sa.spatial_attn_fwd.launches, sa.spatial_attn_bwd.launches) == (
+        before[0] + 2, before[1] + 2)
+    fns = _sass_functions("spatial_attn", lambda f: True)
+    for k in SPATTN_WIDE_KERNELS:
+        mine = [tc for f, tc in fns.items() if k in f]
+        assert mine and (k == "spatial_attn_bwd_finish" or all(mine)), (k,
+                                                                         mine)
 
 
 def test_segresnet_dsa_patch_forward_on_the_card(dev):
@@ -1300,7 +1303,7 @@ def test_dsa_f32_kernels_match_plain(dev, n, c, p, sa_type):
     temps = (a["t1"], a["t2"])
     mode = dict(sa_type=sa_type)
     bf16_before = (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches)
-    before = (dk._dsa_phase_a_f32.launches, dk._dsa_phase_b_f32.launches)
+    before = (dk.PHASE_A_F32.launches, dk.PHASE_B_F32.launches)
     ka = dk.dsa_phase_a(x, w, ef, *tok, h, **mode)
     wa = dk.dsa_phase_a_plain(x, w, ef, *tok, h, **mode)
     for name, g, w_ in zip(ka._fields, ka, wa):
@@ -1323,7 +1326,7 @@ def test_dsa_f32_kernels_match_plain(dev, n, c, p, sa_type):
     args = (x, w, ef, *temps, *tok, a["gamma"], h)
     assert _rel(dk.dsa_attention(*args, **mode),
                 dk.dsa_reference(*args, **mode)) < F32_REL
-    assert (dk._dsa_phase_a_f32.launches, dk._dsa_phase_b_f32.launches) == (
+    assert (dk.PHASE_A_F32.launches, dk.PHASE_B_F32.launches) == (
         before[0] + 4, before[1] + 3)
     assert (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches) == bf16_before
 
@@ -1345,8 +1348,8 @@ def test_spatial_attn_f32_kernels_match_plain(dev, n, c, p, rate):
     qn, kpb, vpb, g = (t.float() for t in _spattn_inputs(gen, dev, n, c, h,
                                                          p, batch=4))
     key = sa.dropout_key(17, 3)
-    before = (sa._spatial_attn_fwd_f32.launches,
-              sa._spatial_attn_bwd_f32.launches, sa.spatial_attn_fwd.launches)
+    before = (sa.FWD_F32.launches, sa.BWD_F32.launches,
+              sa.spatial_attn_fwd.launches)
     out = sa.spatial_attn_fwd(qn, kpb, vpb, h, key, rate)
     assert out.dtype == torch.float32
     assert torch.equal(out, sa.spatial_attn_fwd(qn, kpb, vpb, h, key, rate))
@@ -1358,15 +1361,14 @@ def test_spatial_attn_f32_kernels_match_plain(dev, n, c, p, rate):
     for name, g_, a_, w_ in zip(("dqn", "dkpb", "dvpb"), got, again, want):
         assert torch.equal(g_, a_), name
         assert g_.dtype == torch.float32 and _rel(g_, w_) < F32_REL, name
-    assert (sa._spatial_attn_fwd_f32.launches,
-            sa._spatial_attn_bwd_f32.launches,
+    assert (sa.FWD_F32.launches, sa.BWD_F32.launches,
             sa.spatial_attn_fwd.launches) == (before[0] + 2, before[1] + 2,
                                                before[2])
 
 
 def test_f32_route_conv_is_ieee_f32(dev):
     """A trainer built with use_amp=False holds to IEEE f32 in its
-    `ieee_f32` scope and leaves the process's TF32 flags as they were:
+    `numerics` scope and leaves the process's TF32 flags as they were:
     inside it an f32-route conv (cuDNN) against an f64 conv stays under
     1e-5 relative, which TF32's ~1e-3 would not."""
     from fcd_tpu_torch.config import get_default_params
@@ -1385,7 +1387,7 @@ def test_f32_route_conv_is_ieee_f32(dev):
     try:
         trainer = ModelTrainer(params, device=dev, verbose=False)
         assert cudnn.allow_tf32 and matmul.allow_tf32
-        with trainer.ieee_f32():
+        with trainer.numerics():
             assert not (cudnn.allow_tf32 or matmul.allow_tf32)
             got = conv3d(x, k)
         assert cudnn.allow_tf32 and matmul.allow_tf32
@@ -1431,3 +1433,131 @@ def test_f32_route_launches_no_bf16_kernel(dev, model_type):
         "spatial_attn_fwd_f32": tb, "spatial_attn_bwd_f32": tb}
     assert torch.isfinite(torch.tensor(loss))
     assert _rel(got, want) < 1e-4
+
+
+# -- C20: float16 (compute_dtype='float16') -----------------------------------
+
+# the 16-bit kernels against their plain versions at the operands' type:
+# chip_smoke.py's tolerance for bf16, kept for f16
+F16_REL = 2e-2
+
+
+@pytest.mark.parametrize("sa_type", ["parallel", "serial", "spatial",
+                                     "channel"])
+@pytest.mark.parametrize("n,c,p", [(32768, 32, 64), (4096, 64, 64),
+                                   (512, 128, 64), (64, 256, 32),
+                                   (300, 32, 64), (512, 256, 128)])
+def test_dsa_f16_kernels_match_plain(dev, n, c, p, sa_type):
+    """B5's f16 instances (csrc/dsa.cu built with -DFCD_F16): phase A with
+    its glue and phase B against the plain versions on f16 tokens, two
+    calls bit-equal, counted apart from the bf16 kernels."""
+    from fcd_tpu_torch.kernels import dsa_attention as dk
+
+    h, f16 = 4, torch.float16
+    gen = torch.Generator(device=dev).manual_seed(n + c + p + 1)
+    a = _dsa_inputs(gen, dev, n, c, p, h)
+    x = a["x"].to(f16)
+    ns = dk.num_slots(sa_type)
+    w = a["w"][:, :ns * c].contiguous()
+    ef = None if sa_type == "channel" else a["ef"].to(f16)
+    tok = (a["lns"], a["lnb"], a["pe"])
+    temps = (a["t1"], a["t2"])
+    mode = dict(sa_type=sa_type)
+    bf16_before = (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches)
+    before = (dk.PHASE_A_F16.launches, dk.PHASE_B_F16.launches)
+    glue = dk.dsa_phase_a(x, w, ef, *tok, h, temperatures=temps, **mode)
+    want = dk.dsa_glue(dk.dsa_phase_a_plain(x, w, ef, *tok, h, **mode),
+                       *temps, h, f16)
+    for name, g, w_ in zip(glue._fields, glue, want):
+        if g.numel():
+            assert g.dtype == w_.dtype and _rel(g, w_) < F16_REL, name
+    got = dk.dsa_phase_b(x, w, *glue, a["gamma"], *tok, h, **mode)
+    assert got.dtype == f16
+    assert _rel(got, dk.dsa_phase_b_plain(x, w, *glue, a["gamma"], *tok, h,
+                                          **mode)) < F16_REL
+    assert torch.equal(got, dk.dsa_phase_b(x, w, *glue, a["gamma"], *tok,
+                                           h, **mode))
+    assert (dk.PHASE_A_F16.launches, dk.PHASE_B_F16.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches) == bf16_before
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n,c,p", [(32768, 32, 64), (4096, 64, 64),
+                                   (512, 128, 64), (64, 256, 32),
+                                   (512, 256, 64), (512, 256, 128),
+                                   (64, 512, 32), (100, 8, 16)])
+def test_spatial_attn_f16_kernels_match_plain(dev, n, c, p, rate):
+    """K3/K4's f16 instances, the tensor-core ones at the four levels and
+    the wide ones past them, against the plain versions with the same
+    dropout bits, two calls bit-equal, dkpb and dvpb in f16 and f32,
+    counted apart from the bf16 kernels."""
+    from fcd_tpu_torch.kernels import spatial_attn as sa
+
+    h, f16 = 4, torch.float16
+    gen = torch.Generator(device=dev).manual_seed(c * p + n + 1)
+    qn, kpb, vpb, g = (t.to(f16) for t in _spattn_inputs(gen, dev, n, c, h,
+                                                         p, batch=4))
+    key = sa.dropout_key(21, 3)
+    before = (sa.FWD_F16.launches, sa.BWD_F16.launches,
+              sa.spatial_attn_fwd.launches, sa.spatial_attn_bwd.launches)
+    out = sa.spatial_attn_fwd(qn, kpb, vpb, h, key, rate)
+    assert out.dtype == f16
+    assert torch.equal(out, sa.spatial_attn_fwd(qn, kpb, vpb, h, key, rate))
+    assert _rel(out, sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key,
+                                               rate)) < F16_REL
+    want = sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key, rate)
+    for dtypes in ((f16, f16), (torch.float32, torch.float32)):
+        got = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, rate,
+                                  dtypes=dtypes)
+        again = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, rate,
+                                    dtypes=dtypes)
+        for name, g_, a_, w_ in zip(("dqn", "dkpb", "dvpb"), got, again,
+                                    want):
+            assert torch.equal(g_, a_), name
+            assert _rel(g_, w_) < F16_REL, name
+        assert got[1].dtype == dtypes[0] and got[2].dtype == dtypes[1]
+    with pytest.raises(TypeError):
+        sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, rate,
+                            dtypes=(torch.bfloat16, torch.bfloat16))
+    assert (sa.FWD_F16.launches, sa.BWD_F16.launches,
+            sa.spatial_attn_fwd.launches, sa.spatial_attn_bwd.launches) == (
+        before[0] + 2, before[1] + 4, before[2], before[3])
+
+
+def test_f16_route_launches_no_bf16_kernel(dev):
+    """compute_dtype='float16' on the card: a patch forward and a train step
+    of MS_DSA_NET launch B5's and K3/K4's f16 instances and nothing of the
+    bf16-only kernels, the patch near the f32 CPU forward of the same
+    weights, the loss finite."""
+    import copy
+
+    from chip_smoke import read_counts, reset_counts
+    from fcd_tpu_torch.config import get_default_params
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    params = get_default_params()
+    params.update(compute_dtype="float16", patch_size=64)
+    tr = ModelTrainer(params, device=dev, verbose=False)
+    assert tr.compute_dtype == torch.float16
+    assert tr.entry_dtype == torch.bfloat16
+    patch = torch.randn(1, 64, 64, 64, 2, generator=torch.Generator()
+                        .manual_seed(4))
+    reset_counts()
+    got = tr.predict(patch.to(dev)).float().cpu()
+    fwd = read_counts()
+    with torch.no_grad():
+        cpu = copy.deepcopy(tr.model).cpu().eval()
+        cpu.compute_dtype = torch.float32
+        want = cpu(patch).float()
+    x = torch.rand(2, 64, 64, 64, 2, device=dev)
+    y = (torch.rand(2, 64, 64, 64, 1, device=dev) > 0.95).float()
+    reset_counts()
+    loss = float(tr.train_step(x, y, 1e-4))
+    step = read_counts()
+    assert {k: v for k, v in fwd.items() if v} == {
+        "dsa_phase_a_f16": 12, "dsa_phase_b_f16": 12}
+    assert {k: v for k, v in step.items() if v} == {
+        "spatial_attn_fwd_f16": 12, "spatial_attn_bwd_f16": 12}
+    assert torch.isfinite(torch.tensor(loss))
+    assert _rel(got, want) < 0.05

@@ -19,9 +19,9 @@ the JAX package) as kernels, in f32. Here, on the CPU:
   `dsa_fused` and the spatial-attention Pallas kernels in interpret mode
   given f32 operands (rate 0), rel 1e-5;
 - `compute_dtype_for` on a `torch.device("cuda")`, which needs no card:
-  f32 is taken, float16 raises naming C20; a CPU trainer keeps the
+  f32 is taken (and, since C20, float16); a CPU trainer keeps the
   kernels' plain versions (no f32 route), and a sliding-window inference
-  in f32 enters with a pad, not B17; the trainer's `ieee_f32` scope
+  in f32 enters with a pad, not B17; the trainer's `numerics` scope
   gives the TF32 flags back.
 """
 
@@ -113,7 +113,7 @@ def _forward_pair(model_type, img, seed, **kw):
         {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1)},
         x0, train=False), rng)
     tm, _ = get_model(tp, compute_dtype=F32)
-    assert any(getattr(m, "f32_route", False) for m in tm.modules())
+    assert any(getattr(m, "plain_route", False) for m in tm.modules())
     tm.eval()
     weights.load_flax_variables(tm, v)
     x = rng.normal(size=(1,) + tuple(img) + (2,)).astype(np.float32)
@@ -203,16 +203,15 @@ def test_spatial_attn_plain_at_f32_matches_pallas(n, c, p):
     ({"compute_dtype": "float32"}, F32),
     ({"use_amp": False, "compute_dtype": "float16"}, F32),
     ({}, torch.bfloat16),
-    ({"compute_dtype": "float16"}, None)])
+    # the case keeps the id it was collected under
+    pytest.param({"compute_dtype": "float16"}, torch.float16,
+                 id="setting4-None")])
 def test_compute_dtype_for_the_card(setting, want):
-    """A torch.device("cuda") is only read here, never touched."""
+    """A torch.device("cuda") is only read here, never touched. float16 is
+    taken since C20 (tests/test_torch_port_f16.py)."""
     params = get_default_params()
     params.update(setting)
-    if want is None:
-        with pytest.raises(NotImplementedError, match="C20"):
-            compute_dtype_for(params, torch.device("cuda"))
-    else:
-        assert compute_dtype_for(params, torch.device("cuda")) == want
+    assert compute_dtype_for(params, torch.device("cuda")) == want
 
 
 def test_cpu_trainer_keeps_the_kernel_route_and_pads_its_entry(monkeypatch):
@@ -224,8 +223,8 @@ def test_cpu_trainer_keeps_the_kernel_route_and_pads_its_entry(monkeypatch):
     params.update(feature_size=4, project_size=16, patch_size=32,
                   use_amp=False)
     tr = ModelTrainer(params, device="cpu", verbose=False)
-    assert not any(getattr(m, "f32_route", False) for m in tr.model.modules())
-    assert get_model(dict(params), compute_dtype=F32)[0].f32_route
+    assert not any(getattr(m, "plain_route", False) for m in tr.model.modules())
+    assert get_model(dict(params), compute_dtype=F32)[0].plain_route
 
     def refuse(*args, **kwargs):
         raise AssertionError("B17 at f32")
@@ -237,10 +236,12 @@ def test_cpu_trainer_keeps_the_kernel_route_and_pads_its_entry(monkeypatch):
 
 
 def test_ieee_f32_scope_restores_the_tf32_flags():
-    """`ModelTrainer.ieee_f32` turns TF32 off for its block only where the
+    """`ModelTrainer.numerics` turns TF32 off for its block only where the
     trainer computes in f32 on the card, and gives the caller's flags back
     (also when the block raises); elsewhere it leaves them alone. The
-    card's case is taken here by setting the trainer's switch."""
+    card's case is taken here by handing the trainer the f32 table."""
+    from fcd_tpu_torch.train import trainer as tt
+
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     saved = cudnn.allow_tf32, matmul.allow_tf32
     params = get_default_params()
@@ -249,11 +250,11 @@ def test_ieee_f32_scope_restores_the_tf32_flags():
     tr = ModelTrainer(params, device="cpu", verbose=False)
     try:
         cudnn.allow_tf32 = matmul.allow_tf32 = True
-        with tr.ieee_f32():
+        with tr.numerics():
             assert cudnn.allow_tf32 and matmul.allow_tf32
-        tr._ieee = True
+        tr._numerics = tt._CARD_NUMERICS[F32]
         with pytest.raises(RuntimeError, match="inside"):
-            with tr.ieee_f32():
+            with tr.numerics():
                 assert not (cudnn.allow_tf32 or matmul.allow_tf32)
                 raise RuntimeError("inside")
         assert cudnn.allow_tf32 and matmul.allow_tf32

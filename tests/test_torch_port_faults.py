@@ -2,10 +2,9 @@
 
 * C13: the compute type follows the JAX package's model factory (f32 with
   use_amp=False, else params['compute_dtype']). On a CUDA device bf16
-  runs the kernel route and f32 the JAX package's f32 route (C18);
-  float16 raises NotImplementedError naming C20 when the trainer is
-  built, before anything reaches the card; the CPU computes in f32 as
-  before. A `torch.device("cuda")` needs no card to be built.
+  runs the kernel route, f32 the JAX package's f32 route (C18) and,
+  since C20, float16 its f16 route, resolved before anything reaches the
+  card; the CPU computes in f32 as before. A `torch.device("cuda")` needs no card to be built.
 * C14: the port's Dice loss casts bf16 logits to f32 before its softmax;
   the JAX loss takes the softmax in bf16 and casts after. The two stay
   within a stated gap (see the test's docstring); the f32 cast is kept by
@@ -76,15 +75,12 @@ def _params(**kw):
     {"compute_dtype": "float16"},
     {"compute_dtype": "float32"}])
 def test_the_card_refuses_compute_types_its_kernels_do_not_take(setting):
-    """Since C18 the card takes f32 (the f32 route) beside bf16: only
-    float16 is refused, naming C20, before anything reaches the card."""
-    if setting.get("compute_dtype") == "float16":
-        with pytest.raises(NotImplementedError, match="C20"):
-            compute_dtype_for(_params(**setting), CUDA)
-        with pytest.raises(NotImplementedError, match="C20"):
-            ModelTrainer(_params(**setting), device="cuda")
-    else:
-        assert compute_dtype_for(_params(**setting), CUDA) == torch.float32
+    """Since C18 the card takes f32 (the f32 route) beside bf16, and since
+    C20 float16 (the JAX package's f16 route): each is resolved before
+    anything reaches the card."""
+    want = (torch.float16 if setting.get("compute_dtype") == "float16"
+            and setting.get("use_amp", True) else torch.float32)
+    assert compute_dtype_for(_params(**setting), CUDA) == want
 
 
 @pytest.mark.parametrize("setting", [{}, {"use_amp": False},

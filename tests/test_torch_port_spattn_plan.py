@@ -347,61 +347,79 @@ def test_every_c15_width_has_a_plan():
 @pytest.mark.parametrize("batch", [1, 4])
 @pytest.mark.parametrize("n,c,p", WIDE)
 def test_wide_plan_covers_every_column_and_token_once(n, c, p, batch):
-    plan = sa.spatial_attn_plan(n, c, p, 4, batch)
-    assert plan.wide and plan.head_block == 1 and plan.cols == c
-    # K3: a block is a tile of `tile` tokens, 16-token units each once
-    seen = np.zeros(plan.units, dtype=int)
-    for k in range(plan.fwd_blocks):
-        seen[list(plan.fwd_units(k))] += 1
-    assert (seen == 1).all() and plan.per_block * 16 == plan.tile
-    assert plan.fwd_blocks == -(-n // plan.tile)
-    # K4: every (token, column) of a batch item once: chunk x head x split
-    split, cs = plan.col_split, p // plan.col_split
-    cover = np.zeros((plan.tiles * plan.tile, 4 * p), dtype=int)
-    for hs in range(4 * split):
-        q0 = (hs // split) * p + (hs % split) * cs
-        for k in range(plan.chunks):
-            tiles = list(plan.chunk_tiles(k))
-            assert tiles and tiles == sorted(tiles)
-            for t in tiles:
-                cover[t * plan.tile:(t + 1) * plan.tile, q0:q0 + cs] += 1
-    assert (cover == 1).all()
-    # a block's sums: 32 f32 a thread each, its tile 8192 values
-    assert c * cs <= sa.WIDE_SUMS and plan.tile * c <= sa.WIDE_SUMS
-    assert cs % 16 == 0 and plan.tile % 16 == 0 and plan.tile <= 64
-    assert max(plan.smem_fwd, plan.smem_bwd) <= sa.SMEM_CAP
-    assert plan.smem_bwd == sa.smem_bwd_wide(c, p, plan.tile, split)
-    assert plan.dq_groups == 4 * split
-    assert plan.bwd_grid == plan.chunks * 4 * split * batch
+    """The wide plan (16-bit and f32): K3's and K4's row blocks take every
+    16-token unit once, 32 tokens a block; K4's token sums walk every
+    64-token step once, chunk by chunk in order, and their tiles cover the
+    hP x C sum once; the chunk sizes divide what they stream; both
+    kernels' shared memory fits."""
+    for f32 in (False, True):
+        plan = sa.wide_plan(n, c, p, 4, batch, f32=f32)
+        hp, ck = 4 * p, sa.wide_ck(c)
+        assert plan.wide and plan.f32 == f32 and plan.head_block == 4
+        assert plan.split == "row" and plan.dq_groups == 0
+        seen = np.zeros(plan.units, dtype=int)
+        for k in range(plan.fwd_blocks):
+            seen[list(plan.fwd_units(k))] += 1
+        assert (seen == 1).all() and plan.per_block * 16 == sa.WIDE_TOKENS
+        assert plan.fwd_blocks == -(-n // sa.WIDE_TOKENS)
+        steps = [t for k in range(plan.chunks) for t in plan.chunk_tiles(k)]
+        assert steps == list(range(plan.tiles)) and plan.tile == 64
+        assert all(len(plan.chunk_tiles(k)) for k in range(plan.chunks))
+        tq, tc = min(hp, sa.SUM_TILE), min(ck, sa.SUM_TILE)
+        cover = np.zeros((hp, ck), dtype=int)
+        for x in range(plan.sum_tiles):
+            q0, c0 = x // (ck // tc) * tq, x % (ck // tc) * tc
+            cover[q0:q0 + tq, c0:c0 + tc] += 1
+        assert (cover == 1).all() and tq % 16 == 0 and tc % 16 == 0
+        kc, kq = plan.k_chunk, plan.q_chunk
+        assert kc >= 16 and ck % kc == 0 and kq >= 16 and hp % kq == 0
+        es = 4 if f32 else 2
+        assert plan.smem_fwd == sa.smem_rows_wide(es, False, c, hp, kc, kq)
+        assert plan.smem_bwd == max(sa.smem_rows_wide(es, True, c, hp, kc, kq),
+                                    sa.smem_sums_wide(es, c, hp))
+        assert max(plan.smem_fwd, plan.smem_bwd) <= sa.SMEM_CAP
+        assert plan.bwd_grid == plan.chunks * plan.sum_tiles * 2 * batch
 
 
 def test_wide_plan_matches_the_cuda_checks():
-    """csrc/spatial_attn.cu's wide_ok holds what wide_plan gives: its
-    constants are the module's."""
+    """csrc/spatial_attn.cu's constants are the module's, and its wide_ok
+    holds what wide_plan gives (C a power of two from 8 to 512, P 16 ..
+    128, 1, 2 or 4 heads, the chunks powers of two from 16)."""
     from pathlib import Path
 
     src = (Path(sa.__file__).resolve().parents[1] / "csrc"
            / "spatial_attn.cu").read_text()
-    assert "constexpr int WT = 256;" in src
-    assert "constexpr int WACC = 32;" in src        # WT x WACC = WIDE_SUMS
-    assert sa.WIDE_SUMS == 256 * 32 and sa.WIDE_TILE == 64
-    assert "TOK <= 64" in src and "TOK * C <= WIDE_SUMS" in src
+    for const in ("WT = 256;", f"WTOK = {sa.WIDE_TOKENS};",
+                  f"WSUM_T = {sa.SUM_TOKENS};", f"WSUM_Q = {sa.SUM_TILE};",
+                  f"WSUM_C = {sa.SUM_TILE};"):
+        assert f"constexpr int {const}" in src
+    assert "(h == 1 || h == 2 || h == 4)" in src and sa.WIDE_HEADS == (1, 2, 4)
+    for c in sa.WIDTHS:
+        for p in sa.PROJECTIONS:
+            for h in sa.WIDE_HEADS:
+                plan = sa.wide_plan(64, c, p, h, 2, f32=True)
+                for kc in (plan.k_chunk, plan.q_chunk):
+                    assert kc >= 16 and kc & (kc - 1) == 0
     with pytest.raises(ValueError):
         sa.wide_plan(64, 32, 64, 4, 1)     # a tensor-core width
     with pytest.raises(ValueError):
         sa.wide_plan(64, 1024, 64, 4, 1)   # past B5's widths
+    with pytest.raises(ValueError):
+        sa.wide_plan(64, 512, 64, 8, 1)    # more heads than warp pairs
 
 
 def _emulate_wide(qn, kpb, vpb, g, h, key, rate, plan):
-    """The wide instances' decomposition in plain PyTorch. K3: each tile
-    walks the heads, its outputs summed over them. K4: each (chunk, head,
-    split) block sums qn^T ds and a^T g over its chunk's tiles on its
-    split's columns into its chunk's partials, and writes its (head,
-    split) group's f32 dqn partial; the finishing pass adds the chunks'
-    partials and the groups' dqn in order."""
+    """The wide instances' decomposition in plain PyTorch. K3: each
+    32-token row block sums every head's a . vpb into one output, rounded
+    once. K4: each row block writes a and ds (rounded to the operands'
+    type) and dqn = ds . kpb^T over every head, rounded once; each
+    (chunk, tile) sums qn^T ds and a^T g over its chunk's 64-token steps
+    into its chunk's f32 partials, which the finishing pass adds in chunk
+    order."""
     b, n, c = qn.shape
     hp = kpb.shape[-1]
     p = hp // h
+    dt = qn.dtype
     soft, attn, keep = sa._attn(qn, kpb, h, key, rate)
     qf, gf, kf, vf = qn.float(), g.float(), kpb.float(), vpb.float()
     da = gf @ vf.transpose(1, 2)
@@ -409,36 +427,25 @@ def _emulate_wide(qn, kpb, vpb, g, h, key, rate, plan):
         da = torch.where(keep, da / (1.0 - rate), torch.zeros_like(da))
     s4, d4 = soft.reshape(b, n, h, p), da.reshape(b, n, h, p)
     ds = (s4 * (d4 - (d4 * s4).sum(-1, keepdim=True))).reshape(b, n, hp)
-    ds = ds.bfloat16().float()
-    tile, split = plan.tile, plan.col_split
-    cs = p // split
+    ds = ds.to(dt).float()
     out = torch.zeros(b, n, c)
-    for t in range(plan.tiles):
-        rows = slice(t * tile, min((t + 1) * tile, n))
-        for j in range(h):
-            q = slice(j * p, (j + 1) * p)
-            out[:, rows] += attn[:, rows, q] @ vf[:, q]
-    dk_part = torch.zeros(plan.chunks, b, c, hp)
-    dv_part = torch.zeros(plan.chunks, b, hp, c)
-    dq_part = torch.zeros(h * split, b, n, c)
+    dq = torch.zeros(b, n, c)
+    for k in range(plan.fwd_blocks):
+        rows = slice(k * sa.WIDE_TOKENS, min((k + 1) * sa.WIDE_TOKENS, n))
+        out[:, rows] = attn[:, rows] @ vf
+        dq[:, rows] = ds[:, rows] @ kf.transpose(1, 2)
+    parts = []
     for k in range(plan.chunks):
-        for hs in range(h * split):
-            cols = slice((hs // split) * p + (hs % split) * cs,
-                         (hs // split) * p + (hs % split + 1) * cs)
-            for t in plan.chunk_tiles(k):
-                rows = slice(t * tile, min((t + 1) * tile, n))
-                dk_part[k, :, :, cols] += (qf[:, rows].transpose(1, 2)
-                                           @ ds[:, rows, cols])
-                dv_part[k, :, cols] += (attn[:, rows, cols].transpose(1, 2)
-                                        @ gf[:, rows])
-                dq_part[hs, :, rows] = (ds[:, rows, cols]
-                                        @ kf[:, :, cols].transpose(1, 2))
-    dkpb, dvpb, dq = dk_part[0], dv_part[0], dq_part[0]
-    for k in range(1, plan.chunks):
-        dkpb, dvpb = dkpb + dk_part[k], dvpb + dv_part[k]
-    for grp in range(1, h * split):
-        dq = dq + dq_part[grp]
-    return out.bfloat16(), dq.bfloat16(), dkpb, dvpb
+        dk_k, dv_k = torch.zeros(b, c, hp), torch.zeros(b, hp, c)
+        for t in plan.chunk_tiles(k):
+            rows = slice(t * plan.tile, min((t + 1) * plan.tile, n))
+            dk_k += qf[:, rows].transpose(1, 2) @ ds[:, rows]
+            dv_k += attn[:, rows].transpose(1, 2) @ gf[:, rows]
+        parts.append((dk_k, dv_k))
+    dkpb, dvpb = parts[0]
+    for dk_k, dv_k in parts[1:]:
+        dkpb, dvpb = dkpb + dk_k, dvpb + dv_k
+    return out.to(dt), dq.to(dt), dkpb, dvpb
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

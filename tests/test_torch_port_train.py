@@ -64,7 +64,7 @@ from fcd_tpu_torch.losses.combined import make_combined_loss
 from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET
 from fcd_tpu_torch.ops.attention import ChannelDropout3d, TransformerBlock
 from fcd_tpu_torch.ops.blocks import UnetResBlock, UnetrUpBlock
-from fcd_tpu_torch.ops.layers import BatchNorm, DropoutRng, use_f32_route
+from fcd_tpu_torch.ops.layers import BatchNorm, DropoutRng, use_plain_route
 from fcd_tpu_torch.train.schedule import epoch_lr
 from fcd_tpu_torch.train.state import make_optimizer, make_train_step, set_lr
 from fcd_tpu_torch.train.trainer import ModelTrainer
@@ -420,7 +420,7 @@ def _slice_model(f32_route=False):
     for stack in tm.transformers:
         for blk in stack:
             blk.dropout.rate = 0.0
-    return use_f32_route(tm) if f32_route else tm
+    return use_plain_route(tm) if f32_route else tm
 
 
 def test_ms_dsa_net_train_step_matches_jax(monkeypatch):
