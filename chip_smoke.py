@@ -117,8 +117,10 @@ Run from the repository root:
    (the loss within 1e-4, each module's gradient within max(1e-2, twice
    its movement under a 1e-5 input change), C10's rule). B5's and
    K3/K4's f32 instances are held to their plain versions at rel 1e-5
-   at the four levels among the kernel phases (1.), their SASS free of
-   tensor-core instructions (no TF32).
+   at the four levels among the kernel phases (1.); both multiply on the
+   tensor cores as 3xTF32, so the SASS of B5's f32 phase A and phase B
+   kernels and of K3/K4's wide kernels must hold HMMA (f32_sass_report),
+   and their bounds are taken at 3xTF32's rate (PEAK_3XTF32).
 12. Drives UNETR++ (fs16, bf16): inference on the seeded volume (B1 46,
    B2 23, B5 21 a phase per patch; batch norms calibrated first), one
    patch against the fp32 CPU forward, the 4x128^3 step (B1 91, K1 46,
@@ -153,7 +155,6 @@ import sys
 import time
 
 PEAK_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
-PEAK_F32 = 67e12      # H100 SXM f32 rate outside the tensor cores
 # H100 SXM dense TF32 tensor-core rate over the three products 3xTF32
 # takes for one f32 product (hi.hi + hi.lo + lo.hi): the f32 rate of the
 # kernels that multiply f32 on the tensor cores
@@ -192,41 +193,6 @@ def timed_ms(fn, iters: int) -> float:
     return e0.elapsed_time(e1) / iters
 
 
-def cuda_events(fn, iters: int, tries: int = 5) -> list:
-    """The device events of `iters` calls of fn (torch.profiler), from a
-    whole trace. On the card the profiler sometimes records no event, or
-    drops some (PERF.md section 7), which would read as too little device
-    time. So each try also traces one call, and the trace of `iters` calls
-    is kept only when it holds each op `iters` times as often as that one
-    call launched it. Fails after `tries` tries."""
-    from collections import Counter
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def trace(n):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                fn()
-            torch.cuda.synchronize()
-        return [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-
-    seen = []
-    for _ in range(tries):
-        one = Counter(e.name for e in trace(1))
-        events = trace(iters)
-        got = Counter(e.name for e in events)
-        if one and got == Counter({k: n * iters for k, n in one.items()}):
-            if seen:
-                print(f"  (the profiler dropped events in {len(seen)} "
-                      "trace(s), taken again)")
-            return events
-        seen.append((sum(one.values()), sum(got.values())))
-    raise AssertionError(f"no whole trace of {iters} calls in {tries} tries "
-                         f"(ops in one call, in {iters} calls: {seen})")
-
-
 def device_times(fn, iters: int) -> dict:
     """Mean device ms per call of each kernel, copy and fill that `fn`
     launches, by name, over `iters` calls after a warm-up call
@@ -235,12 +201,14 @@ def device_times(fn, iters: int) -> dict:
     card. On a CPU run: {"host": the host clock per call}."""
     import torch
 
+    from fcd_tpu_torch.kernels._sweep import whole_trace
+
     if not torch.cuda.is_available():
         return {"host": timed_ms(fn, iters)}
     fn()
     torch.cuda.synchronize()
     out = {}
-    for e in cuda_events(fn, iters):
+    for e in whole_trace(fn, iters)[0]:
         out[e.name] = (out.get(e.name, 0.0)
                        + e.time_range.elapsed_us() / iters / 1e3)
     return out
@@ -580,6 +548,27 @@ def upsample_phases(dev, gen, small=False):
     return out
 
 
+def dsa_work(n, c, p, h, es, sa_type="parallel"):
+    """(operations, bytes) of B5's phase A and of its phase B at one
+    shape, tokens of `es` bytes: per sa_type, phase A projects the slots
+    it stages (q, k and v_sa; 'channel' no v_sa), takes each head's
+    CH x CH block of q^T k (2 n C CH in all) and the EF products, and
+    writes q^T k (h x CH x CH values), q2, k2, kp and vp; phase B reads
+    abig (h x CH x CH) and does the products its type has: the channel
+    attention ('parallel', 'channel'; 'serial' on the spatial output) and
+    the scores and s vp^T (all but 'channel')."""
+    ch = c // h
+    na = 3 if p else 2
+    ca = sa_type != "spatial"
+    flops_a = 2 * n * c * c * na + 2 * n * c * ch + 2 * 2 * n * c * p
+    bytes_a = es * n * c + 4 * n * c + es * n * p + na * es * c * c \
+        + 8 * c + 4 * (c * ch + 2 * c + 2 * c * p)
+    flops_b = 2 * n * c * c * 2 + 2 * n * c * ch * ca + 2 * 2 * n * c * p
+    bytes_b = es * n * c + 4 * n * c + 2 * es * c * c + 4 * c \
+        + es * c * ch + 2 * es * c * p + 12 * c + es * n * c
+    return flops_a, bytes_a, flops_b, bytes_b
+
+
 def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel",
               dtype=None):
     """B5 at one level's shape in one sa_type, batch 1, with the model's
@@ -591,9 +580,9 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel",
     kernels. `ms` is the device time of all one main-path call of the
     phase launches (phase A with its finishing pass), the kernels alone
     and the wall per call beside it. dtype torch.float32: the f32
-    instances (C18) on f32 tokens, held at F32_REL, their bound at the
-    f32 rate; torch.float16: the f16 instances (C20, libdsa_f16), held as
-    the bf16 ones."""
+    instances (C18) on f32 tokens, held at F32_REL, their bound at
+    3xTF32's rate (PEAK_3XTF32); torch.float16: the f16 instances (C20,
+    libdsa_f16), held as the bf16 ones."""
     import torch
 
     from fcd_tpu_torch.kernels import dsa_attention as dk
@@ -617,27 +606,14 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel",
            _randn((n, c), gen, dev, 0.1))
     gamma = _randn((c,), gen, dev)
     temps = (t1, t2)
-    ch = c // h
-    # the work the kernels do: per sa_type, phase A projects the slots it
-    # stages (q, k and v_sa; 'channel' no v_sa), takes each head's CH x CH
-    # block of q^T k (2 n C CH in all) and the EF products; phase B does
-    # the products its type has: the channel attention ('parallel',
-    # 'channel'; 'serial' on the spatial output) and the scores and s vp^T
-    # (all but 'channel')
-    na = 3 if p else 2
-    ca = sa_type != "spatial"
-    flops_a = 2 * n * c * c * na + 2 * n * c * ch + 2 * 2 * n * c * p
-    bytes_a = es * n * c + 4 * n * c + es * n * p + na * es * c * c \
-        + 8 * c + 4 * (c * c + 2 * c + 2 * c * p)
-    flops_b = 2 * n * c * c * 2 + 2 * n * c * ch * ca + 2 * 2 * n * c * p
-    bytes_b = es * n * c + 4 * n * c + 2 * es * c * c + 4 * c \
-        + es * c * c + 2 * es * c * p + 12 * c + es * n * c
-    peak = PEAK_F32 if f32 else PEAK_FLOPS
+    flops_a, bytes_a, flops_b, bytes_b = dsa_work(n, c, p, h, es, sa_type)
+    peak = PEAK_3XTF32 if f32 else PEAK_FLOPS
     pa = Phase("dsa_phase_a" + sfx, label, flops_a, bytes_a, peak)
     pb = Phase("dsa_phase_b" + sfx, label, flops_b, bytes_b, peak)
     plan = (dk.dsa_plan_f32 if f32 else dk.dsa_plan)(n, c, p, h)
     print(f"  dsa {label}: tile {plan.tile}, phase A {plan.a_blocks} blocks "
-          f"({plan.chunks} chunks of {plan.per_chunk} tiles a head), phase B "
+          f"({plan.chunks} chunks of {plan.per_chunk} tiles a head, "
+          f"{plan.groups} column group(s)), phase B "
           f"{plan.b_blocks} blocks, shared memory {plan.smem_a} / "
           f"{plan.smem_b} bytes")
     mode = dict(sa_type=sa_type)
@@ -781,14 +757,26 @@ def dsa_f32_phases(dev, gen, small=False):
                                 dtype=torch.float32)]
 
 
-def device_kernels(fn) -> list:
-    """The names of the device ops one call of fn launches, in order."""
+def device_kernels(fn, calls: int = 3) -> list:
+    """The names of the device ops one call of fn launches, in order: the
+    first of `calls` calls in a whole trace. Two one-call traces can agree
+    and still both lack the same op (the profiler has dropped a call's
+    first kernel twice running), so the trace is of several calls, held to
+    a one-call trace by `whole_trace`'s count rule, and every call in it
+    must launch the same ops in the same order."""
     import torch
+
+    from fcd_tpu_torch.kernels._sweep import whole_trace
 
     fn()
     torch.cuda.synchronize()
-    return [e.name for e in sorted(cuda_events(fn, 1),
-                                   key=lambda e: e.time_range.start)]
+    names = [e.name for e in sorted(whole_trace(fn, calls)[0],
+                                    key=lambda e: e.time_range.start)]
+    per = len(names) // calls
+    if any(names[i] != names[i % per] for i in range(len(names))):
+        raise AssertionError(f"{calls} calls launched different ops in "
+                             f"turn: {names}")
+    return names[:per]
 
 
 def wgrad_phase(label, dev, gen, batch, grid, parts_c, cout, *,
@@ -2307,33 +2295,29 @@ PROFILE_KEYS = ("conv3d_kernel", "wgrad_mma_kernel", "wgrad_sum_kernel",
 def profile_run(label, fn, dev) -> dict:
     """Where one call of fn spends the card's time: device time by kernel
     (torch.profiler) and the device's idle share of the synchronised wall
-    time. Returns {kernel key: device ms}."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    time, after a warm-up call, from a whole trace only (`whole_trace`:
+    a trace of one call is kept when another one agrees with it op for
+    op, up to ten tries): with none the phase fails and prints no
+    breakdown. Returns {kernel key: device ms}; on a CPU run {} (not
+    measured)."""
+    from fcd_tpu_torch.kernels._sweep import whole_trace
 
+    if dev.type != "cuda":
+        print(f"profile: {label}: no card, not measured")
+        return {}
     fn()
     sync(dev)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync(dev)
-        wall_us = (time.perf_counter() - t0) * 1e6
+    events, wall_s = whole_trace(fn, 1, tries=10, cpu=True)
     by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            key = next((k for k in PROFILE_KEYS if k in e.name), e.name[:60])
-            n, us = by_name.get(key, (0, 0.0))
-            by_name[key] = (n + 1, us + e.time_range.elapsed_us())
-    busy = sum(us for _, us in by_name.values())
-    if busy == 0:
-        print(f"profile: {label}: the profiler recorded no device time; "
-              "per-kernel breakdown not measured")
-        return {}
+    for e in events:
+        key = next((k for k in PROFILE_KEYS if k in e.name), e.name[:60])
+        n, us = by_name.get(key, (0, 0.0))
+        by_name[key] = (n + 1, us + e.time_range.elapsed_us())
+    busy, wall_us = sum(us for _, us in by_name.values()), wall_s * 1e6
     print(f"profile: {label}, wall {wall_us / 1e3:.2f} ms, device busy "
           f"{busy / 1e3:.2f} ms, idle share "
           f"{100 * max(0.0, 1 - busy / wall_us):.1f}%, "
-          f"{sum(n for n, _ in by_name.values())} device kernels")
+          f"{len(events)} device kernels (a whole trace)")
     for key, (n, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:14]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% {n:5d}x {key}")
     return {k: us / 1e3 for k, (_, us) in by_name.items()}
@@ -3194,25 +3178,29 @@ def _sass_functions(lib, pick) -> dict:
 
 
 def f32_sass_report() -> None:
-    """What runs on the tensor cores, from the SASS: B5's f32 instances
-    (libdsa_f32) on none (IEEE f32 on the CUDA cores); K3/K4's wide
-    instances, rebuilt on the tensor cores, on them in every instance:
-    the f32 ones (3xTF32, HMMA .tf32) in libspatial_attn, the bf16 and
-    f16 ones in libspatial_attn and libspatial_attn_f16 (HMMA m16n8k16).
-    Fails on a function that breaks its rule."""
+    """What runs on the tensor cores, from the SASS. B5's f32 instances
+    (libdsa_f32, 3xTF32): HMMA (.tf32) in the phase A and phase B kernels;
+    the finishing pass has no products. K3/K4's wide instances, rebuilt
+    on the tensor cores: HMMA in every instance, the f32 ones (3xTF32) in
+    libspatial_attn, the bf16 and f16 ones in libspatial_attn and
+    libspatial_attn_f16 (m16n8k16). Fails on a function that breaks its
+    rule."""
     dsa = _sass_functions("dsa_f32", lambda f: True)
+    products = {f: n for f, n in dsa.items()
+                if any(k in f for k in DSA_F32_KERNELS[::2])}
     wide = {}
     for lib in ("spatial_attn", "spatial_attn_f16"):
         wide.update({f"{lib}:{f}": n for f, n in _sass_functions(
             lib, lambda f: "_wide" in f).items()})
     f32 = {f: n for f, n in wide.items() if "_wideIf" in f}
-    ok = (len(dsa) >= 3 and not any(dsa.values()) and len(f32) >= 9
-          and len(wide) >= 27 and all(wide.values()))
-    print(f"f32 instances of B5: {len(dsa)} functions, tensor-core "
-          f"instructions {sum(dsa.values())} (IEEE f32 on the CUDA cores); "
-          f"K3/K4's wide instances: {len(wide)} functions ({len(f32)} f32, "
-          f"3xTF32), each with HMMA (fewest {min(wide.values() or [0])}) "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
+    ok = (len(dsa) >= 3 and len(products) == 2 and all(products.values())
+          and len(f32) >= 9 and len(wide) >= 27 and all(wide.values()))
+    print(f"f32 instances of B5: {len(dsa)} functions, HMMA in phase A and "
+          f"phase B ({', '.join(f'{n}' for n in products.values())}; "
+          f"3xTF32); K3/K4's wide instances: {len(wide)} functions "
+          f"({len(f32)} f32, 3xTF32), each with HMMA (fewest "
+          f"{min(wide.values() or [0])}) {'ok' if ok else 'FAIL'}",
+          flush=True)
     if not ok:
         raise AssertionError(f"SASS: B5 f32 {dsa}; K3/K4 wide {wide}")
 

@@ -8,7 +8,7 @@ sliding-window engine on the card, softmax (on the card, before the host
 fetch), the inverse spatial transform back to the native grid, argmax,
 optional post-processing, NIfTI save, and per-subject Dice/IoU with the
 all-zero-GT edge case. `--preprocess` (FSL registration) is not ported yet
-(ROADMAP.md, Queue A1): it needs the FSL binaries.
+(ROADMAP.md, Queue A6): it needs the FSL binaries.
 
 Run: python -m fcd_tpu_torch.cli.infer --data_dir ... --checkpoint_path ...
 --save_dir ... [--device cpu]
@@ -61,7 +61,7 @@ def run_inference(
     if preprocess:
         raise NotImplementedError(
             "--preprocess (FSL registration, fcd_tpu/data/fsl.py) is not "
-            "ported yet: it needs the FSL binaries (ROADMAP.md, Queue A1)")
+            "ported yet: it needs the FSL binaries (ROADMAP.md, Queue A6)")
     os.makedirs(save_dir, exist_ok=True)
 
     def clock() -> float:

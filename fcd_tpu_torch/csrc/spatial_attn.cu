@@ -88,6 +88,7 @@
 #include <stdint.h>
 
 #include "h16.cuh"
+#include "tf32x3.cuh"
 
 namespace {
 
@@ -930,32 +931,11 @@ __device__ __forceinline__ void stream(int n, Stage stage, Use use) {
   __syncthreads();
 }
 
-__device__ __forceinline__ uint32_t tf32_of(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x as its TF32 high part and the TF32 rounding of the rest
-__device__ __forceinline__ void split3(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32_of(x);
-  lo = tf32_of(x - __uint_as_float(hi));
-}
-
-// d[16 x 8] += a[16 x 8] . b[8 x 8], TF32 in, f32 accumulators
-__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // acc[j] (the m16n8 tile of rows m0 .. m0 + 15, columns n0 + 8 j .., j <
 // nj) += A[m0 .., 0 .. k1) . B[0 .. k1, n0 ..), in shared memory: A stored
 // M x K (row m at A + m ap) or, with AKM, K x M; B stored K x N or, with
-// BNK, N x K. h16: m16n8k16 from ldmatrix (nj even); f32: 3xTF32 m16n8k8.
+// BNK, N x K. h16: m16n8k16 from ldmatrix (nj even); f32: 3xTF32 m16n8k8
+// (csrc/tf32x3.cuh).
 template <bool AKM, bool BNK, int MJ, typename E>
 __device__ __forceinline__ void warp_mma(float (&acc)[MJ][4], int nj,
                                          const E* A, int ap, int m0,
@@ -984,48 +964,7 @@ __device__ __forceinline__ void warp_mma(float (&acc)[MJ][4], int nj,
       }
     }
   } else {
-    const int g = lane >> 2, t = lane & 3;
-    for (int k = 0; k < k1; k += 8) {
-      float a[4];
-      if constexpr (AKM) {
-        const float* r0 = A + (k + t) * ap + m0 + g;
-        const float* r1 = r0 + 4 * ap;
-        a[0] = r0[0];
-        a[1] = r0[8];
-        a[2] = r1[0];
-        a[3] = r1[8];
-      } else {
-        const float* r0 = A + (m0 + g) * ap + k + t;
-        const float* r1 = r0 + 8 * ap;
-        a[0] = r0[0];
-        a[1] = r1[0];
-        a[2] = r0[4];
-        a[3] = r1[4];
-      }
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) split3(a[i], ah[i], al[i]);
-#pragma unroll
-      for (int j = 0; j < MJ; ++j) {
-        if (j >= nj) break;
-        float b0, b1;
-        if constexpr (BNK) {
-          const float* r = B + (n0 + 8 * j + g) * bp + k + t;
-          b0 = r[0];
-          b1 = r[4];
-        } else {
-          const float* r = B + (k + t) * bp + n0 + 8 * j + g;
-          b0 = r[0];
-          b1 = r[4 * bp];
-        }
-        uint32_t bh0, bl0, bh1, bl1;
-        split3(b0, bh0, bl0);
-        split3(b1, bh1, bl1);
-        mma1688(acc[j], al, bh0, bh1);
-        mma1688(acc[j], ah, bl0, bl1);
-        mma1688(acc[j], ah, bh0, bh1);
-      }
-    }
+    warp_mma_tf32<AKM, BNK, MJ>(acc, nj, A, ap, m0, B, bp, n0, k1, lane);
   }
 }
 

@@ -254,7 +254,7 @@ FLAGS: Dict[str, Flag] = {
     "FCD_MNI152_PATH": Flag(
         "", "Path to an MNI152 template for FSL registration.",
         values="path", status="infra",
-        port="FSL `--preprocess`: not ported (ROADMAP A1)"),
+        port="FSL `--preprocess`: not ported (ROADMAP A6)"),
 }
 
 

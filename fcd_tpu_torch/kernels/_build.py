@@ -37,7 +37,8 @@ SOURCES = ("conv3d", "conv3d_wgrad", "upsample", "dsa", "dsa_f16", "dsa_f32",
 # name -> (source, flags)
 VARIANTS = {"dsa_f16": ("dsa", ("-DFCD_F16",)),
             "spatial_attn_f16": ("spatial_attn", ("-DFCD_F16",))}
-HEADERS = ("h16.cuh",)   # included by the sources, part of every hash
+# included by the sources, part of every hash
+HEADERS = ("h16.cuh", "tf32x3.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

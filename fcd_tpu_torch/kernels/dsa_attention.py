@@ -243,6 +243,7 @@ KW = 32                    # weight rows a streamed chunk
 PHASE_A_BLOCKS = 2 * SMS   # phase A's chunks aim at this many blocks
 NT = 256                   # threads of every block of csrc/dsa.cu
 SMEM_CAP = 232448          # shared memory one block may hold (227 KiB)
+SMEM_SM = 233472           # a SM's (228 KiB; 1 KiB of it reserved a block)
 
 
 def _pitch(n: int) -> int:
@@ -308,14 +309,16 @@ class DsaPlan(NamedTuple):
     p: int
     smem_a: int
     smem_b: int
+    groups: int = 1  # column groups a head's phase A blocks split into (f32)
+    hb: int = 1      # heads a phase B block takes (f32)
 
     @property
     def a_blocks(self) -> int:
-        return self.chunks * self.heads * self.batch
+        return self.chunks * self.heads * self.batch * self.groups
 
     @property
     def b_blocks(self) -> int:
-        return self.tiles * self.heads * self.batch
+        return self.tiles * self.heads // self.hb * self.batch
 
     @property
     def record(self) -> int:
@@ -377,51 +380,174 @@ def dsa_plan(n: int, c: int, p: int, heads: int, batch: int = 1) -> DsaPlan:
     return plan_for(n, c, p, heads, batch, tile, -(-tiles // want))
 
 
-# the f32 instances' tiles (csrc/dsa_f32.cu): f32 rows in shared memory
-TILES_F32 = (64, 32, 16)
-SMEM_F32 = 100 * 1024       # what an f32 block holds at most
+# the f32 instances' plan (csrc/dsa_f32.cu, 3xTF32 on the tensor cores)
+TILES_F32 = (128, 64, 32, 16)  # token tiles, largest first
+KC_F32 = 32         # weight rows a streamed chunk
+MJ_F32 = 8          # n-tiles of 8 columns a warp's unit, at most
+SLACK_F32 = 16      # floats past phase A's q | k | v_sa (csrc::SLACK)
+MAX_HB = 4          # heads a phase B block takes, at most
 
 
-def smem_a_f32(c: int, ch: int, p: int, t: int) -> int:
-    """csrc/dsa_f32.cu::smem_a: the LayerNormed tile, q | k | v_sa and the
-    ef tile, f32."""
-    return 4 * (t * c + 3 * t * ch + t * p)
+def _prow(n: int) -> int:
+    """csrc/dsa_f32.cu::prow: an f32 row pitch of >= n elements, 4 mod 8
+    (the operands read along their rows by the fragments)."""
+    return (n + 3) // 8 * 8 + 4
 
 
-def smem_b_f32(c: int, ch: int, p: int, t: int) -> int:
-    """csrc/dsa_f32.cu::smem_b: the tile, t, qn | v | the spatial output
-    and the scores, f32."""
-    return 4 * (t * c + 4 * t * ch + t * p)
+def _pcol(n: int) -> int:
+    """csrc/dsa_f32.cu::pcol: >= n elements, 8 mod 16 (the operands read
+    down their columns)."""
+    return (n + 7) // 16 * 16 + 8
 
 
-@functools.lru_cache(maxsize=None)
-def dsa_plan_f32(n: int, c: int, p: int, heads: int,
-                 batch: int = 1) -> DsaPlan:
-    """The f32 instances' plan, by `dsa_plan`'s rule: the largest tile of
-    TILES_F32 whose tiles give every SM a block and whose blocks stay
-    within SMEM_F32, else the smallest; phase A's blocks walk enough tiles
-    to come to about PHASE_A_BLOCKS. Raises ValueError on shapes the
-    kernels do not take (`supported`)."""
+def _cols_a(chp: int, groups: int, p: int) -> int:
+    """Phase A's projected columns: the group's q and v_sa, the head's k
+    (csrc/dsa_f32.cu::cols_a)."""
+    return chp + (2 if p else 1) * (chp // groups)
+
+
+def _units(mt: int, nt: int) -> int:
+    """csrc/dsa_f32.cu::units_of(...).units: warp units of an mt x nt grid
+    of m16n8 tiles, the n-tiles spread over the warps an m-tile has, at
+    most MJ_F32 a unit."""
+    groups = max(1, (NT // 32) // mt)
+    nj = min(-(-nt // groups), MJ_F32)
+    return mt * -(-nt // nj)
+
+
+def _projects(t: int, nc: int) -> bool:
+    """One projection unit a warp at most (csrc/dsa_f32.cu::projects)."""
+    return _units(t // 16, nc // 8) <= NT // 32
+
+
+def _wrows(c: int, wp: int, other: int) -> int:
+    """csrc/dsa_f32.cu::wrows: the weight rows a block holds, all C
+    (staged once a block) where its shared memory then stays within
+    SMEM_CAP, else two stages of min(KC_F32, C) rows streamed a tile."""
+    return c if 4 * (c * wp + other) <= SMEM_CAP else 2 * min(KC_F32, c)
+
+
+def smem_a_f32(c: int, ch: int, p: int, t: int, groups: int = 1) -> int:
+    """csrc/dsa_f32.cu::smem_a: the weights (resident or two stages), the
+    tile's x and pe rows, its ef rows and q | k | v_sa, f32."""
+    nc = _cols_a(max(ch, 8), groups, p)
+    other = (2 * t * _prow(c) + (t * _pcol(p) if p else 0) + t * _pcol(nc)
+             + SLACK_F32)
+    return 4 * (_wrows(c, _pcol(nc), other) * _pcol(nc) + other)
+
+
+def _rows_whole(t: int, p: int, chp: int) -> bool:
+    """csrc/dsa_f32.cu::rows_whole: phase B's warps take 16 whole rows each
+    from the scores to y (tiles of 64 tokens and more, P and the head's
+    columns at most MJ_F32 n-tiles)."""
+    return t >= 64 and 0 < p <= 8 * MJ_F32 and chp <= 8 * MJ_F32
+
+
+def smem_b_f32(c: int, ch: int, p: int, t: int, hb: int = 1) -> int:
+    """csrc/dsa_f32.cu::smem_b for hb heads a block: the weights (resident
+    or two stages), x and pe rows, t, qn | v, qnorm, the scores (over x
+    and pe where they fit) and the spatial output (a 16-row slab a warp,
+    or the tile's rows), and (head widths under STREAM_WIDTH) each head's
+    abig_h, kpt_h and vp_h, f32."""
+    chp = max(ch, 8)
+    sr = 16 * (NT // 32) if _rows_whole(t, p, chp) else t
+    other = (2 * t * _prow(c) + t * hb * chp + t * _prow(2 * hb * chp)
+             + hb * chp)
+    if p:
+        # the scores lie over the tile's x and pe rows where they fit
+        # (csrc/dsa_f32.cu::s_on_x)
+        over = sr * _prow(p) <= 2 * t * _prow(c)
+        other += (0 if over else sr * _prow(p)) + sr * _prow(chp)
+    if ch < STREAM_WIDTH:
+        other += hb * (chp * _pcol(chp) + (chp * _pcol(p) + chp * _prow(p)
+                                           if p else 0))
+    wp = _pcol(2 * hb * chp)
+    return 4 * (_wrows(c, wp, other) * wp + other)
+
+
+def plan_for_f32(n: int, c: int, p: int, heads: int, batch: int, tile: int,
+                 per_chunk: int, groups: int = 1, hb: int = 1) -> DsaPlan:
+    """The f32 instances' plan with this token tile, these tiles a phase A
+    block walks, these column groups a head (phase A) and hb heads a
+    phase B block. Raises ValueError on shapes the kernels do not take
+    (`supported`) and on a plan they refuse: a tile outside TILES_F32,
+    groups not a power of two or of fewer than 8 columns, hb not a power
+    of two up to MAX_HB dividing the heads, a projection of more than one
+    unit a warp, or shared memory over SMEM_CAP."""
     if not supported(c, p, heads) or n < 1 or batch < 1:
         raise ValueError(
             f"dsa f32 kernels: N={n} C={c} P={p} heads={heads} batch="
             f"{batch} not supported (head width in {HEAD_WIDTHS}, P in "
             f"{PROJECTIONS} or 0, C a power of two from 8 to {MAX_C})")
     ch = c // heads
+    chp = max(ch, 8)
+    if tile not in TILES_F32 or per_chunk < 1:
+        raise ValueError(f"dsa f32 kernels: tile {tile} (one of "
+                         f"{TILES_F32}), {per_chunk} tiles a chunk")
+    if groups < 1 or groups & (groups - 1) or (
+            groups > 1 and chp // groups < 8):
+        raise ValueError(f"dsa f32 kernels: {groups} column groups of a "
+                         f"head of {ch} columns")
+    if hb < 1 or hb & (hb - 1) or hb > MAX_HB or heads % hb:
+        raise ValueError(f"dsa f32 kernels: {hb} heads a phase B block of "
+                         f"{heads}")
+    if not (_projects(tile, _cols_a(chp, groups, p))
+            and _projects(tile, 2 * hb * chp)):
+        raise ValueError(f"dsa f32 kernels: C={c} P={p} tile {tile}: more "
+                         "than one projection unit a warp")
+    sa = smem_a_f32(c, ch, p, tile, groups)
+    sb = smem_b_f32(c, ch, p, tile, hb)
+    if max(sa, sb) > SMEM_CAP:
+        raise ValueError(f"dsa f32 kernels: C={c} P={p} tile {tile} needs "
+                         f"{max(sa, sb)} bytes of shared memory")
+    tiles = -(-n // tile)
+    per_chunk = min(per_chunk, tiles)
+    return DsaPlan(tile, tiles, per_chunk, -(-tiles // per_chunk), heads,
+                   batch, ch, p, sa, sb, groups, hb)
 
-    def fits(t):
-        return max(smem_a_f32(c, ch, p, t), smem_b_f32(c, ch, p, t)) \
-            <= SMEM_F32
+
+@functools.lru_cache(maxsize=None)
+def dsa_plan_f32(n: int, c: int, p: int, heads: int,
+                 batch: int = 1) -> DsaPlan:
+    """The f32 instances' plan, by `dsa_plan`'s rule: the largest tile of
+    TILES_F32 whose tiles give every SM a block and that the kernels take
+    (one projection unit a warp, shared memory within SMEM_CAP), else 16;
+    phase A's blocks walk enough tiles to come to about PHASE_A_BLOCKS.
+    Where phase A's blocks would still fill under half the card (level 6:
+    4 tiles x 4 heads), each head's blocks split into column groups, the
+    groups doubled while the blocks stay within one per SM and a group
+    keeps 8 columns. Phase B's blocks take up to MAX_HB heads each while
+    every SM still gets a block and two fit its shared memory. Raises
+    ValueError on shapes the kernels do not take (`supported`)."""
+    plan_for_f32(n, c, p, heads, batch, TILES_F32[-1], 1)  # refuses
+    ch = c // heads
+
+    def takes(t):
+        try:
+            plan_for_f32(n, c, p, heads, batch, t, 1)
+        except ValueError:
+            return False
+        return True
 
     tile = next((t for t in TILES_F32
-                 if -(-n // t) * heads * batch >= SMS and fits(t)),
+                 if -(-n // t) * heads * batch >= SMS and takes(t)),
                 TILES_F32[-1])
     tiles = -(-n // tile)
-    want = min(tiles, -(-PHASE_A_BLOCKS // max(1, heads * batch)))
+    want = min(tiles, -(-PHASE_A_BLOCKS // (heads * batch)))
     per_chunk = -(-tiles // want)
-    return DsaPlan(tile, tiles, per_chunk, -(-tiles // per_chunk), heads,
-                   batch, ch, p, smem_a_f32(c, ch, p, tile),
-                   smem_b_f32(c, ch, p, tile))
+    chunks = -(-tiles // per_chunk)
+    groups = 1
+    while (2 * groups <= max(ch, 8) // 8
+           and 2 * groups * chunks * heads * batch <= SMS):
+        groups *= 2
+    # phase B's heads a block: the most that keep a block for every SM and
+    # two blocks in a SM's shared memory, so that a tile's tokens are read
+    # and LayerNormed once for them (level 3: two heads)
+    hb = next(k for k in (4, 2, 1) if k == 1 or (
+        heads % k == 0 and tiles * heads // k * batch >= SMS
+        and _projects(tile, 2 * k * max(ch, 8))
+        and 2 * (smem_b_f32(c, ch, p, tile, k) + 1024) <= SMEM_SM))
+    return plan_for_f32(n, c, p, heads, batch, tile, per_chunk, groups, hb)
 
 
 # -- the wrappers ----------------------------------------------------------------
@@ -631,7 +757,7 @@ def _dsa_phase_a_f32(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed,
                      sa_type: str = "parallel"):
     """`dsa_phase_a` on f32 CUDA tokens (csrc/dsa_f32.cu): the sums kernel
     and the finishing pass, two launches and one count (`PHASE_A_F32`). Every
-    operand f32; `plan` defaults to `dsa_plan_f32`'s."""
+    operand f32; `plan` (`plan_for_f32`'s) defaults to `dsa_plan_f32`'s."""
     _cuda_operands("dsa_phase_a_f32", x, (
         ("w_qkvv", w_qkvv, _F32), ("ef", ef, _F32),
         ("pos_embed", pos_embed, _F32), ("ln_scale", ln_scale, _F32),
@@ -649,14 +775,14 @@ def _dsa_phase_a_f32(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed,
     t1, t2 = (None, None) if temperatures is None else temperatures
     vp_, ci = ctypes.c_void_p, ctypes.c_int
     fn = _fn("fcd_dsa_f32_phase_a", [vp_] * 5 + [ci, vp_, vp_, ci]
-             + [vp_] * 7 + [ci] * 8 + [ctypes.c_float, vp_], "dsa_f32")
+             + [vp_] * 7 + [ci] * 9 + [ctypes.c_float, vp_], "dsa_f32")
     ptr = _build.ptr
     err = fn(ptr(x), ptr(pos_embed), ptr(ln_scale), ptr(ln_bias),
              ptr(w_qkvv), mode_of(sa_type), ptr(ef), ptr(part),
              int(temperatures is not None), ptr(t1), ptr(t2),
              *(ptr(t) for t in out), *([ptr(None)] * (5 - len(out))),
              b, n, c, p, h, plan.tile, plan.per_chunk, plan.chunks,
-             float(eps), _build.stream())
+             plan.groups, float(eps), _build.stream())
     _build.check(err, "dsa_phase_a_f32")
     _COUNTS[x.dtype][0].launches += 1
     return out
@@ -684,12 +810,12 @@ def _dsa_phase_b_f32(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale,
     out = torch.empty_like(x)
     vp_, ci = ctypes.c_void_p, ctypes.c_int
     fn = _fn("fcd_dsa_f32_phase_b", [vp_] * 5 + [ci] + [vp_] * 6
-             + [ci] * 6 + [ctypes.c_float, vp_], "dsa_f32")
+             + [ci] * 7 + [ctypes.c_float, vp_], "dsa_f32")
     ptr = _build.ptr
     err = fn(ptr(x), ptr(pos_embed), ptr(ln_scale), ptr(ln_bias),
              ptr(w_qkvv), mode_of(sa_type), ptr(qnorm), ptr(abig), ptr(kpt),
              ptr(vp), ptr(gamma), ptr(out), b, n, c, p, h, plan.tile,
-             float(eps), _build.stream())
+             plan.hb, float(eps), _build.stream())
     _build.check(err, "dsa_phase_b_f32")
     _COUNTS[x.dtype][1].launches += 1
     return out

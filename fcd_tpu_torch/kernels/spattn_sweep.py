@@ -6,17 +6,18 @@ the repository root):
 
 At the four DSA levels of a 128^3 patch (batch 4, 4 heads, dropout 0.1,
 as the train step calls them) in bf16, at the wide widths of `WIDE`
-(C15) in bf16 and at the four levels in f32 (C18) it times
+(C15) in bf16 and f16 (C20) and at the four levels in f32 (C18) it times
 `spatial_attn_fwd` (K3) and `spatial_attn_bwd` (K4) by the device time
 of everything one call launches (torch.profiler, 20 calls after a
-warm-up), with the kernels' share, the count of device ops and the wall
-per call beside it, and beside each wide and f32 shape the library's
-yardstick in the operands' type: SDPA per head (q (B, h, N, C), k and v
-(B, h, P, C)) and its backward alone; then the
-train step of the default MS_DSA_NET at 4 x 128^3 (DiceCE, AdamW, seeded
-weights and batch): ms/step over three synchronised steps, three times,
-and one profiled step's device busy time, device kernel count and K3's
-and K4's device time (every op whose name carries `spatial_attn`).
+warm-up, from a whole trace: `_sweep.whole_trace`), with the
+kernels' share, the count of device ops and the wall per call beside
+it, and beside each wide and f32 shape the library's yardstick in the
+operands' type: SDPA per head (q (B, h, N, C), k and v (B, h, P, C)) and
+its backward alone; then the train step of the default MS_DSA_NET at 4 x
+128^3 (DiceCE, AdamW, seeded weights and batch): ms/step over three
+synchronised steps, three times, and a step's device busy time, device
+kernel count and K3's and K4's device time (every op whose name carries
+`spatial_attn`) from a whole trace.
 
 With --parent DIR (an unpacked checkout, e.g. the parent commit's `git
 archive` under build/), the same measurements run for DIR's port and for
@@ -159,14 +160,19 @@ def measure() -> dict:
     """The measurements of the `fcd_tpu_torch` on sys.path."""
     import torch
 
+    from fcd_tpu_torch.kernels import _build
     from fcd_tpu_torch.kernels import spatial_attn as sa
 
+    # every library first: a process that builds one (nvcc) after it has
+    # read a trace gets empty traces from then on
+    _build.build_all()
     torch.set_grad_enabled(False)
     gen = torch.Generator(device="cuda").manual_seed(0)
     key = sa.dropout_key(0, 3)
     out = {"levels": {}}
     cases = ([(name, n, c, p, torch.bfloat16) for name, n, c, p in LEVELS]
-             + [(name, n, c, p, torch.bfloat16) for name, n, c, p in WIDE]
+             + [(name, n, c, p, dt) for dt in (torch.bfloat16, torch.float16)
+                for name, n, c, p in WIDE]
              + [(name, n, c, p, torch.float32) for name, n, c, p in LEVELS])
     for name, n, c, p, dt in cases:
         qn, kpb, vpb, g = _inputs(n, c, p, gen, dt)
@@ -186,12 +192,12 @@ def measure() -> dict:
 
 def train_step() -> dict:
     """ms/step of the default MS_DSA_NET at 4 x 128^3 (three runs of three
-    synchronised steps after a warm-up step), and one profiled step."""
+    synchronised steps after a warm-up step), and one step's profile from a
+    whole trace (`_sweep.whole_trace`)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from fcd_tpu_torch.config import get_default_params
+    from fcd_tpu_torch.kernels._sweep import whole_trace
     from fcd_tpu_torch.train.schedule import epoch_lr
     from fcd_tpu_torch.train.trainer import ModelTrainer
 
@@ -215,13 +221,9 @@ def train_step() -> dict:
                 trainer.train_step(x, y, lr)
             torch.cuda.synchronize()
             steps.append((time.perf_counter() - t0) * 1e3 / 3)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            trainer.train_step(x, y, lr)
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ev, wall = whole_trace(lambda: trainer.train_step(x, y, lr), 1,
+                               cpu=True, tries=10)
+    wall *= 1e3
     busy = sum(e.time_range.elapsed_us() for e in ev) / 1e3
 
     def named(key):
@@ -229,7 +231,8 @@ def train_step() -> dict:
                    if key in e.name) / 1e3
 
     return {"ms_per_step": steps, "wall_ms_profiled": wall,
-            "device_busy_ms": busy, "idle_share": max(0.0, 1 - busy / wall),
+            "device_busy_ms": busy,
+            "idle_share": max(0.0, 1 - busy / wall),
             "device_kernels": len(ev),
             "k3_ms": named("spatial_attn_fwd"),
             "k4_ms": named("spatial_attn_bwd"),
@@ -256,7 +259,7 @@ def show(label: str, res: dict) -> None:
 
 def main(argv=None) -> int:
     # imported here: measure() runs in a child whose fcd_tpu_torch may
-    # be an older checkout, without _sweep
+    # be an older checkout, imported before this checkout's _sweep
     from fcd_tpu_torch.kernels import _sweep
 
     return _sweep.main(__doc__, __file__, plans, show, argv)

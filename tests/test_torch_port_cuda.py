@@ -52,36 +52,64 @@ def _randn(gen, dev, *shape, scale=1.0, dtype=torch.float32):
     return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
 
 
-def _device_op_names(call, tries=5):
-    """The device ops one call launches, in launch order (torch.profiler),
-    after a warm-up call. On the card the profiler sometimes records no
-    event, or drops some, and has dropped a trace's first kernel in two
-    traces in a row: each trace opens with a marker kernel (torch's spin
-    kernel) that is left out of the names, and the trace is taken until
-    two non-empty traces in a row (empty ones skipped) agree, up to
-    `tries` times."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+# aten ops that allocate or view and launch no device work: what a
+# kernel's wrapper may make beside the launches of its CUDA kernels
+NO_DEVICE_WORK = {
+    "aten.empty", "aten.empty_like", "aten.empty_strided", "aten.new_empty",
+    "aten.new_empty_strided", "aten.view", "aten._unsafe_view",
+    "aten.as_strided", "aten.t", "aten.transpose", "aten.permute",
+    "aten.unsqueeze", "aten.squeeze", "aten.select", "aten.slice",
+    "aten.expand", "aten.alias", "aten.detach", "aten.split", "aten.unbind"}
+
+
+def _aten_ops(call):
+    """The aten ops one call makes, in order, after a warm-up call (a
+    TorchDispatchMode log; no profiler). The port's kernels launch through
+    ctypes, which no aten op sees, so an op outside NO_DEVICE_WORK in the
+    log is device work beside the kernels: a cast, a copy or a sum."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Log(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func.overloadpacket))
+            return func(*args, **(kwargs or {}))
 
     call()
     torch.cuda.synchronize()
-    last = None
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            torch.cuda._sleep(1000)
-            call()
-            torch.cuda.synchronize()
-        names = [e.name for e in sorted(
-            (e for e in prof.events() if e.device_type == DeviceType.CUDA),
-            key=lambda e: e.time_range.start)]
-        if names and "spin_kernel" in names[0]:
-            names = names[1:]
-        if not names:
-            continue
-        if names == last:
-            return names
-        last = names
-    raise AssertionError(f"no two traces in {tries} agree: the last {last}")
+    with Log() as log:
+        call()
+    torch.cuda.synchronize()
+    return log.ops
+
+
+def _library_kernels(lib, names):
+    """{name: the functions of library `lib` whose names hold it}, from the
+    library's SASS (cuobjdump): each kernel a wrapper launches is there."""
+    from chip_smoke import _sass_functions
+
+    fns = _sass_functions(lib, lambda f: True)
+    return {k: [f for f in fns if k in f] for k in names}
+
+
+def _only_kernels(call, counters, lib, names):
+    """One call of `call` is one count on each of `counters` (the wrappers'
+    launch counts; (object, launches per call)), launches the kernels of
+    `names`, which library `lib` holds, and makes no aten op that does
+    device work (`_aten_ops`). The names are checked in the library's
+    SASS only: how many device kernels one C entry launches, and in which
+    order, is held by chip_smoke.py's `device_kernels` (a whole trace),
+    not here."""
+    before = [c.launches for c, _ in counters]
+    ops = _aten_ops(call)
+    assert [c.launches - b for (c, _), b in zip(counters, before)] == [
+        2 * n for _, n in counters], "launches"
+    assert set(ops) <= NO_DEVICE_WORK, ops
+    for k, fns in _library_kernels(lib, names).items():
+        assert fns, (lib, k)
 
 
 @pytest.mark.parametrize("parts_c,cout,mode,grid", [
@@ -200,16 +228,14 @@ def test_upsample_kernel_every_tile(dev, tile):
 
 
 def test_upsample_is_one_device_launch(dev):
-    """The model's call (f32 kernel, no bias): one kernel on the card, no
-    cast, flip or copy beside it."""
+    """The model's call (f32 kernel, no bias): one kernel on the card
+    (one count on the wrapper, whose one C call launches upsample_kernel),
+    no cast, flip or copy beside it (no aten op but its allocation)."""
     from fcd_tpu_torch.kernels.upsample import upsample2x
 
     x, k, _ = _upsample_inputs(dev, 1, 32, 16, False, "f32", grid=(8, 8, 8))
-    names = _device_op_names(lambda: upsample2x(x, k))
-    assert len(names) == 1 and "upsample_kernel" in names[0], names
-    before = upsample2x.launches
-    upsample2x(x, k)
-    assert upsample2x.launches == before + 1
+    _only_kernels(lambda: upsample2x(x, k), [(upsample2x, 1)], "upsample",
+                  ["upsample_kernel"])
 
 
 def _dsa_inputs(gen, dev, n, c, p, h, wdtype=torch.float32):
@@ -313,11 +339,15 @@ def test_dsa_kernels_at_every_width(dev, n, c, p):
     assert _rel(whole, dk.dsa_reference(*args)) < 5e-2
 
 
+DSA_KERNELS = ("dsa_phase_a_kernel", "dsa_phase_a_finish",
+               "dsa_phase_b_kernel")
+
+
 def test_dsa_every_width_is_three_device_launches(dev):
     """One dsa_attention call at each of DSA_WIDTHS launches phase A, its
-    finishing pass and phase B, and no other device op: one trace of a
-    call at every width (the card's profiler is taken once, not once a
-    width)."""
+    finishing pass and phase B (one count on each phase wrapper; phase A's
+    one C call launches the sums kernel and the finishing pass), and no
+    other device op (no aten op but allocations)."""
     from fcd_tpu_torch.kernels import dsa_attention as dk
 
     gen = torch.Generator(device=dev).manual_seed(23)
@@ -331,27 +361,24 @@ def test_dsa_every_width_is_three_device_launches(dev):
         for args in calls:
             dk.dsa_attention(*args)
 
-    names = _device_op_names(every_width)
-    assert len(names) == 3 * len(DSA_WIDTHS), names
-    for i, got in enumerate(names):
-        assert ("dsa_phase_a_kernel", "dsa_phase_a_finish",
-                "dsa_phase_b_kernel")[i % 3] in got, (i, names)
+    _only_kernels(every_width, [(dk.dsa_phase_a, len(DSA_WIDTHS)),
+                                (dk.dsa_phase_b, len(DSA_WIDTHS))], "dsa",
+                  DSA_KERNELS)
 
 
 def test_dsa_attention_is_three_device_launches(dev):
     """One dsa_attention call on the card: phase A, its finishing pass and
-    phase B, and no other device op (no cast, copy or sum)."""
+    phase B (one count on each phase wrapper), and no other device op (no
+    cast, copy or sum: no aten op but allocations)."""
     from fcd_tpu_torch.kernels import dsa_attention as dk
 
     gen = torch.Generator(device=dev).manual_seed(4)
     a = _dsa_inputs(gen, dev, 4096, 64, 64, 4)
     args = (a["x"], a["w"], a["ef"], a["t1"], a["t2"], a["lns"], a["lnb"],
             a["pe"], a["gamma"], 4)
-    names = _device_op_names(lambda: dk.dsa_attention(*args))
-    assert len(names) == 3, names
-    for want, got in zip(("dsa_phase_a_kernel", "dsa_phase_a_finish",
-                          "dsa_phase_b_kernel"), names):
-        assert want in got, names
+    _only_kernels(lambda: dk.dsa_attention(*args),
+                  [(dk.dsa_phase_a, 1), (dk.dsa_phase_b, 1)], "dsa",
+                  DSA_KERNELS)
 
 
 def test_wrappers_refuse_f32_on_the_card(dev):
@@ -648,9 +675,9 @@ def test_finale_backward_launches_only_k2(dev, block, monkeypatch):
     # the pooled output's cotangent where the block pools
     assert len(grads) == (2 if pool else 1)
 
-    names = _device_op_names(lambda: orig(ctx, *grads))
-    assert len(names) == 2, names
-    assert "finale_bwd_kernel" in names[0] and "finale_bwd_finish" in names[1]
+    # one count on K2's wrapper, whose one C call launches its two kernels
+    _only_kernels(lambda: orig(ctx, *grads), [(finale.finale_bwd, 1)],
+                  "finale_bwd", ["finale_bwd_kernel", "finale_bwd_finish"])
 
 
 def test_forward_sums_are_reproducible(dev):
@@ -787,26 +814,28 @@ def test_spatial_attn_bwd_writes_the_asked_dtype(dev, n, c, h, p):
 
 def test_spatial_attn_launches_only_its_kernels(dev):
     """One K3 call is one device kernel; one K4 call is its product kernel
-    and its finishing pass, with no other device op (no sum or cast)."""
+    and its finishing pass (one count on the wrapper, whose one C call
+    launches them), with no other device op (no sum or cast: no aten op
+    but allocations)."""
     from fcd_tpu_torch.kernels import spatial_attn as sa
 
     gen = torch.Generator(device=dev).manual_seed(14)
     for n, c, h, p in SPATTN_SHAPES[::2]:
         qn, kpb, vpb, g = _spattn_inputs(gen, dev, n, c, h, p)
         key = sa.dropout_key(5, 1)
-        for call, want in (
+        assert not sa.spatial_attn_plan(n, c, p, h, qn.shape[0]).wide
+        for call, fn, want in (
                 (lambda: sa.spatial_attn_fwd(qn, kpb, vpb, h, key, 0.1),
-                 ["spatial_attn_fwd_kernel"]),
+                 sa.spatial_attn_fwd, ["spatial_attn_fwd_kernel"]),
                 (lambda: sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, 0.1),
+                 sa.spatial_attn_bwd,
                  ["spatial_attn_bwd_kernel", "spatial_attn_bwd_finish"]),
                 (lambda: sa.spatial_attn_bwd(
                     qn, kpb, vpb, g, h, key, 0.1,
                     dtypes=(torch.bfloat16, torch.bfloat16)),
+                 sa.spatial_attn_bwd,
                  ["spatial_attn_bwd_kernel", "spatial_attn_bwd_finish"])):
-            names = _device_op_names(call)
-            assert len(names) == len(want), (n, names)
-            for w, got in zip(want, names):
-                assert w in got, (n, names)
+            _only_kernels(call, [(fn, 1)], "spatial_attn", want)
 
 
 def test_conv_function_grads_match_plain_autograd(dev):
@@ -1329,6 +1358,61 @@ def test_dsa_f32_kernels_match_plain(dev, n, c, p, sa_type):
     assert (dk.PHASE_A_F32.launches, dk.PHASE_B_F32.launches) == (
         before[0] + 4, before[1] + 3)
     assert (dk.dsa_phase_a.launches, dk.dsa_phase_b.launches) == bf16_before
+
+
+# (N, C, P) where the f32 plans differ: level 3 (two heads a phase B
+# block), a ragged N at level 3's widths, level 6 (column groups), head
+# width 4 with four heads a block, head width 2, P 128
+DSA_F32_PLAN_SHAPES = [(32768, 32, 64), (300, 32, 64), (64, 256, 32),
+                       (4096, 16, 16), (2048, 8, 16), (512, 128, 128)]
+
+
+@pytest.mark.parametrize("sa_type", ["parallel", "serial", "channel"])
+@pytest.mark.parametrize("n,c,p", DSA_F32_PLAN_SHAPES)
+def test_dsa_f32_kernels_under_every_plan(dev, n, c, p, sa_type):
+    """B5's f32 instances under every plan `plan_for_f32` takes at the
+    shape (token tiles, chunk lengths, column groups for phase A, heads a
+    phase B block): phase B's operands and its output against the plain
+    versions at F32_REL, so each path of the kernels (resident or
+    streamed weights, tokens split over the warps for the sums or not,
+    whole rows a warp in phase B or not) is held, not only the chosen
+    plan's."""
+    from fcd_tpu_torch.kernels import dsa_attention as dk
+
+    h = 4
+    gen = torch.Generator(device=dev).manual_seed(n + c + p + 1)
+    x, w, ef, a = _f32_dsa_args(gen, dev, n, c, p, h, sa_type)
+    tok = (a["lns"], a["lnb"], a["pe"])
+    temps = (a["t1"], a["t2"])
+    mode = dict(sa_type=sa_type)
+    pp = 0 if sa_type == "channel" else p
+    want_ops = dk.dsa_glue(dk.dsa_phase_a_plain(x, w, ef, *tok, h, **mode),
+                           *temps, h, torch.float32)
+    seen = set()
+    for tile in dk.TILES_F32:
+        for per_chunk in (1, 4):
+            for groups in (1, 2, 8):
+                for hb in (1, 2, 4):
+                    try:
+                        plan = dk.plan_for_f32(n, c, pp, h, 1, tile,
+                                               per_chunk, groups, hb)
+                    except ValueError:
+                        continue
+                    if plan in seen:
+                        continue
+                    seen.add(plan)
+                    ops = dk.dsa_phase_a(x, w, ef, *tok, h,
+                                         temperatures=temps, plan=plan,
+                                         **mode)
+                    for name, g_, w_ in zip(ops._fields, ops, want_ops):
+                        if g_.numel():
+                            assert _rel(g_, w_) < F32_REL, (plan, name)
+                    got = dk.dsa_phase_b(x, w, *ops, a["gamma"], *tok, h,
+                                         plan=plan, **mode)
+                    want = dk.dsa_phase_b_plain(x, w, *ops, a["gamma"],
+                                                *tok, h, **mode)
+                    assert _rel(got, want) < F32_REL, plan
+    assert len(seen) >= 2
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])
