@@ -126,7 +126,22 @@ Run from the repository root:
    patch against the fp32 CPU forward, the 4x128^3 step (B1 91, K1 46,
    B2 23, K2 23, K3 21, K4 21) and its profile; then with use_amp=False
    one patch forward (B5 f32 21 a phase) against the CPU's f32 route.
-13. Prints the seconds from start to the result, the `kernels` JSON line,
+13. Drives the rest of the model zoo (ROADMAP A7), each model through
+   the factory at full width (bf16): UNet and VNet (no kernel on their
+   path; VNet's batch norms calibrated first) and UNETR and SwinUNETR
+   (res blocks on B1 and B2, up blocks on B4; K1 and K2 in training): one
+   128^3 patch forward against the fp32 CPU forward, a 4x128^3 train step
+   (finite loss, peak memory), both with their launches held to the
+   model's counts (`a7_counts`) and profiled (whole traces), and a 1x64^3
+   step against the fp32 CPU step (the loss within 1e-3, or within twice
+   the port's bf16 CPU step's distance where bf16 itself lies further,
+   as UNETR's does); UNETR's and
+   SwinUNETR's patch forwards also through the f32 route (against the
+   CPU's f32 route) and the f16 route (against the fp32 CPU forward),
+   both launching no kernel. The kernel phases (1.) hold B1, B2, B4, K1
+   and K2 at these models' new widths (`zoo_width_phases`: SwinUNETR's
+   C 24-384 and B4 384 -> 192, UNETR's B4 768 -> 128).
+14. Prints the seconds from start to the result, the `kernels` JSON line,
    the card line, and last {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -138,6 +153,7 @@ checkout of the repository, it exits non-zero and prints no result.
     python3 chip_smoke.py --kernels finale_bwd,sw_entry
     python3 chip_smoke.py --kernels max_pool2x_bwd
     python3 chip_smoke.py --kernels dsa_phase_a_f32,spatial_attn_fwd_f32
+    python3 chip_smoke.py --kernels zoo_widths
 
 builds the kernels and runs only the named kernels' phases (checks and
 times; no main path and no result line).
@@ -448,9 +464,9 @@ def conv_phase(label, dev, gen, grid, parts_c, cout, *, prologue=False,
     return ph
 
 
-def finale_phase(label, dev, gen, grid, c, iters=10):
-    """B2 at one shape, with the pool, timed by the device time of one
-    call."""
+def finale_phase(label, dev, gen, grid, c, iters=10, pool=True):
+    """B2 at one shape, with the pool (or without it, as the UNETR blocks
+    call it), timed by the device time of one call."""
     import torch
 
     from fcd_tpu_torch.kernels.pool import finale_pool, finale_pool_plain
@@ -461,15 +477,17 @@ def finale_phase(label, dev, gen, grid, c, iters=10):
     r = _randn((1, *grid, c), gen, dev, dtype=bf)
     aff = [_randn((1, c), gen, dev) for _ in range(4)]
     ph = Phase("finale_pool", label, 8 * nvox * c,
-               3 * 2 * nvox * c + 2 * nvox * c // 8 + 16 * c)
-    out, pooled = finale_pool(y2, r, *aff, 0.01, pool=True)
-    out_p, pooled_p = finale_pool_plain(y2, r, *aff, 0.01, pool=True)
-    ph.check("out", out, out_p, 1e-2)
-    ph.check("pooled", pooled, pooled_p, 1e-2)
-    time_on_device(ph, lambda: finale_pool(y2, r, *aff, 0.01, pool=True),
+               3 * 2 * nvox * c + (2 * nvox * c // 8 if pool else 0)
+               + 16 * c)
+    got = finale_pool(y2, r, *aff, 0.01, pool=pool)
+    want = finale_pool_plain(y2, r, *aff, 0.01, pool=pool)
+    for name, g_, w_ in zip(("out", "pooled"), got if pool else (got,),
+                            want if pool else (want,)):
+        ph.check(name, g_, w_, 1e-2)
+    time_on_device(ph, lambda: finale_pool(y2, r, *aff, 0.01, pool=pool),
                    "finale_kernel", iters)
     ph.plain_ms = timed_ms(
-        lambda: finale_pool_plain(y2, r, *aff, 0.01, pool=True), iters)
+        lambda: finale_pool_plain(y2, r, *aff, 0.01, pool=pool), iters)
     ph.report()
     return ph
 
@@ -997,6 +1015,56 @@ def finale_bwd_phases(dev, gen, small=False):
     ]
 
 
+def zoo_width_phases(dev, gen, small=False):
+    """B1, B2, B4, K1 and K2 at the widths SwinUNETR (feature size 24: C
+    24, 48, 96, 192, 384) and UNETR (its bottleneck's B4, ci 768) give
+    them, at those models' grids: the image's 2 -> 24 and the last
+    decoder's 24 + 24 at 128^3, the 8^3 and 4^3 levels at 192 and 384;
+    B4 at SwinUNETR's deepest and shallowest decoders and UNETR's d4; K1
+    and K2 at the train step's batch 4 (`small`: batch 1, small grids)."""
+    s = (lambda *g: tuple(max(2, v // 16) for v in g)) if small else \
+        (lambda *g: g)
+    b = 1 if small else TRAIN_BATCH
+    return [
+        conv_phase("swin enc0.conv1 128^3x2->24 +shortcut+stats", dev, gen,
+                   s(128, 128, 128), [2], 24, shortcut=True),
+        conv_phase("swin enc0.conv2 128^3x24->24 +prologue+stats", dev, gen,
+                   s(128, 128, 128), [24], 24, prologue=True),
+        conv_phase("swin out.conv1 128^3x(24+24)->24 +shortcut+stats", dev,
+                   gen, s(128, 128, 128), [24, 24], 24, shortcut=True),
+        conv_phase("swin d1.conv1 32^3x(48+48)->48 +shortcut+stats", dev,
+                   gen, s(32, 32, 32), [48, 48], 48, shortcut=True),
+        conv_phase("swin d3.conv1 8^3x(192+192)->192 +shortcut+stats", dev,
+                   gen, (8, 8, 8), [192, 192], 192, shortcut=True),
+        conv_phase("swin dec4.conv2 4^3x384->384 +prologue+stats", dev, gen,
+                   (4, 4, 4), [384], 384, prologue=True),
+        finale_phase("swin out 128^3x24", dev, gen, s(128, 128, 128), 24,
+                     pool=False),
+        finale_phase("swin dec4 4^3x384", dev, gen, (4, 4, 4), 384,
+                     pool=False),
+        upsample_phase("unetr d4 1x8^3x768->16^3x128", dev, gen, 1,
+                       (8, 8, 8), 768, 128),
+        upsample_phase("swin d3 1x4^3x384->8^3x192", dev, gen, 1, (4, 4, 4),
+                       384, 192),
+        upsample_phase("swin out 1x64^3x24->128^3x24", dev, gen, 1,
+                       s(64, 64, 64), 24, 24),
+        wgrad_phase("swin enc1.conv2 4x64^3 24->24 +prologue", dev, gen, b,
+                    s(64, 64, 64), [24], 24, prologue=True),
+        wgrad_phase("swin out.conv1 4x128^3 (24+24)->24", dev, gen, b,
+                    s(128, 128, 128), [24, 24], 24),
+        wgrad_phase("swin d2.conv1 4x16^3 (96+96)->96", dev, gen, b,
+                    (16, 16, 16), [96, 96], 96),
+        wgrad_phase("swin dec4.conv2 4x4^3 384->384 +prologue", dev, gen, b,
+                    (4, 4, 4), [384], 384, prologue=True),
+        finale_bwd_phase("swin out 4x128^3x24", dev, gen, b,
+                         s(128, 128, 128), 24, "none"),
+        finale_bwd_phase("swin d1 4x32^3x48", dev, gen, b, s(32, 32, 32), 48,
+                         "none"),
+        finale_bwd_phase("swin dec4 4x4^3x384", dev, gen, b, (4, 4, 4), 384,
+                         "none"),
+    ]
+
+
 def pool2x_phase(label, dev, gen, batch, grid, c, iters=10):
     """B3 at one shape, bit-equal to its plain version (a max is exact),
     timed by the device time of one call (its library call alike)."""
@@ -1425,6 +1493,7 @@ def kernel_phases(dev, gen, small: bool = False):
                     (4, 4, 4), [512], 512, prologue=True),
     ]
     phases += finale_bwd_phases(dev, gen, small)
+    phases += zoo_width_phases(dev, gen, small)
     phases += spatial_attn_levels(dev, gen, small)
     # the f32 route's kernels (C18), and the f16 instances (C20)
     phases += dsa_f32_phases(dev, gen, small)
@@ -1635,7 +1704,7 @@ def calibrate_batch_norms(model, x) -> None:
     patch of the volume, 0.99310 on the CPU in bf16."""
     import torch
 
-    from fcd_tpu_torch.ops.attention import DSA, ChannelDropout3d
+    from fcd_tpu_torch.ops.attention import ChannelDropout3d
     from fcd_tpu_torch.ops.layers import BatchNorm
 
     saved = {}
@@ -1643,7 +1712,7 @@ def calibrate_batch_norms(model, x) -> None:
         if isinstance(m, BatchNorm):
             saved[m] = ("momentum", m.momentum)
             m.momentum = 0.0
-        elif isinstance(m, DSA):
+        elif hasattr(m, "dropout_rate"):
             saved[m] = ("dropout_rate", m.dropout_rate)
         elif isinstance(m, ChannelDropout3d):
             saved[m] = ("rate", m.rate)
@@ -1717,14 +1786,16 @@ def slice_run(dev, card, params=None, vol_shape=(182, 218, 182),
     return launches, trainer, patch, vol, out
 
 
-def patch_check(dev, trainer, patch, label=""):
+def patch_check(dev, trainer, patch, label="", want=None):
     """One patch: the card's logits (trainer.predict) against the port's
     fp32 CPU forward of the same weights; rel <= PATCH_REL_TOL and argmax
     agreement >= PATCH_ARGMAX_AGREE. A trainer that computes in f32 (the
     f32 route, C18) is held against the f32 route on the CPU (its model
     copied, route and all) at F32_PATCH_REL_TOL and F32_ARGMAX_AGREE; one
     that computes in f16 (C20) against the fp32 CPU forward at
-    F16_PATCH_REL_TOL and F16_ARGMAX_AGREE."""
+    F16_PATCH_REL_TOL and F16_ARGMAX_AGREE. `want`: the CPU logits of the
+    same weights from an earlier check, taken instead of a new CPU
+    forward. Returns the CPU logits."""
     import torch
 
     f32 = trainer.compute_dtype == torch.float32
@@ -1735,11 +1806,14 @@ def patch_check(dev, trainer, patch, label=""):
     roi = tuple(patch.shape[1:4])
     with torch.no_grad():
         got = trainer.predict(patch.to(dev)).float().cpu()
-        cpu_model = copy.deepcopy(trainer.model).cpu()
-        cpu_model.compute_dtype = torch.float32
-        cpu_model.eval()
         t0 = time.perf_counter()
-        want_logits = cpu_model(patch)
+        want_logits = want
+        if want_logits is None:
+            cpu_model = copy.deepcopy(trainer.model).cpu()
+            cpu_model.compute_dtype = torch.float32
+            cpu_model.eval()
+            want_logits = cpu_model(patch)
+            del cpu_model
         if isinstance(want_logits, tuple):   # a VAE model: (logits, None)
             want_logits = want_logits[0]
         cpu_s = time.perf_counter() - t0
@@ -1754,6 +1828,7 @@ def patch_check(dev, trainer, patch, label=""):
     if not ok:
         raise AssertionError(f"{label}card logits disagree with the fp32 CPU "
                              "forward")
+    return want_logits
 
 
 # The f32 route on the card (cuDNN's convs in IEEE f32, B5's f32 instances)
@@ -2592,13 +2667,14 @@ SEGRES_PATCH, SEGRES_STEP = segres_counts()
 
 
 def dropout_off(model):
-    """Every dropout of a model at rate 0: the DSA's attention dropout and
-    every ChannelDropout3d (the transformers' conv branch, SegResNet's after
-    convInit)."""
-    from fcd_tpu_torch.ops.attention import DSA, ChannelDropout3d
+    """Every dropout of a model at rate 0: each module's `dropout_rate`
+    (the DSA's attention dropout; UNETR's tokens, attention and MLP;
+    SwinUNETR's blocks) and every ChannelDropout3d (the transformers' conv
+    branch, SegResNet's after convInit, UNet's and VNet's)."""
+    from fcd_tpu_torch.ops.attention import ChannelDropout3d
 
     for m in model.modules():
-        if isinstance(m, DSA):
+        if hasattr(m, "dropout_rate"):
             m.dropout_rate = 0.0
         elif isinstance(m, ChannelDropout3d):
             m.rate = 0.0
@@ -2608,7 +2684,12 @@ def zoo_train_check(dev, extra) -> None:
     """One 1 x 64^3 train step of the model in `extra` on the card (bf16)
     against the port's fp32 CPU step from the same weights, dropout off:
     the loss within TRAIN_LOSS_REL_TOL, and each top-level module's
-    gradient's rel-L2 distance and cosine printed (finite)."""
+    gradient's rel-L2 distance and cosine printed (finite). Where the
+    card's loss lies further out, the port's bf16 CPU step (the kernels'
+    plain versions) measures how far bf16 itself takes the loss from fp32,
+    and the card is held to GROUP_MARGIN times that instead: with UNETR's
+    random weights the bf16 CPU step is as far from fp32 as the card's
+    (1.53e-3 and 1.59e-3 on an H100)."""
     import torch
 
     from fcd_tpu_torch.train.trainer import ModelTrainer
@@ -2620,6 +2701,7 @@ def zoo_train_check(dev, extra) -> None:
                 for d in (dev, "cpu")]
     redraw_attention(trainers[0].model, SEED + 3)
     trainers[1].model.load_state_dict(trainers[0].model.state_dict())
+    state = copy.deepcopy(trainers[1].model.state_dict())
     for tr in trainers:
         dropout_off(tr.model)
     x, y = train_batch(dev, 1, size, params["chans_in"])
@@ -2639,13 +2721,25 @@ def zoo_train_check(dev, extra) -> None:
         dist[k] = (float((g - w).norm() / w.norm()),
                    float(torch.dot(g, w) / (g.norm() * w.norm())))
     rel_loss = abs(card - fp32) / abs(fp32)
+    tol, control = TRAIN_LOSS_REL_TOL, ""
+    if rel_loss > tol:
+        ctl = ModelTrainer(params, device="cpu", verbose=False)
+        ctl.model.load_state_dict(state)
+        ctl.model.compute_dtype = torch.bfloat16
+        dropout_off(ctl.model)
+        with torch.enable_grad():
+            bf16 = float(ctl.train_step(x.cpu(), y.cpu(), 1e-4))
+        rel_bf16 = abs(bf16 - fp32) / abs(fp32)
+        tol = max(tol, GROUP_MARGIN * rel_bf16)
+        control = (f"; the bf16 CPU step {bf16:.6f}, rel {rel_bf16:.2e}, "
+                   f"so tol {GROUP_MARGIN}x that, {tol:.2e}")
     finite = all(math.isfinite(a) and math.isfinite(b)
                  for a, b in dist.values())
-    ok = math.isfinite(card) and rel_loss <= TRAIN_LOSS_REL_TOL and finite
+    ok = math.isfinite(card) and rel_loss <= tol and finite
     print(f"train check ({params['model_type']}; {params['loss']}): 1x{size}^3 "
           f"step, card bf16 vs CPU fp32: loss {card:.6f} vs {fp32:.6f} rel "
-          f"{rel_loss:.2e} (tol {TRAIN_LOSS_REL_TOL}); grads rel-L2/cosine "
-          f"per module {'ok' if ok else 'FAIL'}", flush=True)
+          f"{rel_loss:.2e} (tol {TRAIN_LOSS_REL_TOL}{control}); grads "
+          f"rel-L2/cosine per module {'ok' if ok else 'FAIL'}", flush=True)
     print("  " + ", ".join(f"{k} {a:.2e}/{b:.5f}" for k, (a, b) in
                            dist.items()))
     if not ok:
@@ -2715,14 +2809,21 @@ ZOO_RUNS = (
 )
 
 
-def zoo_run(dev, card, label, extra, counts, batch=TRAIN_BATCH) -> dict:
-    """One model of ZOO_RUNS at full width on a 128^3 patch: a patch
-    forward against the fp32 CPU forward and one train step of `batch` x
-    128^3 (finite loss; a VAE model's VAE loss finite too), the launches
-    of each held to `counts`. Returns {path: launch counts}."""
+def zoo_run(dev, card, label, extra, counts, batch=TRAIN_BATCH,
+            full=False, routes=False) -> dict:
+    """One model of ZOO_RUNS (or A7_RUNS) at full width on a 128^3 patch:
+    a patch forward against the fp32 CPU forward and one train step of
+    `batch` x 128^3 (finite loss; a VAE model's VAE loss finite too), the
+    launches of each held to `counts`; a model with a batch norm has its
+    running statistics calibrated first. `full`: also profiles of the
+    patch and the step, the step's peak memory, the 1 x 64^3 step against
+    the fp32 CPU step (zoo_train_check); `routes`: the f32 and f16
+    routes' patch forwards (route_patches). Returns {path: launch
+    counts}."""
     import numpy as np
     import torch
 
+    from fcd_tpu_torch.ops.layers import BatchNorm
     from fcd_tpu_torch.train.trainer import ModelTrainer
 
     params = train_params(extra=extra)
@@ -2733,27 +2834,39 @@ def zoo_run(dev, card, label, extra, counts, batch=TRAIN_BATCH) -> dict:
     patch, other = (torch.from_numpy(rs.standard_normal(
         (1, size, size, size, params["chans_in"])).astype(np.float32))
         for _ in range(2))
-    if params["model_type"].lower().startswith("segresnet"):
+    if any(isinstance(m, BatchNorm) for m in trainer.model.modules()):
         calibrate_batch_norms(trainer.model, other.to(dev))
-    trainer.predict(patch.to(dev))
+    xp = patch.to(dev)
+    trainer.predict(xp)
     sync(dev)
     reset_counts()
     t0 = time.perf_counter()
-    trainer.predict(patch.to(dev))
+    trainer.predict(xp)
     sync(dev)
     fwd_ms = (time.perf_counter() - t0) * 1e3
     fwd = read_counts()
-    patch_check(dev, trainer, patch, f"{label}: ")
+    want = patch_check(dev, trainer, patch, f"{label}: ")
+    weights_sum = _weights_sum(trainer.model)   # before the steps move them
+    if full:
+        profile_run(f"{label}, one {size}^3 patch forward",
+                    lambda: trainer.predict(xp), dev)
     x, y = train_batch(dev, batch, size, params["chans_in"])
     with torch.enable_grad():
         trainer.train_step(x, y, 1e-4)
         sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
         loss = float(trainer.train_step(x, y, 1e-4))
         sync(dev)
         step_ms = (time.perf_counter() - t0) * 1e3
         step = read_counts()
+        peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+                   if dev.type == "cuda" else 0.0)
+        if full:
+            profile_run(f"{label}, one train step, batch {batch}x{size}^3",
+                        lambda: trainer.train_step(x, y, 1e-4), dev)
     vae = None
     if params["model_returns_vaeloss"]:
         trainer.model.train()
@@ -2764,7 +2877,8 @@ def zoo_run(dev, card, label, extra, counts, batch=TRAIN_BATCH) -> dict:
     ok = (math.isfinite(loss) and (vae is None or math.isfinite(vae))
           and (dev.type != "cuda" or (fwd == want_fwd and step == want_step)))
     print(f"zoo {label}: patch forward {fwd_ms:.1f} ms, train step "
-          f"{batch}x{size}^3 {step_ms:.1f} ms on {card}; loss {loss:.5f}"
+          f"{batch}x{size}^3 {step_ms:.1f} ms on {card} (peak memory "
+          f"{peak_gb:.1f} GB); loss {loss:.5f}"
           + ("" if vae is None else f", VAE loss {vae:.5f}")
           + f"; launches forward { {k: v for k, v in fwd.items() if v} }, "
           f"step { {k: v for k, v in step.items() if v} } "
@@ -2772,7 +2886,88 @@ def zoo_run(dev, card, label, extra, counts, batch=TRAIN_BATCH) -> dict:
     if not ok:
         raise AssertionError(f"zoo {label}: loss not finite or launches "
                              f"{fwd} / {step} != {want_fwd} / {want_step}")
-    return {f"{label} forward": fwd, f"{label} step": step}
+    out = {f"{label} forward": fwd, f"{label} step": step}
+    if not full:
+        return out
+    del trainer, x, y
+    torch.cuda.empty_cache()
+    zoo_train_check(dev, extra)
+    torch.cuda.empty_cache()
+    if routes:
+        out.update(route_patches(dev, card, label, extra, patch, want,
+                                 weights_sum))
+    return out
+
+
+def _weights_sum(model) -> float:
+    """A fingerprint of a model's weights: the f64 sum of every parameter."""
+    return sum(float(p.detach().double().sum()) for p in model.parameters())
+
+
+def route_patches(dev, card, label, extra, patch, want, weights_sum) -> dict:
+    """The f32 route (use_amp=False) and the f16 route
+    (compute_dtype='float16') of the model in `extra`, one patch forward
+    each: no kernel launched (these models' kernels are bf16 only, and they
+    have no DSA), the logits against the CPU's f32 route (f32) or against
+    `want`, the fp32 CPU forward of the same seeded weights (f16; the
+    weights' sum `weights_sum` checks they are the same). Returns {path:
+    launch counts}."""
+    import torch
+
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    out = {}
+    for route, rextra in (("f32", F32_PARAMS), ("f16", F16_PARAMS)):
+        trainer = ModelTrainer(train_params(extra=dict(extra, **rextra)),
+                               device=dev, verbose=False)
+        if _weights_sum(trainer.model) != weights_sum:
+            raise AssertionError(f"{label} {route}: the seeded weights "
+                                 "differ from the bf16 trainer's")
+        xp = patch.to(dev)
+        trainer.predict(xp)
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.predict(xp)
+        sync(dev)
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        fwd = read_counts()
+        ok = dev.type != "cuda" or not any(fwd.values())
+        print(f"zoo {label} {route}: patch forward {fwd_ms:.1f} ms on {card}; "
+              f"launches { {k: v for k, v in fwd.items() if v} } "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise AssertionError(f"zoo {label} {route}: launches {fwd}")
+        patch_check(dev, trainer, patch, f"{label} {route}: ",
+                    want=None if route == "f32" else want)
+        out[f"{label} {route} forward"] = fwd
+        del trainer, xp
+        torch.cuda.empty_cache()
+    return out
+
+
+def a7_counts(enc, dec):
+    """(per patch, per train step) launches of UNETR or SwinUNETR (bf16)
+    from its structure: `enc` res blocks on one input (UnetrBasicBlock;
+    the first, on the image, whose input needs no gradient) and `dec` up
+    blocks (B4, then a res block on [upsampled, skip]): `unet_step` /
+    `unet_patch` without transformers. UNETR: the image's block, the PrUp
+    stacks' three and four up blocks; SwinUNETR: enc0-enc3, dec4 and five
+    up blocks. Their attention, LayerNorms, Dense layers, patch embeds and
+    PrUp transposed convs are library ops."""
+    return unet_patch(enc, 0, dec), unet_step(enc, 0, dec)
+
+
+NO_LAUNCHES = ({k: 0 for k in PER_PATCH}, {k: 0 for k in PER_PATCH})
+# ROADMAP A7, each through the factory at full width: UNet and VNet run no
+# kernel at the defaults (FCD_FAST_CONV off); UNETR and SwinUNETR also run
+# their f32 and f16 patches
+A7_RUNS = (
+    ("UNet", {"model_type": "UNET"}, NO_LAUNCHES, False),
+    ("VNet", {"model_type": "VNET"}, NO_LAUNCHES, False),
+    ("UNETR", {"model_type": "UNETR"}, a7_counts(4, 4), True),
+    ("SwinUNETR", {"model_type": "SWINUNETR"}, a7_counts(5, 5), True),
+)
 
 
 # -- C18: use_amp=False on the card, and UNETR++ ------------------------------
@@ -3354,7 +3549,8 @@ ONLY_PHASES = {"upsample2x": upsample_phases, "sw_exit": sw_io_phases,
                "dsa_phase_a_f16": dsa_f16_phases,
                "dsa_phase_b_f16": dsa_f16_phases,
                "spatial_attn_fwd_f16": spatial_attn_f16_levels,
-               "spatial_attn_bwd_f16": spatial_attn_f16_levels}
+               "spatial_attn_bwd_f16": spatial_attn_f16_levels,
+               "zoo_widths": zoo_width_phases}
 
 
 def elapsed(t_start, what) -> None:
@@ -3487,6 +3683,11 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     elapsed(t_start, "unetrpp")
     by_path.update(unetrpp_run(dev, card))
+    for label, extra, counts, routes in A7_RUNS:
+        torch.cuda.empty_cache()
+        elapsed(t_start, f"zoo {label}")
+        by_path.update(zoo_run(dev, card, label, extra, counts, full=True,
+                               routes=routes))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
           f"the result, the build included", flush=True)
     print(json.dumps(kernels_json(phases, by_path)))

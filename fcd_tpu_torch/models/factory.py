@@ -1,23 +1,26 @@
 """Model factory: params['model_type'] -> constructed model.
 
-Counterpart of `fcd_tpu/models/factory.py::get_model` for the models the
-port has, with exactly the JAX factory's settings (:33-172): MS_DSA_NET
-and MS_DSA_NET_PS (res blocks, instance norm, leaky-ReLU 0.01, no conv
-bias, pos-embed, 3 transformer layers per level, attention dropout 0.1;
-PS with pixelshuffle decoders), BaseUNet (depth 6), and the SegResNet
-family (SegResNet, SegResNetVAE, SegResNet_DSA, SegResNetVAE_DSA: ReLU,
-instance norm, dropout 0.1, `segresnet_upsample_mode`, blocks (1, 2, 2,
-4) / (1, 1, 1) or, with `segresnet_deeper`, (1, 2, 2, 4, 4) / (2, 2, 2,
+Counterpart of `fcd_tpu/models/factory.py::get_model` for all twelve of
+its model types, with exactly the JAX factory's settings (:33-249):
+MS_DSA_NET and MS_DSA_NET_PS (res blocks, instance norm, leaky-ReLU 0.01,
+no conv bias, pos-embed, 3 transformer layers per level, attention
+dropout 0.1; PS with pixelshuffle decoders), BaseUNet (depth 6), the
+SegResNet family (SegResNet, SegResNetVAE, SegResNet_DSA, SegResNetVAE_DSA:
+ReLU, instance norm, dropout 0.1, `segresnet_upsample_mode`, blocks (1, 2,
+2, 4) / (1, 1, 1) or, with `segresnet_deeper`, (1, 2, 2, 4, 4) / (2, 2, 2,
 2); VAE nz 256, std 0.3; DSA levels from len(blocks_down) - 2 with the
-configured projection, 4 heads, 3 layers, dropout 0.1). The JAX package's
-performance gates (`params['perf_flags']`, exported `FCD_*` variables)
-are resolved now and frozen into the model (`fcd_tpu_torch/flags.py`),
-and so is the route the compute type takes: a model built to compute in
-f32 or f16 on the card takes the JAX package's plain route for that type
-(`ops/layers.py::takes_plain_route`, ROADMAP C18, C20), one built for
-bf16 (or for the CPU, `compute_dtype` None) the kernel route. UNETR++ is built as
-`fcd_tpu/models/factory.py:180-197` builds it. The rest of the zoo
-(UNet, VNet, UNETR, SwinUNETR) is queued in ROADMAP.md.
+configured projection, 4 heads, 3 layers, dropout 0.1), UNETR++ (:180-197),
+UNet (channels 16-512, strides 2, two res units, instance norm, PReLU,
+dropout 0.1: :199-211), VNet (PReLU 0.2, dropout 0.5: :214-222), UNETR
+(hidden 768, MLP 1024, 12 heads, the configured feature size, res blocks,
+dropout 0.1: :225-239) and SwinUNETR (feature size 24: :242-249). The JAX
+package's performance gates (`params['perf_flags']`, exported `FCD_*`
+variables) are resolved now and frozen into the model
+(`fcd_tpu_torch/flags.py`), and so is the route the compute type takes: a
+model built to compute in f32 or f16 on the card takes the JAX package's
+plain route for that type (`ops/layers.py::takes_plain_route`, ROADMAP
+C18, C20), one built for bf16 (or for the CPU, `compute_dtype` None) the
+kernel route.
 """
 
 from __future__ import annotations
@@ -38,10 +41,13 @@ from fcd_tpu_torch.models.segresnet_dsa import (
     SegResNet_DSA,
     SegResNetVAE_DSA,
 )
+from fcd_tpu_torch.models.swin_unetr import SwinUNETR
+from fcd_tpu_torch.models.unet import UNet
+from fcd_tpu_torch.models.unetr import UNETR
 from fcd_tpu_torch.models.unetr_pp import UNETR_PP
+from fcd_tpu_torch.models.vnet import VNet
 from fcd_tpu_torch.ops.layers import takes_plain_route, use_plain_route
 
-_QUEUED = {"unet", "vnet", "unetr", "swinunetr"}
 _VAE_MODELS = {"segresnetvae", "segresnetvae_dsa"}
 
 
@@ -100,6 +106,31 @@ def _build_unetrpp(params: Dict[str, Any]) -> UNETR_PP:
     )
 
 
+def _build_unet(params: Dict[str, Any]) -> UNet:
+    return UNet(in_channels=params["chans_in"],
+                out_channels=params["chans_out"],
+                channels=(16, 32, 64, 128, 256, 512), dropout=0.1,
+                fast=_fast(params))
+
+
+def _build_vnet(params: Dict[str, Any]) -> VNet:
+    return VNet(in_channels=params["chans_in"],
+                out_channels=params["chans_out"], dropout_prob=0.5)
+
+
+def _build_unetr(params: Dict[str, Any]) -> UNETR:
+    return UNETR(in_channels=params["chans_in"],
+                 out_channels=params["chans_out"],
+                 img_size=_triple(params["patch_size"]),
+                 feature_size=params["feature_size"], hidden_size=768,
+                 mlp_dim=1024, num_heads=12, dropout_rate=0.1)
+
+
+def _build_swinunetr(params: Dict[str, Any]) -> SwinUNETR:
+    return SwinUNETR(in_channels=params["chans_in"],
+                     out_channels=params["chans_out"], feature_size=24)
+
+
 def _segresnet_kwargs(params: Dict[str, Any], dsa: bool, vae: bool):
     deeper = params.get("segresnet_deeper", False)
     blocks_down = (1, 2, 2, 4, 4) if deeper else (1, 2, 2, 4)
@@ -134,6 +165,10 @@ _BUILDERS = {
                                                                  False)),
     "segresnetvae_dsa": lambda p: SegResNetVAE_DSA(
         **_segresnet_kwargs(p, True, True)),
+    "unet": _build_unet,
+    "vnet": _build_vnet,
+    "unetr": _build_unetr,
+    "swinunetr": _build_swinunetr,
 }
 
 
@@ -147,12 +182,6 @@ def get_model(params: Dict[str, Any], return_model: bool = True,
     whose kernels' plain versions run on the CPU)."""
     model_type = params["model_type"].lower()
     params["model_returns_vaeloss"] = model_type in _VAE_MODELS
-    if model_type in _QUEUED:
-        raise NotImplementedError(
-            f"model_type {params['model_type']!r} is not ported yet: the "
-            "port has MS_DSA_NET, MS_DSA_NET_PS, BaseUNet, UNETR++ and the "
-            "SegResNet family; the rest of the model zoo is queued in "
-            "ROADMAP.md")
     if model_type not in _BUILDERS:
         raise ValueError(f"Unknown model_type: {params['model_type']}")
     if not return_model:

@@ -1,5 +1,5 @@
 """U-Net blocks: UnetResBlock, UnetrBasicBlock, UnetrUpBlock,
-GeneralUnetrUpBlock.
+GeneralUnetrUpBlock; and the transformers' MLPBlock.
 
 Counterpart of `fcd_tpu/ops/blocks.py`, composed as
 `fcd_tpu/ops/s2d_ops.py::_fused_resblock_eval8` (:1005-1182) composes the
@@ -50,10 +50,14 @@ from fcd_tpu_torch.kernels.pool2x import max_pool2x_op
 from fcd_tpu_torch.kernels.upsample import upsample2x_op
 from fcd_tpu_torch.ops.layers import (
     BatchNorm,
+    Dense,
+    DropoutRng,
     UpSample,
     conv1x1,
     conv3d,
     conv_transpose3d,
+    dropout,
+    gelu,
     instance_affine_from_sums,
     instance_norm,
     kaiming_normal_fan_out_,
@@ -184,7 +188,8 @@ class UnetResBlock(nn.Module):
 
 class UnetrBasicBlock(UnetResBlock):
     """The res-or-basic selector of `fcd_tpu/ops/blocks.py` with
-    res_block=True, the only form MS_DSA_NET uses."""
+    res_block=True, instance norm and leaky-ReLU 0.01: the only form the
+    JAX factory's models build (MS_DSA_NET, BaseUNet, UNETR, SwinUNETR)."""
 
 
 class UnetrUpBlock(nn.Module):
@@ -235,3 +240,31 @@ class GeneralUnetrUpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         return self.block([self.up(x).to(skip.dtype).contiguous(), skip])
+
+
+class MLPBlock(nn.Module):
+    """`fcd_tpu/ops/blocks.py::MLPBlock` (:776-790), MONAI's MLPBlock:
+    Dense (dim -> mlp_dim), GELU (the tanh form, jax.nn.gelu's default),
+    dropout, Dense (mlp_dim -> dim), dropout; in x's dtype (the caller casts
+    a LayerNorm's f32 output to the compute type, as the JAX Dense does).
+    The dropouts draw from `rng` in train mode."""
+
+    def __init__(self, dim: int, mlp_dim: int, dropout_rate: float = 0.0,
+                 rng: Optional[DropoutRng] = None):
+        super().__init__()
+        self.fc1 = Dense(dim, mlp_dim)
+        self.fc2 = Dense(mlp_dim, dim)
+        self.dropout_rate = dropout_rate
+        self.rng = DropoutRng() if rng is None else rng
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.fc1.reset_parameters(generator)
+        self.fc2.reset_parameters(generator)
+
+    def _drop(self, t: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return t
+        return dropout(t, self.dropout_rate, self.rng)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._drop(self.fc2(self._drop(gelu(self.fc1(x)))))

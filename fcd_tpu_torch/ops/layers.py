@@ -4,13 +4,15 @@ Counterparts of `fcd_tpu/ops/layers.py`: the 1x1 convolution (with and
 without bias), GroupNorm, LayerNorm, InstanceNorm, BatchNorm (train and
 eval), the instance-norm affine from kernel sums, the 2x max pool (torch's,
 and the `jnp.maximum` chain with its tie rule), inverted dropout with an
-explicit generator, the activations, and the model zoo's general layers:
-`Conv3d` (any odd kernel, stride 1 or 2, bias; UNETR++'s k4 s4 stem),
-`ConvTranspose3d` (kernel == stride), `GroupNorm`, `Dense` and `UpSample`
-(pixelshuffle, deconv, nontrainable), plus the flax initialisers the
-port's seeded weights follow. The MS_DSA_NET blocks' 3x3x3 conv, the
-k2 s2 upsample of the decoders, the finale and the attention live in
-`fcd_tpu_torch/kernels/`.
+explicit generator, the activations (relu, leakyrelu, `PReLU`, gelu),
+and the model zoo's general layers: `Conv3d` (any kernel the zoo uses:
+odd ones at stride 1 or 2, VNet's k2 s2 and 5^3, UNETR++'s k4 s4 stem,
+UNETR's k16 s16 patch embed), `ConvTranspose3d` (kernel == stride, and
+UNet's k3 s2 with lax's SAME padding), `GroupNorm`, `LayerNorm`, `Dense`
+and `UpSample` (pixelshuffle, deconv, nontrainable), plus the flax
+initialisers the port's seeded weights follow. The MS_DSA_NET blocks'
+3x3x3 conv, the k2 s2 upsample of the decoders, the finale and the
+attention live in `fcd_tpu_torch/kernels/`.
 
 The zoo's plain convs are the ones the JAX package leaves to XLA at its
 defaults (`FCD_FAST_CONV=0`): here `F.conv3d` and `F.conv_transpose3d`.
@@ -47,12 +49,13 @@ import torch.nn.functional as F
 
 __all__ = [
     "BatchNorm", "Conv3d", "ConvTranspose3d", "Dense", "DropoutRng",
-    "GroupNorm", "UpSample", "blocks_2x", "conv1x1", "conv3d",
-    "conv_transpose3d", "dropout", "group_norm", "instance_affine_from_sums",
-    "instance_norm", "interpolate_trilinear", "kaiming_normal_fan_out_",
-    "layer_norm", "make_act", "max_pool_2x", "max_pool_2x_chain",
-    "pad_pool_blur", "pixel_shuffle_3d", "takes_plain_route", "unblocks_2x",
-    "use_plain_route", "xavier_uniform_",
+    "GroupNorm", "LayerNorm", "PReLU", "UpSample", "blocks_2x", "conv1x1",
+    "conv3d", "conv_transpose3d", "dropout", "gelu", "group_norm",
+    "instance_affine_from_sums", "instance_norm", "interpolate_trilinear",
+    "kaiming_normal_fan_out_", "layer_norm", "make_act", "max_pool_2x",
+    "max_pool_2x_chain", "pad_pool_blur", "pixel_shuffle_3d",
+    "takes_plain_route", "trunc_normal_", "unblocks_2x", "use_plain_route",
+    "xavier_uniform_",
 ]
 
 
@@ -135,6 +138,26 @@ def layer_norm(t: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return (t - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
 
 
+class LayerNorm(nn.Module):
+    """`fcd_tpu/ops/layers.py::LayerNorm` (:160-182): the affine `scale`
+    and `bias` over the last axis and `layer_norm`'s f32 result, whatever
+    x's dtype (the next Dense casts it to the compute type)."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.scale, self.bias, self.eps)
+
+
 def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """`make_norm('instance')`: per-(b, c) statistics over the spatial
     axes, var = mean((x - mean)^2), no affine parameters (torch
@@ -146,31 +169,66 @@ def instance_norm(x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((xf - mean) * torch.rsqrt(var + eps)).to(x.dtype)
 
 
-def make_act(name):
-    """`fcd_tpu/ops/layers.py::make_act` for the activations the DSA
-    family uses: relu, and leakyrelu with its negative_slope (0.01 by
-    default). `name` is a string or (name, kwargs)."""
+class PReLU(nn.Module):
+    """`fcd_tpu/ops/layers.py::PReLU` (:204-212): one slope `alpha` of
+    shape (1,), initialised to `init`; where(x >= 0, x, alpha * x) with
+    alpha cast to x's dtype before the product, as the JAX module casts
+    it."""
+
+    def __init__(self, init: float = 0.25):
+        super().__init__()
+        self.init = float(init)
+        self.alpha = nn.Parameter(torch.full((1,), self.init))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        with torch.no_grad():
+            self.alpha.fill_(self.init)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.where(x >= 0, x, self.alpha.to(x.dtype) * x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu` at its default, approximate=True: the tanh form (not
+    torch's default erf form)."""
+    return F.gelu(x, approximate="tanh")
+
+
+def _act_name(name):
     if isinstance(name, (tuple, list)):
-        name, kw = name[0].lower(), (name[1] if len(name) > 1 else {})
-    else:
-        name, kw = str(name).lower(), {}
+        return name[0].lower(), (name[1] if len(name) > 1 else {})
+    return str(name).lower(), {}
+
+
+def make_act(name):
+    """`fcd_tpu/ops/layers.py::make_act` (:215-232) for the activations the
+    model zoo uses: relu, leakyrelu with its negative_slope (0.01 by
+    default; the DSA family and the UNETR blocks), prelu (a new `PReLU`
+    module with its `init`, 0.25 by default: UNet, and VNet at 0.2) and
+    gelu (the tanh form: the transformers' MLPBlock). `name` is a string
+    or (name, kwargs)."""
+    name, kw = _act_name(name)
     if name == "relu":
         return F.relu
     if name == "leakyrelu":
         slope = float(kw.get("negative_slope", 0.01))
         return lambda x: F.leaky_relu(x, slope)
-    raise NotImplementedError(f"activation {name!r}: the port has relu and "
-                              "leakyrelu (see ROADMAP.md)")
+    if name == "prelu":
+        return PReLU(kw.get("init", 0.25))
+    if name == "gelu":
+        return gelu
+    raise NotImplementedError(f"activation {name!r}: the port has relu, "
+                              "leakyrelu, prelu and gelu, the ones the JAX "
+                              "factory's models use")
 
 
 def act_slope(name) -> float:
     """The negative slope of `make_act(name)` (0 for relu), as B1's
-    prologue takes it."""
-    if isinstance(name, (tuple, list)):
-        name, kw = name[0].lower(), (name[1] if len(name) > 1 else {})
-    else:
-        name, kw = str(name).lower(), {}
-    make_act((name, kw))
+    prologue takes it: relu and leakyrelu only."""
+    name, kw = _act_name(name)
+    if name not in ("relu", "leakyrelu"):
+        raise ValueError(f"B1's prologue takes relu or leakyrelu, not "
+                         f"{name!r}")
     return 0.0 if name == "relu" else float(kw.get("negative_slope", 0.01))
 
 
@@ -313,6 +371,15 @@ def kaiming_normal_fan_out_(t: torch.Tensor,
         t.normal_(0.0, std, generator=generator)
 
 
+def trunc_normal_(t: torch.Tensor, stddev: float,
+                  generator: Optional[torch.Generator]) -> None:
+    """flax `initializers.truncated_normal(stddev)`: a standard normal
+    truncated to [-2, 2], times `stddev` (no variance correction)."""
+    with torch.no_grad():
+        nn.init.trunc_normal_(t, 0.0, stddev, -2.0 * stddev, 2.0 * stddev,
+                              generator=generator)
+
+
 def xavier_uniform_(t: torch.Tensor,
                     generator: Optional[torch.Generator]) -> None:
     limit = math.sqrt(6.0 / (t.shape[-2] + t.shape[-1]))
@@ -376,17 +443,38 @@ class Conv3d(nn.Module):
                       self.fast and not self.plain_route)
 
 
+def _transpose_crop(k: int, s: int) -> int:
+    """Where `lax.conv_transpose`'s output starts in `F.conv_transpose3d`'s
+    (padding 0): k - 1 - pad_a, pad_a from lax's `_conv_transpose_padding`
+    (VALID at k == s, SAME at k > s, as `fcd_tpu/ops/layers.py:388-391`
+    chooses)."""
+    if k == s:
+        return 0                             # VALID: pad_a = k - 1
+    pad_len = k + s - 2                      # SAME
+    pad_a = k - 1 if s > k - 1 else math.ceil(pad_len / 2)
+    return k - 1 - pad_a
+
+
 def conv_transpose3d(x: torch.Tensor, kernel: torch.Tensor,
-                     bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """`lax.conv_transpose` (VALID) of channels-last x with a flax (k, k,
-    k, Cin, Cout) kernel at stride k (`fcd_tpu/ops/layers.py::
-    ConvTranspose3d`, k == s): `F.conv_transpose3d` with the kernel
-    flipped (torch's transposed conv flips it, lax's does not), then the
-    bias, in x's dtype."""
+                     bias: Optional[torch.Tensor] = None,
+                     stride: Optional[int] = None) -> torch.Tensor:
+    """`fcd_tpu/ops/layers.py::ConvTranspose3d`'s `lax.conv_transpose` of
+    channels-last x with a flax (k, k, k, Cin, Cout) kernel at `stride`
+    (k by default): VALID at k == s, SAME at k > s (UNet's k3 s2), an
+    output of n * s a side either way. `F.conv_transpose3d` with the
+    kernel flipped (torch's transposed conv flips it, lax's does not),
+    its (n - 1) s + k voxels a side cropped to lax's n s (k3 s2: the last
+    one; MONAI's padding=1, output_padding=1 would be the window one
+    voxel on, a different output), then the bias, in x's dtype."""
     k = kernel.shape[0]
+    s = k if stride is None else int(stride)
     w = torch.flip(kernel.to(x.dtype), dims=(0, 1, 2)).permute(3, 4, 0, 1, 2)
     out = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w,
-                             stride=k).permute(0, 2, 3, 4, 1)
+                             stride=s).permute(0, 2, 3, 4, 1)
+    if k != s:
+        o = _transpose_crop(k, s)
+        d, h, wd = (n * s for n in x.shape[1:4])
+        out = out[:, o:o + d, o:o + h, o:o + wd]
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out.contiguous()
@@ -394,13 +482,16 @@ def conv_transpose3d(x: torch.Tensor, kernel: torch.Tensor,
 
 class ConvTranspose3d(nn.Module):
     """The flax ConvTranspose3d's parameters (kernel (k, k, k, Cin, Cout),
-    bias when use_bias) at kernel == stride, and `conv_transpose3d`: the
-    JAX package leaves this upsample to XLA (UNETR++'s k2 s2 and k4 s4)."""
+    bias when use_bias) and `conv_transpose3d` at `stride` (k by default):
+    the JAX package leaves these upsamples to XLA (UNETR++'s k2 s2 and k4
+    s4, UNETR's PrUp stacks, VNet's k2 s2, UNet's k3 s2)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size: int = 2, use_bias: bool = True):
+                 kernel_size: int = 2, use_bias: bool = True,
+                 stride: Optional[int] = None):
         super().__init__()
         k = kernel_size
+        self.stride = k if stride is None else int(stride)
         self.kernel = nn.Parameter(torch.empty(k, k, k, in_channels,
                                                out_channels))
         self.bias = (nn.Parameter(torch.zeros(out_channels)) if use_bias
@@ -413,22 +504,27 @@ class ConvTranspose3d(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_transpose3d(x, self.kernel, self.bias)
+        return conv_transpose3d(x, self.kernel, self.bias, self.stride)
 
 
 class Dense(nn.Module):
-    """`fcd_tpu/ops/layers.py::Dense`: x @ kernel (Cin, Cout) + bias,
-    xavier-uniform kernel, zero bias."""
+    """`fcd_tpu/ops/layers.py::Dense`: x @ kernel (Cin, Cout) (+ bias), in
+    x's dtype, xavier-uniform kernel, zero bias. The JAX Dense casts its
+    input to the compute type; the port's callers hand it x in that type
+    (a LayerNorm's f32 output cast first)."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True):
         super().__init__()
         self.kernel = nn.Parameter(torch.empty(in_features, out_features))
-        self.bias = nn.Parameter(torch.zeros(out_features))
+        self.bias = (nn.Parameter(torch.zeros(out_features)) if use_bias
+                     else None)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         xavier_uniform_(self.kernel, generator)
-        with torch.no_grad():
-            self.bias.zero_()
+        if self.bias is not None:
+            with torch.no_grad():
+                self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv1x1(x, self.kernel, self.bias)

@@ -21,6 +21,29 @@ UNETR++ (`fcd_tpu/models/unetr_pp.py`): Conv3d_0..3 and GroupNorm_0..3
 stages), UnetResBlock_0 (the full-resolution block), ConvTranspose3d_0..2
 and EPABlock_12..20 (the decoders), ConvTranspose3d_3, UnetResBlock_1,
 Conv3d_4 (the head) and, with do_ds, Conv3d_5..6.
+UNet (`fcd_tpu/models/unet.py`): ResidualUnit_0..n-1 (the down units by
+level), ResidualUnit_n (the bottom), then per level from the deepest up
+ConvTranspose3d_k, PReLU_k and ResidualUnit_{n + 1 + k}; a unit holds
+Conv3d_0.. (its subunits, then the residual conv) and PReLU_0.. (a sorted
+list of names puts ResidualUnit_10 before _2: the table is built from the
+creation order, not by sorting). VNet (`fcd_tpu/models/vnet.py`):
+_InputTransition_0, _DownTransition_0..3, _UpTransition_0..3, then
+Conv3d_0, BatchNorm_0, PReLU_0 and Conv3d_1 (the head); each `_LUConv_k`
+and each transition's first layer hold Conv3d_0 (ConvTranspose3d_0 in an
+up transition), BatchNorm_0 and PReLU_0, a transition's closing PReLU is
+its PReLU_1. UNETR (`fcd_tpu/models/unetr.py`): Conv3d_0 (the patch
+embed), pos_embed, _ViTBlock_0..11 (LayerNorm_0, _SelfAttention_0 with
+Dense_0 (qkv) and Dense_1, LayerNorm_1, MLPBlock_0 with Dense_0 and
+Dense_1), UnetrBasicBlock_0 (the image's), the PrUp stacks' transposed
+convs ConvTranspose3d_0..5 and blocks UnetrBasicBlock_1..3 in creation
+order, UnetrUpBlock_0..3 and Conv3d_1 (the head). SwinUNETR
+(`fcd_tpu/models/swin_unetr.py`): Conv3d_0 (the patch embed),
+CheckpointSwinBlock_0..7 (the remat'ed blocks: LayerNorm_0,
+WindowAttention_0 with Dense_0, Dense_1 and rel_pos_bias, LayerNorm_1,
+MLPBlock_0), PatchMerging_0..3 (LayerNorm_0, Dense_0),
+UnetrBasicBlock_0..4, UnetrUpBlock_0..4 and Conv3d_1 (the head). A Dense
+is flax's nn.Dense inside the JAX package's, so its leaves sit under
+Dense_0 a second time.
 The SegResNet family (`fcd_tpu/models/segresnet.py`, setup names):
 convInit, down_pre_i, down_blocks_i_j, transformer_levels_l_k,
 up_samples_i_0 (the 1x1 conv), up_samples_i_1 (UpSample), up_layers_i_j,
@@ -44,14 +67,31 @@ import torch
 
 from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET, BaseUNet
 from fcd_tpu_torch.models.segresnet import ResBlock, SegResNetCore
+from fcd_tpu_torch.models.swin_unetr import (
+    SwinBlock,
+    SwinUNETR,
+    WindowAttention,
+)
+from fcd_tpu_torch.models.unet import ResidualUnit, UNet
+from fcd_tpu_torch.models.unetr import UNETR, ViTBlock
 from fcd_tpu_torch.models.unetr_pp import UNETR_PP
+from fcd_tpu_torch.models.vnet import VNet
 from fcd_tpu_torch.ops.attention import TransformerBlock
 from fcd_tpu_torch.ops.blocks import (
     GeneralUnetrUpBlock,
+    MLPBlock,
     UnetResBlock,
     UnetrUpBlock,
 )
-from fcd_tpu_torch.ops.layers import Conv3d, Dense, GroupNorm, UpSample
+from fcd_tpu_torch.ops.layers import (
+    BatchNorm,
+    Conv3d,
+    Dense,
+    GroupNorm,
+    LayerNorm,
+    PReLU,
+    UpSample,
+)
 
 Tree = Mapping[str, Any]
 # (collection, path, tensor, is a 1x1 conv kernel)
@@ -97,7 +137,8 @@ def _group_norm_entries(gn: GroupNorm, path) -> Iterator[Entry]:
 
 def _dense_entries(dense: Dense, path) -> Iterator[Entry]:
     yield "params", path + ("Dense_0", "kernel"), dense.kernel, False
-    yield "params", path + ("Dense_0", "bias"), dense.bias, False
+    if dense.bias is not None:
+        yield "params", path + ("Dense_0", "bias"), dense.bias, False
 
 
 def _upsample_entries(up: UpSample, path) -> Iterator[Entry]:
@@ -185,18 +226,147 @@ def _unetrpp_entries(model: UNETR_PP) -> Iterator[Entry]:
         yield from _conv_entries(head, (f"Conv3d_{i}",))
 
 
+def _prelu_entries(act: PReLU, path) -> Iterator[Entry]:
+    yield "params", path + ("alpha",), act.alpha, False
+
+
+def _batch_norm_entries(nm: BatchNorm, path) -> Iterator[Entry]:
+    yield "params", path + ("scale",), nm.scale, False
+    yield "params", path + ("bias",), nm.bias, False
+    yield "batch_stats", path + ("mean",), nm.mean, False
+    yield "batch_stats", path + ("var",), nm.var, False
+
+
+def _layer_norm_entries(ln: LayerNorm, path) -> Iterator[Entry]:
+    yield "params", path + ("scale",), ln.scale, False
+    yield "params", path + ("bias",), ln.bias, False
+
+
+def _residual_unit_entries(unit: ResidualUnit, path) -> Iterator[Entry]:
+    convs = list(unit.convs) + ([] if unit.residual is None
+                                else [unit.residual])
+    for i, conv in enumerate(convs):
+        yield from _conv_entries(conv, path + (f"Conv3d_{i}",))
+    for i, act in enumerate(unit.acts):
+        yield from _prelu_entries(act, path + (f"PReLU_{i}",))
+
+
+def _unet_entries(model: UNet) -> Iterator[Entry]:
+    n = len(model.downs)
+    for i, unit in enumerate(model.downs):
+        yield from _residual_unit_entries(unit, (f"ResidualUnit_{i}",))
+    yield from _residual_unit_entries(model.bottom, (f"ResidualUnit_{n}",))
+    for k, lv in enumerate(reversed(range(n))):   # the deepest level first
+        yield from _conv_entries(model.up_convs[lv],
+                                 (f"ConvTranspose3d_{k}",))
+        yield from _prelu_entries(model.up_acts[lv], (f"PReLU_{k}",))
+        yield from _residual_unit_entries(model.up_units[lv],
+                                          (f"ResidualUnit_{n + 1 + k}",))
+
+
+def _conv_bn_act_entries(layer, path, conv="Conv3d_0") -> Iterator[Entry]:
+    yield from _conv_entries(layer.conv, path + (conv,))
+    yield from _batch_norm_entries(layer.norm, path + ("BatchNorm_0",))
+    yield from _prelu_entries(layer.act, path + ("PReLU_0",))
+
+
+def _vnet_entries(model: VNet) -> Iterator[Entry]:
+    yield from _conv_bn_act_entries(model.stem.layer, ("_InputTransition_0",))
+    for kind, trans in (("_DownTransition", model.downs),
+                        ("_UpTransition", model.ups)):
+        for i, t in enumerate(trans):
+            path = (f"{kind}_{i}",)
+            first = t.down if kind == "_DownTransition" else t.up
+            yield from _conv_bn_act_entries(
+                first, path, "Conv3d_0" if kind == "_DownTransition"
+                else "ConvTranspose3d_0")
+            for j, lu in enumerate(t.convs):
+                yield from _conv_bn_act_entries(lu, path + (f"_LUConv_{j}",))
+            yield from _prelu_entries(t.act, path + ("PReLU_1",))
+    yield from _conv_bn_act_entries(model.out, ())
+    yield from _conv_entries(model.head, ("Conv3d_1",))
+
+
+def _mlp_entries(mlp: MLPBlock, path) -> Iterator[Entry]:
+    yield from _dense_entries(mlp.fc1, path + ("Dense_0",))
+    yield from _dense_entries(mlp.fc2, path + ("Dense_1",))
+
+
+def _vit_entries(blk: ViTBlock, path) -> Iterator[Entry]:
+    yield from _layer_norm_entries(blk.ln1, path + ("LayerNorm_0",))
+    a = path + ("_SelfAttention_0",)
+    yield from _dense_entries(blk.attn.qkv, a + ("Dense_0",))
+    yield from _dense_entries(blk.attn.proj, a + ("Dense_1",))
+    yield from _layer_norm_entries(blk.ln2, path + ("LayerNorm_1",))
+    yield from _mlp_entries(blk.mlp, path + ("MLPBlock_0",))
+
+
+def _basic_block_entries(blk: UnetResBlock, k: int) -> Iterator[Entry]:
+    yield from _resblock_entries(blk, (f"UnetrBasicBlock_{k}",
+                                       "UnetResBlock_0"))
+
+
+def _unetr_entries(model: UNETR) -> Iterator[Entry]:
+    yield from _conv_entries(model.patch_embed, ("Conv3d_0",))
+    yield "params", ("pos_embed",), model.pos_embed, False
+    for i, blk in enumerate(model.blocks):
+        yield from _vit_entries(blk, (f"_ViTBlock_{i}",))
+    yield from _basic_block_entries(model.enc1, 0)
+    ups = [u for stack in model.stacks for u in stack.ups]
+    blocks = [b for stack in model.stacks for b in stack.blocks]
+    for i, up in enumerate(ups):
+        yield from _conv_entries(up, (f"ConvTranspose3d_{i}",))
+    for i, blk in enumerate(blocks, start=1):
+        yield from _basic_block_entries(blk, i)
+    for i, dec in enumerate(model.decoders):
+        yield from _up_block_entries(dec, (f"UnetrUpBlock_{i}",))
+    yield from _conv_entries(model.head, ("Conv3d_1",))
+
+
+def _window_attention_entries(attn: WindowAttention, path
+                              ) -> Iterator[Entry]:
+    yield from _dense_entries(attn.qkv, path + ("Dense_0",))
+    yield from _dense_entries(attn.proj, path + ("Dense_1",))
+    yield "params", path + ("rel_pos_bias",), attn.rel_pos_bias, False
+
+
+def _swin_block_entries(blk: SwinBlock, path) -> Iterator[Entry]:
+    yield from _layer_norm_entries(blk.ln1, path + ("LayerNorm_0",))
+    yield from _window_attention_entries(blk.attn,
+                                         path + ("WindowAttention_0",))
+    yield from _layer_norm_entries(blk.ln2, path + ("LayerNorm_1",))
+    yield from _mlp_entries(blk.mlp, path + ("MLPBlock_0",))
+
+
+def _swin_unetr_entries(model: SwinUNETR) -> Iterator[Entry]:
+    yield from _conv_entries(model.patch_embed, ("Conv3d_0",))
+    blocks = [blk for stage in model.stages for blk in stage]
+    for i, blk in enumerate(blocks):
+        yield from _swin_block_entries(blk, (f"CheckpointSwinBlock_{i}",))
+    for i, merge in enumerate(model.merges):
+        path = (f"PatchMerging_{i}",)
+        yield from _layer_norm_entries(merge.norm, path + ("LayerNorm_0",))
+        yield from _dense_entries(merge.reduction, path + ("Dense_0",))
+    for i, enc in enumerate(model.encoders):
+        yield from _basic_block_entries(enc, i)
+    for i, dec in enumerate(model.decoders):
+        yield from _up_block_entries(dec, (f"UnetrUpBlock_{i}",))
+    yield from _conv_entries(model.head, ("Conv3d_1",))
+
+
+_TABLES = ((UNETR_PP, _unetrpp_entries), (SegResNetCore, _segresnet_entries),
+           (BaseUNet, _baseunet_entries), (UNet, _unet_entries),
+           (VNet, _vnet_entries), (UNETR, _unetr_entries),
+           (SwinUNETR, _swin_unetr_entries))
+
+
 def model_entries(model) -> Iterator[Entry]:
     """Every parameter and running statistic of a port model under its
     flax path."""
-    if isinstance(model, UNETR_PP):
-        yield from _unetrpp_entries(model)
-        return
-    if isinstance(model, SegResNetCore):
-        yield from _segresnet_entries(model)
-        return
-    if isinstance(model, BaseUNet):
-        yield from _baseunet_entries(model)
-        return
+    for cls, table in _TABLES:
+        if isinstance(model, cls):
+            yield from table(model)
+            return
     if not isinstance(model, MS_DSA_NET):
         raise TypeError(f"no weight table for {type(model).__name__}")
     for i, enc in enumerate(model.encoders):

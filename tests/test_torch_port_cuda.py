@@ -449,6 +449,101 @@ def test_conv3d_wgrad_kernel_matches_plain(dev, shape, ci, co, pro):
     assert torch.equal(got, again)
 
 
+# the res blocks of SwinUNETR (feature size 24) and UNETR at their widths:
+# (label, batch, grid, parts' widths, cout, B4's ci where an up block
+# upsamples into the first part (coarse grid = grid / 2))
+A7_BLOCKS = [
+    ("swin enc0", 1, (128, 128, 128), (2,), 24, None),
+    ("swin enc1", 4, (16, 24, 20), (24,), 24, None),
+    ("swin d1", 2, (16, 16, 16), (48, 48), 48, 96),
+    ("swin d2", 2, (16, 16, 16), (96, 96), 96, 192),
+    ("swin d3", 4, (8, 8, 8), (192, 192), 192, 384),
+    ("swin dec4", 4, (4, 4, 4), (384,), 384, None),
+    ("swin out", 1, (64, 64, 64), (24, 24), 24, 24),
+    ("unetr d4", 2, (16, 16, 16), (128, 128), 128, 768),
+]
+
+
+@pytest.mark.parametrize("label,batch,grid,parts_c,cout,ci", A7_BLOCKS,
+                         ids=[b[0] for b in A7_BLOCKS])
+def test_a7_block_kernels_match_plain(dev, label, batch, grid, parts_c,
+                                      cout, ci):
+    """A res block's kernels at UNETR's and SwinUNETR's widths, each
+    against its plain version and counted once a call: B1's conv1 (the
+    shortcut where the width changes) and conv2 (with the prologue), B2's
+    finale (no pool), K1 per conv1 part and for conv2 and K2 (two calls
+    bit-equal each; K2's d_ys, d_rs bit-equal to the plain version's), and
+    B4 from the coarse grid where the block is an up block's (two calls
+    bit-equal)."""
+    from fcd_tpu_torch.kernels.block_conv import conv3x3, conv3x3_plain
+    from fcd_tpu_torch.kernels.conv_wgrad import (
+        conv3d_wgrad,
+        conv3d_wgrad_plain,
+    )
+    from fcd_tpu_torch.kernels.finale import finale_bwd, finale_grads_plain
+    from fcd_tpu_torch.kernels.pool import finale_pool, finale_pool_plain
+    from fcd_tpu_torch.kernels.upsample import upsample2x, upsample2x_plain
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    bf = torch.bfloat16
+    counters = (conv3x3, conv3d_wgrad, finale_pool, finale_bwd, upsample2x)
+    before = [fn.launches for fn in counters]
+    parts = [_randn(gen, dev, batch, *grid, c, dtype=bf) for c in parts_c]
+    if ci is not None:
+        coarse = tuple(g // 2 for g in grid)
+        x = _randn(gen, dev, batch, *coarse, ci, dtype=bf)
+        k = _randn(gen, dev, 2, 2, 2, ci, parts_c[0],
+                   scale=(2.0 / (8 * parts_c[0])) ** 0.5)
+        up = upsample2x(x, k)
+        assert _rel(up, upsample2x_plain(x, k)) < 2e-2
+        assert torch.equal(up, upsample2x(x, k))
+        parts[0] = up
+    std = (2.0 / (27 * cout)) ** 0.5
+    w1 = [_randn(gen, dev, 3, 3, 3, c, cout, scale=std, dtype=bf)
+          for c in parts_c]
+    wr = ([_randn(gen, dev, c, cout, scale=0.3, dtype=bf) for c in parts_c]
+          if sum(parts_c) != cout else None)
+    o1 = conv3x3(parts, w1, shortcut=wr, want_stats=True)
+    p1 = conv3x3_plain(parts, w1, shortcut=wr, want_stats=True)
+    assert _rel(o1.y, p1.y) < 2e-2
+    assert _rel(o1.ysum, p1.ysum) < 1e-3 and _rel(o1.ysq, p1.ysq) < 1e-3
+    if wr is not None:
+        assert _rel(o1.r, p1.r) < 2e-2 and _rel(o1.rsq, p1.rsq) < 1e-3
+    pro = (torch.rand(batch, cout, generator=gen, device=dev) + 0.5,
+           _randn(gen, dev, batch, cout, scale=0.1), 0.01)
+    w2 = _randn(gen, dev, 3, 3, 3, cout, cout, scale=std, dtype=bf)
+    o2 = conv3x3([o1.y], [w2], prologue=pro, want_stats=True)
+    p2 = conv3x3_plain([o1.y], [w2], prologue=pro, want_stats=True)
+    assert _rel(o2.y, p2.y) < 2e-2 and _rel(o2.ysq, p2.ysq) < 1e-3
+    r = o1.r if wr is not None else parts[0]
+    aff = [torch.rand(batch, cout, generator=gen, device=dev) + 0.5,
+           _randn(gen, dev, batch, cout, scale=0.1),
+           torch.rand(batch, cout, generator=gen, device=dev) + 0.5,
+           _randn(gen, dev, batch, cout, scale=0.1)]
+    out = finale_pool(o2.y, r, *aff, 0.01)
+    assert _rel(out, finale_pool_plain(o2.y, r, *aff, 0.01)) < 1e-2
+    gp = _randn(gen, dev, batch, *grid, cout, dtype=bf)
+    got = finale_bwd(o2.y, r, *aff, gp, None, 0.01)
+    want = finale_grads_plain(o2.y, r, *aff, gp, None, 0.01)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for g_, w_ in zip(got[2:], want[2:]):
+        assert _rel(g_, w_) < 1e-3
+    for a, b in zip(got, finale_bwd(o2.y, r, *aff, gp, None, 0.01)):
+        assert torch.equal(a, b)
+    calls = [(o1.y, got[0], pro)] + [(p, gp, None) for p in parts]
+    for xin, gin, pr in calls:
+        dw = conv3d_wgrad(xin, gin, pr)
+        # f32 sums over up to 2 x 16^3 voxels in another order than the
+        # plain version's: chip_smoke.py's K1 tolerance (unetr d4 read
+        # 2.2e-4 on an H100)
+        assert _rel(dw, conv3d_wgrad_plain(xin, gin, pr)) < 1e-3
+        assert torch.equal(dw, conv3d_wgrad(xin, gin, pr))
+    torch.cuda.synchronize()
+    ups = 2 if ci is not None else 0
+    assert [fn.launches - b for fn, b in zip(counters, before)] == [
+        2, 2 * len(calls), 1, 2, ups], label
+
+
 @pytest.mark.parametrize("kernel", ["finale_bwd", "finale_bwd_pool",
                                     "finale_bwd_chain", "spatial_attn_bwd",
                                     "spatial_attn_bwd_level6",

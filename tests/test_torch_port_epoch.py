@@ -216,15 +216,17 @@ def test_cli_trains_and_resume_appends_an_epoch(data_dir, tmp_path,
 
 
 def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, monkeypatch):
-    """--emission_tracking (ROADMAP A6), another model type, and a data
-    mesh over several cards (ROADMAP A8) raise before any training."""
+    """--emission_tracking (ROADMAP A6), a model type the factory does not
+    know (its ValueError: every type of the JAX factory is ported), and a
+    data mesh over several cards (ROADMAP A8) raise before any training."""
     common = ["--data_dir", data_dir, "--split_file",
               os.path.join(data_dir, "split.txt"), "--splits", "train",
               "val", "--save_dir", str(tmp_path)]
     with pytest.raises(NotImplementedError, match="A6"):
         cli_train.main(common + ["--device", "cpu", "--emission_tracking"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli_train.main(common + ["--device", "cpu", "--model_type", "UNET"])
+    with pytest.raises(ValueError, match="Unknown model_type"):
+        cli_train.main(common + ["--device", "cpu", "--model_type",
+                                 "NOT_A_MODEL"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
     assert cli_train.mesh_size(-1, torch.device("cuda")) == 4
