@@ -8,7 +8,15 @@ gradient, rel-L2 1e-2 per leaf (C10), but for two kinds of leaf:
   mean (UNet's instance norms, VNet's batch norms on the batch's
   statistics) has the gradient 0: both sides are held to under 1e-5 of
   the whole gradient's norm there;
-- VNet's PReLU slopes and batch-norm affines (`_grad_tol`).
+- VNet's PReLU slopes and batch-norm affines are each one sum over the
+  batch and grid of terms (x g over x < 0 for a slope, xhat g and g per
+  channel for a batch norm's scale and bias, g the gradient at the
+  module's output), and where the terms cancel, the two packages' f32
+  differences in g are a large part of the sum. Such a leaf past rel-L2
+  1e-2 must be a sum that cancels to under 1e-2 of the sum of its terms'
+  absolute values (measured in the port's step, `_TermSums`; six leaves,
+  3e-4 to 4e-3), and is held value by value to 1e-3 of that sum
+  (measured up to 1.4e-4).
 
 The kernel route runs B1, K1, B2, K2 and B4's plain versions where the
 model has res blocks; SwinUNETR's blocks run under checkpoint.
@@ -31,6 +39,7 @@ from fcd_tpu_torch.losses.combined import make_combined_loss
 from fcd_tpu_torch.models.unet import UNet
 from fcd_tpu_torch.models.vnet import VNet
 from fcd_tpu_torch.ops.attention import ChannelDropout3d
+from fcd_tpu_torch.ops.layers import BatchNorm, PReLU
 from fcd_tpu_torch.train.state import make_optimizer, make_train_step
 from tests.test_torch_port_zoo_a7 import (
     MODELS,
@@ -85,41 +94,92 @@ def test_train_step_matches_jax(name, monkeypatch):
     params.update(loss="DiceCELoss", chans_out=2)
     step = make_train_step(tm, make_combined_loss(params),
                            make_optimizer(params, tm))
-    loss = step(torch.from_numpy(x), torch.from_numpy(y), 1e-4)
+    with _TermSums(tm if isinstance(tm, VNet) else None) as sums:
+        loss = step(torch.from_numpy(x), torch.from_numpy(y), 1e-4)
     assert abs(float(loss) - float(jl)) <= 1e-5 * abs(float(jl))
     got = weights.export_flax_grads(tm)
-    zero = {path for _, path, t, _ in weights.model_entries(tm)
-            if id(t) in _normed_biases(tm)}
+    zero = set()
+    by_path = {}
+    for _, path, t, _ in weights.model_entries(tm):
+        if id(t) in _normed_biases(tm):
+            zero.add(path)
+        if id(t) in sums.sums:
+            by_path[path] = sums.sums[id(t)]
     total = np.sqrt(sum(np.square(np.asarray(leaf, np.float64)).sum()
                         for leaf in jax.tree_util.tree_leaves(jg)))
-    worst = []
+    bad = []
     for path, leaf in jax.tree_util.tree_flatten_with_path(jg)[0]:
+        key = tuple(k.key for k in path)
         node = got
-        for k in path:
-            node = node[k.key]
+        for k in key:
+            node = node[k]
         name = jax.tree_util.keystr(path)
-        if tuple(k.key for k in path) in zero:
+        if key in zero:
             # a bias just before a norm that removes its mean: its gradient
             # is 0, and both sides' rounding stays near it
             for g in (node, leaf):
                 assert np.linalg.norm(g) <= 1e-5 * total, name
             continue
-        worst.append((_rel_l2(node, leaf), _grad_tol(name, tm), name))
-    bad = [w for w in worst if w[0] > w[1]]
-    assert not bad, sorted(bad)
-    # and nine leaves in ten hold to 1e-2 whatever their conditioning
-    assert sum(w[0] <= 1e-2 for w in worst) >= 0.9 * len(worst)
+        rel = _rel_l2(node, leaf)
+        if key in by_path:
+            terms = by_path[key]
+            want = np.asarray(leaf, np.float64)
+            err = np.abs(np.asarray(node, np.float64) - want)
+            ok = rel <= 1e-2 or (
+                np.linalg.norm(want) <= 1e-2 * np.linalg.norm(terms)
+                and bool((err <= 1e-3 * terms).all()))
+            if not ok:
+                bad.append((name, rel, float((err / terms).max()),
+                            float(np.linalg.norm(want)
+                                  / np.linalg.norm(terms))))
+        elif rel > 1e-2:
+            bad.append((name, rel))
+    assert not bad, bad
 
 
-def _grad_tol(name, tm):
-    """rel-L2 1e-2 a leaf, but for VNet's PReLU slopes and batch-norm
-    affines: each is one sum over the whole batch and grid of terms that
-    cancel to 1e-6-1e-12 of the gradient's norm, so the order of the f32
-    sum shows (both packages sum in f32, in their own orders); they are
-    held to 1e-1, every VNet kernel to 1e-2."""
-    if isinstance(tm, VNet) and ("alpha" in name or "BatchNorm" in name):
-        return 1e-1
-    return 1e-2
+class _TermSums:
+    """Within the context, one forward and backward of `model` (None:
+    nothing) records, for each PReLU slope and batch-norm scale and bias,
+    the sum of the absolute values of the terms its gradient sums (f64):
+    |x g| over x < 0, and per channel |xhat g| and |g| (xhat from the
+    batch's statistics), g the gradient at the module's output. `sums`:
+    {id(parameter): array of the parameter's shape}."""
+
+    def __init__(self, model):
+        self.model, self.sums, self.handles = model, {}, []
+
+    def __enter__(self):
+        if self.model is not None:
+            self.handles = [m.register_forward_hook(self._hook)
+                            for m in self.model.modules()
+                            if isinstance(m, (PReLU, BatchNorm))]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+    def _add(self, prm, value):
+        value = value.numpy()
+        self.sums[id(prm)] = self.sums.get(id(prm), 0.0) + value
+
+    def _hook(self, mod, inputs, out):
+        x = inputs[0].detach().double()
+
+        def on_grad(g):
+            g = g.detach().double()
+            if isinstance(mod, PReLU):
+                self._add(mod.alpha, torch.where(
+                    x < 0, (x * g).abs(), 0.0).sum().reshape(1))
+                return
+            xf, gf = x.reshape(-1, x.shape[-1]), g.reshape(-1, g.shape[-1])
+            mean = xf.mean(0)
+            var = (xf.square().mean(0) - mean.square()).clamp_min(0)
+            xhat = (xf - mean) * torch.rsqrt(var + mod.eps)
+            self._add(mod.scale, (xhat * gf).abs().sum(0))
+            self._add(mod.bias, gf.abs().sum(0))
+
+        out.register_hook(on_grad)
 
 
 def _normed_biases(tm):
