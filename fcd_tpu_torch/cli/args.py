@@ -33,8 +33,8 @@ def parse_args(default_params: Dict[str, Any],
     parser.add_argument("--model_type", type=str,
                         default=default_params["model_type"])
     parser.add_argument("--devices", type=str, default="-1",
-                        help="Number of cards for the data mesh (-1: all); "
-                        "the port runs on one")
+                        help="Number of cards for the data mesh (-1: all), "
+                        "one rank a card; with --device cpu, N gloo ranks")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (the default) or cpu")
     parser.add_argument("--resume", action="store_true")

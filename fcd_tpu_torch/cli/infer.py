@@ -10,6 +10,13 @@ optional post-processing, NIfTI save, and per-subject Dice/IoU with the
 all-zero-GT edge case. `--preprocess` (FSL registration) is not ported yet
 (ROADMAP.md, Queue A6): it needs the FSL binaries.
 
+The data mesh comes through the trainer's `mesh_data` (`--kwargs
+mesh_data=N`; -1, the default, takes every visible card), as in the JAX
+CLI: resolved to more than one rank, `main` starts the ranks (one a card;
+on the CPU N gloo ranks), each loads the subject and runs its share of the
+patch grid, and rank 0 runs the host phases (softmax, inverse transform,
+post-processing, save, the table).
+
 Run: python -m fcd_tpu_torch.cli.infer --data_dir ... --checkpoint_path ...
 --save_dir ... [--device cpu]
 """
@@ -36,6 +43,7 @@ from fcd_tpu_torch.data.preprocess import (
     scale_channels,
 )
 from fcd_tpu_torch.models.factory import get_model
+from fcd_tpu_torch.parallel.mesh import join_env_group, launch, mesh_size
 from fcd_tpu_torch.postproc.segment import post_process_prediction
 from fcd_tpu_torch.train.trainer import ModelTrainer
 
@@ -70,10 +78,12 @@ def run_inference(
         return time.perf_counter()
 
     trainer = ModelTrainer(params, device=dev)
+    lead = trainer.lead          # rank 0 (or the only process)
     if checkpoint_path and os.path.exists(checkpoint_path):
         trainer.load_model(checkpoint_path, with_optimizer=False)
-        print(f"pretrained model {checkpoint_path} loaded")
-    else:
+        if lead:
+            print(f"pretrained model {checkpoint_path} loaded")
+    elif lead:
         print("no pretrained model found")
 
     entries = get_data(data_dir, params, subjects)
@@ -100,6 +110,8 @@ def run_inference(
         # -- inference -------------------------------------------------------
         logits = trainer.inference(image)
         t2 = clock()
+        if not lead:             # the host phases are rank 0's
+            continue
         probs = torch.softmax(logits, dim=-1).cpu().numpy()
 
         # -- inverse spatial transform (Invertd) + argmax ---------------------
@@ -136,7 +148,7 @@ def run_inference(
                 iou = inter / union if union > 0 else np.nan
             metrics[subj] = {"dice": dice, "iou": iou}
 
-    if metrics:
+    if metrics and lead:
         print("Subject, Dice, IOU")
         for name, m in metrics.items():
             print(f"{name}, {m['dice']:.4f}, {m['iou']:.4f}")
@@ -169,11 +181,22 @@ def main(argv=None):
     _, params = get_model(params, return_model=False)
     params["chans_in"] = len(params["seq"].split("+"))
 
-    run_inference(
-        args.data_dir, args.save_dir, args.checkpoint_path, params,
-        preprocess=args.preprocess, postprocess=not args.no_postprocess,
-        device=args.device,
-    )
+    call = (args.data_dir, args.save_dir, args.checkpoint_path, params)
+    kw = dict(preprocess=args.preprocess,
+              postprocess=not args.no_postprocess, device=args.device)
+    dev = resolve_device(args.device)
+    n_mesh = mesh_size(int(params.get("mesh_data", -1)), dev)
+    if n_mesh > 1 and not join_env_group():
+        return launch(_ranked_inference, n_mesh, call, kw,
+                      device_type=dev.type)[0]
+    return run_inference(*call, **kw)
+
+
+def _ranked_inference(call, kw):
+    """run_inference on a rank `launch` started: its own card, or the
+    CPU."""
+    return run_inference(*call, **{**kw, "device": (
+        "cpu" if kw["device"] == "cpu" else None)})
 
 
 if __name__ == "__main__":

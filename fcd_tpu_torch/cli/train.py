@@ -7,39 +7,44 @@ splits of the split file: `ModelTrainer.train` (with the test at its end)
 or, without a train split, `ModelTrainer.test` of a checkpoint without and
 with post-processing. It runs on the card unless `--device cpu` is given.
 
-Not ported: a data mesh over several cards (`--devices` resolving to more
-than one card; ROADMAP Queue A8) and `--emission_tracking` (ROADMAP Queue
-A6); both raise NotImplementedError.
+`--devices` (-1: every visible card) resolving to N > 1 trains on a data
+mesh (`parallel/`): the command starts N ranks itself, one a card
+(torch.multiprocessing spawn, a file store, NCCL), and they train as the
+JAX package's mesh does; under torchrun it joins the group that is there.
+On the CPU `--devices N` starts N gloo ranks and -1 stays one process.
+The timestamped save directory is chosen once, before the ranks start.
+Not ported: `--emission_tracking` (ROADMAP Queue A6) raises
+NotImplementedError.
 
 Run: python -m fcd_tpu_torch.cli.train --data_dir D --split_file S
---splits train val test --save_dir O [--device cpu] [--kwargs k=v ...]
+--splits train val test --save_dir O [--device cpu] [--devices N]
+[--kwargs k=v ...]
 """
 
 from __future__ import annotations
 
 import os
 from datetime import datetime
+from types import SimpleNamespace
 
-import torch
+import torch.distributed as dist
 
 from fcd_tpu_torch import resolve_device
 from fcd_tpu_torch.cli.args import parse_args, parse_kwargs
 from fcd_tpu_torch.config import get_default_params
 from fcd_tpu_torch.data.manifest import read_split_file
 from fcd_tpu_torch.models.factory import get_model
+from fcd_tpu_torch.parallel.mesh import join_env_group, launch, mesh_size
 from fcd_tpu_torch.train.trainer import ModelTrainer
 
-
-def mesh_size(devices: int, device: torch.device) -> int:
-    """The cards a data mesh would span (fcd_tpu/train/trainer.py:169-181:
-    -1 takes all): the visible cards on a CUDA device, 1 on the CPU."""
-    avail = torch.cuda.device_count() if device.type == "cuda" else 1
-    return avail if devices < 0 else min(devices, avail)
+__all__ = ["main", "mesh_size"]
 
 
-def main(argv=None, timings=None) -> ModelTrainer:
-    """Parse argv and run the requested splits; returns the trainer.
-    `timings` goes to ModelTrainer.train (seconds per epoch and phase)."""
+def main(argv=None, timings=None):
+    """Parse argv and run the requested splits; returns the trainer, or,
+    when this call started the mesh's ranks, rank 0's `save_dir` and
+    `test_metrics` as a namespace. `timings` gets ModelTrainer.train's
+    seconds per epoch and phase (rank 0's under a mesh)."""
     params = get_default_params()
     args = parse_args(default_params=params, argv=argv)
     params["model_type"] = args.model_type
@@ -55,14 +60,40 @@ def main(argv=None, timings=None) -> ModelTrainer:
             "yet (ROADMAP.md, Queue A6)")
     dev = resolve_device(args.device)
     n_mesh = mesh_size(params["mesh_data"], dev)
-    if n_mesh > 1:
-        raise NotImplementedError(
-            f"--devices {args.devices} resolves to a data mesh of {n_mesh} "
-            "cards: the port trains on one card, and the data-parallel "
-            "paths (fcd_tpu/parallel/) are ROADMAP.md Queue A8; pass "
-            "--devices 1")
+    if n_mesh > 1 and not join_env_group():
+        out = launch(_run, n_mesh, args, params, _save_dir(args, params),
+                     device_type=dev.type)[0]
+        if timings is not None:
+            timings.update(out.pop("timings"))
+        return SimpleNamespace(**out)
+    save_dir = _save_dir(args, params)
+    if dist.is_initialized():        # torchrun's ranks take rank 0's stamp
+        box = [save_dir]
+        dist.broadcast_object_list(box, 0)
+        save_dir = box[0]
+    return _run(args, params, save_dir, timings, device=dev)
 
-    trainer = ModelTrainer(params, device=dev)
+
+def _save_dir(args, params) -> str:
+    """The run's directory: --save_dir itself with --resume, else a
+    timestamped one below it."""
+    if args.resume:
+        return args.save_dir
+    stamp = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+    if args.prefix:
+        stamp = f"{args.prefix}_{stamp}"
+    return os.path.join(args.save_dir or "", params["model_type"], stamp)
+
+
+def _run(args, params, save_dir, timings=None, device=None):
+    """The splits on this process's trainer. A rank that `launch` started
+    (no `device`: its own card, or the CPU) returns what pickles: its
+    save_dir, test_metrics and timings."""
+    ranked = device is None
+    if ranked:
+        timings = {}
+        device = "cpu" if args.device == "cpu" else None
+    trainer = ModelTrainer(params, device=device)
     if args.checkpoint_path:
         trainer.load_model(args.checkpoint_path, with_optimizer=False)
 
@@ -74,14 +105,6 @@ def main(argv=None, timings=None) -> ModelTrainer:
         val_subjects = split_dict.get("val", [])
         test_subjects = (split_dict.get("test", [])
                          if "test" in requested else [])
-        if args.resume:
-            save_dir = args.save_dir
-        else:
-            stamp = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
-            if args.prefix:
-                stamp = f"{args.prefix}_{stamp}"
-            save_dir = os.path.join(args.save_dir, params["model_type"],
-                                    stamp)
         os.makedirs(save_dir, exist_ok=True)
         trainer.save_dir = save_dir
         trainer.train(args.data_dir, train_subjects, val_subjects, save_dir,
@@ -90,6 +113,9 @@ def main(argv=None, timings=None) -> ModelTrainer:
         test_subjects = split_dict.get("test", [])
         trainer.test(args.data_dir, test_subjects, post_process=False)
         trainer.test(args.data_dir, test_subjects, post_process=True)
+    if ranked:
+        return {"save_dir": getattr(trainer, "save_dir", None),
+                "test_metrics": trainer.test_metrics, "timings": timings}
     return trainer
 
 

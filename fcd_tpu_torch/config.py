@@ -3,10 +3,11 @@
 The port keeps its own copy so that it never imports the JAX package. The
 keys and defaults are the same, so a params dict built for one package
 configures the other. Keys that only steer TPU formulations
-(`sw_bucket*`, ...) are accepted and ignored; the training CLI refuses a
-`mesh_data` (`--devices`) of more than one card (ROADMAP Queue A8). `perf_flags`
-is honoured: the model factory resolves it against the exported `FCD_*`
-variables when a trainer builds its model (`fcd_tpu_torch/flags.py`).
+(`sw_bucket*`, ...) are accepted and ignored. `mesh_data` (`--devices`)
+and `ragged_dp` steer the data mesh (`parallel/`, one process a card, as
+`train/trainer.py` says). `perf_flags` is honoured: the model factory
+resolves it against the exported `FCD_*` variables when a trainer builds
+its model (`fcd_tpu_torch/flags.py`).
 """
 
 from __future__ import annotations

@@ -21,8 +21,11 @@
 // and sums; h16 a, out, ds and dqn; ds takes the pre-dropout s.
 //
 // Dropout: keep iff fmix32(idx * 0x9E3779B1 ^ key) >= rate * 2^32, where
-// idx = (b * N + n) * hP + column (mod 2^32) and key mixes the step's seed
-// with the layer's salt. It is a counter-based hash, so K4 regenerates K3's
+// idx = ((b0 + b) * N + n) * hP + column (mod 2^32), key mixes the step's
+// seed with the layer's salt, and b0 is the global index of the call's
+// first sample (0 but on a data mesh's ranks, which pass
+// xbase = b0 N hP 0x9E3779B1, so each sample keeps its single-device
+// mask). It is a counter-based hash, so K4 regenerates K3's
 // mask exactly, and kernels/spatial_attn.py computes the same bits with
 // int64 torch ops for the plain version.
 //
@@ -157,6 +160,7 @@ __device__ void stage(const h16* src, int ld, int rows, int valid, int cols,
 
 struct Drop {
   uint32_t key1;    // key ^ (key >> 16), see keep_x
+  uint32_t xb;      // b0 N hP K0: the first sample's global index, hashed
   uint32_t thresh;
   float inv;        // 1 / (1 - rate); 1 without dropout
   int on;
@@ -168,6 +172,7 @@ constexpr uint32_t K0 = 0x9E3779B1u;  // the hash's index multiplier
 // xor-shift of x ^ key is x ^ (x >> 16) ^ key1 (a shift distributes over
 // xor), so the key costs no operation of its own.
 __device__ __forceinline__ bool keep_x(uint32_t x, const Drop& d) {
+  x += d.xb;
   uint32_t h = x ^ (x >> 16) ^ d.key1;
   h *= 0x85ebca6bu;
   h ^= h >> 13;
@@ -1297,9 +1302,11 @@ cudaError_t allow_smem(K kern, bool& done) {
   return e;
 }
 
-Drop dropout(unsigned key, unsigned thresh, float inv_keep, int drop) {
+Drop dropout(unsigned key, unsigned xbase, unsigned thresh, float inv_keep,
+             int drop) {
   Drop d;
   d.key1 = key ^ (key >> 16);
+  d.xb = xbase;
   d.thresh = thresh;
   d.inv = drop ? inv_keep : 1.f;
   d.on = drop;
@@ -1401,7 +1408,8 @@ extern "C" int fcd_spatial_attn_fwd(const void* qn, const void* kpb,
                                     const void* vpb, void* out, int B, int N,
                                     int C, int HP, int P, int cols,
                                     int per_block, int blocks, unsigned key,
-                                    unsigned thresh, float inv_keep, int drop,
+                                    unsigned xbase, unsigned thresh,
+                                    float inv_keep, int drop,
                                     void* stream) {
   if (N < 1 || B < 1 || P < 1 || HP % P || per_block < 1 || blocks < 1 ||
       cols < 1 || C % cols ||
@@ -1416,7 +1424,7 @@ extern "C" int fcd_spatial_attn_fwd(const void* qn, const void* kpb,
   p.HP = HP;
   p.units = (N + 15) / 16 * (C / cols);
   p.per_block = per_block;
-  p.d = dropout(key, thresh, inv_keep, drop);
+  p.d = dropout(key, xbase, thresh, inv_keep, drop);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (C * 1000 + P * 10 + C / cols) {
 #define FWD_CASE(C, P)                                      \
@@ -1438,8 +1446,8 @@ extern "C" int fcd_spatial_attn_bwd(
     const void* qn, const void* kpb, const void* vpb, const void* g,
     void* dqn, float* dq_part, float* dk_part, float* dv_part, void* dk,
     void* dv, int dk_h16, int dv_h16, int B, int N, int C, int HP, int P,
-    int hb, int t, int chunks, unsigned key, unsigned thresh, float inv_keep,
-    int drop, void* stream) {
+    int hb, int t, int chunks, unsigned key, unsigned xbase, unsigned thresh,
+    float inv_keep, int drop, void* stream) {
   const int tiles = t > 0 ? (N + t - 1) / t : 0;
   if (N < 1 || B < 1 || P < 1 || hb < 1 || HP % (hb * P) || t < 16 ||
       t % 16 || t > MAX_TILE || chunks < 1 || chunks > tiles)
@@ -1461,7 +1469,7 @@ extern "C" int fcd_spatial_attn_bwd(
   p.T = t;
   p.tiles = tiles;
   p.chunks = chunks;
-  p.d = dropout(key, thresh, inv_keep, drop);
+  p.d = dropout(key, xbase, thresh, inv_keep, drop);
   FinishParams f;
   f.dk_part = dk_part;
   f.dv_part = dv_part;
@@ -1491,8 +1499,8 @@ namespace {
 template <typename E>
 int fwd_wide(const void* qn, const void* kpb, const void* vpb, void* out,
              int B, int N, int C, int HP, int P, int kc, int kq,
-             unsigned key, unsigned thresh, float inv_keep, int drop,
-             cudaStream_t stream) {
+             unsigned key, unsigned xbase, unsigned thresh, float inv_keep,
+             int drop, cudaStream_t stream) {
   if (N < 1 || B < 1 || !wide_ok(C, P, HP, kc, kq))
     return static_cast<int>(cudaErrorInvalidValue);
   WideRows<E> p;
@@ -1507,7 +1515,7 @@ int fwd_wide(const void* qn, const void* kpb, const void* vpb, void* out,
   p.HP = HP;
   p.kc = kc;
   p.kq = kq;
-  p.d = dropout(key, thresh, inv_keep, drop);
+  p.d = dropout(key, xbase, thresh, inv_keep, drop);
   return launch_rows_p(p, 0, P, B, stream);
 }
 
@@ -1516,7 +1524,8 @@ int bwd_wide(const void* qn, const void* kpb, const void* vpb, const void* g,
              void* dqn, void* a, void* ds, float* dk_part, float* dv_part,
              void* dk, void* dv, int dk_h16, int dv_h16, int B, int N, int C,
              int HP, int P, int kc, int kq, int chunks, unsigned key,
-             unsigned thresh, float inv_keep, int drop, cudaStream_t stream) {
+             unsigned xbase, unsigned thresh, float inv_keep, int drop,
+             cudaStream_t stream) {
   const int tiles = (N + WSUM_T - 1) / WSUM_T;
   if (N < 1 || B < 1 || !wide_ok(C, P, HP, kc, kq) || chunks < 1 ||
       chunks > tiles || a == nullptr || ds == nullptr)
@@ -1534,7 +1543,7 @@ int bwd_wide(const void* qn, const void* kpb, const void* vpb, const void* g,
   p.HP = HP;
   p.kc = kc;
   p.kq = kq;
-  p.d = dropout(key, thresh, inv_keep, drop);
+  p.d = dropout(key, xbase, thresh, inv_keep, drop);
   int err = launch_rows_p(p, 1, P, B, stream);
   if (err != 0) return err;
   WideSums<E> q;
@@ -1577,18 +1586,19 @@ extern "C" int fcd_spatial_attn_fwd_wide(const void* qn, const void* kpb,
                                          const void* vpb, void* out, int B,
                                          int N, int C, int HP, int P, int kc,
                                          int kq, int f32, unsigned key,
-                                         unsigned thresh, float inv_keep,
-                                         int drop, void* stream) {
+                                         unsigned xbase, unsigned thresh,
+                                         float inv_keep, int drop,
+                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #ifndef FCD_F16
   if (f32)
     return fwd_wide<float>(qn, kpb, vpb, out, B, N, C, HP, P, kc, kq, key,
-                           thresh, inv_keep, drop, s);
+                           xbase, thresh, inv_keep, drop, s);
 #else
   if (f32) return static_cast<int>(cudaErrorInvalidValue);
 #endif
   return fwd_wide<h16>(qn, kpb, vpb, out, B, N, C, HP, P, kc, kq, key,
-                       thresh, inv_keep, drop, s);
+                       xbase, thresh, inv_keep, drop, s);
 }
 
 // K4, the wide and (f32 = 1) the f32 instances: the row blocks (dqn, and
@@ -1601,18 +1611,18 @@ extern "C" int fcd_spatial_attn_bwd_wide(
     const void* qn, const void* kpb, const void* vpb, const void* g,
     void* dqn, void* a, void* ds, float* dk_part, float* dv_part, void* dk,
     void* dv, int dk_h16, int dv_h16, int B, int N, int C, int HP, int P,
-    int kc, int kq, int chunks, int f32, unsigned key, unsigned thresh,
-    float inv_keep, int drop, void* stream) {
+    int kc, int kq, int chunks, int f32, unsigned key, unsigned xbase,
+    unsigned thresh, float inv_keep, int drop, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #ifndef FCD_F16
   if (f32)
     return bwd_wide<float>(qn, kpb, vpb, g, dqn, a, ds, dk_part, dv_part, dk,
                            dv, dk_h16, dv_h16, B, N, C, HP, P, kc, kq, chunks,
-                           key, thresh, inv_keep, drop, s);
+                           key, xbase, thresh, inv_keep, drop, s);
 #else
   if (f32) return static_cast<int>(cudaErrorInvalidValue);
 #endif
   return bwd_wide<h16>(qn, kpb, vpb, g, dqn, a, ds, dk_part, dv_part, dk, dv,
                        dk_h16, dv_h16, B, N, C, HP, P, kc, kq, chunks, key,
-                       thresh, inv_keep, drop, s);
+                       xbase, thresh, inv_keep, drop, s);
 }

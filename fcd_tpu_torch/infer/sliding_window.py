@@ -128,6 +128,25 @@ def sliding_window_inference(volume, predictor: Callable, *,
     `flat_output` (the JAX engine's flat return, C-order bytes of the same
     volume)."""
     roi = tuple(int(r) for r in roi_size)
+    vol, (d, h, w) = enter_volume(volume, roi, compute_dtype, device)
+    pd, ph, pw = vol.shape[:3]
+    starts = [tuple(int(v) for v in s)
+              for s in dense_patch_starts((pd, ph, pw), roi, overlap)]
+    imp, inv_cnt = _device_grid_constants((pd, ph, pw), roi, float(overlap),
+                                          blend, float(sigma_scale),
+                                          vol.device)
+    acc = torch.zeros((pd, ph, pw, out_channels), dtype=torch.float32,
+                      device=vol.device)
+    blend_patches(acc, vol, starts, len(starts), predictor, roi, sw_batch,
+                  imp)
+    start = [before for before, _ in entry_pad((d, h, w), roi)]
+    out = sw_exit(acc, inv_cnt, start, (d, h, w))
+    return out.view(d, h, w * out_channels) if flat_output else out
+
+
+def enter_volume(volume, roi, compute_dtype, device=None):
+    """(the padded volume in compute_dtype on `device`, the volume's
+    (D, H, W)): B17 for bf16, a pad and a cast otherwise."""
     vol = torch.as_tensor(volume)
     if device is not None:
         vol = vol.to(device)
@@ -137,25 +156,23 @@ def sliding_window_inference(volume, predictor: Callable, *,
         vol = sw_entry(vol, roi, compute_dtype)
     else:
         vol = F.pad(vol, entry_pad_arg((d, h, w), roi)).to(compute_dtype)
-    pd, ph, pw = vol.shape[:3]
-    starts = [tuple(int(v) for v in s)
-              for s in dense_patch_starts((pd, ph, pw), roi, overlap)]
-    imp, inv_cnt = _device_grid_constants((pd, ph, pw), roi, float(overlap),
-                                          blend, float(sigma_scale),
-                                          vol.device)
-    acc = torch.zeros((pd, ph, pw, out_channels), dtype=torch.float32,
-                      device=vol.device)
+    return vol, (d, h, w)
+
+
+def blend_patches(acc: torch.Tensor, vol: torch.Tensor, starts, n_valid: int,
+                  predictor: Callable, roi, sw_batch: int,
+                  imp: torch.Tensor) -> None:
+    """Run the patches at `starts` through `predictor` in batches of
+    sw_batch and add the first n_valid patches' logits, weighted by `imp`,
+    into `acc` in order. A short last batch is padded with repeats of its
+    last patch, and patches past n_valid are run but not blended (the JAX
+    engine's validity weights)."""
     for i in range(0, len(starts), sw_batch):
         batch = starts[i:i + sw_batch]
-        # the last batch is padded with repeats of its last patch, which
-        # are run but not blended (the JAX engine's validity weights)
         run = batch + [batch[-1]] * (sw_batch - len(batch))
         patches = torch.stack([vol[s0:s0 + roi[0], s1:s1 + roi[1],
                                    s2:s2 + roi[2]] for s0, s1, s2 in run])
         logits = predictor(patches).float()
-        for j, (s0, s1, s2) in enumerate(batch):
+        for j, (s0, s1, s2) in enumerate(batch[:max(n_valid - i, 0)]):
             acc[s0:s0 + roi[0], s1:s1 + roi[1], s2:s2 + roi[2]] += \
                 logits[j] * imp
-    start = [before for before, _ in entry_pad((d, h, w), roi)]
-    out = sw_exit(acc, inv_cnt, start, (d, h, w))
-    return out.view(d, h, w * out_channels) if flat_output else out

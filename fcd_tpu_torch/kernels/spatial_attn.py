@@ -17,7 +17,9 @@ column) (`keep_mask`), written identically in the kernels and here with
 int64 torch ops, so the kernel's masks and the plain version's are the
 same bits and K4 regenerates K3's mask. The seed is drawn per step and
 the salt names the layer, so every layer of every step draws its own
-mask. The JAX package draws from another stream (ROADMAP C2): parity with
+mask. `offset` is the global index of the call's first sample: a data
+mesh's rank passes its own, so each sample keeps the mask the
+single-device step gives it. The JAX package draws from another stream (ROADMAP C2): parity with
 it holds at rate 0.
 
 CPU tensors take the plain PyTorch versions (every dtype: they round at
@@ -88,9 +90,11 @@ def keep_threshold(rate: float) -> int:
 
 
 def keep_mask(b: int, n: int, hp: int, key: int, rate: float,
-              device=None) -> torch.Tensor:
-    """(B, N, hP) bool: the kernels' dropout keep bits."""
-    idx = torch.arange(b * n * hp, dtype=torch.int64, device=device) & _M32
+              device=None, offset: int = 0) -> torch.Tensor:
+    """(B, N, hP) bool: the kernels' dropout keep bits, samples counted
+    from `offset`."""
+    idx = (torch.arange(b * n * hp, dtype=torch.int64, device=device)
+           + offset * n * hp) & _M32
     h = _fmix32(_mul32(idx, 0x9E3779B1) ^ key)
     return (h >= keep_threshold(rate)).reshape(b, n, hp)
 
@@ -101,7 +105,13 @@ def _softmax_segments(logits: torch.Tensor, h: int) -> torch.Tensor:
         b, n, hp)
 
 
-def _attn(qn, kpb, h, key, rate):
+def _xbase(offset: int, n: int, hp: int) -> int:
+    """The kernels' `xbase`: the hashed index of sample `offset`'s first
+    element (idx * 0x9E3779B1 mod 2^32)."""
+    return _mul32((offset * n * hp) & _M32, 0x9E3779B1)
+
+
+def _attn(qn, kpb, h, key, rate, offset=0):
     """(soft, attn, keep): the f32 segment softmax, the dropped attention
     rounded to qn's dtype, and the keep mask (None at rate 0)."""
     b, n, _ = qn.shape
@@ -110,25 +120,26 @@ def _attn(qn, kpb, h, key, rate):
     keep = None
     attn = soft
     if rate > 0.0:
-        keep = keep_mask(b, n, hp, key, rate, qn.device)
+        keep = keep_mask(b, n, hp, key, rate, qn.device, offset)
         attn = torch.where(keep, soft * (1.0 / (1.0 - rate)),
                            torch.zeros_like(soft))
     return soft, attn.to(qn.dtype).float(), keep
 
 
 def spatial_attn_fwd_plain(qn, kpb, vpb, h: int, key: int,
-                           rate: float) -> torch.Tensor:
-    _, attn, _ = _attn(qn, kpb, h, key, rate)
+                           rate: float, offset: int = 0) -> torch.Tensor:
+    _, attn, _ = _attn(qn, kpb, h, key, rate, offset)
     return (attn @ vpb.float()).to(qn.dtype)
 
 
-def spatial_attn_bwd_plain(qn, kpb, vpb, g, h: int, key: int, rate: float
+def spatial_attn_bwd_plain(qn, kpb, vpb, g, h: int, key: int, rate: float,
+                           offset: int = 0
                            ) -> Tuple[torch.Tensor, torch.Tensor,
                                       torch.Tensor]:
     """(dqn in qn's dtype, dkpb f32, dvpb f32)."""
     b, n, _ = qn.shape
     hp = kpb.shape[-1]
-    soft, attn, keep = _attn(qn, kpb, h, key, rate)
+    soft, attn, keep = _attn(qn, kpb, h, key, rate, offset)
     gf = g.float()
     dvpb = attn.transpose(1, 2) @ gf
     da = gf @ vpb.float().transpose(1, 2)
@@ -483,14 +494,15 @@ def _fns(lib: str):
                           ctypes.c_float)
         fwd = so.fcd_spatial_attn_fwd
         fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci, cu,
-                        cu, cf, ci, vp]
+                        cu, cu, cf, ci, vp]
         bwd = so.fcd_spatial_attn_bwd
         bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                        ci, ci, ci, ci, ci, ci, ci, cu, cu, cf, ci, vp]
+                        ci, ci, ci, ci, ci, ci, ci, cu, cu, cu, cf, ci, vp]
         fwd_w = so.fcd_spatial_attn_fwd_wide
-        fwd_w.argtypes = [vp, vp, vp, vp] + [ci] * 8 + [cu, cu, cf, ci, vp]
+        fwd_w.argtypes = [vp, vp, vp, vp] + [ci] * 8 + [cu, cu, cu, cf, ci,
+                                                         vp]
         bwd_w = so.fcd_spatial_attn_bwd_wide
-        bwd_w.argtypes = [vp] * 11 + [ci] * 11 + [cu, cu, cf, ci, vp]
+        bwd_w.argtypes = [vp] * 11 + [ci] * 11 + [cu, cu, cu, cf, ci, vp]
         for f in (fwd, bwd, fwd_w, bwd_w):
             f.restype = ci
         fns = _FNS[lib] = dict(fwd=fwd, bwd=bwd, fwd_wide=fwd_w,
@@ -555,15 +567,17 @@ def _plan(qn, kpb, h, plan):
 
 def spatial_attn_fwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
                      h: int, key: int, rate: float,
-                     plan: Optional[SpattnPlan] = None) -> torch.Tensor:
+                     plan: Optional[SpattnPlan] = None,
+                     offset: int = 0) -> torch.Tensor:
     """K3 wrapper: (B, N, C) out in qn's dtype. `plan` (default
     `spatial_attn_plan`'s, f32: `spatial_attn_plan_f32`'s) sets the
-    kernel's blocks."""
+    kernel's blocks; `offset` is the first sample's global index in the
+    dropout hash."""
     _check(qn, kpb, vpb, h)
     if plan is not None:
         _check_plan(plan, qn, kpb, h)
     if qn.device.type == "cpu":
-        return spatial_attn_fwd_plain(qn, kpb, vpb, h, key, rate)
+        return spatial_attn_fwd_plain(qn, kpb, vpb, h, key, rate, offset)
     _kernel_args(qn, kpb, vpb)
     plan = _plan(qn, kpb, h, plan)
     b, n, c = qn.shape
@@ -571,8 +585,8 @@ def spatial_attn_fwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
     fns = _fns(_LIBS[qn.dtype])
     out = torch.empty_like(qn)
     ptr = _build.ptr
-    drop = (key, keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
-            _build.stream())
+    drop = (key, _xbase(offset, n, hp), keep_threshold(rate),
+            1.0 / (1.0 - rate), int(rate > 0.0), _build.stream())
     if plan.wide:
         err = fns["fwd_wide"](ptr(qn), ptr(kpb), ptr(vpb), ptr(out), b, n, c,
                               hp, hp // h, plan.k_chunk, plan.q_chunk,
@@ -589,17 +603,17 @@ def spatial_attn_fwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
 def spatial_attn_bwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
                      g: torch.Tensor, h: int, key: int, rate: float,
                      dtypes=(torch.float32, torch.float32),
-                     plan: Optional[SpattnPlan] = None):
+                     plan: Optional[SpattnPlan] = None, offset: int = 0):
     """K4 wrapper: (dqn in qn's dtype, dkpb, dvpb in `dtypes`: f32, or qn's
     16-bit dtype). On the card one call is the product kernel and its
     finishing pass (wide: the row blocks, the token sums and the
-    finishing pass); `plan` sets their decomposition."""
+    finishing pass); `plan` sets their decomposition, `offset` as K3's."""
     _check(qn, kpb, vpb, h, g)
     if plan is not None:
         _check_plan(plan, qn, kpb, h)
     if qn.device.type == "cpu":
         dqn, dkpb, dvpb = spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key,
-                                                 rate)
+                                                 rate, offset)
         return dqn, dkpb.to(dtypes[0]), dvpb.to(dtypes[1])
     _kernel_args(qn, kpb, vpb, g)
     if any(d not in (torch.float32, qn.dtype) for d in dtypes):
@@ -617,8 +631,8 @@ def spatial_attn_bwd(qn: torch.Tensor, kpb: torch.Tensor, vpb: torch.Tensor,
     dvpb = torch.empty((b, hp, c), dtype=dtypes[1], device=dev)
     ptr = _build.ptr
     flags = (int(dtypes[0] != f32), int(dtypes[1] != f32))
-    drop = (key, keep_threshold(rate), 1.0 / (1.0 - rate), int(rate > 0.0),
-            _build.stream())
+    drop = (key, _xbase(offset, n, hp), keep_threshold(rate),
+            1.0 / (1.0 - rate), int(rate > 0.0), _build.stream())
     if plan.wide:   # a and ds for the token sums, in the operands' type
         rows = torch.empty((2, b, n, hp), dtype=qn.dtype, device=dev)
         err = fns["bwd_wide"](
@@ -653,23 +667,24 @@ class SpatialAttn(torch.autograd.Function):
     kpb and vpb are taken in qn's dtype, as the TPU kernel takes them."""
 
     @staticmethod
-    def forward(ctx, qn, kpb, vpb, h: int, key: int, rate: float):
+    def forward(ctx, qn, kpb, vpb, h: int, key: int, rate: float,
+                offset: int = 0):
         kq, vq = kpb.to(qn.dtype).contiguous(), vpb.to(qn.dtype).contiguous()
         qn = qn.contiguous()
         ctx.save_for_backward(qn, kq, vq)
-        ctx.h, ctx.key, ctx.rate = h, key, rate
+        ctx.h, ctx.key, ctx.rate, ctx.offset = h, key, rate, offset
         ctx.dtypes = (kpb.dtype, vpb.dtype)
-        return spatial_attn_fwd(qn, kq, vq, h, key, rate)
+        return spatial_attn_fwd(qn, kq, vq, h, key, rate, offset=offset)
 
     @staticmethod
     def backward(ctx, g):
         qn, kq, vq = ctx.saved_tensors
         dqn, dkpb, dvpb = spatial_attn_bwd(
             qn, kq, vq, g.to(qn.dtype).contiguous(), ctx.h, ctx.key, ctx.rate,
-            dtypes=ctx.dtypes)
-        return dqn, dkpb, dvpb, None, None, None
+            dtypes=ctx.dtypes, offset=ctx.offset)
+        return dqn, dkpb, dvpb, None, None, None, None
 
 
 def spatial_attn(qn, kpb, vpb, h: int, key: int = 0,
-                 rate: float = 0.0) -> torch.Tensor:
-    return SpatialAttn.apply(qn, kpb, vpb, h, key, rate)
+                 rate: float = 0.0, offset: int = 0) -> torch.Tensor:
+    return SpatialAttn.apply(qn, kpb, vpb, h, key, rate, offset)

@@ -229,8 +229,7 @@ class SegResNetCore(nn.Module):
         b = x.shape[0]
         z_mean = self.vae_fc1(x.reshape(b, -1))
         if noise is None:
-            noise = torch.randn(z_mean.shape, generator=self.dropout_rng.generator,
-                                device=z_mean.device)
+            noise = self.dropout_rng.normal(z_mean.shape, z_mean.device)
         reg = z_mean.square().mean().float()
         z = z_mean + self.vae_default_std * noise.to(z_mean.dtype)
         x = self.act(self.vae_fc3(z))

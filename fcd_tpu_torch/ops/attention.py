@@ -105,7 +105,7 @@ def dsa_train(x, w_qkvv, ef, temperature, temperature2, ln_scale, ln_bias,
             b, c, h * p)
         vpb = torch.einsum("bhcp,hg->bgphc", vp, eye).reshape(b, h * p, c)
         return spatial_attn(qn, kpb, vpb, h, dropout_key(rng.seed, salt),
-                            rate)
+                            rate, rng.offset)
 
     if sa_type == "channel":
         out = channel(slots[2])

@@ -258,7 +258,12 @@ class BatchNorm(nn.Module):
     In train mode the statistics are the batch's, over (B, D, H, W), with
     var = E[x^2] - mean^2 clamped at 0, and the running statistics move by
     flax momentum 0.9 towards the batch mean and this BIASED variance
-    (torch.nn.BatchNorm3d would use the unbiased one, so it is not used)."""
+    (torch.nn.BatchNorm3d would use the unbiased one, so it is not used).
+
+    Under a data mesh (`mesh`, set by `parallel.dp.sharded` for the
+    duration of a data-parallel step) the sums and the count are added
+    over the ranks by a differentiable all-reduce, so the statistics are
+    the global batch's, as GSPMD computes them over a sharded batch."""
 
     def __init__(self, channels: int, eps: float = 1e-5,
                  momentum: float = 0.9):
@@ -268,6 +273,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("mean", torch.zeros(channels))
         self.register_buffer("var", torch.ones(channels))
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """The norm of a (B, D, H, W, C) tensor itself (the plain branch of
@@ -296,8 +302,14 @@ class BatchNorm(nn.Module):
         of per-(b, c) sums of x and x^2 over n voxels each (a conv
         kernel's statistics); updates the running statistics."""
         b = s1.shape[0]
-        mean = s1.float().sum(0) / (b * n)
-        var = (s2.float().sum(0) / (b * n) - mean.square()).clamp_min(0)
+        t1, t2, count = s1.float().sum(0), s2.float().sum(0), b * n
+        if self.mesh is not None:
+            from fcd_tpu_torch.parallel.mesh import all_reduce_sum
+
+            t1, t2 = all_reduce_sum(torch.stack([t1, t2]), self.mesh)
+            count *= self.mesh.size
+        mean = t1 / count
+        var = (t2 / count - mean.square()).clamp_min(0)
         with torch.no_grad():
             m = self.momentum
             self.mean.mul_(m).add_((1.0 - m) * mean)
@@ -319,17 +331,42 @@ class DropoutRng:
     torch.Generator on the activations' device, or None for PyTorch's
     default) for the masks drawn in PyTorch, and `seed`, the step's seed
     of the spatial-attention kernels' counter hash. The trainer sets both
-    before each step; the modules that drop out share one instance."""
+    before each step; the modules that drop out share one instance.
+
+    `shard` is (offset, global batch) while a data-parallel step runs
+    on this rank's rows of a larger batch (`parallel.dp.sharded`): every
+    draw is then made for the global batch and this rank's rows taken,
+    and the hash counts samples from `offset`, so each sample gets the
+    mask the single-device step gives it."""
 
     def __init__(self, generator: Optional[torch.Generator] = None,
                  seed: int = 0):
         self.generator = generator
         self.seed = seed
+        self.shard: Optional[Tuple[int, int]] = None
+
+    @property
+    def offset(self) -> int:
+        """The global index of this rank's first sample (0 unsharded)."""
+        return 0 if self.shard is None else self.shard[0]
+
+    def _draw(self, draw, shape):
+        if self.shard is None:
+            return draw(tuple(shape))
+        off, total = self.shard
+        return draw((total, *shape[1:]))[off:off + shape[0]]
 
     def keep(self, shape, rate: float, device) -> torch.Tensor:
-        """Bernoulli(1 - rate) keep mask (bool) of `shape`."""
-        return torch.rand(shape, generator=self.generator,
-                          device=device) >= rate
+        """Bernoulli(1 - rate) keep mask (bool) of `shape` (leading axis
+        the batch)."""
+        return self._draw(lambda s: torch.rand(
+            s, generator=self.generator, device=device) >= rate, shape)
+
+    def normal(self, shape, device) -> torch.Tensor:
+        """A standard normal f32 draw of `shape` (leading axis the
+        batch)."""
+        return self._draw(lambda s: torch.randn(
+            s, generator=self.generator, device=device), shape)
 
 
 def dropout(x: torch.Tensor, rate: float, rng: DropoutRng,

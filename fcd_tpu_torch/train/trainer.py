@@ -11,8 +11,20 @@ step count and the `extra` fields (trainer.py:203-229,
 (the patch loader, augmentation on the card, the steps, validation,
 EMA-smoothed early stopping, best and latest checkpoints, resume, the CSV
 log, the test at the end), `validate`, `evaluate` (streamed), `test` and
-`log_metrics`. The port runs on one card; the JAX trainer's data mesh and
-`ragged_dp` paths are `parallel/` (ROADMAP Queue A8).
+`log_metrics`.
+
+The data mesh (fcd_tpu/train/trainer.py:123-160, 177-188, 285-298,
+588-616): `params['mesh_data']` (--devices, -1 = all) resolved to more
+than one card needs a process group, one rank a card (`parallel.mesh`:
+the CLIs start it, or torchrun), and raises without one. Under a mesh
+every rank holds the same global batch (the same loader, augmentation and
+seeds) and the train step runs `parallel.dp`'s data-parallel step on its
+rows; a global batch that does not divide over the mesh is padded with
+cyclic repeats and masked out of the loss (`ragged_dp='pad'`), or runs
+the single-device step on every rank (`'replicate'`). `inference` shards
+the patch grid (`parallel.sw`), so validation, test and `cli.infer` do
+too, and every rank gets the whole logits. Only rank 0 prints, writes
+checkpoints and writes the log.
 
 `train_step` returns the loss as a device tensor and never waits for the
 card; the epoch loop reads each step's loss one step late. Dropout and
@@ -76,6 +88,7 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from fcd_tpu_torch import flags, resolve_device
 from fcd_tpu_torch.config import get_default_params
@@ -92,6 +105,9 @@ from fcd_tpu_torch.metrics import (
     calculate_voxel_level_metrics,
 )
 from fcd_tpu_torch.models.factory import get_model
+from fcd_tpu_torch.parallel.dp import make_dp_train_step, replicate_state
+from fcd_tpu_torch.parallel.mesh import data_sharding, make_mesh, mesh_size
+from fcd_tpu_torch.parallel.sw import sharded_sliding_window_inference
 from fcd_tpu_torch.postproc.segment import post_process_prediction
 from fcd_tpu_torch.train import checkpoint as ckpt
 from fcd_tpu_torch.train.schedule import epoch_lr
@@ -172,11 +188,18 @@ class ModelTrainer:
     best_model_filename = "best_model.msgpack"
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
-                 device=None, verbose: bool = True):
+                 device=None, verbose: bool = True, mesh=None):
+        """`mesh`: a `parallel.mesh.Mesh` to run on (a subgroup, say);
+        by default params['mesh_data'] and the process group decide."""
         self.params = get_default_params() if params is None else params
-        self.verbose = verbose
         # the compute type is settled before anything reaches the card
         dev = resolve_device(None) if device is None else torch.device(device)
+        self.mesh = self._build_mesh(dev) if mesh is None else mesh
+        if self.mesh is not None:
+            dev = self.mesh.device
+        # rank 0 (or the only process) prints and writes
+        self.lead = self.mesh is None or self.mesh.rank == 0
+        self.verbose = verbose and self.lead
         self.compute_dtype = compute_dtype_for(self.params, dev)
         self.entry_dtype = entry_dtype_for(self.params, dev)
         self.device = resolve_device(dev)
@@ -191,7 +214,9 @@ class ModelTrainer:
         self.model.reset_parameters(gen)
         self.model.to(self.device).eval()
         self.model.compute_dtype = self.compute_dtype
-        if verbose:
+        if self.mesh is not None:
+            replicate_state(self.model, None, self.mesh)
+        if self.verbose:
             print("Trainable parameters: "
                   f"{sum(t.numel() for t in self.model.parameters())}")
         self.loss_fn = make_combined_loss(self.params)
@@ -205,7 +230,31 @@ class ModelTrainer:
             device=self.device).manual_seed(seed + 3)
         self.wandb = _get_wandb()
         self.test_metrics: Dict[bool, Dict[str, float]] = {}
+        self._said_ragged = False
         self.init_stats()
+
+    def _build_mesh(self, device: torch.device):
+        """params['mesh_data'] (--devices, -1 = all) resolved as the JAX
+        trainer resolves it (fcd_tpu/train/trainer.py:177-188): inside a
+        process group the mesh spans the group (even one rank) unless
+        mesh_data is 1; without one, None for one card, and a request that
+        resolves to more raises: the ranks are started by the CLIs,
+        `parallel.mesh.launch` or torchrun, never here."""
+        n_req = int(self.params.get("mesh_data", -1) or -1)
+        if dist.is_available() and dist.is_initialized():
+            if n_req == 1:
+                return None
+            named = device.type == "cpu" or device.index is not None
+            return make_mesh(n_req, device=device if named else None)
+        n_mesh = mesh_size(n_req, device)
+        if n_mesh > 1:
+            raise RuntimeError(
+                f"mesh_data={n_req} resolves to a data mesh of {n_mesh} "
+                "ranks and this process is in no process group: start the "
+                "ranks with the CLIs' --devices, "
+                "fcd_tpu_torch.parallel.mesh.launch or torchrun, or pass "
+                "mesh_data=1")
+        return None
 
     def init_stats(self) -> None:
         """The validation bookkeeping (a checkpoint's `extra` carries the
@@ -234,11 +283,21 @@ class ModelTrainer:
         self._seed_gen = torch.Generator().manual_seed(seed)
         self.model.dropout_rng.generator = torch.Generator(
             device=self.device).manual_seed(seed + 1)
-        self._step_fn = make_train_step(
-            self.model, self.loss_fn, self.optimizer,
-            grad_norms=self._log_norms,
-            model_returns_vaeloss=self.params["model_returns_vaeloss"],
-            loss_vae_weight=self.params.get("loss_vae_weight", 0.2))
+        kw = dict(grad_norms=self._log_norms,
+                  model_returns_vaeloss=self.params["model_returns_vaeloss"],
+                  loss_vae_weight=self.params.get("loss_vae_weight", 0.2))
+        self._step_fn = make_train_step(self.model, self.loss_fn,
+                                        self.optimizer, **kw)
+        if self.mesh is not None:
+            # the JAX trainer's three mesh steps (trainer.py:142-160): the
+            # data-parallel step, its pad-and-mask variant for ragged
+            # global batches, and the single-device step every rank runs
+            # whole under ragged_dp='replicate' (`_step_fn` above)
+            self._dp_step = make_dp_train_step(
+                self.model, self.loss_fn, self.optimizer, self.mesh, **kw)
+            self._dp_mask_step = make_dp_train_step(
+                self.model, self.loss_fn, self.optimizer, self.mesh,
+                with_mask=True, **kw)
 
     def train_step(self, images, labels, lr: float,
                    thickness=None) -> torch.Tensor:
@@ -257,11 +316,38 @@ class ModelTrainer:
         seed = int(torch.randint(0, 2 ** 31 - 1, (1,),
                                  generator=self._seed_gen))
         with torch.enable_grad(), self.numerics():   # also under no_grad
-            out = self._step_fn(x, y, lr, seed, t)
+            if self.mesh is None:
+                out = self._step_fn(x, y, lr, seed, t)
+            else:
+                out = self._mesh_step(x, y, lr, seed, t)
         self.step += 1
         if self._log_norms:
             out, self.last_grad_norms = out
         return out
+
+    def _mesh_step(self, x, y, lr, seed, t):
+        """One step of the global batch (x, y, t) under the mesh, as the
+        JAX epoch loop places it (fcd_tpu/train/trainer.py:588-616)."""
+        n, n_dev = x.shape[0], self.mesh.size
+        if n % n_dev == 0:
+            rows = data_sharding(self.mesh, n)
+            return self._dp_step(x[rows], y[rows], lr, seed,
+                                 None if t is None else t[rows])
+        if self.params.get("ragged_dp", "pad") == "replicate":
+            if self.verbose and not self._said_ragged:
+                print(f"global batch {n} does not divide over the {n_dev}-"
+                      "device mesh; running replicated steps "
+                      "(ragged_dp=replicate)", flush=True)
+            self._said_ragged = True
+            return self._step_fn(x, y, lr, seed, t)
+        # pad-and-mask: cyclic repeats, the padded samples masked out
+        pad = -n % n_dev
+        idx = torch.arange(n + pad, device=x.device) % n
+        mask = (torch.arange(n + pad, device=x.device) < n).float()
+        rows = data_sharding(self.mesh, n + pad)
+        return self._dp_mask_step(
+            x[idx][rows], y[idx][rows], lr, seed,
+            None if t is None else t[idx][rows], sample_mask=mask[rows])
 
     def load_variables(self, variables) -> None:
         """Take the weights of a fcd_tpu variables tree (numpy leaves)."""
@@ -308,6 +394,9 @@ class ModelTrainer:
             self.ema_val_loss = None if ema < 0 else ema
             self.early_stopping_counter = int(
                 extra.get("early_stopping_counter", 0))
+        if self.mesh is not None:       # every rank read the same file
+            replicate_state(self.model, self.optimizer if self._step_fn
+                            else None, self.mesh)
         epoch = int(raw.get("epoch", -1))
         return None if epoch < 0 else epoch
 
@@ -338,19 +427,21 @@ class ModelTrainer:
     @torch.no_grad()
     def inference(self, volume) -> torch.Tensor:
         """Sliding-window logits (D, H, W, chans_out) f32 on the trainer's
-        device over a (D, H, W, C) volume (roi = patch_size)."""
+        device over a (D, H, W, C) volume (roi = patch_size). Under a mesh
+        the patch grid is sharded over the ranks (every rank calls this
+        with the same volume and gets the whole logits)."""
         p = self.params
-        return sliding_window_inference(
-            volume, self.predict,
-            roi_size=_triple(p["patch_size"]),
-            out_channels=p["chans_out"],
-            sw_batch=p.get("sw_batch_size", 2),
-            overlap=p.get("sw_overlap", 0.25),
-            blend=p.get("sw_blend", "constant"),
-            sigma_scale=p.get("sw_sigma_scale", 0.125),
-            compute_dtype=self.entry_dtype,
-            device=self.device,
-        )
+        kw = dict(roi_size=_triple(p["patch_size"]),
+                  out_channels=p["chans_out"],
+                  sw_batch=p.get("sw_batch_size", 2),
+                  overlap=p.get("sw_overlap", 0.25),
+                  blend=p.get("sw_blend", "constant"),
+                  sigma_scale=p.get("sw_sigma_scale", 0.125),
+                  compute_dtype=self.entry_dtype, device=self.device)
+        if self.mesh is not None:
+            return sharded_sliding_window_inference(volume, self.predict,
+                                                    self.mesh, **kw)
+        return sliding_window_inference(volume, self.predict, **kw)
 
     def _activate(self, logits) -> np.ndarray:
         t = torch.as_tensor(logits).float()
@@ -430,7 +521,8 @@ class ModelTrainer:
         as two CSV lines (fcd_tpu/train/trainer.py:449-462), and kept in
         `test_metrics[post_process]`."""
         if not test_subjects:
-            print("No test subjects provided, skipping testing.")
+            if self.lead:
+                print("No test subjects provided, skipping testing.")
             return {}
         ds = FCDDataset(data_dir, self.params, test_subjects,
                         verbose=self.verbose)
@@ -438,9 +530,10 @@ class ModelTrainer:
             VolumeLoader(ds), post_process=post_process,
             compute_lesion_level_metrics=True, include_hd95=True,
             desc="test" + ("_postprocess" if post_process else ""))
-        print(",".join(metrics.keys()) + ",", flush=True)
-        print(",".join(f"{v:.4f}" for v in metrics.values()) + ",",
-              flush=True)
+        if self.lead:
+            print(",".join(metrics.keys()) + ",", flush=True)
+            print(",".join(f"{v:.4f}" for v in metrics.values()) + ",",
+                  flush=True)
         self.test_metrics[post_process] = metrics
         return metrics
 
@@ -557,8 +650,11 @@ class ModelTrainer:
         if resume and os.path.exists(latest_path):
             loaded = self.load_model(latest_path, with_optimizer=True)
             current_epoch = (loaded + 1) if loaded is not None else 0
-            print(f"Loaded existing model weights from {latest_path}")
+            if self.lead:
+                print(f"Loaded existing model weights from {latest_path}")
 
+        if not self.lead:
+            self.wandb = None
         if self.wandb is not None and os.environ.get("WANDB_MODE") != \
                 "offline":
             try:
@@ -636,32 +732,39 @@ class ModelTrainer:
             new_best, val_metrics, val_loss = self.validate(epoch,
                                                             val_loader)
             t2 = clock()
-            if new_best:
+            if new_best and self.lead:
                 self.save_model(best_path, epoch)
                 if self.verbose:
                     print("saved new best metric model", flush=True)
             stop_flag = epoch >= min_epochs and (
                 self.early_stopping_counter >= patience or lr <= min_lr)
 
-            if p.get("keep_latest_model", False):
+            if p.get("keep_latest_model", False) and self.lead:
                 self.save_model(latest_path, epoch)
 
             elapsed = time.time() - epoch_start
-            self.log_metrics(epoch, epoch_loss, val_loss, self.ema_val_loss,
-                             val_metrics, lr, elapsed, csv_path=log_path)
+            if self.lead:
+                self.log_metrics(epoch, epoch_loss, val_loss,
+                                 self.ema_val_loss, val_metrics, lr, elapsed,
+                                 csv_path=log_path)
             if timings is not None:
                 timings[epoch] = {"steps": t1 - t0, "validation": t2 - t1,
                                   "save_log": clock() - t2,
                                   "n_steps": step_count}
 
             if stop_flag:
-                print(f"Early stopping triggered after {epoch + 1} epochs")
+                if self.lead:
+                    print(f"Early stopping triggered after {epoch + 1} "
+                          "epochs")
                 break
 
         total = time.time() - self.train_start_time
-        print(f"Training completed, total time: {total:.2f} seconds")
+        if self.lead:
+            print(f"Training completed, total time: {total:.2f} seconds")
 
         if test_subjects:
+            if self.mesh is not None:     # rank 0's best checkpoint is written
+                dist.barrier(group=self.mesh.group)
             if os.path.exists(best_path):
                 self.load_model(best_path, with_optimizer=False)
             self.test(data_dir, test_subjects, post_process=False)

@@ -51,6 +51,10 @@ from fcd_tpu_torch.postproc import native as tnative
 from fcd_tpu_torch.postproc.segment import post_process_prediction as t_postproc
 from fcd_tpu_torch.train import checkpoint as tckpt
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 torch.set_grad_enabled(False)
 
 

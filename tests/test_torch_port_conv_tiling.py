@@ -24,6 +24,10 @@ from fcd_tpu_torch.kernels.block_conv import (
     pack_weights,
 )
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 grids = st.tuples(st.integers(1, 4), st.integers(1, 70), st.integers(1, 70),
                   st.integers(1, 70), st.integers(1, 1024))
 

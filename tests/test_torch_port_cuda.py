@@ -11,6 +11,10 @@ collects the same tests.
 import pytest
 import torch
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 pytestmark = pytest.mark.cuda
 
 
@@ -866,6 +870,35 @@ def _spattn_inputs(gen, dev, n, c, h, p, batch=2):
 SPATTN_SMALL = [(512, 16, 4, 16), (64, 32, 4, 16), (8, 64, 4, 16),
                 (1, 128, 4, 32), (100, 16, 1, 16), (100, 16, 2, 64),
                 (70, 256, 2, 16), (70, 128, 4, 16)]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f16", "f32"])
+@pytest.mark.parametrize("n,c,h,p", [(512, 16, 4, 16), (70, 256, 2, 16)])
+def test_spatial_attn_batch_offset(dev, n, c, h, p, dtype):
+    """A data mesh's rank passes its first sample's global index
+    (`offset`): K3 and K4 with an offset against the plain versions with
+    the same offset, whose keep bits are rows offset.. of the full
+    batch's; at a tensor-core and a wide shape, each operand type."""
+    from fcd_tpu_torch.kernels import spatial_attn as sa
+
+    dt = {"bf16": torch.bfloat16, "f16": torch.float16,
+          "f32": torch.float32}[dtype]
+    gen = torch.Generator(device=dev).manual_seed(n + c)
+    qn, kpb, vpb, g = (t.to(dt) for t in _spattn_inputs(gen, dev, n, c, h,
+                                                        p, batch=2))
+    key = sa.dropout_key(7, 3)
+    full = sa.keep_mask(4, n, h * p, key, 0.1, dev)
+    assert torch.equal(sa.keep_mask(2, n, h * p, key, 0.1, dev, offset=2),
+                       full[2:])
+    out = sa.spatial_attn_fwd(qn, kpb, vpb, h, key, 0.1, offset=2)
+    assert _rel(out, sa.spatial_attn_fwd_plain(qn, kpb, vpb, h, key, 0.1,
+                                               offset=2)) < 2e-2
+    assert not torch.equal(out, sa.spatial_attn_fwd(qn, kpb, vpb, h, key,
+                                                    0.1))
+    got = sa.spatial_attn_bwd(qn, kpb, vpb, g, h, key, 0.1, offset=2)
+    want = sa.spatial_attn_bwd_plain(qn, kpb, vpb, g, h, key, 0.1, offset=2)
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) < 2e-2
 
 
 @pytest.mark.parametrize("n,c,h,p,rate", [

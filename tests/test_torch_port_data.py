@@ -37,6 +37,10 @@ from fcd_tpu_torch.data import augment as ta
 from fcd_tpu_torch.data import dataset as td
 from fcd_tpu_torch.data.sampling import PosNegCropSampler
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 SHAPE = (24, 20, 28)
 
 

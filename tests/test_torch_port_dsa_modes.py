@@ -24,6 +24,10 @@ from fcd_tpu_torch.kernels import dsa_attention as tdk
 from fcd_tpu_torch.ops.attention import TransformerBlock
 from tests.test_torch_parity import randomize_batch_stats, randomize_params
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 SA_TYPES = ["parallel", "serial", "spatial", "channel"]
 
 

@@ -17,6 +17,10 @@ import torch
 
 from fcd_tpu_torch.kernels import dsa_attention as dk
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 torch.set_grad_enabled(False)
 
 # (N, C, P) of the four levels (4 heads), and ragged N at level 3's widths

@@ -42,6 +42,10 @@ from fcd_tpu_torch.cli import train as cli_train
 from fcd_tpu_torch.config import get_default_params
 from fcd_tpu_torch.train.trainer import ModelTrainer
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 SHAPE = (40, 36, 44)   # 8 patches of 32^3
 SPLIT = {"train": ["sub-01"], "val": ["sub-02"], "test": ["sub-03"]}
 SETTINGS = dict(patch_size=32, feature_size=4, project_size=16,
@@ -216,9 +220,13 @@ def test_cli_trains_and_resume_appends_an_epoch(data_dir, tmp_path,
 
 
 def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, monkeypatch):
-    """--emission_tracking (ROADMAP A6), a model type the factory does not
-    know (its ValueError: every type of the JAX factory is ported), and a
-    data mesh over several cards (ROADMAP A8) raise before any training."""
+    """--emission_tracking (ROADMAP A6) and a model type the factory does
+    not know (its ValueError: every type of the JAX factory is ported)
+    raise before any training; `mesh_size` resolves --devices as the JAX
+    trainer does (the visible cards at most; on the CPU N gloo ranks, -1
+    one process); and a data mesh that cannot start raises instead of
+    training on one card: four cards asked for where none can be used,
+    and a trainer of mesh_data 2 outside a process group."""
     common = ["--data_dir", data_dir, "--split_file",
               os.path.join(data_dir, "split.txt"), "--splits", "train",
               "val", "--save_dir", str(tmp_path)]
@@ -232,7 +240,13 @@ def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, monkeypatch):
     assert cli_train.mesh_size(-1, torch.device("cuda")) == 4
     assert cli_train.mesh_size(1, torch.device("cuda")) == 1
     assert cli_train.mesh_size(-1, torch.device("cpu")) == 1
-    with pytest.raises(NotImplementedError, match="A8"):
+    assert cli_train.mesh_size(3, torch.device("cpu")) == 3
+    with pytest.raises(RuntimeError):
         cli_train.main(common)
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(RuntimeError):
         cli_train.main(common + ["--devices", "2"])
+    monkeypatch.undo()
+    params = get_default_params()
+    params.update(SETTINGS, mesh_data=2)
+    with pytest.raises(RuntimeError, match="process group"):
+        ModelTrainer(params, device="cpu", verbose=False)

@@ -54,6 +54,10 @@ from fcd_tpu_torch.train.trainer import (
     entry_dtype_for,
 )
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 F16 = torch.float16
 CUDA = torch.device("cuda")
 B5_REL = 2e-3       # measured 0 and 3.34e-4

@@ -44,6 +44,10 @@ from fcd_tpu_torch.models.factory import get_model
 from fcd_tpu_torch.train.trainer import ModelTrainer, compute_dtype_for
 from tests.test_torch_parity import randomize_batch_stats, randomize_params
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 F32 = torch.float32
 IMG = (32, 64, 64)   # C4: level 6 is 1x2x2
 

@@ -51,6 +51,10 @@ from tests.test_torch_port_optim import (
     small_variables,
 )
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 CUDA = torch.device("cuda")
 CPU = torch.device("cpu")
 

@@ -17,6 +17,10 @@ import chip_smoke
 from fcd_tpu_torch.kernels import finale as k2
 from fcd_tpu_torch.kernels.finale_sweep import BATCH, STEP_CALLS
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 SMEM_MAX = 232448     # bytes a block can use on an H100
 # the step's calls at batch 4, then ragged grids (pooled grids must be even)
 CALLS = ([(b, g, g, g, c, mode) for _, g, c, mode, _ in STEP_CALLS

@@ -57,6 +57,10 @@ from fcd_tpu_torch.kernels.upsample import upsample2x_plain
 from fcd_tpu_torch.ops.blocks import UnetResBlock
 from fcd_tpu_torch.train.trainer import ModelTrainer
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 BF = torch.bfloat16
 
 

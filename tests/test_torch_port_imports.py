@@ -21,6 +21,10 @@ import torch
 
 import fcd_tpu_torch
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "flax", "optax", "msgpack", "pandas", "wandb", "fcd_tpu",
              "triton")
@@ -41,7 +45,8 @@ def test_import_leaves_jax_and_triton_out():
               "train.state", "data.sampling", "data.dataset", "data.augment",
               "metrics", "metrics.voxel", "metrics.lesion",
               "metrics.surface_distance", "metrics.mc_tables",
-              "metrics._mc_tri_table", "cli.train", "models.unetr_pp"):
+              "metrics._mc_tri_table", "cli.train", "models.unetr_pp",
+              "parallel", "parallel.mesh", "parallel.dp", "parallel.sw"):
         assert f"fcd_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -25,6 +25,10 @@ from fcd_tpu_torch.kernels.pool import finale_pool
 from fcd_tpu_torch.kernels.upsample import upsample2x
 from fcd_tpu_torch.ops.blocks import UnetResBlock
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 torch.set_grad_enabled(False)
 
 

@@ -31,6 +31,10 @@ from fcd_tpu_torch.config import get_default_params
 from fcd_tpu_torch.losses import dice, extras
 from fcd_tpu_torch.losses.combined import make_combined_loss
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 SHAPE = (3, 6, 8, 10)   # B, D, H, W
 MAIN = ["DiceLoss", "DiceCELoss", "DiceFocalLoss", "GeneralizedDiceLoss",
         "GeneralizedDiceFocalLoss"]

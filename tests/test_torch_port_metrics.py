@@ -16,6 +16,10 @@ from scipy import ndimage
 import fcd_tpu.metrics as jm
 import fcd_tpu_torch.metrics as tm
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 
 def _same(got, want):
     """Equal numbers (NaN with NaN), recursively through dicts, lists and

@@ -24,6 +24,10 @@ from fcd_tpu_torch.ops.attention import TransformerBlock
 from fcd_tpu_torch.ops.blocks import UnetResBlock, UnetrUpBlock
 from tests.test_torch_parity import randomize_batch_stats, randomize_params
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 torch.set_grad_enabled(False)
 
 

@@ -54,6 +54,10 @@ from fcd_tpu_torch.train.state import (
 )
 from tests.test_torch_parity import randomize_batch_stats
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 IMG = (32, 64, 64)
 TV = {"loss": "DiceCELoss", "tv_loss_weight": 0.1,
       "tvloss_exclude_borders": True}

@@ -26,6 +26,10 @@ from fcd_tpu_torch.kernels.pool2x import (
     pool2x_bwd_plan,
 )
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 STEP_SHAPES = [(4, 128, 128, 128, 16), (4, 64, 64, 64, 32)]
 RAGGED = [(1, 2, 2, 2, 1), (3, 6, 10, 4, 24), (2, 4, 6, 8, 6),
           (1, 4, 4, 4, 5)]

@@ -16,6 +16,10 @@ import torch
 
 from fcd_tpu_torch.kernels import spatial_attn as sa
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 torch.set_grad_enabled(False)
 
 # (N, C, P) of the four levels (4 heads), ragged N, and the levels of a

@@ -18,6 +18,10 @@ from fcd_tpu_torch.config import get_default_params
 from fcd_tpu_torch.infer import sliding_window as tsw
 from fcd_tpu_torch.train.trainer import ModelTrainer
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 torch.set_grad_enabled(False)
 
 

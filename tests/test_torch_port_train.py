@@ -70,6 +70,10 @@ from fcd_tpu_torch.train.state import make_optimizer, make_train_step, set_lr
 from fcd_tpu_torch.train.trainer import ModelTrainer
 from tests.test_torch_parity import randomize_batch_stats, randomize_params
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 
 @pytest.fixture(autouse=True)
 def _grad_enabled():

@@ -43,6 +43,10 @@ from fcd_tpu_torch.kernels.block_conv import conv3x3_op
 from fcd_tpu_torch.kernels.finale import finale_bwd_plain, finale_grads_plain
 from fcd_tpu_torch.ops.layers import instance_affine_from_sums
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 BF = torch.bfloat16
 
 

@@ -40,6 +40,10 @@ from fcd_tpu_torch.ops.attention import ChannelDropout3d, EPABlock
 from fcd_tpu_torch.train.state import make_optimizer, make_train_step
 from tests.test_torch_parity import randomize_batch_stats, randomize_params
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 PATCH = 64
 FS = 4
 

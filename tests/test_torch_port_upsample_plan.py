@@ -44,6 +44,10 @@ from fcd_tpu_torch.kernels.upsample import (
 )
 from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 torch.set_grad_enabled(False)
 
 

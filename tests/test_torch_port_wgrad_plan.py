@@ -28,6 +28,10 @@ from fcd_tpu_torch.kernels.conv_wgrad import (
 )
 from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 
 def main_path_calls(batch=4, patch=128, fs=16):
     """(b, d, h, w, ci, co) of every K1 call of one train step, read off

@@ -30,6 +30,10 @@ from fcd_tpu_torch.models.factory import get_model
 from fcd_tpu_torch.ops.layers import UpSample, max_pool_2x_chain
 from tests.test_torch_parity import randomize_batch_stats, randomize_params
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 torch.set_grad_enabled(False)
 
 PATCH = 32

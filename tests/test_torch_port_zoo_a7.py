@@ -65,6 +65,10 @@ from fcd_tpu_torch.ops.layers import (
 )
 from tests.test_torch_parity import randomize_batch_stats, randomize_params
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 PATCH = 64
 MODELS = ("UNet", "VNet", "UNETR", "SwinUNETR")
 UNET_CHANNELS = (4, 8, 16, 32, 64, 128)

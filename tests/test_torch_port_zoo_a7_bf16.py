@@ -42,6 +42,10 @@ from tests.test_torch_port_zoo_a7 import (
     _rel_l2,
 )
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 BF16_MARGIN = 1.5
 _RUNS = {}
 

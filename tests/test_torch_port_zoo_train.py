@@ -34,6 +34,10 @@ from fcd_tpu_torch.models.segresnet_dsa import SegResNet_DSA, SegResNetVAE_DSA
 from fcd_tpu_torch.train.state import make_optimizer, make_train_step
 from tests.test_torch_parity import randomize_batch_stats
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 IMG = (32, 32, 32)
 # the VAE branch's instance norms run on the grid of patch / 16: 2^3 at
 # 32^3 amplifies f32 rounding in the gradients (ROADMAP C10), 4^3 at 64^3

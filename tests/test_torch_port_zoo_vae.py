@@ -13,6 +13,10 @@ import torch
 
 from tests.test_torch_port_zoo_train import check_train_step
 
+import torch_port_workers
+
+torch_port_workers.share_cores()
+
 
 def test_segresnetvae_dsa_train_step_matches_jax(monkeypatch):
     with torch.enable_grad():
