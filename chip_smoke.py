@@ -92,7 +92,9 @@ Run from the repository root:
    post-processing; the counters set to 0 just before and read just
    after, split by phase and held to the per-step and per-volume counts;
    seconds per epoch and phase and the test metrics printed; then a
-   resume to 3 epochs.
+   resume to 3 epochs. `--emission_tracking` is on: the run's
+   train_emission.csv must hold the JAX package's columns and the card's
+   power limit as its envelope.
 9. Drives SegResNet_DSA (fs16, P 64, 4 heads, 'parallel', pixelshuffle,
    bf16; B1, K1, B2, K2, B5, K3/K4) through the same entry points:
    ModelTrainer.inference on the seeded volume (launches per patch and
@@ -153,7 +155,24 @@ Run from the repository root:
    step, two DP steps bit-equal; then rank 0 alone over NCCL, every result
    bit-equal to the single-rank path. `python3 chip_smoke.py --mesh` runs
    this phase alone (no result line).
-15. Prints the seconds from start to the result, the `kernels` JSON line,
+15. Drives the model axis (`parallel/tp.py`, `tp_run`, after the mesh):
+   two gloo ranks on the card as a (1, 2) ("data", "model") mesh, the
+   default MS_DSA_NET (fs16, P 64, bf16, the kernel route) sharded by the
+   Megatron pairing. Each rank's TP eval forward of one 128^3 patch
+   against the one-card forward (the patch tolerances), and one TP train
+   step at 1 x 128^3 against the one-card step (the loss within 1e-3, the
+   gathered gradients by the group rule against a nudged one-card step),
+   each with the counters set to 0 just before and read just after (B1's
+   partial instance and the finishing pass at the 35 row-parallel convs,
+   B1 at the rest); every parameter the same bits on both ranks after the
+   step; ms/patch and ms/step of a second call printed. B1's partial
+   instance and the finishing pass are held to their plain versions, and
+   B1, K1, B4 at the shard widths, among the kernel phases (1.;
+   `tp_width_phases`). `python3 chip_smoke.py --tp` runs this phase alone.
+16. Counts the default model's forward FLOPs at its patch
+   (`utils/profiling.py::get_model_flops`, on the CPU) and prints a
+   StepTimer's ms and MFU over patch forwards on the card.
+17. Prints the seconds from start to the result, the `kernels` JSON line,
    the card line, and last {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -166,15 +185,18 @@ checkout of the repository, it exits non-zero and prints no result.
     python3 chip_smoke.py --kernels max_pool2x_bwd
     python3 chip_smoke.py --kernels dsa_phase_a_f32,spatial_attn_fwd_f32
     python3 chip_smoke.py --kernels zoo_widths
+    python3 chip_smoke.py --kernels tp_widths
 
 builds the kernels and runs only the named kernels' phases (checks and
-times; no main path and no result line); `--mesh` the mesh phase alone.
+times; no main path and no result line); `--mesh` the mesh phase alone,
+`--tp` the TP phase alone.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import json
 import math
 import os
@@ -1077,6 +1099,117 @@ def zoo_width_phases(dev, gen, small=False):
     ]
 
 
+PEAK_F32 = 67e12   # H100 SXM float32 outside the tensor cores
+
+
+def partial_phase(label, dev, gen, grid, c, cout, *, prologue=True,
+                  iters=20):
+    """B1's partial instance (tensor parallelism's row-parallel conv) at
+    one shard width: c of the input channels into the whole cout, f32
+    out. Against its plain version (f32 products of the bf16 operands:
+    only the order of the sums differs), two calls bit-equal; the
+    yardstick is cuDNN's bf16 conv of the same slice."""
+    import torch
+    import torch.nn.functional as F
+
+    from fcd_tpu_torch.kernels.block_conv import (
+        conv3x3_partial,
+        conv3x3_partial_plain,
+    )
+
+    bf = torch.bfloat16
+    nvox = grid[0] * grid[1] * grid[2]
+    x = _randn((1, *grid, c), gen, dev, dtype=bf)
+    w = _randn((3, 3, 3, c, cout), gen, dev, (2.0 / (27 * cout)) ** 0.5, bf)
+    pro = None
+    if prologue:
+        pro = (torch.rand((1, c), generator=gen, device=dev) + 0.5,
+               _randn((1, c), gen, dev, 0.1), 0.01)
+    ph = Phase("conv3d_partial", label, 2 * nvox * 27 * c * cout,
+               2 * nvox * c + 2 * 27 * c * cout + 4 * nvox * cout)
+    got = conv3x3_partial(x, w, pro)
+    ph.check("y (f32)", got, conv3x3_partial_plain(x, w, pro), 1e-4)
+    check_repeatable(ph, [got], [conv3x3_partial(x, w, pro)])
+    time_on_device(ph, lambda: conv3x3_partial(x, w, pro), "conv3d_kernel",
+                   iters)
+    ph.plain_ms = timed_ms(lambda: conv3x3_partial_plain(x, w, pro), 2)
+    xin = x.permute(0, 4, 1, 2, 3)
+    wlib = w.permute(4, 3, 0, 1, 2).contiguous(
+        memory_format=torch.channels_last_3d)
+
+    def library():
+        return F.conv3d(xin, wlib, padding=1)
+
+    ph.library_ms = sum(device_times(library, iters).values())
+    ph.library_call_ms = timed_ms(library, iters)
+    ph.report()
+    return ph
+
+
+def finish_phase(label, dev, gen, grid, c, iters=20):
+    """The finishing pass at one shape: an f32 sum rounded to bf16, with
+    its per-(b, c) sums. y bit-equal to the plain version's (the same
+    round to nearest), the sums within f32 rounding, two calls bit-equal.
+    No one library call computes the three outputs (null)."""
+    import torch
+
+    from fcd_tpu_torch.kernels.conv_finish import (
+        conv_finish,
+        conv_finish_plain,
+    )
+
+    n = grid[0] * grid[1] * grid[2] * c
+    s = _randn((1, *grid, c), gen, dev) + 0.3
+    ph = Phase("conv_finish", label, 3 * n, 6 * n + 8 * c, peak=PEAK_F32)
+    got = conv_finish(s)
+    want = conv_finish_plain(s, torch.bfloat16)
+    ph.check_equal("y", got[0], want[0])
+    ph.check("sums", torch.stack(got[1:]), torch.stack(want[1:]), 1e-5)
+    check_repeatable(ph, got, conv_finish(s))
+    time_on_device(ph, lambda: conv_finish(s), "conv_finish_kernel", iters)
+    ph.plain_ms = timed_ms(lambda: conv_finish_plain(s, torch.bfloat16),
+                           iters)
+    ph.report()
+    return ph
+
+
+def tp_width_phases(dev, gen, small=False):
+    """The kernels of the tensor-parallel patch at MS_DSA_NET fs16 over a
+    model axis of 2 (`tp_run`): B1's partial instance and the finishing
+    pass at the row-parallel convs' shapes (enc1's conv2, the level-3
+    transformers' conv1, enc6's conv2), and B1, K1 and B4 at the shard
+    widths (conv1 and the shortcut with half the output channels; conv2's
+    data gradient into half the input channels and its weight gradient on
+    them; the up-blocks' transposed conv with half the outputs)."""
+    s = (lambda *g: tuple(max(2, v // 16) for v in g)) if small else \
+        (lambda *g: g)
+    return [
+        partial_phase("enc1.conv2 128^3x8->16 +prologue", dev, gen,
+                      s(128, 128, 128), 8, 16),
+        partial_phase("level3 tb.conv1 32^3x16->32", dev, gen,
+                      s(32, 32, 32), 16, 32, prologue=False),
+        partial_phase("enc6.conv2 4^3x256->512 +prologue", dev, gen,
+                      (4, 4, 4), 256, 512),
+        finish_phase("enc1 1x128^3x16", dev, gen, s(128, 128, 128), 16),
+        finish_phase("level3 1x32^3x32", dev, gen, s(32, 32, 32), 32),
+        finish_phase("enc6 1x4^3x512", dev, gen, (4, 4, 4), 512),
+        conv_phase("tp enc1.conv1 128^3x2->8 +shortcut+stats", dev, gen,
+                   s(128, 128, 128), [2], 8, shortcut=True),
+        conv_phase("tp dec1.conv1 128^3x(16+16)->8 +shortcut+stats", dev,
+                   gen, s(128, 128, 128), [16, 16], 8, shortcut=True),
+        conv_phase("tp enc1.conv2 dgrad 128^3x16->8", dev, gen,
+                   s(128, 128, 128), [16], 8),
+        wgrad_phase("tp enc1.conv2 1x128^3 8->16 +prologue", dev, gen, 1,
+                    s(128, 128, 128), [8], 16, prologue=True),
+        wgrad_phase("tp enc1.conv1 1x128^3 2->8", dev, gen, 1,
+                    s(128, 128, 128), [2], 8),
+        upsample_phase("tp dec1 1x64^3x32->128^3x8", dev, gen, 1,
+                       s(64, 64, 64), 32, 8),
+        upsample_phase("tp dec5 1x4^3x256->8^3x64", dev, gen, 1, (4, 4, 4),
+                       256, 64),
+    ]
+
+
 def pool2x_phase(label, dev, gen, batch, grid, c, iters=10):
     """B3 at one shape, bit-equal to its plain version (a max is exact),
     timed by the device time of one call (its library call alike)."""
@@ -1523,6 +1656,7 @@ def kernel_phases(dev, gen, small: bool = False):
     phases += pool2x_bwd_phases(dev, gen, small)
     phases.append(finale_head_phase("dec1 1x128^3x16 -> 2", dev, gen,
                                     s(128, 128, 128), 16, 2))
+    phases += tp_width_phases(dev, gen, small)
     return phases
 
 
@@ -1531,6 +1665,7 @@ def kernel_phases(dev, gen, small: bool = False):
 def counters():
     from fcd_tpu_torch.kernels import (
         block_conv,
+        conv_finish,
         conv_wgrad,
         dsa_attention,
         finale,
@@ -1561,7 +1696,9 @@ def counters():
             "sw_entry": sw_io.sw_entry, "sw_exit": sw_io.sw_exit,
             "max_pool2x": pool2x.max_pool2x,
             "max_pool2x_bwd": pool2x.max_pool2x_bwd,
-            "finale_head": finale_head.finale_head}
+            "finale_head": finale_head.finale_head,
+            "conv3d_partial": block_conv.conv3x3_partial,
+            "conv_finish": conv_finish.conv_finish}
 
 
 def reset_counts():
@@ -1583,7 +1720,8 @@ PER_PATCH = {"conv3d": 46, "conv3d_wgrad": 0, "finale_pool": 23,
              "spatial_attn_fwd_f32": 0, "spatial_attn_bwd_f32": 0,
              "spatial_attn_fwd_f16": 0, "spatial_attn_bwd_f16": 0,
              "sw_entry": 0, "sw_exit": 0, "max_pool2x": 0,
-             "max_pool2x_bwd": 0, "finale_head": 0}
+             "max_pool2x_bwd": 0, "finale_head": 0,
+             "conv3d_partial": 0, "conv_finish": 0}
 # and per volume: the engine's entry and exit
 PER_VOLUME = {"sw_entry": 1, "sw_exit": 1}
 
@@ -2255,7 +2393,8 @@ def train_cli_run(dev, card, kwargs=TRAIN_CLI_KWARGS, device=None,
     split = write_train_set(data, params, shape)
     out = os.path.join(root, "runs")
     argv = ["--data_dir", data, "--split_file", split, "--splits", "train",
-            "val", "test", "--save_dir", out, "--prefix", "smoke"]
+            "val", "test", "--save_dir", out, "--prefix", "smoke",
+            "--emission_tracking"]
     argv += ["--device", str(device)] if device is not None else []
 
     # launch counts by phase, and the augmentation's draws, read around the
@@ -2344,6 +2483,17 @@ def train_cli_run(dev, card, kwargs=TRAIN_CLI_KWARGS, device=None,
     if not ok:
         raise AssertionError("train_cli: the CSV, the losses or the "
                              "checkpoints are not as expected")
+    # --emission_tracking: the JAX columns, the card's power limit
+    with open(os.path.join(run_dir, "train_emission.csv")) as f:
+        emission = list(csv.reader(f))
+    envelope = ("power.limit of" if dev.type == "cuda" else "cpu envelope")
+    ok = (len(emission) == 2 and emission[0][3] == "assumed_device_power_w"
+          and envelope in emission[1][-1])
+    print(f"  train_emission.csv: {dict(zip(emission[0], emission[1]))} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("train_cli: the emissions CSV is not as "
+                             "expected")
     if not resume:
         return launches
     resume = argv[:argv.index("--splits")] + [
@@ -3574,6 +3724,267 @@ def mesh_run(card, small=False) -> dict:
     return by_path
 
 
+# -- the model axis (tensor parallelism) ---------------------------------------
+
+TP_SHAPE = (1, 2)      # (data, model): two gloo ranks on the one card
+TP_BATCH = 1           # one 128^3 patch: a level-1 f32 partial is 128 MiB
+# the row-parallel 3x3x3 convs of MS_DSA_NET: every res block's conv2 (6
+# encoders, 12 transformer conv blocks, 5 decoders) and the transformers'
+# conv1, which run B1's partial instance and the finishing pass in B1's
+# place
+TP_ROW_CONVS = 23 + 12
+# The TP step against the one-card step: both bf16 on the kernel route,
+# the same seeds, so the nudged one-card step (x (1 + MESH_NUDGE)) is the
+# control. The loss within TP_LOSS_MARGIN times its distance (at least
+# TP_LOSS_FLOOR). The rel-L2/cosine group rule cannot see a scaled
+# gradient where bf16 chaos is large (rel-L2 0.2-0.5 in the deep groups),
+# so each group's gradient norm is held too: |log(|g_tp| / |g_one|)|
+# within GROUP_MARGIN times the nudged step's spread (the largest such
+# log-ratio over the groups) plus MESH_GRAD_FLOOR; a gradient scaled by k
+# reads |log k|.
+TP_LOSS_MARGIN = 3.0
+TP_LOSS_FLOOR = 1e-5
+
+
+def _grad_norms(model, groups=_groups) -> dict:
+    """{group: the L2 norm of its gradients}, on the CPU."""
+    import torch
+
+    return {key: float(torch.cat([p.grad.float().cpu().ravel()
+                                  for p in ps]).norm())
+            for key, ps in groups(model).items()}
+
+
+def norm_rule(norms, ref, nudged):
+    """(ok, spread, {group: log-ratio}): each group's gradient norm against
+    the one-card step's (`ref`), within GROUP_MARGIN times the nudged
+    step's spread plus MESH_GRAD_FLOOR (groups whose norm is 0 in `ref`
+    left out)."""
+    keys = [k for k in ref if ref[k] > 0]
+    logs = {k: math.log(norms[k] / ref[k]) if norms[k] > 0 else math.inf
+            for k in keys}
+    spread = max(abs(math.log(nudged[k] / ref[k])) for k in keys)
+    ok = all(abs(v) <= GROUP_MARGIN * spread + MESH_GRAD_FLOOR
+             for v in logs.values())
+    return ok, spread, logs
+
+
+def tp_counts(per: dict) -> dict:
+    """Launch counts of a patch forward or a train step under TP_SHAPE:
+    `per`'s, the row-parallel convs moved from B1 to its split."""
+    out = dict(per)
+    out["conv3d"] -= TP_ROW_CONVS
+    out["conv3d_partial"] = out["conv_finish"] = TP_ROW_CONVS
+    return out
+
+
+def _digests(model) -> list:
+    import hashlib
+
+    return [hashlib.sha1(p.detach().float().cpu().numpy().tobytes())
+            .hexdigest() for p in model.parameters()]
+
+
+def tp_rank(small: bool = False) -> dict:
+    """One rank of the TP phase (`parallel.mesh.launch` over gloo, both
+    ranks on the one card, a (1, 2) ("data", "model") mesh): MS_DSA_NET at
+    full width (fs16, project 64, bf16, the kernel route) sharded by
+    `parallel.tp` from the same state as a one-card trainer's. The TP eval
+    forward of one 128^3 patch against the one-card forward, and one TP
+    train step (DiceCE, AdamW, dropout on, the trainer's seeds) against
+    the one-card step, its gradients gathered and held by group against
+    the one-card step's own distance under a nudged input; the launch
+    counts of the forward and the step, every parameter's digest after the
+    step (the same on both ranks), and the ms of a second forward and a
+    second step of each. `small`: fs4 / patch 32 on the CPU."""
+    import torch
+
+    from fcd_tpu_torch.parallel import tp
+    from fcd_tpu_torch.train.schedule import epoch_lr
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+
+    card = torch.cuda.is_available() and not small
+    dev = (torch.device("cuda", torch.cuda.current_device()) if card
+           else torch.device("cpu"))
+    mesh = tp.make_tp_mesh(*TP_SHAPE, device=dev)
+    params = train_params(**({"patch_size": 32} if small else {}))
+    params.update(MESH_SMALL if small else {})
+
+    def trainer():
+        tr = ModelTrainer(dict(params, mesh_data=1), device=dev,
+                          verbose=False)
+        redraw_attention(tr.model, SEED + 1)
+        return tr
+
+    alone, sharded, nudged = trainer(), trainer(), trainer()
+    x, y = train_batch(dev, TP_BATCH, params["patch_size"],
+                       params["chans_in"])
+    lr = epoch_lr(params, params["warmup_epochs"])
+    out = {"rank": mesh.model.rank}
+
+    def clock(fn):
+        sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        return res, (time.perf_counter() - t0) * 1e3
+
+    def tp_forward():
+        with tp.model_parallel(sharded.model):
+            return sharded.model(x)
+
+    # -- the eval forward -----------------------------------------------------
+    tp.shard_variables_tp(sharded.model, mesh)
+    with torch.no_grad():
+        want, _ = clock(lambda: alone.model(x))
+        reset_counts()
+        got, out["first_fwd_ms"] = clock(tp_forward)
+        out["fwd_counts"] = read_counts()
+        _, out["fwd_ms"] = clock(tp_forward)
+        _, out["single_fwd_ms"] = clock(lambda: alone.model(x))
+    out["fwd_rel"] = float((got.float() - want.float()).abs().max()
+                           / want.float().abs().max())
+    out["fwd_agree"] = float((got.argmax(-1) == want.argmax(-1))
+                             .float().mean())
+    out["fwd_finite"] = bool(torch.isfinite(got).all())
+    del got, want
+    # -- one train step -------------------------------------------------------
+    tp.gather_tp_state(sharded.model)
+    sharded._train_setup()
+    tp.shard_state_tp(sharded.model, mesh, sharded.optimizer)
+    sharded._step_fn = tp.make_tp_train_step(
+        sharded.model, sharded.loss_fn, sharded.optimizer, mesh)
+    with torch.enable_grad():
+        reset_counts()
+        loss, out["first_step_ms"] = clock(
+            lambda: sharded.train_step(x, y, lr))
+        out["step_counts"] = read_counts()
+        single = alone.train_step(x, y, lr)
+        nudge = nudged.train_step(x * (1 + MESH_NUDGE), y, lr)
+    tp.gather_tp_state(sharded.model, sharded.optimizer)
+    out["loss"], out["single_loss"] = float(loss), float(single)
+    out["nudged_loss"] = float(nudge)
+    out["grads"] = _grad_distance(sharded.model, alone.model)
+    out["ref_grads"] = _grad_distance(nudged.model, alone.model)
+    out["norms"], out["single_norms"], out["nudged_norms"] = (
+        _grad_norms(tr.model) for tr in (sharded, alone, nudged))
+    out["digests"] = _digests(sharded.model)
+    # the second step of each: ms/step
+    tp.shard_state_tp(sharded.model, mesh, sharded.optimizer)
+    with torch.enable_grad():
+        _, out["step_ms"] = clock(lambda: sharded.train_step(x, y, lr))
+        _, out["single_step_ms"] = clock(lambda: alone.train_step(x, y, lr))
+    return out
+
+
+def tp_run(card, small=False) -> dict:
+    """The TP phase (`tp_rank` on two gloo ranks on the one card); fails
+    unless every check holds. Returns each rank's launch counts by path."""
+    from fcd_tpu_torch.parallel.mesh import launch
+
+    n = TP_SHAPE[0] * TP_SHAPE[1]
+    t0 = time.perf_counter()
+    ranks = launch(tp_rank, n, small, backend="gloo",
+                   **({"device_type": "cpu", "threads": 2} if small else
+                      {"device_type": "cuda", "devices": ["cuda:0"] * n}))
+    failures, by_path = [], {}
+    fwd_want = tp_counts(PER_PATCH)
+    step_want = tp_counts(per_train_step())
+    for r in ranks:
+        who = f"model rank {r['rank']} of {n}"
+        rel = abs(r["loss"] - r["single_loss"]) / abs(r["single_loss"])
+        nudged = abs(r["nudged_loss"] - r["single_loss"]) / abs(
+            r["single_loss"])
+        good, lines = group_rule(
+            {k: v for k, v in r["grads"].items() if not math.isnan(v[0])},
+            r["ref_grads"], floor=MESH_GRAD_FLOOR)
+        loss_tol = max(TP_LOSS_MARGIN * nudged, TP_LOSS_FLOOR)
+        norms_ok, spread, logs = norm_rule(r["norms"], r["single_norms"],
+                                           r["nudged_norms"])
+        print(f"tp ({who}, gloo, batch {TP_BATCH}x"
+              f"{'32' if small else '128'}^3): forward "
+              f"{r['fwd_ms']:.1f} ms/patch (the first {r['first_fwd_ms']:.1f};"
+              f" one card {r['single_fwd_ms']:.1f}), rel {r['fwd_rel']:.3e} "
+              f"(tol {PATCH_REL_TOL}), argmax agree {r['fwd_agree']:.6f}; "
+              f"step {r['step_ms']:.1f} ms/step (the first "
+              f"{r['first_step_ms']:.1f}; one card "
+              f"{r['single_step_ms']:.1f}), loss {r['loss']:.7f} vs "
+              f"{r['single_loss']:.7f} rel {rel:.2e} (tol {loss_tol:.2e}: "
+              f"{TP_LOSS_MARGIN}x the nudged one-card step's {nudged:.2e}, "
+              f"at least {TP_LOSS_FLOOR}), grads per group within "
+              f"{GROUP_MARGIN}x the nudged step's distance + "
+              f"{MESH_GRAD_FLOOR:.2e} {good}, gradient norms within "
+              f"{GROUP_MARGIN}x the nudged step's spread {spread:.2e} + "
+              f"{MESH_GRAD_FLOOR:.2e} {norms_ok}", flush=True)
+        print("  grads rel-L2/cosine per group, TP vs one card (the nudged "
+              "one-card step): " + ", ".join(
+                  line.replace("bf16 CPU ", "") for line in lines),
+              flush=True)
+        print("  grad norm log-ratio per group, TP / one card: " + ", ".join(
+            f"{k} {v:+.2e}" for k, v in logs.items()), flush=True)
+        checks = {
+            "finite forward": r["fwd_finite"],
+            "forward": (r["fwd_rel"] <= PATCH_REL_TOL
+                        and r["fwd_agree"] >= PATCH_ARGMAX_AGREE),
+            "loss": rel <= loss_tol,
+            "grads": good,
+            "grad norms": norms_ok,
+            "state equal on every rank": r["digests"] == ranks[0]["digests"],
+        }
+        if not small:
+            print(f"  launches: forward {r['fwd_counts']}, step "
+                  f"{r['step_counts']}", flush=True)
+            checks["forward launches"] = r["fwd_counts"] == fwd_want
+            checks["step launches"] = r["step_counts"] == step_want
+            by_path[f"tp forward, {who}"] = r["fwd_counts"]
+            by_path[f"tp step, {who}"] = r["step_counts"]
+        failures += [f"{who}: {k}" for k, ok in checks.items() if not ok]
+    print(f"tp: {time.perf_counter() - t0:.1f} s on {card}", flush=True)
+    if failures:
+        raise AssertionError(f"tp checks failed: {failures}")
+    return by_path
+
+
+def a6_run(dev, card, params=None) -> None:
+    """`utils/profiling.py` on the card: the default model's (or
+    `params`') forward FLOPs at its patch (`get_model_flops`, counted on
+    the CPU) and a StepTimer's ms and MFU over patch forwards on the
+    card."""
+    import torch
+
+    from fcd_tpu_torch.config import get_default_params
+    from fcd_tpu_torch.train.trainer import ModelTrainer
+    from fcd_tpu_torch.utils.profiling import (
+        StepTimer,
+        device_peak_flops,
+        get_model_flops,
+    )
+
+    params = params or get_default_params()
+    tr = ModelTrainer(params, device=dev, verbose=False)
+    t0 = time.perf_counter()
+    flops, n_params = get_model_flops(tr.model, params)
+    count_s = time.perf_counter() - t0
+    x = torch.rand((1, *(params["patch_size"],) * 3, params["chans_in"]),
+                   device=dev)
+    timer = StepTimer(flops, device=dev)
+    tr.predict(x)
+    for _ in range(5):
+        timer.start()
+        tr.predict(x)
+        timer.stop()
+    s = timer.summary()
+    print(f"profiling: {params['model_type']} fs{params['feature_size']}, "
+          f"{n_params} parameters, {flops:.4e} forward FLOPs a "
+          f"{params['patch_size']}^3 patch (FlopCounterMode, counted on the "
+          f"CPU in {count_s:.1f} s); StepTimer over 5 patch forwards: "
+          f"{s['mean_step_s'] * 1e3:.3f} ms, MFU {s['mfu']:.4f} of "
+          f"{device_peak_flops(dev) / 1e12:.0f} TFLOP/s on {card}",
+          flush=True)
+    if not (flops > 0 and 0 < s["mfu"] < 1):
+        raise AssertionError(f"profiling: FLOPs {flops}, MFU {s['mfu']}")
+
+
 def _sass_functions(lib, pick) -> dict:
     """{function: tensor-core instructions (HMMA, HGMMA, IMMA)} of the
     functions of library `lib` that `pick` takes, from its SASS."""
@@ -3647,6 +4058,7 @@ def kernels_json(phases, by_path):
     """by_path: {path: launch counts of that path's run}; `launches` sums
     the paths, `launches_by_path` keeps them apart."""
     import fcd_tpu_torch.kernels.block_conv as b1
+    import fcd_tpu_torch.kernels.conv_finish as fin
     import fcd_tpu_torch.kernels.conv_wgrad as k1
     import fcd_tpu_torch.kernels.dsa_attention as b5
     import fcd_tpu_torch.kernels.finale as k2
@@ -3699,6 +4111,11 @@ def kernels_json(phases, by_path):
                            b3b9.REPLACES_BWD),
         "finale_head": ("cuda", "fcd_tpu_torch/csrc/finale_head.cu",
                         b15.REPLACES),
+        # B1 split around tensor parallelism's all-reduce
+        "conv3d_partial": ("cuda", "fcd_tpu_torch/csrc/conv3d.cu",
+                           b1.REPLACES),
+        "conv_finish": ("cuda", "fcd_tpu_torch/csrc/conv_finish.cu",
+                        fin.REPLACES),
     }
     out = []
     for name, (route, source, replaces) in meta.items():
@@ -3739,7 +4156,8 @@ def kernels_json(phases, by_path):
 # the kernels on the tensor cores: (library, kernel, template arguments,
 # the SASS instruction that must be in it)
 BUILD_REPORTS = {
-    "conv3d": ("conv3d", "conv3d_kernel", ("bn", "mt", "vec"), "HGMMA"),
+    "conv3d": ("conv3d", "conv3d_kernel", ("bn", "mt", "vec", "partial"),
+               "HGMMA"),
     "conv3d_wgrad": ("conv3d_wgrad", "wgrad_mma_kernel", ("mi", "ni"),
                      "HMMA"),
     "upsample2x": ("upsample", "upsample_kernel", ("wm", "wn", "ni"), "HMMA"),
@@ -3770,7 +4188,8 @@ ONLY_PHASES = {"upsample2x": upsample_phases, "sw_exit": sw_io_phases,
                "dsa_phase_b_f16": dsa_f16_phases,
                "spatial_attn_fwd_f16": spatial_attn_f16_levels,
                "spatial_attn_bwd_f16": spatial_attn_f16_levels,
-               "zoo_widths": zoo_width_phases}
+               "zoo_widths": zoo_width_phases,
+               "tp_widths": tp_width_phases}
 
 
 def elapsed(t_start, what) -> None:
@@ -3791,11 +4210,11 @@ def main(argv=()) -> int:
     import torch
 
     only = []
-    mesh_only = list(argv) == ["--mesh"]
+    mesh_only = list(argv) in (["--mesh"], ["--tp"])
     if argv and not mesh_only:
         if len(argv) != 2 or argv[0] != "--kernels" or not set(
                 argv[1].split(",")) <= set(ONLY_PHASES):
-            print(f"usage: chip_smoke.py [--mesh | --kernels "
+            print(f"usage: chip_smoke.py [--mesh | --tp | --kernels "
                   f"{'|'.join(ONLY_PHASES)}[,...]]", file=sys.stderr)
             return 2
         only = argv[1].split(",")
@@ -3828,7 +4247,7 @@ def main(argv=()) -> int:
     if only:
         return kernels_only(dev, gen, only)
     if mesh_only:
-        mesh_run(card)
+        (mesh_run if argv[0] == "--mesh" else tp_run)(card)
         print(card_line())
         return 0
     elapsed(t_start, "kernel phases")
@@ -3896,6 +4315,12 @@ def main(argv=()) -> int:
     torch.cuda.empty_cache()
     elapsed(t_start, "mesh")
     by_path.update(mesh_run(card))
+    torch.cuda.empty_cache()
+    elapsed(t_start, "tp")
+    by_path.update(tp_run(card))
+    torch.cuda.empty_cache()
+    elapsed(t_start, "profiling")
+    a6_run(dev, card)
     torch.cuda.empty_cache()
     elapsed(t_start, "segresnet_dsa and zoo")
     by_path.update(segresnet_dsa_run(dev, card))

@@ -7,8 +7,9 @@ transforms (NaN scrub, RAS + 1 mm spacing + percentile scale), the
 sliding-window engine on the card, softmax (on the card, before the host
 fetch), the inverse spatial transform back to the native grid, argmax,
 optional post-processing, NIfTI save, and per-subject Dice/IoU with the
-all-zero-GT edge case. `--preprocess` (FSL registration) is not ported yet
-(ROADMAP.md, Queue A6): it needs the FSL binaries.
+all-zero-GT edge case. `--preprocess` runs the FSL registration first
+(`data/fsl.py`, which needs the FSL binaries) into save_dir/preprocessed
+and segments the registered subjects.
 
 The data mesh comes through the trainer's `mesh_data` (`--kwargs
 mesh_data=N`; -1, the default, takes every visible card), as in the JAX
@@ -66,11 +67,14 @@ def run_inference(
     inference, softmax_invert, postprocess, save), the card synchronised
     at each boundary."""
     dev = resolve_device(device)
-    if preprocess:
-        raise NotImplementedError(
-            "--preprocess (FSL registration, fcd_tpu/data/fsl.py) is not "
-            "ported yet: it needs the FSL binaries (ROADMAP.md, Queue A6)")
     os.makedirs(save_dir, exist_ok=True)
+    if preprocess:
+        from fcd_tpu_torch.data.fsl import preprocess_dataset_fsl
+
+        preprocessed = os.path.join(save_dir, "preprocessed")
+        preprocess_dataset_fsl(data_dir, preprocessed,
+                               delete_intermediate_files=True)
+        data_dir = preprocessed
 
     def clock() -> float:
         if timings is not None and dev.type == "cuda":
@@ -166,7 +170,7 @@ def main(argv=None):
     parser.add_argument("--checkpoint_path", type=str, required=True)
     parser.add_argument("--model_type", type=str, default=None)
     parser.add_argument("--preprocess", action="store_true",
-                        help="Run FSL registration first (not ported yet)")
+                        help="Run FSL registration first")
     parser.add_argument("--no_postprocess", action="store_true")
     parser.add_argument("--device", type=str, default=None,
                         help="cuda (the default) or cpu")

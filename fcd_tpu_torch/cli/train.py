@@ -13,8 +13,10 @@ mesh (`parallel/`): the command starts N ranks itself, one a card
 JAX package's mesh does; under torchrun it joins the group that is there.
 On the CPU `--devices N` starts N gloo ranks and -1 stays one process.
 The timestamped save directory is chosen once, before the ranks start.
-Not ported: `--emission_tracking` (ROADMAP Queue A6) raises
-NotImplementedError.
+`--emission_tracking` wraps the training (or the test) in
+`utils/energy.py`'s tracker, on rank 0 under a mesh: the emissions CSV
+(`train_emission.csv` in the run's directory, `test_emission_<stamp>.csv`
+beside the checkpoint) with the card's power limit as its envelope.
 
 Run: python -m fcd_tpu_torch.cli.train --data_dir D --split_file S
 --splits train val test --save_dir O [--device cpu] [--devices N]
@@ -24,6 +26,7 @@ Run: python -m fcd_tpu_torch.cli.train --data_dir D --split_file S
 from __future__ import annotations
 
 import os
+from contextlib import nullcontext
 from datetime import datetime
 from types import SimpleNamespace
 
@@ -36,6 +39,7 @@ from fcd_tpu_torch.data.manifest import read_split_file
 from fcd_tpu_torch.models.factory import get_model
 from fcd_tpu_torch.parallel.mesh import join_env_group, launch, mesh_size
 from fcd_tpu_torch.train.trainer import ModelTrainer
+from fcd_tpu_torch.utils.energy import EmissionsTracker
 
 __all__ = ["main", "mesh_size"]
 
@@ -54,10 +58,6 @@ def main(argv=None, timings=None):
     _, params = get_model(params, return_model=False)
     params["chans_in"] = len(params["seq"].split("+"))
     params["mesh_data"] = int(args.devices)
-    if args.emission_tracking:
-        raise NotImplementedError(
-            "--emission_tracking (fcd_tpu/utils/energy.py) is not ported "
-            "yet (ROADMAP.md, Queue A6)")
     dev = resolve_device(args.device)
     n_mesh = mesh_size(params["mesh_data"], dev)
     if n_mesh > 1 and not join_env_group():
@@ -99,6 +99,17 @@ def _run(args, params, save_dir, timings=None, device=None):
 
     split_dict = read_split_file(args.split_file)
     requested = {s.lower() for s in args.splits}
+    track = args.emission_tracking and (not dist.is_initialized()
+                                        or dist.get_rank() == 0)
+    tracker = None
+
+    def tracked(output_dir, output_file):
+        if not track:
+            return nullcontext()
+        return EmissionsTracker(project_name="fcd_detection",
+                                output_dir=output_dir,
+                                output_file=output_file,
+                                device=str(trainer.device))
 
     if "train" in requested:
         train_subjects = split_dict.get("train", [])
@@ -107,12 +118,20 @@ def _run(args, params, save_dir, timings=None, device=None):
                          if "test" in requested else [])
         os.makedirs(save_dir, exist_ok=True)
         trainer.save_dir = save_dir
-        trainer.train(args.data_dir, train_subjects, val_subjects, save_dir,
-                      test_subjects, resume=args.resume, timings=timings)
+        with tracked(save_dir, "train_emission.csv") as tracker:
+            trainer.train(args.data_dir, train_subjects, val_subjects,
+                          save_dir, test_subjects, resume=args.resume,
+                          timings=timings)
     elif "test" in requested:
         test_subjects = split_dict.get("test", [])
-        trainer.test(args.data_dir, test_subjects, post_process=False)
-        trainer.test(args.data_dir, test_subjects, post_process=True)
+        stamp = datetime.now().strftime("%Y-%m-%d-%H-%M-%S")
+        with tracked(os.path.dirname(args.checkpoint_path),
+                     f"test_emission_{stamp}.csv") as tracker:
+            trainer.test(args.data_dir, test_subjects, post_process=False)
+            trainer.test(args.data_dir, test_subjects, post_process=True)
+    if track and tracker is not None:
+        print(f"\nCarbon emissions from computation: "
+              f"{tracker.final_emissions * 1000:.4f} g CO2eq")
     if ranked:
         return {"save_dir": getattr(trainer, "save_dir", None),
                 "test_metrics": trainer.test_metrics, "timings": timings}

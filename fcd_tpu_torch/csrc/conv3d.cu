@@ -26,6 +26,16 @@
 //
 // Inputs bf16, f32 accumulation, bf16 outputs, f32 statistics.
 //
+// The partial instance (fcd_conv3d_partial, template flag PARTIAL) is the
+// row-parallel conv of tensor parallelism (fcd_tpu/parallel/tp.py): one
+// part, this rank's slice of the input channels, the prologue on that
+// slice. Its result is one addend of the conv, so the epilogue stores the
+// f32 accumulators as they are, takes no statistics and writes no
+// shortcut; the ranks' partials are summed in f32 and csrc/conv_finish.cu
+// then rounds the sum and takes the statistics, at the points where this
+// kernel does on one device. Same products, same loads: only the store
+// differs (8-byte f32 pairs straight from the registers).
+//
 // Design: an implicit GEMM on the tensor cores. M = output voxels, N = cout,
 // K = 27 taps x input channels. A block is two warpgroups and owns a
 // TD x 8 x 8 output tile (TD = 2 or 4) and a BN-wide slice of cout
@@ -104,6 +114,7 @@ struct Params {
   float slope;
   bf16* y;                // (B, D, H, W, cout)
   bf16* r;                // (B, D, H, W, cout) shortcut output, or null
+  float* yf;              // (B, D, H, W, cout) f32 partial (PARTIAL only)
   float* ysum;            // (tiles, B, cout) partial statistics, or null
   float* ysq;
   float* rsum;
@@ -241,7 +252,7 @@ __device__ __forceinline__ float prologue(float v, float sc, float sh,
 // at BN = 16 four blocks share an SM (at most 64 registers a thread): the
 // single-k-step convs of the 128^3 level hide their loads behind the other
 // blocks' products
-template <int BN, int MT, bool VEC>
+template <int BN, int MT, bool VEC, bool PARTIAL>
 __global__ void __launch_bounds__(NT, BN == 16 ? 4 : 1)
     conv3d_kernel(const Params p) {
   constexpr int TD = 2 * MT;
@@ -470,6 +481,32 @@ __global__ void __launch_bounds__(NT, BN == 16 ? 4 : 1)
     __syncthreads();
   };
 
+  if constexpr (PARTIAL) {
+    // the f32 accumulators, two neighbouring columns a store
+    float* ob = p.yf + (size_t)b * nvox * p.cout;
+    const bool pairs = p.cout % 2 == 0;
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int n = n0 + 8 * j + 2 * (lane & 3);
+          if (!row_ok(m, h) || n >= p.cout) continue;
+          const size_t v =
+              ((size_t)(z0 + wg * MT + m) * p.H + y0 + 2 * warp + h) * p.W +
+              x0 + xl;
+          float* o = ob + v * p.cout + n;
+          const float a0 = acc[m][4 * j + 2 * h], a1 = acc[m][4 * j + 2 * h + 1];
+          if (pairs) {
+            *reinterpret_cast<float2*>(o) = make_float2(a0, a1);
+          } else {
+            o[0] = a0;
+            if (n + 1 < p.cout) o[1] = a1;
+          }
+        }
+    return;
+  }
   if (p.ysum != nullptr) stats(acc, p.ysum, p.ysq);
   store(acc, p.y);
   if (want_r) {
@@ -478,7 +515,7 @@ __global__ void __launch_bounds__(NT, BN == 16 ? 4 : 1)
   }
 }
 
-template <int BN, int MT, bool VEC>
+template <int BN, int MT, bool VEC, bool PARTIAL>
 int launch(Params p, int tiles, int ntiles, int B, cudaStream_t s) {
   constexpr int BRICK_BYTES = 2 * (2 * MT + 2) * BH * BW * 16;
   p.stage_bytes = BRICK_BYTES + TAPS * 2 * BN * 16 +
@@ -487,7 +524,7 @@ int launch(Params p, int tiles, int ntiles, int B, cudaStream_t s) {
       p.part[0].nchunk + (p.nparts > 1 ? p.part[1].nchunk : 0);
   // one ring slot where there is one k-step: more blocks fit on an SM
   const int bytes = (nchunks > 1 ? 2 : 1) * p.stage_bytes;
-  auto kern = conv3d_kernel<BN, MT, VEC>;
+  auto kern = conv3d_kernel<BN, MT, VEC, PARTIAL>;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -495,12 +532,28 @@ int launch(Params p, int tiles, int ntiles, int B, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int BN, int MT>
+template <int BN, int MT, bool PARTIAL>
 int launch_c(const Params& p, int tiles, int ntiles, int B, cudaStream_t s) {
   const bool vec = p.part[0].c % 8 == 0 &&
                    (p.nparts < 2 || p.part[1].c % 8 == 0);
-  return vec ? launch<BN, MT, true>(p, tiles, ntiles, B, s)
-             : launch<BN, MT, false>(p, tiles, ntiles, B, s);
+  return vec ? launch<BN, MT, true, PARTIAL>(p, tiles, ntiles, B, s)
+             : launch<BN, MT, false, PARTIAL>(p, tiles, ntiles, B, s);
+}
+
+template <bool PARTIAL>
+int dispatch(Params& p, int td, int bn, int ntz, int nty, int ntx, int B,
+             cudaStream_t s) {
+  p.nty = nty;
+  p.ntx = ntx;
+  const int tiles = ntz * nty * ntx;
+  const int ntiles = (p.cout + bn - 1) / bn;
+  if (td == 4 && bn == 16) return launch_c<16, 2, PARTIAL>(p, tiles, ntiles, B, s);
+  if (td == 4 && bn == 32) return launch_c<32, 2, PARTIAL>(p, tiles, ntiles, B, s);
+  if (td == 4 && bn == 64) return launch_c<64, 2, PARTIAL>(p, tiles, ntiles, B, s);
+  if (td == 2 && bn == 16) return launch_c<16, 1, PARTIAL>(p, tiles, ntiles, B, s);
+  if (td == 2 && bn == 32) return launch_c<32, 1, PARTIAL>(p, tiles, ntiles, B, s);
+  if (td == 2 && bn == 64) return launch_c<64, 1, PARTIAL>(p, tiles, ntiles, B, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -532,20 +585,36 @@ extern "C" int fcd_conv3d(const void* x0, const void* w0, const void* wr0,
   p.ysq = ysq;
   p.rsum = rsum;
   p.rsq = rsq;
+  p.yf = nullptr;
   p.D = D;
   p.H = H;
   p.W = W;
   p.cout = cout;
-  p.nty = nty;
-  p.ntx = ntx;
-  const int tiles = ntz * nty * ntx;
-  const int ntiles = (cout + bn - 1) / bn;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (td == 4 && bn == 16) return launch_c<16, 2>(p, tiles, ntiles, B, s);
-  if (td == 4 && bn == 32) return launch_c<32, 2>(p, tiles, ntiles, B, s);
-  if (td == 4 && bn == 64) return launch_c<64, 2>(p, tiles, ntiles, B, s);
-  if (td == 2 && bn == 16) return launch_c<16, 1>(p, tiles, ntiles, B, s);
-  if (td == 2 && bn == 32) return launch_c<32, 1>(p, tiles, ntiles, B, s);
-  if (td == 2 && bn == 64) return launch_c<64, 1>(p, tiles, ntiles, B, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<false>(p, td, bn, ntz, nty, ntx, B,
+                         static_cast<cudaStream_t>(stream));
+}
+
+// The partial instance: one part (x0, its packed weights, c0 channels),
+// the optional prologue on it, and yf, the f32 (B, D, H, W, cout) result;
+// the tiling as fcd_conv3d's.
+extern "C" int fcd_conv3d_partial(const void* x0, const void* w0, int c0,
+                                  const float* in_scale,
+                                  const float* in_shift, float slope,
+                                  float* yf, int B, int D, int H, int W,
+                                  int cout, int td, int bn, int ntz, int nty,
+                                  int ntx, void* stream) {
+  Params p = {};
+  p.part[0] = {static_cast<const bf16*>(x0), static_cast<const bf16*>(w0),
+               nullptr, c0, (c0 + KC - 1) / KC};
+  p.nparts = 1;
+  p.in_scale = in_scale;
+  p.in_shift = in_shift;
+  p.slope = slope;
+  p.yf = yf;
+  p.D = D;
+  p.H = H;
+  p.W = W;
+  p.cout = cout;
+  return dispatch<true>(p, td, bn, ntz, nty, ntx, B,
+                        static_cast<cudaStream_t>(stream));
 }

@@ -32,7 +32,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fcd_tpu_torch"
 SOURCES = ("conv3d", "conv3d_wgrad", "upsample", "dsa", "dsa_f16", "dsa_f32",
            "spatial_attn", "spatial_attn_f16", "sw_io", "finale_head",
-           "finale_bwd", "pool2x_bwd")
+           "finale_bwd", "pool2x_bwd", "conv_finish")
 # a library built from another library's source with flags of its own:
 # name -> (source, flags)
 VARIANTS = {"dsa_f16": ("dsa", ("-DFCD_F16",)),

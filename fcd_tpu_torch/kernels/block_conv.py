@@ -37,6 +37,21 @@ the training path's conv. Its backward, as `fcd_tpu/ops/s2d_ops.py:
 * with a prologue, its backward in plain PyTorch: the act mask and the
   affine from the saved input, the affine's cotangent as sums over the
   grid (they chain to the statistics that produced the affine).
+
+Tensor parallelism's row-parallel conv (`parallel/tp.py`: conv2 of a res
+block, and the transformers' conv1, hold this rank's slice of the input
+channels) splits B1 around the all-reduce (`ops/blocks.py::
+conv3x3_row_op`, which runs the all-reduce); its two pieces are here:
+
+1. `conv3x3_partial_op`, B1's partial instance (`fcd_conv3d_partial`):
+   the conv of the rank's channel slice, prologue on that slice, f32
+   result, no statistics (its own plain version and launch counter);
+2. `conv_finish_op`, after the f32 all-reduce: `kernels/conv_finish.py`,
+   the sum rounded, and its statistics.
+
+Their backward is `Conv3x3`'s for one part: the statistics' cotangents
+fold into dy on the whole output (the same on every rank), then B1's data
+gradient and K1's weight gradient on the rank's shard of the weight.
 """
 
 from __future__ import annotations
@@ -48,6 +63,7 @@ import torch
 import torch.nn.functional as F
 
 from fcd_tpu_torch.kernels import _build
+from fcd_tpu_torch.kernels.conv_finish import conv_finish
 from fcd_tpu_torch.kernels.conv_wgrad import conv3d_wgrad
 
 REPLACES = "fcd_tpu/kernels/block_conv.py:909"  # _fused8_call (pallas_call :1000)
@@ -273,6 +289,79 @@ def conv3x3(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
 conv3x3.launches = 0
 
 
+_FN_PARTIAL = None
+
+
+def _partial_fn():
+    global _FN_PARTIAL
+    if _FN_PARTIAL is None:
+        fn = _build.load("conv3d").fcd_conv3d_partial
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [vp, vp, ci, vp, vp, ctypes.c_float, vp] + [ci] * 10 \
+            + [vp]
+        fn.restype = ci
+        _FN_PARTIAL = fn
+    return _FN_PARTIAL
+
+
+def conv3x3_partial_plain(x: torch.Tensor, w: torch.Tensor,
+                          prologue: Optional[Prologue] = None
+                          ) -> torch.Tensor:
+    """B1's partial instance in plain PyTorch: `conv3x3_plain`'s conv of
+    one part, left in f32 (no rounding, no statistics)."""
+    xf = x.float()
+    if prologue is not None:
+        scale, shift, slope = prologue
+        xf = xf * scale.float()[:, None, None, None, :] \
+            + shift.float()[:, None, None, None, :]
+        xf = F.leaky_relu(xf, slope).to(x.dtype).float()
+    wf = w.to(x.dtype).float()
+    return F.conv3d(xf.permute(0, 4, 1, 2, 3), wf.permute(4, 3, 0, 1, 2),
+                    padding=1).permute(0, 2, 3, 4, 1).contiguous()
+
+
+def conv3x3_partial(x: torch.Tensor, w: torch.Tensor,
+                    prologue: Optional[Prologue] = None) -> torch.Tensor:
+    """B1's partial instance: the f32 conv of one part (a rank's slice of
+    the input channels), optional prologue; the plain version for a CPU
+    tensor, the kernel for a CUDA one (bf16, contiguous)."""
+    _check_args([x], [w], None, prologue)
+    if x.device.type == "cpu":
+        return conv3x3_partial_plain(x, w, prologue)
+    if x.device.type != "cuda":
+        raise ValueError(f"conv3x3_partial: unsupported device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"conv3x3_partial kernel got {x.dtype} activations"
+                        + _build.BF16_ONLY)
+    if not x.is_contiguous() or (x.shape[-1] % 8 == 0
+                                 and x.data_ptr() % 16):
+        raise ValueError("conv3x3_partial kernel takes a contiguous, "
+                         "16-byte aligned part")
+    b, d, h, wd = x.shape[:4]
+    cout = w.shape[-1]
+    t = conv_tiling(b, d, h, wd, cout)
+    wk = pack_weights(w.to(x.device), t.bn, torch.bfloat16)
+    yf = torch.empty((b, d, h, wd, cout), dtype=torch.float32,
+                     device=x.device)
+    scale = shift = None
+    slope = 0.0
+    if prologue is not None:
+        scale = prologue[0].to(device=x.device,
+                               dtype=torch.float32).contiguous()
+        shift = prologue[1].to(device=x.device,
+                               dtype=torch.float32).contiguous()
+        slope = float(prologue[2])
+    err = _partial_fn()(_build.ptr(x), _build.ptr(wk), x.shape[-1], _build.ptr(scale),
+             _build.ptr(shift), slope, _build.ptr(yf), b, d, h, wd, cout,
+             t.td, t.bn, t.ntz, t.nty, t.ntx, _build.stream())
+    _build.check(err, "conv3d_partial")
+    conv3x3_partial.launches += 1
+    return yf
+
+
+conv3x3_partial.launches = 0
+
+
 def _fold_stats(g, gsum, gsq, y):
     """Cotangent of y with those of its sums folded in (f32)."""
     out = torch.zeros_like(y, dtype=torch.float32) if g is None else g.float()
@@ -286,6 +375,33 @@ def _fold_stats(g, gsum, gsq, y):
 def _adjoint(w: torch.Tensor) -> torch.Tensor:
     """The conv's adjoint kernel: spatially flipped, channels swapped."""
     return torch.flip(w, dims=(0, 1, 2)).transpose(3, 4)
+
+
+def _part_grads(x, w, dy, pro, short, need_x: bool, need_w: bool,
+                need_pro: bool):
+    """(dx, dw, (dscale, dshift)) of one part of the conv for the folded
+    cotangent dy (x's dtype), each None where not needed: dx with B1 on the
+    adjoint kernel (plus the shortcut's (dr, wr) term), the prologue's
+    backward in plain PyTorch, dw with K1."""
+    dx = dw = dpro = None
+    if need_x or need_pro:
+        da = conv3x3([dy], [_adjoint(w)]).y.float()
+        if short is not None:
+            dr, wr = short
+            da = da + torch.matmul(dr, wr.to(dy.dtype).t()).float()
+        if pro is not None:
+            scale = pro[0].float()[:, None, None, None, :]
+            shift = pro[1].float()[:, None, None, None, :]
+            xf = x.float()
+            dt = da * torch.where(xf * scale + shift >= 0, 1.0, pro[2])
+            da = dt * scale
+            dpro = ((dt * xf).sum(dim=(1, 2, 3)).to(pro[0].dtype),
+                    dt.sum(dim=(1, 2, 3)).to(pro[1].dtype))
+        if need_x:
+            dx = da.to(x.dtype)
+    if need_w:
+        dw = conv3d_wgrad(x.contiguous(), dy, pro).reshape(w.shape).to(w.dtype)
+    return dx, dw, dpro
 
 
 class Conv3x3(torch.autograd.Function):
@@ -344,24 +460,13 @@ class Conv3x3(torch.autograd.Function):
         for i, (x, w) in enumerate(zip(parts, weights)):
             pro = (tensors[k], tensors[k + 1], slope) if has_pro and i == 0 \
                 else None
-            need_x = need[i] or (pro is not None and (need[k] or need[k + 1]))
-            if need_x:
-                da = conv3x3([dy], [_adjoint(w)]).y.float()
-                if has_short:
-                    da = da + torch.matmul(dr, shortcut[i].to(dtype).t()).float()
-                if pro is not None:
-                    scale = pro[0].float()[:, None, None, None, :]
-                    shift = pro[1].float()[:, None, None, None, :]
-                    xf = x.float()
-                    dt = da * torch.where(xf * scale + shift >= 0, 1.0, slope)
-                    da = dt * scale
-                    out[k] = (dt * xf).sum(dim=(1, 2, 3)).to(pro[0].dtype)
-                    out[k + 1] = dt.sum(dim=(1, 2, 3)).to(pro[1].dtype)
-                if need[i]:
-                    out[i] = da.to(x.dtype)
-            if need[nparts + i]:
-                dw = conv3d_wgrad(x.contiguous(), dy, pro)
-                out[nparts + i] = dw.reshape(w.shape).to(w.dtype)
+            short = (dr, shortcut[i]) if has_short else None
+            dx, dw, dpro = _part_grads(
+                x, w, dy, pro, short, need[i], need[nparts + i],
+                pro is not None and (need[k] or need[k + 1]))
+            out[i], out[nparts + i] = dx, dw
+            if dpro is not None:
+                out[k], out[k + 1] = dpro
             if has_short and need[2 * nparts + i]:
                 ci, co = x.shape[-1], dr.shape[-1]
                 out[2 * nparts + i] = torch.matmul(
@@ -392,3 +497,69 @@ def conv3x3_op(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
         if want_stats:
             rsum, rsq = outs.pop(0), outs.pop(0)
     return ConvOut(y, ysum, ysq, r, rsum, rsq)
+
+
+class Conv3x3Partial(torch.autograd.Function):
+    """Differentiable `conv3x3_partial`: inputs x, w and, with a prologue,
+    its scale and shift; output the f32 partial. Its cotangent is the whole
+    output's (the all-reduce's backward is the identity), already folded
+    with the statistics' by `_Finish`."""
+
+    @staticmethod
+    def forward(ctx, has_pro: bool, slope: float, x, w, *pro):
+        prologue = (pro[0], pro[1], slope) if has_pro else None
+        ctx.set_materialize_grads(False)
+        ctx.has_pro, ctx.slope = has_pro, slope
+        ctx.save_for_backward(x, w, *pro)
+        return conv3x3_partial(x, w, prologue)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, *pro = ctx.saved_tensors
+        if g is None:
+            return (None,) * (4 + len(pro))
+        need = ctx.needs_input_grad[2:]
+        prologue = (pro[0], pro[1], ctx.slope) if ctx.has_pro else None
+        dy = g.to(x.dtype).contiguous()
+        dx, dw, dpro = _part_grads(
+            x, w, dy, prologue, None, need[0], need[1],
+            ctx.has_pro and (need[2] or need[3]))
+        return (None, None, dx, dw) + (tuple(dpro) if dpro is not None
+                                       else (None,) * len(pro))
+
+
+class _Finish(torch.autograd.Function):
+    """Differentiable `conv_finish`: (y, ysum, ysq) of an f32 sum; the
+    backward folds the statistics' cotangents into y's, in f32."""
+
+    @staticmethod
+    def forward(ctx, s, dtype):
+        y, ysum, ysq = conv_finish(s, dtype)
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(y)
+        return y, ysum, ysq
+
+    @staticmethod
+    def backward(ctx, gy, gsum, gsq):
+        (y,) = ctx.saved_tensors
+        return _fold_stats(gy, gsum, gsq, y), None
+
+
+def conv3x3_partial_op(x: torch.Tensor, w: torch.Tensor, *,
+                       prologue: Optional[Prologue] = None) -> torch.Tensor:
+    """`conv3x3_partial` with gradients (the `Conv3x3Partial` Function):
+    x and w are this rank's slices of the input channels, prologue the
+    affine of that slice; the f32 partial sum of the output."""
+    tensors = [x, w]
+    slope = 0.0
+    if prologue is not None:
+        tensors += [prologue[0], prologue[1]]
+        slope = float(prologue[2])
+    return Conv3x3Partial.apply(prologue is not None, slope, *tensors)
+
+
+def conv_finish_op(s: torch.Tensor, dtype: torch.dtype) -> ConvOut:
+    """`conv_finish` with gradients (the `_Finish` Function): the whole f32
+    sum rounded to dtype, with its f32 statistics."""
+    y, ysum, ysq = _Finish.apply(s, dtype)
+    return ConvOut(y, ysum, ysq)

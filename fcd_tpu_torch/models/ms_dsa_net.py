@@ -70,7 +70,10 @@ def _triple(x) -> Tuple[int, int, int]:
 
 
 class PatchEmbed(nn.Module):
-    """1x1 conv (no bias) halving the channels, then GroupNorm."""
+    """1x1 conv (no bias) halving the channels, then GroupNorm (under
+    tensor parallelism the conv runs split as `tp` says, `conv1x1`)."""
+
+    tp = None
 
     def __init__(self, in_channels: int, out_channels: int, groups: int):
         super().__init__()
@@ -82,7 +85,7 @@ class PatchEmbed(nn.Module):
         self.gn.reset_parameters(generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.gn(conv1x1(x, self.kernel)).to(x.dtype)
+        return self.gn(conv1x1(x, self.kernel, tp=self.tp)).to(x.dtype)
 
 
 class MS_DSA_NET(nn.Module):

@@ -60,7 +60,7 @@ def _norm_tokens(t: torch.Tensor) -> torch.Tensor:
 def dsa_train(x, w_qkvv, ef, temperature, temperature2, ln_scale, ln_bias,
               pos_embed, gamma, num_heads: int, rate: float,
               rng: DropoutRng, salt: int, eps: float = 1e-5,
-              sa_type: str = "parallel") -> torch.Tensor:
+              sa_type: str = "parallel", tp=None) -> torch.Tensor:
     """The train DSA block: tokens x (B, N, C) -> t + gamma * DSA(LN(t)),
     t = x + pos_embed, in x's dtype, as `fcd_tpu/ops/attention.py:116-132,
     222-303` computes it for each `sa_type`: 'parallel' adds the channel
@@ -70,13 +70,13 @@ def dsa_train(x, w_qkvv, ef, temperature, temperature2, ln_scale, ln_bias,
     autograd carries K3/K4's output through the channel matrix. Channel
     attention drops out on its (B, h, c, c) matrix; the spatial tail runs
     K3/K4 with the hash seeded by (rng.seed, salt). `ef` is None for
-    'channel'."""
+    'channel'. `tp`: the layout of a row-sharded `w_qkvv` (`conv1x1`)."""
     dtype = x.dtype
     b, n, c = x.shape
     h, ch = num_heads, c // num_heads
     base = x if pos_embed is None else x + pos_embed.to(dtype)
     xln = layer_norm(base, ln_scale, ln_bias, eps).to(dtype)
-    slots = torch.matmul(xln, w_qkvv.to(dtype)).split(c, dim=-1)
+    slots = conv1x1(xln, w_qkvv, tp=tp).split(c, dim=-1)
     if len(slots) != num_slots(sa_type):
         raise ValueError(f"qkvv has {len(slots)} slots, sa_type {sa_type!r} "
                          f"takes {num_slots(sa_type)}")
@@ -124,6 +124,8 @@ class DSA(nn.Module):
     'channel', temperature / temperature2 (h, 1, 1), and EF (N, P) except
     for 'channel', which has none (`fcd_tpu/ops/attention.py:78-95`)."""
 
+    tp = None
+
     def __init__(self, input_size: int, hidden_size: int, proj_size: int,
                  num_heads: int = 4, sa_type: str = "parallel",
                  dropout_rate: float = 0.0, rng: Optional[DropoutRng] = None,
@@ -163,8 +165,9 @@ class DSA(nn.Module):
             return dsa_train(tokens, self.qkvv, self.EF, self.temperature,
                              self.temperature2, ln_scale, ln_bias, pos_embed,
                              gamma, self.num_heads, self.dropout_rate,
-                             self.rng, self.salt, eps, self.sa_type)
-        return dsa_attention(tokens, self.qkvv, self.EF, self.temperature,
+                             self.rng, self.salt, eps, self.sa_type, self.tp)
+        qkvv = self.qkvv if self.tp is None else self.tp.whole(self.qkvv)
+        return dsa_attention(tokens, qkvv, self.EF, self.temperature,
                              self.temperature2, ln_scale, ln_bias, pos_embed,
                              gamma, self.num_heads, eps, self.sa_type)
 
@@ -190,6 +193,8 @@ class TransformerBlock(nn.Module):
     """DSA transformer block on (B, D, H, W, C) features. `rng` is the
     model's shared dropout state and `salt` this layer's index, which
     salts the spatial-attention dropout hash."""
+
+    tp = None
 
     def __init__(self, input_size: int, hidden_size: int, proj_size: int,
                  num_heads: int = 4, sa_type: str = "parallel",
@@ -230,7 +235,7 @@ class TransformerBlock(nn.Module):
                           self.ln_bias, pe, self.gamma)
         y = tokens.to(x.dtype).reshape(b, d, h, w, c)
         conv = self.dropout(self.conv_block([y]))
-        return y + conv1x1(conv, self.conv8, self.conv8_bias)
+        return y + conv1x1(conv, self.conv8, self.conv8_bias, self.tp)
 
 
 class EPABlock(TransformerBlock):

@@ -33,6 +33,17 @@ package runs it at f32 and f16: conv, norm, act, conv, norm, the projected short
 (`max_pool_2x_chain`) and the decoders' upsample as `conv_transpose3d`.
 That route launches none of B1, B2, B3, B4 and B15 and their backward
 kernels.
+
+Under tensor parallelism (`parallel/tp.py::model_parallel` sets `tp`, the
+model's layout, on every module) a block's parameters are this rank's
+shards and its convs run as the Megatron pairing places them: conv1 and
+the shortcut column-parallel on the whole input (their channel shards'
+statistics give the per-channel instance-norm affine), conv2 row-parallel
+on conv1's shard (`conv3x3_row_op`: B1's partial instance, the f32
+all-reduce, the finishing pass), the shortcut's output gathered, and the
+finale on the whole tensors, the same on every rank. A transformer's
+conv1 is row-parallel too: its whole input is sliced. A conv whose
+weight is replicated runs whole.
 """
 
 from __future__ import annotations
@@ -43,7 +54,13 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from fcd_tpu_torch.kernels.block_conv import conv3x3_op
+from fcd_tpu_torch.kernels.block_conv import (
+    ConvOut,
+    Prologue,
+    conv3x3_op,
+    conv3x3_partial_op,
+    conv_finish_op,
+)
 from fcd_tpu_torch.kernels.finale import finale
 from fcd_tpu_torch.kernels.finale_head import finale_head
 from fcd_tpu_torch.kernels.pool2x import max_pool2x_op
@@ -63,8 +80,26 @@ from fcd_tpu_torch.ops.layers import (
     kaiming_normal_fan_out_,
     max_pool_2x_chain,
 )
+from fcd_tpu_torch.parallel.mesh import (
+    Mesh,
+    copy_to_model,
+    gather_channels,
+    reduce_from_model,
+    slice_channels,
+)
 
 NEGATIVE_SLOPE = 0.01  # leaky-ReLU of every MS_DSA_NET block
+
+
+def conv3x3_row_op(x: torch.Tensor, w: torch.Tensor, mesh: Mesh, *,
+                   prologue: Optional[Prologue] = None) -> ConvOut:
+    """The row-parallel 3x3x3 conv of tensor parallelism, with gradients:
+    x and w are this rank's slices of the input channels (and prologue the
+    affine of that slice), `mesh` the model axis. Returns the whole
+    output, rounded, with its f32 statistics, the same on every rank:
+    B1's partial instance, the f32 all-reduce, the finishing pass."""
+    part = conv3x3_partial_op(x, w, prologue=prologue)
+    return conv_finish_op(reduce_from_model(part, mesh), x.dtype)
 
 
 class UnetResBlock(nn.Module):
@@ -75,6 +110,7 @@ class UnetResBlock(nn.Module):
     when Cin != Cout)."""
 
     plain_route = False
+    tp = None   # the model's TPLayout under tensor parallelism
 
     def __init__(self, in_channels: int, out_channels: int,
                  norm_name: str = "instance"):
@@ -156,15 +192,20 @@ class UnetResBlock(nn.Module):
             return self._plain(parts, pool, head)
         b = parts[0].shape[0]
         n = parts[0].shape[1] * parts[0].shape[2] * parts[0].shape[3]
-        w1 = list(torch.split(self.conv1, widths, dim=3))
-        wr = (None if self.conv3 is None
+        one = len(parts) == 1   # (a row-parallel conv1 holds a cin shard)
+        w1 = [self.conv1] if one else list(torch.split(self.conv1, widths,
+                                                       dim=3))
+        wr = (None if self.conv3 is None else [self.conv3] if one
               else list(torch.split(self.conv3, widths, dim=0)))
         stats = self.norm_name == "instance" or self.training
-        o1 = conv3x3_op(parts, w1, shortcut=wr, want_stats=stats)
-        scale1, shift1 = self._affine(self.norm1, o1.ysum, o1.ysq, b, n)
-        o2 = conv3x3_op([o1.y], [self.conv2],
-                     prologue=(scale1, shift1, NEGATIVE_SLOPE),
-                     want_stats=stats)
+        if self.tp is None or self.tp.role(self.conv2) is None:
+            o1 = conv3x3_op(parts, w1, shortcut=wr, want_stats=stats)
+            scale1, shift1 = self._affine(self.norm1, o1.ysum, o1.ysq, b, n)
+            o2 = conv3x3_op([o1.y], [self.conv2],
+                            prologue=(scale1, shift1, NEGATIVE_SLOPE),
+                            want_stats=stats)
+        else:
+            o1, o2 = self._convs_tp(parts, w1, wr, stats, b, n)
         scale2, shift2 = self._affine(self.norm2, o2.ysum, o2.ysq, b, n)
         if self.conv3 is not None:
             r = o1.r
@@ -186,6 +227,39 @@ class UnetResBlock(nn.Module):
         return finale(o2.y, r, *aff, NEGATIVE_SLOPE, pool=pool, tie=tie)
 
 
+    def _convs_tp(self, parts, w1, wr, stats: bool, b: int, n: int):
+        """conv1 (+ shortcut) and the row-parallel conv2 under tensor
+        parallelism (the module docstring). The rule splits conv1 as it
+        splits conv2 (both by one width): column-parallel in an encoder or
+        decoder (instance norm), row-parallel in a transformer (one part,
+        no shortcut). Returns (o1, o2) with o1.r and its sums whole and o2
+        whole, as the one-device path gives them."""
+        mm = self.tp.mesh
+        r1 = self.tp.role(self.conv1)
+        if (r1 == "col") != (self.norm1 is None) or (
+                self.conv3 is not None and self.tp.role(self.conv3) != r1):
+            raise NotImplementedError(
+                f"conv1 {r1}-parallel with {self.norm_name} norm")
+        if r1 == "col":
+            o1 = conv3x3_op([copy_to_model(x, mm) for x in parts], w1,
+                            shortcut=wr, want_stats=stats)
+            # instance norm is per channel: the shard's own statistics
+            scale1, shift1 = instance_affine_from_sums(o1.ysum, o1.ysq, n)
+            y1 = o1.y
+            if o1.r is not None:
+                o1 = o1._replace(r=gather_channels(o1.r, mm),
+                                 rsum=gather_channels(o1.rsum, mm),
+                                 rsq=gather_channels(o1.rsq, mm))
+        else:
+            o1 = conv3x3_row_op(slice_channels(parts[0], mm), w1[0], mm)
+            scale1, shift1 = self._affine(self.norm1, o1.ysum, o1.ysq, b, n)
+            y1, scale1, shift1 = (slice_channels(t, mm)
+                                  for t in (o1.y, scale1, shift1))
+        o2 = conv3x3_row_op(y1, self.conv2, mm,
+                            prologue=(scale1, shift1, NEGATIVE_SLOPE))
+        return o1, (o2 if stats else ConvOut(o2.y))
+
+
 class UnetrBasicBlock(UnetResBlock):
     """The res-or-basic selector of `fcd_tpu/ops/blocks.py` with
     res_block=True, instance norm and leaky-ReLU 0.01: the only form the
@@ -199,6 +273,7 @@ class UnetrUpBlock(nn.Module):
     the concatenation."""
 
     plain_route = False
+    tp = None
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
@@ -214,8 +289,14 @@ class UnetrUpBlock(nn.Module):
                 head=None) -> torch.Tensor:
         """head=(w, bias): the block's finale runs fused with the 1x1
         head (B15) and the block returns the logits."""
-        up = (conv_transpose3d(x, self.transp) if self.plain_route
-              else upsample2x_op(x, self.transp))
+        if self.plain_route:
+            up = conv_transpose3d(x, self.transp)
+        elif self.tp is not None and self.tp.role(self.transp) == "col":
+            mm = self.tp.mesh   # column-parallel, then gathered
+            up = gather_channels(
+                upsample2x_op(copy_to_model(x, mm), self.transp), mm)
+        else:
+            up = upsample2x_op(x, self.transp)
         return self.block([up, skip], head=head)
 
 

@@ -47,6 +47,14 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from fcd_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    copy_to_model,
+    gather_channels,
+    reduce_from_model,
+    slice_channels,
+)
+
 __all__ = [
     "BatchNorm", "Conv3d", "ConvTranspose3d", "Dense", "DropoutRng",
     "GroupNorm", "LayerNorm", "PReLU", "UpSample", "blocks_2x", "conv1x1",
@@ -75,9 +83,25 @@ def use_plain_route(model: nn.Module) -> nn.Module:
 
 
 def conv1x1(x: torch.Tensor, kernel: torch.Tensor,
-            bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """1x1x1 conv: x (..., Cin) @ kernel (Cin, Cout) (+ bias), in x's dtype."""
-    out = torch.matmul(x, kernel.to(x.dtype))
+            bias: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
+    """1x1x1 conv: x (..., Cin) @ kernel (Cin, Cout) (+ bias), in x's dtype.
+    `tp` (a module's tensor-parallel layout, `parallel/tp.py`) runs a
+    sharded kernel on the model axis: column-parallel, then the output
+    gathered; row-parallel on x's channel slice, the f32 partials summed
+    over the ranks and then rounded (where one device rounds its f32
+    accumulation); the bias added to the whole output."""
+    role = None if tp is None else tp.role(kernel)
+    if role is None:
+        out = torch.matmul(x, kernel.to(x.dtype))
+    elif role == "col":
+        out = gather_channels(
+            torch.matmul(copy_to_model(x, tp.mesh), kernel.to(x.dtype)),
+            tp.mesh)
+    else:
+        xs = slice_channels(x, tp.mesh)
+        out = reduce_from_model(
+            torch.matmul(xs.float(), kernel.to(x.dtype).float()),
+            tp.mesh).to(x.dtype)
     if bias is not None:
         out = out + bias.to(x.dtype)
     return out
@@ -304,8 +328,6 @@ class BatchNorm(nn.Module):
         b = s1.shape[0]
         t1, t2, count = s1.float().sum(0), s2.float().sum(0), b * n
         if self.mesh is not None:
-            from fcd_tpu_torch.parallel.mesh import all_reduce_sum
-
             t1, t2 = all_reduce_sum(torch.stack([t1, t2]), self.mesh)
             count *= self.mesh.size
         mean = t1 / count

@@ -17,6 +17,15 @@ network), runs `fn` on each and returns each rank's result. Under
 `torchrun` (WORLD_SIZE set) `join_env_group` joins the group that is
 there. A mesh that is asked for and cannot start raises: nothing carries
 on quietly on one card.
+
+The ("data", "model") mesh (`fcd_tpu/parallel/tp.py::make_tp_mesh`) lays
+the ranks out as `np.reshape(ranks, (n_data, n_model))` does: rank r sits
+at (r // n_model, r % n_model). Its `Mesh` is the rank's view of the DATA
+axis (rank, size and group those of its data subgroup, the ranks that
+share its model index), so the data-parallel code runs on it unchanged,
+and `mesh.model` is its view of the MODEL axis (the ranks that share its
+data index). Every rank creates every subgroup of both axes, in the same
+order, as torch.distributed requires.
 """
 
 from __future__ import annotations
@@ -30,13 +39,16 @@ import torch
 import torch.distributed as dist
 
 AXIS = "data"
+MODEL_AXIS = "model"
 # the device `launch` gave this process's rank
 _rank_device: Optional[torch.device] = None
 
 
 @dataclass
 class Mesh:
-    """One rank's view of a 1-D 'data' mesh."""
+    """One rank's view of a 'data' mesh, or of a ("data", "model") mesh:
+    rank, size and group are the data axis's; `model` is the rank's view of
+    the model axis (a 1-D Mesh over its model subgroup) or None."""
 
     rank: int
     size: int
@@ -44,10 +56,14 @@ class Mesh:
     backend: str
     group: Optional[Any] = None      # None: the default group
     axes: Tuple[str, ...] = (AXIS,)
+    model: Optional["Mesh"] = None
 
     @property
     def shape(self):
-        return {AXIS: self.size}
+        out = {AXIS: self.size}
+        if self.model is not None:
+            out[MODEL_AXIS] = self.model.size
+        return out
 
 
 def backend_for(device: torch.device, ranks_per_card: int = 1) -> str:
@@ -71,16 +87,19 @@ def mesh_size(devices: int, device: torch.device) -> int:
 
 def make_mesh(n_devices: Optional[int] = None,
               axes: Tuple[str, ...] = (AXIS,),
-              device=None, group=None) -> Mesh:
+              device=None, group=None,
+              shape: Optional[Sequence[int]] = None) -> Mesh:
     """The mesh over the running group (or `group`, a subgroup of it that
     this rank belongs to): n_devices None or -1 takes the whole group,
     another count must equal its size. `device` is this rank's (default:
     the card `launch` gave it, the current card under NCCL, else the
-    CPU). Raises without a group."""
-    if tuple(axes) != (AXIS,):
-        raise NotImplementedError(
-            f"mesh axes {axes}: the port has the 'data' axis; the model axis "
-            "(fcd_tpu/parallel/tp.py) is ROADMAP.md Queue A8's next slice")
+    CPU). With axes ("data", "model"), `shape` is (n_data, n_model) over
+    the whole group (default: (size, 1), as the JAX `make_mesh` lays it
+    out). Raises without a group."""
+    axes = tuple(axes)
+    if axes not in ((AXIS,), (AXIS, MODEL_AXIS)):
+        raise ValueError(f"mesh axes {axes}: the port's meshes are "
+                         f"({AXIS!r},) and ({AXIS!r}, {MODEL_AXIS!r})")
     if not dist.is_initialized():
         raise RuntimeError(
             "a data mesh needs a process group: start the ranks with "
@@ -95,8 +114,25 @@ def make_mesh(n_devices: Optional[int] = None,
         device = _rank_device or (
             torch.device("cuda", torch.cuda.current_device())
             if backend == "nccl" else torch.device("cpu"))
-    return Mesh(dist.get_rank(group), world, torch.device(device), backend,
-                group)
+    if axes == (AXIS,):
+        return Mesh(dist.get_rank(group), world, torch.device(device),
+                    backend, group)
+    n_data, n_model = tuple(shape) if shape is not None else (world, 1)
+    if group is not None or n_data * n_model != world:
+        raise ValueError(f"a ({n_data}, {n_model}) mesh spans the whole "
+                         f"group of {world} ranks")
+    rank = dist.get_rank()
+    grid = [list(range(i * n_model, (i + 1) * n_model))
+            for i in range(n_data)]
+    # every rank creates every subgroup, the data axis's first
+    data_group, _ = dist.new_subgroups_by_enumeration(
+        [list(col) for col in zip(*grid)], backend=backend)
+    model_group, _ = dist.new_subgroups_by_enumeration(grid, backend=backend)
+    dev = torch.device(device)
+    model = Mesh(rank % n_model, n_model, dev, backend, model_group,
+                 (MODEL_AXIS,))
+    return Mesh(rank // n_model, n_data, dev, backend, data_group, axes,
+                model)
 
 
 def data_sharding(mesh: Mesh, n: int) -> slice:
@@ -190,6 +226,111 @@ def gather_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     global batch)."""
     return _GatherBatch.apply(x, mesh)
 
+
+
+# -- model-axis collectives (the Megatron pairing, parallel/tp.py) ------------
+#
+# Under tensor parallelism a value on the model axis is either replicated
+# (every rank holds it whole and applies the same function to it) or a
+# channel shard (this rank's slice of the last axis; `channel_slice`). Four
+# crossings join them; GSPMD inserts their like for the JAX package. Each
+# backward keeps every replicated value's cotangent whole on every rank and
+# a shard's cotangent on its rank:
+#   replicated -> column-parallel op   identity;   backward all-reduces (each
+#                                      rank's op saw only its output slice)
+#   row-parallel partial -> replicated all-reduce (f32); backward identity
+#   column-parallel shard -> replicated all-gather;  backward keeps the slice
+#   replicated -> row-parallel shard   slice;      backward all-gathers
+
+
+def channel_slice(mesh: Mesh, c: int) -> slice:
+    """This rank's contiguous share of c channels over `mesh`."""
+    if c % mesh.size:
+        raise ValueError(f"{c} channels do not divide over {mesh.size} ranks")
+    per = c // mesh.size
+    return slice(mesh.rank * per, (mesh.rank + 1) * per)
+
+
+def _gather_last(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The ranks' equal slices of the last axis joined in rank order, bit
+    for bit (one addend an element besides zeros, in f32)."""
+    c = x.shape[-1]
+    out = x.new_zeros((*x.shape[:-1], mesh.size * c), dtype=torch.float32)
+    out[..., mesh.rank * c:(mesh.rank + 1) * c] = x
+    return all_reduce_(mesh, out).to(x.dtype)
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if g is None:
+            return None, None
+        return all_reduce_(ctx.mesh, g.float().contiguous()).to(g.dtype), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.dtype = x.dtype
+        return all_reduce_(mesh, x.float().contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype), None
+
+
+class _GatherChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.cols = slice(mesh.rank * x.shape[-1],
+                         (mesh.rank + 1) * x.shape[-1])
+        return _gather_last(x.contiguous(), mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[..., ctx.cols].contiguous(), None
+
+
+class _SliceChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x[..., channel_slice(mesh, x.shape[-1])].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return _gather_last(g.contiguous(), ctx.mesh), None
+
+
+def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A replicated `x` entering a column-parallel op: the identity; its
+    cotangent is summed over the model axis."""
+    return _CopyToModel.apply(x, mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The sum of the ranks' partial results of a row-parallel op, in f32
+    (the partials are never rounded before the sum); each rank's cotangent
+    is the sum's."""
+    return _ReduceFromModel.apply(x, mesh)
+
+
+def gather_channels(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """A column-parallel output's channel shards joined into the whole
+    tensor on every rank; backward keeps this rank's slice."""
+    return _GatherChannels.apply(x, mesh)
+
+
+def slice_channels(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This rank's channel slice of a replicated `x` (a row-parallel op's
+    input, or a replicated parameter acting on a shard); backward joins
+    the ranks' slices, so the replicated cotangent is whole everywhere."""
+    return _SliceChannels.apply(x, mesh)
 
 # -- processes ----------------------------------------------------------------
 

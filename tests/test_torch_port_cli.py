@@ -387,8 +387,17 @@ def test_run_inference_matches_jax(jax_checkpoint, tmp_path):
                                      "softmax_invert", "postprocess", "save"}
 
 
-def test_cli_main_runs_and_refuses_preprocess(jax_checkpoint, tmp_path):
-    path, _ = jax_checkpoint
+def test_cli_main_runs_and_refuses_preprocess(tmp_path, monkeypatch):
+    """The CLI end to end, and with --preprocess (once refused, now
+    ported): the FSL stage runs first, with `_run` replaced by a stand-in
+    that writes each image command's output as a copy of its input (the
+    binaries are absent), and the CLI segments the registered subject
+    under save_dir/preprocessed."""
+    import shlex
+    import shutil
+
+    from fcd_tpu_torch.data import fsl as tfsl
+
     data = str(tmp_path / "data")
     _write_subject(data, shape=(24, 32, 30))
     kwargs = ["feature_size=4", "project_size=16", "patch_size=32",
@@ -397,10 +406,32 @@ def test_cli_main_runs_and_refuses_preprocess(jax_checkpoint, tmp_path):
                "--checkpoint_path", str(tmp_path / "none.msgpack"),
                "--device", "cpu", "--kwargs", *kwargs])
     assert os.path.exists(tmp_path / "out" / "sub01" / "sub01_seg.nii.gz")
-    with pytest.raises(NotImplementedError, match="FSL"):
-        tcli.main(["--data_dir", data, "--save_dir", str(tmp_path / "out"),
-                   "--checkpoint_path", path, "--device", "cpu",
-                   "--preprocess", "--kwargs", *kwargs])
+    cmds = []
+
+    def flirt(cmd):
+        cmds.append(cmd)
+        words = shlex.split(cmd)
+        def arg(flag):
+            return words[words.index(flag) + 1]
+
+        if words[0] == "fslreorient2std":
+            shutil.copyfile(words[-2], words[-1])
+        elif words[0] == "robustfov":
+            shutil.copyfile(arg("-i"), arg("-r"))
+        elif words[0] == "flirt":
+            shutil.copyfile(arg("-in"), arg("-out"))
+        return 0
+
+    monkeypatch.setattr(tfsl, "_run", flirt)
+    tcli.main(["--data_dir", data, "--save_dir", str(tmp_path / "pre"),
+               "--checkpoint_path", str(tmp_path / "none.msgpack"),
+               "--device", "cpu", "--preprocess", "--kwargs", *kwargs])
+    reg = tmp_path / "pre" / "preprocessed" / "sub01"
+    assert sorted(os.listdir(reg)) == ["flair_reg.nii.gz", "gt_reg.nii.gz",
+                                       "t1_reg.nii.gz"]
+    assert cmds[0].startswith("fslreorient2std")
+    assert sum(c.startswith("flirt") for c in cmds) == 5   # no thickness
+    assert os.path.exists(tmp_path / "pre" / "sub01" / "sub01_seg.nii.gz")
 
 
 # -- (e) ROADMAP C8: the tie gradient of the level 3-5 pools ---------------------

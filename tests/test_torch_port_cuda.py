@@ -163,6 +163,59 @@ def test_conv3x3_kernel_matches_plain(dev, parts_c, cout, mode, grid):
         assert _rel(got.rsq, want.rsq) < 1e-3
 
 
+# B1's row-parallel split at the shard widths (tensor parallelism): the
+# rank's input channels -> the whole cout
+@pytest.mark.parametrize("c,cout,grid,prologue", [
+    (8, 16, (2, 6, 10, 7), True),      # enc1's conv2 at fs16, n_model 2
+    (16, 32, (1, 6, 10, 7), True),
+    (4, 8, (1, 6, 10, 7), False),      # fs8 over 4 ranks
+    (128, 256, (1, 4, 4, 4), True),    # the deepest level's conv2
+    (8, 20, (1, 1, 9, 17), True)])     # cout 20, a 1-voxel-thick grid
+def test_conv3x3_partial_kernel_matches_plain(dev, c, cout, grid, prologue):
+    from fcd_tpu_torch.kernels.block_conv import (
+        conv3x3_partial,
+        conv3x3_partial_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x = _randn(gen, dev, *grid, c, dtype=torch.bfloat16)
+    w = _randn(gen, dev, 3, 3, 3, c, cout, scale=0.2, dtype=torch.bfloat16)
+    pro = None
+    if prologue:
+        pro = (torch.rand(grid[0], c, generator=gen, device=dev) + 0.5,
+               _randn(gen, dev, grid[0], c, scale=0.5), 0.01)
+    before = conv3x3_partial.launches
+    got = conv3x3_partial(x, w, pro)
+    torch.cuda.synchronize()
+    assert conv3x3_partial.launches == before + 1
+    assert got.dtype == torch.float32
+    # bf16 products are exact in f32: only the order of the sum differs
+    assert _rel(got, conv3x3_partial_plain(x, w, pro)) < 1e-4
+    assert torch.equal(got, conv3x3_partial(x, w, pro))
+
+
+@pytest.mark.parametrize("shape", [(2, 6, 10, 7, 16), (1, 4, 4, 4, 512),
+                                   (1, 3, 5, 7, 24), (2, 9, 8, 5, 768),
+                                   (1, 32, 32, 32, 16)])
+def test_conv_finish_kernel_matches_plain(dev, shape):
+    from fcd_tpu_torch.kernels.conv_finish import (
+        conv_finish,
+        conv_finish_plain,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    s = _randn(gen, dev, *shape) + 0.3
+    before = conv_finish.launches
+    y, s1, s2 = conv_finish(s)
+    torch.cuda.synchronize()
+    assert conv_finish.launches == before + 1
+    wy, w1, w2 = conv_finish_plain(s, torch.bfloat16)
+    assert torch.equal(y, wy)            # the same round to nearest
+    assert _rel(s1, w1) < 1e-4 and _rel(s2, w2) < 1e-5
+    again = conv_finish(s)
+    assert all(torch.equal(a, b) for a, b in zip((y, s1, s2), again))
+
+
 @pytest.mark.parametrize("pool", [False, True])
 def test_finale_pool_kernel_matches_plain(dev, pool):
     from fcd_tpu_torch.kernels.pool import finale_pool, finale_pool_plain

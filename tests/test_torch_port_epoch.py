@@ -220,9 +220,10 @@ def test_cli_trains_and_resume_appends_an_epoch(data_dir, tmp_path,
 
 
 def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, monkeypatch):
-    """--emission_tracking (ROADMAP A6) and a model type the factory does
-    not know (its ValueError: every type of the JAX factory is ported)
-    raise before any training; `mesh_size` resolves --devices as the JAX
+    """A model type the factory does not know (its ValueError: every type
+    of the JAX factory is ported) raises before any training (so does
+    nothing else: --emission_tracking is ported, and its test is in
+    test_torch_port_utils.py); `mesh_size` resolves --devices as the JAX
     trainer does (the visible cards at most; on the CPU N gloo ranks, -1
     one process); and a data mesh that cannot start raises instead of
     training on one card: four cards asked for where none can be used,
@@ -230,8 +231,6 @@ def test_cli_refuses_what_is_not_ported(data_dir, tmp_path, monkeypatch):
     common = ["--data_dir", data_dir, "--split_file",
               os.path.join(data_dir, "split.txt"), "--splits", "train",
               "val", "--save_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="A6"):
-        cli_train.main(common + ["--device", "cpu", "--emission_tracking"])
     with pytest.raises(ValueError, match="Unknown model_type"):
         cli_train.main(common + ["--device", "cpu", "--model_type",
                                  "NOT_A_MODEL"])

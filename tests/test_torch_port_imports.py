@@ -46,7 +46,11 @@ def test_import_leaves_jax_and_triton_out():
               "metrics", "metrics.voxel", "metrics.lesion",
               "metrics.surface_distance", "metrics.mc_tables",
               "metrics._mc_tri_table", "cli.train", "models.unetr_pp",
-              "parallel", "parallel.mesh", "parallel.dp", "parallel.sw"):
+              "parallel", "parallel.mesh", "parallel.dp", "parallel.sw",
+              "parallel.tp", "kernels.conv_finish", "data.organize",
+              "data.misc", "data.fsl", "cli.organize", "cli.inspect",
+              "cli.preprocess", "utils.profiling", "utils.energy",
+              "metrics.brats_scorer"):
         assert f"fcd_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -167,3 +171,23 @@ def test_train_kernel_wrappers_refuse_other_devices():
     # on the CPU the plain versions run
     x = torch.randn(1, 2, 2, 2, 4)
     assert conv3d_wgrad(x, x).shape == (27, 4, 4)
+
+
+def test_kernels_stay_free_of_the_collectives():
+    """The kernel wrappers import neither the distributed layer
+    (`fcd_tpu_torch.parallel`) nor `torch.distributed`: the collectives
+    that compose with a kernel (the row-parallel conv's all-reduce) sit in
+    ops/ and parallel/."""
+    bad = []
+    for f in sorted((ROOT / "fcd_tpu_torch" / "kernels").rglob("*.py")):
+        tree = ast.parse(f.read_text(), filename=str(f))
+        for node in ast.walk(tree):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     else [])
+            bad += [f"{f.relative_to(ROOT)}:{node.lineno} imports {n}"
+                    for n in names
+                    if n.startswith(("fcd_tpu_torch.parallel",
+                                     "torch.distributed"))]
+    assert not bad, bad

@@ -1,5 +1,5 @@
-"""The rank side of the data-mesh CPU tests (`test_torch_port_parallel.py`,
-`test_torch_port_sharded_sw.py`).
+"""The rank side of the mesh CPU tests (`test_torch_port_parallel.py`,
+`test_torch_port_sharded_sw.py`, `test_torch_port_tp.py`).
 
 `fcd_tpu_torch.parallel.mesh.launch` spawns gloo ranks that import this
 module to find the function they run, so it imports torch, numpy and the
@@ -19,11 +19,19 @@ from fcd_tpu_torch.infer.sliding_window import sliding_window_inference
 from fcd_tpu_torch.losses.combined import make_combined_loss
 from fcd_tpu_torch.models.factory import get_model
 from fcd_tpu_torch.parallel.dp import make_dp_train_step
-from fcd_tpu_torch.parallel.mesh import data_sharding, make_mesh
+from fcd_tpu_torch.kernels.block_conv import conv3x3_op
+from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET
+from fcd_tpu_torch.ops.blocks import conv3x3_row_op
+from fcd_tpu_torch.parallel import tp
+from fcd_tpu_torch.parallel.mesh import channel_slice, data_sharding, make_mesh
 from fcd_tpu_torch.parallel.sw import sharded_sliding_window_inference
 from fcd_tpu_torch.train.state import make_optimizer, make_train_step
 from fcd_tpu_torch.train.trainer import ModelTrainer
-from fcd_tpu_torch.weights import export_flax_variables, load_flax_variables
+from fcd_tpu_torch.weights import (
+    export_flax_grads,
+    export_flax_variables,
+    load_flax_variables,
+)
 
 
 def params_for(**kw):
@@ -127,3 +135,77 @@ def sharded_sw_checks(volumes, trainer_case):
     out["trainer_single"] = alone.inference(vol).numpy()
     out["mesh"] = (trainer.mesh.rank, trainer.mesh.size)
     return out
+
+
+def tp_model(img, variables, **kw):
+    """The TP tests' MS_DSA_NET (one layer a level) with `variables`, its
+    conv branch's channel dropout off (the JAX side makes it the
+    identity)."""
+    model = MS_DSA_NET(2, img, in_channels=2, num_layers=1, **kw)
+    load_flax_variables(model, variables)
+    for stack in model.transformers:
+        for blk in stack:
+            blk.dropout.rate = 0.0
+    return model
+
+
+def _split_conv(mm, case):
+    """B1 split around the all-reduce on model axis `mm` against the whole
+    conv: (y, ysum, ysq, dx, dw, dscale, dshift) of the split (the
+    gradients of this rank's slices) and of `conv3x3_op` (sliced)."""
+    x, w, scale, shift, gy, gsum, gsq = (torch.from_numpy(a) for a in case)
+    cols = channel_slice(mm, x.shape[-1])
+    out = {}
+    for name in ("split", "whole"):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, scale, shift)]
+        xx, ww, sc, sh = leaves
+        if name == "split":
+            xx, ww, sc, sh = (t.contiguous() for t in (
+                xx[..., cols], ww[:, :, :, cols], sc[:, cols], sh[:, cols]))
+            o = conv3x3_row_op(xx, ww, mm, prologue=(sc, sh, 0.01))
+        else:
+            o = conv3x3_op([xx], [ww], prologue=(sc, sh, 0.01),
+                           want_stats=True)
+        ((o.y * gy).sum() + (o.ysum * gsum).sum()
+         + (o.ysq * gsq).sum()).backward()
+        out[name] = [o.y.detach().numpy(), o.ysum.detach().numpy(),
+                     o.ysq.detach().numpy(), leaves[0].grad[..., cols].numpy(),
+                     leaves[1].grad[:, :, :, cols].numpy(),
+                     leaves[2].grad[:, cols].numpy(),
+                     leaves[3].grad[:, cols].numpy()]
+    return out
+
+
+def tp_checks(img, variables, x, y, lr, conv_case, shape=(2, 4)):
+    """Run on n_data x n_model ranks: the TP eval forward of `variables`
+    on x, one TP step on (x, y), the state after it and the step's
+    gradients gathered whole (flax trees), the loss; the mesh
+    coordinates; and B1 split around the all-reduce on the model axis
+    (`_split_conv`)."""
+    torch.set_grad_enabled(True)
+    mesh = tp.make_tp_mesh(*shape)
+    model = tp_model(img, variables, feature_size=8, project_size=4)
+    params = params_for(loss="DiceCELoss")
+    opt = make_optimizer(params, model)
+    layout = tp.shard_state_tp(model, mesh, opt)
+    model.eval()
+    with torch.no_grad(), tp.model_parallel(model):
+        fwd = model(torch.from_numpy(x)).numpy()
+    step = tp.make_tp_train_step(model, make_combined_loss(params), opt, mesh)
+    loss = step(tp.shard_batch_tp(mesh, torch.from_numpy(x)),
+                tp.shard_batch_tp(mesh, torch.from_numpy(y)), lr)
+    tp.gather_tp_state(model, opt)
+    grads = export_flax_grads(model)
+    # the shards, moments included, gather back to what was sharded
+    whole = [t.clone() for p in model.parameters()
+             for t in [p.data] + list(opt.state[p].values())]
+    tp.shard_state_tp(model, mesh, opt)
+    tp.gather_tp_state(model, opt)
+    again = [t for p in model.parameters()
+             for t in [p.data] + list(opt.state[p].values())]
+    return {"coords": (mesh.rank, mesh.model.rank, dist.get_rank()),
+            "roundtrip": all(torch.equal(a, b) for a, b in zip(whole, again)),
+            "roles": sorted(layout.roles.values()),
+            "forward": fwd, "loss": float(loss), "grads": grads,
+            "variables": export_flax_variables(model),
+            "conv": _split_conv(mesh.model, conv_case)}
