@@ -396,7 +396,7 @@ def build_report(name, kernels, args, instr) -> int:
     library), and the count of `instr` instructions in the library's SASS.
     Fails if that count is 0: the kernel must multiply on the tensor cores
     (HGMMA, HMMA), or, with no products, move 16 or 8 bytes a load
-    (LDG.E.128, LDG.E.64)."""
+    (LDG.E.128, LDG.E.64) or stream by bulk copies (UBLKCP)."""
     import re
 
     from fcd_tpu_torch.kernels import _build
@@ -1166,7 +1166,7 @@ def finish_phase(label, dev, gen, grid, c, iters=20):
     ph.check_equal("y", got[0], want[0])
     ph.check("sums", torch.stack(got[1:]), torch.stack(want[1:]), 1e-5)
     check_repeatable(ph, got, conv_finish(s))
-    time_on_device(ph, lambda: conv_finish(s), "conv_finish_kernel", iters)
+    time_on_device(ph, lambda: conv_finish(s), "conv_finish", iters)
     ph.plain_ms = timed_ms(lambda: conv_finish_plain(s, torch.bfloat16),
                            iters)
     ph.report()
@@ -1175,9 +1175,11 @@ def finish_phase(label, dev, gen, grid, c, iters=20):
 
 def tp_width_phases(dev, gen, small=False):
     """The kernels of the tensor-parallel patch at MS_DSA_NET fs16 over a
-    model axis of 2 (`tp_run`): B1's partial instance and the finishing
-    pass at the row-parallel convs' shapes (enc1's conv2, the level-3
-    transformers' conv1, enc6's conv2), and B1, K1 and B4 at the shard
+    model axis of 2 (`tp_run`): B1's partial instance at the row-parallel
+    convs' shapes (enc1's conv2, the level-3 transformers' conv1, enc6's
+    conv2), the finishing pass at enc1, enc2, level 3, level 4 and enc6
+    (both of its plans, each side of `conv_finish.ONE_LAUNCH`), and B1, K1
+    and B4 at the shard
     widths (conv1 and the shortcut with half the output channels; conv2's
     data gradient into half the input channels and its weight gradient on
     them; the up-blocks' transposed conv with half the outputs)."""
@@ -1191,7 +1193,9 @@ def tp_width_phases(dev, gen, small=False):
         partial_phase("enc6.conv2 4^3x256->512 +prologue", dev, gen,
                       (4, 4, 4), 256, 512),
         finish_phase("enc1 1x128^3x16", dev, gen, s(128, 128, 128), 16),
+        finish_phase("enc2 1x64^3x32", dev, gen, s(64, 64, 64), 32),
         finish_phase("level3 1x32^3x32", dev, gen, s(32, 32, 32), 32),
+        finish_phase("level4 1x16^3x64", dev, gen, s(16, 16, 16), 64),
         finish_phase("enc6 1x4^3x512", dev, gen, (4, 4, 4), 512),
         conv_phase("tp enc1.conv1 128^3x2->8 +shortcut+stats", dev, gen,
                    s(128, 128, 128), [2], 8, shortcut=True),
@@ -2730,14 +2734,15 @@ def _module_groups(model):
 
 def _grad_distance(model, ref, groups=_groups) -> dict:
     """{group: (rel-L2, cosine)} of model's gradients against ref's, the
-    groups `groups(model)`, on the CPU."""
+    groups `groups(model)`, on the CPU in f64 (an f32 dot over millions of
+    elements reads cosines above 1 by up to 2e-3)."""
     import torch
 
     out = {}
     mg, rg = groups(model), groups(ref)
     for key in mg:
-        g = torch.cat([p.grad.float().cpu().ravel() for p in mg[key]])
-        w = torch.cat([p.grad.float().cpu().ravel() for p in rg[key]])
+        g = torch.cat([p.grad.double().cpu().ravel() for p in mg[key]])
+        w = torch.cat([p.grad.double().cpu().ravel() for p in rg[key]])
         out[key] = (float((g - w).norm() / w.norm()),
                     float(torch.dot(g, w) / (g.norm() * w.norm())))
     return out
@@ -3785,10 +3790,57 @@ def _digests(model) -> list:
             .hexdigest() for p in model.parameters()]
 
 
+# the routes the TP phase runs: (name, the trainer's params, forward
+# limits (patch rel, argmax agreement) against one card, the launch counts
+# of a patch forward and of a train step). bf16 takes the kernel route,
+# its row-parallel convs B1's partial instance and `conv_finish`; f32
+# (use_amp=False, the JAX TP test's setting) and f16 take the plain route,
+# whose row-parallel conv is `conv3d` on f32 operands, rounded once after
+# the all-reduce (`ops/blocks.py::conv3x3_row_plain`), and launch B5's and
+# K3/K4's instances of the type and no B1, partial or finish
+TP_ROUTES = (
+    ("bf16", {}, (PATCH_REL_TOL, PATCH_ARGMAX_AGREE),
+     tp_counts(PER_PATCH), tp_counts(per_train_step())),
+    ("f32", F32_PARAMS, (F32_PATCH_REL_TOL, F32_ARGMAX_AGREE), F32_PATCH,
+     F32_STEP),
+    ("f16", F16_PARAMS, (F16_PATCH_REL_TOL, F16_ARGMAX_AGREE), F16_PATCH,
+     F16_STEP),
+)
+# the step's patch by route: the f16 step at 64^3 keeps the phase's added
+# time under a minute (each TP step moves its f32 cotangent partials
+# through gloo's host copies)
+TP_STEP_SIZE = {"f16": 64}
+
+
 def tp_rank(small: bool = False) -> dict:
     """One rank of the TP phase (`parallel.mesh.launch` over gloo, both
-    ranks on the one card, a (1, 2) ("data", "model") mesh): MS_DSA_NET at
-    full width (fs16, project 64, bf16, the kernel route) sharded by
+    ranks on the one card, a (1, 2) ("data", "model") mesh): `tp_route`
+    for each route of TP_ROUTES, one after the other in this process.
+    `small`: fs4 / patch 32 on the CPU, where the f32 and f16 routes take
+    the plain route in f32."""
+    import torch
+
+    from fcd_tpu_torch.parallel import tp
+
+    card = torch.cuda.is_available() and not small
+    dev = (torch.device("cuda", torch.cuda.current_device()) if card
+           else torch.device("cpu"))
+    mesh = tp.make_tp_mesh(*TP_SHAPE, device=dev)
+    out = {"rank": mesh.model.rank, "routes": {}}
+    for name, extra, *_ in TP_ROUTES:
+        t0 = time.perf_counter()
+        r = tp_route(mesh, dev, extra, small and name != "bf16", small,
+                     None if small else TP_STEP_SIZE.get(name))
+        r["seconds"] = time.perf_counter() - t0
+        out["routes"][name] = r
+        if card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def tp_route(mesh, dev, extra, plain, small, step_size=None) -> dict:
+    """MS_DSA_NET at full width (fs16, project 64) with the trainer's
+    params and `extra` (the route's: bf16, f32 or f16), sharded by
     `parallel.tp` from the same state as a one-card trainer's. The TP eval
     forward of one 128^3 patch against the one-card forward, and one TP
     train step (DiceCE, AdamW, dropout on, the trainer's seeds) against
@@ -3796,31 +3848,32 @@ def tp_rank(small: bool = False) -> dict:
     the one-card step's own distance under a nudged input; the launch
     counts of the forward and the step, every parameter's digest after the
     step (the same on both ranks), and the ms of a second forward and a
-    second step of each. `small`: fs4 / patch 32 on the CPU."""
+    second step of each. `step_size`: the step's patch, if not the
+    forward's (new trainers). `plain`: the plain route forced (the CPU)."""
     import torch
 
+    from fcd_tpu_torch.ops.layers import use_plain_route
     from fcd_tpu_torch.parallel import tp
     from fcd_tpu_torch.train.schedule import epoch_lr
     from fcd_tpu_torch.train.trainer import ModelTrainer
 
-    card = torch.cuda.is_available() and not small
-    dev = (torch.device("cuda", torch.cuda.current_device()) if card
-           else torch.device("cpu"))
-    mesh = tp.make_tp_mesh(*TP_SHAPE, device=dev)
-    params = train_params(**({"patch_size": 32} if small else {}))
+    params = train_params(**({"patch_size": 32} if small else {}),
+                          extra=extra)
     params.update(MESH_SMALL if small else {})
 
     def trainer():
         tr = ModelTrainer(dict(params, mesh_data=1), device=dev,
                           verbose=False)
+        if plain:
+            use_plain_route(tr.model)
         redraw_attention(tr.model, SEED + 1)
         return tr
 
-    alone, sharded, nudged = trainer(), trainer(), trainer()
+    alone, sharded = trainer(), trainer()
     x, y = train_batch(dev, TP_BATCH, params["patch_size"],
                        params["chans_in"])
     lr = epoch_lr(params, params["warmup_epochs"])
-    out = {"rank": mesh.model.rank}
+    out = {"step_size": step_size or params["patch_size"]}
 
     def clock(fn):
         sync(dev)
@@ -3831,25 +3884,33 @@ def tp_rank(small: bool = False) -> dict:
 
     def tp_forward():
         with tp.model_parallel(sharded.model):
-            return sharded.model(x)
+            return sharded.predict(x)
 
     # -- the eval forward -----------------------------------------------------
     tp.shard_variables_tp(sharded.model, mesh)
     with torch.no_grad():
-        want, _ = clock(lambda: alone.model(x))
+        want, _ = clock(lambda: alone.predict(x))
         reset_counts()
         got, out["first_fwd_ms"] = clock(tp_forward)
         out["fwd_counts"] = read_counts()
         _, out["fwd_ms"] = clock(tp_forward)
-        _, out["single_fwd_ms"] = clock(lambda: alone.model(x))
+        _, out["single_fwd_ms"] = clock(lambda: alone.predict(x))
     out["fwd_rel"] = float((got.float() - want.float()).abs().max()
                            / want.float().abs().max())
     out["fwd_agree"] = float((got.argmax(-1) == want.argmax(-1))
                              .float().mean())
     out["fwd_finite"] = bool(torch.isfinite(got).all())
+    out["dtype"] = str(got.dtype)
     del got, want
     # -- one train step -------------------------------------------------------
-    tp.gather_tp_state(sharded.model)
+    if step_size is None:
+        tp.gather_tp_state(sharded.model)
+    else:
+        params["patch_size"] = step_size
+        del alone, sharded
+        alone, sharded = trainer(), trainer()
+        x, y = train_batch(dev, TP_BATCH, step_size, params["chans_in"])
+    nudged = trainer()
     sharded._train_setup()
     tp.shard_state_tp(sharded.model, mesh, sharded.optimizer)
     sharded._step_fn = tp.make_tp_train_step(
@@ -3878,8 +3939,9 @@ def tp_rank(small: bool = False) -> dict:
 
 
 def tp_run(card, small=False) -> dict:
-    """The TP phase (`tp_rank` on two gloo ranks on the one card); fails
-    unless every check holds. Returns each rank's launch counts by path."""
+    """The TP phase (`tp_rank` on two gloo ranks on the one card, every
+    route of TP_ROUTES); fails unless every check holds. Returns each
+    rank's launch counts by path."""
     from fcd_tpu_torch.parallel.mesh import launch
 
     n = TP_SHAPE[0] * TP_SHAPE[1]
@@ -3888,61 +3950,68 @@ def tp_run(card, small=False) -> dict:
                    **({"device_type": "cpu", "threads": 2} if small else
                       {"device_type": "cuda", "devices": ["cuda:0"] * n}))
     failures, by_path = [], {}
-    fwd_want = tp_counts(PER_PATCH)
-    step_want = tp_counts(per_train_step())
-    for r in ranks:
-        who = f"model rank {r['rank']} of {n}"
-        rel = abs(r["loss"] - r["single_loss"]) / abs(r["single_loss"])
-        nudged = abs(r["nudged_loss"] - r["single_loss"]) / abs(
-            r["single_loss"])
-        good, lines = group_rule(
-            {k: v for k, v in r["grads"].items() if not math.isnan(v[0])},
-            r["ref_grads"], floor=MESH_GRAD_FLOOR)
-        loss_tol = max(TP_LOSS_MARGIN * nudged, TP_LOSS_FLOOR)
-        norms_ok, spread, logs = norm_rule(r["norms"], r["single_norms"],
-                                           r["nudged_norms"])
-        print(f"tp ({who}, gloo, batch {TP_BATCH}x"
-              f"{'32' if small else '128'}^3): forward "
-              f"{r['fwd_ms']:.1f} ms/patch (the first {r['first_fwd_ms']:.1f};"
-              f" one card {r['single_fwd_ms']:.1f}), rel {r['fwd_rel']:.3e} "
-              f"(tol {PATCH_REL_TOL}), argmax agree {r['fwd_agree']:.6f}; "
-              f"step {r['step_ms']:.1f} ms/step (the first "
-              f"{r['first_step_ms']:.1f}; one card "
-              f"{r['single_step_ms']:.1f}), loss {r['loss']:.7f} vs "
-              f"{r['single_loss']:.7f} rel {rel:.2e} (tol {loss_tol:.2e}: "
-              f"{TP_LOSS_MARGIN}x the nudged one-card step's {nudged:.2e}, "
-              f"at least {TP_LOSS_FLOOR}), grads per group within "
-              f"{GROUP_MARGIN}x the nudged step's distance + "
-              f"{MESH_GRAD_FLOOR:.2e} {good}, gradient norms within "
-              f"{GROUP_MARGIN}x the nudged step's spread {spread:.2e} + "
-              f"{MESH_GRAD_FLOOR:.2e} {norms_ok}", flush=True)
-        print("  grads rel-L2/cosine per group, TP vs one card (the nudged "
-              "one-card step): " + ", ".join(
-                  line.replace("bf16 CPU ", "") for line in lines),
-              flush=True)
-        print("  grad norm log-ratio per group, TP / one card: " + ", ".join(
-            f"{k} {v:+.2e}" for k, v in logs.items()), flush=True)
-        checks = {
-            "finite forward": r["fwd_finite"],
-            "forward": (r["fwd_rel"] <= PATCH_REL_TOL
-                        and r["fwd_agree"] >= PATCH_ARGMAX_AGREE),
-            "loss": rel <= loss_tol,
-            "grads": good,
-            "grad norms": norms_ok,
-            "state equal on every rank": r["digests"] == ranks[0]["digests"],
-        }
-        if not small:
-            print(f"  launches: forward {r['fwd_counts']}, step "
-                  f"{r['step_counts']}", flush=True)
-            checks["forward launches"] = r["fwd_counts"] == fwd_want
-            checks["step launches"] = r["step_counts"] == step_want
-            by_path[f"tp forward, {who}"] = r["fwd_counts"]
-            by_path[f"tp step, {who}"] = r["step_counts"]
-        failures += [f"{who}: {k}" for k, ok in checks.items() if not ok]
+    for name, _, (fwd_tol, fwd_agree), fwd_want, step_want in TP_ROUTES:
+        for rank in ranks:
+            r = rank["routes"][name]
+            who = f"model rank {rank['rank']} of {n}"
+            ok = tp_check(r, ranks[0]["routes"][name], name, who, small,
+                          fwd_tol, fwd_agree)
+            if not small:
+                print(f"  launches: forward {r['fwd_counts']}, step "
+                      f"{r['step_counts']}", flush=True)
+                ok["forward launches"] = r["fwd_counts"] == fwd_want
+                ok["step launches"] = r["step_counts"] == step_want
+                by_path[f"tp forward {name}, {who}"] = r["fwd_counts"]
+                by_path[f"tp step {name}, {who}"] = r["step_counts"]
+            failures += [f"{name} {who}: {k}" for k, v in ok.items() if not v]
+        print(f"tp {name}: {ranks[0]['routes'][name]['seconds']:.1f} s in "
+              f"each rank", flush=True)
     print(f"tp: {time.perf_counter() - t0:.1f} s on {card}", flush=True)
     if failures:
         raise AssertionError(f"tp checks failed: {failures}")
     return by_path
+
+
+def tp_check(r, r0, name, who, small, fwd_tol, fwd_agree) -> dict:
+    """Print one rank's TP results on one route against one card's and
+    return {check: held}."""
+    rel = abs(r["loss"] - r["single_loss"]) / abs(r["single_loss"])
+    nudged = abs(r["nudged_loss"] - r["single_loss"]) / abs(r["single_loss"])
+    good, lines = group_rule(
+        {k: v for k, v in r["grads"].items() if not math.isnan(v[0])},
+        r["ref_grads"], floor=MESH_GRAD_FLOOR)
+    loss_tol = max(TP_LOSS_MARGIN * nudged, TP_LOSS_FLOOR)
+    norms_ok, spread, logs = norm_rule(r["norms"], r["single_norms"],
+                                       r["nudged_norms"])
+    print(f"tp {name} ({who}, gloo, batch {TP_BATCH}x"
+          f"{'32' if small else '128'}^3, the step at {r['step_size']}^3, "
+          f"logits {r['dtype']}): forward "
+          f"{r['fwd_ms']:.1f} ms/patch (the first {r['first_fwd_ms']:.1f};"
+          f" one card {r['single_fwd_ms']:.1f}), rel {r['fwd_rel']:.3e} "
+          f"(tol {fwd_tol}), argmax agree {r['fwd_agree']:.6f} (at least "
+          f"{fwd_agree}); step {r['step_ms']:.1f} ms/step (the first "
+          f"{r['first_step_ms']:.1f}; one card "
+          f"{r['single_step_ms']:.1f}), loss {r['loss']:.7f} vs "
+          f"{r['single_loss']:.7f} rel {rel:.2e} (tol {loss_tol:.2e}: "
+          f"{TP_LOSS_MARGIN}x the nudged one-card step's {nudged:.2e}, "
+          f"at least {TP_LOSS_FLOOR}), grads per group within "
+          f"{GROUP_MARGIN}x the nudged step's distance + "
+          f"{MESH_GRAD_FLOOR:.2e} {good}, gradient norms within "
+          f"{GROUP_MARGIN}x the nudged step's spread {spread:.2e} + "
+          f"{MESH_GRAD_FLOOR:.2e} {norms_ok}", flush=True)
+    print("  grads rel-L2/cosine per group, TP vs one card (the nudged "
+          "one-card step): " + ", ".join(
+              line.replace("bf16 CPU ", "") for line in lines), flush=True)
+    print("  grad norm log-ratio per group, TP / one card: " + ", ".join(
+        f"{k} {v:+.2e}" for k, v in logs.items()), flush=True)
+    return {
+        "finite forward": r["fwd_finite"],
+        "forward": r["fwd_rel"] <= fwd_tol and r["fwd_agree"] >= fwd_agree,
+        "loss": rel <= loss_tol,
+        "grads": good,
+        "grad norms": norms_ok,
+        "state equal on every rank": r["digests"] == r0["digests"],
+    }
 
 
 def a6_run(dev, card, params=None) -> None:
@@ -4172,6 +4241,10 @@ BUILD_REPORTS = {
                    ("vec", "mode", "nt", "minb"), "LDG.E.128"),
     "max_pool2x_bwd": ("pool2x_bwd", "pool2x_bwd_kernel", ("vec",),
                        "LDG.E.64"),
+    # bulk copies (the TMA's one-dimensional form) into the ring
+    "conv_finish": ("conv_finish", ("conv_finish_bulk_kernel",
+                                    "conv_finish_sum_kernel"),
+                    ("cluster",), "UBLKCP"),
 }
 # `--kernels NAME,...`: only these kernels' phases
 ONLY_PHASES = {"upsample2x": upsample_phases, "sw_exit": sw_io_phases,

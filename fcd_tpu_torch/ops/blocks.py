@@ -43,7 +43,10 @@ on conv1's shard (`conv3x3_row_op`: B1's partial instance, the f32
 all-reduce, the finishing pass), the shortcut's output gathered, and the
 finale on the whole tensors, the same on every rank. A transformer's
 conv1 is row-parallel too: its whole input is sliced. A conv whose
-weight is replicated runs whole.
+weight is replicated runs whole. The plain route pairs its convs the same
+way (`_plain_tp`, `conv3x3_row_plain`: the partial in f32, rounded once
+after the all-reduce), and the up-blocks' `conv_transpose3d` is
+column-parallel and gathered as B4 is.
 """
 
 from __future__ import annotations
@@ -82,6 +85,7 @@ from fcd_tpu_torch.ops.layers import (
 )
 from fcd_tpu_torch.parallel.mesh import (
     Mesh,
+    column_parallel,
     copy_to_model,
     gather_channels,
     reduce_from_model,
@@ -100,6 +104,62 @@ def conv3x3_row_op(x: torch.Tensor, w: torch.Tensor, mesh: Mesh, *,
     B1's partial instance, the f32 all-reduce, the finishing pass."""
     part = conv3x3_partial_op(x, w, prologue=prologue)
     return conv_finish_op(reduce_from_model(part, mesh), x.dtype)
+
+
+def _conv3d_grads(g: torch.Tensor, x: torch.Tensor, w: torch.Tensor,
+                  need) -> Tuple[Optional[torch.Tensor],
+                                 Optional[torch.Tensor]]:
+    """(dx, dw) of `conv3d(x, w)` (stride 1, padding k // 2) for its output
+    cotangent g, in their dtype, as autograd computes them for that call:
+    aten's convolution_backward on the same permuted views (cuDNN's data
+    and weight gradients on the card). `need`: which of the two."""
+    pad = w.shape[0] // 2
+    dx, dw, _ = torch.ops.aten.convolution_backward(
+        g.permute(0, 4, 1, 2, 3), x.permute(0, 4, 1, 2, 3),
+        w.permute(4, 3, 0, 1, 2), None, [1] * 3, [pad] * 3, [1] * 3, False,
+        [0] * 3, 1, [bool(need[0]), bool(need[1]), False])
+    return (None if dx is None else dx.permute(0, 2, 3, 4, 1),
+            None if dw is None else dw.permute(2, 3, 4, 1, 0))
+
+
+class _RowPartial(torch.autograd.Function):
+    """A row-parallel conv's partial: `conv3d` of this rank's input-channel
+    slices x and w (x's dtype), taken in f32 from those values and never
+    rounded; its gradients are the conv's own in x's dtype, as one device
+    computes them (each rank's dx and dw slices are whole sums, not
+    partials)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return conv3d(x.float(), w.float())
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        return _conv3d_grads(g.to(x.dtype).contiguous(), x, w,
+                             ctx.needs_input_grad)
+
+
+def conv3x3_row_plain(x: torch.Tensor, w: torch.Tensor,
+                      mesh: Mesh) -> torch.Tensor:
+    """The plain route's row-parallel 3x3x3 conv, with gradients: x and w
+    are this rank's slices of the input channels. Each rank's partial is
+    taken in f32 from x's dtype's operands (at f16 the products are exact
+    in f32, and in TF32 too), the partials are summed in f32, and the sum
+    is rounded once to x's dtype, where one device rounds its f32
+    accumulation: an f16 conv would round each rank's partial first. The
+    backward is the conv's own in x's dtype (`_RowPartial`)."""
+    part = _RowPartial.apply(x, w.to(x.dtype))
+    return reduce_from_model(part, mesh).to(x.dtype)
+
+
+def _norm(module, t):
+    return instance_norm(t) if module is None else module(t)
+
+
+def _act(t):
+    return F.leaky_relu(t, NEGATIVE_SLOPE)
 
 
 class UnetResBlock(nn.Module):
@@ -150,20 +210,16 @@ class UnetResBlock(nn.Module):
 
     def _plain(self, parts, pool: bool, head):
         """The plain route: `fcd_tpu/ops/blocks.py:416-433` on the parts'
-        concatenation."""
+        concatenation (under tensor parallelism, `_plain_tp`)."""
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-
-        def norm(module, t):
-            return instance_norm(t) if module is None else module(t)
-
-        def act(t):
-            return F.leaky_relu(t, NEGATIVE_SLOPE)
-
-        out = act(norm(self.norm1, conv3d(x, self.conv1)))
-        out = norm(self.norm2, conv3d(out, self.conv2))
-        res = (x if self.conv3 is None
-               else norm(self.norm3, conv1x1(x, self.conv3)))
-        out = act(out + res)
+        if self.tp is not None and self.tp.role(self.conv2) is not None:
+            out, res = self._plain_tp(x)
+        else:
+            out = _act(_norm(self.norm1, conv3d(x, self.conv1)))
+            out = _norm(self.norm2, conv3d(out, self.conv2))
+            res = (x if self.conv3 is None
+                   else _norm(self.norm3, conv1x1(x, self.conv3)))
+        out = _act(out + res)
         if head is not None:
             return conv1x1(out, head[0], head[1])
         return (out, max_pool_2x_chain(out)) if pool else out
@@ -229,18 +285,11 @@ class UnetResBlock(nn.Module):
 
     def _convs_tp(self, parts, w1, wr, stats: bool, b: int, n: int):
         """conv1 (+ shortcut) and the row-parallel conv2 under tensor
-        parallelism (the module docstring). The rule splits conv1 as it
-        splits conv2 (both by one width): column-parallel in an encoder or
-        decoder (instance norm), row-parallel in a transformer (one part,
-        no shortcut). Returns (o1, o2) with o1.r and its sums whole and o2
-        whole, as the one-device path gives them."""
+        parallelism (the module docstring; conv1's role `_conv1_role`).
+        Returns (o1, o2) with o1.r and its sums whole and o2 whole, as the
+        one-device path gives them."""
         mm = self.tp.mesh
-        r1 = self.tp.role(self.conv1)
-        if (r1 == "col") != (self.norm1 is None) or (
-                self.conv3 is not None and self.tp.role(self.conv3) != r1):
-            raise NotImplementedError(
-                f"conv1 {r1}-parallel with {self.norm_name} norm")
-        if r1 == "col":
+        if self._conv1_role() == "col":
             o1 = conv3x3_op([copy_to_model(x, mm) for x in parts], w1,
                             shortcut=wr, want_stats=stats)
             # instance norm is per channel: the shard's own statistics
@@ -258,6 +307,45 @@ class UnetResBlock(nn.Module):
         o2 = conv3x3_row_op(y1, self.conv2, mm,
                             prologue=(scale1, shift1, NEGATIVE_SLOPE))
         return o1, (o2 if stats else ConvOut(o2.y))
+
+    def _conv1_role(self) -> str:
+        """conv1's role on the model axis. The rule splits conv1 as it
+        splits conv2 (both by one width): column-parallel in an encoder or
+        decoder (instance norm), row-parallel in a transformer (one part,
+        no shortcut); anything else raises."""
+        r1 = self.tp.role(self.conv1)
+        if (r1 == "col") != (self.norm1 is None) or (
+                self.conv3 is not None and self.tp.role(self.conv3) != r1):
+            raise NotImplementedError(
+                f"conv1 {r1}-parallel with {self.norm_name} norm")
+        return r1
+
+    def _plain_tp(self, x):
+        """The plain branch's convs and norms under tensor parallelism, as
+        `_convs_tp` pairs the kernel route's (the module docstring), on
+        the concatenated input x: (conv2's normed output, the shortcut),
+        both whole. Column-parallel conv1 on the whole input and instance
+        norm per channel on its shard, the shortcut column-parallel and
+        gathered (`conv1x1`); or, in a transformer, a row-parallel conv1 on
+        x's slice and its batch
+        norm on the whole sum (the running statistics the same on every
+        rank). conv2 row-parallel on the shard (`conv3x3_row_plain`), its
+        norm on the whole sum. Each column-parallel op's input gradient is
+        summed over the ranks in f32 and rounded once (`column_parallel`),
+        and the branches' are added in x's dtype, as one device adds
+        them."""
+        mm = self.tp.mesh
+        if self._conv1_role() == "col":
+            h = _act(instance_norm(column_parallel(conv3d, x, self.conv1,
+                                                   mm)))
+            res = (x if self.conv3 is None else
+                   instance_norm(conv1x1(x, self.conv3, tp=self.tp)))
+        else:
+            s1 = conv3x3_row_plain(slice_channels(x, mm), self.conv1, mm)
+            h = slice_channels(_act(_norm(self.norm1, s1)), mm)
+            res = x
+        out = _norm(self.norm2, conv3x3_row_plain(h, self.conv2, mm))
+        return out, res
 
 
 class UnetrBasicBlock(UnetResBlock):
@@ -289,12 +377,14 @@ class UnetrUpBlock(nn.Module):
                 head=None) -> torch.Tensor:
         """head=(w, bias): the block's finale runs fused with the 1x1
         head (B15) and the block returns the logits."""
-        if self.plain_route:
-            up = conv_transpose3d(x, self.transp)
-        elif self.tp is not None and self.tp.role(self.transp) == "col":
+        if self.tp is not None and self.tp.role(self.transp) == "col":
             mm = self.tp.mesh   # column-parallel, then gathered
             up = gather_channels(
+                column_parallel(conv_transpose3d, x, self.transp, mm)
+                if self.plain_route else
                 upsample2x_op(copy_to_model(x, mm), self.transp), mm)
+        elif self.plain_route:
+            up = conv_transpose3d(x, self.transp)
         else:
             up = upsample2x_op(x, self.transp)
         return self.block([up, skip], head=head)

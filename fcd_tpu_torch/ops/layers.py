@@ -49,7 +49,7 @@ import torch.nn.functional as F
 
 from fcd_tpu_torch.parallel.mesh import (
     all_reduce_sum,
-    copy_to_model,
+    column_parallel,
     gather_channels,
     reduce_from_model,
     slice_channels,
@@ -82,21 +82,25 @@ def use_plain_route(model: nn.Module) -> nn.Module:
     return model
 
 
+def _matmul(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(x, kernel.to(x.dtype))
+
+
 def conv1x1(x: torch.Tensor, kernel: torch.Tensor,
             bias: Optional[torch.Tensor] = None, tp=None) -> torch.Tensor:
     """1x1x1 conv: x (..., Cin) @ kernel (Cin, Cout) (+ bias), in x's dtype.
     `tp` (a module's tensor-parallel layout, `parallel/tp.py`) runs a
-    sharded kernel on the model axis: column-parallel, then the output
-    gathered; row-parallel on x's channel slice, the f32 partials summed
-    over the ranks and then rounded (where one device rounds its f32
-    accumulation); the bias added to the whole output."""
+    sharded kernel on the model axis: column-parallel (`column_parallel`:
+    x's gradient summed over the ranks in f32, then rounded), then the
+    output gathered; row-parallel on x's channel slice, the f32 partials
+    summed over the ranks and then rounded (where one device rounds its
+    f32 accumulation); the bias added to the whole output."""
     role = None if tp is None else tp.role(kernel)
     if role is None:
         out = torch.matmul(x, kernel.to(x.dtype))
     elif role == "col":
-        out = gather_channels(
-            torch.matmul(copy_to_model(x, tp.mesh), kernel.to(x.dtype)),
-            tp.mesh)
+        out = gather_channels(column_parallel(_matmul, x, kernel, tp.mesh),
+                              tp.mesh)
     else:
         xs = slice_channels(x, tp.mesh)
         out = reduce_from_model(

@@ -237,7 +237,8 @@ def gather_batch(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
 # backward keeps every replicated value's cotangent whole on every rank and
 # a shard's cotangent on its rank:
 #   replicated -> column-parallel op   identity;   backward all-reduces (each
-#                                      rank's op saw only its output slice)
+#                                      rank's op saw only its output slice;
+#                                      `column_parallel` in f32)
 #   row-parallel partial -> replicated all-reduce (f32); backward identity
 #   column-parallel shard -> replicated all-gather;  backward keeps the slice
 #   replicated -> row-parallel shard   slice;      backward all-gathers
@@ -305,6 +306,44 @@ class _SliceChannels(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return _gather_last(g.contiguous(), ctx.mesh), None
+
+
+class _ColumnParallel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, op, mesh):
+        ctx.op, ctx.mesh = op, mesh
+        ctx.save_for_backward(x, w)
+        return op(x, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        dx = dw = None
+        with torch.enable_grad():
+            if ctx.needs_input_grad[0]:
+                xf = x.detach().float().requires_grad_()
+                wf = w.detach().to(x.dtype).float()   # as op rounds it
+                dx, = torch.autograd.grad(ctx.op(xf, wf), xf, g.float())
+                dx = all_reduce_(ctx.mesh, dx.contiguous()).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                wd = w.detach().requires_grad_()
+                dw, = torch.autograd.grad(ctx.op(x.detach(), wd), wd, g)
+        return dx, dw, None, None
+
+
+def column_parallel(op: Callable, x: torch.Tensor, w: torch.Tensor,
+                    mesh: Mesh) -> torch.Tensor:
+    """`op(x, w)` (linear in x) of a replicated x and this rank's
+    output-channel shard w, as one device runs it in x's dtype; backward:
+    w's gradient as one device computes it, and x's the ranks' partials
+    taken in f32 from x's dtype's values, summed over the model axis and
+    rounded once, where one device rounds the op's f32 accumulation
+    (`copy_to_model` would sum partials each rounded to x's dtype). The
+    backward runs op again, in f32 and in x's dtype. An f32 x takes
+    `copy_to_model`, which sums the same f32 partials."""
+    if x.dtype == torch.float32:
+        return op(copy_to_model(x, mesh), w)
+    return _ColumnParallel.apply(x, w, op, mesh)
 
 
 def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

@@ -20,9 +20,15 @@ function to it. A column-parallel op reads it whole and writes its channel
 shard; a row-parallel op reads a channel shard (its producer's, or a slice
 of a replicated value) and writes an f32 partial sum, all-reduced into the
 whole (for the 3x3x3 conv: B1's partial instance, the all-reduce, the
-finishing pass, `ops/blocks.py::conv3x3_row_op`). A shard whose
-consumer is replicated (the shortcut, the up-sample, the embeds) is
-all-gathered. The collectives are the autograd functions of
+finishing pass, `ops/blocks.py::conv3x3_row_op`; on the plain route
+`conv3d` on f32 operands, the all-reduce, one rounding to the compute
+type, `conv3x3_row_plain`). Where a column-parallel op's input gradient is
+the partial sum (the dual of a row-parallel forward), the plain route and
+the embeds take it in f32 too, summed and then rounded once
+(`mesh.column_parallel`): one device rounds each op's f32 accumulation,
+then adds the branches in the compute type. A shard whose consumer is
+replicated (the shortcut, the up-sample, the embeds) is all-gathered. The
+collectives are the autograd functions of
 `parallel/mesh.py`, so every replicated value's cotangent is whole on every
 rank and a parameter's gradient is its shard's (a replicated parameter's
 the same on every rank, never summed over the model axis). At eval a
@@ -39,8 +45,9 @@ tests), and `load_flax_variables` then `shard_state_tp` gives a rank its
 state from the JAX package's.
 
 MS_DSA_NET and BaseUNet only (the models whose every sharded leaf sits in
-a block that splits it), on the kernel route: another model, or one on the
-plain route (f32 or f16 on the card), raises.
+a block that splits it), on either route: the kernel route (bf16 on the
+card) and the plain route (f32 or f16 on the card, f32 in the tests, the
+JAX package's TP test's `use_amp=False`). Another model raises.
 """
 
 from __future__ import annotations
@@ -173,8 +180,9 @@ def shard_state_tp(model: torch.nn.Module, mesh: Mesh,
     if not isinstance(model, (MS_DSA_NET, BaseUNet)) or getattr(
             model, "upsample_mode", None) is not None:
         raise NotImplementedError(
-            f"tensor parallelism runs MS_DSA_NET and BaseUNet (the blocks "
-            f"that split their convs), not {type(model).__name__}")
+            f"tensor parallelism runs MS_DSA_NET and BaseUNet (their "
+            f"UnetrUpBlock decoders and res blocks split their convs), not "
+            f"{type(model).__name__}")
     mm = mesh.model
     layout = TPLayout(mm)
     for coll, path, t, one in model_entries(model):
@@ -243,10 +251,6 @@ def model_parallel(model: torch.nn.Module):
                            "shard_state_tp")
     mods = list(model.modules())
     for m in mods:
-        if getattr(m, "plain_route", False):
-            raise NotImplementedError(
-                "tensor parallelism runs the kernel route; a model on the "
-                "plain route (f32 or f16 on the card) has none")
         m.tp = layout
     try:
         yield layout

@@ -216,6 +216,72 @@ def test_conv_finish_kernel_matches_plain(dev, shape):
     assert all(torch.equal(a, b) for a, b in zip((y, s1, s2), again))
 
 
+# the finishing pass at its edges: C 8 and 1024, batch 2, voxel counts no
+# multiple of a chunk or of a block's rows, and one shape on each side of
+# the one-launch threshold (ONE_LAUNCH = 32 x 32 x 16 voxels x 16)
+@pytest.mark.parametrize("shape,one_launch", [
+    ((1, 4, 4, 4, 1024), True), ((2, 5, 7, 9, 8), True),
+    ((2, 13, 11, 9, 32), True), ((1, 32, 32, 16, 16), True),
+    ((1, 32, 32, 17, 16), False), ((2, 33, 31, 29, 20), False)])
+def test_conv_finish_kernel_at_its_edges(dev, shape, one_launch):
+    from fcd_tpu_torch.kernels.conv_finish import (
+        conv_finish,
+        conv_finish_plain,
+        finish_plan,
+    )
+
+    nvox = shape[1] * shape[2] * shape[3]
+    assert bool(finish_plan(shape[0], nvox, shape[-1]).cluster) == one_launch
+    gen = torch.Generator(device=dev).manual_seed(10)
+    s = _randn(gen, dev, *shape) + 0.3
+    got = conv_finish(s)
+    torch.cuda.synchronize()
+    want = conv_finish_plain(s, torch.bfloat16)
+    assert torch.equal(got[0], want[0])
+    assert _rel(got[1], want[1]) <= 1e-5 and _rel(got[2], want[2]) <= 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(got, conv_finish(s)))
+
+
+def test_conv_finish_kernel_under_every_plan(dev):
+    """One launch at cluster sizes 1 to the card's limit and two launches
+    at 1 to 528 blocks: y the same bits, the sums within rel 1e-5."""
+    from fcd_tpu_torch.kernels.conv_finish import (
+        cluster_limit,
+        conv_finish,
+        conv_finish_plain,
+        finish_plan,
+    )
+
+    shape = (2, 9, 8, 5, 20)
+    nvox = 9 * 8 * 5
+    s = _randn(torch.Generator(device=dev).manual_seed(11), dev, *shape)
+    want = conv_finish_plain(s, torch.bfloat16)
+    limit = cluster_limit(s.device)
+    plans = [finish_plan(2, nvox, 20, one_launch=True, cluster=k)
+             for k in (1, 3, 8, 16) if k <= limit] + [
+        finish_plan(2, nvox, 20, one_launch=False, blocks=n)
+        for n in (1, 7, 528)]
+    for plan in plans:
+        got = conv_finish(s, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]), plan
+        assert _rel(got[1], want[1]) <= 1e-5, plan
+        assert _rel(got[2], want[2]) <= 1e-5, plan
+
+
+@pytest.mark.parametrize("grid,c,names", [
+    ((4, 4, 4), 512, ["conv_finish_bulk_kernel"]),
+    ((32, 32, 32), 32, ["conv_finish_bulk_kernel", "conv_finish_sum_kernel"])])
+def test_conv_finish_launches_only_its_kernels(dev, grid, c, names):
+    """One launch (a cluster) below the threshold, the kernel and its run
+    sum above it: no PyTorch op does device work beside them."""
+    from fcd_tpu_torch.kernels.conv_finish import conv_finish
+
+    s = _randn(torch.Generator(device=dev).manual_seed(12), dev, 1, *grid, c)
+    _only_kernels(lambda: conv_finish(s), [(conv_finish, 1)], "conv_finish",
+                  names)
+
+
 @pytest.mark.parametrize("pool", [False, True])
 def test_finale_pool_kernel_matches_plain(dev, pool):
     from fcd_tpu_torch.kernels.pool import finale_pool, finale_pool_plain

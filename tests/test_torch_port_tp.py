@@ -48,6 +48,17 @@ rel 1e-4 (f32, only the order of the sums differs).
 (e) The mesh: rank r sits at (r // 4, r % 4); every rank's state after
 the step is rank 0's; the state's shards, moments included, gather back
 to what was sharded.
+(f) `parallel.mesh.column_parallel` at bf16, the column-parallel op the
+card's f16 route runs (an f32 x takes `copy_to_model`): the output, x's
+gradient summed in f32 and rounded once, and w's gradient, against the
+one-device op.
+
+(b), (c) and the state of (e) are held on both routes, one case each:
+the kernel route (the kernels' plain versions here) and the plain route
+(`use_plain_route`: library convs, the row-parallel conv's partial in f32
+and rounded once after the all-reduce, `ops/blocks.py::
+conv3x3_row_plain`), the route the card takes at f32 and f16 and the JAX
+package's own at `use_amp=False`, the JAX TP test's setting.
 
 The 8 ranks are spawned once for the module
 (`torch_port_mesh_ranks.tp_checks`), in a thread beside the JAX side's
@@ -134,12 +145,15 @@ def results():
     x = rng.rand(2, *IMG, 2).astype(np.float32)
     y = (rng.rand(2, *IMG, 1) > 0.7).astype(np.float32)
     conv_case = _conv_case(rng)
+    column_case = (rng.normal(size=(2, 5, 6, 7, 24)).astype(np.float32),
+                   (rng.normal(size=(24, 16)) * 0.2).astype(np.float32),
+                   rng.normal(size=(2, 5, 6, 7, 16)).astype(np.float32))
     port = {}
 
     def run_port():
         try:
             port["out"] = launch(ranks.tp_checks, SHAPE[0] * SHAPE[1], IMG,
-                                 v, x, y, LR, conv_case, SHAPE,
+                                 v, x, y, LR, conv_case, SHAPE, column_case,
                                  device_type="cpu", threads=1)
         except BaseException as e:        # re-raised in the test's thread
             port["error"] = e
@@ -231,16 +245,21 @@ def test_spec_falls_back_to_replicated():
             tuple(jax_spec_for(path, shape, n)) == ()
 
 
-def test_mesh_coordinates(results):
+ROUTES = ["kernel", "plain"]
+
+
+@pytest.mark.parametrize("route", ROUTES)
+def test_mesh_coordinates(results, route):
     """Rank r at (r // n_model, r % n_model), as np.reshape lays out the
     JAX mesh; each rank holds row- and column-parallel shards."""
     for r, out in enumerate(results["port"]):
         assert out["coords"] == (r // SHAPE[1], r % SHAPE[1], r)
-        assert {"col", "row"} <= set(out["roles"])
+        assert {"col", "row"} <= set(out[route]["roles"])
 
 
-def test_tp_loss_matches_jax(results):
-    assert results["port"][0]["loss"] == pytest.approx(
+@pytest.mark.parametrize("route", ROUTES)
+def test_tp_loss_matches_jax(results, route):
+    assert results["port"][0][route]["loss"] == pytest.approx(
         results["jax"]["loss"], rel=1e-4)
 
 
@@ -250,13 +269,14 @@ def _leaf(tree, path):
     return np.asarray(tree, np.float64)
 
 
-def test_tp_grads_match_jax(results):
+@pytest.mark.parametrize("route", ROUTES)
+def test_tp_grads_match_jax(results, route):
     """(b): every gathered gradient leaf within GRAD_MARGIN times the JAX
     gradient's own largest distance under N_NUDGES inputs times
     (1 + NUDGE * N(0, 1)), plus GRAD_FLOOR, in rel-L2 (a gradient scaled
     by k reads |k - 1|)."""
     jx = results["jax"]
-    got = results["port"][0]["grads"]
+    got = results["port"][0][route]["grads"]
     leaves = jax.tree_util.tree_flatten_with_path(jx["grads"])[0]
     assert len(leaves) == len(jax.tree_util.tree_leaves(got))
     for path, want in leaves:
@@ -268,11 +288,12 @@ def test_tp_grads_match_jax(results):
             jax.tree_util.keystr(path), rel, ref)
 
 
-def test_tp_params_match_jax(results):
+@pytest.mark.parametrize("route", ROUTES)
+def test_tp_params_match_jax(results, route):
     """(b): every leaf, at rtol 2e-4 / atol 1e-6 where the gradient's sign
     is determined, within 2 lr everywhere."""
     jx = results["jax"]
-    got = results["port"][0]["variables"]["params"]
+    got = results["port"][0][route]["variables"]["params"]
     n_strict = n_all = 0
     for path, want in jax.tree_util.tree_flatten_with_path(jx["params"])[0]:
         mine, g = _leaf(got, path), _leaf(jx["grads"], path)
@@ -288,8 +309,9 @@ def test_tp_params_match_jax(results):
     assert n_strict > 0.3 * n_all
 
 
-def test_tp_running_stats_match_jax(results):
-    got = results["port"][0]["variables"]["batch_stats"]
+@pytest.mark.parametrize("route", ROUTES)
+def test_tp_running_stats_match_jax(results, route):
+    got = results["port"][0][route]["variables"]["batch_stats"]
     want = results["jax"]["batch_stats"]
     leaves = jax.tree_util.tree_flatten_with_path(want)[0]
     assert leaves
@@ -301,9 +323,10 @@ def test_tp_running_stats_match_jax(results):
             jax.tree_util.keystr(path)
 
 
-def test_tp_forward_matches_jax(results):
+@pytest.mark.parametrize("route", ROUTES)
+def test_tp_forward_matches_jax(results, route):
     want = results["jax"]["forward"]
-    outs = results["port"]
+    outs = [out[route] for out in results["port"]]
     got = outs[0]["forward"]
     assert got.shape == want.shape == (2,) + IMG + (2,)
     assert np.abs(got - want).max() < 1e-4 * np.abs(want).max()
@@ -311,8 +334,11 @@ def test_tp_forward_matches_jax(results):
         np.testing.assert_array_equal(out["forward"], got)
 
 
-def test_every_rank_holds_the_same_state(results):
-    outs = results["port"]
+@pytest.mark.parametrize("route", ROUTES)
+def test_every_rank_holds_the_same_state(results, route):
+    """The state after the step, the batch norms' running statistics
+    included, the same bits on every rank."""
+    outs = [out[route] for out in results["port"]]
     assert all(out["roundtrip"] for out in outs)
     ref = jax.tree_util.tree_leaves(outs[0]["variables"])
     for out in outs[1:]:
@@ -333,11 +359,28 @@ def test_split_conv_matches_whole(results, what):
         assert np.abs(got - want).max() <= tol * np.abs(want).max(), what
 
 
+def test_column_parallel_rounds_once(results):
+    """(f) A bf16 column-parallel matmul on the model axis of 4: the
+    gathered output and the weight gradient's shard are the one-device
+    matmul's within a bf16 ulp, and x's gradient is the ranks' f32
+    partials summed and rounded once: the f32 sum rounded to bf16 within
+    an ulp (each rank's partial rounded first would be off by more where
+    the partials cancel)."""
+    ulp = 2.0 ** -7
+    for out in results["port"][:SHAPE[1]]:
+        y, y1, dx, dx1, dw, dw1 = out["column"]
+        for got, want in ((y, y1), (dx, dx1), (dw, dw1)):
+            assert got.shape == want.shape
+            assert (np.abs(got - want) <= ulp * np.abs(want) + 1e-30).all()
+
+
 def test_tp_refuses_what_it_cannot_split():
     """Models whose sharded leaves sit outside the splitting blocks (a
-    pixelshuffle decoder's conv, UNETR's layers), a 1-D mesh, and a model
-    on the plain route raise instead of running a wrong function."""
+    pixelshuffle decoder's conv, UNETR's layers, a SegResNet's), on either
+    route, and a 1-D mesh raise instead of running a wrong function; a
+    model on the plain route runs under `model_parallel`."""
     from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET_PS
+    from fcd_tpu_torch.models.segresnet import SegResNet
     from fcd_tpu_torch.models.unetr import UNETR
     from fcd_tpu_torch.ops.layers import use_plain_route
     from fcd_tpu_torch.parallel.mesh import Mesh
@@ -349,7 +392,9 @@ def test_tp_refuses_what_it_cannot_split():
     for other in (MS_DSA_NET_PS(2, (32, 32, 32), feature_size=4,
                                 project_size=16, num_layers=1),
                   UNETR(img_size=(32, 32, 32), feature_size=4, hidden_size=48,
-                        mlp_dim=48, num_heads=4)):
+                        mlp_dim=48, num_heads=4),
+                  SegResNet(init_filters=4),
+                  use_plain_route(SegResNet(init_filters=4))):
         with pytest.raises(NotImplementedError, match="MS_DSA_NET"):
             shard_state_tp(other, mesh)
     model = MS_DSA_NET(2, (32, 32, 32), in_channels=2, feature_size=4,
@@ -359,8 +404,8 @@ def test_tp_refuses_what_it_cannot_split():
     with pytest.raises(RuntimeError, match="sharded"):
         with model_parallel(model):
             pass
-    model.tp_layout = object()
+    model.tp_layout = layout = object()
     use_plain_route(model)
-    with pytest.raises(NotImplementedError, match="plain route"):
-        with model_parallel(model):
-            pass
+    with model_parallel(model):
+        assert all(m.tp is layout for m in model.modules())
+    assert all(getattr(m, "tp", None) is None for m in model.modules())

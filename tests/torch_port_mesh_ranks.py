@@ -22,6 +22,7 @@ from fcd_tpu_torch.parallel.dp import make_dp_train_step
 from fcd_tpu_torch.kernels.block_conv import conv3x3_op
 from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET
 from fcd_tpu_torch.ops.blocks import conv3x3_row_op
+from fcd_tpu_torch.ops.layers import use_plain_route
 from fcd_tpu_torch.parallel import tp
 from fcd_tpu_torch.parallel.mesh import channel_slice, data_sharding, make_mesh
 from fcd_tpu_torch.parallel.sw import sharded_sliding_window_inference
@@ -176,15 +177,53 @@ def _split_conv(mm, case):
     return out
 
 
-def tp_checks(img, variables, x, y, lr, conv_case, shape=(2, 4)):
-    """Run on n_data x n_model ranks: the TP eval forward of `variables`
-    on x, one TP step on (x, y), the state after it and the step's
-    gradients gathered whole (flax trees), the loss; the mesh
-    coordinates; and B1 split around the all-reduce on the model axis
-    (`_split_conv`)."""
+def _column(mm, case):
+    """`column_parallel` of a bf16 matmul (x replicated, w's output
+    columns sharded over model axis `mm`), gathered, against the one-device
+    matmul: (y, y whole, dx, dx of f32 sums rounded once, dw, dw whole's
+    slice), as f32 arrays."""
+    from fcd_tpu_torch.ops.layers import _matmul
+    from fcd_tpu_torch.parallel.mesh import column_parallel, gather_channels
+
+    x, w, g = (torch.from_numpy(a) for a in case)
+    bf = torch.bfloat16
+    cols = channel_slice(mm, w.shape[-1])
+    xs = x.to(bf).requires_grad_(True)
+    ws = w[:, cols].clone().requires_grad_(True)
+    out = gather_channels(column_parallel(_matmul, xs, ws, mm), mm)
+    out.backward(g.to(bf))
+    xw, ww = x.to(bf).requires_grad_(True), w.clone().requires_grad_(True)
+    whole = _matmul(xw, ww)
+    whole.backward(g.to(bf))
+    exact = (g.to(bf).float() @ w.to(bf).float().t()).to(bf)
+    return [t.detach().float().numpy() for t in (
+        out, whole, xs.grad, exact, ws.grad, ww.grad[:, cols])]
+
+
+def tp_checks(img, variables, x, y, lr, conv_case, shape=(2, 4),
+              column_case=None):
+    """Run on n_data x n_model ranks: `_tp_route` on the kernel route (the
+    kernels' plain versions here) and on the plain route, the mesh
+    coordinates, B1 split around the all-reduce on the model axis
+    (`_split_conv`) and a bf16 `column_parallel` matmul (`_column`)."""
     torch.set_grad_enabled(True)
     mesh = tp.make_tp_mesh(*shape)
+    out = {route: _tp_route(img, variables, x, y, lr, mesh, route)
+           for route in ("kernel", "plain")}
+    out.update(coords=(mesh.rank, mesh.model.rank, dist.get_rank()),
+               conv=_split_conv(mesh.model, conv_case),
+               column=_column(mesh.model, column_case))
+    return out
+
+
+def _tp_route(img, variables, x, y, lr, mesh, route):
+    """On one route: the TP eval forward of `variables` on x, one TP step
+    on (x, y), the state after it and the step's gradients gathered whole
+    (flax trees), the loss, the layout's roles, and whether the state's
+    shards gather back to what was sharded."""
     model = tp_model(img, variables, feature_size=8, project_size=4)
+    if route == "plain":
+        use_plain_route(model)
     params = params_for(loss="DiceCELoss")
     opt = make_optimizer(params, model)
     layout = tp.shard_state_tp(model, mesh, opt)
@@ -203,9 +242,7 @@ def tp_checks(img, variables, x, y, lr, conv_case, shape=(2, 4)):
     tp.gather_tp_state(model, opt)
     again = [t for p in model.parameters()
              for t in [p.data] + list(opt.state[p].values())]
-    return {"coords": (mesh.rank, mesh.model.rank, dist.get_rank()),
-            "roundtrip": all(torch.equal(a, b) for a, b in zip(whole, again)),
+    return {"roundtrip": all(torch.equal(a, b) for a, b in zip(whole, again)),
             "roles": sorted(layout.roles.values()),
             "forward": fwd, "loss": float(loss), "grads": grads,
-            "variables": export_flax_variables(model),
-            "conv": _split_conv(mesh.model, conv_case)}
+            "variables": export_flax_variables(model)}
