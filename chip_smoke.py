@@ -1211,6 +1211,41 @@ def tp_width_phases(dev, gen, small=False):
                        s(64, 64, 64), 32, 8),
         upsample_phase("tp dec5 1x4^3x256->8^3x64", dev, gen, 1, (4, 4, 4),
                        256, 64),
+    ] + tp_zoo_width_phases(dev, gen, small)
+
+
+def tp_zoo_width_phases(dev, gen, small=False):
+    """B1, its partial instance, K1 and B4 at the shard widths the rest of
+    the zoo gives them over a model axis of 2 (TP_ZOO, the step at 64^3):
+    the column-parallel data gradient's partial instance (ROADMAP C23) at
+    MS_DSA_NET's dec1 and SwinUNETR's out block (12 channels a rank, no
+    multiple of 8), SwinUNETR's res blocks split to 12 (conv1 and the
+    shortcut, conv2's partial with its prologue, their weight gradients),
+    a SegResNet ResBlock's conv1 with its prologue on the whole input, and
+    B4 into half of SwinUNETR's out block and of UNETR's d4."""
+    s = (lambda *g: tuple(max(2, v // 16) for v in g)) if small else \
+        (lambda *g: g)
+    return [
+        partial_phase("tp dec1.conv1 dgrad 128^3x8->16 (C23)", dev, gen,
+                      s(128, 128, 128), 8, 16, prologue=False),
+        partial_phase("tp swin out.conv1 dgrad 64^3x12->24 (C23)", dev, gen,
+                      s(64, 64, 64), 12, 24, prologue=False),
+        partial_phase("tp swin enc0.conv2 128^3x12->24 +prologue", dev, gen,
+                      s(128, 128, 128), 12, 24),
+        conv_phase("tp swin enc0.conv1 128^3x2->12 +shortcut+stats", dev,
+                   gen, s(128, 128, 128), [2], 12, shortcut=True),
+        conv_phase("tp swin out.conv1 128^3x(24+24)->12 +shortcut+stats",
+                   dev, gen, s(128, 128, 128), [24, 24], 12, shortcut=True),
+        conv_phase("tp segres conv1 128^3x16->8 +prologue+stats", dev, gen,
+                   s(128, 128, 128), [16], 8, prologue=True),
+        wgrad_phase("tp swin out.conv1 1x64^3 (24+24)->12", dev, gen, 1,
+                    s(64, 64, 64), [24, 24], 12),
+        wgrad_phase("tp swin enc0.conv2 1x64^3 12->24 +prologue", dev, gen,
+                    1, s(64, 64, 64), [12], 24, prologue=True),
+        upsample_phase("tp swin out 1x64^3x24->128^3x12", dev, gen, 1,
+                       s(64, 64, 64), 24, 12),
+        upsample_phase("tp unetr d4 1x8^3x768->16^3x64", dev, gen, 1,
+                       (8, 8, 8), 768, 64),
     ]
 
 
@@ -3738,6 +3773,11 @@ TP_BATCH = 1           # one 128^3 patch: a level-1 f32 partial is 128 MiB
 # conv1, which run B1's partial instance and the finishing pass in B1's
 # place
 TP_ROW_CONVS = 23 + 12
+# the column-parallel convs' data gradients in a MS_DSA_NET step, B1's
+# partial instance in B1's place (C23: each rank's f32 share, summed over
+# the model axis, then rounded once): conv1 of encoders 1-5 (encoder 0's
+# input is the image) and both parts of the 5 decoders' conv1
+TP_COL_DGRADS = 5 + 2 * 5
 # The TP step against the one-card step: both bf16 on the kernel route,
 # the same seeds, so the nudged one-card step (x (1 + MESH_NUDGE)) is the
 # control. The loss within TP_LOSS_MARGIN times its distance (at least
@@ -3774,12 +3814,16 @@ def norm_rule(norms, ref, nudged):
     return ok, spread, logs
 
 
-def tp_counts(per: dict) -> dict:
+def tp_counts(per: dict, row: int = TP_ROW_CONVS, col: int = 0) -> dict:
     """Launch counts of a patch forward or a train step under TP_SHAPE:
-    `per`'s, the row-parallel convs moved from B1 to its split."""
+    `per`'s (one card's), the `row` row-parallel convs moved from B1 to
+    its partial instance and the finishing pass, and the `col` column-
+    parallel convs' data gradients (a step's) from B1 to its partial
+    instance."""
     out = dict(per)
-    out["conv3d"] -= TP_ROW_CONVS
-    out["conv3d_partial"] = out["conv_finish"] = TP_ROW_CONVS
+    out["conv3d"] -= row + col
+    out["conv3d_partial"] = row + col
+    out["conv_finish"] = row
     return out
 
 
@@ -3800,7 +3844,7 @@ def _digests(model) -> list:
 # K3/K4's instances of the type and no B1, partial or finish
 TP_ROUTES = (
     ("bf16", {}, (PATCH_REL_TOL, PATCH_ARGMAX_AGREE),
-     tp_counts(PER_PATCH), tp_counts(per_train_step())),
+     tp_counts(PER_PATCH), tp_counts(per_train_step(), col=TP_COL_DGRADS)),
     ("f32", F32_PARAMS, (F32_PATCH_REL_TOL, F32_ARGMAX_AGREE), F32_PATCH,
      F32_STEP),
     ("f16", F16_PARAMS, (F16_PATCH_REL_TOL, F16_ARGMAX_AGREE), F16_PATCH,
@@ -3810,6 +3854,64 @@ TP_ROUTES = (
 # time under a minute (each TP step moves its f32 cotangent partials
 # through gloo's host copies)
 TP_STEP_SIZE = {"f16": 64}
+# the rest of the factory's model types under TP (ROADMAP A9), each at the
+# factory's widths (fs16, P 64, SwinUNETR fs24, UNETR hidden 768), bf16
+# on the kernel route, plus UNet at f32 on the plain route: (label, the
+# trainer's params, forward limits against one card, the TP launch counts
+# of a patch forward and of a train step). A count is one card's (the
+# zoo's tables: ZOO_RUNS, A7_RUNS, unetrpp_counts, segres_counts) with the
+# row-parallel 3x3x3 convs of a forward (every split res block's conv2;
+# MS_DSA_NET_PS's transformers' conv1 too; a VAE step runs the decoder's
+# three ResBlocks twice) on B1's partial instance and the finishing pass,
+# and a step's column-parallel conv1 data gradients (each conv1 part whose
+# input needs one) on the partial instance. UNet and VNet launch no kernel.
+BF16_TOL = (PATCH_REL_TOL, PATCH_ARGMAX_AGREE)
+TP_ZOO = (
+    ("MS_DSA_NET_PS", {"model_type": "MS_DSA_NET_PS"}, BF16_TOL,
+     tp_counts(unet_patch(6, 12, 5, upsample=False)),
+     tp_counts(unet_step(6, 12, 5, upsample=False), col=TP_COL_DGRADS)),
+    ("UNETR++", UNETRPP, BF16_TOL, tp_counts(UNETRPP_PATCH, 23),
+     tp_counts(UNETRPP_STEP, 23, 22)),
+    ("UNETR", {"model_type": "UNETR"}, BF16_TOL,
+     tp_counts(a7_counts(4, 4)[0], 8), tp_counts(a7_counts(4, 4)[1], 8, 11)),
+    ("SwinUNETR", {"model_type": "SWINUNETR"}, BF16_TOL,
+     tp_counts(a7_counts(5, 5)[0], 10),
+     tp_counts(a7_counts(5, 5)[1], 10, 14)),
+    ("SegResNet", {"model_type": "SegResNet"}, BF16_TOL,
+     tp_counts(segres_counts(levels=0)[0], 12),
+     tp_counts(segres_counts(levels=0)[1], 12, 12)),
+    ("SegResNetVAE", {"model_type": "SegResNetVAE"}, BF16_TOL,
+     tp_counts(segres_counts(levels=0, vae=True)[0], 12),
+     tp_counts(segres_counts(levels=0, vae=True)[1], 15, 15)),
+    ("SegResNet_DSA", SEGRES, BF16_TOL, tp_counts(SEGRES_PATCH, 18),
+     tp_counts(SEGRES_STEP, 18, 18)),
+    ("SegResNetVAE_DSA", {"model_type": "SegResNetVAE_DSA"}, BF16_TOL,
+     tp_counts(segres_counts(vae=True)[0], 18),
+     tp_counts(segres_counts(vae=True)[1], 21, 21)),
+    ("UNet", {"model_type": "UNET"}, BF16_TOL) + NO_LAUNCHES,
+    ("VNet", {"model_type": "VNET"}, BF16_TOL) + NO_LAUNCHES,
+    ("UNet f32", {"model_type": "UNET", "use_amp": False},
+     (F32_PATCH_REL_TOL, F32_ARGMAX_AGREE)) + NO_LAUNCHES,
+)
+# the zoo's step patch: a 64^3 step keeps the zoo's TP under its time
+TP_ZOO_STEP_SIZE = 64
+# The zoo's bf16 TP loss is held to TP_LOSS_MARGIN times the nudged
+# one-card step's distance, at least TRAIN_LOSS_REL_TOL (the card's bf16
+# step against the f32 step, train_check's limit), not TP_LOSS_FLOOR: the
+# nudge (1e-6 of the input) is mostly rounded away by the bf16 cast, while
+# TP changes where bf16 rounds in every split layer. On an H100
+# SegResNetVAE's TP loss read rel 4.35e-4 against a nudged 1.06e-4 (its
+# loss adds the VAE branch's reconstruction error, the decoder run twice);
+# its gradients held the group and norm rules, and on the CPU in f32 its TP
+# step matches one device's to 1e-7 (tests/test_torch_port_tp_zoo_segres).
+TP_ZOO_LOSS_FLOOR = TRAIN_LOSS_REL_TOL
+# The f32 zoo entry's gradient groups take f32_train_check's floor
+# (F32_GRAD_FLOOR), not MESH_GRAD_FLOOR: UNet's f32 step itself varies by
+# up to 5.8e-3 rel-L2 a group from call to call on the card (two gloo ranks
+# share it; an H100: one rank's one-card step lay 5e-3 from its nudged
+# twin, the other rank's 5e-6, while its TP step read 4.2e-3-5.8e-3), as
+# the library's f32 convs differ from call to call; f32_train_check holds
+# the card's f32 step to the same floor.
 
 
 def tp_rank(small: bool = False) -> dict:
@@ -3835,12 +3937,23 @@ def tp_rank(small: bool = False) -> dict:
         out["routes"][name] = r
         if card:
             torch.cuda.empty_cache()
+    for name, extra, *_ in TP_ZOO:
+        t0 = time.perf_counter()
+        r = tp_route(mesh, dev, extra, small and "use_amp" in extra, small,
+                     None if small else TP_ZOO_STEP_SIZE, _module_groups)
+        r["seconds"] = time.perf_counter() - t0
+        out["routes"][name] = r
+        if card:
+            torch.cuda.empty_cache()
     return out
 
 
-def tp_route(mesh, dev, extra, plain, small, step_size=None) -> dict:
+def tp_route(mesh, dev, extra, plain, small, step_size=None,
+             groups=_groups) -> dict:
     """MS_DSA_NET at full width (fs16, project 64) with the trainer's
-    params and `extra` (the route's: bf16, f32 or f16), sharded by
+    params and `extra` (the route's: bf16, f32 or f16; or another model
+    type of TP_ZOO at the factory's widths, its gradients grouped by
+    top-level flax module, `groups`), sharded by
     `parallel.tp` from the same state as a one-card trainer's. The TP eval
     forward of one 128^3 patch against the one-card forward, and one TP
     train step (DiceCE, AdamW, dropout on, the trainer's seeds) against
@@ -3914,7 +4027,9 @@ def tp_route(mesh, dev, extra, plain, small, step_size=None) -> dict:
     sharded._train_setup()
     tp.shard_state_tp(sharded.model, mesh, sharded.optimizer)
     sharded._step_fn = tp.make_tp_train_step(
-        sharded.model, sharded.loss_fn, sharded.optimizer, mesh)
+        sharded.model, sharded.loss_fn, sharded.optimizer, mesh,
+        model_returns_vaeloss=sharded.params["model_returns_vaeloss"],
+        loss_vae_weight=sharded.params.get("loss_vae_weight", 0.2))
     with torch.enable_grad():
         reset_counts()
         loss, out["first_step_ms"] = clock(
@@ -3925,10 +4040,10 @@ def tp_route(mesh, dev, extra, plain, small, step_size=None) -> dict:
     tp.gather_tp_state(sharded.model, sharded.optimizer)
     out["loss"], out["single_loss"] = float(loss), float(single)
     out["nudged_loss"] = float(nudge)
-    out["grads"] = _grad_distance(sharded.model, alone.model)
-    out["ref_grads"] = _grad_distance(nudged.model, alone.model)
+    out["grads"] = _grad_distance(sharded.model, alone.model, groups)
+    out["ref_grads"] = _grad_distance(nudged.model, alone.model, groups)
     out["norms"], out["single_norms"], out["nudged_norms"] = (
-        _grad_norms(tr.model) for tr in (sharded, alone, nudged))
+        _grad_norms(tr.model, groups) for tr in (sharded, alone, nudged))
     out["digests"] = _digests(sharded.model)
     # the second step of each: ms/step
     tp.shard_state_tp(sharded.model, mesh, sharded.optimizer)
@@ -3950,12 +4065,17 @@ def tp_run(card, small=False) -> dict:
                    **({"device_type": "cpu", "threads": 2} if small else
                       {"device_type": "cuda", "devices": ["cuda:0"] * n}))
     failures, by_path = [], {}
-    for name, _, (fwd_tol, fwd_agree), fwd_want, step_want in TP_ROUTES:
+    # (entry, loss floor, the groups' rel-L2 floor)
+    entries = [(e, TP_LOSS_FLOOR, MESH_GRAD_FLOOR) for e in TP_ROUTES] + [
+        (e, TP_LOSS_FLOOR, F32_GRAD_FLOOR) if "use_amp" in e[1]
+        else (e, TP_ZOO_LOSS_FLOOR, MESH_GRAD_FLOOR) for e in TP_ZOO]
+    for (name, _, (fwd_tol, fwd_agree), fwd_want, step_want), floor, \
+            grad_floor in entries:
         for rank in ranks:
             r = rank["routes"][name]
             who = f"model rank {rank['rank']} of {n}"
             ok = tp_check(r, ranks[0]["routes"][name], name, who, small,
-                          fwd_tol, fwd_agree)
+                          fwd_tol, fwd_agree, floor, grad_floor)
             if not small:
                 print(f"  launches: forward {r['fwd_counts']}, step "
                       f"{r['step_counts']}", flush=True)
@@ -3964,23 +4084,28 @@ def tp_run(card, small=False) -> dict:
                 by_path[f"tp forward {name}, {who}"] = r["fwd_counts"]
                 by_path[f"tp step {name}, {who}"] = r["step_counts"]
             failures += [f"{name} {who}: {k}" for k, v in ok.items() if not v]
-        print(f"tp {name}: {ranks[0]['routes'][name]['seconds']:.1f} s in "
-              f"each rank", flush=True)
+        r = ranks[0]["routes"][name]
+        print(f"tp {name}: {r['seconds']:.1f} s in each rank; "
+              f"{r['fwd_ms']:.1f} ms/patch (one card "
+              f"{r['single_fwd_ms']:.1f}), {r['step_ms']:.1f} ms/step at "
+              f"{r['step_size']}^3 (one card {r['single_step_ms']:.1f})",
+              flush=True)
     print(f"tp: {time.perf_counter() - t0:.1f} s on {card}", flush=True)
     if failures:
         raise AssertionError(f"tp checks failed: {failures}")
     return by_path
 
 
-def tp_check(r, r0, name, who, small, fwd_tol, fwd_agree) -> dict:
+def tp_check(r, r0, name, who, small, fwd_tol, fwd_agree,
+             loss_floor=TP_LOSS_FLOOR, grad_floor=MESH_GRAD_FLOOR) -> dict:
     """Print one rank's TP results on one route against one card's and
     return {check: held}."""
     rel = abs(r["loss"] - r["single_loss"]) / abs(r["single_loss"])
     nudged = abs(r["nudged_loss"] - r["single_loss"]) / abs(r["single_loss"])
     good, lines = group_rule(
         {k: v for k, v in r["grads"].items() if not math.isnan(v[0])},
-        r["ref_grads"], floor=MESH_GRAD_FLOOR)
-    loss_tol = max(TP_LOSS_MARGIN * nudged, TP_LOSS_FLOOR)
+        r["ref_grads"], floor=grad_floor)
+    loss_tol = max(TP_LOSS_MARGIN * nudged, loss_floor)
     norms_ok, spread, logs = norm_rule(r["norms"], r["single_norms"],
                                        r["nudged_norms"])
     print(f"tp {name} ({who}, gloo, batch {TP_BATCH}x"
@@ -3994,9 +4119,9 @@ def tp_check(r, r0, name, who, small, fwd_tol, fwd_agree) -> dict:
           f"{r['single_step_ms']:.1f}), loss {r['loss']:.7f} vs "
           f"{r['single_loss']:.7f} rel {rel:.2e} (tol {loss_tol:.2e}: "
           f"{TP_LOSS_MARGIN}x the nudged one-card step's {nudged:.2e}, "
-          f"at least {TP_LOSS_FLOOR}), grads per group within "
+          f"at least {loss_floor}), grads per group within "
           f"{GROUP_MARGIN}x the nudged step's distance + "
-          f"{MESH_GRAD_FLOOR:.2e} {good}, gradient norms within "
+          f"{grad_floor:.2e} {good}, gradient norms within "
           f"{GROUP_MARGIN}x the nudged step's spread {spread:.2e} + "
           f"{MESH_GRAD_FLOOR:.2e} {norms_ok}", flush=True)
     print("  grads rel-L2/cosine per group, TP vs one card (the nudged "

@@ -52,6 +52,16 @@ conv3x3_row_op`, which runs the all-reduce); its two pieces are here:
 Their backward is `Conv3x3`'s for one part: the statistics' cotangents
 fold into dy on the whole output (the same on every rank), then B1's data
 gradient and K1's weight gradient on the rank's shard of the weight.
+
+A column-parallel conv (conv1 and the shortcut of a res block, whose
+weights hold this rank's slice of the output channels) is `conv3x3_op(...,
+grad_sum=...)`: the forward is B1's on the whole input, and its input's
+gradient a sum over the ranks. The backward takes each rank's share in
+f32 (B1's partial instance on the adjoint kernel, plus the shortcut's
+term), sums the shares over the model axis in f32 (`grad_sum`, the
+all-reduce that ops/ hands in: the wrappers stay free of the collectives),
+then runs the prologue's backward on the sum and rounds x's gradient once,
+where one device rounds its f32 accumulation (ROADMAP C23).
 """
 
 from __future__ import annotations
@@ -378,17 +388,28 @@ def _adjoint(w: torch.Tensor) -> torch.Tensor:
 
 
 def _part_grads(x, w, dy, pro, short, need_x: bool, need_w: bool,
-                need_pro: bool):
+                need_pro: bool, grad_sum=None):
     """(dx, dw, (dscale, dshift)) of one part of the conv for the folded
     cotangent dy (x's dtype), each None where not needed: dx with B1 on the
     adjoint kernel (plus the shortcut's (dr, wr) term), the prologue's
-    backward in plain PyTorch, dw with K1."""
+    backward in plain PyTorch, dw with K1. With `grad_sum` (a column-
+    parallel conv's sum over the model axis) dx is the ranks' f32 shares
+    summed, B1's partial instance in B1's place, then rounded once."""
     dx = dw = dpro = None
     if need_x or need_pro:
-        da = conv3x3([dy], [_adjoint(w)]).y.float()
+        if grad_sum is None:
+            da = conv3x3([dy], [_adjoint(w)]).y.float()
+        else:
+            da = conv3x3_partial(dy, _adjoint(w).contiguous())
         if short is not None:
             dr, wr = short
-            da = da + torch.matmul(dr, wr.to(dy.dtype).t()).float()
+            if grad_sum is None:
+                da = da + torch.matmul(dr, wr.to(dy.dtype).t()).float()
+            else:
+                da = da + torch.matmul(dr.float(),
+                                       wr.to(dy.dtype).float().t())
+        if grad_sum is not None:
+            da = grad_sum(da.contiguous())
         if pro is not None:
             scale = pro[0].float()[:, None, None, None, :]
             shift = pro[1].float()[:, None, None, None, :]
@@ -412,7 +433,7 @@ class Conv3x3(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, nparts: int, has_short: bool, has_pro: bool,
-                want_stats: bool, slope: float, *tensors):
+                want_stats: bool, slope: float, grad_sum, *tensors):
         parts = list(tensors[:nparts])
         weights = list(tensors[nparts:2 * nparts])
         k = 2 * nparts
@@ -423,6 +444,7 @@ class Conv3x3(torch.autograd.Function):
                     want_stats=want_stats)
         ctx.set_materialize_grads(False)
         ctx.flags = (nparts, has_short, has_pro, want_stats, slope)
+        ctx.grad_sum = grad_sum
         ctx.save_for_backward(*tensors, o.y, o.r)
         outs = [o.y]
         if want_stats:
@@ -451,7 +473,7 @@ class Conv3x3(torch.autograd.Function):
             gr = grads.pop(0)
             if want_stats:
                 grsum, grsq = grads.pop(0), grads.pop(0)
-        need = ctx.needs_input_grad[5:]   # after the five flags
+        need = ctx.needs_input_grad[6:]   # after the flags and grad_sum
         dtype = parts[0].dtype
         dy = _fold_stats(gy, gysum, gysq, y).to(dtype).contiguous()
         dr = (_fold_stats(gr, grsum, grsq, r).to(dtype)
@@ -463,7 +485,7 @@ class Conv3x3(torch.autograd.Function):
             short = (dr, shortcut[i]) if has_short else None
             dx, dw, dpro = _part_grads(
                 x, w, dy, pro, short, need[i], need[nparts + i],
-                pro is not None and (need[k] or need[k + 1]))
+                pro is not None and (need[k] or need[k + 1]), ctx.grad_sum)
             out[i], out[nparts + i] = dx, dw
             if dpro is not None:
                 out[k], out[k + 1] = dpro
@@ -472,14 +494,18 @@ class Conv3x3(torch.autograd.Function):
                 out[2 * nparts + i] = torch.matmul(
                     x.reshape(-1, ci).t().float(),
                     dr.reshape(-1, co).float()).to(shortcut[i].dtype)
-        return (None,) * 5 + tuple(out)
+        return (None,) * 6 + tuple(out)
 
 
 def conv3x3_op(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
                *, shortcut: Optional[Sequence[torch.Tensor]] = None,
                prologue: Optional[Prologue] = None,
-               want_stats: bool = False) -> ConvOut:
-    """`conv3x3` with gradients (the `Conv3x3` Function)."""
+               want_stats: bool = False, grad_sum=None) -> ConvOut:
+    """`conv3x3` with gradients (the `Conv3x3` Function). `grad_sum`: a
+    column-parallel conv's sum over the model axis (the parts replicated,
+    the weights this rank's output-channel shards; a callable that sums an
+    f32 tensor over the ranks); the parts' gradients (and the prologue's)
+    are then its f32 sums, rounded once."""
     _check_args(parts, weights, shortcut, prologue)
     tensors = list(parts) + list(weights) + list(shortcut or [])
     slope = 0.0
@@ -488,6 +514,7 @@ def conv3x3_op(parts: Sequence[torch.Tensor], weights: Sequence[torch.Tensor],
         slope = float(prologue[2])
     outs = list(Conv3x3.apply(len(parts), shortcut is not None,
                               prologue is not None, want_stats, slope,
+                              grad_sum,
                               *tensors))
     y = outs.pop(0)
     ysum, ysq = (outs.pop(0), outs.pop(0)) if want_stats else (None, None)

@@ -187,13 +187,17 @@ upsample2x.launches = 0
 
 
 class Upsample2x(torch.autograd.Function):
-    """Differentiable `upsample2x`: forward B4, backward two matmuls."""
+    """Differentiable `upsample2x`: forward B4, backward two matmuls. With
+    `grad_sum` (a column-parallel upsample's sum over the model axis: x
+    replicated, the kernel this rank's output-channel shard) x's gradient
+    is the ranks' f32 shares summed, then rounded once (ROADMAP C23)."""
 
     @staticmethod
-    def forward(ctx, x, kernel, bias):
+    def forward(ctx, x, kernel, bias, grad_sum):
         x = x.contiguous()
         ctx.save_for_backward(x, kernel)
         ctx.has_bias = bias is not None
+        ctx.grad_sum = grad_sum
         return upsample2x(x, kernel, bias)
 
     @staticmethod
@@ -202,16 +206,22 @@ class Upsample2x(torch.autograd.Function):
         ci, co = kernel.shape[3], kernel.shape[4]
         # g8[m, q * co + o]: the cotangent of output parity q of voxel m
         g8 = blocks_2x(g.to(x.dtype)).reshape(-1, 8 * co)
-        wm = upsample_matrix(kernel)
-        dx = torch.matmul(g8, wm.to(x.dtype).t()).reshape(x.shape)
+        wm = upsample_matrix(kernel).to(x.dtype)
+        if ctx.grad_sum is None:
+            dx = torch.matmul(g8, wm.t()).reshape(x.shape)
+        else:
+            dx = torch.matmul(g8.float(), wm.float().t()).reshape(x.shape)
+            dx = ctx.grad_sum(dx.contiguous()).to(x.dtype)
         dwm = torch.matmul(x.reshape(-1, ci).t().float(), g8.float())
         dk = torch.flip(dwm.reshape(ci, 8, co).permute(1, 0, 2).reshape(
             2, 2, 2, ci, co), dims=(0, 1, 2))
         db = (g.float().sum(dim=(0, 1, 2, 3)) if ctx.has_bias else None)
-        return dx, dk.to(kernel.dtype), db
+        return dx, dk.to(kernel.dtype), db, None
 
 
 def upsample2x_op(x: torch.Tensor, kernel: torch.Tensor,
-                  bias: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """`upsample2x` with gradients (the `Upsample2x` Function)."""
-    return Upsample2x.apply(x, kernel, bias)
+                  bias: Optional[torch.Tensor] = None,
+                  grad_sum=None) -> torch.Tensor:
+    """`upsample2x` with gradients (the `Upsample2x` Function);
+    `grad_sum`: a column-parallel upsample's sum over the model axis."""
+    return Upsample2x.apply(x, kernel, bias, grad_sum)

@@ -74,6 +74,7 @@ class PatchEmbed(nn.Module):
     tensor parallelism the conv runs split as `tp` says, `conv1x1`)."""
 
     tp = None
+    tp_splits = {"kernel": ("col", "row")}
 
     def __init__(self, in_channels: int, out_channels: int, groups: int):
         super().__init__()
@@ -92,9 +93,13 @@ class MS_DSA_NET(nn.Module):
     """MS_DSA_NET. forward: (B, D, H, W, in_channels) patches whose grid is
     img_size -> (B, D, H, W, out_channels) logits in compute_dtype. With
     an `upsample_mode`, the decoders are GeneralUnetrUpBlocks
-    (MS_DSA_NET_PS); `fast` routes their pixelshuffle convs through B1."""
+    (MS_DSA_NET_PS); `fast` routes their pixelshuffle convs through B1.
+    Under tensor parallelism a sharded head splits by its role
+    (`conv1x1`; B15 reads it whole)."""
 
     plain_route = False
+    tp = None
+    tp_splits = {"head": ("col", "row")}
 
     def __init__(self, out_channels: int, img_size: Sequence[int],
                  in_channels: int = 2, feature_size: int = 16,
@@ -193,9 +198,10 @@ class MS_DSA_NET(nn.Module):
         y3 = dec[2](y4, t3)
         y2 = dec[3](y3, x2)
         if self.fused_head and not self.training and not self.plain_route:
-            return dec[4](y2, x1, head=(self.head, self.head_bias))
+            head = self.head if self.tp is None else self.tp.whole(self.head)
+            return dec[4](y2, x1, head=(head, self.head_bias))
         y1 = dec[4](y2, x1)
-        return conv1x1(y1, self.head, self.head_bias)
+        return conv1x1(y1, self.head, self.head_bias, self.tp)
 
 
 class MS_DSA_NET_PS(MS_DSA_NET):
@@ -213,6 +219,9 @@ class BaseUNet(nn.Module):
     leaky-ReLU 0.01, no bias) of fs, 2 fs, ... channels, a 2x max pool
     after each but the last, UnetrUpBlock decoders (B4 upsample) over the
     skips, and a 1x1 head with bias."""
+
+    tp = None
+    tp_splits = {"head": ("col", "row")}
 
     def __init__(self, out_channels: int, in_channels: int = 2,
                  feature_size: int = 16, depth: int = 6):
@@ -248,4 +257,4 @@ class BaseUNet(nn.Module):
         dec = out
         for i, up in enumerate(self.decoders):
             dec = up(dec, feats[-(i + 2)])
-        return conv1x1(dec, self.head, self.head_bias)
+        return conv1x1(dec, self.head, self.head_bias, self.tp)

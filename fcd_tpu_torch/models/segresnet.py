@@ -27,6 +27,16 @@ ResBlock runs the JAX package's plain branch (:60-67: `instance_norm`,
 act, `F.conv3d`, twice, plus the identity), `fast` is not taken and the
 deconv upsample is `conv_transpose3d`: no B1 and no B4.
 
+Under tensor parallelism (`parallel/tp.py`) a ResBlock's conv1 is
+column-parallel and its conv2 row-parallel; their instance norm is per
+channel, so conv2 runs on conv1's output shard: B1 with the prologue on
+the whole input (x's gradient and the prologue's the ranks' f32 shares
+summed, then rounded once), the shard's statistics, then B1's partial
+instance, the all-reduce and the finishing pass (`ops/blocks.py::
+conv3x3_row_op`); on the plain route `column_parallel` and
+`conv3x3_row_plain`. Every other layer is a general layer of
+`ops/layers.py`, split by its role, its output whole.
+
 The VAE's normal draw (B, vae_nz) comes from the model's
 `dropout_rng.generator` (a torch.Generator the trainer seeds), or from
 `vae_noise` where the caller hands it in (the parity tests feed JAX's).
@@ -42,6 +52,7 @@ import torch.nn as nn
 
 from fcd_tpu_torch.kernels.block_conv import conv3x3_op
 from fcd_tpu_torch.ops.attention import ChannelDropout3d, TransformerBlock
+from fcd_tpu_torch.ops.blocks import conv3x3_row_op, conv3x3_row_plain
 from fcd_tpu_torch.ops.layers import (
     Conv3d,
     Dense,
@@ -54,6 +65,7 @@ from fcd_tpu_torch.ops.layers import (
     kaiming_normal_fan_out_,
     make_act,
 )
+from fcd_tpu_torch.parallel.mesh import column_parallel, model_sum
 
 
 class ResBlock(nn.Module):
@@ -62,6 +74,8 @@ class ResBlock(nn.Module):
     norm, the flax kernels conv1 / conv2 (3, 3, 3, C, C), no bias."""
 
     plain_route = False
+    tp = None
+    tp_splits = {"conv1": ("col",), "conv2": ("row",)}
 
     def __init__(self, channels: int, act=("relu", {})):
         super().__init__()
@@ -75,9 +89,30 @@ class ResBlock(nn.Module):
         kaiming_normal_fan_out_(self.conv1, generator)
         kaiming_normal_fan_out_(self.conv2, generator)
 
+    def _split(self) -> bool:
+        """Whether the block runs split on the model axis (the module
+        docstring); a pairing other than (col, row) raises."""
+        if self.tp is None:
+            return False
+        roles = (self.tp.role(self.conv1), self.tp.role(self.conv2))
+        if roles == (None, None):
+            return False
+        if roles != ("col", "row"):
+            raise NotImplementedError(
+                f"a ResBlock with conv1 {roles[0]}-parallel and conv2 "
+                f"{roles[1]}-parallel")
+        return True
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        split = self._split()
+        mm = self.tp.mesh if split else None
         if self.plain_route:
-            y = conv3d(self.act(instance_norm(x)), self.conv1)
+            a = self.act(instance_norm(x))
+            if split:
+                y = column_parallel(conv3d, a, self.conv1, mm)
+                return conv3x3_row_plain(self.act(instance_norm(y)),
+                                         self.conv2, mm) + x
+            y = conv3d(a, self.conv1)
             return conv3d(self.act(instance_norm(y)), self.conv2) + x
         x = x.contiguous()
         n = x.shape[1] * x.shape[2] * x.shape[3]
@@ -86,10 +121,16 @@ class ResBlock(nn.Module):
             xf.sum(dim=(1, 2, 3)), xf.square().sum(dim=(1, 2, 3)), n)
         o1 = conv3x3_op([x], [self.conv1],
                         prologue=(scale1, shift1, self.slope),
-                        want_stats=True)
+                        want_stats=True,
+                        grad_sum=None if mm is None else model_sum(mm))
+        # per channel: a shard's statistics are its own
         scale2, shift2 = instance_affine_from_sums(o1.ysum, o1.ysq, n)
-        o2 = conv3x3_op([o1.y], [self.conv2],
-                        prologue=(scale2, shift2, self.slope))
+        if split:
+            o2 = conv3x3_row_op(o1.y, self.conv2, mm,
+                                prologue=(scale2, shift2, self.slope))
+        else:
+            o2 = conv3x3_op([o1.y], [self.conv2],
+                            prologue=(scale2, shift2, self.slope))
         return o2.y + x
 
 

@@ -122,9 +122,12 @@ class DSA(nn.Module):
     """Dual self-attention (no qkv bias) with flax parameter layouts: qkvv
     (C, 4C) for sa_type 'parallel', (C, 3C) for 'serial', 'spatial' and
     'channel', temperature / temperature2 (h, 1, 1), and EF (N, P) except
-    for 'channel', which has none (`fcd_tpu/ops/attention.py:78-95`)."""
+    for 'channel', which has none (`fcd_tpu/ops/attention.py:78-95`).
+    Under tensor parallelism `qkvv` is row-parallel in training (`conv1x1`) and
+    gathered whole for B5 at eval."""
 
     tp = None
+    tp_splits = {"qkvv": ("row",)}
 
     def __init__(self, input_size: int, hidden_size: int, proj_size: int,
                  num_heads: int = 4, sa_type: str = "parallel",
@@ -192,9 +195,13 @@ class ChannelDropout3d(nn.Module):
 class TransformerBlock(nn.Module):
     """DSA transformer block on (B, D, H, W, C) features. `rng` is the
     model's shared dropout state and `salt` this layer's index, which
-    salts the spatial-attention dropout hash."""
+    salts the spatial-attention dropout hash. Under tensor parallelism
+    `conv8` splits by its role (`conv1x1`): row-parallel where the flax path
+    starts with TransformerBlock (MS_DSA_NET), column-parallel elsewhere
+    (SegResNet_DSA, UNETR++'s EPABlock), the output whole either way."""
 
     tp = None
+    tp_splits = {"conv8": ("col", "row")}
 
     def __init__(self, input_size: int, hidden_size: int, proj_size: int,
                  num_heads: int = 4, sa_type: str = "parallel",

@@ -36,17 +36,22 @@ kernels.
 
 Under tensor parallelism (`parallel/tp.py::model_parallel` sets `tp`, the
 model's layout, on every module) a block's parameters are this rank's
-shards and its convs run as the Megatron pairing places them: conv1 and
-the shortcut column-parallel on the whole input (their channel shards'
-statistics give the per-channel instance-norm affine), conv2 row-parallel
-on conv1's shard (`conv3x3_row_op`: B1's partial instance, the f32
-all-reduce, the finishing pass), the shortcut's output gathered, and the
-finale on the whole tensors, the same on every rank. A transformer's
-conv1 is row-parallel too: its whole input is sliced. A conv whose
-weight is replicated runs whole. The plain route pairs its convs the same
-way (`_plain_tp`, `conv3x3_row_plain`: the partial in f32, rounded once
-after the all-reduce), and the up-blocks' `conv_transpose3d` is
-column-parallel and gathered as B4 is.
+shards and its convs run as the JAX rule's roles place them
+(`tp_splits`): conv1 and the shortcut column-parallel on the whole input
+(x's gradient the ranks' f32 shares summed and rounded once,
+`conv3x3_op(..., grad_sum=)`), conv2 row-parallel on conv1's shard
+(`conv3x3_row_op`: B1's partial instance, the f32 all-reduce, the
+finishing pass), the shortcut's output gathered, and the finale on the
+whole tensors, the same on every rank. Between conv1 and conv2 the norm is
+per channel: instance norm takes the shard's own statistics, batch norm
+(a transformer's conv block in UNETR++ or SegResNet_DSA) its affine from
+the gathered statistics (running statistics the same on every rank),
+sliced to the shard. A conv1 in a path that starts with TransformerBlock
+(MS_DSA_NET's) is row-parallel: its whole input is sliced. A conv whose
+weight is replicated (the rule's fallback) runs whole. The plain route
+pairs its convs the same way (`_plain_tp`, `conv3x3_row_plain`: the
+partial in f32, rounded once after the all-reduce), and the up-blocks'
+`conv_transpose3d` is column-parallel and gathered as B4 is.
 """
 
 from __future__ import annotations
@@ -86,8 +91,8 @@ from fcd_tpu_torch.ops.layers import (
 from fcd_tpu_torch.parallel.mesh import (
     Mesh,
     column_parallel,
-    copy_to_model,
     gather_channels,
+    model_sum,
     reduce_from_model,
     slice_channels,
 )
@@ -171,6 +176,8 @@ class UnetResBlock(nn.Module):
 
     plain_route = False
     tp = None   # the model's TPLayout under tensor parallelism
+    tp_splits = {"conv1": ("col", "row"), "conv2": ("row",),
+                 "conv3": ("col",)}
 
     def __init__(self, in_channels: int, out_channels: int,
                  norm_name: str = "instance"):
@@ -212,7 +219,7 @@ class UnetResBlock(nn.Module):
         """The plain route: `fcd_tpu/ops/blocks.py:416-433` on the parts'
         concatenation (under tensor parallelism, `_plain_tp`)."""
         x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-        if self.tp is not None and self.tp.role(self.conv2) is not None:
+        if self._split():
             out, res = self._plain_tp(x)
         else:
             out = _act(_norm(self.norm1, conv3d(x, self.conv1)))
@@ -254,7 +261,7 @@ class UnetResBlock(nn.Module):
         wr = (None if self.conv3 is None else [self.conv3] if one
               else list(torch.split(self.conv3, widths, dim=0)))
         stats = self.norm_name == "instance" or self.training
-        if self.tp is None or self.tp.role(self.conv2) is None:
+        if not self._split():
             o1 = conv3x3_op(parts, w1, shortcut=wr, want_stats=stats)
             scale1, shift1 = self._affine(self.norm1, o1.ysum, o1.ysq, b, n)
             o2 = conv3x3_op([o1.y], [self.conv2],
@@ -290,11 +297,20 @@ class UnetResBlock(nn.Module):
         one-device path gives them."""
         mm = self.tp.mesh
         if self._conv1_role() == "col":
-            o1 = conv3x3_op([copy_to_model(x, mm) for x in parts], w1,
-                            shortcut=wr, want_stats=stats)
-            # instance norm is per channel: the shard's own statistics
-            scale1, shift1 = instance_affine_from_sums(o1.ysum, o1.ysq, n)
+            o1 = conv3x3_op(parts, w1, shortcut=wr, want_stats=stats,
+                            grad_sum=model_sum(mm))
             y1 = o1.y
+            if self.norm1 is None:
+                # instance norm is per channel: the shard's own statistics
+                scale1, shift1 = instance_affine_from_sums(o1.ysum, o1.ysq,
+                                                           n)
+            else:
+                # batch norm too, but its running statistics are whole
+                s1, s2 = ((None, None) if o1.ysum is None else
+                          (gather_channels(o1.ysum, mm),
+                           gather_channels(o1.ysq, mm)))
+                scale1, shift1 = (slice_channels(t, mm) for t in self._affine(
+                    self.norm1, s1, s2, b, n))
             if o1.r is not None:
                 o1 = o1._replace(r=gather_channels(o1.r, mm),
                                  rsum=gather_channels(o1.rsum, mm),
@@ -308,16 +324,27 @@ class UnetResBlock(nn.Module):
                             prologue=(scale1, shift1, NEGATIVE_SLOPE))
         return o1, (o2 if stats else ConvOut(o2.y))
 
+    def _split(self) -> bool:
+        """Whether the block runs split on the model axis: any of its convs
+        sharded (then `_conv1_role` holds the pairing)."""
+        return self.tp is not None and any(
+            self.tp.role(t) is not None
+            for t in (self.conv1, self.conv2, self.conv3))
+
     def _conv1_role(self) -> str:
         """conv1's role on the model axis. The rule splits conv1 as it
-        splits conv2 (both by one width): column-parallel in an encoder or
-        decoder (instance norm), row-parallel in a transformer (one part,
-        no shortcut); anything else raises."""
+        splits conv2 and the shortcut (all by one width): column-parallel
+        with the shortcut, or row-parallel (a transformer's: one part, no
+        shortcut); anything else raises."""
         r1 = self.tp.role(self.conv1)
-        if (r1 == "col") != (self.norm1 is None) or (
-                self.conv3 is not None and self.tp.role(self.conv3) != r1):
+        r3 = None if self.conv3 is None else self.tp.role(self.conv3)
+        if r1 is None or self.tp.role(self.conv2) != "row" or (
+                self.conv3 is not None and r3 != r1) or (
+                r1 == "row" and self.conv3 is not None):
             raise NotImplementedError(
-                f"conv1 {r1}-parallel with {self.norm_name} norm")
+                f"a res block with conv1 {r1}-parallel, conv2 "
+                f"{self.tp.role(self.conv2)}-parallel and the shortcut "
+                f"{r3}-parallel")
         return r1
 
     def _plain_tp(self, x):
@@ -333,13 +360,18 @@ class UnetResBlock(nn.Module):
         norm on the whole sum. Each column-parallel op's input gradient is
         summed over the ranks in f32 and rounded once (`column_parallel`),
         and the branches' are added in x's dtype, as one device adds
-        them."""
+        them. A batch norm after a column-parallel conv1 runs on the
+        gathered tensor."""
         mm = self.tp.mesh
         if self._conv1_role() == "col":
-            h = _act(instance_norm(column_parallel(conv3d, x, self.conv1,
-                                                   mm)))
+            h = column_parallel(conv3d, x, self.conv1, mm)
+            if self.norm1 is None:
+                h = _act(instance_norm(h))
+            else:   # batch norm on the whole tensor: whole statistics
+                h = slice_channels(_act(self.norm1(gather_channels(h, mm))),
+                                   mm)
             res = (x if self.conv3 is None else
-                   instance_norm(conv1x1(x, self.conv3, tp=self.tp)))
+                   _norm(self.norm3, conv1x1(x, self.conv3, tp=self.tp)))
         else:
             s1 = conv3x3_row_plain(slice_channels(x, mm), self.conv1, mm)
             h = slice_channels(_act(_norm(self.norm1, s1)), mm)
@@ -362,6 +394,7 @@ class UnetrUpBlock(nn.Module):
 
     plain_route = False
     tp = None
+    tp_splits = {"transp": ("col",)}
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__()
@@ -382,7 +415,8 @@ class UnetrUpBlock(nn.Module):
             up = gather_channels(
                 column_parallel(conv_transpose3d, x, self.transp, mm)
                 if self.plain_route else
-                upsample2x_op(copy_to_model(x, mm), self.transp), mm)
+                upsample2x_op(x, self.transp, grad_sum=model_sum(mm)),
+                mm)
         elif self.plain_route:
             up = conv_transpose3d(x, self.transp)
         else:

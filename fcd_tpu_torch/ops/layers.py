@@ -36,6 +36,18 @@ model built to compute at such a type on the card), and the model then
 runs the counterpart of the plain branch: library convs here, and B5's
 and K3/K4's instances of the compute type where the JAX package keeps
 its kernels.
+
+Tensor parallelism (`parallel/tp.py`). Under `model_parallel` every module
+sees the model's layout as `tp`; a module that may hold a sharded
+parameter names it, and the roles it runs, in `tp_splits`, and
+`shard_state_tp` refuses a model with a sharded leaf that no module
+splits. The general layers (`Conv3d`, `ConvTranspose3d`, `Dense`,
+`UpSample`'s transposed conv, `conv1x1`) split by role through `split_op`
+and hand on the whole output, the same on every rank: column-parallel on
+the whole input, then gathered; row-parallel on the input's channel slice
+in f32, summed over the ranks, rounded once; the bias added once, to the
+whole output. So whatever follows (GroupNorm, BatchNorm, PReLU, pixel
+shuffle, window attention) runs unchanged on whole tensors.
 """
 
 from __future__ import annotations
@@ -51,6 +63,7 @@ from fcd_tpu_torch.parallel.mesh import (
     all_reduce_sum,
     column_parallel,
     gather_channels,
+    model_sum,
     reduce_from_model,
     slice_channels,
 )
@@ -94,21 +107,39 @@ def conv1x1(x: torch.Tensor, kernel: torch.Tensor,
     x's gradient summed over the ranks in f32, then rounded), then the
     output gathered; row-parallel on x's channel slice, the f32 partials
     summed over the ranks and then rounded (where one device rounds its
-    f32 accumulation); the bias added to the whole output."""
+    f32 accumulation); the bias added to the whole output (`split_op`)."""
     role = None if tp is None else tp.role(kernel)
     if role is None:
         out = torch.matmul(x, kernel.to(x.dtype))
-    elif role == "col":
-        out = gather_channels(column_parallel(_matmul, x, kernel, tp.mesh),
-                              tp.mesh)
     else:
-        xs = slice_channels(x, tp.mesh)
-        out = reduce_from_model(
-            torch.matmul(xs.float(), kernel.to(x.dtype).float()),
-            tp.mesh).to(x.dtype)
+        out = split_op(_matmul, x, kernel, role, tp.mesh)
     if bias is not None:
         out = out + bias.to(x.dtype)
     return out
+
+
+def split_op(op, x: torch.Tensor, w: torch.Tensor, role: str,
+             mesh) -> torch.Tensor:
+    """`op(x, w)` (linear in x, computed in x's dtype) of a replicated x
+    and this rank's shard w on the model axis `mesh`, whole on every rank.
+    "col" (w's output channels sharded): `column_parallel`, then the
+    output gathered. "row" (w's input channels sharded): op on x's
+    channel slice in f32 from x's dtype's values, the partials summed over
+    the ranks in f32 and rounded once, where one device rounds its f32
+    accumulation; its backward is op's own in f32 (each rank's dx and dw
+    are whole sums, rounded once)."""
+    if role == "col":
+        return gather_channels(column_parallel(op, x, w, mesh), mesh)
+    if role == "row":
+        xs = slice_channels(x, mesh)
+        part = op(xs.float(), w.to(x.dtype).float())
+        return reduce_from_model(part, mesh).to(x.dtype)
+    raise ValueError(f"role {role!r}: a split is 'col' or 'row'")
+
+
+def _role(module, t: Optional[torch.Tensor]) -> Optional[str]:
+    """t's role on the model axis under `model_parallel` (None: whole)."""
+    return None if module.tp is None else module.tp.role(t)
 
 
 def group_norm(x: torch.Tensor, num_groups: int, scale: torch.Tensor,
@@ -480,9 +511,15 @@ class Conv3d(nn.Module):
     """The flax Conv3d's parameters (kernel (k, k, k, Cin, Cout), bias
     (Cout,) when use_bias) and `conv3d`. On the plain route `fast` is not
     taken: the JAX package's fast conv takes bf16 only
-    (`fcd_tpu/ops/layers.py:291-295`)."""
+    (`fcd_tpu/ops/layers.py:291-295`). Under tensor parallelism a sharded
+    kernel splits by its role (`split_op`); the fast conv as B1 on the
+    output shard (column-parallel, x's gradient summed in f32 and rounded
+    once) or as B1's partial instance, the all-reduce and the finishing
+    pass (row-parallel, `ops/blocks.py::conv3x3_row_op`)."""
 
     plain_route = False
+    tp = None
+    tp_splits = {"kernel": ("col", "row")}
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1, use_bias: bool = True,
@@ -502,8 +539,29 @@ class Conv3d(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv3d(x, self.kernel, self.bias, self.stride,
-                      self.fast and not self.plain_route)
+        fast = self.fast and not self.plain_route
+        role = _role(self, self.kernel)
+        if role is None:
+            return conv3d(x, self.kernel, self.bias, self.stride, fast)
+        mm = self.tp.mesh
+        if fast and self.kernel.shape[0] == 3 and self.stride == 1:
+            from fcd_tpu_torch.kernels.block_conv import conv3x3_op
+            from fcd_tpu_torch.ops.blocks import conv3x3_row_op
+
+            w = self.kernel.to(x.dtype)
+            if role == "col":
+                out = gather_channels(conv3x3_op(
+                    [x.contiguous()], [w], grad_sum=model_sum(mm)).y,
+                    mm)
+            else:
+                out = conv3x3_row_op(slice_channels(x, mm), w, mm).y
+        else:
+            stride = self.stride
+            out = split_op(lambda t, w: conv3d(t, w, None, stride), x,
+                           self.kernel, role, mm)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)
+        return out.contiguous()
 
 
 def _transpose_crop(k: int, s: int) -> int:
@@ -547,7 +605,11 @@ class ConvTranspose3d(nn.Module):
     """The flax ConvTranspose3d's parameters (kernel (k, k, k, Cin, Cout),
     bias when use_bias) and `conv_transpose3d` at `stride` (k by default):
     the JAX package leaves these upsamples to XLA (UNETR++'s k2 s2 and k4
-    s4, UNETR's PrUp stacks, VNet's k2 s2, UNet's k3 s2)."""
+    s4, UNETR's PrUp stacks, VNet's k2 s2, UNet's k3 s2). Under tensor
+    parallelism a sharded kernel splits by its role (`split_op`)."""
+
+    tp = None
+    tp_splits = {"kernel": ("col", "row")}
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 2, use_bias: bool = True,
@@ -567,14 +629,26 @@ class ConvTranspose3d(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv_transpose3d(x, self.kernel, self.bias, self.stride)
+        role = _role(self, self.kernel)
+        if role is None:
+            return conv_transpose3d(x, self.kernel, self.bias, self.stride)
+        stride = self.stride
+        out = split_op(lambda t, w: conv_transpose3d(t, w, None, stride), x,
+                       self.kernel, role, self.tp.mesh)
+        if self.bias is not None:
+            out = out + self.bias.to(out.dtype)
+        return out.contiguous()
 
 
 class Dense(nn.Module):
     """`fcd_tpu/ops/layers.py::Dense`: x @ kernel (Cin, Cout) (+ bias), in
     x's dtype, xavier-uniform kernel, zero bias. The JAX Dense casts its
     input to the compute type; the port's callers hand it x in that type
-    (a LayerNorm's f32 output cast first)."""
+    (a LayerNorm's f32 output cast first). Under tensor parallelism a
+    sharded kernel splits by its role (`conv1x1`)."""
+
+    tp = None
+    tp_splits = {"kernel": ("col", "row")}
 
     def __init__(self, in_features: int, out_features: int,
                  use_bias: bool = True):
@@ -590,7 +664,7 @@ class Dense(nn.Module):
                 self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv1x1(x, self.kernel, self.bias)
+        return conv1x1(x, self.kernel, self.bias, self.tp)
 
 
 def pixel_shuffle_3d(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -642,9 +716,16 @@ class UpSample(nn.Module):
       `conv_transpose3d`;
     - nontrainable: `interpolate_trilinear`, then a 1x1 conv (`conv`)
       where the channels change.
+
+    Under tensor parallelism the convs split as `Conv3d` does, and a
+    column-parallel transposed conv runs B4 on its output shard (x's
+    gradient summed over the ranks in f32, then rounded once), its bias
+    sliced, then gathered; on the plain route `split_op`.
     """
 
     plain_route = False
+    tp = None
+    tp_splits = {"transp": ("col",)}
 
     def __init__(self, in_channels: int, out_channels: int,
                  mode: str = "pixelshuffle", use_bias: bool = True,
@@ -677,12 +758,26 @@ class UpSample(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.mode == "pixelshuffle":
             return pad_pool_blur(pixel_shuffle_3d(self.conv(x), 2), 2)
+        role = _role(self, self.transp)
         if self.mode == "deconv" and self.plain_route:
-            return conv_transpose3d(x, self.transp, self.transp_bias)
+            if role is None:
+                return conv_transpose3d(x, self.transp, self.transp_bias)
+            out = split_op(conv_transpose3d, x, self.transp, role,
+                           self.tp.mesh)
+            if self.transp_bias is not None:
+                out = out + self.transp_bias.to(out.dtype)
+            return out.contiguous()
         if self.mode == "deconv":
             from fcd_tpu_torch.kernels.upsample import upsample2x_op
 
-            return upsample2x_op(x.contiguous(), self.transp,
-                                 self.transp_bias)
+            if role is None:
+                return upsample2x_op(x.contiguous(), self.transp,
+                                     self.transp_bias)
+            mm = self.tp.mesh
+            bias = (None if self.transp_bias is None
+                    else slice_channels(self.transp_bias, mm))
+            return gather_channels(upsample2x_op(
+                x.contiguous(), self.transp, bias,
+                grad_sum=model_sum(mm)), mm)
         y = interpolate_trilinear(x, 2)
         return y if self.conv is None else self.conv(y)

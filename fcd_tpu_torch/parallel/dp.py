@@ -93,7 +93,9 @@ def replicate_state(model: torch.nn.Module, optimizer, mesh: Mesh) -> None:
 def make_dp_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
                        mesh: Mesh, *, model_returns_vaeloss: bool = False,
                        loss_vae_weight: float = 0.2, with_mask: bool = False,
-                       grad_norms: bool = False) -> Callable:
+                       grad_norms: bool = False,
+                       grad_hook: Optional[Callable[[], None]] = None
+                       ) -> Callable:
     """step(image_shard, label_shard, lr, seed=None, thickness=None,
     sample_mask=None) -> the global loss (a 0-d device tensor, the same on
     every rank), or (loss, group_norms) with grad_norms. The shards are
@@ -101,7 +103,8 @@ def make_dp_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
     every rank. with_mask builds the ragged-batch variant: the global
     batch arrives padded to a multiple of the mesh with cyclic repeats,
     and `sample_mask` (this rank's rows of the (B,) 0/1 validity mask)
-    leaves the padded samples out of the loss exactly."""
+    leaves the padded samples out of the loss exactly. `grad_hook` runs
+    after the gradients' all-reduce, before the update."""
 
     def step(image: torch.Tensor, label: torch.Tensor, lr: float,
              seed: Optional[int] = None,
@@ -133,6 +136,8 @@ def make_dp_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
             loss = loss + loss_vae_weight * vae
         loss.backward()
         all_reduce_grads(model, mesh)
+        if grad_hook is not None:
+            grad_hook()
         norms = group_norms(model) if grad_norms else None
         set_lr(optimizer, lr)
         optimizer.step()

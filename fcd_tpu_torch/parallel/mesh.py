@@ -346,6 +346,14 @@ def column_parallel(op: Callable, x: torch.Tensor, w: torch.Tensor,
     return _ColumnParallel.apply(x, w, op, mesh)
 
 
+def model_sum(mesh: Mesh) -> Callable[[torch.Tensor], torch.Tensor]:
+    """f(t): t summed over the ranks of `mesh` in place (not
+    differentiable), the `grad_sum` a column-parallel kernel op (B1, B4)
+    takes for its input's gradient: each rank's f32 share summed, then
+    rounded once by the op."""
+    return lambda t: all_reduce_(mesh, t)
+
+
 def copy_to_model(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """A replicated `x` entering a column-parallel op: the identity; its
     cotangent is summed over the model axis."""

@@ -7,47 +7,66 @@ collectives itself, with the same pairing (`tp_spec_for`, a copy of the
 JAX rule, applied to each parameter's flax path from `weights.py`'s
 tables, so both packages shard the same leaves):
 
-- a res block's conv1 and its 1x1 shortcut, the patch embeds, the up-
-  blocks' transposed convs: column-parallel (output channels sharded);
-- a res block's conv2, a transformer's conv1, its out-projection
-  (`Conv3d_0`) and `qkvv`: row-parallel (input channels sharded);
-- everything 1-D, and any leaf whose axis does not divide: replicated.
+- every `Conv3d_1` kernel (a res block's conv2, a SegResNet ResBlock's
+  conv2, a UNet unit's second conv, UNETR++'s second down conv, the
+  UNETR and SwinUNETR heads), and in a path that starts with
+  TransformerBlock (MS_DSA_NET's) `Conv3d_0` (the out-projection and the
+  conv block's conv1), and `qkvv`: row-parallel (input channels sharded);
+- every other kernel (conv1s, shortcuts, embeds, strided and transposed
+  convs, Dense layers): column-parallel (output channels sharded);
+- everything 1-D, every leaf not named `kernel` or `qkvv` (pos-embeds,
+  EF, relative position biases), and any leaf whose axis does not divide
+  or is under twice the model axis: replicated.
 
-What runs where (`ops/blocks.py`, `ops/attention.py`, `ops/layers.py`,
-`models/ms_dsa_net.py`, under `model_parallel`): a replicated value is
-whole on every rank of the model axis and every rank applies the same
-function to it. A column-parallel op reads it whole and writes its channel
-shard; a row-parallel op reads a channel shard (its producer's, or a slice
-of a replicated value) and writes an f32 partial sum, all-reduced into the
-whole (for the 3x3x3 conv: B1's partial instance, the all-reduce, the
-finishing pass, `ops/blocks.py::conv3x3_row_op`; on the plain route
-`conv3d` on f32 operands, the all-reduce, one rounding to the compute
-type, `conv3x3_row_plain`). Where a column-parallel op's input gradient is
-the partial sum (the dual of a row-parallel forward), the plain route and
-the embeds take it in f32 too, summed and then rounded once
-(`mesh.column_parallel`): one device rounds each op's f32 accumulation,
-then adds the branches in the compute type. A shard whose consumer is
-replicated (the shortcut, the up-sample, the embeds) is all-gathered. The
-collectives are the autograd functions of
-`parallel/mesh.py`, so every replicated value's cotangent is whole on every
-rank and a parameter's gradient is its shard's (a replicated parameter's
-the same on every rank, never summed over the model axis). At eval a
-row-sharded weight that a kernel reads whole (B5's `qkvv`) is gathered
-once a forward.
+The same module takes different roles in different models
+(`TransformerBlock.conv8` is row-parallel in MS_DSA_NET and
+column-parallel in SegResNet_DSA and UNETR++), so each split follows its
+parameter's role, not a table of blocks: a module that may hold a sharded
+parameter names it and the roles it runs in `tp_splits`, and
+`shard_state_tp` raises, naming the module and the flax path, for a
+sharded leaf that no module splits in its role.
+
+What runs where (under `model_parallel`): a replicated value is whole on
+every rank of the model axis and every rank applies the same function to
+it. The general layers (`ops/layers.py::split_op`: `Conv3d`,
+`ConvTranspose3d`, `Dense`, `UpSample`, `conv1x1`) hand on whole outputs:
+column-parallel on the whole input, then gathered; row-parallel on the
+input's channel slice, an f32 partial sum all-reduced into the whole and
+rounded once. The res blocks keep the shard between a column-parallel
+conv1 and a row-parallel conv2 where the norm between them is per
+channel (`ops/blocks.py`, `models/segresnet.py`): for the 3x3x3 conv,
+B1's partial instance, the all-reduce, the finishing pass
+(`ops/blocks.py::conv3x3_row_op`); on the plain route `conv3d` on f32
+operands, the all-reduce, one rounding (`conv3x3_row_plain`). A
+column-parallel op's input gradient (the dual of a row-parallel forward)
+is taken in f32 on both routes, summed and then rounded once
+(`mesh.column_parallel`; B1 and B4 with `grad_sum=`, ROADMAP C23): one
+device rounds each op's f32 accumulation, then adds the branches in the
+compute type. The collectives are the autograd functions of `parallel/mesh.py`,
+so every replicated value's cotangent is whole on every rank and a
+parameter's gradient is its shard's (a replicated parameter's the same on
+every rank, never summed over the model axis). At eval a row-sharded
+weight that a kernel reads whole (B5's `qkvv`) is gathered once a
+forward.
 
 The data axis runs as it runs alone: `make_tp_train_step` is
 `dp.make_dp_train_step` on the mesh's data view under `model_parallel`, its
-gradient all-reduce summing each shard over the ranks that hold it.
+gradient all-reduce summing each shard over the ranks that hold it. A
+replicated parameter's gradient is the same function on every rank of the
+model axis, but a library kernel that sums in a varying order can give it
+other last bits on each rank (UNet at f32 on an H100: its ranks' logits
+and states differed); the step takes its mean over the model axis (the
+same bits on every rank, and the gradient itself where the ranks agree),
+so the replicas stay bit-equal.
 AdamW is elementwise, so a rank's sharded state is the shard of the full
 state: `shard_state_tp` slices the parameters and the optimizer's moments
 in place, `gather_tp_state` puts the full tree back (for checkpoints and
 tests), and `load_flax_variables` then `shard_state_tp` gives a rank its
 state from the JAX package's.
 
-MS_DSA_NET and BaseUNet only (the models whose every sharded leaf sits in
-a block that splits it), on either route: the kernel route (bf16 on the
-card) and the plain route (f32 or f16 on the card, f32 in the tests, the
-JAX package's TP test's `use_amp=False`). Another model raises.
+Every model type of the factory, on either route: the kernel route (bf16
+on the card) and the plain route (f32 or f16 on the card, f32 in the
+tests, the JAX package's TP test's `use_amp=False`).
 """
 
 from __future__ import annotations
@@ -63,12 +82,12 @@ from fcd_tpu_torch.parallel.mesh import (
     MODEL_AXIS,
     Mesh,
     _gather_last,
+    all_reduce_,
     channel_slice,
     gather_channels,
     make_mesh,
     shard_batch,
 )
-from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET, BaseUNet
 from fcd_tpu_torch.weights import model_entries
 
 Spec = Tuple[Optional[str], ...]   # a PartitionSpec: () is replicated
@@ -167,24 +186,39 @@ def _optimizer_tensors(optimizer, p: torch.Tensor):
     return out
 
 
+def _owners(model: torch.nn.Module) -> Dict[int, Tuple[str, Any, str]]:
+    """{id(parameter): (module name, module, attribute)} of every parameter
+    a module of `model` holds itself."""
+    return {id(p): (name, m, attr) for name, m in model.named_modules()
+            for attr, p in m._parameters.items() if p is not None}
+
+
+def _check_split(owner, path, role: str) -> None:
+    """Raise unless the module that holds a sharded leaf splits it in its
+    role (`tp_splits`): no model runs a wrong function silently."""
+    name, m, attr = owner
+    if role not in getattr(type(m), "tp_splits", {}).get(attr, ()):
+        raise NotImplementedError(
+            f"{type(m).__name__} {name or '(the model)'!r} does not split "
+            f"{attr!r} {role}-parallel, and the rule shards it (flax path "
+            f"{'/'.join(path)})")
+
+
 @torch.no_grad()
 def shard_state_tp(model: torch.nn.Module, mesh: Mesh,
                    optimizer=None) -> TPLayout:
     """Slice `model`'s parameters, their gradients and (with an optimizer)
     its tensors of each parameter in place into this rank's shards over
-    `mesh.model`, and record the layout on the model (`model.tp_layout`)."""
+    `mesh.model`, and record the layout on the model (`model.tp_layout`).
+    Raises, before slicing anything, when a sharded leaf's module does not
+    split it (`tp_splits`)."""
     if getattr(model, "tp_layout", None) is not None:
         raise RuntimeError("the model is sharded already")
     if mesh.model is None:
         raise ValueError("tensor parallelism needs a ('data', 'model') mesh")
-    if not isinstance(model, (MS_DSA_NET, BaseUNet)) or getattr(
-            model, "upsample_mode", None) is not None:
-        raise NotImplementedError(
-            f"tensor parallelism runs MS_DSA_NET and BaseUNet (their "
-            f"UnetrUpBlock decoders and res blocks split their convs), not "
-            f"{type(model).__name__}")
     mm = mesh.model
-    layout = TPLayout(mm)
+    owners = _owners(model)
+    plan = []
     for coll, path, t, one in model_entries(model):
         if coll != "params":
             continue
@@ -192,7 +226,11 @@ def shard_state_tp(model: torch.nn.Module, mesh: Mesh,
         if MODEL_AXIS not in spec:
             continue
         at = spec.index(MODEL_AXIS)
-        dim = at - 3 if one else at
+        role = "col" if at == len(spec) - 1 else "row"
+        _check_split(owners[id(t)], path, role)
+        plan.append((t, at - 3 if one else at, role))
+    layout = TPLayout(mm)
+    for t, dim, role in plan:
         rows = channel_slice(mm, t.shape[dim])
 
         def cut(v):
@@ -205,7 +243,7 @@ def shard_state_tp(model: torch.nn.Module, mesh: Mesh,
         t.data = cut(t.data)
         if grad is not None:
             t.grad = cut(grad)
-        layout.roles[id(t)] = "col" if at == len(spec) - 1 else "row"
+        layout.roles[id(t)] = role
         layout.dims[id(t)] = dim
         layout.params.append(t)
     model.tp_layout = layout
@@ -264,9 +302,25 @@ def make_tp_train_step(model: torch.nn.Module, loss_fn: Callable, optimizer,
     """step(image_shard, label_shard, lr, seed=None, ...) -> the global
     loss: `dp.make_dp_train_step` over the mesh's data axis (the image and
     label are this rank's rows, `mesh.shard_batch`) with the model's
-    shards under `model_parallel`. The state must be sharded first
-    (`shard_state_tp`)."""
-    step = make_dp_train_step(model, loss_fn, optimizer, mesh, **kw)
+    shards under `model_parallel`, and the replicated parameters'
+    gradients averaged over the model axis (the module docstring). The
+    state must be sharded first (`shard_state_tp`)."""
+
+    def even_replicas():
+        layout = model.tp_layout
+        grads = [p.grad for p in model.parameters()
+                 if p.grad is not None and layout.role(p) is None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        all_reduce_(layout.mesh, flat).div_(layout.mesh.size)
+        at = 0
+        for g in grads:
+            g.copy_(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+
+    step = make_dp_train_step(model, loss_fn, optimizer, mesh,
+                              grad_hook=even_replicas, **kw)
 
     def tp_step(*args, **kwargs):
         with model_parallel(model):

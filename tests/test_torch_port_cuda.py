@@ -1122,6 +1122,139 @@ def test_conv_function_grads_match_plain_autograd(dev):
         assert _rel(g_, w_) < 3e-2
 
 
+def test_column_parallel_grads_on_the_card(dev):
+    """B1 and B4 as column-parallel ops (`grad_sum`, ROADMAP C23) on a
+    model axis of one: x's gradient through B1's partial instance (f32)
+    plus the shortcut's f32 term, then the sum (here the identity), then
+    one rounding; and the prologue's backward on that sum. Against
+    autograd through the plain versions, as the one-device op is held;
+    the partial instance counted once per part, B1 not at all, in the
+    backward."""
+    from fcd_tpu_torch.kernels.block_conv import (
+        conv3x3,
+        conv3x3_op,
+        conv3x3_partial,
+        conv3x3_plain,
+    )
+    from fcd_tpu_torch.kernels.upsample import upsample2x_op, upsample2x_plain
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    bf = torch.bfloat16
+    sums = []
+
+    def grad_sum(t):
+        sums.append(t.dtype)
+        return t
+
+    x0 = _randn(gen, dev, 1, 6, 8, 6, 12, dtype=bf)
+    x1 = _randn(gen, dev, 1, 6, 8, 6, 12, dtype=bf)
+    w0, w1 = (_randn(gen, dev, 3, 3, 3, 12, 12, scale=0.2) for _ in "ab")
+    r0, r1 = (_randn(gen, dev, 12, 12, scale=0.3) for _ in "ab")
+
+    def run(conv, **kw):
+        def f(a, b, wa, wb, ra, rb):
+            o = conv([a, b], [wa, wb], shortcut=[ra, rb], want_stats=True,
+                     **kw)
+            return o.y, o.ysum, o.ysq, o.r, o.rsum, o.rsq
+        return _grads(f, [x0, x1, w0, w1, r0, r1])
+
+    b1, part = conv3x3.launches, conv3x3_partial.launches
+    (_, got), (_, want) = run(conv3x3_op, grad_sum=grad_sum), \
+        run(conv3x3_plain)
+    assert conv3x3.launches - b1 == 1          # the forward
+    assert conv3x3_partial.launches - part == 2    # one dx a part
+    assert sums == [torch.float32] * 2
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) < 3e-2
+    sc = torch.rand(1, 12, generator=gen, device=dev) + 0.5
+    sh = _randn(gen, dev, 1, 12, scale=0.1)
+
+    def run_pro(conv, **kw):
+        def f(a, wa, s, t):
+            o = conv([a], [wa], prologue=(s, t, 0.01), want_stats=True,
+                     **kw)
+            return o.y, o.ysum, o.ysq
+        return _grads(f, [x0, w0, sc, sh])
+
+    (_, got), (_, want) = run_pro(conv3x3_op, grad_sum=grad_sum), \
+        run_pro(conv3x3_plain)
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) < 3e-2
+    x = _randn(gen, dev, 1, 3, 5, 4, 24, dtype=bf)
+    k = _randn(gen, dev, 2, 2, 2, 24, 12, scale=0.2)
+    (_, got) = _grads(lambda a, b: upsample2x_op(a, b, grad_sum=grad_sum),
+                      [x, k])
+    (_, want) = _grads(upsample2x_plain, [x, k])
+    assert sums[-1] == torch.float32
+    for g_, w_ in zip(got, want):
+        assert _rel(g_, w_) < 3e-2
+
+
+# the zoo's shard widths under tensor parallelism over 2 ranks at the
+# factory's widths (ROADMAP A9): SwinUNETR (feature size 24) splits its
+# res blocks to 12 channels a rank, UNETR's d4 upsamples 768 -> 128 / 2,
+# a SegResNet ResBlock's conv1 takes its prologue on the whole input
+@pytest.mark.parametrize("kind,parts_c,cout,grid,extra", [
+    ("b1", (2,), 12, (1, 6, 10, 7), "shortcut"),          # swin enc0.conv1
+    ("b1", (24, 24), 12, (1, 6, 10, 7), "shortcut"),      # swin out.conv1
+    ("b1", (16,), 8, (1, 6, 10, 7), "prologue"),          # segres conv1
+    ("partial", (12,), 24, (1, 6, 10, 7), "prologue"),    # swin conv2
+    ("partial", (12,), 24, (1, 6, 10, 7), None),          # its dgrad (C23)
+    ("partial", (8,), 16, (1, 6, 10, 7), None),           # dec1's dgrad
+    ("k1", (24,), 12, (1, 6, 10, 7), None),               # swin out.conv1
+    ("k1", (12,), 24, (1, 6, 10, 7), "prologue"),         # swin conv2
+    ("b4", (24,), 12, (1, 3, 5, 4), None),                # swin out
+    ("b4", (768,), 64, (1, 2, 2, 2), None)])              # unetr d4
+def test_tp_zoo_shard_widths_match_plain(dev, kind, parts_c, cout, grid,
+                                         extra):
+    """B1, its partial instance, K1 and B4 at the zoo's shard widths,
+    each against its plain version, counted once a call."""
+    from fcd_tpu_torch.kernels import block_conv as bc
+    from fcd_tpu_torch.kernels.conv_wgrad import (
+        conv3d_wgrad,
+        conv3d_wgrad_plain,
+    )
+    from fcd_tpu_torch.kernels.upsample import upsample2x, upsample2x_plain
+
+    gen = torch.Generator(device=dev).manual_seed(13)
+    bf = torch.bfloat16
+    parts = [_randn(gen, dev, *grid, c, dtype=bf) for c in parts_c]
+    c0 = parts_c[0]
+    pro = None
+    if extra == "prologue":
+        pro = (torch.rand(grid[0], c0, generator=gen, device=dev) + 0.5,
+               _randn(gen, dev, grid[0], c0, scale=0.1), 0.01)
+    if kind == "b4":
+        k = _randn(gen, dev, 2, 2, 2, c0, cout, scale=0.2)
+        fn, counter = (lambda: upsample2x(parts[0], k)), upsample2x
+        want, tol = upsample2x_plain(parts[0], k), 2e-2
+    elif kind == "k1":
+        g = _randn(gen, dev, *grid, cout, dtype=bf)
+        fn = lambda: conv3d_wgrad(parts[0], g, pro)   # noqa: E731
+        counter, tol = conv3d_wgrad, 1e-4
+        want = conv3d_wgrad_plain(parts[0], g, pro)
+    else:
+        ws = [_randn(gen, dev, 3, 3, 3, c, cout, scale=0.2, dtype=bf)
+              for c in parts_c]
+        if kind == "partial":
+            fn = lambda: bc.conv3x3_partial(parts[0], ws[0], pro)  # noqa
+            counter, tol = bc.conv3x3_partial, 1e-4
+            want = bc.conv3x3_partial_plain(parts[0], ws[0], pro)
+        else:
+            kw = dict(prologue=pro, want_stats=True, shortcut=(
+                [_randn(gen, dev, c, cout, scale=0.3, dtype=bf)
+                 for c in parts_c] if extra == "shortcut" else None))
+            fn = lambda: bc.conv3x3(parts, ws, **kw).y    # noqa: E731
+            counter, tol = bc.conv3x3, 2e-2
+            want = bc.conv3x3_plain(parts, ws, **kw).y
+    before = counter.launches
+    got = fn()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got.shape == want.shape
+    assert _rel(got, want) < tol
+
+
 def test_finale_and_upsample_functions_match_plain_autograd(dev):
     """The pool reference is torch.amax over each block, whose backward
     splits ties evenly, as K2 does (bf16 outputs do tie)."""

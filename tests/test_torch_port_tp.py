@@ -374,29 +374,47 @@ def test_column_parallel_rounds_once(results):
             assert (np.abs(got - want) <= ulp * np.abs(want) + 1e-30).all()
 
 
-def test_tp_refuses_what_it_cannot_split():
-    """Models whose sharded leaves sit outside the splitting blocks (a
-    pixelshuffle decoder's conv, UNETR's layers, a SegResNet's), on either
-    route, and a 1-D mesh raise instead of running a wrong function; a
-    model on the plain route runs under `model_parallel`."""
-    from fcd_tpu_torch.models.ms_dsa_net import MS_DSA_NET_PS
+def test_tp_refuses_what_it_cannot_split(monkeypatch):
+    """A sharded leaf whose module declares no split of it (`tp_splits`),
+    or not in the rule's role, raises before anything is sliced, naming
+    the module and the flax path, on either route, instead of running a
+    wrong function; a 1-D mesh raises; a model on the plain route runs
+    under `model_parallel`."""
     from fcd_tpu_torch.models.segresnet import SegResNet
     from fcd_tpu_torch.models.unetr import UNETR
-    from fcd_tpu_torch.ops.layers import use_plain_route
+    from fcd_tpu_torch.ops.blocks import UnetResBlock
+    from fcd_tpu_torch.ops.layers import Conv3d, Dense, use_plain_route
     from fcd_tpu_torch.parallel.mesh import Mesh
     from fcd_tpu_torch.parallel.tp import model_parallel, shard_state_tp
 
     cpu = torch.device("cpu")
     model_axis = Mesh(0, 2, cpu, "gloo", axes=("model",))
     mesh = Mesh(0, 1, cpu, "gloo", axes=("data", "model"), model=model_axis)
-    for other in (MS_DSA_NET_PS(2, (32, 32, 32), feature_size=4,
-                                project_size=16, num_layers=1),
-                  UNETR(img_size=(32, 32, 32), feature_size=4, hidden_size=48,
-                        mlp_dim=48, num_heads=4),
-                  SegResNet(init_filters=4),
-                  use_plain_route(SegResNet(init_filters=4))):
-        with pytest.raises(NotImplementedError, match="MS_DSA_NET"):
-            shard_state_tp(other, mesh)
+    unetr = UNETR(img_size=(32, 32, 32), feature_size=4, hidden_size=48,
+                  mlp_dim=48, num_heads=4)
+    before = [p.shape for p in unetr.parameters()]
+    for cls, splits, other, match in (
+            (Conv3d, {}, SegResNet(init_filters=4),
+             r"Conv3d 'conv_init'.*convInit/kernel"),
+            (Conv3d, {}, use_plain_route(SegResNet(init_filters=4)),
+             r"convInit/kernel"),
+            (Dense, {"kernel": ("row",)}, unetr,
+             r"Dense 'blocks.0.attn.qkv' does not split 'kernel' "
+             r"col-parallel.*_ViTBlock_0/_SelfAttention_0/Dense_0/Dense_0/"
+             r"kernel"),
+            (UnetResBlock, {"conv1": ("row",), "conv2": ("row",)},
+             MS_DSA_NET(2, (32, 32, 32), in_channels=2, feature_size=4,
+                        project_size=16, num_layers=1),
+             r"UnetrBasicBlock 'encoders.0' does not split 'conv1' "
+             r"col-parallel.*UnetrBasicBlock_0/UnetResBlock_0/"
+             r"Conv3d_0/kernel")):
+        with monkeypatch.context() as mp:
+            mp.setattr(cls, "tp_splits", splits)
+            with pytest.raises(NotImplementedError, match=match):
+                shard_state_tp(other, mesh)
+        assert getattr(other, "tp_layout", None) is None
+    # nothing was sliced
+    assert before == [p.shape for p in unetr.parameters()]
     model = MS_DSA_NET(2, (32, 32, 32), in_channels=2, feature_size=4,
                        project_size=16, num_layers=1)
     with pytest.raises(ValueError, match="model"):

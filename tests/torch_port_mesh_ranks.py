@@ -246,3 +246,73 @@ def _tp_route(img, variables, x, y, lr, mesh, route):
             "roles": sorted(layout.roles.values()),
             "forward": fwd, "loss": float(loss), "grads": grads,
             "variables": export_flax_variables(model)}
+
+
+def zoo_tp_model(spec, variables, route):
+    """A port model of the TP zoo tests: `spec` (module, class, kwargs)
+    built with `variables`, every dropout off (C2: the JAX side runs
+    without), on `route` ("kernel" or "plain")."""
+    import importlib
+
+    from fcd_tpu_torch.ops.attention import ChannelDropout3d
+
+    module, cls, kwargs = spec
+    model = getattr(importlib.import_module(module), cls)(**kwargs)
+    load_flax_variables(model, variables)
+    for m in model.modules():
+        if isinstance(m, ChannelDropout3d):
+            m.rate = 0.0
+        if hasattr(m, "dropout_rate"):
+            m.dropout_rate = 0.0
+    if route == "plain":
+        use_plain_route(model)
+    return model
+
+
+def _zoo_tp_route(case, mesh, route, lr):
+    """One model on one route: the TP eval forward, one TP step (DiceCE,
+    AdamW; a VAE model's normal draw the case's `noise`) and its
+    gradients gathered whole (a flax tree), the same step's gradients on
+    one device, the layout's roles and how many leaves it shards."""
+    vae = case["noise"] is not None
+    params = params_for(loss="DiceCELoss")
+    x, y = (torch.from_numpy(a) for a in (case["x"], case["y"]))
+
+    def fresh():
+        model = zoo_tp_model(case["spec"], case["variables"], route)
+        if vae:
+            noise = torch.from_numpy(case["noise"])
+            model.dropout_rng.normal = lambda shape, device: noise.to(device)
+        return model
+
+    model = fresh()
+    make_train_step(model, make_combined_loss(params),
+                    make_optimizer(params, model),
+                    model_returns_vaeloss=vae)(x, y, lr)
+    single = export_flax_grads(model)
+    model = fresh()
+    opt = make_optimizer(params, model)
+    layout = tp.shard_state_tp(model, mesh, opt)
+    model.eval()
+    with torch.no_grad(), tp.model_parallel(model):
+        fwd = model(x)
+    fwd = (fwd[0] if vae else fwd).numpy()
+    step = tp.make_tp_train_step(model, make_combined_loss(params), opt,
+                                 mesh, model_returns_vaeloss=vae)
+    loss = step(tp.shard_batch_tp(mesh, x), tp.shard_batch_tp(mesh, y), lr)
+    tp.gather_tp_state(model, opt)
+    return {"roles": sorted(set(layout.roles.values())),
+            "sharded": len(layout.roles), "forward": fwd,
+            "loss": float(loss), "grads": export_flax_grads(model),
+            "single_grads": single}
+
+
+def zoo_tp_checks(cases, shape, lr):
+    """Run on n_data x n_model ranks: `_zoo_tp_route` for each case
+    {name: {"spec", "variables", "x", "y", "noise", "routes"}} on each of
+    its routes, one after the other in this rank. Returns {(name, route):
+    result}."""
+    torch.set_grad_enabled(True)
+    mesh = tp.make_tp_mesh(*shape)
+    return {(name, route): _zoo_tp_route(case, mesh, route, lr)
+            for name, case in cases.items() for route in case["routes"]}
