@@ -172,7 +172,23 @@ Run from the repository root:
 16. Counts the default model's forward FLOPs at its patch
    (`utils/profiling.py::get_model_flops`, on the CPU) and prints a
    StepTimer's ms and MFU over patch forwards on the card.
-17. Prints the seconds from start to the result, the `kernels` JSON line,
+17. Drives the blocks no factory model builds (ROADMAP A10, `a10_run`) at
+   MS_DSA_NET's widths (fs16, 4 heads, P 64), one sample: B5's
+   prologue-free instance (no LayerNorm, pos-embed or residual;
+   libdsa_raw, libdsa_raw_f16, libdsa_f32_raw) against its plain versions
+   at levels 3 and 6 in bf16, f16 and f32; the eval forward of DsaUpBlock
+   at level 3 ('cat', 'sum', 'cross'; 16^3 x 64 -> 32^3 x 32), AgUpBlock
+   at dec1 (64^3 x 32 -> 128^3 x 16; res_block both ways, and 'cat' with
+   the basic block), TransformerBlockDSA at levels 3 and 6 (bf16, and the
+   plain route in f32 and f16) and CrossAttentionBlock at level 3 (the
+   instance among the kernel phases of 2., the blocks last), each
+   against the port's fp32 CPU forward (0.05; f32 1e-4, f16 1e-2) with
+   its launches counted (TransformerBlockDSA: the prologue-free instance
+   alone; DsaUpBlock 'cat': B1, B2 and the fused B5); one train-mode step
+   of TransformerBlockDSA and of DsaUpBlock 'cat' at level 3 against the
+   fp32 CPU step by train_check's group rule. `python3 chip_smoke.py
+   --kernels a10` runs this phase alone.
+18. Prints the seconds from start to the result, the `kernels` JSON line,
    the card line, and last {"ok": true, "device": {...}}.
 
 Any failed phase exits non-zero. Without a CUDA device, or outside a
@@ -186,6 +202,7 @@ checkout of the repository, it exits non-zero and prints no result.
     python3 chip_smoke.py --kernels dsa_phase_a_f32,spatial_attn_fwd_f32
     python3 chip_smoke.py --kernels zoo_widths
     python3 chip_smoke.py --kernels tp_widths
+    python3 chip_smoke.py --kernels a10
 
 builds the kernels and runs only the named kernels' phases (checks and
 times; no main path and no result line); `--mesh` the mesh phase alone,
@@ -600,7 +617,7 @@ def upsample_phases(dev, gen, small=False):
     return out
 
 
-def dsa_work(n, c, p, h, es, sa_type="parallel"):
+def dsa_work(n, c, p, h, es, sa_type="parallel", raw=False):
     """(operations, bytes) of B5's phase A and of its phase B at one
     shape, tokens of `es` bytes: per sa_type, phase A projects the slots
     it stages (q, k and v_sa; 'channel' no v_sa), takes each head's
@@ -608,21 +625,24 @@ def dsa_work(n, c, p, h, es, sa_type="parallel"):
     writes q^T k (h x CH x CH values), q2, k2, kp and vp; phase B reads
     abig (h x CH x CH) and does the products its type has: the channel
     attention ('parallel', 'channel'; 'serial' on the spatial output) and
-    the scores and s vp^T (all but 'channel')."""
+    the scores and s vp^T (all but 'channel'). `raw`: the prologue-free
+    instance, which reads no f32 pos-embed (4 n C bytes a phase), no
+    LayerNorm affine and no gamma."""
     ch = c // h
     na = 3 if p else 2
     ca = sa_type != "spatial"
+    pe, aff = (0, 0) if raw else (4 * n * c, 8 * c)
     flops_a = 2 * n * c * c * na + 2 * n * c * ch + 2 * 2 * n * c * p
-    bytes_a = es * n * c + 4 * n * c + es * n * p + na * es * c * c \
-        + 8 * c + 4 * (c * ch + 2 * c + 2 * c * p)
+    bytes_a = es * n * c + pe + es * n * p + na * es * c * c \
+        + aff + 4 * (c * ch + 2 * c + 2 * c * p)
     flops_b = 2 * n * c * c * 2 + 2 * n * c * ch * ca + 2 * 2 * n * c * p
-    bytes_b = es * n * c + 4 * n * c + 2 * es * c * c + 4 * c \
-        + es * c * ch + 2 * es * c * p + 12 * c + es * n * c
+    bytes_b = es * n * c + pe + 2 * es * c * c + 4 * c \
+        + es * c * ch + 2 * es * c * p + (12 * c if aff else 0) + es * n * c
     return flops_a, bytes_a, flops_b, bytes_b
 
 
 def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel",
-              dtype=None):
+              dtype=None, raw=False):
     """B5 at one level's shape in one sa_type, batch 1, with the model's
     f32 weights and EF (none, and P = 0, for 'channel'): phase A's sums
     and, with the temperatures, the finishing pass's phase-B operands
@@ -634,7 +654,10 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel",
     and the wall per call beside it. dtype torch.float32: the f32
     instances (C18) on f32 tokens, held at F32_REL, their bound at
     3xTF32's rate (PEAK_3XTF32); torch.float16: the f16 instances (C20,
-    libdsa_f16), held as the bf16 ones."""
+    libdsa_f16), held as the bf16 ones. raw: the prologue-free instance of
+    the dtype (no LayerNorm affine, pos-embed or gamma: libdsa_raw,
+    libdsa_raw_f16, libdsa_f32_raw), its phases named `dsa_phase_a_raw`,
+    `dsa_phase_b_raw` and their `_f16` and `_f32` forms."""
     import torch
 
     from fcd_tpu_torch.kernels import dsa_attention as dk
@@ -644,6 +667,8 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel",
     tol, tol_whole = (F32_REL, F32_REL) if f32 else (2e-2, 5e-2)
     sfx, es = {torch.float32: ("_f32", 4), torch.float16: ("_f16", 2)}.get(
         bf, ("", 2))
+    if raw:
+        sfx = "_raw" + sfx
     names = DSA_F32_KERNELS if f32 else DSA_KERNELS
     ns = dk.num_slots(sa_type)
     if sa_type == "channel":
@@ -657,8 +682,11 @@ def dsa_phase(label, dev, gen, n, c, p, h=4, iters=10, sa_type="parallel",
     tok = (1.0 + _randn((c,), gen, dev, 0.1), _randn((c,), gen, dev, 0.1),
            _randn((n, c), gen, dev, 0.1))
     gamma = _randn((c,), gen, dev)
+    if raw:
+        tok, gamma = (None, None, None), None
     temps = (t1, t2)
-    flops_a, bytes_a, flops_b, bytes_b = dsa_work(n, c, p, h, es, sa_type)
+    flops_a, bytes_a, flops_b, bytes_b = dsa_work(n, c, p, h, es, sa_type,
+                                                  raw)
     peak = PEAK_3XTF32 if f32 else PEAK_FLOPS
     pa = Phase("dsa_phase_a" + sfx, label, flops_a, bytes_a, peak)
     pb = Phase("dsa_phase_b" + sfx, label, flops_b, bytes_b, peak)
@@ -1684,6 +1712,8 @@ def kernel_phases(dev, gen, small: bool = False):
     phases += spatial_attn_f32_levels(dev, gen, small)
     phases += dsa_f16_phases(dev, gen, small)
     phases += spatial_attn_f16_levels(dev, gen, small)
+    # B5's prologue-free instance (ROADMAP A10's TransformerBlockDSA)
+    phases += a10_dsa_phases(dev, gen, small)
     phases += sw_io_phases(dev, gen, s(*CLI_SHAPE), roi=8 if small else 128)
     # the gated paths' kernels (FCD_FINALE_POOL=0 / FCD_FINALE_TRAIN=0,
     # FCD_FUSED_HEAD=1)
@@ -1726,6 +1756,12 @@ def counters():
             "dsa_phase_b_f32": dsa_attention.PHASE_B_F32,
             "dsa_phase_a_f16": dsa_attention.PHASE_A_F16,
             "dsa_phase_b_f16": dsa_attention.PHASE_B_F16,
+            "dsa_phase_a_raw": dsa_attention.PHASE_A_RAW,
+            "dsa_phase_b_raw": dsa_attention.PHASE_B_RAW,
+            "dsa_phase_a_raw_f16": dsa_attention.PHASE_A_RAW_F16,
+            "dsa_phase_b_raw_f16": dsa_attention.PHASE_B_RAW_F16,
+            "dsa_phase_a_raw_f32": dsa_attention.PHASE_A_RAW_F32,
+            "dsa_phase_b_raw_f32": dsa_attention.PHASE_B_RAW_F32,
             "spatial_attn_fwd": spatial_attn.spatial_attn_fwd,
             "spatial_attn_bwd": spatial_attn.spatial_attn_bwd,
             "spatial_attn_fwd_f32": spatial_attn.FWD_F32,
@@ -1755,6 +1791,9 @@ PER_PATCH = {"conv3d": 46, "conv3d_wgrad": 0, "finale_pool": 23,
              "finale_bwd": 0, "upsample2x": 5, "dsa_phase_a": 12,
              "dsa_phase_b": 12, "dsa_phase_a_f32": 0, "dsa_phase_b_f32": 0,
              "dsa_phase_a_f16": 0, "dsa_phase_b_f16": 0,
+             "dsa_phase_a_raw": 0, "dsa_phase_b_raw": 0,
+             "dsa_phase_a_raw_f16": 0, "dsa_phase_b_raw_f16": 0,
+             "dsa_phase_a_raw_f32": 0, "dsa_phase_b_raw_f32": 0,
              "spatial_attn_fwd": 0, "spatial_attn_bwd": 0,
              "spatial_attn_fwd_f32": 0, "spatial_attn_bwd_f32": 0,
              "spatial_attn_fwd_f16": 0, "spatial_attn_bwd_f16": 0,
@@ -1879,7 +1918,7 @@ def redraw_attention(model, seed):
                                                   generator=gen))
 
 
-def calibrate_batch_norms(model, x) -> None:
+def calibrate_batch_norms(model, *x) -> None:
     """The running statistics of the model's batch norms (its transformers'
     conv branches) set to the batch statistics of x: one train-mode
     forward with momentum 0 and dropout off, then the model's own momentum
@@ -1908,7 +1947,7 @@ def calibrate_batch_norms(model, x) -> None:
     dropout_off(model)
     model.train()
     with torch.no_grad():
-        model(x)
+        model(*x)
     model.eval()
     for m, (name, value) in saved.items():
         setattr(m, name, value)
@@ -4139,6 +4178,267 @@ def tp_check(r, r0, name, who, small, fwd_tol, fwd_agree,
     }
 
 
+# -- the blocks no factory model builds (ROADMAP A10) ---------------------------
+
+# B5's prologue-free instance at MS_DSA_NET's level 3 and level 6 (fs16, 4
+# heads), the shapes TransformerBlockDSA gives it there
+A10_DSA_LEVELS = (DSA_LEVELS[0], DSA_LEVELS[3])
+# each eval forward against the port's fp32 CPU forward: the patch check's
+# limit at bf16, the plain route's at f32 and f16
+A10_REL = {"bf16": PATCH_REL_TOL, "f16": 1e-2, "f32": 1e-4}
+
+
+def _dtype_tag(dtype) -> str:
+    import torch
+
+    return {torch.bfloat16: "bf16", torch.float16: "f16",
+            torch.float32: "f32"}[dtype]
+
+
+def a10_dsa_phases(dev, gen, small=False):
+    """B5's prologue-free instance (libdsa_raw, libdsa_raw_f16,
+    libdsa_f32_raw) in bf16, f16 and f32 at A10_DSA_LEVELS, 'parallel', held
+    to its plain versions as dsa_phase holds the fused form (`small`: at
+    most 512 tokens)."""
+    import torch
+
+    out = []
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        for name, n, c, p in A10_DSA_LEVELS:
+            out += dsa_phase(f"{name} prologue-free {_dtype_tag(dt)} N={n} "
+                             f"C={c} P={p}", dev, gen,
+                             min(n, 512) if small else n, c, p, dtype=dt,
+                             raw=True)
+    return out
+
+
+def _a10_seed(module, seed: int, inputs):
+    """The module's seeded init, then its pos-embeds and gammas drawn
+    (0.1 N(0, 1)) and its norms' affines and the biases moved by 0.1 N(0,
+    1), so that every path contributes; batch norms' running statistics
+    from a train-mode forward of `inputs` (calibrate_batch_norms)."""
+    import torch
+
+    from fcd_tpu_torch.ops.layers import BatchNorm
+
+    gen = torch.Generator().manual_seed(seed)
+    module.reset_parameters(gen)
+    with torch.no_grad():
+        for name, prm in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("pos_embed", "gamma"):
+                prm.copy_(0.1 * torch.randn(prm.shape, generator=gen))
+            elif leaf in ("scale", "bias", "ln_scale", "ln_bias"):
+                prm.add_(0.1 * torch.randn(prm.shape, generator=gen))
+    if any(isinstance(m, BatchNorm) for m in module.modules()):
+        calibrate_batch_norms(module, *inputs)
+    return module.eval()
+
+
+def a10_forward(dev, label, module, inputs, dtype, want, plain=False):
+    """One eval forward of `module` on the card in `dtype` (plain: on the
+    plain route, `use_plain_route`) after a warm-up one, the counters set
+    to 0 just before and read just after and held to `want` ({kernel:
+    launches}, every other 0), its output finite and within A10_REL of the
+    port's fp32 CPU forward of the same module and inputs. Returns the
+    counts."""
+    import copy
+
+    import torch
+
+    from fcd_tpu_torch.ops.layers import use_plain_route
+
+    tag = _dtype_tag(dtype)
+    with torch.no_grad():
+        ref = module(*inputs).float()
+        card = copy.deepcopy(module).to(dev)
+        if plain:
+            use_plain_route(card)
+        xs = [t.to(dev, dtype).contiguous() for t in inputs]
+        card(*xs)
+        sync(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = card(*xs)
+        sync(dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts()
+    got = got.float().cpu()
+    ok_counts = dev.type != "cuda" or counts == dict(
+        {k: 0 for k in PER_PATCH}, **want)
+    _, rel = rel_err(got, ref)
+    tol = A10_REL[tag]
+    ok = (ok_counts and got.shape == ref.shape
+          and bool(torch.isfinite(got).all()) and rel <= tol)
+    print(f"a10 {label} {tag}{' (plain route)' if plain else ''}: eval "
+          f"forward {ms:.2f} ms, launches "
+          f"{ {k: v for k, v in counts.items() if v} } "
+          f"{'ok' if ok_counts else 'FAIL'}; against the fp32 CPU forward "
+          f"rel {rel:.3e} (tol {tol}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"a10 {label} {tag}: launches {counts}, rel "
+                             f"{rel:.3e}")
+    del card
+    return counts
+
+
+def _block_groups(module):
+    """{top-level flax module of a lone block: its parameters}."""
+    from fcd_tpu_torch.weights import _block_entries
+
+    out = {}
+    for coll, path, t, _ in _block_entries(module):
+        if coll == "params":
+            out.setdefault(path[0], []).append(t)
+    return out
+
+
+def a10_train_check(dev, label, module, inputs, kernels):
+    """One train-mode forward and backward of `module`, dropout off, of
+    sum(out * cot) for a seeded cotangent: on the card in bf16 and on the
+    CPU in fp32 and in bf16 (the kernels' plain versions), from the same
+    weights and running statistics. The card's output within
+    PATCH_REL_TOL of the fp32 one; each group's gradient (the block's
+    top-level flax modules, and each input's) by train_check's rule
+    (group_rule: within GROUP_MARGIN times the bf16 CPU step's distance
+    from fp32, ROADMAP C10); the kernels launched (the counters set to 0
+    just before the card's step and read just after) exactly `kernels`.
+    Returns the counts."""
+    import copy
+
+    import torch
+
+    dropout_off(module)
+    module.train()
+    models = [copy.deepcopy(module).to(d) for d in ("cpu", "cpu", dev)]
+
+    def step(m, d, dt, cot=None):
+        xs = [t.detach().to(d, dt).clone().requires_grad_(True)
+              for t in inputs]
+        out = m(*xs)
+        if cot is None:
+            cot = torch.randn(out.shape, generator=torch.Generator()
+                              .manual_seed(SEED + 7))
+        (out.float() * cot.to(d)).sum().backward()
+        return out.detach().float().cpu(), [x.grad for x in xs], cot
+
+    with torch.enable_grad():
+        ref, ref_gx, cot = step(models[0], "cpu", torch.float32)
+        _, bf_gx, _ = step(models[1], "cpu", torch.bfloat16, cot)
+        sync(dev)
+        reset_counts()
+        got, gx, _ = step(models[2], dev, torch.bfloat16, cot)
+        sync(dev)
+        counts = read_counts()
+    d_card = _grad_distance(models[2], models[0], _block_groups)
+    d_bf16 = _grad_distance(models[1], models[0], _block_groups)
+    for i, (g, b, w) in enumerate(zip(gx, bf_gx, ref_gx)):
+        for d, t in ((d_card, g), (d_bf16, b)):
+            t, w64 = t.double().cpu().ravel(), w.double().ravel()
+            d[f"input {i}"] = (float((t - w64).norm() / w64.norm()),
+                               float(torch.dot(t, w64)
+                                     / (t.norm() * w64.norm())))
+    good, lines = group_rule(d_card, d_bf16)
+    launched = {k for k, v in counts.items() if v}
+    ok_counts = dev.type != "cuda" or launched == set(kernels)
+    _, rel = rel_err(got, ref)
+    ok = good and ok_counts and rel <= PATCH_REL_TOL
+    print(f"a10 train check {label}: card bf16 vs CPU fp32, output rel "
+          f"{rel:.3e} (tol {PATCH_REL_TOL}), launches "
+          f"{ {k: v for k, v in counts.items() if v} } "
+          f"{'ok' if ok_counts else 'FAIL'}, grads rel-L2/cosine per group "
+          f"within {GROUP_MARGIN}x the bf16 CPU step's distance "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    print("  " + ", ".join(lines), flush=True)
+    if not ok:
+        raise AssertionError(f"a10 train check {label}: launches {counts}, "
+                             f"rel {rel:.3e}, groups {lines}")
+    return counts
+
+
+def a10_run(dev, small=False):
+    """ROADMAP A10's blocks at MS_DSA_NET's widths (fs16, 4 heads, P 64),
+    one sample (the module docstring, 17.): the eval forward of
+    DsaUpBlock at level 3 in each `fuse`, AgUpBlock at dec1 (res_block
+    both ways, and 'cat' with the basic block), TransformerBlockDSA at
+    levels 3 and 6 in bf16 and on the plain route in f32 and f16, and
+    CrossAttentionBlock at level 3, each against the fp32 CPU forward with
+    its launches (a10_forward); one train-mode step of TransformerBlockDSA
+    and DsaUpBlock 'cat' at level 3 (a10_train_check). `small`: level 3
+    at 8^3 and dec1 at 16^3 (a CPU rehearsal). Returns {path: launch
+    counts}. B5's prologue-free instance is held to its plain versions
+    among the kernel phases (a10_dsa_phases), whose traces the profiler
+    takes early in the run."""
+    import torch
+
+    from fcd_tpu_torch.ops.attention import (
+        CrossAttentionBlock,
+        TransformerBlockDSA,
+    )
+    from fcd_tpu_torch.ops.blocks import AgUpBlock, DsaUpBlock
+
+    g = torch.Generator().manual_seed(SEED + 6)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g)
+
+    s3 = 8 if small else 32     # level 3's grid (decoder 3's output)
+    s1 = 16 if small else 128   # dec1's
+    n3 = s3 ** 3
+    bf, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    by_path = {}
+
+    def run(label, module, inputs, seed, runs):
+        _a10_seed(module, seed, inputs)
+        for dtype, plain, want in runs:
+            by_path[f"a10 {label} {_dtype_tag(dtype)}"] = a10_forward(
+                dev, label, module, inputs, dtype, want, plain)
+
+    dsa3 = {"dsa_phase_a": 3, "dsa_phase_b": 3}
+    up3 = [randn(1, s3 // 2, s3 // 2, s3 // 2, 64), randn(1, s3, s3, s3, 32)]
+    for fuse, want in (("cat", dict(conv3d=8, finale_pool=4, **dsa3)),
+                       ("sum", dict(conv3d=6, finale_pool=3, **dsa3)),
+                       ("cross", {})):
+        run(f"DsaUpBlock {fuse} level3 N={n3} C=32 P=64",
+            DsaUpBlock(64, 32, n3, fuse=fuse), up3, SEED + 10,
+            [(bf, False, want)])
+    up1 = [randn(1, s1 // 2, s1 // 2, s1 // 2, 32), randn(1, s1, s1, s1, 16)]
+    for fuse, res in (("sum", True), ("sum", False), ("cat", False)):
+        run(f"AgUpBlock {fuse} {'res' if res else 'basic'} dec1 "
+            f"{s1}^3 C=16", AgUpBlock(32, 16, 16, fuse, res), up1,
+            SEED + 11, [(bf, False, dict(conv3d=2, finale_pool=1))])
+    for name, s, c, p in (("level3", s3, 32, 64), ("level6", 4, 256, 32)):
+        raw = {dt: {f"dsa_phase_a_raw{sfx}": 1, f"dsa_phase_b_raw{sfx}": 1}
+               for dt, sfx in ((bf, ""), (f32, "_f32"), (f16, "_f16"))}
+        run(f"TransformerBlockDSA {name} N={s ** 3} C={c} P={p}",
+            TransformerBlockDSA(s ** 3, c, p, 4), [randn(1, s, s, s, c)],
+            SEED + 12, [(bf, False, raw[bf]), (f32, True, raw[f32]),
+                        (f16, True, raw[f16])])
+    run(f"CrossAttentionBlock level3 N={n3} C=32 P=64",
+        CrossAttentionBlock(n3, 32, 64, 4), [randn(1, s3, s3, s3, 32),
+                                            randn(1, s3, s3, s3, 32)],
+        SEED + 13, [(bf, False, {})])
+    spatial = ("spatial_attn_fwd", "spatial_attn_bwd")
+    tb = _a10_seed(TransformerBlockDSA(n3, 32, 64, 4), SEED + 14,
+                   [randn(1, s3, s3, s3, 32)])
+    by_path["a10 train TransformerBlockDSA"] = a10_train_check(
+        dev, f"TransformerBlockDSA level3 N={n3} C=32 P=64", tb,
+        [randn(1, s3, s3, s3, 32)], spatial)
+    up = _a10_seed(DsaUpBlock(64, 32, n3, fuse="cat"), SEED + 15, up3)
+    by_path["a10 train DsaUpBlock cat"] = a10_train_check(
+        dev, f"DsaUpBlock cat level3 N={n3} C=32 P=64", up, up3,
+        spatial + ("conv3d", "conv3d_wgrad", "finale_pool", "finale_bwd"))
+    return by_path
+
+
+def a10_phases(dev, gen, small=False):
+    """`--kernels a10`: B5's prologue-free instance against its plain
+    versions, then the blocks (a10_run)."""
+    phases = a10_dsa_phases(dev, gen, small)
+    a10_run(dev, small)
+    return phases
+
+
 def a6_run(dev, card, params=None) -> None:
     """`utils/profiling.py` on the card: the default model's (or
     `params`') forward FLOPs at its patch (`get_model_flops`, counted on
@@ -4199,13 +4499,15 @@ def _sass_functions(lib, pick) -> dict:
 
 def f32_sass_report() -> None:
     """What runs on the tensor cores, from the SASS. B5's f32 instances
-    (libdsa_f32, 3xTF32): HMMA (.tf32) in the phase A and phase B kernels;
-    the finishing pass has no products. K3/K4's wide instances, rebuilt
+    (libdsa_f32, and libdsa_f32_raw, the prologue-free one; 3xTF32): HMMA
+    (.tf32) in the phase A and phase B kernels; the finishing pass has no
+    products. K3/K4's wide instances, rebuilt
     on the tensor cores: HMMA in every instance, the f32 ones (3xTF32) in
     libspatial_attn, the bf16 and f16 ones in libspatial_attn and
     libspatial_attn_f16 (m16n8k16). Fails on a function that breaks its
     rule."""
-    dsa = _sass_functions("dsa_f32", lambda f: True)
+    dsa = {f"{lib}:{f}": n for lib in ("dsa_f32", "dsa_f32_raw")
+           for f, n in _sass_functions(lib, lambda f: True).items()}
     products = {f: n for f, n in dsa.items()
                 if any(k in f for k in DSA_F32_KERNELS[::2])}
     wide = {}
@@ -4213,7 +4515,7 @@ def f32_sass_report() -> None:
         wide.update({f"{lib}:{f}": n for f, n in _sass_functions(
             lib, lambda f: "_wide" in f).items()})
     f32 = {f: n for f, n in wide.items() if "_wideIf" in f}
-    ok = (len(dsa) >= 3 and len(products) == 2 and all(products.values())
+    ok = (len(dsa) >= 6 and len(products) == 4 and all(products.values())
           and len(f32) >= 9 and len(wide) >= 27 and all(wide.values()))
     print(f"f32 instances of B5: {len(dsa)} functions, HMMA in phase A and "
           f"phase B ({', '.join(f'{n}' for n in products.values())}; "
@@ -4283,6 +4585,21 @@ def kernels_json(phases, by_path):
                             b5.REPLACES_A),
         "dsa_phase_b_f16": ("cuda", "fcd_tpu_torch/csrc/dsa.cu",
                             b5.REPLACES_B),
+        # B5's prologue-free instance: csrc/dsa.cu and csrc/dsa_f32.cu
+        # built with -DFCD_DSA_RAW (libdsa_raw, libdsa_raw_f16,
+        # libdsa_f32_raw)
+        "dsa_phase_a_raw": ("cuda", "fcd_tpu_torch/csrc/dsa.cu",
+                            b5.REPLACES_A),
+        "dsa_phase_b_raw": ("cuda", "fcd_tpu_torch/csrc/dsa.cu",
+                            b5.REPLACES_B),
+        "dsa_phase_a_raw_f16": ("cuda", "fcd_tpu_torch/csrc/dsa.cu",
+                                b5.REPLACES_A),
+        "dsa_phase_b_raw_f16": ("cuda", "fcd_tpu_torch/csrc/dsa.cu",
+                                b5.REPLACES_B),
+        "dsa_phase_a_raw_f32": ("cuda", "fcd_tpu_torch/csrc/dsa_f32.cu",
+                                b5.REPLACES_A),
+        "dsa_phase_b_raw_f32": ("cuda", "fcd_tpu_torch/csrc/dsa_f32.cu",
+                                b5.REPLACES_B),
         "spatial_attn_fwd": ("cuda", "fcd_tpu_torch/csrc/spatial_attn.cu",
                              k34.REPLACES_FWD),
         "spatial_attn_bwd": ("cuda", "fcd_tpu_torch/csrc/spatial_attn.cu",
@@ -4359,6 +4676,8 @@ BUILD_REPORTS = {
     "spatial_attn": ("spatial_attn", SPATTN_KERNELS, ("c", "p", "co|hb"),
                      "HMMA"),
     "dsa_f16": ("dsa_f16", DSA_KERNELS, ("ch", "p"), "HMMA"),
+    "dsa_raw": ("dsa_raw", DSA_KERNELS, ("ch", "p"), "HMMA"),
+    "dsa_raw_f16": ("dsa_raw_f16", DSA_KERNELS, ("ch", "p"), "HMMA"),
     "spatial_attn_f16": ("spatial_attn_f16", SPATTN_KERNELS,
                          ("c", "p", "co|hb"), "HMMA"),
     # no products: their 16- and 8-byte loads instead
@@ -4387,7 +4706,8 @@ ONLY_PHASES = {"upsample2x": upsample_phases, "sw_exit": sw_io_phases,
                "spatial_attn_fwd_f16": spatial_attn_f16_levels,
                "spatial_attn_bwd_f16": spatial_attn_f16_levels,
                "zoo_widths": zoo_width_phases,
-               "tp_widths": tp_width_phases}
+               "tp_widths": tp_width_phases,
+               "a10": a10_phases}
 
 
 def elapsed(t_start, what) -> None:
@@ -4435,7 +4755,8 @@ def main(argv=()) -> int:
     libs = _build.build_all()
     print(f"build: {len(libs)} CUDA libraries in {time.perf_counter() - t0:.1f}"
           f" s ({', '.join(p.name for p in libs.values())})", flush=True)
-    dump_sass([args[0] for args in BUILD_REPORTS.values()] + ["dsa_f32"])
+    dump_sass([args[0] for args in BUILD_REPORTS.values()]
+              + ["dsa_f32", "dsa_f32_raw"])
     for args in BUILD_REPORTS.values():
         build_report(*args)
     f32_sass_report()
@@ -4539,6 +4860,9 @@ def main(argv=()) -> int:
         elapsed(t_start, f"zoo {label}")
         by_path.update(zoo_run(dev, card, label, extra, counts, full=True,
                                routes=routes))
+    torch.cuda.empty_cache()
+    elapsed(t_start, "a10")
+    by_path.update(a10_run(dev))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to "
           f"the result, the build included", flush=True)
     print(json.dumps(kernels_json(phases, by_path)))

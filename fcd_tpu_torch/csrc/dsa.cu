@@ -38,6 +38,17 @@
 //              slots staged are the same for every mode.
 // A call is three launches in every mode.
 //
+// The prologue-free instance (libdsa_raw, libdsa_raw_f16: this source
+// built with -DFCD_DSA_RAW) is dsa_fused called without ln_scale,
+// pos_embed and res_gamma (fcd_tpu/kernels/dsa_attention.py:217-220, as
+// fcd_tpu/ops/attention.py::TransformerBlockDSA's DSA calls it): x is
+// taken as the normalised tokens, xln = x, and phase B writes the
+// attention itself, y = h16(out_ca + out_sa) (or the mode's out). The
+// switch is FUSED: its kernels stage the token rows as they are
+// (copy_tile, no LayerNorm, no pos-embed) and read no ln_scale, ln_bias,
+// pe or gamma pointer; phase A's sums, the finishing pass, phase B's
+// products and the plans' tiles and shared memory are the fused form's.
+//
 // What bounds it (H100: 989 TFLOP/s h16, 3.35 TB/s): per token each phase
 // reads ~6C bytes (h16 x, f32 pos-embed) and does ~6C^2 + 4CP operations,
 // 30-250 operations a byte, under the card's ~295: the bytes. But the
@@ -106,6 +117,11 @@ constexpr int SMEM_CAP = 232448;   // shared memory one block may hold
 constexpr int KW = 32;             // weight rows (of C) a streamed chunk
 constexpr int STREAM_CH = 128;     // head widths that stream their weights
 constexpr float L2_EPS = 1e-12f;   // fcd_tpu/ops/attention.py::_l2_normalize
+#ifdef FCD_DSA_RAW
+constexpr bool FUSED = false;      // the prologue-free instance
+#else
+constexpr bool FUSED = true;       // pos-embed + LayerNorm, the residual
+#endif
 
 // a h16 row pitch of at least n elements: a multiple of 8 elements that
 // is an odd multiple of 16 bytes, so the 8 rows an ldmatrix reads sit in
@@ -370,6 +386,35 @@ __device__ void ln_tile(const Tok& tk, int b, int n0, h16* Xs, int xp,
   }
 }
 
+// the prologue-free instance's tile: tokens n0 .. n0 + T of batch b into
+// Xs as they are (h16, pitch xp), rows past N zero, columns C .. depth(C)
+// zero; 16-byte runs (C % 8 == 0)
+__device__ void copy_tile(const Tok& tk, int b, int n0, h16* Xs, int xp) {
+  const int C = tk.C, V = C / 8;
+  for (int v = threadIdx.x; v < tk.T * V; v += NT) {
+    const int t = v / V, c = (v - t * V) * 8, n = n0 + t;
+    *reinterpret_cast<uint4*>(Xs + t * xp + c) =
+        n < tk.N ? *reinterpret_cast<const uint4*>(
+                       tk.x + ((size_t)b * tk.N + n) * C + c)
+                 : make_uint4(0, 0, 0, 0);
+  }
+  if (C < 16)
+    for (int t = threadIdx.x; t < tk.T; t += NT)
+      *reinterpret_cast<uint4*>(Xs + t * xp + 8) = make_uint4(0, 0, 0, 0);
+}
+
+// a tile of both phases' input: ln_tile (with Bs, t of the head's
+// channels), or in the prologue-free instance copy_tile (no Bs)
+template <int CH>
+__device__ __forceinline__ void token_tile(const Tok& tk, int b, int n0,
+                                           h16* Xs, int xp, float* Bs,
+                                           int c0) {
+  if constexpr (FUSED)
+    ln_tile<CH>(tk, b, n0, Xs, xp, Bs, c0);
+  else
+    copy_tile(tk, b, n0, Xs, xp);
+}
+
 template <int NI>
 __device__ __forceinline__ void zero_acc(float (&acc)[NI][4]) {
 #pragma unroll
@@ -534,7 +579,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_a_kernel(const ParamsA p) {
     const int n0 = tile * T;
     // the weights are staged; the last tile's sums are done with the tiles
     __syncthreads();
-    ln_tile<CH>(tk, b, n0, Xs, xp, nullptr, 0);
+    token_tile<CH>(tk, b, n0, Xs, xp, nullptr, 0);
     for (int v = tid; v < T * (P / 8); v += NT) {
       const int t = v / (P / 8), c = (v - t * (P / 8)) * 8;
       const int n = n0 + t;
@@ -845,7 +890,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   if constexpr (!SB::STREAM)
     stage_weights<CH, 2>(tk, 0x20, h, Ws, SB::WP);  // slots q, v (v_ca)
-  ln_tile<CH>(tk, b, n0, Xs, xp, Bs, h * CH);
+  token_tile<CH>(tk, b, n0, Xs, xp, Bs, h * CH);
   const size_t hc = (size_t)b * C + h * CH;
   const uint4 zero = make_uint4(0, 0, 0, 0);
   const h16* abh = p.abig + ((size_t)b * tk.heads + h) * CH * CH;
@@ -874,7 +919,7 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
   }
   for (int c = tid; c < CHP; c += NT) {
     qn_s[c] = c < CH ? p.qnorm[hc + c] : 0.f;
-    gm_s[c] = c < CH ? p.gamma[h * CH + c] : 0.f;
+    gm_s[c] = FUSED && c < CH ? p.gamma[h * CH + c] : 0.f;
   }
   if (KC > CHP)  // zero depth padding of qn and v_ca (CHP = 8)
     for (int v = tid; v < 2 * T; v += NT)
@@ -1042,9 +1087,9 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
       zero_acc(o);
       channel(o);
     }
-    // y = h16(t + gamma * o) of the head's CH real channels, staged in
-    // this warp's rows of Qs, then stored as 16-byte runs (CH >= 8) or
-    // element by element
+    // y = h16(t + gamma * o) (the prologue-free instance: h16(o)) of the
+    // head's CH real channels, staged in this warp's rows of Qs, then
+    // stored as 16-byte runs (CH >= 8) or element by element
     __syncwarp();
 #pragma unroll
     for (int j = 0; j < CHP / 8; ++j) {
@@ -1055,8 +1100,10 @@ __global__ void __launch_bounds__(NT) dsa_phase_b_kernel(const ParamsB p) {
       for (int hf = 0; hf < 2; ++hf) {
         const int rr = r + 8 * hf;
         *reinterpret_cast<uint32_t*>(Qs + rr * SB::QP + col) =
-            pack2(Bs[rr * CH + col] + gm_s[col] * o[j][2 * hf],
-                  Bs[rr * CH + col + 1] + gm_s[col + 1] * o[j][2 * hf + 1]);
+            FUSED ? pack2(Bs[rr * CH + col] + gm_s[col] * o[j][2 * hf],
+                          Bs[rr * CH + col + 1] +
+                              gm_s[col + 1] * o[j][2 * hf + 1])
+                  : pack2(o[j][2 * hf], o[j][2 * hf + 1]);
       }
     }
     __syncwarp();
@@ -1146,6 +1193,15 @@ Tok tokens(const void* x, const float* pe, const float* lns, const float* lnb,
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
+// the build's form of the token operands: the fused instance takes the
+// LayerNorm affine (pos-embed optional) and, in phase B, gamma; the
+// prologue-free one none of them
+bool form_ok(const float* pe, const float* lns, const float* lnb,
+             bool has_gamma) {
+  if (FUSED) return lns != nullptr && lnb != nullptr && has_gamma;
+  return pe == nullptr && lns == nullptr && lnb == nullptr && !has_gamma;
+}
+
 // the shapes the kernels take (kernels/dsa_attention.py::plan_for checks
 // them first): ch a power of two from 2 to 128, P in {16, 32, 64, 128}
 // (P = 0 in 'channel' mode and only there), C a power of two from 8 to
@@ -1190,7 +1246,8 @@ extern "C" int fcd_dsa_phase_a(const void* x, const float* pe,
                                int N, int C, int P, int heads, int T,
                                int per_chunk, int chunks, float eps,
                                void* stream) {
-  if (!supported(C, P, heads, T, mode) || per_chunk < 1 || chunks < 1)
+  if (!supported(C, P, heads, T, mode) || per_chunk < 1 || chunks < 1 ||
+      !form_ok(pe, lns, lnb, FUSED))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   ParamsA pa;
@@ -1241,7 +1298,8 @@ extern "C" int fcd_dsa_phase_b(const void* x, const float* pe,
                                const void* vp, const float* gamma, void* out,
                                int B, int N, int C, int P, int heads, int T,
                                float eps, void* stream) {
-  if (!supported(C, P, heads, T, mode))
+  if (!supported(C, P, heads, T, mode) ||
+      !form_ok(pe, lns, lnb, gamma != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   ParamsB pb;

@@ -81,6 +81,11 @@
 //     accumulators giving y = t + gamma * out straight to device memory,
 //     no block barrier after the projection. Smaller tiles spread each
 //     product over the warps, the softmax a warp a token.
+// The prologue-free instance (libdsa_f32_raw: this source built with
+// -DFCD_DSA_RAW, FUSED false) is dsa.cu's, in f32: xln = x as staged (no
+// LayerNorm, no pos-embed), y = out, and it reads no ln_scale, ln_bias, pe
+// or gamma pointer; the plans, shared memory and products are the fused
+// form's.
 // Widths: every (C, P, heads) that dsa.cu takes (head width 2-128, P 0 or
 // 16-128, C a power of two from 8 to 512); one instance of each kernel
 // serves them all. Head widths 2 and 4 are staged padded with zero
@@ -107,6 +112,11 @@ constexpr int SLACK = 16;          // floats past phase A's q | k | v_sa
                                    // that an 8-column slot's 16-row
                                    // fragments read (and drop)
 constexpr float L2_EPS = 1e-12f;   // fcd_tpu/ops/attention.py::_l2_normalize
+#ifdef FCD_DSA_RAW
+constexpr bool FUSED = false;      // the prologue-free instance
+#else
+constexpr bool FUSED = true;       // pos-embed + LayerNorm, the residual
+#endif
 
 enum Mode { PARALLEL = 0, SERIAL = 1, SPATIAL = 2, CHANNEL = 3 };
 
@@ -663,7 +673,7 @@ __global__ void __launch_bounds__(NT, 2) dsa_f32_phase_a_kernel(
     cp_async_commit();
     cp_async_wait_all();
     __syncthreads();
-    ln_tile(tk, n0, Xs, Ps, xp, nullptr, 0, CH, 0);
+    if constexpr (FUSED) ln_tile(tk, n0, Xs, Ps, xp, nullptr, 0, CH, 0);
     float acc[MJ][4];
     project(tk, sg, ns, Xs, xp, W, wp, resident, unit, um, un, unj, acc);
     if (unit) store_unit(acc, unj, um * 16, un * 8, Qs, wp, nullptr, 0, lane);
@@ -969,7 +979,7 @@ __global__ void __launch_bounds__(NT, 2) dsa_f32_phase_b_kernel(
   }
   cp_async_wait_all();
   __syncthreads();
-  ln_tile(tk, n0, Xs, Ps, xp, Bs, c0, HB * CH, HC);
+  if constexpr (FUSED) ln_tile(tk, n0, Xs, Ps, xp, Bs, c0, HB * CH, HC);
   // q | v of every head (slots 0 and 2), q scaled by qnorm as it is stored
   const Units pu = units_of(T / 16, nc / 8);
   const bool unit = warp < pu.units;
@@ -979,7 +989,7 @@ __global__ void __launch_bounds__(NT, 2) dsa_f32_phase_b_kernel(
   project(tk, sg, 2 * HB, Xs, xp, W, wp, resident, unit, um, un, unj, acc);
   if (unit) store_unit(acc, unj, um * 16, un * 8, Qv, qp, Qn, HC, lane);
   __syncthreads();
-  // y = t + gamma * out for head j's unit (m-tile mi, n-tiles nt0 .. nt0 +
+  // y = t + gamma * out (the prologue-free instance: out) for head j's unit (m-tile mi, n-tiles nt0 .. nt0 +
   // nj), the spatial output's rows mi * 16 .. in O from row om0: out_ca
   // (+ out_sa), out_sa alone, or out_sa abig
   auto output = [&](int j, int mi, int nt0, int nj, const float* O,
@@ -1014,8 +1024,10 @@ __global__ void __launch_bounds__(NT, 2) dsa_f32_phase_b_kernel(
         const int cc = c0 + j * CH + c;
         *reinterpret_cast<float2*>(p.out + ((size_t)b * tk.N + n0 + r) * C +
                                    cc) =
-            make_float2(Bs[r * HC + j * CH + c] + p.gamma[cc] * o0,
-                        Bs[r * HC + j * CH + c + 1] + p.gamma[cc + 1] * o1);
+            FUSED ? make_float2(Bs[r * HC + j * CH + c] + p.gamma[cc] * o0,
+                                Bs[r * HC + j * CH + c + 1] +
+                                    p.gamma[cc + 1] * o1)
+                  : make_float2(o0, o1);
       }
     }
   };
@@ -1093,6 +1105,13 @@ cudaError_t allow_smem(K kern, bool& done) {
 
 bool pow2(int v) { return v > 0 && (v & (v - 1)) == 0; }
 
+// the build's form of the token operands (dsa.cu's form_ok)
+bool form_ok(const float* pe, const float* lns, const float* lnb,
+             bool has_gamma) {
+  if (FUSED) return lns != nullptr && lnb != nullptr && has_gamma;
+  return pe == nullptr && lns == nullptr && lnb == nullptr && !has_gamma;
+}
+
 // dsa.cu's widths (kernels/dsa_attention.py::supported), and a token tile
 // of 16, 32, 64 or 128
 bool supported(int C, int P, int heads, int T, int mode) {
@@ -1140,7 +1159,7 @@ extern "C" int fcd_dsa_f32_phase_a(const float* x, const float* pe,
                                    int per_chunk, int chunks, int groups,
                                    float eps, void* stream) {
   if (!supported(C, P, heads, T, mode) || per_chunk < 1 || chunks < 1 ||
-      N < 1 || B < 1 || !pow2(groups))
+      N < 1 || B < 1 || !pow2(groups) || !form_ok(pe, lns, lnb, FUSED))
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (N + T - 1) / T;
   if ((long long)chunks * per_chunk < tiles ||
@@ -1215,7 +1234,7 @@ extern "C" int fcd_dsa_f32_phase_b(const float* x, const float* pe,
                                    int N, int C, int P, int heads, int T,
                                    int hb, float eps, void* stream) {
   if (!supported(C, P, heads, T, mode) || N < 1 || B < 1 || !pow2(hb) ||
-      hb > MAX_HB || heads % hb)
+      hb > MAX_HB || heads % hb || !form_ok(pe, lns, lnb, gamma != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const int CH = C / heads;
   const int bytes = smem_b(C, CH, P, T, hb);

@@ -10,8 +10,11 @@ is rebuilt and a stale library is never loaded. `build_all()` starts one
 is kept beside the library as `lib<name>-<hash>.log` (`build_log`).
 `dsa_f16` and `spatial_attn_f16` (`VARIANTS`) are `dsa.cu` and
 `spatial_attn.cu` built again with `-DFCD_F16`: the same kernels on f16
-operands (`csrc/h16.cuh`, ROADMAP C20). A library's hash covers its
-source, the shared headers and its flags.
+operands (`csrc/h16.cuh`, ROADMAP C20). `dsa_raw`, `dsa_raw_f16` and
+`dsa_f32_raw` are B5's prologue-free instance (`-DFCD_DSA_RAW`: no
+LayerNorm, pos-embed or residual), each a library of its own so that
+the builds run side by side. A library's hash covers its source, the
+shared headers and its flags.
 
 Every C entry point returns `cudaGetLastError()` after its launch;
 `check()` raises if that is not 0.
@@ -31,11 +34,15 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "fcd_tpu_torch"
 SOURCES = ("conv3d", "conv3d_wgrad", "upsample", "dsa", "dsa_f16", "dsa_f32",
-           "spatial_attn", "spatial_attn_f16", "sw_io", "finale_head",
-           "finale_bwd", "pool2x_bwd", "conv_finish")
+           "dsa_raw", "dsa_raw_f16", "dsa_f32_raw", "spatial_attn",
+           "spatial_attn_f16", "sw_io", "finale_head", "finale_bwd",
+           "pool2x_bwd", "conv_finish")
 # a library built from another library's source with flags of its own:
 # name -> (source, flags)
 VARIANTS = {"dsa_f16": ("dsa", ("-DFCD_F16",)),
+            "dsa_raw": ("dsa", ("-DFCD_DSA_RAW",)),
+            "dsa_raw_f16": ("dsa", ("-DFCD_F16", "-DFCD_DSA_RAW")),
+            "dsa_f32_raw": ("dsa_f32", ("-DFCD_DSA_RAW",)),
             "spatial_attn_f16": ("spatial_attn", ("-DFCD_F16",))}
 # included by the sources, part of every hash
 HEADERS = ("h16.cuh", "tf32x3.cuh")

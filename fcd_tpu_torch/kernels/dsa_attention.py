@@ -5,10 +5,21 @@ pallas_call :243, the XLA glue :277-300, phase B :310). The CUDA kernels
 are `fcd_tpu_torch/csrc/dsa.cu`; its header gives the math, what bounds
 the kernels on the card and what their design does about that.
 
-`dsa_attention` is the op the transformer block calls: tokens (B, N, C)
--> `t + gamma * DSA(LN(t))` with `t = x + pos_embed`. On CPU tensors it is
-`dsa_reference`, the einsum math of `fcd_tpu/ops/attention.py:116-303` in
-PyTorch. On CUDA tensors it is `dsa_phase_a` with the temperatures (the
+`dsa_attention` is the op the transformer blocks call, in one of the two
+forms of `dsa_fused`'s contract (`fcd_tpu/kernels/dsa_attention.py:186-
+220`):
+- the fused form (`TransformerBlock`, `EPABlock`): tokens (B, N, C) ->
+  `t + gamma * DSA(LN(t))` with `t = x + pos_embed` (pos_embed optional),
+  dsa_fused with ln_scale, ln_bias, pos_embed and res_gamma;
+- the prologue-free form (`TransformerBlockDSA`): `ln_scale`, `ln_bias`,
+  `pos_embed` and `gamma` all None, x the normalised tokens -> `DSA(x)`,
+  dsa_fused without them (`has_ln` False: no LayerNorm prologue, no
+  residual epilogue). Its kernels are the same sources built with
+  -DFCD_DSA_RAW (`libdsa_raw`, `libdsa_raw_f16`, `libdsa_f32_raw`),
+  counted apart on `PHASE_A_RAW` / `PHASE_B_RAW` (and `_F16`, `_F32`).
+Any other mix raises (`fused_form`), as dsa_fused's assert refuses it.
+On CPU tensors it is `dsa_reference`, the einsum math of
+`fcd_tpu/ops/attention.py:116-303` in PyTorch. On CUDA tensors it is `dsa_phase_a` with the temperatures (the
 token sums of each head, then a finishing pass that adds the chunks'
 partial sums in a fixed order and does the glue, writing phase B's
 operands) and `dsa_phase_b`: three kernels, no PyTorch op between them.
@@ -98,9 +109,27 @@ class PhaseBOperands(NamedTuple):
     vp: torch.Tensor     # (B, C, P)
 
 
+def fused_form(ln_scale, ln_bias, pos_embed, *gamma) -> bool:
+    """Whether B5's token operands are the fused form's (ln_scale and
+    ln_bias, pos_embed optional, and in phase B `gamma`) or the
+    prologue-free form's (all of them None). Any other mix raises, as
+    dsa_fused's `assert has_ln or (not has_pe and not has_res)` does; the
+    port has no instance with a LayerNorm and no residual, which no JAX
+    caller runs."""
+    given = [t is not None for t in (ln_scale, ln_bias, *gamma)]
+    if all(given):
+        return True
+    if not any(given) and pos_embed is None:
+        return False
+    raise ValueError("B5 takes ln_scale, ln_bias and gamma (pos_embed "
+                     "optional), or none of them and no pos_embed")
+
+
 def _ln_tokens(x, pos_embed, ln_scale, ln_bias, eps):
     """(base, xln): base = x + pe in f32, xln = LayerNorm(base) rounded to
-    x's dtype."""
+    x's dtype; the prologue-free form (ln_scale None): (None, x)."""
+    if ln_scale is None:
+        return None, x
     base = x.float()
     if pos_embed is not None:
         base = base + pos_embed.float()
@@ -113,14 +142,16 @@ def dsa_reference(x, w_qkvv, ef, temperature, temperature2, ln_scale,
                   ) -> torch.Tensor:
     """The eval DSA block in plain PyTorch, f32 throughout: the einsum math
     of fcd_tpu/ops/attention.py:116-303 (tokens-resident form) for each
-    sa_type; `ef` is None for 'channel'."""
+    sa_type; `ef` is None for 'channel'. The prologue-free form (ln_scale,
+    ln_bias, pos_embed and gamma None) returns DSA(x)."""
     b, n, c = x.shape
     h, ch = num_heads, c // num_heads
+    fused = fused_form(ln_scale, ln_bias, pos_embed, gamma)
     base = x.float()
     if pos_embed is not None:
         base = base + pos_embed.float()
-    slots = (layer_norm(base, ln_scale, ln_bias, eps)
-             @ w_qkvv.float()).split(c, dim=-1)
+    xln = layer_norm(base, ln_scale, ln_bias, eps) if fused else base
+    slots = (xln @ w_qkvv.float()).split(c, dim=-1)
     q, k = slots[0], slots[1]
     qn = q * torch.rsqrt(q.square().sum(dim=1, keepdim=True) + _L2_EPS)
     kn = k * torch.rsqrt(k.square().sum(dim=1, keepdim=True) + _L2_EPS)
@@ -149,7 +180,7 @@ def dsa_reference(x, w_qkvv, ef, temperature, temperature2, ln_scale,
         att = channel(spatial(slots[2]))
     else:
         att = channel(slots[2]) + spatial(slots[3])
-    return (base + gamma.float() * att).to(x.dtype)
+    return (base + gamma.float() * att if fused else att).to(x.dtype)
 
 
 def _slots(w_qkvv, dtype, slots):
@@ -162,7 +193,8 @@ def _slots(w_qkvv, dtype, slots):
 def dsa_phase_a_plain(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed,
                       num_heads: int, eps: float = 1e-5,
                       sa_type: str = "parallel") -> PhaseA:
-    """Phase A's sums; for 'channel' (ef None) kp and vp are (B, C, 0)."""
+    """Phase A's sums; for 'channel' (ef None) kp and vp are (B, C, 0).
+    The prologue-free form (ln_scale None) projects x as it is."""
     dtype = x.dtype
     b, n, c = x.shape
     h, ch = num_heads, c // num_heads
@@ -228,7 +260,8 @@ def dsa_phase_b_plain(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale,
             out = torch.einsum("bnhd,bhdc->bnhc", sa.to(dtype).float(), ab)
         else:
             out = sa if out is None else out + sa
-    return (base + gamma.float() * out.reshape(b, n, c)).to(dtype)
+    out = out.reshape(b, n, c)
+    return (out if base is None else base + gamma.float() * out).to(dtype)
 
 
 # -- the kernels' plan ----------------------------------------------------------
@@ -567,12 +600,18 @@ def _fn(name: str, argtypes, lib: str = "dsa"):
 
 # the 16-bit instances: csrc/dsa.cu built for bf16 (the kernel route) and,
 # with -DFCD_F16, for f16 (a model that computes in f16, ROADMAP C20),
-# whose launches are counted apart
-_LIB16 = {torch.bfloat16: "dsa", torch.float16: "dsa_f16"}
+# whose launches are counted apart; each also prologue-free
+# (-DFCD_DSA_RAW), keyed (dtype, fused)
+_LIBS = {(torch.bfloat16, True): "dsa", (torch.float16, True): "dsa_f16",
+         (torch.float32, True): "dsa_f32",
+         (torch.bfloat16, False): "dsa_raw",
+         (torch.float16, False): "dsa_raw_f16",
+         (torch.float32, False): "dsa_f32_raw"}
 
 
 def _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads,
-                  sa_type):
+                  sa_type, *gamma) -> bool:
+    """Checks the operands' shapes; returns `fused_form`'s answer."""
     if x.dim() != 3:
         raise ValueError(f"tokens must be (B, N, C), got {tuple(x.shape)}")
     _, n, c = x.shape
@@ -582,10 +621,13 @@ def _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads,
     if tuple(w_qkvv.shape) != (c, ns * c):
         raise ValueError(f"w_qkvv must be ({c}, {ns * c}) for sa_type "
                          f"{sa_type!r}, got {tuple(w_qkvv.shape)}")
-    if tuple(ln_scale.shape) != (c,) or tuple(ln_bias.shape) != (c,):
+    fused = fused_form(ln_scale, ln_bias, pos_embed, *gamma)
+    if fused and (tuple(ln_scale.shape) != (c,)
+                  or tuple(ln_bias.shape) != (c,)):
         raise ValueError(f"LayerNorm affine must be ({c},)")
     if pos_embed is not None and tuple(pos_embed.shape) != (n, c):
         raise ValueError(f"pos_embed must be ({n}, {c})")
+    return fused
 
 
 def _cuda_operands(what, x, named):
@@ -646,9 +688,10 @@ def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
     operands (PhaseBOperands, in x's dtype). Plain on CPU; on CUDA the sums
     kernel and the finishing pass, two launches and one count. `plan`
     (default `dsa_plan`'s) sets the kernels' tiles and chunks. `ef` is
-    None for sa_type 'channel', whose plan has P = 0."""
-    _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads,
-                  sa_type)
+    None for sa_type 'channel', whose plan has P = 0. ln_scale, ln_bias
+    and pos_embed all None: the prologue-free instance (x as it is)."""
+    fused = _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads,
+                          sa_type)
     b, n, c = x.shape
     if (ef is None) != (sa_type == "channel"):
         raise ValueError("ef is None for sa_type 'channel' and only then")
@@ -667,7 +710,7 @@ def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
     if x.dtype == torch.float32:
         return _dsa_phase_a_f32(x, w_qkvv, ef, ln_scale, ln_bias,
                                 pos_embed, h, eps, temperatures, plan,
-                                sa_type)
+                                sa_type, fused)
     lo = (torch.float32, x.dtype)   # f32, or the tokens' 16-bit type
     _cuda_operands("dsa_phase_a", x, (
         ("w_qkvv", w_qkvv, lo), ("ef", ef, lo),
@@ -682,7 +725,7 @@ def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
     vp_, ci = ctypes.c_void_p, ctypes.c_int
     fn = _fn("fcd_dsa_phase_a", [vp_] * 5 + [ci, ci, vp_, ci, vp_, ci]
              + [vp_] * 7 + [ci] * 8 + [ctypes.c_float, vp_],
-             _LIB16[x.dtype])
+             _LIBS[x.dtype, fused])
     ptr = _build.ptr
     err = fn(ptr(x), ptr(pos_embed), ptr(ln_scale), ptr(ln_bias),
              ptr(w_qkvv), int(w_qkvv.dtype == torch.float32),
@@ -693,7 +736,7 @@ def dsa_phase_a(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed, num_heads: int,
              b, n, c, p, h, plan.tile, plan.per_chunk, plan.chunks,
              float(eps), _build.stream())
     _build.check(err, "dsa_phase_a")
-    _COUNTS[x.dtype][0].launches += 1
+    _COUNTS[x.dtype, fused][0].launches += 1
     return out
 
 
@@ -703,9 +746,11 @@ def dsa_phase_b(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale, ln_bias,
                 sa_type: str = "parallel") -> torch.Tensor:
     """Phase B: per token tile and head, the sa_type's attentions and the
     residual (plain on CPU, the kernel on CUDA). Returns (B, N, C) in x's
-    dtype. `plan` (default `dsa_plan`'s) sets the token tile."""
-    _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads,
-                  sa_type)
+    dtype. `plan` (default `dsa_plan`'s) sets the token tile. gamma,
+    ln_scale, ln_bias and pos_embed all None: the prologue-free instance,
+    which writes the attention itself."""
+    fused = _check_tokens(x, w_qkvv, ln_scale, ln_bias, pos_embed, num_heads,
+                          sa_type, gamma)
     b, n, c = x.shape
     h, ch = num_heads, c // num_heads
     p = kpt.shape[-1]
@@ -716,7 +761,7 @@ def dsa_phase_b(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale, ln_bias,
                            ("abig", abig, (b, h, ch, ch)),
                            ("kpt", kpt, (b, c, p)), ("vp", vp, (b, c, p)),
                            ("gamma", gamma, (c,))):
-        if tuple(t.shape) != shape:
+        if t is not None and tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
     if x.device.type == "cpu":
         return dsa_phase_b_plain(x, w_qkvv, qnorm, abig, kpt, vp, gamma,
@@ -725,7 +770,7 @@ def dsa_phase_b(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale, ln_bias,
     if x.dtype == torch.float32:
         return _dsa_phase_b_f32(x, w_qkvv, qnorm, abig, kpt, vp, gamma,
                                 ln_scale, ln_bias, pos_embed, h, eps, plan,
-                                sa_type)
+                                sa_type, fused)
     lo = (x.dtype,)   # the tokens' 16-bit type
     _cuda_operands("dsa_phase_b", x, (
         ("w_qkvv", w_qkvv, (torch.float32, x.dtype)),
@@ -739,7 +784,7 @@ def dsa_phase_b(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale, ln_bias,
     out = torch.empty_like(x)
     vp_, ci = ctypes.c_void_p, ctypes.c_int
     fn = _fn("fcd_dsa_phase_b", [vp_] * 5 + [ci, ci] + [vp_] * 6 + [ci] * 6
-             + [ctypes.c_float, vp_], _LIB16[x.dtype])
+             + [ctypes.c_float, vp_], _LIBS[x.dtype, fused])
     ptr = _build.ptr
     err = fn(ptr(x), ptr(pos_embed), ptr(ln_scale), ptr(ln_bias),
              ptr(w_qkvv), int(w_qkvv.dtype == torch.float32),
@@ -747,17 +792,18 @@ def dsa_phase_b(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale, ln_bias,
              ptr(abig), ptr(kpt), ptr(vp), ptr(gamma), ptr(out), b, n, c, p,
              h, plan.tile, float(eps), _build.stream())
     _build.check(err, "dsa_phase_b")
-    _COUNTS[x.dtype][1].launches += 1
+    _COUNTS[x.dtype, fused][1].launches += 1
     return out
 
 
 def _dsa_phase_a_f32(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed,
                      num_heads: int, eps: float = 1e-5, temperatures=None,
                      plan: Optional[DsaPlan] = None,
-                     sa_type: str = "parallel"):
+                     sa_type: str = "parallel", fused: bool = True):
     """`dsa_phase_a` on f32 CUDA tokens (csrc/dsa_f32.cu): the sums kernel
-    and the finishing pass, two launches and one count (`PHASE_A_F32`). Every
-    operand f32; `plan` (`plan_for_f32`'s) defaults to `dsa_plan_f32`'s."""
+    and the finishing pass, two launches and one count (`PHASE_A_F32`, the
+    prologue-free instance `PHASE_A_RAW_F32`). Every operand f32; `plan`
+    (`plan_for_f32`'s) defaults to `dsa_plan_f32`'s."""
     _cuda_operands("dsa_phase_a_f32", x, (
         ("w_qkvv", w_qkvv, _F32), ("ef", ef, _F32),
         ("pos_embed", pos_embed, _F32), ("ln_scale", ln_scale, _F32),
@@ -775,7 +821,8 @@ def _dsa_phase_a_f32(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed,
     t1, t2 = (None, None) if temperatures is None else temperatures
     vp_, ci = ctypes.c_void_p, ctypes.c_int
     fn = _fn("fcd_dsa_f32_phase_a", [vp_] * 5 + [ci, vp_, vp_, ci]
-             + [vp_] * 7 + [ci] * 9 + [ctypes.c_float, vp_], "dsa_f32")
+             + [vp_] * 7 + [ci] * 9 + [ctypes.c_float, vp_],
+             _LIBS[x.dtype, fused])
     ptr = _build.ptr
     err = fn(ptr(x), ptr(pos_embed), ptr(ln_scale), ptr(ln_bias),
              ptr(w_qkvv), mode_of(sa_type), ptr(ef), ptr(part),
@@ -784,17 +831,18 @@ def _dsa_phase_a_f32(x, w_qkvv, ef, ln_scale, ln_bias, pos_embed,
              b, n, c, p, h, plan.tile, plan.per_chunk, plan.chunks,
              plan.groups, float(eps), _build.stream())
     _build.check(err, "dsa_phase_a_f32")
-    _COUNTS[x.dtype][0].launches += 1
+    _COUNTS[x.dtype, fused][0].launches += 1
     return out
 
 
 def _dsa_phase_b_f32(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale,
                      ln_bias, pos_embed, num_heads: int, eps: float = 1e-5,
                      plan: Optional[DsaPlan] = None,
-                     sa_type: str = "parallel") -> torch.Tensor:
+                     sa_type: str = "parallel",
+                     fused: bool = True) -> torch.Tensor:
     """`dsa_phase_b` on f32 CUDA tokens (csrc/dsa_f32.cu): one launch,
-    counted on `PHASE_B_F32`. Every operand f32; `plan` defaults to
-    `dsa_plan_f32`'s."""
+    counted on `PHASE_B_F32` (the prologue-free instance `PHASE_B_RAW_F32`).
+    Every operand f32; `plan` defaults to `dsa_plan_f32`'s."""
     _cuda_operands("dsa_phase_b_f32", x, (
         ("w_qkvv", w_qkvv, _F32), ("pos_embed", pos_embed, _F32),
         ("ln_scale", ln_scale, _F32), ("ln_bias", ln_bias, _F32),
@@ -810,35 +858,44 @@ def _dsa_phase_b_f32(x, w_qkvv, qnorm, abig, kpt, vp, gamma, ln_scale,
     out = torch.empty_like(x)
     vp_, ci = ctypes.c_void_p, ctypes.c_int
     fn = _fn("fcd_dsa_f32_phase_b", [vp_] * 5 + [ci] + [vp_] * 6
-             + [ci] * 7 + [ctypes.c_float, vp_], "dsa_f32")
+             + [ci] * 7 + [ctypes.c_float, vp_], _LIBS[x.dtype, fused])
     ptr = _build.ptr
     err = fn(ptr(x), ptr(pos_embed), ptr(ln_scale), ptr(ln_bias),
              ptr(w_qkvv), mode_of(sa_type), ptr(qnorm), ptr(abig), ptr(kpt),
              ptr(vp), ptr(gamma), ptr(out), b, n, c, p, h, plan.tile,
              plan.hb, float(eps), _build.stream())
     _build.check(err, "dsa_phase_b_f32")
-    _COUNTS[x.dtype][1].launches += 1
+    _COUNTS[x.dtype, fused][1].launches += 1
     return out
 
 
 dsa_phase_a.launches = 0
 dsa_phase_b.launches = 0
-# the f16 (ROADMAP C20) and f32 (C18) instances' launches, counted apart
+# the f16 (ROADMAP C20) and f32 (C18) instances' launches, and the
+# prologue-free instances' of each type, counted apart
 PHASE_A_F16, PHASE_B_F16 = _build.Launches(), _build.Launches()
 PHASE_A_F32, PHASE_B_F32 = _build.Launches(), _build.Launches()
-_COUNTS = {torch.bfloat16: (dsa_phase_a, dsa_phase_b),
-           torch.float16: (PHASE_A_F16, PHASE_B_F16),
-           torch.float32: (PHASE_A_F32, PHASE_B_F32)}
+PHASE_A_RAW, PHASE_B_RAW = _build.Launches(), _build.Launches()
+PHASE_A_RAW_F16, PHASE_B_RAW_F16 = _build.Launches(), _build.Launches()
+PHASE_A_RAW_F32, PHASE_B_RAW_F32 = _build.Launches(), _build.Launches()
+_COUNTS = {(torch.bfloat16, True): (dsa_phase_a, dsa_phase_b),
+           (torch.float16, True): (PHASE_A_F16, PHASE_B_F16),
+           (torch.float32, True): (PHASE_A_F32, PHASE_B_F32),
+           (torch.bfloat16, False): (PHASE_A_RAW, PHASE_B_RAW),
+           (torch.float16, False): (PHASE_A_RAW_F16, PHASE_B_RAW_F16),
+           (torch.float32, False): (PHASE_A_RAW_F32, PHASE_B_RAW_F32)}
 
 
 def dsa_attention(x, w_qkvv, ef, temperature, temperature2, ln_scale,
                   ln_bias, pos_embed: Optional[torch.Tensor], gamma,
                   num_heads: int, eps: float = 1e-5,
                   sa_type: str = "parallel") -> torch.Tensor:
-    """Eval DSA block on tokens (B, N, C): `t + gamma * DSA(LN(t))` with
-    `t = x + pos_embed`. CPU: dsa_reference; CUDA: phase A with its
-    finishing pass, then phase B (the bf16, f16 or f32 instances, by x's
-    dtype)."""
+    """Eval DSA block on tokens (B, N, C), in either form of the module
+    docstring: `t + gamma * DSA(LN(t))` with `t = x + pos_embed` (the
+    fused form), or with ln_scale, ln_bias, pos_embed and gamma all None
+    `DSA(x)` (the prologue-free form). CPU: dsa_reference; CUDA: phase A
+    with its finishing pass, then phase B (the bf16, f16 or f32 instances
+    of the form, by x's dtype)."""
     if x.device.type == "cpu":
         return dsa_reference(x, w_qkvv, ef, temperature, temperature2,
                              ln_scale, ln_bias, pos_embed, gamma, num_heads,

@@ -1,4 +1,5 @@
-"""Dual self-attention: DSA, TransformerBlock, ChannelDropout3d.
+"""Dual self-attention: DSA, TransformerBlock, EPABlock, ChannelDropout3d,
+TransformerBlockDSA and CrossAttentionBlock.
 
 Counterpart of `fcd_tpu/ops/attention.py`. The transformer block is
 `fcd_tpu/ops/attention.py::TransformerBlock` (conv_blocks.py:18-90 of the
@@ -19,6 +20,14 @@ package runs: 'parallel' (the default), 'serial', 'spatial' and
 'channel'; K3/K4 run for all but 'channel'. `EPABlock` is UNETR++'s
 block, the same function at 'parallel'.
 
+`TransformerBlockDSA` (`fcd_tpu/ops/attention.py:451-484`) is the
+ViT-style block: t = tokens + pos_embed, t = t + DSA(LN(t)), t = t +
+MLP(LN(t)). Its DSA takes the normalised tokens, so at eval it is B5's
+prologue-free instance (no LayerNorm prologue, no residual epilogue;
+`kernels/dsa_attention.py`), never the fused form at gamma = 1, whose
+rounding points differ. `CrossAttentionBlock` (:487-530) has no Pallas
+kernel in the JAX package (XLA einsums); its port is plain PyTorch.
+
 The kernels take the tokens' dtype: bf16 tokens run B5's and K3/K4's
 bf16 instances, f16 tokens (ROADMAP C20) their f16 instances and f32
 tokens (ROADMAP C18) their f32 ones, as the JAX package runs `dsa_fused`
@@ -36,12 +45,15 @@ import torch.nn as nn
 from fcd_tpu_torch.kernels.dsa_attention import (
     _L2_EPS,
     dsa_attention,
+    fused_form,
     num_slots,
 )
 from fcd_tpu_torch.kernels.spatial_attn import dropout_key, spatial_attn
-from fcd_tpu_torch.ops.blocks import UnetResBlock
+from fcd_tpu_torch.ops.blocks import MLPBlock, UnetResBlock
 from fcd_tpu_torch.ops.layers import (
+    Dense,
     DropoutRng,
+    LayerNorm,
     conv1x1,
     dropout,
     kaiming_normal_fan_out_,
@@ -62,7 +74,9 @@ def dsa_train(x, w_qkvv, ef, temperature, temperature2, ln_scale, ln_bias,
               rng: DropoutRng, salt: int, eps: float = 1e-5,
               sa_type: str = "parallel", tp=None) -> torch.Tensor:
     """The train DSA block: tokens x (B, N, C) -> t + gamma * DSA(LN(t)),
-    t = x + pos_embed, in x's dtype, as `fcd_tpu/ops/attention.py:116-132,
+    t = x + pos_embed, in x's dtype, or with ln_scale, ln_bias, pos_embed
+    and gamma all None (`TransformerBlockDSA`'s DSA) DSA(x) of the
+    normalised tokens x, as `fcd_tpu/ops/attention.py:116-132,
     222-303` computes it for each `sa_type`: 'parallel' adds the channel
     attention (values v_ca) and the spatial attention (values v_sa);
     'channel' and 'spatial' are one of them on the third slot; 'serial'
@@ -74,8 +88,9 @@ def dsa_train(x, w_qkvv, ef, temperature, temperature2, ln_scale, ln_bias,
     dtype = x.dtype
     b, n, c = x.shape
     h, ch = num_heads, c // num_heads
+    fused = fused_form(ln_scale, ln_bias, pos_embed, gamma)
     base = x if pos_embed is None else x + pos_embed.to(dtype)
-    xln = layer_norm(base, ln_scale, ln_bias, eps).to(dtype)
+    xln = layer_norm(base, ln_scale, ln_bias, eps).to(dtype) if fused else x
     slots = conv1x1(xln, w_qkvv, tp=tp).split(c, dim=-1)
     if len(slots) != num_slots(sa_type):
         raise ValueError(f"qkvv has {len(slots)} slots, sa_type {sa_type!r} "
@@ -115,6 +130,8 @@ def dsa_train(x, w_qkvv, ef, temperature, temperature2, ln_scale, ln_bias,
         out = channel(spatial(slots[2]))
     else:
         out = channel(slots[2]) + spatial(slots[3])
+    if not fused:
+        return out.to(dtype)
     return base + gamma.to(dtype) * out.to(dtype)
 
 
@@ -159,11 +176,19 @@ class DSA(nn.Module):
             if self.EF is not None:
                 self.EF.uniform_(-lim, lim, generator=generator)
 
-    def forward(self, tokens: torch.Tensor, ln_scale: torch.Tensor,
-                ln_bias: torch.Tensor, pos_embed: torch.Tensor,
-                gamma: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-        """tokens (B, N, C), raw: returns t + gamma * DSA(LN(t)) with
-        t = tokens + pos_embed (N, C)."""
+    def forward(self, tokens: torch.Tensor,
+                ln_scale: Optional[torch.Tensor] = None,
+                ln_bias: Optional[torch.Tensor] = None,
+                pos_embed: Optional[torch.Tensor] = None,
+                gamma: Optional[torch.Tensor] = None,
+                eps: float = 1e-5) -> torch.Tensor:
+        """Both contracts of `fcd_tpu/ops/attention.py::DSA`: with the
+        LayerNorm affine and gamma, tokens (B, N, C) raw, returns t + gamma *
+        DSA(LN(t)) with t = tokens + pos_embed (N, C, optional), B5's fused
+        form at eval (`TransformerBlock`); with none of them, tokens the
+        normalised tokens, returns DSA(tokens), B5's prologue-free instance
+        at eval (`TransformerBlockDSA`). In train mode `dsa_train` in
+        either form."""
         if self.training:
             return dsa_train(tokens, self.qkvv, self.EF, self.temperature,
                              self.temperature2, ln_scale, ln_bias, pos_embed,
@@ -259,3 +284,113 @@ class EPABlock(TransformerBlock):
                  rng: Optional[DropoutRng] = None, salt: int = 0):
         super().__init__(input_size, hidden_size, proj_size, num_heads,
                          "parallel", dropout_rate, rng, salt)
+
+
+class TransformerBlockDSA(nn.Module):
+    """`fcd_tpu/ops/attention.py::TransformerBlockDSA` (:451-484), the
+    ViT-style block of conv_blocks.py:92-143 (reference), on (B, D, H, W,
+    C) features:
+
+        t = tokens + pos_embed      (pos_embed optional)
+        t = t + DSA(LN_0(t))
+        t = t + MLP(LN_1(t))
+
+    The LayerNorms' f32 outputs are rounded to the compute type (x's
+    dtype) before the DSA and the MLP, as the JAX DSA and Dense cast their
+    input. At eval the DSA is B5's prologue-free instance
+    (`DSA.forward` with no LayerNorm affine, pos-embed or gamma); in train
+    mode `dsa_train` in that form, around K3/K4. `rng` and `salt` as in
+    TransformerBlock; the MLP's dropouts draw from `rng` too."""
+
+    def __init__(self, input_size: int, hidden_size: int, proj_size: int,
+                 num_heads: int = 4, dropout_rate: float = 0.0,
+                 pos_embed: bool = True, sa_type: str = "parallel",
+                 rng: Optional[DropoutRng] = None, salt: int = 0):
+        super().__init__()
+        rng = DropoutRng() if rng is None else rng
+        c = hidden_size
+        self.pos_embed = (nn.Parameter(torch.zeros(1, input_size, c))
+                          if pos_embed else None)
+        self.dsa = DSA(input_size, c, proj_size, num_heads, sa_type,
+                       dropout_rate, rng, salt)
+        self.ln1 = LayerNorm(c)
+        self.ln2 = LayerNorm(c)
+        self.mlp = MLPBlock(c, 4 * c, dropout_rate, rng)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        if self.pos_embed is not None:
+            with torch.no_grad():
+                self.pos_embed.zero_()
+        for m in (self.dsa, self.ln1, self.ln2, self.mlp):
+            m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, d, h, w, c = x.shape
+        tokens = x.reshape(b, d * h * w, c)
+        if self.pos_embed is not None:
+            if self.pos_embed.shape[1] != d * h * w:
+                raise ValueError(f"grid {(d, h, w)} does not match the "
+                                 f"{self.pos_embed.shape[1]}-token pos-embed")
+            tokens = tokens + self.pos_embed.to(x.dtype)
+        tokens = tokens + self.dsa(self.ln1(tokens).to(x.dtype))
+        tokens = tokens + self.mlp(self.ln2(tokens).to(x.dtype))
+        return tokens.reshape(b, d, h, w, c)
+
+
+class CrossAttentionBlock(nn.Module):
+    """`fcd_tpu/ops/attention.py::CrossAttentionBlock` (:487-530), the
+    cross attention of conv_blocks.py:151-208 (reference) between encoder
+    features x and decoder features y, both (B, D, H, W, C):
+
+        q = Dense(x), [k | v] = Dense(x) (2C), per head of C / h channels
+        kp, vp = k^T EF, v^T EF            (the learned N -> P projection)
+        A = dropout(softmax_p(l2norm_N(q)^T kp * temperature))
+        out = y + MLP(LN(A vp^T))
+
+    Only q is l2-normalised over the tokens. The JAX package runs this
+    block in XLA einsums with no Pallas kernel, so its port is plain
+    PyTorch (`torch.einsum`), in x's dtype; the softmax in f32. The
+    attention dropout and the MLP's draw from `rng` in train mode."""
+
+    def __init__(self, input_size: int, hidden_size: int, proj_size: int,
+                 num_heads: int = 4, qkv_bias: bool = False,
+                 drop_rate: float = 0.1, rng: Optional[DropoutRng] = None):
+        super().__init__()
+        if hidden_size % num_heads:
+            raise ValueError(f"{num_heads} heads do not divide {hidden_size}")
+        self.rng = DropoutRng() if rng is None else rng
+        self.num_heads, self.proj_size = num_heads, proj_size
+        self.drop_rate = drop_rate
+        c = hidden_size
+        self.q = Dense(c, c, use_bias=qkv_bias)
+        self.kv = Dense(c, 2 * c, use_bias=qkv_bias)
+        self.EF = nn.Parameter(torch.empty(input_size, proj_size))
+        self.temperature = nn.Parameter(torch.ones(num_heads, 1, 1))
+        self.ln = LayerNorm(c)
+        self.mlp = MLPBlock(c, 4 * c, drop_rate, self.rng)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for m in (self.q, self.kv, self.ln, self.mlp):
+            m.reset_parameters(generator)
+        lim = 1.0 / self.proj_size ** 0.5
+        with torch.no_grad():
+            self.EF.uniform_(-lim, lim, generator=generator)
+            self.temperature.fill_(1.0)
+
+    def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+        b, d, hh, w, c = x.shape
+        n, h = d * hh * w, self.num_heads
+        dtype = x.dtype
+        xs = x.reshape(b, n, c)
+        q = _norm_tokens(self.q(xs)).reshape(b, n, h, c // h)
+        kv = self.kv(xs).reshape(b, n, 2, h, c // h)
+        ef = self.EF.to(dtype)
+        kp = torch.einsum("bnhc,np->bhcp", kv[:, :, 0], ef)
+        vp = torch.einsum("bnhc,np->bhcp", kv[:, :, 1], ef)
+        s = torch.einsum("bnhc,bhcp->bhnp", q, kp) * self.temperature.to(dtype)
+        attn = torch.softmax(s.float(), dim=-1).to(dtype)
+        if self.training:
+            attn = dropout(attn, self.drop_rate, self.rng)
+        o = torch.einsum("bhnp,bhcp->bnhc", attn, vp).reshape(b, n, c)
+        out = y.reshape(b, n, c) + self.mlp(self.ln(o).to(dtype))
+        return out.reshape(b, d, hh, w, c)

@@ -1,5 +1,6 @@
-"""U-Net blocks: UnetResBlock, UnetrBasicBlock, UnetrUpBlock,
-GeneralUnetrUpBlock; and the transformers' MLPBlock.
+"""U-Net blocks: UnetResBlock, UnetBasicBlock, UnetrBasicBlock,
+UnetrUpBlock, GeneralUnetrUpBlock, the attention-gated AttentionBlock and
+AgUpBlock, DsaUpBlock; and the transformers' MLPBlock.
 
 Counterpart of `fcd_tpu/ops/blocks.py`, composed as
 `fcd_tpu/ops/s2d_ops.py::_fused_resblock_eval8` (:1005-1182) composes the
@@ -33,6 +34,16 @@ package runs it at f32 and f16: conv, norm, act, conv, norm, the projected short
 (`max_pool_2x_chain`) and the decoders' upsample as `conv_transpose3d`.
 That route launches none of B1, B2, B3, B4 and B15 and their backward
 kernels.
+
+`UnetBasicBlock` (conv-norm-act twice, no residual) runs the same
+composition with no shortcut: B1, B1 with the prologue, and B2's finale
+with its shortcut term zero (the block's own conv2 output as `rs`, scale
+and shift 0, so t = (y s2 + b2) + 0 exactly). The blocks that no factory
+model builds (ROADMAP A10: AttentionBlock, AgUpBlock, DsaUpBlock) upsample
+with `conv_transpose3d`, as the JAX blocks call the dense
+`lax.conv_transpose` there, not B4's s2d entry, and run their conv blocks
+and transformers through the kernels above; the attention gate's 1x1
+convs are plain PyTorch, as the JAX package leaves them to XLA.
 
 Under tensor parallelism (`parallel/tp.py::model_parallel` sets `tp`, the
 model's layout, on every module) a block's parameters are this rank's
@@ -75,6 +86,8 @@ from fcd_tpu_torch.kernels.pool2x import max_pool2x_op
 from fcd_tpu_torch.kernels.upsample import upsample2x_op
 from fcd_tpu_torch.ops.layers import (
     BatchNorm,
+    Conv3d,
+    ConvTranspose3d,
     Dense,
     DropoutRng,
     UpSample,
@@ -380,15 +393,95 @@ class UnetResBlock(nn.Module):
         return out, res
 
 
+class UnetBasicBlock(nn.Module):
+    """`fcd_tpu/ops/blocks.py::UnetBasicBlock` (:437-460): conv, norm,
+    act, conv, norm, act, with no residual path (k3 s1, no bias, leaky-ReLU
+    0.01, instance or batch norm). Parameters keep the flax layouts: conv1
+    (3, 3, 3, Cin, Cout), conv2 (3, 3, 3, Cout, Cout).
+
+    Kernel route (the module docstring): conv1 through B1 over the input
+    parts (one, or an up block's two, never concatenated) with its
+    statistics, conv2 through B1 with norm1's affine and the activation in
+    its prologue, and the last norm and act through B2 with a zero
+    shortcut (K1, K2 and B1's data gradient in training). Plain route:
+    library convs over the concatenated parts, `instance_norm` or
+    `BatchNorm`."""
+
+    plain_route = False
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 norm_name: str = "instance"):
+        super().__init__()
+        if norm_name not in ("instance", "batch"):
+            raise NotImplementedError(
+                f"norm {norm_name!r}: the port has instance and batch norm")
+        self.in_channels, self.out_channels = in_channels, out_channels
+        self.norm_name = norm_name
+        co = out_channels
+        self.conv1 = nn.Parameter(torch.empty(3, 3, 3, in_channels, co))
+        self.conv2 = nn.Parameter(torch.empty(3, 3, 3, co, co))
+        batch = norm_name == "batch"
+        self.norm1 = BatchNorm(co) if batch else None
+        self.norm2 = BatchNorm(co) if batch else None
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for w in (self.conv1, self.conv2):
+            kaiming_normal_fan_out_(w, generator)
+        for nm in (self.norm1, self.norm2):
+            if nm is not None:
+                nm.reset_parameters(generator)
+
+    _affine = UnetResBlock._affine
+
+    def forward(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """parts: 1 or 2 (B, D, H, W, Ci) tensors whose channel concat is
+        the block input."""
+        parts = list(parts)
+        widths = [p.shape[-1] for p in parts]
+        if sum(widths) != self.in_channels:
+            raise ValueError(f"parts {widths} do not sum to "
+                             f"{self.in_channels} input channels")
+        if self.plain_route:
+            x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+            out = _act(_norm(self.norm1, conv3d(x, self.conv1)))
+            return _act(_norm(self.norm2, conv3d(out, self.conv2)))
+        b = parts[0].shape[0]
+        n = parts[0].shape[1] * parts[0].shape[2] * parts[0].shape[3]
+        w1 = ([self.conv1] if len(parts) == 1
+              else list(torch.split(self.conv1, widths, dim=3)))
+        stats = self.norm_name == "instance" or self.training
+        o1 = conv3x3_op(parts, w1, want_stats=stats)
+        scale1, shift1 = self._affine(self.norm1, o1.ysum, o1.ysq, b, n)
+        o2 = conv3x3_op([o1.y], [self.conv2],
+                        prologue=(scale1, shift1, NEGATIVE_SLOPE),
+                        want_stats=stats)
+        scale2, shift2 = self._affine(self.norm2, o2.ysum, o2.ysq, b, n)
+        zero = torch.zeros_like(scale2)
+        return finale(o2.y, o2.y, scale2, shift2, zero, zero, NEGATIVE_SLOPE)
+
+
 class UnetrBasicBlock(UnetResBlock):
     """The res-or-basic selector of `fcd_tpu/ops/blocks.py` with
     res_block=True, instance norm and leaky-ReLU 0.01: the only form the
-    JAX factory's models build (MS_DSA_NET, BaseUNet, UNETR, SwinUNETR)."""
+    JAX factory's models build (MS_DSA_NET, BaseUNet, UNETR, SwinUNETR).
+    `unetr_basic_block` is the selector with both arms."""
+
+
+def unetr_basic_block(in_channels: int, out_channels: int,
+                      norm_name: str = "instance",
+                      res_block: bool = True) -> nn.Module:
+    """`fcd_tpu/ops/blocks.py::UnetrBasicBlock` (:463-493), both arms: an
+    `UnetrBasicBlock` (its flax tree's UnetResBlock_0), or with
+    res_block=False an `UnetBasicBlock` (its UnetBasicBlock_0)."""
+    if res_block:
+        return UnetrBasicBlock(in_channels, out_channels, norm_name)
+    return UnetBasicBlock(in_channels, out_channels, norm_name)
 
 
 class UnetrUpBlock(nn.Module):
     """Transposed-conv (k2 s2, no bias) upsample through B4, then the res
-    block over [upsampled, skip] (the concat is never materialised). On
+    block over [upsampled, skip] (the concat is never materialised); with
+    res_block=False the basic block (`fcd_tpu/ops/blocks.py:522`). On
     the plain route: `conv_transpose3d`, then the block's plain branch over
     the concatenation."""
 
@@ -396,11 +489,13 @@ class UnetrUpBlock(nn.Module):
     tp = None
     tp_splits = {"transp": ("col",)}
 
-    def __init__(self, in_channels: int, out_channels: int):
+    def __init__(self, in_channels: int, out_channels: int,
+                 res_block: bool = True):
         super().__init__()
         self.transp = nn.Parameter(torch.empty(2, 2, 2, in_channels,
                                                out_channels))
-        self.block = UnetResBlock(2 * out_channels, out_channels)
+        self.block = (UnetResBlock if res_block else UnetBasicBlock)(
+            2 * out_channels, out_channels)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         kaiming_normal_fan_out_(self.transp, generator)
@@ -421,6 +516,8 @@ class UnetrUpBlock(nn.Module):
             up = conv_transpose3d(x, self.transp)
         else:
             up = upsample2x_op(x, self.transp)
+        if head is None:
+            return self.block([up, skip])
         return self.block([up, skip], head=head)
 
 
@@ -430,14 +527,16 @@ class GeneralUnetrUpBlock(nn.Module):
     `UpSample` in `upsample_mode` (pixelshuffle, deconv or nontrainable),
     then the res block over [upsampled, skip] through B1 (the concat is
     never materialised). `fast`: the pixelshuffle conv through B1
-    (FCD_FAST_CONV=1)."""
+    (FCD_FAST_CONV=1). res_block=False: the basic block (:654)."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 upsample_mode: str = "pixelshuffle", fast: bool = False):
+                 upsample_mode: str = "pixelshuffle", fast: bool = False,
+                 res_block: bool = True):
         super().__init__()
         self.up = UpSample(in_channels, out_channels, upsample_mode,
                            use_bias=False, fast=fast)
-        self.block = UnetResBlock(2 * out_channels, out_channels)
+        self.block = (UnetResBlock if res_block else UnetBasicBlock)(
+            2 * out_channels, out_channels)
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.up.reset_parameters(generator)
@@ -445,6 +544,141 @@ class GeneralUnetrUpBlock(nn.Module):
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         return self.block([self.up(x).to(skip.dtype).contiguous(), skip])
+
+
+class AttentionBlock(nn.Module):
+    """`fcd_tpu/ops/blocks.py::AttentionBlock` (:666-683), the attention
+    gate of conv_blocks.py:838-894 (reference):
+
+        psi = sigmoid(BN_2(conv_2(relu(BN_0(conv_0(g)) + BN_1(conv_1(x))))))
+        out = x * psi
+
+    conv_0, conv_1: 1x1 to f_int channels (bias with use_bias), conv_2:
+    1x1 to one channel with a bias; `Conv3d` at k = 1 is `conv1x1`, in the
+    input's dtype. The JAX package runs these convs in XLA, so plain
+    PyTorch is the port. The norms are the port's `BatchNorm` (C7: biased
+    variance, momentum 0.9): the batch statistics in train mode, updating
+    the running ones; the running ones at eval."""
+
+    def __init__(self, g_channels: int, x_channels: int, f_int: int,
+                 use_bias: bool = False):
+        super().__init__()
+        self.conv_g = Conv3d(g_channels, f_int, 1, use_bias=use_bias)
+        self.norm_g = BatchNorm(f_int)
+        self.conv_x = Conv3d(x_channels, f_int, 1, use_bias=use_bias)
+        self.norm_x = BatchNorm(f_int)
+        self.conv_psi = Conv3d(f_int, 1, 1, use_bias=True)
+        self.norm_psi = BatchNorm(1)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for m in (self.conv_g, self.norm_g, self.conv_x, self.norm_x,
+                  self.conv_psi, self.norm_psi):
+            m.reset_parameters(generator)
+
+    def forward(self, g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        a = torch.relu(self.norm_g(self.conv_g(g))
+                       + self.norm_x(self.conv_x(x)))
+        return x * torch.sigmoid(self.norm_psi(self.conv_psi(a)))
+
+
+def _check_fuse(fuse: str, allowed, skip_c: int, out_channels: int):
+    if fuse not in allowed:
+        raise ValueError(f"fuse must be one of {allowed}, got {fuse!r}")
+    if fuse != "cat" and skip_c != out_channels:
+        raise ValueError(f"fuse {fuse!r} takes a skip of {out_channels} "
+                         f"channels, got {skip_c}")
+
+
+class AgUpBlock(nn.Module):
+    """`fcd_tpu/ops/blocks.py::AgUpBlock` (:686-721), the attention-gated
+    up block (conv_blocks.py:897-967): the k2 s2 transposed conv
+    (`ConvTranspose3d`, `conv_transpose3d`), the AttentionBlock (f_int = out
+    // 2) gating the skip by the upsampled tensor, `fuse` 'sum' (up + gated
+    skip) or 'cat' ([up, gated skip], never concatenated on the kernel
+    route), then UnetResBlock (B1 + B2) or, res_block=False,
+    UnetBasicBlock."""
+
+    def __init__(self, in_channels: int, out_channels: int,
+                 skip_channels: Optional[int] = None, fuse: str = "sum",
+                 res_block: bool = True, norm_name: str = "instance",
+                 use_bias: bool = False):
+        super().__init__()
+        skip_c = out_channels if skip_channels is None else skip_channels
+        _check_fuse(fuse, ("sum", "cat"), skip_c, out_channels)
+        self.fuse = fuse
+        self.transp = ConvTranspose3d(in_channels, out_channels, 2,
+                                      use_bias=use_bias)
+        self.attention = AttentionBlock(out_channels, skip_c,
+                                        out_channels // 2, use_bias)
+        cin = out_channels + (skip_c if fuse == "cat" else 0)
+        self.block = (UnetResBlock if res_block else UnetBasicBlock)(
+            cin, out_channels, norm_name)
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for m in (self.transp, self.attention, self.block):
+            m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        up = self.transp(x)
+        gated = self.attention(up, skip)
+        return self.block([up + gated] if self.fuse == "sum"
+                          else [up, gated])
+
+
+class DsaUpBlock(nn.Module):
+    """`fcd_tpu/ops/blocks.py::DsaUpBlock` (:724-773), conv_blocks.py:
+    524-605: the k2 s2 transposed conv (`ConvTranspose3d`, no bias), then
+    by `fuse`:
+    - 'cat': UnetResBlock over [up, skip] (B1 + B2, never concatenated),
+      then `depth` TransformerBlocks (B5's fused form at eval, pos-embed,
+      sa_type 'parallel');
+    - 'sum': the transformers on up + skip;
+    - 'cross': CrossAttentionBlock(skip, up).
+    `rng` is the dropout state the transformers share; transformer k salts
+    the spatial-attention hash with `salt + k`, as the models' layers
+    do."""
+
+    def __init__(self, in_channels: int, out_channels: int, input_size: int,
+                 fuse: str = "cat", proj_size: int = 64, num_heads: int = 4,
+                 drop_rate: float = 0.0, depth: int = 3,
+                 norm_name: str = "instance",
+                 skip_channels: Optional[int] = None,
+                 rng: Optional[DropoutRng] = None, salt: int = 0):
+        super().__init__()
+        from fcd_tpu_torch.ops.attention import (
+            CrossAttentionBlock,
+            TransformerBlock,
+        )
+
+        rng = DropoutRng() if rng is None else rng
+        skip_c = out_channels if skip_channels is None else skip_channels
+        _check_fuse(fuse, ("cat", "sum", "cross"), skip_c, out_channels)
+        self.fuse = fuse
+        c = out_channels
+        self.transp = ConvTranspose3d(in_channels, c, 2, use_bias=False)
+        self.block = (UnetResBlock(c + skip_c, c, norm_name)
+                      if fuse == "cat" else None)
+        self.cross = (CrossAttentionBlock(input_size, c, proj_size, num_heads,
+                                          drop_rate=drop_rate, rng=rng)
+                      if fuse == "cross" else None)
+        self.transformers = nn.ModuleList(
+            TransformerBlock(input_size, c, proj_size, num_heads, "parallel",
+                             drop_rate, rng, salt + k)
+            for k in range(0 if fuse == "cross" else depth))
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        for m in (self.transp, self.block, self.cross, *self.transformers):
+            if m is not None:
+                m.reset_parameters(generator)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        up = self.transp(x)
+        if self.cross is not None:
+            return self.cross(skip, up)
+        out = self.block([up, skip]) if self.block is not None else up + skip
+        for tb in self.transformers:
+            out = tb(out)
+        return out
 
 
 class MLPBlock(nn.Module):

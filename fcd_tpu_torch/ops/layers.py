@@ -15,7 +15,8 @@ initialisers the port's seeded weights follow. The MS_DSA_NET blocks'
 attention live in `fcd_tpu_torch/kernels/`.
 
 The zoo's plain convs are the ones the JAX package leaves to XLA at its
-defaults (`FCD_FAST_CONV=0`): here `F.conv3d` and `F.conv_transpose3d`.
+defaults (`FCD_FAST_CONV=0`): here `F.conv3d` and `F.conv_transpose3d`
+(on the CPU below f32, in f32 on the values, rounded once: `_library_conv`).
 With `fast=True` (the model built under `FCD_FAST_CONV=1`) a 3x3 stride-1
 `Conv3d` runs B1's kernel instead (`kernels/block_conv.py::conv3x3_op`,
 B14 by function), its bias added after.
@@ -483,6 +484,18 @@ def xavier_uniform_(t: torch.Tensor,
 
 # -- the model zoo's general layers (fcd_tpu/ops/layers.py:249-510) ------------
 
+def _library_conv(conv, x: torch.Tensor, w: torch.Tensor, **kw):
+    """`conv` (F.conv3d or F.conv_transpose3d) of channels-first x and w.
+    A CPU tensor below f32 is convolved in f32 on its values and the
+    result rounded once to its dtype, as the kernels' plain versions
+    compute (B1's `conv3x3_plain`): oneDNN's bf16 kernels on a CPU without
+    AMX return a wrong weight gradient where the grid is not larger than
+    the kernel's reach, as at UNet's 2^3 bottom (ROADMAP C24)."""
+    if x.device.type == "cpu" and x.dtype in (torch.bfloat16, torch.float16):
+        return conv(x.float(), w.float(), **kw).to(x.dtype)
+    return conv(x, w, **kw)
+
+
 def conv3d(x: torch.Tensor, kernel: torch.Tensor,
            bias: Optional[torch.Tensor] = None, stride: int = 1,
            fast: bool = False) -> torch.Tensor:
@@ -500,8 +513,8 @@ def conv3d(x: torch.Tensor, kernel: torch.Tensor,
     else:
         pad = int((k - stride + 1) / 2)
         w = kernel.to(x.dtype).permute(4, 3, 0, 1, 2)
-        out = F.conv3d(x.permute(0, 4, 1, 2, 3), w, stride=stride,
-                       padding=pad).permute(0, 2, 3, 4, 1)
+        out = _library_conv(F.conv3d, x.permute(0, 4, 1, 2, 3), w,
+                            stride=stride, padding=pad).permute(0, 2, 3, 4, 1)
     if bias is not None:
         out = out + bias.to(out.dtype)
     return out.contiguous()
@@ -590,8 +603,8 @@ def conv_transpose3d(x: torch.Tensor, kernel: torch.Tensor,
     k = kernel.shape[0]
     s = k if stride is None else int(stride)
     w = torch.flip(kernel.to(x.dtype), dims=(0, 1, 2)).permute(3, 4, 0, 1, 2)
-    out = F.conv_transpose3d(x.permute(0, 4, 1, 2, 3), w,
-                             stride=s).permute(0, 2, 3, 4, 1)
+    out = _library_conv(F.conv_transpose3d, x.permute(0, 4, 1, 2, 3), w,
+                        stride=s).permute(0, 2, 3, 4, 1)
     if k != s:
         o = _transpose_crop(k, s)
         d, h, wd = (n * s for n in x.shape[1:4])

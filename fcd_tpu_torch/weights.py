@@ -51,6 +51,19 @@ final_conv and the vae_* layers; its ResBlocks hold Conv3d_0 and Conv3d_1
 and, like its instance norms, nothing else. The zoo's `Conv3d` layers keep
 the flax (k, k, k, Cin, Cout) kernel, 1x1 ones included.
 
+The blocks no factory model builds (ROADMAP A10), each a lone module
+(`load_block_variables`, `export_block_variables`): UnetBasicBlock
+(Conv3d_0, Conv3d_1, BatchNorm_0..1 for batch norm; nested as
+UnetBasicBlock_0 where the JAX selectors' res_block=False arm builds it);
+AttentionBlock (Conv3d_0 and BatchNorm_0 on g, Conv3d_1 and BatchNorm_1
+on x, Conv3d_2 with its bias and BatchNorm_2 on psi); AgUpBlock
+(ConvTranspose3d_0, AttentionBlock_0, UnetResBlock_0 or
+UnetBasicBlock_0); TransformerBlockDSA (pos_embed, DSA_0, LayerNorm_0,
+LayerNorm_1, MLPBlock_0); CrossAttentionBlock (Dense_0 (q), Dense_1
+(kv), EF, temperature, LayerNorm_0, MLPBlock_0); DsaUpBlock
+(ConvTranspose3d_0, then UnetResBlock_0 ('cat') and TransformerBlock_0..
+depth-1 ('cat', 'sum'), or CrossAttentionBlock_0 ('cross')).
+
 `load_flax_variables` copies such a tree into a model;
 `export_flax_variables` is its inverse and `export_flax_grads` maps each
 parameter's `.grad` into the same tree, so tests compare the port's
@@ -76,16 +89,26 @@ from fcd_tpu_torch.models.unet import ResidualUnit, UNet
 from fcd_tpu_torch.models.unetr import UNETR, ViTBlock
 from fcd_tpu_torch.models.unetr_pp import UNETR_PP
 from fcd_tpu_torch.models.vnet import VNet
-from fcd_tpu_torch.ops.attention import TransformerBlock
+from fcd_tpu_torch.ops.attention import (
+    DSA,
+    CrossAttentionBlock,
+    TransformerBlock,
+    TransformerBlockDSA,
+)
 from fcd_tpu_torch.ops.blocks import (
+    AgUpBlock,
+    AttentionBlock,
+    DsaUpBlock,
     GeneralUnetrUpBlock,
     MLPBlock,
+    UnetBasicBlock,
     UnetResBlock,
     UnetrUpBlock,
 )
 from fcd_tpu_torch.ops.layers import (
     BatchNorm,
     Conv3d,
+    ConvTranspose3d,
     Dense,
     GroupNorm,
     LayerNorm,
@@ -114,13 +137,32 @@ def _resblock_entries(blk: UnetResBlock, path) -> Iterator[Entry]:
             yield "batch_stats", path + (name, "var"), nm.var, False
 
 
+def _basic_entries(blk: UnetBasicBlock, path) -> Iterator[Entry]:
+    """flax UnetBasicBlock: Conv3d_0, Conv3d_1 and, for batch norm,
+    BatchNorm_0..1."""
+    yield "params", path + ("Conv3d_0", "kernel"), blk.conv1, False
+    yield "params", path + ("Conv3d_1", "kernel"), blk.conv2, False
+    for i, nm in enumerate((blk.norm1, blk.norm2)):
+        if nm is not None:
+            yield from _batch_norm_entries(nm, path + (f"BatchNorm_{i}",))
+
+
+def _conv_block_entries(blk, path) -> Iterator[Entry]:
+    """A selector's conv block under the flax name of its class:
+    UnetResBlock_0, or UnetBasicBlock_0 (res_block=False)."""
+    if isinstance(blk, UnetBasicBlock):
+        yield from _basic_entries(blk, path + ("UnetBasicBlock_0",))
+    else:
+        yield from _resblock_entries(blk, path + ("UnetResBlock_0",))
+
+
 def _up_block_entries(up: UnetrUpBlock, path) -> Iterator[Entry]:
     if isinstance(up, GeneralUnetrUpBlock):
         yield from _upsample_entries(up.up, path + ("UpSample_0",))
     else:
         yield "params", path + ("ConvTranspose3d_0", "kernel"), up.transp, \
             False
-    yield from _resblock_entries(up.block, path + ("UnetResBlock_0",))
+    yield from _conv_block_entries(up.block, path)
 
 
 def _conv_entries(conv: Conv3d, path) -> Iterator[Entry]:
@@ -156,17 +198,21 @@ def _segres_block_entries(blk: ResBlock, path) -> Iterator[Entry]:
     yield "params", path + ("Conv3d_1", "kernel"), blk.conv2, False
 
 
+def _dsa_entries(dsa: DSA, path) -> Iterator[Entry]:
+    d = path + ("DSA_0",)
+    yield "params", d + ("qkvv",), dsa.qkvv, False
+    yield "params", d + ("temperature",), dsa.temperature, False
+    yield "params", d + ("temperature2",), dsa.temperature2, False
+    if dsa.EF is not None:   # sa_type 'channel' has none
+        yield "params", d + ("EF",), dsa.EF, False
+
+
 def _transformer_entries(tb: TransformerBlock, path) -> Iterator[Entry]:
     yield "params", path + ("pos_embed",), tb.pos_embed, False
     yield "params", path + ("gamma",), tb.gamma, False
     yield "params", path + ("LayerNorm_0", "scale"), tb.ln_scale, False
     yield "params", path + ("LayerNorm_0", "bias"), tb.ln_bias, False
-    d = path + ("DSA_0",)
-    yield "params", d + ("qkvv",), tb.dsa.qkvv, False
-    yield "params", d + ("temperature",), tb.dsa.temperature, False
-    yield "params", d + ("temperature2",), tb.dsa.temperature2, False
-    if tb.dsa.EF is not None:   # sa_type 'channel' has none
-        yield "params", d + ("EF",), tb.dsa.EF, False
+    yield from _dsa_entries(tb.dsa, path)
     yield from _resblock_entries(tb.conv_block, path + ("UnetResBlock_0",))
     yield "params", path + ("Conv3d_0", "kernel"), tb.conv8, True
     yield "params", path + ("Conv3d_0", "bias"), tb.conv8_bias, False
@@ -471,18 +517,88 @@ def export_flax_grads(model) -> Dict[str, Any]:
                    lambda t: t.grad).get("params", {})
 
 
+def _attention_block_entries(ab: AttentionBlock, path) -> Iterator[Entry]:
+    for i, (conv, nm) in enumerate(((ab.conv_g, ab.norm_g),
+                                    (ab.conv_x, ab.norm_x),
+                                    (ab.conv_psi, ab.norm_psi))):
+        yield from _conv_entries(conv, path + (f"Conv3d_{i}",))
+        yield from _batch_norm_entries(nm, path + (f"BatchNorm_{i}",))
+
+
+def _ag_up_entries(up: AgUpBlock, path) -> Iterator[Entry]:
+    yield from _conv_entries(up.transp, path + ("ConvTranspose3d_0",))
+    yield from _attention_block_entries(up.attention,
+                                        path + ("AttentionBlock_0",))
+    yield from _conv_block_entries(up.block, path)
+
+
+def _tb_dsa_entries(tb: TransformerBlockDSA, path) -> Iterator[Entry]:
+    if tb.pos_embed is not None:
+        yield "params", path + ("pos_embed",), tb.pos_embed, False
+    yield from _dsa_entries(tb.dsa, path)
+    yield from _layer_norm_entries(tb.ln1, path + ("LayerNorm_0",))
+    yield from _layer_norm_entries(tb.ln2, path + ("LayerNorm_1",))
+    yield from _mlp_entries(tb.mlp, path + ("MLPBlock_0",))
+
+
+def _cross_entries(ca: CrossAttentionBlock, path) -> Iterator[Entry]:
+    yield from _dense_entries(ca.q, path + ("Dense_0",))
+    yield from _dense_entries(ca.kv, path + ("Dense_1",))
+    yield "params", path + ("EF",), ca.EF, False
+    yield "params", path + ("temperature",), ca.temperature, False
+    yield from _layer_norm_entries(ca.ln, path + ("LayerNorm_0",))
+    yield from _mlp_entries(ca.mlp, path + ("MLPBlock_0",))
+
+
+def _dsa_up_entries(up: DsaUpBlock, path) -> Iterator[Entry]:
+    yield from _conv_entries(up.transp, path + ("ConvTranspose3d_0",))
+    if up.cross is not None:
+        yield from _cross_entries(up.cross, path + ("CrossAttentionBlock_0",))
+    if up.block is not None:
+        yield from _resblock_entries(up.block, path + ("UnetResBlock_0",))
+    for k, tb in enumerate(up.transformers):
+        yield from _transformer_entries(tb, path + (f"TransformerBlock_{k}",))
+
+
+# a lone block's table, the first class it is an instance of
+_BLOCK_TABLES = (
+    (TransformerBlock, _transformer_entries),
+    (TransformerBlockDSA, _tb_dsa_entries),
+    (CrossAttentionBlock, _cross_entries),
+    (DsaUpBlock, _dsa_up_entries),
+    (AgUpBlock, _ag_up_entries),
+    (AttentionBlock, _attention_block_entries),
+    (UnetrUpBlock, _up_block_entries),
+    (GeneralUnetrUpBlock, _up_block_entries),
+    (UnetBasicBlock, _basic_entries),
+    (UnetResBlock, _resblock_entries),
+)
+
+
 def _block_entries(module) -> Iterator[Entry]:
-    if isinstance(module, TransformerBlock):
-        return _transformer_entries(module, ())
-    return _resblock_entries(module, ())
+    for cls, table in _BLOCK_TABLES:
+        if isinstance(module, cls):
+            return table(module, ())
+    raise TypeError(f"no weight table for a lone {type(module).__name__}")
+
+
+def load_block_variables(module, variables: Tree) -> None:
+    """`load_flax_variables` for a lone block of `_BLOCK_TABLES`: the
+    variables tree of the JAX block's `init` ({"params"} and, with batch
+    norms, {"batch_stats"})."""
+    _load(_block_entries(module),
+          {"params": variables["params"],
+           "batch_stats": variables.get("batch_stats", {})})
 
 
 def export_block_variables(module) -> Dict[str, Any]:
-    """`export_flax_variables` for a lone UnetResBlock or TransformerBlock."""
+    """`export_flax_variables` for a lone block: a UnetResBlock,
+    UnetBasicBlock, the selectors and up blocks, a TransformerBlock, or one
+    of the A10 blocks (the module docstring)."""
     return _export(_block_entries(module), lambda t: t)
 
 
 def export_block_grads(module) -> Dict[str, Any]:
-    """`export_flax_grads` for a lone UnetResBlock or TransformerBlock."""
+    """`export_flax_grads` for a lone block (`export_block_variables`)."""
     return _export((e for e in _block_entries(module) if e[0] == "params"),
                    lambda t: t.grad).get("params", {})

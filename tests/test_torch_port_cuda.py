@@ -2025,3 +2025,115 @@ def test_f16_route_launches_no_bf16_kernel(dev):
         "spatial_attn_fwd_f16": 12, "spatial_attn_bwd_f16": 12}
     assert torch.isfinite(torch.tensor(loss))
     assert _rel(got, want) < 0.05
+
+
+# -- B5's prologue-free instance and the blocks no factory model builds
+# (ROADMAP A10) --------------------------------------------------------------
+
+_RAW_DTYPES = {"bf16": torch.bfloat16, "f16": torch.float16,
+               "f32": torch.float32}
+
+
+def _raw_counts(dk):
+    return [c.launches for c in (
+        dk.PHASE_A_RAW, dk.PHASE_B_RAW, dk.PHASE_A_RAW_F16, dk.PHASE_B_RAW_F16,
+        dk.PHASE_A_RAW_F32, dk.PHASE_B_RAW_F32, dk.dsa_phase_a,
+        dk.dsa_phase_b, dk.PHASE_A_F16, dk.PHASE_B_F16, dk.PHASE_A_F32,
+        dk.PHASE_B_F32)]
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f16", "f32"])
+@pytest.mark.parametrize("sa_type", ["parallel", "serial", "spatial",
+                                     "channel"])
+@pytest.mark.parametrize("n,c,p", [(4096, 64, 64), (70, 256, 32)])
+def test_dsa_prologue_free_kernels_match_plain(dev, n, c, p, sa_type, dtype):
+    """B5 with no LayerNorm affine, pos-embed or gamma (libdsa_raw,
+    libdsa_raw_f16, libdsa_f32_raw): phase A's sums, the finishing pass and
+    phase B against the plain versions (16-bit 2e-2, f32 F32_REL), two
+    calls bit-equal, the whole op against the f32 reference, counted on
+    the prologue-free counters alone."""
+    from fcd_tpu_torch.kernels import dsa_attention as dk
+
+    h, dt = 4, _RAW_DTYPES[dtype]
+    tol = F32_REL if dt == torch.float32 else 2e-2
+    gen = torch.Generator(device=dev).manual_seed(n + c + p)
+    x, w, ef, a = _f32_dsa_args(gen, dev, n, c, p, h, sa_type)
+    x = x.to(dt)
+    none = (None, None, None)
+    temps = (a["t1"], a["t2"])
+    mode = dict(sa_type=sa_type)
+    before = _raw_counts(dk)
+    ka = dk.dsa_phase_a(x, w, ef, *none, h, **mode)
+    wa = dk.dsa_phase_a_plain(x, w, ef, *none, h, **mode)
+    for name, g, w_ in zip(ka._fields, ka, wa):
+        if g.numel():
+            assert _rel(g, w_) < tol, name
+    glue = dk.dsa_phase_a(x, w, ef, *none, h, temperatures=temps, **mode)
+    for name, g, w_ in zip(glue._fields, glue, dk.dsa_glue(wa, *temps, h, dt)):
+        if g.numel():
+            assert g.dtype == w_.dtype and _rel(g, w_) < tol, name
+    for g, w_ in zip(glue, dk.dsa_phase_a(x, w, ef, *none, h,
+                                          temperatures=temps, **mode)):
+        assert torch.equal(g, w_)
+    got = dk.dsa_phase_b(x, w, *glue, None, *none, h, **mode)
+    assert got.dtype == dt
+    assert _rel(got, dk.dsa_phase_b_plain(x, w, *glue, None, *none, h,
+                                          **mode)) < tol
+    assert torch.equal(got, dk.dsa_phase_b(x, w, *glue, None, *none, h,
+                                           **mode))
+    args = (x, w, ef, *temps, *none, None, h)
+    assert _rel(dk.dsa_attention(*args, **mode),
+                dk.dsa_reference(*args, **mode)) < (
+        F32_REL if dt == torch.float32 else 5e-2)
+    k = {"bf16": 0, "f16": 2, "f32": 4}[dtype]
+    want = list(before)
+    want[k] += 4
+    want[k + 1] += 3
+    assert _raw_counts(dk) == want
+
+
+def test_dsa_prologue_free_is_three_device_launches(dev):
+    """One prologue-free dsa_attention call: one count on each of its
+    phase wrappers, the kernels of libdsa_raw, and no other device op."""
+    from fcd_tpu_torch.kernels import dsa_attention as dk
+
+    gen = torch.Generator(device=dev).manual_seed(5)
+    a = _dsa_inputs(gen, dev, 4096, 64, 64, 4)
+    args = (a["x"], a["w"], a["ef"], a["t1"], a["t2"], None, None, None,
+            None, 4)
+    _only_kernels(lambda: dk.dsa_attention(*args),
+                  [(dk.PHASE_A_RAW, 1), (dk.PHASE_B_RAW, 1)], "dsa_raw",
+                  DSA_KERNELS)
+
+
+@pytest.mark.parametrize("dtype", ["bf16", "f16", "f32"])
+def test_transformer_block_dsa_launches_the_prologue_free_instance(dev,
+                                                                   dtype):
+    """TransformerBlockDSA at eval on the card: one launch of each phase of
+    B5's prologue-free instance of the dtype and no other kernel (no
+    fused-form B5), its output near the f32 CPU forward (bf16 5e-2, f16
+    1e-2, f32 1e-4: chip_smoke's patch limits)."""
+    import copy
+
+    from chip_smoke import read_counts, reset_counts
+    from fcd_tpu_torch.ops.attention import TransformerBlockDSA
+
+    dt = _RAW_DTYPES[dtype]
+    torch.manual_seed(7)
+    tm = TransformerBlockDSA(4096, 64, 64, 4)
+    tm.reset_parameters(torch.Generator().manual_seed(7))
+    with torch.no_grad():
+        tm.pos_embed.normal_(0, 0.1)
+    tm.eval()
+    x = torch.randn(1, 16, 16, 16, 64)
+    with torch.no_grad():
+        want = tm(x)
+        card = copy.deepcopy(tm).to(dev)
+        xd = x.to(dev, dt)
+        card(xd)
+        reset_counts()
+        got = card(xd).float().cpu()
+    sfx = {"bf16": "", "f16": "_f16", "f32": "_f32"}[dtype]
+    assert {k: v for k, v in read_counts().items() if v} == {
+        f"dsa_phase_a_raw{sfx}": 1, f"dsa_phase_b_raw{sfx}": 1}
+    assert _rel(got, want) < {"bf16": 5e-2, "f16": 1e-2, "f32": 1e-4}[dtype]
